@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's device echo path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card: the device echo
+path (K1) and the FabricNet train step with ring attention (K3).
 
     python3 chip_smoke.py [--out FILE]
 
@@ -21,7 +22,22 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``make_echo_step`` step of 2^26 words; every response and error code is
    checked, and every kernel must have launched;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
-5. prints the kernels line (JSON), then the result line
+5. holds K3 (``attn_fold_fwd``, ``attn_bwd_delta``, ``attn_bwd_dkdv``,
+   ``attn_bwd_dq``) against its plain versions at the bench attention shape
+   (B 4, T 1024, H 2, D 1024; sp 1 and 4; bf16 and f32; causal and not) and
+   a small ragged one (B 2, T 48, H 4, D 16, sp 4), and ``ring_attention``
+   against ``full_attention`` on the card;
+6. runs one FabricNet train step (d_model 32, heads 2, two layers, f32) on
+   the card and on the CPU from the same numpy weights and compares them;
+7. drives the second main path with the launch counts set to zero: 10
+   FabricNet train steps at the ``bench_fabricnet`` width (bf16, one
+   microbatch) on the one-card mesh, whose loss must stay finite and fall,
+   with ms per step, FLOPs per step, TFLOP/s, peak memory and K3 launches;
+8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16)
+   with CUDA events beside its bound, its plain version and
+   ``scaled_dot_product_attention``, and breaks two train steps down by
+   kernel with torch.profiler (device busy and idle share);
+9. prints the kernels line (JSON), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX. It exits non-zero, with no result line, when
@@ -32,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -42,6 +59,15 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+F32_FLOPS_PER_S = 67e12  # outside the tensor cores: what K3's f32 FMAs run on
+BF16_TC_FLOPS_PER_S = 989e12
+
+K1 = ("frame_rows", "verify_rows", "echo_step_rows")
+K3 = ("attn_fold_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
+# bench.py bench_fabricnet: d_model 2048 over heads 2 -> D 1024, batch 4, seq 1024
+BENCH_ATTN = (4, 1024, 2, 1024)
+BENCH_FABRICNET = dict(d_model=2048, d_ff=8192, d_expert=2048, experts_per_rank=2,
+                       layers_per_stage=4, batch=4, seq=1024, microbatches=1)
 
 # (rows, payload words): the batches the main path hands the kernels —
 # endpoint buckets of 64, 8192 and 2^24 words and the 2^26-word echo step
@@ -52,6 +78,10 @@ REPLACES = {
     "frame_rows": "incubator_brpc_tpu/ops/framing.py:96",
     "verify_rows": "incubator_brpc_tpu/ops/framing.py:121",
     "echo_step_rows": "incubator_brpc_tpu/models/tensor_echo.py:42",
+    "attn_fold_fwd": "incubator_brpc_tpu/models/ring_attention.py:35",
+    "attn_bwd_delta": "incubator_brpc_tpu/models/ring_attention.py:48",
+    "attn_bwd_dkdv": "incubator_brpc_tpu/models/ring_attention.py:48",
+    "attn_bwd_dq": "incubator_brpc_tpu/models/ring_attention.py:48",
 }
 KINDS = ("valid", "bad_magic", "bad_length", "flipped_word", "unknown_method")
 
@@ -96,7 +126,7 @@ class Phase2:
         self.torch, self.k, self.dev = torch, kernels, dev
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(20261017)
-        self.max_err = dict.fromkeys(kernels.KERNELS, 0)
+        self.max_err = dict.fromkeys(K1, 0)
         self.timings = {}
 
     def words(self, shape):
@@ -260,6 +290,296 @@ def run_calls(ep, n_threads, per_thread, nbytes, mid_of, rng_seed):
     return len(lat) / wall, 1e6 * sum(lat) / len(lat)
 
 
+# -- K3 and the FabricNet train step (phases 5-8) -----------------------------
+
+
+def k3_tolerances(torch):
+    """|kernel - plain| <= tol * max(1, max |plain|). f32 results: 2e-5 (the
+    same f32 arithmetic, sums in another order); results in bf16: 2^-7, one
+    rounding of the f32 result to bf16 on either side."""
+    return {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def err_within(torch, name, got, want, tol, errs):
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    errs[name] = max(errs.get(name, 0.0), err)
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max abs err {err} > {tol} x {scale}")
+    return f"{name} {err:.3g} (tol {tol * scale:.3g})"
+
+
+def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
+    """K3 forward and backward against the plain versions on the same inputs."""
+    b, t, h, d, sp = shape
+    q, k, v, dout = (torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+                     for _ in range(4))
+    tol = k3_tolerances(torch)
+    f32 = tol[torch.float32]
+    out, lse, (m, l, o) = attention.forward(q, k, v, sp=sp, causal=causal)
+    state = None
+    for hop in range(sp):
+        state = attention.fold_plain(q, k, v, state, hop=hop, sp=sp, causal=causal)
+    want_out, want_lse = attention.finalize_plain(state, dtype)
+    delta = attention.row_dot(out, dout)
+    want_delta = attention.row_dot_plain(out, dout)
+    dk, dv = attention.dkdv(q, k, v, dout, lse, delta, sp=sp, causal=causal)
+    dq = attention.dq(q, k, v, dout, lse, delta, sp=sp, causal=causal)
+    want_dk, want_dv = attention.dkdv_plain(q, k, v, dout, lse, want_delta, sp=sp, causal=causal)
+    want_dq = attention.dq_plain(q, k, v, dout, lse, want_delta, sp=sp, causal=causal)
+    torch.cuda.synchronize()
+    parts = [
+        err_within(torch, "out", out, want_out, tol[dtype], errs["attn_fold_fwd"]),
+        err_within(torch, "m", m, state[0], f32, errs["attn_fold_fwd"]),
+        err_within(torch, "l", l, state[1], f32, errs["attn_fold_fwd"]),
+        err_within(torch, "o", o, state[2], f32, errs["attn_fold_fwd"]),
+        err_within(torch, "lse", lse, want_lse, f32, errs["attn_fold_fwd"]),
+        err_within(torch, "delta", delta, want_delta, f32, errs["attn_bwd_delta"]),
+        err_within(torch, "dk", dk, want_dk, tol[dtype], errs["attn_bwd_dkdv"]),
+        err_within(torch, "dv", dv, want_dv, tol[dtype], errs["attn_bwd_dkdv"]),
+        err_within(torch, "dq", dq, want_dq, tol[dtype], errs["attn_bwd_dq"]),
+    ]
+    log(f"phase5 K3 B={b} T={t} H={h} D={d} sp={sp} {str(dtype)[6:]} "
+        f"{'causal' if causal else 'full'}: " + "; ".join(parts))
+
+
+def k3_bounds(flops, nbytes):
+    """(bound ms, what bounds it, tensor-core bound ms): ops over the f32 CUDA
+    cores' peak (the arithmetic K3 does) or bytes over HBM, the larger."""
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, flops / BF16_TC_FLOPS_PER_S * 1e3
+
+
+def k3_timings(torch, attention, gen, dev, sp):
+    """CUDA-event times at the bench attention shape, bf16, causal."""
+    import torch.nn.functional as F
+
+    b, t, h, d = BENCH_ATTN
+    n = b * t * h * d
+    q, k, v, dout = (torch.randn(BENCH_ATTN, generator=gen, device=dev).to(torch.bfloat16)
+                     for _ in range(4))
+    out, lse, _ = attention.forward(q, k, v, sp=sp, causal=True)
+    delta = attention.row_dot(out, dout)
+    stats = 4 * b * h * t  # one f32 (B, H, T) statistic
+
+    def plain_fwd():
+        st = None
+        for hop in range(sp):
+            st = attention.fold_plain(q, k, v, st, hop=hop, sp=sp, causal=True)
+        return attention.finalize_plain(st, q.dtype)
+
+    flops = {p: attention.attention_flops(b, t, h, d, causal=True, products=p) for p in (2, 3, 4)}
+    cases = {
+        # name: (kernel, plain, flops, bytes: inputs read once, outputs written once)
+        "attn_fold_fwd": (lambda: attention.forward(q, k, v, sp=sp, causal=True), plain_fwd,
+                          flops[2], 3 * 2 * n + 2 * n + 4 * n + 3 * stats),
+        "attn_bwd_delta": (lambda: attention.row_dot(out, dout),
+                           lambda: attention.row_dot_plain(out, dout), 2 * n, 2 * 2 * n + stats),
+        "attn_bwd_dkdv": (lambda: attention.dkdv(q, k, v, dout, lse, delta, sp=sp, causal=True),
+                          lambda: attention.dkdv_plain(q, k, v, dout, lse, delta, sp=sp, causal=True),
+                          flops[4], 4 * 2 * n + 2 * stats + 2 * 2 * n),
+        "attn_bwd_dq": (lambda: attention.dq(q, k, v, dout, lse, delta, sp=sp, causal=True),
+                        lambda: attention.dq_plain(q, k, v, dout, lse, delta, sp=sp, causal=True),
+                        flops[3], 4 * 2 * n + 2 * stats + 2 * n),
+    }
+    res = {}
+    for name, (kern, plain, fl, nbytes) in cases.items():
+        bound, by, tc = k3_bounds(fl, nbytes)
+        res[name] = {"ms": time_ms(torch, kern, 10), "plain_ms": time_ms(torch, plain, 3, warmup=1),
+                     "bound_ms": bound, "bound_by": by, "tensor_core_bound_ms": tc,
+                     "flops": fl, "bytes": nbytes}
+    res["backward"] = {"ms": time_ms(torch, lambda: attention.backward(
+        q, k, v, out, dout, lse, sp=sp, causal=True), 10)}
+    # the yardstick the port never calls: one PyTorch call, (B, H, T, D)
+    qt, kt, vt, dt = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(dt)
+
+    res["sdpa_fwd_ms"] = time_ms(torch, sdpa, 10)
+    res["sdpa_fwd_bwd_ms"] = time_ms(torch, sdpa_fwd_bwd, 10)
+    parts = [f"{name} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+             f"{100 * r['bound_ms'] / r['ms']:.1f} %; tensor-core bound {r['tensor_core_bound_ms']:.4f}; "
+             f"plain {r['plain_ms']:.4f})" for name, r in res.items() if name in K3]
+    log(f"phase8 K3 timings B={b} T={t} H={h} D={d} bf16 causal sp={sp} "
+        f"({sp if sp > 1 else 1} fold launches): " + "; ".join(parts)
+        + f"; backward (3 kernels) {res['backward']['ms']:.4f} ms; "
+        f"scaled_dot_product_attention fwd {res['sdpa_fwd_ms']:.4f} ms, "
+        f"fwd+bwd {res['sdpa_fwd_bwd_ms']:.4f} ms")
+    return res
+
+
+def fabricnet_small_card_vs_cpu(torch, fabricnet, dev):
+    """One fused train step on the card (kernels) and on the CPU (plain
+    versions) from the same numpy weights and batch."""
+    import numpy as np
+
+    cfg = fabricnet.FabricNetConfig(d_model=32, d_ff=64, d_expert=32, layers_per_stage=2,
+                                    batch=4, seq=32, microbatches=2, heads=2)
+    rng = np.random.default_rng(20261017)
+    shapes = fabricnet.param_shapes(cfg, fabricnet.make_fabric_mesh(1, device="cpu"))
+    arrays = {k: (rng.standard_normal(shape) * scale).astype(np.float32)
+              for k, (shape, scale) in shapes.items()}
+    x, y = (rng.standard_normal((cfg.batch, cfg.seq, cfg.d_model)).astype(np.float32)
+            for _ in range(2))
+    got = {}
+    for where in ("cpu", dev):
+        params = fabricnet.params_from_numpy(arrays, cfg, where)
+        step = fabricnet.make_train_step(cfg, device=where)
+        params, loss = step(params, torch.from_numpy(x).to(where), torch.from_numpy(y).to(where))
+        got[str(where)] = (float(loss), {k: p.cpu() for k, p in params.items()})
+    (loss_cpu, p_cpu), (loss_card, p_card) = got["cpu"], got[str(dev)]
+    # f32 on both sides; cuBLAS and the CPU sum in other orders
+    if abs(loss_card - loss_cpu) > 1e-5 * abs(loss_cpu):
+        raise AssertionError(f"FabricNet loss: card {loss_card}, cpu {loss_cpu}")
+    worst = max(float((p_card[k] - p_cpu[k]).abs().max()) / float(p_cpu[k].abs().max())
+                for k in p_cpu)
+    if worst > 1e-5:
+        raise AssertionError(f"FabricNet params: card and cpu differ by {worst} (relative)")
+    log(f"phase6 FabricNet d_model 32, heads 2, two layers, f32, one train step: loss card "
+        f"{loss_card} cpu {loss_cpu}; params differ by at most {worst:.3g} of their largest "
+        f"value (tol 1e-5)")
+
+
+def fabricnet_main_path(torch, fabricnet, kernels, dev):
+    """The second main path: 10 train steps at the bench_fabricnet width."""
+    cfg = fabricnet.FabricNetConfig(dtype=torch.bfloat16, **BENCH_FABRICNET)
+    mesh = fabricnet.make_fabric_mesh(1)
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(0)
+    params = fabricnet.init_params(cfg, mesh, generator=gen)
+    x, y = fabricnet.make_batch(cfg, mesh, generator=gen)
+    step = fabricnet.make_train_step(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, warmup, nsteps = [], 2, 10
+    for i in range(nsteps):
+        if i == warmup:
+            t0 = time.perf_counter()
+        params, loss = step(params, x, y)
+        losses.append(float(loss))  # synchronizes
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (nsteps - warmup) * 1e3
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"FabricNet losses not finite and falling: {losses}")
+    missing = [name for name in K3 if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the FabricNet path: {missing}")
+    flops = fabricnet.train_step_flops(cfg)
+    tflops = flops / ms * 1e-9
+    log(f"phase7 FabricNet at the bench_fabricnet width ({BENCH_FABRICNET}, heads {cfg.heads}, "
+        f"bf16), {nsteps} train steps: losses {losses}")
+    log(f"phase7 {ms:.3f} ms/step (host clock, steps {warmup + 1}-{nsteps}); "
+        f"{flops / 1e12:.4f} TFLOP/step (3 x forward, attention without the causal skip); "
+        f"{tflops:.2f} TFLOP/s = {100 * tflops / 989:.2f} % of 989 TFLOP/s bf16; "
+        f"peak memory {peak} B ({peak / 2**30:.3f} GiB); launches {launches}; "
+        f"K3 launches per step {[launches[n] / nsteps for n in K3]}")
+    return {"ms_per_step": ms, "flops_per_step": flops, "tflops": tflops, "losses": losses,
+            "peak_bytes": peak, "launches": launches, "nsteps": nsteps}, (step, params, x, y)
+
+
+def profile_steps(torch, train):
+    """torch.profiler over two train steps: device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, params, x, y = train
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            params, loss = step(params, x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
+        e, "self_cuda_time_total", 0)
+    total = sum(dev_us(e) for e in kern)
+    if not total:
+        log("phase8 profile: the profiler saw no device time (not measured)")
+        return None
+    groups = {}
+    for e in kern:
+        name = e.key
+        g = ("K3" if "attn_" in name else
+             "matmul" if any(s in name.lower() for s in ("gemm", "nvjet", "xmma", "cutlass")) else
+             "other")
+        groups[g] = groups.get(g, 0.0) + dev_us(e)
+    top = sorted(kern, key=dev_us, reverse=True)[:12]
+    log(f"phase8 profile of 2 train steps: wall {wall_us:.1f} us, device busy {total:.1f} us "
+        f"({100 * total / wall_us:.1f} %, idle {100 - 100 * total / wall_us:.1f} %); by group "
+        + ", ".join(f"{g} {v:.1f} us ({100 * v / total:.1f} %)" for g, v in sorted(groups.items())))
+    for e in top:
+        log(f"  {dev_us(e):12.1f} us  x{e.count:<4d} {e.key[:110]}")
+    return {"wall_us": wall_us, "device_us": total, "groups": groups}
+
+
+def run_k3_phases(torch, kernels, dev):
+    from incubator_brpc_tpu_torch.models import fabricnet, ring_attention
+    from incubator_brpc_tpu_torch.ops import attention
+
+    # the plain versions' einsums in full f32, as the kernels compute
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1017)
+    errs = {name: {} for name in K3}
+
+    # -- phase 5: K3 against its plain versions, and the ring against full ---
+    shapes = [BENCH_ATTN + (1,), BENCH_ATTN + (4,), (2, 48, 4, 16, 4)]
+    for shape in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                k3_case(torch, attention, gen, dev, shape, dtype, causal, errs)
+    for (b, t, h, d, sp), dtype, tol in ((BENCH_ATTN + (4,), torch.bfloat16, 0.05),
+                                          ((2, 48, 4, 16, 4), torch.float32, 2e-5)):
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        step, place = ring_attention.make_ring_attention_step(sp)
+        got = step(place(q), place(k), place(v))
+        want = ring_attention.full_attention(q, k, v)
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != dtype or not err <= tol:
+            raise AssertionError(f"ring_attention vs full_attention: {got.dtype}, err {err}")
+        log(f"phase5 ring_attention vs full_attention on the card, B={b} T={t} H={h} D={d} "
+            f"sp={sp} {str(dtype)[6:]}: max abs err {err:.3g} (tol {tol})")
+    max_err = {name: max(e.values()) for name, e in errs.items()}
+    log(f"phase5 K3 max_abs_err {max_err}")
+
+    # -- phase 6: FabricNet on the card against the port on the CPU -----------
+    fabricnet_small_card_vs_cpu(torch, fabricnet, dev)
+
+    # -- phase 7: the FabricNet main path, counted ------------------------------
+    fab, train = fabricnet_main_path(torch, fabricnet, kernels, dev)
+
+    # -- phase 8: K3 timings --------------------------------------------------
+    timings = {sp: k3_timings(torch, attention, gen, dev, sp) for sp in (1, 4)}
+    fab["profile"] = profile_steps(torch, train)
+    main = timings[1]  # FabricNet's sp = 1
+    line = {}
+    for name in K3:
+        r = main[name]
+        line[name] = {
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": main["sdpa_fwd_ms"] if name == "attn_fold_fwd" else None,
+            "tensor_core_bound_ms": r["tensor_core_bound_ms"],
+            "shape": list(BENCH_ATTN), "sp": 1, "dtype": "bfloat16",
+        }
+        if name != "attn_fold_fwd":
+            line[name]["backward_ms"] = main["backward"]["ms"]
+            line[name]["sdpa_backward_ms"] = main["sdpa_fwd_bwd_ms"] - main["sdpa_fwd_ms"]
+    return {"launches": fab["launches"], "max_err": max_err, "line": line,
+            "detail": {f"sp{sp}": t for sp, t in timings.items()}, "fabricnet": fab}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the detailed timings to this JSON file")
@@ -346,7 +666,7 @@ def main() -> int:
         raise AssertionError("make_echo_step 2^26: payload not echoed")
     launches = kernels.launch_counts()
     log(f"phase3 launches on the main path: {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in K1 if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
@@ -363,9 +683,12 @@ def main() -> int:
             f"{nbytes / ms / 1e6:.3f} GB/s; copy_ of the same bytes {copy_ms * 1e3:.3f} us, "
             f"{nbytes / copy_ms / 1e6:.3f} GB/s")
 
-    # -- phase 5: the kernels line, then the result line -----------------------
+    # -- phases 5-8: K3 and the FabricNet train step --------------------------
+    k3 = run_k3_phases(torch, kernels, dev)
+
+    # -- phase 9: the kernels line, then the result line -----------------------
     line = []
-    for name in kernels.KERNELS:
+    for name in K1:
         rows, words = REPORT_AT[name]
         t = p2.timings[(name, rows, words)]
         line.append({
@@ -376,10 +699,18 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "copy_ms": t["copy_ms"], "shape": [rows, words],
         })
+    for name in K3:
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "incubator_brpc_tpu_torch/csrc/attention.cu",
+            "replaces": REPLACES[name], "launches": k3["launches"][name],
+            "max_abs_err": k3["max_err"][name], **k3["line"][name],
+        })
     if opts.out:
         detail = [dict(kernel=n, rows=r, words=w, **t) for (n, r, w), t in p2.timings.items()]
         with open(opts.out, "w") as f:
-            json.dump({"card": card, "timings": detail, "launches": launches}, f, indent=1)
+            json.dump({"card": card, "timings": detail, "launches": launches,
+                       "k3": k3["detail"], "fabricnet": k3["fabricnet"]}, f, indent=1)
     log(card)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

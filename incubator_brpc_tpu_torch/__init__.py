@@ -10,8 +10,11 @@ thread) are its own copies.
 Modules mirror the reference package's layout so each counterpart is easy to
 find: ``ops/framing.py`` (frames in device memory), ``ops/kernels.py`` and
 ``csrc/framing.cu`` (the kernels), ``models/tensor_echo.py`` (the fused echo
-step), ``runtime/device_butex.py`` (completion wake-ups on CUDA events) and
-``transport/device.py`` (``DeviceEndpoint``).
+step), ``runtime/device_butex.py`` (completion wake-ups on CUDA events),
+``transport/device.py`` (``DeviceEndpoint``), and the training path:
+``ops/attention.py`` with ``csrc/attention.cu`` (K3, the ring-attention
+fold and its gradient), ``models/ring_attention.py``,
+``parallel/mesh.py`` (the one-card fabric mesh) and ``models/fabricnet.py``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise (:func:`resolve_device`).
@@ -28,6 +31,7 @@ _LAZY_SUBMODULES = (
     "models",
     "transport",
     "runtime",
+    "parallel",
 )
 
 

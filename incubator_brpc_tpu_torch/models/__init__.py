@@ -1,1 +1,2 @@
-"""models — device-resident services: the tensor echo step."""
+"""models — device-resident services and workloads: the tensor echo step,
+ring attention and FabricNet."""

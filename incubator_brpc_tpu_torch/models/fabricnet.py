@@ -1,0 +1,315 @@
+"""FabricNet — the flagship training workload of the fabric, on one card;
+the counterpart of ``incubator_brpc_tpu/models/fabricnet.py``.
+
+The JAX package ``shard_map``s one training step over the five fabric axes
+(dp/ep data fan-out and gradient merge, a tp Megatron MLP, a pp GPipe ring,
+the sp sequence ring, an ep expert exchange). This slice runs it on the
+one-device mesh, where every axis is 1:
+
+- ``psum``, ``pmean``, ``all_to_all`` and ``ppermute`` are identities;
+- the GPipe ``_pipeline`` is a loop over the microbatches;
+- the sp block is ring attention with ``sp = 1`` (one K3 forward launch per
+  microbatch and its K3 backward), or, with ``heads = 0``, the ring mean,
+  which on one rank is the mean over the sequence;
+- the MoE routes token ``r`` to local expert ``r % e_local``, exactly as
+  ``_moe`` does (``reshape(t // e_local, e_local, d).swapaxes(0, 1)``).
+
+Parameters are a plain dict with JAX's names and shapes, each with the
+leading ``pp`` dimension: ``w_in``, ``w_out``, ``moe_w1``, ``moe_w2``,
+``gate``, ``head``, and with heads ``wqkv`` and ``wo``. The einsums go to
+``torch.matmul`` (cuBLAS on the card), as the JAX package left them to XLA;
+the norms, activations, gate, loss and SGD update are PyTorch elementwise
+ops. The ``"fused"`` train step updates the parameters **in place** (under
+``torch.no_grad``), ``p - lr * g`` in the parameters' dtype, and returns the
+same dict with the loss. The ``"serialized"`` and ``"overlapped"``
+schedules overlap gradient collectives across ranks, and FabricNet on a mesh
+with an axis above 1 is a later slice (ROADMAP slice 4).
+
+Entry points run on the card unless the mesh (or ``device``) says ``cpu``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from incubator_brpc_tpu_torch.models.ring_attention import ring_attention
+from incubator_brpc_tpu_torch.parallel.mesh import FABRIC_AXES, FabricMesh, make_fabric_mesh
+from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
+
+SCHEDULES = ("fused", "serialized", "overlapped")
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricNetConfig:
+    d_model: int = 32
+    d_ff: int = 64
+    d_expert: int = 32
+    experts_per_rank: int = 2
+    layers_per_stage: int = 1
+    batch: int = 8
+    seq: int = 16
+    microbatches: int = 2
+    heads: int = 2  # ring-attention heads; 0 = ring-mean context instead
+    lr: float = 1e-2
+    dtype: torch.dtype = torch.float32
+
+
+def param_shapes(cfg: FabricNetConfig, mesh: FabricMesh) -> Dict[str, Tuple[Tuple[int, ...], float]]:
+    """Name -> (shape, init scale), in the JAX package's order."""
+    pp, ep = mesh.shape["pp"], mesh.shape["ep"]
+    d, f, fe = cfg.d_model, cfg.d_ff, cfg.d_expert
+    L = cfg.layers_per_stage
+    E = cfg.experts_per_rank * ep
+    shapes = {
+        "w_in": ((pp, L, d, f), 1.0 / np.sqrt(d)),
+        "w_out": ((pp, L, f, d), 1.0 / np.sqrt(f)),
+        "moe_w1": ((pp, E, d, fe), 1.0 / np.sqrt(d)),
+        "moe_w2": ((pp, E, fe, d), 1.0 / np.sqrt(fe)),
+        "gate": ((pp, d, 1), 1.0 / np.sqrt(d)),
+        "head": ((d, d), 1.0 / np.sqrt(d)),
+    }
+    if cfg.heads:
+        shapes["wqkv"] = ((pp, 3, d, d), 1.0 / np.sqrt(d))
+        shapes["wo"] = ((pp, d, d), 1.0 / np.sqrt(d))
+    return shapes
+
+
+def init_params(
+    cfg: FabricNetConfig,
+    mesh: FabricMesh,
+    generator: Optional[torch.Generator] = None,
+    seed: int = 0,
+) -> Params:
+    """Normal weights times ``1/sqrt(fan_in)``, multiplied in the config's
+    dtype, made on the mesh's device from ``generator`` (or ``seed``). The
+    numbers are not the JAX package's: parity tests carry its weights
+    across with :func:`params_from_numpy`."""
+    if generator is None:
+        generator = torch.Generator(device=mesh.device)
+        generator.manual_seed(seed)
+    out = {}
+    for name, (shape, scale) in param_shapes(cfg, mesh).items():
+        w = torch.randn(shape, generator=generator, dtype=cfg.dtype, device=mesh.device)
+        out[name] = w * torch.tensor(scale, dtype=cfg.dtype, device=mesh.device)
+    return out
+
+
+def params_from_numpy(
+    arrays: Mapping[str, np.ndarray], cfg: FabricNetConfig, device: DeviceLike = None
+) -> Params:
+    """The JAX parameter dict as numpy arrays (``np.asarray(jax_array)``) ->
+    the port's parameters in the config's dtype. numpy has no bfloat16, so
+    values pass through float32, which holds every bfloat16 exactly."""
+    dev = resolve_device(device)
+    want = ("w_in", "w_out", "moe_w1", "moe_w2", "gate", "head") + (
+        ("wqkv", "wo") if cfg.heads else ()
+    )
+    if set(arrays) != set(want):
+        raise ValueError(f"parameter names {sorted(arrays)}; want {sorted(want)}")
+    return {
+        name: torch.from_numpy(np.asarray(arrays[name], dtype=np.float32).copy()).to(
+            device=dev, dtype=cfg.dtype
+        )
+        for name in want
+    }
+
+
+# -- the model -------------------------------------------------------------------
+
+
+def _rms_norm(x: torch.Tensor) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + 1e-6)`` in JAX's order: the square in x's
+    dtype, the mean summed and divided in float32 and rounded to x's dtype,
+    then the ``+ 1e-6`` and ``rsqrt`` in x's dtype."""
+    ms = (x * x).mean(dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+    return x * torch.rsqrt(ms + 1e-6)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form, its default) in float32, cast back."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def _mlp(w_in_l, w_out_l, x):
+    """The Megatron MLP of ``_mlp_tp``; with tp = 1 the ``psum`` is the identity."""
+    return _gelu(x @ w_in_l) @ w_out_l
+
+
+def _ring_context(x: torch.Tensor) -> torch.Tensor:
+    """``heads = 0``: the ring mean of the per-shard sequence means; on one
+    rank, the sequence mean."""
+    return x.mean(dim=1, dtype=torch.float32).to(x.dtype)[:, None, :]
+
+
+def _moe(moe_w1, moe_w2, gate_w, x):
+    """Static round-robin MoE with ep = 1: the ``all_to_all``s are
+    identities and token ``r`` goes to local expert ``r % e_local``."""
+    e_local = moe_w1.shape[0]
+    mb, sl, d = x.shape
+    t = mb * sl
+    tokens = x.reshape(t, d)
+    g = torch.sigmoid(tokens @ gate_w)  # (t, 1)
+    xr = tokens.reshape(t // e_local, e_local, d).transpose(0, 1)  # (e_local, t/e_local, d)
+    h = _gelu(torch.bmm(xr, moe_w1))
+    yr = torch.bmm(h, moe_w2)
+    routed_out = yr.transpose(0, 1).reshape(t, d)
+    return (routed_out * g).reshape(mb, sl, d)
+
+
+def _ring_attn_block(wqkv, wo, heads: int, x):
+    """Causal ring attention (sp = 1) with the stage's projections."""
+    mb, sl, d = x.shape
+    q, k, v = ((x @ wqkv[j]).reshape(mb, sl, heads, d // heads) for j in range(3))
+    out = ring_attention(q, k, v, sp=1, causal=True)
+    return out.reshape(mb, sl, d) @ wo
+
+
+def _stage_fn(sp_params: Params, heads: int, x):
+    """One pipeline stage: L residual MLP layers, the sequence block (ring
+    attention, or the ring mean when heads = 0), and the MoE block."""
+    for l in range(sp_params["w_in"].shape[0]):
+        x = x + _mlp(sp_params["w_in"][l], sp_params["w_out"][l], _rms_norm(x))
+    if heads:
+        x = x + _ring_attn_block(sp_params["wqkv"], sp_params["wo"], heads, _rms_norm(x))
+    else:
+        x = x + _ring_context(x)
+    return x + _moe(sp_params["moe_w1"], sp_params["moe_w2"], sp_params["gate"], _rms_norm(x))
+
+
+def _local_forward(cfg: FabricNetConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The forward of the one rank: contiguous row microbatches
+    (``x.reshape(m, bl // m, sl, d)``) through the stage in order (GPipe
+    with pp = 1), then the head."""
+    stage = {k: params[k][0] for k in ("w_in", "w_out", "moe_w1", "moe_w2", "gate")}
+    if cfg.heads:
+        stage["wqkv"] = params["wqkv"][0]
+        stage["wo"] = params["wo"][0]
+    bl, sl, d = x.shape
+    m = cfg.microbatches
+    xs = x.reshape(m, bl // m, sl, d)
+    outs = torch.stack([_stage_fn(stage, cfg.heads, xs[i]) for i in range(m)])
+    return outs.reshape(bl, sl, d) @ params["head"]
+
+
+def _local_loss(cfg: FabricNetConfig, params: Params, x, y) -> torch.Tensor:
+    """``mean((out - y)^2)``, summed in float32 and rounded to the model's
+    dtype as ``jnp.mean`` does; the ``pmean`` over size-1 axes is the identity."""
+    out = _local_forward(cfg, params, x)
+    return (out - y).square().mean(dtype=torch.float32).to(out.dtype)
+
+
+# -- entry points ----------------------------------------------------------------
+
+
+def _mesh(mesh: Optional[FabricMesh], device: DeviceLike) -> FabricMesh:
+    if mesh is None:
+        return make_fabric_mesh(1, device=device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh
+
+
+def validate_config(cfg: FabricNetConfig, mesh: FabricMesh) -> None:
+    """The one-card mesh and the divisibility the shapes need."""
+    for ax in FABRIC_AXES:
+        if mesh.shape[ax] > 1:
+            raise ValueError(
+                f"mesh axis {ax}={mesh.shape[ax]}: FabricNet runs on one card here; "
+                "a mesh with an axis above 1 is ROADMAP slice 4"
+            )
+    if cfg.batch % cfg.microbatches:
+        raise ValueError("batch must divide by microbatches")
+    if cfg.heads and cfg.d_model % cfg.heads:
+        raise ValueError("d_model must divide by heads")
+    t = (cfg.batch // cfg.microbatches) * cfg.seq
+    if t % cfg.experts_per_rank:
+        raise ValueError("tokens per microbatch must divide by experts_per_rank")
+
+
+def make_forward_step(
+    cfg: FabricNetConfig, mesh: Optional[FabricMesh] = None, device: DeviceLike = None
+) -> Callable[[Params, torch.Tensor], torch.Tensor]:
+    """``(params, x) -> (B, S, d)`` output, without gradients."""
+    mesh = _mesh(mesh, device)
+    validate_config(cfg, mesh)
+
+    @torch.no_grad()
+    def fwd(params: Params, x: torch.Tensor) -> torch.Tensor:
+        return _local_forward(cfg, params, x)
+
+    return fwd
+
+
+def make_train_step(
+    cfg: FabricNetConfig,
+    mesh: Optional[FabricMesh] = None,
+    schedule: str = "fused",
+    device: DeviceLike = None,
+) -> Callable[[Params, torch.Tensor, torch.Tensor], Tuple[Params, torch.Tensor]]:
+    """The full training step (forward, backward, SGD), ``schedule="fused"``:
+    ``(params, x, y) -> (params, loss)``, the parameters updated in place."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if schedule != "fused":
+        raise ValueError(
+            f"schedule {schedule!r} overlaps gradient collectives across ranks; "
+            "it comes with the multi-rank mesh, ROADMAP slice 4"
+        )
+    mesh = _mesh(mesh, device)
+    validate_config(cfg, mesh)
+
+    def step(params: Params, x: torch.Tensor, y: torch.Tensor):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        with torch.enable_grad():
+            loss = _local_loss(cfg, leaves, x, y)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            for p, g in zip(params.values(), grads):
+                p.sub_(cfg.lr * g)
+        return params, loss.detach()
+
+    return step
+
+
+def make_batch(
+    cfg: FabricNetConfig,
+    mesh: FabricMesh,
+    generator: Optional[torch.Generator] = None,
+    seed: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random ``(x, y)`` of shape ``(batch, seq, d_model)`` on the mesh's device."""
+    if generator is None:
+        generator = torch.Generator(device=mesh.device)
+        generator.manual_seed(seed)
+    shape = (cfg.batch, cfg.seq, cfg.d_model)
+    x = torch.randn(shape, generator=generator, dtype=cfg.dtype, device=mesh.device)
+    y = torch.randn(shape, generator=generator, dtype=cfg.dtype, device=mesh.device)
+    return x, y
+
+
+def forward_flops(cfg: FabricNetConfig) -> Dict[str, int]:
+    """FLOPs (2 per multiply-add) of one forward over the whole batch, from
+    the shapes: the matrix products, and attention's two products over every
+    (query, key) pair, without the causal skip."""
+    n = cfg.batch * cfg.seq
+    d, f, fe = cfg.d_model, cfg.d_ff, cfg.d_expert
+    matmul = n * (
+        cfg.layers_per_stage * 4 * d * f  # w_in, w_out
+        + (8 * d * d if cfg.heads else 0)  # wqkv, wo
+        + 2 * d  # gate
+        + 4 * d * fe  # one expert per token
+        + 2 * d * d  # head
+    )
+    attention = 4 * cfg.batch * cfg.seq * cfg.seq * d if cfg.heads else 0
+    return {"matmul": matmul, "attention": attention}
+
+
+def train_step_flops(cfg: FabricNetConfig) -> int:
+    """3 x the forward (the backward's two products per forward product)."""
+    return 3 * sum(forward_flops(cfg).values())

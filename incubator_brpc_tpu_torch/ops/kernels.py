@@ -19,10 +19,13 @@ on the current stream or raises. Nothing on the card's path calls a plain
 version: the tests use them, ``chip_smoke.py`` holds each kernel against
 its plain version on the card, and CPU execution runs them.
 
-The kernels are built at first use: ``nvcc`` compiles ``csrc/framing.cu``
-for ``sm_90a`` into a shared library with a plain C interface under
-``incubator_brpc_tpu_torch/_build/``, loaded with ``ctypes``. Each wrapper
-adds one to its launch count (:func:`launch_counts`) where it launches.
+The kernels are built at first use: ``nvcc`` compiles each source of
+``csrc/`` (``framing.cu`` here, ``attention.cu`` for K3, whose wrappers are
+in ``ops/attention.py``) for ``sm_90a``, one process per source, all
+started together, and links them into one shared library with a plain C
+interface under ``incubator_brpc_tpu_torch/_build/``, loaded with
+``ctypes``. Each wrapper adds one to its launch count
+(:func:`launch_counts`) where it launches.
 """
 
 from __future__ import annotations
@@ -44,13 +47,12 @@ ENOMETHOD = 1002
 EREQUEST = 1003
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG_DIR / "csrc" / "framing.cu",)
+SOURCES = (_PKG_DIR / "csrc" / "framing.cu", _PKG_DIR / "csrc" / "attention.cu")
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -58,7 +60,15 @@ NVCC_FLAGS = (
 )
 MAX_ROWS = 65535  # the kernels put rows on grid.y
 
-KERNELS = ("frame_rows", "verify_rows", "echo_step_rows")
+KERNELS = (
+    "frame_rows",
+    "verify_rows",
+    "echo_step_rows",
+    "attn_fold_fwd",
+    "attn_bwd_delta",
+    "attn_bwd_dkdv",
+    "attn_bwd_dq",
+)
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -102,7 +112,7 @@ def _library_path() -> Path:
     for src in SOURCES:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libtbframing-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libtbkernels-{digest.hexdigest()[:16]}.so"
 
 
 def build_log() -> str:
@@ -111,18 +121,33 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _run_all(cmds) -> str:
+    """Run the commands side by side; their output, or raise on a failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            (BUILD_DIR / "build.log").write_text(log)
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {c[-1]}\n{o[-4000:]}")
+    return log
+
+
 def _compile(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    log = _run_all(
+        [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for o, src in zip(objs, SOURCES)]
     )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    log += _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    (BUILD_DIR / "build.log").write_text(log)
+    for o in objs:
+        o.unlink()
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
 
 
@@ -143,8 +168,21 @@ def build() -> ctypes.CDLL:
             ]
             lib.tb_verify_rows.argtypes = [p, p, p, i64, i64, p]
             lib.tb_echo_step_rows.argtypes = [p, p, p, i64, i64, p]
-            for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows):
-                fn.restype = ctypes.c_int
+            c_int = ctypes.c_int
+            lib.tb_attn_fold_fwd.argtypes = [
+                p, p, p, c_int, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, c_int, p
+            ]
+            lib.tb_attn_bwd_delta.argtypes = [p, p, c_int, p, i64, i64, i64, i64, p]
+            lib.tb_attn_bwd_dkdv.argtypes = [
+                p, p, p, p, c_int, p, p, p, p, i64, i64, i64, i64, i64, c_int, p
+            ]
+            lib.tb_attn_bwd_dq.argtypes = [
+                p, p, p, p, c_int, p, p, p, i64, i64, i64, i64, i64, c_int, p
+            ]
+            for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
+                       lib.tb_attn_fold_fwd, lib.tb_attn_bwd_delta, lib.tb_attn_bwd_dkdv,
+                       lib.tb_attn_bwd_dq):
+                fn.restype = c_int
             _lib = lib
     return _lib
 

@@ -32,8 +32,9 @@ class _WatcherPool:
         self._jobs: List = []
         self._cond = threading.Condition()
         self._active = 0  # jobs currently executing
+        self._stopping = False
         self._threads = [
-            threading.Thread(target=self._run, name=f"tbrpc-cq-{i}", daemon=True)
+            threading.Thread(target=self._run, name=f"tbtorch-cq-{i}", daemon=True)
             for i in range(nthreads)
         ]
         for t in self._threads:
@@ -62,10 +63,21 @@ class _WatcherPool:
                 self._cond.wait(timeout=min(remaining, 0.1))
         return True
 
+    def stop(self, timeout: float = 10.0) -> bool:
+        """Finish the queued jobs, then end and join the threads."""
+        with self._cond:
+            self._stopping = True
+            self._cond.notify_all()
+        for t in self._threads:
+            t.join(timeout)
+        return not any(t.is_alive() for t in self._threads)
+
     def _run(self) -> None:
         while True:
             with self._cond:
                 while not self._jobs:
+                    if self._stopping:
+                        return
                     self._cond.wait()
                 job = self._jobs.pop(0)
                 self._active += 1
@@ -99,6 +111,15 @@ def _watcher_pool() -> _WatcherPool:
                     max(1, int(get_flag("device_cq_threads")))
                 )
     return _watchers
+
+
+def shutdown_watchers(timeout: float = 10.0) -> bool:
+    """End and join the completion-watcher threads once their queued jobs
+    are done; the next watch starts a new pool. False on timeout."""
+    global _watchers
+    with _watchers_lock:
+        pool, _watchers = _watchers, None
+    return pool is None or pool.stop(timeout)
 
 
 def _ready_handles(work: Any) -> List[Any]:

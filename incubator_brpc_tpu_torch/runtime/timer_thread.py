@@ -27,7 +27,7 @@ class TimerThread:
     _RUNNING = 1
     _STOPPED = 2
 
-    def __init__(self, name: str = "tbrpc-timer"):
+    def __init__(self, name: str = "tbtorch-timer"):
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._heap = []  # (run_time, seq, timer_id)
@@ -124,3 +124,14 @@ def global_timer_thread() -> TimerThread:
             if _global is None or _global._stopped:
                 _global = TimerThread()
     return _global
+
+
+def shutdown_global_timer_thread() -> None:
+    """Stop and join the process-global TimerThread, if one runs; the next
+    timed wait starts a new one. Its pending timers are dropped, so call it
+    only when no timed wait is parked."""
+    global _global
+    with _global_lock:
+        t, _global = _global, None
+    if t is not None and not t._stopped:
+        t.stop_and_join()

@@ -122,6 +122,8 @@ class DeviceEndpoint:
         self._queue = deque()  # (bucket, mid, cid_lo, words, pending)
         self._qlock = threading.Lock()
         self._draining = False
+        self._threads: list = []  # drainer and submit threads, joined by close()
+        self._threads_lock = threading.Lock()
         self._calls, self._latency = _device_metrics()
         self._stream = (
             torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
@@ -199,8 +201,34 @@ class DeviceEndpoint:
         # a DEDICATED thread, not a worker-pool fiber: handler fibers block
         # waiting on these dispatches, so a saturated pool could strand the
         # drainer behind the very callers it must unblock
-        threading.Thread(target=self._drain, name="tbrpc-dev-batch", daemon=True).start()
+        self._spawn(self._drain, "tbtorch-dev-batch")
         return pending
+
+    def _spawn(self, target, name: str, args=()) -> None:
+        t = threading.Thread(target=target, args=args, name=name, daemon=True)
+        with self._threads_lock:
+            self._threads = [x for x in self._threads if x.is_alive()]
+            self._threads.append(t)
+            t.start()
+
+    def close(self, timeout: Optional[float] = 30.0) -> bool:
+        """Wait until every call has settled, then join the endpoint's
+        drainer and submit threads. The endpoint stays usable (a later call
+        starts a drainer again). False if they did not finish in time."""
+        deadline = None if timeout is None else _time.monotonic() + timeout
+
+        def left() -> Optional[float]:
+            return None if deadline is None else max(0.0, deadline - _time.monotonic())
+
+        while self.inflight or self._queue:
+            if left() == 0.0:
+                return False
+            _time.sleep(0.001)
+        with self._threads_lock:
+            threads, self._threads = self._threads, []
+        for t in threads:
+            t.join(left())
+        return not any(t.is_alive() for t in threads)
 
     # -- the batching drainer (single drainer) -------------------------------
 
@@ -223,12 +251,7 @@ class DeviceEndpoint:
             if more:
                 # staggered arrivals: submit THIS batch on its own thread so
                 # the next batch's staging overlaps it
-                threading.Thread(
-                    target=self._dispatch_batch,
-                    args=(bucket, batch),
-                    name="tbrpc-dev-batch-tx",
-                    daemon=True,
-                ).start()
+                self._spawn(self._dispatch_batch, "tbtorch-dev-batch-tx", (bucket, batch))
             else:
                 self._dispatch_batch(bucket, batch)
 

@@ -1,6 +1,9 @@
-"""The port's CUDA kernels and endpoint on the card: each kernel against its
-plain version, bit for bit, and the endpoint's calls answered through the
-kernels. Marked ``gpu``; each test skips where PyTorch sees no CUDA card.
+"""The port's CUDA kernels and endpoint on the card: each K1 kernel against
+its plain version, bit for bit, the endpoint's calls answered through the
+kernels, K3 (the ring-attention fold and its gradient) against its plain
+versions within the tolerances of ``chip_smoke.py``, and one FabricNet train
+step on the card against the CPU. Marked ``gpu``; each test skips where
+PyTorch sees no CUDA card.
 
 This file imports no JAX, so on a card machine without JAX it runs with
 
@@ -11,17 +14,24 @@ import numpy as np
 import pytest
 import torch
 
+from incubator_brpc_tpu_torch.models import fabricnet
 from incubator_brpc_tpu_torch.models.tensor_echo import TensorEchoService, make_echo_step
-from incubator_brpc_tpu_torch.ops import framing, kernels
+from incubator_brpc_tpu_torch.ops import attention, framing, kernels
+from incubator_brpc_tpu_torch.parallel.mesh import make_fabric_mesh
 from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
 
 pytestmark = pytest.mark.gpu
+
+K1 = ("frame_rows", "verify_rows", "echo_step_rows")
+K3 = ("attn_fold_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -67,7 +77,7 @@ def test_kernels_match_plain_versions(cuda, rows, words):
     assert torch.equal(kernels.verify_rows(framed), kernels.verify_rows_plain(framed))
     assert _same(kernels.echo_step_rows(framed), kernels.echo_step_rows_plain(framed))
     after = kernels.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in kernels.KERNELS)
+    assert all(after[k] == before[k] + 1 for k in K1)
 
 
 def test_kernels_take_an_unaligned_payload(cuda):
@@ -104,7 +114,9 @@ def test_endpoint_on_the_card(cuda):
     )
     assert pendings[2].error_code == 1002
     assert ep.inflight == 0
-    assert DeviceEndpoint().call_bytes(b"echo through K1c") == (0, b"echo through K1c")
+    other = DeviceEndpoint()
+    assert other.call_bytes(b"echo through K1c") == (0, b"echo through K1c")
+    assert ep.close() and other.close()
 
 
 def test_make_echo_step_on_the_card(cuda):
@@ -113,3 +125,62 @@ def test_make_echo_step_on_the_card(cuda):
     header, payload, ok = framing.parse(step(request))
     assert bool(ok) and int(header.error_code) == 0
     assert _same(payload, request[8:])
+
+
+def _qkvo(gen, shape, dtype, dev):
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4)]
+
+
+# (B, T, H, D, sp): a ragged T/sp = 12 at D 16, and the bench attention shape
+@pytest.mark.parametrize("shape", [(2, 48, 4, 16, 4), (4, 1024, 2, 1024, 4)], ids=["small", "d1024"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_k3_matches_plain_versions(cuda, shape, dtype, causal):
+    b, t, h, d, sp = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(b * t + d + sp)
+    q, k, v, dout = _qkvo(gen, (b, t, h, d), dtype, cuda)
+    before = kernels.launch_counts()
+    out, lse, (m, l, o) = attention.forward(q, k, v, sp=sp, causal=causal)
+    dq, dk, dv = attention.backward(q, k, v, out, dout, lse, sp=sp, causal=causal)
+    after = kernels.launch_counts()
+    assert after["attn_fold_fwd"] == before["attn_fold_fwd"] + sp
+    assert all(after[n] == before[n] + 1 for n in K3[1:])
+    state = None
+    for hop in range(sp):
+        state = attention.fold_plain(q, k, v, state, hop=hop, sp=sp, causal=causal)
+    want_out, want_lse = attention.finalize_plain(state, dtype)
+    grads = attention.backward_plain(q, k, v, out, dout, lse, sp=sp, causal=causal)
+    # f32: sums in another order; bf16: one rounding of the result to bf16
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    assert out.dtype == dtype
+    torch.testing.assert_close(m, state[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(l, state[1], rtol=1e-5, atol=0)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+    for got, want in zip((dq, dk, dv), grads):
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * scale)
+
+
+def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
+    cfg = fabricnet.FabricNetConfig(d_model=32, d_ff=64, d_expert=32, layers_per_stage=2,
+                                    batch=4, seq=32, microbatches=2, heads=2)
+    rng = np.random.default_rng(9)
+    mesh = make_fabric_mesh(1, device="cpu")
+    arrays = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.2
+              for k, v in fabricnet.init_params(cfg, mesh).items()}
+    x, y = (rng.standard_normal((4, 32, 32)).astype(np.float32) for _ in range(2))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = fabricnet.params_from_numpy(arrays, cfg, dev)
+        step = fabricnet.make_train_step(cfg, device=dev)
+        before = kernels.launch_counts()
+        params, loss = step(params, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        after = kernels.launch_counts()
+        results[dev] = (float(loss), {k: p.cpu() for k, p in params.items()})
+        if dev == "cuda":
+            assert all(after[n] == before[n] + cfg.microbatches for n in K3)
+    assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
+    for name, want in results["cpu"][1].items():
+        torch.testing.assert_close(results["cuda"][1][name], want, rtol=1e-5, atol=1e-5)

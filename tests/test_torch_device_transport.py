@@ -14,12 +14,36 @@ from incubator_brpc_tpu.models.tensor_echo import TensorEchoService as JaxServic
 from incubator_brpc_tpu.transport.device import DeviceEndpoint as JaxEndpoint
 from incubator_brpc_tpu_torch.models.tensor_echo import TensorEchoService
 from incubator_brpc_tpu_torch.ops import kernels
+from incubator_brpc_tpu_torch.runtime.device_butex import shutdown_watchers
+from incubator_brpc_tpu_torch.runtime.timer_thread import shutdown_global_timer_thread
 from incubator_brpc_tpu_torch.transport.device import (
     MAX_BUCKET_WORDS,
     DeviceEndpoint,
     _bucket_words,
 )
 from incubator_brpc_tpu_torch.utils.status import ErrorCode
+
+
+_OPEN = []  # every endpoint these tests built
+
+
+def _endpoint(*args, **kw):
+    ep = DeviceEndpoint(*args, **kw)
+    _OPEN.append(ep)
+    return ep
+
+
+@pytest.fixture(autouse=True)
+def no_port_thread_outlives_the_test():
+    """Close every endpoint, end the completion watchers and the timer, and
+    check that no thread of the port is left in this (xdist worker) process."""
+    yield
+    for ep in _OPEN:
+        assert ep.close(timeout=60)
+    assert shutdown_watchers(timeout=60)
+    shutdown_global_timer_thread()
+    left = [t.name for t in threading.enumerate() if t.name.startswith("tbtorch-")]
+    assert left == []
 
 
 def _mixed_service():
@@ -61,7 +85,7 @@ def test_power_of_two_buckets():
 
 @pytest.fixture(scope="module")
 def endpoint():
-    return DeviceEndpoint(window_size=4, device="cpu")
+    return _endpoint(window_size=4, device="cpu")
 
 
 class TestDeviceCalls:
@@ -98,7 +122,7 @@ class TestDeviceCalls:
         assert endpoint.inflight == 0
 
     def test_credit_window_bounds_inflight(self):
-        ep = DeviceEndpoint(window_size=2, device="cpu")
+        ep = _endpoint(window_size=2, device="cpu")
         results, peak = [], []
         lock = threading.Lock()
 
@@ -125,7 +149,7 @@ class TestDeviceCalls:
 
 class TestBatchedDispatch:
     def test_mixed_methods_in_one_batch(self):
-        ep = DeviceEndpoint(service=_mixed_service(), device="cpu", window_size=32, max_batch=16)
+        ep = _endpoint(service=_mixed_service(), device="cpu", window_size=32, max_batch=16)
         ep.warm(64)
         results = {}
 
@@ -146,7 +170,7 @@ class TestBatchedDispatch:
             assert (words == want).all(), (i, mid, words[:4])
 
     def test_unknown_method_in_batch_errors_only_its_row(self):
-        ep = DeviceEndpoint(device="cpu", window_size=16, max_batch=8)
+        ep = _endpoint(device="cpu", window_size=16, max_batch=8)
         ep.warm(32)
         results = {}
 
@@ -173,8 +197,8 @@ def test_mixed_batch_matches_jax_endpoint():
     jsvc.add_method(5, lambda p: p + jnp.uint32(10))
     endpoints = {
         "jax": JaxEndpoint(service=jsvc, window_size=32, max_batch=16),
-        "torch": DeviceEndpoint(service=_mixed_service(), device="cpu",
-                                window_size=32, max_batch=16),
+        "torch": _endpoint(service=_mixed_service(), device="cpu",
+                           window_size=32, max_batch=16),
     }
     rng = np.random.default_rng(2024)
     payloads = [
@@ -209,4 +233,4 @@ def test_endpoint_needs_a_card_unless_cpu_is_asked(monkeypatch):
         DeviceEndpoint()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceEndpoint(device="cuda")
-    assert DeviceEndpoint(device="cpu").device.type == "cpu"
+    assert _endpoint(device="cpu").device.type == "cpu"

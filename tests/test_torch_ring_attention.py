@@ -1,0 +1,158 @@
+"""Ring attention of the port against the JAX package, on the CPU: the same
+numpy inputs through ``incubator_brpc_tpu.models.ring_attention`` on a
+virtual ``sp`` mesh and through the port's plain versions of K3.
+
+Tolerances: the outputs at rtol = atol = 2e-5 in float32, as
+``tests/test_ring_attention.py`` holds the ring against full attention (the
+sums run in another order); bfloat16 at 0.05, as there; the gradients of
+``mean(out^2)`` within 1e-4 absolute (JAX differentiates through the
+merges, the port recomputes from the log-sum-exp); ``prefetch`` bitwise.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+from incubator_brpc_tpu.models import ring_attention as jax_ra
+from incubator_brpc_tpu_torch.models import ring_attention as ra
+from incubator_brpc_tpu_torch.ops import attention
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These sizes gain nothing from threads; one keeps the xdist workers'
+    cores for the timing-sensitive tests running beside them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+def _qkv(seed, b=2, t=32, h=4, d=16):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(3))
+
+
+def _jax_step(sp, causal=True, prefetch=False):
+    mesh = Mesh(np.array(jax.devices()[:sp]), axis_names=("sp",))
+    return jax_ra.make_ring_attention_step(mesh, causal=causal, prefetch=prefetch)
+
+
+@pytest.mark.parametrize("sp", [1, 2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_matches_jax_ring_attention(sp, causal):
+    q, k, v = _qkv(sp * 10 + causal)
+    jstep, jplace = _jax_step(sp, causal)
+    want = np.asarray(jstep(jplace(q), jplace(k), jplace(v)))
+    step, place = ra.make_ring_attention_step(sp, causal=causal, device="cpu")
+    got = step(place(q), place(k), place(v))
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_ragged_block_and_full_attention():
+    """T / sp = 12 rows per rank, no multiple of any tile; the port's ring
+    against the port's full attention and against JAX's."""
+    q, k, v = _qkv(7, b=2, t=48, h=4, d=16)
+    jstep, jplace = _jax_step(4)
+    want = np.asarray(jstep(jplace(q), jplace(k), jplace(v)))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = ra.ring_attention(tq, tk, tv, sp=4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(ra.full_attention(tq, tk, tv).numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_bfloat16_stays_bfloat16():
+    q, k, v = _qkv(2)
+    jstep, jplace = _jax_step(4)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jstep(jplace(jq), jplace(jk), jplace(jv)), np.float32)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = ra.ring_attention(tq, tk, tv, sp=4)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_prefetch_is_bit_identical(causal):
+    q, k, v = _qkv(3)
+    plain, place = ra.make_ring_attention_step(4, causal=causal, device="cpu")
+    pref, _ = ra.make_ring_attention_step(4, causal=causal, prefetch=True, device="cpu")
+    a = plain(place(q), place(k), place(v)).numpy()
+    b = pref(place(q), place(k), place(v)).numpy()
+    assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("sp", [1, 4])
+def test_grads_match_jax(sp):
+    q, k, v = _qkv(20 + sp, t=16)
+    jstep, jplace = _jax_step(sp)
+
+    def loss(a, b, c):
+        return jnp.mean(jnp.square(jstep(a, b, c)))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jplace(q), jplace(k), jplace(v))
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    ra.ring_attention(tq, tk, tv, sp=sp).square().mean().backward()
+    for w, t in zip(want, (tq, tk, tv)):
+        g = t.grad.numpy()
+        assert np.isfinite(g).all() and np.abs(g).sum() > 0
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=1e-4)
+
+
+def test_fold_with_carried_state_matches_jax_block_merge():
+    """One fold of the plain version, from a nonzero incoming (m, l, o),
+    against ``_block_attn`` and the merge of ``block_merge`` in JAX, for
+    rank 2 of 4 at hop 1 (it holds rank 1's block)."""
+    b, t, h, d, sp, hop = 2, 32, 4, 16, 4, 1
+    q, k, v = _qkv(30, b=b, t=t, h=h, d=d)
+    tl = t // sp
+    rng = np.random.default_rng(31)
+    m = rng.standard_normal((b, h, t)).astype(np.float32)
+    l = rng.uniform(0.5, 2.0, (b, h, t)).astype(np.float32)
+    o = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    tm, tlv, to = attention.fold_plain(
+        *map(torch.from_numpy, (q, k, v)),
+        tuple(map(torch.from_numpy, (m, l, o))), hop=hop, sp=sp, causal=True,
+    )
+    i, src = 2, (2 - hop) % sp
+    rows, keys = slice(i * tl, (i + 1) * tl), slice(src * tl, (src + 1) * tl)
+    q_pos = i * tl + jnp.arange(tl)
+    kv_pos = src * tl + jnp.arange(tl)
+    mask = jnp.where(kv_pos[None, :] <= q_pos[:, None], 0.0, jax_ra.NEG_INF)
+    bm, bl, bo = jax_ra._block_attn(q[:, rows], k[:, keys], v[:, keys], mask)
+    m_r, l_r, o_r = m[:, :, rows], l[:, :, rows], o[:, rows]
+    m_new = jnp.maximum(m_r, bm)
+    alpha, beta = jnp.exp(m_r - m_new), jnp.exp(bm - m_new)
+    l_new = l_r * alpha + bl * beta
+    o_new = o_r * alpha.transpose(0, 2, 1)[..., None] + bo * beta.transpose(0, 2, 1)[..., None]
+    np.testing.assert_allclose(tm[:, :, rows].numpy(), np.asarray(m_new), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tlv[:, :, rows].numpy(), np.asarray(l_new), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(to[:, rows].numpy(), np.asarray(o_new), rtol=2e-5, atol=2e-5)
+
+
+def test_wrappers_refuse_what_they_do_not_take():
+    q = torch.zeros((1, 10, 2, 8))
+    with pytest.raises(ValueError, match="split"):
+        attention.fold(q, q, q, None, hop=0, sp=4, causal=True, finalize=True)
+    with pytest.raises(TypeError):
+        attention.fold(q.double(), q.double(), q.double(), None, hop=0, sp=1, causal=True,
+                       finalize=True)
+    with pytest.raises(ValueError, match="hop"):
+        attention.fold(q, q, q, None, hop=2, sp=2, causal=True, finalize=True)
+
+
+def test_entry_point_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ra.make_ring_attention_step(2)
+    step, place = ra.make_ring_attention_step(2, device="cpu")
+    assert place(np.zeros((1, 4, 1, 4), np.float32)).device.type == "cpu"
+
+
+def test_flop_count():
+    assert attention.attention_flops(4, 1024, 2, 1024, causal=False, products=2) == 4 * 4 * 1024 ** 2 * 2048
+    assert attention.attention_flops(1, 4, 1, 2, causal=True, products=5) == 2 * 10 * 2 * 5

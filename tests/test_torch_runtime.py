@@ -12,9 +12,20 @@ import torch
 from incubator_brpc_tpu.utils import status as jstatus
 from incubator_brpc_tpu_torch import bvar
 from incubator_brpc_tpu_torch.runtime.butex import ETIMEDOUT, EWOULDBLOCK, WAIT_OK, Butex
-from incubator_brpc_tpu_torch.runtime.device_butex import DeviceCompletionButex
-from incubator_brpc_tpu_torch.runtime.timer_thread import TimerThread
+from incubator_brpc_tpu_torch.runtime.device_butex import DeviceCompletionButex, shutdown_watchers
+from incubator_brpc_tpu_torch.runtime.timer_thread import TimerThread, shutdown_global_timer_thread
 from incubator_brpc_tpu_torch.utils import flags, status
+
+
+@pytest.fixture(autouse=True)
+def no_port_thread_outlives_the_test():
+    """End the completion watchers and the timer each test started, and
+    check that no thread of the port is left in this process."""
+    yield
+    assert shutdown_watchers(timeout=60)
+    shutdown_global_timer_thread()
+    left = [t.name for t in threading.enumerate() if t.name.startswith("tbtorch-")]
+    assert left == []
 
 
 def wait_until(cond, timeout=5.0):
