@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the device echo
-path (K1) and the FabricNet train step with ring attention (K3).
+path (K1), the FabricNet train step with ring attention (K3), and the
+quantized collective sessions (K2).
 
     python3 chip_smoke.py [--out FILE]
 
@@ -37,7 +38,27 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    with CUDA events beside its bound, its plain version and
    ``scaled_dot_product_attention``, and breaks two train steps down by
    kernel with torch.profiler (device busy and idle share);
-9. prints the kernels line (JSON), then the result line
+9. holds K2 (``quantize_rows``, ``dequant_mean_rows``) against its plain
+   versions and the numpy twin of ``parallel/quantized.py``, bit for bit,
+   in int8 and int4, at (parties, row bytes) (2, 4096), (3, 4096), (8,
+   1 MiB) and (64, 1 MiB) with blocks of 32, and (3, 4096) with blocks of
+   16, on rows whose first blocks are edge cases (``quant_edge_blocks``),
+   and one quantized pmean step of noise rows within ``pmean_error_bound``;
+10. drives the third main path with the launch counts set to zero:
+   ``run_dispatch_session`` at the bench's geometry (2 parties x 4096 B x
+   16 steps) and the full one (8 x 1 MiB x 16), modes none, int8 and int4
+   under ``chunks=1``, ``chunks=4`` and ``chunks=4, double_buffer=True``
+   (byte-identical to ``chunks=1``; quantized within ``pmean_error_bound``
+   of the exact session and within 1e-5 of ``np_quantized_pmean``; exact
+   bitwise the party-ordered f32 mean), ``_scale_psum_kernel`` sessions
+   byte for byte with ``session_expected``, and quantized sessions with
+   ``checkpoint_every=4`` resumed from step 8, byte-identical to the
+   undisturbed 16 steps; each session's K2 launches must be steps x chunks
+   (plus one K2a per checkpoint), 0 for an exact one;
+11. times K2 at (8, 1 MiB) and (64, 1 MiB) with CUDA events beside its
+   bound and its plain versions, and the full-width sessions' ms per step
+   in modes none, int8 and int4 with their wire ratios;
+12. prints the kernels line (JSON), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX. It exits non-zero, with no result line, when
@@ -74,7 +95,17 @@ BENCH_FABRICNET = dict(d_model=2048, d_ff=8192, d_expert=2048, experts_per_rank=
 GEOMETRIES = [(1, 64), (16, 64), (16, 8192), (1, 1 << 24), (4, 1 << 24), (1, 1 << 26)]
 # the geometry each kernel's line reports: the largest the main path gives it
 REPORT_AT = {"frame_rows": (1, 1 << 26), "verify_rows": (1, 1 << 24), "echo_step_rows": (1, 1 << 26)}
+K2 = ("quantize_rows", "dequant_mean_rows")
+# (parties, row bytes): the bench's 2 x 4096 and 3 x 4096 of the JAX session
+# tests, the session plane's MAX_WIDTH (1 MiB, mc_dispatch.py:116) at the 8 data-parallel ranks
+# of one DGX H100, and at 64 parties (64 MiB of f32, beyond the 50 MB L2)
+K2_GEOMETRIES = [(2, 4096), (3, 4096), (8, 1 << 20), (64, 1 << 20)]
+# (parties, row bytes, steps): bench.py:1184 _mc_quantized_child, and the full width
+SESSIONS = {"bench": (2, 4096, 16), "full": (8, 1 << 20, 16)}
+SCHEDULES = [(1, False), (4, False), (4, True)]  # (chunks, double_buffer)
 REPLACES = {
+    "quantize_rows": "incubator_brpc_tpu/parallel/quantized.py:197",
+    "dequant_mean_rows": "incubator_brpc_tpu/parallel/quantized.py:220",
     "frame_rows": "incubator_brpc_tpu/ops/framing.py:96",
     "verify_rows": "incubator_brpc_tpu/ops/framing.py:121",
     "echo_step_rows": "incubator_brpc_tpu/models/tensor_echo.py:42",
@@ -88,6 +119,54 @@ KINDS = ("valid", "bad_magic", "bad_length", "flipped_word", "unknown_method")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# -- K2 inputs (phases 9-10; tests/test_torch_cuda.py and
+# tests/test_torch_quantized.py use the same rows) ------------------------------
+
+FLT_MAX = float(np.finfo(np.float32).max)
+QMAX = {"int8": 127, "int4": 7}
+
+
+def quant_edge_blocks(block: int, mode: str, seed: int = 0) -> np.ndarray:
+    """Eight scale blocks that probe K2's arithmetic, one after another:
+    ``[8, block]`` f32. In order: all zero (e = 0, q = 0); amax / qmax
+    exactly 2^5 (frexp's mantissa 0.5); x / 2^3 on exact .5 ties of both
+    parities; subnormal values (e clamps at -126, q = 0); tiny normals
+    whose amax / qmax is subnormal (e = -126, q != 0); positive values up
+    to FLT_MAX (the largest exponent finite data reaches, 122 for int8 and
+    126 for int4, whose top value dequantizes to +inf); mixed signs up to
+    0.9 FLT_MAX; alternating signs at magnitude 100."""
+    qmax = QMAX[mode]
+    rng = np.random.default_rng(seed)
+    rnd = lambda: rng.standard_normal(block)  # noqa: E731
+    pow2 = np.clip(rnd(), -0.99, 0.99) * qmax * 32.0
+    pow2[3] = qmax * 32.0
+    ties = (np.arange(block) % (2 * qmax) - qmax + 0.5) * 8.0
+    ties[0] = qmax * 8.0
+    huge = rng.uniform(0.5, 1.0, block) * FLT_MAX
+    huge[1] = FLT_MAX
+    blocks = [
+        np.zeros(block), pow2, ties, rnd() * 1e-40, rnd() * 2.0 ** -120, huge,
+        np.clip(rnd() / 4, -1, 1) * 0.9 * FLT_MAX,
+        rnd() * 100.0 * np.where(np.arange(block) % 2, 1.0, -1.0),
+    ]
+    return np.stack(blocks).astype(np.float32)
+
+
+def quant_rows(parties: int, nfloats: int, block: int, mode: str, seed: int,
+               edges: bool = True) -> np.ndarray:
+    """``[parties, nfloats]`` f32: party p's row is normal noise at scale 3
+    (p + 1), its first blocks the edge blocks rolled by p (``edges``)."""
+    rng = np.random.default_rng(seed)
+    scale = 3.0 * np.arange(1, parties + 1, dtype=np.float32)[:, None]
+    rows = rng.standard_normal((parties, nfloats), dtype=np.float32) * scale
+    if edges:
+        edge = quant_edge_blocks(block, mode, seed)
+        k = min(len(edge), nfloats // block)
+        for p in range(parties):
+            rows[p, : k * block] = np.roll(edge, p, axis=0)[:k].reshape(-1)
+    return rows
 
 
 def card_line() -> str:
@@ -111,6 +190,31 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, warmup: int = 2):
+    """Mean device time of ``fn`` over ``iters`` calls queued behind a spin
+    kernel, so the host's cost of each call is off the clock: (ms, whether
+    the host finished queueing before the spin ended)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_s = max(4 * iters * (time.perf_counter() - t0), 2e-3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin_end = torch.cuda.Event()
+    torch.cuda._sleep(int(spin_s * 2e9))  # cycles at up to 2 GHz
+    spin_end.record()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    queued_in_time = not spin_end.query()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, queued_in_time
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -580,6 +684,293 @@ def run_k3_phases(torch, kernels, dev):
             "detail": {f"sp{sp}": t for sp, t in timings.items()}, "fabricnet": fab}
 
 
+# -- K2 and the quantized collective sessions (phases 9-11) --------------------
+
+
+def u8(torch, t):
+    """A tensor's bytes on the host, ``[rows, row bytes]``."""
+    t = t.detach().contiguous()
+    return t.view(torch.uint8).cpu().numpy().reshape(t.shape[0], -1)
+
+
+def k2_case(torch, quantize, Q, dev, parties, width, block, mode):
+    """K2a and K2b (and K2b's dequantize) against the plain versions and
+    the numpy twin, bitwise, on rows that carry the edge blocks; and one
+    quantized pmean step of noise rows within pmean_error_bound."""
+    nfloats = width // 4
+    rows = quant_rows(parties, nfloats, block, mode, seed=parties * 100 + block)
+    x = torch.from_numpy(rows).to(dev)
+    q, e = quantize.quantize_rows(x, mode, block)
+    got = {"q": q, "e": e, "mean": quantize.dequant_mean_rows(q, e, mode, block),
+           "dequantize": quantize.dequant_mean_rows(q, e, mode, block, mean=False)}
+    qp, ep = quantize.quantize_rows_plain(x, mode, block)
+    plain = {"q": qp, "e": ep, "mean": quantize.dequant_mean_rows_plain(qp, ep, mode, block),
+             "dequantize": quantize.dequantize_rows_plain(qp, ep, mode, block)}
+    got = {k: u8(torch, t) for k, t in got.items()}
+    where = f"K2 {mode} P={parties} W={width} block={block}"
+    for k, t in plain.items():
+        if not np.array_equal(got[k], u8(torch, t)):
+            raise AssertionError(f"{where}: {k} differs from the plain version")
+    with np.errstate(over="ignore"):  # the FLT_MAX edge block dequantizes to +inf
+        twins = [Q.np_quantize(r, mode, block) for r in rows]
+        deqs = [Q.np_dequantize(tq, te, mode, block) for tq, te in twins]
+        mean = np.sum(np.stack(deqs), axis=0, dtype=np.float32) / np.float32(parties)
+    for r, (tq, te) in enumerate(twins):
+        if (got["q"][r].tobytes() != tq.tobytes() or got["e"][r].tobytes() != te.tobytes()
+                or got["dequantize"][r].tobytes() != deqs[r].tobytes()
+                or got["mean"][r].tobytes() != mean.tobytes()):
+            raise AssertionError(f"{where}: row {r} differs from the numpy twin")
+    noise = quant_rows(parties, nfloats, block, mode, seed=parties + 7, edges=False)
+    m = quantize.dequant_mean_rows(*quantize.quantize_rows(torch.from_numpy(noise).to(dev),
+                                                           mode, block), mode, block)
+    err = float(np.abs(m[0].cpu().numpy() - np.mean(noise, axis=0, dtype=np.float32)).max())
+    bound = Q.pmean_error_bound(list(noise), 1, mode, block)
+    if not err <= bound:
+        raise AssertionError(f"{where}: quantized pmean error {err} > bound {bound}")
+    e_seen = sorted(set(got["e"][:, :8].view(np.int8).reshape(-1).tolist()))
+    log(f"phase9 {where}: kernels bitwise equal to the plain versions and the numpy twin "
+        f"(exponents of the edge blocks {e_seen}); one pmean step of noise rows off the exact "
+        f"mean by {err:.4g} <= bound {bound:.4g}")
+
+
+def exact_model(rows: np.ndarray, steps: int) -> np.ndarray:
+    """The exact pmean chain in f32 with the parties added in order."""
+    cur = rows
+    for _ in range(steps):
+        m = cur[0].copy()
+        for p in range(1, len(cur)):
+            m += cur[p]
+        m = m / np.float32(len(cur))
+        cur = np.broadcast_to(m, rows.shape)
+    return cur[0]
+
+
+def session_rows(name, parties, width):
+    if name == "bench":  # bench.py _mc_quantized_child's operands
+        rng = np.random.default_rng(11)
+        return np.stack([(rng.standard_normal(width // 4) * (i + 1)).astype(np.float32)
+                         for i in range(parties)])
+    return quant_rows(parties, width // 4, 32, "int8", seed=2026, edges=False)
+
+
+def run_sessions(torch, kernels, mcd, mcc, Q, DeviceMethod, worker):
+    """Phase 10: the session path through run_dispatch_session, with each
+    session's K2 launches held to steps x chunks (+1 K2a per checkpoint)."""
+    checked = {}
+
+    def session(dm, ops, steps, want_k2, **kw):
+        before = kernels.launch_counts()
+        row, n, el = mcd.run_dispatch_session(list(range(len(ops))), 0, dm, ops, steps, **kw)
+        after = kernels.launch_counts()
+        got = tuple(after[k] - before[k] for k in K2)
+        if got != want_k2:
+            raise AssertionError(f"session {kw}: K2 launches {got}, want {want_k2}")
+        return bytes(row[:n]), el
+
+    for name, (parties, width, steps) in SESSIONS.items():
+        rows = session_rows(name, parties, width)
+        ops = [r.tobytes() for r in rows]
+        dm = mcc._pmean_dm(width)
+        kw = dict(service=mcc.PMEAN_SERVICE, method=mcc.PMEAN_METHOD)
+        exact, bases = None, {}
+        for mode in ("none", "int8", "int4"):
+            outs = []
+            for chunks, db in SCHEDULES:
+                k = 0 if mode == "none" else steps * chunks
+                outs.append(session(dm, ops, steps, (k, k), quantize=mode, chunks=chunks,
+                                    double_buffer=db, **kw)[0])
+            if any(o != outs[0] for o in outs):
+                raise AssertionError(f"{name} {mode}: schedules differ from chunks=1")
+            bases[mode] = outs[0]
+            f = np.frombuffer(outs[0], np.float32)
+            if mode == "none":
+                exact = f
+                if f.tobytes() != exact_model(rows, steps).tobytes():
+                    raise AssertionError(f"{name}: exact session differs from the f32 model")
+                log(f"phase10 {name} ({parties} parties x {width} B x {steps} steps) none: "
+                    f"schedules {SCHEDULES} byte-identical; bitwise the party-ordered f32 mean")
+                continue
+            err = float(np.abs(f - exact).max())
+            bound = Q.pmean_error_bound(list(rows), steps, mode)
+            model = Q.np_quantized_pmean(list(rows), steps, mode)
+            dev_model = float(np.abs(f - model).max())
+            if not err <= bound or not dev_model <= 1e-5:
+                raise AssertionError(f"{name} {mode}: err {err} (bound {bound}), "
+                                     f"vs np_quantized_pmean {dev_model}")
+            checked[(name, mode)] = {"err": err, "bound": bound,
+                                     "model_bitwise": f.tobytes() == model.tobytes()}
+            log(f"phase10 {name} {mode}: schedules byte-identical, K2 launches steps x chunks "
+                f"each; off the exact session by {err:.4g} <= bound {bound:.4g}; vs "
+                f"np_quantized_pmean max {dev_model:.3g} (bitwise "
+                f"{checked[(name, mode)]['model_bitwise']})")
+        # the integer kernel: byte for byte with its host model
+        rng = np.random.default_rng(parties)
+        iops = [rng.integers(0, 256, width - 8 * i, dtype=np.uint8).tobytes()
+                for i in range(parties)]
+        sdm = DeviceMethod(worker._scale_psum_kernel, width=width, chunkable=True)
+        want = worker.session_expected(iops, steps, width)[0]
+        for chunks, db in SCHEDULES:
+            if session(sdm, iops, steps, (0, 0), chunks=chunks, double_buffer=db)[0] != want:
+                raise AssertionError(f"{name}: _scale_psum_kernel chunks={chunks} db={db}")
+        log(f"phase10 {name}: _scale_psum_kernel sessions equal session_expected byte for byte "
+            f"under {SCHEDULES}")
+        # a checkpointed quantized session, resumed from step 8
+        for mode in ("int8", "int4"):
+            for chunks in (1, 4):
+                sid = f"smoke-{name}-{mode}-{chunks}"
+                every, resume = 4, 8
+                k = steps * chunks
+                full, _ = session(dm, ops, steps, (k + steps // every, k), quantize=mode,
+                                  session_id=sid, checkpoint_every=every, chunks=chunks, **kw)
+                retained = mcd.checkpoint_bytes_retained()
+                k = (steps - resume) * chunks
+                again, _ = session(dm.quantized(mode), ops, steps,
+                                   (k + (steps - resume) // every, k), session_id=sid,
+                                   resume_from=resume, checkpoint_every=every, chunks=chunks, **kw)
+                mcd.release_checkpoints(sid)
+                if not again == full == bases[mode]:
+                    raise AssertionError(f"{name} {mode} chunks={chunks}: resume from step "
+                                         f"{resume} is not byte-identical")
+            log(f"phase10 {name} {mode}: checkpoint_every {every}, resume_from {resume} "
+                f"byte-identical to the undisturbed {steps} steps at chunks 1 and 4 "
+                f"(ring held {retained} B)")
+    return checked
+
+
+def k2_timings(torch, quantize, dev):
+    """Phase 11: K2 at the full width, CUDA events, beside the bound (the
+    bytes in and out over HBM) and the plain versions."""
+    res = {}
+    for parties, width in ((8, 1 << 20), (64, 1 << 20)):
+        nfloats = width // 4
+        x = torch.from_numpy(quant_rows(parties, nfloats, 32, "int8", seed=3, edges=False)).to(dev)
+        for mode in ("int8", "int4"):
+            q, e = quantize.quantize_rows(x, mode, 32)
+            qbytes = q.numel() * q.element_size() + e.numel()
+            xbytes = x.numel() * 4
+            cases = {
+                "quantize_rows": (lambda: quantize.quantize_rows(x, mode, 32),
+                                  lambda: quantize.quantize_rows_plain(x, mode, 32),
+                                  xbytes + qbytes, 4 * x.numel()),
+                "dequant_mean_rows": (lambda: quantize.dequant_mean_rows(q, e, mode, 32),
+                                      lambda: quantize.dequant_mean_rows_plain(q, e, mode, 32),
+                                      qbytes + xbytes, 2 * x.numel() + nfloats),
+            }
+            for name, (kern, plain, nbytes, flops) in cases.items():
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / F32_FLOPS_PER_S * 1e3
+                ms, queued = device_ms(torch, kern, 50)
+                plain_ms, plain_queued = device_ms(torch, plain, 5)
+                if not (queued and plain_queued):
+                    raise AssertionError(f"{name}: the host did not queue the timed calls "
+                                         "behind the spin kernel")
+                r = {"ms": ms, "plain_ms": plain_ms,
+                     "host_ms": time_ms(torch, kern, 50),
+                     "plain_host_ms": time_ms(torch, plain, 5),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "flops": flops, "shape": [parties, width], "mode": mode,
+                     "wire_ratio": (q[0].numel() * q.element_size() + e[0].numel()) / width}
+                res[(name, parties, mode)] = r
+                if name == "quantize_rows":
+                    log(f"phase11 {mode} wire bytes per party per step from the gathered "
+                        f"dtypes ({q.dtype}, {e.dtype}): {r['wire_ratio']:.4f} of the f32 row")
+                log(f"phase11 {name} {mode} P={parties} W={width}: device {r['ms']:.6f} ms, bound "
+                    f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f} %"
+                    f" of it), plain {r['plain_ms']:.6f} ms; back to back through the wrapper "
+                    f"{r['host_ms']:.6f} ms (plain {r['plain_host_ms']:.6f}); no single PyTorch "
+                    "call computes it")
+    return res
+
+
+def session_timings(torch, mcd, mcc):
+    """Phase 11: ms per step of full-width sessions (the session's own
+    clock, first dispatch to the fetched row), best and mean of 3."""
+    parties, width, steps = SESSIONS["full"]
+    ops = [r.tobytes() for r in session_rows("full", parties, width)]
+    dm = mcc._pmean_dm(width)
+    res = {}
+    for mode in ("none", "int8", "int4"):
+        els = []
+        for i in range(4):
+            _, _, el = mcd.run_dispatch_session(list(range(parties)), 0, dm, ops, steps,
+                                                quantize=mode)
+            if i:
+                els.append(el)
+        wire = dm.quantized(mode).wire_bytes() / width
+        res[mode] = {"ms_per_step_best": min(els) / steps * 1e3,
+                     "ms_per_step_mean": sum(els) / len(els) / steps * 1e3, "wire_ratio": wire}
+        res[mode].update(session_profile(torch, mcd, dm, ops, steps, mode))
+        log(f"phase11 session {mode} {parties} parties x {width} B x {steps} steps: "
+            f"{res[mode]['ms_per_step_best']:.6f} ms/step best of 3, "
+            f"{res[mode]['ms_per_step_mean']:.6f} mean; wire bytes per party per step "
+            f"{wire:.4f} of the f32 row; one session under torch.profiler: wall "
+            f"{res[mode]['wall_us']:.1f} us, device busy {res[mode]['device_us']:.1f} us "
+            f"(idle {100 - 100 * res[mode]['device_us'] / res[mode]['wall_us']:.1f} %); "
+            f"by kernel {res[mode]['top']}")
+    return res
+
+
+def session_profile(torch, mcd, dm, ops, steps, mode):
+    """One session under torch.profiler: wall time, device busy time and
+    the kernels that take it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mcd.run_dispatch_session(list(range(len(ops))), 0, dm, ops, steps, quantize=mode)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
+        e, "self_cuda_time_total", 0)
+    top = sorted(kern, key=dev_us, reverse=True)[:4]
+    return {"wall_us": wall_us, "device_us": sum(dev_us(e) for e in kern),
+            "top": [(e.key[:48], round(dev_us(e), 1), e.count) for e in top]}
+
+
+def run_k2_phases(torch, kernels, dev):
+    from incubator_brpc_tpu_torch.ops import quantize
+    from incubator_brpc_tpu_torch.parallel import mc_collective, mc_dispatch
+    from incubator_brpc_tpu_torch.parallel import quantized as Q
+    from incubator_brpc_tpu_torch.rpc.device_method import DeviceMethod
+    from incubator_brpc_tpu_torch.transport import mc_worker
+
+    # -- phase 9: K2 against its plain versions and the numpy twin ------------
+    for mode in ("int8", "int4"):
+        for parties, width in K2_GEOMETRIES:
+            k2_case(torch, quantize, Q, dev, parties, width, 32, mode)
+        k2_case(torch, quantize, Q, dev, 3, 4096, 16, mode)
+    torch.cuda.synchronize()
+
+    # -- phase 10: the session path, counted ----------------------------------
+    kernels.reset_launch_counts()
+    checked = run_sessions(torch, kernels, mc_dispatch, mc_collective, Q, DeviceMethod, mc_worker)
+    launches = kernels.launch_counts()
+    log(f"phase10 launches on the session path: {launches}")
+    missing = [name for name in K2 if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the session path: {missing}")
+
+    # -- phase 11: timings ------------------------------------------------------
+    timings = k2_timings(torch, quantize, dev)
+    sessions = session_timings(torch, mc_dispatch, mc_collective)
+    line = {name: {k: timings[(name, 8, "int8")][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "mode")}
+            for name in K2}
+    for name in K2:
+        line[name]["library_ms"] = None
+        line[name]["host_ms"] = timings[(name, 8, "int8")]["host_ms"]
+        line[name]["int4_ms"] = timings[(name, 8, "int4")]["ms"]
+        line[name]["p64_ms"] = timings[(name, 64, "int8")]["ms"]
+        line[name]["p64_bound_ms"] = timings[(name, 64, "int8")]["bound_ms"]
+    detail = {"timings": {f"{n} P={p} {m}": t for (n, p, m), t in timings.items()},
+              "sessions": sessions, "checked": {f"{n} {m}": c for (n, m), c in checked.items()}}
+    return {"launches": launches, "line": line, "detail": detail}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the detailed timings to this JSON file")
@@ -596,6 +987,7 @@ def main() -> int:
     from incubator_brpc_tpu_torch.transport.device import MAX_BUCKET_WORDS, DeviceEndpoint
     from incubator_brpc_tpu_torch.utils.status import ErrorCode
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
@@ -686,7 +1078,10 @@ def main() -> int:
     # -- phases 5-8: K3 and the FabricNet train step --------------------------
     k3 = run_k3_phases(torch, kernels, dev)
 
-    # -- phase 9: the kernels line, then the result line -----------------------
+    # -- phases 9-11: K2 and the quantized collective sessions ----------------
+    k2 = run_k2_phases(torch, kernels, dev)
+
+    # -- phase 12: the kernels line, then the result line ----------------------
     line = []
     for name in K1:
         rows, words = REPORT_AT[name]
@@ -706,11 +1101,20 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": k3["launches"][name],
             "max_abs_err": k3["max_err"][name], **k3["line"][name],
         })
+    for name in K2:
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "incubator_brpc_tpu_torch/csrc/quantize.cu",
+            "replaces": REPLACES[name], "launches": k2["launches"][name],
+            "max_abs_err": 0.0, **k2["line"][name],  # phase 9 holds K2 bitwise
+        })
     if opts.out:
         detail = [dict(kernel=n, rows=r, words=w, **t) for (n, r, w), t in p2.timings.items()]
         with open(opts.out, "w") as f:
             json.dump({"card": card, "timings": detail, "launches": launches,
-                       "k3": k3["detail"], "fabricnet": k3["fabricnet"]}, f, indent=1)
+                       "k3": k3["detail"], "fabricnet": k3["fabricnet"], "k2": k2["detail"],
+                       "k2_launches": k2["launches"]}, f, indent=1)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the card probe to the kernels line")
     log(card)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

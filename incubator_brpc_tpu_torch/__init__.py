@@ -14,7 +14,11 @@ step), ``runtime/device_butex.py`` (completion wake-ups on CUDA events),
 ``transport/device.py`` (``DeviceEndpoint``), and the training path:
 ``ops/attention.py`` with ``csrc/attention.cu`` (K3, the ring-attention
 fold and its gradient), ``models/ring_attention.py``,
-``parallel/mesh.py`` (the one-card fabric mesh) and ``models/fabricnet.py``.
+``parallel/mesh.py`` (the one-card fabric mesh) and ``models/fabricnet.py``;
+and the collective sessions: ``ops/quantize.py`` with ``csrc/quantize.cu``
+(K2, block quantize and dequantize-mean), ``parallel/quantized.py``,
+``parallel/mc_dispatch.py`` (``run_dispatch_session``),
+``parallel/mc_collective.py`` and ``rpc/device_method.py``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise (:func:`resolve_device`).
@@ -32,6 +36,7 @@ _LAZY_SUBMODULES = (
     "transport",
     "runtime",
     "parallel",
+    "rpc",
 )
 
 

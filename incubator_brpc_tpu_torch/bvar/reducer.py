@@ -1,4 +1,4 @@
-"""Reducers: Adder/Maxer (reference src/bvar/reducer.h).
+"""Reducers: Adder/Maxer (reference src/bvar/reducer.h), and PassiveStatus.
 
 Write path is thread-local (one agent per writer thread, found via a
 threading.local) — the reference's AgentGroup/AgentCombiner design
@@ -72,3 +72,14 @@ class Maxer(Reducer):
 
     def __init__(self, name: Optional[str] = None, identity=float("-inf")):
         super().__init__(max, identity, name=name)
+
+
+class PassiveStatus(Variable):
+    """Value computed on read (reference src/bvar/passive_status.h)."""
+
+    def __init__(self, fn: Callable[[], object], name: Optional[str] = None):
+        self._fn = fn
+        super().__init__(name)
+
+    def get_value(self):
+        return self._fn()

@@ -21,7 +21,8 @@ its plain version on the card, and CPU execution runs them.
 
 The kernels are built at first use: ``nvcc`` compiles each source of
 ``csrc/`` (``framing.cu`` here, ``attention.cu`` for K3, whose wrappers are
-in ``ops/attention.py``) for ``sm_90a``, one process per source, all
+in ``ops/attention.py``, and ``quantize.cu`` for K2, whose wrappers are in
+``ops/quantize.py``) for ``sm_90a``, one process per source, all
 started together, and links them into one shared library with a plain C
 interface under ``incubator_brpc_tpu_torch/_build/``, loaded with
 ``ctypes``. Each wrapper adds one to its launch count
@@ -47,8 +48,9 @@ ENOMETHOD = 1002
 EREQUEST = 1003
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG_DIR / "csrc" / "framing.cu", _PKG_DIR / "csrc" / "attention.cu")
+SOURCES = tuple(_PKG_DIR / "csrc" / f for f in ("framing.cu", "attention.cu", "quantize.cu"))
 BUILD_DIR = _PKG_DIR / "_build"
+# no --use_fast_math, -ftz=true or -prec-div=false: K2 is bitwise (quantize.cu)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -68,6 +70,8 @@ KERNELS = (
     "attn_bwd_delta",
     "attn_bwd_dkdv",
     "attn_bwd_dq",
+    "quantize_rows",
+    "dequant_mean_rows",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -179,9 +183,11 @@ def build() -> ctypes.CDLL:
             lib.tb_attn_bwd_dq.argtypes = [
                 p, p, p, p, c_int, p, p, p, i64, i64, i64, i64, i64, c_int, p
             ]
+            lib.tb_quantize_rows.argtypes = [p, i64, i64, i64, c_int, c_int, p, p, p]
+            lib.tb_dequant_mean_rows.argtypes = [p, p, i64, i64, c_int, c_int, c_int, p, p]
             for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
                        lib.tb_attn_fold_fwd, lib.tb_attn_bwd_delta, lib.tb_attn_bwd_dkdv,
-                       lib.tb_attn_bwd_dq):
+                       lib.tb_attn_bwd_dq, lib.tb_quantize_rows, lib.tb_dequant_mean_rows):
                 fn.restype = c_int
             _lib = lib
     return _lib

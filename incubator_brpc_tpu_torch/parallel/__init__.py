@@ -1,1 +1,3 @@
-"""parallel — the fabric mesh (``mesh.py``); one card for now."""
+"""parallel — the fabric mesh and the party axis (``mesh.py``), block
+quantized collectives (``quantized.py``), and the collective session plane
+(``mc_dispatch.py``, ``mc_collective.py``); one card for now."""

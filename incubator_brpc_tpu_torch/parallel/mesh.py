@@ -15,6 +15,21 @@ every axis is 1, so each collective of the JAX package is an identity. The
 mesh over several ``torch.distributed`` ranks is a later slice. The JAX
 package's ``parallel/compat.py`` (the ``shard_map`` seam across JAX
 versions) has no counterpart: nothing here is traced.
+
+:class:`PartyAxis` is the party axis of a collective session
+(``parallel/mc_dispatch.py``), the axis the JAX kernels name ``"par"``. In
+the single-controller form one process holds every party's row: the state
+is one tensor whose dim 0 is the party, on one device. A session kernel has
+the signature
+
+    kernel(data: uint8[P, width], n: int32[P], axis: PartyAxis)
+        -> (uint8[P, width], int32[P])
+
+and computes every party's next row at once, where a JAX kernel computes
+one party's row under ``shard_map``. ``axis.all_gather(t)`` is then ``t``
+itself, and ``axis.psum(t)`` the sum over dim 0 in party order, handed to
+every party's row. The form over ``torch.distributed`` ranks, one party
+per rank, is a later slice.
 """
 
 from __future__ import annotations
@@ -78,3 +93,44 @@ def make_fabric_mesh(
             "torch.distributed ranks is ROADMAP slice 4"
         )
     return FabricMesh(shape=shape, device=resolve_device(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class PartyAxis:
+    """The party axis of a single-controller session: ``size`` parties
+    whose rows are dim 0 of one tensor on ``device``."""
+
+    size: int
+    device: torch.device
+
+    def _check(self, t: torch.Tensor, op: str) -> None:
+        if t.dim() < 1 or t.shape[0] != self.size:
+            raise ValueError(
+                f"PartyAxis.{op}: shape {tuple(t.shape)}; want {self.size} parties on "
+                "dim 0 (the form with one party per torch.distributed rank is ROADMAP "
+                "slice 6)"
+            )
+        if t.device != self.device:
+            raise ValueError(f"PartyAxis.{op}: tensor on {t.device}, axis on {self.device}")
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every party's row, as every party sees it: ``t`` itself."""
+        self._check(t, "all_gather")
+        return t
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over parties, added in party order (0, 1, ...), as
+        every party's row: ``[P, ...]``, a broadcast view of one sum."""
+        self._check(t, "psum")
+        acc = t[0].clone()
+        for p in range(1, self.size):
+            acc += t[p]
+        return acc.expand_as(t)
+
+
+def party_axis(parties: int, device: DeviceLike = None) -> PartyAxis:
+    """The party axis of a session of ``parties`` rows on one device
+    (``cuda`` unless ``device="cpu"``)."""
+    if not 1 <= parties:
+        raise ValueError(f"a session needs at least one party, got {parties}")
+    return PartyAxis(size=int(parties), device=resolve_device(device))

@@ -85,3 +85,56 @@ define_flag(
     8,
     "completion-watcher threads; bounds overlapped device->host readbacks (rdma_cq_num analog)",
 )
+
+# -- the collective session plane (parallel/mc_dispatch.py) --------------------
+
+define_flag(
+    "mc_dispatch_min_steps",
+    0,
+    "minimum step count this party accepts into a collective-method "
+    "session: its accept ack raises the session target to at least this "
+    "(the proposer folds every target with max — the N-party join)",
+    lambda v: v >= 0,
+)
+
+define_flag(
+    "mc_dispatch_session_deadline_ms",
+    0,
+    "default per-session deadline for collective-method sessions: a "
+    "session older than this aborts fabric-wide with ESESSION (every "
+    "party watches its own copy, so a partitioned party still unwedges); "
+    "0 = inherit the proposal's RPC timeout",
+    lambda v: v >= 0,
+)
+
+define_flag(
+    "mc_dispatch_checkpoint_every",
+    0,
+    "checkpoint cadence (in lockstep steps) for collective-method "
+    "sessions: every C completed steps each party retains its "
+    "device-resident operand shards in a ring, so an aborted session can "
+    "resume from the last COMMON checkpoint instead of step 0; the "
+    "proposer stamps the cadence into the run proposal so every party "
+    "checkpoints the same steps; 0 = checkpointing off (abort = restart)",
+    lambda v: v >= 0,
+)
+
+define_flag(
+    "mc_dispatch_checkpoint_depth",
+    4,
+    "ring depth of the per-party checkpoint store: how many checkpointed "
+    "steps stay device-resident per session (older entries are evicted "
+    "oldest-first; memory cost per entry is parties x width bytes)",
+    lambda v: v >= 1,
+)
+
+define_flag(
+    "mc_dispatch_step_deadline_ms",
+    0,
+    "per-STEP watchdog for collective-method sessions: a single lockstep "
+    "step (dispatch-to-dispatch progress, or the final fetch) stalled "
+    "longer than this aborts the session fabric-wide — bounding a wedge "
+    "INSIDE one step instead of waiting out the whole session deadline; "
+    "0 = off (the session deadline is the only backstop)",
+    lambda v: v >= 0,
+)

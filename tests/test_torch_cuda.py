@@ -1,9 +1,12 @@
 """The port's CUDA kernels and endpoint on the card: each K1 kernel against
 its plain version, bit for bit, the endpoint's calls answered through the
 kernels, K3 (the ring-attention fold and its gradient) against its plain
-versions within the tolerances of ``chip_smoke.py``, and one FabricNet train
-step on the card against the CPU. Marked ``gpu``; each test skips where
-PyTorch sees no CUDA card.
+versions within the tolerances of ``chip_smoke.py``, one FabricNet train
+step on the card against the CPU, K2 (block quantize and dequantize-mean)
+against its plain versions and the numpy twin bit for bit on
+``chip_smoke.py``'s rows, and one quantized session on the card against the
+same session on the CPU, byte for byte. Marked ``gpu``; each test skips
+where PyTorch sees no CUDA card.
 
 This file imports no JAX, so on a card machine without JAX it runs with
 
@@ -14,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from incubator_brpc_tpu_torch.models import fabricnet
 from incubator_brpc_tpu_torch.models.tensor_echo import TensorEchoService, make_echo_step
-from incubator_brpc_tpu_torch.ops import attention, framing, kernels
+from incubator_brpc_tpu_torch.ops import attention, framing, kernels, quantize
+from incubator_brpc_tpu_torch.parallel import mc_collective, mc_dispatch
+from incubator_brpc_tpu_torch.parallel import quantized as Q
 from incubator_brpc_tpu_torch.parallel.mesh import make_fabric_mesh
 from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
 
@@ -184,3 +190,75 @@ def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
     assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
     for name, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][name], want, rtol=1e-5, atol=1e-5)
+
+
+K2 = ("quantize_rows", "dequant_mean_rows")
+
+
+def _bits(t):
+    return t.cpu().contiguous().view(torch.uint8).numpy()
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("parties,width,block", [(3, 4096, 32), (3, 4096, 16), (8, 1 << 20, 32)])
+def test_k2_matches_plain_versions_and_the_numpy_twin(cuda, mode, parties, width, block):
+    nfloats = width // 4
+    rows = chip_smoke.quant_rows(parties, nfloats, block, mode, seed=parties + block)
+    x = torch.from_numpy(rows).to(cuda)
+    before = kernels.launch_counts()
+    q, e = quantize.quantize_rows(x, mode, block)
+    mean = quantize.dequant_mean_rows(q, e, mode, block)
+    deq = quantize.dequant_mean_rows(q, e, mode, block, mean=False)
+    after = kernels.launch_counts()
+    assert after["quantize_rows"] == before["quantize_rows"] + 1
+    assert after["dequant_mean_rows"] == before["dequant_mean_rows"] + 2
+    qp, ep = quantize.quantize_rows_plain(x, mode, block)
+    assert np.array_equal(_bits(q), _bits(qp)) and np.array_equal(_bits(e), _bits(ep))
+    assert np.array_equal(_bits(mean), _bits(quantize.dequant_mean_rows_plain(qp, ep, mode, block)))
+    assert np.array_equal(_bits(deq), _bits(quantize.dequantize_rows_plain(qp, ep, mode, block)))
+    with np.errstate(over="ignore"):  # the FLT_MAX edge block dequantizes to +inf
+        twins = [Q.np_quantize(r, mode, block) for r in rows]
+        deqs = [Q.np_dequantize(tq, te, mode, block) for tq, te in twins]
+        want_mean = np.sum(np.stack(deqs), axis=0, dtype=np.float32) / np.float32(parties)
+    for r, (tq, te) in enumerate(twins):
+        assert _bits(q[r]).tobytes() == tq.tobytes() and _bits(e[r]).tobytes() == te.tobytes()
+        assert _bits(deq[r]).tobytes() == deqs[r].tobytes()
+        assert _bits(mean[r]).tobytes() == want_mean.tobytes()
+    # a chunk of the state, cut at a block boundary, is quantized in place
+    cut = 2 * block
+    qc, ec = quantize.quantize_rows(x[:, cut:2 * cut], mode, block)
+    qw, ew = quantize.quantize_rows_plain(x[:, cut:2 * cut].contiguous(), mode, block)
+    assert np.array_equal(_bits(qc), _bits(qw)) and np.array_equal(_bits(ec), _bits(ew))
+
+
+def test_k2_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((4, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize.quantize_rows(x.t().contiguous().t(), "int8", 32)
+    with pytest.raises(ValueError, match="odd"):
+        quantize.quantize_rows(x, "int4", 1)
+    q, e = quantize.quantize_rows(x, "int8", 32)
+    with pytest.raises(ValueError):
+        quantize.dequant_mean_rows(q, e.cpu(), "int8", 32)
+    with pytest.raises(TypeError):
+        quantize.dequant_mean_rows(q.view(torch.uint8), e, "int8", 32)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_session_on_the_card_matches_the_cpu(cuda, mode):
+    width, steps = 4096, 4
+    rows = chip_smoke.quant_rows(3, width // 4, 32, mode, seed=11, edges=False)
+    dm = mc_collective._pmean_dm(width)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        before = kernels.launch_counts()
+        row, n, _ = mc_dispatch.run_dispatch_session(
+            [0, 1, 2], 0, dm, [r.tobytes() for r in rows], steps,
+            service=mc_collective.PMEAN_SERVICE, method=mc_collective.PMEAN_METHOD,
+            quantize=mode, chunks=2, double_buffer=True, device=dev,
+        )
+        after = kernels.launch_counts()
+        got[dev] = bytes(row[:n])
+        if dev == "cuda":
+            assert all(after[k] == before[k] + steps * 2 for k in K2)
+    assert got["cuda"] == got["cpu"]
