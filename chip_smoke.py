@@ -9,7 +9,8 @@ Run from the repository root on a machine with a CUDA card. It builds the
 port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
 ``incubator_brpc_tpu_torch/_build/``) and then, failing on the first fault:
 
-1. prints the card (``nvidia-smi`` name and power limit) and the build time;
+1. prints the card (``nvidia-smi`` name and power limit), the build time,
+   and each K3 kernel's registers and spills from ptxas's report;
 2. holds each kernel — K1a ``frame_rows``, K1b ``verify_rows``, K1c
    ``echo_step_rows`` — against its plain PyTorch version on the card,
    bit for bit, at every geometry of the main path, with rows that carry a
@@ -23,21 +24,28 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``make_echo_step`` step of 2^26 words; every response and error code is
    checked, and every kernel must have launched;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
-5. holds K3 (``attn_fold_fwd``, ``attn_bwd_delta``, ``attn_bwd_dkdv``,
-   ``attn_bwd_dq``) against its plain versions at the bench attention shape
-   (B 4, T 1024, H 2, D 1024; sp 1 and 4; bf16 and f32; causal and not) and
-   a small ragged one (B 2, T 48, H 4, D 16, sp 4), and ``ring_attention``
-   against ``full_attention`` on the card;
+5. holds K3 (the forward fold, ``attn_fold_fwd_tc`` on the tensor cores
+   for bf16 operands and ``attn_fold_fwd`` for f32; ``attn_bwd_delta``,
+   ``attn_bwd_dkdv``, ``attn_bwd_dq``) against its plain versions at the
+   bench attention shape (B 4, T 1024, H 2, D 1024; sp 1 and 4; bf16 and
+   f32; causal and not) and two ragged ones (B 2, T 48, H 4, D 16, sp 4;
+   B 1, T 200, H 2, D 144, sp 2), and ``ring_attention`` against
+   ``full_attention`` on the card;
 6. runs one FabricNet train step (d_model 32, heads 2, two layers, f32) on
    the card and on the CPU from the same numpy weights and compares them;
 7. drives the second main path with the launch counts set to zero: 10
    FabricNet train steps at the ``bench_fabricnet`` width (bf16, one
    microbatch) on the one-card mesh, whose loss must stay finite and fall,
-   with ms per step, FLOPs per step, TFLOP/s, peak memory and K3 launches;
-8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16)
-   with CUDA events beside its bound, its plain version and
-   ``scaled_dot_product_attention``, and breaks two train steps down by
-   kernel with torch.profiler (device busy and idle share);
+   with ms per step, FLOPs per step, TFLOP/s, peak memory and K3 launches
+   (one ``attn_fold_fwd_tc`` and one of each backward kernel a step, no
+   ``attn_fold_fwd``); then 3 steps of the same in f32, counted alike
+   (``attn_fold_fwd`` a step, no ``attn_fold_fwd_tc``);
+8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16;
+   the tensor-core fold also at B 1, 64 blocks; the f32 fold at sp 1 in
+   f32) with CUDA events beside its bound, its
+   plain version and ``scaled_dot_product_attention``, and breaks two bf16
+   train steps down by kernel with torch.profiler (device busy and idle
+   share);
 9. holds K2 (``quantize_rows``, ``dequant_mean_rows``) against its plain
    versions and the numpy twin of ``parallel/quantized.py``, bit for bit,
    in int8 and int4, at (parties, row bytes) (2, 4096), (3, 4096), (8,
@@ -70,6 +78,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -84,7 +93,11 @@ F32_FLOPS_PER_S = 67e12  # outside the tensor cores: what K3's f32 FMAs run on
 BF16_TC_FLOPS_PER_S = 989e12
 
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
-K3 = ("attn_fold_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
+K3 = ("attn_fold_fwd", "attn_fold_fwd_tc", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
+K3_BWD = K3[2:]
+# the forward fold each operand dtype launches (ops/attention.py fold)
+FOLD = {"float32": "attn_fold_fwd", "bfloat16": "attn_fold_fwd_tc"}
+K3_SOURCE = {"attn_fold_fwd_tc": "incubator_brpc_tpu_torch/csrc/attention_tc.cu"}
 # bench.py bench_fabricnet: d_model 2048 over heads 2 -> D 1024, batch 4, seq 1024
 BENCH_ATTN = (4, 1024, 2, 1024)
 BENCH_FABRICNET = dict(d_model=2048, d_ff=8192, d_expert=2048, experts_per_rank=2,
@@ -110,6 +123,7 @@ REPLACES = {
     "verify_rows": "incubator_brpc_tpu/ops/framing.py:121",
     "echo_step_rows": "incubator_brpc_tpu/models/tensor_echo.py:42",
     "attn_fold_fwd": "incubator_brpc_tpu/models/ring_attention.py:35",
+    "attn_fold_fwd_tc": "incubator_brpc_tpu/models/ring_attention.py:35",
     "attn_bwd_delta": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dkdv": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dq": "incubator_brpc_tpu/models/ring_attention.py:48",
@@ -167,6 +181,28 @@ def quant_rows(parties: int, nfloats: int, block: int, mode: str, seed: int,
         for p in range(parties):
             rows[p, : k * block] = np.roll(edge, p, axis=0)[:k].reshape(-1)
     return rows
+
+
+def ptxas_report(build_log: str, names) -> dict:
+    """Registers and spill bytes of each kernel entry in ptxas's report (one
+    entry per template instance), keyed by the longest of ``names`` that the
+    mangled entry name holds (K3's entries carry their wrappers' names)."""
+    report, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            held = [n for n in names if n in m.group(1)]
+            cur = {"entry": m.group(1)} if held else None
+            if cur:
+                report.setdefault(max(held, key=len), []).append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return report
 
 
 def card_line() -> str:
@@ -432,32 +468,42 @@ def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
     want_dk, want_dv = attention.dkdv_plain(q, k, v, dout, lse, want_delta, sp=sp, causal=causal)
     want_dq = attention.dq_plain(q, k, v, dout, lse, want_delta, sp=sp, causal=causal)
     torch.cuda.synchronize()
+    fold = errs[FOLD[str(dtype)[6:]]]
     parts = [
-        err_within(torch, "out", out, want_out, tol[dtype], errs["attn_fold_fwd"]),
-        err_within(torch, "m", m, state[0], f32, errs["attn_fold_fwd"]),
-        err_within(torch, "l", l, state[1], f32, errs["attn_fold_fwd"]),
-        err_within(torch, "o", o, state[2], f32, errs["attn_fold_fwd"]),
-        err_within(torch, "lse", lse, want_lse, f32, errs["attn_fold_fwd"]),
+        err_within(torch, "out", out, want_out, tol[dtype], fold),
+        err_within(torch, "m", m, state[0], f32, fold),
+        err_within(torch, "l", l, state[1], f32, fold),
+        err_within(torch, "o", o, state[2], f32, fold),
+        err_within(torch, "lse", lse, want_lse, f32, fold),
         err_within(torch, "delta", delta, want_delta, f32, errs["attn_bwd_delta"]),
         err_within(torch, "dk", dk, want_dk, tol[dtype], errs["attn_bwd_dkdv"]),
         err_within(torch, "dv", dv, want_dv, tol[dtype], errs["attn_bwd_dkdv"]),
         err_within(torch, "dq", dq, want_dq, tol[dtype], errs["attn_bwd_dq"]),
     ]
     log(f"phase5 K3 B={b} T={t} H={h} D={d} sp={sp} {str(dtype)[6:]} "
-        f"{'causal' if causal else 'full'}: " + "; ".join(parts))
+        f"{'causal' if causal else 'full'} ({FOLD[str(dtype)[6:]]}): " + "; ".join(parts))
 
 
-def k3_bounds(flops, nbytes):
-    """(bound ms, what bounds it, tensor-core bound ms): ops over the f32 CUDA
-    cores' peak (the arithmetic K3 does) or bytes over HBM, the larger."""
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+def k3_bounds(flops, nbytes, peak=F32_FLOPS_PER_S):
+    """(bound ms, what bounds it, tensor-core bound ms): ops over the peak of
+    the units that do them (the f32 CUDA cores for the CUDA-core kernels,
+    bf16 tensor cores for ``attn_fold_fwd_tc``, whose P split's third
+    product counts as no work) or bytes over HBM, the larger."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes), by, flops / BF16_TC_FLOPS_PER_S * 1e3
 
 
+def fold_bytes(n, stats, itemsize):
+    """What a full forward must move: q, k, v read, out written (in the
+    operands' dtype), the f32 running o written, and m, l, lse written."""
+    return 3 * itemsize * n + itemsize * n + 4 * n + 3 * stats
+
+
 def k3_timings(torch, attention, gen, dev, sp):
-    """CUDA-event times at the bench attention shape, bf16, causal."""
+    """CUDA-event times at the bench attention shape, bf16, causal: the
+    tensor-core fold and the backward kernels."""
     import torch.nn.functional as F
 
     b, t, h, d = BENCH_ATTN
@@ -477,8 +523,8 @@ def k3_timings(torch, attention, gen, dev, sp):
     flops = {p: attention.attention_flops(b, t, h, d, causal=True, products=p) for p in (2, 3, 4)}
     cases = {
         # name: (kernel, plain, flops, bytes: inputs read once, outputs written once)
-        "attn_fold_fwd": (lambda: attention.forward(q, k, v, sp=sp, causal=True), plain_fwd,
-                          flops[2], 3 * 2 * n + 2 * n + 4 * n + 3 * stats),
+        "attn_fold_fwd_tc": (lambda: attention.forward(q, k, v, sp=sp, causal=True), plain_fwd,
+                             flops[2], fold_bytes(n, stats, 2)),
         "attn_bwd_delta": (lambda: attention.row_dot(out, dout),
                            lambda: attention.row_dot_plain(out, dout), 2 * n, 2 * 2 * n + stats),
         "attn_bwd_dkdv": (lambda: attention.dkdv(q, k, v, dout, lse, delta, sp=sp, causal=True),
@@ -490,12 +536,17 @@ def k3_timings(torch, attention, gen, dev, sp):
     }
     res = {}
     for name, (kern, plain, fl, nbytes) in cases.items():
-        bound, by, tc = k3_bounds(fl, nbytes)
+        bound, by, tc = k3_bounds(fl, nbytes, BF16_TC_FLOPS_PER_S if name == FOLD["bfloat16"]
+                                  else F32_FLOPS_PER_S)
         res[name] = {"ms": time_ms(torch, kern, 10), "plain_ms": time_ms(torch, plain, 3, warmup=1),
                      "bound_ms": bound, "bound_by": by, "tensor_core_bound_ms": tc,
                      "flops": fl, "bytes": nbytes}
     res["backward"] = {"ms": time_ms(torch, lambda: attention.backward(
         q, k, v, out, dout, lse, sp=sp, causal=True), 10)}
+    if sp == 1:  # B 1: 64 blocks, fewer than the SMs, each as heavy as at B 4
+        q1, k1, v1 = (x[:1].contiguous() for x in (q, k, v))
+        res["fold_b1_ms"] = time_ms(torch, lambda: attention.forward(q1, k1, v1, sp=1,
+                                                                     causal=True), 10)
     # the yardstick the port never calls: one PyTorch call, (B, H, T, D)
     qt, kt, vt, dt = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
@@ -511,9 +562,40 @@ def k3_timings(torch, attention, gen, dev, sp):
              f"plain {r['plain_ms']:.4f})" for name, r in res.items() if name in K3]
     log(f"phase8 K3 timings B={b} T={t} H={h} D={d} bf16 causal sp={sp} "
         f"({sp if sp > 1 else 1} fold launches): " + "; ".join(parts)
+        + (f"; attn_fold_fwd_tc at B=1 (64 blocks) {res['fold_b1_ms']:.4f} ms" if sp == 1 else "")
         + f"; backward (3 kernels) {res['backward']['ms']:.4f} ms; "
         f"scaled_dot_product_attention fwd {res['sdpa_fwd_ms']:.4f} ms, "
         f"fwd+bwd {res['sdpa_fwd_bwd_ms']:.4f} ms")
+    return res
+
+
+def fold_f32_timing(torch, attention, gen, dev):
+    """CUDA-event times of the CUDA-core fold, which float32 operands take,
+    at the bench attention shape, causal, sp 1, beside its bound, its plain
+    version and SDPA's forward on the same f32 tensors."""
+    import torch.nn.functional as F
+
+    b, t, h, d = BENCH_ATTN
+    n = b * t * h * d
+    q, k, v = (torch.randn(BENCH_ATTN, generator=gen, device=dev) for _ in range(3))
+    fl = attention.attention_flops(b, t, h, d, causal=True, products=2)
+    nbytes = fold_bytes(n, 4 * b * h * t, 4)
+    bound, by, tc = k3_bounds(fl, nbytes)
+
+    def plain_fwd():
+        return attention.finalize_plain(
+            attention.fold_plain(q, k, v, None, hop=0, sp=1, causal=True), q.dtype)
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    res = {"ms": time_ms(torch, lambda: attention.forward(q, k, v, sp=1, causal=True), 10),
+           "plain_ms": time_ms(torch, plain_fwd, 3, warmup=1), "bound_ms": bound,
+           "bound_by": by, "tensor_core_bound_ms": tc, "flops": fl, "bytes": nbytes,
+           "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True), 10)}
+    log(f"phase8 attn_fold_fwd (f32 operands) B={b} T={t} H={h} D={d} causal sp=1: "
+        f"{res['ms']:.4f} ms (bound {bound:.4f} by {by}, {100 * bound / res['ms']:.1f} %; "
+        f"plain {res['plain_ms']:.4f}); scaled_dot_product_attention fwd f32 "
+        f"{res['library_ms']:.4f} ms")
     return res
 
 
@@ -549,9 +631,11 @@ def fabricnet_small_card_vs_cpu(torch, fabricnet, dev):
         f"value (tol 1e-5)")
 
 
-def fabricnet_main_path(torch, fabricnet, kernels, dev):
-    """The second main path: 10 train steps at the bench_fabricnet width."""
-    cfg = fabricnet.FabricNetConfig(dtype=torch.bfloat16, **BENCH_FABRICNET)
+def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
+    """The second main path: ``nsteps`` train steps at the bench_fabricnet
+    width in ``dtype``, counted: each K3 kernel of that dtype's path once a
+    step, the other dtype's fold never."""
+    cfg = fabricnet.FabricNetConfig(dtype=dtype, **BENCH_FABRICNET)
     mesh = fabricnet.make_fabric_mesh(1)
     gen = torch.Generator(device=mesh.device)
     gen.manual_seed(0)
@@ -561,7 +645,7 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    losses, warmup, nsteps = [], 2, 10
+    losses = []
     for i in range(nsteps):
         if i == warmup:
             t0 = time.perf_counter()
@@ -573,18 +657,21 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev):
     peak = torch.cuda.max_memory_allocated()
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"FabricNet losses not finite and falling: {losses}")
-    missing = [name for name in K3 if launches[name] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the FabricNet path: {missing}")
+    name = str(dtype)[6:]
+    fold, other = FOLD[name], FOLD["float32" if name == "bfloat16" else "bfloat16"]
+    per_step = {n: launches[n] / nsteps for n in K3}
+    if any(per_step[n] != 1 for n in (fold,) + K3_BWD) or launches[other]:
+        raise AssertionError(f"FabricNet {name}: K3 launches per step {per_step}; want one of "
+                             f"{fold} and of each backward kernel, none of {other}")
     flops = fabricnet.train_step_flops(cfg)
     tflops = flops / ms * 1e-9
     log(f"phase7 FabricNet at the bench_fabricnet width ({BENCH_FABRICNET}, heads {cfg.heads}, "
-        f"bf16), {nsteps} train steps: losses {losses}")
-    log(f"phase7 {ms:.3f} ms/step (host clock, steps {warmup + 1}-{nsteps}); "
+        f"{name}), {nsteps} train steps: losses {losses}")
+    log(f"phase7 {name} {ms:.3f} ms/step (host clock, steps {warmup + 1}-{nsteps}); "
         f"{flops / 1e12:.4f} TFLOP/step (3 x forward, attention without the causal skip); "
         f"{tflops:.2f} TFLOP/s = {100 * tflops / 989:.2f} % of 989 TFLOP/s bf16; "
         f"peak memory {peak} B ({peak / 2**30:.3f} GiB); launches {launches}; "
-        f"K3 launches per step {[launches[n] / nsteps for n in K3]}")
+        f"K3 launches per step {per_step}")
     return {"ms_per_step": ms, "flops_per_step": flops, "tflops": tflops, "losses": losses,
             "peak_bytes": peak, "launches": launches, "nsteps": nsteps}, (step, params, x, y)
 
@@ -637,7 +724,10 @@ def run_k3_phases(torch, kernels, dev):
     errs = {name: {} for name in K3}
 
     # -- phase 5: K3 against its plain versions, and the ring against full ---
-    shapes = [BENCH_ATTN + (1,), BENCH_ATTN + (4,), (2, 48, 4, 16, 4)]
+    # the bench shape at sp 1 and 4; T/sp = 12 at D 16; T/sp = 100 at D 144,
+    # ragged against the tensor-core fold's 32-row and 64-key tiles and its
+    # 128-column D chunks
+    shapes = [BENCH_ATTN + (1,), BENCH_ATTN + (4,), (2, 48, 4, 16, 4), (1, 200, 2, 144, 2)]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
@@ -660,11 +750,15 @@ def run_k3_phases(torch, kernels, dev):
     # -- phase 6: FabricNet on the card against the port on the CPU -----------
     fabricnet_small_card_vs_cpu(torch, fabricnet, dev)
 
-    # -- phase 7: the FabricNet main path, counted ------------------------------
-    fab, train = fabricnet_main_path(torch, fabricnet, kernels, dev)
+    # -- phase 7: the FabricNet main path, counted: bf16 (the bench's dtype),
+    # then f32, the path of the CUDA-core fold --------------------------------
+    fab, train = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.bfloat16, 10, 2)
+    fab32, _ = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.float32, 3, 1)
+    launches = dict(fab["launches"], attn_fold_fwd=fab32["launches"]["attn_fold_fwd"])
 
     # -- phase 8: K3 timings --------------------------------------------------
     timings = {sp: k3_timings(torch, attention, gen, dev, sp) for sp in (1, 4)}
+    timings[1]["attn_fold_fwd"] = fold_f32_timing(torch, attention, gen, dev)
     fab["profile"] = profile_steps(torch, train)
     main = timings[1]  # FabricNet's sp = 1
     line = {}
@@ -672,16 +766,23 @@ def run_k3_phases(torch, kernels, dev):
         r = main[name]
         line[name] = {
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
-            "library_ms": main["sdpa_fwd_ms"] if name == "attn_fold_fwd" else None,
+            "bound_by": r["bound_by"], "library_ms": None,
             "tensor_core_bound_ms": r["tensor_core_bound_ms"],
             "shape": list(BENCH_ATTN), "sp": 1, "dtype": "bfloat16",
         }
-        if name != "attn_fold_fwd":
+        if name == "attn_fold_fwd_tc":
+            line[name]["library_ms"] = main["sdpa_fwd_ms"]
+            line[name]["sp4_ms"] = timings[4][name]["ms"]
+            line[name]["sp4_bound_ms"] = timings[4][name]["bound_ms"]
+            line[name]["b1_ms"] = main["fold_b1_ms"]
+        elif name == "attn_fold_fwd":  # the f32 path's launches, timed in f32
+            line[name].update(library_ms=r["library_ms"], dtype="float32")
+        else:
             line[name]["backward_ms"] = main["backward"]["ms"]
             line[name]["sdpa_backward_ms"] = main["sdpa_fwd_bwd_ms"] - main["sdpa_fwd_ms"]
-    return {"launches": fab["launches"], "max_err": max_err, "line": line,
-            "detail": {f"sp{sp}": t for sp, t in timings.items()}, "fabricnet": fab}
+    return {"launches": launches, "max_err": max_err, "line": line,
+            "detail": {f"sp{sp}": t for sp, t in timings.items()}, "fabricnet": fab,
+            "fabricnet_f32": fab32}
 
 
 # -- K2 and the quantized collective sessions (phases 9-11) --------------------
@@ -996,9 +1097,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"phase1 build: {time.perf_counter() - t0:.3f}s")
-    for line in kernels.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    ptxas = ptxas_report(kernels.build_log(), K3)
+    for name, entries in ptxas.items():
+        for e in entries:
+            log(f"  ptxas {name}: {e.get('registers')} registers, spill stores "
+                f"{e.get('spill_stores')} B, spill loads {e.get('spill_loads')} B ({e['entry'][:60]})")
 
     # -- phase 2: kernels against their plain versions ------------------------
     p2 = Phase2(torch, kernels, dev)
@@ -1083,6 +1186,13 @@ def main() -> int:
 
     # -- phase 12: the kernels line, then the result line ----------------------
     line = []
+
+    def regs(name):  # K3's entries: the most registers of any instance, all spill bytes
+        entries = ptxas.get(name, [])
+        return {"registers": max((e.get("registers", 0) for e in entries), default=None),
+                "spill_bytes": sum(e.get("spill_stores", 0) + e.get("spill_loads", 0)
+                                   for e in entries)}
+
     for name in K1:
         rows, words = REPORT_AT[name]
         t = p2.timings[(name, rows, words)]
@@ -1097,9 +1207,9 @@ def main() -> int:
     for name in K3:
         line.append({
             "name": name, "route": "cuda",
-            "source": "incubator_brpc_tpu_torch/csrc/attention.cu",
+            "source": K3_SOURCE.get(name, "incubator_brpc_tpu_torch/csrc/attention.cu"),
             "replaces": REPLACES[name], "launches": k3["launches"][name],
-            "max_abs_err": k3["max_err"][name], **k3["line"][name],
+            "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(name),
         })
     for name in K2:
         line.append({
@@ -1112,8 +1222,9 @@ def main() -> int:
         detail = [dict(kernel=n, rows=r, words=w, **t) for (n, r, w), t in p2.timings.items()]
         with open(opts.out, "w") as f:
             json.dump({"card": card, "timings": detail, "launches": launches,
-                       "k3": k3["detail"], "fabricnet": k3["fabricnet"], "k2": k2["detail"],
-                       "k2_launches": k2["launches"]}, f, indent=1)
+                       "k3": k3["detail"], "fabricnet": k3["fabricnet"],
+                       "fabricnet_f32": k3["fabricnet_f32"], "k2": k2["detail"],
+                       "k2_launches": k2["launches"], "ptxas": ptxas}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the card probe to the kernels line")
     log(card)
     log(json.dumps({"kernels": line}))

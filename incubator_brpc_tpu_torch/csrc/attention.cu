@@ -2,7 +2,9 @@
 //
 //   attn_fold_fwd   <- incubator_brpc_tpu/models/ring_attention.py:35 _block_attn
 //                      + :81 block_merge, and on the last hop :131-133 (the
-//                      divide by max(l, 1e-30) and the cast)
+//                      divide by max(l, 1e-30) and the cast), for f32
+//                      operands; bf16 operands take attn_fold_fwd_tc
+//                      (attention_tc.cu, tensor cores)
 //   attn_bwd_delta  \
 //   attn_bwd_dkdv    > the gradient JAX's autodiff takes through ring_attention
 //   attn_bwd_dq     /  (lax.scan over block_merge), by recomputation
@@ -792,14 +794,18 @@ int dq_t(const void* q, const void* k, const void* v, const void* dout, const fl
 
 extern "C" {
 
+// f32 operands only (dtype 0): bf16 folds run on the tensor cores
 int tb_attn_fold_fwd(const void* q, const void* k, const void* v, int dtype, float* m, float* l,
                      float* o, void* out, float* lse, int64_t B, int64_t T, int64_t H,
                      int64_t D, int64_t sp, int64_t hop, int causal, int finalize,
                      void* stream) {
-  if (!takes(D) || sp <= 0 || T % sp != 0) return int(cudaErrorInvalidValue);
+  if (dtype != 0 || !takes(D) || sp <= 0 || T % sp != 0) return int(cudaErrorInvalidValue);
   const Geo g = geo(B, T, H, D, sp);
-  TB_DISPATCH(fwd_t, dtype, D, q, k, v, m, l, o, out, lse, g, hop, causal, finalize,
-              static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int c = cpt_of(D);
+  return c == 1 ? fwd_t<float, 1>(q, k, v, m, l, o, out, lse, g, hop, causal, finalize, st)
+         : c == 2 ? fwd_t<float, 2>(q, k, v, m, l, o, out, lse, g, hop, causal, finalize, st)
+                  : fwd_t<float, 4>(q, k, v, m, l, o, out, lse, g, hop, causal, finalize, st);
 }
 
 int tb_attn_bwd_delta(const void* out, const void* dout, int dtype, float* delta, int64_t B,

@@ -1,12 +1,17 @@
 """K3 — the ring-attention block fold, forward and backward, and their plain
 versions.
 
-The wrappers over the hand-written CUDA kernels in ``csrc/attention.cu``:
+The wrappers over the hand-written CUDA kernels in ``csrc/attention.cu``
+and ``csrc/attention_tc.cu``:
 
-- :func:`fold` (``attn_fold_fwd``) replaces
-  ``incubator_brpc_tpu/models/ring_attention.py`` ``_block_attn`` (:35) and
-  ``block_merge`` (:81) for one hop of the ring, every rank at once, and on
-  the last hop the divide and cast of :131-133.
+- :func:`fold` replaces ``incubator_brpc_tpu/models/ring_attention.py``
+  ``_block_attn`` (:35) and ``block_merge`` (:81) for one hop of the ring,
+  every rank at once, and on the last hop the divide and cast of :131-133.
+  The operands' dtype picks the kernel: bfloat16 goes to
+  ``attn_fold_fwd_tc`` (``attention_tc.cu``, bf16 products on the tensor
+  cores with f32 accumulation, P split as :func:`split_bf16` states; it
+  takes ``D % 16 == 0``), float32 to ``attn_fold_fwd`` (``attention.cu``,
+  f32 FMAs on the CUDA cores).
 - :func:`backward` (:func:`row_dot`, :func:`dkdv` and :func:`dq` over
   ``attn_bwd_delta``, ``attn_bwd_dkdv`` and ``attn_bwd_dq``) replaces the gradient JAX's autodiff takes through ``ring_attention``. It
   recomputes the scores from q, k, v, dO and the saved per-row
@@ -25,11 +30,12 @@ The ring is ``sp`` ranks on one card: rank ``i`` owns rows
 ``[i T/sp, (i+1) T/sp)`` and at hop ``r`` folds the block of rank
 ``(i - r) mod sp``. No bytes move between hops.
 
-What bounds the kernels on the card is operations (f32 FMAs on the CUDA
-cores, as the JAX function computes in f32); ``csrc/attention.cu`` says how
-their design meets that. A wrapper given CPU tensors runs the plain PyTorch
-version beside it; given CUDA tensors it launches the kernels on the current
-stream or raises. Nothing on the card's path calls a plain version.
+What bounds the CUDA-core kernels on the card is operations (f32 FMAs, as
+the JAX function computes in f32); what bounds the tensor-core fold is
+bytes. Each source says how its design meets that. A wrapper given CPU tensors runs the
+plain PyTorch version beside it; given CUDA tensors it launches the kernels
+on the current stream or raises. Nothing on the card's path calls a plain
+version.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from incubator_brpc_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 1024  # the kernels keep D / 256 columns of a row per thread
+TC_HEAD_DIM_STEP = 16  # attn_fold_fwd_tc's k-step: bf16 operands need D % 16 == 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -158,6 +165,16 @@ def fold_plain(q, k, v, state: Optional[State], *, hop: int, sp: int, causal: bo
     )
 
 
+def split_bf16(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What ``attn_fold_fwd_tc`` does with the f32 probabilities P before
+    P.V: ``hi = bf16(P)`` and ``lo = bf16(P - hi)``, both rounded to
+    nearest even. ``hi + lo`` carries 16 bits of P's 24, and ``hi.V + lo.V``
+    are two bf16 products on the tensor cores accumulated in f32. One bf16
+    rounding of P alone would miss the f32 tolerance of o."""
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.float()).to(torch.bfloat16)
+
+
 def finalize_plain(state: State, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """``o / max(l, 1e-30)`` cast to ``dtype``, and ``lse = m + log(max(l, 1e-30))``."""
     m, l, o = state
@@ -232,7 +249,9 @@ def fold(
     """K3 forward: fold hop ``hop`` of the ring into ``state`` = (m, l, o)
     (None before hop 0). Returns ``(m, l, o, out, lse)``; ``out`` (in q's
     dtype) and ``lse`` are None unless ``finalize``. On the card the state
-    is updated in place (hop 0 allocates it); on the CPU it is new."""
+    is updated in place (hop 0 allocates it) by ``attn_fold_fwd_tc`` for
+    bfloat16 operands and ``attn_fold_fwd`` for float32; on the CPU it is
+    new."""
     _check(q, k, v, sp)
     if not 0 <= hop < sp:
         raise ValueError(f"hop {hop} outside [0, {sp})")
@@ -242,6 +261,10 @@ def fold(
         return m, l, o, out, lse
     _check_cuda(q, k, v)
     b, t, h, d = q.shape
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores and d % TC_HEAD_DIM_STEP:
+        raise ValueError(f"head dimension {d}: attn_fold_fwd_tc takes bfloat16 operands with "
+                         f"D % {TC_HEAD_DIM_STEP} == 0")
     dev = q.device
     if hop == 0:
         m = torch.empty((b, h, t), dtype=torch.float32, device=dev)
@@ -258,14 +281,19 @@ def fold(
     out = torch.empty_like(q) if finalize else None
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev) if finalize else None
     lib = kernels.build()
+    state_ptrs = (m.data_ptr(), l.data_ptr(), o.data_ptr(), kernels._ptr(out), kernels._ptr(lse))
+    geometry = (b, t, h, d, sp, hop, int(causal), int(finalize), kernels._stream(dev))
     with torch.cuda.device(dev):
-        rc = lib.tb_attn_fold_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPES[q.dtype],
-            m.data_ptr(), l.data_ptr(), o.data_ptr(), kernels._ptr(out), kernels._ptr(lse),
-            b, t, h, d, sp, hop, int(causal), int(finalize), kernels._stream(dev),
-        )
-    kernels._check_launch(lib, rc, "attn_fold_fwd")
-    kernels._count("attn_fold_fwd")
+        if tensor_cores:
+            name = "attn_fold_fwd_tc"
+            rc = lib.tb_attn_fold_fwd_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(), *state_ptrs,
+                                         *geometry)
+        else:
+            name = "attn_fold_fwd"
+            rc = lib.tb_attn_fold_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPES[q.dtype],
+                                      *state_ptrs, *geometry)
+    kernels._check_launch(lib, rc, name)
+    kernels._count(name)
     return m, l, o, out, lse
 
 
@@ -395,6 +423,7 @@ __all__ = [
     "row_dot",
     "row_dot_plain",
     "finalize_plain",
+    "split_bf16",
     "fold",
     "fold_plain",
     "forward",

@@ -20,10 +20,10 @@ version: the tests use them, ``chip_smoke.py`` holds each kernel against
 its plain version on the card, and CPU execution runs them.
 
 The kernels are built at first use: ``nvcc`` compiles each source of
-``csrc/`` (``framing.cu`` here, ``attention.cu`` for K3, whose wrappers are
-in ``ops/attention.py``, and ``quantize.cu`` for K2, whose wrappers are in
-``ops/quantize.py``) for ``sm_90a``, one process per source, all
-started together, and links them into one shared library with a plain C
+``csrc/`` (``framing.cu`` here, ``attention.cu`` and ``attention_tc.cu``
+for K3, whose wrappers are in ``ops/attention.py``, and ``quantize.cu`` for
+K2, whose wrappers are in ``ops/quantize.py``) for ``sm_90a``, one process
+per source, all started together, and links them into one shared library with a plain C
 interface under ``incubator_brpc_tpu_torch/_build/``, loaded with
 ``ctypes``. Each wrapper adds one to its launch count
 (:func:`launch_counts`) where it launches.
@@ -48,7 +48,8 @@ ENOMETHOD = 1002
 EREQUEST = 1003
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG_DIR / "csrc" / f for f in ("framing.cu", "attention.cu", "quantize.cu"))
+SOURCES = tuple(_PKG_DIR / "csrc" / f
+                for f in ("framing.cu", "attention.cu", "attention_tc.cu", "quantize.cu"))
 BUILD_DIR = _PKG_DIR / "_build"
 # no --use_fast_math, -ftz=true or -prec-div=false: K2 is bitwise (quantize.cu)
 NVCC_FLAGS = (
@@ -67,6 +68,7 @@ KERNELS = (
     "verify_rows",
     "echo_step_rows",
     "attn_fold_fwd",
+    "attn_fold_fwd_tc",
     "attn_bwd_delta",
     "attn_bwd_dkdv",
     "attn_bwd_dq",
@@ -176,6 +178,9 @@ def build() -> ctypes.CDLL:
             lib.tb_attn_fold_fwd.argtypes = [
                 p, p, p, c_int, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, c_int, p
             ]
+            lib.tb_attn_fold_fwd_tc.argtypes = [
+                p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, c_int, p
+            ]
             lib.tb_attn_bwd_delta.argtypes = [p, p, c_int, p, i64, i64, i64, i64, p]
             lib.tb_attn_bwd_dkdv.argtypes = [
                 p, p, p, p, c_int, p, p, p, p, i64, i64, i64, i64, i64, c_int, p
@@ -186,8 +191,9 @@ def build() -> ctypes.CDLL:
             lib.tb_quantize_rows.argtypes = [p, i64, i64, i64, c_int, c_int, p, p, p]
             lib.tb_dequant_mean_rows.argtypes = [p, p, i64, i64, c_int, c_int, c_int, p, p]
             for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
-                       lib.tb_attn_fold_fwd, lib.tb_attn_bwd_delta, lib.tb_attn_bwd_dkdv,
-                       lib.tb_attn_bwd_dq, lib.tb_quantize_rows, lib.tb_dequant_mean_rows):
+                       lib.tb_attn_fold_fwd, lib.tb_attn_fold_fwd_tc, lib.tb_attn_bwd_delta,
+                       lib.tb_attn_bwd_dkdv, lib.tb_attn_bwd_dq, lib.tb_quantize_rows,
+                       lib.tb_dequant_mean_rows):
                 fn.restype = c_int
             _lib = lib
     return _lib

@@ -29,7 +29,9 @@ from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
 pytestmark = pytest.mark.gpu
 
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
-K3 = ("attn_fold_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
+K3_BWD = ("attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
+# the forward fold each operand dtype launches
+FOLD = {torch.float32: "attn_fold_fwd", torch.bfloat16: "attn_fold_fwd_tc"}
 
 
 @pytest.fixture
@@ -137,8 +139,11 @@ def _qkvo(gen, shape, dtype, dev):
     return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4)]
 
 
-# (B, T, H, D, sp): a ragged T/sp = 12 at D 16, and the bench attention shape
-@pytest.mark.parametrize("shape", [(2, 48, 4, 16, 4), (4, 1024, 2, 1024, 4)], ids=["small", "d1024"])
+# (B, T, H, D, sp): a ragged T/sp = 12 at D 16, T/sp = 100 at D 144 (ragged
+# against the tensor-core fold's 32-row and 64-key tiles and its 128-column
+# D chunks), and the bench attention shape
+@pytest.mark.parametrize("shape", [(2, 48, 4, 16, 4), (1, 200, 2, 144, 2), (4, 1024, 2, 1024, 4)],
+                         ids=["small", "d144", "d1024"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_k3_matches_plain_versions(cuda, shape, dtype, causal):
@@ -150,8 +155,10 @@ def test_k3_matches_plain_versions(cuda, shape, dtype, causal):
     out, lse, (m, l, o) = attention.forward(q, k, v, sp=sp, causal=causal)
     dq, dk, dv = attention.backward(q, k, v, out, dout, lse, sp=sp, causal=causal)
     after = kernels.launch_counts()
-    assert after["attn_fold_fwd"] == before["attn_fold_fwd"] + sp
-    assert all(after[n] == before[n] + 1 for n in K3[1:])
+    other = FOLD[torch.float32 if dtype == torch.bfloat16 else torch.bfloat16]
+    assert after[FOLD[dtype]] == before[FOLD[dtype]] + sp
+    assert after[other] == before[other]
+    assert all(after[n] == before[n] + 1 for n in K3_BWD)
     state = None
     for hop in range(sp):
         state = attention.fold_plain(q, k, v, state, hop=hop, sp=sp, causal=causal)
@@ -167,6 +174,16 @@ def test_k3_matches_plain_versions(cuda, shape, dtype, causal):
     for got, want in zip((dq, dk, dv), grads):
         scale = float(want.float().abs().max())
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * scale)
+
+
+def test_tensor_core_fold_refuses_a_head_dimension_off_its_k_step(cuda):
+    q = torch.zeros((1, 8, 1, 24), dtype=torch.bfloat16, device=cuda)  # 24 % 16 != 0
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="attn_fold_fwd_tc"):
+        attention.fold(q, q, q, None, hop=0, sp=1, causal=True, finalize=True)
+    assert kernels.launch_counts() == before
+    out, _, _ = attention.forward(q.float(), q.float(), q.float(), sp=1, causal=True)
+    assert out.shape == q.shape  # f32 at D 24 stays with the CUDA-core fold
 
 
 def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
@@ -185,8 +202,10 @@ def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
         params, loss = step(params, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
         after = kernels.launch_counts()
         results[dev] = (float(loss), {k: p.cpu() for k, p in params.items()})
-        if dev == "cuda":
-            assert all(after[n] == before[n] + cfg.microbatches for n in K3)
+        if dev == "cuda":  # f32: the CUDA-core fold
+            assert all(after[n] == before[n] + cfg.microbatches
+                       for n in ("attn_fold_fwd",) + K3_BWD)
+            assert after["attn_fold_fwd_tc"] == before["attn_fold_fwd_tc"]
     assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
     for name, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][name], want, rtol=1e-5, atol=1e-5)

@@ -134,6 +134,43 @@ def test_fold_with_carried_state_matches_jax_block_merge():
     np.testing.assert_allclose(to[:, rows].numpy(), np.asarray(o_new), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("p_as", ["split", "one_bf16_rounding"])
+def test_split_p_keeps_the_fold_within_f32_tolerance(p_as):
+    """What ``attn_fold_fwd_tc`` does with P, on the CPU: one causal block
+    at D = 1024 (T 256; bf16 inputs widened to f32, as the kernel's
+    operands are) folded with P replaced by ``split_bf16``'s hi + lo (two
+    products, summed in f32), held against JAX's f32 ``_block_attn``
+    within 2e-5 * max(1, max |o|), the tolerance of the o state. One bf16
+    rounding of P misses it: that is why the kernel splits P."""
+    b, t, h, d = 1, 256, 1, 1024
+    rng = np.random.default_rng(41)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(np.float32))
+               .to(torch.bfloat16).float().numpy() for _ in range(3))
+    pos = jnp.arange(t)
+    mask = jnp.where(pos[None, :] <= pos[:, None], 0.0, jax_ra.NEG_INF)
+    _, _, want = jax_ra._block_attn(q, k, v, mask)
+    want = np.asarray(want)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    s = torch.einsum("bthd,bshd->bhts", tq, tk) / torch.sqrt(torch.tensor(float(d)))
+    s = s + torch.from_numpy(np.array(mask))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pv = lambda x: torch.einsum("bhts,bshd->bthd", x.float(), tv)  # noqa: E731
+    if p_as == "split":
+        hi, lo = attention.split_bf16(p)
+        assert hi.dtype == lo.dtype == torch.bfloat16
+        # hi + lo carries P to 16 bits: each rounding keeps 8
+        assert bool(((hi.float() + lo.float() - p).abs() <= p * 2.0 ** -16 + 1e-30).all())
+        got = pv(hi) + pv(lo)
+    else:
+        got = pv(p.to(torch.bfloat16))
+    err = float(np.abs(got.numpy() - want).max())
+    tol = 2e-5 * max(1.0, float(np.abs(want).max()))
+    if p_as == "split":
+        assert err <= tol
+    else:
+        assert err > 10 * tol
+
+
 def test_wrappers_refuse_what_they_do_not_take():
     q = torch.zeros((1, 10, 2, 8))
     with pytest.raises(ValueError, match="split"):
