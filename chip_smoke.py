@@ -24,12 +24,16 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``make_echo_step`` step of 2^26 words; every response and error code is
    checked, and every kernel must have launched;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
-5. holds K3 (the forward fold, ``attn_fold_fwd_tc`` on the tensor cores
-   for bf16 operands and ``attn_fold_fwd`` for f32; ``attn_bwd_delta``,
-   ``attn_bwd_dkdv``, ``attn_bwd_dq``) against its plain versions at the
-   bench attention shape (B 4, T 1024, H 2, D 1024; sp 1 and 4; bf16 and
-   f32; causal and not) and two ragged ones (B 2, T 48, H 4, D 16, sp 4;
-   B 1, T 200, H 2, D 144, sp 2), and ``ring_attention`` against
+5. holds K3 (the forward fold and dK/dV, on the tensor cores for bf16
+   operands, ``attn_fold_fwd_tc`` and ``attn_bwd_dkdv_tc``, and on the CUDA
+   cores for f32, ``attn_fold_fwd`` and ``attn_bwd_dkdv``;
+   ``attn_bwd_delta`` and ``attn_bwd_dq`` for both) against its plain
+   versions at the bench attention shape (B 4, T 1024, H 2, D 1024; sp 1
+   and 4; bf16 and f32; causal and not), two ragged ones (B 2, T 48, H 4,
+   D 16, sp 4; B 1, T 200, H 2, D 144, sp 2) and two off the tensor cores'
+   k-step (B 2, T 72, H 2, D 24 and D 20, sp 2), in any layout (transposed
+   views and tensors one element off 16-byte alignment give bitwise what
+   contiguous copies give), and ``ring_attention`` against
    ``full_attention`` on the card;
 6. runs one FabricNet train step (d_model 32, heads 2, two layers, f32) on
    the card and on the CPU from the same numpy weights and compares them;
@@ -37,12 +41,12 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    FabricNet train steps at the ``bench_fabricnet`` width (bf16, one
    microbatch) on the one-card mesh, whose loss must stay finite and fall,
    with ms per step, FLOPs per step, TFLOP/s, peak memory and K3 launches
-   (one ``attn_fold_fwd_tc`` and one of each backward kernel a step, no
-   ``attn_fold_fwd``); then 3 steps of the same in f32, counted alike
-   (``attn_fold_fwd`` a step, no ``attn_fold_fwd_tc``);
+   (one ``attn_fold_fwd_tc``, ``attn_bwd_delta``, ``attn_bwd_dkdv_tc`` and
+   ``attn_bwd_dq`` a step, no ``attn_fold_fwd`` or ``attn_bwd_dkdv``); then
+   3 steps of the same in f32, counted alike (the other way round);
 8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16;
-   the tensor-core fold also at B 1, 64 blocks; the f32 fold at sp 1 in
-   f32) with CUDA events beside its bound, its
+   the tensor-core fold also at B 1, 64 blocks; the f32 fold and dK/dV at
+   sp 1 in f32) with CUDA events beside its bound, its
    plain version and ``scaled_dot_product_attention``, and breaks two bf16
    train steps down by kernel with torch.profiler (device busy and idle
    share);
@@ -93,11 +97,15 @@ F32_FLOPS_PER_S = 67e12  # outside the tensor cores: what K3's f32 FMAs run on
 BF16_TC_FLOPS_PER_S = 989e12
 
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
-K3 = ("attn_fold_fwd", "attn_fold_fwd_tc", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
-K3_BWD = K3[2:]
-# the forward fold each operand dtype launches (ops/attention.py fold)
+K3 = ("attn_fold_fwd", "attn_fold_fwd_tc", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dkdv_tc",
+      "attn_bwd_dq")
+# the fold and the dK/dV kernel each operand dtype launches (ops/attention.py
+# fold, dkdv); attn_bwd_delta and attn_bwd_dq take both
 FOLD = {"float32": "attn_fold_fwd", "bfloat16": "attn_fold_fwd_tc"}
-K3_SOURCE = {"attn_fold_fwd_tc": "incubator_brpc_tpu_torch/csrc/attention_tc.cu"}
+DKDV = {"float32": "attn_bwd_dkdv", "bfloat16": "attn_bwd_dkdv_tc"}
+K3_BOTH = ("attn_bwd_delta", "attn_bwd_dq")
+K3_SOURCE = {"attn_fold_fwd_tc": "incubator_brpc_tpu_torch/csrc/attention_tc.cu",
+             "attn_bwd_dkdv_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu"}
 # bench.py bench_fabricnet: d_model 2048 over heads 2 -> D 1024, batch 4, seq 1024
 BENCH_ATTN = (4, 1024, 2, 1024)
 BENCH_FABRICNET = dict(d_model=2048, d_ff=8192, d_expert=2048, experts_per_rank=2,
@@ -126,6 +134,7 @@ REPLACES = {
     "attn_fold_fwd_tc": "incubator_brpc_tpu/models/ring_attention.py:35",
     "attn_bwd_delta": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dkdv": "incubator_brpc_tpu/models/ring_attention.py:48",
+    "attn_bwd_dkdv_tc": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dq": "incubator_brpc_tpu/models/ring_attention.py:48",
 }
 KINDS = ("valid", "bad_magic", "bad_length", "flipped_word", "unknown_method")
@@ -468,7 +477,7 @@ def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
     want_dk, want_dv = attention.dkdv_plain(q, k, v, dout, lse, want_delta, sp=sp, causal=causal)
     want_dq = attention.dq_plain(q, k, v, dout, lse, want_delta, sp=sp, causal=causal)
     torch.cuda.synchronize()
-    fold = errs[FOLD[str(dtype)[6:]]]
+    fold, dkdv = errs[FOLD[str(dtype)[6:]]], errs[DKDV[str(dtype)[6:]]]
     parts = [
         err_within(torch, "out", out, want_out, tol[dtype], fold),
         err_within(torch, "m", m, state[0], f32, fold),
@@ -476,12 +485,51 @@ def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
         err_within(torch, "o", o, state[2], f32, fold),
         err_within(torch, "lse", lse, want_lse, f32, fold),
         err_within(torch, "delta", delta, want_delta, f32, errs["attn_bwd_delta"]),
-        err_within(torch, "dk", dk, want_dk, tol[dtype], errs["attn_bwd_dkdv"]),
-        err_within(torch, "dv", dv, want_dv, tol[dtype], errs["attn_bwd_dkdv"]),
+        err_within(torch, "dk", dk, want_dk, tol[dtype], dkdv),
+        err_within(torch, "dv", dv, want_dv, tol[dtype], dkdv),
         err_within(torch, "dq", dq, want_dq, tol[dtype], errs["attn_bwd_dq"]),
     ]
     log(f"phase5 K3 B={b} T={t} H={h} D={d} sp={sp} {str(dtype)[6:]} "
-        f"{'causal' if causal else 'full'} ({FOLD[str(dtype)[6:]]}): " + "; ".join(parts))
+        f"{'causal' if causal else 'full'} ({FOLD[str(dtype)[6:]]}, {DKDV[str(dtype)[6:]]}): "
+        + "; ".join(parts))
+
+
+def k3_layout_case(torch, attention, gen, dev, shape, dtype, errs):
+    """K3 on transposed views and on tensors one element past 16-byte
+    alignment: bitwise what contiguous copies give (the wrappers copy such
+    tensors; JAX takes any layout), and dK/dV within the tolerances of the
+    plain version on the views."""
+    b, t, h, d, sp = shape
+    dense = [torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype) for _ in range(4)]
+
+    def run(q, k, v, dout):
+        out, lse, _ = attention.forward(q, k, v, sp=sp, causal=True)
+        return (out, lse) + attention.backward(q, k, v, out, dout, lse, sp=sp, causal=True)
+
+    def shifted(x):
+        y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        return y.copy_(x)
+
+    want = run(*dense)
+    for name, inputs in (("transposed views", [x.transpose(1, 2).contiguous().transpose(1, 2)
+                                               for x in dense]),
+                         ("one element off alignment", [shifted(x) for x in dense])):
+        if any(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in inputs):
+            raise AssertionError(f"K3 layout case {name}: an input is dense")
+        got = run(*inputs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K3 on {name} differs from contiguous copies")
+    q, k, v, dout = inputs
+    out, lse, _, dk, dv = got
+    want_dk, want_dv = attention.dkdv_plain(q, k, v, dout, lse, attention.row_dot_plain(out, dout),
+                                            sp=sp, causal=True)
+    tol, kern = k3_tolerances(torch)[dtype], DKDV[str(dtype)[6:]]
+    parts = [err_within(torch, "dk", dk, want_dk, tol, errs[kern]),
+             err_within(torch, "dv", dv, want_dv, tol, errs[kern])]
+    log(f"phase5 K3 B={b} T={t} H={h} D={d} sp={sp} {str(dtype)[6:]} causal on transposed views "
+        f"and on tensors one element off 16-byte alignment: bitwise the contiguous copies' result; "
+        f"{kern} on the misaligned inputs against dkdv_plain: " + "; ".join(parts))
 
 
 def k3_bounds(flops, nbytes, peak=F32_FLOPS_PER_S):
@@ -499,6 +547,12 @@ def fold_bytes(n, stats, itemsize):
     """What a full forward must move: q, k, v read, out written (in the
     operands' dtype), the f32 running o written, and m, l, lse written."""
     return 3 * itemsize * n + itemsize * n + 4 * n + 3 * stats
+
+
+def dkdv_bytes(n, stats, itemsize):
+    """What dK/dV must move: q, k, v, dout, lse and delta read, dk and dv
+    written."""
+    return 4 * itemsize * n + 2 * stats + 2 * itemsize * n
 
 
 def k3_timings(torch, attention, gen, dev, sp):
@@ -521,22 +575,24 @@ def k3_timings(torch, attention, gen, dev, sp):
         return attention.finalize_plain(st, q.dtype)
 
     flops = {p: attention.attention_flops(b, t, h, d, causal=True, products=p) for p in (2, 3, 4)}
+    tensor_cores = (FOLD["bfloat16"], DKDV["bfloat16"])
     cases = {
         # name: (kernel, plain, flops, bytes: inputs read once, outputs written once)
         "attn_fold_fwd_tc": (lambda: attention.forward(q, k, v, sp=sp, causal=True), plain_fwd,
                              flops[2], fold_bytes(n, stats, 2)),
         "attn_bwd_delta": (lambda: attention.row_dot(out, dout),
                            lambda: attention.row_dot_plain(out, dout), 2 * n, 2 * 2 * n + stats),
-        "attn_bwd_dkdv": (lambda: attention.dkdv(q, k, v, dout, lse, delta, sp=sp, causal=True),
-                          lambda: attention.dkdv_plain(q, k, v, dout, lse, delta, sp=sp, causal=True),
-                          flops[4], 4 * 2 * n + 2 * stats + 2 * 2 * n),
+        "attn_bwd_dkdv_tc": (lambda: attention.dkdv(q, k, v, dout, lse, delta, sp=sp, causal=True),
+                             lambda: attention.dkdv_plain(q, k, v, dout, lse, delta, sp=sp,
+                                                          causal=True),
+                             flops[4], dkdv_bytes(n, stats, 2)),
         "attn_bwd_dq": (lambda: attention.dq(q, k, v, dout, lse, delta, sp=sp, causal=True),
                         lambda: attention.dq_plain(q, k, v, dout, lse, delta, sp=sp, causal=True),
                         flops[3], 4 * 2 * n + 2 * stats + 2 * n),
     }
     res = {}
     for name, (kern, plain, fl, nbytes) in cases.items():
-        bound, by, tc = k3_bounds(fl, nbytes, BF16_TC_FLOPS_PER_S if name == FOLD["bfloat16"]
+        bound, by, tc = k3_bounds(fl, nbytes, BF16_TC_FLOPS_PER_S if name in tensor_cores
                                   else F32_FLOPS_PER_S)
         res[name] = {"ms": time_ms(torch, kern, 10), "plain_ms": time_ms(torch, plain, 3, warmup=1),
                      "bound_ms": bound, "bound_by": by, "tensor_core_bound_ms": tc,
@@ -569,33 +625,46 @@ def k3_timings(torch, attention, gen, dev, sp):
     return res
 
 
-def fold_f32_timing(torch, attention, gen, dev):
-    """CUDA-event times of the CUDA-core fold, which float32 operands take,
-    at the bench attention shape, causal, sp 1, beside its bound, its plain
-    version and SDPA's forward on the same f32 tensors."""
+def k3_f32_timings(torch, attention, gen, dev):
+    """CUDA-event times of the CUDA-core fold and dK/dV, which float32
+    operands take, at the bench attention shape, causal, sp 1, beside their
+    bounds, their plain versions and (for the fold) SDPA's forward on the
+    same f32 tensors."""
     import torch.nn.functional as F
 
     b, t, h, d = BENCH_ATTN
     n = b * t * h * d
-    q, k, v = (torch.randn(BENCH_ATTN, generator=gen, device=dev) for _ in range(3))
-    fl = attention.attention_flops(b, t, h, d, causal=True, products=2)
-    nbytes = fold_bytes(n, 4 * b * h * t, 4)
-    bound, by, tc = k3_bounds(fl, nbytes)
+    stats = 4 * b * h * t
+    q, k, v, dout = (torch.randn(BENCH_ATTN, generator=gen, device=dev) for _ in range(4))
+    out, lse, _ = attention.forward(q, k, v, sp=1, causal=True)
+    delta = attention.row_dot(out, dout)
 
     def plain_fwd():
         return attention.finalize_plain(
             attention.fold_plain(q, k, v, None, hop=0, sp=1, causal=True), q.dtype)
 
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    res = {"ms": time_ms(torch, lambda: attention.forward(q, k, v, sp=1, causal=True), 10),
-           "plain_ms": time_ms(torch, plain_fwd, 3, warmup=1), "bound_ms": bound,
-           "bound_by": by, "tensor_core_bound_ms": tc, "flops": fl, "bytes": nbytes,
-           "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, is_causal=True), 10)}
-    log(f"phase8 attn_fold_fwd (f32 operands) B={b} T={t} H={h} D={d} causal sp=1: "
-        f"{res['ms']:.4f} ms (bound {bound:.4f} by {by}, {100 * bound / res['ms']:.1f} %; "
-        f"plain {res['plain_ms']:.4f}); scaled_dot_product_attention fwd f32 "
-        f"{res['library_ms']:.4f} ms")
+    cases = {
+        "attn_fold_fwd": (lambda: attention.forward(q, k, v, sp=1, causal=True), plain_fwd, 2,
+                          fold_bytes(n, stats, 4)),
+        "attn_bwd_dkdv": (lambda: attention.dkdv(q, k, v, dout, lse, delta, sp=1, causal=True),
+                          lambda: attention.dkdv_plain(q, k, v, dout, lse, delta, sp=1, causal=True),
+                          4, dkdv_bytes(n, stats, 4)),
+    }
+    res = {}
+    for name, (kern, plain, products, nbytes) in cases.items():
+        fl = attention.attention_flops(b, t, h, d, causal=True, products=products)
+        bound, by, tc = k3_bounds(fl, nbytes)
+        res[name] = {"ms": time_ms(torch, kern, 10), "plain_ms": time_ms(torch, plain, 3, warmup=1),
+                     "bound_ms": bound, "bound_by": by, "tensor_core_bound_ms": tc, "flops": fl,
+                     "bytes": nbytes, "library_ms": None}
+    res["attn_fold_fwd"]["library_ms"] = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10)
+    log(f"phase8 f32 operands B={b} T={t} H={h} D={d} causal sp=1: " + "; ".join(
+        f"{name} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+        f"{100 * r['bound_ms'] / r['ms']:.1f} %; plain {r['plain_ms']:.4f})"
+        for name, r in res.items())
+        + f"; scaled_dot_product_attention fwd f32 {res['attn_fold_fwd']['library_ms']:.4f} ms")
     return res
 
 
@@ -658,11 +727,12 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"FabricNet losses not finite and falling: {losses}")
     name = str(dtype)[6:]
-    fold, other = FOLD[name], FOLD["float32" if name == "bfloat16" else "bfloat16"]
+    other = "float32" if name == "bfloat16" else "bfloat16"
+    path, others = (FOLD[name], DKDV[name]) + K3_BOTH, (FOLD[other], DKDV[other])
     per_step = {n: launches[n] / nsteps for n in K3}
-    if any(per_step[n] != 1 for n in (fold,) + K3_BWD) or launches[other]:
+    if any(per_step[n] != 1 for n in path) or any(launches[n] for n in others):
         raise AssertionError(f"FabricNet {name}: K3 launches per step {per_step}; want one of "
-                             f"{fold} and of each backward kernel, none of {other}")
+                             f"each of {path}, none of {others}")
     flops = fabricnet.train_step_flops(cfg)
     tflops = flops / ms * 1e-9
     log(f"phase7 FabricNet at the bench_fabricnet width ({BENCH_FABRICNET}, heads {cfg.heads}, "
@@ -725,13 +795,17 @@ def run_k3_phases(torch, kernels, dev):
 
     # -- phase 5: K3 against its plain versions, and the ring against full ---
     # the bench shape at sp 1 and 4; T/sp = 12 at D 16; T/sp = 100 at D 144,
-    # ragged against the tensor-core fold's 32-row and 64-key tiles and its
-    # 128-column D chunks
-    shapes = [BENCH_ATTN + (1,), BENCH_ATTN + (4,), (2, 48, 4, 16, 4), (1, 200, 2, 144, 2)]
+    # ragged against the tensor-core kernels' tiles and their 128-column D
+    # chunks; T/sp = 36 at D 24 and D 20, off the tensor cores' k-step of 16
+    # (D 20 with 8-byte rows)
+    shapes = [BENCH_ATTN + (1,), BENCH_ATTN + (4,), (2, 48, 4, 16, 4), (1, 200, 2, 144, 2),
+              (2, 72, 2, 24, 2), (2, 72, 2, 20, 2)]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
                 k3_case(torch, attention, gen, dev, shape, dtype, causal, errs)
+    for dtype in (torch.bfloat16, torch.float32):
+        k3_layout_case(torch, attention, gen, dev, (2, 96, 2, 136, 2), dtype, errs)
     for (b, t, h, d, sp), dtype, tol in ((BENCH_ATTN + (4,), torch.bfloat16, 0.05),
                                           ((2, 48, 4, 16, 4), torch.float32, 2e-5)):
         q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
@@ -751,14 +825,16 @@ def run_k3_phases(torch, kernels, dev):
     fabricnet_small_card_vs_cpu(torch, fabricnet, dev)
 
     # -- phase 7: the FabricNet main path, counted: bf16 (the bench's dtype),
-    # then f32, the path of the CUDA-core fold --------------------------------
+    # then f32, the path of the CUDA-core fold and dK/dV ----------------------
     fab, train = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.bfloat16, 10, 2)
     fab32, _ = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.float32, 3, 1)
-    launches = dict(fab["launches"], attn_fold_fwd=fab32["launches"]["attn_fold_fwd"])
+    # the f32 path's kernels count the f32 steps' launches
+    launches = dict(fab["launches"], **{n: fab32["launches"][n]
+                                        for n in (FOLD["float32"], DKDV["float32"])})
 
     # -- phase 8: K3 timings --------------------------------------------------
     timings = {sp: k3_timings(torch, attention, gen, dev, sp) for sp in (1, 4)}
-    timings[1]["attn_fold_fwd"] = fold_f32_timing(torch, attention, gen, dev)
+    timings[1].update(k3_f32_timings(torch, attention, gen, dev))
     fab["profile"] = profile_steps(torch, train)
     main = timings[1]  # FabricNet's sp = 1
     line = {}
@@ -770,13 +846,15 @@ def run_k3_phases(torch, kernels, dev):
             "tensor_core_bound_ms": r["tensor_core_bound_ms"],
             "shape": list(BENCH_ATTN), "sp": 1, "dtype": "bfloat16",
         }
-        if name == "attn_fold_fwd_tc":
-            line[name]["library_ms"] = main["sdpa_fwd_ms"]
+        if name in (FOLD["float32"], DKDV["float32"]):  # the f32 path's launches, timed in f32
+            line[name].update(library_ms=r["library_ms"], dtype="float32")
+            continue
+        if name in (FOLD["bfloat16"], DKDV["bfloat16"]):
             line[name]["sp4_ms"] = timings[4][name]["ms"]
             line[name]["sp4_bound_ms"] = timings[4][name]["bound_ms"]
+        if name == "attn_fold_fwd_tc":
+            line[name]["library_ms"] = main["sdpa_fwd_ms"]
             line[name]["b1_ms"] = main["fold_b1_ms"]
-        elif name == "attn_fold_fwd":  # the f32 path's launches, timed in f32
-            line[name].update(library_ms=r["library_ms"], dtype="float32")
         else:
             line[name]["backward_ms"] = main["backward"]["ms"]
             line[name]["sdpa_backward_ms"] = main["sdpa_fwd_bwd_ms"] - main["sdpa_fwd_ms"]

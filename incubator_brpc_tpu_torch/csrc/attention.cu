@@ -7,7 +7,9 @@
 //                      (attention_tc.cu, tensor cores)
 //   attn_bwd_delta  \
 //   attn_bwd_dkdv    > the gradient JAX's autodiff takes through ring_attention
-//   attn_bwd_dq     /  (lax.scan over block_merge), by recomputation
+//   attn_bwd_dq     /  (lax.scan over block_merge), by recomputation; dK/dV
+//                      for f32 operands, bf16 operands take attn_bwd_dkdv_tc
+//                      (attention_bwd_tc.cu, tensor cores)
 //
 // Tensors keep JAX's layout: q, k, v, out, dout, dq, dk, dv are (B, T, H, D)
 // in f32 or bf16; the softmax statistics m, l, lse and delta are (B, H, T)
@@ -821,13 +823,17 @@ int tb_attn_bwd_delta(const void* out, const void* dout, int dtype, float* delta
              delta, g);
 }
 
+// f32 operands only (dtype 0): bf16 dK/dV run on the tensor cores
 int tb_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, int dtype,
                      const float* lse, const float* delta, void* dk, void* dv, int64_t B,
                      int64_t T, int64_t H, int64_t D, int64_t sp, int causal, void* stream) {
-  if (!takes(D) || sp <= 0 || T % sp != 0) return int(cudaErrorInvalidValue);
+  if (dtype != 0 || !takes(D) || sp <= 0 || T % sp != 0) return int(cudaErrorInvalidValue);
   const Geo g = geo(B, T, H, D, sp);
-  TB_DISPATCH(dkdv_t, dtype, D, q, k, v, dout, lse, delta, dk, dv, g, causal,
-              static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int c = cpt_of(D);
+  return c == 1 ? dkdv_t<float, 1>(q, k, v, dout, lse, delta, dk, dv, g, causal, st)
+         : c == 2 ? dkdv_t<float, 2>(q, k, v, dout, lse, delta, dk, dv, g, causal, st)
+                  : dkdv_t<float, 4>(q, k, v, dout, lse, delta, dk, dv, g, causal, st);
 }
 
 int tb_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout, int dtype,

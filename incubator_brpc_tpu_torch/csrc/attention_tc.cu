@@ -51,7 +51,10 @@
 //   16 KB a stage), one commit group per chunk. Changed: 6 stages, not 3-4;
 //   4 and 6 ran alike, the depth is not the limit. Rows past a ragged end
 //   and columns past D are zero-filled by the copy (src-size 0), so a
-//   masked key's P = 0 meets V = 0, never stale bytes.
+//   masked key's P = 0 meets V = 0, never stale bytes. A D off the k-step
+//   (D % 16 != 0) reads its last k-step's columns past D as those zeros, in
+//   the Q tile too (its rows hold D rounded up to 16 columns); at D % 8 != 0
+//   the copies go 8 bytes at a time (tc_mma.cuh).
 // - Changed: each step issues its copies after its products, its position
 //   kept by counters rather than divided out of a chunk index, so neither
 //   the address arithmetic nor a stalled cp.async stands between the
@@ -84,7 +87,7 @@
 // Plain C interface, loaded with ctypes by incubator_brpc_tpu_torch/ops/
 // kernels.py. The entry point launches on the given stream, allocates
 // nothing, and returns the first CUDA error (0 on success), or
-// cudaErrorInvalidValue for a head dimension it does not take (D % 16 != 0
+// cudaErrorInvalidValue for a head dimension it does not take (D % 4 != 0
 // or D > 1024).
 
 #include <cmath>
@@ -92,7 +95,20 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tc_mma.cuh"
+
 namespace {
+
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::cp_cols8;
+using tc::imin;
+using tc::ldsm_x4;
+using tc::ldsm_x4_t;
+using tc::mma_bf16;
+using tc::round16;
+using tc::smem_u32;
 
 constexpr int kThreads = 256;             // 8 warps
 constexpr int BM = 32;                    // query rows per block
@@ -118,55 +134,11 @@ __device__ __forceinline__ int64_t row_off(const Geo& g, int64_t b, int64_t t, i
 __device__ __forceinline__ int64_t stat_off(const Geo& g, int64_t b, int64_t h, int64_t t) {
   return (b * g.H + h) * g.T + t;
 }
-__host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
-
-// -- PTX ------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a . b, one m16n8k16 tile: bf16 operands, f32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // -- the kernel -------------------------------------------------------------------
 
 size_t smem_bytes(int64_t D) {
-  return 2 * BM * (D + 8)                    // Q tile, bf16
+  return 2 * BM * (round16(D) + 8)           // Q tile, bf16
          + 2 * kStages * BN * kLdC           // K/V ring, bf16
          + 4 * kSlices * BM * kLdS           // partial S, f32
          + 2 * 2 * BM * kLdP                 // P hi and lo, bf16
@@ -175,6 +147,8 @@ size_t smem_bytes(int64_t D) {
 
 // Fragment coordinates (PTX ISA, mma.m16n8k16): lane = 4 gq + tq. An f32
 // accumulator holds rows gq and gq + 8, columns 2 tq and 2 tq + 1.
+// kNarrow: D % 8 != 0, the copies go 8 bytes at a time (tc_mma.cuh).
+template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fold_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, float* __restrict__ m_io,
@@ -183,7 +157,7 @@ attn_fold_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
                  int causal, int finalize) {
   extern __shared__ __align__(16) unsigned char smem_tc[];
   const int D = int(g.D);
-  const int ldq = D + 8;
+  const int ldq = round16(D) + 8;  // Q's columns past D, up to the k-step, are zero
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_tc);         // [BM][ldq]
   __nv_bfloat16* Ring = Qs + BM * ldq;                                     // [kStages][BN][kLdC]
   float* Sp = reinterpret_cast<float*>(Ring + kStages * BN * kLdC);       // [kSlices][BM][kLdS]
@@ -236,9 +210,14 @@ attn_fold_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       const bool col = iss_c * kDC + cp_col < D;
 #pragma unroll
       for (int it = 0; it < BN / kRowsPerPass; ++it) {
-        const bool ok = col && it * kRowsPerPass < rows;
-        cp_async16(dst + 2 * it * kRowsPerPass * kLdC, ok ? src + it * kRowsPerPass * rstride : x,
-                   ok);
+        if constexpr (kNarrow) {
+          cp_cols8<true>(dst + 2 * it * kRowsPerPass * kLdC, src + it * kRowsPerPass * rstride, x,
+                         iss_c * kDC + cp_col, D, it * kRowsPerPass < rows);
+        } else {  // as cp_cols8<false>, with the column test out of the loop (no spill)
+          const bool ok = col && it * kRowsPerPass < rows;
+          cp_async16(dst + 2 * it * kRowsPerPass * kLdC, ok ? src + it * kRowsPerPass * rstride : x,
+                     ok);
+        }
       }
       if (++iss_c == nc) {  // K's chunks, then V's, then the next tile's
         iss_c = 0;
@@ -251,13 +230,13 @@ attn_fold_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     cp_async_commit();
   };
 
-  // the Q tile (rows past nq zero) goes with chunk 0's group
+  // the Q tile (rows past nq and columns past D zero) goes with chunk 0's group
   {
-    const int per_row = D / 8;
+    const int per_row = round16(D) / 8;
     for (int e = tid; e < BM * per_row; e += kThreads) {
       const int r = e / per_row, c8 = (e - r * per_row) * 8;
-      const bool ok = r < nq;
-      cp_async16(smem_u32(Qs + r * ldq + c8), ok ? q + row_off(g, b, q0 + r, h) + c8 : q, ok);
+      cp_cols8<kNarrow>(smem_u32(Qs + r * ldq + c8), q + row_off(g, b, q0 + r, h) + c8, q, c8, D,
+                        r < nq);
     }
   }
 #pragma unroll
@@ -496,17 +475,18 @@ int tb_attn_fold_fwd_tc(const void* q, const void* k, const void* v, float* m, f
                         float* o, void* out, float* lse, int64_t B, int64_t T, int64_t H,
                         int64_t D, int64_t sp, int64_t hop, int causal, int finalize,
                         void* stream) {
-  if (D <= 0 || D > kMaxD || D % 16 != 0 || sp <= 0 || T % sp != 0)
+  if (D <= 0 || D > kMaxD || D % 4 != 0 || sp <= 0 || T % sp != 0)
     return int(cudaErrorInvalidValue);
   const Geo g{B, T, H, D, sp, T / sp};
   const int64_t blocks = B * H * sp * ((g.tl + BM - 1) / BM);
   if (blocks <= 0) return 0;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(D);
-  cudaError_t e = cudaFuncSetAttribute(attn_fold_fwd_tc,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  const auto kern = D % 8 ? attn_fold_fwd_tc<true> : attn_fold_fwd_tc<false>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  attn_fold_fwd_tc<<<dim3(unsigned(blocks)), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<dim3(unsigned(blocks)), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), m, l, o, static_cast<__nv_bfloat16*>(out), lse, g,
       hop, causal, finalize);

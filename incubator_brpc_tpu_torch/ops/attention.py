@@ -9,11 +9,15 @@ and ``csrc/attention_tc.cu``:
   every rank at once, and on the last hop the divide and cast of :131-133.
   The operands' dtype picks the kernel: bfloat16 goes to
   ``attn_fold_fwd_tc`` (``attention_tc.cu``, bf16 products on the tensor
-  cores with f32 accumulation, P split as :func:`split_bf16` states; it
-  takes ``D % 16 == 0``), float32 to ``attn_fold_fwd`` (``attention.cu``,
-  f32 FMAs on the CUDA cores).
+  cores with f32 accumulation, P split as :func:`split_bf16` states),
+  float32 to ``attn_fold_fwd`` (``attention.cu``, f32 FMAs on the CUDA
+  cores).
 - :func:`backward` (:func:`row_dot`, :func:`dkdv` and :func:`dq` over
-  ``attn_bwd_delta``, ``attn_bwd_dkdv`` and ``attn_bwd_dq``) replaces the gradient JAX's autodiff takes through ``ring_attention``. It
+  ``attn_bwd_delta``, ``attn_bwd_dkdv`` or ``attn_bwd_dkdv_tc``, and
+  ``attn_bwd_dq``) replaces the gradient JAX's autodiff takes through
+  ``ring_attention``. :func:`dkdv` follows the dtype as :func:`fold` does:
+  bfloat16 goes to ``attn_bwd_dkdv_tc`` (``attention_bwd_tc.cu``, tensor
+  cores, P and dS split), float32 to ``attn_bwd_dkdv``. It
   recomputes the scores from q, k, v, dO and the saved per-row
   log-sum-exp ``lse = m + log(l)``: ``delta = rowsum(dO * O)``,
   ``P = exp(S - lse)``, ``dV += P^T dO``, ``dS = P * (dO V^T - delta)``,
@@ -28,11 +32,18 @@ bfloat16, computed in float32; the statistics ``m``, ``l`` and ``lse`` are
 ``(B, H, T)`` float32 and the running sum ``o`` is ``(B, T, H, D)`` float32.
 The ring is ``sp`` ranks on one card: rank ``i`` owns rows
 ``[i T/sp, (i+1) T/sp)`` and at hop ``r`` folds the block of rank
-``(i - r) mod sp``. No bytes move between hops.
+``(i - r) mod sp``. No bytes move between hops. On the card the wrappers
+take q, k, v, out, dout, lse and delta in any layout, as JAX does: a
+tensor that is not contiguous, or not 16-byte aligned (the kernels' vector
+copies), is copied first. The fold's carried state (m, l, o) is the
+kernels' own output and must come back as it was made. The kernels take
+any ``D % 4 == 0`` up to ``MAX_HEAD_DIM``; the tensor-core kernels read the
+columns past D, up to their k-step of 16, as zeros.
 
 What bounds the CUDA-core kernels on the card is operations (f32 FMAs, as
 the JAX function computes in f32); what bounds the tensor-core fold is
-bytes. Each source says how its design meets that. A wrapper given CPU tensors runs the
+bytes, and the tensor-core dK/dV operations and bytes about alike. Each
+source says how its design meets that. A wrapper given CPU tensors runs the
 plain PyTorch version beside it; given CUDA tensors it launches the kernels
 on the current stream or raises. Nothing on the card's path calls a plain
 version.
@@ -47,8 +58,7 @@ import torch
 from incubator_brpc_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 1024  # the kernels keep D / 256 columns of a row per thread
-TC_HEAD_DIM_STEP = 16  # attn_fold_fwd_tc's k-step: bf16 operands need D % 16 == 0
+MAX_HEAD_DIM = 1024  # the accumulators of a tile at this D fill half the register file
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,15 +83,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sp: int) -> None:
         raise ValueError(f"sequence {q.shape[1]} does not split over sp={sp}")
 
 
-def _check_cuda(*tensors: Optional[torch.Tensor]) -> None:
-    for t in tensors:
-        if t is not None and not t.is_contiguous():
-            raise ValueError("the kernels take contiguous tensors")
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError("the kernels take 16-byte aligned tensors (vector loads)")
-    d = tensors[0].shape[-1]
+def _check_head_dim(d: int) -> None:
     if d % 4 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head dimension {d}: the kernels take D % 4 == 0 and D <= {MAX_HEAD_DIM}")
+        raise ValueError(f"head dimension {d}: the kernels take D % 4 == 0 and D <= {MAX_HEAD_DIM} "
+                         "(each K3 kernel holds a tile's accumulators over the whole of D)")
+
+
+def _dense(*tensors: torch.Tensor):
+    """The tensors as the kernels read them: contiguous and 16-byte aligned.
+    Any other layout is copied; such a tensor passes as it is."""
+    return tuple(t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                 else t.clone(memory_format=torch.contiguous_format) for t in tensors)
+
+
+def _check_state(*tensors: torch.Tensor) -> None:
+    """The fold's carried (m, l, o): written in place, so never copied."""
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the fold's state (m, l, o) must be contiguous and 16-byte aligned, "
+                             "as the previous fold made it")
 
 
 def _stat(x: torch.Tensor, name: str, shape, device) -> None:
@@ -167,10 +187,11 @@ def fold_plain(q, k, v, state: Optional[State], *, hop: int, sp: int, causal: bo
 
 def split_bf16(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """What ``attn_fold_fwd_tc`` does with the f32 probabilities P before
-    P.V: ``hi = bf16(P)`` and ``lo = bf16(P - hi)``, both rounded to
-    nearest even. ``hi + lo`` carries 16 bits of P's 24, and ``hi.V + lo.V``
-    are two bf16 products on the tensor cores accumulated in f32. One bf16
-    rounding of P alone would miss the f32 tolerance of o."""
+    P.V, and ``attn_bwd_dkdv_tc`` with P and dS before P^T.dO and dS^T.Q:
+    ``hi = bf16(P)`` and ``lo = bf16(P - hi)``, both rounded to nearest
+    even. ``hi + lo`` carries 16 bits of P's 24, and ``hi.V + lo.V`` are two
+    bf16 products on the tensor cores accumulated in f32. One bf16 rounding
+    alone would miss the f32 tolerance of o, dK and dV."""
     hi = p.to(torch.bfloat16)
     return hi, (p - hi.float()).to(torch.bfloat16)
 
@@ -259,12 +280,10 @@ def fold(
         m, l, o = fold_plain(q, k, v, state, hop=hop, sp=sp, causal=causal)
         out, lse = finalize_plain((m, l, o), q.dtype) if finalize else (None, None)
         return m, l, o, out, lse
-    _check_cuda(q, k, v)
     b, t, h, d = q.shape
+    _check_head_dim(d)
+    q, k, v = _dense(q, k, v)
     tensor_cores = q.dtype == torch.bfloat16
-    if tensor_cores and d % TC_HEAD_DIM_STEP:
-        raise ValueError(f"head dimension {d}: attn_fold_fwd_tc takes bfloat16 operands with "
-                         f"D % {TC_HEAD_DIM_STEP} == 0")
     dev = q.device
     if hop == 0:
         m = torch.empty((b, h, t), dtype=torch.float32, device=dev)
@@ -277,7 +296,7 @@ def fold(
         _stat(m, "m", (b, h, t), dev)
         _stat(l, "l", (b, h, t), dev)
         _stat(o, "o", (b, t, h, d), dev)
-        _check_cuda(o, m, l)
+        _check_state(o, m, l)
     out = torch.empty_like(q) if finalize else None
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev) if finalize else None
     lib = kernels.build()
@@ -320,8 +339,9 @@ def row_dot(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     _check(out, dout, dout, 1)
     if out.device.type == "cpu":
         return row_dot_plain(out, dout)
-    _check_cuda(out, dout)
     b, t, h, d = out.shape
+    _check_head_dim(d)
+    out, dout = _dense(out, dout)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
     lib = kernels.build()
     with torch.cuda.device(out.device):
@@ -333,23 +353,30 @@ def row_dot(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 
 def dkdv(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
-    """K3 backward, ``attn_bwd_dkdv``: ``(dk, dv)`` in q's dtype."""
+    """K3 backward: ``(dk, dv)`` in q's dtype, by ``attn_bwd_dkdv_tc`` for
+    bfloat16 operands and ``attn_bwd_dkdv`` for float32."""
     _check_backward(q, k, v, dout, lse, sp)
     _stat(delta, "delta", lse.shape, q.device)
     if q.device.type == "cpu":
         return dkdv_plain(q, k, v, dout, lse, delta, sp=sp, causal=causal)
-    _check_cuda(q, k, v, dout, lse, delta)
     b, t, h, d = q.shape
+    _check_head_dim(d)
+    q, k, v, dout, lse, delta = _dense(q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # the two entry points take the same arguments; the CUDA-core one also the dtype
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
+    tail = (lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, h, d, sp, int(causal), kernels._stream(q.device))
     lib = kernels.build()
     with torch.cuda.device(q.device):
-        rc = lib.tb_attn_bwd_dkdv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), _DTYPES[q.dtype],
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, d, sp, int(causal), kernels._stream(q.device),
-        )
-    kernels._check_launch(lib, rc, "attn_bwd_dkdv")
-    kernels._count("attn_bwd_dkdv")
+        if q.dtype == torch.bfloat16:
+            name = "attn_bwd_dkdv_tc"
+            rc = lib.tb_attn_bwd_dkdv_tc(*head, *tail)
+        else:
+            name = "attn_bwd_dkdv"
+            rc = lib.tb_attn_bwd_dkdv(*head, _DTYPES[q.dtype], *tail)
+    kernels._check_launch(lib, rc, name)
+    kernels._count(name)
     return dk, dv
 
 
@@ -359,8 +386,9 @@ def dq(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
     _stat(delta, "delta", lse.shape, q.device)
     if q.device.type == "cpu":
         return dq_plain(q, k, v, dout, lse, delta, sp=sp, causal=causal)
-    _check_cuda(q, k, v, dout, lse, delta)
     b, t, h, d = q.shape
+    _check_head_dim(d)
+    q, k, v, dout, lse, delta = _dense(q, k, v, dout, lse, delta)
     out = torch.empty_like(q)
     lib = kernels.build()
     with torch.cuda.device(q.device):
@@ -403,8 +431,8 @@ class RingAttentionFunction(torch.autograd.Function):
 def attention_flops(b: int, t: int, h: int, d: int, *, causal: bool, products: int) -> int:
     """FLOPs (2 per multiply-add) of ``products`` (query, key) x d products
     over every visible pair of full attention, whatever sp: the forward
-    fold does 2 (scores, P.V), ``attn_bwd_dkdv`` 4 (scores, dO.V^T, dV, dK)
-    and ``attn_bwd_dq`` 3 (scores, dO.V^T, dQ)."""
+    fold does 2 (scores, P.V), dK/dV 4 (scores, dO.V^T, dV, dK) and
+    ``attn_bwd_dq`` 3 (scores, dO.V^T, dQ)."""
     pairs = t * (t + 1) // 2 if causal else t * t
     return 2 * b * h * pairs * d * products
 

@@ -20,8 +20,9 @@ version: the tests use them, ``chip_smoke.py`` holds each kernel against
 its plain version on the card, and CPU execution runs them.
 
 The kernels are built at first use: ``nvcc`` compiles each source of
-``csrc/`` (``framing.cu`` here, ``attention.cu`` and ``attention_tc.cu``
-for K3, whose wrappers are in ``ops/attention.py``, and ``quantize.cu`` for
+``csrc/`` (``framing.cu`` here; ``attention.cu``, ``attention_tc.cu`` and
+``attention_bwd_tc.cu`` for K3, whose wrappers are in ``ops/attention.py``,
+the last two sharing ``tc_mma.cuh``; and ``quantize.cu`` for
 K2, whose wrappers are in ``ops/quantize.py``) for ``sm_90a``, one process
 per source, all started together, and links them into one shared library with a plain C
 interface under ``incubator_brpc_tpu_torch/_build/``, loaded with
@@ -48,8 +49,9 @@ ENOMETHOD = 1002
 EREQUEST = 1003
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG_DIR / "csrc" / f
-                for f in ("framing.cu", "attention.cu", "attention_tc.cu", "quantize.cu"))
+SOURCES = tuple(_PKG_DIR / "csrc" / f for f in (
+    "framing.cu", "attention.cu", "attention_tc.cu", "attention_bwd_tc.cu", "quantize.cu"))
+HEADERS = (_PKG_DIR / "csrc" / "tc_mma.cuh",)  # included by the tensor-core sources
 BUILD_DIR = _PKG_DIR / "_build"
 # no --use_fast_math, -ftz=true or -prec-div=false: K2 is bitwise (quantize.cu)
 NVCC_FLAGS = (
@@ -71,6 +73,7 @@ KERNELS = (
     "attn_fold_fwd_tc",
     "attn_bwd_delta",
     "attn_bwd_dkdv",
+    "attn_bwd_dkdv_tc",
     "attn_bwd_dq",
     "quantize_rows",
     "dequant_mean_rows",
@@ -115,7 +118,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libtbkernels-{digest.hexdigest()[:16]}.so"
@@ -185,6 +188,9 @@ def build() -> ctypes.CDLL:
             lib.tb_attn_bwd_dkdv.argtypes = [
                 p, p, p, p, c_int, p, p, p, p, i64, i64, i64, i64, i64, c_int, p
             ]
+            lib.tb_attn_bwd_dkdv_tc.argtypes = [
+                p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, c_int, p
+            ]
             lib.tb_attn_bwd_dq.argtypes = [
                 p, p, p, p, c_int, p, p, p, i64, i64, i64, i64, i64, c_int, p
             ]
@@ -192,7 +198,8 @@ def build() -> ctypes.CDLL:
             lib.tb_dequant_mean_rows.argtypes = [p, p, i64, i64, c_int, c_int, c_int, p, p]
             for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
                        lib.tb_attn_fold_fwd, lib.tb_attn_fold_fwd_tc, lib.tb_attn_bwd_delta,
-                       lib.tb_attn_bwd_dkdv, lib.tb_attn_bwd_dq, lib.tb_quantize_rows,
+                       lib.tb_attn_bwd_dkdv, lib.tb_attn_bwd_dkdv_tc, lib.tb_attn_bwd_dq,
+                       lib.tb_quantize_rows,
                        lib.tb_dequant_mean_rows):
                 fn.restype = c_int
             _lib = lib

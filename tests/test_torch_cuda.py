@@ -1,6 +1,7 @@
 """The port's CUDA kernels and endpoint on the card: each K1 kernel against
 its plain version, bit for bit, the endpoint's calls answered through the
-kernels, K3 (the ring-attention fold and its gradient) against its plain
+kernels, K3 (the ring-attention fold and its gradient, on the tensor cores
+for bf16 at any D % 4 == 0 up to 1024 and in any layout) against its plain
 versions within the tolerances of ``chip_smoke.py``, one FabricNet train
 step on the card against the CPU, K2 (block quantize and dequantize-mean)
 against its plain versions and the numpy twin bit for bit on
@@ -29,9 +30,11 @@ from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
 pytestmark = pytest.mark.gpu
 
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
-K3_BWD = ("attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
-# the forward fold each operand dtype launches
+# the K3 kernels each operand dtype launches: the fold and dK/dV follow the
+# dtype (tensor cores for bf16), delta and dQ take both
 FOLD = {torch.float32: "attn_fold_fwd", torch.bfloat16: "attn_fold_fwd_tc"}
+DKDV = {torch.float32: "attn_bwd_dkdv", torch.bfloat16: "attn_bwd_dkdv_tc"}
+K3_BOTH = ("attn_bwd_delta", "attn_bwd_dq")
 
 
 @pytest.fixture
@@ -147,6 +150,10 @@ def _qkvo(gen, shape, dtype, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_k3_matches_plain_versions(cuda, shape, dtype, causal):
+    _k3_against_plain(cuda, shape, dtype, causal)
+
+
+def _k3_against_plain(cuda, shape, dtype, causal):
     b, t, h, d, sp = shape
     gen = torch.Generator(device=cuda)
     gen.manual_seed(b * t + d + sp)
@@ -155,10 +162,12 @@ def test_k3_matches_plain_versions(cuda, shape, dtype, causal):
     out, lse, (m, l, o) = attention.forward(q, k, v, sp=sp, causal=causal)
     dq, dk, dv = attention.backward(q, k, v, out, dout, lse, sp=sp, causal=causal)
     after = kernels.launch_counts()
-    other = FOLD[torch.float32 if dtype == torch.bfloat16 else torch.bfloat16]
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     assert after[FOLD[dtype]] == before[FOLD[dtype]] + sp
-    assert after[other] == before[other]
-    assert all(after[n] == before[n] + 1 for n in K3_BWD)
+    assert after[DKDV[dtype]] == before[DKDV[dtype]] + 1
+    assert after[FOLD[other]] == before[FOLD[other]]
+    assert after[DKDV[other]] == before[DKDV[other]]
+    assert all(after[n] == before[n] + 1 for n in K3_BOTH)
     state = None
     for hop in range(sp):
         state = attention.fold_plain(q, k, v, state, hop=hop, sp=sp, causal=causal)
@@ -177,13 +186,53 @@ def test_k3_matches_plain_versions(cuda, shape, dtype, causal):
 
 
 def test_tensor_core_fold_refuses_a_head_dimension_off_its_k_step(cuda):
-    q = torch.zeros((1, 8, 1, 24), dtype=torch.bfloat16, device=cuda)  # 24 % 16 != 0
+    """Once a refusal, now a value check: bf16 at D = 24 (16-byte rows, off
+    the k-step of 16) and D = 20 (8-byte rows) runs on the tensor-core fold
+    and dK/dV, held against the plain versions; ragged T / sp = 36."""
+    for d in (24, 20):
+        for causal in (True, False):
+            _k3_against_plain(cuda, (2, 72, 2, d, 2), torch.bfloat16, causal)
+
+
+def test_k3_refuses_head_dimensions_past_its_limits(cuda):
     before = kernels.launch_counts()
-    with pytest.raises(ValueError, match="attn_fold_fwd_tc"):
-        attention.fold(q, q, q, None, hop=0, sp=1, causal=True, finalize=True)
+    for d, dtype in ((18, torch.bfloat16), (1028, torch.bfloat16), (18, torch.float32)):
+        q = torch.zeros((1, 8, 1, d), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match="D % 4 == 0 and D <= 1024"):
+            attention.fold(q, q, q, None, hop=0, sp=1, causal=True, finalize=True)
+        lse = torch.zeros((1, 1, 8), device=cuda)
+        with pytest.raises(ValueError, match="D % 4 == 0 and D <= 1024"):
+            attention.dkdv(q, q, q, q, lse, lse, sp=1, causal=True)
     assert kernels.launch_counts() == before
-    out, _, _ = attention.forward(q.float(), q.float(), q.float(), sp=1, causal=True)
-    assert out.shape == q.shape  # f32 at D 24 stays with the CUDA-core fold
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k3_takes_any_layout(cuda, dtype):
+    """Transposed views, and tensors offset by one element inside a larger
+    buffer (not 16-byte aligned), give bitwise what contiguous copies give."""
+    b, t, h, d, sp = 2, 96, 2, 136, 2
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(61)
+    dense = _qkvo(gen, (b, t, h, d), dtype, cuda)
+
+    def run(q, k, v, dout):
+        out, lse, _ = attention.forward(q, k, v, sp=sp, causal=True)
+        return (out, lse) + attention.backward(q, k, v, out, dout, lse, sp=sp, causal=True)
+
+    def offset(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    want = run(*dense)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in dense]
+    shifted = [offset(x) for x in dense]
+    assert not any(x.is_contiguous() for x in views)
+    assert all(x.data_ptr() % 16 for x in shifted)
+    for inputs in (views, shifted):
+        for got, w in zip(run(*inputs), want):
+            assert torch.equal(got, w)
 
 
 def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
@@ -204,8 +253,9 @@ def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
         results[dev] = (float(loss), {k: p.cpu() for k, p in params.items()})
         if dev == "cuda":  # f32: the CUDA-core fold
             assert all(after[n] == before[n] + cfg.microbatches
-                       for n in ("attn_fold_fwd",) + K3_BWD)
+                       for n in ("attn_fold_fwd", "attn_bwd_dkdv") + K3_BOTH)
             assert after["attn_fold_fwd_tc"] == before["attn_fold_fwd_tc"]
+            assert after["attn_bwd_dkdv_tc"] == before["attn_bwd_dkdv_tc"]
     assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
     for name, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][name], want, rtol=1e-5, atol=1e-5)

@@ -6,8 +6,13 @@ Tolerances: the outputs at rtol = atol = 2e-5 in float32, as
 ``tests/test_ring_attention.py`` holds the ring against full attention (the
 sums run in another order); bfloat16 at 0.05, as there; the gradients of
 ``mean(out^2)`` within 1e-4 absolute (JAX differentiates through the
-merges, the port recomputes from the log-sum-exp); ``prefetch`` bitwise.
+merges, the port recomputes from the log-sum-exp), and gradients of unit
+scale within 1e-4 x max(1, max |g|); bfloat16 gradients within 2^-7 x
+max(1, max |g|), one bf16 rounding of the result on either side;
+``prefetch`` bitwise.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -169,6 +174,80 @@ def test_split_p_keeps_the_fold_within_f32_tolerance(p_as):
         assert err <= tol
     else:
         assert err > 10 * tol
+
+
+@functools.lru_cache(maxsize=1)
+def _dkdv_block():
+    """One causal block at D = 1024 (B 1, T 128, H 1, sp 1; bf16 inputs
+    widened to f32, as the kernel's operands are): JAX's dK and dV (the vjp
+    of ``ring_attention`` for a unit-scale cotangent dO), and the port's
+    recomputed f32 P, dS, Q, dO and sqrt(D)."""
+    b, t, h, d = 1, 128, 1, 1024
+    rng = np.random.default_rng(43)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(np.float32))
+                   .to(torch.bfloat16).float().numpy() for _ in range(4))
+    jstep, jplace = _jax_step(1)
+    _, vjp = jax.vjp(jstep, jplace(q), jplace(k), jplace(v))
+    _, want_dk, want_dv = (np.asarray(g) for g in vjp(jnp.asarray(do)))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse, _ = attention.forward(tq, tk, tv, sp=1, causal=True)
+    delta = attention.row_dot_plain(out, tdo)
+    (_, qb, _, dob, p, ds), = attention._backward_hops(tq, tk, tv, tdo, lse, delta, 1, True)
+    return {"dk": want_dk, "dv": want_dv}, (p, ds, qb, dob, attention._sqrt_d(tq))
+
+
+@pytest.mark.parametrize("grad", ["dk", "dv"])
+@pytest.mark.parametrize("x_as", ["split", "one_bf16_rounding"])
+def test_split_ds_keeps_dkdv_within_f32_tolerance(x_as, grad):
+    """What ``attn_bwd_dkdv_tc`` does with P and dS, on the CPU: dV = P^T dO
+    and dK = dS^T Q / sqrt(D) in f32 with P (for dV) or dS (for dK)
+    replaced by ``split_bf16``'s hi + lo (two products, summed in f32), held
+    against JAX's gradient of ``ring_attention`` within 1e-4 x max(1, max
+    |g|), the f32 tolerance of the gradients. One bf16 rounding misses it:
+    that is why the kernel splits P and dS."""
+    want, (p, ds, qb, dob, sqd) = _dkdv_block()
+    x, operand = (p, dob) if grad == "dv" else (ds, qb)
+    prod = lambda y: torch.einsum("bihts,bithd->bishd", y.float(), operand)  # noqa: E731
+    if x_as == "split":
+        hi, lo = attention.split_bf16(x)
+        got = prod(hi) + prod(lo)
+    else:
+        got = prod(x.to(torch.bfloat16))
+    if grad == "dk":
+        got = got / sqd
+    got = got.reshape(want[grad].shape).numpy()
+    err = float(np.abs(got - want[grad]).max())
+    tol = 1e-4 * max(1.0, float(np.abs(want[grad]).max()))
+    if x_as == "split":
+        assert err <= tol
+    else:
+        assert err > tol
+
+
+def test_bfloat16_grads_off_the_tensor_core_k_step_match_jax():
+    """The bf16 path at D = 24 (off the tensor cores' k-step of 16; on the
+    card the kernels read the columns past D as zeros) through
+    ``RingAttentionFunction`` against JAX's gradient of ``ring_attention``
+    on the same bf16 inputs and cotangent, sp 2, causal, T / sp = 24."""
+    b, t, h, d, sp = 2, 48, 2, 24, 2
+    rng = np.random.default_rng(51)
+    q, k, v, w = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(4))
+    jstep, jplace = _jax_step(sp)
+    jq, jk, jv = (jplace(jnp.asarray(x, jnp.bfloat16)) for x in (q, k, v))
+    want_out, vjp = jax.vjp(jstep, jq, jk, jv)
+    want = vjp(jnp.asarray(w, jnp.bfloat16))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    out = attention.RingAttentionFunction.apply(tq, tk, tv, sp, True)
+    out.backward(torch.from_numpy(w).to(torch.bfloat16))
+    tol = 2.0 ** -7
+    np.testing.assert_allclose(out.detach().float().numpy(), np.asarray(want_out, np.float32),
+                               rtol=0, atol=tol)
+    for g, x in zip(want, (tq, tk, tv)):
+        g = np.asarray(g, np.float32)
+        assert x.grad.dtype == torch.bfloat16
+        assert np.abs(g).max() > 0
+        err = float(np.abs(x.grad.float().numpy() - g).max())
+        assert err <= tol * max(1.0, float(np.abs(g).max()))
 
 
 def test_wrappers_refuse_what_they_do_not_take():
