@@ -24,16 +24,18 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``make_echo_step`` step of 2^26 words; every response and error code is
    checked, and every kernel must have launched;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
-5. holds K3 (the forward fold and dK/dV, on the tensor cores for bf16
-   operands, ``attn_fold_fwd_tc`` and ``attn_bwd_dkdv_tc``, and on the CUDA
-   cores for f32, ``attn_fold_fwd`` and ``attn_bwd_dkdv``;
-   ``attn_bwd_delta`` and ``attn_bwd_dq`` for both) against its plain
+5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
+   operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
+   ``attn_bwd_dq_tc``, and on the CUDA cores for f32, ``attn_fold_fwd``,
+   ``attn_bwd_dkdv`` and ``attn_bwd_dq``; ``attn_bwd_delta`` for both)
+   against its plain
    versions at the bench attention shape (B 4, T 1024, H 2, D 1024; sp 1
    and 4; bf16 and f32; causal and not), two ragged ones (B 2, T 48, H 4,
    D 16, sp 4; B 1, T 200, H 2, D 144, sp 2) and two off the tensor cores'
    k-step (B 2, T 72, H 2, D 24 and D 20, sp 2), in any layout (transposed
    views and tensors one element off 16-byte alignment give bitwise what
-   contiguous copies give), and ``ring_attention`` against
+   contiguous copies give, and dK/dV and dQ on the misaligned ones within
+   the tolerances of their plain versions), and ``ring_attention`` against
    ``full_attention`` on the card;
 6. runs one FabricNet train step (d_model 32, heads 2, two layers, f32) on
    the card and on the CPU from the same numpy weights and compares them;
@@ -42,11 +44,12 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    microbatch) on the one-card mesh, whose loss must stay finite and fall,
    with ms per step, FLOPs per step, TFLOP/s, peak memory and K3 launches
    (one ``attn_fold_fwd_tc``, ``attn_bwd_delta``, ``attn_bwd_dkdv_tc`` and
-   ``attn_bwd_dq`` a step, no ``attn_fold_fwd`` or ``attn_bwd_dkdv``); then
-   3 steps of the same in f32, counted alike (the other way round);
+   ``attn_bwd_dq_tc`` a step, no ``attn_fold_fwd``, ``attn_bwd_dkdv`` or
+   ``attn_bwd_dq``); then 3 steps of the same in f32, counted alike (the
+   other way round);
 8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16;
-   the tensor-core fold also at B 1, 64 blocks; the f32 fold and dK/dV at
-   sp 1 in f32) with CUDA events beside its bound, its
+   the tensor-core fold also at B 1, 64 blocks; the f32 fold, dK/dV and dQ
+   at sp 1 in f32) with CUDA events beside its bound, its
    plain version and ``scaled_dot_product_attention``, and breaks two bf16
    train steps down by kernel with torch.profiler (device busy and idle
    share);
@@ -98,14 +101,17 @@ BF16_TC_FLOPS_PER_S = 989e12
 
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
 K3 = ("attn_fold_fwd", "attn_fold_fwd_tc", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dkdv_tc",
-      "attn_bwd_dq")
-# the fold and the dK/dV kernel each operand dtype launches (ops/attention.py
-# fold, dkdv); attn_bwd_delta and attn_bwd_dq take both
+      "attn_bwd_dq", "attn_bwd_dq_tc")
+# the fold, dK/dV and dQ kernels each operand dtype launches (ops/attention.py
+# fold, dkdv, dq); attn_bwd_delta takes both
 FOLD = {"float32": "attn_fold_fwd", "bfloat16": "attn_fold_fwd_tc"}
 DKDV = {"float32": "attn_bwd_dkdv", "bfloat16": "attn_bwd_dkdv_tc"}
-K3_BOTH = ("attn_bwd_delta", "attn_bwd_dq")
+DQ = {"float32": "attn_bwd_dq", "bfloat16": "attn_bwd_dq_tc"}
+K3_BOTH = ("attn_bwd_delta",)
+K3_F32 = (FOLD["float32"], DKDV["float32"], DQ["float32"])  # timed, and counted, in f32
 K3_SOURCE = {"attn_fold_fwd_tc": "incubator_brpc_tpu_torch/csrc/attention_tc.cu",
-             "attn_bwd_dkdv_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu"}
+             "attn_bwd_dkdv_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu",
+             "attn_bwd_dq_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu"}
 # bench.py bench_fabricnet: d_model 2048 over heads 2 -> D 1024, batch 4, seq 1024
 BENCH_ATTN = (4, 1024, 2, 1024)
 BENCH_FABRICNET = dict(d_model=2048, d_ff=8192, d_expert=2048, experts_per_rank=2,
@@ -136,6 +142,7 @@ REPLACES = {
     "attn_bwd_dkdv": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dkdv_tc": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dq": "incubator_brpc_tpu/models/ring_attention.py:48",
+    "attn_bwd_dq_tc": "incubator_brpc_tpu/models/ring_attention.py:48",
 }
 KINDS = ("valid", "bad_magic", "bad_length", "flipped_word", "unknown_method")
 
@@ -477,7 +484,8 @@ def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
     want_dk, want_dv = attention.dkdv_plain(q, k, v, dout, lse, want_delta, sp=sp, causal=causal)
     want_dq = attention.dq_plain(q, k, v, dout, lse, want_delta, sp=sp, causal=causal)
     torch.cuda.synchronize()
-    fold, dkdv = errs[FOLD[str(dtype)[6:]]], errs[DKDV[str(dtype)[6:]]]
+    name = str(dtype)[6:]
+    fold, dkdv, dqe = errs[FOLD[name]], errs[DKDV[name]], errs[DQ[name]]
     parts = [
         err_within(torch, "out", out, want_out, tol[dtype], fold),
         err_within(torch, "m", m, state[0], f32, fold),
@@ -487,18 +495,18 @@ def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
         err_within(torch, "delta", delta, want_delta, f32, errs["attn_bwd_delta"]),
         err_within(torch, "dk", dk, want_dk, tol[dtype], dkdv),
         err_within(torch, "dv", dv, want_dv, tol[dtype], dkdv),
-        err_within(torch, "dq", dq, want_dq, tol[dtype], errs["attn_bwd_dq"]),
+        err_within(torch, "dq", dq, want_dq, tol[dtype], dqe),
     ]
-    log(f"phase5 K3 B={b} T={t} H={h} D={d} sp={sp} {str(dtype)[6:]} "
-        f"{'causal' if causal else 'full'} ({FOLD[str(dtype)[6:]]}, {DKDV[str(dtype)[6:]]}): "
+    log(f"phase5 K3 B={b} T={t} H={h} D={d} sp={sp} {name} "
+        f"{'causal' if causal else 'full'} ({FOLD[name]}, {DKDV[name]}, {DQ[name]}): "
         + "; ".join(parts))
 
 
 def k3_layout_case(torch, attention, gen, dev, shape, dtype, errs):
     """K3 on transposed views and on tensors one element past 16-byte
     alignment: bitwise what contiguous copies give (the wrappers copy such
-    tensors; JAX takes any layout), and dK/dV within the tolerances of the
-    plain version on the views."""
+    tensors; JAX takes any layout), and dK/dV and dQ within the tolerances
+    of the plain versions on the misaligned inputs."""
     b, t, h, d, sp = shape
     dense = [torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype) for _ in range(4)]
 
@@ -521,15 +529,19 @@ def k3_layout_case(torch, attention, gen, dev, shape, dtype, errs):
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"K3 on {name} differs from contiguous copies")
     q, k, v, dout = inputs
-    out, lse, _, dk, dv = got
-    want_dk, want_dv = attention.dkdv_plain(q, k, v, dout, lse, attention.row_dot_plain(out, dout),
-                                            sp=sp, causal=True)
-    tol, kern = k3_tolerances(torch)[dtype], DKDV[str(dtype)[6:]]
+    out, lse, dq, dk, dv = got
+    delta = attention.row_dot_plain(out, dout)
+    want_dk, want_dv = attention.dkdv_plain(q, k, v, dout, lse, delta, sp=sp, causal=True)
+    want_dq = attention.dq_plain(q, k, v, dout, lse, delta, sp=sp, causal=True)
+    name = str(dtype)[6:]
+    tol, kern, dq_kern = k3_tolerances(torch)[dtype], DKDV[name], DQ[name]
     parts = [err_within(torch, "dk", dk, want_dk, tol, errs[kern]),
-             err_within(torch, "dv", dv, want_dv, tol, errs[kern])]
-    log(f"phase5 K3 B={b} T={t} H={h} D={d} sp={sp} {str(dtype)[6:]} causal on transposed views "
+             err_within(torch, "dv", dv, want_dv, tol, errs[kern]),
+             err_within(torch, "dq", dq, want_dq, tol, errs[dq_kern])]
+    log(f"phase5 K3 B={b} T={t} H={h} D={d} sp={sp} {name} causal on transposed views "
         f"and on tensors one element off 16-byte alignment: bitwise the contiguous copies' result; "
-        f"{kern} on the misaligned inputs against dkdv_plain: " + "; ".join(parts))
+        f"{kern} and {dq_kern} on the misaligned inputs against dkdv_plain and dq_plain: "
+        + "; ".join(parts))
 
 
 def k3_bounds(flops, nbytes, peak=F32_FLOPS_PER_S):
@@ -555,6 +567,11 @@ def dkdv_bytes(n, stats, itemsize):
     return 4 * itemsize * n + 2 * stats + 2 * itemsize * n
 
 
+def dq_bytes(n, stats, itemsize):
+    """What dQ must move: q, k, v, dout, lse and delta read, dq written."""
+    return 4 * itemsize * n + 2 * stats + itemsize * n
+
+
 def k3_timings(torch, attention, gen, dev, sp):
     """CUDA-event times at the bench attention shape, bf16, causal: the
     tensor-core fold and the backward kernels."""
@@ -575,7 +592,7 @@ def k3_timings(torch, attention, gen, dev, sp):
         return attention.finalize_plain(st, q.dtype)
 
     flops = {p: attention.attention_flops(b, t, h, d, causal=True, products=p) for p in (2, 3, 4)}
-    tensor_cores = (FOLD["bfloat16"], DKDV["bfloat16"])
+    tensor_cores = (FOLD["bfloat16"], DKDV["bfloat16"], DQ["bfloat16"])
     cases = {
         # name: (kernel, plain, flops, bytes: inputs read once, outputs written once)
         "attn_fold_fwd_tc": (lambda: attention.forward(q, k, v, sp=sp, causal=True), plain_fwd,
@@ -586,9 +603,10 @@ def k3_timings(torch, attention, gen, dev, sp):
                              lambda: attention.dkdv_plain(q, k, v, dout, lse, delta, sp=sp,
                                                           causal=True),
                              flops[4], dkdv_bytes(n, stats, 2)),
-        "attn_bwd_dq": (lambda: attention.dq(q, k, v, dout, lse, delta, sp=sp, causal=True),
-                        lambda: attention.dq_plain(q, k, v, dout, lse, delta, sp=sp, causal=True),
-                        flops[3], 4 * 2 * n + 2 * stats + 2 * n),
+        "attn_bwd_dq_tc": (lambda: attention.dq(q, k, v, dout, lse, delta, sp=sp, causal=True),
+                           lambda: attention.dq_plain(q, k, v, dout, lse, delta, sp=sp,
+                                                      causal=True),
+                           flops[3], dq_bytes(n, stats, 2)),
     }
     res = {}
     for name, (kern, plain, fl, nbytes) in cases.items():
@@ -626,7 +644,7 @@ def k3_timings(torch, attention, gen, dev, sp):
 
 
 def k3_f32_timings(torch, attention, gen, dev):
-    """CUDA-event times of the CUDA-core fold and dK/dV, which float32
+    """CUDA-event times of the CUDA-core fold, dK/dV and dQ, which float32
     operands take, at the bench attention shape, causal, sp 1, beside their
     bounds, their plain versions and (for the fold) SDPA's forward on the
     same f32 tensors."""
@@ -650,6 +668,9 @@ def k3_f32_timings(torch, attention, gen, dev):
         "attn_bwd_dkdv": (lambda: attention.dkdv(q, k, v, dout, lse, delta, sp=1, causal=True),
                           lambda: attention.dkdv_plain(q, k, v, dout, lse, delta, sp=1, causal=True),
                           4, dkdv_bytes(n, stats, 4)),
+        "attn_bwd_dq": (lambda: attention.dq(q, k, v, dout, lse, delta, sp=1, causal=True),
+                        lambda: attention.dq_plain(q, k, v, dout, lse, delta, sp=1, causal=True),
+                        3, dq_bytes(n, stats, 4)),
     }
     res = {}
     for name, (kern, plain, products, nbytes) in cases.items():
@@ -728,7 +749,8 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
         raise AssertionError(f"FabricNet losses not finite and falling: {losses}")
     name = str(dtype)[6:]
     other = "float32" if name == "bfloat16" else "bfloat16"
-    path, others = (FOLD[name], DKDV[name]) + K3_BOTH, (FOLD[other], DKDV[other])
+    path = (FOLD[name], DKDV[name], DQ[name]) + K3_BOTH
+    others = (FOLD[other], DKDV[other], DQ[other])
     per_step = {n: launches[n] / nsteps for n in K3}
     if any(per_step[n] != 1 for n in path) or any(launches[n] for n in others):
         raise AssertionError(f"FabricNet {name}: K3 launches per step {per_step}; want one of "
@@ -829,8 +851,7 @@ def run_k3_phases(torch, kernels, dev):
     fab, train = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.bfloat16, 10, 2)
     fab32, _ = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.float32, 3, 1)
     # the f32 path's kernels count the f32 steps' launches
-    launches = dict(fab["launches"], **{n: fab32["launches"][n]
-                                        for n in (FOLD["float32"], DKDV["float32"])})
+    launches = dict(fab["launches"], **{n: fab32["launches"][n] for n in K3_F32})
 
     # -- phase 8: K3 timings --------------------------------------------------
     timings = {sp: k3_timings(torch, attention, gen, dev, sp) for sp in (1, 4)}
@@ -846,10 +867,10 @@ def run_k3_phases(torch, kernels, dev):
             "tensor_core_bound_ms": r["tensor_core_bound_ms"],
             "shape": list(BENCH_ATTN), "sp": 1, "dtype": "bfloat16",
         }
-        if name in (FOLD["float32"], DKDV["float32"]):  # the f32 path's launches, timed in f32
+        if name in K3_F32:  # the f32 path's launches, timed in f32
             line[name].update(library_ms=r["library_ms"], dtype="float32")
             continue
-        if name in (FOLD["bfloat16"], DKDV["bfloat16"]):
+        if name in (FOLD["bfloat16"], DKDV["bfloat16"], DQ["bfloat16"]):
             line[name]["sp4_ms"] = timings[4][name]["ms"]
             line[name]["sp4_bound_ms"] = timings[4][name]["bound_ms"]
         if name == "attn_fold_fwd_tc":

@@ -8,7 +8,8 @@
 //   attn_bwd_delta  \
 //   attn_bwd_dkdv    > the gradient JAX's autodiff takes through ring_attention
 //   attn_bwd_dq     /  (lax.scan over block_merge), by recomputation; dK/dV
-//                      for f32 operands, bf16 operands take attn_bwd_dkdv_tc
+//                      and dQ for f32 operands, bf16 operands take
+//                      attn_bwd_dkdv_tc and attn_bwd_dq_tc
 //                      (attention_bwd_tc.cu, tensor cores)
 //
 // Tensors keep JAX's layout: q, k, v, out, dout, dq, dk, dv are (B, T, H, D)
@@ -779,19 +780,6 @@ int dq_t(const void* q, const void* k, const void* v, const void* dout, const fl
              delta, static_cast<T*>(dqo), g, causal);
 }
 
-// dtype: 0 = float32, 1 = bfloat16
-#define TB_DISPATCH(fn, dtype, D, ...)                                               \
-  do {                                                                               \
-    const int c_ = cpt_of(D);                                                        \
-    if ((dtype) == 0) {                                                              \
-      return c_ == 1 ? fn<float, 1>(__VA_ARGS__)                                     \
-             : c_ == 2 ? fn<float, 2>(__VA_ARGS__) : fn<float, 4>(__VA_ARGS__);      \
-    }                                                                                \
-    return c_ == 1 ? fn<__nv_bfloat16, 1>(__VA_ARGS__)                               \
-           : c_ == 2 ? fn<__nv_bfloat16, 2>(__VA_ARGS__)                             \
-                     : fn<__nv_bfloat16, 4>(__VA_ARGS__);                            \
-  } while (0)
-
 }  // namespace
 
 extern "C" {
@@ -836,13 +824,17 @@ int tb_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* do
                   : dkdv_t<float, 4>(q, k, v, dout, lse, delta, dk, dv, g, causal, st);
 }
 
+// f32 operands only (dtype 0): bf16 dQ runs on the tensor cores
 int tb_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout, int dtype,
                    const float* lse, const float* delta, void* dqo, int64_t B, int64_t T,
                    int64_t H, int64_t D, int64_t sp, int causal, void* stream) {
-  if (!takes(D) || sp <= 0 || T % sp != 0) return int(cudaErrorInvalidValue);
+  if (dtype != 0 || !takes(D) || sp <= 0 || T % sp != 0) return int(cudaErrorInvalidValue);
   const Geo g = geo(B, T, H, D, sp);
-  TB_DISPATCH(dq_t, dtype, D, q, k, v, dout, lse, delta, dqo, g, causal,
-              static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int c = cpt_of(D);
+  return c == 1 ? dq_t<float, 1>(q, k, v, dout, lse, delta, dqo, g, causal, st)
+         : c == 2 ? dq_t<float, 2>(q, k, v, dout, lse, delta, dqo, g, causal, st)
+                  : dq_t<float, 4>(q, k, v, dout, lse, delta, dqo, g, causal, st);
 }
 
 }  // extern "C"

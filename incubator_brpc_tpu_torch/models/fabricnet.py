@@ -21,9 +21,13 @@ leading ``pp`` dimension: ``w_in``, ``w_out``, ``moe_w1``, ``moe_w2``,
 the norms, activations, gate, loss and SGD update are PyTorch elementwise
 ops. The ``"fused"`` train step updates the parameters **in place** (under
 ``torch.no_grad``), ``p - lr * g`` in the parameters' dtype, and returns the
-same dict with the loss. The ``"serialized"`` and ``"overlapped"``
-schedules overlap gradient collectives across ranks, and FabricNet on a mesh
-with an axis above 1 is a later slice (ROADMAP slice 4).
+same dict with the loss. Its autograd leaves are the finest slices the
+forward reads (one a layer of ``w_in`` and ``w_out``, one a projection of
+``wqkv``; ``_weights``), so the backward forms no gradient of a whole
+parameter, as the reference's donated ``jax.jit`` step forms none. The
+``"serialized"`` and ``"overlapped"`` schedules overlap gradient
+collectives across ranks, and FabricNet on a mesh with an axis above 1 is
+a later slice (ROADMAP slice 4).
 
 Entry points run on the card unless the mesh (or ``device``) says ``cpu``.
 """
@@ -31,7 +35,7 @@ Entry points run on the card unless the mesh (or ``device``) says ``cpu``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,6 +47,8 @@ from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
 
 SCHEDULES = ("fused", "serialized", "overlapped")
 Params = Dict[str, torch.Tensor]
+# the forward's view of the parameters (_weights): a tensor, or a list of them
+Weights = Dict[str, Union[torch.Tensor, List[torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,37 +176,53 @@ def _ring_attn_block(wqkv, wo, heads: int, x):
     return out.reshape(mb, sl, d) @ wo
 
 
-def _stage_fn(sp_params: Params, heads: int, x):
+def _stage_fn(w: Weights, heads: int, x):
     """One pipeline stage: L residual MLP layers, the sequence block (ring
     attention, or the ring mean when heads = 0), and the MoE block."""
-    for l in range(sp_params["w_in"].shape[0]):
-        x = x + _mlp(sp_params["w_in"][l], sp_params["w_out"][l], _rms_norm(x))
+    for l in range(len(w["w_in"])):
+        x = x + _mlp(w["w_in"][l], w["w_out"][l], _rms_norm(x))
     if heads:
-        x = x + _ring_attn_block(sp_params["wqkv"], sp_params["wo"], heads, _rms_norm(x))
+        x = x + _ring_attn_block(w["wqkv"], w["wo"], heads, _rms_norm(x))
     else:
         x = x + _ring_context(x)
-    return x + _moe(sp_params["moe_w1"], sp_params["moe_w2"], sp_params["gate"], _rms_norm(x))
+    return x + _moe(w["moe_w1"], w["moe_w2"], w["gate"], _rms_norm(x))
 
 
-def _local_forward(cfg: FabricNetConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def _weights(params: Params, heads: int) -> Weights:
+    """The weights as the forward of the one rank reads them, each the
+    finest slice it uses: views of ``params`` (stage 0 of ``pp = 1``), one
+    a layer for ``w_in`` and ``w_out``, one a projection for ``wqkv``, and
+    ``head`` whole. The train step makes each view an autograd leaf, so no
+    gradient of a whole parameter is ever formed."""
+    w: Weights = {k: params[k][0] for k in ("moe_w1", "moe_w2", "gate")}
+    w["w_in"], w["w_out"] = list(params["w_in"][0]), list(params["w_out"][0])
+    if heads:
+        w["wqkv"], w["wo"] = list(params["wqkv"][0]), params["wo"][0]
+    w["head"] = params["head"]
+    return w
+
+
+def _leaves(w: Weights):
+    """The tensors of ``w``, in a fixed order."""
+    for v in w.values():
+        yield from v if isinstance(v, list) else (v,)
+
+
+def _local_forward(cfg: FabricNetConfig, w: Weights, x: torch.Tensor) -> torch.Tensor:
     """The forward of the one rank: contiguous row microbatches
     (``x.reshape(m, bl // m, sl, d)``) through the stage in order (GPipe
     with pp = 1), then the head."""
-    stage = {k: params[k][0] for k in ("w_in", "w_out", "moe_w1", "moe_w2", "gate")}
-    if cfg.heads:
-        stage["wqkv"] = params["wqkv"][0]
-        stage["wo"] = params["wo"][0]
     bl, sl, d = x.shape
     m = cfg.microbatches
     xs = x.reshape(m, bl // m, sl, d)
-    outs = torch.stack([_stage_fn(stage, cfg.heads, xs[i]) for i in range(m)])
-    return outs.reshape(bl, sl, d) @ params["head"]
+    outs = torch.stack([_stage_fn(w, cfg.heads, xs[i]) for i in range(m)])
+    return outs.reshape(bl, sl, d) @ w["head"]
 
 
-def _local_loss(cfg: FabricNetConfig, params: Params, x, y) -> torch.Tensor:
+def _local_loss(cfg: FabricNetConfig, w: Weights, x, y) -> torch.Tensor:
     """``mean((out - y)^2)``, summed in float32 and rounded to the model's
     dtype as ``jnp.mean`` does; the ``pmean`` over size-1 axes is the identity."""
-    out = _local_forward(cfg, params, x)
+    out = _local_forward(cfg, w, x)
     return (out - y).square().mean(dtype=torch.float32).to(out.dtype)
 
 
@@ -241,7 +263,7 @@ def make_forward_step(
 
     @torch.no_grad()
     def fwd(params: Params, x: torch.Tensor) -> torch.Tensor:
-        return _local_forward(cfg, params, x)
+        return _local_forward(cfg, _weights(params, cfg.heads), x)
 
     return fwd
 
@@ -265,13 +287,15 @@ def make_train_step(
     validate_config(cfg, mesh)
 
     def step(params: Params, x: torch.Tensor, y: torch.Tensor):
-        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        views = _weights(params, cfg.heads)
+        leaves = {k: [t.detach().requires_grad_() for t in v] if isinstance(v, list)
+                  else v.detach().requires_grad_() for k, v in views.items()}
         with torch.enable_grad():
             loss = _local_loss(cfg, leaves, x, y)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            grads = torch.autograd.grad(loss, list(_leaves(leaves)))
         with torch.no_grad():
-            for p, g in zip(params.values(), grads):
-                p.sub_(cfg.lr * g)
+            for view, g in zip(_leaves(views), grads):
+                view.sub_(cfg.lr * g)  # lr * g rounded to the dtype, then the subtraction
         return params, loss.detach()
 
     return step

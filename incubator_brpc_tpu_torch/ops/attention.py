@@ -1,8 +1,8 @@
 """K3 — the ring-attention block fold, forward and backward, and their plain
 versions.
 
-The wrappers over the hand-written CUDA kernels in ``csrc/attention.cu``
-and ``csrc/attention_tc.cu``:
+The wrappers over the hand-written CUDA kernels in ``csrc/attention.cu``,
+``csrc/attention_tc.cu`` and ``csrc/attention_bwd_tc.cu``:
 
 - :func:`fold` replaces ``incubator_brpc_tpu/models/ring_attention.py``
   ``_block_attn`` (:35) and ``block_merge`` (:81) for one hop of the ring,
@@ -14,10 +14,12 @@ and ``csrc/attention_tc.cu``:
   cores).
 - :func:`backward` (:func:`row_dot`, :func:`dkdv` and :func:`dq` over
   ``attn_bwd_delta``, ``attn_bwd_dkdv`` or ``attn_bwd_dkdv_tc``, and
-  ``attn_bwd_dq``) replaces the gradient JAX's autodiff takes through
-  ``ring_attention``. :func:`dkdv` follows the dtype as :func:`fold` does:
-  bfloat16 goes to ``attn_bwd_dkdv_tc`` (``attention_bwd_tc.cu``, tensor
-  cores, P and dS split), float32 to ``attn_bwd_dkdv``. It
+  ``attn_bwd_dq`` or ``attn_bwd_dq_tc``) replaces the gradient JAX's
+  autodiff takes through ``ring_attention``. :func:`dkdv` and :func:`dq`
+  follow the dtype as :func:`fold` does: bfloat16 goes to
+  ``attn_bwd_dkdv_tc`` and ``attn_bwd_dq_tc`` (``attention_bwd_tc.cu``,
+  tensor cores, P and dS split), float32 to ``attn_bwd_dkdv`` and
+  ``attn_bwd_dq``. It
   recomputes the scores from q, k, v, dO and the saved per-row
   log-sum-exp ``lse = m + log(l)``: ``delta = rowsum(dO * O)``,
   ``P = exp(S - lse)``, ``dV += P^T dO``, ``dS = P * (dO V^T - delta)``,
@@ -42,8 +44,8 @@ columns past D, up to their k-step of 16, as zeros.
 
 What bounds the CUDA-core kernels on the card is operations (f32 FMAs, as
 the JAX function computes in f32); what bounds the tensor-core fold is
-bytes, and the tensor-core dK/dV operations and bytes about alike. Each
-source says how its design meets that. A wrapper given CPU tensors runs the
+bytes, and the tensor-core dK/dV and dQ operations and bytes about alike.
+Each source says how its design meets that. A wrapper given CPU tensors runs the
 plain PyTorch version beside it; given CUDA tensors it launches the kernels
 on the current stream or raises. Nothing on the card's path calls a plain
 version.
@@ -187,11 +189,12 @@ def fold_plain(q, k, v, state: Optional[State], *, hop: int, sp: int, causal: bo
 
 def split_bf16(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """What ``attn_fold_fwd_tc`` does with the f32 probabilities P before
-    P.V, and ``attn_bwd_dkdv_tc`` with P and dS before P^T.dO and dS^T.Q:
+    P.V, ``attn_bwd_dkdv_tc`` with P and dS before P^T.dO and dS^T.Q, and
+    ``attn_bwd_dq_tc`` with dS before dS.K:
     ``hi = bf16(P)`` and ``lo = bf16(P - hi)``, both rounded to nearest
     even. ``hi + lo`` carries 16 bits of P's 24, and ``hi.V + lo.V`` are two
     bf16 products on the tensor cores accumulated in f32. One bf16 rounding
-    alone would miss the f32 tolerance of o, dK and dV."""
+    alone would miss the f32 tolerance of o, dK, dV and dQ."""
     hi = p.to(torch.bfloat16)
     return hi, (p - hi.float()).to(torch.bfloat16)
 
@@ -381,7 +384,8 @@ def dkdv(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
 
 
 def dq(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
-    """K3 backward, ``attn_bwd_dq``: ``dq`` in q's dtype."""
+    """K3 backward: ``dq`` in q's dtype, by ``attn_bwd_dq_tc`` for bfloat16
+    operands and ``attn_bwd_dq`` for float32."""
     _check_backward(q, k, v, dout, lse, sp)
     _stat(delta, "delta", lse.shape, q.device)
     if q.device.type == "cpu":
@@ -390,15 +394,19 @@ def dq(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
     _check_head_dim(d)
     q, k, v, dout, lse, delta = _dense(q, k, v, dout, lse, delta)
     out = torch.empty_like(q)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
+    tail = (lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
+            b, t, h, d, sp, int(causal), kernels._stream(q.device))
     lib = kernels.build()
     with torch.cuda.device(q.device):
-        rc = lib.tb_attn_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), _DTYPES[q.dtype],
-            lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
-            b, t, h, d, sp, int(causal), kernels._stream(q.device),
-        )
-    kernels._check_launch(lib, rc, "attn_bwd_dq")
-    kernels._count("attn_bwd_dq")
+        if q.dtype == torch.bfloat16:
+            name = "attn_bwd_dq_tc"
+            rc = lib.tb_attn_bwd_dq_tc(*head, *tail)
+        else:
+            name = "attn_bwd_dq"
+            rc = lib.tb_attn_bwd_dq(*head, _DTYPES[q.dtype], *tail)
+    kernels._check_launch(lib, rc, name)
+    kernels._count(name)
     return out
 
 
@@ -431,8 +439,8 @@ class RingAttentionFunction(torch.autograd.Function):
 def attention_flops(b: int, t: int, h: int, d: int, *, causal: bool, products: int) -> int:
     """FLOPs (2 per multiply-add) of ``products`` (query, key) x d products
     over every visible pair of full attention, whatever sp: the forward
-    fold does 2 (scores, P.V), dK/dV 4 (scores, dO.V^T, dV, dK) and
-    ``attn_bwd_dq`` 3 (scores, dO.V^T, dQ)."""
+    fold does 2 (scores, P.V), dK/dV 4 (scores, dO.V^T, dV, dK) and dQ 3
+    (scores, dO.V^T, dQ)."""
     pairs = t * (t + 1) // 2 if causal else t * t
     return 2 * b * h * pairs * d * products
 

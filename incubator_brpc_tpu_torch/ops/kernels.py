@@ -75,6 +75,7 @@ KERNELS = (
     "attn_bwd_dkdv",
     "attn_bwd_dkdv_tc",
     "attn_bwd_dq",
+    "attn_bwd_dq_tc",
     "quantize_rows",
     "dequant_mean_rows",
 )
@@ -194,12 +195,15 @@ def build() -> ctypes.CDLL:
             lib.tb_attn_bwd_dq.argtypes = [
                 p, p, p, p, c_int, p, p, p, i64, i64, i64, i64, i64, c_int, p
             ]
+            lib.tb_attn_bwd_dq_tc.argtypes = [
+                p, p, p, p, p, p, p, i64, i64, i64, i64, i64, c_int, p
+            ]
             lib.tb_quantize_rows.argtypes = [p, i64, i64, i64, c_int, c_int, p, p, p]
             lib.tb_dequant_mean_rows.argtypes = [p, p, i64, i64, c_int, c_int, c_int, p, p]
             for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
                        lib.tb_attn_fold_fwd, lib.tb_attn_fold_fwd_tc, lib.tb_attn_bwd_delta,
                        lib.tb_attn_bwd_dkdv, lib.tb_attn_bwd_dkdv_tc, lib.tb_attn_bwd_dq,
-                       lib.tb_quantize_rows,
+                       lib.tb_attn_bwd_dq_tc, lib.tb_quantize_rows,
                        lib.tb_dequant_mean_rows):
                 fn.restype = c_int
             _lib = lib

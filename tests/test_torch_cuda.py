@@ -30,11 +30,12 @@ from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
 pytestmark = pytest.mark.gpu
 
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
-# the K3 kernels each operand dtype launches: the fold and dK/dV follow the
-# dtype (tensor cores for bf16), delta and dQ take both
+# the K3 kernels each operand dtype launches: the fold, dK/dV and dQ follow
+# the dtype (tensor cores for bf16), delta takes both
 FOLD = {torch.float32: "attn_fold_fwd", torch.bfloat16: "attn_fold_fwd_tc"}
 DKDV = {torch.float32: "attn_bwd_dkdv", torch.bfloat16: "attn_bwd_dkdv_tc"}
-K3_BOTH = ("attn_bwd_delta", "attn_bwd_dq")
+DQ = {torch.float32: "attn_bwd_dq", torch.bfloat16: "attn_bwd_dq_tc"}
+K3_BOTH = ("attn_bwd_delta",)
 
 
 @pytest.fixture
@@ -165,8 +166,10 @@ def _k3_against_plain(cuda, shape, dtype, causal):
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     assert after[FOLD[dtype]] == before[FOLD[dtype]] + sp
     assert after[DKDV[dtype]] == before[DKDV[dtype]] + 1
+    assert after[DQ[dtype]] == before[DQ[dtype]] + 1
     assert after[FOLD[other]] == before[FOLD[other]]
     assert after[DKDV[other]] == before[DKDV[other]]
+    assert after[DQ[other]] == before[DQ[other]]
     assert all(after[n] == before[n] + 1 for n in K3_BOTH)
     state = None
     for hop in range(sp):
@@ -187,8 +190,8 @@ def _k3_against_plain(cuda, shape, dtype, causal):
 
 def test_tensor_core_fold_refuses_a_head_dimension_off_its_k_step(cuda):
     """Once a refusal, now a value check: bf16 at D = 24 (16-byte rows, off
-    the k-step of 16) and D = 20 (8-byte rows) runs on the tensor-core fold
-    and dK/dV, held against the plain versions; ragged T / sp = 36."""
+    the k-step of 16) and D = 20 (8-byte rows) runs on the tensor-core fold,
+    dK/dV and dQ, held against the plain versions; ragged T / sp = 36."""
     for d in (24, 20):
         for causal in (True, False):
             _k3_against_plain(cuda, (2, 72, 2, d, 2), torch.bfloat16, causal)
@@ -203,6 +206,8 @@ def test_k3_refuses_head_dimensions_past_its_limits(cuda):
         lse = torch.zeros((1, 1, 8), device=cuda)
         with pytest.raises(ValueError, match="D % 4 == 0 and D <= 1024"):
             attention.dkdv(q, q, q, q, lse, lse, sp=1, causal=True)
+        with pytest.raises(ValueError, match="D % 4 == 0 and D <= 1024"):
+            attention.dq(q, q, q, q, lse, lse, sp=1, causal=True)
     assert kernels.launch_counts() == before
 
 
@@ -251,11 +256,11 @@ def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
         params, loss = step(params, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
         after = kernels.launch_counts()
         results[dev] = (float(loss), {k: p.cpu() for k, p in params.items()})
-        if dev == "cuda":  # f32: the CUDA-core fold
+        if dev == "cuda":  # f32: the CUDA-core kernels
             assert all(after[n] == before[n] + cfg.microbatches
-                       for n in ("attn_fold_fwd", "attn_bwd_dkdv") + K3_BOTH)
-            assert after["attn_fold_fwd_tc"] == before["attn_fold_fwd_tc"]
-            assert after["attn_bwd_dkdv_tc"] == before["attn_bwd_dkdv_tc"]
+                       for n in ("attn_fold_fwd", "attn_bwd_dkdv", "attn_bwd_dq") + K3_BOTH)
+            assert all(after[n] == before[n]
+                       for n in ("attn_fold_fwd_tc", "attn_bwd_dkdv_tc", "attn_bwd_dq_tc"))
     assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
     for name, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][name], want, rtol=1e-5, atol=1e-5)

@@ -94,6 +94,67 @@ def test_train_steps_match_jax(kw):
                 )
 
 
+def _whole_parameter_step(cfg):
+    """The train step written the old way: each whole parameter an autograd
+    leaf, indexed by the forward (a ``select_backward`` of full size for
+    each use), its gradients summed at full size."""
+
+    def step(params, x, y):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        w = {k: v[0] for k, v in leaves.items() if k != "head"}  # indexed per layer as used
+        w["head"] = leaves["head"]
+        with torch.enable_grad():
+            loss = fn._local_loss(cfg, w, x, y)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            for p, g in zip(params.values(), grads):
+                p.sub_(cfg.lr * g)
+        return params, loss.detach()
+
+    return step
+
+
+def _small(dtype, **kw):
+    cfg = fn.FabricNetConfig(dtype=DTYPES[dtype][1], **{**SIZES, **kw})
+    mesh = pmesh.make_fabric_mesh(1, device="cpu")
+    return cfg, mesh, fn.init_params(cfg, mesh, seed=4), *fn.make_batch(cfg, mesh, seed=6)
+
+
+@pytest.mark.parametrize("kw", [{}, {"heads": 0}, {"layers_per_stage": 2}],
+                         ids=["heads2", "heads0", "layers2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_slices_equals_the_whole_parameter_step(dtype, kw):
+    """Each element's gradient in the old step was its slice's gradient plus
+    exact zeros, so the step on slices gives equal parameters (torch.equal:
+    -0.0 == +0.0 is the only difference adding +0.0 can make)."""
+    cfg, mesh, params, x, y = _small(dtype, **kw)
+    ref = {k: p.clone() for k, p in params.items()}
+    step, old = fn.make_train_step(cfg, mesh), _whole_parameter_step(cfg)
+    for n in range(1, 4):
+        params, loss = step(params, x, y)
+        ref, ref_loss = old(ref, x, y)
+        if n in (1, 3):
+            assert torch.equal(loss, ref_loss)
+            for k in ref:
+                assert torch.equal(params[k], ref[k]), f"{k} after {n} steps"
+
+
+def test_train_step_forms_no_whole_parameter_gradient():
+    """A profiled step runs no ``select_backward`` (the old step's zero fill
+    and copy of a whole parameter for each indexed use)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, mesh, params, x, y = _small("float32", layers_per_stage=2)
+
+    def ops(step):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(params, x, y)
+        return {e.key for e in prof.key_averages()}
+
+    assert "aten::select_backward" in ops(_whole_parameter_step(cfg))  # what the test looks for
+    assert "aten::select_backward" not in ops(fn.make_train_step(cfg, mesh))
+
+
 def test_train_step_updates_in_place_and_loss_falls():
     _, (cfg, mesh, params, x, y) = _both()
     step = fn.make_train_step(cfg, mesh)

@@ -181,19 +181,20 @@ def _dkdv_block():
     """One causal block at D = 1024 (B 1, T 128, H 1, sp 1; bf16 inputs
     widened to f32, as the kernel's operands are): JAX's dK and dV (the vjp
     of ``ring_attention`` for a unit-scale cotangent dO), and the port's
-    recomputed f32 P, dS, Q, dO and sqrt(D)."""
+    recomputed f32 P, dS, Q, K, dO and sqrt(D). Also JAX's dQ."""
     b, t, h, d = 1, 128, 1, 1024
     rng = np.random.default_rng(43)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(np.float32))
                    .to(torch.bfloat16).float().numpy() for _ in range(4))
     jstep, jplace = _jax_step(1)
     _, vjp = jax.vjp(jstep, jplace(q), jplace(k), jplace(v))
-    _, want_dk, want_dv = (np.asarray(g) for g in vjp(jnp.asarray(do)))
+    want_dq, want_dk, want_dv = (np.asarray(g) for g in vjp(jnp.asarray(do)))
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     out, lse, _ = attention.forward(tq, tk, tv, sp=1, causal=True)
     delta = attention.row_dot_plain(out, tdo)
-    (_, qb, _, dob, p, ds), = attention._backward_hops(tq, tk, tv, tdo, lse, delta, 1, True)
-    return {"dk": want_dk, "dv": want_dv}, (p, ds, qb, dob, attention._sqrt_d(tq))
+    (_, qb, kb, dob, p, ds), = attention._backward_hops(tq, tk, tv, tdo, lse, delta, 1, True)
+    return ({"dq": want_dq, "dk": want_dk, "dv": want_dv},
+            (p, ds, qb, kb, dob, attention._sqrt_d(tq)))
 
 
 @pytest.mark.parametrize("grad", ["dk", "dv"])
@@ -205,7 +206,7 @@ def test_split_ds_keeps_dkdv_within_f32_tolerance(x_as, grad):
     against JAX's gradient of ``ring_attention`` within 1e-4 x max(1, max
     |g|), the f32 tolerance of the gradients. One bf16 rounding misses it:
     that is why the kernel splits P and dS."""
-    want, (p, ds, qb, dob, sqd) = _dkdv_block()
+    want, (p, ds, qb, _, dob, sqd) = _dkdv_block()
     x, operand = (p, dob) if grad == "dv" else (ds, qb)
     prod = lambda y: torch.einsum("bihts,bithd->bishd", y.float(), operand)  # noqa: E731
     if x_as == "split":
@@ -219,6 +220,30 @@ def test_split_ds_keeps_dkdv_within_f32_tolerance(x_as, grad):
     err = float(np.abs(got - want[grad]).max())
     tol = 1e-4 * max(1.0, float(np.abs(want[grad]).max()))
     if x_as == "split":
+        assert err <= tol
+    else:
+        assert err > tol
+
+
+@pytest.mark.parametrize("ds_as", ["split", "one_bf16_rounding"])
+def test_split_ds_keeps_dq_within_f32_tolerance(ds_as):
+    """What ``attn_bwd_dq_tc`` does with dS, on the CPU: dQ = dS K / sqrt(D)
+    in f32 with dS replaced by ``split_bf16``'s hi + lo (two products,
+    summed in f32), held against JAX's gradient of ``ring_attention`` on the
+    block of ``_dkdv_block`` within 1e-4 x max(1, max |g|), the f32
+    tolerance of the gradients. One bf16 rounding misses it: that is why
+    the kernel splits dS."""
+    want, (_, ds, _, kb, _, sqd) = _dkdv_block()
+    prod = lambda y: torch.einsum("bihts,bishd->bithd", y.float(), kb)  # noqa: E731
+    if ds_as == "split":
+        hi, lo = attention.split_bf16(ds)
+        got = prod(hi) + prod(lo)
+    else:
+        got = prod(ds.to(torch.bfloat16))
+    got = (got / sqd).reshape(want["dq"].shape).numpy()
+    err = float(np.abs(got - want["dq"]).max())
+    tol = 1e-4 * max(1.0, float(np.abs(want["dq"]).max()))
+    if ds_as == "split":
         assert err <= tol
     else:
         assert err > tol
