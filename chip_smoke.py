@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the device echo
-path (K1), the FabricNet train step with ring attention (K3), and the
-quantized collective sessions (K2).
+path (K1), the FabricNet train step with ring attention (K3) and its
+elementwise chain (K4), and the quantized collective sessions (K2).
 
     python3 chip_smoke.py [--out FILE]
 
@@ -35,8 +35,16 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    k-step (B 2, T 72, H 2, D 24 and D 20, sp 2), in any layout (transposed
    views and tensors one element off 16-byte alignment give bitwise what
    contiguous copies give, and dK/dV and dQ on the misaligned ones within
-   the tolerances of their plain versions), and ``ring_attention`` against
-   ``full_attention`` on the card;
+   the tolerances of their plain versions), D 18 (padded to 20 by the
+   wrappers), and ``ring_attention`` against ``full_attention`` on the
+   card; then K4 (``add_rms_norm_fwd`` with and without delta,
+   ``rms_norm_bwd`` with and without the residual gradient,
+   ``gelu_tanh_fwd``, ``gelu_tanh_bwd``) against its plain versions in bf16
+   and f32 at the bench_fabricnet shapes ((4096, 2048), (4096, 8192),
+   (2, 2048, 2048)) and at odd widths (d 33 and 1000, contiguous and one
+   element off 16-byte alignment), within the tolerances
+   ``ops/elementwise.py`` states, the GeLU in bf16 within one ulp with the
+   differing elements counted;
 6. runs one FabricNet train step (d_model 32, heads 2, two layers, f32) on
    the card and on the CPU from the same numpy weights and compares them;
 7. drives the second main path with the launch counts set to zero: 10
@@ -45,14 +53,20 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    with ms per step, FLOPs per step, TFLOP/s, peak memory and K3 launches
    (one ``attn_fold_fwd_tc``, ``attn_bwd_delta``, ``attn_bwd_dkdv_tc`` and
    ``attn_bwd_dq_tc`` a step, no ``attn_fold_fwd``, ``attn_bwd_dkdv`` or
-   ``attn_bwd_dq``); then 3 steps of the same in f32, counted alike (the
-   other way round);
+   ``attn_bwd_dq``; K4: 6 ``add_rms_norm_fwd``, 5 ``rms_norm_bwd`` (the
+   first norm reads the batch, which takes no gradient), 5
+   ``gelu_tanh_fwd`` and 5 ``gelu_tanh_bwd`` a step); then 3 steps of the
+   same in f32, counted alike (K3 the other way round);
 8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16;
    the tensor-core fold also at B 1, 64 blocks; the f32 fold, dK/dV and dQ
    at sp 1 in f32) with CUDA events beside its bound, its
-   plain version and ``scaled_dot_product_attention``, and breaks two bf16
-   train steps down by kernel with torch.profiler (device busy and idle
-   share);
+   plain version and ``scaled_dot_product_attention``; times K4 at the
+   bench shapes in bf16 behind a spin kernel beside its bound, its plain
+   version and the one PyTorch call of the same function (``F.rms_norm``,
+   its autograd backward, ``F.gelu(approximate="tanh")``,
+   ``aten.gelu_backward``); and breaks two bf16 train steps down by kernel
+   with torch.profiler (device busy and idle share; groups K3, K4, cuBLAS,
+   and PyTorch's own elementwise ops and copies);
 9. holds K2 (``quantize_rows``, ``dequant_mean_rows``) against its plain
    versions and the numpy twin of ``parallel/quantized.py``, bit for bit,
    in int8 and int4, at (parties, row bytes) (2, 4096), (3, 4096), (8,
@@ -143,8 +157,23 @@ REPLACES = {
     "attn_bwd_dkdv_tc": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dq": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dq_tc": "incubator_brpc_tpu/models/ring_attention.py:48",
+    "add_rms_norm_fwd": "incubator_brpc_tpu/models/fabricnet.py:119",
+    "rms_norm_bwd": "incubator_brpc_tpu/models/fabricnet.py:119",
+    "gelu_tanh_fwd": "incubator_brpc_tpu/models/fabricnet.py:123",
+    "gelu_tanh_bwd": "incubator_brpc_tpu/models/fabricnet.py:123",
 }
 KINDS = ("valid", "bad_magic", "bad_length", "flipped_word", "unknown_method")
+K4 = ("add_rms_norm_fwd", "rms_norm_bwd", "gelu_tanh_fwd", "gelu_tanh_bwd")
+# bench_fabricnet's shapes at one microbatch: the norms' rows (4096 tokens x
+# d_model 2048), the MLP's pre-activations (4096 x d_ff 8192) and the MoE's
+# (2 experts x 2048 tokens x d_expert 2048)
+K4_SHAPES = [(4096, 2048), (4096, 8192), (2, 2048, 2048)]
+# odd widths (rows that begin off 16-byte boundaries), contiguous and one
+# element into a buffer: (shape, offset)
+K4_ODD = [((5, 33), False), ((3, 1000), False), ((4, 33), True), ((4, 1000), True)]
+# f32 operations an element (the bound's operations side; tanhf counts as one)
+K4_OPS_PER_ELEMENT = {"add_rms_norm_fwd": 4, "rms_norm_bwd": 7, "gelu_tanh_fwd": 9,
+                      "gelu_tanh_bwd": 18}
 
 
 def log(msg: str) -> None:
@@ -689,6 +718,140 @@ def k3_f32_timings(torch, attention, gen, dev):
     return res
 
 
+# -- K4: FabricNet's elementwise chain (phases 5, 7 and 8) ----------------------
+
+
+def ulps(torch, a, b):
+    """|a - b| elementwise in units in the last place of their dtype (bf16
+    or f32), from the bit patterns in sign-magnitude order."""
+    it, mag = {torch.bfloat16: (torch.int16, 0x7FFF),
+               torch.float32: (torch.int32, 0x7FFFFFFF)}[a.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(it).to(torch.int64)
+        return torch.where(i < 0, -(i & mag), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def k4_case(torch, E, gen, dev, shape, dtype, offset, errs, gelu_diff):
+    """K4 against its plain versions on the same inputs: K4a with and
+    without delta (s bitwise), K4b with and without g_s, K4c (bf16 within
+    one ulp, the differing elements counted into ``gelu_diff``) and K4d,
+    each within the tolerance ``ops/elementwise.py`` states. ``offset``:
+    every input one element into a buffer, off 16-byte alignment."""
+
+    def make(scale):
+        t = (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+        if offset:
+            t = torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:].view(shape).copy_(t)
+        return t
+
+    x, delta, g_s, g_n = make(2.0), make(1.0), make(1.0), make(1.0)
+    name = str(dtype)[6:]
+    parts = []
+    for dl in (delta, None):
+        s, n, rstd = E.add_rms_norm_fwd(x, dl)
+        want_s, want_n, want_r = E.add_rms_norm_plain(x, dl)
+        torch.cuda.synchronize()
+        if not torch.equal(s, want_s):
+            raise AssertionError(f"add_rms_norm_fwd {shape} {name}: s differs from x + delta")
+        tag = "" if dl is None else "+delta "
+        parts += [err_within(torch, f"{tag}n", n, want_n, E.NORM_TOL[dtype],
+                             errs["add_rms_norm_fwd"]),
+                  err_within(torch, f"{tag}rstd", rstd, want_r, E.NORM_TOL[dtype],
+                             errs["add_rms_norm_fwd"])]
+    s, _, rstd = E.add_rms_norm_plain(x, delta)
+    for gs in (g_s, None):
+        parts.append(err_within(torch, "g" if gs is None else "g+g_s",
+                                E.rms_norm_bwd(s, rstd, g_n, gs),
+                                E.rms_norm_bwd_plain(s, rstd, g_n, gs), E.NORM_TOL[dtype],
+                                errs["rms_norm_bwd"]))
+    y, want_y = E.gelu_tanh_fwd(x), E.gelu_plain(x)
+    u = ulps(torch, y, want_y)
+    differ, worst = int((u > 0).sum()), int(u.max())
+    gelu_diff[name] = [gelu_diff.get(name, [0, 0])[0] + differ,
+                       gelu_diff.get(name, [0, 0])[1] + y.numel()]
+    if dtype == torch.bfloat16 and worst > 1:
+        raise AssertionError(f"gelu_tanh_fwd {shape} bf16: {worst} ulps from gelu_plain")
+    parts.append(err_within(torch, "gelu", y, want_y, E.GELU_TOL[dtype], errs["gelu_tanh_fwd"])
+                 + f", {differ} of {y.numel()} elements differ, at most {worst} ulp")
+    parts.append(err_within(torch, "gelu'", E.gelu_tanh_bwd(x, g_n), E.gelu_bwd_plain(x, g_n),
+                            E.GELU_BWD_TOL[dtype], errs["gelu_tanh_bwd"]))
+    log(f"phase5 K4 {tuple(shape)} {name}"
+        f"{' one element off 16-byte alignment' if offset else ''}: " + "; ".join(parts))
+
+
+def k4_launches_per_step(cfg):
+    """K4 launches of one train step, per microbatch: K4a for the norm
+    before each MLP layer, the attention block and the MoE; K4b for each of
+    them but the first, whose input is the batch and takes no gradient; K4c
+    and K4d for the GeLU of each MLP layer and of the MoE."""
+    m, layers = cfg.microbatches, cfg.layers_per_stage
+    norms = layers + bool(cfg.heads) + 1
+    return {"add_rms_norm_fwd": m * norms, "rms_norm_bwd": m * (norms - 1),
+            "gelu_tanh_fwd": m * (layers + 1), "gelu_tanh_bwd": m * (layers + 1)}
+
+
+def k4_timings(torch, E, gen, dev):
+    """Device times (behind a spin kernel) of K4 at the bench_fabricnet
+    shapes in bf16, beside their bounds, their plain versions and the one
+    PyTorch call that computes the same function, on the same tensors: the
+    norms at (4096, 2048), the GeLUs at the MLP's (4096, 8192) and the
+    MoE's (2, 2048, 2048)."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    rows, d = K4_SHAPES[0]
+    x, delta, g_s, g_n = ((torch.randn((rows, d), generator=gen, device=dev) * sc).to(bf16)
+                          for sc in (2.0, 1.0, 1.0, 1.0))
+    s, _, rstd = E.add_rms_norm_fwd(x, delta)
+    rms = getattr(F, "rms_norm", None)
+    lib_fwd = lib_bwd = None
+    if rms is not None:
+        lib_fwd = lambda: rms(x, (d,), eps=1e-6)  # noqa: E731
+        xg = x.detach().requires_grad_()
+        yl = rms(xg, (d,), eps=1e-6)
+        lib_bwd = lambda: torch.autograd.grad(yl, xg, g_n, retain_graph=True)  # noqa: E731
+    nb = rows * d * 2
+    cases = {
+        # name: (kernel, plain, library, bytes: inputs read once, outputs written once, elements)
+        "add_rms_norm_fwd": (lambda: E.add_rms_norm_fwd(x, delta),
+                             lambda: E.add_rms_norm_plain(x, delta), lib_fwd,
+                             4 * nb + 4 * rows, rows * d),
+        "add_rms_norm_fwd nodelta": (lambda: E.add_rms_norm_fwd(x), lambda: E.add_rms_norm_plain(x),
+                                     lib_fwd, 2 * nb + 4 * rows, rows * d),
+        "rms_norm_bwd": (lambda: E.rms_norm_bwd(s, rstd, g_n, g_s),
+                         lambda: E.rms_norm_bwd_plain(s, rstd, g_n, g_s), lib_bwd,
+                         4 * nb + 4 * rows, rows * d),
+    }
+    for shape in K4_SHAPES[1:]:
+        h, dy = ((torch.randn(shape, generator=gen, device=dev) * sc).to(bf16) for sc in (2.0, 1.0))
+        n = h.numel()
+        tag = "" if shape == K4_SHAPES[1] else f" {tuple(shape)}"
+        cases["gelu_tanh_fwd" + tag] = (
+            lambda h=h: E.gelu_tanh_fwd(h), lambda h=h: E.gelu_plain(h),
+            lambda h=h: F.gelu(h, approximate="tanh"), 4 * n, n)
+        cases["gelu_tanh_bwd" + tag] = (
+            lambda h=h, dy=dy: E.gelu_tanh_bwd(h, dy), lambda h=h, dy=dy: E.gelu_bwd_plain(h, dy),
+            lambda h=h, dy=dy: torch.ops.aten.gelu_backward(dy, h, approximate="tanh"), 6 * n, n)
+    res = {}
+    for name, (kern, plain, lib, nbytes, elements) in cases.items():
+        flops = K4_OPS_PER_ELEMENT[name.split()[0]] * elements
+        bound, by, _ = k3_bounds(flops, nbytes)
+        ms, queued = device_ms(torch, kern, 50)
+        res[name] = {"ms": ms, "queued_in_time": queued,
+                     "plain_ms": device_ms(torch, plain, 10)[0],
+                     "library_ms": None if lib is None else device_ms(torch, lib, 50)[0],
+                     "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": flops}
+    log("phase8 K4 timings, bf16, device time behind a spin kernel: " + "; ".join(
+        f"{name} {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} by {r['bound_by']}, "
+        f"{100 * r['bound_ms'] / r['ms']:.1f} %; plain {r['plain_ms']:.6f}; library "
+        + ("none" if r["library_ms"] is None else f"{r['library_ms']:.6f}")
+        + ("" if r["queued_in_time"] else "; host-bound") + ")" for name, r in res.items()))
+    return res
+
+
 def fabricnet_small_card_vs_cpu(torch, fabricnet, dev):
     """One fused train step on the card (kernels) and on the CPU (plain
     versions) from the same numpy weights and batch."""
@@ -755,6 +918,10 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
     if any(per_step[n] != 1 for n in path) or any(launches[n] for n in others):
         raise AssertionError(f"FabricNet {name}: K3 launches per step {per_step}; want one of "
                              f"each of {path}, none of {others}")
+    k4_per_step = {n: launches[n] / nsteps for n in K4}
+    if k4_per_step != k4_launches_per_step(cfg):
+        raise AssertionError(f"FabricNet {name}: K4 launches per step {k4_per_step}; want "
+                             f"{k4_launches_per_step(cfg)}")
     flops = fabricnet.train_step_flops(cfg)
     tflops = flops / ms * 1e-9
     log(f"phase7 FabricNet at the bench_fabricnet width ({BENCH_FABRICNET}, heads {cfg.heads}, "
@@ -763,7 +930,7 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
         f"{flops / 1e12:.4f} TFLOP/step (3 x forward, attention without the causal skip); "
         f"{tflops:.2f} TFLOP/s = {100 * tflops / 989:.2f} % of 989 TFLOP/s bf16; "
         f"peak memory {peak} B ({peak / 2**30:.3f} GiB); launches {launches}; "
-        f"K3 launches per step {per_step}")
+        f"K3 launches per step {per_step}; K4 launches per step {k4_per_step}")
     return {"ms_per_step": ms, "flops_per_step": flops, "tflops": tflops, "losses": losses,
             "peak_bytes": peak, "launches": launches, "nsteps": nsteps}, (step, params, x, y)
 
@@ -792,8 +959,9 @@ def profile_steps(torch, train):
     for e in kern:
         name = e.key
         g = ("K3" if "attn_" in name else
+             "K4" if any(k in name for k in K4) else
              "matmul" if any(s in name.lower() for s in ("gemm", "nvjet", "xmma", "cutlass")) else
-             "other")
+             "PyTorch elementwise and copies")
         groups[g] = groups.get(g, 0.0) + dev_us(e)
     top = sorted(kern, key=dev_us, reverse=True)[:12]
     log(f"phase8 profile of 2 train steps: wall {wall_us:.1f} us, device busy {total:.1f} us "
@@ -806,7 +974,7 @@ def profile_steps(torch, train):
 
 def run_k3_phases(torch, kernels, dev):
     from incubator_brpc_tpu_torch.models import fabricnet, ring_attention
-    from incubator_brpc_tpu_torch.ops import attention
+    from incubator_brpc_tpu_torch.ops import attention, elementwise
 
     # the plain versions' einsums in full f32, as the kernels compute
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -819,9 +987,9 @@ def run_k3_phases(torch, kernels, dev):
     # the bench shape at sp 1 and 4; T/sp = 12 at D 16; T/sp = 100 at D 144,
     # ragged against the tensor-core kernels' tiles and their 128-column D
     # chunks; T/sp = 36 at D 24 and D 20, off the tensor cores' k-step of 16
-    # (D 20 with 8-byte rows)
+    # (D 20 with 8-byte rows), and D 18, which the wrappers pad to 20
     shapes = [BENCH_ATTN + (1,), BENCH_ATTN + (4,), (2, 48, 4, 16, 4), (1, 200, 2, 144, 2),
-              (2, 72, 2, 24, 2), (2, 72, 2, 20, 2)]
+              (2, 72, 2, 24, 2), (2, 72, 2, 20, 2), (2, 72, 2, 18, 2)]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
@@ -842,6 +1010,13 @@ def run_k3_phases(torch, kernels, dev):
             f"sp={sp} {str(dtype)[6:]}: max abs err {err:.3g} (tol {tol})")
     max_err = {name: max(e.values()) for name, e in errs.items()}
     log(f"phase5 K3 max_abs_err {max_err}")
+    k4_errs, gelu_diff = {name: {} for name in K4}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, offset in [(shape, False) for shape in K4_SHAPES] + K4_ODD:
+            k4_case(torch, elementwise, gen, dev, shape, dtype, offset, k4_errs, gelu_diff)
+    k4_max_err = {name: max(e.values()) for name, e in k4_errs.items()}
+    log(f"phase5 K4 max_abs_err {k4_max_err}; gelu_tanh_fwd elements differing from gelu_plain "
+        f"(differing, of): {gelu_diff}")
 
     # -- phase 6: FabricNet on the card against the port on the CPU -----------
     fabricnet_small_card_vs_cpu(torch, fabricnet, dev)
@@ -853,9 +1028,10 @@ def run_k3_phases(torch, kernels, dev):
     # the f32 path's kernels count the f32 steps' launches
     launches = dict(fab["launches"], **{n: fab32["launches"][n] for n in K3_F32})
 
-    # -- phase 8: K3 timings --------------------------------------------------
+    # -- phase 8: K3 and K4 timings, and the profile -----------------------
     timings = {sp: k3_timings(torch, attention, gen, dev, sp) for sp in (1, 4)}
     timings[1].update(k3_f32_timings(torch, attention, gen, dev))
+    k4 = k4_timings(torch, elementwise, gen, dev)
     fab["profile"] = profile_steps(torch, train)
     main = timings[1]  # FabricNet's sp = 1
     line = {}
@@ -879,9 +1055,19 @@ def run_k3_phases(torch, kernels, dev):
         else:
             line[name]["backward_ms"] = main["backward"]["ms"]
             line[name]["sdpa_backward_ms"] = main["sdpa_fwd_bwd_ms"] - main["sdpa_fwd_ms"]
+    for name in K4:
+        r = k4[name]
+        line[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        line[name].update(dtype="bfloat16", shape=list(K4_SHAPES[name.startswith("gelu")]))
+        max_err[name] = k4_max_err[name]
+    line["add_rms_norm_fwd"]["nodelta_ms"] = k4["add_rms_norm_fwd nodelta"]["ms"]
+    moe = f" {K4_SHAPES[2]}"
+    for name in ("gelu_tanh_fwd", "gelu_tanh_bwd"):
+        line[name]["moe_shape_ms"] = k4[name + moe]["ms"]
+    line["gelu_tanh_fwd"]["differing_elements"] = gelu_diff
     return {"launches": launches, "max_err": max_err, "line": line,
-            "detail": {f"sp{sp}": t for sp, t in timings.items()}, "fabricnet": fab,
-            "fabricnet_f32": fab32}
+            "detail": {**{f"sp{sp}": t for sp, t in timings.items()}, "k4": k4},
+            "fabricnet": fab, "fabricnet_f32": fab32}
 
 
 # -- K2 and the quantized collective sessions (phases 9-11) --------------------
@@ -1196,7 +1382,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"phase1 build: {time.perf_counter() - t0:.3f}s")
-    ptxas = ptxas_report(kernels.build_log(), K3)
+    ptxas = ptxas_report(kernels.build_log(), K3 + K4)
     for name, entries in ptxas.items():
         for e in entries:
             log(f"  ptxas {name}: {e.get('registers')} registers, spill stores "
@@ -1307,6 +1493,12 @@ def main() -> int:
         line.append({
             "name": name, "route": "cuda",
             "source": K3_SOURCE.get(name, "incubator_brpc_tpu_torch/csrc/attention.cu"),
+            "replaces": REPLACES[name], "launches": k3["launches"][name],
+            "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(name),
+        })
+    for name in K4:  # launches: the bf16 main path's
+        line.append({
+            "name": name, "route": "cuda", "source": "incubator_brpc_tpu_torch/csrc/elementwise.cu",
             "replaces": REPLACES[name], "launches": k3["launches"][name],
             "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(name),
         })

@@ -22,7 +22,9 @@
 // Numerics follow the JAX function, not a flash library: operands are
 // widened to f32 and every product, exp and sum is an f32 FMA or op on the
 // CUDA cores (no rounding of P to bf16, no tensor cores); the scale is a
-// division by sqrtf(D); the causal mask is an additive -1e30 from global
+// division by sqrtf(Dscale), the head dimension before the zero columns that
+// the wrappers add to a D % 4 != 0 (every kernel of K3 takes the padded D
+// and the true one); the causal mask is an additive -1e30 from global
 // positions, and the running max starts at -1e30, so alpha = exp(m - m_new)
 // is 0 (not NaN) on the first fold. Keys past a ragged block end do not
 // exist and weigh 0. A key tile that lies wholly in a row tile's future is
@@ -69,6 +71,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 
 struct Geo {
   int64_t B, T, H, D, sp, tl;  // tl = T / sp rows per rank
+  int64_t Dscale;              // the scores divide by sqrtf(Dscale): D before zero columns
 };
 
 // element offset of row (b, t, h) of a (B, T, H, D) tensor
@@ -250,7 +253,7 @@ attn_fold_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
   __syncthreads();
 
-  const float sqd = sqrtf(float(D));
+  const float sqd = sqrtf(float(g.Dscale));
   const int j = tid & (BN - 1), grp = tid >> 6;  // score (4 grp + rr, j)
   const int warp = tid >> 5, lane = tid & 31;
   for (int64_t kt = 0; kt < nkt; ++kt) {
@@ -446,7 +449,7 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
     for (int u = 0; u < CPT; ++u) dka[jk][u] = dva[jk][u] = 0.f;
 
-  const float sqd = sqrtf(float(D));
+  const float sqd = sqrtf(float(g.Dscale));
   const int r = tid & (BM - 1), grp = tid >> 6;  // scores (r, 4 grp + jj)
   const int64_t ntq = (g.tl + BM - 1) / BM;
   for (int64_t hop = 0; hop < g.sp; ++hop) {
@@ -623,7 +626,7 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     for (int u = 0; u < CPT; ++u) dqa[rq][u] = 0.f;
   __syncthreads();
 
-  const float sqd = sqrtf(float(D));
+  const float sqd = sqrtf(float(g.Dscale));
   const int j = tid & (BN - 1), grp = tid >> 6;  // scores (4 grp + rr, j)
   for (int64_t hop = 0; hop < g.sp; ++hop) {
     const int64_t kbase = ((i - hop) % g.sp + g.sp) % g.sp * g.tl;
@@ -748,8 +751,8 @@ bool takes(int64_t D) { return D > 0 && D <= kMaxD && D % 4 == 0; }
 // contiguous cols per thread: D <= 256 -> 1, <= 512 -> 2, <= 1024 -> 4
 int cpt_of(int64_t D) { return D <= 256 ? 1 : (D <= 512 ? 2 : 4); }
 
-Geo geo(int64_t B, int64_t T, int64_t H, int64_t D, int64_t sp) {
-  return Geo{B, T, H, D, sp, T / sp};
+Geo geo(int64_t B, int64_t T, int64_t H, int64_t D, int64_t sp, int64_t Dscale) {
+  return Geo{B, T, H, D, sp, T / sp, Dscale};
 }
 
 template <typename T, int CPT>
@@ -787,10 +790,11 @@ extern "C" {
 // f32 operands only (dtype 0): bf16 folds run on the tensor cores
 int tb_attn_fold_fwd(const void* q, const void* k, const void* v, int dtype, float* m, float* l,
                      float* o, void* out, float* lse, int64_t B, int64_t T, int64_t H,
-                     int64_t D, int64_t sp, int64_t hop, int causal, int finalize,
-                     void* stream) {
-  if (dtype != 0 || !takes(D) || sp <= 0 || T % sp != 0) return int(cudaErrorInvalidValue);
-  const Geo g = geo(B, T, H, D, sp);
+                     int64_t D, int64_t Dscale, int64_t sp, int64_t hop, int causal,
+                     int finalize, void* stream) {
+  if (dtype != 0 || !takes(D) || Dscale <= 0 || sp <= 0 || T % sp != 0)
+    return int(cudaErrorInvalidValue);
+  const Geo g = geo(B, T, H, D, sp, Dscale);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int c = cpt_of(D);
   return c == 1 ? fwd_t<float, 1>(q, k, v, m, l, o, out, lse, g, hop, causal, finalize, st)
@@ -800,7 +804,7 @@ int tb_attn_fold_fwd(const void* q, const void* k, const void* v, int dtype, flo
 
 int tb_attn_bwd_delta(const void* out, const void* dout, int dtype, float* delta, int64_t B,
                       int64_t T, int64_t H, int64_t D, void* stream) {
-  const Geo g = geo(B, T, H, D, 1);
+  const Geo g = geo(B, T, H, D, 1, D);
   const int64_t blocks = (B * T * H + kThreads / 32 - 1) / (kThreads / 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -814,9 +818,11 @@ int tb_attn_bwd_delta(const void* out, const void* dout, int dtype, float* delta
 // f32 operands only (dtype 0): bf16 dK/dV run on the tensor cores
 int tb_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, int dtype,
                      const float* lse, const float* delta, void* dk, void* dv, int64_t B,
-                     int64_t T, int64_t H, int64_t D, int64_t sp, int causal, void* stream) {
-  if (dtype != 0 || !takes(D) || sp <= 0 || T % sp != 0) return int(cudaErrorInvalidValue);
-  const Geo g = geo(B, T, H, D, sp);
+                     int64_t T, int64_t H, int64_t D, int64_t Dscale, int64_t sp, int causal,
+                     void* stream) {
+  if (dtype != 0 || !takes(D) || Dscale <= 0 || sp <= 0 || T % sp != 0)
+    return int(cudaErrorInvalidValue);
+  const Geo g = geo(B, T, H, D, sp, Dscale);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int c = cpt_of(D);
   return c == 1 ? dkdv_t<float, 1>(q, k, v, dout, lse, delta, dk, dv, g, causal, st)
@@ -827,9 +833,10 @@ int tb_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* do
 // f32 operands only (dtype 0): bf16 dQ runs on the tensor cores
 int tb_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout, int dtype,
                    const float* lse, const float* delta, void* dqo, int64_t B, int64_t T,
-                   int64_t H, int64_t D, int64_t sp, int causal, void* stream) {
-  if (dtype != 0 || !takes(D) || sp <= 0 || T % sp != 0) return int(cudaErrorInvalidValue);
-  const Geo g = geo(B, T, H, D, sp);
+                   int64_t H, int64_t D, int64_t Dscale, int64_t sp, int causal, void* stream) {
+  if (dtype != 0 || !takes(D) || Dscale <= 0 || sp <= 0 || T % sp != 0)
+    return int(cudaErrorInvalidValue);
+  const Geo g = geo(B, T, H, D, sp, Dscale);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int c = cpt_of(D);
   return c == 1 ? dq_t<float, 1>(q, k, v, dout, lse, delta, dqo, g, causal, st)

@@ -115,6 +115,7 @@ constexpr float kNegInf = -1e30f;
 
 struct Geo {
   int64_t B, T, H, D, sp, tl;  // tl = T / sp rows per rank
+  int64_t Dscale;              // the scores divide by sqrtf(Dscale): D before zero columns
 };
 
 __device__ __forceinline__ int64_t row_off(const Geo& g, int64_t b, int64_t t, int64_t h) {
@@ -250,7 +251,7 @@ attn_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
       for (int u = 0; u < 4; ++u) acc[c][nt][u] = 0.f;
 
-  const float sqd = sqrtf(float(D));
+  const float sqd = sqrtf(float(g.Dscale));
   // shared addresses of this lane's ldmatrix rows (PTX ISA, ldmatrix). Pass
   // 1, warp w: A = K (w even) or V (w odd), keys (lane & 15), columns
   // 8 (lane >> 4); B = the Q or dO chunk, rows (lane & 7) + 8 (lane >> 4),
@@ -615,7 +616,7 @@ attn_bwd_dq_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 #pragma unroll
       for (int u = 0; u < 4; ++u) acc[c][nt][u] = 0.f;
 
-  const float sqd = sqrtf(float(D));
+  const float sqd = sqrtf(float(g.Dscale));
   // shared addresses of this lane's ldmatrix rows (PTX ISA, ldmatrix). Pass
   // 1, warp w: A = Q (w even) or dO (w odd), rows (lane & 15), columns
   // 8 (lane >> 4); B = the K or V chunk, keys (lane & 7) + 8 (lane >> 4),
@@ -788,10 +789,11 @@ extern "C" {
 
 int tb_attn_bwd_dkdv_tc(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dk, void* dv, int64_t B,
-                        int64_t T, int64_t H, int64_t D, int64_t sp, int causal, void* stream) {
-  if (D <= 0 || D > kMaxD || D % 4 != 0 || sp <= 0 || T % sp != 0)
+                        int64_t T, int64_t H, int64_t D, int64_t Dscale, int64_t sp, int causal,
+                        void* stream) {
+  if (D <= 0 || D > kMaxD || D % 4 != 0 || Dscale <= 0 || sp <= 0 || T % sp != 0)
     return int(cudaErrorInvalidValue);
-  const Geo g{B, T, H, D, sp, T / sp};
+  const Geo g{B, T, H, D, sp, T / sp, Dscale};
   const int64_t blocks = B * H * sp * ((g.tl + BN - 1) / BN);
   if (blocks <= 0) return 0;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
@@ -809,10 +811,10 @@ int tb_attn_bwd_dkdv_tc(const void* q, const void* k, const void* v, const void*
 
 int tb_attn_bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dqo, int64_t B, int64_t T,
-                      int64_t H, int64_t D, int64_t sp, int causal, void* stream) {
-  if (D <= 0 || D > kMaxD || D % 4 != 0 || sp <= 0 || T % sp != 0)
+                      int64_t H, int64_t D, int64_t Dscale, int64_t sp, int causal, void* stream) {
+  if (D <= 0 || D > kMaxD || D % 4 != 0 || Dscale <= 0 || sp <= 0 || T % sp != 0)
     return int(cudaErrorInvalidValue);
-  const Geo g{B, T, H, D, sp, T / sp};
+  const Geo g{B, T, H, D, sp, T / sp, Dscale};
   const int64_t blocks = B * H * sp * ((g.tl + dq::BM - 1) / dq::BM);
   if (blocks <= 0) return 0;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);

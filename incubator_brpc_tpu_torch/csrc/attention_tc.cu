@@ -126,6 +126,7 @@ constexpr float kNegInf = -1e30f;
 
 struct Geo {
   int64_t B, T, H, D, sp, tl;  // tl = T / sp rows per rank
+  int64_t Dscale;              // the scores divide by sqrtf(Dscale): D before zero columns
 };
 
 __device__ __forceinline__ int64_t row_off(const Geo& g, int64_t b, int64_t t, int64_t h) {
@@ -268,7 +269,7 @@ attn_fold_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       }
     }
 
-  const float sqd = sqrtf(float(D));
+  const float sqd = sqrtf(float(g.Dscale));
   const int kh = warp & 1, ds = warp >> 1;  // S: this warp's key half and D slice
   int stage = 0;                            // the stage of the next chunk to use
   // shared addresses of this lane's ldmatrix rows (PTX ISA, ldmatrix): Q's
@@ -473,11 +474,11 @@ extern "C" {
 
 int tb_attn_fold_fwd_tc(const void* q, const void* k, const void* v, float* m, float* l,
                         float* o, void* out, float* lse, int64_t B, int64_t T, int64_t H,
-                        int64_t D, int64_t sp, int64_t hop, int causal, int finalize,
-                        void* stream) {
-  if (D <= 0 || D > kMaxD || D % 4 != 0 || sp <= 0 || T % sp != 0)
+                        int64_t D, int64_t Dscale, int64_t sp, int64_t hop, int causal,
+                        int finalize, void* stream) {
+  if (D <= 0 || D > kMaxD || D % 4 != 0 || Dscale <= 0 || sp <= 0 || T % sp != 0)
     return int(cudaErrorInvalidValue);
-  const Geo g{B, T, H, D, sp, T / sp};
+  const Geo g{B, T, H, D, sp, T / sp, Dscale};
   const int64_t blocks = B * H * sp * ((g.tl + BM - 1) / BM);
   if (blocks <= 0) return 0;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);

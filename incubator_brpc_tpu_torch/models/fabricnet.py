@@ -17,9 +17,11 @@ one-device mesh, where every axis is 1:
 Parameters are a plain dict with JAX's names and shapes, each with the
 leading ``pp`` dimension: ``w_in``, ``w_out``, ``moe_w1``, ``moe_w2``,
 ``gate``, ``head``, and with heads ``wqkv`` and ``wo``. The einsums go to
-``torch.matmul`` (cuBLAS on the card), as the JAX package left them to XLA;
-the norms, activations, gate, loss and SGD update are PyTorch elementwise
-ops. The ``"fused"`` train step updates the parameters **in place** (under
+``torch.matmul`` (cuBLAS on the card), as the JAX package left them to XLA.
+Each residual add and the RMS norm that reads its sum, and each GeLU, are
+K4 (``ops/elementwise.py``: hand-written kernels on the card, forward and
+backward); the gate, loss and SGD update are PyTorch elementwise ops. The
+``"fused"`` train step updates the parameters **in place** (under
 ``torch.no_grad``), ``p - lr * g`` in the parameters' dtype, and returns the
 same dict with the loss. Its autograd leaves are the finest slices the
 forward reads (one a layer of ``w_in`` and ``w_out``, one a projection of
@@ -39,9 +41,9 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from incubator_brpc_tpu_torch.models.ring_attention import ring_attention
+from incubator_brpc_tpu_torch.ops.elementwise import add_rms_norm, gelu
 from incubator_brpc_tpu_torch.parallel.mesh import FABRIC_AXES, FabricMesh, make_fabric_mesh
 from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -129,22 +131,9 @@ def params_from_numpy(
 # -- the model -------------------------------------------------------------------
 
 
-def _rms_norm(x: torch.Tensor) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + 1e-6)`` in JAX's order: the square in x's
-    dtype, the mean summed and divided in float32 and rounded to x's dtype,
-    then the ``+ 1e-6`` and ``rsqrt`` in x's dtype."""
-    ms = (x * x).mean(dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
-    return x * torch.rsqrt(ms + 1e-6)
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (the tanh form, its default) in float32, cast back."""
-    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
-
-
 def _mlp(w_in_l, w_out_l, x):
     """The Megatron MLP of ``_mlp_tp``; with tp = 1 the ``psum`` is the identity."""
-    return _gelu(x @ w_in_l) @ w_out_l
+    return gelu(x @ w_in_l) @ w_out_l
 
 
 def _ring_context(x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +151,7 @@ def _moe(moe_w1, moe_w2, gate_w, x):
     tokens = x.reshape(t, d)
     g = torch.sigmoid(tokens @ gate_w)  # (t, 1)
     xr = tokens.reshape(t // e_local, e_local, d).transpose(0, 1)  # (e_local, t/e_local, d)
-    h = _gelu(torch.bmm(xr, moe_w1))
+    h = gelu(torch.bmm(xr, moe_w1))
     yr = torch.bmm(h, moe_w2)
     routed_out = yr.transpose(0, 1).reshape(t, d)
     return (routed_out * g).reshape(mb, sl, d)
@@ -178,14 +167,23 @@ def _ring_attn_block(wqkv, wo, heads: int, x):
 
 def _stage_fn(w: Weights, heads: int, x):
     """One pipeline stage: L residual MLP layers, the sequence block (ring
-    attention, or the ring mean when heads = 0), and the MoE block."""
+    attention, or the ring mean when heads = 0), and the MoE block. Each
+    residual add goes with the norm that reads its sum (``add_rms_norm``:
+    one K4a forward, one K4b backward that also takes the sum's own
+    gradient). The adds that no norm reads stay plain: the last one, and
+    with heads = 0 the last MLP layer's, whose sum the ring mean reads."""
+    s, delta = x, None
     for l in range(len(w["w_in"])):
-        x = x + _mlp(w["w_in"][l], w["w_out"][l], _rms_norm(x))
+        s, n = add_rms_norm(s, delta)
+        delta = _mlp(w["w_in"][l], w["w_out"][l], n)
     if heads:
-        x = x + _ring_attn_block(w["wqkv"], w["wo"], heads, _rms_norm(x))
+        s, n = add_rms_norm(s, delta)
+        delta = _ring_attn_block(w["wqkv"], w["wo"], heads, n)
     else:
-        x = x + _ring_context(x)
-    return x + _moe(w["moe_w1"], w["moe_w2"], w["gate"], _rms_norm(x))
+        s = s if delta is None else s + delta
+        delta = _ring_context(s).expand_as(s)  # K4 takes no broadcast
+    s, n = add_rms_norm(s, delta)
+    return s + _moe(w["moe_w1"], w["moe_w2"], w["gate"], n)
 
 
 def _weights(params: Params, heads: int) -> Weights:

@@ -40,7 +40,10 @@ tensor that is not contiguous, or not 16-byte aligned (the kernels' vector
 copies), is copied first. The fold's carried state (m, l, o) is the
 kernels' own output and must come back as it was made. The kernels take
 any ``D % 4 == 0`` up to ``MAX_HEAD_DIM``; the tensor-core kernels read the
-columns past D, up to their k-step of 16, as zeros.
+columns past D, up to their k-step of 16, as zeros. The wrappers take any
+D up to ``MAX_HEAD_DIM``: another D is padded with zero columns to the next
+multiple of 4 (:func:`_pad`), the kernels are told the true D for the
+score scale ``1/sqrt(D)``, and the results are sliced back.
 
 What bounds the CUDA-core kernels on the card is operations (f32 FMAs, as
 the JAX function computes in f32); what bounds the tensor-core fold is
@@ -85,10 +88,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sp: int) -> None:
         raise ValueError(f"sequence {q.shape[1]} does not split over sp={sp}")
 
 
-def _check_head_dim(d: int) -> None:
-    if d % 4 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head dimension {d}: the kernels take D % 4 == 0 and D <= {MAX_HEAD_DIM} "
+def _check_head_dim(d: int) -> int:
+    """The zero columns that take ``d`` to the kernels' ``D % 4 == 0``."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dimension {d}: the kernels take D <= {MAX_HEAD_DIM} "
                          "(each K3 kernel holds a tile's accumulators over the whole of D)")
+    return -d % 4
+
+
+def _pad(pad: int, *tensors: torch.Tensor):
+    """The tensors with ``pad`` zero columns after their last: zeros add
+    nothing to a score, and the columns they give the results are sliced
+    away. Each as it is when ``pad`` is 0."""
+    if not pad:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in tensors)
 
 
 def _dense(*tensors: torch.Tensor):
@@ -284,8 +298,8 @@ def fold(
         out, lse = finalize_plain((m, l, o), q.dtype) if finalize else (None, None)
         return m, l, o, out, lse
     b, t, h, d = q.shape
-    _check_head_dim(d)
-    q, k, v = _dense(q, k, v)
+    pad = _check_head_dim(d)
+    q, k, v = _dense(*_pad(pad, q, k, v))
     tensor_cores = q.dtype == torch.bfloat16
     dev = q.device
     if hop == 0:
@@ -300,11 +314,12 @@ def fold(
         _stat(l, "l", (b, h, t), dev)
         _stat(o, "o", (b, t, h, d), dev)
         _check_state(o, m, l)
+    (o_k,) = _pad(pad, o)  # o itself, or a padded copy the kernel updates
     out = torch.empty_like(q) if finalize else None
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev) if finalize else None
     lib = kernels.build()
-    state_ptrs = (m.data_ptr(), l.data_ptr(), o.data_ptr(), kernels._ptr(out), kernels._ptr(lse))
-    geometry = (b, t, h, d, sp, hop, int(causal), int(finalize), kernels._stream(dev))
+    state_ptrs = (m.data_ptr(), l.data_ptr(), o_k.data_ptr(), kernels._ptr(out), kernels._ptr(lse))
+    geometry = (b, t, h, d + pad, d, sp, hop, int(causal), int(finalize), kernels._stream(dev))
     with torch.cuda.device(dev):
         if tensor_cores:
             name = "attn_fold_fwd_tc"
@@ -316,6 +331,9 @@ def fold(
                                       *state_ptrs, *geometry)
     kernels._check_launch(lib, rc, name)
     kernels._count(name)
+    if pad:
+        o.copy_(o_k[..., :d])
+        out = out[..., :d].contiguous() if finalize else None
     return m, l, o, out, lse
 
 
@@ -363,13 +381,13 @@ def dkdv(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
     if q.device.type == "cpu":
         return dkdv_plain(q, k, v, dout, lse, delta, sp=sp, causal=causal)
     b, t, h, d = q.shape
-    _check_head_dim(d)
-    q, k, v, dout, lse, delta = _dense(q, k, v, dout, lse, delta)
+    pad = _check_head_dim(d)
+    q, k, v, dout, lse, delta = _dense(*_pad(pad, q, k, v, dout), lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     # the two entry points take the same arguments; the CUDA-core one also the dtype
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
     tail = (lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, d, sp, int(causal), kernels._stream(q.device))
+            b, t, h, d + pad, d, sp, int(causal), kernels._stream(q.device))
     lib = kernels.build()
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
@@ -380,6 +398,8 @@ def dkdv(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
             rc = lib.tb_attn_bwd_dkdv(*head, _DTYPES[q.dtype], *tail)
     kernels._check_launch(lib, rc, name)
     kernels._count(name)
+    if pad:
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 
@@ -391,12 +411,12 @@ def dq(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
     if q.device.type == "cpu":
         return dq_plain(q, k, v, dout, lse, delta, sp=sp, causal=causal)
     b, t, h, d = q.shape
-    _check_head_dim(d)
-    q, k, v, dout, lse, delta = _dense(q, k, v, dout, lse, delta)
+    pad = _check_head_dim(d)
+    q, k, v, dout, lse, delta = _dense(*_pad(pad, q, k, v, dout), lse, delta)
     out = torch.empty_like(q)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
     tail = (lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
-            b, t, h, d, sp, int(causal), kernels._stream(q.device))
+            b, t, h, d + pad, d, sp, int(causal), kernels._stream(q.device))
     lib = kernels.build()
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
@@ -407,7 +427,7 @@ def dq(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
             rc = lib.tb_attn_bwd_dq(*head, _DTYPES[q.dtype], *tail)
     kernels._check_launch(lib, rc, name)
     kernels._count(name)
-    return out
+    return out[..., :d].contiguous() if pad else out
 
 
 def backward(q, k, v, out, dout, lse, *, sp: int, causal: bool):

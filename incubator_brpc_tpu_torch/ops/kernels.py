@@ -22,8 +22,9 @@ its plain version on the card, and CPU execution runs them.
 The kernels are built at first use: ``nvcc`` compiles each source of
 ``csrc/`` (``framing.cu`` here; ``attention.cu``, ``attention_tc.cu`` and
 ``attention_bwd_tc.cu`` for K3, whose wrappers are in ``ops/attention.py``,
-the last two sharing ``tc_mma.cuh``; and ``quantize.cu`` for
-K2, whose wrappers are in ``ops/quantize.py``) for ``sm_90a``, one process
+the last two sharing ``tc_mma.cuh``; ``quantize.cu`` for K2, whose
+wrappers are in ``ops/quantize.py``; and ``elementwise.cu`` for K4, whose
+wrappers are in ``ops/elementwise.py``) for ``sm_90a``, one process
 per source, all started together, and links them into one shared library with a plain C
 interface under ``incubator_brpc_tpu_torch/_build/``, loaded with
 ``ctypes``. Each wrapper adds one to its launch count
@@ -50,7 +51,8 @@ EREQUEST = 1003
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG_DIR / "csrc" / f for f in (
-    "framing.cu", "attention.cu", "attention_tc.cu", "attention_bwd_tc.cu", "quantize.cu"))
+    "framing.cu", "attention.cu", "attention_tc.cu", "attention_bwd_tc.cu", "quantize.cu",
+    "elementwise.cu"))
 HEADERS = (_PKG_DIR / "csrc" / "tc_mma.cuh",)  # included by the tensor-core sources
 BUILD_DIR = _PKG_DIR / "_build"
 # no --use_fast_math, -ftz=true or -prec-div=false: K2 is bitwise (quantize.cu)
@@ -78,6 +80,10 @@ KERNELS = (
     "attn_bwd_dq_tc",
     "quantize_rows",
     "dequant_mean_rows",
+    "add_rms_norm_fwd",
+    "rms_norm_bwd",
+    "gelu_tanh_fwd",
+    "gelu_tanh_bwd",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -179,32 +185,38 @@ def build() -> ctypes.CDLL:
             lib.tb_verify_rows.argtypes = [p, p, p, i64, i64, p]
             lib.tb_echo_step_rows.argtypes = [p, p, p, i64, i64, p]
             c_int = ctypes.c_int
+            # K3's geometry: B, T, H, D (padded to D % 4 == 0), Dscale (the true D), sp
             lib.tb_attn_fold_fwd.argtypes = [
-                p, p, p, c_int, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, c_int, p
+                p, p, p, c_int, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, c_int, c_int, p
             ]
             lib.tb_attn_fold_fwd_tc.argtypes = [
-                p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, c_int, p
+                p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, c_int, c_int, p
             ]
             lib.tb_attn_bwd_delta.argtypes = [p, p, c_int, p, i64, i64, i64, i64, p]
             lib.tb_attn_bwd_dkdv.argtypes = [
-                p, p, p, p, c_int, p, p, p, p, i64, i64, i64, i64, i64, c_int, p
+                p, p, p, p, c_int, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
             ]
             lib.tb_attn_bwd_dkdv_tc.argtypes = [
-                p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, c_int, p
+                p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
             ]
             lib.tb_attn_bwd_dq.argtypes = [
-                p, p, p, p, c_int, p, p, p, i64, i64, i64, i64, i64, c_int, p
+                p, p, p, p, c_int, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
             ]
             lib.tb_attn_bwd_dq_tc.argtypes = [
-                p, p, p, p, p, p, p, i64, i64, i64, i64, i64, c_int, p
+                p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
             ]
             lib.tb_quantize_rows.argtypes = [p, i64, i64, i64, c_int, c_int, p, p, p]
             lib.tb_dequant_mean_rows.argtypes = [p, p, i64, i64, c_int, c_int, c_int, p, p]
+            lib.tb_add_rms_norm_fwd.argtypes = [p, p, p, p, p, i64, i64, c_int, p]
+            lib.tb_rms_norm_bwd.argtypes = [p, p, p, p, p, i64, i64, c_int, p]
+            lib.tb_gelu_tanh_fwd.argtypes = [p, p, i64, c_int, p]
+            lib.tb_gelu_tanh_bwd.argtypes = [p, p, p, i64, c_int, p]
             for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
                        lib.tb_attn_fold_fwd, lib.tb_attn_fold_fwd_tc, lib.tb_attn_bwd_delta,
                        lib.tb_attn_bwd_dkdv, lib.tb_attn_bwd_dkdv_tc, lib.tb_attn_bwd_dq,
                        lib.tb_attn_bwd_dq_tc, lib.tb_quantize_rows,
-                       lib.tb_dequant_mean_rows):
+                       lib.tb_dequant_mean_rows, lib.tb_add_rms_norm_fwd, lib.tb_rms_norm_bwd,
+                       lib.tb_gelu_tanh_fwd, lib.tb_gelu_tanh_bwd):
                 fn.restype = c_int
             _lib = lib
     return _lib

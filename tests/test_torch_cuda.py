@@ -1,9 +1,11 @@
 """The port's CUDA kernels and endpoint on the card: each K1 kernel against
 its plain version, bit for bit, the endpoint's calls answered through the
 kernels, K3 (the ring-attention fold and its gradient, on the tensor cores
-for bf16 at any D % 4 == 0 up to 1024 and in any layout) against its plain
-versions within the tolerances of ``chip_smoke.py``, one FabricNet train
-step on the card against the CPU, K2 (block quantize and dequantize-mean)
+for bf16 at any D up to 1024 and in any layout) against its plain
+versions within the tolerances of ``chip_smoke.py``, K4 (the residual add
+and RMS norm, the tanh GeLU, and their backwards) against its plain
+versions within the tolerances ``ops/elementwise.py`` states, one FabricNet
+train step on the card against the CPU, K2 (block quantize and dequantize-mean)
 against its plain versions and the numpy twin bit for bit on
 ``chip_smoke.py``'s rows, and one quantized session on the card against the
 same session on the CPU, byte for byte. Marked ``gpu``; each test skips
@@ -21,7 +23,7 @@ import torch
 import chip_smoke
 from incubator_brpc_tpu_torch.models import fabricnet
 from incubator_brpc_tpu_torch.models.tensor_echo import TensorEchoService, make_echo_step
-from incubator_brpc_tpu_torch.ops import attention, framing, kernels, quantize
+from incubator_brpc_tpu_torch.ops import attention, elementwise, framing, kernels, quantize
 from incubator_brpc_tpu_torch.parallel import mc_collective, mc_dispatch
 from incubator_brpc_tpu_torch.parallel import quantized as Q
 from incubator_brpc_tpu_torch.parallel.mesh import make_fabric_mesh
@@ -198,17 +200,23 @@ def test_tensor_core_fold_refuses_a_head_dimension_off_its_k_step(cuda):
 
 
 def test_k3_refuses_head_dimensions_past_its_limits(cuda):
+    """D = 1028 is refused, the message naming the limit; D = 18, once
+    refused too, is padded to 20 by the wrappers and held against the plain
+    versions in bf16 and f32 (ragged T / sp = 36)."""
     before = kernels.launch_counts()
-    for d, dtype in ((18, torch.bfloat16), (1028, torch.bfloat16), (18, torch.float32)):
-        q = torch.zeros((1, 8, 1, d), dtype=dtype, device=cuda)
-        with pytest.raises(ValueError, match="D % 4 == 0 and D <= 1024"):
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((1, 8, 1, 1028), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match="D <= 1024"):
             attention.fold(q, q, q, None, hop=0, sp=1, causal=True, finalize=True)
         lse = torch.zeros((1, 1, 8), device=cuda)
-        with pytest.raises(ValueError, match="D % 4 == 0 and D <= 1024"):
+        with pytest.raises(ValueError, match="D <= 1024"):
             attention.dkdv(q, q, q, q, lse, lse, sp=1, causal=True)
-        with pytest.raises(ValueError, match="D % 4 == 0 and D <= 1024"):
+        with pytest.raises(ValueError, match="D <= 1024"):
             attention.dq(q, q, q, q, lse, lse, sp=1, causal=True)
     assert kernels.launch_counts() == before
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            _k3_against_plain(cuda, (2, 72, 2, 18, 2), dtype, causal)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -261,9 +269,40 @@ def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
                        for n in ("attn_fold_fwd", "attn_bwd_dkdv", "attn_bwd_dq") + K3_BOTH)
             assert all(after[n] == before[n]
                        for n in ("attn_fold_fwd_tc", "attn_bwd_dkdv_tc", "attn_bwd_dq_tc"))
+            assert {n: after[n] - before[n] for n in chip_smoke.K4} == \
+                chip_smoke.k4_launches_per_step(cfg)
     assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
     for name, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][name], want, rtol=1e-5, atol=1e-5)
+
+
+# K4 at the bench_fabricnet shapes and at odd widths, contiguous and one
+# element off 16-byte alignment, as chip_smoke.py holds it
+@pytest.mark.parametrize("shape,offset", [(shape, False) for shape in chip_smoke.K4_SHAPES]
+                         + chip_smoke.K4_ODD,
+                         ids=["4096x2048", "4096x8192", "2x2048x2048", "5x33", "3x1000",
+                              "4x33-offset", "4x1000-offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4_matches_plain_versions(cuda, shape, offset, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(shape) + offset)
+    errs = {name: {} for name in chip_smoke.K4}
+    before = kernels.launch_counts()
+    chip_smoke.k4_case(torch, elementwise, gen, cuda, shape, dtype, offset, errs, {})
+    after = kernels.launch_counts()
+    # K4a with and without delta, K4b with and without g_s, K4c, K4d
+    assert {n: after[n] - before[n] for n in chip_smoke.K4} == {
+        "add_rms_norm_fwd": 2, "rms_norm_bwd": 2, "gelu_tanh_fwd": 1, "gelu_tanh_bwd": 1}
+
+
+def test_k4_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((4, 8), dtype=torch.float64, device=cuda)
+    before = kernels.launch_counts()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        elementwise.add_rms_norm_fwd(x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        elementwise.gelu_tanh_fwd(x)
+    assert kernels.launch_counts() == before
 
 
 K2 = ("quantize_rows", "dequant_mean_rows")
