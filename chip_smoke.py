@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the device echo
-path (K1), the FabricNet train step with ring attention (K3) and its
-elementwise chain (K4), and the quantized collective sessions (K2).
+path (K1), the FabricNet train step with ring attention (K3), its
+elementwise chain (K4) and the rest of what XLA fuses around its matrix
+products (K4e: the SGD update, the MoE's gate and combine, the loss), in
+the fused and the sliced schedules, and the quantized collective sessions
+(K2).
 
     python3 chip_smoke.py [--out FILE]
 
@@ -44,7 +47,17 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    (2, 2048, 2048)) and at odd widths (d 33 and 1000, contiguous and one
    element off 16-byte alignment), within the tolerances
    ``ops/elementwise.py`` states, the GeLU in bf16 within one ulp with the
-   differing elements counted;
+   differing elements counted; then K4e: ``sgd_update_multi`` bit for bit
+   against ``sgd_update_plain`` in each mode (fused, accumulate, the last
+   slice of 2 and of 3) in bf16 and f32, over the bench_fabricnet leaves,
+   a table mixing leaf sizes 1, 2048 and 2^24 + 3 and alignments, and 70
+   leaves (two launches a call), with an f32 element that only one
+   rounding gets right; ``moe_combine_fwd`` / ``_bwd`` and
+   ``mse_loss_fwd`` at the bench shapes, a slice's and odd ones
+   (contiguous and one element off alignment): the combine's out, gate and
+   d_yr and the loss's d_out bit for bit, d_logit within ``MOE_TOL`` and
+   the loss within ``MSE_TOL``, the differing elements counted, the loss
+   bitwise on a rerun;
 6. runs one FabricNet train step (d_model 32, heads 2, two layers, f32) on
    the card and on the CPU from the same numpy weights and compares them;
 7. drives the second main path with the launch counts set to zero: 10
@@ -56,7 +69,17 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``attn_bwd_dq``; K4: 6 ``add_rms_norm_fwd``, 5 ``rms_norm_bwd`` (the
    first norm reads the batch, which takes no gradient), 5
    ``gelu_tanh_fwd`` and 5 ``gelu_tanh_bwd`` a step); then 3 steps of the
-   same in f32, counted alike (K3 the other way round);
+   same in f32, counted alike (K3 the other way round); K4e a step
+   (``k4e_launches_per_step``): one update, one loss, one combine forward
+   and backward;
+7b. drives the sliced schedules at the ``bench_fabricnet_overlap`` width
+   (two slices, bf16): a warm step each, then 3 interleaved runs of 10
+   chained steps from the same parameters; the chained losses (f32) and
+   final parameters byte-identical across the schedules and the runs, the
+   losses finite and falling, every kernel's launches a step asserted
+   (K3 and K4 twice the one-slice counts, the update once, the combine and
+   the loss once a slice); ms a step for each, their difference, peak
+   memory;
 8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16;
    the tensor-core fold also at B 1, 64 blocks; the f32 fold, dK/dV and dQ
    at sp 1 in f32) with CUDA events beside its bound, its
@@ -64,9 +87,11 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    bench shapes in bf16 behind a spin kernel beside its bound, its plain
    version and the one PyTorch call of the same function (``F.rms_norm``,
    its autograd backward, ``F.gelu(approximate="tanh")``,
-   ``aten.gelu_backward``); and breaks two bf16 train steps down by kernel
-   with torch.profiler (device busy and idle share; groups K3, K4, cuBLAS,
-   and PyTorch's own elementwise ops and copies);
+   ``aten.gelu_backward``); times K4e likewise beside ``torch._foreach_add_``
+   (for the update; it rounds once, so it is not the same function) and
+   ``F.mse_loss`` forward and backward; and breaks two bf16 train steps
+   down by kernel with torch.profiler (device busy and idle share; groups
+   K3, K4, K4e, cuBLAS, and PyTorch's own elementwise ops and copies);
 9. holds K2 (``quantize_rows``, ``dequant_mean_rows``) against its plain
    versions and the numpy twin of ``parallel/quantized.py``, bit for bit,
    in int8 and int4, at (parties, row bytes) (2, 4096), (3, 4096), (8,
@@ -161,6 +186,10 @@ REPLACES = {
     "rms_norm_bwd": "incubator_brpc_tpu/models/fabricnet.py:119",
     "gelu_tanh_fwd": "incubator_brpc_tpu/models/fabricnet.py:123",
     "gelu_tanh_bwd": "incubator_brpc_tpu/models/fabricnet.py:123",
+    "sgd_update_multi": "incubator_brpc_tpu/models/fabricnet.py:405",
+    "moe_combine_fwd": "incubator_brpc_tpu/models/fabricnet.py:175",
+    "moe_combine_bwd": "incubator_brpc_tpu/models/fabricnet.py:175",
+    "mse_loss_fwd": "incubator_brpc_tpu/models/fabricnet.py:268",
 }
 KINDS = ("valid", "bad_magic", "bad_length", "flipped_word", "unknown_method")
 K4 = ("add_rms_norm_fwd", "rms_norm_bwd", "gelu_tanh_fwd", "gelu_tanh_bwd")
@@ -174,6 +203,26 @@ K4_ODD = [((5, 33), False), ((3, 1000), False), ((4, 33), True), ((4, 1000), Tru
 # f32 operations an element (the bound's operations side; tanhf counts as one)
 K4_OPS_PER_ELEMENT = {"add_rms_norm_fwd": 4, "rms_norm_bwd": 7, "gelu_tanh_fwd": 9,
                       "gelu_tanh_bwd": 18}
+K4E = ("sgd_update_multi", "moe_combine_fwd", "moe_combine_bwd", "mse_loss_fwd")
+K4E_SOURCE = {"sgd_update_multi": "incubator_brpc_tpu_torch/csrc/update.cu",
+              "moe_combine_fwd": "incubator_brpc_tpu_torch/csrc/elementwise.cu",
+              "moe_combine_bwd": "incubator_brpc_tpu_torch/csrc/elementwise.cu",
+              "mse_loss_fwd": "incubator_brpc_tpu_torch/csrc/elementwise.cu"}
+# bench.py:926 bench_fabricnet_overlap: bench_fabricnet's width with two slices
+BENCH_OVERLAP = dict(BENCH_FABRICNET, microbatches=2)
+# K4e-b/c's (t, e, d): the bench's one microbatch (4096 tokens, 2 experts, d_model
+# 2048), a sliced step's slice, and odd ones
+K4E_MOE_SHAPES = [(4096, 2, 2048), (2048, 2, 2048), (12, 2, 33), (9, 3, 1000)]
+# K4e-d's shapes: the bench output, one slice's, and odd ones
+K4E_LOSS_SHAPES = [(4, 1024, 2048), (2, 1024, 2048), (5, 33), (3, 1000)]
+# K4e-a's mixed table: leaf sizes 1, 2048 (the gate), 2^24 + 3, 33 and 1000, each
+# as (elements, offsets of p, g and acc into their buffers in elements): aligned,
+# all one element in (a head and a tail), and disagreeing (single elements)
+K4E_MIXED = [(1, (0, 0, 0)), (2048, (0, 0, 0)), ((1 << 24) + 3, (1, 1, 1)),
+             (33, (1, 0, 1)), (1000, (3, 3, 3)), (2048, (0, 1, 0))]
+# p = 1 and lr * g = -(2^-24 + 2^-60) exactly in float32: one rounding gives
+# 1 + 2^-23 (tests/test_torch_update.py)
+CRAFTED_LR, CRAFTED = 4097 / 4096, (1.0, -16773121 * 2.0 ** -48)
 
 
 def log(msg: str) -> None:
@@ -852,6 +901,252 @@ def k4_timings(torch, E, gen, dev):
     return res
 
 
+# -- K4e: the SGD update, the MoE's gate and combine, the loss (phases 5, 7, 7b, 8)
+
+
+def same_bits(torch, a, b) -> bool:
+    it = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(it), b.contiguous().view(it)))
+
+
+def k4e_launches_per_step(cfg, schedule="fused"):
+    """K4e launches of one train step. ``"fused"``: one update over every
+    leaf (one launch per 64 leaves), the loss once over the whole batch, the
+    MoE's combine forward and backward once a microbatch. A sliced step of
+    M slices: M - 1 updates (M - 2 accumulations and the last slice's; the
+    fused update when M = 1), and the combine and the loss once a slice."""
+    from incubator_brpc_tpu_torch.ops.update import launches
+
+    m = cfg.microbatches
+    leaves = 2 * cfg.layers_per_stage + 4 + (4 if cfg.heads else 0)  # _weights' views
+    per_update = launches(leaves)
+    return {"sgd_update_multi": per_update * (1 if schedule == "fused" else max(m - 1, 1)),
+            "moe_combine_fwd": m, "moe_combine_bwd": m,
+            "mse_loss_fwd": 1 if schedule == "fused" else m}
+
+
+def shifted(torch, values, off):
+    """A copy of ``values`` ``off`` elements into a buffer of its own."""
+    buf = torch.empty(values.numel() + off, dtype=values.dtype, device=values.device)
+    return buf[off:].view(values.shape).copy_(values)
+
+
+def k4e_update_case(torch, U, label, ps, gs, accs, lr, offsets=None):
+    """K4e-a against its plain version on copies of one table, bit for bit,
+    in each mode (the last slice of 2 and of 3 slices). ``offsets``: each
+    leaf's (p, g, acc) elements into its buffer; the copies keep them."""
+    offsets = offsets or [(0, 0, 0)] * len(ps)
+    gs = [shifted(torch, g, o[1]) for g, o in zip(gs, offsets)]
+    accs = [shifted(torch, a, o[2]) for a, o in zip(accs, offsets)]
+    for mode, slices in (("fused", 1), ("accumulate", 1), ("last", 2), ("last", 3)):
+        src = accs if mode == "accumulate" else ps
+        k = 2 if mode == "accumulate" else 0
+        got = [shifted(torch, t, o[k]) for t, o in zip(src, offsets)]
+        want = [shifted(torch, t, o[k]) for t, o in zip(src, offsets)]
+        acc = accs if mode == "last" else None
+        U.sgd_update_multi(mode, got, gs, lr, acc=acc, slices=slices)
+        for i, w in enumerate(want):
+            U.sgd_update_plain(mode, w, gs[i], lr, None if acc is None else acc[i], slices)
+        torch.cuda.synchronize()
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if not same_bits(torch, a, b)]
+        if bad:
+            worst = max(int(ulps(torch, got[i], want[i]).max()) for i in bad)
+            raise AssertionError(f"sgd_update_multi {label} {mode} (slices {slices}): leaves "
+                                 f"{bad} differ from sgd_update_plain, at most {worst} ulps")
+    return f"{label}: bitwise in fused, accumulate and last (2 and 3 slices)"
+
+
+def k4e_update_cases(torch, U, fabricnet, gen, dev, dtype):
+    """Phase 5's K4e-a tables in ``dtype``: the bench_fabricnet leaves, the
+    mixed sizes and alignments of ``K4E_MIXED``, 70 leaves (two launches a
+    call), and the crafted float32 element that a float64 sum would round
+    twice."""
+    from incubator_brpc_tpu_torch.ops import kernels
+
+    name = str(dtype)[6:]
+    rnd = lambda shape, sc: (torch.randn(shape, generator=gen, device=dev) * sc).to(dtype)  # noqa: E731
+    cfg = fabricnet.FabricNetConfig(dtype=dtype, **BENCH_FABRICNET)
+    params = fabricnet.init_params(cfg, fabricnet.make_fabric_mesh(1), generator=gen)
+    ps = list(fabricnet._leaves(fabricnet._weights(params, cfg.heads)))
+    parts = [k4e_update_case(torch, U, f"bench leaves ({len(ps)}, "
+                                       f"{sum(p.numel() for p in ps)} elements)",
+                             ps, [rnd(p.shape, 0.3) for p in ps], [rnd(p.shape, 0.3) for p in ps],
+                             cfg.lr)]
+    del params, ps
+    sizes = [n for n, _ in K4E_MIXED]
+    offs = [o for _, o in K4E_MIXED]
+    mixed = [shifted(torch, rnd((n,), 1.0), o[0]) for n, o in zip(sizes, offs)]
+    parts.append(k4e_update_case(torch, U, f"mixed leaves {sizes} at offsets {offs}", mixed,
+                                 [rnd((n,), 0.3) for n in sizes], [rnd((n,), 0.3) for n in sizes],
+                                 1e-2, offs))
+    many = [rnd((n,), 1.0) for n in range(1, 71)]
+    before = kernels.launch_counts()["sgd_update_multi"]
+    parts.append(k4e_update_case(torch, U, "70 leaves", many, [rnd(p.shape, 0.3) for p in many],
+                                 [rnd(p.shape, 0.3) for p in many], 1e-2))
+    calls = kernels.launch_counts()["sgd_update_multi"] - before
+    if calls != 4 * 2:
+        raise AssertionError(f"sgd_update_multi on 70 leaves: {calls} launches in 4 calls, want 8")
+    if dtype == torch.float32:
+        p, g = (torch.tensor([v], device=dev) for v in CRAFTED)
+        U.sgd_update_multi("fused", [p], [g], CRAFTED_LR)
+        if float(p) != 1 + 2.0 ** -23:
+            raise AssertionError(f"sgd_update_multi f32: {float(p)!r} where fmaf gives 1 + 2^-23")
+        parts.append("the crafted element rounded once (1 + 2^-23)")
+    log(f"phase5 K4e-a sgd_update_multi {name}: " + "; ".join(parts))
+
+
+def hold(torch, label, tag, got, want, tol, errs):
+    """``err_within(tag, ...)``, or with ``tol`` None bit for bit: the
+    outputs a kernel computes elementwise, op for op as its plain version
+    (a tolerance scaled by max(1, max |want|) would pass a wrong d_out, whose
+    values lie near 1e-6)."""
+    if tol is not None:
+        return err_within(torch, tag, got, want, tol, errs)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label} {tag}: {got.dtype} {tuple(got.shape)}, "
+                             f"want {want.dtype} {tuple(want.shape)}")
+    errs[tag] = max(errs.get(tag, 0.0), float((got.float() - want.float()).abs().max()))
+    if not same_bits(torch, got, want):
+        u = ulps(torch, got, want)
+        raise AssertionError(f"{label} {tag}: {int((u > 0).sum())} of {u.numel()} elements "
+                             f"differ from the plain version (at most {int(u.max())} ulps), "
+                             "held bit for bit")
+    return f"{tag} bitwise"
+
+
+def k4e_case(torch, E, gen, dev, dtype, moe_shape, loss_shape, offset, errs, diffs):
+    """K4e-b/c at ``moe_shape`` (t, e, d) and K4e-d at ``loss_shape``
+    against their plain versions on the same inputs: out, g, d_yr and d_out
+    bit for bit, d_logit within ``MOE_TOL`` and the loss within
+    ``MSE_TOL``, the differing elements counted into ``diffs``; K4e-d twice,
+    bitwise the same. ``offset``: every input one element into a buffer."""
+
+    def make(shape, scale):
+        t = (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+        return shifted(torch, t, 1) if offset else t
+
+    def count(name, got, want):
+        u = ulps(torch, got, want)
+        prev = diffs.setdefault(name, [0, 0, 0])
+        diffs[name] = [prev[0] + int((u > 0).sum()), prev[1] + u.numel(), max(prev[2], int(u.max()))]
+
+    name = str(dtype)[6:]
+    t, e, d = moe_shape
+    s, yr, logit, dy = make((t, d), 1.0), make((e, t // e, d), 1.0), make((t, 1), 2.0), make((t, d), 1.0)
+    out, g = E.moe_combine_fwd(s, yr, logit)
+    want_out, want_g = E.moe_combine_plain(s, yr, logit)
+    d_yr, d_logit = E.moe_combine_bwd(dy, yr, want_g)
+    want_dyr, want_dlogit = E.moe_combine_bwd_plain(dy, yr, want_g)
+    out_l, y = make(loss_shape, 1.0), make(loss_shape, 1.0)
+    loss, d_out = E.mse_loss_fwd(out_l, y)
+    again = E.mse_loss_fwd(out_l, y)[0]
+    want_loss, want_dout = E.mse_loss_plain(out_l, y)
+    torch.cuda.synchronize()
+    if not same_bits(torch, loss, again):
+        raise AssertionError(f"mse_loss_fwd {loss_shape} {name}: a rerun gave other bits")
+    parts = []
+    for kname, tag, got, want, tl in (  # tolerance None: bit for bit
+            ("moe_combine_fwd", "out", out, want_out, None),
+            ("moe_combine_fwd", "g", g, want_g, None),
+            ("moe_combine_bwd", "d_yr", d_yr, want_dyr, None),
+            ("moe_combine_bwd", "d_logit", d_logit, want_dlogit, E.MOE_TOL[dtype]),
+            ("mse_loss_fwd", "loss", loss, want_loss, E.MSE_TOL[dtype]),
+            ("mse_loss_fwd", "d_out", d_out, want_dout, None)):
+        count(f"{kname} {tag} {name}", got, want)
+        parts.append(hold(torch, f"{kname} {tuple(got.shape)} {name}", tag, got, want, tl,
+                          errs[kname]))
+    log(f"phase5 K4e {name}{' one element off 16-byte alignment' if offset else ''}: combine "
+        f"(t, e, d) {moe_shape}, loss {loss_shape}: " + "; ".join(parts)
+        + "; the loss bitwise on a rerun")
+
+
+def k4e_timings(torch, U, E, fabricnet, gen, dev):
+    """Device times (behind a spin kernel) of K4e at the bench_fabricnet
+    shapes in bf16, beside their bounds, their plain versions and, where
+    one exists, a PyTorch call: ``torch._foreach_add_(ps, gs, alpha=-lr)``
+    for the update (it rounds once, where the update rounds twice: not the
+    same function) and ``F.mse_loss`` forward and backward for the loss."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    cfg = fabricnet.FabricNetConfig(dtype=bf16, **BENCH_FABRICNET)
+    params = fabricnet.init_params(cfg, fabricnet.make_fabric_mesh(1), generator=gen)
+    ps = list(fabricnet._leaves(fabricnet._weights(params, cfg.heads)))
+    gs, accs = ([(torch.randn(p.shape, generator=gen, device=dev) * 0.3).to(bf16) for p in ps]
+                for _ in range(2))
+    n = sum(p.numel() for p in ps)
+    lr = cfg.lr
+    t, e, d = K4E_MOE_SHAPES[0]
+    rnd = lambda shape, sc: (torch.randn(shape, generator=gen, device=dev) * sc).to(bf16)  # noqa: E731
+    s, yr, logit, dy = rnd((t, d), 1.0), rnd((e, t // e, d), 1.0), rnd((t, 1), 2.0), rnd((t, d), 1.0)
+    _, g = E.moe_combine_fwd(s, yr, logit)
+    out, y = rnd(K4E_LOSS_SHAPES[0], 1.0), rnd(K4E_LOSS_SHAPES[0], 1.0)
+    og = out.detach().requires_grad_()
+    nl = out.numel()
+
+    def plain_sgd(mode, slices=1):
+        tgt = accs if mode == "accumulate" else ps
+        for i, p in enumerate(tgt):
+            U.sgd_update_plain(mode, p, gs[i], lr, accs[i] if mode == "last" else None, slices)
+
+    cases = {
+        # name: (kernel, plain, library, bytes: inputs read once, outputs written once, ops)
+        "sgd_update_multi": (lambda: U.sgd_update_multi("fused", ps, gs, lr),
+                             lambda: plain_sgd("fused"),
+                             lambda: torch._foreach_add_(ps, gs, alpha=-lr), 3 * 2 * n, 2 * n),
+        "sgd_update_multi accumulate": (lambda: U.sgd_update_multi("accumulate", accs, gs),
+                                        lambda: plain_sgd("accumulate"),
+                                        lambda: torch._foreach_add_(accs, gs), 3 * 2 * n, n),
+        "sgd_update_multi last": (lambda: U.sgd_update_multi("last", ps, gs, lr, acc=accs, slices=2),
+                                  lambda: plain_sgd("last", 2), None, 4 * 2 * n, 4 * n),
+        "moe_combine_fwd": (lambda: E.moe_combine_fwd(s, yr, logit),
+                            lambda: E.moe_combine_plain(s, yr, logit), None,
+                            (3 * t * d + 2 * t) * 2, 2 * t * d),
+        "moe_combine_bwd": (lambda: E.moe_combine_bwd(dy, yr, g),
+                            lambda: E.moe_combine_bwd_plain(dy, yr, g), None,
+                            (3 * t * d + 2 * t) * 2, 3 * t * d),
+        "mse_loss_fwd": (lambda: E.mse_loss_fwd(out, y), lambda: E.mse_loss_plain(out, y),
+                         lambda: torch.autograd.grad(F.mse_loss(og, y), og),
+                         3 * 2 * nl + 2, 6 * nl),
+    }
+    res = {}
+    for name, (kern, plain, lib, nbytes, ops) in cases.items():
+        bound, by, _ = k3_bounds(ops, nbytes)
+        ms, queued = device_ms(torch, kern, 50)
+        res[name] = {"ms": ms, "queued_in_time": queued,
+                     "plain_ms": device_ms(torch, plain, 10)[0],
+                     "library_ms": None if lib is None else device_ms(torch, lib, 50)[0],
+                     "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops}
+    res["sgd_update_multi"].update(library="torch._foreach_add_(ps, gs, alpha=-lr): rounds once",
+                                   leaves=len(ps), elements=n)
+    # mse_loss_fwd is two kernels a launch: the pass and mse_loss_sum; the sum alone
+    from incubator_brpc_tpu_torch.ops import kernels
+    lib, st = kernels.build(), kernels._stream(out.device)
+    blocks = lib.tb_mse_loss_blocks(nl, 1)
+    partial = torch.randn(blocks, generator=gen, device=dev)
+    loss = torch.empty((), dtype=bf16, device=dev)
+
+    def loss_sum():
+        if lib.tb_mse_loss_sum(partial.data_ptr(), blocks, loss.data_ptr(), nl, 1, st):
+            raise AssertionError("tb_mse_loss_sum did not launch")
+
+    res["mse_loss_fwd"].update(kernels_per_launch=2, sum_blocks=blocks,
+                               sum_ms=device_ms(torch, loss_sum, 50)[0])
+    log(f"phase8 K4e timings, bf16, device time behind a spin kernel (the update over the "
+        f"{len(ps)} bench leaves, {n} elements; the combine at (t, e, d) {K4E_MOE_SHAPES[0]}; "
+        f"the loss at {K4E_LOSS_SHAPES[0]}): " + "; ".join(
+            f"{name} {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} by {r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} %; plain {r['plain_ms']:.6f}; library "
+            + ("none" if r["library_ms"] is None else f"{r['library_ms']:.6f}")
+            + ("" if r["queued_in_time"] else "; host-bound") + ")" for name, r in res.items())
+        + "; the library call of sgd_update_multi is torch._foreach_add_(alpha=-lr), which "
+        "rounds once (not the same function), of mse_loss_fwd F.mse_loss forward and backward; "
+        f"mse_loss_fwd's second kernel, mse_loss_sum over {blocks} partials, alone "
+        f"{res['mse_loss_fwd']['sum_ms']:.6f} ms")
+    return res
+
+
 def fabricnet_small_card_vs_cpu(torch, fabricnet, dev):
     """One fused train step on the card (kernels) and on the CPU (plain
     versions) from the same numpy weights and batch."""
@@ -897,6 +1192,7 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
     step = fabricnet.make_train_step(cfg, mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the parameters, the batch, and what else is alive
     kernels.reset_launch_counts()
     losses = []
     for i in range(nsteps):
@@ -922,6 +1218,10 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
     if k4_per_step != k4_launches_per_step(cfg):
         raise AssertionError(f"FabricNet {name}: K4 launches per step {k4_per_step}; want "
                              f"{k4_launches_per_step(cfg)}")
+    k4e_per_step = {n: launches[n] / nsteps for n in K4E}
+    if k4e_per_step != k4e_launches_per_step(cfg):
+        raise AssertionError(f"FabricNet {name}: K4e launches per step {k4e_per_step}; want "
+                             f"{k4e_launches_per_step(cfg)}")
     flops = fabricnet.train_step_flops(cfg)
     tflops = flops / ms * 1e-9
     log(f"phase7 FabricNet at the bench_fabricnet width ({BENCH_FABRICNET}, heads {cfg.heads}, "
@@ -929,10 +1229,86 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
     log(f"phase7 {name} {ms:.3f} ms/step (host clock, steps {warmup + 1}-{nsteps}); "
         f"{flops / 1e12:.4f} TFLOP/step (3 x forward, attention without the causal skip); "
         f"{tflops:.2f} TFLOP/s = {100 * tflops / 989:.2f} % of 989 TFLOP/s bf16; "
-        f"peak memory {peak} B ({peak / 2**30:.3f} GiB); launches {launches}; "
-        f"K3 launches per step {per_step}; K4 launches per step {k4_per_step}")
+        f"peak memory {peak} B ({peak / 2**30:.3f} GiB; {base} B allocated when the steps "
+        f"began, so the steps' own {peak - base} B); launches {launches}; "
+        f"K3 launches per step {per_step}; K4 launches per step {k4_per_step}; K4e launches "
+        f"per step {k4e_per_step}")
     return {"ms_per_step": ms, "flops_per_step": flops, "tflops": tflops, "losses": losses,
-            "peak_bytes": peak, "launches": launches, "nsteps": nsteps}, (step, params, x, y)
+            "peak_bytes": peak, "base_bytes": base, "launches": launches,
+            "nsteps": nsteps}, (step, params, x, y)
+
+
+def fabricnet_sliced_path(torch, fabricnet, kernels, nsteps=10, reps=3):
+    """Phase 7b: the sliced schedules at the ``bench_fabricnet_overlap``
+    width (bf16, two slices), as ``bench.py:1002-1015`` runs them: a warm
+    step each, then ``reps`` interleaved runs of ``nsteps`` chained steps
+    from the same parameters (serialized first in even runs). Held: the
+    chained losses and the final parameters byte-identical across the
+    schedules and across runs, the losses finite and falling, the launches
+    a step; reported: ms a step (best and mean), their difference, peak
+    memory."""
+    cfg = fabricnet.FabricNetConfig(dtype=torch.bfloat16, **BENCH_OVERLAP)
+    mesh = fabricnet.make_fabric_mesh(1)
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(0)
+    params0 = fabricnet.init_params(cfg, mesh, generator=gen)
+    x, y = fabricnet.make_batch(cfg, mesh, generator=gen)
+    names = ("serialized", "overlapped")
+    steps = {s: fabricnet.make_train_step(cfg, mesh, schedule=s) for s in names}
+    for s in names:  # the warm step
+        steps[s]({k: v.clone() for k, v in params0.items()}, x, y)
+    torch.cuda.synchronize()
+    ms = {s: [] for s in names}
+    losses, finals, launches, peak = {}, {}, {}, {}
+    for rep in range(reps):
+        for s in names if rep % 2 == 0 else names[::-1]:
+            params = {k: v.clone() for k, v in params0.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = [steps[s](params, x, y)[1] for _ in range(nsteps)]
+            torch.cuda.synchronize()
+            ms[s].append((time.perf_counter() - t0) / nsteps * 1e3)
+            chain = torch.stack(out).cpu()
+            if chain.dtype != torch.float32:
+                raise AssertionError(f"{s}: loss {chain.dtype}, want float32")
+            if rep == 0:  # on the host, out of the next run's peak memory
+                losses[s], finals[s] = chain, {k: v.cpu() for k, v in params.items()}
+                launches[s] = kernels.launch_counts()
+                peak[s] = (torch.cuda.max_memory_allocated(), base)
+            elif not same_bits(torch, chain, losses[s]) or not all(
+                    same_bits(torch, params[k].cpu(), finals[s][k]) for k in params):
+                raise AssertionError(f"{s}: run {rep} differs from run 0")
+            del params
+    ser, ovl = losses["serialized"], losses["overlapped"]
+    if not same_bits(torch, ser, ovl) or not all(
+            same_bits(torch, finals["serialized"][k], finals["overlapped"][k]) for k in params0):
+        raise AssertionError("the sliced schedules' losses or parameters differ")
+    chain = ser.tolist()
+    if not all(map(math.isfinite, chain)) or not chain[-1] < chain[0]:
+        raise AssertionError(f"sliced schedules: losses not finite and falling: {chain}")
+    m = cfg.microbatches
+    want = {**{n: m for n in (FOLD["bfloat16"], DKDV["bfloat16"], DQ["bfloat16"]) + K3_BOTH},
+            **{n: 0 for n in K3_F32}, **k4_launches_per_step(cfg),
+            **k4e_launches_per_step(cfg, "serialized")}
+    for s in names:
+        got = {n: launches[s][n] / nsteps for n in want}
+        if got != want:
+            raise AssertionError(f"{s}: launches per step {got}; want {want}")
+    best = {s: min(v) for s, v in ms.items()}
+    log(f"phase7b sliced schedules at the bench_fabricnet_overlap width ({BENCH_OVERLAP}, "
+        f"heads {cfg.heads}, bfloat16), {nsteps} chained steps after a warm step, {reps} runs "
+        f"interleaved: losses {chain} (f32, byte-identical across the schedules and the runs; "
+        f"final parameters byte-identical)")
+    log(f"phase7b ms/step (host clock) serialized {ms['serialized']} (best "
+        f"{best['serialized']:.3f}), overlapped {ms['overlapped']} (best "
+        f"{best['overlapped']:.3f}); overlapped - serialized {best['overlapped'] - best['serialized']:.3f} "
+        f"ms; peak memory (peak, allocated when the steps began) {peak} B, so the steps' own "
+        f"{ {s: p - b for s, (p, b) in peak.items()} } B; launches per step {want} (each schedule)")
+    return {"ms_per_step": ms, "best_ms_per_step": best, "losses": chain,
+            "peak_bytes": peak, "launches_per_step": want}
 
 
 def profile_steps(torch, train):
@@ -959,6 +1335,7 @@ def profile_steps(torch, train):
     for e in kern:
         name = e.key
         g = ("K3" if "attn_" in name else
+             "K4e" if any(k in name for k in ("sgd_update_multi", "moe_combine", "mse_loss")) else
              "K4" if any(k in name for k in K4) else
              "matmul" if any(s in name.lower() for s in ("gemm", "nvjet", "xmma", "cutlass")) else
              "PyTorch elementwise and copies")
@@ -974,7 +1351,7 @@ def profile_steps(torch, train):
 
 def run_k3_phases(torch, kernels, dev):
     from incubator_brpc_tpu_torch.models import fabricnet, ring_attention
-    from incubator_brpc_tpu_torch.ops import attention, elementwise
+    from incubator_brpc_tpu_torch.ops import attention, elementwise, update
 
     # the plain versions' einsums in full f32, as the kernels compute
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1017,6 +1394,16 @@ def run_k3_phases(torch, kernels, dev):
     k4_max_err = {name: max(e.values()) for name, e in k4_errs.items()}
     log(f"phase5 K4 max_abs_err {k4_max_err}; gelu_tanh_fwd elements differing from gelu_plain "
         f"(differing, of): {gelu_diff}")
+    k4e_errs, k4e_diff = {name: {} for name in K4E}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        k4e_update_cases(torch, update, fabricnet, gen, dev, dtype)
+        cases = [(m, l, False) for m, l in zip(K4E_MOE_SHAPES, K4E_LOSS_SHAPES)]
+        for moe_shape, loss_shape, offset in cases + [(m, l, True) for m, l, _ in cases[2:]]:
+            k4e_case(torch, elementwise, gen, dev, dtype, moe_shape, loss_shape, offset,
+                     k4e_errs, k4e_diff)
+    k4e_max_err = {name: max(e.values(), default=0.0) for name, e in k4e_errs.items()}
+    log(f"phase5 K4e max_abs_err {k4e_max_err} (sgd_update_multi bitwise); elements differing "
+        f"from the plain versions (differing, of, most ulps): {k4e_diff}")
 
     # -- phase 6: FabricNet on the card against the port on the CPU -----------
     fabricnet_small_card_vs_cpu(torch, fabricnet, dev)
@@ -1028,10 +1415,14 @@ def run_k3_phases(torch, kernels, dev):
     # the f32 path's kernels count the f32 steps' launches
     launches = dict(fab["launches"], **{n: fab32["launches"][n] for n in K3_F32})
 
+    # -- phase 7b: the sliced schedules, counted --------------------------------
+    sliced = fabricnet_sliced_path(torch, fabricnet, kernels)
+
     # -- phase 8: K3 and K4 timings, and the profile -----------------------
     timings = {sp: k3_timings(torch, attention, gen, dev, sp) for sp in (1, 4)}
     timings[1].update(k3_f32_timings(torch, attention, gen, dev))
     k4 = k4_timings(torch, elementwise, gen, dev)
+    k4e = k4e_timings(torch, update, elementwise, fabricnet, gen, dev)
     fab["profile"] = profile_steps(torch, train)
     main = timings[1]  # FabricNet's sp = 1
     line = {}
@@ -1065,9 +1456,23 @@ def run_k3_phases(torch, kernels, dev):
     for name in ("gelu_tanh_fwd", "gelu_tanh_bwd"):
         line[name]["moe_shape_ms"] = k4[name + moe]["ms"]
     line["gelu_tanh_fwd"]["differing_elements"] = gelu_diff
+    for name in K4E:
+        r = k4e[name]
+        line[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        line[name]["dtype"] = "bfloat16"
+        line[name]["differing_elements"] = {k: v for k, v in k4e_diff.items() if k.startswith(name)}
+        max_err[name] = k4e_max_err[name]
+    line["sgd_update_multi"].update(
+        leaves=k4e["sgd_update_multi"]["leaves"], accumulate_ms=k4e["sgd_update_multi accumulate"]["ms"],
+        last_ms=k4e["sgd_update_multi last"]["ms"],
+        last_bound_ms=k4e["sgd_update_multi last"]["bound_ms"],
+        library=k4e["sgd_update_multi"]["library"])
+    line["moe_combine_fwd"]["shape"] = line["moe_combine_bwd"]["shape"] = list(K4E_MOE_SHAPES[0])
+    line["mse_loss_fwd"].update(shape=list(K4E_LOSS_SHAPES[0]), kernels_per_launch=2,
+                                sum_ms=k4e["mse_loss_fwd"]["sum_ms"])
     return {"launches": launches, "max_err": max_err, "line": line,
-            "detail": {**{f"sp{sp}": t for sp, t in timings.items()}, "k4": k4},
-            "fabricnet": fab, "fabricnet_f32": fab32}
+            "detail": {**{f"sp{sp}": t for sp, t in timings.items()}, "k4": k4, "k4e": k4e},
+            "fabricnet": fab, "fabricnet_f32": fab32, "fabricnet_sliced": sliced}
 
 
 # -- K2 and the quantized collective sessions (phases 9-11) --------------------
@@ -1382,7 +1787,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"phase1 build: {time.perf_counter() - t0:.3f}s")
-    ptxas = ptxas_report(kernels.build_log(), K3 + K4)
+    ptxas = ptxas_report(kernels.build_log(), K3 + K4 + K4E + ("mse_loss_sum",))
     for name, entries in ptxas.items():
         for e in entries:
             log(f"  ptxas {name}: {e.get('registers')} registers, spill stores "
@@ -1462,6 +1867,8 @@ def main() -> int:
         log(f"phase4 make_echo_step W={words}: {ms * 1e3:.3f} us/step, "
             f"{nbytes / ms / 1e6:.3f} GB/s; copy_ of the same bytes {copy_ms * 1e3:.3f} us, "
             f"{nbytes / copy_ms / 1e6:.3f} GB/s")
+    # the echo path's 2^26-word frames (0.75 GiB) would count in phase 7's peak memory
+    del step, request, response, req_i32, dst
 
     # -- phases 5-8: K3 and the FabricNet train step --------------------------
     k3 = run_k3_phases(torch, kernels, dev)
@@ -1502,6 +1909,12 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": k3["launches"][name],
             "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(name),
         })
+    for name in K4E:  # launches: the bf16 main path's
+        line.append({
+            "name": name, "route": "cuda", "source": K4E_SOURCE[name],
+            "replaces": REPLACES[name], "launches": k3["launches"][name],
+            "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(name),
+        })
     for name in K2:
         line.append({
             "name": name, "route": "cuda",
@@ -1514,7 +1927,8 @@ def main() -> int:
         with open(opts.out, "w") as f:
             json.dump({"card": card, "timings": detail, "launches": launches,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
-                       "fabricnet_f32": k3["fabricnet_f32"], "k2": k2["detail"],
+                       "fabricnet_f32": k3["fabricnet_f32"],
+                       "fabricnet_sliced": k3["fabricnet_sliced"], "k2": k2["detail"],
                        "k2_launches": k2["launches"], "ptxas": ptxas}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the card probe to the kernels line")
     log(card)

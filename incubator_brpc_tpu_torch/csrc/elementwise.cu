@@ -10,6 +10,16 @@
 //   gelu_tanh_fwd     <- :123 _gelu (jax.nn.gelu, the tanh form)
 //   gelu_tanh_bwd     <- its gradient
 //
+//   moe_combine_fwd   <- _moe's gate and combine (:164 sigmoid(tokens @ gate_w),
+//                        :175 ungrouped * g) with _stage_fn's last residual
+//                        add (:208): g = sigmoid(logit), out[r] = s[r] +
+//                        yr[r % e, r // e] * g[r], the experts' output read
+//                        in its expert layout (e, t / e, d)
+//   moe_combine_bwd   <- its gradient: d_yr = dy * g in the expert layout,
+//                        d_logit = sum_d(dy * yr) * (1 - g) * g
+//   mse_loss_fwd      <- _local_loss's mean((out - y)^2) (:266-268, :281) and,
+//                        in the same pass, its gradient for d(loss) = 1
+//
 // Rows are the last dimension of a row-major tensor, rows * d elements from
 // the base pointer; f32 or bf16 (dtype 0 or 1), computed in f32. Each
 // kernel rounds where its plain version in ops/elementwise.py rounds:
@@ -24,6 +34,17 @@
 //   expressions (ATen's GeluCUDAKernelImpl and GeluBackwardCUDAKernelImpl),
 //   the same constants and tanhf, left to nvcc's default contraction as
 //   PyTorch's build leaves them, one rounding out.
+// - moe_combine_fwd: g rounded to the dtype (1 / (1 + expf(-x)), PyTorch's
+//   sigmoid); the product rounded, then the sum rounded.
+// - moe_combine_bwd: d_yr = dy * g rounded; each dy * yr rounded to the
+//   dtype and summed in f32, the sum rounded, then (sum * (1 - g)) * g
+//   rounded (PyTorch's sigmoid_backward), as autograd does through the
+//   plain version; the row sum's order differs from PyTorch's.
+// - mse_loss_fwd: diff = out - y rounded, its square rounded and summed in
+//   f32, the sum divided by n and rounded; d_out = (1/n rounded to the
+//   dtype) * (2 diff), rounded. The sum's order differs from the plain
+//   version's; every block's partial is added in block order by a second
+//   kernel of one block, so a rerun gives the same bits (no atomics).
 // The intrinsics __fadd_rn / __fmul_rn / __fsub_rn / __fdiv_rn keep nvcc
 // from contracting the norm's products and sums into FMAs that the plain
 // version does not take. The build has no --use_fast_math (ops/kernels.py).
@@ -47,10 +68,7 @@
 // on the given stream, allocates nothing, and returns the first CUDA error
 // (0 on success).
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <type_traits>
+#include "elementwise.cuh"
 
 namespace {
 
@@ -60,98 +78,6 @@ constexpr int64_t kMaxEltBlocks = 132 * 16;  // 16 blocks of 256 threads an SM
 // PyTorch's constants: M_SQRT2 * M_2_SQRTPI * 0.5 rounded once to f32, and 0.044715
 constexpr float kBeta = float(1.41421356237309504880 * 1.12837916709551257390 * 0.5);
 constexpr float kKappa = float(0.044715);
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// x rounded to T (round to nearest even), back in f32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
-
-template <typename T>
-constexpr int kVec = 16 / sizeof(T);  // elements in 16 bytes
-template <int W>
-using Width = std::integral_constant<int, W>;
-
-// W elements at p widened to f32: one 16-byte load when W = kVec<T>
-template <int W, typename T>
-__device__ __forceinline__ void load(const T* p, float (&f)[W]) {
-  if constexpr (W == 1) {
-    f[0] = to_f(*p);
-  } else {
-    static_assert(W == kVec<T>, "a vector is 16 bytes");
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int i = 0; i < W; ++i) f[i] = to_f(e[i]);
-  }
-}
-
-// W f32 values rounded to T and stored at p: one 16-byte store when W = kVec<T>
-template <int W, typename T>
-__device__ __forceinline__ void store(T* p, const float (&f)[W]) {
-  if constexpr (W == 1) {
-    *p = from_f<T>(f[0]);
-  } else {
-    static_assert(W == kVec<T>, "a vector is 16 bytes");
-    uint4 u;
-    T* e = reinterpret_cast<T*>(&u);
-#pragma unroll
-    for (int i = 0; i < W; ++i) e[i] = from_f<T>(f[i]);
-    *reinterpret_cast<uint4*>(p) = u;
-  }
-}
-
-__device__ __forceinline__ int phase(const void* p) {
-  return int(reinterpret_cast<uintptr_t>(p) & 15);
-}
-
-// Elements of the pointers' run before the first 16-byte boundary, when all
-// of them share one address modulo 16 (null ones aside); else all n (no vectors).
-template <typename T>
-__device__ __forceinline__ int64_t head_of(int64_t n, const void* p0, const void* p1,
-                                           const void* p2, const void* p3) {
-  const int ph = phase(p0);
-  if ((p1 != nullptr && phase(p1) != ph) || (p2 != nullptr && phase(p2) != ph) ||
-      (p3 != nullptr && phase(p3) != ph))
-    return n;
-  const int64_t head = ((16 - ph) & 15) / int(sizeof(T));
-  return head < n ? head : n;
-}
-
-// Calls f(Width<W>(), c) for each piece [c, c + W) of [0, n) that thread t of
-// `stride` threads owns: single elements before `head`, 16-byte vectors after
-// it, single elements in the tail. A thread walks the same pieces whenever it
-// is called with the same arguments.
-template <typename T, typename F>
-__device__ __forceinline__ void walk(int64_t n, int64_t head, int64_t t, int64_t stride, F&& f) {
-  constexpr int V = kVec<T>;
-  for (int64_t c = t; c < head; c += stride) f(Width<1>(), c);
-  const int64_t nv = (n - head) / V;
-  for (int64_t i = t; i < nv; i += stride) f(Width<V>(), head + i * V);
-  for (int64_t c = head + nv * V + t; c < n; c += stride) f(Width<1>(), c);
-}
-
-// The sum of v over the block, in every thread (each warp reduces the warps'
-// partials in the same order, so all get the same value). red: 32 floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = lane < int(blockDim.x >> 5) ? red[lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // -- K4a: s = x + delta, n = s * rsqrt(mean(s^2) + 1e-6), rstd --------------------
 // One block a row. delta and s are both null (s is x) or both set. Pass 2
@@ -289,6 +215,98 @@ __global__ void gelu_tanh_bwd(const T* __restrict__ x, const T* __restrict__ dy,
   });
 }
 
+// -- K4e-b / K4e-c: the MoE's gate and combine with the residual add ----------------
+// One block a row r of t; the experts' rows are yr[(r % e) * per + r / e].
+
+template <typename T>
+__global__ void moe_combine_fwd(const T* s, const T* yr, const T* logit, T* out, T* gate,
+                                int64_t d, int64_t e, int64_t per) {
+  const int64_t r = blockIdx.x;
+  const float g = round_to<T>(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-to_f(logit[r])))));
+  if (threadIdx.x == 0) gate[r] = from_f<T>(g);
+  const T* sr = s + r * d;
+  const T* yrow = yr + ((r % e) * per + r / e) * d;
+  T* orow = out + r * d;
+  const int64_t head = head_of<T>(d, sr, yrow, orow, nullptr);
+  walk<T>(d, head, threadIdx.x, blockDim.x, [&](auto w, int64_t c) {
+    constexpr int W = decltype(w)::value;
+    float a[W], b[W];
+    load<W>(sr + c, a);
+    load<W>(yrow + c, b);
+#pragma unroll
+    for (int i = 0; i < W; ++i) a[i] = __fadd_rn(a[i], round_to<T>(__fmul_rn(b[i], g)));
+    store<W>(orow + c, a);
+  });
+}
+
+template <typename T>
+__global__ void moe_combine_bwd(const T* __restrict__ dy, const T* __restrict__ yr,
+                                const T* __restrict__ gate, T* __restrict__ dyr,
+                                T* __restrict__ dlogit, int64_t d, int64_t e, int64_t per) {
+  __shared__ float red[32];
+  const int64_t r = blockIdx.x;
+  const float g = to_f(gate[r]);
+  const T* dr = dy + r * d;
+  const int64_t er = ((r % e) * per + r / e) * d;
+  const T* yrow = yr + er;
+  T* drow = dyr + er;
+  const int64_t head = head_of<T>(d, dr, yrow, drow, nullptr);
+  float dot = 0.f;
+  walk<T>(d, head, threadIdx.x, blockDim.x, [&](auto w, int64_t c) {
+    constexpr int W = decltype(w)::value;
+    float a[W], b[W];
+    load<W>(dr + c, a);
+    load<W>(yrow + c, b);
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      dot = __fadd_rn(dot, round_to<T>(__fmul_rn(a[i], b[i])));
+      a[i] = __fmul_rn(a[i], g);
+    }
+    store<W>(drow + c, a);
+  });
+  const float dg = round_to<T>(block_sum(dot, red));
+  if (threadIdx.x == 0) dlogit[r] = from_f<T>(__fmul_rn(__fmul_rn(dg, __fsub_rn(1.0f, g)), g));
+}
+
+// -- K4e-d: the loss and its gradient ---------------------------------------------------
+// Grid-stride over the n elements; block b writes its partial sum of squares
+// to partial[b]; mse_loss_sum (one block) adds the partials in block order.
+
+template <typename T>
+__global__ void mse_loss_fwd(const T* __restrict__ out, const T* __restrict__ y,
+                             T* __restrict__ dout, float* __restrict__ partial, int64_t n,
+                             float gsq) {
+  __shared__ float red[32];
+  const int64_t head = head_of<T>(n, out, y, dout, nullptr);
+  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  float sq = 0.f;
+  walk<T>(n, head, t, int64_t(gridDim.x) * blockDim.x, [&](auto w, int64_t c) {
+    constexpr int W = decltype(w)::value;
+    float a[W], b[W];
+    load<W>(out + c, a);
+    load<W>(y + c, b);
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const float diff = round_to<T>(__fsub_rn(a[i], b[i]));
+      sq = __fadd_rn(sq, round_to<T>(__fmul_rn(diff, diff)));
+      a[i] = __fmul_rn(gsq, __fmul_rn(2.0f, diff));
+    }
+    store<W>(dout + c, a);
+  });
+  const float total = block_sum(sq, red);
+  if (threadIdx.x == 0) partial[blockIdx.x] = total;
+}
+
+template <typename T>
+__global__ void mse_loss_sum(const float* __restrict__ partial, int blocks, T* __restrict__ loss,
+                             int64_t n) {
+  __shared__ float red[32];
+  float v = 0.f;
+  for (int b = threadIdx.x; b < blocks; b += blockDim.x) v = __fadd_rn(v, partial[b]);
+  v = block_sum(v, red);
+  if (threadIdx.x == 0) *loss = from_f<T>(__fdiv_rn(v, float(n)));
+}
+
 // -- launches -----------------------------------------------------------------------
 
 // threads for one row of d: a 16-byte piece each, in whole warps, 32 to 512
@@ -303,6 +321,8 @@ unsigned elt_blocks(int64_t n, int vec) {
   const int64_t blocks = (n / vec + kEltThreads) / kEltThreads;
   return unsigned(blocks < kMaxEltBlocks ? blocks : kMaxEltBlocks);
 }
+
+constexpr int kSumThreads = 1024;
 
 bool rows_ok(int64_t rows, int64_t d, int dtype) {
   return rows > 0 && rows <= 0x7fffffffLL && d > 0 && (dtype == 0 || dtype == 1);
@@ -371,6 +391,84 @@ int tb_gelu_tanh_bwd(const void* x, const void* dy, void* dx, int64_t n, int dty
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
         static_cast<__nv_bfloat16*>(dx), n);
   return int(cudaGetLastError());
+}
+
+// s, out: [t, d]; yr: [e, t / e, d]; logit, gate: [t]
+int tb_moe_combine_fwd(const void* s, const void* yr, const void* logit, void* out, void* gate,
+                       int64_t t, int64_t d, int64_t e, int dtype, void* stream) {
+  if (!rows_ok(t, d, dtype) || e <= 0 || t % e) return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    moe_combine_fwd<float><<<unsigned(t), norm_threads<float>(d), 0, st>>>(
+        static_cast<const float*>(s), static_cast<const float*>(yr),
+        static_cast<const float*>(logit), static_cast<float*>(out), static_cast<float*>(gate), d,
+        e, t / e);
+  else
+    moe_combine_fwd<__nv_bfloat16><<<unsigned(t), norm_threads<__nv_bfloat16>(d), 0, st>>>(
+        static_cast<const __nv_bfloat16*>(s), static_cast<const __nv_bfloat16*>(yr),
+        static_cast<const __nv_bfloat16*>(logit), static_cast<__nv_bfloat16*>(out),
+        static_cast<__nv_bfloat16*>(gate), d, e, t / e);
+  return int(cudaGetLastError());
+}
+
+// dy: [t, d]; yr, dyr: [e, t / e, d]; gate, dlogit: [t]
+int tb_moe_combine_bwd(const void* dy, const void* yr, const void* gate, void* dyr, void* dlogit,
+                       int64_t t, int64_t d, int64_t e, int dtype, void* stream) {
+  if (!rows_ok(t, d, dtype) || e <= 0 || t % e) return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    moe_combine_bwd<float><<<unsigned(t), norm_threads<float>(d), 0, st>>>(
+        static_cast<const float*>(dy), static_cast<const float*>(yr),
+        static_cast<const float*>(gate), static_cast<float*>(dyr), static_cast<float*>(dlogit), d,
+        e, t / e);
+  else
+    moe_combine_bwd<__nv_bfloat16><<<unsigned(t), norm_threads<__nv_bfloat16>(d), 0, st>>>(
+        static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(yr),
+        static_cast<const __nv_bfloat16*>(gate), static_cast<__nv_bfloat16*>(dyr),
+        static_cast<__nv_bfloat16*>(dlogit), d, e, t / e);
+  return int(cudaGetLastError());
+}
+
+// The number of partial sums tb_mse_loss_fwd writes for n elements (its grid).
+int64_t tb_mse_loss_blocks(int64_t n, int dtype) {
+  return int64_t(elt_blocks(n, dtype == 0 ? kVec<float> : kVec<__nv_bfloat16>));
+}
+
+// The second of tb_mse_loss_fwd's two kernels alone: loss = the sum of the
+// blocks' partial sums, in block order, over n, rounded to the dtype.
+int tb_mse_loss_sum(const float* partial, int64_t blocks, void* loss, int64_t n, int dtype,
+                    void* stream) {
+  if (blocks <= 0 || blocks > 0x7fffffffLL || n <= 0 || (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    mse_loss_sum<float><<<1, kSumThreads, 0, st>>>(partial, int(blocks),
+                                                   static_cast<float*>(loss), n);
+  else
+    mse_loss_sum<__nv_bfloat16><<<1, kSumThreads, 0, st>>>(
+        partial, int(blocks), static_cast<__nv_bfloat16*>(loss), n);
+  return int(cudaGetLastError());
+}
+
+// out, y, dout: n elements; partial: tb_mse_loss_blocks(n) floats; loss: one element.
+// gsq: 1/n rounded to the dtype (the gradient reaching each square). Two
+// launches: the pass over the elements, then tb_mse_loss_sum.
+int tb_mse_loss_fwd(const void* out, const void* y, void* dout, float* partial, void* loss,
+                    int64_t n, float gsq, int dtype, void* stream) {
+  if (n <= 0 || (dtype != 0 && dtype != 1)) return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = unsigned(tb_mse_loss_blocks(n, dtype));
+  if (dtype == 0) {
+    mse_loss_fwd<float><<<blocks, kEltThreads, 0, st>>>(
+        static_cast<const float*>(out), static_cast<const float*>(y), static_cast<float*>(dout),
+        partial, n, gsq);
+  } else {
+    mse_loss_fwd<__nv_bfloat16><<<blocks, kEltThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(y),
+        static_cast<__nv_bfloat16*>(dout), partial, n, gsq);
+  }
+  const int rc = int(cudaGetLastError());
+  return rc ? rc : tb_mse_loss_sum(partial, int64_t(blocks), loss, n, dtype, stream);
 }
 
 }  // extern "C"

@@ -20,16 +20,34 @@ leading ``pp`` dimension: ``w_in``, ``w_out``, ``moe_w1``, ``moe_w2``,
 ``torch.matmul`` (cuBLAS on the card), as the JAX package left them to XLA.
 Each residual add and the RMS norm that reads its sum, and each GeLU, are
 K4 (``ops/elementwise.py``: hand-written kernels on the card, forward and
-backward); the gate, loss and SGD update are PyTorch elementwise ops. The
-``"fused"`` train step updates the parameters **in place** (under
-``torch.no_grad``), ``p - lr * g`` in the parameters' dtype, and returns the
-same dict with the loss. Its autograd leaves are the finest slices the
-forward reads (one a layer of ``w_in`` and ``w_out``, one a projection of
+backward). So is the rest of what XLA fuses around the matrix products
+(K4e): the MoE's gate and combine with the last residual add
+(``moe_combine``, forward and backward), the loss with its gradient
+(``mse_loss_fwd``), and the SGD update over every leaf in one launch
+(``ops/update.py`` ``sgd_update_multi``), which rounds as JAX does: the
+learning rate in the parameters' dtype, and in float32 one fused
+multiply-add.
+
+The train step updates the parameters **in place** and returns the same
+dict with the loss. Its autograd leaves are the finest slices the forward
+reads (one a layer of ``w_in`` and ``w_out``, one a projection of
 ``wqkv``; ``_weights``), so the backward forms no gradient of a whole
-parameter, as the reference's donated ``jax.jit`` step forms none. The
-``"serialized"`` and ``"overlapped"`` schedules overlap gradient
-collectives across ranks, and FabricNet on a mesh with an axis above 1 is
-a later slice (ROADMAP slice 4).
+parameter, as the reference's donated ``jax.jit`` step forms none; the
+backward starts from K4e-d's gradient of the output. Schedules:
+
+- ``"fused"``: one forward and backward over the batch (its ``microbatches``
+  the pipeline's), then the update;
+- ``"serialized"`` and ``"overlapped"``: the batch cut into ``microbatches``
+  contiguous row slices, each a forward and backward of its own with one
+  inner microbatch; the gradients accumulate per leaf in the parameters'
+  dtype (``acc = g_0``, then ``acc + g_m``), the loss in float32, and the
+  parameters take one scaled update after the last slice, returning
+  ``loss_acc / M`` in float32. Across ranks the two differ in whether slice
+  m's gradient reductions are pinned before slice m + 1's forward; on one
+  card there is no reduction and no barrier, so both run the same ops and
+  give byte-identical losses and parameters, as the reference's do.
+
+FabricNet on a mesh with an axis above 1 is a later slice (ROADMAP slice 4).
 
 Entry points run on the card unless the mesh (or ``device``) says ``cpu``.
 """
@@ -43,7 +61,8 @@ import numpy as np
 import torch
 
 from incubator_brpc_tpu_torch.models.ring_attention import ring_attention
-from incubator_brpc_tpu_torch.ops.elementwise import add_rms_norm, gelu
+from incubator_brpc_tpu_torch.ops.elementwise import add_rms_norm, gelu, moe_combine, mse_loss_fwd
+from incubator_brpc_tpu_torch.ops.update import sgd_update_multi
 from incubator_brpc_tpu_torch.parallel.mesh import FABRIC_AXES, FabricMesh, make_fabric_mesh
 from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -142,19 +161,19 @@ def _ring_context(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=1, dtype=torch.float32).to(x.dtype)[:, None, :]
 
 
-def _moe(moe_w1, moe_w2, gate_w, x):
-    """Static round-robin MoE with ep = 1: the ``all_to_all``s are
-    identities and token ``r`` goes to local expert ``r % e_local``."""
+def _moe(moe_w1, moe_w2, gate_w, x, s):
+    """Static round-robin MoE with ep = 1, added to the residual stream
+    ``s``: the ``all_to_all``s are identities and token ``r`` goes to local
+    expert ``r % e_local``; K4e-b reads the experts' output in that layout."""
     e_local = moe_w1.shape[0]
     mb, sl, d = x.shape
     t = mb * sl
     tokens = x.reshape(t, d)
-    g = torch.sigmoid(tokens @ gate_w)  # (t, 1)
+    logit = tokens @ gate_w  # (t, 1); its sigmoid is K4e-b's
     xr = tokens.reshape(t // e_local, e_local, d).transpose(0, 1)  # (e_local, t/e_local, d)
     h = gelu(torch.bmm(xr, moe_w1))
     yr = torch.bmm(h, moe_w2)
-    routed_out = yr.transpose(0, 1).reshape(t, d)
-    return (routed_out * g).reshape(mb, sl, d)
+    return moe_combine(s.reshape(t, d), yr, logit).reshape(mb, sl, d)
 
 
 def _ring_attn_block(wqkv, wo, heads: int, x):
@@ -170,8 +189,8 @@ def _stage_fn(w: Weights, heads: int, x):
     attention, or the ring mean when heads = 0), and the MoE block. Each
     residual add goes with the norm that reads its sum (``add_rms_norm``:
     one K4a forward, one K4b backward that also takes the sum's own
-    gradient). The adds that no norm reads stay plain: the last one, and
-    with heads = 0 the last MLP layer's, whose sum the ring mean reads."""
+    gradient). The last add is K4e-b's, with the MoE's gate; with heads =
+    0 the last MLP layer's stays plain, as the ring mean reads its sum."""
     s, delta = x, None
     for l in range(len(w["w_in"])):
         s, n = add_rms_norm(s, delta)
@@ -183,7 +202,7 @@ def _stage_fn(w: Weights, heads: int, x):
         s = s if delta is None else s + delta
         delta = _ring_context(s).expand_as(s)  # K4 takes no broadcast
     s, n = add_rms_norm(s, delta)
-    return s + _moe(w["moe_w1"], w["moe_w2"], w["gate"], n)
+    return _moe(w["moe_w1"], w["moe_w2"], w["gate"], n, s)
 
 
 def _weights(params: Params, heads: int) -> Weights:
@@ -206,22 +225,38 @@ def _leaves(w: Weights):
         yield from v if isinstance(v, list) else (v,)
 
 
-def _local_forward(cfg: FabricNetConfig, w: Weights, x: torch.Tensor) -> torch.Tensor:
+def _local_forward(cfg: FabricNetConfig, w: Weights, x: torch.Tensor,
+                   microbatches: int = 0) -> torch.Tensor:
     """The forward of the one rank: contiguous row microbatches
     (``x.reshape(m, bl // m, sl, d)``) through the stage in order (GPipe
-    with pp = 1), then the head."""
+    with pp = 1), then the head. ``microbatches`` overrides the config's
+    (a sliced schedule's slice runs one)."""
     bl, sl, d = x.shape
-    m = cfg.microbatches
+    m = microbatches or cfg.microbatches
     xs = x.reshape(m, bl // m, sl, d)
     outs = torch.stack([_stage_fn(w, cfg.heads, xs[i]) for i in range(m)])
     return outs.reshape(bl, sl, d) @ w["head"]
 
 
-def _local_loss(cfg: FabricNetConfig, w: Weights, x, y) -> torch.Tensor:
-    """``mean((out - y)^2)``, summed in float32 and rounded to the model's
-    dtype as ``jnp.mean`` does; the ``pmean`` over size-1 axes is the identity."""
-    out = _local_forward(cfg, w, x)
-    return (out - y).square().mean(dtype=torch.float32).to(out.dtype)
+def _local_loss(cfg: FabricNetConfig, w: Weights, x, y, microbatches: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(loss, out, d_out)``: the output (differentiable), ``mean((out -
+    y)^2)`` summed in float32 and rounded to the model's dtype as
+    ``jnp.mean`` does (the ``pmean`` over size-1 axes is the identity), and
+    the loss's gradient with respect to ``out`` (K4e-d)."""
+    out = _local_forward(cfg, w, x, microbatches)
+    loss, d_out = mse_loss_fwd(out.detach(), y)
+    return loss, out, d_out
+
+
+def _grads(cfg: FabricNetConfig, views: Weights, x, y, microbatches: int = 0):
+    """``(loss, grads)``: the loss and its gradient for each leaf of
+    ``views`` in ``_leaves`` order, each view a fresh autograd leaf."""
+    leaves = {k: [t.detach().requires_grad_() for t in v] if isinstance(v, list)
+              else v.detach().requires_grad_() for k, v in views.items()}
+    with torch.enable_grad():
+        loss, out, d_out = _local_loss(cfg, leaves, x, y, microbatches)
+        return loss, torch.autograd.grad(out, list(_leaves(leaves)), d_out)
 
 
 # -- entry points ----------------------------------------------------------------
@@ -272,29 +307,39 @@ def make_train_step(
     schedule: str = "fused",
     device: DeviceLike = None,
 ) -> Callable[[Params, torch.Tensor, torch.Tensor], Tuple[Params, torch.Tensor]]:
-    """The full training step (forward, backward, SGD), ``schedule="fused"``:
-    ``(params, x, y) -> (params, loss)``, the parameters updated in place."""
+    """The full training step (forward, backward, SGD): ``(params, x, y) ->
+    (params, loss)``, the parameters updated in place. ``"fused"`` returns
+    the loss in the model's dtype; ``"serialized"`` and ``"overlapped"``
+    (identical on one card, see the module's docstring) return the slices'
+    mean loss in float32."""
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}")
-    if schedule != "fused":
-        raise ValueError(
-            f"schedule {schedule!r} overlaps gradient collectives across ranks; "
-            "it comes with the multi-rank mesh, ROADMAP slice 4"
-        )
     mesh = _mesh(mesh, device)
     validate_config(cfg, mesh)
 
+    # the fused step is one slice of cfg.microbatches; a sliced step is
+    # cfg.microbatches slices of one
+    sliced = schedule != "fused"
+    m, inner = (cfg.microbatches, 1) if sliced else (1, cfg.microbatches)
+
+    @torch.no_grad()
     def step(params: Params, x: torch.Tensor, y: torch.Tensor):
         views = _weights(params, cfg.heads)
-        leaves = {k: [t.detach().requires_grad_() for t in v] if isinstance(v, list)
-                  else v.detach().requires_grad_() for k, v in views.items()}
-        with torch.enable_grad():
-            loss = _local_loss(cfg, leaves, x, y)
-            grads = torch.autograd.grad(loss, list(_leaves(leaves)))
-        with torch.no_grad():
-            for view, g in zip(_leaves(views), grads):
-                view.sub_(cfg.lr * g)  # lr * g rounded to the dtype, then the subtraction
-        return params, loss.detach()
+        xs, ys = (t.reshape(m, t.shape[0] // m, *t.shape[1:]) for t in (x, y))
+        acc = None
+        loss_acc = torch.zeros((), dtype=torch.float32, device=x.device) if sliced else None
+        for i in range(m):
+            loss, grads = _grads(cfg, views, xs[i], ys[i], microbatches=inner)
+            if sliced:
+                loss_acc = loss_acc + loss.float()
+            if i == m - 1:  # one update, after the last slice
+                sgd_update_multi("fused" if acc is None else "last", list(_leaves(views)),
+                                 grads, cfg.lr, acc=acc, slices=m)
+            elif acc is None:
+                acc = [g.contiguous() for g in grads]
+            else:
+                sgd_update_multi("accumulate", acc, grads)
+        return params, loss_acc * (1.0 / m) if sliced else loss
 
     return step
 

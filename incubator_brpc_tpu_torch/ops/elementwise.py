@@ -1,5 +1,7 @@
 """K4 — FabricNet's elementwise chain (the residual add with the RMS norm
-after it, and the tanh GeLU, forward and backward), and its plain versions.
+after it, and the tanh GeLU, forward and backward) — and K4e-b/c/d (the
+MoE's gate and combine with the last residual add, its gradient, and the
+loss with its gradient), and their plain versions.
 
 The wrappers over the hand-written CUDA kernels in ``csrc/elementwise.cu``:
 
@@ -15,6 +17,22 @@ The wrappers over the hand-written CUDA kernels in ``csrc/elementwise.cu``:
 - :func:`gelu_tanh_fwd` (K4c) replaces ``_gelu`` (:123): ``jax.nn.gelu``'s
   tanh form in float32, rounded once to x's dtype.
 - :func:`gelu_tanh_bwd` (K4d) replaces its gradient.
+- :func:`moe_combine_fwd` (K4e-b) replaces ``_moe``'s ``sigmoid(tokens @
+  gate_w)`` and ``ungrouped * g`` (:164, :175) with ``_stage_fn``'s last
+  residual add (:208): ``g = sigmoid(logit)`` and ``out[r] = s[r] + yr[r %
+  e, r // e] * g[r]``, reading the experts' output ``yr`` in its expert
+  layout ``(e, t / e, d)``, so no copy regroups it. The gate's product with
+  ``gate_w`` stays ``torch.matmul``.
+- :func:`moe_combine_bwd` (K4e-c) replaces its gradient: ``d_yr = dy * g``,
+  written in the expert layout for the ``bmm``'s backward, and ``d_logit``,
+  the row sum of ``dy * yr`` through the sigmoid's gradient; ``d_s`` is
+  ``dy`` itself, with no launch.
+- :func:`mse_loss_fwd` (K4e-d) replaces ``_local_loss``'s ``mean((out -
+  y)^2)`` (:266-268, :281) and writes, in the same pass, the gradient of
+  ``out`` for d(loss) = 1, bitwise what autograd gives through the plain
+  expression. The train step starts its backward from that gradient, so the
+  loss needs no ``autograd.Function`` (whose backward would have to multiply
+  by d(loss) in a launch of its own, or read it on the host).
 
 XLA fuses each of these into the matrix products' neighbours inside one
 ``jax.jit``; PyTorch runs eagerly, so here each is one pass over its rows,
@@ -23,7 +41,8 @@ tensors runs the plain PyTorch version beside it; given CUDA tensors it
 launches the kernel on the current stream or raises. Nothing on the card's
 path calls a plain version. :class:`AddRMSNormFunction` and
 :class:`GeluFunction` are the ``torch.autograd.Function``s around them, and
-:func:`add_rms_norm` and :func:`gelu` what the model calls.
+:func:`add_rms_norm` and :func:`gelu` what the model calls;
+:class:`MoECombineFunction` and :func:`moe_combine` likewise for K4e-b/c.
 
 The kernels take float32 and bfloat16, any width (odd ones too: 16-byte
 loads where a row's addresses allow, single elements where they do not) and
@@ -69,6 +88,19 @@ GELU_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
 # version's separate ops, near 1 - tanh^2's cancellation); bfloat16 within one
 # rounding of the float32 result to bf16 (2^-7).
 GELU_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# K4e-b/c: the gate (the same 1 / (1 + expf(-x)) as PyTorch's sigmoid), out
+# and d_yr are the plain version's expressions, elementwise, with every
+# rounding explicit, and are held bit for bit; d_logit's row sum runs in
+# another order: float32 within 1e-5, and bfloat16 within 2^-6, two bf16
+# ulps (the sum's order can move its bf16 rounding by one ulp, and the
+# sigmoid's gradient rounds once more). The count of differing elements is
+# reported.
+MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+# K4e-d: d_out is elementwise and held bit for bit; the loss sums its
+# squares in another order (and PyTorch's mean on the card multiplies by
+# 1/n where this divides by n): float32 within 1e-5, bfloat16 within one
+# rounding of the float32 mean (2^-7).
+MSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -126,6 +158,51 @@ def gelu_bwd_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     left_derivative = 0.5 * (1 + t)
     right_derivative = left * (1 - t * t) * (GELU_BETA * (1 + GELU_KAPPA3 * x_sq))
     return (dy.to(acc) * (left_derivative + right_derivative)).to(x.dtype)
+
+
+def _routed(yr: torch.Tensor) -> torch.Tensor:
+    """The experts' output ``(e, t / e, d)`` as token rows ``(t, d)``: token
+    ``r`` is row ``r // e`` of expert ``r % e`` (a copy)."""
+    e, per, d = yr.shape
+    return yr.transpose(0, 1).reshape(e * per, d)
+
+
+def moe_combine_plain(s: torch.Tensor, yr: torch.Tensor, logit: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, g)``: ``g = sigmoid(logit)`` and ``out = s + routed * g``, in
+    the dtype's ops as the model wrote them before K4e (``routed`` the
+    experts' output in token order)."""
+    g = torch.sigmoid(logit)
+    return s + _routed(yr) * g, g
+
+
+def moe_combine_bwd_plain(dy: torch.Tensor, yr: torch.Tensor, g: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(d_yr, d_logit)``, the gradients autograd takes through
+    :func:`moe_combine_plain`: ``dy * g`` back in the expert layout, and
+    ``sigmoid_backward(sum_d(dy * routed), g)``, the products rounded to the
+    dtype and summed in float32."""
+    e, per, d = yr.shape
+    d_routed = dy * g
+    d_g = (dy * _routed(yr)).sum(dim=-1, keepdim=True)
+    return (d_routed.reshape(per, e, d).transpose(0, 1),
+            torch.ops.aten.sigmoid_backward(d_g, g))
+
+
+def mse_grad_scale(n: int, dtype: torch.dtype) -> float:
+    """The gradient reaching each square of a mean over ``n`` elements for
+    d(loss) = 1: ``1 / n`` in float32, rounded to the dtype."""
+    return float(torch.tensor(np.float32(1.0) / np.float32(n)).to(dtype))
+
+
+def mse_loss_plain(out: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, d_out)``: ``mean((out - y)^2)`` with the difference and its
+    square in the dtype, summed in float32 and rounded to the dtype
+    (``jnp.mean``), and its gradient for d(loss) = 1, ``(1/n) * (2 diff)``
+    as autograd and ``jax.grad`` round it."""
+    diff = out - y
+    loss = diff.square().mean(dtype=_acc(out.dtype)).to(out.dtype)
+    return loss, (diff * 2.0) * mse_grad_scale(diff.numel(), out.dtype)
 
 
 # -- wrappers -----------------------------------------------------------------------
@@ -243,6 +320,95 @@ def gelu_tanh_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return _elementwise("gelu_tanh_bwd", x, dy)
 
 
+def _moe_shapes(name: str, rows: torch.Tensor, yr: torch.Tensor, gate: torch.Tensor) -> None:
+    """``rows`` ``(t, d)``, ``yr`` ``(e, t / e, d)`` and ``gate`` ``(t, 1)``,
+    one dtype and device."""
+    _check(name, rows)
+    _check("yr", yr)
+    _check("gate", gate)
+    t, d = rows.shape if rows.dim() == 2 else (-1, -1)
+    if yr.dim() != 3 or yr.shape[0] * yr.shape[1] != t or yr.shape[2] != d or (
+            tuple(gate.shape) != (t, 1)):
+        raise ValueError(f"{name} {tuple(rows.shape)}, yr {tuple(yr.shape)}, gate "
+                         f"{tuple(gate.shape)}: want (t, d), (e, t / e, d) and (t, 1)")
+    for n, x in (("yr", yr), ("gate", gate)):
+        if x.dtype != rows.dtype or x.device != rows.device:
+            raise ValueError(f"{n}: {x.dtype} on {x.device}; want {rows.dtype} on {rows.device}")
+
+
+def moe_combine_fwd(s: torch.Tensor, yr: torch.Tensor, logit: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4e-b. ``(out, g)`` as :func:`moe_combine_plain` gives them: ``s``
+    ``(t, d)``, the experts' output ``yr`` ``(e, t / e, d)``, the gate's
+    logit ``(t, 1)``."""
+    _moe_shapes("s", s, yr, logit)
+    if s.device.type == "cpu":
+        return moe_combine_plain(s, yr, logit)
+    s, yr, logit = _card(s, yr, logit)
+    out, g = torch.empty_like(s), torch.empty_like(logit)
+    (t, d), e = s.shape, yr.shape[0]
+    if out.numel() == 0:
+        return out, g
+    lib = kernels.build()
+    with torch.cuda.device(s.device):
+        rc = lib.tb_moe_combine_fwd(s.data_ptr(), yr.data_ptr(), logit.data_ptr(), out.data_ptr(),
+                                    g.data_ptr(), t, d, e, _DTYPES[s.dtype],
+                                    kernels._stream(s.device))
+    kernels._check_launch(lib, rc, "moe_combine_fwd")
+    kernels._count("moe_combine_fwd")
+    return out, g
+
+
+def moe_combine_bwd(dy: torch.Tensor, yr: torch.Tensor, g: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4e-c. ``(d_yr, d_logit)`` as :func:`moe_combine_bwd_plain` gives
+    them, ``d_yr`` contiguous in the expert layout."""
+    _moe_shapes("dy", dy, yr, g)
+    if dy.device.type == "cpu":
+        return moe_combine_bwd_plain(dy, yr, g)
+    dy, yr, g = _card(dy, yr, g)
+    d_yr, d_logit = torch.empty_like(yr), torch.empty_like(g)
+    (t, d), e = dy.shape, yr.shape[0]
+    if dy.numel() == 0:
+        return d_yr, d_logit
+    lib = kernels.build()
+    with torch.cuda.device(dy.device):
+        rc = lib.tb_moe_combine_bwd(dy.data_ptr(), yr.data_ptr(), g.data_ptr(), d_yr.data_ptr(),
+                                    d_logit.data_ptr(), t, d, e, _DTYPES[dy.dtype],
+                                    kernels._stream(dy.device))
+    kernels._check_launch(lib, rc, "moe_combine_bwd")
+    kernels._count("moe_combine_bwd")
+    return d_yr, d_logit
+
+
+def mse_loss_fwd(out: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4e-d. ``(loss, d_out)`` as :func:`mse_loss_plain` gives them: the
+    loss a 0-d tensor of out's dtype, ``d_out`` shaped like ``out``. The
+    loss adds the blocks' partial sums in block order, so a rerun repeats
+    it bit for bit."""
+    _check("out", out)
+    _check("y", y, out)
+    if out.device.type == "cpu":
+        return mse_loss_plain(out, y)
+    out, y = _card(out, y)
+    n = out.numel()
+    if n == 0:
+        raise ValueError("mse_loss_fwd: the mean of no elements")
+    loss = torch.empty((), dtype=out.dtype, device=out.device)
+    d_out = torch.empty_like(out)
+    lib = kernels.build()
+    partial = torch.empty(lib.tb_mse_loss_blocks(n, _DTYPES[out.dtype]), dtype=torch.float32,
+                          device=out.device)
+    with torch.cuda.device(out.device):
+        rc = lib.tb_mse_loss_fwd(out.data_ptr(), y.data_ptr(), d_out.data_ptr(),
+                                 partial.data_ptr(), loss.data_ptr(), n,
+                                 mse_grad_scale(n, out.dtype), _DTYPES[out.dtype],
+                                 kernels._stream(out.device))
+    kernels._check_launch(lib, rc, "mse_loss_fwd")
+    kernels._count("mse_loss_fwd")
+    return loss, d_out
+
+
 # -- autograd -------------------------------------------------------------------------
 
 
@@ -282,6 +448,23 @@ class GeluFunction(torch.autograd.Function):
         return gelu_tanh_bwd(x, dy)
 
 
+class MoECombineFunction(torch.autograd.Function):
+    """``out`` of :func:`moe_combine_fwd`, with :func:`moe_combine_bwd` as
+    its backward; ``s``'s gradient is ``dy`` itself. Saves ``yr`` and the
+    gate ``g``."""
+
+    @staticmethod
+    def forward(ctx, s, yr, logit):
+        out, g = moe_combine_fwd(s, yr, logit)
+        ctx.save_for_backward(yr, g)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        d_yr, d_logit = moe_combine_bwd(dy, *ctx.saved_tensors)
+        return dy, d_yr, d_logit
+
+
 def add_rms_norm(
     x: torch.Tensor, delta: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -297,11 +480,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return GeluFunction.apply(x)
 
 
+def moe_combine(s: torch.Tensor, yr: torch.Tensor, logit: torch.Tensor) -> torch.Tensor:
+    """``s + routed(yr) * sigmoid(logit)``, differentiable."""
+    return MoECombineFunction.apply(s, yr, logit)
+
+
 __all__ = [
     "AddRMSNormFunction",
     "GeluFunction",
     "GELU_BWD_TOL",
     "GELU_TOL",
+    "MOE_TOL",
+    "MSE_TOL",
+    "MoECombineFunction",
     "NORM_TOL",
     "add_rms_norm",
     "add_rms_norm_fwd",
@@ -311,6 +502,14 @@ __all__ = [
     "gelu_plain",
     "gelu_tanh_bwd",
     "gelu_tanh_fwd",
+    "moe_combine",
+    "moe_combine_bwd",
+    "moe_combine_bwd_plain",
+    "moe_combine_fwd",
+    "moe_combine_plain",
+    "mse_grad_scale",
+    "mse_loss_fwd",
+    "mse_loss_plain",
     "rms_norm_bwd",
     "rms_norm_bwd_plain",
 ]

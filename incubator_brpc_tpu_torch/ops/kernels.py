@@ -23,8 +23,10 @@ The kernels are built at first use: ``nvcc`` compiles each source of
 ``csrc/`` (``framing.cu`` here; ``attention.cu``, ``attention_tc.cu`` and
 ``attention_bwd_tc.cu`` for K3, whose wrappers are in ``ops/attention.py``,
 the last two sharing ``tc_mma.cuh``; ``quantize.cu`` for K2, whose
-wrappers are in ``ops/quantize.py``; and ``elementwise.cu`` for K4, whose
-wrappers are in ``ops/elementwise.py``) for ``sm_90a``, one process
+wrappers are in ``ops/quantize.py``; ``elementwise.cu`` for K4 and K4e-b/c/d,
+whose wrappers are in ``ops/elementwise.py``; and ``update.cu`` for K4e-a,
+the SGD update, whose wrapper is in ``ops/update.py``; the last two share
+``elementwise.cuh``) for ``sm_90a``, one process
 per source, all started together, and links them into one shared library with a plain C
 interface under ``incubator_brpc_tpu_torch/_build/``, loaded with
 ``ctypes``. Each wrapper adds one to its launch count
@@ -52,8 +54,9 @@ EREQUEST = 1003
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG_DIR / "csrc" / f for f in (
     "framing.cu", "attention.cu", "attention_tc.cu", "attention_bwd_tc.cu", "quantize.cu",
-    "elementwise.cu"))
-HEADERS = (_PKG_DIR / "csrc" / "tc_mma.cuh",)  # included by the tensor-core sources
+    "elementwise.cu", "update.cu"))
+# included by the tensor-core sources, and by elementwise.cu and update.cu
+HEADERS = (_PKG_DIR / "csrc" / "tc_mma.cuh", _PKG_DIR / "csrc" / "elementwise.cuh")
 BUILD_DIR = _PKG_DIR / "_build"
 # no --use_fast_math, -ftz=true or -prec-div=false: K2 is bitwise (quantize.cu)
 NVCC_FLAGS = (
@@ -84,6 +87,10 @@ KERNELS = (
     "rms_norm_bwd",
     "gelu_tanh_fwd",
     "gelu_tanh_bwd",
+    "sgd_update_multi",
+    "moe_combine_fwd",
+    "moe_combine_bwd",
+    "mse_loss_fwd",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -211,12 +218,24 @@ def build() -> ctypes.CDLL:
             lib.tb_rms_norm_bwd.argtypes = [p, p, p, p, p, i64, i64, c_int, p]
             lib.tb_gelu_tanh_fwd.argtypes = [p, p, i64, c_int, p]
             lib.tb_gelu_tanh_bwd.argtypes = [p, p, p, i64, c_int, p]
+            lib.tb_moe_combine_fwd.argtypes = [p, p, p, p, p, i64, i64, i64, c_int, p]
+            lib.tb_moe_combine_bwd.argtypes = [p, p, p, p, p, i64, i64, i64, c_int, p]
+            lib.tb_mse_loss_blocks.argtypes = [i64, c_int]
+            lib.tb_mse_loss_blocks.restype = i64
+            lib.tb_mse_loss_fwd.argtypes = [p, p, p, p, p, i64, ctypes.c_float, c_int, p]
+            lib.tb_mse_loss_sum.argtypes = [p, i64, p, i64, c_int, p]
+            # the leaves' pointers and sizes as host arrays, read before the launch
+            lib.tb_sgd_update_multi.argtypes = [
+                p, p, p, p, c_int, c_int, c_int, ctypes.c_float, ctypes.c_float, p
+            ]
             for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
                        lib.tb_attn_fold_fwd, lib.tb_attn_fold_fwd_tc, lib.tb_attn_bwd_delta,
                        lib.tb_attn_bwd_dkdv, lib.tb_attn_bwd_dkdv_tc, lib.tb_attn_bwd_dq,
                        lib.tb_attn_bwd_dq_tc, lib.tb_quantize_rows,
                        lib.tb_dequant_mean_rows, lib.tb_add_rms_norm_fwd, lib.tb_rms_norm_bwd,
-                       lib.tb_gelu_tanh_fwd, lib.tb_gelu_tanh_bwd):
+                       lib.tb_gelu_tanh_fwd, lib.tb_gelu_tanh_bwd, lib.tb_moe_combine_fwd,
+                       lib.tb_moe_combine_bwd, lib.tb_mse_loss_fwd, lib.tb_mse_loss_sum,
+                       lib.tb_sgd_update_multi):
                 fn.restype = c_int
             _lib = lib
     return _lib

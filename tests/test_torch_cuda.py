@@ -7,8 +7,11 @@ and RMS norm, the tanh GeLU, and their backwards) against its plain
 versions within the tolerances ``ops/elementwise.py`` states, one FabricNet
 train step on the card against the CPU, K2 (block quantize and dequantize-mean)
 against its plain versions and the numpy twin bit for bit on
-``chip_smoke.py``'s rows, and one quantized session on the card against the
-same session on the CPU, byte for byte. Marked ``gpu``; each test skips
+``chip_smoke.py``'s rows, one quantized session on the card against the
+same session on the CPU, byte for byte, and K4e (the SGD update bit for bit
+against its plain version; the MoE's gate and combine and the loss within
+the tolerances ``ops/elementwise.py`` states) with the sliced schedules on
+the card against the CPU. Marked ``gpu``; each test skips
 where PyTorch sees no CUDA card.
 
 This file imports no JAX, so on a card machine without JAX it runs with
@@ -23,7 +26,7 @@ import torch
 import chip_smoke
 from incubator_brpc_tpu_torch.models import fabricnet
 from incubator_brpc_tpu_torch.models.tensor_echo import TensorEchoService, make_echo_step
-from incubator_brpc_tpu_torch.ops import attention, elementwise, framing, kernels, quantize
+from incubator_brpc_tpu_torch.ops import attention, elementwise, framing, kernels, quantize, update
 from incubator_brpc_tpu_torch.parallel import mc_collective, mc_dispatch
 from incubator_brpc_tpu_torch.parallel import quantized as Q
 from incubator_brpc_tpu_torch.parallel.mesh import make_fabric_mesh
@@ -271,6 +274,8 @@ def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
                        for n in ("attn_fold_fwd_tc", "attn_bwd_dkdv_tc", "attn_bwd_dq_tc"))
             assert {n: after[n] - before[n] for n in chip_smoke.K4} == \
                 chip_smoke.k4_launches_per_step(cfg)
+            assert {n: after[n] - before[n] for n in chip_smoke.K4E} == \
+                chip_smoke.k4e_launches_per_step(cfg)
     assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
     for name, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][name], want, rtol=1e-5, atol=1e-5)
@@ -303,6 +308,86 @@ def test_k4_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         elementwise.gelu_tanh_fwd(x)
     assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4e_update_matches_its_plain_version_bitwise(cuda, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(17)
+    chip_smoke.k4e_update_cases(torch, update, fabricnet, gen, cuda, dtype)
+
+
+# K4e-b/c/d at chip_smoke.py's shapes, and the odd ones one element off alignment
+@pytest.mark.parametrize("moe_shape,loss_shape,offset",
+                         [(m, l, False) for m, l in zip(chip_smoke.K4E_MOE_SHAPES,
+                                                        chip_smoke.K4E_LOSS_SHAPES)]
+                         + [(m, l, True) for m, l in zip(chip_smoke.K4E_MOE_SHAPES[2:],
+                                                         chip_smoke.K4E_LOSS_SHAPES[2:])],
+                         ids=["bench", "slice", "odd33", "odd1000", "odd33-offset",
+                              "odd1000-offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4e_matches_plain_versions(cuda, moe_shape, loss_shape, offset, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(moe_shape) + offset)
+    errs = {name: {} for name in chip_smoke.K4E}
+    before = kernels.launch_counts()
+    chip_smoke.k4e_case(torch, elementwise, gen, cuda, dtype, moe_shape, loss_shape, offset,
+                        errs, {})
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in chip_smoke.K4E} == {
+        "sgd_update_multi": 0, "moe_combine_fwd": 1, "moe_combine_bwd": 1, "mse_loss_fwd": 2}
+
+
+def test_k4e_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    p = torch.zeros((4, 8), dtype=torch.float64, device=cuda)
+    before = kernels.launch_counts()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        update.sgd_update_multi("fused", [p], [p], 0.01)
+    q = torch.zeros((8, 4), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        update.sgd_update_multi("fused", [q.t()], [q.t()], 0.01)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        elementwise.mse_loss_fwd(p, p)
+    with pytest.raises(ValueError, match="no elements"):
+        elementwise.mse_loss_fwd(q[:0], q[:0])
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("slices", [2, 3])
+def test_sliced_schedules_on_the_card_match_the_cpu(cuda, slices):
+    """Serialized and overlapped byte for byte on the card; within the fused
+    step's 1e-5 of the CPU's sliced step (f32; cuBLAS and the CPU sum in
+    other orders); every kernel counted as chip_smoke.py counts it."""
+    cfg = fabricnet.FabricNetConfig(d_model=32, d_ff=64, d_expert=32, layers_per_stage=2,
+                                    batch=6, seq=32, microbatches=slices, heads=2)
+    rng = np.random.default_rng(11)
+    mesh = make_fabric_mesh(1, device="cpu")
+    arrays = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.2
+              for k, v in fabricnet.init_params(cfg, mesh).items()}
+    x, y = (torch.from_numpy(rng.standard_normal((6, 32, 32)).astype(np.float32))
+            for _ in range(2))
+    results = {}
+    for dev, schedule in (("cpu", "serialized"), ("cuda", "serialized"), ("cuda", "overlapped")):
+        params = fabricnet.params_from_numpy(arrays, cfg, dev)
+        step = fabricnet.make_train_step(cfg, device=dev, schedule=schedule)
+        before = kernels.launch_counts()
+        losses = [step(params, x.to(dev), y.to(dev))[1] for _ in range(2)]
+        after = kernels.launch_counts()
+        results[(dev, schedule)] = (torch.stack(losses).cpu(),
+                                    {k: p.cpu() for k, p in params.items()})
+        if dev == "cuda":
+            want = {**{n: 2 * slices for n in ("attn_fold_fwd", "attn_bwd_dkdv", "attn_bwd_dq")
+                       + K3_BOTH},
+                    **{n: 2 * v for n, v in chip_smoke.k4_launches_per_step(cfg).items()},
+                    **{n: 2 * v for n, v in chip_smoke.k4e_launches_per_step(cfg, schedule).items()}}
+            assert {n: after[n] - before[n] for n in want} == want
+    (ls, ps), (lo, po) = results[("cuda", "serialized")], results[("cuda", "overlapped")]
+    assert ls.dtype == torch.float32 and torch.equal(ls, lo)
+    assert all(torch.equal(ps[k].view(torch.int32), po[k].view(torch.int32)) for k in ps)
+    lc, pc = results[("cpu", "serialized")]
+    torch.testing.assert_close(ls, lc, rtol=1e-5, atol=0)
+    for name, want in pc.items():
+        torch.testing.assert_close(ps[name], want, rtol=1e-5, atol=1e-5)
 
 
 K2 = ("quantize_rows", "dequant_mean_rows")

@@ -200,25 +200,38 @@ def test_wrappers_refuse_what_they_do_not_take():
         E.gelu_tanh_bwd(x, torch.zeros((8, 2)))
 
 
-@pytest.mark.parametrize("kw", [{}, {"heads": 0}, {"heads": 0, "layers_per_stage": 0},
-                                {"layers_per_stage": 2, "microbatches": 1}],
-                         ids=["heads2", "heads0", "heads0-layers0", "layers2-m1"])
-def test_train_step_calls_k4_as_chip_smoke_counts(monkeypatch, kw):
-    """A FabricNet train step on the CPU calls each K4 wrapper as often as
-    ``chip_smoke.k4_launches_per_step`` says the card launches it: the
-    first norm's backward is never called (its input is the batch)."""
+@pytest.mark.parametrize("schedule,kw", [
+    ("fused", {}), ("fused", {"heads": 0}), ("fused", {"heads": 0, "layers_per_stage": 0}),
+    ("fused", {"layers_per_stage": 2, "microbatches": 1}), ("serialized", {}),
+    ("overlapped", {"heads": 0}), ("serialized", {"batch": 6, "microbatches": 3}),
+    ("overlapped", {"layers_per_stage": 2, "microbatches": 1})],
+    ids=["heads2", "heads0", "heads0-layers0", "layers2-m1", "serialized", "overlapped-heads0",
+         "serialized-m3", "overlapped-layers2-m1"])
+def test_train_step_calls_k4_as_chip_smoke_counts(monkeypatch, schedule, kw):
+    """A FabricNet train step on the CPU calls each K4 and K4e wrapper as
+    often as ``chip_smoke.k4_launches_per_step`` and
+    ``k4e_launches_per_step`` say the card launches it: the first norm's
+    backward is never called (its input is the batch); the fused step
+    updates once and takes the loss once, a sliced one accumulates M - 2
+    times, updates once and takes each slice's loss."""
     import chip_smoke
     from incubator_brpc_tpu_torch.models import fabricnet as fn
+    from incubator_brpc_tpu_torch.ops import update
     from incubator_brpc_tpu_torch.parallel import mesh as pmesh
 
-    calls = dict.fromkeys(chip_smoke.K4, 0)
+    calls = dict.fromkeys(chip_smoke.K4 + chip_smoke.K4E, 0)
     for name in calls:
-        def counted(*args, _name=name, _fn=getattr(E, name)):
+        owners = [m for m in (E, update, fn) if hasattr(m, name)]
+        real = getattr(owners[0], name)
+
+        def counted(*args, _name=name, _fn=real, **kwargs):
             calls[_name] += 1
-            return _fn(*args)
-        monkeypatch.setattr(E, name, counted)
-    cfg = fn.FabricNetConfig(d_model=16, d_ff=32, d_expert=16, batch=4, seq=8, **kw)
+            return _fn(*args, **kwargs)
+        for m in owners:
+            monkeypatch.setattr(m, name, counted)
+    cfg = fn.FabricNetConfig(d_model=16, d_ff=32, d_expert=16, **{"batch": 4, "seq": 8, **kw})
     mesh = pmesh.make_fabric_mesh(1, device="cpu")
     params = fn.init_params(cfg, mesh, seed=3)
-    fn.make_train_step(cfg, mesh)(params, *fn.make_batch(cfg, mesh, seed=4))
-    assert calls == chip_smoke.k4_launches_per_step(cfg)
+    fn.make_train_step(cfg, mesh, schedule=schedule)(params, *fn.make_batch(cfg, mesh, seed=4))
+    assert calls == {**chip_smoke.k4_launches_per_step(cfg),
+                     **chip_smoke.k4e_launches_per_step(cfg, schedule)}

@@ -18,6 +18,7 @@ import torch
 from incubator_brpc_tpu.models import fabricnet as jax_fn
 from incubator_brpc_tpu.parallel.mesh import make_fabric_mesh as jax_mesh
 from incubator_brpc_tpu_torch.models import fabricnet as fn
+from incubator_brpc_tpu_torch.ops import update
 from incubator_brpc_tpu_torch.parallel import mesh as pmesh
 
 SIZES = dict(d_model=16, d_ff=32, d_expert=16, experts_per_rank=2, batch=8, seq=8,
@@ -97,19 +98,18 @@ def test_train_steps_match_jax(kw):
 def _whole_parameter_step(cfg):
     """The train step written the old way: each whole parameter an autograd
     leaf, indexed by the forward (a ``select_backward`` of full size for
-    each use), its gradients summed at full size."""
+    each use), its gradients summed at full size; the same plain update."""
 
     def step(params, x, y):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         w = {k: v[0] for k, v in leaves.items() if k != "head"}  # indexed per layer as used
         w["head"] = leaves["head"]
         with torch.enable_grad():
-            loss = fn._local_loss(cfg, w, x, y)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        with torch.no_grad():
-            for p, g in zip(params.values(), grads):
-                p.sub_(cfg.lr * g)
-        return params, loss.detach()
+            loss, out, d_out = fn._local_loss(cfg, w, x, y)
+            grads = torch.autograd.grad(out, list(leaves.values()), d_out)
+        for p, g in zip(params.values(), grads):
+            update.sgd_update_plain("fused", p, g, cfg.lr)
+        return params, loss
 
     return step
 
@@ -206,13 +206,25 @@ def test_validate_config_refuses_an_axis_above_one():
 
 
 def test_schedules():
+    """An unknown schedule raises; the sliced schedules run on one card's
+    mesh, updating in place and returning a float32 loss (their numbers
+    are held in ``tests/test_torch_update.py``); a mesh with an axis above
+    1 still raises "slice 4"."""
     cfg = fn.FabricNetConfig(**SIZES)
     mesh = pmesh.make_fabric_mesh(1, device="cpu")
     with pytest.raises(ValueError, match="unknown schedule"):
         fn.make_train_step(cfg, mesh, schedule="pipelined")
+    wide = pmesh.FabricMesh(shape={**dict.fromkeys(pmesh.FABRIC_AXES, 1), "dp": 2},
+                            device=torch.device("cpu"))
     for schedule in ("serialized", "overlapped"):
+        params = fn.init_params(cfg, mesh, seed=3)
+        head = params["head"].clone()
+        out, loss = fn.make_train_step(cfg, mesh, schedule=schedule)(
+            params, *fn.make_batch(cfg, mesh, seed=4))
+        assert out is params and not torch.equal(params["head"], head)
+        assert loss.dtype == torch.float32 and loss.shape == () and torch.isfinite(loss)
         with pytest.raises(ValueError, match="slice 4"):
-            fn.make_train_step(cfg, mesh, schedule=schedule)
+            fn.make_train_step(cfg, wide, schedule=schedule)
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
