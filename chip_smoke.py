@@ -29,7 +29,8 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
-   ``attn_bwd_dq_tc``, and on the CUDA cores for f32, ``attn_fold_fwd``,
+   ``attn_bwd_dq_tc``; for f32 the fold on the tensor cores in 3xTF32,
+   ``attn_fold_fwd_tf32``, and dK/dV and dQ on the CUDA cores,
    ``attn_bwd_dkdv`` and ``attn_bwd_dq``; ``attn_bwd_delta`` for both)
    against its plain
    versions at the bench attention shape (B 4, T 1024, H 2, D 1024; sp 1
@@ -47,7 +48,8 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    (2, 2048, 2048)) and at odd widths (d 33 and 1000, contiguous and one
    element off 16-byte alignment), within the tolerances
    ``ops/elementwise.py`` states, the GeLU in bf16 within one ulp with the
-   differing elements counted; then K4e: ``sgd_update_multi`` bit for bit
+   differing elements counted, and K4a on both sides of the widths it
+   keeps in registers (``K4A_CAP``); then K4e: ``sgd_update_multi`` bit for bit
    against ``sgd_update_plain`` in each mode (fused, accumulate, the last
    slice of 2 and of 3) in bf16 and f32, over the bench_fabricnet leaves,
    a table mixing leaf sizes 1, 2048 and 2^24 + 3 and alignments, and 70
@@ -65,8 +67,8 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    microbatch) on the one-card mesh, whose loss must stay finite and fall,
    with ms per step, FLOPs per step, TFLOP/s, peak memory and K3 launches
    (one ``attn_fold_fwd_tc``, ``attn_bwd_delta``, ``attn_bwd_dkdv_tc`` and
-   ``attn_bwd_dq_tc`` a step, no ``attn_fold_fwd``, ``attn_bwd_dkdv`` or
-   ``attn_bwd_dq``; K4: 6 ``add_rms_norm_fwd``, 5 ``rms_norm_bwd`` (the
+   ``attn_bwd_dq_tc`` a step, no ``attn_fold_fwd_tf32``, ``attn_bwd_dkdv``
+   or ``attn_bwd_dq``; K4: 6 ``add_rms_norm_fwd``, 5 ``rms_norm_bwd`` (the
    first norm reads the batch, which takes no gradient), 5
    ``gelu_tanh_fwd`` and 5 ``gelu_tanh_bwd`` a step); then 3 steps of the
    same in f32, counted alike (K3 the other way round); K4e a step
@@ -82,16 +84,18 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    memory;
 8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16;
    the tensor-core fold also at B 1, 64 blocks; the f32 fold, dK/dV and dQ
-   at sp 1 in f32) with CUDA events beside its bound, its
-   plain version and ``scaled_dot_product_attention``; times K4 at the
-   bench shapes in bf16 behind a spin kernel beside its bound, its plain
-   version and the one PyTorch call of the same function (``F.rms_norm``,
+   at sp 1 in f32, the fold's bound as 3xTF32 work) with CUDA events beside
+   its bound, its plain version and ``scaled_dot_product_attention``'s
+   forward and backward on the same tensors; times K4 at the bench shapes
+   in bf16 (K4a also in f32) behind a spin kernel beside its bound, its
+   plain version and the one PyTorch call of the same function (``F.rms_norm``,
    its autograd backward, ``F.gelu(approximate="tanh")``,
    ``aten.gelu_backward``); times K4e likewise beside ``torch._foreach_add_``
    (for the update; it rounds once, so it is not the same function) and
-   ``F.mse_loss`` forward and backward; and breaks two bf16 train steps
-   down by kernel with torch.profiler (device busy and idle share; groups
-   K3, K4, K4e, cuBLAS, and PyTorch's own elementwise ops and copies);
+   ``F.mse_loss`` forward and backward; prints K4f's bound (still to
+   port); and breaks two bf16 train steps, then two f32 ones, down by
+   kernel with torch.profiler (device busy and idle share; groups K3, K4,
+   K4e, cuBLAS, and PyTorch's own elementwise ops and copies);
 9. holds K2 (``quantize_rows``, ``dequant_mean_rows``) against its plain
    versions and the numpy twin of ``parallel/quantized.py``, bit for bit,
    in int8 and int4, at (parties, row bytes) (2, 4096), (3, 4096), (8,
@@ -136,19 +140,23 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores: what K3's f32 FMAs run on
+TF32_TC_FLOPS_PER_S = 494.7e12
 BF16_TC_FLOPS_PER_S = 989e12
 
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
-K3 = ("attn_fold_fwd", "attn_fold_fwd_tc", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dkdv_tc",
-      "attn_bwd_dq", "attn_bwd_dq_tc")
+K3 = ("attn_fold_fwd_tf32", "attn_fold_fwd_tc", "attn_bwd_delta", "attn_bwd_dkdv",
+      "attn_bwd_dkdv_tc", "attn_bwd_dq", "attn_bwd_dq_tc")
+# the CUDA-core f32 fold, which attn_fold_fwd_tf32 replaced: it must launch nowhere
+REMOVED = ("attn_fold_fwd",)
 # the fold, dK/dV and dQ kernels each operand dtype launches (ops/attention.py
 # fold, dkdv, dq); attn_bwd_delta takes both
-FOLD = {"float32": "attn_fold_fwd", "bfloat16": "attn_fold_fwd_tc"}
+FOLD = {"float32": "attn_fold_fwd_tf32", "bfloat16": "attn_fold_fwd_tc"}
 DKDV = {"float32": "attn_bwd_dkdv", "bfloat16": "attn_bwd_dkdv_tc"}
 DQ = {"float32": "attn_bwd_dq", "bfloat16": "attn_bwd_dq_tc"}
 K3_BOTH = ("attn_bwd_delta",)
 K3_F32 = (FOLD["float32"], DKDV["float32"], DQ["float32"])  # timed, and counted, in f32
 K3_SOURCE = {"attn_fold_fwd_tc": "incubator_brpc_tpu_torch/csrc/attention_tc.cu",
+             "attn_fold_fwd_tf32": "incubator_brpc_tpu_torch/csrc/attention_tf32.cu",
              "attn_bwd_dkdv_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu",
              "attn_bwd_dq_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu"}
 # bench.py bench_fabricnet: d_model 2048 over heads 2 -> D 1024, batch 4, seq 1024
@@ -175,7 +183,7 @@ REPLACES = {
     "frame_rows": "incubator_brpc_tpu/ops/framing.py:96",
     "verify_rows": "incubator_brpc_tpu/ops/framing.py:121",
     "echo_step_rows": "incubator_brpc_tpu/models/tensor_echo.py:42",
-    "attn_fold_fwd": "incubator_brpc_tpu/models/ring_attention.py:35",
+    "attn_fold_fwd_tf32": "incubator_brpc_tpu/models/ring_attention.py:35",
     "attn_fold_fwd_tc": "incubator_brpc_tpu/models/ring_attention.py:35",
     "attn_bwd_delta": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dkdv": "incubator_brpc_tpu/models/ring_attention.py:48",
@@ -200,6 +208,12 @@ K4_SHAPES = [(4096, 2048), (4096, 8192), (2, 2048, 2048)]
 # odd widths (rows that begin off 16-byte boundaries), contiguous and one
 # element into a buffer: (shape, offset)
 K4_ODD = [((5, 33), False), ((3, 1000), False), ((4, 33), True), ((4, 1000), True)]
+# (dtype, d, one element off 16-byte alignment): the widest rows K4a keeps in
+# registers (read once) and the next widths, which it reads twice, with the
+# row's pointers on one 16-byte phase (vectors) and not (single elements)
+K4A_CAP = [("bfloat16", 16384, False), ("bfloat16", 16392, False), ("bfloat16", 2048, True),
+           ("bfloat16", 2052, True), ("float32", 8192, False), ("float32", 8196, False),
+           ("float32", 2048, True), ("float32", 2052, True)]
 # f32 operations an element (the bound's operations side; tanhf counts as one)
 K4_OPS_PER_ELEMENT = {"add_rms_norm_fwd": 4, "rms_norm_bwd": 7, "gelu_tanh_fwd": 9,
                       "gelu_tanh_bwd": 18}
@@ -722,10 +736,14 @@ def k3_timings(torch, attention, gen, dev, sp):
 
 
 def k3_f32_timings(torch, attention, gen, dev):
-    """CUDA-event times of the CUDA-core fold, dK/dV and dQ, which float32
-    operands take, at the bench attention shape, causal, sp 1, beside their
-    bounds, their plain versions and (for the fold) SDPA's forward on the
-    same f32 tensors."""
+    """CUDA-event times of the kernels float32 operands take, at the bench
+    attention shape, causal, sp 1: the fold on the tensor cores in 3xTF32
+    (its bound: three tf32 products for each of the function's, at the TF32
+    tensor-core peak, or its f32 bytes, the larger; beside it the f32-FMA
+    bound of the CUDA-core fold it replaced), dK/dV and dQ on the CUDA cores,
+    each beside its plain version; SDPA's forward and its backward (forward
+    + backward less forward) on the same f32 tensors, the backward beside
+    the three f32 backward kernels together, which compute its function."""
     import torch.nn.functional as F
 
     b, t, h, d = BENCH_ATTN
@@ -739,31 +757,54 @@ def k3_f32_timings(torch, attention, gen, dev):
         return attention.finalize_plain(
             attention.fold_plain(q, k, v, None, hop=0, sp=1, causal=True), q.dtype)
 
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     cases = {
-        "attn_fold_fwd": (lambda: attention.forward(q, k, v, sp=1, causal=True), plain_fwd, 2,
+        FOLD["float32"]: (lambda: attention.forward(q, k, v, sp=1, causal=True), plain_fwd, 2,
                           fold_bytes(n, stats, 4)),
-        "attn_bwd_dkdv": (lambda: attention.dkdv(q, k, v, dout, lse, delta, sp=1, causal=True),
+        DKDV["float32"]: (lambda: attention.dkdv(q, k, v, dout, lse, delta, sp=1, causal=True),
                           lambda: attention.dkdv_plain(q, k, v, dout, lse, delta, sp=1, causal=True),
                           4, dkdv_bytes(n, stats, 4)),
-        "attn_bwd_dq": (lambda: attention.dq(q, k, v, dout, lse, delta, sp=1, causal=True),
+        DQ["float32"]: (lambda: attention.dq(q, k, v, dout, lse, delta, sp=1, causal=True),
                         lambda: attention.dq_plain(q, k, v, dout, lse, delta, sp=1, causal=True),
                         3, dq_bytes(n, stats, 4)),
     }
     res = {}
     for name, (kern, plain, products, nbytes) in cases.items():
         fl = attention.attention_flops(b, t, h, d, causal=True, products=products)
-        bound, by, tc = k3_bounds(fl, nbytes)
+        if name == FOLD["float32"]:  # 3xTF32: three tf32 tensor-core products for each
+            bound, by, _ = k3_bounds(3 * fl, nbytes, TF32_TC_FLOPS_PER_S)
+            extra = {"tensor_core_bound_ms": 3 * fl / TF32_TC_FLOPS_PER_S * 1e3, "tf32_flops": 3 * fl,
+                     "f32_fma_bound_ms": fl / F32_FLOPS_PER_S * 1e3}
+        else:
+            bound, by, tc = k3_bounds(fl, nbytes)
+            extra = {"tensor_core_bound_ms": tc}
         res[name] = {"ms": time_ms(torch, kern, 10), "plain_ms": time_ms(torch, plain, 3, warmup=1),
-                     "bound_ms": bound, "bound_by": by, "tensor_core_bound_ms": tc, "flops": fl,
-                     "bytes": nbytes, "library_ms": None}
-    res["attn_fold_fwd"]["library_ms"] = time_ms(
-        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10)
+                     "bound_ms": bound, "bound_by": by, "flops": fl, "bytes": nbytes,
+                     "library_ms": None, **extra}
+    backward_ms = time_ms(torch, lambda: attention.backward(q, k, v, out, dout, lse, sp=1,
+                                                            causal=True), 10)
+    # the yardstick the port never calls: one PyTorch call, (B, H, T, D), f32
+    qt, kt, vt, dt = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(dt)
+
+    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                       10)
+    sdpa_bwd = time_ms(torch, sdpa_fwd_bwd, 10) - sdpa_fwd
+    res[FOLD["float32"]]["library_ms"] = sdpa_fwd
+    for name in (DKDV["float32"], DQ["float32"]):
+        res[name].update(backward_ms=backward_ms, sdpa_backward_ms=sdpa_bwd)
+    fold = res[FOLD["float32"]]
     log(f"phase8 f32 operands B={b} T={t} H={h} D={d} causal sp=1: " + "; ".join(
-        f"{name} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
-        f"{100 * r['bound_ms'] / r['ms']:.1f} %; plain {r['plain_ms']:.4f})"
+        f"{name} {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} by {r['bound_by']}, "
+        f"{100 * r['bound_ms'] / r['ms']:.1f} %; plain {r['plain_ms']:.6f})"
         for name, r in res.items())
-        + f"; scaled_dot_product_attention fwd f32 {res['attn_fold_fwd']['library_ms']:.4f} ms")
+        + f"; {FOLD['float32']}'s bound as 3xTF32 ({fold['tf32_flops'] / 1e9:.2f} GFLOP at "
+        f"{TF32_TC_FLOPS_PER_S / 1e12:.1f} TFLOP/s), the CUDA-core fold's f32-FMA bound "
+        f"{fold['f32_fma_bound_ms']:.6f} ms; scaled_dot_product_attention f32 fwd "
+        f"{sdpa_fwd:.6f} ms, bwd {sdpa_bwd:.6f} ms; the three f32 backward kernels "
+        f"(attn_bwd_delta, {DKDV['float32']}, {DQ['float32']}) {backward_ms:.6f} ms")
     return res
 
 
@@ -831,6 +872,50 @@ def k4_case(torch, E, gen, dev, shape, dtype, offset, errs, gelu_diff):
         f"{' one element off 16-byte alignment' if offset else ''}: " + "; ".join(parts))
 
 
+def k4a_cap_case(torch, E, gen, dev, dtype_name, d, offset, errs):
+    """K4a on one side of the widths it keeps in registers: 3 rows of width
+    ``d`` (inputs one element into their buffers where ``offset``), with and
+    without delta, against its plain version (s bitwise, n and rstd within
+    ``NORM_TOL``); which side it is, from ``add_rms_norm_reads_once``."""
+    dtype = getattr(torch, dtype_name)
+
+    def make(scale):
+        t = (torch.randn((3, d), generator=gen, device=dev) * scale).to(dtype)
+        if offset:
+            t = torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:].view(3, d).copy_(t)
+        return t
+
+    x, delta = make(2.0), make(1.0)
+    once = E.add_rms_norm_reads_once(d, dtype, head=d if offset else 0)
+    parts = []
+    for dl in (delta, None):
+        s, n, rstd = E.add_rms_norm_fwd(x, dl)
+        want_s, want_n, want_r = E.add_rms_norm_plain(x, dl)
+        torch.cuda.synchronize()
+        if not torch.equal(s, want_s):
+            raise AssertionError(f"add_rms_norm_fwd (3, {d}) {dtype_name}: s differs from x + delta")
+        tag = "" if dl is None else "+delta "
+        parts += [err_within(torch, f"{tag}n", n, want_n, E.NORM_TOL[dtype], errs),
+                  err_within(torch, f"{tag}rstd", rstd, want_r, E.NORM_TOL[dtype], errs)]
+    log(f"phase5 K4a (3, {d}) {dtype_name}{' one element off 16-byte alignment' if offset else ''}"
+        f", {'read once (registers)' if once else 'read twice'}: " + "; ".join(parts))
+    return once
+
+
+def k4f_bound():
+    """K4f (still to port, ROADMAP B8): the heads = 0 ring mean at the bench
+    width in bf16, s = x + delta and the sequence mean of s, s read once:
+    x and delta read, s and the (batch, d_model) mean written; two f32
+    operations an element (the add, the sum). Bound, computed, not
+    measured."""
+    b, t, d = BENCH_FABRICNET["batch"], BENCH_FABRICNET["seq"], BENCH_FABRICNET["d_model"]
+    nbytes = 3 * 2 * b * t * d + 2 * b * d
+    bound, by, _ = k3_bounds(2 * b * t * d, nbytes)
+    log(f"phase8 K4f (still to port) at ({b}, {t}, {d}) bf16: {nbytes} B, bound {bound:.6f} ms "
+        f"by {by} (computed, not measured)")
+    return {"bytes": nbytes, "bound_ms": bound, "bound_by": by, "shape": [b, t, d]}
+
+
 def k4_launches_per_step(cfg):
     """K4 launches of one train step, per microbatch: K4a for the norm
     before each MLP layer, the attention block and the MoE; K4b for each of
@@ -847,7 +932,7 @@ def k4_timings(torch, E, gen, dev):
     shapes in bf16, beside their bounds, their plain versions and the one
     PyTorch call that computes the same function, on the same tensors: the
     norms at (4096, 2048), the GeLUs at the MLP's (4096, 8192) and the
-    MoE's (2, 2048, 2048)."""
+    MoE's (2, 2048, 2048); K4a also in f32."""
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
@@ -874,6 +959,15 @@ def k4_timings(torch, E, gen, dev):
                          lambda: E.rms_norm_bwd_plain(s, rstd, g_n, g_s), lib_bwd,
                          4 * nb + 4 * rows, rows * d),
     }
+    # K4a in f32 at the same shape (the f32 train step's norms)
+    x32, delta32 = (torch.randn((rows, d), generator=gen, device=dev) * sc for sc in (2.0, 1.0))
+    lib32 = None if rms is None else (lambda: rms(x32, (d,), eps=1e-6))
+    cases["add_rms_norm_fwd f32"] = (lambda: E.add_rms_norm_fwd(x32, delta32),
+                                     lambda: E.add_rms_norm_plain(x32, delta32), lib32,
+                                     8 * nb + 4 * rows, rows * d)
+    cases["add_rms_norm_fwd nodelta f32"] = (lambda: E.add_rms_norm_fwd(x32),
+                                             lambda: E.add_rms_norm_plain(x32), lib32,
+                                             4 * nb + 4 * rows, rows * d)
     for shape in K4_SHAPES[1:]:
         h, dy = ((torch.randn(shape, generator=gen, device=dev) * sc).to(bf16) for sc in (2.0, 1.0))
         n = h.numel()
@@ -893,7 +987,7 @@ def k4_timings(torch, E, gen, dev):
                      "plain_ms": device_ms(torch, plain, 10)[0],
                      "library_ms": None if lib is None else device_ms(torch, lib, 50)[0],
                      "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": flops}
-    log("phase8 K4 timings, bf16, device time behind a spin kernel: " + "; ".join(
+    log("phase8 K4 timings, bf16 (K4a also f32), device time behind a spin kernel: " + "; ".join(
         f"{name} {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} by {r['bound_by']}, "
         f"{100 * r['bound_ms'] / r['ms']:.1f} %; plain {r['plain_ms']:.6f}; library "
         + ("none" if r["library_ms"] is None else f"{r['library_ms']:.6f}")
@@ -1211,9 +1305,10 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
     path = (FOLD[name], DKDV[name], DQ[name]) + K3_BOTH
     others = (FOLD[other], DKDV[other], DQ[other])
     per_step = {n: launches[n] / nsteps for n in K3}
-    if any(per_step[n] != 1 for n in path) or any(launches[n] for n in others):
+    if any(per_step[n] != 1 for n in path) or any(launches[n] for n in others) or any(
+            launches.get(n, 0) for n in REMOVED):
         raise AssertionError(f"FabricNet {name}: K3 launches per step {per_step}; want one of "
-                             f"each of {path}, none of {others}")
+                             f"each of {path}, none of {others + REMOVED}")
     k4_per_step = {n: launches[n] / nsteps for n in K4}
     if k4_per_step != k4_launches_per_step(cfg):
         raise AssertionError(f"FabricNet {name}: K4 launches per step {k4_per_step}; want "
@@ -1311,7 +1406,7 @@ def fabricnet_sliced_path(torch, fabricnet, kernels, nsteps=10, reps=3):
             "peak_bytes": peak, "launches_per_step": want}
 
 
-def profile_steps(torch, train):
+def profile_steps(torch, train, label="bf16"):
     """torch.profiler over two train steps: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1329,7 +1424,7 @@ def profile_steps(torch, train):
         e, "self_cuda_time_total", 0)
     total = sum(dev_us(e) for e in kern)
     if not total:
-        log("phase8 profile: the profiler saw no device time (not measured)")
+        log(f"phase8 profile of {label} steps: the profiler saw no device time (not measured)")
         return None
     groups = {}
     for e in kern:
@@ -1341,7 +1436,7 @@ def profile_steps(torch, train):
              "PyTorch elementwise and copies")
         groups[g] = groups.get(g, 0.0) + dev_us(e)
     top = sorted(kern, key=dev_us, reverse=True)[:12]
-    log(f"phase8 profile of 2 train steps: wall {wall_us:.1f} us, device busy {total:.1f} us "
+    log(f"phase8 profile of 2 {label} train steps: wall {wall_us:.1f} us, device busy {total:.1f} us "
         f"({100 * total / wall_us:.1f} %, idle {100 - 100 * total / wall_us:.1f} %); by group "
         + ", ".join(f"{g} {v:.1f} us ({100 * v / total:.1f} %)" for g, v in sorted(groups.items())))
     for e in top:
@@ -1391,6 +1486,10 @@ def run_k3_phases(torch, kernels, dev):
     for dtype in (torch.bfloat16, torch.float32):
         for shape, offset in [(shape, False) for shape in K4_SHAPES] + K4_ODD:
             k4_case(torch, elementwise, gen, dev, shape, dtype, offset, k4_errs, gelu_diff)
+    sides = [k4a_cap_case(torch, elementwise, gen, dev, t, d, off, k4_errs["add_rms_norm_fwd"])
+             for t, d, off in K4A_CAP]
+    if sides != [True, False] * (len(K4A_CAP) // 2):
+        raise AssertionError(f"K4A_CAP does not straddle the register cap: {sides}")
     k4_max_err = {name: max(e.values()) for name, e in k4_errs.items()}
     log(f"phase5 K4 max_abs_err {k4_max_err}; gelu_tanh_fwd elements differing from gelu_plain "
         f"(differing, of): {gelu_diff}")
@@ -1409,9 +1508,9 @@ def run_k3_phases(torch, kernels, dev):
     fabricnet_small_card_vs_cpu(torch, fabricnet, dev)
 
     # -- phase 7: the FabricNet main path, counted: bf16 (the bench's dtype),
-    # then f32, the path of the CUDA-core fold and dK/dV ----------------------
+    # then f32, the path of the 3xTF32 fold and the CUDA-core dK/dV and dQ ----
     fab, train = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.bfloat16, 10, 2)
-    fab32, _ = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.float32, 3, 1)
+    fab32, train32 = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.float32, 3, 1)
     # the f32 path's kernels count the f32 steps' launches
     launches = dict(fab["launches"], **{n: fab32["launches"][n] for n in K3_F32})
 
@@ -1422,8 +1521,10 @@ def run_k3_phases(torch, kernels, dev):
     timings = {sp: k3_timings(torch, attention, gen, dev, sp) for sp in (1, 4)}
     timings[1].update(k3_f32_timings(torch, attention, gen, dev))
     k4 = k4_timings(torch, elementwise, gen, dev)
+    k4["k4f_bound"] = k4f_bound()
     k4e = k4e_timings(torch, update, elementwise, fabricnet, gen, dev)
     fab["profile"] = profile_steps(torch, train)
+    fab32["profile"] = profile_steps(torch, train32, "f32")
     main = timings[1]  # FabricNet's sp = 1
     line = {}
     for name in K3:
@@ -1435,7 +1536,8 @@ def run_k3_phases(torch, kernels, dev):
             "shape": list(BENCH_ATTN), "sp": 1, "dtype": "bfloat16",
         }
         if name in K3_F32:  # the f32 path's launches, timed in f32
-            line[name].update(library_ms=r["library_ms"], dtype="float32")
+            line[name].update(dtype="float32", **{k: r[k] for k in (
+                "library_ms", "f32_fma_bound_ms", "backward_ms", "sdpa_backward_ms") if k in r})
             continue
         if name in (FOLD["bfloat16"], DKDV["bfloat16"], DQ["bfloat16"]):
             line[name]["sp4_ms"] = timings[4][name]["ms"]
@@ -1451,7 +1553,12 @@ def run_k3_phases(torch, kernels, dev):
         line[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         line[name].update(dtype="bfloat16", shape=list(K4_SHAPES[name.startswith("gelu")]))
         max_err[name] = k4_max_err[name]
-    line["add_rms_norm_fwd"]["nodelta_ms"] = k4["add_rms_norm_fwd nodelta"]["ms"]
+    line["add_rms_norm_fwd"].update(
+        nodelta_ms=k4["add_rms_norm_fwd nodelta"]["ms"],
+        nodelta_bound_ms=k4["add_rms_norm_fwd nodelta"]["bound_ms"],
+        f32_ms=k4["add_rms_norm_fwd f32"]["ms"],
+        f32_nodelta_ms=k4["add_rms_norm_fwd nodelta f32"]["ms"],
+        f32_library_ms=k4["add_rms_norm_fwd f32"]["library_ms"])
     moe = f" {K4_SHAPES[2]}"
     for name in ("gelu_tanh_fwd", "gelu_tanh_bwd"):
         line[name]["moe_shape_ms"] = k4[name + moe]["ms"]
@@ -1930,6 +2037,10 @@ def main() -> int:
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"], "k2": k2["detail"],
                        "k2_launches": k2["launches"], "ptxas": ptxas}, f, indent=1)
+    gone = [n for n in REMOVED if n in kernels.KERNELS]
+    if gone:
+        raise AssertionError(f"kernels replaced by the port still registered: {gone}")
+    log(f"phase12 {', '.join(REMOVED)}: replaced, no wrapper launches it (launches 0)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the card probe to the kernels line")
     log(card)
     log(json.dumps({"kernels": line}))

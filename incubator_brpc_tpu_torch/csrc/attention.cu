@@ -1,10 +1,5 @@
-// K3 of the ring-attention path, hand-written for Hopper (sm_90a):
+// K3's backward on the ring-attention path, hand-written for Hopper (sm_90a):
 //
-//   attn_fold_fwd   <- incubator_brpc_tpu/models/ring_attention.py:35 _block_attn
-//                      + :81 block_merge, and on the last hop :131-133 (the
-//                      divide by max(l, 1e-30) and the cast), for f32
-//                      operands; bf16 operands take attn_fold_fwd_tc
-//                      (attention_tc.cu, tensor cores)
 //   attn_bwd_delta  \
 //   attn_bwd_dkdv    > the gradient JAX's autodiff takes through ring_attention
 //   attn_bwd_dq     /  (lax.scan over block_merge), by recomputation; dK/dV
@@ -16,8 +11,10 @@
 // in f32 or bf16; the softmax statistics m, l, lse and delta are (B, H, T)
 // f32; the running sum o is (B, T, H, D) f32. The ring is sp ranks on one
 // card: rank i owns the rows [i*T/sp, (i+1)*T/sp), and at hop r it folds
-// the key/value block of rank src = (i - r) mod sp. One launch of
-// attn_fold_fwd covers every rank of one hop.
+// the key/value block of rank src = (i - r) mod sp. The forward fold is
+// attn_fold_fwd_tf32 (attention_tf32.cu) for f32 operands and
+// attn_fold_fwd_tc (attention_tc.cu) for bf16: their products run on the
+// tensor cores, their scale, mask and softmax are the ones stated here.
 //
 // Numerics follow the JAX function, not a flash library: operands are
 // widened to f32 and every product, exp and sum is an f32 FMA or op on the
@@ -38,8 +35,8 @@
 // memory as f32 (64 KB, so the dynamic shared memory limit is raised), streams
 // the other operand through 32-wide D chunks for the products that reduce
 // over D (scores, dO.V^T), the next chunk's loads in flight in registers
-// while the current one is used, and keeps the products that run along D (P.V,
-// dS.K, P^T.dO, dS^T.Q) in registers, each thread owning D/256 contiguous
+// while the current one is used, and keeps the products that run along D
+// (dS.K, P^T.dO, dS^T.Q) in registers, each thread owning D/256 contiguous
 // columns of every row of the tile, read and written as one vector, the
 // next row's loads in flight during the current row's FMAs. Shared-memory reads are broadcasts or float4 where
 // the operand allows. Nothing carries across blocks, so no atomics: the
@@ -137,11 +134,6 @@ __device__ __forceinline__ void store_cols(__nv_bfloat16* p, const float (&x)[CP
 
 __host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -187,191 +179,6 @@ struct Chunk {
     for (int it = 0; it < kPer; ++it) dst[(r0 + it * kRows) * kLd + dd] = v[it];
   }
 };
-
-// ---------------------------------------------------------------------------
-// Forward fold of one hop. Block = (b, h, rank i, 16-row query tile); it
-// folds the key tiles of block src = (i - hop) mod sp, 64 keys at a time,
-// into the running (m, l, o), and with `finalize` writes out and lse.
-// ---------------------------------------------------------------------------
-
-namespace fwd {
-constexpr int BM = 16, BN = 64;
-size_t smem_bytes(int64_t D) {
-  return sizeof(float) * (BM * D + BN * kLd + BN * BM + BM * BN + 3 * BM);
-}
-}  // namespace fwd
-
-template <typename T, int CPT>
-__global__ void __launch_bounds__(kThreads, 2)
-attn_fold_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              float* __restrict__ m_io, float* __restrict__ l_io, float* __restrict__ o_io,
-              T* __restrict__ out, float* __restrict__ lse, Geo g, int64_t hop, int causal,
-              int finalize) {
-  using namespace fwd;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BM][D]
-  const int D = int(g.D);
-  float* Ks = Qs + BM * D;                      // [BN][kLd]
-  float* Pt = Ks + BN * kLd;                    // [BN][BM], P transposed
-  float* Ss = Pt + BN * BM;                     // [BM][BN]
-  float* m_s = Ss + BM * BN;                    // [BM] running max
-  float* l_s = m_s + BM;                        // [BM] running sum
-  float* a_s = l_s + BM;                        // [BM] this tile's alpha
-
-  const int tid = threadIdx.x;
-  const int64_t tiles = (g.tl + BM - 1) / BM;
-  const int64_t bh = blockIdx.x % (g.B * g.H);
-  const int64_t h = bh % g.H, b = bh / g.H;
-  // the latest row tiles (the most visible keys under the mask) start first
-  const int64_t pos = tiles * g.sp - 1 - blockIdx.x / (g.B * g.H);
-  const int64_t i = pos / tiles, qt = pos % tiles;
-  const int64_t src = ((i - hop) % g.sp + g.sp) % g.sp;
-  const int64_t q0 = i * g.tl + qt * BM;  // global position of the tile's row 0
-  const int nq = int(imin(BM, g.tl - qt * BM));
-  const int64_t kbase = src * g.tl;
-  int64_t nkt = (g.tl + BN - 1) / BN;
-  if (causal) {
-    const int64_t last = q0 + nq - 1 - kbase;  // last visible key, block-local
-    nkt = last < 0 ? 0 : imin(nkt, last / BN + 1);
-  }
-  if (nkt == 0 && !finalize) return;  // nothing to fold: the state stays
-
-  load_rows(Qs, q, g, b, h, q0, BM, nq);
-  if (tid < BM) {
-    const bool carried = hop > 0 && tid < nq;
-    m_s[tid] = carried ? m_io[stat_off(g, b, h, q0 + tid)] : kNegInf;
-    l_s[tid] = carried ? l_io[stat_off(g, b, h, q0 + tid)] : 0.f;
-  }
-  const int c0 = tid * CPT;  // this thread's columns [c0, c0 + CPT) of every row
-  const bool cols = c0 < D;
-  float o[BM][CPT];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) {
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) o[r][u] = 0.f;
-    if (hop > 0 && r < nq && cols) load_cols(o_io + row_off(g, b, q0 + r, h) + c0, o[r]);
-  }
-  __syncthreads();
-
-  const float sqd = sqrtf(float(g.Dscale));
-  const int j = tid & (BN - 1), grp = tid >> 6;  // score (4 grp + rr, j)
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int64_t kt = 0; kt < nkt; ++kt) {
-    const int64_t k0 = kbase + kt * BN;
-    const int nk = int(imin(BN, g.tl - kt * BN));
-    // scores: acc[rr] = q[4 grp + rr] . k[j], over D chunks
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    Chunk<T, BN> kc;
-    kc.load(k, g, b, h, k0, nk, 0);
-    for (int d0 = 0; d0 < D; d0 += kDC) {
-      __syncthreads();  // the readers of the previous chunk are done
-      kc.store(Ks);
-      __syncthreads();
-      if (d0 + kDC < D) kc.load(k, g, b, h, k0, nk, d0 + kDC);  // in flight meanwhile
-      const float* kr = Ks + j * kLd;
-      const float* qr = Qs + grp * 4 * D + d0;
-      if (D - d0 >= kDC) {
-#pragma unroll
-        for (int dd = 0; dd < kDC; dd += 4) {
-          const float k0v = kr[dd], k1v = kr[dd + 1], k2v = kr[dd + 2], k3v = kr[dd + 3];
-#pragma unroll
-          for (int rr = 0; rr < 4; ++rr) {
-            const float4 qv = *reinterpret_cast<const float4*>(qr + rr * D + dd);
-            acc[rr] = fmaf(qv.x, k0v, acc[rr]);
-            acc[rr] = fmaf(qv.y, k1v, acc[rr]);
-            acc[rr] = fmaf(qv.z, k2v, acc[rr]);
-            acc[rr] = fmaf(qv.w, k3v, acc[rr]);
-          }
-        }
-      } else {
-        for (int dd = 0; dd < D - d0; ++dd)
-#pragma unroll
-          for (int rr = 0; rr < 4; ++rr) acc[rr] = fmaf(qr[rr * D + dd], kr[dd], acc[rr]);
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const int r = grp * 4 + rr;
-      float s = -INFINITY;  // no such key: weighs exp(-inf) = 0
-      if (j < nk) {
-        s = acc[rr] / sqd;
-        if (causal && k0 + j > q0 + r) s = s + kNegInf;
-      }
-      Ss[r * BN + j] = s;
-    }
-    __syncthreads();
-    // online softmax: warp w updates rows 2w and 2w + 1
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = warp * 2 + rr;
-      const float s0 = Ss[r * BN + lane], s1 = Ss[r * BN + lane + 32];
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      Pt[lane * BM + r] = p0;
-      Pt[(lane + 32) * BM + r] = p1;
-      const float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-    // o = o * alpha + P . V, V streamed from global memory by columns
-#pragma unroll
-    for (int r = 0; r < BM; ++r) {
-      const float alpha = a_s[r];
-#pragma unroll
-      for (int u = 0; u < CPT; ++u) o[r][u] *= alpha;
-    }
-    // the next key's columns of V are loaded before this key's FMAs
-    const T* vp = v + row_off(g, b, k0, h) + c0;
-    const int64_t step = g.H * g.D;
-    float vn[CPT] = {};
-    if (cols) load_cols(vp, vn);
-    for (int jj = 0; jj < nk; ++jj) {
-      float vv[CPT];
-#pragma unroll
-      for (int u = 0; u < CPT; ++u) vv[u] = vn[u];
-      if (cols && jj + 1 < nk) load_cols(vp + (jj + 1) * step, vn);
-      const float4* p4 = reinterpret_cast<const float4*>(Pt + jj * BM);
-#pragma unroll
-      for (int r4 = 0; r4 < BM / 4; ++r4) {
-        const float4 p = p4[r4];
-#pragma unroll
-        for (int u = 0; u < CPT; ++u) {
-          o[4 * r4 + 0][u] = fmaf(p.x, vv[u], o[4 * r4 + 0][u]);
-          o[4 * r4 + 1][u] = fmaf(p.y, vv[u], o[4 * r4 + 1][u]);
-          o[4 * r4 + 2][u] = fmaf(p.z, vv[u], o[4 * r4 + 2][u]);
-          o[4 * r4 + 3][u] = fmaf(p.w, vv[u], o[4 * r4 + 3][u]);
-        }
-      }
-    }
-    __syncthreads();  // Pt and Ks are rewritten by the next tile
-  }
-
-#pragma unroll
-  for (int r = 0; r < BM; ++r) {
-    if (r >= nq || !cols) break;
-    const int64_t row = row_off(g, b, q0 + r, h) + c0;
-    store_cols(o_io + row, o[r]);
-    if (finalize) {
-      const float lf = fmaxf(l_s[r], 1e-30f);
-      float y[CPT];
-#pragma unroll
-      for (int u = 0; u < CPT; ++u) y[u] = o[r][u] / lf;
-      store_cols(out + row, y);
-    }
-  }
-  if (tid < nq) {
-    const int64_t so = stat_off(g, b, h, q0 + tid);
-    m_io[so] = m_s[tid];
-    l_io[so] = l_s[tid];
-    if (finalize) lse[so] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Backward. delta = rowsum(dO * O) in f32, one warp per row.
@@ -756,15 +563,6 @@ Geo geo(int64_t B, int64_t T, int64_t H, int64_t D, int64_t sp, int64_t Dscale) 
 }
 
 template <typename T, int CPT>
-int fwd_t(const void* q, const void* k, const void* v, float* m, float* l, float* o, void* out,
-          float* lse, Geo g, int64_t hop, int causal, int finalize, cudaStream_t st) {
-  const int64_t blocks = g.B * g.H * g.sp * ((g.tl + fwd::BM - 1) / fwd::BM);
-  return run(attn_fold_fwd<T, CPT>, blocks, fwd::smem_bytes(g.D), st,
-             static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m, l,
-             o, static_cast<T*>(out), lse, g, hop, causal, finalize);
-}
-
-template <typename T, int CPT>
 int dkdv_t(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, void* dk, void* dv, Geo g, int causal, cudaStream_t st) {
   const int64_t blocks = g.B * g.H * g.sp * ((g.tl + dkdv::BN - 1) / dkdv::BN);
@@ -786,21 +584,6 @@ int dq_t(const void* q, const void* k, const void* v, const void* dout, const fl
 }  // namespace
 
 extern "C" {
-
-// f32 operands only (dtype 0): bf16 folds run on the tensor cores
-int tb_attn_fold_fwd(const void* q, const void* k, const void* v, int dtype, float* m, float* l,
-                     float* o, void* out, float* lse, int64_t B, int64_t T, int64_t H,
-                     int64_t D, int64_t Dscale, int64_t sp, int64_t hop, int causal,
-                     int finalize, void* stream) {
-  if (dtype != 0 || !takes(D) || Dscale <= 0 || sp <= 0 || T % sp != 0)
-    return int(cudaErrorInvalidValue);
-  const Geo g = geo(B, T, H, D, sp, Dscale);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int c = cpt_of(D);
-  return c == 1 ? fwd_t<float, 1>(q, k, v, m, l, o, out, lse, g, hop, causal, finalize, st)
-         : c == 2 ? fwd_t<float, 2>(q, k, v, m, l, o, out, lse, g, hop, causal, finalize, st)
-                  : fwd_t<float, 4>(q, k, v, m, l, o, out, lse, g, hop, causal, finalize, st);
-}
 
 int tb_attn_bwd_delta(const void* out, const void* dout, int dtype, float* delta, int64_t B,
                       int64_t T, int64_t H, int64_t D, void* stream) {

@@ -58,9 +58,17 @@
 //   whose pointers disagree (an odd width, a view one element into a
 //   buffer). Any width is taken.
 // - The norms put one block on one row: pass 1 reads the row and reduces in
-//   f32 (warp shuffles, then the warps' partials through shared memory),
-//   pass 2 reads the row again, from L2 (a 2048-wide bf16 row is 4 KB), and
-//   writes it. rms_norm_bwd reads rstd rather than recomputing the rsqrt.
+//   f32 (warp shuffles, then the warps' partials through shared memory).
+//   add_rms_norm_fwd keeps its pieces of the row in registers through the
+//   reduction and writes n from them, so the row is read once, for rows of
+//   at most 2,048 pieces (4 a thread at 512 threads): with the row's
+//   pointers on one 16-byte phase, 16,384 bf16 or 8,192 f32 elements; with
+//   them on different phases every element is a piece of its own, 2,048
+//   elements. About two pieces a thread (128 threads for a 2048-wide bf16
+//   row) keep two loads in flight each. A longer row takes pass 2, which
+//   reads it again, from L2 (a 2048-wide bf16 row is 4 KB). rms_norm_bwd
+//   reads its rows twice in this way, and reads rstd rather than
+//   recomputing the rsqrt.
 // - The GeLUs are grid-stride loops over the elements.
 //
 // Plain C interface, loaded with ctypes by incubator_brpc_tpu_torch/ops/
@@ -80,33 +88,113 @@ constexpr float kBeta = float(1.41421356237309504880 * 1.12837916709551257390 * 
 constexpr float kKappa = float(0.044715);
 
 // -- K4a: s = x + delta, n = s * rsqrt(mean(s^2) + 1e-6), rstd --------------------
-// One block a row. delta and s are both null (s is x) or both set. Pass 2
-// reads back the s this thread wrote in pass 1 (the same pieces), so no
-// pointer is __restrict__.
-template <typename T>
+// One block a row. delta and s are both null (s is x) or both set. With HOLD
+// > 0, a row of at most HOLD pieces a thread (16-byte vectors, or single
+// elements where its pointers disagree or before and after its 16-byte
+// boundaries) is read once: each thread keeps its pieces of s in registers
+// from pass 1 and writes n from them (launch_add_rms_norm sets HOLD and the
+// threads). HOLD = 0, rows past kHold pieces a thread at 512 threads: the
+// two-pass path, whose pass 2 reads back the s this thread wrote in pass 1
+// (the same pieces), so no pointer is __restrict__.
+constexpr int kHold = 4;
+
+// x and delta over [c, c + W) into p and q (q untouched without delta)
+template <int W, typename T>
+__device__ __forceinline__ void load_piece(const T* xr, const T* dr, int64_t c, float (&p)[W],
+                                           float (&q)[W]) {
+  load<W>(xr + c, p);
+  if (dr != nullptr) load<W>(dr + c, q);
+}
+
+// p = s = x + delta rounded to T and stored (p = x without delta); each
+// square rounded to T and added to sq in f32
+template <int W, typename T>
+__device__ __forceinline__ void sum_piece(const T* dr, T* sr, int64_t c, float (&p)[W],
+                                          const float (&q)[W], float& sq) {
+  if (dr != nullptr) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) p[i] = round_to<T>(__fadd_rn(p[i], q[i]));
+    store<W>(sr + c, p);
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) sq = __fadd_rn(sq, round_to<T>(__fmul_rn(p[i], p[i])));
+}
+
+// kDelta false: delta is null, and known to be, so no register is kept for it
+template <typename T, int HOLD, bool kDelta>
 __global__ void add_rms_norm_fwd(const T* x, const T* delta, T* s, T* n, float* rstd,
                                  int64_t d) {
   __shared__ float red[32];
+  constexpr int V = kVec<T>;
   const int64_t row = blockIdx.x;
   const T* xr = x + row * d;
-  const T* dr = delta ? delta + row * d : nullptr;
-  T* sr = delta ? s + row * d : nullptr;
+  const T* dr = kDelta && delta ? delta + row * d : nullptr;
+  T* sr = kDelta && delta ? s + row * d : nullptr;
   T* nr = n + row * d;
   const int64_t head = head_of<T>(d, xr, dr, sr, nr);
+  // the row's pieces: `head` single elements, nv vectors, then the tail's singles
+  const int64_t nv = (d - head) / V, pieces = d - nv * (V - 1);
+  if (HOLD > 0 && pieces <= int64_t(HOLD) * blockDim.x) {
+    // piece p = threadIdx.x + j blockDim.x of this thread, a vector at
+    // head + (p - head) V or a single element at c(p). Every load is issued
+    // before the first store of s: the pointers may alias, so the compiler
+    // would not move a load above a store.
+    constexpr int H = HOLD > 0 ? HOLD : 1;
+    float a[H][V], b[H][V];
+    const auto vec = [&](int64_t p) { return p >= head && p < head + nv; };
+    const auto single = [&](int64_t p) { return p < head ? p : p + nv * (V - 1); };
+#pragma unroll
+    for (int j = 0; j < HOLD; ++j) {
+      const int64_t p = threadIdx.x + int64_t(j) * blockDim.x;
+      if (p < pieces) {
+        if (vec(p)) {
+          load_piece<V>(xr, dr, head + (p - head) * V, a[j], b[j]);
+        } else {
+          float one[1], two[1] = {0.f};
+          load_piece<1>(xr, dr, single(p), one, two);
+          a[j][0] = one[0], b[j][0] = two[0];
+        }
+      }
+    }
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < HOLD; ++j) {
+      const int64_t p = threadIdx.x + int64_t(j) * blockDim.x;
+      if (p < pieces) {
+        if (vec(p)) {
+          sum_piece<V>(dr, sr, head + (p - head) * V, a[j], b[j], sq);
+        } else {
+          float one[1] = {a[j][0]}, two[1] = {b[j][0]};
+          sum_piece<1>(dr, sr, single(p), one, two, sq);
+          a[j][0] = one[0];
+        }
+      }
+    }
+    const float mean = round_to<T>(__fmul_rn(block_sum(sq, red), 1.0f / float(d)));
+    const float r = round_to<T>(rsqrtf(round_to<T>(__fadd_rn(mean, 1e-6f))));
+    if (threadIdx.x == 0) rstd[row] = r;
+#pragma unroll
+    for (int j = 0; j < HOLD; ++j) {
+      const int64_t p = threadIdx.x + int64_t(j) * blockDim.x;
+      if (p < pieces) {
+        if (vec(p)) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) a[j][i] = __fmul_rn(a[j][i], r);
+          store<V>(nr + head + (p - head) * V, a[j]);
+        } else {
+          float one[1] = {__fmul_rn(a[j][0], r)};
+          store<1>(nr + single(p), one);
+        }
+      }
+    }
+    return;
+  }
   float sq = 0.f;
   walk<T>(d, head, threadIdx.x, blockDim.x, [&](auto w, int64_t c) {
     constexpr int W = decltype(w)::value;
-    float a[W];
-    load<W>(xr + c, a);
-    if (dr != nullptr) {
-      float b[W];
-      load<W>(dr + c, b);
-#pragma unroll
-      for (int i = 0; i < W; ++i) a[i] = round_to<T>(__fadd_rn(a[i], b[i]));
-      store<W>(sr + c, a);
-    }
-#pragma unroll
-    for (int i = 0; i < W; ++i) sq = __fadd_rn(sq, round_to<T>(__fmul_rn(a[i], a[i])));
+    float a[W], b[W];
+    load_piece<W>(xr, dr, c, a, b);
+    sum_piece<W>(dr, sr, c, a, b, sq);
   });
   const float mean = round_to<T>(__fmul_rn(block_sum(sq, red), 1.0f / float(d)));
   const float r = round_to<T>(rsqrtf(round_to<T>(__fadd_rn(mean, 1e-6f))));
@@ -317,6 +405,52 @@ unsigned norm_threads(int64_t d) {
   return unsigned(t < 32 ? 32 : t > kMaxNormThreads ? kMaxNormThreads : t);
 }
 
+// The most pieces a row of width d at these pointers has: rows whose
+// pointers disagree are all single elements; rows on one phase have at most
+// V - 1 single elements before their first 16-byte boundary and as many
+// after their last, and exactly the first row's count when every row starts
+// on the first row's phase.
+template <typename T>
+int64_t norm_pieces(const void* x, const void* delta, const void* s, const void* n, int64_t d) {
+  constexpr int64_t V = kVec<T>;
+  const int ph = phase(x);
+  if (phase(n) != ph || (delta != nullptr && (phase(delta) != ph || phase(s) != ph))) return d;
+  const int64_t worst = d * int64_t(sizeof(T)) % 16 == 0
+                            ? d - (d - head_of<T>(d, x, delta, s, n)) / V * (V - 1)
+                            : d / V + 2 * (V - 1);
+  return worst < d ? worst : d;
+}
+
+// add_rms_norm_fwd's launch: rows of at most kHold x kMaxNormThreads pieces
+// are read once, with about two pieces a thread (two loads in flight each)
+// and HOLD the fewest of 1, 2, 4 that hold them;
+// longer rows take two passes, one piece a thread a pass.
+template <typename T>
+cudaError_t launch_add_rms_norm(const void* x, const void* delta, void* s, void* n, float* rstd,
+                                int64_t rows, int64_t d, cudaStream_t st) {
+  const int64_t pieces = norm_pieces<T>(x, delta, s, n, d);
+  int hold = 0;
+  unsigned threads = norm_threads<T>(d);
+  if (pieces <= int64_t(kHold) * kMaxNormThreads) {
+    const int64_t t = ((pieces + 1) / 2 + 31) / 32 * 32;
+    threads = unsigned(t < 32 ? 32 : t > kMaxNormThreads ? kMaxNormThreads : t);
+    hold = pieces <= threads ? 1 : pieces <= 2 * int64_t(threads) ? 2 : 4;
+  }
+  const auto kern = [&](auto h) {
+    const auto k = delta != nullptr ? add_rms_norm_fwd<T, decltype(h)::value, true>
+                                    : add_rms_norm_fwd<T, decltype(h)::value, false>;
+    k<<<unsigned(rows), threads, 0, st>>>(static_cast<const T*>(x), static_cast<const T*>(delta),
+                                          static_cast<T*>(s), static_cast<T*>(n), rstd, d);
+  };
+  switch (hold) {
+    case 1: kern(Width<1>()); break;
+    case 2: kern(Width<2>()); break;
+    case 4: kern(Width<4>()); break;
+    default: kern(Width<0>());
+  }
+  return cudaGetLastError();
+}
+
 unsigned elt_blocks(int64_t n, int vec) {
   const int64_t blocks = (n / vec + kEltThreads) / kEltThreads;
   return unsigned(blocks < kMaxEltBlocks ? blocks : kMaxEltBlocks);
@@ -338,15 +472,8 @@ int tb_add_rms_norm_fwd(const void* x, const void* delta, void* s, void* n, floa
   if (!rows_ok(rows, d, dtype) || (delta == nullptr) != (s == nullptr))
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    add_rms_norm_fwd<float><<<unsigned(rows), norm_threads<float>(d), 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(delta), static_cast<float*>(s),
-        static_cast<float*>(n), rstd, d);
-  else
-    add_rms_norm_fwd<__nv_bfloat16><<<unsigned(rows), norm_threads<__nv_bfloat16>(d), 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(delta),
-        static_cast<__nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(n), rstd, d);
-  return int(cudaGetLastError());
+  return int(dtype == 0 ? launch_add_rms_norm<float>(x, delta, s, n, rstd, rows, d, st)
+                        : launch_add_rms_norm<__nv_bfloat16>(x, delta, s, n, rstd, rows, d, st));
 }
 
 // s, g_n, g_s, g: [rows, d]; rstd: [rows] f32. g_s may be null.

@@ -2,7 +2,8 @@
 versions.
 
 The wrappers over the hand-written CUDA kernels in ``csrc/attention.cu``,
-``csrc/attention_tc.cu`` and ``csrc/attention_bwd_tc.cu``:
+``csrc/attention_tc.cu``, ``csrc/attention_tf32.cu`` and
+``csrc/attention_bwd_tc.cu``:
 
 - :func:`fold` replaces ``incubator_brpc_tpu/models/ring_attention.py``
   ``_block_attn`` (:35) and ``block_merge`` (:81) for one hop of the ring,
@@ -10,8 +11,9 @@ The wrappers over the hand-written CUDA kernels in ``csrc/attention.cu``,
   The operands' dtype picks the kernel: bfloat16 goes to
   ``attn_fold_fwd_tc`` (``attention_tc.cu``, bf16 products on the tensor
   cores with f32 accumulation, P split as :func:`split_bf16` states),
-  float32 to ``attn_fold_fwd`` (``attention.cu``, f32 FMAs on the CUDA
-  cores).
+  float32 to ``attn_fold_fwd_tf32`` (``attention_tf32.cu``, 3xTF32 on the
+  tensor cores with f32 accumulation, every operand split as
+  :func:`split_tf32` states).
 - :func:`backward` (:func:`row_dot`, :func:`dkdv` and :func:`dq` over
   ``attn_bwd_delta``, ``attn_bwd_dkdv`` or ``attn_bwd_dkdv_tc``, and
   ``attn_bwd_dq`` or ``attn_bwd_dq_tc``) replaces the gradient JAX's
@@ -46,8 +48,9 @@ multiple of 4 (:func:`_pad`), the kernels are told the true D for the
 score scale ``1/sqrt(D)``, and the results are sliced back.
 
 What bounds the CUDA-core kernels on the card is operations (f32 FMAs, as
-the JAX function computes in f32); what bounds the tensor-core fold is
-bytes, and the tensor-core dK/dV and dQ operations and bytes about alike.
+the JAX function computes in f32); what bounds the bf16 tensor-core fold is
+bytes, the f32 one (three tf32 products for each) operations, and the
+tensor-core dK/dV and dQ operations and bytes about alike.
 Each source says how its design meets that. A wrapper given CPU tensors runs the
 plain PyTorch version beside it; given CUDA tensors it launches the kernels
 on the current stream or raises. Nothing on the card's path calls a plain
@@ -213,6 +216,31 @@ def split_bf16(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (p - hi.float()).to(torch.bfloat16)
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on float32 ``x``, by bit arithmetic: the 13 low
+    bits of the significand rounded off to nearest, ties away from zero
+    (half an ulp added to the magnitude, then truncated, which carries into
+    the exponent and past the largest tf32 to inf as the rounding should);
+    subnormals alike; inf and NaN as they are. The result is a float32 that
+    tf32 holds exactly."""
+    u = x.contiguous().view(torch.int32).to(torch.int64)
+    mag = u & 0x7FFFFFFF
+    r = torch.where(mag >= 0x7F800000, mag, ((mag + 0x1000) & 0x7FFFE000)) | (u & ~0x7FFFFFFF)
+    return r.to(torch.int32).view(torch.float32).view(x.shape)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What ``attn_fold_fwd_tf32`` does with each float32 operand (Q, K, V and
+    P) before its products: ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x - hi)``
+    (:func:`round_tf32`), both float32 values that tf32 holds exactly.
+    ``hi + lo`` carries 22 bits of x's 24, and the three tf32 tensor-core
+    products ``a_hi.b_lo + a_lo.b_hi + a_hi.b_hi`` (small terms first, lo.lo
+    dropped) accumulated in f32 keep the fold within its f32 tolerance,
+    where ``a_hi.b_hi`` alone misses it."""
+    hi = round_tf32(x.float())
+    return hi, round_tf32(x.float() - hi)
+
+
 def finalize_plain(state: State, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """``o / max(l, 1e-30)`` cast to ``dtype``, and ``lse = m + log(max(l, 1e-30))``."""
     m, l, o = state
@@ -288,8 +316,8 @@ def fold(
     (None before hop 0). Returns ``(m, l, o, out, lse)``; ``out`` (in q's
     dtype) and ``lse`` are None unless ``finalize``. On the card the state
     is updated in place (hop 0 allocates it) by ``attn_fold_fwd_tc`` for
-    bfloat16 operands and ``attn_fold_fwd`` for float32; on the CPU it is
-    new."""
+    bfloat16 operands and ``attn_fold_fwd_tf32`` for float32; on the CPU it
+    is new."""
     _check(q, k, v, sp)
     if not 0 <= hop < sp:
         raise ValueError(f"hop {hop} outside [0, {sp})")
@@ -300,7 +328,6 @@ def fold(
     b, t, h, d = q.shape
     pad = _check_head_dim(d)
     q, k, v = _dense(*_pad(pad, q, k, v))
-    tensor_cores = q.dtype == torch.bfloat16
     dev = q.device
     if hop == 0:
         m = torch.empty((b, h, t), dtype=torch.float32, device=dev)
@@ -320,15 +347,10 @@ def fold(
     lib = kernels.build()
     state_ptrs = (m.data_ptr(), l.data_ptr(), o_k.data_ptr(), kernels._ptr(out), kernels._ptr(lse))
     geometry = (b, t, h, d + pad, d, sp, hop, int(causal), int(finalize), kernels._stream(dev))
+    name = "attn_fold_fwd_tc" if q.dtype == torch.bfloat16 else "attn_fold_fwd_tf32"
     with torch.cuda.device(dev):
-        if tensor_cores:
-            name = "attn_fold_fwd_tc"
-            rc = lib.tb_attn_fold_fwd_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(), *state_ptrs,
-                                         *geometry)
-        else:
-            name = "attn_fold_fwd"
-            rc = lib.tb_attn_fold_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPES[q.dtype],
-                                      *state_ptrs, *geometry)
+        rc = getattr(lib, "tb_" + name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), *state_ptrs,
+                                        *geometry)
     kernels._check_launch(lib, rc, name)
     kernels._count(name)
     if pad:
@@ -479,7 +501,9 @@ __all__ = [
     "row_dot",
     "row_dot_plain",
     "finalize_plain",
+    "round_tf32",
     "split_bf16",
+    "split_tf32",
     "fold",
     "fold_plain",
     "forward",

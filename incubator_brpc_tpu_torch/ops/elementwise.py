@@ -103,6 +103,28 @@ MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 MSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
+# csrc/elementwise.cu: at most 512 threads a row, and kHold, the pieces of a
+# row (16-byte vectors, or single elements where the row's pointers do not
+# allow a vector) that a thread of add_rms_norm_fwd keeps in registers, so
+# that it reads the row once
+MAX_NORM_THREADS = 512
+NORM_HOLD = 4
+
+
+def add_rms_norm_reads_once(d: int, dtype: torch.dtype, head: int = 0) -> bool:
+    """Whether ``add_rms_norm_fwd`` keeps a row of width ``d`` in registers
+    (reads it once) rather than reading it a second time: a row whose
+    pointers share one 16-byte phase, ``head`` elements before the first
+    16-byte boundary, is ``head`` single elements, its vectors, and the
+    tail's single elements; a row whose pointers disagree (``head = d``) is
+    all single elements. It does when these pieces are at most
+    ``NORM_HOLD`` x ``MAX_NORM_THREADS`` (the kernel takes the launch's
+    row with the most pieces)."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    head = min(head, d)
+    return d - (d - head) // vec * (vec - 1) <= NORM_HOLD * MAX_NORM_THREADS
+
+
 def _acc(dtype: torch.dtype) -> torch.dtype:
     """What the plain versions compute in: float32, or float64 for float64."""
     return torch.promote_types(dtype, torch.float32)
@@ -233,7 +255,9 @@ def add_rms_norm_fwd(
     x: torch.Tensor, delta: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4a. ``(s, n, rstd)`` as :func:`add_rms_norm_plain` gives them, over
-    the last dimension; ``s`` is ``x`` itself without ``delta``."""
+    the last dimension; ``s`` is ``x`` itself without ``delta``. On the card
+    a row is read once where :func:`add_rms_norm_reads_once` says so, else
+    twice; the results are the same."""
     _check("x", x)
     if delta is not None:
         _check("delta", delta, x)
@@ -493,10 +517,12 @@ __all__ = [
     "MOE_TOL",
     "MSE_TOL",
     "MoECombineFunction",
+    "NORM_HOLD",
     "NORM_TOL",
     "add_rms_norm",
     "add_rms_norm_fwd",
     "add_rms_norm_plain",
+    "add_rms_norm_reads_once",
     "gelu",
     "gelu_bwd_plain",
     "gelu_plain",

@@ -20,11 +20,12 @@ version: the tests use them, ``chip_smoke.py`` holds each kernel against
 its plain version on the card, and CPU execution runs them.
 
 The kernels are built at first use: ``nvcc`` compiles each source of
-``csrc/`` (``framing.cu`` here; ``attention.cu``, ``attention_tc.cu`` and
-``attention_bwd_tc.cu`` for K3, whose wrappers are in ``ops/attention.py``,
-the last two sharing ``tc_mma.cuh``; ``quantize.cu`` for K2, whose
-wrappers are in ``ops/quantize.py``; ``elementwise.cu`` for K4 and K4e-b/c/d,
-whose wrappers are in ``ops/elementwise.py``; and ``update.cu`` for K4e-a,
+``csrc/`` (``framing.cu`` here; ``attention.cu``, ``attention_tc.cu``,
+``attention_tf32.cu`` and ``attention_bwd_tc.cu`` for K3, whose wrappers
+are in ``ops/attention.py``, the last three sharing ``tc_mma.cuh``;
+``quantize.cu`` for K2, whose wrappers are in ``ops/quantize.py``;
+``elementwise.cu`` for K4 and K4e-b/c/d, whose wrappers are in
+``ops/elementwise.py``; and ``update.cu`` for K4e-a,
 the SGD update, whose wrapper is in ``ops/update.py``; the last two share
 ``elementwise.cuh``) for ``sm_90a``, one process
 per source, all started together, and links them into one shared library with a plain C
@@ -53,8 +54,8 @@ EREQUEST = 1003
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG_DIR / "csrc" / f for f in (
-    "framing.cu", "attention.cu", "attention_tc.cu", "attention_bwd_tc.cu", "quantize.cu",
-    "elementwise.cu", "update.cu"))
+    "framing.cu", "attention.cu", "attention_tc.cu", "attention_tf32.cu", "attention_bwd_tc.cu",
+    "quantize.cu", "elementwise.cu", "update.cu"))
 # included by the tensor-core sources, and by elementwise.cu and update.cu
 HEADERS = (_PKG_DIR / "csrc" / "tc_mma.cuh", _PKG_DIR / "csrc" / "elementwise.cuh")
 BUILD_DIR = _PKG_DIR / "_build"
@@ -74,7 +75,7 @@ KERNELS = (
     "frame_rows",
     "verify_rows",
     "echo_step_rows",
-    "attn_fold_fwd",
+    "attn_fold_fwd_tf32",
     "attn_fold_fwd_tc",
     "attn_bwd_delta",
     "attn_bwd_dkdv",
@@ -193,10 +194,7 @@ def build() -> ctypes.CDLL:
             lib.tb_echo_step_rows.argtypes = [p, p, p, i64, i64, p]
             c_int = ctypes.c_int
             # K3's geometry: B, T, H, D (padded to D % 4 == 0), Dscale (the true D), sp
-            lib.tb_attn_fold_fwd.argtypes = [
-                p, p, p, c_int, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, c_int, c_int, p
-            ]
-            lib.tb_attn_fold_fwd_tc.argtypes = [
+            lib.tb_attn_fold_fwd_tc.argtypes = lib.tb_attn_fold_fwd_tf32.argtypes = [
                 p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, c_int, c_int, p
             ]
             lib.tb_attn_bwd_delta.argtypes = [p, p, c_int, p, i64, i64, i64, i64, p]
@@ -229,7 +227,7 @@ def build() -> ctypes.CDLL:
                 p, p, p, p, c_int, c_int, c_int, ctypes.c_float, ctypes.c_float, p
             ]
             for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
-                       lib.tb_attn_fold_fwd, lib.tb_attn_fold_fwd_tc, lib.tb_attn_bwd_delta,
+                       lib.tb_attn_fold_fwd_tf32, lib.tb_attn_fold_fwd_tc, lib.tb_attn_bwd_delta,
                        lib.tb_attn_bwd_dkdv, lib.tb_attn_bwd_dkdv_tc, lib.tb_attn_bwd_dq,
                        lib.tb_attn_bwd_dq_tc, lib.tb_quantize_rows,
                        lib.tb_dequant_mean_rows, lib.tb_add_rms_norm_fwd, lib.tb_rms_norm_bwd,

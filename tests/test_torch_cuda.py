@@ -1,10 +1,12 @@
 """The port's CUDA kernels and endpoint on the card: each K1 kernel against
 its plain version, bit for bit, the endpoint's calls answered through the
 kernels, K3 (the ring-attention fold and its gradient, on the tensor cores
-for bf16 at any D up to 1024 and in any layout) against its plain
+for bf16 at any D up to 1024 and in any layout; the f32 fold in 3xTF32 on
+them too, within chip_smoke.py's f32 tolerance) against its plain
 versions within the tolerances of ``chip_smoke.py``, K4 (the residual add
-and RMS norm, the tanh GeLU, and their backwards) against its plain
-versions within the tolerances ``ops/elementwise.py`` states, one FabricNet
+and RMS norm, on both sides of the rows it keeps in registers, the tanh
+GeLU, and their backwards) against its plain versions within the
+tolerances ``ops/elementwise.py`` states, one FabricNet
 train step on the card against the CPU, K2 (block quantize and dequantize-mean)
 against its plain versions and the numpy twin bit for bit on
 ``chip_smoke.py``'s rows, one quantized session on the card against the
@@ -37,7 +39,7 @@ pytestmark = pytest.mark.gpu
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
 # the K3 kernels each operand dtype launches: the fold, dK/dV and dQ follow
 # the dtype (tensor cores for bf16), delta takes both
-FOLD = {torch.float32: "attn_fold_fwd", torch.bfloat16: "attn_fold_fwd_tc"}
+FOLD = {torch.float32: "attn_fold_fwd_tf32", torch.bfloat16: "attn_fold_fwd_tc"}
 DKDV = {torch.float32: "attn_bwd_dkdv", torch.bfloat16: "attn_bwd_dkdv_tc"}
 DQ = {torch.float32: "attn_bwd_dq", torch.bfloat16: "attn_bwd_dq_tc"}
 K3_BOTH = ("attn_bwd_delta",)
@@ -193,6 +195,31 @@ def _k3_against_plain(cuda, shape, dtype, causal):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * scale)
 
 
+# every K3 shape above and below: ragged T, sp 4, D off the k-steps, D 18
+# through the padding; causal and not
+F32_FOLD_SHAPES = [(2, 48, 4, 16, 4), (1, 200, 2, 144, 2), (4, 1024, 2, 1024, 4),
+                   (4, 1024, 2, 1024, 1), (2, 72, 2, 24, 2), (2, 72, 2, 20, 2), (2, 72, 2, 18, 2)]
+
+
+@pytest.mark.parametrize("shape", F32_FOLD_SHAPES,
+                         ids=["small", "d144", "d1024-sp4", "d1024", "d24", "d20", "d18"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_tf32_fold_holds_the_f32_tolerance(cuda, shape, causal):
+    """``attn_fold_fwd_tf32`` (f32 operands, 3xTF32 on the tensor cores)
+    against ``fold_plain`` within ``chip_smoke.k3_tolerances``' 2e-5 x
+    max(1, max |plain|) on out, m, l, o and lse, as chip_smoke.py holds
+    it; one launch a hop, and the CUDA-core fold it replaced is gone."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(shape) + causal)
+    errs = {name: {} for name in chip_smoke.K3}
+    before = kernels.launch_counts()
+    chip_smoke.k3_case(torch, attention, gen, cuda, shape, torch.float32, causal, errs)
+    after = kernels.launch_counts()
+    assert after["attn_fold_fwd_tf32"] == before["attn_fold_fwd_tf32"] + shape[-1]
+    assert after["attn_fold_fwd_tc"] == before["attn_fold_fwd_tc"]
+    assert not any(n in after for n in chip_smoke.REMOVED)
+
+
 def test_tensor_core_fold_refuses_a_head_dimension_off_its_k_step(cuda):
     """Once a refusal, now a value check: bf16 at D = 24 (16-byte rows, off
     the k-step of 16) and D = 20 (8-byte rows) runs on the tensor-core fold,
@@ -267,9 +294,9 @@ def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
         params, loss = step(params, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
         after = kernels.launch_counts()
         results[dev] = (float(loss), {k: p.cpu() for k, p in params.items()})
-        if dev == "cuda":  # f32: the CUDA-core kernels
+        if dev == "cuda":  # f32: the 3xTF32 fold, the CUDA-core dK/dV and dQ
             assert all(after[n] == before[n] + cfg.microbatches
-                       for n in ("attn_fold_fwd", "attn_bwd_dkdv", "attn_bwd_dq") + K3_BOTH)
+                       for n in ("attn_fold_fwd_tf32", "attn_bwd_dkdv", "attn_bwd_dq") + K3_BOTH)
             assert all(after[n] == before[n]
                        for n in ("attn_fold_fwd_tc", "attn_bwd_dkdv_tc", "attn_bwd_dq_tc"))
             assert {n: after[n] - before[n] for n in chip_smoke.K4} == \
@@ -298,6 +325,22 @@ def test_k4_matches_plain_versions(cuda, shape, offset, dtype):
     # K4a with and without delta, K4b with and without g_s, K4c, K4d
     assert {n: after[n] - before[n] for n in chip_smoke.K4} == {
         "add_rms_norm_fwd": 2, "rms_norm_bwd": 2, "gelu_tanh_fwd": 1, "gelu_tanh_bwd": 1}
+
+
+@pytest.mark.parametrize("dtype,d,offset", chip_smoke.K4A_CAP,
+                         ids=[f"{t}-{d}-{'off' if o else 'aligned'}"
+                              for t, d, o in chip_smoke.K4A_CAP])
+def test_k4a_on_both_sides_of_its_register_cap(cuda, dtype, d, offset):
+    """K4a at the widest rows it keeps in registers and the next widths,
+    which it reads twice, with and without delta, aligned and one element
+    off 16-byte alignment, against its plain version as chip_smoke.py
+    holds it; two launches."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + offset)
+    before = kernels.launch_counts()
+    once = chip_smoke.k4a_cap_case(torch, elementwise, gen, cuda, dtype, d, offset, {})
+    assert once == (chip_smoke.K4A_CAP.index((dtype, d, offset)) % 2 == 0)
+    assert kernels.launch_counts()["add_rms_norm_fwd"] == before["add_rms_norm_fwd"] + 2
 
 
 def test_k4_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -376,8 +419,8 @@ def test_sliced_schedules_on_the_card_match_the_cpu(cuda, slices):
         results[(dev, schedule)] = (torch.stack(losses).cpu(),
                                     {k: p.cpu() for k, p in params.items()})
         if dev == "cuda":
-            want = {**{n: 2 * slices for n in ("attn_fold_fwd", "attn_bwd_dkdv", "attn_bwd_dq")
-                       + K3_BOTH},
+            want = {**{n: 2 * slices for n in ("attn_fold_fwd_tf32", "attn_bwd_dkdv",
+                                                "attn_bwd_dq") + K3_BOTH},
                     **{n: 2 * v for n, v in chip_smoke.k4_launches_per_step(cfg).items()},
                     **{n: 2 * v for n, v in chip_smoke.k4e_launches_per_step(cfg, schedule).items()}}
             assert {n: after[n] - before[n] for n in want} == want

@@ -5,7 +5,8 @@ backwards) against the JAX package's ``_rms_norm`` and ``_gelu`` and
 
 Inputs are made from a seed with numpy and handed to both. Widths are
 narrow and odd (d = 32, 33 and 1000, which is not a multiple of 8), over 1
-to 5 rows. Tolerances, each relative to max(1, max |JAX's value|):
+to 5 rows, and for K4a also the widths on either side of the rows its
+kernel keeps in registers (``chip_smoke.K4A_CAP``, up to 16,392), 3 rows. Tolerances, each relative to max(1, max |JAX's value|):
 
 - float32 forward within 1e-6: XLA's and PyTorch's rsqrt and tanh and the
   row sum's order differ by a few float32 ulps;
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from incubator_brpc_tpu.models import fabricnet as jax_fn
 from incubator_brpc_tpu_torch.ops import elementwise as E
 from incubator_brpc_tpu_torch.ops import kernels
@@ -84,6 +86,40 @@ def test_add_rms_norm_matches_jax(dtype, lead, d, with_delta):
     _close(rstd, r, FWD_TOL[dtype])
     s2, n2 = E.add_rms_norm(tx, td)
     assert torch.equal(s2, s) and torch.equal(n2, n)
+
+
+# (dtype, d, rows one element off 16-byte alignment): the widest rows that
+# add_rms_norm_fwd keeps in registers and the next widths, which it reads
+# twice; rows whose pointers share a 16-byte phase (vectors) or not (single
+# elements), as tests/test_torch_cuda.py holds the kernel at them
+K4A_CAP = chip_smoke.K4A_CAP
+
+
+@pytest.mark.parametrize("dtype,d,offset", K4A_CAP,
+                         ids=[f"{t}-{d}-{'off' if o else 'aligned'}" for t, d, o in K4A_CAP])
+@pytest.mark.parametrize("with_delta", [True, False], ids=["delta", "nodelta"])
+def test_add_rms_norm_on_both_sides_of_the_register_cap_matches_jax(dtype, d, offset,
+                                                                     with_delta):
+    """The widths where K4a's register path (the row read once) and its
+    two-pass path split: ``add_rms_norm_reads_once`` puts the first width of
+    each pair in registers and the second not, for rows whose pointers agree
+    (16-byte vectors) and, one element off alignment, disagree (single
+    elements); the plain version the kernel is held to on the card matches
+    JAX's residual add and ``_rms_norm`` at each, from inputs one element
+    into their buffers where ``offset``."""
+    once = K4A_CAP.index((dtype, d, offset)) % 2 == 0
+    assert E.add_rms_norm_reads_once(d, DTYPES[dtype][1], head=d if offset else 0) is once
+    (jx, jd), (tx, td) = _pair(_inputs(d, (3,), d, 2), dtype)
+    if offset:
+        tx, td = (torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape).copy_(t)
+                  for t in (tx, td))
+    if not with_delta:
+        jd, td = None, None
+    js = jx if jd is None else jx + jd
+    s, n, rstd = E.add_rms_norm_fwd(tx, td)
+    assert torch.equal(s.float(), torch.from_numpy(np.array(js, np.float32)))
+    _close(n, jax_fn._rms_norm(js), FWD_TOL[dtype])
+    _close(rstd, jax.lax.rsqrt(jnp.mean(jnp.square(js), axis=-1) + 1e-6), FWD_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -214,7 +250,6 @@ def test_train_step_calls_k4_as_chip_smoke_counts(monkeypatch, schedule, kw):
     backward is never called (its input is the batch); the fused step
     updates once and takes the loss once, a sliced one accumulates M - 2
     times, updates once and takes each slice's loss."""
-    import chip_smoke
     from incubator_brpc_tpu_torch.models import fabricnet as fn
     from incubator_brpc_tpu_torch.ops import update
     from incubator_brpc_tpu_torch.parallel import mesh as pmesh

@@ -13,6 +13,7 @@ max(1, max |g|), one bf16 rounding of the result on either side;
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -247,6 +248,103 @@ def test_split_ds_keeps_dq_within_f32_tolerance(ds_as):
         assert err <= tol
     else:
         assert err > tol
+
+
+def _rna_tf32_reference(x: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32`` from its definition, in float64: |x| to the
+    nearest multiple of its tf32 ulp (2^(e - 10), and 2^-136 below the
+    normal range), ties away from zero; past the largest tf32 to inf; zero,
+    inf and NaN as they are."""
+    out = np.empty(x.size, np.float64)
+    with np.errstate(invalid="ignore"):  # NaN payloads
+        wide = x.astype(np.float64).ravel()
+    for i, v in enumerate(wide):
+        if v == 0 or not math.isfinite(v):
+            out[i] = v
+            continue
+        e = max(math.frexp(abs(v))[1] - 1, -126)
+        ulp = 2.0 ** (e - 10)
+        r = math.floor(abs(v) / ulp + 0.5) * ulp
+        out[i] = math.copysign(math.inf if r >= 2.0 ** 128 else r, v)
+    return out.astype(np.float32).reshape(x.shape)
+
+
+def _tf32_cases(kind: str) -> np.ndarray:
+    rng = np.random.default_rng(61)
+    bits = lambda b: np.asarray(b, np.uint32).view(np.float32)  # noqa: E731
+    if kind == "normal":
+        return (rng.standard_normal(4096) * 2.0 ** rng.integers(-120, 120, 4096)).astype(np.float32)
+    if kind == "ties":  # exactly halfway between two tf32 values, both signs
+        r = rng.integers(0x00800000, 0x7F7FE000, 2048, dtype=np.uint64).astype(np.uint32)
+        r = (r & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+        return np.concatenate([bits(r), -bits(r)])
+    if kind == "subnormal":
+        r = rng.integers(1, 0x00800000, 2048, dtype=np.uint64).astype(np.uint32)
+        return np.concatenate([bits(r), -bits(r), bits([0x000FF000, 0x007FF000, 0x007FFFFF])])
+    # the edges: zeros, the largest tf32, halfway past it (to inf), FLT_MAX, inf, NaN
+    edge = bits([0, 0x80000000, 0x7F7FE000, 0x7F7FEFFF, 0x7F7FF000, 0x7F7FFFFF, 0x7F800000,
+                 0xFF800000, 0x7FC00000, 0x7F800001, 0xFFC01234, 0x00800000, 0x00801000])
+    return np.concatenate([edge, -edge])
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "subnormal", "edges"])
+def test_round_tf32_is_cvt_rna_tf32(kind):
+    """:func:`attention.round_tf32` (bit arithmetic) against the rounding's
+    definition: nearest, ties away from zero; subnormals rounded on their
+    own grid; inf kept, NaN kept NaN, overflow to inf. :func:`split_tf32`'s
+    hi and lo are tf32 values and hi + lo holds x to 2^-21 of |x| (to half
+    of tf32's subnormal grid, 2^-137, where lo falls below the normal range)."""
+    x = _tf32_cases(kind)
+    got = attention.round_tf32(torch.from_numpy(x)).numpy()
+    want = _rna_tf32_reference(x)
+    nan = np.isnan(x)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
+    finite = np.isfinite(x) & np.isfinite(want)
+    hi, lo = (t.numpy() for t in attention.split_tf32(torch.from_numpy(x[finite])))
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    xf = x[finite].astype(np.float64)
+    err = np.abs(hi.astype(np.float64) + lo - xf)
+    assert (err <= np.abs(xf) * 2.0 ** -21 + 2.0 ** -137).all()  # lo subnormal: grid 2^-136
+
+
+@pytest.mark.parametrize("products", ["3xtf32", "one_tf32_product"])
+def test_3xtf32_keeps_the_fold_within_f32_tolerance(products):
+    """What ``attn_fold_fwd_tf32`` computes, on the CPU: one causal block at
+    D = 1024 (T 256; f32 inputs from a seed), each product S = Q.K^T and
+    P.V as ``split_tf32``'s three tf32 products (``a_hi.b_lo + a_lo.b_hi``,
+    then ``+ a_hi.b_hi``, summed in f32), held against JAX's f32
+    ``_block_attn`` (o) and ``ring_attention`` (the output) within 2e-5 x
+    max(1, max |o|), the tolerance of the f32 state. One tf32 product
+    (hi.hi) misses it by more than 10x: that is why the kernel splits."""
+    b, t, h, d = 1, 256, 1, 1024
+    rng = np.random.default_rng(45)
+    q, k, v = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(3))
+    pos = jnp.arange(t)
+    mask = jnp.where(pos[None, :] <= pos[:, None], 0.0, jax_ra.NEG_INF)
+    _, _, want = jax_ra._block_attn(q, k, v, mask)
+    want = np.asarray(want)
+    jstep, jplace = _jax_step(1)
+    want_out = np.asarray(jstep(jplace(q), jplace(k), jplace(v)))
+
+    def prod(eq, x, y):
+        if products == "3xtf32":
+            (xh, xl), (yh, yl) = attention.split_tf32(x), attention.split_tf32(y)
+            return (torch.einsum(eq, xh, yl) + torch.einsum(eq, xl, yh)) + torch.einsum(eq, xh, yh)
+        return torch.einsum(eq, attention.round_tf32(x), attention.round_tf32(y))
+
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    s = prod("bthd,bshd->bhts", tq, tk) / torch.sqrt(torch.tensor(float(d)))
+    s = s + torch.from_numpy(np.array(mask))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    got = prod("bhts,bshd->bthd", p, tv)
+    out = got / p.sum(-1).transpose(1, 2)[..., None]
+    errs = [(float(np.abs(x.numpy() - w).max()), 2e-5 * max(1.0, float(np.abs(w).max())))
+            for x, w in ((got, want), (out, want_out))]
+    if products == "3xtf32":
+        assert all(err <= tol for err, tol in errs)
+    else:
+        assert errs[0][0] > 10 * errs[0][1]
 
 
 def test_bfloat16_grads_off_the_tensor_core_k_step_match_jax():

@@ -69,7 +69,16 @@ def _arrays(seed, count, n=N):
 
 
 def _torch(arrays, dtype):
-    return [torch.from_numpy(a).to(DTYPES[dtype][1]) for a in arrays]
+    """Copies, never views: JAX on the CPU may share a numpy input's buffer
+    and run a jitted call after it returns, so the port's in-place updates
+    must not write into the arrays handed to JAX (ROADMAP C5)."""
+    return [torch.tensor(a).to(DTYPES[dtype][1]) for a in arrays]
+
+
+def _jax_result(fn, arrays, dtype):
+    """``fn`` jitted on the arrays in ``dtype``, read back to numpy (f32)
+    before the caller touches anything in place."""
+    return _bits(jax.jit(fn)(*(jnp.asarray(a, DTYPES[dtype][0]) for a in arrays)))
 
 
 def _bits(t):
@@ -103,7 +112,7 @@ EXAMPLE = {"bfloat16": (2.140625, 0.9765625, 0.98046875),
 def test_update_is_jax_update_and_the_old_expression_is_not(dtype):
     p, g = _arrays(1, 1)
     p[0], g[0] = 1.0, EXAMPLE[dtype][0]
-    want = jax.jit(lambda p, g: p - LR * g)(*(jnp.asarray(a, DTYPES[dtype][0]) for a in (p, g)))
+    want = _jax_result(lambda p, g: p - LR * g, (p, g), dtype)
     tp, tg = _torch([p, g], dtype)
     old = tp.clone().sub_(LR * tg)  # the update before the repair
     before = kernels.launch_counts()
@@ -118,7 +127,7 @@ def test_update_is_jax_update_and_the_old_expression_is_not(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sliced_update_is_jax_sliced_update(dtype, slices):
     p, *gs = _arrays(2 + slices, slices)
-    want = jax.jit(_jax_sliced)(*(jnp.asarray(a, DTYPES[dtype][0]) for a in [p, *gs]))
+    want = _jax_result(_jax_sliced, [p, *gs], dtype)
     tp, *tg = _torch([p, *gs], dtype)
     old = tp.clone()
     acc = tg[0].clone()
@@ -128,6 +137,40 @@ def test_sliced_update_is_jax_sliced_update(dtype, slices):
     assert _differing(tp, want) == 0
     old.sub_(LR * (sum(tg[1:], tg[0]) * (1.0 / slices)))
     assert _differing(old, want) > 0
+
+
+@pytest.mark.parametrize("inputs", ["views, as before the repair", "copies"])
+def test_references_are_not_computed_from_buffers_the_port_updates(inputs):
+    """ROADMAP C5: ``jnp.asarray`` of a 64-byte aligned float32 array shares
+    its buffer on the CPU, and a jitted call returns before it has run. The
+    update tests handed JAX the buffer that ``torch.from_numpy`` gave the
+    port to update in place, so when JAX's queue was busy the reference was
+    computed from the updated parameters: all 16,384 elements differed.
+    Here a large product keeps the queue busy: the views give that wrong
+    reference; ``_torch``'s copies and ``_jax_result`` give the right one."""
+    p, g = _arrays(9, 1)
+    buf = np.zeros(N + 16, np.float32)
+    aligned = buf[(-buf.ctypes.data % 64) // 4:][:N]
+    aligned[:] = p
+    assert jnp.asarray(aligned).unsafe_buffer_pointer() == aligned.ctypes.data  # shared
+    fused = lambda p, g: p - LR * g  # noqa: E731
+    honest = _jax_result(fused, (p.copy(), g), "float32")
+    big = jnp.ones((1024, 1024), jnp.float32)
+    busy = jax.jit(lambda x: (x @ x @ x @ x).sum())
+    busy(big).block_until_ready()  # compiled before the queue is timed
+    busy(big)  # the queue is busy for a while
+    if inputs == "copies":
+        want = _jax_result(fused, (aligned, g), "float32")
+        tp, tg = _torch([aligned, g], "float32")
+    else:
+        want = jax.jit(fused)(*(jnp.asarray(a) for a in (aligned, g)))
+        tp, tg = torch.from_numpy(aligned), torch.from_numpy(g)
+    U.sgd_update_multi("fused", [tp], [tg], LR)
+    assert _differing(tp, honest) == 0
+    if inputs == "copies":
+        assert _differing(want, honest) == 0 and not np.shares_memory(tp.numpy(), aligned)
+    else:
+        assert _differing(want, honest) == N
 
 
 def test_float32_update_rounds_once_where_float64_would_round_twice():
