@@ -29,9 +29,9 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
-   ``attn_bwd_dq_tc``; for f32 the fold on the tensor cores in 3xTF32,
-   ``attn_fold_fwd_tf32``, and dK/dV and dQ on the CUDA cores,
-   ``attn_bwd_dkdv`` and ``attn_bwd_dq``; ``attn_bwd_delta`` for both)
+   ``attn_bwd_dq_tc``; for f32 the fold and dK/dV on the tensor cores in
+   3xTF32, ``attn_fold_fwd_tf32`` and ``attn_bwd_dkdv_tf32``, and dQ on the
+   CUDA cores, ``attn_bwd_dq``; ``attn_bwd_delta`` for both)
    against its plain
    versions at the bench attention shape (B 4, T 1024, H 2, D 1024; sp 1
    and 4; bf16 and f32; causal and not), two ragged ones (B 2, T 48, H 4,
@@ -46,20 +46,22 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``gelu_tanh_fwd``, ``gelu_tanh_bwd``) against its plain versions in bf16
    and f32 at the bench_fabricnet shapes ((4096, 2048), (4096, 8192),
    (2, 2048, 2048)) and at odd widths (d 33 and 1000, contiguous and one
-   element off 16-byte alignment), within the tolerances
-   ``ops/elementwise.py`` states, the GeLU in bf16 within one ulp with the
-   differing elements counted, and K4a on both sides of the widths it
-   keeps in registers (``K4A_CAP``); then K4e: ``sgd_update_multi`` bit for bit
+   element off 16-byte alignment): K4a within ``NORM_TOL``, K4b bit for
+   bit, K4c and K4d bit for bit but for elements within
+   ``TRANSCENDENTAL_ULPS`` (the card's tanhf against the plain version's),
+   counted, and K4a on both sides of the widths it keeps in registers
+   (``K4A_CAP``); then K4e: ``sgd_update_multi`` bit for bit
    against ``sgd_update_plain`` in each mode (fused, accumulate, the last
    slice of 2 and of 3) in bf16 and f32, over the bench_fabricnet leaves,
    a table mixing leaf sizes 1, 2048 and 2^24 + 3 and alignments, and 70
    leaves (two launches a call), with an f32 element that only one
    rounding gets right; ``moe_combine_fwd`` / ``_bwd`` and
    ``mse_loss_fwd`` at the bench shapes, a slice's and odd ones
-   (contiguous and one element off alignment): the combine's out, gate and
-   d_yr and the loss's d_out bit for bit, d_logit within ``MOE_TOL`` and
-   the loss within ``MSE_TOL``, the differing elements counted, the loss
-   bitwise on a rerun;
+   (contiguous and one element off alignment): the combine's d_yr and
+   d_logit and the loss's d_out bit for bit, its gate and out bit for bit
+   but for elements within ``TRANSCENDENTAL_ULPS`` (expf), the loss within
+   ``MSE_TOL``, the differing elements counted, the loss bitwise on a
+   rerun;
 6. runs one FabricNet train step (d_model 32, heads 2, two layers, f32) on
    the card and on the CPU from the same numpy weights and compares them;
 7. drives the second main path with the launch counts set to zero: 10
@@ -67,10 +69,12 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    microbatch) on the one-card mesh, whose loss must stay finite and fall,
    with ms per step, FLOPs per step, TFLOP/s, peak memory and K3 launches
    (one ``attn_fold_fwd_tc``, ``attn_bwd_delta``, ``attn_bwd_dkdv_tc`` and
-   ``attn_bwd_dq_tc`` a step, no ``attn_fold_fwd_tf32``, ``attn_bwd_dkdv``
-   or ``attn_bwd_dq``; K4: 6 ``add_rms_norm_fwd``, 5 ``rms_norm_bwd`` (the
-   first norm reads the batch, which takes no gradient), 5
-   ``gelu_tanh_fwd`` and 5 ``gelu_tanh_bwd`` a step); then 3 steps of the
+   ``attn_bwd_dq_tc`` a step, no ``attn_fold_fwd_tf32``,
+   ``attn_bwd_dkdv_tf32`` or ``attn_bwd_dq``, and never the removed
+   CUDA-core ``attn_fold_fwd`` or ``attn_bwd_dkdv``; K4: 6
+   ``add_rms_norm_fwd``, 5 ``rms_norm_bwd`` (the first norm reads the
+   batch, which takes no gradient), 5 ``gelu_tanh_fwd`` and 5
+   ``gelu_tanh_bwd`` a step); then 3 steps of the
    same in f32, counted alike (K3 the other way round); K4e a step
    (``k4e_launches_per_step``): one update, one loss, one combine forward
    and backward;
@@ -84,13 +88,15 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    memory;
 8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16;
    the tensor-core fold also at B 1, 64 blocks; the f32 fold, dK/dV and dQ
-   at sp 1 in f32, the fold's bound as 3xTF32 work) with CUDA events beside
+   at sp 1 in f32, the fold's and dK/dV's bounds as 3xTF32 work) with CUDA
+   events beside
    its bound, its plain version and ``scaled_dot_product_attention``'s
    forward and backward on the same tensors; times K4 at the bench shapes
    in bf16 (K4a also in f32) behind a spin kernel beside its bound, its
-   plain version and the one PyTorch call of the same function (``F.rms_norm``,
-   its autograd backward, ``F.gelu(approximate="tanh")``,
-   ``aten.gelu_backward``); times K4e likewise beside ``torch._foreach_add_``
+   plain version and the nearest PyTorch call (``F.rms_norm``, its autograd
+   backward, ``F.gelu(approximate="tanh")`` and ``aten.gelu_backward``,
+   which round once where the reference rounds op by op: not the same
+   function); times K4e likewise beside ``torch._foreach_add_``
    (for the update; it rounds once, so it is not the same function) and
    ``F.mse_loss`` forward and backward; prints K4f's bound (still to
    port); and breaks two bf16 train steps, then two f32 ones, down by
@@ -144,19 +150,21 @@ TF32_TC_FLOPS_PER_S = 494.7e12
 BF16_TC_FLOPS_PER_S = 989e12
 
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
-K3 = ("attn_fold_fwd_tf32", "attn_fold_fwd_tc", "attn_bwd_delta", "attn_bwd_dkdv",
+K3 = ("attn_fold_fwd_tf32", "attn_fold_fwd_tc", "attn_bwd_delta", "attn_bwd_dkdv_tf32",
       "attn_bwd_dkdv_tc", "attn_bwd_dq", "attn_bwd_dq_tc")
-# the CUDA-core f32 fold, which attn_fold_fwd_tf32 replaced: it must launch nowhere
-REMOVED = ("attn_fold_fwd",)
+# the CUDA-core f32 fold and dK/dV, which attn_fold_fwd_tf32 and
+# attn_bwd_dkdv_tf32 replaced: they must launch nowhere
+REMOVED = ("attn_fold_fwd", "attn_bwd_dkdv")
 # the fold, dK/dV and dQ kernels each operand dtype launches (ops/attention.py
 # fold, dkdv, dq); attn_bwd_delta takes both
 FOLD = {"float32": "attn_fold_fwd_tf32", "bfloat16": "attn_fold_fwd_tc"}
-DKDV = {"float32": "attn_bwd_dkdv", "bfloat16": "attn_bwd_dkdv_tc"}
+DKDV = {"float32": "attn_bwd_dkdv_tf32", "bfloat16": "attn_bwd_dkdv_tc"}
 DQ = {"float32": "attn_bwd_dq", "bfloat16": "attn_bwd_dq_tc"}
 K3_BOTH = ("attn_bwd_delta",)
 K3_F32 = (FOLD["float32"], DKDV["float32"], DQ["float32"])  # timed, and counted, in f32
 K3_SOURCE = {"attn_fold_fwd_tc": "incubator_brpc_tpu_torch/csrc/attention_tc.cu",
              "attn_fold_fwd_tf32": "incubator_brpc_tpu_torch/csrc/attention_tf32.cu",
+             "attn_bwd_dkdv_tf32": "incubator_brpc_tpu_torch/csrc/attention_bwd_tf32.cu",
              "attn_bwd_dkdv_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu",
              "attn_bwd_dq_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu"}
 # bench.py bench_fabricnet: d_model 2048 over heads 2 -> D 1024, batch 4, seq 1024
@@ -186,7 +194,7 @@ REPLACES = {
     "attn_fold_fwd_tf32": "incubator_brpc_tpu/models/ring_attention.py:35",
     "attn_fold_fwd_tc": "incubator_brpc_tpu/models/ring_attention.py:35",
     "attn_bwd_delta": "incubator_brpc_tpu/models/ring_attention.py:48",
-    "attn_bwd_dkdv": "incubator_brpc_tpu/models/ring_attention.py:48",
+    "attn_bwd_dkdv_tf32": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dkdv_tc": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dq": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dq_tc": "incubator_brpc_tpu/models/ring_attention.py:48",
@@ -215,8 +223,8 @@ K4A_CAP = [("bfloat16", 16384, False), ("bfloat16", 16392, False), ("bfloat16", 
            ("bfloat16", 2052, True), ("float32", 8192, False), ("float32", 8196, False),
            ("float32", 2048, True), ("float32", 2052, True)]
 # f32 operations an element (the bound's operations side; tanhf counts as one)
-K4_OPS_PER_ELEMENT = {"add_rms_norm_fwd": 4, "rms_norm_bwd": 7, "gelu_tanh_fwd": 9,
-                      "gelu_tanh_bwd": 18}
+K4_OPS_PER_ELEMENT = {"add_rms_norm_fwd": 4, "rms_norm_bwd": 9, "gelu_tanh_fwd": 9,
+                      "gelu_tanh_bwd": 22}
 K4E = ("sgd_update_multi", "moe_combine_fwd", "moe_combine_bwd", "mse_loss_fwd")
 K4E_SOURCE = {"sgd_update_multi": "incubator_brpc_tpu_torch/csrc/update.cu",
               "moe_combine_fwd": "incubator_brpc_tpu_torch/csrc/elementwise.cu",
@@ -737,13 +745,14 @@ def k3_timings(torch, attention, gen, dev, sp):
 
 def k3_f32_timings(torch, attention, gen, dev):
     """CUDA-event times of the kernels float32 operands take, at the bench
-    attention shape, causal, sp 1: the fold on the tensor cores in 3xTF32
-    (its bound: three tf32 products for each of the function's, at the TF32
-    tensor-core peak, or its f32 bytes, the larger; beside it the f32-FMA
-    bound of the CUDA-core fold it replaced), dK/dV and dQ on the CUDA cores,
-    each beside its plain version; SDPA's forward and its backward (forward
-    + backward less forward) on the same f32 tensors, the backward beside
-    the three f32 backward kernels together, which compute its function."""
+    attention shape, causal, sp 1: the fold and dK/dV on the tensor cores in
+    3xTF32 (their bounds: three tf32 products for each of the function's, at
+    the TF32 tensor-core peak, or their f32 bytes, the larger; beside each
+    the f32-FMA bound of the CUDA-core kernel it replaced), dQ on the CUDA
+    cores, each beside its plain version; SDPA's forward and its backward
+    (forward + backward less forward) on the same f32 tensors, the backward
+    beside the three f32 backward kernels together, which compute its
+    function."""
     import torch.nn.functional as F
 
     b, t, h, d = BENCH_ATTN
@@ -770,7 +779,7 @@ def k3_f32_timings(torch, attention, gen, dev):
     res = {}
     for name, (kern, plain, products, nbytes) in cases.items():
         fl = attention.attention_flops(b, t, h, d, causal=True, products=products)
-        if name == FOLD["float32"]:  # 3xTF32: three tf32 tensor-core products for each
+        if name in (FOLD["float32"], DKDV["float32"]):  # 3xTF32: three tf32 products for each
             bound, by, _ = k3_bounds(3 * fl, nbytes, TF32_TC_FLOPS_PER_S)
             extra = {"tensor_core_bound_ms": 3 * fl / TF32_TC_FLOPS_PER_S * 1e3, "tf32_flops": 3 * fl,
                      "f32_fma_bound_ms": fl / F32_FLOPS_PER_S * 1e3}
@@ -795,14 +804,15 @@ def k3_f32_timings(torch, attention, gen, dev):
     res[FOLD["float32"]]["library_ms"] = sdpa_fwd
     for name in (DKDV["float32"], DQ["float32"]):
         res[name].update(backward_ms=backward_ms, sdpa_backward_ms=sdpa_bwd)
-    fold = res[FOLD["float32"]]
     log(f"phase8 f32 operands B={b} T={t} H={h} D={d} causal sp=1: " + "; ".join(
         f"{name} {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} by {r['bound_by']}, "
         f"{100 * r['bound_ms'] / r['ms']:.1f} %; plain {r['plain_ms']:.6f})"
         for name, r in res.items())
-        + f"; {FOLD['float32']}'s bound as 3xTF32 ({fold['tf32_flops'] / 1e9:.2f} GFLOP at "
-        f"{TF32_TC_FLOPS_PER_S / 1e12:.1f} TFLOP/s), the CUDA-core fold's f32-FMA bound "
-        f"{fold['f32_fma_bound_ms']:.6f} ms; scaled_dot_product_attention f32 fwd "
+        + "".join(f"; {n}'s bound as 3xTF32 ({res[n]['tf32_flops'] / 1e9:.2f} GFLOP at "
+                  f"{TF32_TC_FLOPS_PER_S / 1e12:.1f} TFLOP/s), the CUDA-core kernel's f32-FMA "
+                  f"bound {res[n]['f32_fma_bound_ms']:.6f} ms" for n in (FOLD["float32"],
+                                                                          DKDV["float32"]))
+        + f"; scaled_dot_product_attention f32 fwd "
         f"{sdpa_fwd:.6f} ms, bwd {sdpa_bwd:.6f} ms; the three f32 backward kernels "
         f"(attn_bwd_delta, {DKDV['float32']}, {DQ['float32']}) {backward_ms:.6f} ms")
     return res
@@ -826,9 +836,9 @@ def ulps(torch, a, b):
 
 def k4_case(torch, E, gen, dev, shape, dtype, offset, errs, gelu_diff):
     """K4 against its plain versions on the same inputs: K4a with and
-    without delta (s bitwise), K4b with and without g_s, K4c (bf16 within
-    one ulp, the differing elements counted into ``gelu_diff``) and K4d,
-    each within the tolerance ``ops/elementwise.py`` states. ``offset``:
+    without delta (s bitwise, n and rstd within ``NORM_TOL``), K4b with and
+    without g_s bit for bit, K4c and K4d bit for bit but for elements within
+    ``TRANSCENDENTAL_ULPS`` (tanhf), counted into ``gelu_diff``. ``offset``:
     every input one element into a buffer, off 16-byte alignment."""
 
     def make(scale):
@@ -853,21 +863,14 @@ def k4_case(torch, E, gen, dev, shape, dtype, offset, errs, gelu_diff):
                              errs["add_rms_norm_fwd"])]
     s, _, rstd = E.add_rms_norm_plain(x, delta)
     for gs in (g_s, None):
-        parts.append(err_within(torch, "g" if gs is None else "g+g_s",
-                                E.rms_norm_bwd(s, rstd, g_n, gs),
-                                E.rms_norm_bwd_plain(s, rstd, g_n, gs), E.NORM_TOL[dtype],
-                                errs["rms_norm_bwd"]))
-    y, want_y = E.gelu_tanh_fwd(x), E.gelu_plain(x)
-    u = ulps(torch, y, want_y)
-    differ, worst = int((u > 0).sum()), int(u.max())
-    gelu_diff[name] = [gelu_diff.get(name, [0, 0])[0] + differ,
-                       gelu_diff.get(name, [0, 0])[1] + y.numel()]
-    if dtype == torch.bfloat16 and worst > 1:
-        raise AssertionError(f"gelu_tanh_fwd {shape} bf16: {worst} ulps from gelu_plain")
-    parts.append(err_within(torch, "gelu", y, want_y, E.GELU_TOL[dtype], errs["gelu_tanh_fwd"])
-                 + f", {differ} of {y.numel()} elements differ, at most {worst} ulp")
-    parts.append(err_within(torch, "gelu'", E.gelu_tanh_bwd(x, g_n), E.gelu_bwd_plain(x, g_n),
-                            E.GELU_BWD_TOL[dtype], errs["gelu_tanh_bwd"]))
+        parts.append(hold(torch, f"rms_norm_bwd {tuple(shape)} {name}",
+                          "g" if gs is None else "g+g_s", E.rms_norm_bwd(s, rstd, g_n, gs),
+                          E.rms_norm_bwd_plain(s, rstd, g_n, gs), None, errs["rms_norm_bwd"]))
+    for kname, tag, got, want in (
+            ("gelu_tanh_fwd", "gelu", E.gelu_tanh_fwd(x), E.gelu_plain(x)),
+            ("gelu_tanh_bwd", "gelu'", E.gelu_tanh_bwd(x, g_n), E.gelu_bwd_plain(x, g_n))):
+        parts.append(hold(torch, f"{kname} {tuple(shape)} {name}", tag, got, want,
+                          E.TRANSCENDENTAL_ULPS, errs[kname], gelu_diff.setdefault(kname, {})))
     log(f"phase5 K4 {tuple(shape)} {name}"
         f"{' one element off 16-byte alignment' if offset else ''}: " + "; ".join(parts))
 
@@ -1090,31 +1093,40 @@ def k4e_update_cases(torch, U, fabricnet, gen, dev, dtype):
     log(f"phase5 K4e-a sgd_update_multi {name}: " + "; ".join(parts))
 
 
-def hold(torch, label, tag, got, want, tol, errs):
-    """``err_within(tag, ...)``, or with ``tol`` None bit for bit: the
-    outputs a kernel computes elementwise, op for op as its plain version
-    (a tolerance scaled by max(1, max |want|) would pass a wrong d_out, whose
-    values lie near 1e-6)."""
-    if tol is not None:
+def hold(torch, label, tag, got, want, tol, errs, diff=None):
+    """``err_within(tag, ...)`` with a float ``tol``; with ``tol`` None bit
+    for bit: the outputs a kernel computes op for op as its plain version (a
+    tolerance scaled by max(1, max |want|) would pass a wrong d_out, whose
+    values lie near 1e-6); with an int ``tol``, bit for bit but for elements
+    within that many ulps of their dtype (those that pass through the card's
+    tanhf or expf), counted into ``diff`` by dtype as [differing, of]."""
+    if isinstance(tol, float):
         return err_within(torch, tag, got, want, tol, errs)
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{label} {tag}: {got.dtype} {tuple(got.shape)}, "
                              f"want {want.dtype} {tuple(want.shape)}")
     errs[tag] = max(errs.get(tag, 0.0), float((got.float() - want.float()).abs().max()))
-    if not same_bits(torch, got, want):
-        u = ulps(torch, got, want)
-        raise AssertionError(f"{label} {tag}: {int((u > 0).sum())} of {u.numel()} elements "
-                             f"differ from the plain version (at most {int(u.max())} ulps), "
-                             "held bit for bit")
-    return f"{tag} bitwise"
+    it = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    u = ulps(torch, got, want)
+    differ = int((got.contiguous().view(it) != want.contiguous().view(it)).sum())
+    worst = int(u.max()) if u.numel() else 0
+    if diff is not None:
+        prev = diff.get(str(got.dtype)[6:], [0, 0])
+        diff[str(got.dtype)[6:]] = [prev[0] + differ, prev[1] + u.numel()]
+    if (differ if tol is None else worst > tol):
+        raise AssertionError(f"{label} {tag}: {differ} of {u.numel()} elements differ from the "
+                             f"plain version (at most {worst} ulps), held bit for bit"
+                             + (f" but for {tol} ulp" if tol else ""))
+    return f"{tag} bitwise" if not differ else f"{tag} {differ} of {u.numel()} within {tol} ulp"
 
 
 def k4e_case(torch, E, gen, dev, dtype, moe_shape, loss_shape, offset, errs, diffs):
     """K4e-b/c at ``moe_shape`` (t, e, d) and K4e-d at ``loss_shape``
-    against their plain versions on the same inputs: out, g, d_yr and d_out
-    bit for bit, d_logit within ``MOE_TOL`` and the loss within
-    ``MSE_TOL``, the differing elements counted into ``diffs``; K4e-d twice,
-    bitwise the same. ``offset``: every input one element into a buffer."""
+    against their plain versions on the same inputs: d_yr, d_logit and d_out
+    bit for bit, out and g bit for bit but for elements within
+    ``TRANSCENDENTAL_ULPS`` (expf), the loss within ``MSE_TOL``, the
+    differing elements counted into ``diffs``; K4e-d twice, bitwise the
+    same. ``offset``: every input one element into a buffer."""
 
     def make(shape, scale):
         t = (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -1140,11 +1152,12 @@ def k4e_case(torch, E, gen, dev, dtype, moe_shape, loss_shape, offset, errs, dif
     if not same_bits(torch, loss, again):
         raise AssertionError(f"mse_loss_fwd {loss_shape} {name}: a rerun gave other bits")
     parts = []
+    ulp = E.TRANSCENDENTAL_ULPS
     for kname, tag, got, want, tl in (  # tolerance None: bit for bit
-            ("moe_combine_fwd", "out", out, want_out, None),
-            ("moe_combine_fwd", "g", g, want_g, None),
+            ("moe_combine_fwd", "out", out, want_out, ulp),
+            ("moe_combine_fwd", "g", g, want_g, ulp),
             ("moe_combine_bwd", "d_yr", d_yr, want_dyr, None),
-            ("moe_combine_bwd", "d_logit", d_logit, want_dlogit, E.MOE_TOL[dtype]),
+            ("moe_combine_bwd", "d_logit", d_logit, want_dlogit, None),
             ("mse_loss_fwd", "loss", loss, want_loss, E.MSE_TOL[dtype]),
             ("mse_loss_fwd", "d_out", d_out, want_dout, None)):
         count(f"{kname} {tag} {name}", got, want)
@@ -1491,8 +1504,8 @@ def run_k3_phases(torch, kernels, dev):
     if sides != [True, False] * (len(K4A_CAP) // 2):
         raise AssertionError(f"K4A_CAP does not straddle the register cap: {sides}")
     k4_max_err = {name: max(e.values()) for name, e in k4_errs.items()}
-    log(f"phase5 K4 max_abs_err {k4_max_err}; gelu_tanh_fwd elements differing from gelu_plain "
-        f"(differing, of): {gelu_diff}")
+    log(f"phase5 K4 max_abs_err {k4_max_err}; K4c and K4d elements differing from their plain "
+        f"versions (differing, of; each within {elementwise.TRANSCENDENTAL_ULPS} ulp): {gelu_diff}")
     k4e_errs, k4e_diff = {name: {} for name in K4E}, {}
     for dtype in (torch.bfloat16, torch.float32):
         k4e_update_cases(torch, update, fabricnet, gen, dev, dtype)
@@ -1508,7 +1521,7 @@ def run_k3_phases(torch, kernels, dev):
     fabricnet_small_card_vs_cpu(torch, fabricnet, dev)
 
     # -- phase 7: the FabricNet main path, counted: bf16 (the bench's dtype),
-    # then f32, the path of the 3xTF32 fold and the CUDA-core dK/dV and dQ ----
+    # then f32, the path of the 3xTF32 fold and dK/dV and the CUDA-core dQ ----
     fab, train = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.bfloat16, 10, 2)
     fab32, train32 = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.float32, 3, 1)
     # the f32 path's kernels count the f32 steps' launches
@@ -1562,7 +1575,13 @@ def run_k3_phases(torch, kernels, dev):
     moe = f" {K4_SHAPES[2]}"
     for name in ("gelu_tanh_fwd", "gelu_tanh_bwd"):
         line[name]["moe_shape_ms"] = k4[name + moe]["ms"]
-    line["gelu_tanh_fwd"]["differing_elements"] = gelu_diff
+    for name in ("gelu_tanh_fwd", "gelu_tanh_bwd"):
+        line[name]["differing_elements"] = gelu_diff[name]
+    # the nearest PyTorch calls round once where the reference rounds op by op
+    for name, call in (("rms_norm_bwd", "F.rms_norm's autograd backward"),
+                       ("gelu_tanh_fwd", 'F.gelu(approximate="tanh")'),
+                       ("gelu_tanh_bwd", 'aten.gelu_backward(approximate="tanh")')):
+        line[name]["library"] = f"{call}: rounds once, not the same function in bf16"
     for name in K4E:
         r = k4e[name]
         line[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

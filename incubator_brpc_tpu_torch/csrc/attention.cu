@@ -1,11 +1,12 @@
 // K3's backward on the ring-attention path, hand-written for Hopper (sm_90a):
 //
-//   attn_bwd_delta  \
-//   attn_bwd_dkdv    > the gradient JAX's autodiff takes through ring_attention
-//   attn_bwd_dq     /  (lax.scan over block_merge), by recomputation; dK/dV
-//                      and dQ for f32 operands, bf16 operands take
-//                      attn_bwd_dkdv_tc and attn_bwd_dq_tc
-//                      (attention_bwd_tc.cu, tensor cores)
+//   attn_bwd_delta  \  the gradient JAX's autodiff takes through ring_attention
+//   attn_bwd_dq     /  (lax.scan over block_merge), by recomputation; dQ for
+//                      f32 operands, bf16 operands take attn_bwd_dq_tc
+//                      (attention_bwd_tc.cu, tensor cores). dK/dV is
+//                      attn_bwd_dkdv_tc for bf16 operands and
+//                      attn_bwd_dkdv_tf32 (attention_bwd_tf32.cu, 3xTF32 on
+//                      the tensor cores) for f32 ones.
 //
 // Tensors keep JAX's layout: q, k, v, out, dout, dq, dk, dv are (B, T, H, D)
 // in f32 or bf16; the softmax statistics m, l, lse and delta are (B, H, T)
@@ -28,21 +29,20 @@
 // skipped: for every row the first tile folded (hop 0, the diagonal block,
 // key 0) holds a visible key, so such a tile would add exp(-1e30 - m) = 0.
 //
-// What bounds them on the card: operations. At the bench shape (B 4, T 1024,
-// H 2, D 1024) each kernel does hundreds of f32 FMAs per byte it must move.
+// What bounds attn_bwd_dq on the card: operations. At the bench shape (B 4,
+// T 1024, H 2, D 1024) it does hundreds of f32 FMAs per byte it must move.
 // The design keeps the D = 1024 head dimension out of the way of the
-// register file: a block holds a 16-row tile of one operand in shared
-// memory as f32 (64 KB, so the dynamic shared memory limit is raised), streams
-// the other operand through 32-wide D chunks for the products that reduce
+// register file: a block holds a 16-row query tile of Q and dO in shared
+// memory as f32 (128 KB, so the dynamic shared memory limit is raised),
+// streams K and V through 32-wide D chunks for the products that reduce
 // over D (scores, dO.V^T), the next chunk's loads in flight in registers
-// while the current one is used, and keeps the products that run along D
-// (dS.K, P^T.dO, dS^T.Q) in registers, each thread owning D/256 contiguous
-// columns of every row of the tile, read and written as one vector, the
-// next row's loads in flight during the current row's FMAs. Shared-memory reads are broadcasts or float4 where
-// the operand allows. Nothing carries across blocks, so no atomics: the
-// backward splits into a dK/dV kernel (a block owns a key tile and walks
-// every hop's query tiles) and a dQ kernel (a block owns a query tile and
-// walks every hop's key tiles), both summing over hops in order.
+// while the current one is used, and keeps the product that runs along D
+// (dS.K) in registers, each thread owning D/256 contiguous columns of every
+// row of the tile, read and written as one vector, the next row's loads in
+// flight during the current row's FMAs. Shared-memory reads are broadcasts
+// or float4 where the operand allows. Nothing carries across blocks, so no
+// atomics: a block owns a query tile and walks every hop's key tiles,
+// summing over hops in order.
 //
 // Plain C interface, loaded with ctypes by incubator_brpc_tpu_torch/ops/
 // kernels.py. Every entry point launches on the given stream, allocates
@@ -199,183 +199,6 @@ attn_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
   if (lane == 0) {
     const int64_t h = row % g.H, bt = row / g.H;
     delta[stat_off(g, bt / g.T, h, bt % g.T)] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dK and dV. Block = (b, h, block s, 16-key tile). At hop r the block's keys
-// are held by rank i = (s + r) mod sp; the block walks that rank's query
-// tiles (64 rows) that can see them and sums
-//   dV += P^T . dO,  dK += dS^T . Q / sqrt(D),
-//   P = exp(S - lse),  dS = P * (dO . V^T - delta),
-// over the hops in order, into registers.
-// ---------------------------------------------------------------------------
-
-namespace dkdv {
-constexpr int BN = 16, BM = 64;
-size_t smem_bytes(int64_t D) {
-  return sizeof(float) * (2 * BN * D + 2 * BM * kLd + 2 * BM * BN + 2 * BM);
-}
-}  // namespace dkdv
-
-template <typename T, int CPT>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, Geo g,
-              int causal) {
-  using namespace dkdv;
-  extern __shared__ float4 smem4[];
-  const int D = int(g.D);
-  float* Ks = reinterpret_cast<float*>(smem4);  // [BN][D]
-  float* Vs = Ks + BN * D;                      // [BN][D]
-  float* Qc = Vs + BN * D;                      // [BM][kLd]
-  float* Oc = Qc + BM * kLd;                    // [BM][kLd] (dO)
-  float* Ps = Oc + BM * kLd;                    // [BM][BN]
-  float* Ds = Ps + BM * BN;                     // [BM][BN] (dS)
-  float* lse_s = Ds + BM * BN;                  // [BM]
-  float* del_s = lse_s + BM;                    // [BM]
-
-  const int tid = threadIdx.x;
-  const int64_t tiles = (g.tl + BN - 1) / BN;
-  const int64_t bh = blockIdx.x % (g.B * g.H);
-  const int64_t h = bh % g.H, b = bh / g.H;
-  // the earliest key tiles (the most rows that see them) start first
-  const int64_t pos = blockIdx.x / (g.B * g.H);
-  const int64_t s = pos / tiles, kt = pos % tiles;
-  const int c0 = tid * CPT;  // this thread's columns [c0, c0 + CPT) of every key
-  const bool cols = c0 < D;
-  const int64_t k0 = s * g.tl + kt * BN;  // global position of the tile's key 0
-  const int nk = int(imin(BN, g.tl - kt * BN));
-
-  load_rows(Ks, k, g, b, h, k0, BN, nk);
-  load_rows(Vs, v, g, b, h, k0, BN, nk);
-  float dka[BN][CPT], dva[BN][CPT];
-#pragma unroll
-  for (int jk = 0; jk < BN; ++jk)
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) dka[jk][u] = dva[jk][u] = 0.f;
-
-  const float sqd = sqrtf(float(g.Dscale));
-  const int r = tid & (BM - 1), grp = tid >> 6;  // scores (r, 4 grp + jj)
-  const int64_t ntq = (g.tl + BM - 1) / BM;
-  for (int64_t hop = 0; hop < g.sp; ++hop) {
-    const int64_t i = (s + hop) % g.sp;
-    const int64_t qbase = i * g.tl;
-    int64_t qt = 0;
-    if (causal) {
-      const int64_t first = k0 - qbase;  // first row that sees key 0, rank-local
-      if (first >= g.tl) continue;
-      qt = first > 0 ? first / BM : 0;
-    }
-    for (; qt < ntq; ++qt) {
-      const int64_t q0 = qbase + qt * BM;
-      const int nq = int(imin(BM, g.tl - qt * BM));
-      __syncthreads();  // the previous tile's readers of Ps, Ds and the stats are done
-      if (tid < BM) {
-        lse_s[tid] = tid < nq ? lse[stat_off(g, b, h, q0 + tid)] : 0.f;
-        del_s[tid] = tid < nq ? delta[stat_off(g, b, h, q0 + tid)] : 0.f;
-      }
-      float sa[4] = {0.f, 0.f, 0.f, 0.f}, pa[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int d0 = 0; d0 < D; d0 += kDC) {
-        {  // no prefetch here: dK and dV fill the registers
-          Chunk<T, BM> c;
-          c.load(q, g, b, h, q0, nq, d0);
-          c.store(Qc);
-          c.load(dout, g, b, h, q0, nq, d0);
-          c.store(Oc);
-        }
-        __syncthreads();
-        const float* qr = Qc + r * kLd;
-        const float* orow = Oc + r * kLd;
-        const float* kr = Ks + grp * 4 * D + d0;
-        const float* vr = Vs + grp * 4 * D + d0;
-        if (D - d0 >= kDC) {
-#pragma unroll
-          for (int dd = 0; dd < kDC; dd += 4) {
-            const float q0v = qr[dd], q1v = qr[dd + 1], q2v = qr[dd + 2], q3v = qr[dd + 3];
-            const float o0v = orow[dd], o1v = orow[dd + 1], o2v = orow[dd + 2], o3v = orow[dd + 3];
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              const float4 kv = *reinterpret_cast<const float4*>(kr + jj * D + dd);
-              const float4 vv = *reinterpret_cast<const float4*>(vr + jj * D + dd);
-              sa[jj] = fmaf(q0v, kv.x, sa[jj]);
-              sa[jj] = fmaf(q1v, kv.y, sa[jj]);
-              sa[jj] = fmaf(q2v, kv.z, sa[jj]);
-              sa[jj] = fmaf(q3v, kv.w, sa[jj]);
-              pa[jj] = fmaf(o0v, vv.x, pa[jj]);
-              pa[jj] = fmaf(o1v, vv.y, pa[jj]);
-              pa[jj] = fmaf(o2v, vv.z, pa[jj]);
-              pa[jj] = fmaf(o3v, vv.w, pa[jj]);
-            }
-          }
-        } else {
-          for (int dd = 0; dd < D - d0; ++dd)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              sa[jj] = fmaf(qr[dd], kr[jj * D + dd], sa[jj]);
-              pa[jj] = fmaf(orow[dd], vr[jj * D + dd], pa[jj]);
-            }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int jk = grp * 4 + jj;
-        float p = 0.f, ds = 0.f;
-        if (jk < nk && r < nq) {
-          float sc = sa[jj] / sqd;
-          if (causal && k0 + jk > q0 + r) sc = sc + kNegInf;
-          p = expf(sc - lse_s[r]);
-          ds = p * (pa[jj] - del_s[r]);
-        }
-        Ps[r * BN + jk] = p;
-        Ds[r * BN + jk] = ds;
-      }
-      __syncthreads();
-      // dV += P^T . dO, dK += dS^T . Q, Q and dO streamed by columns
-      // the next row's columns of Q and dO are loaded before this row's FMAs
-      const T* qp = q + row_off(g, b, q0, h) + c0;
-      const T* op = dout + row_off(g, b, q0, h) + c0;
-      const int64_t step = g.H * g.D;
-      float qn[CPT] = {}, on[CPT] = {};
-      if (cols) load_cols(qp, qn), load_cols(op, on);
-#pragma unroll 1
-      for (int rr = 0; rr < nq; ++rr) {
-        float qv[CPT], ov[CPT];
-#pragma unroll
-        for (int u = 0; u < CPT; ++u) qv[u] = qn[u], ov[u] = on[u];
-        if (cols && rr + 1 < nq) load_cols(qp + (rr + 1) * step, qn), load_cols(op + (rr + 1) * step, on);
-        const float4* p4 = reinterpret_cast<const float4*>(Ps + rr * BN);
-        const float4* d4 = reinterpret_cast<const float4*>(Ds + rr * BN);
-#pragma unroll
-        for (int j4 = 0; j4 < BN / 4; ++j4) {
-          const float4 p = p4[j4], ds = d4[j4];
-#pragma unroll
-          for (int u = 0; u < CPT; ++u) {
-            dva[4 * j4 + 0][u] = fmaf(p.x, ov[u], dva[4 * j4 + 0][u]);
-            dva[4 * j4 + 1][u] = fmaf(p.y, ov[u], dva[4 * j4 + 1][u]);
-            dva[4 * j4 + 2][u] = fmaf(p.z, ov[u], dva[4 * j4 + 2][u]);
-            dva[4 * j4 + 3][u] = fmaf(p.w, ov[u], dva[4 * j4 + 3][u]);
-            dka[4 * j4 + 0][u] = fmaf(ds.x, qv[u], dka[4 * j4 + 0][u]);
-            dka[4 * j4 + 1][u] = fmaf(ds.y, qv[u], dka[4 * j4 + 1][u]);
-            dka[4 * j4 + 2][u] = fmaf(ds.z, qv[u], dka[4 * j4 + 2][u]);
-            dka[4 * j4 + 3][u] = fmaf(ds.w, qv[u], dka[4 * j4 + 3][u]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int jk = 0; jk < BN; ++jk) {
-    if (jk >= nk || !cols) break;
-    const int64_t row = row_off(g, b, k0 + jk, h) + c0;
-    float y[CPT];
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) y[u] = dka[jk][u] / sqd;
-    store_cols(dk + row, y);
-    store_cols(dv + row, dva[jk]);
   }
 }
 
@@ -563,16 +386,6 @@ Geo geo(int64_t B, int64_t T, int64_t H, int64_t D, int64_t sp, int64_t Dscale) 
 }
 
 template <typename T, int CPT>
-int dkdv_t(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, void* dk, void* dv, Geo g, int causal, cudaStream_t st) {
-  const int64_t blocks = g.B * g.H * g.sp * ((g.tl + dkdv::BN - 1) / dkdv::BN);
-  return run(attn_bwd_dkdv<T, CPT>, blocks, dkdv::smem_bytes(g.D), st,
-             static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-             static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-             g, causal);
-}
-
-template <typename T, int CPT>
 int dq_t(const void* q, const void* k, const void* v, const void* dout, const float* lse,
          const float* delta, void* dqo, Geo g, int causal, cudaStream_t st) {
   const int64_t blocks = g.B * g.H * g.sp * ((g.tl + dq::BM - 1) / dq::BM);
@@ -596,21 +409,6 @@ int tb_attn_bwd_delta(const void* out, const void* dout, int dtype, float* delta
   return run(attn_bwd_delta<__nv_bfloat16>, blocks, 0, st,
              static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(dout),
              delta, g);
-}
-
-// f32 operands only (dtype 0): bf16 dK/dV run on the tensor cores
-int tb_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, int dtype,
-                     const float* lse, const float* delta, void* dk, void* dv, int64_t B,
-                     int64_t T, int64_t H, int64_t D, int64_t Dscale, int64_t sp, int causal,
-                     void* stream) {
-  if (dtype != 0 || !takes(D) || Dscale <= 0 || sp <= 0 || T % sp != 0)
-    return int(cudaErrorInvalidValue);
-  const Geo g = geo(B, T, H, D, sp, Dscale);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int c = cpt_of(D);
-  return c == 1 ? dkdv_t<float, 1>(q, k, v, dout, lse, delta, dk, dv, g, causal, st)
-         : c == 2 ? dkdv_t<float, 2>(q, k, v, dout, lse, delta, dk, dv, g, causal, st)
-                  : dkdv_t<float, 4>(q, k, v, dout, lse, delta, dk, dv, g, causal, st);
 }
 
 // f32 operands only (dtype 0): bf16 dQ runs on the tensor cores

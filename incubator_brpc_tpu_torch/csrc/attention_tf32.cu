@@ -102,8 +102,11 @@ using tc::cp_async16;
 using tc::cp_async_commit;
 using tc::cp_async_wait;
 using tc::imin;
+using tc::lds2;
+using tc::mma_tf32;
 using tc::round16;
 using tc::smem_u32;
+using tc::split_tf32;
 
 constexpr int kThreads = 256;             // 8 warps
 constexpr int BM = 32;                    // query rows per block
@@ -133,37 +136,6 @@ __device__ __forceinline__ int64_t stat_off(const Geo& g, int64_t b, int64_t h, 
 constexpr size_t kSmemBytes = 4 * (size_t(kStages) * kStageFloats  // the ring
                                    + size_t(kSlices) * BM * kLdS   // partial S; P hi, lo
                                    + 3 * BM);                      // m, l, alpha
-
-// -- tf32 -----------------------------------------------------------------------
-
-// x = hi + lo (+ what lo drops), hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x -
-// hi), in two integer operations for each: rounding to nearest with ties
-// away from zero is half a tf32 ulp added to the magnitude, then the 13 low
-// bits dropped. hi's are cleared, for x - hi; lo's are left, as the tensor
-// cores read only a tf32 operand's 19 high bits. (cvt.rna.tf32.f32 itself
-// compiles to a compare and a select besides, for NaN and inf; here as
-// there an inf or NaN x gives an inf or NaN hi and a NaN lo.)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
-
-// c += a . b, one m16n8k8 tile: tf32 operands, f32 accumulator. Fragment
-// coordinates (PTX ISA, mma.m16n8k8 .tf32): lane = 4 gq + tq; a0 (row gq,
-// k tq), a1 (gq + 8, tq), a2 (gq, tq + 4), a3 (gq + 8, tq + 4); b0 (k tq,
-// n gq), b1 (tq + 4, gq); c holds rows gq and gq + 8, columns 2 tq, 2 tq + 1.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float2 lds2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
 
 // -- the kernel -------------------------------------------------------------------
 
@@ -323,14 +295,14 @@ attn_fold_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const float2 x = lds2(qb + (mt * 16 + hh * 8) * kLdC + dk);
-              split(x.x, ah[mt][hh], al[mt][hh]);
-              split(x.y, ah[mt][2 + hh], al[mt][2 + hh]);
+              split_tf32(x.x, ah[mt][hh], al[mt][hh]);
+              split_tf32(x.y, ah[mt][2 + hh], al[mt][2 + hh]);
             }
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             const float2 x = lds2(kb + nt * 8 * kLdC + dk);
-            split(x.x, bh[nt][0], bl[nt][0]);
-            split(x.y, bh[nt][1], bl[nt][1]);
+            split_tf32(x.x, bh[nt][0], bl[nt][0]);
+            split_tf32(x.y, bh[nt][1], bl[nt][1]);
           }
           // the small terms first, term by term over the 8 accumulators
 #pragma unroll
@@ -400,7 +372,7 @@ attn_fold_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
       for (int u = 0; u < 2; ++u) {
         const float p = expf(s[rr][u] - mx[rr]);
         // over slices 0 and 1 of the partial S, where this lane read them
-        split(p, Ph[r * kLdS + lane + 32 * u], Pl[r * kLdS + lane + 32 * u]);
+        split_tf32(p, Ph[r * kLdS + lane + 32 * u], Pl[r * kLdS + lane + 32 * u]);
         s[rr][u] = p;
       }
       sum[rr] = s[rr][0] + s[rr][1];
@@ -449,10 +421,10 @@ attn_fold_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
               // b0 of n-tiles 0 and 1 (key tq), then b1 (key tq + 4)
               const float2 x0 = lds2(vb + ks * 8 * kLdC), x1 = lds2(vb + (ks * 8 + 4) * kLdC);
               uint32_t bh[2][2], bl[2][2];
-              split(x0.x, bh[0][0], bl[0][0]);
-              split(x0.y, bh[1][0], bl[1][0]);
-              split(x1.x, bh[0][1], bl[0][1]);
-              split(x1.y, bh[1][1], bl[1][1]);
+              split_tf32(x0.x, bh[0][0], bl[0][0]);
+              split_tf32(x0.y, bh[1][0], bl[1][0]);
+              split_tf32(x1.x, bh[0][1], bl[0][1]);
+              split_tf32(x1.y, bh[1][1], bl[1][1]);
 #pragma unroll
               for (int j = 0; j < 2; ++j) mma_tf32(pv[j], ph[ks], bl[j][0], bl[j][1]);
 #pragma unroll

@@ -5,49 +5,67 @@
 //                        sum it reads: s = x + delta, n = s * rsqrt(mean(s^2)
 //                        + 1e-6) over each row, and the row's rsqrt (rstd)
 //   rms_norm_bwd      <- the gradient JAX's autodiff takes through _rms_norm,
-//                        g = r g_n - (r^3 / d) s sum(g_n s), plus the residual
-//                        stream's own gradient g_s
+//                        with the residual stream's own gradient g_s added
+//                        where the train step adds it
 //   gelu_tanh_fwd     <- :123 _gelu (jax.nn.gelu, the tanh form)
-//   gelu_tanh_bwd     <- its gradient
+//   gelu_tanh_bwd     <- its gradient (jax.vjp's chain)
 //
 //   moe_combine_fwd   <- _moe's gate and combine (:164 sigmoid(tokens @ gate_w),
 //                        :175 ungrouped * g) with _stage_fn's last residual
-//                        add (:208): g = sigmoid(logit), out[r] = s[r] +
-//                        yr[r % e, r // e] * g[r], the experts' output read
+//                        add (:208): g = 1 / (1 + exp(-logit)), out[r] = s[r]
+//                        + yr[r % e, r // e] * g[r], the experts' output read
 //                        in its expert layout (e, t / e, d)
 //   moe_combine_bwd   <- its gradient: d_yr = dy * g in the expert layout,
-//                        d_logit = sum_d(dy * yr) * (1 - g) * g
+//                        d_logit = sum_d(yr * dy) * (g * (1 - g))
 //   mse_loss_fwd      <- _local_loss's mean((out - y)^2) (:266-268, :281) and,
 //                        in the same pass, its gradient for d(loss) = 1
 //
 // Rows are the last dimension of a row-major tensor, rows * d elements from
-// the base pointer; f32 or bf16 (dtype 0 or 1), computed in f32. Each
-// kernel rounds where its plain version in ops/elementwise.py rounds:
+// the base pointer; f32 or bf16 (dtype 0 or 1), computed in f32. The
+// reference rounds op by op: in bf16 XLA rounds every elementwise op's
+// result to bf16, with JAX's weakly typed constants rounded to bf16 too
+// (Jax<T> below). Each kernel rounds where its plain version in
+// ops/elementwise.py rounds, so each rounds where the reference does:
 // - add_rms_norm_fwd: s rounded to the dtype; each square rounded to the
 //   dtype and summed in f32; the mean (the sum times 1/d, as PyTorch's mean
-//   on the card forms it) rounded to the dtype, + 1e-6 rounded, rsqrtf (as
-//   torch.rsqrt) rounded; n = s * r rounded. Only the row sum's order
+//   on the card and XLA form it) rounded to the dtype, + eps rounded, rsqrtf
+//   (as torch.rsqrt) rounded; n = s * r rounded. Only the row sum's order
 //   differs from the plain version's.
-// - rms_norm_bwd: f32 throughout, one rounding out; sum(g_n s) in another
-//   order than the plain version's.
-// - gelu_tanh_fwd / _bwd: PyTorch's own tanh GeLU and GeLU backward
-//   expressions (ATen's GeluCUDAKernelImpl and GeluBackwardCUDAKernelImpl),
-//   the same constants and tanhf, left to nvcc's default contraction as
-//   PyTorch's build leaves them, one rounding out.
-// - moe_combine_fwd: g rounded to the dtype (1 / (1 + expf(-x)), PyTorch's
-//   sigmoid); the product rounded, then the sum rounded.
-// - moe_combine_bwd: d_yr = dy * g rounded; each dy * yr rounded to the
-//   dtype and summed in f32, the sum rounded, then (sum * (1 - g)) * g
-//   rounded (PyTorch's sigmoid_backward), as autograd does through the
-//   plain version; the row sum's order differs from PyTorch's.
+// - rms_norm_bwd: jax.vjp's chain in the train step's form, each op rounded
+//   to the dtype: u = g_n k, (g_s + u), then + bb (2 s) with bb = (w / d)
+//   rounded, w = sum(s g_n) m kept in f32 (XLA drops the jaxpr's rounding
+//   before w's conversion to f32; in bf16 the product is exact), m = -0.5
+//   (k / j), k = rstd. It recomputes j = mean(s^2) + eps, the value the
+//   reference divides by (not rstd), in its first pass, which reads s for
+//   sum(s g_n) anyway, as add_rms_norm_fwd forms the mean: squares rounded
+//   to the dtype, summed, times 1/d, rounded, + eps rounded. Storing j from
+//   add_rms_norm_fwd would cost a fourth output there for one fewer
+//   product an element here.
+// - gelu_tanh_fwd: x (0.5 (1 + tanh(beta (x + kappa (x (x x)))))), each op
+//   rounded, tanhf's result rounded.
+// - gelu_tanh_bwd: jax.vjp(_gelu)'s chain, each op rounded: i = tanh(beta
+//   (x + kappa x^3)), p = (0.5 (x dy)) (1 - i), s = beta (p + p i), then
+//   (dy (0.5 (1 + i)) + s) + (kappa s) (3 (x x)).
+// - moe_combine_fwd: g = 1 / (1 + expf(-x)) (jax.nn.sigmoid as XLA expands
+//   it), each op rounded; the product rounded, then the sum rounded.
+// - moe_combine_bwd: d_yr = dy * g rounded; d_logit = sum * (g * (1 - g)),
+//   each op rounded, the sum that of the products yr * dy rounded to the
+//   dtype, rounded to the dtype.
+// The row sums of products (sum(s g_n), sum(s^2) in rms_norm_bwd, and
+// moe_combine_bwd's) run in f64, rounded to f32 and then to the dtype:
+// exact for rows whose terms span fewer than about 2^34 (bf16) or 2^18
+// (f32) in magnitude, so this order and the plain version's give the same
+// bits. The reference sums them in bf16 in XLA:CPU's window order: a
+// difference by design (ROADMAP), as copying that order is.
 // - mse_loss_fwd: diff = out - y rounded, its square rounded and summed in
 //   f32, the sum divided by n and rounded; d_out = (1/n rounded to the
 //   dtype) * (2 diff), rounded. The sum's order differs from the plain
 //   version's; every block's partial is added in block order by a second
 //   kernel of one block, so a rerun gives the same bits (no atomics).
 // The intrinsics __fadd_rn / __fmul_rn / __fsub_rn / __fdiv_rn keep nvcc
-// from contracting the norm's products and sums into FMAs that the plain
-// version does not take. The build has no --use_fast_math (ops/kernels.py).
+// from contracting products and sums into FMAs that the plain versions do
+// not take, across a rounding or not. The build has no --use_fast_math
+// (ops/kernels.py): tanhf and expf are the ones PyTorch's own kernels call.
 //
 // What bounds them on the card: bytes. Each does a few operations per
 // element it reads (the GeLUs a tanhf), far below the card's 295 operations
@@ -68,7 +86,7 @@
 //   row) keep two loads in flight each. A longer row takes pass 2, which
 //   reads it again, from L2 (a 2048-wide bf16 row is 4 KB). rms_norm_bwd
 //   reads its rows twice in this way, and reads rstd rather than
-//   recomputing the rsqrt.
+//   recomputing the rsqrt; its row sums take one f64 add an element each.
 // - The GeLUs are grid-stride loops over the elements.
 //
 // Plain C interface, loaded with ctypes by incubator_brpc_tpu_torch/ops/
@@ -83,9 +101,131 @@ namespace {
 constexpr int kMaxNormThreads = 512;
 constexpr int kEltThreads = 256;
 constexpr int64_t kMaxEltBlocks = 132 * 16;  // 16 blocks of 256 threads an SM
-// PyTorch's constants: M_SQRT2 * M_2_SQRTPI * 0.5 rounded once to f32, and 0.044715
-constexpr float kBeta = float(1.41421356237309504880 * 1.12837916709551257390 * 0.5);
-constexpr float kKappa = float(0.044715);
+
+// JAX's constants, as it rounds its weakly typed Python floats to T: the
+// norm's 1e-6, and jax.nn.gelu's 0.044715 and sqrt(2 / pi)
+template <typename T>
+struct Jax;
+template <>
+struct Jax<float> {
+  static constexpr float eps = 9.999999974752427e-07f, kappa = 0.044714998453855515f,
+                         beta = 0.7978845834732056f;
+};
+template <>
+struct Jax<__nv_bfloat16> {
+  static constexpr float eps = 9.98377799987793e-07f, kappa = 0.044677734375f, beta = 0.796875f;
+};
+
+// one op of the reference's chain: the f32 result rounded to T
+template <typename T>
+__device__ __forceinline__ float rmul(float a, float b) { return round_to<T>(__fmul_rn(a, b)); }
+template <typename T>
+__device__ __forceinline__ float radd(float a, float b) { return round_to<T>(__fadd_rn(a, b)); }
+template <typename T>
+__device__ __forceinline__ float rsub(float a, float b) { return round_to<T>(__fsub_rn(a, b)); }
+template <typename T>
+__device__ __forceinline__ float rdiv(float a, float b) { return round_to<T>(__fdiv_rn(a, b)); }
+
+// 1 / d rounded to f32: the reference divides by a constant as a multiply by it
+__device__ __forceinline__ float inv(int64_t d) { return __fdiv_rn(1.0f, float(d)); }
+
+// Two elements of T, as the reference's ops take them. f32: a float2, each
+// op one f32 op. bf16: their two bf16 values in 32 bits (element 0 in the
+// low half), each op one mul/add/sub.rn.bf16x2, correctly rounded, which is
+// the f32 op rounded to bf16 (f32's 24 bits are at least twice bf16's 8
+// plus 2, so the double rounding is innocuous: Figueroa, 1995), in one
+// instruction for two elements where an f32 op and its rounding take two
+// (the rounding's conversion at a quarter of the f32 rate) for one. tanh
+// runs in f32 on both (tanhf, the result rounded to T).
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using V = float2;
+  static __device__ __forceinline__ V splat(float c) { return make_float2(c, c); }
+  static __device__ __forceinline__ V mul(V a, V b) {
+    return make_float2(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
+  }
+  static __device__ __forceinline__ V add(V a, V b) {
+    return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+  }
+  static __device__ __forceinline__ V sub(V a, V b) {
+    return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
+  }
+  static __device__ __forceinline__ V tanh(V a) { return make_float2(tanhf(a.x), tanhf(a.y)); }
+  static __device__ __forceinline__ float lo(V a) { return a.x; }
+  static __device__ __forceinline__ float hi(V a) { return a.y; }
+};
+template <>
+struct Pair<__nv_bfloat16> {
+  using V = uint32_t;
+  static __device__ __forceinline__ V splat(float c) {  // c: a bf16 value
+    const uint32_t b = __float_as_uint(c) >> 16;
+    return b | b << 16;
+  }
+  static __device__ __forceinline__ V mul(V a, V b) {
+    V d;
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ V add(V a, V b) {
+    V d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ V sub(V a, V b) {
+    V d;
+    asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ float lo(V a) { return __uint_as_float(a << 16); }
+  static __device__ __forceinline__ float hi(V a) { return __uint_as_float(a & 0xFFFF0000u); }
+  static __device__ __forceinline__ V pack(float l, float h) {  // rounded to nearest even
+    V d;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(h), "f"(l));
+    return d;
+  }
+  static __device__ __forceinline__ V tanh(V a) { return pack(tanhf(lo(a)), tanhf(hi(a))); }
+};
+
+// The W elements at p (a 16-byte vector, or W = 1 one element, doubled) as
+// (W + 1) / 2 pairs, and back (W = 1: the low one)
+template <int W>
+__device__ __forceinline__ void load_pairs(const float* p, float2 (&v)[(W + 1) / 2]) {
+  if constexpr (W == 1) {
+    v[0] = make_float2(*p, *p);
+  } else {
+    static_assert(W == kVec<float>, "a vector is 16 bytes");
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = make_float2(u.x, u.y);
+    v[1] = make_float2(u.z, u.w);
+  }
+}
+template <int W>
+__device__ __forceinline__ void load_pairs(const __nv_bfloat16* p, uint32_t (&v)[(W + 1) / 2]) {
+  if constexpr (W == 1) {
+    const uint32_t b = *reinterpret_cast<const uint16_t*>(p);
+    v[0] = b | b << 16;
+  } else {
+    static_assert(W == kVec<__nv_bfloat16>, "a vector is 16 bytes");
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  }
+}
+template <int W>
+__device__ __forceinline__ void store_pairs(float* p, const float2 (&v)[(W + 1) / 2]) {
+  if constexpr (W == 1)
+    *p = v[0].x;
+  else
+    *reinterpret_cast<float4*>(p) = make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
+}
+template <int W>
+__device__ __forceinline__ void store_pairs(__nv_bfloat16* p, const uint32_t (&v)[(W + 1) / 2]) {
+  if constexpr (W == 1)
+    *reinterpret_cast<uint16_t*>(p) = uint16_t(v[0]);
+  else
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+}
 
 // -- K4a: s = x + delta, n = s * rsqrt(mean(s^2) + 1e-6), rstd --------------------
 // One block a row. delta and s are both null (s is x) or both set. With HOLD
@@ -170,8 +310,8 @@ __global__ void add_rms_norm_fwd(const T* x, const T* delta, T* s, T* n, float* 
         }
       }
     }
-    const float mean = round_to<T>(__fmul_rn(block_sum(sq, red), 1.0f / float(d)));
-    const float r = round_to<T>(rsqrtf(round_to<T>(__fadd_rn(mean, 1e-6f))));
+    const float mean = round_to<T>(__fmul_rn(block_sum(sq, red), inv(d)));
+    const float r = round_to<T>(rsqrtf(radd<T>(mean, Jax<T>::eps)));
     if (threadIdx.x == 0) rstd[row] = r;
 #pragma unroll
     for (int j = 0; j < HOLD; ++j) {
@@ -196,8 +336,8 @@ __global__ void add_rms_norm_fwd(const T* x, const T* delta, T* s, T* n, float* 
     load_piece<W>(xr, dr, c, a, b);
     sum_piece<W>(dr, sr, c, a, b, sq);
   });
-  const float mean = round_to<T>(__fmul_rn(block_sum(sq, red), 1.0f / float(d)));
-  const float r = round_to<T>(rsqrtf(round_to<T>(__fadd_rn(mean, 1e-6f))));
+  const float mean = round_to<T>(__fmul_rn(block_sum(sq, red), inv(d)));
+  const float r = round_to<T>(rsqrtf(radd<T>(mean, Jax<T>::eps)));
   if (threadIdx.x == 0) rstd[row] = r;
   const T* src = dr != nullptr ? sr : xr;
   walk<T>(d, head, threadIdx.x, blockDim.x, [&](auto w, int64_t c) {
@@ -210,67 +350,90 @@ __global__ void add_rms_norm_fwd(const T* x, const T* delta, T* s, T* n, float* 
   });
 }
 
-// -- K4b: g = r g_n - (r^3 / d) s sum(g_n s) (+ g_s) --------------------------------
+// -- K4b: g = (g_s + g_n k) + bb (2 s), bb = (sum(s g_n) m) / d, m = -0.5 k / j --------
 // One block a row; g_s may be null.
 template <typename T>
 __global__ void rms_norm_bwd(const T* __restrict__ s, const float* __restrict__ rstd,
                              const T* __restrict__ gn, const T* __restrict__ gs,
                              T* __restrict__ g, int64_t d) {
-  __shared__ float red[32];
+  __shared__ double red[2][32];
   const int64_t row = blockIdx.x;
   const T* sr = s + row * d;
   const T* nr = gn + row * d;
   const T* gsr = gs ? gs + row * d : nullptr;
   T* gr = g + row * d;
   const int64_t head = head_of<T>(d, sr, nr, gsr, gr);
-  float dot = 0.f;
+  using P = Pair<T>;
+  double sq = 0.0, dot = 0.0;
   walk<T>(d, head, threadIdx.x, blockDim.x, [&](auto w, int64_t c) {
     constexpr int W = decltype(w)::value;
-    float a[W], b[W];
-    load<W>(sr + c, a);
-    load<W>(nr + c, b);
+    typename P::V a[(W + 1) / 2], b[(W + 1) / 2];
+    load_pairs<W>(sr + c, a);
+    load_pairs<W>(nr + c, b);
 #pragma unroll
-    for (int i = 0; i < W; ++i) dot = __fadd_rn(dot, __fmul_rn(b[i], a[i]));
-  });
-  const float r = rstd[row];
-  const float coef =
-      __fmul_rn(__fmul_rn(__fmul_rn(r, r), r), __fdiv_rn(block_sum(dot, red), float(d)));
-  walk<T>(d, head, threadIdx.x, blockDim.x, [&](auto w, int64_t c) {
-    constexpr int W = decltype(w)::value;
-    float a[W], b[W];
-    load<W>(sr + c, a);
-    load<W>(nr + c, b);
-#pragma unroll
-    for (int i = 0; i < W; ++i) b[i] = __fsub_rn(__fmul_rn(r, b[i]), __fmul_rn(coef, a[i]));
-    if (gsr != nullptr) {
-      load<W>(gsr + c, a);
-#pragma unroll
-      for (int i = 0; i < W; ++i) b[i] = __fadd_rn(b[i], a[i]);
+    for (int i = 0; i < (W + 1) / 2; ++i) {
+      const auto q = P::mul(a[i], a[i]), r = P::mul(a[i], b[i]);
+      sq += double(P::lo(q));
+      dot += double(P::lo(r));
+      if (W > 1) {  // a single element is doubled: its high half is a copy
+        sq += double(P::hi(q));
+        dot += double(P::hi(r));
+      }
     }
-    store<W>(gr + c, b);
+  });
+  const float k = rstd[row];
+  const float j = radd<T>(round_to<T>(__fmul_rn(__double2float_rn(block_sum(sq, red[0])), inv(d))),
+                          Jax<T>::eps);
+  const float m = rmul<T>(-0.5f, rdiv<T>(k, j));
+  const float wm = __fmul_rn(round_to<T>(__double2float_rn(block_sum(dot, red[1]))), m);
+  const float bb = round_to<T>(__fmul_rn(wm, inv(d)));
+  const auto k2 = P::splat(k), bb2 = P::splat(bb), two = P::splat(2.0f);
+  walk<T>(d, head, threadIdx.x, blockDim.x, [&](auto w, int64_t c) {
+    constexpr int W = decltype(w)::value;
+    typename P::V a[(W + 1) / 2], b[(W + 1) / 2], r[(W + 1) / 2];
+    load_pairs<W>(sr + c, a);
+    load_pairs<W>(nr + c, b);
+#pragma unroll
+    for (int i = 0; i < (W + 1) / 2; ++i) b[i] = P::mul(b[i], k2);
+    if (gsr != nullptr) {
+      load_pairs<W>(gsr + c, r);
+#pragma unroll
+      for (int i = 0; i < (W + 1) / 2; ++i) b[i] = P::add(r[i], b[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < (W + 1) / 2; ++i) b[i] = P::add(b[i], P::mul(bb2, P::mul(two, a[i])));
+    store_pairs<W>(gr + c, b);
   });
 }
 
 // -- K4c / K4d: the tanh GeLU and its gradient -------------------------------------
 
-__device__ __forceinline__ float gelu_f(float x) {
-  const float x_cube = x * x * x;
-  const float inner = kBeta * (x + kKappa * x_cube);
-  return 0.5f * x * (1.0f + tanhf(inner));
+// beta (x + kappa (x (x x))), each op rounded to T
+template <typename T>
+__device__ __forceinline__ typename Pair<T>::V gelu_inner(typename Pair<T>::V x) {
+  using P = Pair<T>;
+  return P::mul(P::splat(Jax<T>::beta),
+                P::add(x, P::mul(P::splat(Jax<T>::kappa), P::mul(x, P::mul(x, x)))));
 }
 
-__device__ __forceinline__ float gelu_bwd_f(float dy, float x) {
-  const float x_sq = x * x;
-  const float x_cube = x_sq * x;
-  const float inner = kBeta * (x + kKappa * x_cube);
-  const float tanh_inner = tanhf(inner);
-  const float left = 0.5f * x;
-  const float right = 1.0f + tanh_inner;
-  const float left_derivative = 0.5f * right;
-  const float tanh_derivative = 1.0f - tanh_inner * tanh_inner;
-  const float inner_derivative = kBeta * (1.0f + 3.0f * kKappa * x_sq);
-  const float right_derivative = left * tanh_derivative * inner_derivative;
-  return dy * (left_derivative + right_derivative);
+template <typename T>
+__device__ __forceinline__ typename Pair<T>::V gelu_f(typename Pair<T>::V x) {
+  using P = Pair<T>;
+  const auto t = P::tanh(gelu_inner<T>(x));
+  return P::mul(x, P::mul(P::splat(0.5f), P::add(P::splat(1.0f), t)));
+}
+
+template <typename T>
+__device__ __forceinline__ typename Pair<T>::V gelu_bwd_f(typename Pair<T>::V dy,
+                                                          typename Pair<T>::V x) {
+  using P = Pair<T>;
+  const auto half = P::splat(0.5f), one = P::splat(1.0f);
+  const auto i = P::tanh(gelu_inner<T>(x));
+  const auto p = P::mul(P::mul(half, P::mul(x, dy)), P::sub(one, i));
+  const auto s = P::mul(P::splat(Jax<T>::beta), P::add(p, P::mul(p, i)));
+  const auto t = P::add(P::mul(dy, P::mul(half, P::add(one, i))), s);
+  return P::add(t, P::mul(P::mul(P::splat(Jax<T>::kappa), s),
+                          P::mul(P::splat(3.0f), P::mul(x, x))));
 }
 
 template <typename T>
@@ -279,11 +442,11 @@ __global__ void gelu_tanh_fwd(const T* __restrict__ x, T* __restrict__ y, int64_
   const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   walk<T>(n, head, t, int64_t(gridDim.x) * blockDim.x, [&](auto w, int64_t c) {
     constexpr int W = decltype(w)::value;
-    float a[W];
-    load<W>(x + c, a);
+    typename Pair<T>::V a[(W + 1) / 2];
+    load_pairs<W>(x + c, a);
 #pragma unroll
-    for (int i = 0; i < W; ++i) a[i] = gelu_f(a[i]);
-    store<W>(y + c, a);
+    for (int i = 0; i < (W + 1) / 2; ++i) a[i] = gelu_f<T>(a[i]);
+    store_pairs<W>(y + c, a);
   });
 }
 
@@ -294,12 +457,12 @@ __global__ void gelu_tanh_bwd(const T* __restrict__ x, const T* __restrict__ dy,
   const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   walk<T>(n, head, t, int64_t(gridDim.x) * blockDim.x, [&](auto w, int64_t c) {
     constexpr int W = decltype(w)::value;
-    float a[W], b[W];
-    load<W>(x + c, a);
-    load<W>(dy + c, b);
+    typename Pair<T>::V a[(W + 1) / 2], b[(W + 1) / 2];
+    load_pairs<W>(x + c, a);
+    load_pairs<W>(dy + c, b);
 #pragma unroll
-    for (int i = 0; i < W; ++i) a[i] = gelu_bwd_f(b[i], a[i]);
-    store<W>(dx + c, a);
+    for (int i = 0; i < (W + 1) / 2; ++i) a[i] = gelu_bwd_f<T>(b[i], a[i]);
+    store_pairs<W>(dx + c, a);
   });
 }
 
@@ -310,7 +473,7 @@ template <typename T>
 __global__ void moe_combine_fwd(const T* s, const T* yr, const T* logit, T* out, T* gate,
                                 int64_t d, int64_t e, int64_t per) {
   const int64_t r = blockIdx.x;
-  const float g = round_to<T>(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-to_f(logit[r])))));
+  const float g = rdiv<T>(1.0f, radd<T>(1.0f, round_to<T>(expf(-to_f(logit[r])))));
   if (threadIdx.x == 0) gate[r] = from_f<T>(g);
   const T* sr = s + r * d;
   const T* yrow = yr + ((r % e) * per + r / e) * d;
@@ -331,7 +494,7 @@ template <typename T>
 __global__ void moe_combine_bwd(const T* __restrict__ dy, const T* __restrict__ yr,
                                 const T* __restrict__ gate, T* __restrict__ dyr,
                                 T* __restrict__ dlogit, int64_t d, int64_t e, int64_t per) {
-  __shared__ float red[32];
+  __shared__ double red[32];
   const int64_t r = blockIdx.x;
   const float g = to_f(gate[r]);
   const T* dr = dy + r * d;
@@ -339,7 +502,7 @@ __global__ void moe_combine_bwd(const T* __restrict__ dy, const T* __restrict__ 
   const T* yrow = yr + er;
   T* drow = dyr + er;
   const int64_t head = head_of<T>(d, dr, yrow, drow, nullptr);
-  float dot = 0.f;
+  double dot = 0.0;
   walk<T>(d, head, threadIdx.x, blockDim.x, [&](auto w, int64_t c) {
     constexpr int W = decltype(w)::value;
     float a[W], b[W];
@@ -347,13 +510,13 @@ __global__ void moe_combine_bwd(const T* __restrict__ dy, const T* __restrict__ 
     load<W>(yrow + c, b);
 #pragma unroll
     for (int i = 0; i < W; ++i) {
-      dot = __fadd_rn(dot, round_to<T>(__fmul_rn(a[i], b[i])));
+      dot += double(rmul<T>(b[i], a[i]));
       a[i] = __fmul_rn(a[i], g);
     }
     store<W>(drow + c, a);
   });
-  const float dg = round_to<T>(block_sum(dot, red));
-  if (threadIdx.x == 0) dlogit[r] = from_f<T>(__fmul_rn(__fmul_rn(dg, __fsub_rn(1.0f, g)), g));
+  const float dg = round_to<T>(__double2float_rn(block_sum(dot, red)));
+  if (threadIdx.x == 0) dlogit[r] = from_f<T>(__fmul_rn(dg, rmul<T>(g, rsub<T>(1.0f, g))));
 }
 
 // -- K4e-d: the loss and its gradient ---------------------------------------------------

@@ -1,8 +1,8 @@
 // Helpers shared by the elementwise kernels (elementwise.cu, K4 and K4e-b/c/d)
 // and the SGD update (update.cu, K4e-a): f32 <-> bf16 with explicit rounding,
 // 16-byte vector loads and stores, the walk over a run of elements that
-// takes vectors where the pointers allow, and a block-wide f32 sum in a
-// fixed order.
+// takes vectors where the pointers allow, and a block-wide f32 or f64 sum in
+// a fixed order.
 
 #pragma once
 
@@ -91,15 +91,17 @@ __device__ __forceinline__ void walk(int64_t n, int64_t head, int64_t t, int64_t
   for (int64_t c = head + nv * V + t; c < n; c += stride) f(Width<1>(), c);
 }
 
-// The sum of v over the block, in every thread (each warp reduces the warps'
-// partials in the same order, so all get the same value). red: 32 floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// The sum of v (f32 or f64) over the block, in every thread (each warp
+// reduces the warps' partials in the same order, so all get the same value).
+// red: 32 values, used by no other block_sum between two barriers.
+template <typename V>
+__device__ __forceinline__ V block_sum(V v, V* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) red[warp] = v;
   __syncthreads();
-  v = lane < int(blockDim.x >> 5) ? red[lane] : 0.f;
+  v = lane < int(blockDim.x >> 5) ? red[lane] : V(0);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

@@ -2,8 +2,8 @@
 versions.
 
 The wrappers over the hand-written CUDA kernels in ``csrc/attention.cu``,
-``csrc/attention_tc.cu``, ``csrc/attention_tf32.cu`` and
-``csrc/attention_bwd_tc.cu``:
+``csrc/attention_tc.cu``, ``csrc/attention_tf32.cu``,
+``csrc/attention_bwd_tc.cu`` and ``csrc/attention_bwd_tf32.cu``:
 
 - :func:`fold` replaces ``incubator_brpc_tpu/models/ring_attention.py``
   ``_block_attn`` (:35) and ``block_merge`` (:81) for one hop of the ring,
@@ -15,13 +15,14 @@ The wrappers over the hand-written CUDA kernels in ``csrc/attention.cu``,
   tensor cores with f32 accumulation, every operand split as
   :func:`split_tf32` states).
 - :func:`backward` (:func:`row_dot`, :func:`dkdv` and :func:`dq` over
-  ``attn_bwd_delta``, ``attn_bwd_dkdv`` or ``attn_bwd_dkdv_tc``, and
+  ``attn_bwd_delta``, ``attn_bwd_dkdv_tf32`` or ``attn_bwd_dkdv_tc``, and
   ``attn_bwd_dq`` or ``attn_bwd_dq_tc``) replaces the gradient JAX's
   autodiff takes through ``ring_attention``. :func:`dkdv` and :func:`dq`
   follow the dtype as :func:`fold` does: bfloat16 goes to
   ``attn_bwd_dkdv_tc`` and ``attn_bwd_dq_tc`` (``attention_bwd_tc.cu``,
-  tensor cores, P and dS split), float32 to ``attn_bwd_dkdv`` and
-  ``attn_bwd_dq``. It
+  tensor cores, P and dS split), float32 to ``attn_bwd_dkdv_tf32``
+  (``attention_bwd_tf32.cu``, 3xTF32 on the tensor cores, every operand
+  split as :func:`split_tf32` states) and ``attn_bwd_dq`` (CUDA cores). It
   recomputes the scores from q, k, v, dO and the saved per-row
   log-sum-exp ``lse = m + log(l)``: ``delta = rowsum(dO * O)``,
   ``P = exp(S - lse)``, ``dV += P^T dO``, ``dS = P * (dO V^T - delta)``,
@@ -47,10 +48,11 @@ D up to ``MAX_HEAD_DIM``: another D is padded with zero columns to the next
 multiple of 4 (:func:`_pad`), the kernels are told the true D for the
 score scale ``1/sqrt(D)``, and the results are sliced back.
 
-What bounds the CUDA-core kernels on the card is operations (f32 FMAs, as
+What bounds the CUDA-core kernel on the card is operations (f32 FMAs, as
 the JAX function computes in f32); what bounds the bf16 tensor-core fold is
-bytes, the f32 one (three tf32 products for each) operations, and the
-tensor-core dK/dV and dQ operations and bytes about alike.
+bytes, the f32 one and the f32 dK/dV (three tf32 products for each)
+operations, and the bf16 tensor-core dK/dV and dQ operations and bytes
+about alike.
 Each source says how its design meets that. A wrapper given CPU tensors runs the
 plain PyTorch version beside it; given CUDA tensors it launches the kernels
 on the current stream or raises. Nothing on the card's path calls a plain
@@ -231,7 +233,8 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """What ``attn_fold_fwd_tf32`` does with each float32 operand (Q, K, V and
-    P) before its products: ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x - hi)``
+    P), and ``attn_bwd_dkdv_tf32`` with K, V, Q, dO, P and dS, before its
+    products: ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x - hi)``
     (:func:`round_tf32`), both float32 values that tf32 holds exactly.
     ``hi + lo`` carries 22 bits of x's 24, and the three tf32 tensor-core
     products ``a_hi.b_lo + a_lo.b_hi + a_hi.b_hi`` (small terms first, lo.lo
@@ -397,7 +400,7 @@ def row_dot(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 def dkdv(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
     """K3 backward: ``(dk, dv)`` in q's dtype, by ``attn_bwd_dkdv_tc`` for
-    bfloat16 operands and ``attn_bwd_dkdv`` for float32."""
+    bfloat16 operands and ``attn_bwd_dkdv_tf32`` for float32."""
     _check_backward(q, k, v, dout, lse, sp)
     _stat(delta, "delta", lse.shape, q.device)
     if q.device.type == "cpu":
@@ -406,18 +409,13 @@ def dkdv(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
     pad = _check_head_dim(d)
     q, k, v, dout, lse, delta = _dense(*_pad(pad, q, k, v, dout), lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    # the two entry points take the same arguments; the CUDA-core one also the dtype
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
-    tail = (lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, d + pad, d, sp, int(causal), kernels._stream(q.device))
+    name = "attn_bwd_dkdv_tc" if q.dtype == torch.bfloat16 else "attn_bwd_dkdv_tf32"
     lib = kernels.build()
     with torch.cuda.device(q.device):
-        if q.dtype == torch.bfloat16:
-            name = "attn_bwd_dkdv_tc"
-            rc = lib.tb_attn_bwd_dkdv_tc(*head, *tail)
-        else:
-            name = "attn_bwd_dkdv"
-            rc = lib.tb_attn_bwd_dkdv(*head, _DTYPES[q.dtype], *tail)
+        rc = getattr(lib, "tb_" + name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d + pad, d, sp,
+            int(causal), kernels._stream(q.device))
     kernels._check_launch(lib, rc, name)
     kernels._count(name)
     if pad:

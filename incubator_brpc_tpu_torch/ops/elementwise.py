@@ -12,27 +12,45 @@ The wrappers over the hand-written CUDA kernels in ``csrc/elementwise.cu``:
   over the last dimension. It also writes each row's ``rstd``, the rsqrt
   in float32, for the backward.
 - :func:`rms_norm_bwd` (K4b) replaces the gradient JAX takes through
-  ``_rms_norm``: ``g = r g_n - (r^3 / d) s sum(g_n s)``, plus the residual
-  stream's own gradient ``g_s``, all in float32 and rounded once.
+  ``_rms_norm``, with the residual stream's own gradient ``g_s`` added where
+  the train step adds it: ``(g_s + g_n k) + ((sum(s g_n) m) / d) (2 s)``
+  with ``k`` the forward's rsqrt, ``j = mean(s^2) + eps`` and ``m = -0.5 k
+  / j``, in the order of ``jax.vjp``'s jaxpr.
 - :func:`gelu_tanh_fwd` (K4c) replaces ``_gelu`` (:123): ``jax.nn.gelu``'s
-  tanh form in float32, rounded once to x's dtype.
-- :func:`gelu_tanh_bwd` (K4d) replaces its gradient.
+  tanh form, ``x (0.5 (1 + tanh(beta (x + kappa x^3))))``.
+- :func:`gelu_tanh_bwd` (K4d) replaces its gradient, the chain of
+  ``jax.vjp(_gelu)``'s jaxpr.
 - :func:`moe_combine_fwd` (K4e-b) replaces ``_moe``'s ``sigmoid(tokens @
   gate_w)`` and ``ungrouped * g`` (:164, :175) with ``_stage_fn``'s last
-  residual add (:208): ``g = sigmoid(logit)`` and ``out[r] = s[r] + yr[r %
-  e, r // e] * g[r]``, reading the experts' output ``yr`` in its expert
-  layout ``(e, t / e, d)``, so no copy regroups it. The gate's product with
-  ``gate_w`` stays ``torch.matmul``.
+  residual add (:208): ``g = 1 / (1 + exp(-logit))`` (``jax.nn.sigmoid``
+  as XLA expands it) and ``out[r] = s[r] + yr[r % e, r // e] * g[r]``,
+  reading the experts' output ``yr`` in its expert layout ``(e, t / e,
+  d)``, so no copy regroups it. The gate's product with ``gate_w`` stays
+  ``torch.matmul``.
 - :func:`moe_combine_bwd` (K4e-c) replaces its gradient: ``d_yr = dy * g``,
-  written in the expert layout for the ``bmm``'s backward, and ``d_logit``,
-  the row sum of ``dy * yr`` through the sigmoid's gradient; ``d_s`` is
-  ``dy`` itself, with no launch.
+  written in the expert layout for the ``bmm``'s backward, and ``d_logit =
+  sum_d(yr dy) (g (1 - g))``; ``d_s`` is ``dy`` itself, with no launch.
 - :func:`mse_loss_fwd` (K4e-d) replaces ``_local_loss``'s ``mean((out -
   y)^2)`` (:266-268, :281) and writes, in the same pass, the gradient of
   ``out`` for d(loss) = 1, bitwise what autograd gives through the plain
   expression. The train step starts its backward from that gradient, so the
   loss needs no ``autograd.Function`` (whose backward would have to multiply
   by d(loss) in a launch of its own, or read it on the host).
+
+The reference rounds op by op: in bfloat16 every elementwise op of these
+chains (each multiply, add, tanh, exp and divide) rounds its result to
+bfloat16, with JAX's weakly typed constants rounded to bfloat16 too
+(0.044677734375, 0.796875, the norm's eps 9.98377799987793e-07). The plain
+versions state each chain op by op in the operands' dtype, so a bfloat16
+tensor rounds where XLA rounds and a float32 one follows the same order;
+the kernels round where the plain versions do. Two row sums are the
+port's own: the norm's ``sum(s g_n)`` and the combine's ``sum_d(yr dy)``
+(and the norm's ``sum(s^2)``, recomputed), which the reference takes in
+bfloat16 in XLA:CPU's window order (float32 for ``sum(s^2)``), are summed
+in float64 and rounded to float32, then where the reference rounds the
+sum (:func:`_row_sum`): exact for rows whose terms span fewer than about
+2^34 in magnitude, so the kernels' order and the plain versions' give the
+same bits (ROADMAP, "Differences by design", has the distance from JAX).
 
 XLA fuses each of these into the matrix products' neighbours inside one
 ``jax.jit``; PyTorch runs eagerly, so here each is one pass over its rows,
@@ -58,44 +76,31 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from incubator_brpc_tpu_torch.ops import kernels
 
 EPS = 1e-6
-# PyTorch's tanh GeLU constants, as its kernels form them: sqrt(2) * 2/sqrt(pi)
-# * 0.5 rounded once to float32, and 0.044715 in float32
-GELU_BETA = float(np.float32(np.sqrt(2.0) * (2.0 / np.sqrt(np.pi)) * 0.5))
-GELU_KAPPA = float(np.float32(0.044715))
-GELU_KAPPA3 = float(np.float32(3.0) * np.float32(0.044715))
+# jax.nn.gelu's constants: 0.044715 and sqrt(2 / pi), which JAX rounds to the
+# operands' dtype (in bfloat16 0.044677734375 and 0.796875)
+GELU_KAPPA = 0.044715
+GELU_BETA = math.sqrt(2.0 / math.pi)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # |kernel - plain| <= tol * max(1, max |plain|) on the card (chip_smoke.py and
-# tests/test_torch_cuda.py hold the kernels to these).
-# K4a/K4b: float32 results within 1e-5 (the row sums run in another order, a
-# few float32 ulps of the mean or of sum(g_n s), halved by the rsqrt);
-# bfloat16 results within 2^-6, two bf16 ulps: the sum's order can move the
-# mean of squares across a bf16 rounding, hence rsqrt's bf16 value by one
-# ulp, and the output's own rounding adds one more.
+# tests/test_torch_cuda.py hold K4a to these): float32 results within 1e-5
+# (the row sum runs in another order, a few float32 ulps of the mean, halved
+# by the rsqrt); bfloat16 results within 2^-6, two bf16 ulps: the sum's order
+# can move the mean of squares across a bf16 rounding, hence rsqrt's bf16
+# value by one ulp, and the output's own rounding adds one more.
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
-# K4c: the same formula and tanhf as PyTorch's kernel, so bitwise unless
-# nvcc contracts another multiply-add into an FMA than PyTorch's build did:
-# float32 within 1e-6, bfloat16 within one bf16 ulp (2^-7), and the count of
-# differing elements is reported.
-GELU_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
-# K4d: float32 within 1e-5 (FMA contraction and tanhf against the plain
-# version's separate ops, near 1 - tanh^2's cancellation); bfloat16 within one
-# rounding of the float32 result to bf16 (2^-7).
-GELU_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
-# K4e-b/c: the gate (the same 1 / (1 + expf(-x)) as PyTorch's sigmoid), out
-# and d_yr are the plain version's expressions, elementwise, with every
-# rounding explicit, and are held bit for bit; d_logit's row sum runs in
-# another order: float32 within 1e-5, and bfloat16 within 2^-6, two bf16
-# ulps (the sum's order can move its bf16 rounding by one ulp, and the
-# sigmoid's gradient rounds once more). The count of differing elements is
-# reported.
-MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+# K4b, K4c, K4d and K4e-b/c are held bit for bit against their plain versions
+# on the card: the same ops in the same order, each rounded alike, and row
+# sums exact in float64. The outputs that pass through a tanhf or expf (the
+# GeLU, its gradient, the gate and out) may differ where the card's tanhf or
+# expf and the plain version's differ in the last float32 bit: such elements
+# are counted and allowed this many ulps of their dtype.
+TRANSCENDENTAL_ULPS = 1
 # K4e-d: d_out is elementwise and held bit for bit; the loss sums its
 # squares in another order (and PyTorch's mean on the card multiplies by
 # 1/n where this divides by n): float32 within 1e-5, bfloat16 within one
@@ -126,8 +131,29 @@ def add_rms_norm_reads_once(d: int, dtype: torch.dtype, head: int = 0) -> bool:
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
-    """What the plain versions compute in: float32, or float64 for float64."""
+    """What the plain versions' sums are rounded to, and where the reference
+    divides a bfloat16 sum: float32, or float64 for float64."""
     return torch.promote_types(dtype, torch.float32)
+
+
+def _const(value: float, dtype: torch.dtype) -> float:
+    """``value`` as JAX rounds a weakly typed Python float to ``dtype``."""
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))
+
+
+def _reciprocal(d: int, dtype: torch.dtype) -> float:
+    """``1 / d`` rounded to ``dtype``: XLA divides by a constant ``d`` as a
+    multiply by it, and so does ``add_rms_norm_fwd`` for the mean."""
+    return float(torch.tensor(1.0, dtype=dtype) / torch.tensor(float(d), dtype=dtype))
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dimension, kept: summed in float64 and rounded
+    once to :func:`_acc`'s dtype. Exact, so any order gives it, for rows
+    whose terms span fewer than about 2^34 (bfloat16) or 2^18 (float32) in
+    magnitude; beyond, within half a float64 ulp of the row's largest
+    partial sum."""
+    return x.sum(dim=-1, keepdim=True, dtype=torch.float64).to(_acc(x.dtype))
 
 
 # -- plain versions ---------------------------------------------------------------
@@ -139,47 +165,58 @@ def add_rms_norm_plain(
     """``(s, n, rstd)``: ``s = x + delta`` rounded to x's dtype (``x`` itself
     without ``delta``), and ``n`` the RMS norm of ``s`` in JAX's order: the
     square in s's dtype, the mean summed and divided in float32 and rounded
-    to s's dtype, then the ``+ 1e-6`` and ``rsqrt`` in s's dtype, whose value
-    ``rstd`` keeps per row in float32."""
+    to s's dtype, then the ``+ eps`` (1e-6 in s's dtype) and ``rsqrt`` in
+    s's dtype, whose value ``rstd`` keeps per row in float32."""
     s = x if delta is None else x + delta
     ms = (s * s).mean(dim=-1, keepdim=True, dtype=_acc(s.dtype)).to(s.dtype)
-    r = torch.rsqrt(ms + EPS)
+    r = torch.rsqrt(ms + _const(EPS, s.dtype))
     return s, s * r, r.squeeze(-1).to(_acc(s.dtype))
 
 
 def rms_norm_bwd_plain(
     s: torch.Tensor, rstd: torch.Tensor, g_n: torch.Tensor, g_s: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """The gradient of ``n = s * r`` with ``r = rsqrt(mean(s^2) + eps)``,
-    plus ``g_s``: ``r g_n - (r^3 / d) s sum(g_n s)`` with the row sum, and
-    everything else, in float32, rounded once to s's dtype."""
-    acc = _acc(s.dtype)
-    sf, gf = s.to(acc), g_n.to(acc)
-    r = rstd.to(acc).unsqueeze(-1)
-    dot = (gf * sf).sum(dim=-1, keepdim=True)
-    c = r * r * r * (dot / s.shape[-1])
-    g = r * gf - c * sf
+    """The gradient of ``n = s * k`` with ``k = rsqrt(j)``, ``j = mean(s^2) +
+    eps``, plus ``g_s``, as jitted ``jax.vjp`` of ``_rms_norm`` inside the
+    train step takes it, every op in s's dtype (rounded to bfloat16 for
+    bfloat16): ``k`` the forward's ``rstd``; ``j`` recomputed from ``s`` as
+    the forward formed it (squares in s's dtype, summed, times ``1 / d`` in
+    float32, rounded, ``+ eps``); ``m = -0.5 (k / j)``; ``w = sum(s g_n) m``
+    with the products in s's dtype and the row sum by :func:`_row_sum`
+    rounded to s's dtype, ``w`` kept in float32 (XLA drops the jaxpr's
+    rounding of ``w`` before its conversion to float32; for bfloat16 the
+    product is exact); ``w / d`` as XLA forms it, ``w`` times ``1 / d`` in
+    float32, rounded, times ``2 s``; then ``(g_s + g_n k) + that``."""
+    dt, d = s.dtype, s.shape[-1]
+    acc, inv_d = _acc(dt), _reciprocal(d, _acc(dt))
+    k = rstd.to(dt).unsqueeze(-1)
+    j = (_row_sum(s * s) * inv_d).to(dt) + _const(EPS, dt)
+    m = -0.5 * (k / j)
+    w = _row_sum(s * g_n).to(dt).to(acc) * m.to(acc)
+    g = g_n * k
     if g_s is not None:
-        g = g + g_s.to(acc)
-    return g.to(s.dtype)
+        g = g_s + g
+    return g + (w * inv_d).to(dt) * (2.0 * s)
 
 
 def gelu_plain(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (the tanh form, its default) in float32, cast back."""
-    return F.gelu(x.to(_acc(x.dtype)), approximate="tanh").to(x.dtype)
+    """``jax.nn.gelu`` (the tanh form, its default) op by op in x's dtype
+    with its constants rounded to it: ``x (0.5 (1 + tanh(beta (x + kappa
+    (x (x x))))))``; in bfloat16 each op rounds to bfloat16."""
+    kappa, beta = _const(GELU_KAPPA, x.dtype), _const(GELU_BETA, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(beta * (x + kappa * (x * (x * x))))))
 
 
 def gelu_bwd_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """``dy * gelu'(x)`` for the tanh form, in float32 and in the order of
-    PyTorch's own GeLU backward, rounded once to x's dtype."""
-    acc = _acc(x.dtype)
-    xf = x.to(acc)
-    x_sq = xf * xf
-    t = torch.tanh(GELU_BETA * (xf + GELU_KAPPA * (x_sq * xf)))
-    left = 0.5 * xf
-    left_derivative = 0.5 * (1 + t)
-    right_derivative = left * (1 - t * t) * (GELU_BETA * (1 + GELU_KAPPA3 * x_sq))
-    return (dy.to(acc) * (left_derivative + right_derivative)).to(x.dtype)
+    """``jax.vjp(_gelu)`` at ``x`` applied to ``dy``, op by op in x's dtype
+    in the order of its jaxpr: ``i = tanh(beta (x + kappa x^3))``, ``p =
+    (0.5 (x dy)) (1 - i)``, ``s = beta (p + p i)``, then ``(dy (0.5 (1 +
+    i)) + s) + (kappa s) (3 x^2)``."""
+    kappa, beta = _const(GELU_KAPPA, x.dtype), _const(GELU_BETA, x.dtype)
+    i = torch.tanh(beta * (x + kappa * (x * (x * x))))
+    p = (0.5 * (x * dy)) * (1.0 - i)
+    s = beta * (p + p * i)
+    return (dy * (0.5 * (1.0 + i)) + s) + (kappa * s) * (3.0 * (x * x))
 
 
 def _routed(yr: torch.Tensor) -> torch.Tensor:
@@ -189,26 +226,31 @@ def _routed(yr: torch.Tensor) -> torch.Tensor:
     return yr.transpose(0, 1).reshape(e * per, d)
 
 
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA expands it, ``1 / (1 + exp(-x))``, op by op
+    in x's dtype."""
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def moe_combine_plain(s: torch.Tensor, yr: torch.Tensor, logit: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out, g)``: ``g = sigmoid(logit)`` and ``out = s + routed * g``, in
-    the dtype's ops as the model wrote them before K4e (``routed`` the
-    experts' output in token order)."""
-    g = torch.sigmoid(logit)
+    """``(out, g)``: ``g = 1 / (1 + exp(-logit))`` and ``out = s + routed *
+    g`` (``routed`` the experts' output in token order), op by op in the
+    dtype as ``_moe`` and ``_stage_fn`` round them."""
+    g = _logistic(logit)
     return s + _routed(yr) * g, g
 
 
 def moe_combine_bwd_plain(dy: torch.Tensor, yr: torch.Tensor, g: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(d_yr, d_logit)``, the gradients autograd takes through
-    :func:`moe_combine_plain`: ``dy * g`` back in the expert layout, and
-    ``sigmoid_backward(sum_d(dy * routed), g)``, the products rounded to the
-    dtype and summed in float32."""
+    """``(d_yr, d_logit)`` as ``jax.vjp`` of ``_moe``'s gate and combine
+    takes them: ``dy * g`` back in the expert layout, and ``sum_d(routed *
+    dy) * (g * (1 - g))``, the products in the dtype, the row sum by
+    :func:`_row_sum` rounded to the dtype, every op rounded to it."""
     e, per, d = yr.shape
-    d_routed = dy * g
-    d_g = (dy * _routed(yr)).sum(dim=-1, keepdim=True)
-    return (d_routed.reshape(per, e, d).transpose(0, 1),
-            torch.ops.aten.sigmoid_backward(d_g, g))
+    d_g = _row_sum(_routed(yr) * dy).to(dy.dtype)
+    return ((dy * g).reshape(per, e, d).transpose(0, 1),
+            d_g * (g * (1.0 - g)))
 
 
 def mse_grad_scale(n: int, dtype: torch.dtype) -> float:
@@ -325,7 +367,7 @@ def _elementwise(name: str, x: torch.Tensor, *more: torch.Tensor) -> torch.Tenso
 
 
 def gelu_tanh_fwd(x: torch.Tensor) -> torch.Tensor:
-    """K4c. :func:`gelu_plain`: the tanh GeLU in float32, one rounding out."""
+    """K4c. :func:`gelu_plain`: the tanh GeLU op by op in x's dtype."""
     _check("x", x)
     if x.device.type == "cpu":
         return gelu_plain(x)
@@ -334,8 +376,8 @@ def gelu_tanh_fwd(x: torch.Tensor) -> torch.Tensor:
 
 
 def gelu_tanh_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """K4d. :func:`gelu_bwd_plain`: ``dy * gelu'(x)`` in float32, one
-    rounding out."""
+    """K4d. :func:`gelu_bwd_plain`: ``jax.vjp(_gelu)``'s chain op by op in
+    x's dtype."""
     _check("x", x)
     _check("dy", dy, x)
     if x.device.type == "cpu":
@@ -438,9 +480,10 @@ def mse_loss_fwd(out: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torc
 
 class AddRMSNormFunction(torch.autograd.Function):
     """``(s, n)`` of :func:`add_rms_norm_fwd`, or ``n`` alone without
-    ``delta``. Saves ``s`` and ``rstd``; the backward folds the gradient that
-    reaches ``s`` from the residual stream (``g_s``) into K4b's single
-    rounding, and gives the sum to both ``x`` and ``delta``."""
+    ``delta``. Saves ``s`` and ``rstd``; the backward hands K4b the gradient
+    that reaches ``s`` from the residual stream (``g_s``), which it adds
+    where JAX's backward adds it, and gives the result to both ``x`` and
+    ``delta``."""
 
     @staticmethod
     def forward(ctx, x, delta):
@@ -500,25 +543,27 @@ def add_rms_norm(
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """The tanh GeLU, differentiable."""
+    """The tanh GeLU, differentiable: ``_gelu`` and its ``jax.vjp``, which
+    the reference rounds op by op (in bfloat16, every op to bfloat16)."""
     return GeluFunction.apply(x)
 
 
 def moe_combine(s: torch.Tensor, yr: torch.Tensor, logit: torch.Tensor) -> torch.Tensor:
-    """``s + routed(yr) * sigmoid(logit)``, differentiable."""
+    """``s + routed(yr) * sigmoid(logit)``, differentiable, with the sigmoid
+    as ``1 / (1 + exp(-logit))``: ``_moe``'s gate and combine and their
+    ``jax.vjp``, which the reference rounds op by op (in bfloat16, every op
+    to bfloat16)."""
     return MoECombineFunction.apply(s, yr, logit)
 
 
 __all__ = [
     "AddRMSNormFunction",
     "GeluFunction",
-    "GELU_BWD_TOL",
-    "GELU_TOL",
-    "MOE_TOL",
     "MSE_TOL",
     "MoECombineFunction",
     "NORM_HOLD",
     "NORM_TOL",
+    "TRANSCENDENTAL_ULPS",
     "add_rms_norm",
     "add_rms_norm_fwd",
     "add_rms_norm_plain",

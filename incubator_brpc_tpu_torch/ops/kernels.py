@@ -21,8 +21,9 @@ its plain version on the card, and CPU execution runs them.
 
 The kernels are built at first use: ``nvcc`` compiles each source of
 ``csrc/`` (``framing.cu`` here; ``attention.cu``, ``attention_tc.cu``,
-``attention_tf32.cu`` and ``attention_bwd_tc.cu`` for K3, whose wrappers
-are in ``ops/attention.py``, the last three sharing ``tc_mma.cuh``;
+``attention_tf32.cu``, ``attention_bwd_tc.cu`` and ``attention_bwd_tf32.cu``
+for K3, whose wrappers are in ``ops/attention.py``, the last four sharing
+``tc_mma.cuh``;
 ``quantize.cu`` for K2, whose wrappers are in ``ops/quantize.py``;
 ``elementwise.cu`` for K4 and K4e-b/c/d, whose wrappers are in
 ``ops/elementwise.py``; and ``update.cu`` for K4e-a,
@@ -55,7 +56,7 @@ EREQUEST = 1003
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG_DIR / "csrc" / f for f in (
     "framing.cu", "attention.cu", "attention_tc.cu", "attention_tf32.cu", "attention_bwd_tc.cu",
-    "quantize.cu", "elementwise.cu", "update.cu"))
+    "attention_bwd_tf32.cu", "quantize.cu", "elementwise.cu", "update.cu"))
 # included by the tensor-core sources, and by elementwise.cu and update.cu
 HEADERS = (_PKG_DIR / "csrc" / "tc_mma.cuh", _PKG_DIR / "csrc" / "elementwise.cuh")
 BUILD_DIR = _PKG_DIR / "_build"
@@ -78,7 +79,7 @@ KERNELS = (
     "attn_fold_fwd_tf32",
     "attn_fold_fwd_tc",
     "attn_bwd_delta",
-    "attn_bwd_dkdv",
+    "attn_bwd_dkdv_tf32",
     "attn_bwd_dkdv_tc",
     "attn_bwd_dq",
     "attn_bwd_dq_tc",
@@ -198,10 +199,7 @@ def build() -> ctypes.CDLL:
                 p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, c_int, c_int, p
             ]
             lib.tb_attn_bwd_delta.argtypes = [p, p, c_int, p, i64, i64, i64, i64, p]
-            lib.tb_attn_bwd_dkdv.argtypes = [
-                p, p, p, p, c_int, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
-            ]
-            lib.tb_attn_bwd_dkdv_tc.argtypes = [
+            lib.tb_attn_bwd_dkdv_tc.argtypes = lib.tb_attn_bwd_dkdv_tf32.argtypes = [
                 p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
             ]
             lib.tb_attn_bwd_dq.argtypes = [
@@ -228,7 +226,7 @@ def build() -> ctypes.CDLL:
             ]
             for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
                        lib.tb_attn_fold_fwd_tf32, lib.tb_attn_fold_fwd_tc, lib.tb_attn_bwd_delta,
-                       lib.tb_attn_bwd_dkdv, lib.tb_attn_bwd_dkdv_tc, lib.tb_attn_bwd_dq,
+                       lib.tb_attn_bwd_dkdv_tf32, lib.tb_attn_bwd_dkdv_tc, lib.tb_attn_bwd_dq,
                        lib.tb_attn_bwd_dq_tc, lib.tb_quantize_rows,
                        lib.tb_dequant_mean_rows, lib.tb_add_rms_norm_fwd, lib.tb_rms_norm_bwd,
                        lib.tb_gelu_tanh_fwd, lib.tb_gelu_tanh_bwd, lib.tb_moe_combine_fwd,

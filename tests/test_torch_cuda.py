@@ -1,19 +1,20 @@
 """The port's CUDA kernels and endpoint on the card: each K1 kernel against
 its plain version, bit for bit, the endpoint's calls answered through the
 kernels, K3 (the ring-attention fold and its gradient, on the tensor cores
-for bf16 at any D up to 1024 and in any layout; the f32 fold in 3xTF32 on
-them too, within chip_smoke.py's f32 tolerance) against its plain
+for bf16 at any D up to 1024 and in any layout; the f32 fold and dK/dV in
+3xTF32 on them too, within chip_smoke.py's f32 tolerance) against its plain
 versions within the tolerances of ``chip_smoke.py``, K4 (the residual add
-and RMS norm, on both sides of the rows it keeps in registers, the tanh
-GeLU, and their backwards) against its plain versions within the
-tolerances ``ops/elementwise.py`` states, one FabricNet
+and RMS norm, on both sides of the rows it keeps in registers, within
+``NORM_TOL``; the norm's backward, the tanh GeLU and its backward bit for
+bit, but for elements within ``TRANSCENDENTAL_ULPS`` that pass through
+tanhf) against its plain versions, one FabricNet
 train step on the card against the CPU, K2 (block quantize and dequantize-mean)
 against its plain versions and the numpy twin bit for bit on
 ``chip_smoke.py``'s rows, one quantized session on the card against the
 same session on the CPU, byte for byte, and K4e (the SGD update bit for bit
-against its plain version; the MoE's gate and combine and the loss within
-the tolerances ``ops/elementwise.py`` states) with the sliced schedules on
-the card against the CPU. Marked ``gpu``; each test skips
+against its plain version; the MoE's gate and combine bit for bit but for
+elements within ``TRANSCENDENTAL_ULPS`` that pass through expf; the loss
+within ``MSE_TOL``) with the sliced schedules on the card against the CPU. Marked ``gpu``; each test skips
 where PyTorch sees no CUDA card.
 
 This file imports no JAX, so on a card machine without JAX it runs with
@@ -40,7 +41,7 @@ K1 = ("frame_rows", "verify_rows", "echo_step_rows")
 # the K3 kernels each operand dtype launches: the fold, dK/dV and dQ follow
 # the dtype (tensor cores for bf16), delta takes both
 FOLD = {torch.float32: "attn_fold_fwd_tf32", torch.bfloat16: "attn_fold_fwd_tc"}
-DKDV = {torch.float32: "attn_bwd_dkdv", torch.bfloat16: "attn_bwd_dkdv_tc"}
+DKDV = {torch.float32: "attn_bwd_dkdv_tf32", torch.bfloat16: "attn_bwd_dkdv_tc"}
 DQ = {torch.float32: "attn_bwd_dq", torch.bfloat16: "attn_bwd_dq_tc"}
 K3_BOTH = ("attn_bwd_delta",)
 
@@ -220,6 +221,34 @@ def test_tf32_fold_holds_the_f32_tolerance(cuda, shape, causal):
     assert not any(n in after for n in chip_smoke.REMOVED)
 
 
+@pytest.mark.parametrize("shape", F32_FOLD_SHAPES,
+                         ids=["small", "d144", "d1024-sp4", "d1024", "d24", "d20", "d18"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_tf32_dkdv_holds_the_f32_tolerance(cuda, shape, causal):
+    """``attn_bwd_dkdv_tf32`` (f32 operands, 3xTF32 on the tensor cores)
+    against ``dkdv_plain`` on the same inputs within ``chip_smoke.k3_tolerances``'
+    2e-5 x max(1, max |plain|), one launch a call, and the CUDA-core
+    ``attn_bwd_dkdv`` it replaced is gone."""
+    b, t, h, d, sp = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(shape) + 2 * causal)
+    q, k, v, dout = _qkvo(gen, (b, t, h, d), torch.float32, cuda)
+    out, lse, _ = attention.forward(q, k, v, sp=sp, causal=causal)
+    delta = attention.row_dot(out, dout)
+    before = kernels.launch_counts()
+    dk, dv = attention.dkdv(q, k, v, dout, lse, delta, sp=sp, causal=causal)
+    after = kernels.launch_counts()
+    assert after["attn_bwd_dkdv_tf32"] == before["attn_bwd_dkdv_tf32"] + 1
+    assert after["attn_bwd_dkdv_tc"] == before["attn_bwd_dkdv_tc"]
+    assert "attn_bwd_dkdv" in chip_smoke.REMOVED and "attn_bwd_dkdv" not in after
+    tol = chip_smoke.k3_tolerances(torch)[torch.float32]
+    for got, want in zip((dk, dv), attention.dkdv_plain(q, k, v, dout, lse, delta, sp=sp,
+                                                        causal=causal)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol * scale
+
+
 def test_tensor_core_fold_refuses_a_head_dimension_off_its_k_step(cuda):
     """Once a refusal, now a value check: bf16 at D = 24 (16-byte rows, off
     the k-step of 16) and D = 20 (8-byte rows) runs on the tensor-core fold,
@@ -294,9 +323,10 @@ def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
         params, loss = step(params, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
         after = kernels.launch_counts()
         results[dev] = (float(loss), {k: p.cpu() for k, p in params.items()})
-        if dev == "cuda":  # f32: the 3xTF32 fold, the CUDA-core dK/dV and dQ
+        if dev == "cuda":  # f32: the 3xTF32 fold and dK/dV, the CUDA-core dQ
             assert all(after[n] == before[n] + cfg.microbatches
-                       for n in ("attn_fold_fwd_tf32", "attn_bwd_dkdv", "attn_bwd_dq") + K3_BOTH)
+                       for n in ("attn_fold_fwd_tf32", "attn_bwd_dkdv_tf32", "attn_bwd_dq")
+                       + K3_BOTH)
             assert all(after[n] == before[n]
                        for n in ("attn_fold_fwd_tc", "attn_bwd_dkdv_tc", "attn_bwd_dq_tc"))
             assert {n: after[n] - before[n] for n in chip_smoke.K4} == \
@@ -419,7 +449,7 @@ def test_sliced_schedules_on_the_card_match_the_cpu(cuda, slices):
         results[(dev, schedule)] = (torch.stack(losses).cpu(),
                                     {k: p.cpu() for k, p in params.items()})
         if dev == "cuda":
-            want = {**{n: 2 * slices for n in ("attn_fold_fwd_tf32", "attn_bwd_dkdv",
+            want = {**{n: 2 * slices for n in ("attn_fold_fwd_tf32", "attn_bwd_dkdv_tf32",
                                                 "attn_bwd_dq") + K3_BOTH},
                     **{n: 2 * v for n, v in chip_smoke.k4_launches_per_step(cfg).items()},
                     **{n: 2 * v for n, v in chip_smoke.k4e_launches_per_step(cfg, schedule).items()}}

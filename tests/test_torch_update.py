@@ -16,8 +16,13 @@ Tolerances:
   the float32 loss within 1e-6 relative (XLA:CPU and PyTorch add the
   squares in another order);
 - the MoE combine and its gradient ``torch.equal`` to the model's
-  expression before K4e and to autograd through it; ``gradcheck`` in
-  float64;
+  expression before K4e (with the gate as the reference computes it, ``1 /
+  (1 + exp(-x))`` op by op and JAX's derivative ``g (1 - g)``) and to
+  autograd through it; ``gradcheck`` in float64; the gate, ``out`` and
+  ``d_yr`` bit for bit JAX's ``_moe`` with ``_stage_fn``'s residual add (in
+  bfloat16; float32 within 1e-6, XLA:CPU contracting ``s + yr g`` into an
+  FMA and using its own exp), ``d_logit`` too but for the row sum, which
+  JAX takes in bf16 and the port exactly: the differing elements pinned;
 - the sliced schedules against JAX's on the one-device mesh as
   ``tests/test_torch_fabricnet.py`` holds the fused step: float32 within
   1e-5 relative to each parameter's largest value after 1 and 3 steps,
@@ -247,13 +252,46 @@ def _moe_inputs(dtype, t=12, e=2, d=33, seed=5):
     return [torch.from_numpy(a).to(dtype) for a in arrays]
 
 
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid`` as the reference computes it: ``1 / (1 + exp(-x))``
+    op by op in x's dtype, and JAX's derivative ``d (g (1 - g))``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        g = torch.reciprocal(1.0 + torch.exp(-x))
+        ctx.save_for_backward(g)
+        return g
+
+    @staticmethod
+    def backward(ctx, d):
+        (g,) = ctx.saved_tensors
+        return d * (g * (1.0 - g))
+
+
+class _Broadcast(torch.autograd.Function):
+    """``g`` (t, 1) broadcast over the d columns of ``like``; its backward
+    sums the columns as the port does (exactly, in float64, rounded to
+    float32 and then to the dtype) where autograd's broadcast would sum in
+    float32 in its own order."""
+
+    @staticmethod
+    def forward(ctx, g, like):
+        return g.expand_as(like)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.sum(-1, keepdim=True, dtype=torch.float64).to(
+            torch.promote_types(grad.dtype, torch.float32)).to(grad.dtype), None
+
+
 def _old_moe_tail(s, yr, logit):
     """The model's expression before K4e: ``_moe``'s gate and
-    ``routed_out * g``, then ``_stage_fn``'s ``s + ...``."""
+    ``routed_out * g``, then ``_stage_fn``'s ``s + ...``, with the gate
+    stated as the reference computes it (:class:`_Logistic`) and its
+    broadcast summed back as the port sums it (:class:`_Broadcast`)."""
     e, per, d = yr.shape
-    g = torch.sigmoid(logit)
     routed_out = yr.transpose(0, 1).reshape(e * per, d)
-    return s + routed_out * g
+    return s + routed_out * _Broadcast.apply(_Logistic.apply(logit), routed_out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
@@ -261,13 +299,79 @@ def _old_moe_tail(s, yr, logit):
 def test_moe_combine_equals_the_old_expression_and_its_gradient(dtype, t, e, d):
     s, yr, logit, dy = _moe_inputs(dtype, t, e, d)
     out, g = E.moe_combine_fwd(s, yr, logit)
-    assert torch.equal(out, _old_moe_tail(s, yr, logit)) and torch.equal(g, torch.sigmoid(logit))
+    assert torch.equal(out, _old_moe_tail(s, yr, logit)) and torch.equal(g, _Logistic.apply(logit))
     leaves = [x.clone().requires_grad_() for x in (s, yr, logit)]
     want = torch.autograd.grad(_old_moe_tail(*leaves), leaves, dy)
     leaves = [x.clone().requires_grad_() for x in (s, yr, logit)]
     got = torch.autograd.grad(E.moe_combine(*leaves), leaves, dy)
     for name, a, b in zip(("d_s", "d_yr", "d_logit"), got, want):
         assert a.shape == b.shape and torch.equal(a, b), name
+
+
+# (t = d tokens, e experts, d_expert): the tokens are the identity, so
+# d(gate_w) of ``_moe`` is d_logit itself; and the bf16 d_logit elements
+# that differ from JAX's (its row sum in bf16), pinned
+MOE_JAX_SHAPES = [(32, 2, 16), (96, 3, 8)]
+MOE_DLOGIT_DIFFERING = {(32, 2, 16): 21, (96, 3, 8): 68}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,e,fe", MOE_JAX_SHAPES, ids=["32x2", "96x3"])
+def test_moe_combine_is_jaxs_moe_and_stage_add(dtype, t, e, fe):
+    """K4e-b/c against ``_moe`` itself (ep = 1, inside ``shard_map``) and
+    ``_stage_fn``'s ``x + _moe(...)``: the port is handed JAX's gate logit
+    and experts' output and gives ``out`` (bf16 bit for bit) and the gate
+    (bit for bit ``jax.nn.sigmoid``); ``d_logit`` is ``_moe``'s gradient of
+    ``gate_w`` (the tokens are the identity), bit for bit but for the rows
+    whose sum JAX rounds otherwise (bf16: pinned, and within one bf16 ulp
+    of max(1, max |JAX's|)); ``d_yr`` bit for bit ``jax.vjp`` of the
+    combine stated with ``jax.nn.sigmoid``. f32 within the forward's 1e-6
+    and the gradients' 1e-5."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from incubator_brpc_tpu.parallel.compat import shard_map_compat
+
+    d = t
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(t + e)
+    w1, w2 = (jnp.asarray(rng.standard_normal(sh) / np.sqrt(sh[1]), jdt)
+              for sh in ((e, d, fe), (e, fe, d)))
+    gate_w = jnp.asarray(rng.standard_normal((d, 1)) * 2, jdt)
+    x = jnp.eye(t, dtype=jdt).reshape(1, t, d)
+    s, dy = (jnp.asarray(rng.standard_normal((1, t, d)), jdt) for _ in range(2))
+    mesh = Mesh(np.array(jax.devices()[:1]), ("ep",))
+
+    def stage(s, w1, w2, gate_w, x, dy):
+        out, vjp = jax.vjp(lambda gw: s + jax_fn._moe(w1, w2, gw, x), gate_w)
+        return out, vjp(dy)[0]
+
+    j_out, j_dgate = jax.jit(shard_map_compat(stage, mesh=mesh, in_specs=(P(),) * 6,
+                                              out_specs=(P(), P())))(s, w1, w2, gate_w, x, dy)
+    tokens = x.reshape(t, d)
+    logit = jax.jit(lambda a, b: a @ b)(tokens, gate_w)
+    yr = jax.jit(lambda xr, w1, w2: jnp.einsum(
+        "etf,efd->etd", jax_fn._gelu(jnp.einsum("etd,edf->etf", xr, w1)), w2))(
+        tokens.reshape(t // e, e, d).swapaxes(0, 1), w1, w2)
+    T = lambda a: torch.from_numpy(np.array(a, np.float32)).to(tdt)  # noqa: E731
+    out, g = E.moe_combine_fwd(T(s).reshape(t, d), T(yr), T(logit))
+    d_yr, d_logit = E.moe_combine_bwd(T(dy).reshape(t, d), T(yr), g)
+    want_g = jax.jit(jax.nn.sigmoid)(logit)
+    want_dyr = jax.jit(lambda s, yr, lg, dy: jax.vjp(
+        lambda yr: s + yr.swapaxes(0, 1).reshape(t, d) * jax.nn.sigmoid(lg), yr)[1](dy)[0])(
+        s.reshape(t, d), yr, logit, dy.reshape(t, d))
+    if dtype == "float32":  # FWD_TOL and GRAD_TOL of tests/test_torch_elementwise.py
+        for got, want, tol in ((g, want_g, 1e-6), (out, j_out.reshape(t, d), 1e-6),
+                               (d_yr, want_dyr, 1e-5), (d_logit, j_dgate, 1e-5)):
+            np.testing.assert_allclose(_bits(got), _bits(want), rtol=0,
+                                       atol=tol * max(1.0, float(np.abs(_bits(want)).max())))
+        return
+    assert _differing(g, want_g) == 0
+    assert _differing(d_yr, want_dyr) == 0
+    assert _differing(out, j_out.reshape(t, d)) == 0
+    assert _differing(d_logit, j_dgate) == MOE_DLOGIT_DIFFERING[(t, e, fe)]
+    # within one bf16 ulp of max(1, max |JAX's|), as the norm's gradient
+    np.testing.assert_allclose(_bits(d_logit), _bits(j_dgate), rtol=0,
+                               atol=2.0 ** -7 * max(1.0, float(np.abs(_bits(j_dgate)).max())))
 
 
 def test_moe_combine_gradcheck_float64():
