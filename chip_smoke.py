@@ -3,8 +3,8 @@
 path (K1), the FabricNet train step with ring attention (K3), its
 elementwise chain (K4) and the rest of what XLA fuses around its matrix
 products (K4e: the SGD update, the MoE's gate and combine, the loss), in
-the fused and the sliced schedules, and the quantized collective sessions
-(K2).
+the fused and the sliced schedules, the step with heads = 0 and its ring
+mean (K4f), and the quantized collective sessions (K2).
 
     python3 chip_smoke.py [--out FILE]
 
@@ -29,9 +29,9 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
-   ``attn_bwd_dq_tc``; for f32 the fold and dK/dV on the tensor cores in
-   3xTF32, ``attn_fold_fwd_tf32`` and ``attn_bwd_dkdv_tf32``, and dQ on the
-   CUDA cores, ``attn_bwd_dq``; ``attn_bwd_delta`` for both)
+   ``attn_bwd_dq_tc``; for f32 the fold, dK/dV and dQ on the tensor cores
+   in 3xTF32, ``attn_fold_fwd_tf32``, ``attn_bwd_dkdv_tf32`` and
+   ``attn_bwd_dq_tf32``; ``attn_bwd_delta`` for both)
    against its plain
    versions at the bench attention shape (B 4, T 1024, H 2, D 1024; sp 1
    and 4; bf16 and f32; causal and not), two ragged ones (B 2, T 48, H 4,
@@ -61,7 +61,11 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    d_logit and the loss's d_out bit for bit, its gate and out bit for bit
    but for elements within ``TRANSCENDENTAL_ULPS`` (expf), the loss within
    ``MSE_TOL``, the differing elements counted, the loss bitwise on a
-   rerun;
+   rerun; then K4f (``ring_mean_add_fwd`` with delta and without,
+   ``ring_mean_add_bwd``) bit for bit against its plain versions in bf16
+   and f32 at ``K4F_CASES``: the bench width (4, 1024, 2048), a ragged T,
+   an odd d, inputs one element off 16-byte alignment, and a T whose
+   column tile does not fit in shared memory;
 6. runs one FabricNet train step (d_model 32, heads 2, two layers, f32) on
    the card and on the CPU from the same numpy weights and compares them;
 7. drives the second main path with the launch counts set to zero: 10
@@ -70,8 +74,8 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    with ms per step, FLOPs per step, TFLOP/s, peak memory and K3 launches
    (one ``attn_fold_fwd_tc``, ``attn_bwd_delta``, ``attn_bwd_dkdv_tc`` and
    ``attn_bwd_dq_tc`` a step, no ``attn_fold_fwd_tf32``,
-   ``attn_bwd_dkdv_tf32`` or ``attn_bwd_dq``, and never the removed
-   CUDA-core ``attn_fold_fwd`` or ``attn_bwd_dkdv``; K4: 6
+   ``attn_bwd_dkdv_tf32`` or ``attn_bwd_dq_tf32``, and never the removed
+   CUDA-core ``attn_fold_fwd``, ``attn_bwd_dkdv`` or ``attn_bwd_dq``; K4: 6
    ``add_rms_norm_fwd``, 5 ``rms_norm_bwd`` (the first norm reads the
    batch, which takes no gradient), 5 ``gelu_tanh_fwd`` and 5
    ``gelu_tanh_bwd`` a step); then 3 steps of the
@@ -86,10 +90,15 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    (K3 and K4 twice the one-slice counts, the update once, the combine and
    the loss once a slice); ms a step for each, their difference, peak
    memory;
+7c. drives the heads = 0 path with the launch counts set to zero: 10 train
+   steps at the ``bench_fabricnet`` width with heads = 0 (bf16), the loss
+   finite and falling, ms a step on the host clock after 2 warm-up steps,
+   peak memory, the launches a step asserted (K4f's forward and backward
+   once each, K4a 5, no K3 kernel); device time over two profiled steps,
+   and the same with K4f's plain versions, as a record;
 8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16;
    the tensor-core fold also at B 1, 64 blocks; the f32 fold, dK/dV and dQ
-   at sp 1 in f32, the fold's and dK/dV's bounds as 3xTF32 work) with CUDA
-   events beside
+   at sp 1 in f32, their bounds as 3xTF32 work) with CUDA events beside
    its bound, its plain version and ``scaled_dot_product_attention``'s
    forward and backward on the same tensors; times K4 at the bench shapes
    in bf16 (K4a also in f32) behind a spin kernel beside its bound, its
@@ -98,8 +107,10 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    which round once where the reference rounds op by op: not the same
    function); times K4e likewise beside ``torch._foreach_add_``
    (for the update; it rounds once, so it is not the same function) and
-   ``F.mse_loss`` forward and backward; prints K4f's bound (still to
-   port); and breaks two bf16 train steps, then two f32 ones, down by
+   ``F.mse_loss`` forward and backward; times K4f's forward and gradient
+   at (4, 1024, 2048) bf16 likewise beside their bounds and plain versions
+   (no PyTorch call computes either); and breaks two bf16 train steps,
+   then two f32 ones, down by
    kernel with torch.profiler (device busy and idle share; groups K3, K4,
    K4e, cuBLAS, and PyTorch's own elementwise ops and copies);
 9. holds K2 (``quantize_rows``, ``dequant_mean_rows``) against its plain
@@ -151,20 +162,21 @@ BF16_TC_FLOPS_PER_S = 989e12
 
 K1 = ("frame_rows", "verify_rows", "echo_step_rows")
 K3 = ("attn_fold_fwd_tf32", "attn_fold_fwd_tc", "attn_bwd_delta", "attn_bwd_dkdv_tf32",
-      "attn_bwd_dkdv_tc", "attn_bwd_dq", "attn_bwd_dq_tc")
-# the CUDA-core f32 fold and dK/dV, which attn_fold_fwd_tf32 and
-# attn_bwd_dkdv_tf32 replaced: they must launch nowhere
-REMOVED = ("attn_fold_fwd", "attn_bwd_dkdv")
+      "attn_bwd_dkdv_tc", "attn_bwd_dq_tf32", "attn_bwd_dq_tc")
+# the CUDA-core f32 fold, dK/dV and dQ, which attn_fold_fwd_tf32,
+# attn_bwd_dkdv_tf32 and attn_bwd_dq_tf32 replaced: they must launch nowhere
+REMOVED = ("attn_fold_fwd", "attn_bwd_dkdv", "attn_bwd_dq")
 # the fold, dK/dV and dQ kernels each operand dtype launches (ops/attention.py
 # fold, dkdv, dq); attn_bwd_delta takes both
 FOLD = {"float32": "attn_fold_fwd_tf32", "bfloat16": "attn_fold_fwd_tc"}
 DKDV = {"float32": "attn_bwd_dkdv_tf32", "bfloat16": "attn_bwd_dkdv_tc"}
-DQ = {"float32": "attn_bwd_dq", "bfloat16": "attn_bwd_dq_tc"}
+DQ = {"float32": "attn_bwd_dq_tf32", "bfloat16": "attn_bwd_dq_tc"}
 K3_BOTH = ("attn_bwd_delta",)
 K3_F32 = (FOLD["float32"], DKDV["float32"], DQ["float32"])  # timed, and counted, in f32
 K3_SOURCE = {"attn_fold_fwd_tc": "incubator_brpc_tpu_torch/csrc/attention_tc.cu",
              "attn_fold_fwd_tf32": "incubator_brpc_tpu_torch/csrc/attention_tf32.cu",
              "attn_bwd_dkdv_tf32": "incubator_brpc_tpu_torch/csrc/attention_bwd_tf32.cu",
+             "attn_bwd_dq_tf32": "incubator_brpc_tpu_torch/csrc/attention_bwd_tf32.cu",
              "attn_bwd_dkdv_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu",
              "attn_bwd_dq_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu"}
 # bench.py bench_fabricnet: d_model 2048 over heads 2 -> D 1024, batch 4, seq 1024
@@ -196,7 +208,7 @@ REPLACES = {
     "attn_bwd_delta": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dkdv_tf32": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dkdv_tc": "incubator_brpc_tpu/models/ring_attention.py:48",
-    "attn_bwd_dq": "incubator_brpc_tpu/models/ring_attention.py:48",
+    "attn_bwd_dq_tf32": "incubator_brpc_tpu/models/ring_attention.py:48",
     "attn_bwd_dq_tc": "incubator_brpc_tpu/models/ring_attention.py:48",
     "add_rms_norm_fwd": "incubator_brpc_tpu/models/fabricnet.py:119",
     "rms_norm_bwd": "incubator_brpc_tpu/models/fabricnet.py:119",
@@ -206,6 +218,8 @@ REPLACES = {
     "moe_combine_fwd": "incubator_brpc_tpu/models/fabricnet.py:175",
     "moe_combine_bwd": "incubator_brpc_tpu/models/fabricnet.py:175",
     "mse_loss_fwd": "incubator_brpc_tpu/models/fabricnet.py:268",
+    "ring_mean_add_fwd": "incubator_brpc_tpu/models/fabricnet.py:138",
+    "ring_mean_add_bwd": "incubator_brpc_tpu/models/fabricnet.py:138",
 }
 KINDS = ("valid", "bad_magic", "bad_length", "flipped_word", "unknown_method")
 K4 = ("add_rms_norm_fwd", "rms_norm_bwd", "gelu_tanh_fwd", "gelu_tanh_bwd")
@@ -230,6 +244,16 @@ K4E_SOURCE = {"sgd_update_multi": "incubator_brpc_tpu_torch/csrc/update.cu",
               "moe_combine_fwd": "incubator_brpc_tpu_torch/csrc/elementwise.cu",
               "moe_combine_bwd": "incubator_brpc_tpu_torch/csrc/elementwise.cu",
               "mse_loss_fwd": "incubator_brpc_tpu_torch/csrc/elementwise.cu"}
+# K4f, the heads = 0 ring mean (ops/elementwise.py ring_mean_add_fwd / _bwd);
+# its kernel is one template, ring_mean_add, in ptxas's report and the profile
+K4F = ("ring_mean_add_fwd", "ring_mean_add_bwd")
+K4F_KERNEL = "ring_mean_add"
+# K4f's (batch, T, d) and whether every input starts one element into its
+# buffer: the bench width, a ragged T, an odd d, one element off 16-byte
+# alignment, and a T whose 128-byte column tile does not fit in shared
+# memory (pass 2 reads the inputs again)
+K4F_CASES = [((4, 1024, 2048), False), ((2, 37, 2048), False), ((3, 50, 33), False),
+             ((2, 100, 2048), True), ((1, 2048, 256), False)]
 # bench.py:926 bench_fabricnet_overlap: bench_fabricnet's width with two slices
 BENCH_OVERLAP = dict(BENCH_FABRICNET, microbatches=2)
 # K4e-b/c's (t, e, d): the bench's one microbatch (4096 tokens, 2 experts, d_model
@@ -344,10 +368,16 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+SPIN_TRIES = 3  # runs device_ms makes, each behind a longer spin, before it gives up
+
+
 def device_ms(torch, fn, iters: int, warmup: int = 2):
     """Mean device time of ``fn`` over ``iters`` calls queued behind a spin
     kernel, so the host's cost of each call is off the clock: (ms, whether
-    the host finished queueing before the spin ended)."""
+    the host finished queueing before the spin ended). The spin lasts four
+    times the host's time for ``iters`` calls; where the host was not done
+    when it ended (a host shared with other work can stall), the run is
+    made again behind a spin four times as long, up to ``SPIN_TRIES`` runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -355,17 +385,21 @@ def device_ms(torch, fn, iters: int, warmup: int = 2):
     fn()
     torch.cuda.synchronize()
     spin_s = max(4 * iters * (time.perf_counter() - t0), 2e-3)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    spin_end = torch.cuda.Event()
-    torch.cuda._sleep(int(spin_s * 2e9))  # cycles at up to 2 GHz
-    spin_end.record()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    queued_in_time = not spin_end.query()
-    end.synchronize()
+    for _ in range(SPIN_TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spin_end = torch.cuda.Event()
+        torch.cuda._sleep(int(spin_s * 2e9))  # cycles at up to 2 GHz
+        spin_end.record()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not spin_end.query()
+        end.synchronize()
+        if queued_in_time:
+            break
+        spin_s *= 4
     return start.elapsed_time(end) / iters, queued_in_time
 
 
@@ -745,11 +779,11 @@ def k3_timings(torch, attention, gen, dev, sp):
 
 def k3_f32_timings(torch, attention, gen, dev):
     """CUDA-event times of the kernels float32 operands take, at the bench
-    attention shape, causal, sp 1: the fold and dK/dV on the tensor cores in
-    3xTF32 (their bounds: three tf32 products for each of the function's, at
-    the TF32 tensor-core peak, or their f32 bytes, the larger; beside each
-    the f32-FMA bound of the CUDA-core kernel it replaced), dQ on the CUDA
-    cores, each beside its plain version; SDPA's forward and its backward
+    attention shape, causal, sp 1: the fold, dK/dV and dQ on the tensor
+    cores in 3xTF32 (their bounds: three tf32 products for each of the
+    function's, at the TF32 tensor-core peak, or their f32 bytes, the
+    larger; beside each the f32-FMA bound of the CUDA-core kernel it
+    replaced), each beside its plain version; SDPA's forward and its backward
     (forward + backward less forward) on the same f32 tensors, the backward
     beside the three f32 backward kernels together, which compute its
     function."""
@@ -779,13 +813,10 @@ def k3_f32_timings(torch, attention, gen, dev):
     res = {}
     for name, (kern, plain, products, nbytes) in cases.items():
         fl = attention.attention_flops(b, t, h, d, causal=True, products=products)
-        if name in (FOLD["float32"], DKDV["float32"]):  # 3xTF32: three tf32 products for each
-            bound, by, _ = k3_bounds(3 * fl, nbytes, TF32_TC_FLOPS_PER_S)
-            extra = {"tensor_core_bound_ms": 3 * fl / TF32_TC_FLOPS_PER_S * 1e3, "tf32_flops": 3 * fl,
-                     "f32_fma_bound_ms": fl / F32_FLOPS_PER_S * 1e3}
-        else:
-            bound, by, tc = k3_bounds(fl, nbytes)
-            extra = {"tensor_core_bound_ms": tc}
+        # 3xTF32: three tf32 products for each
+        bound, by, _ = k3_bounds(3 * fl, nbytes, TF32_TC_FLOPS_PER_S)
+        extra = {"tensor_core_bound_ms": 3 * fl / TF32_TC_FLOPS_PER_S * 1e3, "tf32_flops": 3 * fl,
+                 "f32_fma_bound_ms": fl / F32_FLOPS_PER_S * 1e3}
         res[name] = {"ms": time_ms(torch, kern, 10), "plain_ms": time_ms(torch, plain, 3, warmup=1),
                      "bound_ms": bound, "bound_by": by, "flops": fl, "bytes": nbytes,
                      "library_ms": None, **extra}
@@ -810,8 +841,7 @@ def k3_f32_timings(torch, attention, gen, dev):
         for name, r in res.items())
         + "".join(f"; {n}'s bound as 3xTF32 ({res[n]['tf32_flops'] / 1e9:.2f} GFLOP at "
                   f"{TF32_TC_FLOPS_PER_S / 1e12:.1f} TFLOP/s), the CUDA-core kernel's f32-FMA "
-                  f"bound {res[n]['f32_fma_bound_ms']:.6f} ms" for n in (FOLD["float32"],
-                                                                          DKDV["float32"]))
+                  f"bound {res[n]['f32_fma_bound_ms']:.6f} ms" for n in K3_F32)
         + f"; scaled_dot_product_attention f32 fwd "
         f"{sdpa_fwd:.6f} ms, bwd {sdpa_bwd:.6f} ms; the three f32 backward kernels "
         f"(attn_bwd_delta, {DKDV['float32']}, {DQ['float32']}) {backward_ms:.6f} ms")
@@ -905,29 +935,84 @@ def k4a_cap_case(torch, E, gen, dev, dtype_name, d, offset, errs):
     return once
 
 
-def k4f_bound():
-    """K4f (still to port, ROADMAP B8): the heads = 0 ring mean at the bench
-    width in bf16, s = x + delta and the sequence mean of s, s read once:
-    x and delta read, s and the (batch, d_model) mean written; two f32
-    operations an element (the add, the sum). Bound, computed, not
-    measured."""
-    b, t, d = BENCH_FABRICNET["batch"], BENCH_FABRICNET["seq"], BENCH_FABRICNET["d_model"]
-    nbytes = 3 * 2 * b * t * d + 2 * b * d
-    bound, by, _ = k3_bounds(2 * b * t * d, nbytes)
-    log(f"phase8 K4f (still to port) at ({b}, {t}, {d}) bf16: {nbytes} B, bound {bound:.6f} ms "
-        f"by {by} (computed, not measured)")
-    return {"bytes": nbytes, "bound_ms": bound, "bound_by": by, "shape": [b, t, d]}
+def k4f_case(torch, E, gen, dev, shape, dtype, offset, errs):
+    """K4f against its plain versions on the same inputs, bit for bit: the
+    forward with delta and without, and the gradient. ``offset``: every
+    input one element into a buffer, off 16-byte alignment."""
+
+    def make(scale):
+        t = (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+        if offset:
+            t = torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:].view(shape).copy_(t)
+        return t
+
+    x, delta, g = make(2.0), make(1.0), make(1.0)
+    label = f"K4f {tuple(shape)} {str(dtype)[6:]}"
+    fwd, bwd = errs["ring_mean_add_fwd"], errs["ring_mean_add_bwd"]
+    parts = [hold(torch, label, "s2", E.ring_mean_add_fwd(x, delta),
+                  E.ring_mean_add_plain(x, delta), None, fwd),
+             hold(torch, label, "s2 without delta", E.ring_mean_add_fwd(x),
+                  E.ring_mean_add_plain(x), None, fwd),
+             hold(torch, label, "g_s", E.ring_mean_add_bwd(g), E.ring_mean_add_bwd_plain(g),
+                  None, bwd)]
+    log(f"phase5 {label}{' one element off 16-byte alignment' if offset else ''}: "
+        + "; ".join(parts))
+
+
+def k4f_bounds(b, t, d):
+    """K4f's bounds at (b, t, d) in bf16: the forward reads x and delta and
+    writes s2, three f32 operations an element (the add, the sum, the add);
+    the gradient reads g and writes g_s, two (the sum, the add). The mean
+    and the column sums stay on the chip."""
+    n = b * t * d
+    out = {}
+    for name, streams, ops in (("ring_mean_add_fwd", 3, 3), ("ring_mean_add_bwd", 2, 2)):
+        bound, by, _ = k3_bounds(ops * n, streams * 2 * n)
+        out[name] = {"bytes": streams * 2 * n, "ops": ops * n, "bound_ms": bound,
+                     "bound_by": by}
+    return out
+
+
+def k4f_timings(torch, E, gen, dev):
+    """Device times (behind a spin kernel) of K4f at the bench_fabricnet
+    width in bf16, (batch 4, seq 1024, d_model 2048), beside their bounds
+    and their plain versions; no single PyTorch call computes either
+    function."""
+    shape = (BENCH_FABRICNET["batch"], BENCH_FABRICNET["seq"], BENCH_FABRICNET["d_model"])
+    x, delta, g = ((torch.randn(shape, generator=gen, device=dev) * sc).to(torch.bfloat16)
+                   for sc in (2.0, 1.0, 1.0))
+    cases = {"ring_mean_add_fwd": (lambda: E.ring_mean_add_fwd(x, delta),
+                                   lambda: E.ring_mean_add_plain(x, delta)),
+             "ring_mean_add_bwd": (lambda: E.ring_mean_add_bwd(g),
+                                   lambda: E.ring_mean_add_bwd_plain(g))}
+    bounds = k4f_bounds(*shape)
+    res = {}
+    for name, (kern, plain) in cases.items():
+        ms, queued = device_ms(torch, kern, 50)
+        res[name] = {"ms": ms, "queued_in_time": queued, "plain_ms": device_ms(torch, plain, 10)[0],
+                     "library_ms": None, "dtype": "bfloat16", "shape": list(shape), **bounds[name]}
+    log("phase8 K4f timings at (4, 1024, 2048) bf16, device time behind a spin kernel: "
+        + "; ".join(f"{name} {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} by {r['bound_by']}, "
+                    f"{r['bytes']} B, {100 * r['bound_ms'] / r['ms']:.1f} %; plain "
+                    f"{r['plain_ms']:.6f}; library none"
+                    + ("" if r["queued_in_time"] else "; host-bound") + ")"
+                    for name, r in res.items()))
+    return res
 
 
 def k4_launches_per_step(cfg):
-    """K4 launches of one train step, per microbatch: K4a for the norm
-    before each MLP layer, the attention block and the MoE; K4b for each of
-    them but the first, whose input is the batch and takes no gradient; K4c
-    and K4d for the GeLU of each MLP layer and of the MoE."""
+    """K4 and K4f launches of one train step, per microbatch: K4a for the
+    norm before each MLP layer, the attention block and the MoE; K4b for
+    each of them but the first, whose input is the batch and takes no
+    gradient; K4c and K4d for the GeLU of each MLP layer and of the MoE;
+    with heads = 0, K4f's forward once, and its backward once where an MLP
+    layer comes before it (else its input is the batch)."""
     m, layers = cfg.microbatches, cfg.layers_per_stage
     norms = layers + bool(cfg.heads) + 1
+    ring = 0 if cfg.heads else m
     return {"add_rms_norm_fwd": m * norms, "rms_norm_bwd": m * (norms - 1),
-            "gelu_tanh_fwd": m * (layers + 1), "gelu_tanh_bwd": m * (layers + 1)}
+            "gelu_tanh_fwd": m * (layers + 1), "gelu_tanh_bwd": m * (layers + 1),
+            "ring_mean_add_fwd": ring, "ring_mean_add_bwd": ring if layers else 0}
 
 
 def k4_timings(torch, E, gen, dev):
@@ -1286,11 +1371,13 @@ def fabricnet_small_card_vs_cpu(torch, fabricnet, dev):
         f"value (tol 1e-5)")
 
 
-def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
+def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup, heads=2):
     """The second main path: ``nsteps`` train steps at the bench_fabricnet
     width in ``dtype``, counted: each K3 kernel of that dtype's path once a
-    step, the other dtype's fold never."""
-    cfg = fabricnet.FabricNetConfig(dtype=dtype, **BENCH_FABRICNET)
+    step, the other dtype's fold never; with ``heads = 0`` (phase 7c) no K3
+    kernel, and K4f once a step each way."""
+    cfg = fabricnet.FabricNetConfig(dtype=dtype, heads=heads, **BENCH_FABRICNET)
+    phase = "phase7" if heads else "phase7c"
     mesh = fabricnet.make_fabric_mesh(1)
     gen = torch.Generator(device=mesh.device)
     gen.manual_seed(0)
@@ -1318,11 +1405,13 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
     path = (FOLD[name], DKDV[name], DQ[name]) + K3_BOTH
     others = (FOLD[other], DKDV[other], DQ[other])
     per_step = {n: launches[n] / nsteps for n in K3}
+    if not heads:
+        path, others = (), K3
     if any(per_step[n] != 1 for n in path) or any(launches[n] for n in others) or any(
             launches.get(n, 0) for n in REMOVED):
-        raise AssertionError(f"FabricNet {name}: K3 launches per step {per_step}; want one of "
-                             f"each of {path}, none of {others + REMOVED}")
-    k4_per_step = {n: launches[n] / nsteps for n in K4}
+        raise AssertionError(f"FabricNet {name} heads {heads}: K3 launches per step {per_step}; "
+                             f"want one of each of {path}, none of {others + REMOVED}")
+    k4_per_step = {n: launches[n] / nsteps for n in K4 + K4F}
     if k4_per_step != k4_launches_per_step(cfg):
         raise AssertionError(f"FabricNet {name}: K4 launches per step {k4_per_step}; want "
                              f"{k4_launches_per_step(cfg)}")
@@ -1332,15 +1421,15 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup):
                              f"{k4e_launches_per_step(cfg)}")
     flops = fabricnet.train_step_flops(cfg)
     tflops = flops / ms * 1e-9
-    log(f"phase7 FabricNet at the bench_fabricnet width ({BENCH_FABRICNET}, heads {cfg.heads}, "
+    log(f"{phase} FabricNet at the bench_fabricnet width ({BENCH_FABRICNET}, heads {cfg.heads}, "
         f"{name}), {nsteps} train steps: losses {losses}")
-    log(f"phase7 {name} {ms:.3f} ms/step (host clock, steps {warmup + 1}-{nsteps}); "
+    log(f"{phase} {name} heads {cfg.heads} {ms:.3f} ms/step (host clock, steps {warmup + 1}-{nsteps}); "
         f"{flops / 1e12:.4f} TFLOP/step (3 x forward, attention without the causal skip); "
         f"{tflops:.2f} TFLOP/s = {100 * tflops / 989:.2f} % of 989 TFLOP/s bf16; "
         f"peak memory {peak} B ({peak / 2**30:.3f} GiB; {base} B allocated when the steps "
         f"began, so the steps' own {peak - base} B); launches {launches}; "
-        f"K3 launches per step {per_step}; K4 launches per step {k4_per_step}; K4e launches "
-        f"per step {k4e_per_step}")
+        f"K3 launches per step {per_step}; K4 and K4f launches per step {k4_per_step}; K4e "
+        f"launches per step {k4e_per_step}")
     return {"ms_per_step": ms, "flops_per_step": flops, "tflops": tflops, "losses": losses,
             "peak_bytes": peak, "base_bytes": base, "launches": launches,
             "nsteps": nsteps}, (step, params, x, y)
@@ -1419,7 +1508,26 @@ def fabricnet_sliced_path(torch, fabricnet, kernels, nsteps=10, reps=3):
             "peak_bytes": peak, "launches_per_step": want}
 
 
-def profile_steps(torch, train, label="bf16"):
+def fabricnet_heads0_path(torch, fabricnet, kernels, E, dev):
+    """Phase 7c: the train step with heads = 0 (the ring mean, K4f, in place
+    of ring attention) at the bench_fabricnet width in bf16, counted as
+    ``fabricnet_main_path`` counts it, after 2 warm-up steps; then device
+    time over two profiled steps, and the same with K4f's plain versions in
+    its autograd function, device time only, as a record."""
+    fab, train = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.bfloat16, 10, 2,
+                                     heads=0)
+    fab["profile"] = profile_steps(torch, train, "heads 0 bf16", "phase7c")
+    saved = E.ring_mean_add_fwd, E.ring_mean_add_bwd
+    E.ring_mean_add_fwd, E.ring_mean_add_bwd = E.ring_mean_add_plain, E.ring_mean_add_bwd_plain
+    try:
+        fab["plain_k4f_profile"] = profile_steps(
+            torch, train, "heads 0 bf16 with K4f's plain versions", "phase7c")
+    finally:
+        E.ring_mean_add_fwd, E.ring_mean_add_bwd = saved
+    return fab
+
+
+def profile_steps(torch, train, label="bf16", phase="phase8"):
     """torch.profiler over two train steps: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1437,19 +1545,19 @@ def profile_steps(torch, train, label="bf16"):
         e, "self_cuda_time_total", 0)
     total = sum(dev_us(e) for e in kern)
     if not total:
-        log(f"phase8 profile of {label} steps: the profiler saw no device time (not measured)")
+        log(f"{phase} profile of {label} steps: the profiler saw no device time (not measured)")
         return None
     groups = {}
     for e in kern:
         name = e.key
         g = ("K3" if "attn_" in name else
              "K4e" if any(k in name for k in ("sgd_update_multi", "moe_combine", "mse_loss")) else
-             "K4" if any(k in name for k in K4) else
+             "K4" if any(k in name for k in K4 + (K4F_KERNEL,)) else
              "matmul" if any(s in name.lower() for s in ("gemm", "nvjet", "xmma", "cutlass")) else
              "PyTorch elementwise and copies")
         groups[g] = groups.get(g, 0.0) + dev_us(e)
     top = sorted(kern, key=dev_us, reverse=True)[:12]
-    log(f"phase8 profile of 2 {label} train steps: wall {wall_us:.1f} us, device busy {total:.1f} us "
+    log(f"{phase} profile of 2 {label} train steps: wall {wall_us:.1f} us, device busy {total:.1f} us "
         f"({100 * total / wall_us:.1f} %, idle {100 - 100 * total / wall_us:.1f} %); by group "
         + ", ".join(f"{g} {v:.1f} us ({100 * v / total:.1f} %)" for g, v in sorted(groups.items())))
     for e in top:
@@ -1516,25 +1624,35 @@ def run_k3_phases(torch, kernels, dev):
     k4e_max_err = {name: max(e.values(), default=0.0) for name, e in k4e_errs.items()}
     log(f"phase5 K4e max_abs_err {k4e_max_err} (sgd_update_multi bitwise); elements differing "
         f"from the plain versions (differing, of, most ulps): {k4e_diff}")
+    k4f_errs = {name: {} for name in K4F}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, offset in K4F_CASES:
+            k4f_case(torch, elementwise, gen, dev, shape, dtype, offset, k4f_errs)
+    k4f_max_err = {name: max(e.values()) for name, e in k4f_errs.items()}
+    log(f"phase5 K4f max_abs_err {k4f_max_err} (bit for bit its plain versions)")
 
     # -- phase 6: FabricNet on the card against the port on the CPU -----------
     fabricnet_small_card_vs_cpu(torch, fabricnet, dev)
 
     # -- phase 7: the FabricNet main path, counted: bf16 (the bench's dtype),
-    # then f32, the path of the 3xTF32 fold and dK/dV and the CUDA-core dQ ----
+    # then f32, the path of the 3xTF32 fold, dK/dV and dQ ---------------------
     fab, train = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.bfloat16, 10, 2)
     fab32, train32 = fabricnet_main_path(torch, fabricnet, kernels, dev, torch.float32, 3, 1)
-    # the f32 path's kernels count the f32 steps' launches
-    launches = dict(fab["launches"], **{n: fab32["launches"][n] for n in K3_F32})
 
     # -- phase 7b: the sliced schedules, counted --------------------------------
     sliced = fabricnet_sliced_path(torch, fabricnet, kernels)
+
+    # -- phase 7c: heads = 0, the ring mean (K4f), counted ------------------------
+    fab0 = fabricnet_heads0_path(torch, fabricnet, kernels, elementwise, dev)
+    # the f32 path's kernels count the f32 steps' launches, K4f the heads = 0 steps'
+    launches = dict(fab["launches"], **{n: fab32["launches"][n] for n in K3_F32},
+                    **{n: fab0["launches"][n] for n in K4F})
 
     # -- phase 8: K3 and K4 timings, and the profile -----------------------
     timings = {sp: k3_timings(torch, attention, gen, dev, sp) for sp in (1, 4)}
     timings[1].update(k3_f32_timings(torch, attention, gen, dev))
     k4 = k4_timings(torch, elementwise, gen, dev)
-    k4["k4f_bound"] = k4f_bound()
+    k4f = k4f_timings(torch, elementwise, gen, dev)
     k4e = k4e_timings(torch, update, elementwise, fabricnet, gen, dev)
     fab["profile"] = profile_steps(torch, train)
     fab32["profile"] = profile_steps(torch, train32, "f32")
@@ -1593,12 +1711,18 @@ def run_k3_phases(torch, kernels, dev):
         last_ms=k4e["sgd_update_multi last"]["ms"],
         last_bound_ms=k4e["sgd_update_multi last"]["bound_ms"],
         library=k4e["sgd_update_multi"]["library"])
+    for name in K4F:
+        line[name] = {k: k4f[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "dtype", "shape")}
+        max_err[name] = k4f_max_err[name]
     line["moe_combine_fwd"]["shape"] = line["moe_combine_bwd"]["shape"] = list(K4E_MOE_SHAPES[0])
     line["mse_loss_fwd"].update(shape=list(K4E_LOSS_SHAPES[0]), kernels_per_launch=2,
                                 sum_ms=k4e["mse_loss_fwd"]["sum_ms"])
     return {"launches": launches, "max_err": max_err, "line": line,
-            "detail": {**{f"sp{sp}": t for sp, t in timings.items()}, "k4": k4, "k4e": k4e},
-            "fabricnet": fab, "fabricnet_f32": fab32, "fabricnet_sliced": sliced}
+            "detail": {**{f"sp{sp}": t for sp, t in timings.items()}, "k4": k4, "k4e": k4e,
+                       "k4f": k4f},
+            "fabricnet": fab, "fabricnet_f32": fab32, "fabricnet_sliced": sliced,
+            "fabricnet_heads0": fab0}
 
 
 # -- K2 and the quantized collective sessions (phases 9-11) --------------------
@@ -1913,7 +2037,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"phase1 build: {time.perf_counter() - t0:.3f}s")
-    ptxas = ptxas_report(kernels.build_log(), K3 + K4 + K4E + ("mse_loss_sum",))
+    ptxas = ptxas_report(kernels.build_log(), K3 + K4 + K4E + ("mse_loss_sum", K4F_KERNEL))
     for name, entries in ptxas.items():
         for e in entries:
             log(f"  ptxas {name}: {e.get('registers')} registers, spill stores "
@@ -2041,6 +2165,12 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": k3["launches"][name],
             "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(name),
         })
+    for name in K4F:  # launches: the heads = 0 path's (phase 7c)
+        line.append({
+            "name": name, "route": "cuda", "source": "incubator_brpc_tpu_torch/csrc/elementwise.cu",
+            "replaces": REPLACES[name], "launches": k3["launches"][name],
+            "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(K4F_KERNEL),
+        })
     for name in K2:
         line.append({
             "name": name, "route": "cuda",
@@ -2054,7 +2184,8 @@ def main() -> int:
             json.dump({"card": card, "timings": detail, "launches": launches,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
-                       "fabricnet_sliced": k3["fabricnet_sliced"], "k2": k2["detail"],
+                       "fabricnet_sliced": k3["fabricnet_sliced"],
+                       "fabricnet_heads0": k3["fabricnet_heads0"], "k2": k2["detail"],
                        "k2_launches": k2["launches"], "ptxas": ptxas}, f, indent=1)
     gone = [n for n in REMOVED if n in kernels.KERNELS]
     if gone:

@@ -420,8 +420,9 @@ attn_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 }
 
 // ---------------------------------------------------------------------------
-// attn_bwd_dq_tc: dQ of bf16 operands. It computes what attn_bwd_dq
-// (attention.cu) computes, and what ops/attention.py dq_plain states: for
+// attn_bwd_dq_tc: dQ of bf16 operands. It computes what attn_bwd_dq_tf32
+// (attention_bwd_tf32.cu) computes for f32 operands, and what
+// ops/attention.py dq_plain states: for
 // each query row of rank i, over the hops in order (at hop r the block held
 // is (i - r) mod sp) and the keys of that block it can see,
 //   S = Q.K^T / sqrtf(D) (+ the additive -1e30 causal mask),

@@ -1,9 +1,11 @@
-// K3's dK/dV in float32 on Hopper's tensor cores (sm_90a), 3xTF32:
+// K3's dK/dV and dQ in float32 on Hopper's tensor cores (sm_90a), 3xTF32:
 //
 //   attn_bwd_dkdv_tf32 <- the gradient JAX's autodiff takes through
 //                         incubator_brpc_tpu/models/ring_attention.py:48
 //                         ring_attention (via _block_attn :35 and
 //                         block_merge :81), for dK and dV of f32 operands
+//   attn_bwd_dq_tf32   <- the same gradient, for dQ of f32 operands (its
+//                         note is above the kernel, further down)
 //
 // It computes what ops/attention.py dkdv_plain states, and what the bf16
 // attn_bwd_dkdv_tc (attention_bwd_tc.cu) computes for bf16 operands: for
@@ -95,7 +97,7 @@
 //   the design keeps the bf16 kernel's layout and shape.
 //
 // Plain C interface, loaded with ctypes by incubator_brpc_tpu_torch/ops/
-// kernels.py. The entry point launches on the given stream, allocates
+// kernels.py. Each entry point launches on the given stream, allocates
 // nothing, and returns the first CUDA error (0 on success), or
 // cudaErrorInvalidValue for a head dimension it does not take (D % 4 != 0
 // or D > 1024).
@@ -454,6 +456,372 @@ attn_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// attn_bwd_dq_tf32 <- the same gradient, for dQ of f32 operands:
+//   dQ += dS.K over the hops in order, dS = P * (dO.V^T - delta) as above,
+//   divided by sqrtf(D) once at the store. Layouts as above; dq (B, T, H,
+//   D) f32.
+//
+// Numerics: dK/dV's. S = Q.K^T, dP = dO.V^T and dS.K run on mma.sync
+// m16n8k8 tf32 as three products each (a_hi.b_lo + a_lo.b_hi + a_hi.b_hi,
+// every f32 operand split as its fragment is loaded; dS once, when it is
+// formed), each D chunk's (pass 1) and each key tile's (pass 2) products
+// starting from zero and added in f32 on the CUDA cores, one accumulator
+// per term; P and dS in f32 with expf and IEEE division, the scale and the
+// mask as attention.cu states them.
+//
+// What bounds it on the card: operations, as 3xTF32. At the bench shape
+// (B 4, T 1024, H 2, D 1024, causal) the three products are 25.8 GFLOP,
+// 77.3 GFLOP of tf32 work, 0.156 ms at 494.7 TFLOP/s; it must move
+// chip_smoke.py dq_bytes (167.8 MB), 0.050 ms at HBM's rate.
+//
+// Design: attn_bwd_dq_tc's layout (attention_bwd_tc.cu), in f32, with the
+// machinery of the dK/dV kernel above.
+// - A block is (b, h, rank i, 16-row query tile): 256 threads (8 warps),
+//   one block per SM. The latest query tiles (the most keys visible under
+//   the mask) start first. At D = 1024 the f32 dQ of 16 rows is 64 KB, 64
+//   registers a thread: warp w holds the 8 columns [8 (w & 3), +8) of every
+//   32-column chunk of parity w >> 2.
+// - Shared memory (201 KB at D = 1024): Q and dO resident as f32 (132 KB,
+//   rows of D rounded up to 32 columns, zero past D, a pitch of 8 mod 32
+//   words). The 64-key tiles of K and V stream through one cp.async ring of
+//   3 stages of 20 KB, a stage holding one 32-column chunk of K and of V
+//   (pass 1) or two chunks of K (pass 2), one commit group a stage. Keys
+//   past a ragged end and columns past D are zero-filled by the copies
+//   (src-size 0), so a missing key meets dS = 0 and never stale bytes.
+// - Two passes over each key tile, as dS needs the whole D reduction first.
+//   Pass 1: warps 0-3 form S = Q.K^T and warps 4-7 dP = dO.V^T, warp w for
+//   keys [16 (w & 3), +16) over all of D (no partial sums to meet across
+//   warps); Q or dO the A operand, the K or V chunk the B operand
+//   untransposed, the k-index permuted alike in both (lane (gq, tq) takes
+//   k-indices tq and tq + 4 from columns 2 tq and 2 tq + 1, one 8-byte
+//   load). dP goes through shared memory to the warp holding the same S
+//   elements, which forms P and dS and writes dS, split into tf32 hi and
+//   lo, in pass 2's A fragment order; every warp then keeps all eight
+//   k-steps' hi and lo fragments in registers for the whole of pass 2 (64
+//   registers; read from shared memory a stage, they would cost four times
+//   the K chunk's bytes). Pass 2: dQ += dS.K, the K chunk the B operand
+//   read down its columns: a row pitch of 8 mod 32 words puts the lanes of
+//   that strided load on distinct banks.
+// - Code size: pass 2 indexes the accumulators by chunk, so its loop runs
+//   rolled, kGroup chunk pairs a turn, with the accumulators rotated kGroup
+//   places a turn (dK/dV's lesson: unrolled over every chunk, its code
+//   outgrew the instruction caches).
+// ---------------------------------------------------------------------------
+
+namespace dq {
+constexpr int BM = 16;                         // query rows per block
+constexpr int BN = 64;                         // keys per tile
+constexpr int kPairs = kMaxChunks / 2;         // pass 2's stages at D = 1024: two chunks each
+constexpr int kMatFloats = BN * kLdC;          // one chunk of K or of V
+constexpr int kStageFloats = 2 * kMatFloats;
+constexpr int kFrag = (BN / 8) * 32 * 4;       // dS, hi or lo, as pass 2's A fragments
+
+// Q's and dO's row pitch: D rounded up to a chunk, 8 mod 32 words (as kv_pitch)
+size_t smem_bytes(int64_t D) {
+  return 4 * (2 * size_t(BM) * kv_pitch(D)     // Q and dO tiles
+              + size_t(kStages) * kStageFloats  // K/V ring
+              + 4 * 2 * 4 * 32                  // dP, warps 4-7 to warps 0-3
+              + 2 * kFrag                       // dS hi and lo
+              + 2 * BM);                        // lse, delta
+}
+}  // namespace dq
+
+// Fragment coordinates (tc_mma.cuh mma_tf32): lane = 4 gq + tq; an f32
+// accumulator holds rows gq and gq + 8, columns 2 tq and 2 tq + 1.
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dqo, Geo g, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_dq_tf32[];
+  const int D = int(g.D);
+  const int ldq = kv_pitch(D);
+  float* Qs = reinterpret_cast<float*>(smem_dq_tf32);  // [BM][ldq]
+  float* Os = Qs + dq::BM * ldq;                        // [BM][ldq] (dO)
+  float* Ring = Os + dq::BM * ldq;                      // [kStages][K, V or K, K][BN][kLdC]
+  float* Xch = Ring + kStages * dq::kStageFloats;       // [4 warps][2][4][32 lanes]
+  // Df holds [dS hi, dS lo][k-step][lane][a0..a3]: each lane's A fragment
+  // of a k-step of pass 2 is one 16-byte load
+  uint32_t* Df = reinterpret_cast<uint32_t*>(Xch + 4 * 2 * 4 * 32);
+  float* lse_s = reinterpret_cast<float*>(Df + 2 * dq::kFrag);  // [BM]
+  float* del_s = lse_s + dq::BM;                                 // [BM]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int64_t tiles = (g.tl + dq::BM - 1) / dq::BM;
+  const int64_t bh = blockIdx.x % (g.B * g.H);
+  const int64_t h = bh % g.H, b = bh / g.H;
+  // the latest query tiles (the most keys visible under the mask) start first
+  const int64_t pos = tiles * g.sp - 1 - blockIdx.x / (g.B * g.H);
+  const int64_t i = pos / tiles, qt = pos % tiles;
+  const int64_t q0 = i * g.tl + qt * dq::BM;  // global position of the tile's row 0
+  const int nq = int(imin(dq::BM, g.tl - qt * dq::BM));
+  const int nc = (D + kDC - 1) / kDC;  // D chunks of one K or V tile
+  const int nc2 = (nc + 1) / 2;        // pass 2's stages: two K chunks each
+  const int64_t rstride = g.H * g.D;   // elements from one position to the next
+
+  // The key tiles this query tile meets, hop by hop: at hop r those of block
+  // (i - r) mod sp, up to the last holding a key its rows see (every tile
+  // when not causal); none for a block wholly in the rows' future.
+  const int64_t nkt = (g.tl + dq::BN - 1) / dq::BN;
+  auto kbase = [&](int64_t hop) { return ((i - hop) % g.sp + g.sp) % g.sp * g.tl; };
+  auto key_tiles = [&](int64_t hop) -> int64_t {
+    if (!causal) return nkt;
+    const int64_t last = q0 + nq - 1 - kbase(hop);  // the last key the rows see, block-local
+    return last < 0 ? 0 : imin(nkt, last / dq::BN + 1);
+  };
+  auto seek = [&](int64_t& hop, int64_t& kt) {  // on to the next tile that exists
+    while (hop < g.sp && kt >= key_tiles(hop)) {
+      ++hop;
+      kt = 0;
+    }
+  };
+  int64_t hop0 = 0, kt0 = 0, ntiles = 0;
+  seek(hop0, kt0);
+  for (int64_t r = 0; r < g.sp; ++r) ntiles += key_tiles(r);
+  const int total = int(ntiles) * (nc + nc2);  // ring stages of every tile's two passes
+
+  // The stream's next stage and one commit group for it (empty past the
+  // end, so every step waits on the same count): in pass 1 chunk iss_c of
+  // the K and V rows of tile (iss_hop, iss_kt), in pass 2 chunks 2 iss_c
+  // and 2 iss_c + 1 of its K rows (a chunk past D is zero-filled). Thread t
+  // copies rows t / 8 + 32 it, columns 4 (t % 8) + [0, 4) of both.
+  constexpr int kRowsPerPass = kThreads / (kDC / 4);  // 32
+  const int cp_row = tid / (kDC / 4), cp_col = tid % (kDC / 4) * 4;
+  const uint32_t ring0 = smem_u32(Ring + cp_row * kLdC + cp_col);
+  int iss_n = 0, iss_c = 0, iss_pass = 0, iss_stage = 0;
+  int64_t iss_hop = hop0, iss_kt = kt0;
+  auto issue = [&]() {
+    if (iss_n < total) {
+      const int64_t k0 = kbase(iss_hop) + iss_kt * dq::BN;  // the tile's key 0
+      const int rows = int(imin(dq::BN, g.tl - iss_kt * dq::BN)) - cp_row;
+      const uint32_t dst = ring0 + 4 * iss_stage * dq::kStageFloats;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float* x = iss_pass == 0 && m ? v : k;
+        const int col = (iss_pass ? 2 * iss_c + m : iss_c) * kDC + cp_col;
+        const int64_t off = row_off(g, b, k0, h) + int64_t(cp_row) * rstride + col;
+#pragma unroll
+        for (int it = 0; it < dq::BN / kRowsPerPass; ++it) {
+          const bool ok = col < D && it * kRowsPerPass < rows;
+          cp_async16(dst + 4 * (m * dq::kMatFloats + it * kRowsPerPass * kLdC),
+                     ok ? x + off + int64_t(it) * kRowsPerPass * rstride : x, ok);
+        }
+      }
+      if (++iss_c == (iss_pass ? nc2 : nc)) {  // pass 1's stages, pass 2's, the next tile's
+        iss_c = 0;
+        if (++iss_pass == 2) {
+          iss_pass = 0;
+          ++iss_kt;
+          seek(iss_hop, iss_kt);
+        }
+      }
+      iss_stage = iss_stage == kStages - 1 ? 0 : iss_stage + 1;
+    }
+    ++iss_n;
+    cp_async_commit();
+  };
+
+  // the Q and dO tiles (rows past nq and columns past D zero) go with stage 0's group
+  {
+    const int per_row = (ldq - 8) / 4;  // 16-byte copies a row
+    for (int e = tid; e < 2 * dq::BM * per_row; e += kThreads) {
+      const int mat = e / (dq::BM * per_row), rem = e - mat * dq::BM * per_row;
+      const int r = rem / per_row, c4 = (rem - r * per_row) * 4;
+      const float* x = mat ? dout : q;
+      const bool ok = r < nq && c4 < D;
+      cp_async16(smem_u32((mat ? Os : Qs) + r * ldq + c4),
+                 ok ? x + row_off(g, b, q0 + r, h) + c4 : x, ok);
+    }
+  }
+  if (tid < dq::BM) {  // read after pass 1's first barrier
+    lse_s[tid] = tid < nq ? lse[stat_off(g, b, h, q0 + tid)] : 0.f;
+    del_s[tid] = tid < nq ? delta[stat_off(g, b, h, q0 + tid)] : 0.f;
+  }
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) issue();
+
+  // dQ of the 16 rows: acc[c2] holds rows gq (+ 8), columns
+  // kDC (2 c2 + half) + 8 nt + 2 tq (+ 1)
+  const int half = warp >> 2, nt = warp & 3;
+  float acc[dq::kPairs][4];
+#pragma unroll
+  for (int c = 0; c < dq::kPairs; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[c][u] = 0.f;
+
+  const float sqd = sqrtf(float(g.Dscale));
+  // pass 1, warp w: A = Q (w < 4) or dO, rows gq (+ 8), columns 2 tq (+ 1)
+  // of each k-step; B = the K or V chunk, keys 16 rw + 8 j + gq, the same
+  // columns. Pass 2: A = dS hi and lo, held; B = K chunk `half` of the
+  // stage, keys tq (+ 4) of each k-step, column 8 nt + gq.
+  const int mat = warp >> 2, rw = warp & 3;
+  const float* a1_frag = (mat ? Os : Qs) + gq * ldq + 2 * tq;
+  const float* b1_frag = Ring + mat * dq::kMatFloats + (rw * 16 + gq) * kLdC + 2 * tq;
+  const uint4* d_frag = reinterpret_cast<const uint4*>(Df) + lane;
+  const float* b2_frag = Ring + half * dq::kMatFloats + tq * kLdC + nt * 8 + gq;
+  float* xch = Xch + rw * 2 * 4 * 32 + lane;
+
+  int stage = 0;  // the stage of the next chunk to use
+  int64_t hop = hop0, kt = kt0;
+  for (int64_t n = 0; n < ntiles; ++n) {
+    const int64_t k0 = kbase(hop) + kt * dq::BN;  // global position of the tile's key 0
+    const int nk = int(imin(dq::BN, g.tl - kt * dq::BN));
+
+    // -- pass 1: S = Q . K^T (w < 4) or dP = dO . V^T (w >= 4), 16 rows x
+    // this warp's 16 keys, over all of D; each chunk's 12-mma chains start
+    // from zero and are added to sacc in f32
+    float sacc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sacc[j][u] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      cp_async_wait<kStages - 2>();  // this step's stage has landed (this thread's part)
+      __syncthreads();               // everyone's part; the previous step's stage is free
+      const float* xb = b1_frag + stage * dq::kStageFloats;
+      float part[2][3][4] = {};  // [n-tile][term hi.lo, lo.hi, hi.hi]
+#pragma unroll
+      for (int kk = 0; kk < kDC / 8; ++kk) {
+        const int kd = kk * 8;  // k-step within the chunk
+        if (c * kDC + kd < D) {
+          uint32_t ah[4], al[4], bh[2][2], bl[2][2];
+          const float* ab = a1_frag + c * kDC + kd;
+          const float2 x0 = lds2(ab), x1 = lds2(ab + 8 * ldq);
+          split_tf32(x0.x, ah[0], al[0]);
+          split_tf32(x1.x, ah[1], al[1]);
+          split_tf32(x0.y, ah[2], al[2]);
+          split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float2 y = lds2(xb + j * 8 * kLdC + kd);
+            split_tf32(y.x, bh[j][0], bl[j][0]);
+            split_tf32(y.y, bh[j][1], bl[j][1]);
+          }
+          // six independent chains: no mma waits on the one before it
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            mma_tf32(part[j][0], ah, bl[j][0], bl[j][1]);
+            mma_tf32(part[j][1], al, bh[j][0], bh[j][1]);
+            mma_tf32(part[j][2], ah, bh[j][0], bh[j][1]);
+          }
+        }
+      }
+      // the small terms first
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) sacc[j][u] += (part[j][0][u] + part[j][1][u]) + part[j][2][u];
+      issue();  // into the previous step's stage
+      stage = stage == kStages - 1 ? 0 : stage + 1;
+    }
+
+    // -- dS: warp w + 4 hands its dP to warp w, which holds S at the same
+    // places; dS, hi and lo, into Df: element (row, key) is a[(row >> 3) +
+    // 2 ((key & 7) >> 2)] of lane 4 (row & 7) + (key & 3) in k-step key >> 3
+    if (mat == 1) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) xch[(j * 4 + u) * 32] = sacc[j][u];
+    }
+    __syncthreads();
+    if (mat == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int row = gq + 8 * (u >> 1), key = rw * 16 + j * 8 + 2 * tq + (u & 1);
+          float dsv = 0.f;  // no such row or key: weighs 0
+          if (row < nq && key < nk) {
+            float sc = sacc[j][u] / sqd;
+            if (causal && k0 + key > q0 + row) sc = sc + kNegInf;
+            dsv = expf(sc - lse_s[row]) * (xch[(j * 4 + u) * 32] - del_s[row]);
+          }
+          uint32_t hi, lo;
+          split_tf32(dsv, hi, lo);
+          const int at = (key >> 3) * 128 + (4 * (row & 7) + (key & 3)) * 4 + (row >> 3) +
+                         2 * ((key & 7) >> 2);
+          Df[at] = hi;
+          Df[dq::kFrag + at] = lo;
+        }
+    }
+    __syncthreads();
+
+    // -- pass 2: dQ += dS . K over this warp's 8 columns of chunk 2 c2 +
+    // half, each stage two chunks; each tile's products start from zero and
+    // are added to acc in f32. The loop is unrolled kGroup stages deep, not
+    // kPairs (see the note above): acc[0 .. kGroup) are the current group's,
+    // and the accumulators rotate kGroup places a group, kPairs places a tile.
+    uint32_t dh[dq::BN / 8][4], dl[dq::BN / 8][4];
+#pragma unroll
+    for (int ks = 0; ks < dq::BN / 8; ++ks) {
+      const uint4 h4 = d_frag[ks * 32], l4 = d_frag[dq::kFrag / 4 + ks * 32];
+      dh[ks][0] = h4.x, dh[ks][1] = h4.y, dh[ks][2] = h4.z, dh[ks][3] = h4.w;
+      dl[ks][0] = l4.x, dl[ks][1] = l4.y, dl[ks][2] = l4.z, dl[ks][3] = l4.w;
+    }
+#pragma unroll 1
+    for (int c0 = 0; c0 < dq::kPairs; c0 += kGroup) {
+#pragma unroll
+      for (int gi = 0; gi < kGroup; ++gi) {
+        const int c2 = c0 + gi;
+        if (c2 < nc2) {
+          cp_async_wait<kStages - 2>();
+          __syncthreads();
+          const float* xb = b2_frag + stage * dq::kStageFloats;
+          if ((2 * c2 + half) * kDC + nt * 8 < D) {  // columns past D are never stored
+            float part[2][3][4] = {};  // [k-steps even, odd][term hi.lo, lo.hi, hi.hi]
+#pragma unroll
+            for (int ks = 0; ks < dq::BN / 8; ++ks) {
+              if (ks * 8 < nk) {  // past nk dS = 0 and the keys are zero
+                uint32_t bh[2], bl[2];
+                split_tf32(xb[ks * 8 * kLdC], bh[0], bl[0]);
+                split_tf32(xb[(ks * 8 + 4) * kLdC], bh[1], bl[1]);
+                mma_tf32(part[ks & 1][0], dh[ks], bl[0], bl[1]);
+                mma_tf32(part[ks & 1][1], dl[ks], bh[0], bh[1]);
+                mma_tf32(part[ks & 1][2], dh[ks], bh[0], bh[1]);
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              acc[gi][u] += ((part[0][0][u] + part[0][1][u]) + part[0][2][u]) +
+                            ((part[1][0][u] + part[1][1][u]) + part[1][2][u]);
+          }
+          issue();
+          stage = stage == kStages - 1 ? 0 : stage + 1;
+        }
+      }
+      float first[kGroup][4];
+#pragma unroll
+      for (int c = 0; c < dq::kPairs; ++c)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (c < kGroup) first[c][u] = acc[c][u];
+          if (c + kGroup < dq::kPairs) acc[c][u] = acc[c + kGroup][u];
+          else acc[c][u] = first[c + kGroup - dq::kPairs][u];
+        }
+    }
+    ++kt;
+    seek(hop, kt);
+  }
+  cp_async_wait<0>();  // the groups left are empty
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = gq + hh * 8;
+    if (row >= nq) continue;
+    const int64_t ro = row_off(g, b, q0 + row, h);
+#pragma unroll
+    for (int c2 = 0; c2 < dq::kPairs; ++c2) {
+      const int col = (2 * c2 + half) * kDC + nt * 8 + 2 * tq;
+      if (col >= D) continue;
+      *reinterpret_cast<float2*>(dqo + ro + col) =
+          make_float2(acc[c2][2 * hh] / sqd, acc[c2][2 * hh + 1] / sqd);  // the scale, once
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -475,6 +843,26 @@ int tb_attn_bwd_dkdv_tf32(const float* q, const float* k, const float* v, const 
   attn_bwd_dkdv_tf32<<<dim3(unsigned(blocks)), kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(q, k, v, dout, lse, delta, dk, dv, g,
                                                             causal);
+  return int(cudaGetLastError());
+}
+
+
+int tb_attn_bwd_dq_tf32(const float* q, const float* k, const float* v, const float* dout,
+                        const float* lse, const float* delta, float* dqo, int64_t B, int64_t T,
+                        int64_t H, int64_t D, int64_t Dscale, int64_t sp, int causal,
+                        void* stream) {
+  if (D <= 0 || D > kMaxD || D % 4 != 0 || Dscale <= 0 || sp <= 0 || T % sp != 0)
+    return int(cudaErrorInvalidValue);
+  const Geo g{B, T, H, D, sp, T / sp, Dscale};
+  const int64_t blocks = B * H * sp * ((g.tl + dq::BM - 1) / dq::BM);
+  if (blocks <= 0) return 0;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  const size_t smem = dq::smem_bytes(D);
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_tf32,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  attn_bwd_dq_tf32<<<dim3(unsigned(blocks)), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, dout, lse, delta, dqo, g, causal);
   return int(cudaGetLastError());
 }
 

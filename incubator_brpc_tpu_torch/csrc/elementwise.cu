@@ -19,6 +19,11 @@
 //                        d_logit = sum_d(yr * dy) * (g * (1 - g))
 //   mse_loss_fwd      <- _local_loss's mean((out - y)^2) (:266-268, :281) and,
 //                        in the same pass, its gradient for d(loss) = 1
+//   ring_mean_add_fwd <- with heads = 0, _stage_fn's last MLP residual add
+//                        and x + _ring_context(x) (:138, :205-207) on one
+//                        rank: s = x + delta, m = mean_T(s), s2 = s + m
+//   ring_mean_add_bwd <- its gradient: g_s = g + c, c = sum_T(g) / T, which
+//                        reaches both x and delta
 //
 // Rows are the last dimension of a row-major tensor, rows * d elements from
 // the base pointer; f32 or bf16 (dtype 0 or 1), computed in f32. The
@@ -62,6 +67,15 @@
 //   dtype) * (2 diff), rounded. The sum's order differs from the plain
 //   version's; every block's partial is added in block order by a second
 //   kernel of one block, so a rerun gives the same bits (no atomics).
+// - ring_mean_add_fwd: s = x + delta rounded; the column sum over T of x +
+//   delta in f32 before that rounding (XLA drops the jaxpr's rounding of s
+//   ahead of the mean's conversion to f32, as it drops w's in rms_norm_bwd)
+//   in f64, rounded to f32, times 1/T in f32 (XLA multiplies by the
+//   reciprocal), rounded to the dtype (jnp.mean's convert); s + m rounded.
+//   The sp = 1 ring's 0 + m and m / 1 are exact.
+// - ring_mean_add_bwd: the vjp's reduce_sum of g over T runs in the dtype:
+//   the f64 sum rounded to f32 and then to the dtype, times 1/T in f32,
+//   rounded; g + c rounded.
 // The intrinsics __fadd_rn / __fmul_rn / __fsub_rn / __fdiv_rn keep nvcc
 // from contracting products and sums into FMAs that the plain versions do
 // not take, across a rounding or not. The build has no --use_fast_math
@@ -88,6 +102,21 @@
 //   reads its rows twice in this way, and reads rstd rather than
 //   recomputing the rsqrt; its row sums take one f64 add an element each.
 // - The GeLUs are grid-stride loops over the elements.
+// - The ring mean reduces over the sequence, not along a row: a block owns
+//   one (batch, 128-byte column tile) and all T rows of it (64 bf16 or 32
+//   f32 columns; at the bench width 4 x 32 = 128 blocks of 16 warps, about
+//   one wave, each thread with 8 16-byte loads in flight). Pass 1 reads x
+//   and delta once, keeps s in shared memory (T x 128 B, 128 KB at T =
+//   1024) and sums each column in f64 (across a warp's rows by shuffles,
+//   then 16 warps' partials in shared memory); pass 2 adds the mean to s
+//   from shared memory and writes s2, on bf16x2 adds, with no conversion.
+//   So each element is read once and written once, and no (B, T, d)
+//   broadcast of the mean is ever formed. Where T x 128 B does not fit (T
+//   past about 1,750), pass 2 reads x and delta again (from L2 or HBM): the
+//   forward then moves 5 streams instead of 3, the backward 3 instead of 2. The gradient is the same
+//   kernel with one input. 16-byte loads where d is a whole number of
+//   vectors and every pointer is 16-byte aligned, else single elements
+//   (odd d, ragged column tiles, views off alignment).
 //
 // Plain C interface, loaded with ctypes by incubator_brpc_tpu_torch/ops/
 // kernels.py and wrapped by ops/elementwise.py. Every entry point launches
@@ -155,6 +184,7 @@ struct Pair<float> {
   static __device__ __forceinline__ V tanh(V a) { return make_float2(tanhf(a.x), tanhf(a.y)); }
   static __device__ __forceinline__ float lo(V a) { return a.x; }
   static __device__ __forceinline__ float hi(V a) { return a.y; }
+  static __device__ __forceinline__ V pack(float l, float h) { return make_float2(l, h); }
 };
 template <>
 struct Pair<__nv_bfloat16> {
@@ -558,6 +588,167 @@ __global__ void mse_loss_sum(const float* __restrict__ partial, int blocks, T* _
   if (threadIdx.x == 0) *loss = from_f<T>(__fdiv_rn(v, float(n)));
 }
 
+// -- K4f: s2 = s + mean_T(s), s = x + delta; its gradient g + bcast(c) --------------
+// x, delta, out: (B, t, d) row-major; blockIdx.x = b tiles + tile. Thread
+// (r0, lc) takes rows r0 + R j, columns [lc, lc + W) of the block's tile,
+// as (W + 1) / 2 pairs: W = kVec<T> (16-byte pieces) or 1 (one element,
+// doubled). kGrad: x is g, delta null, and the column sum is rounded to T
+// before the divide. kResident: s stays in shared memory between the
+// passes; else pass 2 reads x and delta again.
+constexpr int kRingThreads = 512;
+constexpr int kRingTileBytes = 128;
+constexpr int kRingUnroll = 4;  // rows a thread loads before it uses them
+constexpr size_t kRingSmemMax = 232448;  // 227 KB, a block's most
+
+template <typename T, int W>
+struct RingShape {
+  static constexpr int C = kRingTileBytes / int(sizeof(T));  // columns a tile
+  static constexpr int kTpr = C / W;                          // threads a row
+  static constexpr int R = kRingThreads / kTpr;               // rows a pass
+  static constexpr int kRW = kTpr < 32 ? 32 / kTpr : 1;       // rows a warp holds
+  // red (the warps' partial sums, R / kRW x C f64) and the means (C f32),
+  // then the resident tile
+  static constexpr size_t kHead = size_t(R / kRW) * C * 8 + size_t(C) * 4;
+  static size_t smem(int64_t t, bool resident) {
+    return kHead + (resident ? size_t(t) * kRingTileBytes : 0);
+  }
+};
+
+template <typename T, int W, bool kResident, bool kGrad>
+__global__ void __launch_bounds__(kRingThreads)
+ring_mean_add(const T* __restrict__ x, const T* __restrict__ delta, T* __restrict__ out,
+              int64_t t, int64_t d, int64_t tiles) {
+  using S = RingShape<T, W>;
+  using P = Pair<T>;
+  using V = typename P::V;
+  constexpr int C = S::C, R = S::R, U = kRingUnroll, NP = (W + 1) / 2;
+  constexpr int kGroups = R / S::kRW;  // the warps' partial sums of a column
+  extern __shared__ __align__(16) unsigned char smem_ring[];
+  double* red = reinterpret_cast<double*>(smem_ring);         // [kGroups][C]
+  float* mean = reinterpret_cast<float*>(red + kGroups * C);  // [C]
+  T* tile = reinterpret_cast<T*>(mean + C);                   // [t][C]
+  const int lc = int(threadIdx.x) % S::kTpr * W, r0 = int(threadIdx.x) / S::kTpr;
+  const int64_t b = blockIdx.x / tiles, col = blockIdx.x % tiles * C + lc;
+  const bool live = col < d;  // W divides d on the vector path
+  const int64_t base = b * t * d + col;
+
+  // x and delta at rows r .. r + (U - 1) R of this thread's columns, every
+  // load issued first
+  const auto load_rows = [&](int64_t r, V (&a)[U][NP], V (&q)[U][NP]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t ru = r + int64_t(u) * R;
+      if (ru < t) {
+        load_pairs<W>(x + base + ru * d, a[u]);
+        if (delta != nullptr) load_pairs<W>(delta + base + ru * d, q[u]);
+      }
+    }
+  };
+
+  // pass 1: the column sums of x + delta in f32 before its rounding to T
+  // (XLA:CPU drops the jaxpr's rounding of s ahead of the mean's conversion
+  // to f32), and s = x + delta rounded to T (one bf16x2 add a pair) into
+  // the tile
+  double acc[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) acc[i] = 0.0;
+  if (live) {
+    for (int64_t r = r0; r < t; r += int64_t(U) * R) {
+      V a[U][NP], q[U][NP];
+      load_rows(r, a, q);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t ru = r + int64_t(u) * R;
+        if (ru < t) {
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            float lo = P::lo(a[u][i]), hi = P::hi(a[u][i]);
+            if (delta != nullptr) {
+              lo = __fadd_rn(lo, P::lo(q[u][i]));
+              hi = __fadd_rn(hi, P::hi(q[u][i]));
+              a[u][i] = P::add(a[u][i], q[u][i]);
+            }
+            acc[2 * i] += double(lo);
+            if (W > 1) acc[2 * i + 1] += double(hi);  // W = 1: hi is a copy
+          }
+          if (kResident) store_pairs<W>(tile + ru * C + lc, a[u]);
+        }
+      }
+    }
+  }
+  // the column sums: across the rows a warp holds (lanes kTpr apart), then
+  // across the warps, in warp order
+#pragma unroll
+  for (int o = S::kTpr; o < 32; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < W; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+  if (int(threadIdx.x) % 32 < S::kTpr) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) red[r0 / S::kRW * C + lc + i] = acc[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < C) {
+    double sum = 0.0;
+    for (int rr = 0; rr < kGroups; ++rr) sum += red[rr * C + threadIdx.x];
+    float m = __double2float_rn(sum);
+    if (kGrad) m = round_to<T>(m);
+    mean[threadIdx.x] = round_to<T>(__fmul_rn(m, inv(t)));
+  }
+  __syncthreads();
+  if (!live) return;
+  // pass 2: s2 = s + m, one bf16x2 add a pair, from the tile (or x and
+  // delta again) to out
+  V mv[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) mv[i] = P::pack(mean[lc + 2 * i], mean[lc + (W > 1 ? 2 * i + 1 : 0)]);
+  for (int64_t r = r0; r < t; r += int64_t(U) * R) {
+    V a[U][NP], q[U][NP];
+    if (kResident) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (r + int64_t(u) * R < t) load_pairs<W>(tile + (r + int64_t(u) * R) * C + lc, a[u]);
+    } else {
+      load_rows(r, a, q);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r + int64_t(u) * R < t) {
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          if (!kResident && delta != nullptr) a[u][i] = P::add(a[u][i], q[u][i]);
+          a[u][i] = P::add(a[u][i], mv[i]);
+        }
+        store_pairs<W>(out + base + (r + int64_t(u) * R) * d, a[u]);
+      }
+    }
+  }
+}
+
+template <typename T, bool kGrad>
+cudaError_t launch_ring_mean_add(const void* x, const void* delta, void* out, int64_t batch,
+                                 int64_t t, int64_t d, cudaStream_t st) {
+  constexpr int V = kVec<T>;
+  const bool vec = d % V == 0 && phase(x) == 0 && phase(out) == 0 &&
+                   (delta == nullptr || phase(delta) == 0);
+  const auto go = [&](auto w) -> cudaError_t {
+    constexpr int W = decltype(w)::value;
+    using S = RingShape<T, W>;
+    const int64_t tiles = (d + S::C - 1) / S::C;
+    const bool resident = S::smem(t, true) <= kRingSmemMax;
+    const size_t smem = S::smem(t, resident);
+    const auto kern = resident ? ring_mean_add<T, W, true, kGrad> : ring_mean_add<T, W, false, kGrad>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (e != cudaSuccess) return e;
+    }
+    kern<<<unsigned(batch * tiles), kRingThreads, smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(delta), static_cast<T*>(out), t, d, tiles);
+    return cudaGetLastError();
+  };
+  return vec ? go(Width<V>()) : go(Width<1>());
+}
+
 // -- launches -----------------------------------------------------------------------
 
 // threads for one row of d: a 16-byte piece each, in whole warps, 32 to 512
@@ -759,6 +950,28 @@ int tb_mse_loss_fwd(const void* out, const void* y, void* dout, float* partial, 
   }
   const int rc = int(cudaGetLastError());
   return rc ? rc : tb_mse_loss_sum(partial, int64_t(blocks), loss, n, dtype, stream);
+}
+
+// x, delta, out: [batch, t, d]; delta may be null. out = s + mean_t(s), s = x + delta.
+int tb_ring_mean_add_fwd(const void* x, const void* delta, void* out, int64_t batch, int64_t t,
+                         int64_t d, int dtype, void* stream) {
+  if (batch <= 0 || t <= 0 || !rows_ok(batch * ((d + 31) / 32), d, dtype))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return int(dtype == 0 ? launch_ring_mean_add<float, false>(x, delta, out, batch, t, d, st)
+                        : launch_ring_mean_add<__nv_bfloat16, false>(x, delta, out, batch, t, d,
+                                                                     st));
+}
+
+// g, out: [batch, t, d]. out = g + (the sum of g over t, rounded to the dtype) / t.
+int tb_ring_mean_add_bwd(const void* g, void* out, int64_t batch, int64_t t, int64_t d,
+                         int dtype, void* stream) {
+  if (batch <= 0 || t <= 0 || !rows_ok(batch * ((d + 31) / 32), d, dtype))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return int(dtype == 0 ? launch_ring_mean_add<float, true>(g, nullptr, out, batch, t, d, st)
+                        : launch_ring_mean_add<__nv_bfloat16, true>(g, nullptr, out, batch, t, d,
+                                                                    st));
 }
 
 }  // extern "C"

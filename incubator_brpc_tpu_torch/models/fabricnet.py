@@ -10,7 +10,8 @@ one-device mesh, where every axis is 1:
 - the GPipe ``_pipeline`` is a loop over the microbatches;
 - the sp block is ring attention with ``sp = 1`` (one K3 forward launch per
   microbatch and its K3 backward), or, with ``heads = 0``, the ring mean,
-  which on one rank is the mean over the sequence;
+  which on one rank is the mean over the sequence (K4f, with the last MLP
+  layer's residual add, forward and backward);
 - the MoE routes token ``r`` to local expert ``r % e_local``, exactly as
   ``_moe`` does (``reshape(t // e_local, e_local, d).swapaxes(0, 1)``).
 
@@ -61,7 +62,8 @@ import numpy as np
 import torch
 
 from incubator_brpc_tpu_torch.models.ring_attention import ring_attention
-from incubator_brpc_tpu_torch.ops.elementwise import add_rms_norm, gelu, moe_combine, mse_loss_fwd
+from incubator_brpc_tpu_torch.ops.elementwise import (
+    add_rms_norm, gelu, moe_combine, mse_loss_fwd, ring_mean_add)
 from incubator_brpc_tpu_torch.ops.update import sgd_update_multi
 from incubator_brpc_tpu_torch.parallel.mesh import FABRIC_AXES, FabricMesh, make_fabric_mesh
 from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -155,12 +157,6 @@ def _mlp(w_in_l, w_out_l, x):
     return gelu(x @ w_in_l) @ w_out_l
 
 
-def _ring_context(x: torch.Tensor) -> torch.Tensor:
-    """``heads = 0``: the ring mean of the per-shard sequence means; on one
-    rank, the sequence mean."""
-    return x.mean(dim=1, dtype=torch.float32).to(x.dtype)[:, None, :]
-
-
 def _moe(moe_w1, moe_w2, gate_w, x, s):
     """Static round-robin MoE with ep = 1, added to the residual stream
     ``s``: the ``all_to_all``s are identities and token ``r`` goes to local
@@ -189,19 +185,20 @@ def _stage_fn(w: Weights, heads: int, x):
     attention, or the ring mean when heads = 0), and the MoE block. Each
     residual add goes with the norm that reads its sum (``add_rms_norm``:
     one K4a forward, one K4b backward that also takes the sum's own
-    gradient). The last add is K4e-b's, with the MoE's gate; with heads =
-    0 the last MLP layer's stays plain, as the ring mean reads its sum."""
+    gradient). The last add is K4e-b's, with the MoE's gate. With heads =
+    0 the last MLP layer's add goes with the ring mean, ``x +
+    _ring_context(x)`` (K4f, which writes only that sum), and the MoE's
+    norm reads the sum with no delta, its K4b still taking the sum's own
+    gradient."""
     s, delta = x, None
     for l in range(len(w["w_in"])):
         s, n = add_rms_norm(s, delta)
         delta = _mlp(w["w_in"][l], w["w_out"][l], n)
     if heads:
         s, n = add_rms_norm(s, delta)
-        delta = _ring_attn_block(w["wqkv"], w["wo"], heads, n)
+        s, n = add_rms_norm(s, _ring_attn_block(w["wqkv"], w["wo"], heads, n))
     else:
-        s = s if delta is None else s + delta
-        delta = _ring_context(s).expand_as(s)  # K4 takes no broadcast
-    s, n = add_rms_norm(s, delta)
+        s, n = add_rms_norm(ring_mean_add(s, delta))
     return _moe(w["moe_w1"], w["moe_w2"], w["gate"], n, s)
 
 

@@ -16,13 +16,13 @@ The wrappers over the hand-written CUDA kernels in ``csrc/attention.cu``,
   :func:`split_tf32` states).
 - :func:`backward` (:func:`row_dot`, :func:`dkdv` and :func:`dq` over
   ``attn_bwd_delta``, ``attn_bwd_dkdv_tf32`` or ``attn_bwd_dkdv_tc``, and
-  ``attn_bwd_dq`` or ``attn_bwd_dq_tc``) replaces the gradient JAX's
+  ``attn_bwd_dq_tf32`` or ``attn_bwd_dq_tc``) replaces the gradient JAX's
   autodiff takes through ``ring_attention``. :func:`dkdv` and :func:`dq`
   follow the dtype as :func:`fold` does: bfloat16 goes to
   ``attn_bwd_dkdv_tc`` and ``attn_bwd_dq_tc`` (``attention_bwd_tc.cu``,
-  tensor cores, P and dS split), float32 to ``attn_bwd_dkdv_tf32``
-  (``attention_bwd_tf32.cu``, 3xTF32 on the tensor cores, every operand
-  split as :func:`split_tf32` states) and ``attn_bwd_dq`` (CUDA cores). It
+  tensor cores, P and dS split), float32 to ``attn_bwd_dkdv_tf32`` and
+  ``attn_bwd_dq_tf32`` (``attention_bwd_tf32.cu``, 3xTF32 on the tensor
+  cores, every operand split as :func:`split_tf32` states). It
   recomputes the scores from q, k, v, dO and the saved per-row
   log-sum-exp ``lse = m + log(l)``: ``delta = rowsum(dO * O)``,
   ``P = exp(S - lse)``, ``dV += P^T dO``, ``dS = P * (dO V^T - delta)``,
@@ -48,11 +48,10 @@ D up to ``MAX_HEAD_DIM``: another D is padded with zero columns to the next
 multiple of 4 (:func:`_pad`), the kernels are told the true D for the
 score scale ``1/sqrt(D)``, and the results are sliced back.
 
-What bounds the CUDA-core kernel on the card is operations (f32 FMAs, as
-the JAX function computes in f32); what bounds the bf16 tensor-core fold is
-bytes, the f32 one and the f32 dK/dV (three tf32 products for each)
-operations, and the bf16 tensor-core dK/dV and dQ operations and bytes
-about alike.
+What bounds the bf16 tensor-core fold on the card is bytes, the f32 one and
+the f32 dK/dV and dQ (three tf32 products for each) operations, and the
+bf16 tensor-core dK/dV and dQ operations and bytes about alike;
+``attn_bwd_delta`` is bound by bytes.
 Each source says how its design meets that. A wrapper given CPU tensors runs the
 plain PyTorch version beside it; given CUDA tensors it launches the kernels
 on the current stream or raises. Nothing on the card's path calls a plain
@@ -425,7 +424,7 @@ def dkdv(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
 
 def dq(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
     """K3 backward: ``dq`` in q's dtype, by ``attn_bwd_dq_tc`` for bfloat16
-    operands and ``attn_bwd_dq`` for float32."""
+    operands and ``attn_bwd_dq_tf32`` for float32."""
     _check_backward(q, k, v, dout, lse, sp)
     _stat(delta, "delta", lse.shape, q.device)
     if q.device.type == "cpu":
@@ -434,17 +433,13 @@ def dq(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
     pad = _check_head_dim(d)
     q, k, v, dout, lse, delta = _dense(*_pad(pad, q, k, v, dout), lse, delta)
     out = torch.empty_like(q)
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
-    tail = (lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
-            b, t, h, d + pad, d, sp, int(causal), kernels._stream(q.device))
+    name = "attn_bwd_dq_tc" if q.dtype == torch.bfloat16 else "attn_bwd_dq_tf32"
     lib = kernels.build()
     with torch.cuda.device(q.device):
-        if q.dtype == torch.bfloat16:
-            name = "attn_bwd_dq_tc"
-            rc = lib.tb_attn_bwd_dq_tc(*head, *tail)
-        else:
-            name = "attn_bwd_dq"
-            rc = lib.tb_attn_bwd_dq(*head, _DTYPES[q.dtype], *tail)
+        rc = getattr(lib, "tb_" + name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), out.data_ptr(), b, t, h, d + pad, d, sp, int(causal),
+            kernels._stream(q.device))
     kernels._check_launch(lib, rc, name)
     kernels._count(name)
     return out[..., :d].contiguous() if pad else out

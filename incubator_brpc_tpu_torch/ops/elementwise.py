@@ -36,6 +36,17 @@ The wrappers over the hand-written CUDA kernels in ``csrc/elementwise.cu``:
   expression. The train step starts its backward from that gradient, so the
   loss needs no ``autograd.Function`` (whose backward would have to multiply
   by d(loss) in a launch of its own, or read it on the host).
+- :func:`ring_mean_add_fwd` (K4f) replaces, with ``heads = 0``,
+  ``_stage_fn``'s last MLP residual add and ``x + _ring_context(x)``
+  (:138, :205-207) on one rank of the sp ring: ``s = x + delta``, the
+  sequence mean ``m = mean_T(s)`` (summed in float32 from ``x + delta``
+  before its rounding, as XLA:CPU sums it, times ``1 / T`` as XLA divides
+  by a constant, rounded to the dtype as ``jnp.mean`` converts), and ``s +
+  m`` broadcast over the sequence; only that sum is written.
+  :func:`ring_mean_add_bwd` replaces its gradient, ``g + c`` with ``c``
+  the sum of ``g`` over the sequence (in the dtype, as the vjp's
+  ``reduce_sum`` runs) times ``1 / T`` in float32, rounded; it reaches
+  both ``x`` and ``delta``.
 
 The reference rounds op by op: in bfloat16 every elementwise op of these
 chains (each multiply, add, tanh, exp and divide) rounds its result to
@@ -51,6 +62,7 @@ in float64 and rounded to float32, then where the reference rounds the
 sum (:func:`_row_sum`): exact for rows whose terms span fewer than about
 2^34 in magnitude, so the kernels' order and the plain versions' give the
 same bits (ROADMAP, "Differences by design", has the distance from JAX).
+K4f's sums over the sequence follow the same convention.
 
 XLA fuses each of these into the matrix products' neighbours inside one
 ``jax.jit``; PyTorch runs eagerly, so here each is one pass over its rows,
@@ -60,7 +72,8 @@ launches the kernel on the current stream or raises. Nothing on the card's
 path calls a plain version. :class:`AddRMSNormFunction` and
 :class:`GeluFunction` are the ``torch.autograd.Function``s around them, and
 :func:`add_rms_norm` and :func:`gelu` what the model calls;
-:class:`MoECombineFunction` and :func:`moe_combine` likewise for K4e-b/c.
+:class:`MoECombineFunction` and :func:`moe_combine` likewise for K4e-b/c,
+:class:`RingMeanAddFunction` and :func:`ring_mean_add` for K4f.
 
 The kernels take float32 and bfloat16, any width (odd ones too: 16-byte
 loads where a row's addresses allow, single elements where they do not) and
@@ -147,13 +160,13 @@ def _reciprocal(d: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(1.0, dtype=dtype) / torch.tensor(float(d), dtype=dtype))
 
 
-def _row_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum over the last dimension, kept: summed in float64 and rounded
-    once to :func:`_acc`'s dtype. Exact, so any order gives it, for rows
-    whose terms span fewer than about 2^34 (bfloat16) or 2^18 (float32) in
-    magnitude; beyond, within half a float64 ulp of the row's largest
-    partial sum."""
-    return x.sum(dim=-1, keepdim=True, dtype=torch.float64).to(_acc(x.dtype))
+def _row_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The sum over ``dim`` (the last dimension), kept: summed in float64 and
+    rounded once to :func:`_acc`'s dtype. Exact, so any order gives it, for
+    rows whose terms span fewer than about 2^34 (bfloat16) or 2^18
+    (float32) in magnitude; beyond, within half a float64 ulp of the row's
+    largest partial sum."""
+    return x.sum(dim=dim, keepdim=True, dtype=torch.float64).to(_acc(x.dtype))
 
 
 # -- plain versions ---------------------------------------------------------------
@@ -267,6 +280,30 @@ def mse_loss_plain(out: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, to
     diff = out - y
     loss = diff.square().mean(dtype=_acc(out.dtype)).to(out.dtype)
     return loss, (diff * 2.0) * mse_grad_scale(diff.numel(), out.dtype)
+
+
+def ring_mean_add_plain(x: torch.Tensor, delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``s + m`` over ``(batch, T, d)``: ``s = x + delta`` rounded to x's
+    dtype (``x`` itself without ``delta``), ``m`` the sum over T by
+    :func:`_row_sum` times ``1 / T`` in float32, rounded to the dtype, as
+    jitted JAX forms ``jnp.mean(s, axis=1)``; the add rounded. The sum
+    reads ``x + delta`` in float32 before its rounding to the dtype:
+    XLA:CPU drops the jaxpr's rounding of ``s`` ahead of the mean's
+    conversion to float32, as it drops ``w``'s in :func:`rms_norm_bwd_plain`."""
+    s = x if delta is None else x + delta
+    acc = _acc(s.dtype)
+    wide = s if delta is None else x.to(acc) + delta.to(acc)
+    return s + (_row_sum(wide, dim=1) * _reciprocal(s.shape[1], acc)).to(s.dtype)
+
+
+def ring_mean_add_bwd_plain(g: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`ring_mean_add_plain`'s ``s``, as jitted
+    ``jax.vjp`` of ``x + _ring_context(x)`` forms it: ``g + c``, ``c`` the
+    sum of ``g`` over T by :func:`_row_sum` rounded to the dtype (the vjp's
+    ``reduce_sum`` runs in it), times ``1 / T`` in float32, rounded."""
+    acc = _acc(g.dtype)
+    c = _row_sum(g, dim=1).to(g.dtype).to(acc) * _reciprocal(g.shape[1], acc)
+    return g + c.to(g.dtype)
 
 
 # -- wrappers -----------------------------------------------------------------------
@@ -475,15 +512,57 @@ def mse_loss_fwd(out: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torc
     return loss, d_out
 
 
+def _check_ring(name: str, t: torch.Tensor) -> None:
+    _check(name, t)
+    if t.dim() != 3:
+        raise ValueError(f"{name}: {tuple(t.shape)}; want (batch, T, d)")
+
+
+def _ring_launch(name: str, out: torch.Tensor, *ptrs) -> torch.Tensor:
+    """Launch K4f's forward or backward into ``out``, ``(batch, T, d)``."""
+    if out.numel() == 0:
+        return out
+    lib = kernels.build()
+    with torch.cuda.device(out.device):
+        rc = getattr(lib, f"tb_{name}")(*ptrs, out.data_ptr(), *out.shape, _DTYPES[out.dtype],
+                                        kernels._stream(out.device))
+    kernels._check_launch(lib, rc, name)
+    kernels._count(name)
+    return out
+
+
+def ring_mean_add_fwd(x: torch.Tensor, delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4f. :func:`ring_mean_add_plain`: ``s + mean_T(s)``, ``s = x +
+    delta``, over ``(batch, T, d)``; only the sum is written."""
+    _check_ring("x", x)
+    if delta is not None:
+        _check("delta", delta, x)
+    if x.device.type == "cpu":
+        return ring_mean_add_plain(x, delta)
+    x, delta = _card(x, delta)
+    return _ring_launch("ring_mean_add_fwd", torch.empty_like(x), x.data_ptr(),
+                        kernels._ptr(delta))
+
+
+def ring_mean_add_bwd(g: torch.Tensor) -> torch.Tensor:
+    """K4f's gradient. :func:`ring_mean_add_bwd_plain`: ``g`` plus its
+    sequence mean, as the reference rounds it."""
+    _check_ring("g", g)
+    if g.device.type == "cpu":
+        return ring_mean_add_bwd_plain(g)
+    (g,) = _card(g)
+    return _ring_launch("ring_mean_add_bwd", torch.empty_like(g), g.data_ptr())
+
+
 # -- autograd -------------------------------------------------------------------------
 
 
 class AddRMSNormFunction(torch.autograd.Function):
-    """``(s, n)`` of :func:`add_rms_norm_fwd`, or ``n`` alone without
-    ``delta``. Saves ``s`` and ``rstd``; the backward hands K4b the gradient
-    that reaches ``s`` from the residual stream (``g_s``), which it adds
-    where JAX's backward adds it, and gives the result to both ``x`` and
-    ``delta``."""
+    """``(s, n)`` of :func:`add_rms_norm_fwd`; without ``delta``, ``s`` is
+    ``x``, as an output of its own. Saves ``s`` and ``rstd``; the backward
+    hands K4b the gradient that reaches ``s`` from the residual stream
+    (``g_s``), which it adds where JAX's backward adds it, and gives the
+    result to both ``x`` and ``delta``."""
 
     @staticmethod
     def forward(ctx, x, delta):
@@ -491,11 +570,10 @@ class AddRMSNormFunction(torch.autograd.Function):
         ctx.save_for_backward(s, rstd)
         ctx.set_materialize_grads(False)
         ctx.has_delta = delta is not None
-        return (s, n) if ctx.has_delta else n
+        return s, n
 
     @staticmethod
-    def backward(ctx, *grads):
-        g_s, g_n = grads if ctx.has_delta else (None, grads[0])
+    def backward(ctx, g_s, g_n):
         g = g_s if g_n is None else rms_norm_bwd(*ctx.saved_tensors, g_n, g_s)
         return g, g if ctx.has_delta else None
 
@@ -532,13 +610,28 @@ class MoECombineFunction(torch.autograd.Function):
         return dy, d_yr, d_logit
 
 
+class RingMeanAddFunction(torch.autograd.Function):
+    """:func:`ring_mean_add_fwd`, with :func:`ring_mean_add_bwd` as its
+    backward, whose result reaches both ``x`` and ``delta``. Saves
+    nothing."""
+
+    @staticmethod
+    def forward(ctx, x, delta):
+        ctx.has_delta = delta is not None
+        return ring_mean_add_fwd(x, delta)
+
+    @staticmethod
+    def backward(ctx, g):
+        g_s = ring_mean_add_bwd(g)
+        return g_s, g_s if ctx.has_delta else None
+
+
 def add_rms_norm(
     x: torch.Tensor, delta: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(s, n)``: the residual sum ``x + delta`` (``x`` without ``delta``)
-    and its RMS norm, differentiable."""
-    if delta is None:
-        return x, AddRMSNormFunction.apply(x, None)
+    """``(s, n)``: the residual sum ``x + delta`` (``x`` without ``delta``,
+    then a view of it) and its RMS norm, differentiable. The gradient
+    reaching ``s`` from the residual stream goes into K4b with the norm's."""
     return AddRMSNormFunction.apply(x, delta)
 
 
@@ -546,6 +639,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh GeLU, differentiable: ``_gelu`` and its ``jax.vjp``, which
     the reference rounds op by op (in bfloat16, every op to bfloat16)."""
     return GeluFunction.apply(x)
+
+
+def ring_mean_add(x: torch.Tensor, delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``s + mean_T(s)``, ``s = x + delta``, differentiable: with ``heads =
+    0``, the last MLP residual add and ``x + _ring_context(x)`` on one rank,
+    and their ``jax.vjp``, rounded as the reference rounds them."""
+    return RingMeanAddFunction.apply(x, delta)
 
 
 def moe_combine(s: torch.Tensor, yr: torch.Tensor, logit: torch.Tensor) -> torch.Tensor:
@@ -563,6 +663,7 @@ __all__ = [
     "MoECombineFunction",
     "NORM_HOLD",
     "NORM_TOL",
+    "RingMeanAddFunction",
     "TRANSCENDENTAL_ULPS",
     "add_rms_norm",
     "add_rms_norm_fwd",
@@ -581,6 +682,11 @@ __all__ = [
     "mse_grad_scale",
     "mse_loss_fwd",
     "mse_loss_plain",
+    "ring_mean_add",
+    "ring_mean_add_bwd",
+    "ring_mean_add_bwd_plain",
+    "ring_mean_add_fwd",
+    "ring_mean_add_plain",
     "rms_norm_bwd",
     "rms_norm_bwd_plain",
 ]

@@ -25,7 +25,7 @@ The kernels are built at first use: ``nvcc`` compiles each source of
 for K3, whose wrappers are in ``ops/attention.py``, the last four sharing
 ``tc_mma.cuh``;
 ``quantize.cu`` for K2, whose wrappers are in ``ops/quantize.py``;
-``elementwise.cu`` for K4 and K4e-b/c/d, whose wrappers are in
+``elementwise.cu`` for K4, K4e-b/c/d and K4f, whose wrappers are in
 ``ops/elementwise.py``; and ``update.cu`` for K4e-a,
 the SGD update, whose wrapper is in ``ops/update.py``; the last two share
 ``elementwise.cuh``) for ``sm_90a``, one process
@@ -81,8 +81,8 @@ KERNELS = (
     "attn_bwd_delta",
     "attn_bwd_dkdv_tf32",
     "attn_bwd_dkdv_tc",
-    "attn_bwd_dq",
     "attn_bwd_dq_tc",
+    "attn_bwd_dq_tf32",
     "quantize_rows",
     "dequant_mean_rows",
     "add_rms_norm_fwd",
@@ -93,6 +93,8 @@ KERNELS = (
     "moe_combine_fwd",
     "moe_combine_bwd",
     "mse_loss_fwd",
+    "ring_mean_add_fwd",
+    "ring_mean_add_bwd",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -202,10 +204,7 @@ def build() -> ctypes.CDLL:
             lib.tb_attn_bwd_dkdv_tc.argtypes = lib.tb_attn_bwd_dkdv_tf32.argtypes = [
                 p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
             ]
-            lib.tb_attn_bwd_dq.argtypes = [
-                p, p, p, p, c_int, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
-            ]
-            lib.tb_attn_bwd_dq_tc.argtypes = [
+            lib.tb_attn_bwd_dq_tc.argtypes = lib.tb_attn_bwd_dq_tf32.argtypes = [
                 p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
             ]
             lib.tb_quantize_rows.argtypes = [p, i64, i64, i64, c_int, c_int, p, p, p]
@@ -220,17 +219,20 @@ def build() -> ctypes.CDLL:
             lib.tb_mse_loss_blocks.restype = i64
             lib.tb_mse_loss_fwd.argtypes = [p, p, p, p, p, i64, ctypes.c_float, c_int, p]
             lib.tb_mse_loss_sum.argtypes = [p, i64, p, i64, c_int, p]
+            lib.tb_ring_mean_add_fwd.argtypes = [p, p, p, i64, i64, i64, c_int, p]
+            lib.tb_ring_mean_add_bwd.argtypes = [p, p, i64, i64, i64, c_int, p]
             # the leaves' pointers and sizes as host arrays, read before the launch
             lib.tb_sgd_update_multi.argtypes = [
                 p, p, p, p, c_int, c_int, c_int, ctypes.c_float, ctypes.c_float, p
             ]
             for fn in (lib.tb_frame_rows, lib.tb_verify_rows, lib.tb_echo_step_rows,
                        lib.tb_attn_fold_fwd_tf32, lib.tb_attn_fold_fwd_tc, lib.tb_attn_bwd_delta,
-                       lib.tb_attn_bwd_dkdv_tf32, lib.tb_attn_bwd_dkdv_tc, lib.tb_attn_bwd_dq,
-                       lib.tb_attn_bwd_dq_tc, lib.tb_quantize_rows,
+                       lib.tb_attn_bwd_dkdv_tf32, lib.tb_attn_bwd_dkdv_tc,
+                       lib.tb_attn_bwd_dq_tc, lib.tb_attn_bwd_dq_tf32, lib.tb_quantize_rows,
                        lib.tb_dequant_mean_rows, lib.tb_add_rms_norm_fwd, lib.tb_rms_norm_bwd,
                        lib.tb_gelu_tanh_fwd, lib.tb_gelu_tanh_bwd, lib.tb_moe_combine_fwd,
                        lib.tb_moe_combine_bwd, lib.tb_mse_loss_fwd, lib.tb_mse_loss_sum,
+                       lib.tb_ring_mean_add_fwd, lib.tb_ring_mean_add_bwd,
                        lib.tb_sgd_update_multi):
                 fn.restype = c_int
             _lib = lib

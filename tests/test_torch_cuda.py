@@ -1,14 +1,15 @@
 """The port's CUDA kernels and endpoint on the card: each K1 kernel against
 its plain version, bit for bit, the endpoint's calls answered through the
 kernels, K3 (the ring-attention fold and its gradient, on the tensor cores
-for bf16 at any D up to 1024 and in any layout; the f32 fold and dK/dV in
-3xTF32 on them too, within chip_smoke.py's f32 tolerance) against its plain
-versions within the tolerances of ``chip_smoke.py``, K4 (the residual add
-and RMS norm, on both sides of the rows it keeps in registers, within
+for bf16 at any D up to 1024 and in any layout; the f32 fold, dK/dV and dQ
+in 3xTF32 on them too, within chip_smoke.py's f32 tolerance) against its
+plain versions within the tolerances of ``chip_smoke.py``, K4 (the residual
+add and RMS norm, on both sides of the rows it keeps in registers, within
 ``NORM_TOL``; the norm's backward, the tanh GeLU and its backward bit for
 bit, but for elements within ``TRANSCENDENTAL_ULPS`` that pass through
-tanhf) against its plain versions, one FabricNet
-train step on the card against the CPU, K2 (block quantize and dequantize-mean)
+tanhf) against its plain versions, K4f (the heads = 0 ring mean, forward
+and gradient) bit for bit against its plain versions, one FabricNet train
+step on the card against the CPU with heads 2 and with heads 0, K2 (block quantize and dequantize-mean)
 against its plain versions and the numpy twin bit for bit on
 ``chip_smoke.py``'s rows, one quantized session on the card against the
 same session on the CPU, byte for byte, and K4e (the SGD update bit for bit
@@ -42,7 +43,7 @@ K1 = ("frame_rows", "verify_rows", "echo_step_rows")
 # the dtype (tensor cores for bf16), delta takes both
 FOLD = {torch.float32: "attn_fold_fwd_tf32", torch.bfloat16: "attn_fold_fwd_tc"}
 DKDV = {torch.float32: "attn_bwd_dkdv_tf32", torch.bfloat16: "attn_bwd_dkdv_tc"}
-DQ = {torch.float32: "attn_bwd_dq", torch.bfloat16: "attn_bwd_dq_tc"}
+DQ = {torch.float32: "attn_bwd_dq_tf32", torch.bfloat16: "attn_bwd_dq_tc"}
 K3_BOTH = ("attn_bwd_delta",)
 
 
@@ -249,6 +250,32 @@ def test_tf32_dkdv_holds_the_f32_tolerance(cuda, shape, causal):
         assert float((got - want).abs().max()) <= tol * scale
 
 
+@pytest.mark.parametrize("shape", F32_FOLD_SHAPES,
+                         ids=["small", "d144", "d1024-sp4", "d1024", "d24", "d20", "d18"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_tf32_dq_holds_the_f32_tolerance(cuda, shape, causal):
+    """``attn_bwd_dq_tf32`` (f32 operands, 3xTF32 on the tensor cores)
+    against ``dq_plain`` on the same inputs within ``chip_smoke.k3_tolerances``'
+    2e-5 x max(1, max |plain|), one launch a call, and the CUDA-core
+    ``attn_bwd_dq`` it replaced is gone."""
+    b, t, h, d, sp = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(shape) + 3 * causal)
+    q, k, v, dout = _qkvo(gen, (b, t, h, d), torch.float32, cuda)
+    out, lse, _ = attention.forward(q, k, v, sp=sp, causal=causal)
+    delta = attention.row_dot(out, dout)
+    before = kernels.launch_counts()
+    dq = attention.dq(q, k, v, dout, lse, delta, sp=sp, causal=causal)
+    after = kernels.launch_counts()
+    assert after["attn_bwd_dq_tf32"] == before["attn_bwd_dq_tf32"] + 1
+    assert after["attn_bwd_dq_tc"] == before["attn_bwd_dq_tc"]
+    assert "attn_bwd_dq" in chip_smoke.REMOVED and "attn_bwd_dq" not in after
+    want = attention.dq_plain(q, k, v, dout, lse, delta, sp=sp, causal=causal)
+    assert dq.dtype == torch.float32 and dq.shape == want.shape
+    tol = chip_smoke.k3_tolerances(torch)[torch.float32]
+    assert float((dq - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
+
+
 def test_tensor_core_fold_refuses_a_head_dimension_off_its_k_step(cuda):
     """Once a refusal, now a value check: bf16 at D = 24 (16-byte rows, off
     the k-step of 16) and D = 20 (8-byte rows) runs on the tensor-core fold,
@@ -323,19 +350,80 @@ def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
         params, loss = step(params, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
         after = kernels.launch_counts()
         results[dev] = (float(loss), {k: p.cpu() for k, p in params.items()})
-        if dev == "cuda":  # f32: the 3xTF32 fold and dK/dV, the CUDA-core dQ
+        if dev == "cuda":  # f32: the 3xTF32 fold, dK/dV and dQ
             assert all(after[n] == before[n] + cfg.microbatches
-                       for n in ("attn_fold_fwd_tf32", "attn_bwd_dkdv_tf32", "attn_bwd_dq")
+                       for n in ("attn_fold_fwd_tf32", "attn_bwd_dkdv_tf32", "attn_bwd_dq_tf32")
                        + K3_BOTH)
             assert all(after[n] == before[n]
                        for n in ("attn_fold_fwd_tc", "attn_bwd_dkdv_tc", "attn_bwd_dq_tc"))
-            assert {n: after[n] - before[n] for n in chip_smoke.K4} == \
+            assert {n: after[n] - before[n] for n in chip_smoke.K4 + chip_smoke.K4F} == \
                 chip_smoke.k4_launches_per_step(cfg)
             assert {n: after[n] - before[n] for n in chip_smoke.K4E} == \
                 chip_smoke.k4e_launches_per_step(cfg)
     assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
     for name, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][name], want, rtol=1e-5, atol=1e-5)
+
+
+def test_one_heads0_fabricnet_step_on_the_card_matches_the_cpu(cuda):
+    """heads = 0 (the ring mean, K4f), f32: one train step on the card
+    against the CPU from the same weights, within 1e-5 (cuBLAS and the CPU
+    sum in other orders); launches counted as chip_smoke.py
+    counts them: K4f once each way a microbatch, no K3 kernel."""
+    cfg = fabricnet.FabricNetConfig(d_model=32, d_ff=64, d_expert=32, layers_per_stage=2,
+                                    batch=4, seq=32, microbatches=2, heads=0)
+    rng = np.random.default_rng(13)
+    mesh = make_fabric_mesh(1, device="cpu")
+    arrays = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.2
+              for k, v in fabricnet.init_params(cfg, mesh).items()}
+    x, y = (rng.standard_normal((4, 32, 32)).astype(np.float32) for _ in range(2))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = fabricnet.params_from_numpy(arrays, cfg, dev)
+        step = fabricnet.make_train_step(cfg, device=dev)
+        before = kernels.launch_counts()
+        params, loss = step(params, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        after = kernels.launch_counts()
+        results[dev] = (float(loss), {k: p.cpu() for k, p in params.items()})
+        if dev == "cuda":
+            assert all(after[n] == before[n] for n in chip_smoke.K3)
+            assert {n: after[n] - before[n] for n in chip_smoke.K4 + chip_smoke.K4F} == \
+                chip_smoke.k4_launches_per_step(cfg)
+            assert after["ring_mean_add_fwd"] - before["ring_mean_add_fwd"] == cfg.microbatches
+    assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
+    for name, want in results["cpu"][1].items():
+        torch.testing.assert_close(results["cuda"][1][name], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,offset", chip_smoke.K4F_CASES,
+                         ids=["4x1024x2048", "ragged-t", "odd-d", "offset", "past-shared"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4f_matches_plain_versions(cuda, shape, offset, dtype):
+    """K4f's forward (with delta and without) and its gradient bit for bit
+    their plain versions, as chip_smoke.py holds them: at the bench width,
+    a ragged T, an odd d, one element off 16-byte alignment, and a T whose
+    column tile does not fit in shared memory."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(shape) + offset)
+    errs = {name: {} for name in chip_smoke.K4F}
+    before = kernels.launch_counts()
+    chip_smoke.k4f_case(torch, elementwise, gen, cuda, shape, dtype, offset, errs)
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in chip_smoke.K4F} == {
+        "ring_mean_add_fwd": 2, "ring_mean_add_bwd": 1}
+    assert all(e == 0.0 for name in chip_smoke.K4F for e in errs[name].values())
+
+
+def test_k4f_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((2, 8, 16), device=cuda)
+    before = kernels.launch_counts()
+    with pytest.raises(TypeError):
+        elementwise.ring_mean_add_fwd(x.double())
+    with pytest.raises(ValueError, match="batch, T, d"):
+        elementwise.ring_mean_add_bwd(x[0])
+    with pytest.raises(ValueError, match="delta"):
+        elementwise.ring_mean_add_fwd(x, x.bfloat16())
+    assert kernels.launch_counts() == before
 
 
 # K4 at the bench_fabricnet shapes and at odd widths, contiguous and one
@@ -450,7 +538,7 @@ def test_sliced_schedules_on_the_card_match_the_cpu(cuda, slices):
                                     {k: p.cpu() for k, p in params.items()})
         if dev == "cuda":
             want = {**{n: 2 * slices for n in ("attn_fold_fwd_tf32", "attn_bwd_dkdv_tf32",
-                                                "attn_bwd_dq") + K3_BOTH},
+                                                "attn_bwd_dq_tf32") + K3_BOTH},
                     **{n: 2 * v for n, v in chip_smoke.k4_launches_per_step(cfg).items()},
                     **{n: 2 * v for n, v in chip_smoke.k4e_launches_per_step(cfg, schedule).items()}}
             assert {n: after[n] - before[n] for n in want} == want

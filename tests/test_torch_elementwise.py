@@ -171,7 +171,7 @@ def test_add_rms_norm_gradient_matches_jax_vjp(dtype, lead, d, with_delta):
         _, vjp = jax.vjp(jax_fn._rms_norm, jx)
         (want_x,) = vjp(jgn)
         s, n = E.add_rms_norm(tx)
-        assert s is tx
+        assert torch.equal(s, tx)
         (gx,) = torch.autograd.grad(n, tx, tgn)
     assert gx.dtype == tx.dtype
     _close(gx, want_x, GRAD_TOL[dtype])
@@ -352,17 +352,18 @@ def test_wrappers_refuse_what_they_do_not_take():
     ids=["heads2", "heads0", "heads0-layers0", "layers2-m1", "serialized", "overlapped-heads0",
          "serialized-m3", "overlapped-layers2-m1"])
 def test_train_step_calls_k4_as_chip_smoke_counts(monkeypatch, schedule, kw):
-    """A FabricNet train step on the CPU calls each K4 and K4e wrapper as
-    often as ``chip_smoke.k4_launches_per_step`` and
+    """A FabricNet train step on the CPU calls each K4, K4f and K4e wrapper
+    as often as ``chip_smoke.k4_launches_per_step`` and
     ``k4e_launches_per_step`` say the card launches it: the first norm's
-    backward is never called (its input is the batch); the fused step
-    updates once and takes the loss once, a sliced one accumulates M - 2
-    times, updates once and takes each slice's loss."""
+    backward is never called (its input is the batch), nor, with heads = 0
+    and no MLP layer, K4f's; the fused step updates once and takes the loss
+    once, a sliced one accumulates M - 2 times, updates once and takes each
+    slice's loss."""
     from incubator_brpc_tpu_torch.models import fabricnet as fn
     from incubator_brpc_tpu_torch.ops import update
     from incubator_brpc_tpu_torch.parallel import mesh as pmesh
 
-    calls = dict.fromkeys(chip_smoke.K4 + chip_smoke.K4E, 0)
+    calls = dict.fromkeys(chip_smoke.K4 + chip_smoke.K4F + chip_smoke.K4E, 0)
     for name in calls:
         owners = [m for m in (E, update, fn) if hasattr(m, name)]
         real = getattr(owners[0], name)

@@ -347,6 +347,49 @@ def test_3xtf32_keeps_the_fold_within_f32_tolerance(products):
         assert errs[0][0] > 10 * errs[0][1]
 
 
+@pytest.mark.parametrize("products", ["3xtf32", "one_tf32_product"])
+def test_3xtf32_keeps_dq_within_f32_tolerance(products):
+    """What ``attn_bwd_dq_tf32`` computes, on the CPU: one causal block at
+    D = 512 (T 256; f32 inputs from a seed), each of its three products,
+    S = Q.K^T, dP = dO.V^T and dQ = dS.K, as ``split_tf32``'s three tf32
+    products (``a_hi.b_lo + a_lo.b_hi``, then ``+ a_hi.b_hi``, summed in
+    f32), with P = exp(S / sqrt(D) + mask - lse) and dS = P (dP - delta) in
+    f32 between them, held against ``dq_plain`` and JAX's gradient of
+    ``ring_attention`` within 2e-5 x max(1, max |dq|), the f32 tolerance
+    chip_smoke.py holds the kernel to. One tf32 product (hi.hi) misses it by
+    more than 10x: that is why the kernel splits."""
+    b, t, h, d = 1, 256, 1, 512
+    rng = np.random.default_rng(47)
+    q, k, v, do = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(4))
+    jstep, jplace = _jax_step(1)
+    _, vjp = jax.vjp(jstep, jplace(q), jplace(k), jplace(v))
+    want_jax = np.asarray(vjp(jnp.asarray(do))[0])
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse, _ = attention.forward(tq, tk, tv, sp=1, causal=True)
+    delta = attention.row_dot_plain(out, tdo)
+    want_plain = attention.dq_plain(tq, tk, tv, tdo, lse, delta, sp=1, causal=True).numpy()
+
+    def prod(eq, x, y):
+        if products == "3xtf32":
+            (xh, xl), (yh, yl) = attention.split_tf32(x), attention.split_tf32(y)
+            return (torch.einsum(eq, xh, yl) + torch.einsum(eq, xl, yh)) + torch.einsum(eq, xh, yh)
+        return torch.einsum(eq, attention.round_tf32(x), attention.round_tf32(y))
+
+    sqd = attention._sqrt_d(tq)
+    pos = torch.arange(t)
+    mask = torch.where(pos[None, :] <= pos[:, None], 0.0, attention.NEG_INF)
+    s = prod("bthd,bshd->bhts", tq, tk) / sqd + mask
+    p = torch.exp(s - lse[..., None])
+    ds = p * (prod("bthd,bshd->bhts", tdo, tv) - delta[..., None])
+    got = (prod("bhts,bshd->bthd", ds, tk) / sqd).numpy()
+    errs = [(float(np.abs(got - w).max()), 2e-5 * max(1.0, float(np.abs(w).max())))
+            for w in (want_plain, want_jax)]
+    if products == "3xtf32":
+        assert all(err <= tol for err, tol in errs)
+    else:
+        assert errs[0][0] > 10 * errs[0][1]
+
+
 def test_bfloat16_grads_off_the_tensor_core_k_step_match_jax():
     """The bf16 path at D = 24 (off the tensor cores' k-step of 16; on the
     card the kernels read the columns past D as zeros) through
