@@ -7,13 +7,15 @@ the fused and the sliced schedules, the step with heads = 0 and its ring
 mean (K4f), and the quantized collective sessions (K2).
 
     python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py --k2-only ROOT [--out FILE]   # phase 11 alone, the port under ROOT
 
 Run from the repository root on a machine with a CUDA card. It builds the
 port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
 ``incubator_brpc_tpu_torch/_build/``) and then, failing on the first fault:
 
 1. prints the card (``nvidia-smi`` name and power limit), the build time,
-   and each K3 kernel's registers and spills from ptxas's report;
+   and each K3, K4 and K2 kernel's registers and spills from ptxas's report
+   (K2: both forms of each kernel);
 2. holds each kernel — K1a ``frame_rows``, K1b ``verify_rows``, K1c
    ``echo_step_rows`` — against its plain PyTorch version on the card,
    bit for bit, at every geometry of the main path, with rows that carry a
@@ -115,10 +117,13 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    K4e, cuBLAS, and PyTorch's own elementwise ops and copies);
 9. holds K2 (``quantize_rows``, ``dequant_mean_rows``) against its plain
    versions and the numpy twin of ``parallel/quantized.py``, bit for bit,
-   in int8 and int4, at (parties, row bytes) (2, 4096), (3, 4096), (8,
-   1 MiB) and (64, 1 MiB) with blocks of 32, and (3, 4096) with blocks of
-   16, on rows whose first blocks are edge cases (``quant_edge_blocks``),
-   and one quantized pmean step of noise rows within ``pmean_error_bound``;
+   in int8 and int4, at ``K2_CASES``: (parties, row bytes) (2, 4096), (3,
+   4096), (8, 1 MiB) and (64, 1 MiB) with blocks of 32, (3, 4096) with
+   blocks of 4, 8, 16, 64 and 128, (3, 3840) with blocks of 6 and 10, one
+   row, and rows off 16-byte boundaries, on rows whose first blocks are edge
+   cases (``quant_edge_blocks``); it logs the form (vector or general) each
+   kernel ran and holds it to ``k2_expected_forms``; and one quantized pmean
+   step of noise rows within ``pmean_error_bound``;
 10. drives the third main path with the launch counts set to zero:
    ``run_dispatch_session`` at the bench's geometry (2 parties x 4096 B x
    16 steps) and the full one (8 x 1 MiB x 16), modes none, int8 and int4
@@ -130,9 +135,11 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``checkpoint_every=4`` resumed from step 8, byte-identical to the
    undisturbed 16 steps; each session's K2 launches must be steps x chunks
    (plus one K2a per checkpoint), 0 for an exact one;
-11. times K2 at (8, 1 MiB) and (64, 1 MiB) with CUDA events beside its
-   bound and its plain versions, and the full-width sessions' ms per step
-   in modes none, int8 and int4 with their wire ratios;
+11. times K2 (and K2b's ``mean=False`` form) at (8, 1 MiB) and (64, 1 MiB)
+   in int8 and int4 with CUDA events beside its bound, its plain versions
+   and the wrapper's time back to back, and the full-width sessions' ms per
+   step in modes none, int8 and int4 with their wire ratios and idle share
+   (``--k2-only ROOT`` runs this phase alone on another tree's port);
 12. prints the kernels line (JSON), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -145,6 +152,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -190,10 +198,22 @@ GEOMETRIES = [(1, 64), (16, 64), (16, 8192), (1, 1 << 24), (4, 1 << 24), (1, 1 <
 # the geometry each kernel's line reports: the largest the main path gives it
 REPORT_AT = {"frame_rows": (1, 1 << 26), "verify_rows": (1, 1 << 24), "echo_step_rows": (1, 1 << 26)}
 K2 = ("quantize_rows", "dequant_mean_rows")
+# K2's kernel templates in ptxas's report: each wrapper's vector form, then its general form
+K2_KERNELS = ("quantize_vec_kernel", "quantize_kernel", "dequant_vec_kernel", "dequant_kernel")
+K2_FORM_KERNELS = {"quantize_rows": K2_KERNELS[:2], "dequant_mean_rows": K2_KERNELS[2:]}
 # (parties, row bytes): the bench's 2 x 4096 and 3 x 4096 of the JAX session
 # tests, the session plane's MAX_WIDTH (1 MiB, mc_dispatch.py:116) at the 8 data-parallel ranks
 # of one DGX H100, and at 64 parties (64 MiB of f32, beyond the 50 MB L2)
 K2_GEOMETRIES = [(2, 4096), (3, 4096), (8, 1 << 20), (64, 1 << 20)]
+# phase 9's cases, (parties, row bytes, block, layout): the geometries at the
+# default block of 32, then the blocks each form takes (4, 8, 16, 64 and 128
+# vector; 6 and 10 general, on 3840-byte rows), one row (a checkpoint of one
+# party) and rows off 16-byte boundaries (``k2_layout``), which K2a takes in
+# its general form
+K2_CASES = ([(p, w, 32, "contiguous") for p, w in K2_GEOMETRIES]
+            + [(3, 4096, b, "contiguous") for b in (4, 8, 16, 64, 128)]
+            + [(3, 3840, 6, "contiguous"), (3, 3840, 10, "contiguous"), (1, 4096, 32, "contiguous"),
+               (3, 4096, 32, "offset"), (3, 4096, 32, "stride")])
 # (parties, row bytes, steps): bench.py:1184 _mc_quantized_child, and the full width
 SESSIONS = {"bench": (2, 4096, 16), "full": (8, 1 << 20, 16)}
 SCHEDULES = [(1, False), (4, False), (4, True)]  # (chunks, double_buffer)
@@ -306,6 +326,17 @@ def quant_edge_blocks(block: int, mode: str, seed: int = 0) -> np.ndarray:
         rnd() * 100.0 * np.where(np.arange(block) % 2, 1.0, -1.0),
     ]
     return np.stack(blocks).astype(np.float32)
+
+
+def k2_expected_forms(block: int, mode: str, layout: str) -> dict:
+    """The forms ``ops/quantize.py`` picks for a ``k2_case``: K2a's vector
+    form wants blocks of 4-128 floats, a power of two, and rows on 16-byte
+    boundaries; K2b's wants blocks of a multiple of 4 and q on the boundary
+    of a 4-value word (``"offset"`` moves it one byte off)."""
+    vec_q = block in (4, 8, 16, 32, 64, 128) and layout == "contiguous"
+    vec_d = block % 4 == 0 and layout != "offset"
+    return {"quantize_rows": ["vector" if vec_q else "general"],
+            "dequant_mean_rows": ["vector" if vec_d else "general"]}
 
 
 def quant_rows(parties: int, nfloats: int, block: int, mode: str, seed: int,
@@ -1734,21 +1765,55 @@ def u8(torch, t):
     return t.view(torch.uint8).cpu().numpy().reshape(t.shape[0], -1)
 
 
-def k2_case(torch, quantize, Q, dev, parties, width, block, mode):
+def k2_layout(torch, rows: np.ndarray, dev, layout: str):
+    """``rows`` on the card as K2a sees them: ``"contiguous"``; ``"offset"``,
+    every row one float past a 16-byte boundary; ``"stride"``, rows on a
+    16-byte boundary at a row stride of nfloats + 1 but for the first."""
+    parties, nfloats = rows.shape
+    if layout == "contiguous":
+        return torch.from_numpy(rows).to(dev)
+    pad, at = (4, 1) if layout == "offset" else (1, 0)
+    buf = torch.zeros((parties, nfloats + pad), dtype=torch.float32, device=dev)
+    x = buf[:, at:at + nfloats]
+    x.copy_(torch.from_numpy(rows).to(dev))
+    return x
+
+
+def k2_forms(quantize, before) -> dict:
+    """The forms launched since ``before`` (``quantize.form_counts()``):
+    {kernel: [form, ...]} in the order of ``quantize.FORMS``."""
+    after = quantize.form_counts()
+    ran = {}
+    for (name, form), n in after.items():
+        if n > before.get((name, form), 0):
+            ran.setdefault(name, []).append(form)
+    return ran
+
+
+def k2_case(torch, quantize, Q, dev, parties, width, block, mode, layout="contiguous"):
     """K2a and K2b (and K2b's dequantize) against the plain versions and
-    the numpy twin, bitwise, on rows that carry the edge blocks; and one
-    quantized pmean step of noise rows within pmean_error_bound."""
+    the numpy twin, bitwise, on rows that carry the edge blocks, in the
+    ``layout`` of ``k2_layout`` (``"offset"`` also hands K2b its q one byte
+    past a 4-byte boundary); and one quantized pmean step of noise rows
+    within pmean_error_bound. Returns the forms each kernel ran."""
     nfloats = width // 4
     rows = quant_rows(parties, nfloats, block, mode, seed=parties * 100 + block)
-    x = torch.from_numpy(rows).to(dev)
+    x = k2_layout(torch, rows, dev, layout)
+    before = quantize.form_counts()
     q, e = quantize.quantize_rows(x, mode, block)
-    got = {"q": q, "e": e, "mean": quantize.dequant_mean_rows(q, e, mode, block),
-           "dequantize": quantize.dequant_mean_rows(q, e, mode, block, mean=False)}
+    qk = q
+    if layout == "offset":  # q one byte into a contiguous buffer
+        qbuf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+        qk = qbuf[1:].view(q.shape)
+        qk.copy_(q)
+    got = {"q": q, "e": e, "mean": quantize.dequant_mean_rows(qk, e, mode, block),
+           "dequantize": quantize.dequant_mean_rows(qk, e, mode, block, mean=False)}
+    forms = k2_forms(quantize, before)
     qp, ep = quantize.quantize_rows_plain(x, mode, block)
     plain = {"q": qp, "e": ep, "mean": quantize.dequant_mean_rows_plain(qp, ep, mode, block),
              "dequantize": quantize.dequantize_rows_plain(qp, ep, mode, block)}
     got = {k: u8(torch, t) for k, t in got.items()}
-    where = f"K2 {mode} P={parties} W={width} block={block}"
+    where = f"K2 {mode} P={parties} W={width} block={block} {layout}"
     for k, t in plain.items():
         if not np.array_equal(got[k], u8(torch, t)):
             raise AssertionError(f"{where}: {k} differs from the plain version")
@@ -1769,9 +1834,10 @@ def k2_case(torch, quantize, Q, dev, parties, width, block, mode):
     if not err <= bound:
         raise AssertionError(f"{where}: quantized pmean error {err} > bound {bound}")
     e_seen = sorted(set(got["e"][:, :8].view(np.int8).reshape(-1).tolist()))
-    log(f"phase9 {where}: kernels bitwise equal to the plain versions and the numpy twin "
-        f"(exponents of the edge blocks {e_seen}); one pmean step of noise rows off the exact "
-        f"mean by {err:.4g} <= bound {bound:.4g}")
+    log(f"phase9 {where}: forms {forms}; kernels bitwise equal to the plain versions and the "
+        f"numpy twin (exponents of the edge blocks {e_seen}); one pmean step of noise rows off "
+        f"the exact mean by {err:.4g} <= bound {bound:.4g}")
+    return forms
 
 
 def exact_model(rows: np.ndarray, steps: int) -> np.ndarray:
@@ -1878,10 +1944,22 @@ def run_sessions(torch, kernels, mcd, mcc, Q, DeviceMethod, worker):
     return checked
 
 
+# phase 11's timed K2 functions: (name in the detail, kernel, mean)
+K2_TIMED = (("quantize_rows", "quantize_rows", None), ("dequant_mean_rows", "dequant_mean_rows", True),
+            ("dequant_mean_rows mean=False", "dequant_mean_rows", False))
+
+
 def k2_timings(torch, quantize, dev):
-    """Phase 11: K2 at the full width, CUDA events, beside the bound (the
-    bytes in and out over HBM) and the plain versions."""
+    """Phase 11: K2 at the full width, 8 and 64 parties, int8 and int4,
+    K2b's ``mean=False`` form and a session step's K2 (K2b, then K2a of its
+    output), with CUDA events behind a spin kernel beside the bound (the
+    bytes in and out over HBM) and the plain versions, and the wrapper's
+    time back to back (host_ms); beside K2b, ``fill_`` of its output alone.
+    The 8-party input (8 MiB) stays in the 50 MB L2 across the timed calls;
+    the 64-party one does not."""
     res = {}
+    form_of = getattr(quantize, "quantize_form", None)  # absent from trees before the vector forms
+    dform_of = getattr(quantize, "dequant_form", None)
     for parties, width in ((8, 1 << 20), (64, 1 << 20)):
         nfloats = width // 4
         x = torch.from_numpy(quant_rows(parties, nfloats, 32, "int8", seed=3, edges=False)).to(dev)
@@ -1889,6 +1967,8 @@ def k2_timings(torch, quantize, dev):
             q, e = quantize.quantize_rows(x, mode, 32)
             qbytes = q.numel() * q.element_size() + e.numel()
             xbytes = x.numel() * 4
+            forms = {"quantize_rows": form_of(x, 32) if form_of else "n/a",
+                     "dequant_mean_rows": dform_of(q, mode, 32) if dform_of else "n/a"}
             cases = {
                 "quantize_rows": (lambda: quantize.quantize_rows(x, mode, 32),
                                   lambda: quantize.quantize_rows_plain(x, mode, 32),
@@ -1896,7 +1976,20 @@ def k2_timings(torch, quantize, dev):
                 "dequant_mean_rows": (lambda: quantize.dequant_mean_rows(q, e, mode, 32),
                                       lambda: quantize.dequant_mean_rows_plain(q, e, mode, 32),
                                       qbytes + xbytes, 2 * x.numel() + nfloats),
+                "dequant_mean_rows mean=False": (
+                    lambda: quantize.dequant_mean_rows(q, e, mode, 32, mean=False),
+                    lambda: quantize.dequant_mean_rows_plain(q, e, mode, 32, mean=False),
+                    qbytes + xbytes, x.numel()),
+                # a session step's K2 on the card: the mean, then the next step's
+                # quantize of it, which may find it in the L2
+                "step": (lambda: quantize.quantize_rows(quantize.dequant_mean_rows(q, e, mode, 32),
+                                                        mode, 32),
+                         lambda: quantize.quantize_rows_plain(
+                             quantize.dequant_mean_rows_plain(q, e, mode, 32), mode, 32),
+                         2 * (qbytes + xbytes), 6 * x.numel() + nfloats),
             }
+            out = torch.empty_like(x)
+            fill_ms, _ = device_ms(torch, lambda: out.fill_(1.0), 50)  # K2b's writes alone
             for name, (kern, plain, nbytes, flops) in cases.items():
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -1911,16 +2004,20 @@ def k2_timings(torch, quantize, dev):
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "bytes": nbytes, "flops": flops, "shape": [parties, width], "mode": mode,
+                     "form": forms.get(name.split()[0], "both"), "l2_resident": xbytes + qbytes <= 50e6,
+                     "fill_ms": fill_ms if name.startswith("dequant") else None,
                      "wire_ratio": (q[0].numel() * q.element_size() + e[0].numel()) / width}
                 res[(name, parties, mode)] = r
                 if name == "quantize_rows":
                     log(f"phase11 {mode} wire bytes per party per step from the gathered "
                         f"dtypes ({q.dtype}, {e.dtype}): {r['wire_ratio']:.4f} of the f32 row")
-                log(f"phase11 {name} {mode} P={parties} W={width}: device {r['ms']:.6f} ms, bound "
+                log(f"phase11 {name} {mode} P={parties} W={width} ({r['form']} form"
+                    f"{', in L2' if r['l2_resident'] else ''}): device {r['ms']:.6f} ms, bound "
                     f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f} %"
                     f" of it), plain {r['plain_ms']:.6f} ms; back to back through the wrapper "
-                    f"{r['host_ms']:.6f} ms (plain {r['plain_host_ms']:.6f}); no single PyTorch "
-                    "call computes it")
+                    f"{r['host_ms']:.6f} ms (plain {r['plain_host_ms']:.6f})"
+                    + (f"; fill_ of its output alone {fill_ms:.6f} ms" if r["fill_ms"] else "")
+                    + "; no single PyTorch call computes it")
     return res
 
 
@@ -1980,10 +2077,15 @@ def run_k2_phases(torch, kernels, dev):
     from incubator_brpc_tpu_torch.transport import mc_worker
 
     # -- phase 9: K2 against its plain versions and the numpy twin ------------
+    forms = {}
     for mode in ("int8", "int4"):
-        for parties, width in K2_GEOMETRIES:
-            k2_case(torch, quantize, Q, dev, parties, width, 32, mode)
-        k2_case(torch, quantize, Q, dev, 3, 4096, 16, mode)
+        for case in K2_CASES:
+            parties, width, block, layout = case
+            got = k2_case(torch, quantize, Q, dev, parties, width, block, mode, layout)
+            want = k2_expected_forms(block, mode, layout)
+            if got != want:
+                raise AssertionError(f"K2 {mode} {case}: forms {got}, want {want}")
+            forms[f"{mode} {case}"] = got
     torch.cuda.synchronize()
 
     # -- phase 10: the session path, counted ----------------------------------
@@ -1999,7 +2101,7 @@ def run_k2_phases(torch, kernels, dev):
     timings = k2_timings(torch, quantize, dev)
     sessions = session_timings(torch, mc_dispatch, mc_collective)
     line = {name: {k: timings[(name, 8, "int8")][k]
-                   for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "mode")}
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "mode", "form")}
             for name in K2}
     for name in K2:
         line[name]["library_ms"] = None
@@ -2008,14 +2110,50 @@ def run_k2_phases(torch, kernels, dev):
         line[name]["p64_ms"] = timings[(name, 64, "int8")]["ms"]
         line[name]["p64_bound_ms"] = timings[(name, 64, "int8")]["bound_ms"]
     detail = {"timings": {f"{n} P={p} {m}": t for (n, p, m), t in timings.items()},
-              "sessions": sessions, "checked": {f"{n} {m}": c for (n, m), c in checked.items()}}
+              "sessions": sessions, "forms": forms,
+              "checked": {f"{n} {m}": c for (n, m), c in checked.items()}}
     return {"launches": launches, "line": line, "detail": detail}
+
+
+def k2_only(root: str, out) -> int:
+    """``--k2-only ROOT``: phase 11 alone (K2's timings and the full-width
+    sessions') for the port under ROOT, a tree of this repository unpacked
+    from any commit (``git archive``), so that two trees are timed in turns
+    on one card: parent, change, change, parent."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from incubator_brpc_tpu_torch.ops import kernels, quantize
+    from incubator_brpc_tpu_torch.parallel import mc_collective, mc_dispatch
+
+    card = card_line()
+    log(card)
+    log(f"k2-only: the port at {quantize.__file__}")
+    kernels.build()
+    dev = torch.device("cuda", 0)
+    timings = k2_timings(torch, quantize, dev)
+    sessions = session_timings(torch, mc_dispatch, mc_collective)
+    result = {"card": card, "root": root,
+              "timings": {f"{n} P={p} {m}": t for (n, p, m), t in timings.items()},
+              "sessions": sessions}
+    if out:
+        with open(out, "w") as f:
+            json.dump(result, f, indent=1)
+    log(card)
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the detailed timings to this JSON file")
+    ap.add_argument("--k2-only", metavar="ROOT",
+                    help="run phase 11 alone on the port of the tree at ROOT (k2_only)")
     opts = ap.parse_args()
+    if opts.k2_only:
+        return k2_only(opts.k2_only, opts.out)
 
     import torch
 
@@ -2037,7 +2175,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"phase1 build: {time.perf_counter() - t0:.3f}s")
-    ptxas = ptxas_report(kernels.build_log(), K3 + K4 + K4E + ("mse_loss_sum", K4F_KERNEL))
+    ptxas = ptxas_report(kernels.build_log(),
+                         K3 + K4 + K4E + ("mse_loss_sum", K4F_KERNEL) + K2_KERNELS)
     for name, entries in ptxas.items():
         for e in entries:
             log(f"  ptxas {name}: {e.get('registers')} registers, spill stores "
@@ -2171,12 +2310,14 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": k3["launches"][name],
             "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(K4F_KERNEL),
         })
-    for name in K2:
+    for name in K2:  # registers and spills: the vector form's instances
+        vec_kernel, gen_kernel = K2_FORM_KERNELS[name]
         line.append({
             "name": name, "route": "cuda",
             "source": "incubator_brpc_tpu_torch/csrc/quantize.cu",
             "replaces": REPLACES[name], "launches": k2["launches"][name],
             "max_abs_err": 0.0, **k2["line"][name],  # phase 9 holds K2 bitwise
+            **regs(vec_kernel), "general_registers": regs(gen_kernel)["registers"],
         })
     if opts.out:
         detail = [dict(kernel=n, rows=r, words=w, **t) for (n, r, w), t in p2.timings.items()]

@@ -28,9 +28,13 @@ division here divides by a tensor.
 Both kernels are bound by bytes: quantize reads 4 bytes and writes 1 (int4:
 1/2) per float; dequantize-mean reads P (int4: P/2) bytes and writes 4 P
 per float, the whole state. ``csrc/quantize.cu`` says what the design does
-about it. A wrapper given CPU tensors runs the plain version; given CUDA
-tensors it launches the kernel on the current stream or raises. Each
-launch adds one to its count in ``kernels.launch_counts()``.
+about it. Each kernel has a vector form (16-byte loads and stores, every
+block loaded once) and a general form for the shapes off its alignments;
+:func:`quantize_form` and :func:`dequant_form` pick one from the shape
+before the launch. A wrapper given CPU tensors runs the plain version;
+given CUDA tensors it launches the kernel on the current stream or raises.
+Each launch adds one to its count in ``kernels.launch_counts()``, whichever
+form ran, and one to the form's count in :func:`form_counts`.
 """
 
 from __future__ import annotations
@@ -44,6 +48,12 @@ from incubator_brpc_tpu_torch.ops import kernels
 QMAX = {"int8": 127, "int4": 7}
 E_MIN, E_MAX = -126, 127
 MAX_GRID = (1 << 31) - 1
+K2 = ("quantize_rows", "dequant_mean_rows")
+FORMS = ("vector", "general")
+# the blocks K2a's vector form takes: block / 4 lanes, a power of two up to a warp
+VECTOR_BLOCKS = (4, 8, 16, 32, 64, 128)
+
+_form_launches = {(name, form): 0 for name in K2 for form in FORMS}
 
 
 # -- exact helpers (shared by the plain versions) ------------------------------
@@ -116,6 +126,49 @@ def dequant_mean_rows_plain(q, e, mode: str, block: int, *, mean: bool = True) -
 # -- wrappers ------------------------------------------------------------------
 
 
+def form_counts():
+    """Launches of each kernel's each form, ``{(name, form): n}``, since the
+    module was loaded."""
+    with kernels._launches_lock:
+        return dict(_form_launches)
+
+
+def quantize_form(x: torch.Tensor, block: int) -> str:
+    """The K2a form that takes ``x`` [rows, nfloats]: ``"vector"`` where a
+    block is a power-of-two group of 1-32 float4s (``VECTOR_BLOCKS``) and
+    every row starts on a 16-byte boundary, with at most ``MAX_ROWS`` rows;
+    else ``"general"``, one warp a block."""
+    rows = x.shape[0]
+    if (block in VECTOR_BLOCKS and x.data_ptr() % 16 == 0 and rows <= kernels.MAX_ROWS
+            and (rows <= 1 or x.stride(0) % 4 == 0)):
+        return "vector"
+    return "general"
+
+
+def dequant_form(q: torch.Tensor, mode: str, block: int) -> str:
+    """The K2b form that takes ``q``: ``"vector"`` where a thread's 4
+    elements lie in one block and ``q`` starts on a boundary of their word
+    (4 bytes int8, 2 bytes int4); else ``"general"``, one thread an element."""
+    word = 2 if mode == "int4" else 4
+    return "vector" if block % 4 == 0 and q.data_ptr() % word == 0 else "general"
+
+
+def _launch(name: str, form: str, dev: torch.device, fn, *args) -> None:
+    """``fn(*args, stream)`` on ``dev``'s current stream, its error raised,
+    its launch counted. The device is made current only where it is not."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
+    if rc != 0:
+        kernels._check_launch(kernels._lib, rc, name)
+    with kernels._launches_lock:
+        kernels._launches[name] += 1
+        _form_launches[(name, form)] += 1
+
+
 def _check_mode(mode: str, block: int, nfloats: int) -> None:
     if mode not in QMAX:
         raise ValueError(f"mode {mode!r}; want one of {sorted(QMAX)}")
@@ -140,7 +193,8 @@ def quantize_rows(x: torch.Tensor, mode: str, block: int) -> Tuple[torch.Tensor,
     if rows > 1 and x.stride(0) < nfloats:
         raise ValueError(f"quantize_rows: row stride {x.stride(0)} < {nfloats} floats")
     nblocks = nfloats // block
-    if rows * nblocks > MAX_GRID * 8:
+    form = quantize_form(x, block)
+    if form == "general" and rows * nblocks > MAX_GRID * 8:
         raise ValueError(f"quantize_rows: {rows} x {nblocks} blocks exceed the kernel's grid")
     int4 = mode == "int4"
     q = torch.empty((rows, nfloats // 2 if int4 else nfloats),
@@ -148,14 +202,9 @@ def quantize_rows(x: torch.Tensor, mode: str, block: int) -> Tuple[torch.Tensor,
     e = torch.empty((rows, nblocks), dtype=torch.int8, device=x.device)
     if rows == 0 or nfloats == 0:
         return q, e
-    lib = kernels.build()
-    with torch.cuda.device(x.device):
-        rc = lib.tb_quantize_rows(
-            x.data_ptr(), x.stride(0), rows, nfloats, block, int(int4),
-            q.data_ptr(), e.data_ptr(), kernels._stream(x.device),
-        )
-    kernels._check_launch(lib, rc, "quantize_rows")
-    kernels._count("quantize_rows")
+    lib = kernels._lib or kernels.build()
+    _launch("quantize_rows", form, x.device, lib.tb_quantize_rows, x.data_ptr(), x.stride(0),
+            rows, nfloats, block, int(int4), int(form == "vector"), q.data_ptr(), e.data_ptr())
     return q, e
 
 
@@ -186,12 +235,9 @@ def dequant_mean_rows(q: torch.Tensor, e: torch.Tensor, mode: str, block: int,
     out = torch.empty((parties, nfloats), dtype=torch.float32, device=q.device)
     if parties == 0 or nfloats == 0:
         return out
-    lib = kernels.build()
-    with torch.cuda.device(q.device):
-        rc = lib.tb_dequant_mean_rows(
-            q.data_ptr(), e.data_ptr(), parties, nfloats, block, int(int4), int(mean),
-            out.data_ptr(), kernels._stream(q.device),
-        )
-    kernels._check_launch(lib, rc, "dequant_mean_rows")
-    kernels._count("dequant_mean_rows")
+    form = dequant_form(q, mode, block)
+    lib = kernels._lib or kernels.build()
+    _launch("dequant_mean_rows", form, q.device, lib.tb_dequant_mean_rows, q.data_ptr(),
+            e.data_ptr(), parties, nfloats, block, int(int4), int(mean), int(form == "vector"),
+            out.data_ptr())
     return out

@@ -11,7 +11,8 @@ tanhf) against its plain versions, K4f (the heads = 0 ring mean, forward
 and gradient) bit for bit against its plain versions, one FabricNet train
 step on the card against the CPU with heads 2 and with heads 0, K2 (block quantize and dequantize-mean)
 against its plain versions and the numpy twin bit for bit on
-``chip_smoke.py``'s rows, one quantized session on the card against the
+``chip_smoke.py``'s rows, in each form (vector and general) with the form
+each launch took asserted, one quantized session on the card against the
 same session on the CPU, byte for byte, and K4e (the SGD update bit for bit
 against its plain version; the MoE's gate and combine bit for bit but for
 elements within ``TRANSCENDENTAL_ULPS`` that pass through expf; the loss
@@ -588,6 +589,57 @@ def test_k2_matches_plain_versions_and_the_numpy_twin(cuda, mode, parties, width
     qc, ec = quantize.quantize_rows(x[:, cut:2 * cut], mode, block)
     qw, ew = quantize.quantize_rows_plain(x[:, cut:2 * cut].contiguous(), mode, block)
     assert np.array_equal(_bits(qc), _bits(qw)) and np.array_equal(_bits(ec), _bits(ew))
+
+
+# (parties, row bytes, block, layout): the blocks K2a's and K2b's vector forms
+# take, 1 to 64 parties (1: a checkpoint's one row), and the general forms'
+# blocks (6 and 10) and layouts (chip_smoke.k2_layout: rows off 16-byte
+# boundaries, and q one byte off its word for K2b)
+K2_FORM_CASES = ([(3, 4096, b, "contiguous") for b in (8, 16, 32, 64, 128)]
+                 + [(p, 4096, 32, "contiguous") for p in (1, 8, 64)]
+                 + [(3, 3840, 6, "contiguous"), (3, 3840, 10, "contiguous"),
+                    (3, 4096, 32, "offset"), (3, 4096, 32, "stride")])
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("parties,width,block,layout", K2_FORM_CASES,
+                         ids=[f"P{p}-W{w}-b{b}-{lay}" for p, w, b, lay in K2_FORM_CASES])
+def test_k2_forms_match_plain_versions_and_the_numpy_twin(cuda, mode, parties, width, block, layout):
+    """Each form of K2a and K2b bitwise the plain versions and the numpy
+    twin (the mean and mean=False) on rows that all carry the edge blocks,
+    with the form each launch took asserted (chip_smoke.k2_case)."""
+    before = kernels.launch_counts()
+    forms = chip_smoke.k2_case(torch, quantize, Q, cuda, parties, width, block, mode, layout)
+    after = kernels.launch_counts()
+    assert forms == chip_smoke.k2_expected_forms(block, mode, layout)
+    # the case's rows and its noise rows: two quantizes, three dequantizes
+    assert after["quantize_rows"] - before["quantize_rows"] == 2
+    assert after["dequant_mean_rows"] - before["dequant_mean_rows"] == 3
+
+
+def test_k2_vector_forms_refuse_what_they_do_not_take(cuda):
+    """The C entries refuse a vector launch off its alignments or blocks
+    (cudaErrorInvalidValue) rather than run it; the wrappers never ask."""
+    lib = kernels.build()
+    stream = torch.cuda.current_stream().cuda_stream
+    buf = torch.zeros((2, 68), dtype=torch.float32, device=cuda)
+    q = torch.empty((2, 64), dtype=torch.int8, device=cuda)
+    e = torch.empty((2, 2), dtype=torch.int8, device=cuda)
+    out = torch.empty((2, 64), dtype=torch.float32, device=cuda)
+    off = buf[:, 1:65]
+    assert quantize.quantize_form(off, 32) == "general"
+    assert lib.tb_quantize_rows(off.data_ptr(), 68, 2, 64, 32, 0, 1, q.data_ptr(), e.data_ptr(),
+                                stream) != 0
+    # block 16 fits; block 24 is 6 lanes' float4s, not a power of two
+    assert lib.tb_quantize_rows(buf.data_ptr(), 68, 2, 48, 24, 0, 1, q.data_ptr(), e.data_ptr(),
+                                stream) != 0
+    assert lib.tb_quantize_rows(buf.data_ptr(), 68, 2, 64, 16, 0, 1, q.data_ptr(),
+                                torch.empty((2, 4), dtype=torch.int8, device=cuda).data_ptr(),
+                                stream) == 0
+    # q one byte off its 32-bit word
+    assert lib.tb_dequant_mean_rows(q.data_ptr() + 1, e.data_ptr(), 1, 32, 32, 0, 1, 1,
+                                    out.data_ptr(), stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_k2_wrappers_refuse_what_the_kernels_do_not_take(cuda):

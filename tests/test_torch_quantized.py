@@ -291,3 +291,158 @@ class TestVariantRegistry:
     def test_variant_cache_is_shared(self):
         assert Q.quantized_pmean_dm(WIDTH, "int8") is Q.quantized_pmean_dm(WIDTH, "int8")
         assert Q.quantized_pmean_dm(100, "int8") is None
+
+
+# -- the arithmetic of the vector forms (csrc/quantize.cu) ----------------------
+
+
+def _pow2(e):
+    """2^e as float32 from its bits, for int e in [-149, 127] (the kernels'
+    exp2_exact)."""
+    e = np.asarray(e, dtype=np.int64)
+    normal = ((np.clip(e, -126, 127) + 127) << 23).astype(np.uint32).view(np.float32)
+    sub = (np.uint32(1) << np.clip(e + 149, 0, 22).astype(np.uint32)).view(np.float32)
+    return np.where(e >= -126, normal, sub)
+
+
+def _identity_values(kind):
+    rng = np.random.default_rng(13)
+    if kind == "exponents":  # every biased exponent, normal and subnormal, random mantissas
+        biased = np.repeat(np.arange(256, dtype=np.uint32), 64)
+        bits = (biased << 23) | rng.integers(0, 1 << 23, biased.size, dtype=np.uint32)
+        bits |= rng.integers(0, 2, biased.size, dtype=np.uint32) << 31
+        return bits.view(np.float32)
+    if kind == "subnormal_quotients":  # x / 2^e below 2^-126 for the larger e, ties in the last bit
+        x = (rng.uniform(1, 2, 4096) * 2.0 ** rng.integers(-149, 20, 4096)).astype(np.float32)
+        odd = ((np.arange(1, 4097, dtype=np.uint32) | 1) << 1).view(np.float32)  # tiny odd subnormals
+        return np.concatenate([x, -x, odd, np.float32(2.0 ** -126) * np.arange(1, 9, dtype=np.float32)])
+    if kind == "specials":
+        return np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, np.finfo(np.float32).max,
+                         np.finfo(np.float32).tiny, 2.0 ** -149], dtype=np.float32)
+    # the rows of chip_smoke.quant_edge_blocks
+    return np.concatenate([chip_smoke.quant_edge_blocks(b, m, seed=b).reshape(-1)
+                           for m in ("int8", "int4") for b in (16, 32, 64)])
+
+
+@pytest.mark.parametrize("kind", ["exponents", "subnormal_quotients", "specials", "edge_rows"])
+def test_division_by_2e_is_multiplication_by_2_minus_e(kind):
+    """The vector kernels scale by x * 2^-e where the numpy twin divides
+    by 2^e: bitwise the same for every e in [-126, 127] (2^-127, for e =
+    127, is subnormal), with gradual underflow, for +-0, +-inf and NaN."""
+    x = _identity_values(kind)
+    assert kind != "exponents" or len(np.unique((x.view(np.uint32) >> 23) & 0xFF)) == 256
+    with np.errstate(all="ignore"):
+        for e in range(-126, 128):
+            div = x / _pow2(e)
+            mul = x * _pow2(-e)
+            assert div.view(np.uint32).tobytes() == mul.view(np.uint32).tobytes(), e
+    assert _pow2(-127).view(np.uint32) == 1 << 22  # the subnormal 2^-127
+
+
+def _block_exponents_from_bits(y):
+    """The kernels' block_exponent over f32 y >= 0."""
+    bits = y.view(np.uint32)
+    biased = ((bits >> 23) & 0xFF).astype(np.int64)
+    mant = bits & 0x7FFFFF
+    e = np.minimum(biased - 127 + (mant != 0), 127)
+    return np.where(biased == 0, np.where(mant == 0, 0, -126), e)
+
+
+def _k2a_vector(rows, mode, block):
+    """K2a's vector form, stated in numpy: a group of block / 4 lanes owns a
+    block, each lane a float4; the lane's max of |x| from 0 (fmax drops a
+    NaN), the group's max, e from the bits of amax / qmax, x scaled by
+    2^-e, four values packed into one little-endian word (int8: 32 bits;
+    int4: 16 bits of nibbles q + 8, the first element lowest)."""
+    qmax = np.float32(Q.qmax_for(mode))
+    x = np.asarray(rows, dtype=np.float32)
+    r, n = x.shape
+    f4 = x.reshape(r, n // 4, 4)
+    lane = np.fmax(np.fmax(np.fmax(np.abs(f4[..., 0]), np.abs(f4[..., 1])),
+                           np.fmax(np.abs(f4[..., 2]), np.abs(f4[..., 3]))), np.float32(0))
+    amax = lane.reshape(r, n // block, block // 4).max(axis=-1)
+    e = _block_exponents_from_bits(amax / qmax)
+    inv = np.repeat(_pow2(-e), block // 4, axis=1)[..., None]
+    with np.errstate(over="ignore", invalid="ignore"):
+        qv = np.clip(np.rint(f4 * inv), -qmax, qmax).astype(np.int64)
+    if mode == "int4":
+        nib = (qv + 8) & 0xF
+        words = (nib[..., 0] | nib[..., 1] << 4 | nib[..., 2] << 8 | nib[..., 3] << 12).astype("<u2")
+    else:
+        b = qv & 0xFF
+        words = (b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24).astype("<u4")
+    return words.view(np.uint8).reshape(r, -1), e.astype(np.int8)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("block", [16, 32, 64])
+@pytest.mark.parametrize("edges", [False, True], ids=["random", "edge"])
+def test_k2a_vector_form_statement_matches_the_numpy_twin(mode, block, edges):
+    rows = np.stack(_edge_rows(mode, block) if edges else _rows(3, 1024, seed=block + 2))
+    q, e = _k2a_vector(rows, mode, block)
+    with np.errstate(over="ignore"):
+        for r, row in enumerate(rows):
+            nq, ne = Q.np_quantize(row, mode, block)
+            assert q[r].tobytes() == nq.view(np.uint8).tobytes()
+            assert e[r].tobytes() == ne.tobytes()
+
+
+def _k2b_vector(q, e, mode, block, mean):
+    """K2b's vector form, stated in numpy: a thread's 4 elements from one
+    little-endian word of q a party (int8: 32 bits; int4: 16 bits of
+    nibbles), scaled by 2^e of their block, the party sum in order from
+    -0.0 (the identity of IEEE addition), one division by P."""
+    words = np.ascontiguousarray(q).view("<u2" if mode == "int4" else "<u4").astype(np.int64)
+    shift = np.arange(4) * (4 if mode == "int4" else 8)
+    vals = (words[..., None] >> shift) & (0xF if mode == "int4" else 0xFF)
+    vals = vals - 8 if mode == "int4" else np.where(vals > 127, vals - 256, vals)
+    p = q.shape[0]
+    v = vals.reshape(p, -1).astype(np.float32) * np.repeat(_pow2(e.astype(np.int64)), block, axis=1)
+    if not mean:
+        return v
+    acc = np.full(v.shape[1], -0.0, dtype=np.float32)
+    for row in v:
+        acc = acc + row
+    return np.broadcast_to(acc / np.float32(p), v.shape)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("block", [8, 16, 32])
+@pytest.mark.parametrize("parties", [1, 3, 8])
+def test_k2b_vector_form_statement_matches_the_numpy_twin(mode, block, parties):
+    rows = list(chip_smoke.quant_rows(parties, 16 * block, block, mode, seed=block + parties))
+    twins = [Q.np_quantize(r, mode, block) for r in rows]
+    q = np.stack([t[0] for t in twins])
+    e = np.stack([t[1] for t in twins])
+    with np.errstate(over="ignore"):
+        deq = [Q.np_dequantize(tq, te, mode, block) for tq, te in twins]
+        want = np.sum(np.stack(deq), axis=0, dtype=np.float32) / np.float32(parties)
+        got = _k2b_vector(q, e, mode, block, mean=True)
+        own = _k2b_vector(q, e, mode, block, mean=False)
+    for r in range(parties):
+        assert got[r].tobytes() == want.tobytes()
+        assert own[r].tobytes() == deq[r].tobytes()
+
+
+def test_forms_are_chosen_by_shape():
+    """ops/quantize.py picks each kernel's form from the shape alone, as
+    chip_smoke.k2_expected_forms states it; the session's chunks (views of
+    the state cut at chunk_align = 4 * block bytes) take the vector forms."""
+    for mode in ("int8", "int4"):
+        for parties, width, block, layout in chip_smoke.K2_CASES:
+            if width > 4096:
+                continue
+            rows = chip_smoke.quant_rows(parties, width // 4, block, mode, seed=1, edges=False)
+            x = chip_smoke.k2_layout(torch, rows, torch.device("cpu"), layout)
+            q, _ = quantize.quantize_rows(x, mode, block)
+            if layout == "offset":
+                q = torch.empty(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
+            want = chip_smoke.k2_expected_forms(block, mode, layout)
+            assert [quantize.quantize_form(x, block)] == want["quantize_rows"]
+            assert [quantize.dequant_form(q, mode, block)] == want["dequant_mean_rows"]
+    state = torch.zeros((8, 4096), dtype=torch.uint8)
+    cw = 4096 // 4
+    for j in range(4):
+        chunk = state[:, j * cw:(j + 1) * cw].view(torch.float32)
+        assert quantize.quantize_form(chunk, 32) == "vector"
+    assert quantize.quantize_form(torch.zeros((70000, 32)), 32) == "general"  # rows past grid.y
