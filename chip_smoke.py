@@ -20,7 +20,9 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``echo_step_rows`` — against its plain PyTorch version on the card,
    bit for bit, at every geometry of the main path, with rows that carry a
    bad magic, a bad length, a flipped payload word and an unknown method id,
-   and times kernel, plain version and a ``copy_`` of the same bytes;
+   and times kernel, plain version and a ``copy_`` of the same bytes behind
+   a spin kernel (``device_ms``), and the kernel back to back through its
+   wrapper (``time_ms``, the rate the RPC path sees);
 3. drives the main path with the launch counts set to zero: a
    ``DeviceEndpoint`` with the default echo table (16 threads x 8 calls of
    256 B), one with methods {0: echo, 3: x2, 5: +10} (the same traffic
@@ -42,10 +44,13 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    views and tensors one element off 16-byte alignment give bitwise what
    contiguous copies give, and dK/dV and dQ on the misaligned ones within
    the tolerances of their plain versions), D 18 (padded to 20 by the
-   wrappers), and ``ring_attention`` against ``full_attention`` on the
-   card; then K4 (``add_rms_norm_fwd`` with and without delta,
-   ``rms_norm_bwd`` with and without the residual gradient,
-   ``gelu_tanh_fwd``, ``gelu_tanh_bwd``) against its plain versions in bf16
+   wrappers), ``attn_bwd_delta`` at ``DELTA_DS`` (D 4 to 4096 on 333 rows;
+   each launch in the form ``delta_form`` names, the general form beside
+   the vector one, a vector launch off its alignments refused), and
+   ``ring_attention`` against ``full_attention`` on the card; then K4
+   (``add_rms_norm_fwd`` with and without delta, ``rms_norm_bwd`` with and
+   without the residual gradient, ``gelu_tanh_fwd``, ``gelu_tanh_bwd``)
+   against its plain versions in bf16
    and f32 at the bench_fabricnet shapes ((4096, 2048), (4096, 8192),
    (2, 2048, 2048)) and at odd widths (d 33 and 1000, contiguous and one
    element off 16-byte alignment): K4a within ``NORM_TOL``, K4b bit for
@@ -102,7 +107,11 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    the tensor-core fold also at B 1, 64 blocks; the f32 fold, dK/dV and dQ
    at sp 1 in f32, their bounds as 3xTF32 work) with CUDA events beside
    its bound, its plain version and ``scaled_dot_product_attention``'s
-   forward and backward on the same tensors; times K4 at the bench shapes
+   forward and backward on the same tensors; times ``attn_bwd_delta`` at
+   the bench attention shape in bf16 and f32 behind a spin kernel, both
+   forms in turns (general, vector, vector, general), on inputs that arrive
+   cold and on one pair again and again, beside its bound, its plain
+   version and its wrapper back to back; times K4 at the bench shapes
    in bf16 (K4a also in f32) behind a spin kernel beside its bound, its
    plain version and the nearest PyTorch call (``F.rms_norm``, its autograd
    backward, ``F.gelu(approximate="tanh")`` and ``aten.gelu_backward``,
@@ -189,6 +198,18 @@ K3_SOURCE = {"attn_fold_fwd_tc": "incubator_brpc_tpu_torch/csrc/attention_tc.cu"
              "attn_bwd_dq_tc": "incubator_brpc_tpu_torch/csrc/attention_bwd_tc.cu"}
 # bench.py bench_fabricnet: d_model 2048 over heads 2 -> D 1024, batch 4, seq 1024
 BENCH_ATTN = (4, 1024, 2, 1024)
+# attn_bwd_delta's timed forms, in turns, and the input bytes its cold calls
+# rotate over: three times the 50 MB L2
+DELTA_TURNS = ("general", "vector", "vector", "general")
+DELTA_ROTATE_BYTES = 150e6
+DELTA_VEC = "attn_bwd_delta_vec"  # the vector form's template in ptxas's report
+GENERAL = ("general", 32)  # attn_bwd_delta's general form: a warp a row
+# attn_bwd_delta's head dimensions beside the K3 cases (phase 5, and the
+# card and CPU tests): every lanes-a-row value of the vector form, bf16 rows
+# off 16-byte boundaries (D 4, 12, 100) and D past K3's MAX_HEAD_DIM, which
+# delta takes; on (3, 37, 3) rows, 333, which fill no form's last block
+DELTA_DS = (4, 12, 16, 100, 1000, 1024, 2048, 4096)
+DELTA_ROWS = (3, 37, 3)
 BENCH_FABRICNET = dict(d_model=2048, d_ff=8192, d_expert=2048, experts_per_rank=2,
                        layers_per_stage=4, batch=4, seq=1024, microbatches=1)
 
@@ -530,18 +551,23 @@ class Phase2:
         parts = []
         for name, (kern, plain, copy, nbytes) in cases.items():
             b, by = bound_ms(nbytes, rows * words)
+            ms, queued = device_ms(torch, kern, iters)
             t = {
-                "ms": time_ms(torch, kern, iters),
-                "plain_ms": time_ms(torch, plain, plain_iters),
-                "copy_ms": time_ms(torch, copy, iters),
+                "ms": ms, "queued_in_time": queued,
+                # back to back through the wrapper: the rate the RPC path sees
+                "host_ms": time_ms(torch, kern, iters),
+                "plain_ms": device_ms(torch, plain, plain_iters)[0],
+                "copy_ms": device_ms(torch, copy, iters)[0],
                 "bound_ms": b, "bound_by": by, "bytes": nbytes,
             }
             if name == "echo_step_rows":
-                t["corrupt_batch_ms"] = time_ms(torch, lambda: k.echo_step_rows(framed), iters)
+                t["corrupt_batch_ms"] = device_ms(torch, lambda: k.echo_step_rows(framed), iters)[0]
             self.timings[(name, rows, words)] = t
-            parts.append(f"{name} {t['ms']}ms (plain {t['plain_ms']}, copy_ "
-                         f"{t['copy_ms']}, bound {b})")
-        log(f"phase2 B={rows} W={words}: bitwise equal; " + "; ".join(parts)
+            parts.append(f"{name} {t['ms']}ms ({100 * b / ms:.1f} % of bound {b}"
+                         + ("" if queued else ", host-bound") + f"; back to back {t['host_ms']}; "
+                         f"plain {t['plain_ms']}, copy_ {t['copy_ms']})")
+        log(f"phase2 B={rows} W={words}: bitwise equal; device time behind a spin kernel: "
+            + "; ".join(parts)
             + f"; echo_step_rows with {sum(x != 'valid' for x in kinds)} of {rows} rows failing: "
             f"{self.timings[('echo_step_rows', rows, words)]['corrupt_batch_ms']}ms")
 
@@ -630,6 +656,13 @@ def err_within(torch, name, got, want, tol, errs):
     return f"{name} {err:.3g} (tol {tol * scale:.3g})"
 
 
+def delta_forms_since(attention, before) -> dict:
+    """``attn_bwd_delta``'s launches since ``before``
+    (``attention.delta_form_counts()``) by form: {(form, lanes a row): n}."""
+    after = attention.delta_form_counts()
+    return {f: n - before.get(f, 0) for f, n in after.items() if n > before.get(f, 0)}
+
+
 def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
     """K3 forward and backward against the plain versions on the same inputs."""
     b, t, h, d, sp = shape
@@ -642,7 +675,12 @@ def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
     for hop in range(sp):
         state = attention.fold_plain(q, k, v, state, hop=hop, sp=sp, causal=causal)
     want_out, want_lse = attention.finalize_plain(state, dtype)
+    before = attention.delta_form_counts()
     delta = attention.row_dot(out, dout)
+    form = attention.delta_form(d, dtype, True)
+    if delta_forms_since(attention, before) != {form: 1}:
+        raise AssertionError(f"attn_bwd_delta at D={d} {dtype}: ran "
+                             f"{delta_forms_since(attention, before)}; delta_form names {form}")
     want_delta = attention.row_dot_plain(out, dout)
     dk, dv = attention.dkdv(q, k, v, dout, lse, delta, sp=sp, causal=causal)
     dq = attention.dq(q, k, v, dout, lse, delta, sp=sp, causal=causal)
@@ -657,7 +695,10 @@ def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
         err_within(torch, "l", l, state[1], f32, fold),
         err_within(torch, "o", o, state[2], f32, fold),
         err_within(torch, "lse", lse, want_lse, f32, fold),
-        err_within(torch, "delta", delta, want_delta, f32, errs["attn_bwd_delta"]),
+        err_within(torch, f"delta ({form[0]} form, {form[1]} lanes a row)", delta, want_delta, f32,
+                   errs["attn_bwd_delta"]),
+        err_within(torch, "delta (general form)", attention._launch_delta(out, dout, GENERAL),
+                   want_delta, f32, errs["attn_bwd_delta"]),
         err_within(torch, "dk", dk, want_dk, tol[dtype], dkdv),
         err_within(torch, "dv", dv, want_dv, tol[dtype], dkdv),
         err_within(torch, "dq", dq, want_dq, tol[dtype], dqe),
@@ -665,6 +706,38 @@ def k3_case(torch, attention, gen, dev, shape, dtype, causal, errs):
     log(f"phase5 K3 B={b} T={t} H={h} D={d} sp={sp} {name} "
         f"{'causal' if causal else 'full'} ({FOLD[name]}, {DKDV[name]}, {DQ[name]}): "
         + "; ".join(parts))
+
+
+def delta_case(torch, attention, gen, dev, d, dtype, errs):
+    """``attn_bwd_delta`` at D = d on ``DELTA_ROWS`` rows: the launch in the
+    form ``delta_form`` names, and the general form beside a vector one,
+    each within the f32 tolerance of ``row_dot_plain``; where the rows are
+    off the vector form's alignments, a vector launch refused."""
+    out, dout = (torch.randn(DELTA_ROWS + (d,), generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+    want = attention.row_dot_plain(out, dout)
+    tol = k3_tolerances(torch)[torch.float32]
+    form = attention.delta_form(d, dtype, True)
+    before = attention.delta_form_counts()
+    got = attention.row_dot(out, dout)
+    if delta_forms_since(attention, before) != {form: 1}:
+        raise AssertionError(f"attn_bwd_delta at D={d} {dtype}: ran "
+                             f"{delta_forms_since(attention, before)}; delta_form names {form}")
+    parts = [err_within(torch, f"{form[0]} form, {form[1]} lanes a row", got, want, tol, errs)]
+    if form[0] == "vector":
+        parts.append(err_within(torch, "general form", attention._launch_delta(out, dout, GENERAL),
+                                want, tol, errs))
+    else:
+        try:  # the lanes a 16-byte row of this D would take
+            attention._launch_delta(out, dout, ("vector", form[1]))
+        except RuntimeError:
+            parts.append("a vector launch refused")
+        else:
+            raise AssertionError(f"attn_bwd_delta at D={d} {dtype}: a vector launch off its "
+                                 "alignments ran")
+    torch.cuda.synchronize()
+    log(f"phase5 attn_bwd_delta {DELTA_ROWS} rows, D={d} {str(dtype)[6:]}: " + "; ".join(parts))
+    return form
 
 
 def k3_layout_case(torch, attention, gen, dev, shape, dtype, errs):
@@ -762,8 +835,6 @@ def k3_timings(torch, attention, gen, dev, sp):
         # name: (kernel, plain, flops, bytes: inputs read once, outputs written once)
         "attn_fold_fwd_tc": (lambda: attention.forward(q, k, v, sp=sp, causal=True), plain_fwd,
                              flops[2], fold_bytes(n, stats, 2)),
-        "attn_bwd_delta": (lambda: attention.row_dot(out, dout),
-                           lambda: attention.row_dot_plain(out, dout), 2 * n, 2 * 2 * n + stats),
         "attn_bwd_dkdv_tc": (lambda: attention.dkdv(q, k, v, dout, lse, delta, sp=sp, causal=True),
                              lambda: attention.dkdv_plain(q, k, v, dout, lse, delta, sp=sp,
                                                           causal=True),
@@ -805,6 +876,72 @@ def k3_timings(torch, attention, gen, dev, sp):
         + f"; backward (3 kernels) {res['backward']['ms']:.4f} ms; "
         f"scaled_dot_product_attention fwd {res['sdpa_fwd_ms']:.4f} ms, "
         f"fwd+bwd {res['sdpa_fwd_bwd_ms']:.4f} ms")
+    return res
+
+
+def delta_timings(torch, attention, gen, dev):
+    """``attn_bwd_delta`` at the bench attention shape in bf16 (the bench's
+    dtype) and f32, both forms in turns (general, vector, vector, general;
+    the general form is the kernel that preceded the vector form): device
+    time behind a spin kernel on inputs that arrive cold (the calls rotate
+    over input pairs that fill ``DELTA_ROTATE_BYTES``, past the L2, as the
+    step's out and dout arrive) and on one pair again and again
+    (``warm_ms``: bf16's 32 MiB stay in the 50 MB L2), beside the bound
+    (the bytes of out and dout read and delta written), the plain version,
+    a cold ``copy_`` and, in f32, ``torch.linalg.vecdot``; and the wrapper
+    back to back (``host_ms``), the rate a caller sees with the host's cost
+    of each call on the clock."""
+    b, t, h, d = BENCH_ATTN
+    n = b * t * h * d
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        pair_bytes = 2 * n * torch.empty((), dtype=dtype).element_size()
+        pairs = [tuple(torch.randn(BENCH_ATTN, generator=gen, device=dev).to(dtype)
+                       for _ in range(2)) for _ in range(math.ceil(DELTA_ROTATE_BYTES / pair_bytes))]
+        out, dout = pairs[0]
+        nbytes = pair_bytes + 4 * b * h * t
+        bound, by, _ = k3_bounds(2 * n, nbytes)
+        form = attention.delta_form(d, dtype, True)
+        turns, ran = {"general": [], "vector": []}, []
+        for f in DELTA_TURNS:
+            launch = form if f == "vector" else GENERAL
+            calls = iter(range(1 << 30))
+            cold, queued = device_ms(torch, lambda: attention._launch_delta(
+                *pairs[next(calls) % len(pairs)], launch), 50)
+            warm, _ = device_ms(torch, lambda: attention._launch_delta(out, dout, launch), 50)
+            turns[f].append({"ms": cold, "warm_ms": warm, "queued_in_time": queued})
+            ran.append(f"{f} {cold:.6f} / {warm:.6f} ms ({100 * bound / cold:.1f} / "
+                       f"{100 * bound / warm:.1f} %)" + ("" if queued else " host-bound"))
+        # yardsticks, cold as above: a copy_ that reads and writes out's bytes
+        # (delta's bytes in bf16: what the card's own copy reaches at this
+        # size), and torch.linalg.vecdot, one PyTorch call that computes delta
+        # in f32 (in its (B, T, H) layout; in bf16 it rounds its result to
+        # bf16, not the same function)
+        dst = torch.empty_like(out)
+        calls = iter(range(1 << 30))
+        copy_ms, _ = device_ms(torch, lambda: dst.copy_(pairs[next(calls) % len(pairs)][0]), 50)
+        library_ms = None
+        if dtype == torch.float32:
+            calls = iter(range(1 << 30))
+            library_ms, _ = device_ms(torch, lambda: torch.linalg.vecdot(
+                *pairs[next(calls) % len(pairs)]), 50)
+        kern = lambda: attention.row_dot(out, dout)  # noqa: E731
+        mean = {f: sum(r["ms"] for r in v) / len(v) for f, v in turns.items()}
+        r = res[str(dtype)[6:]] = {
+            "form": f"{form[0]} {form[1]}", "ms": mean[form[0]], "general_ms": mean["general"],
+            "warm_ms": sum(r["warm_ms"] for r in turns[form[0]]) / len(turns[form[0]]),
+            "turns": turns,
+            "queued_in_time": all(r["queued_in_time"] for v in turns.values() for r in v),
+            "host_ms": time_ms(torch, kern, 50),
+            "plain_ms": device_ms(torch, lambda: attention.row_dot_plain(out, dout), 10)[0],
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": 2 * n,
+            "input_pairs": len(pairs), "copy_ms": copy_ms, "library_ms": library_ms}
+        log(f"phase8 attn_bwd_delta B={b} T={t} H={h} D={d} {str(dtype)[6:]}, device time behind "
+            f"a spin kernel, cold ({len(pairs)} input pairs in rotation) / warm (one pair), in "
+            f"turns: " + ", ".join(ran) + f"; bound {bound:.6f} ms by {by}; delta_form: "
+            f"{r['form']} lanes a row; back to back {r['host_ms']:.6f} ms; plain "
+            f"{r['plain_ms']:.6f} ms; copy_ of out {copy_ms:.6f} ms; torch.linalg.vecdot "
+            + (f"{library_ms:.6f} ms" if library_ms else "not the same function in bf16"))
     return res
 
 
@@ -1405,8 +1542,11 @@ def fabricnet_small_card_vs_cpu(torch, fabricnet, dev):
 def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup, heads=2):
     """The second main path: ``nsteps`` train steps at the bench_fabricnet
     width in ``dtype``, counted: each K3 kernel of that dtype's path once a
-    step, the other dtype's fold never; with ``heads = 0`` (phase 7c) no K3
-    kernel, and K4f once a step each way."""
+    step (``attn_bwd_delta`` in the form ``delta_form`` names), the other
+    dtype's fold never; with ``heads = 0`` (phase 7c) no K3 kernel, and K4f
+    once a step each way."""
+    from incubator_brpc_tpu_torch.ops import attention
+
     cfg = fabricnet.FabricNetConfig(dtype=dtype, heads=heads, **BENCH_FABRICNET)
     phase = "phase7" if heads else "phase7c"
     mesh = fabricnet.make_fabric_mesh(1)
@@ -1419,6 +1559,7 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup, h
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()  # the parameters, the batch, and what else is alive
     kernels.reset_launch_counts()
+    forms_before = attention.delta_form_counts()
     losses = []
     for i in range(nsteps):
         if i == warmup:
@@ -1428,7 +1569,12 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup, h
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / (nsteps - warmup) * 1e3
     launches = kernels.launch_counts()
+    delta_forms = delta_forms_since(attention, forms_before)
     peak = torch.cuda.max_memory_allocated()
+    want_forms = {attention.delta_form(cfg.d_model // heads, dtype, True): nsteps} if heads else {}
+    if delta_forms != want_forms:
+        raise AssertionError(f"FabricNet heads {heads}: attn_bwd_delta ran {delta_forms}; "
+                             f"delta_form names {want_forms}")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"FabricNet losses not finite and falling: {losses}")
     name = str(dtype)[6:]
@@ -1459,10 +1605,11 @@ def fabricnet_main_path(torch, fabricnet, kernels, dev, dtype, nsteps, warmup, h
         f"{tflops:.2f} TFLOP/s = {100 * tflops / 989:.2f} % of 989 TFLOP/s bf16; "
         f"peak memory {peak} B ({peak / 2**30:.3f} GiB; {base} B allocated when the steps "
         f"began, so the steps' own {peak - base} B); launches {launches}; "
-        f"K3 launches per step {per_step}; K4 and K4f launches per step {k4_per_step}; K4e "
-        f"launches per step {k4e_per_step}")
+        f"K3 launches per step {per_step} (attn_bwd_delta's forms {delta_forms}); K4 and K4f "
+        f"launches per step {k4_per_step}; K4e launches per step {k4e_per_step}")
     return {"ms_per_step": ms, "flops_per_step": flops, "tflops": tflops, "losses": losses,
             "peak_bytes": peak, "base_bytes": base, "launches": launches,
+            "delta_forms": {f"{f} {lanes}": n for (f, lanes), n in delta_forms.items()},
             "nsteps": nsteps}, (step, params, x, y)
 
 
@@ -1620,6 +1767,8 @@ def run_k3_phases(torch, kernels, dev):
                 k3_case(torch, attention, gen, dev, shape, dtype, causal, errs)
     for dtype in (torch.bfloat16, torch.float32):
         k3_layout_case(torch, attention, gen, dev, (2, 96, 2, 136, 2), dtype, errs)
+        for d in DELTA_DS:
+            delta_case(torch, attention, gen, dev, d, dtype, errs["attn_bwd_delta"])
     for (b, t, h, d, sp), dtype, tol in ((BENCH_ATTN + (4,), torch.bfloat16, 0.05),
                                           ((2, 48, 4, 16, 4), torch.float32, 2e-5)):
         q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
@@ -1682,6 +1831,7 @@ def run_k3_phases(torch, kernels, dev):
     # -- phase 8: K3 and K4 timings, and the profile -----------------------
     timings = {sp: k3_timings(torch, attention, gen, dev, sp) for sp in (1, 4)}
     timings[1].update(k3_f32_timings(torch, attention, gen, dev))
+    delta = delta_timings(torch, attention, gen, dev)
     k4 = k4_timings(torch, elementwise, gen, dev)
     k4f = k4f_timings(torch, elementwise, gen, dev)
     k4e = k4e_timings(torch, update, elementwise, fabricnet, gen, dev)
@@ -1690,13 +1840,20 @@ def run_k3_phases(torch, kernels, dev):
     main = timings[1]  # FabricNet's sp = 1
     line = {}
     for name in K3:
-        r = main[name]
+        r = delta["bfloat16"] if name == "attn_bwd_delta" else main[name]
         line[name] = {
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "tensor_core_bound_ms": r["tensor_core_bound_ms"],
+            "tensor_core_bound_ms": r.get("tensor_core_bound_ms"),
             "shape": list(BENCH_ATTN), "sp": 1, "dtype": "bfloat16",
         }
+        if name == "attn_bwd_delta":  # the main path's forms, and both forms timed
+            line[name].update(
+                forms=fab["delta_forms"], f32_forms=fab32["delta_forms"],
+                **{k: r[k] for k in ("general_ms", "warm_ms", "host_ms", "input_pairs", "copy_ms")},
+                f32={k: delta["float32"][k] for k in ("form", "ms", "general_ms", "warm_ms",
+                                                      "host_ms", "plain_ms", "bound_ms",
+                                                      "library_ms")})
         if name in K3_F32:  # the f32 path's launches, timed in f32
             line[name].update(dtype="float32", **{k: r[k] for k in (
                 "library_ms", "f32_fma_bound_ms", "backward_ms", "sdpa_backward_ms") if k in r})
@@ -1750,8 +1907,8 @@ def run_k3_phases(torch, kernels, dev):
     line["mse_loss_fwd"].update(shape=list(K4E_LOSS_SHAPES[0]), kernels_per_launch=2,
                                 sum_ms=k4e["mse_loss_fwd"]["sum_ms"])
     return {"launches": launches, "max_err": max_err, "line": line,
-            "detail": {**{f"sp{sp}": t for sp, t in timings.items()}, "k4": k4, "k4e": k4e,
-                       "k4f": k4f},
+            "detail": {**{f"sp{sp}": t for sp, t in timings.items()}, "delta": delta, "k4": k4,
+                       "k4e": k4e, "k4f": k4f},
             "fabricnet": fab, "fabricnet_f32": fab32, "fabricnet_sliced": sliced,
             "fabricnet_heads0": fab0}
 
@@ -2176,7 +2333,7 @@ def main() -> int:
     kernels.build()
     log(f"phase1 build: {time.perf_counter() - t0:.3f}s")
     ptxas = ptxas_report(kernels.build_log(),
-                         K3 + K4 + K4E + ("mse_loss_sum", K4F_KERNEL) + K2_KERNELS)
+                         K3 + (DELTA_VEC,) + K4 + K4E + ("mse_loss_sum", K4F_KERNEL) + K2_KERNELS)
     for name, entries in ptxas.items():
         for e in entries:
             log(f"  ptxas {name}: {e.get('registers')} registers, spill stores "
@@ -2283,7 +2440,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-            "copy_ms": t["copy_ms"], "shape": [rows, words],
+            "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
         })
     for name in K3:
         line.append({
@@ -2292,6 +2449,8 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": k3["launches"][name],
             "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(name),
         })
+        if name == "attn_bwd_delta":  # registers above: the general form's
+            line[-1]["vector_registers"] = regs(DELTA_VEC)
     for name in K4:  # launches: the bf16 main path's
         line.append({
             "name": name, "route": "cuda", "source": "incubator_brpc_tpu_torch/csrc/elementwise.cu",

@@ -51,7 +51,10 @@ score scale ``1/sqrt(D)``, and the results are sliced back.
 What bounds the bf16 tensor-core fold on the card is bytes, the f32 one and
 the f32 dK/dV and dQ (three tf32 products for each) operations, and the
 bf16 tensor-core dK/dV and dQ operations and bytes about alike;
-``attn_bwd_delta`` is bound by bytes.
+``attn_bwd_delta`` is bound by bytes. It has a vector form (a group of
+lanes a row, 16-byte loads) for rows on 16-byte boundaries and a general
+form (a warp a row) for any other; :func:`delta_form` picks one from the
+shape before the launch, and it takes any D (no ``MAX_HEAD_DIM``).
 Each source says how its design meets that. A wrapper given CPU tensors runs the
 plain PyTorch version beside it; given CUDA tensors it launches the kernels
 on the current stream or raises. Nothing on the card's path calls a plain
@@ -70,6 +73,8 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 1024  # the accumulators of a tile at this D fill half the register file
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+_delta_launches = {}  # (form, lanes a row) -> launches
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -379,22 +384,57 @@ def _check_backward(q, k, v, dout, lse, sp):
     _stat(lse, "lse", (b, h, t), q.device)
 
 
+def delta_form(d: int, dtype: torch.dtype, aligned: bool) -> Tuple[str, int]:
+    """The form of ``attn_bwd_delta`` that takes rows of ``d`` elements of
+    ``dtype``, and its lanes a row: ``("vector", L)`` where every row starts
+    on a 16-byte boundary (``aligned``: both tensors do, and ``d * itemsize
+    % 16 == 0``), L the largest power of two <= 32 and <= the row's 16-byte
+    vectors; else ``("general", 32)``, a warp a row."""
+    row_bytes = d * _ITEMSIZE[dtype]
+    if not aligned or row_bytes % 16 or row_bytes == 0:
+        return "general", 32
+    return "vector", 1 << min(5, (row_bytes // 16).bit_length() - 1)
+
+
+def delta_form_counts():
+    """Launches of ``attn_bwd_delta`` by ``(form, lanes a row)`` since the
+    module was loaded."""
+    with kernels._launches_lock:
+        return dict(_delta_launches)
+
+
+def _launch_delta(out: torch.Tensor, dout: torch.Tensor, form: Tuple[str, int]) -> torch.Tensor:
+    """``attn_bwd_delta`` in ``form`` (as :func:`delta_form` gives it) on
+    contiguous CUDA tensors as they lie; the kernel's entry refuses a vector
+    form off its alignments or with other lanes than the rule's.
+    ``chip_smoke.py`` times the two forms in turns through it."""
+    b, t, h, d = out.shape
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
+    lanes = form[1] if form[0] == "vector" else 0
+    lib = kernels.build()
+    with torch.cuda.device(out.device):
+        rc = lib.tb_attn_bwd_delta(out.data_ptr(), dout.data_ptr(), _DTYPES[out.dtype],
+                                   delta.data_ptr(), b, t, h, d, lanes,
+                                   kernels._stream(out.device))
+    kernels._check_launch(lib, rc, "attn_bwd_delta")
+    with kernels._launches_lock:
+        kernels._launches["attn_bwd_delta"] += 1
+        _delta_launches[form] = _delta_launches.get(form, 0) + 1
+    return delta
+
+
 def row_dot(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """K3 backward, ``attn_bwd_delta``: ``rowsum(dO * O)`` -> (B, H, T) f32."""
+    """K3 backward, ``attn_bwd_delta``: ``rowsum(dO * O)`` -> (B, H, T) f32,
+    in the form :func:`delta_form` names, the general form where
+    ``B*T*H*D`` reaches 2^31 (the vector form's 32-bit indices)."""
     _check(out, dout, dout, 1)
     if out.device.type == "cpu":
         return row_dot_plain(out, dout)
     b, t, h, d = out.shape
-    _check_head_dim(d)
     out, dout = _dense(out, dout)
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
-    lib = kernels.build()
-    with torch.cuda.device(out.device):
-        rc = lib.tb_attn_bwd_delta(out.data_ptr(), dout.data_ptr(), _DTYPES[out.dtype],
-                                   delta.data_ptr(), b, t, h, d, kernels._stream(out.device))
-    kernels._check_launch(lib, rc, "attn_bwd_delta")
-    kernels._count("attn_bwd_delta")
-    return delta
+    aligned = out.data_ptr() % 16 == 0 and dout.data_ptr() % 16 == 0
+    form = delta_form(d, out.dtype, aligned) if b * t * h * d < 1 << 31 else ("general", 32)
+    return _launch_delta(out, dout, form)
 
 
 def dkdv(q, k, v, dout, lse, delta, *, sp: int, causal: bool):
@@ -491,6 +531,8 @@ __all__ = [
     "dkdv_plain",
     "dq",
     "dq_plain",
+    "delta_form",
+    "delta_form_counts",
     "row_dot",
     "row_dot_plain",
     "finalize_plain",

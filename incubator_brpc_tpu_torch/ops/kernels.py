@@ -200,7 +200,8 @@ def build() -> ctypes.CDLL:
             lib.tb_attn_fold_fwd_tc.argtypes = lib.tb_attn_fold_fwd_tf32.argtypes = [
                 p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, c_int, c_int, p
             ]
-            lib.tb_attn_bwd_delta.argtypes = [p, p, c_int, p, i64, i64, i64, i64, p]
+            # ..., lanes a row (0: the general form; ops/attention.py delta_form), stream
+            lib.tb_attn_bwd_delta.argtypes = [p, p, c_int, p, i64, i64, i64, i64, c_int, p]
             lib.tb_attn_bwd_dkdv_tc.argtypes = lib.tb_attn_bwd_dkdv_tf32.argtypes = [
                 p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
             ]

@@ -3,7 +3,10 @@ its plain version, bit for bit, the endpoint's calls answered through the
 kernels, K3 (the ring-attention fold and its gradient, on the tensor cores
 for bf16 at any D up to 1024 and in any layout; the f32 fold, dK/dV and dQ
 in 3xTF32 on them too, within chip_smoke.py's f32 tolerance) against its
-plain versions within the tolerances of ``chip_smoke.py``, K4 (the residual
+plain versions within the tolerances of ``chip_smoke.py`` (``attn_bwd_delta``
+in both forms, vector and general, at D 4 to 4096, any row count, copied
+and misaligned inputs and past 2^31 elements, each launch in the form
+``delta_form`` names and a vector launch off its alignments refused), K4 (the residual
 add and RMS norm, on both sides of the rows it keeps in registers, within
 ``NORM_TOL``; the norm's backward, the tanh GeLU and its backward bit for
 bit, but for elements within ``TRANSCENDENTAL_ULPS`` that pass through
@@ -333,6 +336,117 @@ def test_k3_takes_any_layout(cuda, dtype):
     for inputs in (views, shifted):
         for got, w in zip(run(*inputs), want):
             assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("d", chip_smoke.DELTA_DS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_delta_forms_match_row_dot_plain(cuda, d, dtype):
+    """Both forms of ``attn_bwd_delta`` within 2e-5 x max(1, max |plain|) of
+    ``row_dot_plain`` on 333 rows (no form's last block full), the launch in
+    the form ``delta_form`` names, a vector launch refused off its
+    alignments (chip_smoke.delta_case); one launch each."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + (dtype == torch.bfloat16))
+    before = kernels.launch_counts()["attn_bwd_delta"]
+    form = chip_smoke.delta_case(torch, attention, gen, cuda, d, dtype, {})
+    assert form == attention.delta_form(d, dtype, True)
+    assert kernels.launch_counts()["attn_bwd_delta"] == before + (2 if form[0] == "vector" else 1)
+
+
+@pytest.mark.parametrize("rows", [(1, 1, 1), (1, 129, 1), (2, 5, 3)], ids=["1", "129", "30"])
+@pytest.mark.parametrize("d,dtype", [(16, torch.bfloat16), (1024, torch.float32), (4, torch.float32)],
+                         ids=["bf16-d16", "f32-d1024", "f32-d4"])
+def test_delta_takes_any_row_count(cuda, rows, d, dtype):
+    """Row counts that leave most of the last block idle: 2 lanes a row at
+    bf16 D = 16 (128 rows a block), a warp a row at f32 D = 1024, a lane a
+    row at f32 D = 4; the vector form within the f32 tolerance of the plain
+    version, the general one too."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(rows) + d)
+    out, dout = _qkvo(gen, rows + (d,), dtype, cuda)[:2]
+    want = attention.row_dot_plain(out, dout)
+    tol = chip_smoke.k3_tolerances(torch)[torch.float32]
+    before = attention.delta_form_counts()
+    got = attention.row_dot(out, dout)
+    assert chip_smoke.delta_forms_since(attention, before) == {attention.delta_form(d, dtype, True): 1}
+    for x in (got, attention._launch_delta(out, dout, ("general", 32))):
+        assert x.shape == (rows[0], rows[2], rows[1])
+        assert float((x - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_delta_copies_a_non_contiguous_input(cuda, dtype):
+    """A transposed view is copied by ``_dense`` and takes the vector form:
+    bitwise the result of its contiguous copy."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(71)
+    out, dout = _qkvo(gen, (2, 33, 3, 64), dtype, cuda)[:2]
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (out, dout)]
+    assert not any(x.is_contiguous() for x in views)
+    before = attention.delta_form_counts()
+    got = attention.row_dot(*views)
+    assert chip_smoke.delta_forms_since(attention, before) == {
+        attention.delta_form(64, dtype, True): 1}
+    assert torch.equal(got, attention.row_dot(out, dout))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_delta_on_a_view_off_16_byte_alignment(cuda, dtype):
+    """Rows one element off a 16-byte boundary are the general form's:
+    ``delta_form`` names it, the kernel's entry refuses a vector launch on
+    them, and the general form on them as they lie holds the f32 tolerance.
+    ``row_dot`` copies such a view first, as every K3 wrapper does, and gives
+    bitwise its contiguous copy's result."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(73)
+    dense = _qkvo(gen, (2, 33, 3, 64), dtype, cuda)[:2]
+
+    def offset(x):
+        y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        return y.copy_(x)
+
+    out, dout = (offset(x) for x in dense)
+    assert out.is_contiguous() and out.data_ptr() % 16 and dout.data_ptr() % 16
+    assert attention.delta_form(64, dtype, False) == ("general", 32)
+    lanes = attention.delta_form(64, dtype, True)[1]
+    with pytest.raises(RuntimeError, match="attn_bwd_delta"):
+        attention._launch_delta(out, dout, ("vector", lanes))
+    want = attention.row_dot_plain(out, dout)
+    got = attention._launch_delta(out, dout, ("general", 32))
+    tol = chip_smoke.k3_tolerances(torch)[torch.float32]
+    assert float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
+    assert torch.equal(attention.row_dot(out, dout), attention.row_dot(*dense))
+
+
+def test_delta_vector_form_refuses_what_it_does_not_take(cuda):
+    """The C entry refuses (cudaErrorInvalidValue) a vector launch with lanes
+    other than the rule's, or on rows off 16 bytes; the wrappers never ask."""
+    x = torch.zeros((1, 8, 2, 1024), dtype=torch.bfloat16, device=cuda)
+    for lanes in (16, 64, 3):
+        with pytest.raises(RuntimeError, match="attn_bwd_delta"):
+            attention._launch_delta(x, x, ("vector", lanes))
+    y = torch.zeros((1, 8, 2, 12), dtype=torch.bfloat16, device=cuda)  # 24-byte rows
+    with pytest.raises(RuntimeError, match="attn_bwd_delta"):
+        attention._launch_delta(y, y, ("vector", 1))
+    assert torch.equal(attention._launch_delta(x, x, ("vector", 32)),
+                       torch.zeros((1, 2, 8), device=cuda))
+
+
+def test_delta_past_2_31_elements_takes_the_general_form(cuda):
+    """At B*T*H*D = 2^31 (4 GiB a bf16 tensor) the vector form's 32-bit
+    indices would not do: ``row_dot`` takes the general form, the entry
+    refuses a vector launch, and every row's sum, 1024 x 0.5 x 2, is exact."""
+    shape = (1, 1 << 20, 2, 1024)
+    out = torch.full(shape, 0.5, dtype=torch.bfloat16, device=cuda)
+    dout = torch.full(shape, 2.0, dtype=torch.bfloat16, device=cuda)
+    before = attention.delta_form_counts()
+    got = attention.row_dot(out, dout)
+    assert chip_smoke.delta_forms_since(attention, before) == {("general", 32): 1}
+    assert bool((got == 1024.0).all())
+    with pytest.raises(RuntimeError, match="attn_bwd_delta"):
+        attention._launch_delta(out, dout, ("vector", 32))
+    del out, dout, got
+    torch.cuda.empty_cache()
 
 
 def test_one_fabricnet_step_on_the_card_matches_the_cpu(cuda):
