@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the device echo
-path (K1), the FabricNet train step with ring attention (K3), its
+path (K1), directly and as RPC through the port's Server and Channel, the
+FabricNet train step with ring attention (K3), its
 elementwise chain (K4) and the rest of what XLA fuses around its matrix
 products (K4e: the SGD update, the MoE's gate and combine, the loss), in
 the fused and the sliced schedules, the step with heads = 0 and its ring
@@ -23,13 +24,28 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    and times kernel, plain version and a ``copy_`` of the same bytes behind
    a spin kernel (``device_ms``), and the kernel back to back through its
    wrapper (``time_ms``, the rate the RPC path sees);
-3. drives the main path with the launch counts set to zero: a
+3. drives the endpoint path with the launch counts set to zero: a
    ``DeviceEndpoint`` with the default echo table (16 threads x 8 calls of
-   256 B), one with methods {0: echo, 3: x2, 5: +10} (the same traffic
-   mixed with an unknown method, a burst of 16 calls of 32 KiB, one call at
-   the largest bucket of 2^24 words, and ``server_handler``), and one
+   256 B, then 20 sequential calls), one with methods {0: echo, 3: x2,
+   5: +10} (the same traffic mixed with an unknown method, a burst of 16
+   calls of 32 KiB, one call at the largest bucket of 2^24 words), and one
    ``make_echo_step`` step of 2^26 words; every response and error code is
    checked, and every kernel must have launched;
+3b. drives device RPC, the path a user calls, with the launch counts set to
+   zero: ``DeviceEndpoint.server_handler()`` (window 16) mounted on the
+   port's ``Server`` and called through the port's ``Channel`` on loopback
+   at ``bench_device_rpc``'s geometry: a warm-up, 20 sequential calls of
+   256 B (µs a call, beside the endpoint's own: their difference is the
+   host plane's cost; also the time inside the server's handler and a
+   host-only echo over the same Server and Channel), 16 threads x 8 calls
+   (calls/s; the host-only echo's too), the mixed table
+   {0, 3, 5, 999} through a second service, a burst of 16 calls of 32 KiB
+   and one call of 2^23 words (the largest whose frame fits
+   ``max_body_size``); every response and error code is checked and K1a,
+   K1b and K1c must have launched; torch.profiler over the pipelined
+   16 x 8 burst gives wall time, device busy time and the idle share; and
+   the host's time to pack a 32 KiB frame with and without the
+   body-checksum bit (the port's CRC32C is pure Python);
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -214,8 +230,9 @@ BENCH_FABRICNET = dict(d_model=2048, d_ff=8192, d_expert=2048, experts_per_rank=
                        layers_per_stage=4, batch=4, seq=1024, microbatches=1)
 
 # (rows, payload words): the batches the main path hands the kernels —
-# endpoint buckets of 64, 8192 and 2^24 words and the 2^26-word echo step
-GEOMETRIES = [(1, 64), (16, 64), (16, 8192), (1, 1 << 24), (4, 1 << 24), (1, 1 << 26)]
+# endpoint buckets of 64, 8192, 2^23 (the largest call over RPC) and 2^24
+# words and the 2^26-word echo step
+GEOMETRIES = [(1, 64), (16, 64), (16, 8192), (1, 1 << 23), (1, 1 << 24), (4, 1 << 24), (1, 1 << 26)]
 # the geometry each kernel's line reports: the largest the main path gives it
 REPORT_AT = {"frame_rows": (1, 1 << 26), "verify_rows": (1, 1 << 24), "echo_step_rows": (1, 1 << 26)}
 K2 = ("quantize_rows", "dequant_mean_rows")
@@ -635,6 +652,219 @@ def run_calls(ep, n_threads, per_thread, nbytes, mid_of, rng_seed):
     call_threads(n_threads, caller)
     wall = time.perf_counter() - t0
     return len(lat) / wall, 1e6 * sum(lat) / len(lat)
+
+
+# -- phase 3b: device RPC through the port's Server and Channel -----------------
+
+RPC_METHODS = {0: "echo", 3: "x2", 5: "plus10", 999: "unknown"}
+RPC_BIG_WORDS = 1 << 23  # the largest bucket whose frame fits max_body_size (64 MiB)
+
+
+def rpc_calls(ch, service, n_threads, per_thread, nbytes, mid_of, rng_seed):
+    """n_threads x per_thread Channel calls of ``service``; checks every
+    answer and error code. Returns (calls/s, mean latency in µs)."""
+    from incubator_brpc_tpu_torch.utils.status import ErrorCode
+
+    rng = np.random.default_rng(rng_seed)
+    payloads = [[rng.integers(0, 256, size=nbytes, dtype=np.uint8).tobytes()
+                 for _ in range(per_thread)] for _ in range(n_threads)]
+    lat = []
+    lock = threading.Lock()
+
+    def caller(i):
+        for j in range(per_thread):
+            mid = mid_of(i, j)
+            t0 = time.perf_counter()
+            cntl = ch.call_method(service, RPC_METHODS[mid], payloads[i][j])
+            dt = time.perf_counter() - t0
+            if mid == 999:
+                if cntl.error_code != ErrorCode.ENOMETHOD or cntl.response_payload != b"":
+                    raise AssertionError(f"rpc method 999 gave code {cntl.error_code}")
+            else:
+                if not cntl.ok():
+                    raise AssertionError(f"rpc ({i},{j}) {service}.{RPC_METHODS[mid]} gave "
+                                         f"code {cntl.error_code}: {cntl.error_text}")
+                words = np.frombuffer(payloads[i][j] + b"\0" * (-nbytes % 4), np.uint32)
+                if cntl.response_payload != expected(words, mid).tobytes()[:nbytes]:
+                    raise AssertionError(f"rpc ({i},{j}) {service}.{RPC_METHODS[mid]}: wrong response")
+            with lock:
+                lat.append(dt)
+
+    t0 = time.perf_counter()
+    call_threads(n_threads, caller)
+    wall = time.perf_counter() - t0
+    return len(lat) / wall, 1e6 * sum(lat) / len(lat)
+
+
+def rpc_calls_host(ch, n_threads, per_thread):
+    """n_threads x per_thread calls of the host-only echo (256 B); returns
+    (calls/s, mean latency in µs)."""
+    payload = bytes(range(256))
+    lat = []
+    lock = threading.Lock()
+
+    def caller(i):
+        for _ in range(per_thread):
+            t0 = time.perf_counter()
+            cntl = ch.call_method("host", "echo", payload)
+            dt = time.perf_counter() - t0
+            if not cntl.ok() or cntl.response_payload != payload:
+                raise AssertionError(f"host echo: code {cntl.error_code}")
+            with lock:
+                lat.append(dt)
+
+    t0 = time.perf_counter()
+    call_threads(n_threads, caller)
+    wall = time.perf_counter() - t0
+    return len(lat) / wall, 1e6 * sum(lat) / len(lat)
+
+
+def sequential_us(call, n=20):
+    """Mean µs of ``n`` calls made one after another (each checks itself)."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def profile_rpc_burst(torch, ch):
+    """torch.profiler (device activity) over a pipelined 16 x 8 burst of
+    256 B calls: wall time, device busy time and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rpc_calls(ch, "tensor", 16, 8, 256, lambda i, j: 0, 11)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum((getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0)) for e in kern)
+    if not busy:
+        log("phase3b profile of the RPC burst: the profiler saw no device time (not measured)")
+        return {"wall_us": wall_us, "device_us": None, "idle_pct": None}
+    by_name = sorted(((e.key[:70], e.count, getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0)) for e in kern),
+                     key=lambda x: -x[2])
+    idle = 100.0 - 100.0 * busy / wall_us
+    log(f"phase3b profile of the pipelined 16 x 8 RPC burst (256 B): wall {wall_us:.1f} us, "
+        f"device busy {busy:.1f} us, idle {idle:.2f} %; "
+        + "; ".join(f"{k} x{c} {t:.1f} us" for k, c, t in by_name[:6]))
+    return {"wall_us": wall_us, "device_us": busy, "idle_pct": idle}
+
+
+def body_crc_cost_us(n=20):
+    """Host µs to pack one tbus_std frame of a 32 KiB body, the meta alone
+    checksummed (the default) and with the body-checksum bit set."""
+    from incubator_brpc_tpu_torch.protocol import tbus_std
+
+    body = bytes(range(256)) * 128
+    meta = tbus_std.Meta(service="tensor", method="echo", timeout_ms=300000)
+    out = {}
+    for label, flags in (("meta_crc_us", 0), ("body_crc_us", tbus_std.FLAG_BODY_CRC)):
+        out[label] = sequential_us(lambda: tbus_std.pack_frame(meta, body, 7, flags=flags), n)
+    return out
+
+
+def device_rpc_phase(torch, kernels, svc, direct_seq_us):
+    """Phase 3b: DeviceEndpoint.server_handler() mounted on the port's
+    Server, called through the port's Channel on loopback at
+    bench_device_rpc's geometry (bench.py:684-753): window 16, 256 B
+    payloads after a warm-up, 20 sequential calls, 16 threads x 8 calls,
+    the mixed table {0, 3, 5, 999} through a second service, a burst of 16
+    calls of 32 KiB and one call of 2^23 words; every answer and code
+    checked. The caller resets and reads the launch counts around it."""
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Server
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+
+    echo_ep = DeviceEndpoint(window_size=16, max_batch=16)
+    mixed_ep = DeviceEndpoint(service=svc, window_size=16, max_batch=16)
+    handler_s = []  # seconds inside the echo handler, call by call
+
+    def timed(handler):
+        def run(cntl, request):
+            t0 = time.perf_counter()
+            try:
+                return handler(cntl, request)
+            finally:
+                handler_s.append(time.perf_counter() - t0)
+        return run
+
+    server = Server()
+    server.add_service("tensor", {"echo": timed(echo_ep.server_handler())})
+    server.add_service("mixed", {name: mixed_ep.server_handler(method_id=mid)
+                                 for mid, name in RPC_METHODS.items()})
+    # the host plane alone: the same Server and Channel, no device
+    server.add_service("host", {"echo": lambda cntl, request: request})
+    if not server.start(0):
+        raise AssertionError("the port's Server did not start")
+    out = {}
+    try:
+        ch = Channel()
+        ch.init(f"127.0.0.1:{server.port}", ChannelOptions(timeout_ms=300_000))
+        echo_ep.warm(256)
+        mixed_ep.warm(256)
+        rpc_calls(ch, "tensor", 16, 2, 256, lambda i, j: 0, 20)  # warm-up
+        rng = np.random.default_rng(21)
+        seq_payloads = [rng.integers(0, 256, size=256, dtype=np.uint8).tobytes() for _ in range(20)]
+        it = iter(seq_payloads)
+
+        def one():
+            p = next(it)
+            cntl = ch.call_method("tensor", "echo", p)
+            if not cntl.ok() or cntl.response_payload != p:
+                raise AssertionError(f"sequential rpc: code {cntl.error_code}")
+
+        del handler_s[:]
+        out["rpc_seq_us"] = sequential_us(one, 20)
+        out["handler_seq_us"] = 1e6 * sum(handler_s) / len(handler_s)
+        out["host_plane_us"] = out["rpc_seq_us"] - direct_seq_us
+        host_payload = bytes(range(256))
+
+        def host_one():
+            cntl = ch.call_method("host", "echo", host_payload)
+            if not cntl.ok() or cntl.response_payload != host_payload:
+                raise AssertionError(f"host echo: code {cntl.error_code}")
+
+        sequential_us(host_one, 20)  # warm-up
+        out["host_echo_seq_us"] = sequential_us(host_one, 200)
+        del handler_s[:]
+        out["rpc_qps"], out["rpc_lat_us"] = rpc_calls(ch, "tensor", 16, 8, 256, lambda i, j: 0, 22)
+        out["handler_burst_us"] = 1e6 * sum(handler_s) / len(handler_s)
+        out["host_echo_qps"], _ = rpc_calls_host(ch, 16, 8)
+        log(f"phase3b device RPC through the port's Server and Channel, 256 B: sequential "
+            f"{out['rpc_seq_us']:.1f} us a call (the endpoint alone {direct_seq_us:.1f} us: the host "
+            f"plane adds {out['host_plane_us']:.1f} us; inside the server's handler "
+            f"{out['handler_seq_us']:.1f} us; a host-only echo over the same Server and Channel "
+            f"{out['host_echo_seq_us']:.1f} us); 16 threads x 8 calls: {out['rpc_qps']:.1f} calls/s, "
+            f"mean latency {out['rpc_lat_us']:.1f} us, {out['handler_burst_us']:.1f} us a call inside "
+            f"the handler (the host-only echo {out['host_echo_qps']:.1f} calls/s)")
+        qps, lat = rpc_calls(ch, "mixed", 16, 8, 256,
+                             lambda i, j: 999 if (i, j) == (5, 3) else (0, 3, 5)[(i + j) % 3], 23)
+        out["rpc_mixed_qps"] = qps
+        log(f"phase3b mixed service {{0,3,5,999}} over RPC, 16 threads x 8 calls of 256 B: "
+            f"{qps:.1f} calls/s, mean latency {lat:.1f} us; method 999 failed with ENOMETHOD")
+        mixed_ep.warm(32 * 1024)
+        qps, lat = rpc_calls(ch, "mixed", 16, 1, 32 * 1024, lambda i, j: (0, 3, 5)[i % 3], 24)
+        out["rpc_burst_32k_qps"] = qps
+        log(f"phase3b burst of 16 RPC calls of 32 KiB: {qps:.1f} calls/s, mean latency {lat:.1f} us")
+        _, lat = rpc_calls(ch, "mixed", 1, 1, 4 * RPC_BIG_WORDS, lambda i, j: 3, 25)
+        out["rpc_big_us"] = lat
+        log(f"phase3b one RPC call of {RPC_BIG_WORDS} words (32 MiB, method 3): latency {lat:.1f} us")
+        out["profile"] = profile_rpc_burst(torch, ch)
+    finally:
+        server.stop()
+        server.join(timeout=60)
+        for ep in (echo_ep, mixed_ep):
+            if not ep.close(timeout=120):
+                raise AssertionError("an endpoint did not settle its calls")
+    out.update(body_crc_cost_us())
+    log(f"phase3b tbus_std pack of a 32 KiB body on the host: meta checksummed "
+        f"{out['meta_crc_us']:.1f} us, with the body-checksum bit {out['body_crc_us']:.1f} us "
+        "(pure-Python CRC32C)")
+    return out
 
 
 # -- K3 and the FabricNet train step (phases 5-8) -----------------------------
@@ -2320,8 +2550,8 @@ def main() -> int:
 
     from incubator_brpc_tpu_torch.models.tensor_echo import TensorEchoService, make_echo_step
     from incubator_brpc_tpu_torch.ops import kernels
+    from incubator_brpc_tpu_torch.rpc import shutdown_host_plane
     from incubator_brpc_tpu_torch.transport.device import MAX_BUCKET_WORDS, DeviceEndpoint
-    from incubator_brpc_tpu_torch.utils.status import ErrorCode
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2369,23 +2599,17 @@ def main() -> int:
     log(f"phase3 one call at the largest bucket ({MAX_BUCKET_WORDS} words, method 3): "
         f"latency {lat:.1f} us")
 
-    class StandInController:
-        call_id = 77
-        failed = None
+    rng = np.random.default_rng(19)
+    direct_payloads = iter([rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+                            for _ in range(20)])
 
-        def set_failed(self, code, text):
-            self.failed = (code, text)
+    def direct_one():
+        p = next(direct_payloads)
+        if echo_ep.call_bytes(p, timeout=300) != (0, p):
+            raise AssertionError("sequential endpoint call failed")
 
-    cntl = StandInController()
-    reply = echo_ep.server_handler()(cntl, b"rpc-over-device-memory")
-    if cntl.failed or reply != b"rpc-over-device-memory":
-        raise AssertionError(f"server_handler: {reply!r} {cntl.failed}")
-    cntl = StandInController()
-    if mixed_ep.server_handler(method_id=999)(cntl, b"abcd") != b"" or (
-        cntl.failed[0] != ErrorCode.ENOMETHOD
-    ):
-        raise AssertionError(f"server_handler on method 999: {cntl.failed}")
-    log("phase3 server_handler: echo answered, method 999 failed with ENOMETHOD")
+    direct_seq_us = sequential_us(direct_one, 20)
+    log(f"phase3 echo endpoint, 20 sequential calls of 256 B: {direct_seq_us:.1f} us a call")
 
     step, request = make_echo_step(payload_words=1 << 26)
     response = step(request)
@@ -2396,10 +2620,23 @@ def main() -> int:
     if not torch.equal(response[8:].view(torch.int32), request[8:].view(torch.int32)):
         raise AssertionError("make_echo_step 2^26: payload not echoed")
     launches = kernels.launch_counts()
-    log(f"phase3 launches on the main path: {launches}")
+    log(f"phase3 launches on the endpoint path: {launches}")
     missing = [name for name in K1 if launches[name] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the endpoint path: {missing}")
+    for ep in (echo_ep, mixed_ep):
+        if not ep.close(timeout=120):
+            raise AssertionError("an endpoint did not settle its calls")
+
+    # -- phase 3b: device RPC through the port's Server and Channel, counted --
+    kernels.reset_launch_counts()
+    rpc = device_rpc_phase(torch, kernels, svc, direct_seq_us)
+    rpc_launches = kernels.launch_counts()
+    log(f"phase3b launches on the RPC path: {rpc_launches}")
+    missing = [name for name in K1 if rpc_launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the RPC path: {missing}")
+    shutdown_host_plane()
 
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
@@ -2437,7 +2674,8 @@ def main() -> int:
         line.append({
             "name": name, "route": "cuda",
             "source": "incubator_brpc_tpu_torch/csrc/framing.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": rpc_launches[name],
+            "endpoint_launches": launches[name],
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
@@ -2482,6 +2720,7 @@ def main() -> int:
         detail = [dict(kernel=n, rows=r, words=w, **t) for (n, r, w), t in p2.timings.items()]
         with open(opts.out, "w") as f:
             json.dump({"card": card, "timings": detail, "launches": launches,
+                       "rpc_launches": rpc_launches, "device_rpc": rpc,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],

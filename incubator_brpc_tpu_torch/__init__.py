@@ -4,8 +4,8 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 This package stands beside ``incubator_brpc_tpu`` (the JAX package, which
 stays the reference) and is held against it by parity tests. It imports
 ``torch`` and numpy, never ``jax`` and nothing of ``incubator_brpc_tpu``:
-the JAX-free pieces it needs (status codes, flags, bvar, butex, the timer
-thread) are its own copies.
+the JAX-free pieces it needs (status codes, flags, bvar, the runtime, the
+host RPC plane) are its own copies.
 
 Modules mirror the reference package's layout so each counterpart is easy to
 find: ``ops/framing.py`` (frames in device memory), ``ops/kernels.py`` and
@@ -18,7 +18,11 @@ fold and its gradient), ``models/ring_attention.py``,
 and the collective sessions: ``ops/quantize.py`` with ``csrc/quantize.cu``
 (K2, block quantize and dequantize-mean), ``parallel/quantized.py``,
 ``parallel/mc_dispatch.py`` (``run_dispatch_session``),
-``parallel/mc_collective.py`` and ``rpc/device_method.py``.
+``parallel/mc_collective.py`` and ``rpc/device_method.py``; and the host
+plane that carries calls to the card: ``rpc/`` (``Server``, ``Channel``,
+``Controller``) over ``protocol/tbus_std.py``, ``transport/`` (sockets,
+the acceptor, the event dispatchers), ``runtime/`` (the worker pool and
+correlation ids) and ``iobuf.py``, in plain Python.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise (:func:`resolve_device`).
@@ -36,6 +40,7 @@ _LAZY_SUBMODULES = (
     "transport",
     "runtime",
     "parallel",
+    "protocol",
     "rpc",
 )
 

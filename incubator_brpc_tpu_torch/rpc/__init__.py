@@ -1,3 +1,45 @@
-"""rpc — device methods (``device_method.py``): kernels with a fixed row
-geometry that the collective session plane (``parallel/mc_dispatch.py``)
-resolves by (service, method). The host RPC plane is a later slice."""
+"""rpc — the user-facing host API (reference L5: src/brpc/channel.h,
+server.h, controller.h) over tbus_std, and the device methods
+(``device_method.py``) that the collective session plane
+(``parallel/mc_dispatch.py``) resolves by (service, method).
+
+A ``DeviceEndpoint.server_handler()`` (transport/device.py) mounts on a
+``Server`` like any handler, so a ``Channel`` call reaches the card.
+"""
+
+from incubator_brpc_tpu_torch.rpc.channel import (
+    Channel,
+    ChannelOptions,
+    client_socket_map,
+    start_cancel,
+)
+from incubator_brpc_tpu_torch.rpc.controller import Controller
+from incubator_brpc_tpu_torch.rpc.server import MethodStatus, Server, ServerOptions
+
+
+def shutdown_host_plane() -> None:
+    """Close every client connection, then stop and join the host plane's
+    process-wide threads: the event dispatchers (``tbtorch-dispatcher-*``)
+    and the worker pool (``tbtorch-worker-*``). Stop and join every Server
+    first. The next Channel or Server starts them again; the timer thread
+    has its own ``shutdown_global_timer_thread``."""
+    from incubator_brpc_tpu_torch.runtime.worker_pool import shutdown_global_worker_pool
+    from incubator_brpc_tpu_torch.transport.event_dispatcher import (
+        shutdown_global_dispatchers,
+    )
+
+    client_socket_map().recycle_all()
+    shutdown_global_dispatchers()
+    shutdown_global_worker_pool()
+
+
+__all__ = [
+    "Channel",
+    "ChannelOptions",
+    "Controller",
+    "MethodStatus",
+    "Server",
+    "ServerOptions",
+    "shutdown_host_plane",
+    "start_cancel",
+]

@@ -1,0 +1,471 @@
+"""Channel — the client endpoint (reference src/brpc/channel.cpp:285
+CallMethod, controller.cpp:545-676 OnVersionedRPCReturned / 941 IssueRPC).
+
+Call flow (mirrors SURVEY.md §3.1):
+  call_method
+    ├ create ranged call id (2 + max_retry versions, channel.cpp:307)
+    ├ async: register the timeout timer on the TimerThread
+    ├ _issue_rpc: pick the server's socket, pack, Socket.write
+    │   (write failure → CallIdSpace.error → retry arbitration)
+    └ sync: poll the socket / join the call id (async: done runs when the
+      id is destroyed)
+
+  response path: tbus_std process_response
+    └ lock call id → _on_rpc_returned: retry / end
+      EndRPC: cancel timers, unlock_and_destroy (wakes joiners), run done.
+
+The port's copy of the JAX package's ``rpc/channel.py``, trimmed to one
+server address over tbus_std: sync and async calls, timeouts, retries on
+``RETRIABLE``, ``start_cancel`` and deadline propagation. Load balancing
+and naming, backup requests, the retry budget, rpcz spans, the native
+plane, device links, TLS, auth, pooled and short connections and streams
+are later slices.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Optional, Union
+
+from incubator_brpc_tpu_torch import protocol as proto_pkg
+from incubator_brpc_tpu_torch.protocol import compress as compress_mod
+from incubator_brpc_tpu_torch.protocol.tbus_std import (
+    Meta,
+    ParsedFrame,
+    pack_frame_iobuf,
+)
+from incubator_brpc_tpu_torch.rpc.controller import RETRIABLE, Controller
+from incubator_brpc_tpu_torch.rpc.deadline import current_deadline
+from incubator_brpc_tpu_torch.runtime.correlation_id import EBUSY, call_id_space
+from incubator_brpc_tpu_torch.runtime.timer_thread import global_timer_thread
+from incubator_brpc_tpu_torch.runtime.worker_pool import global_worker_pool
+from incubator_brpc_tpu_torch.transport.event_dispatcher import on_reactor_thread
+from incubator_brpc_tpu_torch.transport.messenger import InputMessenger
+from incubator_brpc_tpu_torch.transport.sock import CONNECTED
+from incubator_brpc_tpu_torch.transport.socket_map import SocketMap
+from incubator_brpc_tpu_torch.utils.endpoint import EndPoint, str2endpoint
+from incubator_brpc_tpu_torch.utils.status import ErrorCode
+
+logger = logging.getLogger(__name__)
+
+_client_messenger = InputMessenger()
+_client_socket_map = SocketMap(messenger=_client_messenger)
+
+
+def client_socket_map() -> SocketMap:
+    """The process-wide map of client connections every Channel shares."""
+    return _client_socket_map
+
+
+def start_cancel(call_id: int) -> None:
+    """Cancel an in-flight RPC by its call id from ANY thread — the
+    reference's brpc::StartCancel(CallId) (controller.cpp:699, routed
+    through bthread_id_error): the id's error hook runs under the id
+    lock, fails the call with ECANCELED (never retried), wakes joiners
+    and runs the done callback. A no-op once the call has settled."""
+    call_id_space.error(call_id, ErrorCode.ECANCELED, "canceled by caller")
+
+
+def _track_inflight(sock, cid: int) -> None:
+    """Record a written-but-unanswered correlation id on its connection so
+    connection death fails the call NOW, not at its deadline (the
+    reference fails every id parked on a Socket at SetFailed).
+
+    Error delivery is CLAIM-based: whoever atomically removes the cid
+    from the set (response path, EndRPC, a write's on_error, or the
+    socket-failure sweep) owns it — a request sitting in the write queue
+    at set_failed would otherwise be errored twice."""
+    ctx = sock.context
+    cids = ctx.get("_inflight_cids")
+    if cids is None:
+        cids = ctx.setdefault("_inflight_cids", set())
+
+        def _fail_inflight(sk):
+            pending = sk.context.get("_inflight_cids")
+            while pending:
+                try:
+                    c = pending.pop()  # atomic claim under the GIL
+                except KeyError:
+                    break
+                global_worker_pool().spawn(
+                    call_id_space.error,
+                    c,
+                    ErrorCode.EFAILEDSOCKET,
+                    f"connection to {sk.remote} failed with the call in flight",
+                )
+
+        sock.on_failed.append(_fail_inflight)
+    cids.add(cid)
+
+
+def _claim_inflight(sock, cid: int) -> bool:
+    """True iff this caller atomically removed the cid (and may deliver
+    its error); False = another path already owns it."""
+    cids = sock.context.get("_inflight_cids")
+    if cids is None:
+        return True  # never tracked (pre-track failure): caller owns it
+    try:
+        cids.remove(cid)
+        return True
+    except KeyError:
+        return False
+
+
+def process_response(sock, frame: ParsedFrame) -> None:
+    """tbus_std Protocol.process_response hook: route a response frame to
+    its in-flight RPC via the correlation id (baidu_rpc_protocol.cpp:543).
+
+    On a reactor thread (inline reads) a contended id must not park the
+    reactor: the blocking lock is deferred to a pool fiber."""
+    cid = frame.correlation_id
+    cids = sock.context.get("_inflight_cids")
+    if cids is not None:
+        cids.discard(cid)
+    rc, cntl = call_id_space.lock(cid, nowait=on_reactor_thread())
+    if rc == EBUSY:
+        global_worker_pool().spawn(_process_response_blocking, sock, frame)
+        return
+    _returned(rc, cntl, sock, frame)
+
+
+def _process_response_blocking(sock, frame: ParsedFrame) -> None:
+    rc, cntl = call_id_space.lock(frame.correlation_id)
+    _returned(rc, cntl, sock, frame)
+
+
+def _returned(rc: int, cntl, sock, frame: ParsedFrame) -> None:
+    if rc != 0 or cntl is None:
+        return  # stale/duplicate response after EndRPC: drop
+    channel = cntl._channel
+    if channel is None:
+        call_id_space.unlock(frame.correlation_id)
+        return
+    channel._on_rpc_returned(cntl, frame, sock)
+
+
+# bind the live hook (registration itself happens at protocol import)
+proto_pkg.TBUS_STD.process_response = process_response
+
+
+class ChannelOptions:
+    def __init__(
+        self,
+        timeout_ms: float = Controller.DEFAULT_TIMEOUT_MS,
+        max_retry: int = Controller.DEFAULT_MAX_RETRY,
+        connect_timeout: float = 5.0,
+    ):
+        self.timeout_ms = timeout_ms
+        self.max_retry = max_retry
+        self.connect_timeout = connect_timeout
+
+
+class Channel:
+    """Client channel to a single server (the reference's single-server
+    Init, channel.cpp:201-273)."""
+
+    def __init__(self):
+        self._options = ChannelOptions()
+        self._server: Optional[EndPoint] = None
+        self._socket_map = _client_socket_map
+
+    def init(
+        self, target: Union[str, EndPoint], options: Optional[ChannelOptions] = None
+    ) -> bool:
+        """``target`` is "ip:port" / "host:port" or an EndPoint."""
+        if options is not None:
+            self._options = options
+        self._server = target if isinstance(target, EndPoint) else str2endpoint(str(target))
+        return True
+
+    # -- public call surface -------------------------------------------------
+
+    def call_method(
+        self,
+        service: str,
+        method: str,
+        request: bytes,
+        cntl: Optional[Controller] = None,
+        done: Optional[Callable[[Controller], None]] = None,
+        attachment: bytes = b"",
+    ) -> Controller:
+        """The CallMethod entry (channel.cpp:285). Synchronous when ``done``
+        is None (waits for the call); asynchronous otherwise."""
+        assert self._server is not None, "Channel.init() not called"
+        if cntl is None:
+            cntl = Controller(
+                timeout_ms=self._options.timeout_ms, max_retry=self._options.max_retry
+            )
+        cntl._channel = self
+        cntl._service = service
+        cntl._method = method
+        cntl._request_payload = request
+        cntl.request_attachment = attachment
+        cntl._done = done
+        cntl._mark_start()
+
+        # deadline propagation (reference RpcRequestMeta.timeout_ms): a
+        # call issued inside a server handler inherits what is LEFT of the
+        # caller's propagated budget when that is tighter than this call's
+        # own timeout — budgets only shrink across hops. An already-spent
+        # budget fails fast with EDEADLINE.
+        ambient = current_deadline()
+        if ambient is not None:
+            if not cntl._deadline or ambient < cntl._deadline:
+                cntl._deadline = ambient
+                cntl.timeout_ms = max(0.0, (ambient - cntl._start_ts) * 1000.0)
+            if cntl._deadline <= cntl._start_ts:
+                cntl.set_failed(ErrorCode.EDEADLINE, "propagated deadline already expired")
+                cntl._mark_end()
+                if done is not None:
+                    done(cntl)
+                return cntl
+
+        # one id covers the first send + every retry
+        # (bthread_id_create_ranged with 2 + max_retry, channel.cpp:307)
+        cid = call_id_space.create(
+            data=cntl,
+            on_error=self._handle_id_error,
+            version_range=2 + max(0, cntl.max_retry),
+        )
+        cntl.call_id = cid
+
+        # sync calls enforce their deadline from the caller's own wait loop
+        # (_sync_wait); async calls need the TimerThread
+        if done is not None and cntl.timeout_ms is not None and cntl.timeout_ms > 0:
+            pool = global_worker_pool()
+            cntl._timer_ids.append(
+                global_timer_thread().schedule(
+                    lambda: pool.spawn(
+                        call_id_space.error,
+                        cid,
+                        ErrorCode.ERPCTIMEDOUT,
+                        f"deadline {cntl.timeout_ms} ms exceeded",
+                    ),
+                    delay=cntl.timeout_ms / 1000.0,
+                )
+            )
+
+        if done is None:
+            cntl._want_poll = True
+        rc, _ = call_id_space.lock(cid)
+        if rc == 0:
+            self._issue_rpc(cntl)
+            call_id_space.unlock(cid)
+        # Only the initial caller-thread issue may pre-claim read ownership:
+        # a later retry on a pool thread claiming a socket after the sync
+        # caller stopped polling would leave a connection nobody reads.
+        cntl._want_poll = False
+
+        if done is None:
+            self._sync_wait(cntl, cid)
+        return cntl
+
+    # convenience alias
+    call = call_method
+
+    def _sync_wait(self, cntl: Controller, cid: int) -> None:
+        """Synchronous completion. When the request's socket is otherwise
+        idle, the caller becomes its reader and processes the response on
+        its OWN thread — a sync round trip then involves zero reactor or
+        fiber wakeups on the client (Socket.poll_and_process). Falls back
+        to the plain join when another thread is already reading the
+        socket."""
+        deadline = cntl._deadline or None
+
+        def _deadline_hit() -> bool:
+            if deadline is None or time.monotonic() < deadline:
+                return False
+            call_id_space.error(
+                cid, ErrorCode.ERPCTIMEDOUT, f"deadline {cntl.timeout_ms} ms exceeded"
+            )
+            return True
+
+        def _join_with_deadline() -> None:
+            # the deadline stays enforced without a TimerThread entry: a
+            # dead server that never answers must still yield ERPCTIMEDOUT
+            while call_id_space.valid(cid):
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if call_id_space.join(cid, timeout=remaining):
+                    return
+                if _deadline_hit():
+                    break
+            call_id_space.join(cid)
+
+        sock = cntl._poll_owned
+        if sock is None:
+            sock = cntl._sent_sockets[-1] if cntl._sent_sockets else None
+            if sock is None or not sock.try_read_ownership():
+                _join_with_deadline()
+                return
+        cntl._poll_sock = sock
+        try:
+            while call_id_space.valid(cid):
+                if _deadline_hit():
+                    break
+                if sock.state != CONNECTED:
+                    break
+                # 0.5s safety tick: a missed kick (no eventfd) or a response
+                # rerouted to another socket (a retry) is picked up by the
+                # next valid() check
+                t = 0.5
+                if deadline is not None:
+                    t = min(t, max(0.001, deadline - time.monotonic()))
+                if not sock.poll_and_process(t):
+                    break
+        finally:
+            cntl._poll_sock = None
+            cntl._poll_owned = None
+            sock.release_read_ownership()
+        _join_with_deadline()
+
+    # -- issue / return paths (run under the call-id lock) -------------------
+
+    def _pick_socket(self):
+        sock = self._socket_map.get_or_create(
+            self._server, timeout=self._options.connect_timeout
+        )
+        if sock.state != CONNECTED:
+            # dropped-but-healthy peer: reconnect inline instead of burning
+            # the attempt against a dead socket until the health probe
+            # fires (ConnectIfNot, socket.cpp:1591)
+            sock.connect_if_not(self._options.connect_timeout)
+        return sock
+
+    def _issue_rpc(self, cntl: Controller) -> None:
+        """IssueRPC (controller.cpp:941): pick socket, pack, write. Called
+        with the call id locked."""
+        cid = cntl.call_id
+        try:
+            sock = self._pick_socket()
+        except (OSError, ConnectionError) as e:
+            # connection failed: arbitrate like a socket failure
+            self._arbitrate_error(cntl, ErrorCode.EFAILEDSOCKET, str(e))
+            return
+        cntl.remote_side = sock.remote
+        cntl._sent_sockets.append(sock)
+        if cntl._want_poll and cntl._poll_owned is None and sock.try_read_ownership():
+            # sync caller will drive this socket's reads (see _sync_wait);
+            # claiming before the write keeps the post-send GIL window tiny
+            cntl._poll_owned = sock
+        # the wire deadline is the budget REMAINING now (retries re-stamp);
+        # a sub-ms residue still rides as 1 so "deadline present" survives
+        # integer ms truncation
+        wire_timeout = 0
+        if cntl._deadline:
+            wire_timeout = max(1, int((cntl._deadline - time.monotonic()) * 1000))
+        meta = Meta(
+            service=cntl._service,
+            method=cntl._method,
+            compress=cntl.compress_type,
+            timeout_ms=wire_timeout,
+            log_id=cntl.log_id,
+        )
+        try:
+            payload = cntl._request_payload
+            if cntl.compress_type:
+                payload = compress_mod.compress(cntl.compress_type, payload)
+            data = pack_frame_iobuf(meta, payload, cid, attachment=cntl.request_attachment)
+        except (ValueError, TypeError) as e:
+            # unknown codec / bad frame inputs: fail the RPC, never leak the
+            # locked id out of IssueRPC
+            cntl.set_failed(ErrorCode.EREQUEST, f"pack failed: {e}")
+            self._end_rpc(cntl)
+            return
+        pool = global_worker_pool()
+        _track_inflight(sock, cid)
+        rc = sock.write(
+            data,
+            on_error=lambda code, text: (
+                pool.spawn(call_id_space.error, cid, code, text)
+                if _claim_inflight(sock, cid)
+                else None
+            ),
+        )
+        if rc != 0:
+            self._arbitrate_error(cntl, rc, f"write to {sock.remote} failed")
+
+    def _handle_id_error(self, cid: int, cntl: Controller, code: int, text: str) -> None:
+        """CallIdSpace on_error: runs with the id locked — the
+        OnVersionedRPCReturned error path (controller.cpp:545)."""
+        self._arbitrate_error(cntl, code, text)
+        # _arbitrate_error either destroyed the id (terminal) or left it
+        # locked after re-issuing; unlock in the latter case.
+        if call_id_space.valid(cid):
+            call_id_space.unlock(cid)
+
+    @staticmethod
+    def _should_retry(cntl: Controller, code: int) -> bool:
+        """The default RetryPolicy (retry_policy.h): the retriable-code set
+        while the call has retries left. ECANCELED is not in it: a cancel
+        is the caller's decision, not a transient."""
+        return code in RETRIABLE and cntl.retried_count < cntl.max_retry
+
+    def _arbitrate_error(self, cntl: Controller, code: int, text: str) -> None:
+        """Retry or fail. Id is locked; does NOT unlock (caller decides),
+        but EndRPC destroys."""
+        if self._should_retry(cntl, code):
+            cntl.retried_count += 1
+            cntl._reset_for_retry()
+            self._issue_rpc(cntl)
+            return
+        cntl.set_failed(code, text)
+        self._end_rpc(cntl)
+
+    def _on_rpc_returned(self, cntl: Controller, frame: ParsedFrame, sock) -> None:
+        """Response arrived (id locked by process_response)."""
+        if frame.error_code != 0 and self._should_retry(cntl, frame.error_code):
+            cntl.retried_count += 1
+            if on_reactor_thread():
+                # re-issuing may dial a fresh connection (blocking): hand
+                # off to a fiber; the id STAYS locked across the handoff
+                # (the lock is state, not thread-bound)
+                def _retry_off_reactor():
+                    self._issue_rpc(cntl)
+                    call_id_space.unlock(cntl.call_id)
+
+                global_worker_pool().spawn(_retry_off_reactor)
+                return
+            self._issue_rpc(cntl)
+            call_id_space.unlock(cntl.call_id)
+            return
+        if frame.error_code != 0:
+            cntl.set_failed(
+                frame.error_code,
+                (frame.meta.error_text if frame.meta else "")
+                or f"remote error {frame.error_code}",
+            )
+        else:
+            payload = frame.payload
+            if frame.meta and frame.meta.compress:
+                try:
+                    payload = compress_mod.decompress(frame.meta.compress, payload)
+                except Exception as e:
+                    cntl.set_failed(ErrorCode.ERESPONSE, f"decompress failed: {e}")
+                    self._end_rpc(cntl)
+                    return
+            cntl.response_payload = payload
+            cntl.response_attachment = frame.attachment
+            cntl.response_meta = frame.meta
+        self._end_rpc(cntl)
+
+    def _end_rpc(self, cntl: Controller) -> None:
+        """EndRPC: cancel timers, destroy the id (wakes joiners), run done.
+        Called with the id locked; the id is dead afterwards."""
+        cntl._mark_end()
+        timer = global_timer_thread()
+        for tid in cntl._timer_ids:
+            timer.unschedule(tid)
+        cntl._timer_ids.clear()
+        for sock in cntl._sent_sockets:
+            cids = sock.context.get("_inflight_cids")
+            if cids is not None:
+                cids.discard(cntl.call_id)
+        call_id_space.unlock_and_destroy(cntl.call_id)
+        ps = cntl._poll_sock
+        if ps is not None:
+            # a sync caller is poll-driving some socket: if the RPC ended on
+            # a different path (other socket, timer), wake it now
+            ps.kick_poller()
+        if cntl._done is not None:
+            global_worker_pool().spawn(cntl._done, cntl)

@@ -16,9 +16,12 @@ Design deviations from the reference (butex.cpp:607-690, :261-446):
   wake-vs-destroy safety the reference's never-freed ObjectPool provides.
 
 This is the port's copy of the JAX package's butex, trimmed to the
-operations the device path uses. It has no worker-pool hook yet (the
-reference package tells its elastic worker pool that a worker blocked);
-that hook returns with the host plane's worker pool.
+operations the device path and the host plane use. A wait on a worker-pool
+thread counts that worker as blocked while it parks (the JAX package's
+hook, runtime/butex.py:145-160), so the pool's elastic growth keeps
+``fiber_concurrency`` workers runnable: a server handler parked on a
+device completion or on the endpoint's credit window does not hold a
+worker's place.
 """
 
 from __future__ import annotations
@@ -102,7 +105,24 @@ class Butex:
             w.timer_id = global_timer_thread().schedule(
                 lambda: _timeout_fire(self, w), delay=timeout
             )
-        w.event.wait()
+        # Tell the worker pool this worker is BLOCKED (not merely busy) so
+        # elastic growth can keep `concurrency` runnable workers — the
+        # replacement for the reference's M:N descheduling of the caller.
+        from incubator_brpc_tpu_torch.runtime import worker_pool as _wp
+
+        worker = getattr(_wp._tls, "worker", None)
+        if worker is not None and not w.event.is_set():
+            pool = worker.pool
+            with pool._grow_lock:
+                pool._nblocked += 1
+                pool._grow_if_starved()
+            try:
+                w.event.wait()
+            finally:
+                with pool._grow_lock:
+                    pool._nblocked -= 1
+        else:
+            w.event.wait()
         if w.timer_id is not None and not w.timed_out:
             global_timer_thread().unschedule(w.timer_id)
         return ETIMEDOUT if w.timed_out else WAIT_OK

@@ -1,9 +1,10 @@
 """Flag registry — analog of the reference's gflags + reloadable_flags.
 
 The port's copy of the JAX package's registry, trimmed to the registry
-itself and the flags this package reads. Runtime mutation goes through
-``set_flag`` (validator-bearing flags only, like the reference's /flags
-service, src/brpc/reloadable_flags.h) or ``set_flag_unchecked``.
+itself and the flags this package reads (the host plane's among them).
+Runtime mutation goes through ``set_flag`` (validator-bearing flags only,
+like the reference's /flags service, src/brpc/reloadable_flags.h) or
+``set_flag_unchecked``.
 """
 
 from __future__ import annotations
@@ -79,6 +80,58 @@ get_flag = flag_registry.get
 set_flag = flag_registry.set
 set_flag_unchecked = flag_registry.set_unchecked
 
+
+# -- the host plane (runtime/, transport/, protocol/, rpc/) ---------------------
+# Defaults and checks as in the JAX package's utils/flags.py.
+
+define_flag("health_check_interval", 3, "seconds between health-check probes of a failed socket", lambda v: v > 0)
+define_flag(
+    "event_dispatcher_num",
+    4,
+    "number of event dispatchers (sockets hash across them by fd); client "
+    "reads run inline on them, so this is sized like a small worker pool",
+)
+define_flag("fiber_concurrency", 8, "number of worker threads in the fiber scheduler")
+define_flag(
+    "fiber_concurrency_max",
+    256,
+    "elastic ceiling of the fiber scheduler: blocking fibers occupy a worker "
+    "1:1, so the pool grows while none is idle (reference elastic growth from "
+    "bthread_min_concurrency, task_control.cpp:382-390)",
+)
+define_flag("max_body_size", 64 * 1024 * 1024, "maximum message body size", lambda v: v > 0)
+define_flag(
+    "max_decompress_bytes",
+    256 * 1024 * 1024,
+    "decompressed-size ceiling for compressed request/response payloads "
+    "(protocol/compress.py): a tiny bomb must not expand unbounded into "
+    "server memory; 0 disables the ceiling (read per decompress)",
+    lambda v: v >= 0,
+)
+define_flag(
+    "native_compress_min_bytes",
+    0,
+    "response-compression floor: a request that arrived compressed gets its "
+    "response recompressed with the same codec only when the payload has at "
+    "least this many bytes (the reference's response_compress_type "
+    "discipline); 0 = always recompress. The name is the JAX package's, "
+    "whose native plane reads the same flag",
+    lambda v: v >= 0,
+)
+define_flag(
+    "socket_max_unwritten_bytes",
+    64 * 1024 * 1024,
+    "write-queue backpressure threshold (EOVERCROWDED)",
+    lambda v: v > 0,
+)
+define_flag(
+    "async_response_timeout_s",
+    30.0,
+    "fail a binary-path async handler (cntl.set_async) that has not sent "
+    "its response after this long, releasing its admission slot; 0 "
+    "disables the reap",
+    lambda v: v >= 0,
+)
 
 define_flag(
     "device_cq_threads",

@@ -22,7 +22,8 @@ elements within ``TRANSCENDENTAL_ULPS`` that pass through expf; the loss
 within ``MSE_TOL``) with the sliced schedules on the card against the CPU. Marked ``gpu``; each test skips
 where PyTorch sees no CUDA card.
 
-This file imports no JAX, so on a card machine without JAX it runs with
+The endpoint is also driven as device RPC through the port's Server and
+Channel. This file imports no JAX, so on a card machine without JAX it runs with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -142,6 +143,42 @@ def test_endpoint_on_the_card(cuda):
     other = DeviceEndpoint()
     assert other.call_bytes(b"echo through K1c") == (0, b"echo through K1c")
     assert ep.close() and other.close()
+
+
+def test_device_rpc_through_the_port_server_on_the_card(cuda):
+    """server_handler() on the port's Server, called through the port's
+    Channel: the echo table launches K1a and K1c, the mixed table K1b too,
+    and every answer and code is the one the endpoint gives."""
+    from incubator_brpc_tpu_torch.rpc import Channel, Server, shutdown_host_plane
+
+    svc = TensorEchoService()
+    svc.add_method(3, lambda p: kernels.bits32(kernels.u64(p) * 2))
+    echo_ep = DeviceEndpoint(window_size=16)
+    mixed_ep = DeviceEndpoint(service=svc, window_size=16)
+    server = Server()
+    server.add_service("tensor", {"echo": echo_ep.server_handler(),
+                                  "x2": mixed_ep.server_handler(method_id=3),
+                                  "unknown": mixed_ep.server_handler(method_id=999)})
+    assert server.start(0)
+    try:
+        ch = Channel()
+        ch.init(f"127.0.0.1:{server.port}")
+        words = np.arange(100, dtype=np.uint32) + np.uint32(0xFFFFFF00)
+        kernels.reset_launch_counts()
+        cntl = ch.call_method("tensor", "echo", words.tobytes())
+        assert cntl.ok() and cntl.response_payload == words.tobytes()
+        cntl = ch.call_method("tensor", "x2", words.tobytes())
+        want = ((words.astype(np.uint64) * 2) & 0xFFFFFFFF).astype(np.uint32)
+        assert cntl.ok() and cntl.response_payload == want.tobytes()
+        cntl = ch.call_method("tensor", "unknown", b"abcd")
+        assert cntl.error_code == 1002 and cntl.response_payload == b""
+        counts = kernels.launch_counts()
+        assert all(counts[name] > 0 for name in K1), counts
+    finally:
+        server.stop()
+        assert server.join(timeout=60)
+        assert echo_ep.close() and mixed_ep.close()
+        shutdown_host_plane()
 
 
 def test_make_echo_step_on_the_card(cuda):

@@ -1,7 +1,9 @@
 """DeviceEndpoint of the port, on the CPU: the cases of
 tests/test_device_transport.py (buckets, credit window, mixed methods in
-one batch, per-row ENOMETHOD, an oversized payload, server_handler), and
-one parity case against the JAX package's DeviceEndpoint."""
+one batch, per-row ENOMETHOD, an oversized payload, server_handler with the
+port's Controller and behind the port's Server, as
+test_server_handler_integration runs it), and one parity case against the
+JAX package's DeviceEndpoint."""
 
 import threading
 
@@ -14,6 +16,7 @@ from incubator_brpc_tpu.models.tensor_echo import TensorEchoService as JaxServic
 from incubator_brpc_tpu.transport.device import DeviceEndpoint as JaxEndpoint
 from incubator_brpc_tpu_torch.models.tensor_echo import TensorEchoService
 from incubator_brpc_tpu_torch.ops import kernels
+from incubator_brpc_tpu_torch.rpc import Channel, Controller, Server, shutdown_host_plane
 from incubator_brpc_tpu_torch.runtime.device_butex import shutdown_watchers
 from incubator_brpc_tpu_torch.runtime.timer_thread import shutdown_global_timer_thread
 from incubator_brpc_tpu_torch.transport.device import (
@@ -25,6 +28,7 @@ from incubator_brpc_tpu_torch.utils.status import ErrorCode
 
 
 _OPEN = []  # every endpoint these tests built
+_SERVERS = []  # every port Server these tests started
 
 
 def _endpoint(*args, **kw):
@@ -35,11 +39,17 @@ def _endpoint(*args, **kw):
 
 @pytest.fixture(autouse=True)
 def no_port_thread_outlives_the_test():
-    """Close every endpoint, end the completion watchers and the timer, and
-    check that no thread of the port is left in this (xdist worker) process."""
+    """Stop every server, close every endpoint, end the host plane's
+    threads, the completion watchers and the timer, and check that no
+    thread of the port is left in this (xdist worker) process."""
     yield
+    while _SERVERS:
+        srv = _SERVERS.pop()
+        srv.stop()
+        assert srv.join(timeout=30)
     for ep in _OPEN:
         assert ep.close(timeout=60)
+    shutdown_host_plane()
     assert shutdown_watchers(timeout=60)
     shutdown_global_timer_thread()
     left = [t.name for t in threading.enumerate() if t.name.startswith("tbtorch-")]
@@ -60,17 +70,6 @@ def _run_threads(n, fn):
     for t in threads:
         t.join(timeout=120)
         assert not t.is_alive()
-
-
-class _Cntl:
-    """The part of a server Controller a handler touches."""
-
-    def __init__(self, call_id=0):
-        self.call_id = call_id
-        self.failed = None
-
-    def set_failed(self, code, text):
-        self.failed = (code, text)
 
 
 def test_power_of_two_buckets():
@@ -138,13 +137,37 @@ class TestDeviceCalls:
         assert ep.inflight == 0  # every credit returned
 
     def test_server_handler_with_stand_in_controller(self, endpoint):
+        """The handler called directly with the port's server-side
+        Controller (which took the stand-in's place): ``call_id`` in,
+        ``set_failed`` out."""
         handler = endpoint.server_handler()
-        cntl = _Cntl(call_id=42)
+        cntl = Controller(timeout_ms=0)
+        cntl.call_id = 42
         assert handler(cntl, b"rpc-over-device-memory") == b"rpc-over-device-memory"
-        assert cntl.failed is None
-        bad = _Cntl()
+        assert cntl.ok()
+        bad = Controller(timeout_ms=0)
         assert endpoint.server_handler(method_id=999)(bad, b"abcd") == b""
-        assert bad.failed[0] == ErrorCode.ENOMETHOD
+        assert bad.error_code == ErrorCode.ENOMETHOD
+        assert bad.error_text == f"device call failed ({int(ErrorCode.ENOMETHOD)})"
+
+    def test_server_handler_integration(self, endpoint):
+        """Host RPC -> device step -> response: a port Channel calls the
+        handler mounted on a port Server (tests/test_device_transport.py
+        test_server_handler_integration, on the port)."""
+        server = Server()
+        server.add_service("tensor", {
+            "echo": endpoint.server_handler(),
+            "unknown": endpoint.server_handler(method_id=999),
+        })
+        assert server.start(0)
+        _SERVERS.append(server)
+        ch = Channel()
+        assert ch.init(f"127.0.0.1:{server.port}")
+        cntl = ch.call_method("tensor", "echo", b"rpc-over-hbm", cntl=None)
+        assert cntl.ok(), cntl.error_text
+        assert cntl.response_payload == b"rpc-over-hbm"
+        cntl = ch.call_method("tensor", "unknown", b"abcd")
+        assert cntl.error_code == ErrorCode.ENOMETHOD
 
 
 class TestBatchedDispatch:
