@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the device echo
-path (K1), directly and as RPC through the port's Server and Channel, the
+path (K1), directly and as RPC through the port's Server and Channel over
+TCP and over the two-party device link (with the quantized pmean device
+method, K2, over the link), the
 FabricNet train step with ring attention (K3), its
 elementwise chain (K4) and the rest of what XLA fuses around its matrix
 products (K4e: the SGD update, the MoE's gate and combine, the loss), in
@@ -46,6 +48,26 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    16 x 8 burst gives wall time, device busy time and the idle share; and
    the host's time to pack a 32 KiB frame with and without the
    body-checksum bit (the port's CRC32C is pure Python);
+3c. drives the two-party device link (``transport="tpu"``), both parties
+   on the card, with the launch counts set to zero around each part: (a) a
+   1 KiB echo (``usercode_inline=True``), a warm call then 200 in a row
+   over the link, beside the same 200 over TCP on the same server (one
+   link, the same object across calls); (b) device RPC over the link on a
+   second server (``usercode_inline=False``): 20 sequential 256 B calls,
+   16 threads x 8 calls of the mixed table {0, 3, 5, 999} and one call of
+   2^20 words (4 MiB, 64 default slots), every answer bitwise
+   ``expected()``, K1a, K1b and K1c launched; (c) ``device_method()``
+   around the int8 quantized pmean kernel (width 4096, block 32) over the
+   link, each answer bitwise ``np_quantized_pmean`` at one party, one K2a
+   and one K2b a call; (e) ``server.stop()`` fails the client's link, and
+   with the server started again on its port the next call re-handshakes a
+   fresh link; (d) the link stream at ``bench_device_link``'s geometry
+   (1 MiB slots, window 8, 256 MiB in 1 MiB sends) in the host swap and
+   the forced device form (``host_loopback=False``, each step's slots
+   swapped on the card), in ack modes "local" and "wire": a checked run of
+   each (the delivered bytes' CRC-32 equals the sent one), then 3 runs
+   each in alternating order (GB/s), and one forced-form run under
+   torch.profiler (device busy time and idle share);
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -175,6 +197,7 @@ PyTorch sees no CUDA card or the port is not beside it.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -183,6 +206,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 
 import numpy as np
 
@@ -727,6 +751,17 @@ def sequential_us(call, n=20):
     return 1e6 * (time.perf_counter() - t0) / n
 
 
+def device_busy(prof) -> tuple:
+    """(device busy µs, [(kernel, count, µs)] largest first) of a
+    torch.profiler run; busy is 0 where the profiler saw no device time."""
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
+        e, "self_cuda_time_total", 0)
+    by_name = sorted(((e.key[:70], e.count, dev_us(e)) for e in kern), key=lambda x: -x[2])
+    return sum(t for _, _, t in by_name), by_name
+
+
 def profile_rpc_burst(torch, ch):
     """torch.profiler (device activity) over a pipelined 16 x 8 burst of
     256 B calls: wall time, device busy time and the idle share."""
@@ -738,16 +773,10 @@ def profile_rpc_burst(torch, ch):
         rpc_calls(ch, "tensor", 16, 8, 256, lambda i, j: 0, 11)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy = sum((getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0)) for e in kern)
+    busy, by_name = device_busy(prof)
     if not busy:
         log("phase3b profile of the RPC burst: the profiler saw no device time (not measured)")
         return {"wall_us": wall_us, "device_us": None, "idle_pct": None}
-    by_name = sorted(((e.key[:70], e.count, getattr(e, "self_device_time_total", None)
-                       or getattr(e, "self_cuda_time_total", 0)) for e in kern),
-                     key=lambda x: -x[2])
     idle = 100.0 - 100.0 * busy / wall_us
     log(f"phase3b profile of the pipelined 16 x 8 RPC burst (256 B): wall {wall_us:.1f} us, "
         f"device busy {busy:.1f} us, idle {idle:.2f} %; "
@@ -803,7 +832,7 @@ def device_rpc_phase(torch, kernels, svc, direct_seq_us):
     out = {}
     try:
         ch = Channel()
-        ch.init(f"127.0.0.1:{server.port}", ChannelOptions(timeout_ms=300_000))
+        ch.init(f"127.0.0.1:{server.port}", options=ChannelOptions(timeout_ms=300_000))
         echo_ep.warm(256)
         mixed_ep.warm(256)
         rpc_calls(ch, "tensor", 16, 2, 256, lambda i, j: 0, 20)  # warm-up
@@ -865,6 +894,317 @@ def device_rpc_phase(torch, kernels, svc, direct_seq_us):
         f"{out['meta_crc_us']:.1f} us, with the body-checksum bit {out['body_crc_us']:.1f} us "
         "(pure-Python CRC32C)")
     return out
+
+
+# -- phase 3c: the two-party device link (transport="tpu") ----------------------
+
+# bench.py:807 bench_device_link's stream geometry: 1 MiB slots, window 8,
+# 256 MiB in 1 MiB sends; the reference alternates 12 pairs of runs, 3 fit
+# this script's time limit
+LINK_SLOT_WORDS = 256 * 1024
+LINK_WINDOW = 8
+LINK_CHUNK = 1 << 20
+LINK_TOTAL = 256 << 20
+LINK_PAIRS = 3
+# (form, host_loopback): the default host swap and the forced device form
+LINK_FORMS = (("host swap", None), ("device", False))
+LINK_BIG_WORDS = 1 << 20  # one device RPC of 4 MiB: 64 of the default 64 KiB slots
+# the quantized pmean device method served over the link
+QUANT_WIDTH, QUANT_BLOCK, QUANT_MODE, QUANT_CALLS = 4096, 32, "int8", 8
+
+
+class StreamSink:
+    """Messenger stand-in at the end of a link stream: counts the bytes
+    delivered and, when ``hashed``, keeps a running CRC-32 of them."""
+
+    def __init__(self, hashed: bool = False):
+        self.nbytes = 0
+        self.crc = 0 if hashed else None
+
+    def process(self, sock):
+        buf = sock._read_buf
+        n = len(buf)
+        if self.crc is not None:
+            for view in buf.views():
+                self.crc = zlib.crc32(view, self.crc)
+        buf.popn(n)
+        self.nbytes += n
+
+
+def stream_chunks(size: int = LINK_CHUNK, distinct: int = 8, seed: int = 29):
+    """The sends of a link stream: ``distinct`` random chunks in turn."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size, dtype=np.uint8).tobytes() for _ in range(distinct)]
+
+
+def stream_crc(chunks, total: int) -> int:
+    """CRC-32 of the stream ``link_stream`` sends."""
+    crc = 0
+    for i in range(total // len(chunks[0])):
+        crc = zlib.crc32(chunks[i % len(chunks)], crc)
+    return crc
+
+
+def link_stream(dl, dev, host_loopback, ack_mode, chunks, total,
+                hashed=False, slot_words=LINK_SLOT_WORDS, window=LINK_WINDOW):
+    """``total`` bytes sent in turns of ``chunks`` through a fresh
+    ``DeviceLink([dev, dev])`` into a ``StreamSink``, timed from the first
+    send to the last byte delivered. Returns (GB/s, sink, link); the link is
+    failed afterwards."""
+    link = dl.DeviceLink([dev, dev], slot_words=slot_words, window=window,
+                         host_loopback=host_loopback, ack_mode=ack_mode)
+    dl.DeviceSocket(link, side=0, messenger=StreamSink())
+    sink = StreamSink(hashed)
+    dl.DeviceSocket(link, side=1, messenger=sink)
+    t0 = time.perf_counter()
+    for i in range(total // len(chunks[0])):
+        rc = link.send(0, chunks[i % len(chunks)], timeout=60)
+        if rc != 0:
+            raise AssertionError(f"link send: rc {rc}")
+    deadline = time.monotonic() + 120
+    while sink.nbytes < total and time.monotonic() < deadline:
+        time.sleep(0.0005)
+    if sink.nbytes != total:
+        raise AssertionError(f"link stream delivered {sink.nbytes} of {total} bytes")
+    rate = total / (time.perf_counter() - t0) / 1e9
+    link.fail("stream done")
+    return rate, sink, link
+
+
+def link_echo(ch_tpu, ch_tcp):
+    """Phase 3c (a): 1 KiB echo over the link (a warm call, then 200 in a
+    row), beside the same 200 calls over TCP; the link is built once and
+    stays the same object."""
+    payload = bytes(range(256)) * 4
+
+    def calls(ch, n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            cntl = ch.call_method("echo", "echo", payload)
+            if not cntl.ok() or cntl.response_payload != payload:
+                raise AssertionError(f"link echo: code {cntl.error_code} {cntl.error_text}")
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    calls(ch_tpu, 1)
+    ds = ch_tpu._device_sock
+    if ds is None or ds.link is None:
+        raise AssertionError("the handshake built no link")
+    link = ds.link
+    out = {"link_echo_us": calls(ch_tpu, 200)}
+    if ch_tpu._device_sock is not ds or ds.link is not link:
+        raise AssertionError("the channel's link changed across calls")
+    calls(ch_tcp, 1)
+    out["tcp_echo_us"] = calls(ch_tcp, 200)
+    out["link_form"] = "host swap" if link._step is None else "device"
+    out["link_devices"] = [str(d) for d in link.devices]
+    return out
+
+
+def link_device_method_expected(request: bytes) -> bytes:
+    """What the quantized pmean device method answers at one party: the
+    numpy twin's one-step pmean of the request's floats."""
+    from incubator_brpc_tpu_torch.parallel import quantized as Q
+
+    row = np.frombuffer(request, dtype=np.float32)
+    return Q.np_quantized_pmean([row], 1, QUANT_MODE, QUANT_BLOCK).tobytes()
+
+
+def device_link_phase(torch, kernels, svc):
+    """Phase 3c: transport="tpu" on the card, through the port only — (a)
+    the echo over the link beside TCP, (b) device RPC over the link, (c)
+    the quantized pmean device method over the link, (e) teardown and
+    re-handshake, (d) the link stream in both forms and both ack modes.
+    Returns (detail, the launch counts of (b), those of (c))."""
+    from incubator_brpc_tpu_torch.parallel import quantized as Q
+    from incubator_brpc_tpu_torch.rpc import (
+        Channel, ChannelOptions, Server, ServerOptions, device_method, shutdown_host_plane,
+    )
+    from incubator_brpc_tpu_torch.transport import device_link as dl
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+    from incubator_brpc_tpu_torch.transport.sock import CONNECTED
+
+    def channel(port, transport):
+        ch = Channel()
+        ch.init(f"127.0.0.1:{port}", options=ChannelOptions(transport=transport, timeout_ms=120_000))
+        return ch
+
+    out = {}
+    echo_server = Server(ServerOptions(usercode_inline=True))
+    echo_server.add_service("echo", {"echo": lambda cntl, request: request})
+    echo_ep = DeviceEndpoint(window_size=16, max_batch=16)
+    mixed_ep = DeviceEndpoint(service=svc, window_size=16, max_batch=16)
+    quant = Q.quantized_pmean_dm(QUANT_WIDTH, QUANT_MODE, QUANT_BLOCK)
+    # blocking handlers: usercode_inline stays False
+    dev_server = Server(ServerOptions())
+    dev_server.add_service("tensor", {"echo": echo_ep.server_handler()})
+    dev_server.add_service("mixed", {name: mixed_ep.server_handler(method_id=mid)
+                                     for mid, name in RPC_METHODS.items()})
+    dev_server.add_service("quant", {"pmean": device_method(quant.kernel, width=QUANT_WIDTH,
+                                                            chunkable=True)})
+    servers = [echo_server, dev_server]
+    if not (echo_server.start(0) and dev_server.start(0)):
+        raise AssertionError("the port's Servers did not start")
+    try:
+        # (a) the echo over the link, beside TCP
+        ch = channel(echo_server.port, "tpu")
+        out.update(link_echo(ch, channel(echo_server.port, "tcp")))
+        log(f"phase3c echo over the link (transport=tpu, {out['link_form']}, devices "
+            f"{out['link_devices']}), 1 KiB, 200 sequential calls: {out['link_echo_us']:.1f} us a "
+            f"call; the same calls over TCP on the same server {out['tcp_echo_us']:.1f} us a call; "
+            "one link, the same object across calls")
+
+        # (b) device RPC over the link, K1 counted
+        dch = channel(dev_server.port, "tpu")
+        echo_ep.warm(256)
+        mixed_ep.warm(256)
+        rpc_calls(dch, "tensor", 16, 1, 256, lambda i, j: 0, 30)  # warm-up (the handshake)
+        rpc_calls(dch, "mixed", 16, 1, 256, lambda i, j: 0, 30)
+        kernels.reset_launch_counts()
+        it = iter([np.random.default_rng(31).integers(0, 256, 256, dtype=np.uint8).tobytes()
+                   for _ in range(20)])
+
+        def one():
+            p = next(it)
+            cntl = dch.call_method("tensor", "echo", p)
+            if not cntl.ok() or cntl.response_payload != p:
+                raise AssertionError(f"device rpc over the link: code {cntl.error_code}")
+
+        out["link_rpc_seq_us"] = sequential_us(one, 20)
+        out["link_rpc_qps"], out["link_rpc_lat_us"] = rpc_calls(
+            dch, "mixed", 16, 8, 256,
+            lambda i, j: 999 if (i, j) == (5, 3) else (0, 3, 5)[(i + j) % 3], 32)
+        mixed_ep.warm(4 * LINK_BIG_WORDS)
+        _, out["link_rpc_big_us"] = rpc_calls(dch, "mixed", 1, 1, 4 * LINK_BIG_WORDS,
+                                             lambda i, j: 3, 33)
+        k1 = kernels.launch_counts()
+        missing = [name for name in K1 if k1[name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on device RPC over the link: {missing}")
+        if dch._device_sock is None:
+            raise AssertionError("device RPC did not ride a link")
+        log(f"phase3c device RPC over the link, 256 B: 20 sequential calls (echo table) "
+            f"{out['link_rpc_seq_us']:.1f} us a call; {{0,3,5,999}} 16 threads x 8 calls "
+            f"{out['link_rpc_qps']:.1f} calls/s, mean latency {out['link_rpc_lat_us']:.1f} us; one "
+            f"call of {LINK_BIG_WORDS} words (4 MiB, 64 slots) {out['link_rpc_big_us']:.1f} us; "
+            f"every answer bitwise expected(); launches {[k1[n] for n in K1]} ({', '.join(K1)})")
+
+        # (c) the quantized pmean device method over the link, K2 counted
+        rng = np.random.default_rng(34)
+        requests = [(rng.standard_normal(QUANT_WIDTH // 4) * 10 ** rng.uniform(-3, 3))
+                    .astype(np.float32).tobytes() for _ in range(QUANT_CALLS)]
+        cntl = dch.call_method("quant", "pmean", requests[0])  # warm-up, off the count
+        if not cntl.ok():
+            raise AssertionError(f"device method: code {cntl.error_code} {cntl.error_text}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for req in requests:
+            cntl = dch.call_method("quant", "pmean", req)
+            if not cntl.ok() or cntl.response_payload != link_device_method_expected(req):
+                raise AssertionError(f"device method over the link: code {cntl.error_code}, "
+                                     "response not the numpy twin's")
+        out["link_quant_us"] = 1e6 * (time.perf_counter() - t0) / QUANT_CALLS
+        k2 = kernels.launch_counts()
+        if [k2[n] for n in K2] != [QUANT_CALLS] * len(K2):
+            raise AssertionError(f"device method: K2 launches {[k2[n] for n in K2]}, "
+                                 f"want {QUANT_CALLS} each")
+        log(f"phase3c device_method(quantized pmean {QUANT_MODE}, width {QUANT_WIDTH}, block "
+            f"{QUANT_BLOCK}) over the link: {QUANT_CALLS} calls bitwise np_quantized_pmean at one "
+            f"party, {out['link_quant_us']:.1f} us a call; K2 launches "
+            f"{[k2[n] for n in K2]} ({', '.join(K2)}: one each a call)")
+
+        # (e) teardown: server.stop() fails the client's link; the next call
+        # re-handshakes a fresh link with the server started again on its port
+        ds, port = ch._device_sock, echo_server.port
+        echo_server.stop()
+        echo_server.join(timeout=60)
+        t0 = time.monotonic()
+        while ds.state == CONNECTED and time.monotonic() - t0 < 10:
+            time.sleep(0.005)
+        if ds.state == CONNECTED:
+            raise AssertionError("server.stop() did not fail the client's link")
+        out["teardown_ms"] = 1e3 * (time.monotonic() - t0)
+        again = Server(ServerOptions(usercode_inline=True))
+        again.add_service("echo", {"echo": lambda cntl, request: request})
+        if not again.start(port):
+            raise AssertionError(f"the echo server did not start again on port {port}")
+        servers.append(again)
+        cntl = ch.call_method("echo", "echo", b"after the teardown")
+        if not cntl.ok() or cntl.response_payload != b"after the teardown":
+            raise AssertionError(f"call after the teardown: code {cntl.error_code} {cntl.error_text}")
+        if ch._device_sock is ds or ch._device_sock.link is ds.link:
+            raise AssertionError("the call after the teardown did not re-handshake a fresh link")
+        log(f"phase3c teardown: server.stop() failed the client's link in {out['teardown_ms']:.1f} ms; "
+            "the next call (the server started again on its port) re-handshook a fresh link")
+    finally:
+        for server in servers:
+            server.stop()
+            server.join(timeout=60)
+        for ep in (echo_ep, mixed_ep):
+            if not ep.close(timeout=120):
+                raise AssertionError("an endpoint did not settle its calls")
+        shutdown_host_plane()
+
+    # (d) the link stream: both forms, both ack modes, each checked once
+    dev = torch.device("cuda", 0)
+    chunks = stream_chunks()
+    sent_crc = stream_crc(chunks, LINK_TOTAL)
+    configs = [(form, lb, mode) for form, lb in LINK_FORMS for mode in ("local", "wire")]
+    flips = []
+    orig_flip = torch.flip
+
+    def flip_spy(t, dims):
+        flips.append(t.device.type)
+        return orig_flip(t, dims)
+
+    checked = {}
+    for form, lb, mode in configs:  # warm and checked: the delivered bytes' CRC
+        torch.flip = flip_spy
+        try:
+            _, sink, link = link_stream(dl, dev, lb, mode, chunks, LINK_TOTAL, hashed=True)
+        finally:
+            torch.flip = orig_flip
+        if sink.crc != sent_crc:
+            raise AssertionError(f"link stream {form}/{mode}: delivered CRC {sink.crc:#x}, "
+                                 f"sent {sent_crc:#x}")
+        if lb is False and (link._step is None or set(flips) != {"cuda"}
+                            or len(flips) < LINK_TOTAL // (4 * LINK_SLOT_WORDS)):
+            raise AssertionError(f"the forced device form swapped {len(flips)} slot tensors on "
+                                 f"{set(flips)}, want every step on cuda")
+        if lb is None and (link._step is not None or flips):
+            raise AssertionError("the host swap went through the device")
+        checked[f"{form}/{mode}"] = f"{sink.crc:#010x}"
+        del flips[:]
+    rates = {f"{form}/{mode}": [] for form, _, mode in configs}
+    for rep in range(LINK_PAIRS):
+        for form, lb, mode in (configs if rep % 2 == 0 else configs[::-1]):
+            gc.collect()
+            rates[f"{form}/{mode}"].append(link_stream(dl, dev, lb, mode, chunks, LINK_TOTAL)[0])
+    out["link_stream_gbps"] = rates
+    out["link_stream_crc"] = checked
+    log("phase3c link stream, DeviceLink([cuda:0, cuda:0]) slot_words 256 Ki (1 MiB), window 8, "
+        f"256 MiB in 1 MiB sends, {LINK_PAIRS} runs each in alternating order, GB/s: "
+        + "; ".join(f"{k} {v}" for k, v in rates.items())
+        + f"; every form delivered the sent bytes (CRC-32 {sent_crc:#010x})")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        link_stream(dl, dev, False, "local", chunks, LINK_TOTAL)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name = device_busy(prof)
+    out["link_stream_profile"] = {"wall_us": wall_us, "device_us": busy or None,
+                                  "idle_pct": 100.0 - 100.0 * busy / wall_us if busy else None}
+    if busy:
+        log(f"phase3c profile of one forced-device-form stream (local acks): wall {wall_us:.1f} us, "
+            f"device busy {busy:.1f} us, idle {out['link_stream_profile']['idle_pct']:.2f} %; "
+            + "; ".join(f"{k} x{c} {t:.1f} us" for k, c, t in by_name[:4]))
+    else:
+        log("phase3c profile of the forced-form stream: the profiler saw no device time (not measured)")
+    shutdown_host_plane()
+    return out, k1, k2
 
 
 # -- K3 and the FabricNet train step (phases 5-8) -----------------------------
@@ -2638,6 +2978,9 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the RPC path: {missing}")
     shutdown_host_plane()
 
+    # -- phase 3c: the two-party device link, counted -------------------------
+    link, link_k1, link_k2 = device_link_phase(torch, kernels, svc)
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -2675,7 +3018,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "incubator_brpc_tpu_torch/csrc/framing.cu",
             "replaces": REPLACES[name], "launches": rpc_launches[name],
-            "endpoint_launches": launches[name],
+            "endpoint_launches": launches[name], "link_launches": link_k1[name],
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
@@ -2713,6 +3056,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "incubator_brpc_tpu_torch/csrc/quantize.cu",
             "replaces": REPLACES[name], "launches": k2["launches"][name],
+            "link_launches": link_k2[name],
             "max_abs_err": 0.0, **k2["line"][name],  # phase 9 holds K2 bitwise
             **regs(vec_kernel), "general_registers": regs(gen_kernel)["registers"],
         })
@@ -2721,6 +3065,8 @@ def main() -> int:
         with open(opts.out, "w") as f:
             json.dump({"card": card, "timings": detail, "launches": launches,
                        "rpc_launches": rpc_launches, "device_rpc": rpc,
+                       "device_link": link,
+                       "link_launches": {"rpc": link_k1, "device_method": link_k2},
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],

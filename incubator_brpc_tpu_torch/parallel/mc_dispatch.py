@@ -24,11 +24,14 @@ same counters. The chunk acks are CUDA events recorded after each chunk's
 launch (always ready on the CPU); the serialized schedule's barrier is
 their ``synchronize()``.
 
+The topology-aware scheduler (``schedule_session_order``) orders parties
+and chunks by the measured speed of this process's device links
+(``transport/device_link.py`` ``link_profile()``).
+
 Left for later slices: the RPC proposals and handlers
 (``propose_dispatch``, ``make_dispatch_handler``, ``_validate_proposal``,
-``propose_with_recovery``), the topology-aware scheduler
-(``schedule_session_order``), ``lower_parallel_call``, the rpcz spans, and
-the form with one party per ``torch.distributed`` rank.
+``propose_with_recovery``), which call the scheduler, ``lower_parallel_call``,
+the rpcz spans, and the form with one party per ``torch.distributed`` rank.
 """
 
 from __future__ import annotations
@@ -649,6 +652,84 @@ def _validate_chunk_order(chunk_order, chunks: int) -> List[int]:
             f"chunk_order {order} is not a permutation of 0..{chunks - 1}"
         )
     return order
+
+
+# -- topology-aware scheduling (TASP, PAPERS.md 2509.26541) --------------------
+#
+# The DeviceLinkMap star measures per-link rtt and bytes/s; `link_profile()`
+# (transport/device_link.py) snapshots those recorders, and the scheduler
+# orders work by MEASURED speed instead of mesh order: the slowest link's
+# party is proposed to first — it needs the longest lead before every
+# barrier (the TASP rule: schedule the scarce link before the fast ones).
+
+
+def _profile_speed(info) -> Optional[tuple]:
+    """Sort key for one party's measured link: (GB/s ascending, rtt
+    DESCENDING) — slowest first; None when the link has no telemetry
+    (no evidence of being slow: it keeps mesh order at the tail)."""
+    if not info:
+        return None
+    gbps = float(info.get("gbps", 0.0) or 0.0)
+    rtt = float(info.get("rtt_us", 0.0) or 0.0)
+    if gbps <= 0.0 and rtt <= 0.0:
+        return None
+    return (gbps, -rtt)
+
+
+def schedule_session_order(
+    party_ids: List[int], profile, chunks: int = 1
+) -> Tuple[List[int], List[int], str]:
+    """The TASP join of a link profile and a session shape: returns
+    (party_order, chunk_order, note). ``party_order`` is every party
+    index, measured links slowest-first, unmeasured parties trailing in
+    mesh order. ``chunk_order`` is a deterministic dispatch permutation
+    derived from the same measurements via a round-robin route label
+    (slice j labeled to party ``j % n``); reordering never changes bytes.
+    ``note`` is the audit string (empty with no measured link, where both
+    orders are mesh order)."""
+    n = len(party_ids)
+    profile = profile or {}
+    measured, unmeasured = [], []
+    for i, pid in enumerate(party_ids):
+        key = _profile_speed(profile.get(int(pid)))
+        if key is None:
+            unmeasured.append(i)
+        else:
+            measured.append((key, i))
+    measured.sort()
+    party_order = [i for _k, i in measured] + unmeasured
+    # rank only MEASURED parties: with an empty profile the chunk sort
+    # key is (inf, j) everywhere and the order stays mesh
+    rank = {i: pos for pos, (_k, i) in enumerate(measured)}
+    chunk_order = sorted(
+        range(int(chunks)),
+        key=lambda j: (rank.get(j % n, float("inf")), j),
+    )
+    if measured:
+        gbps = {
+            int(party_ids[i]): round(
+                float(profile[int(party_ids[i])].get("gbps", 0.0) or 0.0), 4
+            )
+            for _k, i in measured
+        }
+        note = f"link_order={party_order} profile_gbps={gbps}"
+        if chunks > 1:
+            note += f" chunk_order={chunk_order}"
+    else:
+        note = ""
+    return party_order, chunk_order, note
+
+
+def _default_link_profile():
+    """The scheduler's default telemetry source: this process's live
+    device-link star (best-effort — a process with no links schedules
+    in mesh order)."""
+    try:
+        from incubator_brpc_tpu_torch.transport.device_link import link_profile
+
+        return link_profile()
+    except Exception:  # noqa: BLE001 — scheduling is advisory, never fatal
+        return {}
 
 
 def run_dispatch_session(

@@ -12,7 +12,7 @@ package's native ``parse_iobuf`` cut needs its C++ runtime).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import KW_ONLY, dataclass
 from typing import Callable, Dict, List, Optional
 
 # Deep-peek window of the transport cut loop: frames are bounded by
@@ -23,6 +23,10 @@ MAX_HEADER_PEEK = 64 * 1024
 @dataclass
 class Protocol:
     name: str
+    # every field after the name is keyword-only: the reference's dataclass
+    # has fields (pack_request, pack_response, ...) between these, so a
+    # positional call written for it must fail here, not bind elsewhere
+    _: KW_ONLY
     # (buf) -> (parsed_or_None, consumed); raises ParseError if not this protocol
     parse: Callable
     # (first header bytes) -> total frame size, or None if more header bytes

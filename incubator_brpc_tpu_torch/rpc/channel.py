@@ -16,10 +16,13 @@ Call flow (mirrors SURVEY.md §3.1):
 
 The port's copy of the JAX package's ``rpc/channel.py``, trimmed to one
 server address over tbus_std: sync and async calls, timeouts, retries on
-``RETRIABLE``, ``start_cancel`` and deadline propagation. Load balancing
-and naming, backup requests, the retry budget, rpcz spans, the native
-plane, device links, TLS, auth, pooled and short connections and streams
-are later slices.
+``RETRIABLE``, ``start_cancel``, deadline propagation, and the two-party
+device link (``ChannelOptions(transport="tpu")``: the handshake rides the
+host socket, frames ride ``transport/device_link.py``). Load balancing and
+naming, backup requests, the retry budget, rpcz spans, the native plane,
+TLS, auth, pooled and short connections and streams are later slices;
+their options keep the reference's places and refuse a value with the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from incubator_brpc_tpu_torch.protocol.tbus_std import (
     ParsedFrame,
     pack_frame_iobuf,
 )
-from incubator_brpc_tpu_torch.rpc.controller import RETRIABLE, Controller
+from incubator_brpc_tpu_torch.rpc.controller import RETRIABLE, Controller, refuse_unported
 from incubator_brpc_tpu_torch.rpc.deadline import current_deadline
 from incubator_brpc_tpu_torch.runtime.correlation_id import EBUSY, call_id_space
 from incubator_brpc_tpu_torch.runtime.timer_thread import global_timer_thread
@@ -149,15 +152,73 @@ proto_pkg.TBUS_STD.process_response = process_response
 
 
 class ChannelOptions:
+    """Reference ChannelOptions (rpc/channel.py) with the reference's
+    parameters in the reference's order, so a positional call binds as it
+    binds there. The port serves the timeouts, retries and the device
+    link (``transport="tpu"``, ``device_index`` and ``link_*``). Every other
+    parameter keeps its place and its default; a value that asks for
+    something the port does not serve yet raises ``NotImplementedError``
+    naming the ROADMAP item that brings it, and a value the reference
+    itself refuses raises ``ValueError`` as there."""
+
     def __init__(
         self,
         timeout_ms: float = Controller.DEFAULT_TIMEOUT_MS,
         max_retry: int = Controller.DEFAULT_MAX_RETRY,
+        backup_request_ms: float = -1,
         connect_timeout: float = 5.0,
+        protocol: str = "tbus_std",
+        auth=None,
+        connection_type: str = "single",
+        transport: str = "tcp",
+        device_index: int = 0,
+        link_slot_words: int = 16384,
+        link_window: int = 8,
+        link_ack_mode: str = "local",
+        link_controller: str = "single",
+        native_plane: bool = False,
+        ssl_context=None,
+        ssl_server_hostname=None,
+        retry_policy=None,
     ):
+        if connection_type not in ("single", "pooled", "short"):
+            raise ValueError(f"unknown connection_type {connection_type!r}")
+        if transport not in ("tcp", "tpu"):
+            raise ValueError(f"unknown transport {transport!r}")
+        if transport == "tpu" and connection_type != "single":
+            raise ValueError("transport='tpu' supports connection_type='single'")
+        if link_controller not in ("single", "multi"):
+            raise ValueError(f"unknown link_controller {link_controller!r}")
+        if backup_request_ms is not None and backup_request_ms > 0:
+            refuse_unported("ChannelOptions", "backup_request_ms", backup_request_ms, "A7")
+        unported = (
+            ("protocol", protocol, "tbus_std", "A11"),
+            ("auth", auth, None, "A7"),
+            ("connection_type", connection_type, "single", "A8"),
+            ("link_controller", link_controller, "single", "A4"),
+            ("native_plane", native_plane, False, "A6"),
+            ("ssl_context", ssl_context, None, "A10"),
+            ("ssl_server_hostname", ssl_server_hostname, None, "A10"),
+            ("retry_policy", retry_policy, None, "A7"),
+        )
+        for name, value, default, item in unported:
+            if value != default:
+                refuse_unported("ChannelOptions", name, value, item)
         self.timeout_ms = timeout_ms
         self.max_retry = max_retry
         self.connect_timeout = connect_timeout
+        # "tcp" (host sockets) or "tpu" (two-party device link: handshake
+        # over the host socket, frames over the device plane — the
+        # reference's ChannelOptions.use_rdma slot, channel.h). The value's
+        # name is the reference's public switch; on this port the link's
+        # devices are CUDA cards (or the CPU, transport/device_link.py).
+        self.transport = transport
+        self.device_index = device_index
+        self.link_slot_words = link_slot_words
+        self.link_window = link_window
+        # 'local' | 'wire': how the link's credit window learns about
+        # drained steps (wire = the multi-controller piggybacked-ack flow)
+        self.link_ack_mode = link_ack_mode
 
 
 class Channel:
@@ -168,11 +229,21 @@ class Channel:
         self._options = ChannelOptions()
         self._server: Optional[EndPoint] = None
         self._socket_map = _client_socket_map
+        # transport="tpu": the last-used link (the links themselves live in
+        # the process-wide DeviceLinkMap)
+        self._device_sock = None
 
     def init(
-        self, target: Union[str, EndPoint], options: Optional[ChannelOptions] = None
+        self,
+        target: Union[str, EndPoint],
+        lb_name: str = "",
+        options: Optional[ChannelOptions] = None,
     ) -> bool:
-        """``target`` is "ip:port" / "host:port" or an EndPoint."""
+        """``target`` is "ip:port" / "host:port" or an EndPoint. A load
+        balancer (a non-empty ``lb_name`` over a naming url) is ROADMAP A8
+        and refused until then."""
+        if lb_name:
+            refuse_unported("Channel.init", "lb_name", lb_name, "A8")
         if options is not None:
             self._options = options
         self._server = target if isinstance(target, EndPoint) else str2endpoint(str(target))
@@ -321,7 +392,39 @@ class Channel:
 
     # -- issue / return paths (run under the call-id lock) -------------------
 
-    def _pick_socket(self):
+    def _call_host(self, service, method, request, cntl=None):
+        """A call forced onto the HOST (TCP) path even when this channel's
+        transport is 'tpu' — the handshake itself must ride the bootstrap
+        socket (the reference's deferred-handshake-over-TCP,
+        socket.cpp:1692-1704)."""
+        if cntl is None:
+            cntl = Controller()
+        cntl._force_host = True
+        return self.call_method(service, method, request, cntl=cntl)
+
+    def _get_device_socket(self, cntl: Controller):
+        """transport='tpu': the established DeviceSocket for the server,
+        from the process-wide DeviceLinkMap (re-handshaking a dead link).
+        Links are shared across channels — the SocketMap dedupe semantics
+        on the device plane."""
+        from incubator_brpc_tpu_torch.transport.device_link import device_link_map
+
+        ds = device_link_map.get_or_create(
+            self._server,
+            device_index=self._options.device_index,
+            slot_words=self._options.link_slot_words,
+            window=self._options.link_window,
+            timeout_ms=cntl.timeout_ms or 60000,
+            ack_mode=self._options.link_ack_mode,
+        )
+        self._device_sock = ds  # last-used link (introspection/tests)
+        return ds
+
+    def _pick_socket(self, cntl: Controller):
+        if self._options.transport == "tpu" and not cntl._force_host:
+            # a DeviceSocket answers try_read_ownership() False: the sync
+            # caller joins the call id instead of polling a socket
+            return self._get_device_socket(cntl)
         sock = self._socket_map.get_or_create(
             self._server, timeout=self._options.connect_timeout
         )
@@ -337,7 +440,7 @@ class Channel:
         with the call id locked."""
         cid = cntl.call_id
         try:
-            sock = self._pick_socket()
+            sock = self._pick_socket(cntl)
         except (OSError, ConnectionError) as e:
             # connection failed: arbitrate like a socket failure
             self._arbitrate_error(cntl, ErrorCode.EFAILEDSOCKET, str(e))

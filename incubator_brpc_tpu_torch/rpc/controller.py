@@ -13,7 +13,10 @@ One Controller accompanies one RPC on either side:
 
 The port's copy of the JAX package's ``rpc/controller.py`` without the
 backup-request, tracing, streaming, session-data and connection-type
-state of the parts not yet ported.
+state of the parts not yet ported. The constructor keeps the reference's
+parameters in their places (``backup_request_ms`` before ``log_id``); a
+value the port does not serve yet is refused by :func:`refuse_unported`
+with the ROADMAP item that brings it, never bound to another parameter.
 """
 
 from __future__ import annotations
@@ -27,6 +30,15 @@ from incubator_brpc_tpu_torch.utils.endpoint import EndPoint
 from incubator_brpc_tpu_torch.utils.status import ErrorCode, berror
 
 
+def refuse_unported(owner: str, name: str, value, item: str) -> None:
+    """Raise ``NotImplementedError`` for a reference parameter set to a
+    value the port does not serve yet; the message names the ROADMAP item
+    that brings it."""
+    raise NotImplementedError(
+        f"{owner}({name}={value!r}) is not in the port yet (ROADMAP {item})"
+    )
+
+
 class Controller:
     # defaults mirror ChannelOptions (reference channel.h: timeout 500 ms,
     # max_retry 3)
@@ -37,8 +49,11 @@ class Controller:
         self,
         timeout_ms: Optional[float] = None,
         max_retry: Optional[int] = None,
+        backup_request_ms: float = -1,
         log_id: int = 0,
     ):
+        if backup_request_ms is not None and backup_request_ms > 0:
+            refuse_unported("Controller", "backup_request_ms", backup_request_ms, "A7")
         # -- options (client) --
         self.timeout_ms = (
             self.DEFAULT_TIMEOUT_MS if timeout_ms is None else timeout_ms
@@ -80,6 +95,9 @@ class Controller:
         # almost no GIL-held work after the send syscall
         self._want_poll = False
         self._poll_owned = None
+        # forces this call onto the host (TCP) socket even on a
+        # transport='tpu' channel (the device-link handshake itself)
+        self._force_host = False
 
     # -- status surface (reference Controller::Failed/ErrorCode/ErrorText) --
 

@@ -10,8 +10,9 @@ single-controller state, every party's row on dim 0, and the party axis
 
 where the JAX package's kernel sees one party's row and names the axis
 ``"par"``. The kernel is called as it is (PyTorch runs eagerly, so there is
-no ``jitted()``). ``device_method()``, which wraps a kernel into a host RPC
-handler, comes with the port's host plane.
+no ``jitted()``). ``device_method()`` wraps a kernel into a host RPC
+handler: a point-to-point call is a session of one party on the serving
+Server's device.
 
 Registering a device method is an explicit contract: the kernel sees only
 request bytes, so it must be pure.
@@ -183,3 +184,41 @@ def registry_fingerprints() -> Dict[str, str]:
     with _registry_lock:
         items = list(_registry.items())
     return {f"{s}.{m}": dm.fingerprint() for (s, m), dm in items}
+
+
+def device_method(
+    kernel: Callable,
+    width: int = DEFAULT_WIDTH,
+    chunkable: bool = False,
+) -> Callable:
+    """Wrap a device kernel into a host RPC handler.
+
+    The handler packs the request into one zero-padded row of ``width``
+    bytes, puts it on the serving Server's device (``Server.device()``;
+    the card when the handler is called outside a Server) as a
+    ``[1, width]`` tensor with ``n`` as ``[1]``, calls the kernel with the
+    party axis of one party, and answers row 0's first ``n`` bytes — the
+    same kernel the session plane runs, so a point-to-point call and a
+    session of one party return identical bytes. ``chunkable`` declares
+    chunk-safety for overlap sessions (see :class:`DeviceMethod`).
+    Registering the handler on a Server publishes ``_device_method``.
+    """
+    import torch
+
+    from incubator_brpc_tpu_torch.parallel.mesh import PartyAxis
+    from incubator_brpc_tpu_torch.utils.device import resolve_device
+
+    dm = DeviceMethod(kernel, width=width, chunkable=chunkable)
+
+    def handler(cntl, request: bytes) -> bytes:
+        server = getattr(cntl, "_server", None)
+        dev = server.device() if server is not None else resolve_device(None)
+        row, n = dm.pack(request)
+        data = torch.from_numpy(row).reshape(1, dm.width).to(dev)
+        ns = torch.tensor([int(n)], dtype=torch.int32, device=dev)
+        out_rows, out_n = dm.kernel(data, ns, PartyAxis(1, dev))
+        out_n = int(out_n.reshape(-1)[0].item())
+        return dm.unpack(out_rows[0, :out_n].cpu().numpy(), out_n)
+
+    handler._device_method = dm
+    return handler

@@ -26,7 +26,9 @@ acceptor, trimmed: the method map is a plain dict keyed by full name
 unlimited concurrency, and the native plane, TLS, the concurrency
 limiters, auth, the fault injector, rpcz, request dumps, streams, the
 HTTP gateway, lame-duck draining, session and thread-local data, and the
-device-link handshake and collective services are later slices.
+collective services are later slices. The device-link handshake
+(``_tpu_transport.handshake``, ``transport/device_link.py``) is registered
+at ``start``; ``stop`` closes every link the server accepted.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import logging
 import threading
 import time
 from typing import Callable, Dict, Optional, Union
+
+import torch
 
 from incubator_brpc_tpu_torch import protocol as proto_pkg
 from incubator_brpc_tpu_torch.bvar import Adder, LatencyRecorder
@@ -45,12 +49,13 @@ from incubator_brpc_tpu_torch.protocol.tbus_std import (
     ParsedFrame,
     pack_frame_iobuf,
 )
-from incubator_brpc_tpu_torch.rpc.controller import Controller
+from incubator_brpc_tpu_torch.rpc.controller import Controller, refuse_unported
 from incubator_brpc_tpu_torch.rpc.deadline import pop_deadline, push_deadline
 from incubator_brpc_tpu_torch.runtime.timer_thread import global_timer_thread
 from incubator_brpc_tpu_torch.runtime.worker_pool import global_worker_pool
 from incubator_brpc_tpu_torch.transport.acceptor import Acceptor
 from incubator_brpc_tpu_torch.transport.messenger import InputMessenger
+from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint, str2endpoint
 from incubator_brpc_tpu_torch.utils.flags import get_flag
 from incubator_brpc_tpu_torch.utils.status import ErrorCode, berror
@@ -96,15 +101,88 @@ class MethodProperty:
 
 
 class ServerOptions:
-    """The part of reference ServerOptions (server.h:55-239) that applies to
-    the port's Python acceptor."""
+    """Reference ServerOptions (server.h:55-239) with the reference's
+    parameters in the reference's order, so a positional call binds as it
+    binds there. The port serves ``usercode_inline`` and ``device_index``;
+    ``has_builtin_services`` is accepted either way and is inert until
+    ROADMAP A12 brings the builtin services. Every other parameter keeps
+    its place and its default, and a value that asks for something the
+    port does not serve yet raises ``NotImplementedError`` naming the
+    ROADMAP item that brings it.
 
-    def __init__(self, usercode_inline: bool = False):
+    ``device`` (keyword-only, after the reference's parameters) is the
+    device the server's links and device methods use: ``None`` means the
+    card (``cuda``, ``device_index`` picking among several), ``"cpu"`` runs
+    them on the CPU when the caller asks for it."""
+
+    def __init__(
+        self,
+        max_concurrency: Union[int, str] = 0,
+        method_max_concurrency: Union[int, str] = 0,
+        idle_timeout_s: float = -1,
+        has_builtin_services: bool = True,
+        auth=None,
+        usercode_inline: bool = False,
+        device_index: Optional[int] = None,
+        nshead_service=None,
+        thrift_service=None,
+        mongo_service_adaptor=None,
+        rtmp_service=None,
+        ssl_context=None,
+        native_plane: bool = False,
+        native_loops: Optional[int] = None,
+        num_reactors: Optional[int] = None,
+        native_dispatch_workers: int = 0,
+        session_local_data_factory=None,
+        reserved_session_local_data: int = 0,
+        thread_local_data_factory=None,
+        reserved_thread_local_data: int = 0,
+        enable_collective_service: Optional[bool] = None,
+        collective_max_concurrency: int = 1,
+        fault_injector=None,
+        *,
+        device: DeviceLike = None,
+    ):
+        unported = (
+            ("max_concurrency", max_concurrency, 0, "A7"),
+            ("method_max_concurrency", method_max_concurrency, 0, "A7"),
+            ("auth", auth, None, "A7"),
+            ("nshead_service", nshead_service, None, "A11"),
+            ("thrift_service", thrift_service, None, "A11"),
+            ("mongo_service_adaptor", mongo_service_adaptor, None, "A11"),
+            ("rtmp_service", rtmp_service, None, "A11"),
+            ("ssl_context", ssl_context, None, "A10"),
+            ("native_plane", native_plane, False, "A6"),
+            ("native_loops", native_loops, None, "A6"),
+            ("num_reactors", num_reactors, None, "A6"),
+            ("native_dispatch_workers", native_dispatch_workers, 0, "A6"),
+            ("session_local_data_factory", session_local_data_factory, None, "A7"),
+            ("reserved_session_local_data", reserved_session_local_data, 0, "A7"),
+            ("thread_local_data_factory", thread_local_data_factory, None, "A7"),
+            ("reserved_thread_local_data", reserved_thread_local_data, 0, "A7"),
+            ("collective_max_concurrency", collective_max_concurrency, 1, "A4"),
+            ("fault_injector", fault_injector, None, "A7"),
+        )
+        for name, value, default, item in unported:
+            if value != default:
+                refuse_unported("ServerOptions", name, value, item)
+        if idle_timeout_s is not None and idle_timeout_s > 0:
+            refuse_unported("ServerOptions", "idle_timeout_s", idle_timeout_s, "A7")
+        if enable_collective_service:
+            refuse_unported(
+                "ServerOptions", "enable_collective_service", enable_collective_service, "A4"
+            )
+        # inert until ROADMAP A12 (the port has no builtin services yet)
+        self.has_builtin_services = has_builtin_services
         # Run request processing (cut + handler) inline on the reactor
         # thread instead of a pool fiber — removes two thread handoffs per
         # request. ONLY for services whose handlers never block: a blocking
         # handler stalls every connection hashed to the same dispatcher.
         self.usercode_inline = usercode_inline
+        # device this server binds for transport='tpu' links (None = pick a
+        # neighbor of the client's device; the reference's use_rdma slot)
+        self.device_index = device_index
+        self.device = device
 
 
 class Server:
@@ -121,6 +199,19 @@ class Server:
         self.nrequest = Adder(name=None)
         self.nerror = Adder(name=None)
         self.listen_endpoint: Optional[EndPoint] = None
+        # full name -> DeviceMethod: what the link handshake advertises
+        self._device_methods: Dict[str, object] = {}
+        # server halves of the transport='tpu' links this server accepted
+        self._device_socks: list = []
+
+    def device(self) -> torch.device:
+        """The device this server's links and device methods use:
+        ``options.device`` (the card unless ``"cpu"``), with
+        ``options.device_index`` picking the card among several."""
+        dev = resolve_device(self.options.device)
+        if dev.type == "cuda" and self.options.device_index is not None:
+            dev = torch.device("cuda", int(self.options.device_index))
+        return dev
 
     # -- registration --------------------------------------------------------
 
@@ -135,6 +226,17 @@ class Server:
         for method, handler in handlers.items():
             full = f"{name}.{method}"
             self._methods[full] = MethodProperty(handler, MethodStatus(full))
+            dm = getattr(handler, "_device_method", None)
+            if dm is not None:
+                # device-kernel methods publish to the registry the session
+                # plane resolves, and to this server's table, which the link
+                # handshake advertises as fingerprints
+                from incubator_brpc_tpu_torch.rpc.device_method import (
+                    register_device_method,
+                )
+
+                register_device_method(name, method, dm)
+                self._device_methods[full] = dm
 
     def method_status(self, service: str, method: str) -> Optional[MethodStatus]:
         prop = self._methods.get(f"{service}.{method}")
@@ -148,6 +250,18 @@ class Server:
         or an EndPoint."""
         if self._started:
             return False
+        # the transport='tpu' bootstrap: every server answers the device
+        # handshake on its host port (the reference's Socket accepts the
+        # RDMA magic on any connection when rdma is compiled in)
+        from incubator_brpc_tpu_torch.transport.device_link import (
+            HANDSHAKE_METHOD,
+            HANDSHAKE_SERVICE,
+            make_handshake_handler,
+        )
+
+        hs = f"{HANDSHAKE_SERVICE}.{HANDSHAKE_METHOD}"
+        if hs not in self._methods:
+            self._methods[hs] = MethodProperty(make_handshake_handler(self), MethodStatus(hs))
         if isinstance(listen, int):
             ep = EndPoint(ip="127.0.0.1", port=listen)
         elif isinstance(listen, str):
@@ -174,6 +288,12 @@ class Server:
         self._stopping = True
         if self._acceptor is not None:
             self._acceptor.stop()
+        for ds in list(self._device_socks):
+            try:
+                ds.set_failed(ErrorCode.ECLOSE, "server stopped")
+            except Exception:
+                logger.exception("device link teardown raised")
+        self._device_socks.clear()
 
     def join(self, timeout: Optional[float] = None) -> bool:
         """Wait until every in-flight request finished."""

@@ -30,6 +30,7 @@ class Acceptor:
     def __init__(
         self,
         endpoint: EndPoint,
+        *,
         messenger=None,
         conn_context: Optional[dict] = None,
         backlog: int = 128,

@@ -118,6 +118,7 @@ class Socket:
     def __init__(
         self,
         conn: _pysocket.socket,
+        *,
         remote: Optional[EndPoint],
         messenger=None,
         is_client: bool = False,
@@ -199,7 +200,7 @@ class Socket:
         never the reactor)."""
         ep = str2endpoint(remote) if isinstance(remote, str) else remote
         conn = _dial(ep, timeout)
-        return cls(conn, ep, messenger=messenger, is_client=True, **kwargs)
+        return cls(conn, remote=ep, messenger=messenger, is_client=True, **kwargs)
 
     @classmethod
     def from_accepted(
@@ -210,7 +211,7 @@ class Socket:
         except OSError:
             pass
         remote = EndPoint(ip=peer[0], port=peer[1]) if peer else None
-        return cls(conn, remote, messenger=messenger, is_client=False, **kwargs)
+        return cls(conn, remote=remote, messenger=messenger, is_client=False, **kwargs)
 
     # -- write path ---------------------------------------------------------
 
@@ -600,10 +601,13 @@ class Socket:
         short connect probe occupies a fiber."""
         # self-terminating probe chain: _health_probe re-arms only while
         # state == FAILED and exits on revive/recycle
-        global_timer_thread().schedule(
-            lambda: self._pool.spawn(self._health_probe),
-            delay=self.health_check_interval,
-        )
+        global_timer_thread().schedule(self._spawn_health_probe, delay=self.health_check_interval)
+
+    def _spawn_health_probe(self) -> None:
+        # a recycled socket probes no more: its pool may be stopped by now
+        # (rpc.shutdown_host_plane recycles every client socket first)
+        if self.state == FAILED:
+            self._pool.spawn(self._health_probe)
 
     def connect_if_not(self, timeout: float = 1.0) -> bool:
         """Inline bounded reconnect of a FAILED client socket — the write

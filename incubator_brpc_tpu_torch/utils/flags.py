@@ -191,3 +191,17 @@ define_flag(
     "0 = off (the session deadline is the only backstop)",
     lambda v: v >= 0,
 )
+
+# --- device-link re-handshake backoff (transport/device_link.py) -----------
+define_flag(
+    "device_link_backoff_initial_ms",
+    100,
+    "first re-handshake backoff after a device link dies",
+    lambda v: v > 0,
+)
+define_flag(
+    "device_link_backoff_max_ms",
+    30000,
+    "ceiling of the exponentially doubling re-handshake backoff",
+    lambda v: v > 0,
+)

@@ -23,7 +23,10 @@ within ``MSE_TOL``) with the sliced schedules on the card against the CPU. Marke
 where PyTorch sees no CUDA card.
 
 The endpoint is also driven as device RPC through the port's Server and
-Channel. This file imports no JAX, so on a card machine without JAX it runs with
+Channel, over TCP and over the two-party device link (``transport="tpu"``),
+whose forced device form streams through the card in both ack modes; and
+``device_method()`` around the quantized pmean kernel answers the numpy
+twin's bytes on the card. This file imports no JAX, so on a card machine without JAX it runs with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -178,6 +181,83 @@ def test_device_rpc_through_the_port_server_on_the_card(cuda):
         server.stop()
         assert server.join(timeout=60)
         assert echo_ep.close() and mixed_ep.close()
+        shutdown_host_plane()
+
+
+@pytest.mark.parametrize("ack_mode", ["local", "wire"])
+def test_forced_device_link_form_on_the_card(cuda, ack_mode):
+    """DeviceLink([cuda, cuda], host_loopback=False): every step's slots go
+    through the card, and the delivered stream is the sent one."""
+    from incubator_brpc_tpu_torch.transport import device_link as dl
+
+    dev = torch.device("cuda", 0)
+    chunks = chip_smoke.stream_chunks(size=256 << 10, distinct=3)
+    total = 16 << 20
+    _, sink, link = chip_smoke.link_stream(dl, dev, False, ack_mode, chunks, total, hashed=True,
+                                           slot_words=16384, window=4)
+    assert link._step is not None and str(dev) in link._streams
+    assert sink.nbytes == total and sink.crc == chip_smoke.stream_crc(chunks, total)
+
+
+def test_device_method_quantized_pmean_on_the_card(cuda):
+    """device_method() around the int8 quantized pmean kernel, called on a
+    Server's card: each answer is the numpy twin's, K2a and K2b once a call."""
+    from incubator_brpc_tpu_torch.rpc import Server, device_method
+
+    quant = Q.quantized_pmean_dm(chip_smoke.QUANT_WIDTH, chip_smoke.QUANT_MODE,
+                                 chip_smoke.QUANT_BLOCK)
+    handler = device_method(quant.kernel, width=chip_smoke.QUANT_WIDTH, chunkable=True)
+
+    class Cntl:
+        _server = Server()
+
+    rng = np.random.default_rng(35)
+    reqs = [rng.standard_normal(chip_smoke.QUANT_WIDTH // 4).astype(np.float32).tobytes()
+            for _ in range(3)]
+    handler(Cntl, reqs[0])
+    kernels.reset_launch_counts()
+    for req in reqs:
+        assert handler(Cntl, req) == chip_smoke.link_device_method_expected(req)
+    counts = kernels.launch_counts()
+    assert [counts[n] for n in chip_smoke.K2] == [len(reqs)] * 2
+
+
+def test_device_rpc_over_the_link_on_the_card(cuda):
+    """server_handler() on the port's Server, called through
+    Channel(transport="tpu"): the link takes the host swap on one card, every
+    answer and code is the endpoint's, and K1 launched."""
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, shutdown_host_plane
+
+    svc = TensorEchoService()
+    svc.add_method(3, lambda p: kernels.bits32(kernels.u64(p) * 2))
+    echo_ep = DeviceEndpoint(window_size=16)
+    ep = DeviceEndpoint(service=svc, window_size=16)
+    server = Server()
+    server.add_service("tensor", {"echo": echo_ep.server_handler(),
+                                  "x2": ep.server_handler(method_id=3),
+                                  "unknown": ep.server_handler(method_id=999)})
+    assert server.start(0)
+    try:
+        ch = Channel()
+        ch.init(f"127.0.0.1:{server.port}",
+                options=ChannelOptions(transport="tpu", timeout_ms=120_000))
+        words = np.arange(70000, dtype=np.uint32) + np.uint32(0xFFFFFF00)  # spans 5 slots
+        kernels.reset_launch_counts()
+        cntl = ch.call_method("tensor", "echo", words.tobytes())
+        assert cntl.ok() and cntl.response_payload == words.tobytes()
+        cntl = ch.call_method("tensor", "x2", words.tobytes())
+        want = ((words.astype(np.uint64) * 2) & 0xFFFFFFFF).astype(np.uint32)
+        assert cntl.ok() and cntl.response_payload == want.tobytes()
+        cntl = ch.call_method("tensor", "unknown", b"abcd")
+        assert cntl.error_code == 1002 and cntl.response_payload == b""
+        link = ch._device_sock.link
+        assert link._step is None and link.devices == [torch.device("cuda", 0)] * 2
+        counts = kernels.launch_counts()
+        assert all(counts[name] > 0 for name in K1), counts
+    finally:
+        server.stop()
+        assert server.join(timeout=60)
+        assert echo_ep.close() and ep.close()
         shutdown_host_plane()
 
 
