@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the device echo
 path (K1), directly and as RPC through the port's Server and Channel over
 TCP and over the two-party device link (with the quantized pmean device
-method, K2, over the link), the
+method, K2, over the link) and fanned out by the combo channels over load
+balancers and naming, the
 FabricNet train step with ring attention (K3), its
 elementwise chain (K4) and the rest of what XLA fuses around its matrix
 products (K4e: the SGD update, the MoE's gate and combine, the loss), in
@@ -68,6 +69,23 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    each (the delivered bytes' CRC-32 equals the sent one), then 3 runs
    each in alternating order (GB/s), and one forced-form run under
    torch.profiler (device busy time and idle share);
+3d. drives the combo channels and load balancers over device links, five
+   servers on the card (each the echo table and methods {0, 3, 5} through
+   ``DeviceEndpoint.server_handler()``, the quantized pmean device method
+   and a counted echo), with the launch counts set to zero around each
+   part: (a) a ParallelChannel over 4 servers, ``transport="tpu"`` and TCP:
+   20 sequential fan-outs of 256 B (µs a fan-out), 16 threads x 8
+   fan-outs (fan-outs/s), every merged answer the four ``expected()`` in
+   channel order, torch.profiler over a burst (idle share), K1a and K1c
+   launched; (b) a PartitionChannel from ``list://`` with ``i/4`` tags over
+   the quantized pmean device method: four copies of the numpy twin's
+   bytes a fan-out, exactly four K2a and four K2b launches a fan-out; (c)
+   ``Channel.init("list://a,b,c", lb, transport="tpu")``: ``rr`` gives 20
+   of 60 calls to each server, ``la`` the fewest to the server slowed by a
+   fixed sleep; (e) a DynamicPartitionChannel with a 3- and a 2-partition
+   scheme: both serve, bitwise; (d) a SelectiveChannel over 3 servers, one
+   stopped mid-run: every call answered. All sub-links share the card, so
+   each takes the host swap and the fused lowering does not arise;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -1205,6 +1223,334 @@ def device_link_phase(torch, kernels, svc):
         log("phase3c profile of the forced-form stream: the profiler saw no device time (not measured)")
     shutdown_host_plane()
     return out, k1, k2
+
+
+# -- phase 3d: the combo channels and load balancers ---------------------------
+
+COMBO_PARTS = 4  # ParallelChannel and PartitionChannel width (the JAX tests' 4 partitions)
+COMBO_QUANT_CALLS = 4
+LB_CALLS = 60
+LA_SLOW_S = 0.010  # the fixed sleep of the slowed server's handler in (c)
+SELECTIVE_CALLS, SELECTIVE_STOP_AT = 30, 10
+DPC_CALLS = 40
+COMBO_METHODS = {0: "echo", 3: "x2", 5: "plus10"}
+
+
+class ComboServer:
+    """One port Server on the card for phase 3d: "tensor.echo" through an
+    echo-table endpoint (K1a + K1c), "mixed" {0, 3, 5} through a method
+    table endpoint, "quant.pmean" (the int8 quantized pmean device
+    method), and "lb.echo": the echo table counted, slowed by
+    ``LA_SLOW_S`` while ``slow`` is set."""
+
+    def __init__(self, index, svc, quant):
+        from incubator_brpc_tpu_torch.rpc import Server, device_method
+        from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+
+        self.index, self.calls, self.closed, self.slow = index, 0, False, False
+        self.echo_ep = DeviceEndpoint(window_size=16, max_batch=16)
+        self.mixed_ep = DeviceEndpoint(service=svc, window_size=16, max_batch=16)
+        echo = self.echo_ep.server_handler()
+
+        def lb_echo(cntl, request):
+            self.calls += 1
+            if self.slow:
+                time.sleep(LA_SLOW_S)
+            return echo(cntl, request)
+
+        self.server = Server()
+        self.server.add_service("tensor", {"echo": echo})
+        self.server.add_service("mixed", {name: self.mixed_ep.server_handler(method_id=mid)
+                                          for mid, name in COMBO_METHODS.items()})
+        self.server.add_service("quant", {"pmean": device_method(quant.kernel, width=QUANT_WIDTH,
+                                                                 chunkable=True)})
+        self.server.add_service("lb", {"echo": lb_echo})
+        if not self.server.start(0):
+            raise AssertionError("a phase 3d Server did not start")
+        self.echo_ep.warm(256)
+        self.mixed_ep.warm(256)
+
+    @property
+    def port(self):
+        return self.server.port
+
+    def close(self):
+        if self.closed:
+            return
+        self.closed = True
+        self.server.stop()
+        self.server.join(timeout=60)
+        for ep in (self.echo_ep, self.mixed_ep):
+            if not ep.close(timeout=120):
+                raise AssertionError("a phase 3d endpoint did not settle its calls")
+
+
+def fanout_calls(pc, service, n_threads, per_thread, parts, mid_of, rng_seed):
+    """n_threads x per_thread fan-outs of ``service`` (256 B) through
+    ``pc``; each merged answer must be ``parts`` copies of expected() in
+    channel order. Returns (fan-outs/s, mean latency in µs)."""
+    from incubator_brpc_tpu_torch.rpc import Controller
+
+    rng = np.random.default_rng(rng_seed)
+    payloads = [[rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+                 for _ in range(per_thread)] for _ in range(n_threads)]
+    lat = []
+    lock = threading.Lock()
+
+    def caller(i):
+        for j in range(per_thread):
+            mid = mid_of(i, j)
+            p = payloads[i][j]
+            t0 = time.perf_counter()
+            cntl = pc.call_method(service, COMBO_METHODS[mid], p, cntl=Controller(timeout_ms=300_000))
+            dt = time.perf_counter() - t0
+            want = expected(np.frombuffer(p, np.uint32), mid).tobytes() * parts
+            if not cntl.ok() or cntl.response_payload != want:
+                raise AssertionError(f"fan-out ({i},{j}) {service}.{COMBO_METHODS[mid]}: code "
+                                     f"{cntl.error_code} {cntl.error_text}, merged answer "
+                                     f"{'right' if cntl.response_payload == want else 'wrong'}")
+            with lock:
+                lat.append(dt)
+
+    t0 = time.perf_counter()
+    call_threads(n_threads, caller)
+    wall = time.perf_counter() - t0
+    return len(lat) / wall, 1e6 * sum(lat) / len(lat)
+
+
+def profile_fanout_burst(torch, pc):
+    """torch.profiler over a 16 x 8 burst of fan-outs (256 B echo): wall
+    time, device busy time and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fanout_calls(pc, "tensor", 16, 8, COMBO_PARTS, lambda i, j: 0, 40)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name = device_busy(prof)
+    if not busy:
+        log("phase3d profile of the fan-out burst: the profiler saw no device time (not measured)")
+        return {"wall_us": wall_us, "device_us": None, "idle_pct": None}
+    idle = 100.0 - 100.0 * busy / wall_us
+    log(f"phase3d profile of the 16 x 8 fan-out burst over the links (4 sub-calls each, 256 B): "
+        f"wall {wall_us:.1f} us, device busy {busy:.1f} us, idle {idle:.3f} %; "
+        + "; ".join(f"{k} x{c} {t:.1f} us" for k, c, t in by_name[:6]))
+    return {"wall_us": wall_us, "device_us": busy, "idle_pct": idle}
+
+
+def k1_launched(kernels, part):
+    """Read the launch counts after a part of phase 3d; K1a and K1c must have run."""
+    counts = kernels.launch_counts()
+    missing = [name for name in ("frame_rows", "echo_step_rows") if counts[name] == 0]
+    if missing:
+        raise AssertionError(f"phase3d {part}: kernels not launched: {missing}")
+    return {name: counts[name] for name in K1}
+
+
+def combo_phase(torch, kernels, svc):
+    """Phase 3d: the combo channels and load balancers over device links on
+    the card, servers on cuda:0 (every sub-link shares the card, so each
+    takes the host swap and the fused lowering does not arise): (a) a
+    ParallelChannel over 4 servers, transport="tpu" and TCP; (b) a
+    PartitionChannel from list:// with i/4 tags over the quantized pmean
+    device method; (c) an LB channel over 3 servers, rr and la; (e) a
+    DynamicPartitionChannel with a 3- and a 2-partition scheme; (d) a
+    SelectiveChannel over 3 servers, one stopped mid-run. The launch
+    counts are set to zero before each part and read after it. Returns
+    (detail, {part: launch counts})."""
+    from incubator_brpc_tpu_torch.parallel import quantized as Q
+    from incubator_brpc_tpu_torch.rpc import (
+        Channel, ChannelOptions, Controller, DynamicPartitionChannel, ParallelChannel,
+        PartitionChannel, SelectiveChannel, shutdown_host_plane,
+    )
+    from incubator_brpc_tpu_torch.rpc import combo
+
+    tpu = dict(transport="tpu", timeout_ms=300_000)
+    quant = Q.quantized_pmean_dm(QUANT_WIDTH, QUANT_MODE, QUANT_BLOCK)
+    servers = [ComboServer(i, svc, quant) for i in range(5)]
+    out, launches = {}, {}
+    closers = []
+    try:
+        # (a) ParallelChannel over 4 servers, over the links and over TCP
+        def parallel(transport):
+            pc = ParallelChannel()
+            for s in servers[:COMBO_PARTS]:
+                ch = Channel()
+                ch.init(f"127.0.0.1:{s.port}", options=ChannelOptions(
+                    **(tpu if transport == "tpu" else {"timeout_ms": 300_000})))
+                pc.add_channel(ch)
+            return pc
+
+        pcs = {t: parallel(t) for t in ("tpu", "tcp")}
+        for pc in pcs.values():  # warm-up (the handshakes), off the count
+            fanout_calls(pc, "tensor", 4, 1, COMBO_PARTS, lambda i, j: 0, 41)
+            fanout_calls(pc, "mixed", 4, 1, COMBO_PARTS, lambda i, j: 0, 41)
+        kernels.reset_launch_counts()
+        fan0 = combo.host_fanouts.get_value()
+        for t, pc in pcs.items():
+            rng = np.random.default_rng(42)
+            it = iter([rng.integers(0, 256, 256, dtype=np.uint8).tobytes() for _ in range(20)])
+
+            def one():
+                p = next(it)
+                cntl = pc.call_method("tensor", "echo", p, cntl=Controller(timeout_ms=300_000))
+                if not cntl.ok() or cntl.response_payload != p * COMBO_PARTS:
+                    raise AssertionError(f"phase3d (a) {t} fan-out: code {cntl.error_code}")
+
+            out[f"fanout_seq_us_{t}"] = sequential_us(one, 20)
+            out[f"fanout_qps_{t}"], out[f"fanout_lat_us_{t}"] = fanout_calls(
+                pc, "mixed", 16, 8, COMBO_PARTS, lambda i, j: (0, 3, 5)[(i + j) % 3], 43)
+        out["fanout_profile"] = profile_fanout_burst(torch, pcs["tpu"])
+        launches["a"] = k1_launched(kernels, "(a)")
+        fanouts = combo.host_fanouts.get_value() - fan0
+        if fanouts != 2 * (20 + 16 * 8) + 16 * 8:
+            raise AssertionError(f"phase3d (a): {fanouts} host fan-outs counted")
+        links = [sub[0]._device_sock.link for sub in pcs["tpu"]._subs]
+        if len({id(lk) for lk in links}) != COMBO_PARTS or any(lk._step is not None for lk in links):
+            raise AssertionError("phase3d (a): want one host-swap link a sub-channel")
+        log(f"phase3d (a) ParallelChannel over {COMBO_PARTS} servers (each the echo table through "
+            f"its own DeviceEndpoint.server_handler(), window 16), 256 B: 20 sequential fan-outs "
+            f"over the links {out['fanout_seq_us_tpu']:.1f} us a fan-out, over TCP "
+            f"{out['fanout_seq_us_tcp']:.1f}; {{0,3,5}} 16 threads x 8 fan-outs over the links "
+            f"{out['fanout_qps_tpu']:.1f} fan-outs/s (mean {out['fanout_lat_us_tpu']:.1f} us), "
+            f"over TCP {out['fanout_qps_tcp']:.1f} fan-outs/s (mean {out['fanout_lat_us_tcp']:.1f} "
+            f"us); every merged answer the {COMBO_PARTS} expected() in channel order; "
+            f"{fanouts} host fan-outs counted (links on one card: no fused lowering); "
+            f"launches {[launches['a'][n] for n in K1]} ({', '.join(K1)})")
+
+        # (b) PartitionChannel from list:// with i/4 tags over the quantized pmean
+        url = "list://" + ",".join(f"127.0.0.1:{s.port} {i}/{COMBO_PARTS}"
+                                   for i, s in enumerate(servers[:COMBO_PARTS]))
+        part = PartitionChannel()
+        if not part.init(url, partition_count=COMBO_PARTS, options=ChannelOptions(**tpu)):
+            raise AssertionError("phase3d (b): PartitionChannel.init failed")
+        closers.append(part.stop)
+        rng = np.random.default_rng(44)
+        reqs = [(rng.standard_normal(QUANT_WIDTH // 4) * 10 ** rng.uniform(-3, 3))
+                .astype(np.float32).tobytes() for _ in range(COMBO_QUANT_CALLS + 1)]
+        cntl = part.call_method("quant", "pmean", reqs[0], cntl=Controller(timeout_ms=300_000))
+        if not cntl.ok():  # warm-up, off the count
+            raise AssertionError(f"phase3d (b): code {cntl.error_code} {cntl.error_text}")
+        kernels.reset_launch_counts()
+        fan0 = combo.host_fanouts.get_value()
+        t0 = time.perf_counter()
+        for req in reqs[1:]:
+            cntl = part.call_method("quant", "pmean", req, cntl=Controller(timeout_ms=300_000))
+            if not cntl.ok() or cntl.response_payload != link_device_method_expected(req) * COMBO_PARTS:
+                raise AssertionError(f"phase3d (b): code {cntl.error_code}, merged answer not "
+                                     f"{COMBO_PARTS} copies of the numpy twin's")
+        out["partition_quant_us"] = 1e6 * (time.perf_counter() - t0) / COMBO_QUANT_CALLS
+        counts = kernels.launch_counts()
+        launches["b"] = {name: counts[name] for name in K2}
+        if list(launches["b"].values()) != [COMBO_PARTS * COMBO_QUANT_CALLS] * len(K2):
+            raise AssertionError(f"phase3d (b): K2 launches {launches['b']}, want "
+                                 f"{COMBO_PARTS} each a fan-out")
+        if combo.host_fanouts.get_value() - fan0 != COMBO_QUANT_CALLS:
+            raise AssertionError("phase3d (b): the device-method fan-out did not take the host fan-out")
+        log(f"phase3d (b) PartitionChannel (list://, tags i/{COMBO_PARTS}) over the quantized pmean "
+            f"device method ({QUANT_MODE}, width {QUANT_WIDTH}, block {QUANT_BLOCK}) over the links: "
+            f"{COMBO_QUANT_CALLS} fan-outs, each {COMBO_PARTS} copies of np_quantized_pmean bitwise, "
+            f"{out['partition_quant_us']:.1f} us a fan-out; K2 launches {list(launches['b'].values())} "
+            f"({', '.join(K2)}: {COMBO_PARTS} each a fan-out); the device method's preconditions "
+            "fail at the shared card, so the host fan-out ran")
+
+        # (c) an LB channel over 3 device servers: rr, then la with server 2 slowed
+        lb_url = "list://" + ",".join(f"127.0.0.1:{s.port}" for s in servers[:3])
+        kernels.reset_launch_counts()
+        payload = bytes(range(256))
+        for name in ("rr", "la"):
+            ch = Channel()
+            if not ch.init(lb_url, name, ChannelOptions(**tpu)):
+                raise AssertionError(f"phase3d (c): Channel.init({name}) failed")
+            closers.append(ch._lb.stop)
+            for s in servers[:3]:
+                s.calls = 0
+            servers[2].slow = name == "la"
+            lat = []
+            for _ in range(LB_CALLS):
+                t0 = time.perf_counter()
+                cntl = ch.call_method("lb", "echo", payload)
+                lat.append(1e6 * (time.perf_counter() - t0))
+                if not cntl.ok() or cntl.response_payload != payload:
+                    raise AssertionError(f"phase3d (c) {name}: code {cntl.error_code}")
+            out[f"lb_{name}_us"] = sum(lat) / LB_CALLS
+            out[f"lb_{name}_median_us"] = float(np.median(lat))
+            out[f"lb_{name}_first_us"] = lat[0]
+            out[f"lb_{name}_calls"] = [s.calls for s in servers[:3]]
+        servers[2].slow = False
+        if out["lb_rr_calls"] != [LB_CALLS // 3] * 3:
+            raise AssertionError(f"phase3d (c) rr: calls a server {out['lb_rr_calls']}")
+        la = out["lb_la_calls"]
+        if la[2] != min(la) or la.count(la[2]) != 1:
+            raise AssertionError(f"phase3d (c) la: calls a server {la}, the slowed server 2 not the fewest")
+        launches["c"] = k1_launched(kernels, "(c)")
+        log(f"phase3d (c) Channel.init(list:// of 3 device servers, lb, transport=tpu), {LB_CALLS} "
+            f"calls of 256 B: rr {out['lb_rr_calls']} calls a server, {out['lb_rr_us']:.1f} us a "
+            f"call (median {out['lb_rr_median_us']:.1f}, the first {out['lb_rr_first_us']:.1f}); "
+            f"la with server 2 slowed by {LA_SLOW_S * 1e3:.0f} ms {la}, {out['lb_la_us']:.1f} us a "
+            f"call (median {out['lb_la_median_us']:.1f}); launches {[launches['c'][n] for n in K1]}")
+
+        # (e) DynamicPartitionChannel: a 3-partition and a 2-partition scheme
+        dpc_url = "list://" + ",".join(
+            [f"127.0.0.1:{s.port} {i}/3" for i, s in enumerate(servers[:3])]
+            + [f"127.0.0.1:{s.port} {i}/2" for i, s in enumerate(servers[3:5])])
+        dpc = DynamicPartitionChannel()
+        if not dpc.init(dpc_url, options=ChannelOptions(**tpu)):
+            raise AssertionError("phase3d (e): DynamicPartitionChannel.init failed")
+        closers.append(dpc.stop)
+        kernels.reset_launch_counts()
+        seen = {2: 0, 3: 0}
+        rng = np.random.default_rng(45)
+        t0 = time.perf_counter()
+        for _ in range(DPC_CALLS):
+            p = rng.integers(0, 256, 256, dtype=np.uint8).tobytes()
+            cntl = dpc.call_method("tensor", "echo", p, cntl=Controller(timeout_ms=300_000))
+            n = len(cntl.response_payload) // len(p)
+            if not cntl.ok() or n not in seen or cntl.response_payload != p * n:
+                raise AssertionError(f"phase3d (e): code {cntl.error_code}, a merged answer of "
+                                     f"{len(cntl.response_payload)} B")
+            seen[n] += 1
+        out["dpc_us"] = 1e6 * (time.perf_counter() - t0) / DPC_CALLS
+        out["dpc_schemes"] = {f"/{k}": v for k, v in seen.items()}
+        if not all(seen.values()):
+            raise AssertionError(f"phase3d (e): a scheme never served: {seen}")
+        launches["e"] = k1_launched(kernels, "(e)")
+        log(f"phase3d (e) DynamicPartitionChannel (tags i/3 on servers 0-2, i/2 on 3-4, "
+            f"transport=tpu), {DPC_CALLS} calls of 256 B: scheme /3 served {seen[3]}, /2 {seen[2]}, "
+            f"every merged answer bitwise; {out['dpc_us']:.1f} us a call; launches "
+            f"{[launches['e'][n] for n in K1]}")
+
+        # (d) SelectiveChannel over 3 device servers, server 4 stopped mid-run
+        sel = SelectiveChannel()
+        for s in servers[2:5]:
+            ch = Channel()
+            ch.init(f"127.0.0.1:{s.port}", options=ChannelOptions(**tpu))
+            sel.add_channel(ch)
+        t0 = time.perf_counter()
+        for k in range(SELECTIVE_CALLS):
+            if k == SELECTIVE_STOP_AT:
+                servers[4].close()
+            cntl = sel.call_method("tensor", "echo", payload, cntl=Controller(timeout_ms=300_000))
+            if not cntl.ok() or cntl.response_payload != payload:
+                raise AssertionError(f"phase3d (d) call {k}: code {cntl.error_code} {cntl.error_text}")
+        out["selective_us"] = 1e6 * (time.perf_counter() - t0) / SELECTIVE_CALLS
+        out["selective_health"] = sel.health()
+        if not out["selective_health"][2]["down"]:
+            raise AssertionError(f"phase3d (d): the stopped server's sub-channel is not down: "
+                                 f"{out['selective_health']}")
+        log(f"phase3d (d) SelectiveChannel over 3 device servers, server 4 stopped before call "
+            f"{SELECTIVE_STOP_AT} of {SELECTIVE_CALLS}: every call answered, {out['selective_us']:.1f} "
+            f"us a call; the stopped server's sub-channel down (fail streak "
+            f"{out['selective_health'][2]['fail_streak']})")
+    finally:
+        for close in closers:
+            close()
+        for s in servers:
+            s.close()
+        shutdown_host_plane()
+    return out, launches
 
 
 # -- K3 and the FabricNet train step (phases 5-8) -----------------------------
@@ -2981,6 +3327,12 @@ def main() -> int:
     # -- phase 3c: the two-party device link, counted -------------------------
     link, link_k1, link_k2 = device_link_phase(torch, kernels, svc)
 
+    # -- phase 3d: the combo channels and load balancers, counted -------------
+    t0 = time.perf_counter()
+    combo, combo_launches = combo_phase(torch, kernels, svc)
+    combo["phase_s"] = time.perf_counter() - t0
+    log(f"phase3d: {combo['phase_s']:.1f} s, the servers' start and stop included")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -3019,6 +3371,7 @@ def main() -> int:
             "source": "incubator_brpc_tpu_torch/csrc/framing.cu",
             "replaces": REPLACES[name], "launches": rpc_launches[name],
             "endpoint_launches": launches[name], "link_launches": link_k1[name],
+            "combo_launches": {part: combo_launches[part][name] for part in ("a", "c", "e")},
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
@@ -3056,7 +3409,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "incubator_brpc_tpu_torch/csrc/quantize.cu",
             "replaces": REPLACES[name], "launches": k2["launches"][name],
-            "link_launches": link_k2[name],
+            "link_launches": link_k2[name], "combo_launches": combo_launches["b"][name],
             "max_abs_err": 0.0, **k2["line"][name],  # phase 9 holds K2 bitwise
             **regs(vec_kernel), "general_registers": regs(gen_kernel)["registers"],
         })
@@ -3067,6 +3420,7 @@ def main() -> int:
                        "rpc_launches": rpc_launches, "device_rpc": rpc,
                        "device_link": link,
                        "link_launches": {"rpc": link_k1, "device_method": link_k2},
+                       "combo": combo, "combo_launches": combo_launches,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],

@@ -7,6 +7,10 @@ A ``DeviceEndpoint.server_handler()`` (transport/device.py) or a
 ``device_method()`` handler mounts on a ``Server`` like any handler, so a
 ``Channel`` call reaches the card — over TCP, or over the two-party device
 link with ``ChannelOptions(transport="tpu")`` (transport/device_link.py).
+A Channel also takes a naming url and a load balancer (``lb/``,
+``naming/``), and the combo channels (``combo.py``: ParallelChannel,
+SelectiveChannel, PartitionChannel, DynamicPartitionChannel) fan one call
+out over several Channels.
 """
 
 from incubator_brpc_tpu_torch.rpc.channel import (
@@ -14,6 +18,17 @@ from incubator_brpc_tpu_torch.rpc.channel import (
     ChannelOptions,
     client_socket_map,
     start_cancel,
+)
+from incubator_brpc_tpu_torch.rpc.circuit_breaker import CircuitBreaker, breaker_registry
+from incubator_brpc_tpu_torch.rpc.combo import (
+    CallMapper,
+    DynamicPartitionChannel,
+    ParallelChannel,
+    PartitionChannel,
+    PartitionParser,
+    ResponseMerger,
+    SelectiveChannel,
+    SubCall,
 )
 from incubator_brpc_tpu_torch.rpc.controller import Controller
 from incubator_brpc_tpu_torch.rpc.device_method import device_method
@@ -40,9 +55,19 @@ def shutdown_host_plane() -> None:
 
 
 __all__ = [
+    "CallMapper",
     "Channel",
     "ChannelOptions",
+    "CircuitBreaker",
     "Controller",
+    "DynamicPartitionChannel",
+    "ParallelChannel",
+    "PartitionChannel",
+    "PartitionParser",
+    "ResponseMerger",
+    "SelectiveChannel",
+    "SubCall",
+    "breaker_registry",
     "MethodStatus",
     "Server",
     "ServerOptions",

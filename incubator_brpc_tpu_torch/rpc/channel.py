@@ -5,7 +5,7 @@ Call flow (mirrors SURVEY.md §3.1):
   call_method
     ├ create ranged call id (2 + max_retry versions, channel.cpp:307)
     ├ async: register the timeout timer on the TimerThread
-    ├ _issue_rpc: pick the server's socket, pack, Socket.write
+    ├ _issue_rpc: pick socket (single server or LB), pack, Socket.write
     │   (write failure → CallIdSpace.error → retry arbitration)
     └ sync: poll the socket / join the call id (async: done runs when the
       id is destroyed)
@@ -14,15 +14,20 @@ Call flow (mirrors SURVEY.md §3.1):
     └ lock call id → _on_rpc_returned: retry / end
       EndRPC: cancel timers, unlock_and_destroy (wakes joiners), run done.
 
-The port's copy of the JAX package's ``rpc/channel.py``, trimmed to one
-server address over tbus_std: sync and async calls, timeouts, retries on
-``RETRIABLE``, ``start_cancel``, deadline propagation, and the two-party
-device link (``ChannelOptions(transport="tpu")``: the handshake rides the
-host socket, frames ride ``transport/device_link.py``). Load balancing and
-naming, backup requests, the retry budget, rpcz spans, the native plane,
-TLS, auth, pooled and short connections and streams are later slices;
-their options keep the reference's places and refuse a value with the
-ROADMAP item that brings them.
+The port's copy of the JAX package's ``rpc/channel.py`` over tbus_std:
+one server address or a naming url behind a load balancer
+(``init(url, lb_name)``, ``init_with_lb``; ``lb/``, ``naming/``, with the
+per-node circuit breaker of ``rpc/circuit_breaker.py``), sync and async
+calls, timeouts, retries on ``RETRIABLE`` that avoid the servers already
+tried, ``start_cancel``, deadline propagation, single, pooled and short
+connections, and the two-party device link
+(``ChannelOptions(transport="tpu")``: the handshake rides the host socket,
+frames ride ``transport/device_link.py``; behind a load balancer the LB
+picks a healthy host socket and the link map supplies the link to that
+peer). Backup requests, the retry budget, rpcz spans, the native plane,
+TLS, auth and streams are later slices; their options keep the
+reference's places and refuse a value with the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from incubator_brpc_tpu_torch.runtime.timer_thread import global_timer_thread
 from incubator_brpc_tpu_torch.runtime.worker_pool import global_worker_pool
 from incubator_brpc_tpu_torch.transport.event_dispatcher import on_reactor_thread
 from incubator_brpc_tpu_torch.transport.messenger import InputMessenger
-from incubator_brpc_tpu_torch.transport.sock import CONNECTED
+from incubator_brpc_tpu_torch.transport.sock import CONNECTED, when_drained
 from incubator_brpc_tpu_torch.transport.socket_map import SocketMap
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint, str2endpoint
 from incubator_brpc_tpu_torch.utils.status import ErrorCode
@@ -68,6 +73,17 @@ def start_cancel(call_id: int) -> None:
     lock, fails the call with ECANCELED (never retried), wakes joiners
     and runs the done callback. A no-op once the call has settled."""
     call_id_space.error(call_id, ErrorCode.ECANCELED, "canceled by caller")
+
+
+class NoServerError(ConnectionError):
+    """LB selection failed: every candidate excluded or the cluster is
+    empty (reference ExcludedServers -> EHOSTDOWN)."""
+
+
+def _recycle_when_drained(sock) -> None:
+    """Close once queued writes flushed: recycling immediately would drop
+    frames still on the write queue."""
+    when_drained(sock, lambda s: s.recycle())
 
 
 def _track_inflight(sock, cid: int) -> None:
@@ -155,7 +171,8 @@ class ChannelOptions:
     """Reference ChannelOptions (rpc/channel.py) with the reference's
     parameters in the reference's order, so a positional call binds as it
     binds there. The port serves the timeouts, retries and the device
-    link (``transport="tpu"``, ``device_index`` and ``link_*``). Every other
+    link (``transport="tpu"``, ``device_index`` and ``link_*``) and the
+    connection types ("single", "pooled", "short"). Every other
     parameter keeps its place and its default; a value that asks for
     something the port does not serve yet raises ``NotImplementedError``
     naming the ROADMAP item that brings it, and a value the reference
@@ -194,7 +211,6 @@ class ChannelOptions:
         unported = (
             ("protocol", protocol, "tbus_std", "A11"),
             ("auth", auth, None, "A7"),
-            ("connection_type", connection_type, "single", "A8"),
             ("link_controller", link_controller, "single", "A4"),
             ("native_plane", native_plane, False, "A6"),
             ("ssl_context", ssl_context, None, "A10"),
@@ -207,6 +223,10 @@ class ChannelOptions:
         self.timeout_ms = timeout_ms
         self.max_retry = max_retry
         self.connect_timeout = connect_timeout
+        # "single" (shared main socket), "pooled" (exclusive connection per
+        # in-flight call, parked for reuse), "short" (fresh connection,
+        # closed after the call) — reference AdaptiveConnectionType
+        self.connection_type = connection_type
         # "tcp" (host sockets) or "tpu" (two-party device link: handshake
         # over the host socket, frames over the device plane — the
         # reference's ChannelOptions.use_rdma slot, channel.h). The value's
@@ -222,13 +242,19 @@ class ChannelOptions:
 
 
 class Channel:
-    """Client channel to a single server (the reference's single-server
-    Init, channel.cpp:201-273)."""
+    """Client channel to a single server or (via ``lb`` + naming) a set.
+
+    ``init()`` accepts an "ip:port" / EndPoint for a single server, or a
+    naming url ("list://a:1,b:2", "file://path", "dns://host:port") plus a
+    load-balancer name — the reference's dual Init (channel.cpp:201-273).
+    """
 
     def __init__(self):
         self._options = ChannelOptions()
         self._server: Optional[EndPoint] = None
+        self._lb = None  # LoadBalancerWithNaming (lb/__init__.py)
         self._socket_map = _client_socket_map
+        self._init_done = False
         # transport="tpu": the last-used link (the links themselves live in
         # the process-wide DeviceLinkMap)
         self._device_sock = None
@@ -239,14 +265,40 @@ class Channel:
         lb_name: str = "",
         options: Optional[ChannelOptions] = None,
     ) -> bool:
-        """``target`` is "ip:port" / "host:port" or an EndPoint. A load
-        balancer (a non-empty ``lb_name`` over a naming url) is ROADMAP A8
-        and refused until then."""
-        if lb_name:
-            refuse_unported("Channel.init", "lb_name", lb_name, "A8")
+        """``target`` is "ip:port" / "host:port" / an EndPoint (one server;
+        ``lb_name`` is ignored, as in the reference) or a naming url, whose
+        servers ``lb_name`` ("rr" when empty) balances."""
         if options is not None:
             self._options = options
-        self._server = target if isinstance(target, EndPoint) else str2endpoint(str(target))
+        if isinstance(target, EndPoint):
+            self._server = target
+        elif "://" in str(target):
+            # transport='tpu' works for LB targets too: the LB picks the
+            # peer, the DeviceLinkMap resolves it to an established link
+            # (one per peer device)
+            from incubator_brpc_tpu_torch.lb import LoadBalancerWithNaming
+
+            self._lb = LoadBalancerWithNaming(
+                str(target), lb_name or "rr", socket_map=self._socket_map
+            )
+            if not self._lb.start():
+                return False
+        else:
+            self._server = str2endpoint(str(target))
+        self._init_done = True
+        return True
+
+    def init_with_lb(self, lb, options: Optional[ChannelOptions] = None) -> bool:
+        """Init with a pre-built LoadBalancerWithNaming-compatible object
+        (select_server/feedback/start/stop) — the seam PartitionChannel uses
+        to feed each sub-channel a filtered server view
+        (partition_channel.cpp builds sub-channels the same way)."""
+        if options is not None:
+            self._options = options
+        if not lb.start():
+            return False
+        self._lb = lb
+        self._init_done = True
         return True
 
     # -- public call surface -------------------------------------------------
@@ -262,7 +314,7 @@ class Channel:
     ) -> Controller:
         """The CallMethod entry (channel.cpp:285). Synchronous when ``done``
         is None (waits for the call); asynchronous otherwise."""
-        assert self._server is not None, "Channel.init() not called"
+        assert self._init_done, "Channel.init() not called"
         if cntl is None:
             cntl = Controller(
                 timeout_ms=self._options.timeout_ms, max_retry=self._options.max_retry
@@ -402,15 +454,29 @@ class Channel:
         cntl._force_host = True
         return self.call_method(service, method, request, cntl=cntl)
 
-    def _get_device_socket(self, cntl: Controller):
-        """transport='tpu': the established DeviceSocket for the server,
-        from the process-wide DeviceLinkMap (re-handshaking a dead link).
-        Links are shared across channels — the SocketMap dedupe semantics
-        on the device plane."""
+    def _dispose_attempt_sock(self, kind: str, sock, reusable: bool = True) -> None:
+        """One attempt's connection settles (Call::OnComplete disposition,
+        controller.cpp:698): pooled returns to the pool ONLY when the call
+        finished cleanly — a timed-out attempt may still have a request in
+        flight, and parking it would head-of-line-block the next caller
+        (the reference closes non-single connections on error for the same
+        reason). Short connections drain then close."""
+        if kind == "pooled" and reusable:
+            # keyed by the connection's actual remote: pooled secondaries
+            # of LB targets park under their own endpoint's entry
+            self._socket_map.return_pooled(sock.remote, sock)
+        else:
+            _recycle_when_drained(sock)
+
+    def _get_device_socket(self, cntl: Controller, ep: Optional[EndPoint] = None):
+        """transport='tpu': the established DeviceSocket for the target
+        endpoint, from the process-wide DeviceLinkMap (re-handshaking a
+        dead link). Links are shared across channels — the SocketMap
+        dedupe semantics on the device plane."""
         from incubator_brpc_tpu_torch.transport.device_link import device_link_map
 
         ds = device_link_map.get_or_create(
-            self._server,
+            ep if ep is not None else self._server,
             device_index=self._options.device_index,
             slot_words=self._options.link_slot_words,
             window=self._options.link_window,
@@ -421,19 +487,72 @@ class Channel:
         return ds
 
     def _pick_socket(self, cntl: Controller):
+        ctype = self._options.connection_type
         if self._options.transport == "tpu" and not cntl._force_host:
             # a DeviceSocket answers try_read_ownership() False: the sync
             # caller joins the call id instead of polling a socket
-            return self._get_device_socket(cntl)
-        sock = self._socket_map.get_or_create(
-            self._server, timeout=self._options.connect_timeout
-        )
-        if sock.state != CONNECTED:
-            # dropped-but-healthy peer: reconnect inline instead of burning
-            # the attempt against a dead socket until the health probe
-            # fires (ConnectIfNot, socket.cpp:1591)
-            sock.connect_if_not(self._options.connect_timeout)
-        return sock
+            if self._lb is None:
+                return self._get_device_socket(cntl)
+            # LB target: the LB resolves a healthy host socket (health
+            # checks, the breaker and exclusion run on the host plane),
+            # then the link map supplies the device link to that peer
+            host = self._lb.select_server(excluded=cntl._excluded_sockets)
+            if host is None:
+                raise NoServerError("no available server (all excluded or empty)")
+            try:
+                ds = self._get_device_socket(cntl, ep=host.remote)
+            except (OSError, ConnectionError):
+                # settle the LB's pick (la charges in-flight on select):
+                # an un-settled failed handshake would depress the peer's
+                # weight forever
+                self._lb.feedback(host, 0.0, ErrorCode.EFAILEDSOCKET)
+                raise
+            reg = getattr(self._lb, "register_socket", None)
+            if reg is not None:
+                reg(ds, host.remote)  # feedback/exclusion track the link
+            return ds
+        if self._lb is None:
+            if ctype == "single":
+                sock = self._socket_map.get_or_create(
+                    self._server, timeout=self._options.connect_timeout
+                )
+                if sock.state != CONNECTED:
+                    # dropped-but-healthy peer: reconnect inline instead of
+                    # burning the attempt against a dead socket until the
+                    # health probe fires (ConnectIfNot, socket.cpp:1591)
+                    sock.connect_if_not(self._options.connect_timeout)
+                return sock
+            if ctype == "pooled":
+                sock = self._socket_map.get_pooled(
+                    self._server, timeout=self._options.connect_timeout
+                )
+            else:  # short: fresh connection, closed at EndRPC
+                sock = self._socket_map.get_short(
+                    self._server, timeout=self._options.connect_timeout
+                )
+            # disposed together at EndRPC, never mid-call
+            cntl._call_socks.append((ctype, sock))
+            return sock
+        # LB targets: the LB resolves a healthy MAIN socket per endpoint;
+        # pooled/short secondaries hang off that endpoint's map entry (the
+        # reference's SharedPart design, socket_map.h:35 +
+        # Socket::GetPooledSocket/GetShortSocket)
+        sock = self._lb.select_server(excluded=cntl._excluded_sockets)
+        if sock is None:
+            raise NoServerError("no available server (all excluded or empty)")
+        if ctype == "single":
+            return sock
+        ep = sock.remote
+        if ctype == "pooled":
+            sec = self._socket_map.get_pooled(ep, timeout=self._options.connect_timeout)
+        else:  # short
+            sec = self._socket_map.get_short(ep, timeout=self._options.connect_timeout)
+        # LB feedback and retry exclusion track the secondary's id too
+        reg = getattr(self._lb, "register_socket", None)
+        if reg is not None:
+            reg(sec, ep)
+        cntl._call_socks.append((ctype, sec))
+        return sec
 
     def _issue_rpc(self, cntl: Controller) -> None:
         """IssueRPC (controller.cpp:941): pick socket, pack, write. Called
@@ -441,6 +560,12 @@ class Channel:
         cid = cntl.call_id
         try:
             sock = self._pick_socket(cntl)
+        except NoServerError as e:
+            # every candidate excluded / empty cluster: EHOSTDOWN, letting
+            # retry arbitration decide (reference ExcludedServers,
+            # controller.cpp:578-615)
+            self._arbitrate_error(cntl, ErrorCode.EHOSTDOWN, str(e))
+            return
         except (OSError, ConnectionError) as e:
             # connection failed: arbitrate like a socket failure
             self._arbitrate_error(cntl, ErrorCode.EFAILEDSOCKET, str(e))
@@ -509,6 +634,8 @@ class Channel:
         but EndRPC destroys."""
         if self._should_retry(cntl, code):
             cntl.retried_count += 1
+            if cntl._sent_sockets:
+                cntl._excluded_sockets.add(cntl._sent_sockets[-1].id)
             cntl._reset_for_retry()
             self._issue_rpc(cntl)
             return
@@ -519,6 +646,7 @@ class Channel:
         """Response arrived (id locked by process_response)."""
         if frame.error_code != 0 and self._should_retry(cntl, frame.error_code):
             cntl.retried_count += 1
+            cntl._excluded_sockets.add(sock.id)
             if on_reactor_thread():
                 # re-issuing may dial a fresh connection (blocking): hand
                 # off to a fiber; the id STAYS locked across the handoff
@@ -556,6 +684,15 @@ class Channel:
         """EndRPC: cancel timers, destroy the id (wakes joiners), run done.
         Called with the id locked; the id is dead afterwards."""
         cntl._mark_end()
+        if self._lb is not None:
+            # every issued attempt (retries included) was a select() — feed
+            # each back exactly once so LA's in-flight accounting balances
+            # (Call::OnComplete does per-call Feedback, controller.cpp:
+            # 698-777); attempts retried away charge their node's breaker
+            last = cntl._sent_sockets[-1] if cntl._sent_sockets else None
+            for sock in cntl._sent_sockets:
+                code = cntl.error_code if sock is last else ErrorCode.EFAILEDSOCKET
+                self._lb.feedback(sock, cntl.latency_us, code)
         timer = global_timer_thread()
         for tid in cntl._timer_ids:
             timer.unschedule(tid)
@@ -564,6 +701,13 @@ class Channel:
             cids = sock.context.get("_inflight_cids")
             if cids is not None:
                 cids.discard(cntl.call_id)
+        # settle every attempt's pooled/short connection now. A pooled
+        # socket is only reusable when this was a clean, single-attempt
+        # success (a timed-out attempt may still carry a request in flight)
+        reusable = cntl.ok() and len(cntl._call_socks) <= 1
+        for kind, sock in cntl._call_socks:
+            self._dispose_attempt_sock(kind, sock, reusable)
+        cntl._call_socks.clear()
         call_id_space.unlock_and_destroy(cntl.call_id)
         ps = cntl._poll_sock
         if ps is not None:

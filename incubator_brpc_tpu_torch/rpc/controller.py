@@ -12,8 +12,8 @@ One Controller accompanies one RPC on either side:
   ``set_failed`` with these meanings.
 
 The port's copy of the JAX package's ``rpc/controller.py`` without the
-backup-request, tracing, streaming, session-data and connection-type
-state of the parts not yet ported. The constructor keeps the reference's
+backup-request, tracing, streaming and session-data state of the parts
+not yet ported. The constructor keeps the reference's
 parameters in their places (``backup_request_ms`` before ``log_id``); a
 value the port does not serve yet is refused by :func:`refuse_unported`
 with the ROADMAP item that brings it, never bound to another parameter.
@@ -86,6 +86,7 @@ class Controller:
         self._channel = None
         self._server = None
         self._sent_sockets: List[Any] = []
+        self._excluded_sockets: set = set()  # ExcludedServers retry avoidance
         # set while a sync caller is poll-driving a socket's reads; whoever
         # ends the RPC kicks it so the poller stops waiting (sock.py's
         # caller-driven read path)
@@ -98,6 +99,9 @@ class Controller:
         # forces this call onto the host (TCP) socket even on a
         # transport='tpu' channel (the device-link handshake itself)
         self._force_host = False
+        # (kind, socket) per attempt for pooled/short connection types —
+        # disposed together at EndRPC
+        self._call_socks: List[Any] = []
 
     # -- status surface (reference Controller::Failed/ErrorCode/ErrorText) --
 

@@ -306,6 +306,10 @@ class Server:
     def port(self) -> int:
         return self.listen_endpoint.port if self.listen_endpoint else 0
 
+    def connection_count(self) -> int:
+        """Host connections this server holds open."""
+        return self._acceptor.connection_count() if self._acceptor else 0
+
     # -- request path --------------------------------------------------------
 
     def process_request(self, sock, frame: ParsedFrame) -> None:

@@ -61,6 +61,25 @@ RECYCLED = 2
 in_bytes = Adder(name="socket_in_bytes")
 out_bytes = Adder(name="socket_out_bytes")
 
+def when_drained(sock, action, stalls: int = 0, last_unwritten: int = -1) -> None:
+    """Run ``action(sock)`` once the write queue drains. Forces the action
+    only after a sustained *stall* (unwritten bytes unchanged across ~2s of
+    10ms checks) — a slow-but-progressing reader keeps its connection; a
+    fixed deadline could truncate a large payload."""
+    with sock._wlock:
+        drained = not sock._wqueue
+        unwritten = sock._unwritten
+    stalls = stalls + 1 if unwritten == last_unwritten else 0
+    if drained or stalls > 200:
+        action(sock)
+    else:
+        # self-terminating retry chain: every path either runs action() or
+        # re-arms, and the stall cap (200 ticks ~ 2s) bounds the chain
+        global_timer_thread().schedule(
+            lambda: when_drained(sock, action, stalls, unwritten), delay=0.01
+        )
+
+
 class _Registry:
     """Socket registry: SocketId = version<<32 | slot, version odd while
     live; a recycled slot bumps its version, so a stale id addresses
@@ -154,6 +173,9 @@ class Socket:
         # and servers that opt in with usercode_inline.
         self.inline_read = inline_read
         self.on_failed: List[Callable[["Socket"], None]] = []
+        # fired after a health-check (or inline) revival: the LB's circuit
+        # breaker re-admits an isolated node early (lb/__init__.py)
+        self.on_revived: List[Callable[["Socket"], None]] = []
         # last wire activity (either direction) — the idle-connection
         # reaper's clock (reference server.cpp idle_timeout_sec reaper)
         self.last_active = _monotonic()
@@ -680,6 +702,11 @@ class Socket:
             self.error_text = ""
         self._dispatcher = global_dispatcher(self.fd)
         self._dispatcher.add_consumer(self.fd, self._on_event, EVENT_IN)
+        for cb in list(self.on_revived):
+            try:
+                cb(self)
+            except Exception:
+                logger.exception("on_revived callback raised")
         logger.info("socket to %s revived", self.remote)
         return True
 

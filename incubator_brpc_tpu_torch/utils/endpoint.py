@@ -1,9 +1,9 @@
 """EndPoint — host addressing (reference src/butil/endpoint.h).
 
 The port's copy of the JAX package's ``utils/endpoint.py``, trimmed to
-host endpoints: ``ip:port`` values and ``str2endpoint``. The device and
-mesh coordinates (``tpu://`` endpoints) and naming tags belong to the
-device links and the load balancers, which are later slices.
+host endpoints: ``ip:port`` values with the naming tag, and
+``str2endpoint``. The device and mesh coordinates (``tpu://`` endpoints)
+belong to the mesh (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -21,6 +21,18 @@ class EndPoint:
 
     ip: str = IP_ANY
     port: int = 0
+    # naming-source tag (reference ServerNode.tag, naming_service.h:38):
+    # descriptive, excluded from hash/eq. PartitionChannel parses "N/M"
+    # partition tags out of it.
+    tag: str = ""
+
+    def __hash__(self) -> int:
+        return hash((self.ip, self.port))
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, EndPoint):
+            return NotImplemented
+        return (self.ip, self.port) == (other.ip, other.port)
 
     def __str__(self) -> str:
         return f"{self.ip}:{self.port}"

@@ -205,3 +205,61 @@ define_flag(
     "ceiling of the exponentially doubling re-handshake backoff",
     lambda v: v > 0,
 )
+
+# --- naming (naming/__init__.py) ---------------------------------------------
+define_flag(
+    "ns_refresh_interval_s",
+    1.0,
+    "polling period of periodic naming services (reference -ns_access_interval)",
+    lambda v: v > 0,
+)
+
+# --- per-node circuit breaker (reference src/brpc/circuit_breaker.cpp) -----
+define_flag(
+    "enable_circuit_breaker",
+    True,
+    "LB channels isolate nodes whose error rate trips the breaker",
+    lambda v: True,
+)
+define_flag(
+    "circuit_breaker_short_window_size",
+    1500,
+    "sample size of the breaker's short (fast-trip) window",
+    lambda v: v > 0,
+)
+define_flag(
+    "circuit_breaker_long_window_size",
+    3000,
+    "sample size of the breaker's long (slow-burn) window",
+    lambda v: v > 0,
+)
+define_flag(
+    "circuit_breaker_short_window_error_percent",
+    10,
+    "max error percent the short window tolerates",
+    lambda v: 0 < v <= 100,
+)
+define_flag(
+    "circuit_breaker_long_window_error_percent",
+    5,
+    "max error percent the long window tolerates",
+    lambda v: 0 < v <= 100,
+)
+define_flag(
+    "circuit_breaker_min_isolation_duration_ms",
+    100,
+    "first isolation lasts this long",
+    lambda v: v > 0,
+)
+define_flag(
+    "circuit_breaker_max_isolation_duration_ms",
+    30000,
+    "ceiling of the exponentially doubling isolation duration",
+    lambda v: v > 0,
+)
+define_flag(
+    "circuit_breaker_epsilon_value",
+    0.02,
+    "EMA epsilon: a sample's weight decays to this across one window",
+    lambda v: 0 < v < 1,
+)

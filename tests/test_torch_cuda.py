@@ -26,7 +26,10 @@ The endpoint is also driven as device RPC through the port's Server and
 Channel, over TCP and over the two-party device link (``transport="tpu"``),
 whose forced device form streams through the card in both ack modes; and
 ``device_method()`` around the quantized pmean kernel answers the numpy
-twin's bytes on the card. This file imports no JAX, so on a card machine without JAX it runs with
+twin's bytes on the card; a PartitionChannel over four servers of that
+device method answers four copies of them with four K2a and K2b launches a
+fan-out, and an ``rr`` LB channel over three servers' links rotates across
+every peer. This file imports no JAX, so on a card machine without JAX it runs with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -258,6 +261,94 @@ def test_device_rpc_over_the_link_on_the_card(cuda):
         server.stop()
         assert server.join(timeout=60)
         assert echo_ep.close() and ep.close()
+        shutdown_host_plane()
+
+
+def test_partition_channel_over_device_method_servers_on_the_card(cuda):
+    """A PartitionChannel (list://, tags i/4) over four Servers on the card,
+    each serving the quantized pmean device method over its link: each
+    merged answer is four copies of the numpy twin's bytes, with four K2a
+    and four K2b launches a fan-out."""
+    from incubator_brpc_tpu_torch.rpc import (
+        ChannelOptions, Controller, PartitionChannel, Server, device_method, shutdown_host_plane,
+    )
+
+    quant = Q.quantized_pmean_dm(chip_smoke.QUANT_WIDTH, chip_smoke.QUANT_MODE,
+                                 chip_smoke.QUANT_BLOCK)
+    servers = []
+    for _ in range(4):
+        srv = Server()
+        srv.add_service("quant", {"pmean": device_method(quant.kernel, width=chip_smoke.QUANT_WIDTH,
+                                                         chunkable=True)})
+        assert srv.start(0)
+        servers.append(srv)
+    pc = PartitionChannel()
+    try:
+        url = "list://" + ",".join(f"127.0.0.1:{s.port} {i}/4" for i, s in enumerate(servers))
+        assert pc.init(url, partition_count=4,
+                       options=ChannelOptions(transport="tpu", timeout_ms=120_000))
+        rng = np.random.default_rng(37)
+        reqs = [rng.standard_normal(chip_smoke.QUANT_WIDTH // 4).astype(np.float32).tobytes()
+                for _ in range(4)]
+        assert pc.call_method("quant", "pmean", reqs[0], cntl=Controller(timeout_ms=120_000)).ok()
+        kernels.reset_launch_counts()
+        for req in reqs[1:]:
+            cntl = pc.call_method("quant", "pmean", req, cntl=Controller(timeout_ms=120_000))
+            assert cntl.ok(), cntl.error_text
+            assert cntl.response_payload == chip_smoke.link_device_method_expected(req) * 4
+        counts = kernels.launch_counts()
+        assert [counts[n] for n in chip_smoke.K2] == [4 * (len(reqs) - 1)] * 2
+        links = [sub[0]._device_sock.link for sub in pc._subs]
+        assert all(link.devices == [torch.device("cuda", 0)] * 2 for link in links)
+    finally:
+        pc.stop()
+        for srv in servers:
+            srv.stop()
+            assert srv.join(timeout=60)
+        shutdown_host_plane()
+
+
+def test_rr_lb_channel_over_device_links_on_the_card(cuda):
+    """Channel.init("list://a,b,c", "rr", transport="tpu") over three Servers
+    on the card serving the echo table: 30 calls rotate 10 to each peer,
+    every answer echoed, K1a and K1c launched."""
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, shutdown_host_plane
+
+    eps, servers, calls = [], [], [0, 0, 0]
+    for i in range(3):
+        ep = DeviceEndpoint(window_size=16)
+        handler = ep.server_handler()
+
+        def counted(cntl, req, _i=i, _h=handler):
+            calls[_i] += 1
+            return _h(cntl, req)
+
+        srv = Server()
+        srv.add_service("tensor", {"echo": counted})
+        assert srv.start(0)
+        eps.append(ep)
+        servers.append(srv)
+    ch = Channel()
+    try:
+        assert ch.init("list://" + ",".join(f"127.0.0.1:{s.port}" for s in servers), "rr",
+                       ChannelOptions(transport="tpu", timeout_ms=120_000))
+        kernels.reset_launch_counts()
+        payload = bytes(range(256))
+        for _ in range(30):
+            cntl = ch.call_method("tensor", "echo", payload)
+            assert cntl.ok() and cntl.response_payload == payload, cntl.error_text
+        assert calls == [10, 10, 10]
+        counts = kernels.launch_counts()
+        assert counts["frame_rows"] > 0 and counts["echo_step_rows"] > 0, counts
+        assert ch._device_sock.link.devices == [torch.device("cuda", 0)] * 2
+    finally:
+        if ch._lb is not None:
+            ch._lb.stop()
+        for srv in servers:
+            srv.stop()
+            assert srv.join(timeout=60)
+        for ep in eps:
+            assert ep.close()
         shutdown_host_plane()
 
 

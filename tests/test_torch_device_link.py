@@ -33,14 +33,14 @@ the JAX package's:
   ``chunks`` > 1): identical orders and notes; and ``link_profile()`` of a
   live link.
 
-The other 7 tests of tests/test_device_link.py wait for later items:
+Of the other 7 tests of tests/test_device_link.py,
 ``test_partition_channel_over_device_links`` and
-``TestDynamicPartitionFused`` need the combo channels and the mesh (A3,
-with A8's naming), ``test_lb_target_with_tpu_transport`` the load balancers
-(A8), ``TestCollectiveLowering`` (2) and
-``test_fused_falls_back_when_one_link_is_dead`` the fused collective
-lowering (A3), and ``test_link_map_isolates_credentials`` credentials on
-links (A7/A10).
+``test_lb_target_with_tpu_transport`` run on both packages in
+tests/test_torch_combo.py (A8 and the combo channels' host form). The rest
+wait for later items: ``TestDynamicPartitionFused``,
+``TestCollectiveLowering`` (2) and ``test_fused_falls_back_when_one_link_is_dead``
+the fused collective lowering over the mesh (A3), and
+``test_link_map_isolates_credentials`` credentials on links (A7/A10).
 
 Each test stops the servers it started, and after each the port's host
 plane is shut down and no ``tbtorch-*`` thread is left."""

@@ -209,14 +209,12 @@ def test_init_with_empty_lb_name(pkg, echo_server):
 
 
 def test_init_with_lb_name_and_options(pkg, echo_server):
+    # a plain ip:port with an lb_name stays one server, as in the reference
     opts = pkg.rpc.ChannelOptions(timeout_ms=1234)
     ch = pkg.rpc.Channel()
-    ok, err = _call(lambda: ch.init(f"127.0.0.1:{echo_server.port}", "rr", opts))
-    if err is not None:
-        assert pkg.name == "torch" and "lb_name" in str(err) and "A8" in str(err)
-    else:
-        assert ok is True and ch._options is opts
-        assert ch.call_method("Echo", "echo", b"rr").response_payload == b"rr"
+    assert ch.init(f"127.0.0.1:{echo_server.port}", "rr", opts) is True
+    assert ch._options is opts and ch._lb is None
+    assert ch.call_method("Echo", "echo", b"rr").response_payload == b"rr"
 
 
 # each unported option value and the ROADMAP item its refusal names
@@ -240,8 +238,6 @@ REFUSED = [
     ("ServerOptions", {"fault_injector": object()}, "A7"),
     ("ChannelOptions", {"protocol": "baidu_std"}, "A11"),
     ("ChannelOptions", {"auth": object()}, "A7"),
-    ("ChannelOptions", {"connection_type": "pooled"}, "A8"),
-    ("ChannelOptions", {"connection_type": "short"}, "A8"),
     ("ChannelOptions", {"link_controller": "multi"}, "A4"),
     ("ChannelOptions", {"native_plane": True}, "A6"),
     ("ChannelOptions", {"ssl_context": object()}, "A10"),
@@ -256,6 +252,28 @@ def test_port_refuses_unported_values_naming_the_item(owner, kw, item):
     name = next(iter(kw))
     with pytest.raises(NotImplementedError, match=rf"{name}=.*ROADMAP {item}\b"):
         cls(**kw)
+
+
+@pytest.mark.parametrize("ctype", ["pooled", "short"])
+def test_both_packages_serve_the_connection_type(ctype):
+    """Once refused naming A8: both packages now take and serve it."""
+    for pkg in PKGS.values():
+        srv = pkg.rpc.Server(pkg.ServerOptions(**pkg.server_kw))
+        srv.add_service("Echo", {"echo": lambda cntl, req: req})
+        assert srv.start(0)
+        try:
+            opts = pkg.rpc.ChannelOptions(connection_type=ctype)
+            assert opts.connection_type == ctype
+            ch = pkg.rpc.Channel()
+            assert ch.init(f"127.0.0.1:{srv.port}", options=opts)
+            for i in range(3):
+                cntl = ch.call_method("Echo", "echo", b"%s %d" % (ctype.encode(), i))
+                assert cntl.ok(), cntl.error_text
+                assert cntl.response_payload == b"%s %d" % (ctype.encode(), i)
+        finally:
+            srv.stop()
+            assert srv.join(timeout=10)
+    port_rpc.shutdown_host_plane()
 
 
 def test_port_refuses_values_the_reference_refuses():
