@@ -8,7 +8,9 @@ FabricNet train step with ring attention (K3), its
 elementwise chain (K4) and the rest of what XLA fuses around its matrix
 products (K4e: the SGD update, the MoE's gate and combine, the loss), in
 the fused and the sliced schedules, the step with heads = 0 and its ring
-mean (K4f), and the quantized collective sessions (K2).
+mean (K4f), the step on the fabric mesh with all 8 ranks on the card (tp
+psum, pp GPipe, sp ring attention and ring mean, ep all_to_all), and the
+quantized collective sessions (K2).
 
     python3 chip_smoke.py [--out FILE]
     python3 chip_smoke.py --k2-only ROOT [--out FILE]   # phase 11 alone, the port under ROOT
@@ -128,7 +130,10 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``ring_mean_add_bwd``) bit for bit against its plain versions in bf16
    and f32 at ``K4F_CASES``: the bench width (4, 1024, 2048), a ragged T,
    an odd d, inputs one element off 16-byte alignment, and a T whose
-   column tile does not fit in shared memory;
+   column tile does not fit in shared memory; and K4f's sp form (the sp
+   ring's mean, ``ring_mean_add_fwd`` / ``_bwd`` with ``sp``) bit for bit
+   at ``K4F_SP_CASES``: phase 7d's (2, 1024, 2048) at sp 2 and 4, sp 3, an
+   odd d, one element off alignment and a T past shared memory;
 6. runs one FabricNet train step (d_model 32, heads 2, two layers, f32) on
    the card and on the CPU from the same numpy weights and compares them;
 7. drives the second main path with the launch counts set to zero: 10
@@ -159,6 +164,23 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    peak memory, the launches a step asserted (K4f's forward and backward
    once each, K4a 5, no K3 kernel); device time over two profiled steps,
    and the same with K4f's plain versions, as a record;
+7d. drives FabricNet on the fabric mesh, all 8 ranks on the card, at the
+   ``bench_fabricnet_overlap`` width in bf16 (``MESH_RUNS``: A {dp2 pp2
+   tp2} heads 2, B {pp2 sp2 ep2} heads 2, and heads 0 at lr 1e-3, where
+   the reference's step diverges at 1e-2, C {dp2 tp2 sp2} heads 2):
+   one fused step with the kernels against the same step with every plain
+   version (``mesh_step_check``: the loss within ``MESH_LOSS_RTOL``, the
+   gradient of every leaf handed to the update within ``MESH_GRAD_TOL``,
+   the update bit for bit the plain update of those gradients, and each
+   of ``planted_faults``, a backward kernel's result off by 1%, refused),
+   then ``MESH_STEPS`` chained fused steps
+   with the launch counts set to zero (the loss finite and falling; every
+   kernel's launches a step asserted: the fold ``sp`` times a microbatch and
+   stage, K4f once each way a stage with heads 0, K4e-a once a step, the
+   loss once a data rank), ms a step on the host clock, peak memory and the
+   device time of two profiled steps; on C the forward against the one-rank
+   forward of the same parameters and batch (``MESH_FORWARD_TOL``); on B
+   serialized against overlapped, byte for byte;
 8. times each K3 kernel at the bench attention shape (sp 1 and 4, bf16;
    the tensor-core fold also at B 1, 64 blocks; the f32 fold, dK/dV and dQ
    at sp 1 in f32, their bounds as 3xTF32 work) with CUDA events beside
@@ -176,7 +198,9 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    (for the update; it rounds once, so it is not the same function) and
    ``F.mse_loss`` forward and backward; times K4f's forward and gradient
    at (4, 1024, 2048) bf16 likewise beside their bounds and plain versions
-   (no PyTorch call computes either); and breaks two bf16 train steps,
+   (no PyTorch call computes either), and its sp form at (2, 1024, 2048)
+   sp 2 on inputs in rotation past the L2, beside the sp 1 form on the same
+   rotation; and breaks two bf16 train steps,
    then two f32 ones, down by
    kernel with torch.profiler (device busy and idle share; groups K3, K4,
    K4e, cuBLAS, and PyTorch's own elementwise ops and copies);
@@ -354,6 +378,56 @@ K4F_KERNEL = "ring_mean_add"
 # memory (pass 2 reads the inputs again)
 K4F_CASES = [((4, 1024, 2048), False), ((2, 37, 2048), False), ((3, 50, 33), False),
              ((2, 100, 2048), True), ((1, 2048, 256), False)]
+# K4f's sp form (the sp ring's mean, heads = 0 on a mesh with sp > 1): (batch,
+# T, d), one element off alignment, sp. Phase 7d's stage input on {pp2 sp2
+# ep2} (2, 1024, 2048) at sp 2 and 4, sp 3 (the ranks' fold orders differ in
+# the last bit), an odd d, one element off alignment, and a T past shared
+# memory
+K4F_SP_CASES = [((2, 1024, 2048), False, 2), ((2, 1024, 2048), False, 4), ((3, 36, 40), False, 3),
+                ((2, 98, 33), False, 2), ((4, 60, 1000), True, 4), ((1, 2400, 72), False, 3)]
+K4F_SP_SHAPE, K4F_SP = (2, 1024, 2048), 2
+K4F_ROTATE_BYTES = 150e6  # K4f's timed inputs in rotation, past the 50 MB L2
+# phase 7d: FabricNet's bf16 train step at the bench_fabricnet_overlap width
+# with all 8 ranks of a mesh on the card: (name, axis sizes, heads, lr). The
+# config's lr 1e-2, but with heads = 0 on {pp2 sp2 ep2}: there the JAX
+# package's own step (8 layers through two ring means) diverges at 1e-2
+# (losses 15.8, 34.7, 32.6, 40.4, ... at d_model 256 in f32 on the CPU, the
+# port's equal to 4 decimals; 13.9, 26.0, 35.3, ... on the card at full
+# width) and falls at 1e-3; at 1e-3 a heads = 2 step's bf16 loss moves less
+# than its ulp in 6 steps
+MESH_RUNS = [("A", {"dp": 2, "pp": 2, "tp": 2}, 2, 1e-2),
+             ("B", {"pp": 2, "sp": 2, "ep": 2}, 2, 1e-2),
+             ("B", {"pp": 2, "sp": 2, "ep": 2}, 0, 1e-3),
+             ("C", {"dp": 2, "tp": 2, "sp": 2}, 2, 1e-2)]
+MESH_STEPS = 6  # chained fused steps a mesh, the first a warm-up for the clock
+# the step with the kernels against the same step with the plain versions,
+# bf16 from the same parameters: the loss within 2^-6 relative (two bf16
+# ulps: K3's tensor-core products and K4a's sum order move the forward by
+# about one ulp); each leaf's gradient, the one the update is handed, within
+# MESH_GRAD_TOL of the plain one by each of gradient_errors' readings; the
+# update bit for bit the plain update of the kernels' gradients; and each of
+# planted_faults' 1% faults above MESH_GRAD_TOL in some reading. Measured at
+# this width on an H100 (the worst leaf of MESH_RUNS): largest 0.0111, norm
+# 0.0094 (rounding in another order, most in the first layer's w_in, which
+# every layer's gradient reaches), bias 2.3e-4; at the small width of
+# tests/test_torch_cuda.py bias 1.4e-3 (a gate of 64 elements). The 1%
+# faults in dQ and K4f's gradient move norm and largest no further than
+# rounding does (0.010-0.015) but bias by 0.0089-0.0099; K4b's by 0.05-0.11
+MESH_LOSS_RTOL = 2.0 ** -6
+MESH_GRAD_TOL = {"largest": 2.0 ** -5, "norm": 2.0 ** -5, "bias": 2.0 ** -8}
+# the same check at a small width on {pp2 sp2 ep2} (tests/test_torch_cuda.py's
+# mesh step; parameters from seed 21, the batch from 22), heads 2 and 0, bf16
+# within the tolerances above and f32 within 1e-5 in every reading (3xTF32
+# and the sums' order)
+MESH_SMALL = dict(d_model=64, d_ff=128, d_expert=64, layers_per_stage=2, batch=4, seq=64,
+                  microbatches=2)
+MESH_SMALL_F32_TOL = 1e-5
+# C's forward against the one-rank forward of the same parameters and batch
+# (bf16; the reference holds f32 to rtol 2e-4, atol 2e-5): within 2^-5 of
+# max(1, max |one-rank|), four bf16 ulps of the largest value; the tp
+# partial products are rounded to bf16 before their psum and the ring
+# merges sp blocks, each a rounding the residual stream carries
+MESH_FORWARD_TOL = 2.0 ** -5
 # bench.py:926 bench_fabricnet_overlap: bench_fabricnet's width with two slices
 BENCH_OVERLAP = dict(BENCH_FABRICNET, microbatches=2)
 # K4e-b/c's (t, e, d): the bench's one microbatch (4096 tokens, 2 experts, d_model
@@ -2019,10 +2093,11 @@ def k4a_cap_case(torch, E, gen, dev, dtype_name, d, offset, errs):
     return once
 
 
-def k4f_case(torch, E, gen, dev, shape, dtype, offset, errs):
+def k4f_case(torch, E, gen, dev, shape, dtype, offset, errs, sp=1):
     """K4f against its plain versions on the same inputs, bit for bit: the
-    forward with delta and without, and the gradient. ``offset``: every
-    input one element into a buffer, off 16-byte alignment."""
+    forward with delta and without, and the gradient, over an sp ring of
+    ``sp`` ranks. ``offset``: every input one element into a buffer, off
+    16-byte alignment."""
 
     def make(scale):
         t = (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -2031,13 +2106,13 @@ def k4f_case(torch, E, gen, dev, shape, dtype, offset, errs):
         return t
 
     x, delta, g = make(2.0), make(1.0), make(1.0)
-    label = f"K4f {tuple(shape)} {str(dtype)[6:]}"
+    label = f"K4f {tuple(shape)} {str(dtype)[6:]}" + (f" sp {sp}" if sp > 1 else "")
     fwd, bwd = errs["ring_mean_add_fwd"], errs["ring_mean_add_bwd"]
-    parts = [hold(torch, label, "s2", E.ring_mean_add_fwd(x, delta),
-                  E.ring_mean_add_plain(x, delta), None, fwd),
-             hold(torch, label, "s2 without delta", E.ring_mean_add_fwd(x),
-                  E.ring_mean_add_plain(x), None, fwd),
-             hold(torch, label, "g_s", E.ring_mean_add_bwd(g), E.ring_mean_add_bwd_plain(g),
+    parts = [hold(torch, label, "s2", E.ring_mean_add_fwd(x, delta, sp),
+                  E.ring_mean_add_plain(x, delta, sp), None, fwd),
+             hold(torch, label, "s2 without delta", E.ring_mean_add_fwd(x, None, sp),
+                  E.ring_mean_add_plain(x, None, sp), None, fwd),
+             hold(torch, label, "g_s", E.ring_mean_add_bwd(g, sp), E.ring_mean_add_bwd_plain(g, sp),
                   None, bwd)]
     log(f"phase5 {label}{' one element off 16-byte alignment' if offset else ''}: "
         + "; ".join(parts))
@@ -2084,19 +2159,63 @@ def k4f_timings(torch, E, gen, dev):
     return res
 
 
-def k4_launches_per_step(cfg):
-    """K4 and K4f launches of one train step, per microbatch: K4a for the
-    norm before each MLP layer, the attention block and the MoE; K4b for
-    each of them but the first, whose input is the batch and takes no
-    gradient; K4c and K4d for the GeLU of each MLP layer and of the MoE;
-    with heads = 0, K4f's forward once, and its backward once where an MLP
-    layer comes before it (else its input is the batch)."""
+def k4f_sp_timings(torch, E, gen, dev):
+    """K4f's sp form at phase 7d's heads = 0 stage input, (2, 1024, 2048)
+    bf16 at sp 2, device time behind a spin kernel on inputs that arrive
+    cold (the calls rotate over inputs that fill ``K4F_ROTATE_BYTES``, past
+    the L2, as the step's do; ``delta_timings``' scheme), beside the one-rank
+    form (sp 1) on the same rotation, the same kernel on one input again
+    and again (``warm_ms``), the bound (x and delta read, s written; g read,
+    g_s written) and the plain version; no PyTorch call computes it."""
+    shape, sp = K4F_SP_SHAPE, K4F_SP
+    n = math.prod(shape)
+    per = math.ceil(K4F_ROTATE_BYTES / (2 * n))  # bf16 tensors in rotation
+    xs = [(torch.randn(shape, generator=gen, device=dev) * 2.0).to(torch.bfloat16)
+          for _ in range(per)]
+    bounds = k4f_bounds(*shape)
+    res = {}
+    for name in K4F:
+        if name == "ring_mean_add_fwd":
+            pick = lambda i: (xs[i % per], xs[(i + 1) % per])  # noqa: E731
+            kern = lambda a, s_: E.ring_mean_add_fwd(*a, s_)  # noqa: E731
+            plain = lambda a: E.ring_mean_add_plain(*a, sp)  # noqa: E731
+        else:
+            pick = lambda i: (xs[i % per],)  # noqa: E731
+            kern = lambda a, s_: E.ring_mean_add_bwd(*a, s_)  # noqa: E731
+            plain = lambda a: E.ring_mean_add_bwd_plain(*a, sp)  # noqa: E731
+        r = {}
+        for key, s_ in (("ms", sp), ("sp1_ms", 1)):
+            calls = iter(range(1 << 30))
+            r[key], r["queued_in_time" if s_ == sp else "sp1_queued_in_time"] = device_ms(
+                torch, lambda: kern(pick(next(calls)), s_), 50)
+        r["warm_ms"] = device_ms(torch, lambda: kern(pick(0), sp), 50)[0]
+        r["plain_ms"] = device_ms(torch, lambda: plain(pick(0)), 10)[0]
+        res[name] = {**r, "library_ms": None, "dtype": "bfloat16", "shape": list(shape), "sp": sp,
+                     "inputs_in_rotation": per, **bounds[name]}
+    log(f"phase8 K4f's sp form at {shape} bf16, sp {sp}, device time behind a spin kernel, "
+        f"inputs cold ({per} tensors in rotation) / warm: " + "; ".join(
+            f"{name} {r['ms']:.6f} / {r['warm_ms']:.6f} ms (bound {r['bound_ms']:.6f} by "
+            f"{r['bound_by']}, {r['bytes']} B, {100 * r['bound_ms'] / r['ms']:.1f} % cold; the "
+            f"sp 1 form cold {r['sp1_ms']:.6f}; plain {r['plain_ms']:.6f}; library none"
+            + ("" if r["queued_in_time"] else "; host-bound") + ")" for name, r in res.items()))
+    return res
+
+
+def k4_launches_per_step(cfg, pp=1):
+    """K4 and K4f launches of one train step through ``pp`` stages, per
+    microbatch and stage: K4a for the norm before each MLP layer, the
+    attention block and the MoE; K4b for each of them but the first
+    stage's first, whose input is the batch and takes no gradient; K4c and
+    K4d for the GeLU of each MLP layer and of the MoE; with heads = 0, K4f's
+    forward once, and its backward once but where no MLP layer comes before
+    it in the first stage (its input is then the batch)."""
     m, layers = cfg.microbatches, cfg.layers_per_stage
     norms = layers + bool(cfg.heads) + 1
-    ring = 0 if cfg.heads else m
-    return {"add_rms_norm_fwd": m * norms, "rms_norm_bwd": m * (norms - 1),
-            "gelu_tanh_fwd": m * (layers + 1), "gelu_tanh_bwd": m * (layers + 1),
-            "ring_mean_add_fwd": ring, "ring_mean_add_bwd": ring if layers else 0}
+    ring = 0 if cfg.heads else m * pp
+    return {"add_rms_norm_fwd": m * pp * norms, "rms_norm_bwd": m * (pp * norms - 1),
+            "gelu_tanh_fwd": m * pp * (layers + 1), "gelu_tanh_bwd": m * pp * (layers + 1),
+            "ring_mean_add_fwd": ring,
+            "ring_mean_add_bwd": ring if layers else max(ring - m, 0)}
 
 
 def k4_timings(torch, E, gen, dev):
@@ -2176,20 +2295,39 @@ def same_bits(torch, a, b) -> bool:
             and torch.equal(a.contiguous().view(it), b.contiguous().view(it)))
 
 
-def k4e_launches_per_step(cfg, schedule="fused"):
-    """K4e launches of one train step. ``"fused"``: one update over every
-    leaf (one launch per 64 leaves), the loss once over the whole batch, the
-    MoE's combine forward and backward once a microbatch. A sliced step of
-    M slices: M - 1 updates (M - 2 accumulations and the last slice's; the
-    fused update when M = 1), and the combine and the loss once a slice."""
+def k4e_launches_per_step(cfg, schedule="fused", shape=None):
+    """K4e launches of one train step on a mesh of axis sizes ``shape``
+    (None: one rank). ``"fused"``: one update over every leaf (one launch
+    per 64 leaves), the loss once a data rank (dp x ep x sp) over its block
+    of the whole batch, the MoE's combine forward and backward once a
+    microbatch and stage. A sliced step of M slices: M - 1 updates (M - 2
+    accumulations and the last slice's; the fused update when M = 1), and
+    the combine and the loss once a slice (and stage, and data rank)."""
     from incubator_brpc_tpu_torch.ops.update import launches
 
+    shape = shape or {}
+    pp = shape.get("pp", 1)
+    data = shape.get("dp", 1) * shape.get("ep", 1) * shape.get("sp", 1)
     m = cfg.microbatches
-    leaves = 2 * cfg.layers_per_stage + 4 + (4 if cfg.heads else 0)  # _weights' views
+    # _weights' views: a stage's layers of w_in and w_out, moe_w1, moe_w2,
+    # gate (and wqkv's three projections and wo), and the head
+    leaves = pp * (2 * cfg.layers_per_stage + 3 + (4 if cfg.heads else 0)) + 1
     per_update = launches(leaves)
     return {"sgd_update_multi": per_update * (1 if schedule == "fused" else max(m - 1, 1)),
-            "moe_combine_fwd": m, "moe_combine_bwd": m,
-            "mse_loss_fwd": 1 if schedule == "fused" else m}
+            "moe_combine_fwd": m * pp, "moe_combine_bwd": m * pp,
+            "mse_loss_fwd": data * (1 if schedule == "fused" else m)}
+
+
+def k3_launches_per_step(cfg, shape=None):
+    """K3 launches of one bf16 train step on a mesh of axis sizes ``shape``:
+    the tensor-core fold ``sp`` times a microbatch and stage (one hop of
+    the ring each), delta, dK/dV and dQ once; none with heads = 0, and no
+    f32 kernel."""
+    shape = shape or {}
+    pp, sp = shape.get("pp", 1), shape.get("sp", 1)
+    per = cfg.microbatches * pp if cfg.heads else 0
+    return {**dict.fromkeys(K3, 0), FOLD["bfloat16"]: per * sp, DKDV["bfloat16"]: per,
+            DQ["bfloat16"]: per, "attn_bwd_delta": per}
 
 
 def shifted(torch, values, off):
@@ -2621,6 +2759,320 @@ def fabricnet_heads0_path(torch, fabricnet, kernels, E, dev):
     return fab
 
 
+class patched:
+    """Inside, each ``(module, name, function)`` of ``patches`` replaces
+    ``module.name``; outside, as before."""
+
+    def __init__(self, patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
+        for m, n, f in self.patches:
+            setattr(m, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+        return False
+
+
+class plain_versions(patched):
+    """Inside, every kernel of the FabricNet step runs its plain PyTorch
+    version on the card instead: the wrappers' module names patched (K3's
+    fold and backward, K4, K4e, K4f), as a record to hold the kernels'
+    step against. Outside, as before."""
+
+    def __init__(self):
+        from incubator_brpc_tpu_torch.models import fabricnet
+        from incubator_brpc_tpu_torch.ops import attention as A
+        from incubator_brpc_tpu_torch.ops import elementwise as E
+        from incubator_brpc_tpu_torch.ops import update as U
+
+        def fold(q, k, v, state, *, hop, sp, causal, finalize):
+            m, l, o = A.fold_plain(q, k, v, state, hop=hop, sp=sp, causal=causal)
+            out, lse = A.finalize_plain((m, l, o), q.dtype) if finalize else (None, None)
+            return m, l, o, out, lse
+
+        def sgd(mode, targets, grads, lr=0.0, acc=None, slices=1):
+            for i, p in enumerate(targets):
+                U.sgd_update_plain(mode, p, grads[i], lr, None if acc is None else acc[i], slices)
+
+        super().__init__([
+            (A, "fold", fold), (A, "row_dot", A.row_dot_plain), (A, "dkdv", A.dkdv_plain),
+            (A, "dq", A.dq_plain), (E, "add_rms_norm_fwd", E.add_rms_norm_plain),
+            (E, "rms_norm_bwd", E.rms_norm_bwd_plain), (E, "gelu_tanh_fwd", E.gelu_plain),
+            (E, "gelu_tanh_bwd", E.gelu_bwd_plain), (E, "moe_combine_fwd", E.moe_combine_plain),
+            (E, "moe_combine_bwd", E.moe_combine_bwd_plain),
+            (E, "ring_mean_add_fwd", E.ring_mean_add_plain),
+            (E, "ring_mean_add_bwd", E.ring_mean_add_bwd_plain),
+            (fabricnet, "mse_loss_fwd", E.mse_loss_plain), (fabricnet, "sgd_update_multi", sgd)])
+
+
+class recorded_gradients(patched):
+    """Inside, FabricNet's update (the kernel's wrapper, or whatever stands
+    in its place) first keeps a copy of the gradients it is handed, one
+    list a call, in ``self.grads``."""
+
+    def __init__(self):
+        from incubator_brpc_tpu_torch.models import fabricnet
+
+        self.grads = kept = []  # not self in the closure: no cycle keeps the gradients
+        update = fabricnet.sgd_update_multi
+
+        def record(mode, targets, grads, *args, **kw):
+            kept.append([g.clone() for g in grads])
+            return update(mode, targets, grads, *args, **kw)
+
+        super().__init__([(fabricnet, "sgd_update_multi", record)])
+
+
+def planted_faults(heads):
+    """``{name: patches}``: faults a backward kernel could make, each a
+    wrapper's result off by 1% (K4b's gradient; K3's dQ with heads, K4f's
+    ring-mean term without), for phase 7d to show that its gradient check
+    refuses them."""
+    from incubator_brpc_tpu_torch.ops import attention as A
+    from incubator_brpc_tpu_torch.ops import elementwise as E
+
+    scaled = lambda f: lambda *a, **k: f(*a, **k) * 1.01  # noqa: E731
+    faults = {"rms_norm_bwd x 1.01": [(E, "rms_norm_bwd", scaled(E.rms_norm_bwd))]}
+    if heads:
+        faults["dq x 1.01"] = [(A, "dq", scaled(A.dq))]
+    else:
+        ring_bwd = E.ring_mean_add_bwd
+        faults["ring_mean_add_bwd's mean term x 1.01"] = [
+            (E, "ring_mean_add_bwd", lambda g, sp=1: g + (ring_bwd(g, sp) - g) * 1.01)]
+    return faults
+
+
+def leaf_names(views):
+    """The names of ``fabricnet._leaves(views)``, in its order."""
+    for p, stage in enumerate(views["stages"]):
+        for k, v in stage.items():
+            if isinstance(v, list):
+                yield from (f"{k}[{p}][{i}]" for i in range(len(v)))
+            else:
+                yield f"{k}[{p}]"
+    yield "head"
+
+
+def gradient_errors(torch, got, want, names):
+    """``{reading: (leaf, value)}``, the worst leaf of each reading of the
+    difference ``d = got - want`` against the plain gradient ``g = want``:
+    ``largest``, max |d| over max |g|; ``norm``, the 2-norm of d over g's;
+    ``bias``, |<d, g>| / <g, g>, the part of d along g. A kernel off by a
+    factor moves ``bias`` by that factor; rounding in another order, which
+    does not follow g, barely moves it."""
+    worst = {}
+    for n, a, b in zip(names, got, want):
+        d, g = a.double() - b.double(), b.double()
+        gg = max(1e-300, float((g * g).sum()))
+        readings = {"largest": float(d.abs().max()) / max(1e-300, float(g.abs().max())),
+                    "norm": math.sqrt(float((d * d).sum()) / gg),
+                    "bias": abs(float((d * g).sum())) / gg}
+        for k, v in readings.items():
+            if k not in worst or v > worst[k][1]:
+                worst[k] = (n, v)
+    return worst
+
+
+def mesh_step_check(torch, fabricnet, cfg, mesh, params0, x, y):
+    """One fused step with the kernels against the same step with the plain
+    versions, from ``params0``: the losses (the forward), the gradients the
+    update is handed (every backward kernel; ``gradient_errors``), and the
+    kernels' updated parameters against the plain update applied to the
+    kernels' gradients, bit for bit. Then each of ``planted_faults`` in the
+    kernels' step, its gradient error beside the plain step's. Returns the
+    readings; the caller holds them to its tolerances."""
+    from incubator_brpc_tpu_torch.ops import update as U
+
+    step = fabricnet.make_train_step(cfg, mesh)
+    copy = lambda: {k: v.clone() for k, v in params0.items()}  # noqa: E731
+    names = list(leaf_names(fabricnet._weights(params0, cfg.heads)))
+    pk, pp_ = copy(), copy()
+    with recorded_gradients() as rk:
+        loss_k = float(step(pk, x, y)[1])
+    with plain_versions(), recorded_gradients() as rp:
+        loss_p = float(step(pp_, x, y)[1])
+    gk, gp = rk.grads[0], rp.grads[0]
+    want = copy()
+    for p, g in zip(fabricnet._leaves(fabricnet._weights(want, cfg.heads)), gk):
+        U.sgd_update_plain("fused", p, g, cfg.lr)
+    update_exact = all(same_bits(torch, pk[k], want[k]) for k in want)
+    r = {"loss_kernels": loss_k, "loss_plain": loss_p, "update_exact": update_exact,
+         "gradients": gradient_errors(torch, gk, gp, names), "faults": {}}
+    del pk, pp_, want, gk, rk
+    for fault, patches in planted_faults(cfg.heads).items():
+        with patched(patches), recorded_gradients() as rf:
+            step(copy(), x, y)
+        r["faults"][fault] = gradient_errors(torch, rf.grads[0], gp, names)
+        del rf
+    return r
+
+
+def hold_mesh_step(r, label, loss_rtol, grad_tol):
+    """Raise unless ``mesh_step_check``'s readings ``r`` hold: the loss
+    within ``loss_rtol``, every leaf's gradient within ``grad_tol`` (a
+    bound for each of ``gradient_errors``' readings), the update bit for
+    bit, and every planted fault refused (some reading above its bound)."""
+    if not abs(r["loss_kernels"] - r["loss_plain"]) <= loss_rtol * abs(r["loss_plain"]):
+        raise AssertionError(f"{label}: loss {r['loss_kernels']} with the kernels, "
+                             f"{r['loss_plain']} with the plain versions (rtol {loss_rtol})")
+    over = {k: v for k, v in r["gradients"].items() if not v[1] <= grad_tol[k]}
+    if over:
+        raise AssertionError(f"{label}: gradients off the plain versions' {over} "
+                             f"(tol {grad_tol})")
+    if not r["update_exact"]:
+        raise AssertionError(f"{label}: the step's update differs from the plain update of "
+                             "its gradients")
+    passed = {f: e for f, e in r["faults"].items()
+              if all(v[1] <= grad_tol[k] for k, v in e.items())}
+    if passed:
+        raise AssertionError(f"{label}: planted faults within the gradient tolerances "
+                             f"{grad_tol}: {passed}")
+
+
+def mesh_step_tols(torch, dtype):
+    """``(loss_rtol, grad_tol)`` of ``hold_mesh_step`` for ``dtype``."""
+    if dtype == torch.bfloat16:
+        return MESH_LOSS_RTOL, MESH_GRAD_TOL
+    return MESH_SMALL_F32_TOL, dict.fromkeys(MESH_GRAD_TOL, MESH_SMALL_F32_TOL)
+
+
+def small_mesh_checks(torch, fabricnet, device=None):
+    """``mesh_step_check`` at ``MESH_SMALL`` on {pp2 sp2 ep2}, heads 2 and
+    0, bf16 and f32, each held by ``hold_mesh_step``: ``{label: readings}``."""
+    out = {}
+    for heads in (2, 0):
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg = fabricnet.FabricNetConfig(heads=heads, dtype=dtype, **MESH_SMALL)
+            mesh = fabricnet.make_fabric_mesh(8, axis_sizes={"pp": 2, "sp": 2, "ep": 2},
+                                              device=device)
+            params0 = fabricnet.init_params(cfg, mesh, seed=21)
+            x, y = fabricnet.make_batch(cfg, mesh, seed=22)
+            label = f"small {{pp2 sp2 ep2}} heads {heads} {str(dtype).split('.')[-1]}"
+            out[label] = mesh_step_check(torch, fabricnet, cfg, mesh, params0, x, y)
+            hold_mesh_step(out[label], label, *mesh_step_tols(torch, dtype))
+    return out
+
+
+def fabricnet_mesh_path(torch, fabricnet, kernels, nsteps=MESH_STEPS):
+    """Phase 7d: FabricNet's bf16 train step at the bench_fabricnet_overlap
+    width on ``MESH_RUNS``, all 8 ranks of each mesh on the card. For each:
+    one fused step with the kernels against the same step with the plain
+    versions from the same parameters (``mesh_step_check``, held by
+    ``hold_mesh_step``: the loss, every leaf's gradient, the update bit for
+    bit, and planted faults refused); then ``nsteps``
+    chained fused steps with the launch counts set to 0 (the loss finite and
+    falling, every launch a step asserted: K3's fold ``sp`` times a
+    microbatch and stage, K4f once each way a stage with heads = 0, K4e-a
+    once a step), ms a step on the host clock after the first, peak memory,
+    and the device time of two profiled steps; on C, the forward against the
+    one-rank forward of the same parameters and batch; on B, the sliced
+    schedules, serialized against overlapped, byte for byte."""
+    out, launches_by_run = {}, {}
+    one_rank = None
+    for name, axes, heads, lr in MESH_RUNS:
+        label = f"{name} {{{' '.join(f'{a}{n}' for a, n in axes.items())}}} heads {heads}"
+        cfg = fabricnet.FabricNetConfig(dtype=torch.bfloat16, heads=heads, lr=lr, **BENCH_OVERLAP)
+        mesh = fabricnet.make_fabric_mesh(8, axis_sizes=axes)
+        shape = mesh.shape
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(7)
+        params0 = fabricnet.init_params(cfg, mesh, generator=gen)
+        x, y = fabricnet.make_batch(cfg, mesh, generator=gen)
+        step = fabricnet.make_train_step(cfg, mesh)
+        copy = lambda: {k: v.clone() for k, v in params0.items()}  # noqa: E731
+        r = {"axes": axes, "heads": heads, "lr": lr,
+             "parameters": sum(v.numel() for v in params0.values()),
+             "flops_per_step": fabricnet.train_step_flops(cfg, shape["pp"])}
+        # (2) the kernels' step against the plain versions' from the same parameters
+        check = mesh_step_check(torch, fabricnet, cfg, mesh, params0, x, y)
+        r["against_plain"] = check
+        hold_mesh_step(check, f"phase7d {label}", MESH_LOSS_RTOL, MESH_GRAD_TOL)
+        # (1), (5): chained fused steps, counted
+        params = copy()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        losses = []
+        for i in range(nsteps):
+            if i == 1:
+                t0 = time.perf_counter()
+            losses.append(float(step(params, x, y)[1]))  # synchronizes
+        ms = (time.perf_counter() - t0) / (nsteps - 1) * 1e3
+        launches = kernels.launch_counts()
+        r.update(losses=losses, ms_per_step=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+                 base_bytes=base, launches=launches, nsteps=nsteps)
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"phase7d {label}: losses not finite and falling: {losses}")
+        want = {**k3_launches_per_step(cfg, shape), **k4_launches_per_step(cfg, shape["pp"]),
+                **k4e_launches_per_step(cfg, "fused", shape)}
+        got = {n: launches[n] / nsteps for n in want}
+        if got != want:
+            raise AssertionError(f"phase7d {label}: launches a step {got}; want {want}")
+        r["launches_per_step"] = want
+        launches_by_run[f"{name} heads {heads}"] = {n: launches[n] for n in want}
+        r["profile"] = profile_steps(torch, (step, params, x, y), f"{label} bf16", "phase7d")
+        log(f"phase7d {label}: {r['parameters']} parameters; kernels' step against the plain "
+            f"versions' on the card: loss {check['loss_kernels']} / {check['loss_plain']} (rtol "
+            f"{MESH_LOSS_RTOL}), the gradients' worst leaves {check['gradients']} (tol "
+            f"{MESH_GRAD_TOL}), the update bit for bit, planted faults refused {check['faults']}; "
+            f"{nsteps} fused steps: losses {losses}; "
+            f"{ms:.3f} ms a step (host clock, steps 2-{nsteps}); peak memory {r['peak_bytes']} B "
+            f"({r['base_bytes']} B allocated when the steps began); launches a step {want}")
+        # (3) C's forward against the one-rank forward
+        if name == "C":
+            if one_rank is None:
+                one_rank = fabricnet.make_fabric_mesh(1)
+            fwd8 = fabricnet.make_forward_step(cfg, mesh)(params0, x).float()
+            fwd1 = fabricnet.make_forward_step(cfg, one_rank)(params0, x).float()
+            err = float((fwd8 - fwd1).abs().max()) / max(1.0, float(fwd1.abs().max()))
+            differ = int((fwd8 != fwd1).sum())
+            r.update(forward_vs_one_rank=err, forward_differing=[differ, fwd1.numel()])
+            if not err <= MESH_FORWARD_TOL:
+                raise AssertionError(f"phase7d {label}: forward against the one-rank forward "
+                                     f"{err} of the largest value (tol {MESH_FORWARD_TOL})")
+            log(f"phase7d {label}: forward against the one-rank forward of the same parameters "
+                f"and batch within {err:.4g} of max(1, max |one-rank|) (tol {MESH_FORWARD_TOL}); "
+                f"{differ} of {fwd1.numel()} outputs differ")
+            del fwd8, fwd1
+        # (4) B: the sliced schedules, byte for byte
+        if name == "B":
+            chains = {}
+            for schedule in ("serialized", "overlapped"):
+                sliced = fabricnet.make_train_step(cfg, mesh, schedule=schedule)
+                ps = copy()
+                t1 = time.perf_counter()
+                ls = [sliced(ps, x, y)[1] for _ in range(2)]
+                torch.cuda.synchronize()
+                r[f"{schedule}_ms_per_step"] = (time.perf_counter() - t1) / 2 * 1e3
+                chains[schedule] = (torch.stack(ls).cpu(), {k: v.cpu() for k, v in ps.items()})
+                del ps
+            (ls, ps), (lo, po) = chains["serialized"], chains["overlapped"]
+            if not same_bits(torch, ls, lo) or not all(same_bits(torch, ps[k], po[k]) for k in ps):
+                raise AssertionError(f"phase7d {label}: serialized and overlapped differ")
+            r["sliced_losses"] = ls.tolist()
+            log(f"phase7d {label}: serialized and overlapped, 2 chained steps: losses "
+                f"{ls.tolist()} (f32) and parameters byte-identical; ms a step (host clock, "
+                f"the first compiles nothing) {r['serialized_ms_per_step']:.3f} / "
+                f"{r['overlapped_ms_per_step']:.3f}")
+        out[f"{name} heads {heads}"] = r
+        del params, params0, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    small = small_mesh_checks(torch, fabricnet)
+    for label, check in small.items():
+        log(f"phase7d {label}: kernels' step against the plain versions': loss "
+            f"{check['loss_kernels']} / {check['loss_plain']}, the gradients' worst leaves "
+            f"{check['gradients']}, the update bit for bit, planted faults refused {check['faults']}")
+    out["small"] = small
+    return out, launches_by_run
+
+
 def profile_steps(torch, train, label="bf16", phase="phase8"):
     """torch.profiler over two train steps: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -2724,8 +3176,12 @@ def run_k3_phases(torch, kernels, dev):
     for dtype in (torch.bfloat16, torch.float32):
         for shape, offset in K4F_CASES:
             k4f_case(torch, elementwise, gen, dev, shape, dtype, offset, k4f_errs)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, offset, sp in K4F_SP_CASES:
+            k4f_case(torch, elementwise, gen, dev, shape, dtype, offset, k4f_errs, sp)
     k4f_max_err = {name: max(e.values()) for name, e in k4f_errs.items()}
-    log(f"phase5 K4f max_abs_err {k4f_max_err} (bit for bit its plain versions)")
+    log(f"phase5 K4f max_abs_err {k4f_max_err} (bit for bit its plain versions, sp 1 and the "
+        f"sp form)")
 
     # -- phase 6: FabricNet on the card against the port on the CPU -----------
     fabricnet_small_card_vs_cpu(torch, fabricnet, dev)
@@ -2740,6 +3196,8 @@ def run_k3_phases(torch, kernels, dev):
 
     # -- phase 7c: heads = 0, the ring mean (K4f), counted ------------------------
     fab0 = fabricnet_heads0_path(torch, fabricnet, kernels, elementwise, dev)
+    # -- phase 7d: the fabric mesh, all 8 ranks on the card, counted -------------
+    mesh_runs, mesh_launches = fabricnet_mesh_path(torch, fabricnet, kernels)
     # the f32 path's kernels count the f32 steps' launches, K4f the heads = 0 steps'
     launches = dict(fab["launches"], **{n: fab32["launches"][n] for n in K3_F32},
                     **{n: fab0["launches"][n] for n in K4F})
@@ -2750,6 +3208,7 @@ def run_k3_phases(torch, kernels, dev):
     delta = delta_timings(torch, attention, gen, dev)
     k4 = k4_timings(torch, elementwise, gen, dev)
     k4f = k4f_timings(torch, elementwise, gen, dev)
+    k4f_sp = k4f_sp_timings(torch, elementwise, gen, dev)
     k4e = k4e_timings(torch, update, elementwise, fabricnet, gen, dev)
     fab["profile"] = profile_steps(torch, train)
     fab32["profile"] = profile_steps(torch, train32, "f32")
@@ -2819,14 +3278,19 @@ def run_k3_phases(torch, kernels, dev):
         line[name] = {k: k4f[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms", "dtype", "shape")}
         max_err[name] = k4f_max_err[name]
+        line[name]["sp_form"] = {k: k4f_sp[name][k] for k in (
+            "ms", "sp1_ms", "warm_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "sp", "inputs_in_rotation")}
+    for name in K3 + K4 + K4E + K4F:  # phase 7d's launches over its fused steps, a run each
+        line[name]["mesh_launches"] = {run: n[name] for run, n in mesh_launches.items()}
     line["moe_combine_fwd"]["shape"] = line["moe_combine_bwd"]["shape"] = list(K4E_MOE_SHAPES[0])
     line["mse_loss_fwd"].update(shape=list(K4E_LOSS_SHAPES[0]), kernels_per_launch=2,
                                 sum_ms=k4e["mse_loss_fwd"]["sum_ms"])
     return {"launches": launches, "max_err": max_err, "line": line,
             "detail": {**{f"sp{sp}": t for sp, t in timings.items()}, "delta": delta, "k4": k4,
-                       "k4e": k4e, "k4f": k4f},
+                       "k4e": k4e, "k4f": k4f, "k4f_sp": k4f_sp},
             "fabricnet": fab, "fabricnet_f32": fab32, "fabricnet_sliced": sliced,
-            "fabricnet_heads0": fab0}
+            "fabricnet_heads0": fab0, "fabricnet_mesh": mesh_runs}
 
 
 # -- K2 and the quantized collective sessions (phases 9-11) --------------------
@@ -3424,7 +3888,8 @@ def main() -> int:
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],
-                       "fabricnet_heads0": k3["fabricnet_heads0"], "k2": k2["detail"],
+                       "fabricnet_heads0": k3["fabricnet_heads0"],
+                       "fabricnet_mesh": k3["fabricnet_mesh"], "k2": k2["detail"],
                        "k2_launches": k2["launches"], "ptxas": ptxas}, f, indent=1)
     gone = [n for n in REMOVED if n in kernels.KERNELS]
     if gone:

@@ -20,10 +20,12 @@
 //   mse_loss_fwd      <- _local_loss's mean((out - y)^2) (:266-268, :281) and,
 //                        in the same pass, its gradient for d(loss) = 1
 //   ring_mean_add_fwd <- with heads = 0, _stage_fn's last MLP residual add
-//                        and x + _ring_context(x) (:138, :205-207) on one
-//                        rank: s = x + delta, m = mean_T(s), s2 = s + m
-//   ring_mean_add_bwd <- its gradient: g_s = g + c, c = sum_T(g) / T, which
-//                        reaches both x and delta
+//                        and x + _ring_context(x) (:138, :205-207) over the
+//                        sp ring: s = x + delta, m = each rank's block mean
+//                        folded around the ring / sp, s2 = s + m
+//   ring_mean_add_bwd <- its gradient: g_s = g + c, c the transposed ring
+//                        over the blocks' sums of g, which reaches both x
+//                        and delta
 //
 // Rows are the last dimension of a row-major tensor, rows * d elements from
 // the base pointer; f32 or bf16 (dtype 0 or 1), computed in f32. The
@@ -72,10 +74,16 @@
 //   ahead of the mean's conversion to f32, as it drops w's in rms_norm_bwd)
 //   in f64, rounded to f32, times 1/T in f32 (XLA multiplies by the
 //   reciprocal), rounded to the dtype (jnp.mean's convert); s + m rounded.
-//   The sp = 1 ring's 0 + m and m / 1 are exact.
+//   The sp = 1 ring's 0 + m and m / 1 are exact. With sp > 1 the mean is a
+//   rank block's (1/T the block's rows), and rank i folds the ring's means
+//   as ring_stream does, ((0 + m_i) + m_{i-1}) + ..., each add rounded to
+//   the dtype, then times 1/sp in f32 (XLA's division by a constant),
+//   rounded: the column sums, the ring and the add in one launch.
 // - ring_mean_add_bwd: the vjp's reduce_sum of g over T runs in the dtype:
 //   the f64 sum rounded to f32 and then to the dtype, times 1/T in f32,
-//   rounded; g + c rounded.
+//   rounded; g + c rounded. With sp > 1: each block's sum so, times 1/sp
+//   rounded, then the transposed ring, v_i + (v_{i+1} + (... + 0)), each
+//   add rounded, times 1/T of the block, rounded.
 // The intrinsics __fadd_rn / __fmul_rn / __fsub_rn / __fdiv_rn keep nvcc
 // from contracting products and sums into FMAs that the plain versions do
 // not take, across a rounding or not. The build has no --use_fast_math
@@ -589,12 +597,13 @@ __global__ void mse_loss_sum(const float* __restrict__ partial, int blocks, T* _
 }
 
 // -- K4f: s2 = s + mean_T(s), s = x + delta; its gradient g + bcast(c) --------------
-// x, delta, out: (B, t, d) row-major; blockIdx.x = b tiles + tile. Thread
-// (r0, lc) takes rows r0 + R j, columns [lc, lc + W) of the block's tile,
-// as (W + 1) / 2 pairs: W = kVec<T> (16-byte pieces) or 1 (one element,
-// doubled). kGrad: x is g, delta null, and the column sum is rounded to T
-// before the divide. kResident: s stays in shared memory between the
-// passes; else pass 2 reads x and delta again.
+// x, delta, out: (B, t, d) row-major; blockIdx.x = b tiles + tile. The t rows
+// are the blocks of sp ranks of the sp ring, tl = t / sp rows each, in rank
+// order. Thread (r0, lc) takes rows r0 + R j of a rank's block, columns
+// [lc, lc + W) of the block's tile, as (W + 1) / 2 pairs: W = kVec<T>
+// (16-byte pieces) or 1 (one element, doubled). kGrad: x is g, delta null.
+// kResident: s stays in shared memory between the passes; else pass 2 reads
+// x and delta again.
 constexpr int kRingThreads = 512;
 constexpr int kRingTileBytes = 128;
 constexpr int kRingUnroll = 4;  // rows a thread loads before it uses them
@@ -606,119 +615,153 @@ struct RingShape {
   static constexpr int kTpr = C / W;                          // threads a row
   static constexpr int R = kRingThreads / kTpr;               // rows a pass
   static constexpr int kRW = kTpr < 32 ? 32 / kTpr : 1;       // rows a warp holds
-  // red (the warps' partial sums, R / kRW x C f64) and the means (C f32),
-  // then the resident tile
-  static constexpr size_t kHead = size_t(R / kRW) * C * 8 + size_t(C) * 4;
-  static size_t smem(int64_t t, bool resident) {
-    return kHead + (resident ? size_t(t) * kRingTileBytes : 0);
+  // red (the warps' partial sums, R / kRW x C f64), each rank's block value
+  // and its mean (2 sp x C f32), then the resident tile
+  static size_t head(int64_t sp) {
+    return size_t(R / kRW) * C * 8 + 2 * size_t(sp) * C * 4;
+  }
+  static size_t smem(int64_t t, int64_t sp, bool resident) {
+    return head(sp) + (resident ? size_t(t) * kRingTileBytes : 0);
   }
 };
 
 template <typename T, int W, bool kResident, bool kGrad>
 __global__ void __launch_bounds__(kRingThreads)
 ring_mean_add(const T* __restrict__ x, const T* __restrict__ delta, T* __restrict__ out,
-              int64_t t, int64_t d, int64_t tiles) {
+              int64_t t, int64_t d, int64_t tiles, int64_t sp) {
   using S = RingShape<T, W>;
   using P = Pair<T>;
   using V = typename P::V;
   constexpr int C = S::C, R = S::R, U = kRingUnroll, NP = (W + 1) / 2;
   constexpr int kGroups = R / S::kRW;  // the warps' partial sums of a column
   extern __shared__ __align__(16) unsigned char smem_ring[];
-  double* red = reinterpret_cast<double*>(smem_ring);         // [kGroups][C]
-  float* mean = reinterpret_cast<float*>(red + kGroups * C);  // [C]
-  T* tile = reinterpret_cast<T*>(mean + C);                   // [t][C]
+  double* red = reinterpret_cast<double*>(smem_ring);           // [kGroups][C]
+  float* local = reinterpret_cast<float*>(red + kGroups * C);   // [sp][C]
+  float* mean = local + sp * C;                                 // [sp][C]
+  T* tile = reinterpret_cast<T*>(mean + sp * C);                // [t][C]
   const int lc = int(threadIdx.x) % S::kTpr * W, r0 = int(threadIdx.x) / S::kTpr;
   const int64_t b = blockIdx.x / tiles, col = blockIdx.x % tiles * C + lc;
   const bool live = col < d;  // W divides d on the vector path
-  const int64_t base = b * t * d + col;
+  const int64_t base = b * t * d + col, tl = t / sp;
 
-  // x and delta at rows r .. r + (U - 1) R of this thread's columns, every
-  // load issued first
-  const auto load_rows = [&](int64_t r, V (&a)[U][NP], V (&q)[U][NP]) {
+  // x and delta at rows r .. r + (U - 1) R (below end) of this thread's
+  // columns, every load issued first
+  const auto load_rows = [&](int64_t r, int64_t end, V (&a)[U][NP], V (&q)[U][NP]) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int64_t ru = r + int64_t(u) * R;
-      if (ru < t) {
+      if (ru < end) {
         load_pairs<W>(x + base + ru * d, a[u]);
         if (delta != nullptr) load_pairs<W>(delta + base + ru * d, q[u]);
       }
     }
   };
 
-  // pass 1: the column sums of x + delta in f32 before its rounding to T
-  // (XLA:CPU drops the jaxpr's rounding of s ahead of the mean's conversion
-  // to f32), and s = x + delta rounded to T (one bf16x2 add a pair) into
-  // the tile
-  double acc[W];
+  // pass 1, a rank's block at a time: the block's column sums of x + delta
+  // in f32 before its rounding to T (XLA:CPU drops the jaxpr's rounding of s
+  // ahead of the mean's conversion to f32), and s = x + delta rounded to T
+  // (one bf16x2 add a pair) into the tile; the sums across the rows a warp
+  // holds (lanes kTpr apart), then across the warps, in warp order, into the
+  // block's value: its mean (forward) or its sum rounded to T (gradient)
+  for (int64_t j = 0; j < sp; ++j) {
+    const int64_t end = (j + 1) * tl;
+    double acc[W];
 #pragma unroll
-  for (int i = 0; i < W; ++i) acc[i] = 0.0;
-  if (live) {
-    for (int64_t r = r0; r < t; r += int64_t(U) * R) {
-      V a[U][NP], q[U][NP];
-      load_rows(r, a, q);
+    for (int i = 0; i < W; ++i) acc[i] = 0.0;
+    if (live) {
+      for (int64_t r = j * tl + r0; r < end; r += int64_t(U) * R) {
+        V a[U][NP], q[U][NP];
+        load_rows(r, end, a, q);
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int64_t ru = r + int64_t(u) * R;
-        if (ru < t) {
+        for (int u = 0; u < U; ++u) {
+          const int64_t ru = r + int64_t(u) * R;
+          if (ru < end) {
 #pragma unroll
-          for (int i = 0; i < NP; ++i) {
-            float lo = P::lo(a[u][i]), hi = P::hi(a[u][i]);
-            if (delta != nullptr) {
-              lo = __fadd_rn(lo, P::lo(q[u][i]));
-              hi = __fadd_rn(hi, P::hi(q[u][i]));
-              a[u][i] = P::add(a[u][i], q[u][i]);
+            for (int i = 0; i < NP; ++i) {
+              float lo = P::lo(a[u][i]), hi = P::hi(a[u][i]);
+              if (delta != nullptr) {
+                lo = __fadd_rn(lo, P::lo(q[u][i]));
+                hi = __fadd_rn(hi, P::hi(q[u][i]));
+                a[u][i] = P::add(a[u][i], q[u][i]);
+              }
+              acc[2 * i] += double(lo);
+              if (W > 1) acc[2 * i + 1] += double(hi);  // W = 1: hi is a copy
             }
-            acc[2 * i] += double(lo);
-            if (W > 1) acc[2 * i + 1] += double(hi);  // W = 1: hi is a copy
+            if (kResident) store_pairs<W>(tile + ru * C + lc, a[u]);
           }
-          if (kResident) store_pairs<W>(tile + ru * C + lc, a[u]);
         }
       }
     }
+#pragma unroll
+    for (int o = S::kTpr; o < 32; o <<= 1)
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+    if (int(threadIdx.x) % 32 < S::kTpr) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) red[r0 / S::kRW * C + lc + i] = acc[i];
+    }
+    __syncthreads();
+    if (threadIdx.x < C) {
+      double sum = 0.0;
+      for (int rr = 0; rr < kGroups; ++rr) sum += red[rr * C + threadIdx.x];
+      const float m = __double2float_rn(sum);
+      local[j * C + threadIdx.x] = kGrad ? round_to<T>(m) : round_to<T>(__fmul_rn(m, inv(tl)));
+    }
+    __syncthreads();
   }
-  // the column sums: across the rows a warp holds (lanes kTpr apart), then
-  // across the warps, in warp order
-#pragma unroll
-  for (int o = S::kTpr; o < 32; o <<= 1)
-#pragma unroll
-    for (int i = 0; i < W; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-  if (int(threadIdx.x) % 32 < S::kTpr) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) red[r0 / S::kRW * C + lc + i] = acc[i];
-  }
-  __syncthreads();
+  // the sp ring (_ring_context), a column a thread, every rank in its own
+  // order, each add rounded to T. Forward: rank i folds ((0 + m_i) +
+  // m_{i-1}) + ..., then times 1/sp. Gradient: the block sums times 1/sp,
+  // then rank i takes the transposed ring v_i + (v_{i+1} + (... + 0)), then
+  // times 1/tl. With sp = 1 no ring: the mean, or the sum times 1/t.
   if (threadIdx.x < C) {
-    double sum = 0.0;
-    for (int rr = 0; rr < kGroups; ++rr) sum += red[rr * C + threadIdx.x];
-    float m = __double2float_rn(sum);
-    if (kGrad) m = round_to<T>(m);
-    mean[threadIdx.x] = round_to<T>(__fmul_rn(m, inv(t)));
+    const int c = int(threadIdx.x);
+    if (sp == 1) {
+      mean[c] = kGrad ? round_to<T>(__fmul_rn(local[c], inv(t))) : local[c];
+    } else {
+      if (kGrad) {
+        for (int64_t j = 0; j < sp; ++j)
+          local[j * C + c] = round_to<T>(__fmul_rn(local[j * C + c], inv(sp)));
+      }
+      for (int64_t i = 0; i < sp; ++i) {
+        float acc = 0.0f;
+        for (int64_t k = 0; k < sp; ++k) {
+          const int64_t src = kGrad ? (i + sp - 1 - k) % sp : (i - k + sp) % sp;
+          acc = round_to<T>(__fadd_rn(local[src * C + c], acc));
+        }
+        mean[i * C + c] = round_to<T>(__fmul_rn(acc, kGrad ? inv(tl) : inv(sp)));
+      }
+    }
   }
   __syncthreads();
   if (!live) return;
-  // pass 2: s2 = s + m, one bf16x2 add a pair, from the tile (or x and
-  // delta again) to out
-  V mv[NP];
+  // pass 2: s2 = s + m of the row's rank, one bf16x2 add a pair, from the
+  // tile (or x and delta again) to out
+  for (int64_t j = 0; j < sp; ++j) {
+    const int64_t end = (j + 1) * tl;
+    const float* mj = mean + j * C;
+    V mv[NP];
 #pragma unroll
-  for (int i = 0; i < NP; ++i) mv[i] = P::pack(mean[lc + 2 * i], mean[lc + (W > 1 ? 2 * i + 1 : 0)]);
-  for (int64_t r = r0; r < t; r += int64_t(U) * R) {
-    V a[U][NP], q[U][NP];
-    if (kResident) {
+    for (int i = 0; i < NP; ++i) mv[i] = P::pack(mj[lc + 2 * i], mj[lc + (W > 1 ? 2 * i + 1 : 0)]);
+    for (int64_t r = j * tl + r0; r < end; r += int64_t(U) * R) {
+      V a[U][NP], q[U][NP];
+      if (kResident) {
 #pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (r + int64_t(u) * R < t) load_pairs<W>(tile + (r + int64_t(u) * R) * C + lc, a[u]);
-    } else {
-      load_rows(r, a, q);
-    }
+        for (int u = 0; u < U; ++u)
+          if (r + int64_t(u) * R < end) load_pairs<W>(tile + (r + int64_t(u) * R) * C + lc, a[u]);
+      } else {
+        load_rows(r, end, a, q);
+      }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (r + int64_t(u) * R < t) {
+      for (int u = 0; u < U; ++u) {
+        if (r + int64_t(u) * R < end) {
 #pragma unroll
-        for (int i = 0; i < NP; ++i) {
-          if (!kResident && delta != nullptr) a[u][i] = P::add(a[u][i], q[u][i]);
-          a[u][i] = P::add(a[u][i], mv[i]);
+          for (int i = 0; i < NP; ++i) {
+            if (!kResident && delta != nullptr) a[u][i] = P::add(a[u][i], q[u][i]);
+            a[u][i] = P::add(a[u][i], mv[i]);
+          }
+          store_pairs<W>(out + base + (r + int64_t(u) * R) * d, a[u]);
         }
-        store_pairs<W>(out + base + (r + int64_t(u) * R) * d, a[u]);
       }
     }
   }
@@ -726,7 +769,7 @@ ring_mean_add(const T* __restrict__ x, const T* __restrict__ delta, T* __restric
 
 template <typename T, bool kGrad>
 cudaError_t launch_ring_mean_add(const void* x, const void* delta, void* out, int64_t batch,
-                                 int64_t t, int64_t d, cudaStream_t st) {
+                                 int64_t t, int64_t d, int64_t sp, cudaStream_t st) {
   constexpr int V = kVec<T>;
   const bool vec = d % V == 0 && phase(x) == 0 && phase(out) == 0 &&
                    (delta == nullptr || phase(delta) == 0);
@@ -734,8 +777,9 @@ cudaError_t launch_ring_mean_add(const void* x, const void* delta, void* out, in
     constexpr int W = decltype(w)::value;
     using S = RingShape<T, W>;
     const int64_t tiles = (d + S::C - 1) / S::C;
-    const bool resident = S::smem(t, true) <= kRingSmemMax;
-    const size_t smem = S::smem(t, resident);
+    const bool resident = S::smem(t, sp, true) <= kRingSmemMax;
+    const size_t smem = S::smem(t, sp, resident);
+    if (smem > kRingSmemMax) return cudaErrorInvalidValue;  // sp too large for the means
     const auto kern = resident ? ring_mean_add<T, W, true, kGrad> : ring_mean_add<T, W, false, kGrad>;
     if (smem > 48 * 1024) {
       const cudaError_t e =
@@ -743,7 +787,8 @@ cudaError_t launch_ring_mean_add(const void* x, const void* delta, void* out, in
       if (e != cudaSuccess) return e;
     }
     kern<<<unsigned(batch * tiles), kRingThreads, smem, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(delta), static_cast<T*>(out), t, d, tiles);
+        static_cast<const T*>(x), static_cast<const T*>(delta), static_cast<T*>(out), t, d, tiles,
+        sp);
     return cudaGetLastError();
   };
   return vec ? go(Width<V>()) : go(Width<1>());
@@ -952,26 +997,28 @@ int tb_mse_loss_fwd(const void* out, const void* y, void* dout, float* partial, 
   return rc ? rc : tb_mse_loss_sum(partial, int64_t(blocks), loss, n, dtype, stream);
 }
 
-// x, delta, out: [batch, t, d]; delta may be null. out = s + mean_t(s), s = x + delta.
+// x, delta, out: [batch, t, d]; delta may be null. out = s + the sp ring's mean
+// of s, s = x + delta, the t rows sp ranks' blocks (sp = 1: mean_t(s)).
 int tb_ring_mean_add_fwd(const void* x, const void* delta, void* out, int64_t batch, int64_t t,
-                         int64_t d, int dtype, void* stream) {
-  if (batch <= 0 || t <= 0 || !rows_ok(batch * ((d + 31) / 32), d, dtype))
+                         int64_t d, int64_t sp, int dtype, void* stream) {
+  if (batch <= 0 || t <= 0 || sp <= 0 || t % sp || !rows_ok(batch * ((d + 31) / 32), d, dtype))
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return int(dtype == 0 ? launch_ring_mean_add<float, false>(x, delta, out, batch, t, d, st)
+  return int(dtype == 0 ? launch_ring_mean_add<float, false>(x, delta, out, batch, t, d, sp, st)
                         : launch_ring_mean_add<__nv_bfloat16, false>(x, delta, out, batch, t, d,
-                                                                     st));
+                                                                     sp, st));
 }
 
-// g, out: [batch, t, d]. out = g + (the sum of g over t, rounded to the dtype) / t.
+// g, out: [batch, t, d]. out = g + c, c the transposed sp ring over the blocks'
+// sums of g (sp = 1: the sum of g over t, rounded to the dtype, over t).
 int tb_ring_mean_add_bwd(const void* g, void* out, int64_t batch, int64_t t, int64_t d,
-                         int dtype, void* stream) {
-  if (batch <= 0 || t <= 0 || !rows_ok(batch * ((d + 31) / 32), d, dtype))
+                         int64_t sp, int dtype, void* stream) {
+  if (batch <= 0 || t <= 0 || sp <= 0 || t % sp || !rows_ok(batch * ((d + 31) / 32), d, dtype))
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return int(dtype == 0 ? launch_ring_mean_add<float, true>(g, nullptr, out, batch, t, d, st)
+  return int(dtype == 0 ? launch_ring_mean_add<float, true>(g, nullptr, out, batch, t, d, sp, st)
                         : launch_ring_mean_add<__nv_bfloat16, true>(g, nullptr, out, batch, t, d,
-                                                                    st));
+                                                                    sp, st));
 }
 
 }  // extern "C"

@@ -46,7 +46,14 @@ The wrappers over the hand-written CUDA kernels in ``csrc/elementwise.cu``:
   :func:`ring_mean_add_bwd` replaces its gradient, ``g + c`` with ``c``
   the sum of ``g`` over the sequence (in the dtype, as the vjp's
   ``reduce_sum`` runs) times ``1 / T`` in float32, rounded; it reaches
-  both ``x`` and ``delta``.
+  both ``x`` and ``delta``. Over an sp ring (``sp > 1``, the sequence the
+  ranks' blocks of ``T / sp`` rows in rank order) each block takes its own
+  mean, rank ``i`` folds the ranks' means around the ring in its own order
+  (``((0 + m_i) + m_{i-1}) + ...``, each add rounded to the dtype, as
+  ``ring_stream`` forms it) and multiplies by ``1 / sp`` in float32,
+  rounded; the gradient is the transposed ring over the blocks' sums. From
+  sp = 3 on the ranks' orders differ in the last bit; each rank keeps its
+  own.
 
 The reference rounds op by op: in bfloat16 every elementwise op of these
 chains (each multiply, add, tanh, exp and divide) rounds its result to
@@ -272,38 +279,90 @@ def mse_grad_scale(n: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(np.float32(1.0) / np.float32(n)).to(dtype))
 
 
-def mse_loss_plain(out: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def mse_loss_plain(out: torch.Tensor, y: torch.Tensor, ranks: int = 1
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(loss, d_out)``: ``mean((out - y)^2)`` with the difference and its
     square in the dtype, summed in float32 and rounded to the dtype
     (``jnp.mean``), and its gradient for d(loss) = 1, ``(1/n) * (2 diff)``
-    as autograd and ``jax.grad`` round it."""
+    as autograd and ``jax.grad`` round it. With ``ranks > 1`` the loss is
+    one of ``ranks`` equal blocks' whose mean (the ``pmean``) is the step's
+    loss, and ``d_out`` is for d(that mean) = 1: ``1 / (n ranks)``."""
     diff = out - y
     loss = diff.square().mean(dtype=_acc(out.dtype)).to(out.dtype)
-    return loss, (diff * 2.0) * mse_grad_scale(diff.numel(), out.dtype)
+    return loss, (diff * 2.0) * mse_grad_scale(diff.numel() * ranks, out.dtype)
 
 
-def ring_mean_add_plain(x: torch.Tensor, delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _sp_check(t: int, sp: int) -> int:
+    """The rows of one rank of the sp ring: ``t / sp``."""
+    if not isinstance(sp, int) or sp < 1 or t % sp:
+        raise ValueError(f"a sequence of {t} does not split over sp={sp}")
+    return t // sp
+
+
+def _ranks_mean(acc: torch.Tensor, sp: int, dtype: torch.dtype, forward: bool) -> torch.Tensor:
+    """The ring of ``_ring_context`` over the ranks' values ``acc`` ``(batch,
+    sp, d)`` in ``dtype``, rank by rank. Forward: rank ``i`` folds
+    ``((0 + v_i) + v_{i-1}) + ...`` (``ring_stream``'s hops, every add
+    rounded to the dtype), then multiplies by ``1 / sp`` in float32, as
+    XLA divides by a constant, rounded. Gradient: the ranks' ``v`` are
+    first scaled by ``1 / sp`` so, and rank ``i`` takes the transposed ring,
+    ``v_i + (v_{i+1} + (... + (v_{i+sp-1} + 0)))``."""
+    f32 = _acc(dtype)
+    inv = _reciprocal(sp, f32)
+    if not forward:
+        acc = (acc.to(f32) * inv).to(dtype)
+    ranks = range(sp)
+    total = torch.zeros_like(acc)
+    hops = range(sp) if forward else range(sp - 1, -1, -1)
+    for k in hops:
+        src = [(i - k) % sp if forward else (i + k) % sp for i in ranks]
+        total = total + acc[:, src] if forward else acc[:, src] + total
+    return (total.to(f32) * inv).to(dtype) if forward else total
+
+
+def ring_mean_add_plain(x: torch.Tensor, delta: Optional[torch.Tensor] = None,
+                        sp: int = 1) -> torch.Tensor:
     """``s + m`` over ``(batch, T, d)``: ``s = x + delta`` rounded to x's
     dtype (``x`` itself without ``delta``), ``m`` the sum over T by
     :func:`_row_sum` times ``1 / T`` in float32, rounded to the dtype, as
     jitted JAX forms ``jnp.mean(s, axis=1)``; the add rounded. The sum
     reads ``x + delta`` in float32 before its rounding to the dtype:
     XLA:CPU drops the jaxpr's rounding of ``s`` ahead of the mean's
-    conversion to float32, as it drops ``w``'s in :func:`rms_norm_bwd_plain`."""
+    conversion to float32, as it drops ``w``'s in :func:`rms_norm_bwd_plain`.
+
+    With ``sp > 1`` the sequence is ``sp`` ranks' blocks of ``T / sp`` rows:
+    each block's mean so (times ``sp / T``), folded around the ring and
+    divided by ``sp`` as ``_ring_context`` does (:func:`_ranks_mean`), and
+    added to its own block's rows."""
     s = x if delta is None else x + delta
     acc = _acc(s.dtype)
     wide = s if delta is None else x.to(acc) + delta.to(acc)
-    return s + (_row_sum(wide, dim=1) * _reciprocal(s.shape[1], acc)).to(s.dtype)
+    if sp == 1:
+        return s + (_row_sum(wide, dim=1) * _reciprocal(s.shape[1], acc)).to(s.dtype)
+    b, t, d = s.shape
+    tl = _sp_check(t, sp)
+    local = (_row_sum(wide.reshape(b, sp, tl, d), dim=2) * _reciprocal(tl, acc)).to(s.dtype)
+    m = _ranks_mean(local.reshape(b, sp, d), sp, s.dtype, forward=True)
+    return (s.reshape(b, sp, tl, d) + m[:, :, None]).reshape(b, t, d)
 
 
-def ring_mean_add_bwd_plain(g: torch.Tensor) -> torch.Tensor:
+def ring_mean_add_bwd_plain(g: torch.Tensor, sp: int = 1) -> torch.Tensor:
     """The gradient of :func:`ring_mean_add_plain`'s ``s``, as jitted
     ``jax.vjp`` of ``x + _ring_context(x)`` forms it: ``g + c``, ``c`` the
     sum of ``g`` over T by :func:`_row_sum` rounded to the dtype (the vjp's
-    ``reduce_sum`` runs in it), times ``1 / T`` in float32, rounded."""
+    ``reduce_sum`` runs in it), times ``1 / T`` in float32, rounded. With
+    ``sp > 1``: each block's sum so, through the transposed ring
+    (:func:`_ranks_mean`), then times ``sp / T`` in float32, rounded, and
+    added to the block's rows."""
     acc = _acc(g.dtype)
-    c = _row_sum(g, dim=1).to(g.dtype).to(acc) * _reciprocal(g.shape[1], acc)
-    return g + c.to(g.dtype)
+    if sp == 1:
+        c = _row_sum(g, dim=1).to(g.dtype).to(acc) * _reciprocal(g.shape[1], acc)
+        return g + c.to(g.dtype)
+    b, t, d = g.shape
+    tl = _sp_check(t, sp)
+    sums = _row_sum(g.reshape(b, sp, tl, d), dim=2).to(g.dtype).reshape(b, sp, d)
+    c = (_ranks_mean(sums, sp, g.dtype, forward=False).to(acc) * _reciprocal(tl, acc)).to(g.dtype)
+    return (g.reshape(b, sp, tl, d) + c[:, :, None]).reshape(b, t, d)
 
 
 # -- wrappers -----------------------------------------------------------------------
@@ -484,15 +543,18 @@ def moe_combine_bwd(dy: torch.Tensor, yr: torch.Tensor, g: torch.Tensor
     return d_yr, d_logit
 
 
-def mse_loss_fwd(out: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def mse_loss_fwd(out: torch.Tensor, y: torch.Tensor, ranks: int = 1
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4e-d. ``(loss, d_out)`` as :func:`mse_loss_plain` gives them: the
-    loss a 0-d tensor of out's dtype, ``d_out`` shaped like ``out``. The
-    loss adds the blocks' partial sums in block order, so a rerun repeats
-    it bit for bit."""
+    loss a 0-d tensor of out's dtype, ``d_out`` shaped like ``out`` (for
+    the mean of ``ranks`` such losses). The loss adds the blocks' partial
+    sums in block order, so a rerun repeats it bit for bit."""
     _check("out", out)
     _check("y", y, out)
+    if ranks < 1:
+        raise ValueError(f"ranks must be >= 1, got {ranks}")
     if out.device.type == "cpu":
-        return mse_loss_plain(out, y)
+        return mse_loss_plain(out, y, ranks)
     out, y = _card(out, y)
     n = out.numel()
     if n == 0:
@@ -505,53 +567,58 @@ def mse_loss_fwd(out: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torc
     with torch.cuda.device(out.device):
         rc = lib.tb_mse_loss_fwd(out.data_ptr(), y.data_ptr(), d_out.data_ptr(),
                                  partial.data_ptr(), loss.data_ptr(), n,
-                                 mse_grad_scale(n, out.dtype), _DTYPES[out.dtype],
+                                 mse_grad_scale(n * ranks, out.dtype), _DTYPES[out.dtype],
                                  kernels._stream(out.device))
     kernels._check_launch(lib, rc, "mse_loss_fwd")
     kernels._count("mse_loss_fwd")
     return loss, d_out
 
 
-def _check_ring(name: str, t: torch.Tensor) -> None:
+def _check_ring(name: str, t: torch.Tensor, sp: int = 1) -> None:
     _check(name, t)
     if t.dim() != 3:
         raise ValueError(f"{name}: {tuple(t.shape)}; want (batch, T, d)")
+    _sp_check(t.shape[1], sp)
 
 
-def _ring_launch(name: str, out: torch.Tensor, *ptrs) -> torch.Tensor:
+def _ring_launch(name: str, out: torch.Tensor, sp: int, *ptrs) -> torch.Tensor:
     """Launch K4f's forward or backward into ``out``, ``(batch, T, d)``."""
     if out.numel() == 0:
         return out
     lib = kernels.build()
     with torch.cuda.device(out.device):
-        rc = getattr(lib, f"tb_{name}")(*ptrs, out.data_ptr(), *out.shape, _DTYPES[out.dtype],
+        rc = getattr(lib, f"tb_{name}")(*ptrs, out.data_ptr(), *out.shape, sp, _DTYPES[out.dtype],
                                         kernels._stream(out.device))
     kernels._check_launch(lib, rc, name)
     kernels._count(name)
     return out
 
 
-def ring_mean_add_fwd(x: torch.Tensor, delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+def ring_mean_add_fwd(x: torch.Tensor, delta: Optional[torch.Tensor] = None,
+                      sp: int = 1) -> torch.Tensor:
     """K4f. :func:`ring_mean_add_plain`: ``s + mean_T(s)``, ``s = x +
-    delta``, over ``(batch, T, d)``; only the sum is written."""
-    _check_ring("x", x)
+    delta``, over ``(batch, T, d)``, the mean that of the sp ring (each
+    rank's block mean folded around it) with ``sp > 1``; only the sum is
+    written."""
+    _check_ring("x", x, sp)
     if delta is not None:
         _check("delta", delta, x)
     if x.device.type == "cpu":
-        return ring_mean_add_plain(x, delta)
+        return ring_mean_add_plain(x, delta, sp)
     x, delta = _card(x, delta)
-    return _ring_launch("ring_mean_add_fwd", torch.empty_like(x), x.data_ptr(),
+    return _ring_launch("ring_mean_add_fwd", torch.empty_like(x), sp, x.data_ptr(),
                         kernels._ptr(delta))
 
 
-def ring_mean_add_bwd(g: torch.Tensor) -> torch.Tensor:
+def ring_mean_add_bwd(g: torch.Tensor, sp: int = 1) -> torch.Tensor:
     """K4f's gradient. :func:`ring_mean_add_bwd_plain`: ``g`` plus its
-    sequence mean, as the reference rounds it."""
-    _check_ring("g", g)
+    sequence mean (through the transposed ring with ``sp > 1``), as the
+    reference rounds it."""
+    _check_ring("g", g, sp)
     if g.device.type == "cpu":
-        return ring_mean_add_bwd_plain(g)
+        return ring_mean_add_bwd_plain(g, sp)
     (g,) = _card(g)
-    return _ring_launch("ring_mean_add_bwd", torch.empty_like(g), g.data_ptr())
+    return _ring_launch("ring_mean_add_bwd", torch.empty_like(g), sp, g.data_ptr())
 
 
 # -- autograd -------------------------------------------------------------------------
@@ -616,14 +683,14 @@ class RingMeanAddFunction(torch.autograd.Function):
     nothing."""
 
     @staticmethod
-    def forward(ctx, x, delta):
-        ctx.has_delta = delta is not None
-        return ring_mean_add_fwd(x, delta)
+    def forward(ctx, x, delta, sp):
+        ctx.has_delta, ctx.sp = delta is not None, sp
+        return ring_mean_add_fwd(x, delta, sp)
 
     @staticmethod
     def backward(ctx, g):
-        g_s = ring_mean_add_bwd(g)
-        return g_s, g_s if ctx.has_delta else None
+        g_s = ring_mean_add_bwd(g, ctx.sp)
+        return g_s, g_s if ctx.has_delta else None, None
 
 
 def add_rms_norm(
@@ -641,11 +708,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return GeluFunction.apply(x)
 
 
-def ring_mean_add(x: torch.Tensor, delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+def ring_mean_add(x: torch.Tensor, delta: Optional[torch.Tensor] = None,
+                  sp: int = 1) -> torch.Tensor:
     """``s + mean_T(s)``, ``s = x + delta``, differentiable: with ``heads =
-    0``, the last MLP residual add and ``x + _ring_context(x)`` on one rank,
-    and their ``jax.vjp``, rounded as the reference rounds them."""
-    return RingMeanAddFunction.apply(x, delta)
+    0``, the last MLP residual add and ``x + _ring_context(x)`` over an sp
+    ring of ``sp`` ranks (the sequence their blocks, in rank order), and
+    their ``jax.vjp``, rounded as the reference rounds them."""
+    return RingMeanAddFunction.apply(x, delta, sp)
 
 
 def moe_combine(s: torch.Tensor, yr: torch.Tensor, logit: torch.Tensor) -> torch.Tensor:

@@ -221,8 +221,8 @@ def build() -> ctypes.CDLL:
             lib.tb_mse_loss_blocks.restype = i64
             lib.tb_mse_loss_fwd.argtypes = [p, p, p, p, p, i64, ctypes.c_float, c_int, p]
             lib.tb_mse_loss_sum.argtypes = [p, i64, p, i64, c_int, p]
-            lib.tb_ring_mean_add_fwd.argtypes = [p, p, p, i64, i64, i64, c_int, p]
-            lib.tb_ring_mean_add_bwd.argtypes = [p, p, i64, i64, i64, c_int, p]
+            lib.tb_ring_mean_add_fwd.argtypes = [p, p, p, i64, i64, i64, i64, c_int, p]
+            lib.tb_ring_mean_add_bwd.argtypes = [p, p, i64, i64, i64, i64, c_int, p]
             # the leaves' pointers and sizes as host arrays, read before the launch
             lib.tb_sgd_update_multi.argtypes = [
                 p, p, p, p, c_int, c_int, c_int, ctypes.c_float, ctypes.c_float, p

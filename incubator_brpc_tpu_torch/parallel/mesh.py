@@ -10,11 +10,16 @@ device count):
     sp — sequence/stream ring (StreamingRPC over neighbors)
     ep — expert/dynamic partition groups (DynamicPartitionChannel)
 
-This slice runs on one card: :func:`make_fabric_mesh` takes one device and
-every axis is 1, so each collective of the JAX package is an identity. The
-mesh over several ``torch.distributed`` ranks is a later slice. The JAX
-package's ``parallel/compat.py`` (the ``shard_map`` seam across JAX
-versions) has no counterpart: nothing here is traced.
+One card holds every rank of the mesh, as JAX's eight virtual CPU devices
+do in the JAX package's tests: :func:`make_fabric_mesh` takes any factoring
+of ``n`` ranks over the axes, and the mesh records the axis sizes, the rank
+order (C order over :data:`FABRIC_AXES`, dp slowest, ep fastest, as the JAX
+mesh reshapes its devices) and the device. A tensor sharded over an axis
+carries that axis's ranks in a leading dimension, in mesh order, and each
+collective is a tensor operation over it (``parallel/collective.py``). The
+mesh over several ``torch.distributed`` ranks, one rank a process, is a
+later slice. The JAX package's ``parallel/compat.py`` (the ``shard_map``
+seam across JAX versions) has no counterpart: nothing here is traced.
 
 :class:`PartyAxis` is the party axis of a collective session
 (``parallel/mc_dispatch.py``), the axis the JAX kernels name ``"par"``. In
@@ -66,10 +71,29 @@ def default_axis_sizes(n_devices: int) -> Dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class FabricMesh:
-    """The axis sizes (``shape``, over :data:`FABRIC_AXES`) and the device."""
+    """The axis sizes (``shape``, over :data:`FABRIC_AXES`) and the one
+    device that holds every rank. Rank ``r`` has the coordinates of ``r`` in
+    C order over the axes (:meth:`coords`)."""
 
     shape: Dict[str, int]
     device: torch.device
+
+    @property
+    def size(self) -> int:
+        """The number of ranks."""
+        n = 1
+        for ax in FABRIC_AXES:
+            n *= self.shape[ax]
+        return n
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """The coordinates of ``rank``: dp slowest, ep fastest."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        out = {}
+        for ax in reversed(FABRIC_AXES):
+            rank, out[ax] = divmod(rank, self.shape[ax])
+        return {ax: out[ax] for ax in FABRIC_AXES}
 
 
 def make_fabric_mesh(
@@ -77,22 +101,22 @@ def make_fabric_mesh(
     axis_sizes: Optional[Dict[str, int]] = None,
     device: DeviceLike = None,
 ) -> FabricMesh:
-    """The fabric mesh of one card (``cuda`` unless ``device="cpu"``).
-    Raises for more than one rank: the multi-rank mesh is a later slice."""
+    """The fabric mesh of ``n_devices`` ranks, all on one device (``cuda``
+    unless ``device="cpu"``): ``axis_sizes`` (default
+    :func:`default_axis_sizes`) must factor ``n_devices``; an axis it does
+    not name is 1."""
     if axis_sizes is None:
         axis_sizes = default_axis_sizes(n_devices)
+    unknown = set(axis_sizes) - set(FABRIC_AXES)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}; the axes are {FABRIC_AXES}")
     shape = {ax: int(axis_sizes.get(ax, 1)) for ax in FABRIC_AXES}
-    n = 1
-    for ax in FABRIC_AXES:
-        n *= shape[ax]
-    if n != n_devices:
+    if any(v < 1 for v in shape.values()):
+        raise ValueError(f"axis sizes {axis_sizes}: each must be >= 1")
+    mesh = FabricMesh(shape=shape, device=resolve_device(device))
+    if mesh.size != n_devices:
         raise ValueError(f"axis sizes {axis_sizes} do not factor {n_devices} devices")
-    if n_devices != 1:
-        raise ValueError(
-            f"a mesh of {n_devices} ranks: this port runs one card; the mesh over "
-            "torch.distributed ranks is ROADMAP slice 4"
-        )
-    return FabricMesh(shape=shape, device=resolve_device(device))
+    return mesh
 
 
 @dataclasses.dataclass(frozen=True)

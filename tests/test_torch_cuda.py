@@ -11,8 +11,10 @@ add and RMS norm, on both sides of the rows it keeps in registers, within
 ``NORM_TOL``; the norm's backward, the tanh GeLU and its backward bit for
 bit, but for elements within ``TRANSCENDENTAL_ULPS`` that pass through
 tanhf) against its plain versions, K4f (the heads = 0 ring mean, forward
-and gradient) bit for bit against its plain versions, one FabricNet train
-step on the card against the CPU with heads 2 and with heads 0, K2 (block quantize and dequantize-mean)
+and gradient, at sp 1 and over the sp ring) bit for bit against its plain
+versions, one FabricNet train step on the card against the CPU with heads 2
+and with heads 0, one step on the {pp2 sp2 ep2} mesh (8 ranks on the card)
+against the same step with every plain version, K2 (block quantize and dequantize-mean)
 against its plain versions and the numpy twin bit for bit on
 ``chip_smoke.py``'s rows, in each form (vector and general) with the form
 each launch took asserted, one quantized session on the card against the
@@ -737,6 +739,56 @@ def test_k4f_matches_plain_versions(cuda, shape, offset, dtype):
     assert all(e == 0.0 for name in chip_smoke.K4F for e in errs[name].values())
 
 
+@pytest.mark.parametrize("shape,offset,sp", chip_smoke.K4F_SP_CASES + [((3, 36, 40), True, 2)],
+                         ids=["2x1024x2048-sp2", "2x1024x2048-sp4", "3x36x40-sp3", "odd-d-sp2",
+                              "offset-sp4", "past-shared-sp3", "offset-sp2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4f_sp_form_matches_plain_versions(cuda, shape, offset, sp, dtype):
+    """K4f's sp form (each rank's block mean folded around the sp ring in
+    the rank's own order) bit for bit its plain versions, forward with
+    delta and without and the gradient, one launch each."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(shape) + offset + sp)
+    errs = {name: {} for name in chip_smoke.K4F}
+    before = kernels.launch_counts()
+    chip_smoke.k4f_case(torch, elementwise, gen, cuda, shape, dtype, offset, errs, sp)
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in chip_smoke.K4F} == {
+        "ring_mean_add_fwd": 2, "ring_mean_add_bwd": 1}
+    assert all(e == 0.0 for name in chip_smoke.K4F for e in errs[name].values())
+
+
+@pytest.mark.parametrize("heads", [2, 0], ids=["heads2", "heads0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mesh_step_with_kernels_matches_plain_versions(cuda, heads, dtype):
+    """One fused train step on {pp2 sp2 ep2}, all 8 ranks on the card, at
+    ``chip_smoke.MESH_SMALL``: with the kernels against the same step with
+    every plain version from the same parameters
+    (``chip_smoke.mesh_step_check``): the loss, every leaf's gradient and
+    the update bit for bit, float32 within ``MESH_SMALL_F32_TOL`` and
+    bfloat16 within phase 7d's tolerances, each planted 1% fault in a
+    backward kernel refused; the launches as phase 7d counts them."""
+    cfg = fabricnet.FabricNetConfig(heads=heads, dtype=dtype, **chip_smoke.MESH_SMALL)
+    mesh = make_fabric_mesh(8, axis_sizes={"pp": 2, "sp": 2, "ep": 2}, device=cuda)
+    start = fabricnet.init_params(cfg, mesh, seed=21)
+    x, y = fabricnet.make_batch(cfg, mesh, seed=22)
+    step = fabricnet.make_train_step(cfg, mesh)
+    before = kernels.launch_counts()
+    step({k: v.clone() for k, v in start.items()}, x, y)
+    after = kernels.launch_counts()
+    with chip_smoke.plain_versions():
+        step({k: v.clone() for k, v in start.items()}, x, y)
+    assert kernels.launch_counts() == after  # the plain versions launch nothing
+    got = {n: after[n] - before[n] for n in chip_smoke.K4 + chip_smoke.K4F + chip_smoke.K4E}
+    assert got == {**chip_smoke.k4_launches_per_step(cfg, 2),
+                   **chip_smoke.k4e_launches_per_step(cfg, "fused", mesh.shape)}
+    if dtype == torch.bfloat16:
+        assert {n: after[n] - before[n] for n in chip_smoke.K3} == \
+            chip_smoke.k3_launches_per_step(cfg, mesh.shape)
+    r = chip_smoke.mesh_step_check(torch, fabricnet, cfg, mesh, start, x, y)
+    chip_smoke.hold_mesh_step(r, "mesh step", *chip_smoke.mesh_step_tols(torch, dtype))
+
+
 def test_k4f_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((2, 8, 16), device=cuda)
     before = kernels.launch_counts()
@@ -746,6 +798,8 @@ def test_k4f_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         elementwise.ring_mean_add_bwd(x[0])
     with pytest.raises(ValueError, match="delta"):
         elementwise.ring_mean_add_fwd(x, x.bfloat16())
+    with pytest.raises(ValueError, match="sp=3"):
+        elementwise.ring_mean_add_fwd(x, None, 3)
     assert kernels.launch_counts() == before
 
 

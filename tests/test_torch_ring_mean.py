@@ -187,3 +187,144 @@ def test_wrappers_refuse_what_they_do_not_take():
         E.ring_mean_add_fwd(x, torch.zeros((2, 4, 7)))
     with pytest.raises(TypeError):
         E.ring_mean_add_bwd(torch.zeros((2, 4, 8), dtype=torch.int32))
+
+
+# -- K4f over the sp ring (sp > 1) ------------------------------------------------
+#
+# ``_ring_context`` inside ``shard_map`` over sp of the 8 virtual CPU devices,
+# the sequence sharded over sp, against the plain versions with ``sp``; the
+# same tolerances as above. Rank i's block mean is folded around the ring in
+# rank i's own order and multiplied by 1/sp in float32 (XLA's division by a
+# constant), so from sp = 3 on the ranks' means may differ in the last bit:
+# with sums that are exact in any order (integer inputs) the port is bit for
+# bit JAX's in both dtypes, forward and gradient, and one fold order for
+# every rank is not.
+
+SP_SHAPES = [(2, 24, 8), (3, 36, 40), (2, 96, 1000)]
+SP_SHAPE_IDS = ["2x24x8", "3x36x40", "2x96x1000"]
+# bf16 gradient elements that differ from jitted JAX's, by (sp, shape): the
+# blocks' reduce_sum runs in bfloat16 in XLA:CPU's order, as at sp = 1
+SP_GRAD_DIFFERING = {
+    (2, (2, 24, 8)): 59, (2, (3, 36, 40)): 993, (2, (2, 96, 1000)): 38704,
+    (3, (2, 24, 8)): 89, (3, (3, 36, 40)): 1006, (3, (2, 96, 1000)): 43069,
+    (4, (2, 24, 8)): 82, (4, (3, 36, 40)): 955, (4, (2, 96, 1000)): 39902,
+}
+
+
+def _jax_sp(x, delta, g, sp):
+    """``s + _ring_context(s)``, ``s = x + delta``, and its vjp at ``g``,
+    jitted inside ``shard_map`` over ``sp`` devices, the sequence sharded."""
+    mesh = Mesh(np.array(jax.devices()[:sp]), ("sp",))
+
+    def f(x, delta, g):
+        def block(x, delta):
+            s = x + delta
+            return s + jax_fn._ring_context(s)
+        out, vjp = jax.vjp(block, x, delta)
+        return (out,) + vjp(g)
+
+    spec = P(None, "sp", None)
+    return jax.jit(shard_map_compat(f, mesh=mesh, in_specs=(spec,) * 3,
+                                    out_specs=(spec,) * 3))(x, delta, g)
+
+
+def _sp_inputs(shape, integers=False):
+    rng = np.random.default_rng(sum(shape) + 3)
+    if integers:
+        return [rng.integers(-8, 9, shape).astype(np.float32) for _ in range(3)]
+    return [(rng.standard_normal(shape) * scale).astype(np.float32) for scale in (2.0, 1.0, 1.0)]
+
+
+@pytest.fixture(scope="module")
+def jax_sp_results():
+    """JAX's forward and gradients, by (dtype, sp, shape, integers)."""
+    out = {}
+    for dtype, (jdt, _) in DTYPES.items():
+        for sp in (2, 3, 4):
+            for shape in SP_SHAPES:
+                for integers in (False, True):
+                    args = [jnp.asarray(a, jdt) for a in _sp_inputs(shape, integers)]
+                    out[dtype, sp, shape, integers] = _jax_sp(*args, sp)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sp", [2, 3, 4])
+@pytest.mark.parametrize("shape", SP_SHAPES, ids=SP_SHAPE_IDS)
+def test_ring_mean_add_over_sp_matches_jax(jax_sp_results, dtype, sp, shape):
+    tdt = DTYPES[dtype][1]
+    j_out, j_gx, j_gd = jax_sp_results[dtype, sp, shape, False]
+    tx, td, tg = (torch.from_numpy(a).to(tdt) for a in _sp_inputs(shape))
+    out = E.ring_mean_add_fwd(tx, td, sp)
+    g_s = E.ring_mean_add_bwd(tg, sp)
+    assert torch.equal(out, E.ring_mean_add_plain(tx, td, sp))
+    assert torch.equal(g_s, E.ring_mean_add_bwd_plain(tg, sp))
+    assert _differing(j_gx, j_gd) == 0
+    if dtype == "float32":
+        _close(out, j_out, FWD_TOL)
+        _close(g_s, j_gx, GRAD_TOL)
+        return
+    assert _differing(out, j_out) == 0
+    _close(g_s, j_gx, BF16_ULP)
+    assert _differing(g_s, j_gx) == SP_GRAD_DIFFERING[sp, tuple(shape)]
+
+
+def _one_order(x, delta, sp):
+    """The forward with every rank folding the means in rank order 0, 1, ...:
+    not JAX's ring (a test that cannot tell it apart holds nothing)."""
+    s = x + delta
+    b, t, d = s.shape
+    local = (s.float().reshape(b, sp, t // sp, d).sum(dim=2) * (np.float32(1) / np.float32(t // sp))
+             ).to(s.dtype)
+    acc = torch.zeros_like(local[:, 0])
+    for j in range(sp):
+        acc = acc + local[:, j]
+    m = (acc.float() * (np.float32(1) / np.float32(sp))).to(s.dtype)
+    return s + m[:, None]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sp", [2, 3, 4])
+@pytest.mark.parametrize("shape", SP_SHAPES[:2], ids=SP_SHAPE_IDS[:2])
+def test_ring_mean_add_over_sp_bit_for_bit_where_sums_are_exact(jax_sp_results, dtype, sp, shape):
+    tdt = DTYPES[dtype][1]
+    j_out, j_gx, _ = jax_sp_results[dtype, sp, shape, True]
+    tx, td, tg = (torch.from_numpy(a).to(tdt) for a in _sp_inputs(shape, integers=True))
+    out = E.ring_mean_add_plain(tx, td, sp)
+    assert _differing(out, j_out) == 0
+    assert _differing(E.ring_mean_add_bwd_plain(tg, sp), j_gx) == 0
+    if sp >= 3 and shape == SP_SHAPES[1]:  # 2 x 24 x 8 has too few columns to show it
+        assert _differing(_one_order(tx, td, sp), j_out) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_one_is_the_one_rank_form(dtype):
+    """``sp=1`` is the function of the tests above, bit for bit (no ring, no
+    ``0 +``)."""
+    tdt = DTYPES[dtype][1]
+    x, delta, g = (torch.from_numpy(a).to(tdt) for a in _inputs((4, 33, 40)))
+    assert torch.equal(E.ring_mean_add_plain(x, delta, 1), E.ring_mean_add_plain(x, delta))
+    assert torch.equal(E.ring_mean_add_bwd_plain(g, 1), E.ring_mean_add_bwd_plain(g))
+
+
+@pytest.mark.parametrize("sp", [2, 3])
+def test_autograd_over_sp_is_the_plain_backward(sp):
+    x, delta, g = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs((3, 36, 40)))
+    x.requires_grad_()
+    delta.requires_grad_()
+    out = E.ring_mean_add(x, delta, sp)
+    assert torch.equal(out, E.ring_mean_add_plain(x.detach(), delta.detach(), sp))
+    gx, gd = torch.autograd.grad(out, [x, delta], g)
+    want = E.ring_mean_add_bwd_plain(g, sp)
+    assert torch.equal(gx, want) and torch.equal(gd, want)
+    x64, d64 = (torch.from_numpy(np.random.default_rng(9).standard_normal((2, 6, 3)))
+                .requires_grad_() for _ in range(2))
+    assert torch.autograd.gradcheck(lambda a, b: E.ring_mean_add(a, b, sp), (x64, d64))
+
+
+def test_wrappers_refuse_a_sequence_sp_does_not_split():
+    x = torch.zeros((2, 6, 8))
+    with pytest.raises(ValueError, match="sp=4"):
+        E.ring_mean_add_fwd(x, None, 4)
+    with pytest.raises(ValueError, match="sp=0"):
+        E.ring_mean_add_bwd(x, 0)

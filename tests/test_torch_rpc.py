@@ -519,7 +519,13 @@ def test_device_rpc_16_callers_with_fiber_concurrency_4():
             t.join(timeout=300)
             assert not t.is_alive()
         assert errors == []
-        assert srv.method_status("tensor", "echo").latency.count() == 128
+        # the server records a call's latency after its response is on the
+        # wire, so the last caller may return first: wait for the record
+        latency = srv.method_status("tensor", "echo").latency
+        deadline = time.monotonic() + 10
+        while latency.count() < 128 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert latency.count() == 128
     finally:
         sys.setswitchinterval(switch)
         port_flags.set_flag_unchecked("fiber_concurrency", 8)
