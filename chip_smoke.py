@@ -3,7 +3,8 @@
 path (K1), directly and as RPC through the port's Server and Channel over
 TCP and over the two-party device link (with the quantized pmean device
 method, K2, over the link) and fanned out by the combo channels over load
-balancers and naming, the
+balancers and naming, streaming RPC, the link whose halves live in two
+processes (device RPC over it in a worker process), the
 FabricNet train step with ring attention (K3), its
 elementwise chain (K4) and the rest of what XLA fuses around its matrix
 products (K4e: the SGD update, the MoE's gate and combine, the loss), in
@@ -88,6 +89,25 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    scheme: both serve, bitwise; (d) a SelectiveChannel over 3 servers, one
    stopped mid-run: every call answered. All sub-links share the card, so
    each takes the host swap and the fused lowering does not arise;
+3e. drives streaming RPC and the multi-controller link across processes
+   (``mc_phase``): (a) a stream of ``STREAM_MSGS`` seeded messages of 1 KiB
+   to 1 MiB (window ``STREAM_MAX_BUF``, below their total, so the writer
+   parks) over TCP and over a ``transport="tpu"`` link in the forced device
+   form on cuda:0, each message's length and CRC-32 checked in order at
+   the server, messages/s and MB/s, two runs each in turns; (b)
+   ``transport/mc_worker.py``'s two-process pair, both processes on cuda:0
+   over gloo (NCCL refuses two ranks on one card): 8 echoes of 3000 B and
+   20 device RPCs of the echo table (``DeviceEndpoint.server_handler()`` in
+   the server process, whose K1a and K1c launches it reports and this
+   asserts), the windowed burst (4 x 20000 B, 128-word slots, window 2,
+   over 160 steps), both halves of each link at one final step count with
+   their slot rows CUDA tensors (``halves_agree``); steps, ``peer_ack``,
+   ``final_target``, ms an echo, steps/s and host ms an exchange; and the
+   probe's gloo exchange of cuda:0 rows against host rows at 256 and
+   16,384 slot words (the staging); (c) the three-process fabric, a
+   PartitionChannel over two multi links; (d) peer death: the server
+   process exits inside a call, which fails with EFAILEDSOCKET (its
+   duration printed);
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -1625,6 +1645,223 @@ def combo_phase(torch, kernels, svc):
             s.close()
         shutdown_host_plane()
     return out, launches
+
+
+# -- phase 3e: streaming RPC and the multi-controller link across processes ----
+
+STREAM_MSGS = 20  # seeded messages from 1 KiB to 1 MiB
+STREAM_MAX_BUF = 256 << 10  # the writer's window, far below the 4.3 MiB the messages total
+STREAM_RUNS = ("tcp", "link", "link", "tcp")
+MC_PAIR_RPCS = 8
+MC_DEVICE_RPCS = 20
+MC_BURST = ("--n-rpcs", "4", "--payload", "20000", "--slot-words", "128", "--window", "2")
+MC_PROBE_WORDS = (256, 16384)  # the pair's slot width and the link's default
+MC_PROBE_ITERS = 50
+MC_TIMEOUT_S = 300.0
+
+
+def stream_messages(seed: int = 41):
+    """The stream's messages: seeded sizes from 1 KiB to 1 MiB, seeded bytes."""
+    rng = np.random.default_rng(seed)
+    sizes = np.round(2.0 ** rng.uniform(10, 20, STREAM_MSGS)).astype(int)
+    sizes[0], sizes[-1] = 1 << 10, 1 << 20
+    return [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes() for n in sizes]
+
+
+class StreamCheck:
+    """Server half's record of one stream: each message's length and CRC-32
+    in arrival order, and when the last arrived."""
+
+    def __init__(self, want: int):
+        self.got = []
+        self.want = want
+        self.done = threading.Event()
+        self.t_done = None
+
+    def on_received_messages(self, stream, messages):
+        for m in messages:
+            self.got.append((len(m), zlib.crc32(m)))
+        if len(self.got) >= self.want:
+            self.t_done = time.perf_counter()
+            self.done.set()
+
+    def on_closed(self, stream):
+        pass
+
+    def on_failed(self, stream, code, reason):
+        self.done.set()
+
+
+def stream_run(rpc, ch, checks, msgs):
+    """One stream of ``msgs`` over ``ch``: opened by an RPC, written with
+    the ``STREAM_MAX_BUF`` window (the writer parks when it is full), every
+    message checked in order by its length and CRC-32 at the server.
+    Returns (messages/s, MB/s, writes that found the window full)."""
+    s = rpc.stream_create(rpc.StreamOptions(max_buf_size=STREAM_MAX_BUF))
+    cntl = ch.call_method("stream", "open", b"%d" % len(msgs), request_stream=s)
+    if not cntl.ok() or not s.wait_connected(timeout=60):
+        raise AssertionError(f"phase3e stream not accepted: code {cntl.error_code} {cntl.error_text}")
+    check = checks[int(cntl.response_payload)]
+    full = 0
+    t0 = time.perf_counter()
+    for m in msgs:
+        if s.unconsumed_bytes >= STREAM_MAX_BUF:
+            full += 1
+        rc = s.write(m, timeout=60)
+        if rc != 0:
+            raise AssertionError(f"phase3e stream write: code {rc}")
+    if not check.done.wait(120) or check.t_done is None:
+        raise AssertionError(f"phase3e stream: {len(check.got)} of {len(msgs)} messages arrived")
+    wall = check.t_done - t0
+    if check.got != [(len(m), zlib.crc32(m)) for m in msgs]:
+        raise AssertionError("phase3e stream: messages out of order or corrupt")
+    s.close()
+    return len(msgs) / wall, sum(map(len, msgs)) / wall / 1e6, full
+
+
+def forced_device_links(dl):
+    """While active, the links a handshake builds take the forced device
+    form (each step's slots swapped on the card, not the host swap)."""
+    class Forced(dl.DeviceLink):
+        def __init__(self, devices, slot_words=16384, window=8, host_loopback=None,
+                     ack_mode="local"):
+            super().__init__(devices, slot_words, window, False, ack_mode)
+
+    return patched([(dl, "DeviceLink", Forced)])
+
+
+def halves_agree(client_link, server_link, label, device="cuda:0"):
+    """Both halves of one link dispatched the same steps and agree on one
+    final target; their rows were on ``device``."""
+    if (client_link["final_target"] is None
+            or client_link["final_target"] != server_link["final_target"]
+            or not client_link["steps"] == server_link["steps"] == client_link["final_target"]):
+        raise AssertionError(f"{label}: the halves disagree: {client_link} vs {server_link}")
+    for half in (client_link, server_link):
+        if half["row_device"] != device:
+            raise AssertionError(f"{label}: slot rows on {half['row_device']}, not {device}")
+        if half["peer_ack"] <= 0:
+            raise AssertionError(f"{label}: wire acks never advanced")
+
+
+def mc_phase(torch, kernels, device="cuda:0"):
+    """Phase 3e: (a) streams over TCP and over the forced device form of a
+    link on the card; (b) the two-process pair on cuda:0 over gloo: echoes,
+    device RPC (K1 counted in the server), the windowed burst and gloo's
+    staging; (c) the three-process fabric; (d) peer death. Returns (detail,
+    the server's K1 launches). ``device="cpu"`` rehearses it on the CPU
+    (tests/test_torch_mc_link.py), where no kernel launches."""
+    from incubator_brpc_tpu_torch import rpc
+    from incubator_brpc_tpu_torch.transport import device_link as dl
+    from incubator_brpc_tpu_torch.transport import mc_worker as mc
+    from incubator_brpc_tpu_torch.utils.status import ErrorCode
+
+    out = {}
+    # (a) streams
+    checks = []
+    msgs = stream_messages()
+
+    def open_stream(cntl, request):
+        checks.append(StreamCheck(int(request)))
+        rpc.stream_accept(cntl, rpc.StreamOptions(handler=checks[-1]))
+        return b"%d" % (len(checks) - 1)
+
+    server = rpc.Server(rpc.ServerOptions(device=device))
+    server.add_service("stream", {"open": open_stream})
+    if not server.start(0):
+        raise AssertionError("phase3e: the stream server did not start")
+    try:
+        chans = {}
+        for name, transport in (("tcp", "tcp"), ("link", "tpu")):
+            chans[name] = rpc.Channel()
+            chans[name].init(f"127.0.0.1:{server.port}",
+                             options=rpc.ChannelOptions(transport=transport, timeout_ms=120_000))
+        with forced_device_links(dl):
+            stream_run(rpc, chans["link"], checks, msgs[:2])  # the handshake, off the clock
+        link = chans["link"]._device_sock.link
+        if link._step is None or [str(d) for d in link.devices] != [device, device]:
+            raise AssertionError(f"phase3e the stream's link is not the forced device form on "
+                                 f"{device}: {link.devices}, step {link._step}")
+        runs = {"tcp": [], "link": []}
+        for name in STREAM_RUNS:
+            runs[name].append(stream_run(rpc, chans[name], checks, msgs))
+        out["stream"] = {name: [{"msgs_per_s": r[0], "mb_per_s": r[1], "full_writes": r[2]}
+                                for r in rs] for name, rs in runs.items()}
+        if not all(r[2] > 0 for rs in runs.values() for r in rs):
+            raise AssertionError("phase3e: a stream's writer never found its window full")
+        log(f"phase3e (a) streams, {STREAM_MSGS} messages of 1 KiB-1 MiB "
+            f"({sum(map(len, msgs)) / 2**20:.2f} MiB), window {STREAM_MAX_BUF >> 10} KiB, "
+            "every message in order with its CRC-32: "
+            + "; ".join(f"{name} " + ", ".join(f"{r[0]:.1f} msgs/s {r[1]:.1f} MB/s ({r[2]} writes "
+                                               "found the window full)" for r in rs)
+                        for name, rs in runs.items())
+            + f"; the link in the forced device form on {device}")
+    finally:
+        server.stop()
+        server.join(timeout=60)
+        rpc.shutdown_host_plane()
+
+    # (b) the two-process pair on cuda:0, gloo
+    dev = dict(device=device, backend="gloo", timeout=MC_TIMEOUT_S)
+    t0 = time.perf_counter()
+    pair, _ = mc.orchestrate_pair(extra=("--n-rpcs", str(MC_PAIR_RPCS),
+                                         "--device-rpcs", str(MC_DEVICE_RPCS)),
+                                  server_extra=("--device-echo",), **dev)
+    out["pair_s"] = time.perf_counter() - t0
+    srv = pair["servers"]["server"]
+    halves_agree(pair, srv["links"][0], "phase3e (b) pair", device)
+    if pair["steps"] < MC_PAIR_RPCS or pair["device_rpcs"] != MC_DEVICE_RPCS:
+        raise AssertionError(f"phase3e (b) pair: {pair}")
+    k1 = srv["k1_launches"]
+    missing = [n for n in ("frame_rows", "echo_step_rows") if not k1[n]]
+    if missing and device != "cpu":
+        raise AssertionError(f"phase3e (b): kernels not launched in the server process: {missing}")
+    out["pair"] = pair
+    log(f"phase3e (b) two-process pair (ranks {[p[0] for p in pair['parties']]}, both "
+        f"{pair['parties'][0][1]}, gloo; slot rows on {pair['row_device']}): {MC_PAIR_RPCS} echoes "
+        f"of {pair['payload']} B {pair['echo_ms']:.2f} ms a call ({pair['echo_steps_per_s']:.1f} "
+        f"steps/s) and {MC_DEVICE_RPCS} device RPCs "
+        f"of the echo table (256 B) bitwise; steps {pair['steps']}, peer_ack {pair['peer_ack']}, "
+        f"final_target {pair['final_target']} on both halves; host time per exchange "
+        f"{pair['exchange_ms']:.3f} ms (client), {srv['links'][0]['exchange_ms']:.3f} ms (server); "
+        f"K1 in the server process {k1}; {out['pair_s']:.1f} s with the processes' start")
+    burst, _ = mc.orchestrate_pair(extra=MC_BURST, **dev)
+    halves_agree(burst, burst["servers"]["server"]["links"][0], "phase3e (b) burst", device)
+    if burst["steps"] <= 160:
+        raise AssertionError(f"phase3e (b) burst: {burst['steps']} steps, want > 160")
+    out["burst"] = burst
+    log(f"phase3e (b) windowed burst (4 x 20000 B, 128-word slots, window 2): steps "
+        f"{burst['steps']}, peer_ack {burst['peer_ack']}, final_target {burst['final_target']}, "
+        f"host time per exchange {burst['exchange_ms']:.3f} ms, {burst['echo_ms']:.2f} ms an echo "
+        f"({burst['echo_steps_per_s']:.1f} steps/s)")
+    probe = mc.orchestrate_probe(words=MC_PROBE_WORDS, iters=MC_PROBE_ITERS, **dev)
+    out["probe"] = probe
+    log(f"phase3e (b) gloo's exchange of {device} rows against host rows, two processes, "
+        f"{MC_PROBE_ITERS} exchanges a width: "
+        + "; ".join(f"rank {r['rank']} " + ", ".join(
+            f"{w} words: " + ", ".join(f"{k} {v:.3f} ms" for k, v in rec.items())
+            for w, rec in r["widths"].items()) for r in probe))
+
+    # (c) the three-process fabric
+    fabric, _ = mc.orchestrate_fabric(n_servers=2, extra=("--n-rpcs", "8"), **dev)
+    for lk in fabric["links"]:
+        halves_agree(lk, fabric["servers"][f"server{lk['parties'][1][0]}"]["links"][0],
+                     "phase3e (c) fabric", device)
+    out["fabric"] = fabric
+    log(f"phase3e (c) three-process fabric, PartitionChannel over two multi links from rank "
+        f"{fabric['links'][0]['parties'][0][0]}: 8 fan-outs {fabric['fanout_ms']:.2f} ms each; "
+        + "; ".join(f"link to rank {lk['parties'][1][0]} steps {lk['steps']}, peer_ack "
+                    f"{lk['peer_ack']}, final_target {lk['final_target']}" for lk in fabric["links"]))
+
+    # (d) peer death
+    death, transcript = mc.orchestrate_peer_death(die_after=3, **dev)
+    if death["error_code"] != ErrorCode.EFAILEDSOCKET or "SERVER_DYING" not in transcript:
+        raise AssertionError(f"phase3e (d) peer death: {death}")
+    out["peer_death"] = death
+    log(f"phase3e (d) peer death: the server process exited inside call {death['failed_at']}; "
+        f"the call failed with EFAILEDSOCKET after {1e3 * death['fail_s']:.1f} ms "
+        f"({death['ok_before_death']} calls answered before)")
+    return out, k1
 
 
 # -- K3 and the FabricNet train step (phases 5-8) -----------------------------
@@ -3797,6 +4034,12 @@ def main() -> int:
     combo["phase_s"] = time.perf_counter() - t0
     log(f"phase3d: {combo['phase_s']:.1f} s, the servers' start and stop included")
 
+    # -- phase 3e: streams and the multi-controller link across processes ----
+    t0 = time.perf_counter()
+    mc, mc_k1 = mc_phase(torch, kernels)
+    mc["phase_s"] = time.perf_counter() - t0
+    log(f"phase3e: {mc['phase_s']:.1f} s, the worker processes' start included")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -3836,6 +4079,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": rpc_launches[name],
             "endpoint_launches": launches[name], "link_launches": link_k1[name],
             "combo_launches": {part: combo_launches[part][name] for part in ("a", "c", "e")},
+            "mc_launches": mc_k1[name],
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
@@ -3885,6 +4129,7 @@ def main() -> int:
                        "device_link": link,
                        "link_launches": {"rpc": link_k1, "device_method": link_k2},
                        "combo": combo, "combo_launches": combo_launches,
+                       "multi_controller": mc, "mc_launches": mc_k1,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],

@@ -1,12 +1,12 @@
 """protocol — the host wire protocol and its registry (reference L4,
 src/brpc/policy/).
 
-tbus_std is the port's one host protocol, registered as the JAX package
-registers it without its native runtime: ``parse=try_parse_frame``, no
-``parse_iobuf``. Frames are cut by ``parse_header`` first, so a frame over
+tbus_std is the port's one host protocol: ``parse=try_parse_frame`` and
+``parse_iobuf=parse_frame_iobuf`` (the cut on the read IOBuf, in Python).
+Frames are sized by ``parse_header`` first, so a frame over
 ``max_body_size`` is refused from its header (transport/messenger.py).
 ``rpc/channel.py`` and ``rpc/server.py`` bind its response and request
-hooks at import.
+hooks at import, and ``rpc/stream.py`` its stream hook.
 """
 
 from incubator_brpc_tpu_torch.protocol import tbus_std
@@ -17,6 +17,7 @@ from incubator_brpc_tpu_torch.protocol.tbus_std import (
     ParseError,
     ParsedFrame,
     pack_frame,
+    parse_frame_iobuf,
     parse_header,
     try_parse_frame,
 )
@@ -25,6 +26,7 @@ TBUS_STD = Protocol(
     name="tbus_std",
     parse=try_parse_frame,
     parse_header=parse_header,
+    parse_iobuf=parse_frame_iobuf,
 )
 
 if "tbus_std" not in protocol_registry:

@@ -5,9 +5,10 @@ try registered protocols in order on each connection and remember the first
 that matches (_preferred_index, input_messenger.cpp:60-129).
 
 The port's copy of the JAX package's ``protocol/registry.py``, trimmed to
-the fields tbus_std fills: the port registers no other protocol yet, and
-tbus_std cuts frames through ``parse_header`` and ``parse`` (the JAX
-package's native ``parse_iobuf`` cut needs its C++ runtime).
+the fields tbus_std fills: the port registers no other protocol yet.
+tbus_std sizes frames through ``parse_header`` and cuts them off the read
+IOBuf through ``parse_iobuf`` (Python, where the JAX package's native cut
+is C++), and the stream layer binds ``process_stream``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,13 @@ class Protocol:
     process_request: Optional[Callable] = None
     # client side: (socket, frame) -> None
     process_response: Optional[Callable] = None
+    # either side: (socket, frame) -> None for FLAG_STREAM frames (the
+    # reference registers streaming_rpc as its own Protocol; here the
+    # stream frames share tbus_std's header so they share its row)
+    process_stream: Optional[Callable] = None
+    # (read IOBuf) -> (parsed_or_None, consumed): the cut on the socket's
+    # read chain; the messenger prefers it to copying the frame for parse
+    parse_iobuf: Optional[Callable] = None
 
 
 class ProtocolRegistry:

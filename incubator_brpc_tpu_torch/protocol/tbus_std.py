@@ -31,10 +31,13 @@ all (baidu_rpc_protocol.cpp:53-58) because TCP already checksums segments.
 
 The port's copy of the JAX package's ``protocol/tbus_std.py`` on its
 Python branches: ``pack_frame``, ``pack_frame_iobuf`` (the no-native
-side), ``parse_header`` and ``try_parse_frame``; its CRC32C is the
-table-driven one of ``utils/crc32c.py``, byte for byte the same sums. The
-native cut (``parse_frame_iobuf``) and the stream layer's zero-copy bodies
-are not copied.
+side), ``parse_header``, ``try_parse_frame`` and the stream layer's hooks
+(``ParsedFrame.payload_iobuf`` with the lazy ``payload``, ``is_stream``,
+``_stream_layer_live``); its CRC32C is the table-driven one of
+``utils/crc32c.py``, byte for byte the same sums. ``parse_frame_iobuf`` is
+the cut on the read IOBuf: where the JAX package walks the chain in C++,
+the port's is Python, and it keeps a stream frame's body as a zero-copy
+cut of the chain as the JAX package's native cut does.
 """
 
 from __future__ import annotations
@@ -245,7 +248,15 @@ def pack_frame_iobuf(
 class ParsedFrame:
     """One cut frame. ``arrival_ts`` is stamped by the messenger when the
     frame is cut off the wire (the server measures propagated deadlines
-    from it)."""
+    from it).
+
+    Stream data frames keep their body as a zero-copy IOBuf cut of the
+    read chain (the reference hands stream handlers butil::IOBufs,
+    stream.h on_received_messages): ``payload_iobuf`` is None on every
+    other frame kind. ``payload`` is LAZY: when only ``payload_iobuf`` was
+    populated, the bytes materialize from it on first access, so a
+    non-stream consumer of a FLAG_STREAM frame reads the real payload; the
+    stream layer reads ``payload_iobuf`` and never pays the copy."""
 
     def __init__(
         self,
@@ -255,24 +266,47 @@ class ParsedFrame:
         correlation_id: int = 0,
         flags: int = 0,
         error_code: int = 0,
+        payload_iobuf: Optional[IOBuf] = None,
     ) -> None:
         self.meta = meta
-        self.payload = payload
+        self._payload = payload
         self.attachment = attachment
         self.correlation_id = correlation_id
         self.flags = flags
         self.error_code = error_code
+        self.payload_iobuf = payload_iobuf
         self.arrival_ts: Optional[float] = None
+
+    @property
+    def payload(self) -> bytes:
+        if not self._payload and self.payload_iobuf is not None:
+            # materialize once, cache; to_bytes is a non-destructive copy
+            self._payload = self.payload_iobuf.to_bytes()
+        return self._payload
+
+    @payload.setter
+    def payload(self, value: bytes) -> None:
+        self._payload = value
 
     @property
     def is_response(self) -> bool:
         return bool(self.flags & FLAG_RESPONSE)
 
+    @property
+    def is_stream(self) -> bool:
+        return bool(self.flags & FLAG_STREAM)
+
     def __repr__(self) -> str:
         return (
             f"<ParsedFrame {self.meta.service}.{self.meta.method} "
             f"cid={self.correlation_id:#x} flags={self.flags} "
-            f"err={self.error_code} payload={len(self.payload)}B>"
+            f"err={self.error_code} payload={len(self._payload)}B"
+            + (
+                f" iobuf={len(self.payload_iobuf)}B"
+                if self.payload_iobuf is not None
+                else ""
+            )
+            + ">"
         )
 
 
@@ -339,5 +373,73 @@ def try_parse_frame(buf: bytes) -> Tuple[Optional[ParsedFrame], int]:
         correlation_id=cid_lo | (cid_hi << 32),
         flags=flags,
         error_code=err,
+    )
+    return frame, total
+
+
+def _stream_layer_live() -> bool:
+    """True once rpc.stream bound its FLAG_STREAM consumer to the tbus_std
+    protocol entry (it owns frames carrying payload_iobuf)."""
+    from incubator_brpc_tpu_torch import protocol as _pkg
+
+    return getattr(_pkg.TBUS_STD, "process_stream", None) is not None
+
+
+def parse_frame_iobuf(buf: IOBuf) -> Tuple[Optional[ParsedFrame], int]:
+    """Cut one frame off the read IOBuf ``buf`` itself (the messenger's
+    cut once ``parse_header`` sized the frame). Same contract as
+    try_parse_frame: (frame, consumed) | (None, 0); ParseError on
+    corruption.
+
+    A stream data frame (FLAG_STREAM, no attachment) whose stream layer is
+    bound keeps its body as a zero-copy cut of the chain: the payload
+    materializes only if a consumer asks for bytes. Every other frame is
+    copied out and parsed by try_parse_frame."""
+    if len(buf) < HEADER_BYTES:
+        return None, 0
+    magic, body_len, flags, cid_lo, cid_hi, meta_len, crc, err = _HDR.unpack(
+        buf.to_bytes(HEADER_BYTES)
+    )
+    if magic != MAGIC:
+        raise ParseError(f"bad magic {magic:#x}")
+    if meta_len > body_len:
+        raise ParseError("meta longer than body")
+    total = HEADER_BYTES + body_len
+    if len(buf) < total:
+        return None, 0
+    if not (flags & FLAG_STREAM and _stream_layer_live()):
+        raw = buf.to_bytes(total)
+        buf.popn(total)
+        return try_parse_frame(raw)
+    buf.popn(HEADER_BYTES)
+    meta_bytes = buf.to_bytes(meta_len)
+    buf.popn(meta_len)
+    body = buf.cutn(body_len - meta_len)
+    # the frame is consumed before its checks: a failed check fails the
+    # connection, which cannot re-sync anyway
+    sum_ = crc32c(meta_bytes)
+    if flags & FLAG_BODY_CRC:
+        for view in body.views():
+            sum_ = crc32c(view, sum_)
+    if sum_ != crc:
+        raise ParseError("crc mismatch")
+    meta = Meta.from_bytes(meta_bytes)
+    att = meta.attachment_size
+    if att > len(body):
+        raise ParseError(f"attachment_size {att} exceeds body remainder {len(body)}")
+    cid = cid_lo | (cid_hi << 32)
+    if att:
+        n = len(body) - att
+        frame = ParsedFrame(
+            meta=meta,
+            payload=body.to_bytes(n),
+            attachment=body.to_bytes(att, pos=n),
+            correlation_id=cid,
+            flags=flags,
+            error_code=err,
+        )
+        return frame, total
+    frame = ParsedFrame(
+        meta=meta, correlation_id=cid, flags=flags, error_code=err, payload_iobuf=body
     )
     return frame, total

@@ -10,7 +10,9 @@ link with ``ChannelOptions(transport="tpu")`` (transport/device_link.py).
 A Channel also takes a naming url and a load balancer (``lb/``,
 ``naming/``), and the combo channels (``combo.py``: ParallelChannel,
 SelectiveChannel, PartitionChannel, DynamicPartitionChannel) fan one call
-out over several Channels.
+out over several Channels. A call may open a streaming RPC
+(``stream.py``: ``stream_create`` on the client, ``stream_accept`` in the
+handler), over TCP or over a device link.
 """
 
 from incubator_brpc_tpu_torch.rpc.channel import (
@@ -33,6 +35,13 @@ from incubator_brpc_tpu_torch.rpc.combo import (
 from incubator_brpc_tpu_torch.rpc.controller import Controller
 from incubator_brpc_tpu_torch.rpc.device_method import device_method
 from incubator_brpc_tpu_torch.rpc.server import MethodStatus, Server, ServerOptions
+from incubator_brpc_tpu_torch.rpc.stream import (
+    Stream,
+    StreamHandler,
+    StreamOptions,
+    stream_accept,
+    stream_create,
+)
 
 
 def shutdown_host_plane() -> None:
@@ -74,4 +83,9 @@ __all__ = [
     "shutdown_host_plane",
     "device_method",
     "start_cancel",
+    "Stream",
+    "StreamHandler",
+    "StreamOptions",
+    "stream_accept",
+    "stream_create",
 ]

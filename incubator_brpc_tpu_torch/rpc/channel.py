@@ -24,10 +24,12 @@ connections, and the two-party device link
 (``ChannelOptions(transport="tpu")``: the handshake rides the host socket,
 frames ride ``transport/device_link.py``; behind a load balancer the LB
 picks a healthy host socket and the link map supplies the link to that
-peer). Backup requests, the retry budget, rpcz spans, the native plane,
-TLS, auth and streams are later slices; their options keep the
-reference's places and refuse a value with the ROADMAP item that brings
-them.
+peer), with ``link_controller="multi"`` the link whose two halves live in
+two processes (``transport/mc_link.py``), and the client side of the
+streaming RPC (``call_method(..., request_stream=)``, ``rpc/stream.py``).
+Backup requests, the retry budget, rpcz spans, the native plane, TLS and
+auth are later slices; their options keep the reference's places and
+refuse a value with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from incubator_brpc_tpu_torch.protocol.tbus_std import (
     ParsedFrame,
     pack_frame_iobuf,
 )
+from incubator_brpc_tpu_torch.rpc import stream as stream_mod
 from incubator_brpc_tpu_torch.rpc.controller import RETRIABLE, Controller, refuse_unported
 from incubator_brpc_tpu_torch.rpc.deadline import current_deadline
 from incubator_brpc_tpu_torch.runtime.correlation_id import EBUSY, call_id_space
@@ -211,7 +214,6 @@ class ChannelOptions:
         unported = (
             ("protocol", protocol, "tbus_std", "A11"),
             ("auth", auth, None, "A7"),
-            ("link_controller", link_controller, "single", "A4"),
             ("native_plane", native_plane, False, "A6"),
             ("ssl_context", ssl_context, None, "A10"),
             ("ssl_server_hostname", ssl_server_hostname, None, "A10"),
@@ -239,6 +241,9 @@ class ChannelOptions:
         # 'local' | 'wire': how the link's credit window learns about
         # drained steps (wire = the multi-controller piggybacked-ack flow)
         self.link_ack_mode = link_ack_mode
+        # 'single': both link halves in one process; 'multi': one half per
+        # process, lockstep over torch.distributed (transport/mc_link.py)
+        self.link_controller = link_controller
 
 
 class Channel:
@@ -311,9 +316,12 @@ class Channel:
         cntl: Optional[Controller] = None,
         done: Optional[Callable[[Controller], None]] = None,
         attachment: bytes = b"",
+        request_stream=None,
     ) -> Controller:
         """The CallMethod entry (channel.cpp:285). Synchronous when ``done``
-        is None (waits for the call); asynchronous otherwise."""
+        is None (waits for the call); asynchronous otherwise.
+        ``request_stream`` (``rpc.stream.stream_create``) rides the request
+        meta; the stream connects when the server's response accepts it."""
         assert self._init_done, "Channel.init() not called"
         if cntl is None:
             cntl = Controller(
@@ -325,6 +333,8 @@ class Channel:
         cntl._request_payload = request
         cntl.request_attachment = attachment
         cntl._done = done
+        if request_stream is not None:
+            cntl._request_stream = request_stream
         cntl._mark_start()
 
         # deadline propagation (reference RpcRequestMeta.timeout_ms): a
@@ -482,6 +492,7 @@ class Channel:
             window=self._options.link_window,
             timeout_ms=cntl.timeout_ms or 60000,
             ack_mode=self._options.link_ack_mode,
+            controller=self._options.link_controller,
         )
         self._device_sock = ds  # last-used link (introspection/tests)
         return ds
@@ -588,6 +599,7 @@ class Channel:
             compress=cntl.compress_type,
             timeout_ms=wire_timeout,
             log_id=cntl.log_id,
+            stream_id=cntl._request_stream.id if cntl._request_stream is not None else 0,
         )
         try:
             payload = cntl._request_payload
@@ -678,6 +690,9 @@ class Channel:
             cntl.response_payload = payload
             cntl.response_attachment = frame.attachment
             cntl.response_meta = frame.meta
+            if cntl._request_stream is not None and frame.meta is not None and frame.meta.stream_id:
+                # handshake complete: the server's stream id arrived
+                cntl._request_stream._connect(sock, frame.meta.stream_id)
         self._end_rpc(cntl)
 
     def _end_rpc(self, cntl: Controller) -> None:
@@ -701,13 +716,35 @@ class Channel:
             cids = sock.context.get("_inflight_cids")
             if cids is not None:
                 cids.discard(cntl.call_id)
-        # settle every attempt's pooled/short connection now. A pooled
-        # socket is only reusable when this was a clean, single-attempt
-        # success (a timed-out attempt may still carry a request in flight)
+        # settle every attempt's pooled/short connection now — except one a
+        # live stream is bound to, which is released when the stream ends.
+        # A pooled socket is only reusable when this was a clean,
+        # single-attempt success (a timed-out attempt may still carry a
+        # request in flight)
         reusable = cntl.ok() and len(cntl._call_socks) <= 1
+        stream = cntl._request_stream
+        stream_sock = stream._sock if stream is not None else None
         for kind, sock in cntl._call_socks:
+            if sock is stream_sock:
+                sock.context["_stream_dispose"] = lambda _k=kind, _s=sock, _r=reusable: (
+                    self._dispose_attempt_sock(_k, _s, _r)
+                )
+                if stream.state == stream_mod.CLOSED:
+                    # the stream raced us and already ran _unhook_socket:
+                    # whoever pops the callback runs it (dict.pop is atomic)
+                    late = sock.context.pop("_stream_dispose", None)
+                    if late is not None:
+                        late()
+                continue
             self._dispose_attempt_sock(kind, sock, reusable)
         cntl._call_socks.clear()
+        if stream is not None and stream.state == stream_mod.CONNECTING:
+            # RPC ended without the server accepting: kill the half-open
+            # stream so writers don't block forever
+            stream._fail(
+                cntl.error_code or ErrorCode.EREQUEST,
+                cntl.error_text or "stream not accepted",
+            )
         call_id_space.unlock_and_destroy(cntl.call_id)
         ps = cntl._poll_sock
         if ps is not None:

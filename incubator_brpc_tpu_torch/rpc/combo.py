@@ -8,7 +8,7 @@ JAX package's ``rpc/combo.py`` in its host form: the fan-out runs one
 sub-call per sub-channel. Where every sub-channel rides a link to a
 distinct server device and the method is a device method, the reference
 lowers the fan-out to one collective dispatch over those devices; that
-lowering is ROADMAP A3 (A4 for multi-controller links), and the port
+lowering is ROADMAP A3 (A4b for multi-controller links), and the port
 raises ``NotImplementedError`` naming it there instead of quietly taking
 the host fan-out. Sub-links that share a device (one card: every server
 binds it) cannot form the collective axis, so the host fan-out runs and
@@ -101,7 +101,7 @@ class ParallelChannel:
     those devices (an all-gather of every response; a 1-step N-party
     session for multi-controller links). The port checks the same
     preconditions in the same order and, where all hold, raises
-    ``NotImplementedError`` naming ROADMAP A3 (A4 for multi-controller
+    ``NotImplementedError`` naming ROADMAP A3 (A4b for multi-controller
     links); ``fuse_device_calls=False`` takes the host fan-out there. Any
     precondition miss runs the host fan-out, as in the reference."""
 
@@ -245,7 +245,7 @@ class ParallelChannel:
     ) -> Optional[bytes]:
         """None when the preconditions of the collective lowering do not
         hold (the host fan-out runs instead); where they all hold, raises
-        ``NotImplementedError`` naming ROADMAP A3 (A4 for multi-controller
+        ``NotImplementedError`` naming ROADMAP A3 (A4b for multi-controller
         links) — the lowering itself is not in the port.
 
         Preconditions, in the reference's order: the method has a
@@ -320,7 +320,7 @@ class ParallelChannel:
             # plane (a 1-step N-party session of the same kernel)
             raise NotImplementedError(
                 f"ParallelChannel over multi-controller links for {full} lowers "
-                "through the collective method plane, not in the port yet (ROADMAP A4)"
+                "through the collective method plane, not in the port yet (ROADMAP A4b)"
             )
         raise NotImplementedError(
             f"ParallelChannel fused collective dispatch of {full} over "

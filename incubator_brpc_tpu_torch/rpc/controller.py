@@ -12,8 +12,8 @@ One Controller accompanies one RPC on either side:
   ``set_failed`` with these meanings.
 
 The port's copy of the JAX package's ``rpc/controller.py`` without the
-backup-request, tracing, streaming and session-data state of the parts
-not yet ported. The constructor keeps the reference's
+backup-request, tracing and session-data state of the parts not yet
+ported. The constructor keeps the reference's
 parameters in their places (``backup_request_ms`` before ``log_id``); a
 value the port does not serve yet is refused by :func:`refuse_unported`
 with the ROADMAP item that brings it, never bound to another parameter.
@@ -102,6 +102,10 @@ class Controller:
         # (kind, socket) per attempt for pooled/short connection types —
         # disposed together at EndRPC
         self._call_socks: List[Any] = []
+        # streaming handshake (rpc/stream.py): client's half-open stream out,
+        # server's accepted id back (request_stream in RpcMeta, stream.cpp)
+        self._request_stream = None
+        self._accepted_stream_id: int = 0
 
     # -- status surface (reference Controller::Failed/ErrorCode/ErrorText) --
 

@@ -24,11 +24,15 @@ The port's copy of the JAX package's ``rpc/server.py`` on the Python
 acceptor, trimmed: the method map is a plain dict keyed by full name
 (where the JAX package uses its native FlatMap), methods run with
 unlimited concurrency, and the native plane, TLS, the concurrency
-limiters, auth, the fault injector, rpcz, request dumps, streams, the
-HTTP gateway, lame-duck draining, session and thread-local data, and the
-collective services are later slices. The device-link handshake
-(``_tpu_transport.handshake``, ``transport/device_link.py``) is registered
-at ``start``; ``stop`` closes every link the server accepted.
+limiters, auth, the fault injector, rpcz, request dumps, the HTTP gateway,
+lame-duck draining (with its RST of open streams), session and
+thread-local data, and the collective services are later slices. A
+handler accepts a streaming RPC with ``rpc.stream.stream_accept(cntl)``;
+the accepted stream's id rides the response meta, and a handler that
+fails after accepting kills the stream. The device-link handshake
+(``_tpu_transport.handshake``, ``transport/device_link.py``; with
+``controller="multi"``, ``transport/mc_link.py``) is registered at
+``start``; ``stop`` closes every link the server accepted.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from incubator_brpc_tpu_torch.protocol.tbus_std import (
     ParsedFrame,
     pack_frame_iobuf,
 )
+from incubator_brpc_tpu_torch.rpc import stream as stream_mod
 from incubator_brpc_tpu_torch.rpc.controller import Controller, refuse_unported
 from incubator_brpc_tpu_torch.rpc.deadline import pop_deadline, push_deadline
 from incubator_brpc_tpu_torch.runtime.timer_thread import global_timer_thread
@@ -160,7 +165,7 @@ class ServerOptions:
             ("reserved_session_local_data", reserved_session_local_data, 0, "A7"),
             ("thread_local_data_factory", thread_local_data_factory, None, "A7"),
             ("reserved_thread_local_data", reserved_thread_local_data, 0, "A7"),
-            ("collective_max_concurrency", collective_max_concurrency, 1, "A4"),
+            ("collective_max_concurrency", collective_max_concurrency, 1, "A4b"),
             ("fault_injector", fault_injector, None, "A7"),
         )
         for name, value, default, item in unported:
@@ -170,7 +175,7 @@ class ServerOptions:
             refuse_unported("ServerOptions", "idle_timeout_s", idle_timeout_s, "A7")
         if enable_collective_service:
             refuse_unported(
-                "ServerOptions", "enable_collective_service", enable_collective_service, "A4"
+                "ServerOptions", "enable_collective_service", enable_collective_service, "A4b"
             )
         # inert until ROADMAP A12 (the port has no builtin services yet)
         self.has_builtin_services = has_builtin_services
@@ -310,6 +315,13 @@ class Server:
         """Host connections this server holds open."""
         return self._acceptor.connection_count() if self._acceptor else 0
 
+    def _open_streams(self):
+        """Live streaming RPCs bound to this server's connections (the
+        reference's lame-duck drain waits on them, ROADMAP A7)."""
+        if self._acceptor is None:
+            return []
+        return stream_mod.open_streams(self._acceptor.connections())
+
     # -- request path --------------------------------------------------------
 
     def process_request(self, sock, frame: ParsedFrame) -> None:
@@ -328,6 +340,7 @@ class Server:
         cntl._server = self
         cntl._service = meta.service
         cntl._method = meta.method
+        cntl._sock = sock  # stream_accept needs the connection
         cntl._mark_start()
 
         # deadline propagation (reference RpcRequestMeta.timeout_ms +
@@ -456,6 +469,12 @@ class Server:
         if tid is not None:
             cntl._reap_timer_id = None
             global_timer_thread().unschedule(tid)
+        if cntl.failed() and cntl._accepted_stream_id:
+            # handler accepted a stream then failed: the response will carry
+            # stream_id=0, so the client kills its half — kill ours too
+            s = stream_mod.get_stream(cntl._accepted_stream_id)
+            if s is not None:
+                s._fail(cntl.error_code, "rpc failed after stream_accept")
         self._send_response(sock, cntl, response)
         cntl._mark_end()
         self._release(status, cntl)
@@ -478,13 +497,16 @@ class Server:
     def _send_response(self, sock, cntl: Controller, response: bytes) -> None:
         """SendRpcResponse (baidu_rpc_protocol.cpp:136): serialize+compress,
         append attachment, write. The response meta carries only what the
-        client reads back (error text / compress / attachment size); a
-        plain success with a bare payload travels with NO meta at all."""
+        client reads back (error text / stream id / compress / attachment
+        size); a plain success with a bare payload travels with NO meta at
+        all."""
         failed = cntl.failed()
         payload = b"" if failed else response
         meta = None
         if failed and cntl.error_text:
             meta = Meta(error_text=cntl.error_text)
+        elif not failed and cntl._accepted_stream_id:
+            meta = Meta(stream_id=cntl._accepted_stream_id)
         if payload and cntl.compress_type:
             # response-compression floor: tiny payloads skip the codec and
             # travel uncompressed (the reference's response_compress_type

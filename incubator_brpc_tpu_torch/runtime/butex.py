@@ -73,6 +73,12 @@ class Butex:
         with self._lock:
             return self._value
 
+    def store(self, value: int) -> None:
+        """Set the value WITHOUT waking — pair with wake*() like the
+        reference's separate atomic store + butex_wake calls."""
+        with self._lock:
+            self._value = value
+
     def add(self, delta: int) -> int:
         with self._lock:
             self._value += delta

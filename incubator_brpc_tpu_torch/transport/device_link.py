@@ -52,9 +52,14 @@ Each package has its own :data:`link_hub`, so a ``transport="tpu"`` call
 from one package's Channel to the other package's Server finds no link;
 only TCP interoperates across the two packages.
 
-Not here yet: credentials on links (``auth``, ROADMAP A7; ``ssl_*``, A10),
-the multi-controller link (``controller="multi"``, A4) and the abort of
-the collective sessions that rode a link when it dies (A4).
+``controller="multi"`` routes the handshake to ``transport/mc_link.py``:
+the link whose two halves live in two processes, lockstep over
+``torch.distributed``; its ``DeviceSocket`` carries RPC frames as this
+module's does.
+
+Not here yet: credentials on links (``auth``, ROADMAP A7; ``ssl_*``, A10)
+and the abort of the collective sessions that rode a link when it dies
+(A4b).
 """
 
 from __future__ import annotations
@@ -205,6 +210,9 @@ class DeviceLink:
         self._out_nbytes = [0, 0]
         self._close_pending = [False, False]
         self._closed = False
+        # a multi-controller half frozen by its close dance refuses new
+        # sends (transport/mc_link.py)
+        self._send_blocked = False
         self._seq = 0  # steps dispatched
         self._next_deliver = 0  # next seq to hand to the sockets
         self._inflight = 0  # dispatched, not yet drained
@@ -351,7 +359,7 @@ class DeviceLink:
         deadline = None
         while True:
             with self._lock:
-                if self._closed:
+                if self._closed or self._send_blocked:
                     return ErrorCode.EFAILEDSOCKET
                 if (
                     self._out_nbytes[side] <= budget
@@ -590,38 +598,45 @@ class DeviceLink:
         slot — feed it into side i's socket."""
         rows = self._rows_to_host(arrays)
         for side in (0, 1):
-            row = rows[side]
-            if int(row[0]) != LINK_MAGIC:
-                self.fail("bad link slot magic")
+            if not self._deliver_row(side, rows[side]):
                 return
-            used = int(row[1])
-            flags = int(row[4])
-            if self.ack_mode == "wire":
-                # the peer's cumulative-delivered count rides words 3+5;
-                # this is the ONLY credit signal in wire mode
-                with self._lock:
-                    ack = int(row[3]) | (int(row[5]) << 32)
-                    if ack > self._peer_ack:
-                        self._peer_ack = ack
-            sock = self.socks[side]
-            if used:
-                self._m_in_bytes << used
-            if used and sock is not None:
-                # ZERO-copy delivery: the read IOBuf's block wraps the
-                # step output's own buffer, which stays alive until the
-                # last reference drops. Payload bytes materialize once,
-                # at the parse boundary.
-                base = LINK_HEADER_WORDS * 4
-                view = memoryview(row.view(np.uint8))[base : base + used]
-                sock._feed(view)
-            if flags & F_CLOSE and sock is not None:
-                sock.set_failed(ErrorCode.ECLOSE, "peer closed device link")
+
+    def _deliver_row(self, side: int, row: np.ndarray) -> bool:
+        """Feed one received slot into side ``side``'s socket. False when
+        the row is not a link slot (the link is failed)."""
+        if int(row[0]) != LINK_MAGIC:
+            self.fail("bad link slot magic")
+            return False
+        used = int(row[1])
+        flags = int(row[4])
+        if self.ack_mode == "wire":
+            # the peer's cumulative-delivered count rides words 3+5;
+            # this is the ONLY credit signal in wire mode
+            with self._lock:
+                ack = int(row[3]) | (int(row[5]) << 32)
+                if ack > self._peer_ack:
+                    self._peer_ack = ack
+        sock = self.socks[side]
+        if used:
+            self._m_in_bytes << used
+        if used and sock is not None:
+            # ZERO-copy delivery: the read IOBuf's block wraps the step
+            # output's own buffer, which stays alive until the last
+            # reference drops. Payload bytes materialize once, at the
+            # parse boundary.
+            base = LINK_HEADER_WORDS * 4
+            view = memoryview(row.view(np.uint8))[base : base + used]
+            sock._feed(view)
+        if flags & F_CLOSE and sock is not None:
+            sock.set_failed(ErrorCode.ECLOSE, "peer closed device link")
+        return True
 
     def fail(self, reason: str) -> None:
         """Fail the link: drop the queues, wake the writers, fail both
         sockets with EFAILEDSOCKET. (The JAX package also aborts the
-        collective sessions that rode the link here; the port's sessions
-        bind no link yet, ROADMAP A4.)"""
+        collective sessions that rode the link here,
+        ``abort_sessions_for_devices``; the port's sessions bind no link
+        yet, ROADMAP A4b.)"""
         with self._lock:
             if self._closed:
                 return
@@ -864,21 +879,23 @@ class DeviceLinkMap:
         ssl_server_hostname=None,
     ) -> "DeviceSocket":
         """The live link to ``ep`` for this geometry, handshaking one when
-        there is none. ``controller="multi"`` (ROADMAP A4) and credentials
+        there is none. ``controller="multi"`` handshakes the link whose
+        halves live in two processes (``transport/mc_link.py``). Credentials
         (``auth``, A7; ``ssl_*``, A10) are refused until those items."""
         from incubator_brpc_tpu_torch.rpc.controller import refuse_unported
         from incubator_brpc_tpu_torch.transport.sock import CONNECTED
         from incubator_brpc_tpu_torch.utils.flags import get_flag
 
+        if controller not in ("single", "multi"):
+            raise ValueError(f"unknown controller {controller!r}")
         for name, value, default, item in (
-            ("controller", controller, "single", "A4"),
             ("auth", auth, None, "A7"),
             ("ssl_context", ssl_context, None, "A10"),
             ("ssl_server_hostname", ssl_server_hostname, None, "A10"),
         ):
             if value != default:
                 refuse_unported("DeviceLinkMap.get_or_create", name, value, item)
-        key = (ep.ip, ep.port, device_index, slot_words, window, ack_mode)
+        key = (ep.ip, ep.port, device_index, slot_words, window, ack_mode, controller)
         # per-key lock: a thundering herd to one peer produces ONE
         # handshake, while links to OTHER peers establish concurrently
         with self._key_lock(key):
@@ -912,14 +929,25 @@ class DeviceLinkMap:
                     options=ChannelOptions(timeout_ms=timeout_ms),
                 ):
                     raise ConnectionError(f"device-link bootstrap channel init failed for {ep}")
-                ds = establish_device_link(
-                    boot,
-                    device_index=device_index,
-                    slot_words=slot_words,
-                    window=window,
-                    timeout_ms=timeout_ms,
-                    ack_mode=ack_mode,
-                )
+                if controller == "multi":
+                    from incubator_brpc_tpu_torch.transport.mc_link import establish_mc_link
+
+                    ds = establish_mc_link(
+                        boot,
+                        device_index=device_index,
+                        slot_words=slot_words,
+                        window=window,
+                        timeout_ms=timeout_ms,
+                    )
+                else:
+                    ds = establish_device_link(
+                        boot,
+                        device_index=device_index,
+                        slot_words=slot_words,
+                        window=window,
+                        timeout_ms=timeout_ms,
+                        ack_mode=ack_mode,
+                    )
             except Exception:
                 # failed handshake: arm/double the backoff window so the
                 # next caller fails fast instead of re-storming the peer
@@ -1015,10 +1043,11 @@ def make_handshake_handler(server):
             cntl.set_failed(ErrorCode.EREQUEST, "bad handshake: not an object")
             return b""
         if req.get("controller") == "multi":
-            cntl.set_failed(
-                ErrorCode.EREQUEST, "multi-controller links are not in the port yet (ROADMAP A4)"
-            )
-            return b""
+            # the peer's half lives in ANOTHER process; the half built here
+            # runs lockstep with it over torch.distributed
+            from incubator_brpc_tpu_torch.transport.mc_link import accept_mc_handshake
+
+            return accept_mc_handshake(server, cntl, req)
         try:
             cookie = req["cookie"]
             client_dev = int(req["device"])

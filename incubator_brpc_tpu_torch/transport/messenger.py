@@ -11,12 +11,18 @@ Kept semantics:
   header peek) is refused from its header, before its body is buffered;
 - of N cut messages, the first N-1 are dispatched to fresh fibers and the
   LAST is processed inline in this fiber (locality optimization,
-  input_messenger.cpp:143-164).
+  input_messenger.cpp:143-164);
+- stream frames are the exception: each is handed to its protocol's
+  ``process_stream`` inline, in wire order, on this (one per socket)
+  reading fiber, so a stream's ExecutionQueue receives its frames in the
+  order they were sent (the reference routes streaming messages during
+  the parse phase for the same reason).
 
 The port's copy of the JAX package's ``transport/messenger.py`` on its
 header-peek path (every registered protocol of the port sizes its frames
-from ``parse_header``); the native chain cut, stateful per-connection
-protocols and the stream and HTTP ordering hooks are not copied.
+from ``parse_header``, and tbus_std cuts them off the read IOBuf through
+``parse_iobuf``); stateful per-connection protocols and the HTTP ordering
+hooks are not copied.
 """
 
 from __future__ import annotations
@@ -87,10 +93,13 @@ class InputMessenger:
                 return None
             if len(buf) < total:
                 break
-            raw = buf.to_bytes(total)
-            buf.popn(total)
             try:
-                frame, consumed = matched.parse(raw)
+                if matched.parse_iobuf is not None:
+                    frame, consumed = matched.parse_iobuf(buf)
+                else:
+                    raw = buf.to_bytes(total)
+                    buf.popn(total)
+                    frame, consumed = matched.parse(raw)
             except ParseError as e:
                 self._dispatch(sock, cut)
                 sock.set_failed(ErrorCode.EREQUEST, f"corrupt frame: {e}")
@@ -113,10 +122,20 @@ class InputMessenger:
         now = time.monotonic()
         for _proto, frame in cut:
             frame.arrival_ts = now
+        # stream frames run inline, in wire order (module docstring);
+        # everything else gets the N-1-fibers + last-inline treatment
+        rest = []
+        for proto, frame in cut:
+            if frame.is_stream and proto.process_stream is not None:
+                self._process_one(sock, proto, frame)
+            else:
+                rest.append((proto, frame))
+        if not rest:
+            return None
         pool = global_worker_pool()
-        for proto, frame in cut[:-1]:
+        for proto, frame in rest[:-1]:
             pool.spawn(self._process_one, sock, proto, frame)
-        proto, frame = cut[-1]
+        proto, frame = rest[-1]
         if defer_tail:
             return (proto, frame)
         self._process_one(sock, proto, frame)  # last message inline
@@ -125,7 +144,9 @@ class InputMessenger:
     @staticmethod
     def _process_one(sock, proto: Protocol, frame) -> None:
         try:
-            if frame.is_response:
+            if frame.is_stream and proto.process_stream is not None:
+                proto.process_stream(sock, frame)
+            elif frame.is_response:
                 if proto.process_response is not None:
                     proto.process_response(sock, frame)
             elif proto.process_request is not None:

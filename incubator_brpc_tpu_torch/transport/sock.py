@@ -21,8 +21,10 @@ Kept design points (and where they live in the reference):
 
 The port's copy of the JAX package's ``transport/sock.py`` without TLS,
 the native versioned-id slab (the registry keeps the pure-Python version
-and free-list state), the fault injector, the caller-driven write drain of
-the stream layer and the per-second rate bvars of the portal.
+and free-list state), the fault injector, the per-second rate bvars of the
+portal, and the caller-driven write drain (``write(drain_inline=True)``)
+that the JAX package's stream writers opt into: the port's streams write
+through the same KeepWrite path as every other frame.
 """
 
 from __future__ import annotations
@@ -241,10 +243,13 @@ class Socket:
         self,
         data: Union[bytes, IOBuf],
         on_error: Optional[Callable[[int, str], None]] = None,
+        timeout: Optional[float] = None,
     ) -> int:
         """Queue data; returns 0 or an ErrorCode. Never blocks the caller
         beyond one nonblocking write (the StartWrite inline attempt);
-        backpressure is EOVERCROWDED."""
+        backpressure is EOVERCROWDED. ``timeout`` is accepted for
+        write-path parity with ``DeviceSocket.write``, whose send can block
+        on its window; this one never waits."""
         if self.state != CONNECTED:
             return ErrorCode.EFAILEDSOCKET
         if isinstance(data, (bytes, bytearray, memoryview)):

@@ -1,0 +1,149 @@
+"""The process's place in a job of several processes: the port's counterpart
+of what ``jax.distributed`` gives the JAX package's multi-controller plane.
+
+A job is ``world_size`` processes, each told its ``rank`` and its own
+device explicitly (nothing on the machine tells a process of a cluster).
+Process 0 holds the job's ``TCPStore``; the others connect to it. The
+store is the rendezvous of every link group (``link_group``): a
+two-process group built by the two parties of one multi-controller link
+(``transport/mc_link.py``) and by no one else, over
+``PrefixStore(key, store)``. Links are made on demand by a handshake
+between two processes, so no collective ``new_group`` over the whole job
+could build them.
+
+The backend of a link group is the caller's choice: ``gloo`` (CPU tensors,
+and on a card the rows stay CUDA tensors that gloo moves through the host)
+or ``nccl`` (CUDA tensors across cards). A backend that fails to build
+fails the link; nothing picks another.
+
+Process 0 must outlive the others: its store is the rendezvous.
+"""
+
+from __future__ import annotations
+
+import datetime
+import threading
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
+
+BACKENDS = ("gloo", "nccl")
+
+
+class Job:
+    """One process's membership: its rank, the job's size, its device, the
+    backend its links use and the job's store."""
+
+    def __init__(
+        self,
+        rank: int,
+        world_size: int,
+        device: torch.device,
+        backend: str,
+        store: "dist.Store",
+    ) -> None:
+        self.rank = rank
+        self.world_size = world_size
+        self.device = device
+        self.backend = backend
+        self.store = store
+        self._keys: set = set()  # link-group keys this process has built
+        self._lock = threading.Lock()
+
+    def claim_key(self, key: str) -> None:
+        """A link group's store prefix, once per process: a key used twice
+        would rendezvous with a stale group's entries."""
+        with self._lock:
+            if key in self._keys:
+                raise ValueError(f"link group key {key!r} already used by this process")
+            self._keys.add(key)
+
+
+_job: Optional[Job] = None
+_job_lock = threading.Lock()
+
+
+def init_job(
+    rank: int,
+    world_size: int,
+    store_port: int,
+    device: DeviceLike,
+    backend: str = "gloo",
+    host: str = "127.0.0.1",
+    timeout: float = 60.0,
+) -> Job:
+    """Start (rank 0: hold the ``TCPStore`` on ``host:store_port``) or join
+    (every other rank: connect to it, waiting up to ``timeout`` s) the
+    job, as this process's one job. ``device`` is this process's own
+    device (``"cpu"`` or ``"cuda:N"``; ``None`` is the card)."""
+    global _job
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside a job of {world_size}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    with _job_lock:
+        if _job is not None:
+            raise RuntimeError("this process already belongs to a job")
+        store = dist.TCPStore(
+            host,
+            store_port,
+            world_size,
+            rank == 0,
+            timeout=datetime.timedelta(seconds=timeout),
+            wait_for_workers=False,
+        )
+        _job = Job(rank, world_size, resolve_device(device), backend, store)
+        return _job
+
+
+def current_job() -> Optional[Job]:
+    """The job this process joined, or None."""
+    return _job
+
+
+def shutdown_job() -> None:
+    """Leave the job (the store of rank 0 closes with its last reference)."""
+    global _job
+    with _job_lock:
+        _job = None
+
+
+def link_group(
+    key: str,
+    ranks: Sequence[int],
+    backend: str,
+    timeout: float,
+    job: Optional[Job] = None,
+) -> "dist.ProcessGroup":
+    """The two-rank process group of one link: ``ranks`` are the job ranks
+    of side 0 and side 1, and this process's place among them is its rank
+    in the group. Both parties call it with the same ``key``; it returns
+    once both joined (or raises after ``timeout`` s, which also bounds
+    every collective on the group)."""
+    job = job or _job
+    if job is None:
+        raise RuntimeError("link_group needs a job (utils.distributed.init_job)")
+    if len(ranks) != 2 or ranks[0] == ranks[1]:
+        raise ValueError(f"a link group is two distinct ranks, got {list(ranks)}")
+    if job.rank not in ranks:
+        raise ValueError(f"rank {job.rank} is not a party of the link {list(ranks)}")
+    job.claim_key(key)
+    return make_pair_group(
+        dist.PrefixStore(key, job.store), list(ranks).index(job.rank), backend, timeout
+    )
+
+
+def make_pair_group(store: "dist.Store", group_rank: int, backend: str, timeout: float):
+    """A two-process group of ``backend`` over ``store``, this process at
+    ``group_rank``. Raises if the backend is not built into this torch."""
+    td = datetime.timedelta(seconds=timeout)
+    if backend == "gloo":
+        return dist.ProcessGroupGloo(store, group_rank, 2, td)
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = td
+        return dist.ProcessGroupNCCL(store, group_rank, 2, opts)
+    raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")

@@ -31,7 +31,12 @@ whose forced device form streams through the card in both ack modes; and
 twin's bytes on the card; a PartitionChannel over four servers of that
 device method answers four copies of them with four K2a and K2b launches a
 fan-out, and an ``rr`` LB channel over three servers' links rotates across
-every peer. This file imports no JAX, so on a card machine without JAX it runs with
+every peer. Streaming RPC carries chip_smoke.py's seeded messages in order
+over TCP and over the forced device form of a link on the card, and the
+two-process pair of ``transport/mc_worker.py`` on cuda:0 over gloo keeps its
+slot rows on the card, answers device RPC over the multi-controller link
+with K1 launched in the server process, and both link halves agree on one
+final step count. This file imports no JAX, so on a card machine without JAX it runs with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -1049,3 +1054,48 @@ def test_quantized_session_on_the_card_matches_the_cpu(cuda, mode):
         if dev == "cuda":
             assert all(after[k] == before[k] + steps * 2 for k in K2)
     assert got["cuda"] == got["cpu"]
+
+
+def test_stream_over_tcp_and_the_forced_device_link_on_the_card(cuda):
+    from incubator_brpc_tpu_torch import rpc
+    from incubator_brpc_tpu_torch.transport import device_link as dl
+
+    checks = []
+
+    def open_stream(cntl, request):
+        checks.append(chip_smoke.StreamCheck(int(request)))
+        rpc.stream_accept(cntl, rpc.StreamOptions(handler=checks[-1]))
+        return b"%d" % (len(checks) - 1)
+
+    server = rpc.Server(rpc.ServerOptions())
+    server.add_service("stream", {"open": open_stream})
+    assert server.start(0)
+    try:
+        msgs = chip_smoke.stream_messages()
+        for transport in ("tcp", "tpu"):
+            ch = rpc.Channel()
+            assert ch.init(f"127.0.0.1:{server.port}",
+                           options=rpc.ChannelOptions(transport=transport, timeout_ms=120_000))
+            with chip_smoke.forced_device_links(dl):
+                msgs_per_s, mb_per_s, full = chip_smoke.stream_run(rpc, ch, checks, msgs)
+            assert msgs_per_s > 0 and mb_per_s > 0 and full > 0
+            if transport == "tpu":
+                link = ch._device_sock.link
+                assert link._step is not None and link.devices[0].type == "cuda"
+    finally:
+        server.stop()
+        assert server.join(timeout=60)
+        rpc.shutdown_host_plane()
+
+
+def test_mc_pair_on_the_card_keeps_its_rows_there(cuda):
+    from incubator_brpc_tpu_torch.transport import mc_worker as mc
+
+    pair, _ = mc.orchestrate_pair(extra=("--n-rpcs", "4", "--device-rpcs", "8"),
+                                  server_extra=("--device-echo",), device="cuda:0",
+                                  backend="gloo", timeout=300)
+    server = pair["servers"]["server"]
+    chip_smoke.halves_agree(pair, server["links"][0], "pair on the card")
+    assert pair["device_rpcs"] == 8
+    assert server["k1_launches"]["frame_rows"] > 0
+    assert server["k1_launches"]["echo_step_rows"] > 0
