@@ -4,7 +4,8 @@ path (K1), directly and as RPC through the port's Server and Channel over
 TCP and over the two-party device link (with the quantized pmean device
 method, K2, over the link) and fanned out by the combo channels over load
 balancers and naming, streaming RPC, the link whose halves live in two
-processes (device RPC over it in a worker process), the
+processes (device RPC over it in a worker process), the collective
+session plane over RPC in one process and across processes (K2), the
 FabricNet train step with ring attention (K3), its
 elementwise chain (K4) and the rest of what XLA fuses around its matrix
 products (K4e: the SGD update, the MoE's gate and combine, the loss), in
@@ -229,10 +230,13 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    in int8 and int4, at ``K2_CASES``: (parties, row bytes) (2, 4096), (3,
    4096), (8, 1 MiB) and (64, 1 MiB) with blocks of 32, (3, 4096) with
    blocks of 4, 8, 16, 64 and 128, (3, 3840) with blocks of 6 and 10, one
-   row, and rows off 16-byte boundaries, on rows whose first blocks are edge
-   cases (``quant_edge_blocks``); it logs the form (vector or general) each
-   kernel ran and holds it to ``k2_expected_forms``; and one quantized pmean
-   step of noise rows within ``pmean_error_bound``;
+   row, rows off 16-byte boundaries, and the shapes of a session across
+   processes: (3, 1 MiB), a rank's one 1 MiB row and its 4 chunk views; on
+   rows whose first blocks are edge cases (``quant_edge_blocks``), with
+   K2b's one-row form (``out_rows=1``) held bitwise in every case; it logs
+   the form (vector or general) each kernel ran and holds it to
+   ``k2_expected_forms``; and one quantized pmean step of noise rows within
+   ``pmean_error_bound``;
 10. drives the third main path with the launch counts set to zero:
    ``run_dispatch_session`` at the bench's geometry (2 parties x 4096 B x
    16 steps) and the full one (8 x 1 MiB x 16), modes none, int8 and int4
@@ -246,9 +250,28 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    (plus one K2a per checkpoint), 0 for an exact one;
 11. times K2 (and K2b's ``mean=False`` form) at (8, 1 MiB) and (64, 1 MiB)
    in int8 and int4 with CUDA events beside its bound, its plain versions
-   and the wrapper's time back to back, and the full-width sessions' ms per
+   and the wrapper's time back to back, K2b's one-row form (``out_rows=1``)
+   at 3, 8 and 64 parties, and the full-width sessions' ms per
    step in modes none, int8 and int4 with their wire ratios and idle share
    (``--k2-only ROOT`` runs this phase alone on another tree's port);
+10b. drives the collective session plane over RPC (``session_plane_phase``),
+   with the launch counts set to zero: (a) ``PLANE_PARTIES`` (8) servers on
+   cuda:0 with ``enable_collective_service=True``, a pure-scheduler
+   proposer calling ``propose_dispatch`` over TCP channels, 8 x 1 MiB x 16
+   steps in ``PLANE_RUNS`` (exact, int8, int4, and int8 with ``chunks=4,
+   double_buffer=True``): every party's row bitwise phase 10's
+   ``run_dispatch_session`` row and its model (the party-ordered f32 mean,
+   ``np_quantized_pmean``), K2 launches ``plane_k2_per_session`` (each of
+   the 8 handlers computes the whole session, so 8 x steps x chunks); (b)
+   ``mc_worker.orchestrate_session`` with 3 processes on cuda:0 over gloo,
+   one party a rank, 1 MiB x 16 steps: ``_scale_psum_kernel`` bitwise
+   ``session_expected``, then exact, int8 and int4 pmean sessions bitwise
+   their models, each process's K2 launches (16 K2a and 16 K2b per
+   quantized session) and ms a step, and the client's all_gather time a
+   step; a server with ``--wrong-kernel`` refused at accept before any
+   step; (c) the chaos drill (``PLANE_CHAOS``: party 0 killed at step 3 of
+   8, checkpoint every 2, one spare) healed bitwise; the kernels line's K2
+   entries carry (a)'s and (b)'s launches as ``plane_launches``;
 12. prints the kernels line (JSON), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -260,6 +283,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import inspect
 import json
 import math
 import os
@@ -337,7 +361,11 @@ K2_GEOMETRIES = [(2, 4096), (3, 4096), (8, 1 << 20), (64, 1 << 20)]
 K2_CASES = ([(p, w, 32, "contiguous") for p, w in K2_GEOMETRIES]
             + [(3, 4096, b, "contiguous") for b in (4, 8, 16, 64, 128)]
             + [(3, 3840, 6, "contiguous"), (3, 3840, 10, "contiguous"), (1, 4096, 32, "contiguous"),
-               (3, 4096, 32, "offset"), (3, 4096, 32, "stride")])
+               (3, 4096, 32, "offset"), (3, 4096, 32, "stride")]
+            # a session across processes: K2b's one-row form on 3 gathered 1 MiB
+            # rows, and K2a on a rank's one 1 MiB row and on its 4 chunk views
+            + [(3, 1 << 20, 32, "contiguous"), (1, 1 << 20, 32, "contiguous")]
+            + [(1, 1 << 18, 32, f"chunk{j}") for j in range(4)])
 # (parties, row bytes, steps): bench.py:1184 _mc_quantized_child, and the full width
 SESSIONS = {"bench": (2, 4096, 16), "full": (8, 1 << 20, 16)}
 SCHEDULES = [(1, False), (4, False), (4, True)]  # (chunks, double_buffer)
@@ -507,7 +535,8 @@ def k2_expected_forms(block: int, mode: str, layout: str) -> dict:
     form wants blocks of 4-128 floats, a power of two, and rows on 16-byte
     boundaries; K2b's wants blocks of a multiple of 4 and q on the boundary
     of a 4-value word (``"offset"`` moves it one byte off)."""
-    vec_q = block in (4, 8, 16, 32, 64, 128) and layout == "contiguous"
+    vec_q = block in (4, 8, 16, 32, 64, 128) and (layout == "contiguous"
+                                                  or layout.startswith("chunk"))
     vec_d = block % 4 == 0 and layout != "offset"
     return {"quantize_rows": ["vector" if vec_q else "general"],
             "dequant_mean_rows": ["vector" if vec_d else "general"]}
@@ -3542,10 +3571,18 @@ def u8(torch, t):
 def k2_layout(torch, rows: np.ndarray, dev, layout: str):
     """``rows`` on the card as K2a sees them: ``"contiguous"``; ``"offset"``,
     every row one float past a 16-byte boundary; ``"stride"``, rows on a
-    16-byte boundary at a row stride of nfloats + 1 but for the first."""
+    16-byte boundary at a row stride of nfloats + 1 but for the first;
+    ``"chunk<j>"``, chunk j of 4 column chunks of rows 4 x nfloats wide, as
+    a chunked session cuts its state (``mc_dispatch._make_chunk_ops``)."""
     parties, nfloats = rows.shape
     if layout == "contiguous":
         return torch.from_numpy(rows).to(dev)
+    if layout.startswith("chunk"):
+        j = int(layout[len("chunk"):])
+        buf = torch.zeros((parties, 4 * nfloats), dtype=torch.float32, device=dev)
+        x = buf[:, j * nfloats:(j + 1) * nfloats]
+        x.copy_(torch.from_numpy(rows).to(dev))
+        return x
     pad, at = (4, 1) if layout == "offset" else (1, 0)
     buf = torch.zeros((parties, nfloats + pad), dtype=torch.float32, device=dev)
     x = buf[:, at:at + nfloats]
@@ -3565,7 +3602,8 @@ def k2_forms(quantize, before) -> dict:
 
 
 def k2_case(torch, quantize, Q, dev, parties, width, block, mode, layout="contiguous"):
-    """K2a and K2b (and K2b's dequantize) against the plain versions and
+    """K2a and K2b (and K2b's dequantize and its one-row form, ``out_rows=1``)
+    against the plain versions and
     the numpy twin, bitwise, on rows that carry the edge blocks, in the
     ``layout`` of ``k2_layout`` (``"offset"`` also hands K2b its q one byte
     past a 4-byte boundary); and one quantized pmean step of noise rows
@@ -3581,11 +3619,15 @@ def k2_case(torch, quantize, Q, dev, parties, width, block, mode, layout="contig
         qk = qbuf[1:].view(q.shape)
         qk.copy_(q)
     got = {"q": q, "e": e, "mean": quantize.dequant_mean_rows(qk, e, mode, block),
+           "mean1": quantize.dequant_mean_rows(qk, e, mode, block, out_rows=1),
            "dequantize": quantize.dequant_mean_rows(qk, e, mode, block, mean=False)}
     forms = k2_forms(quantize, before)
     qp, ep = quantize.quantize_rows_plain(x, mode, block)
     plain = {"q": qp, "e": ep, "mean": quantize.dequant_mean_rows_plain(qp, ep, mode, block),
+             "mean1": quantize.dequant_mean_rows_plain(qp, ep, mode, block, out_rows=1),
              "dequantize": quantize.dequantize_rows_plain(qp, ep, mode, block)}
+    if got["mean1"].shape != (1, nfloats):
+        raise AssertionError(f"K2b out_rows=1 gave {tuple(got['mean1'].shape)}")
     got = {k: u8(torch, t) for k, t in got.items()}
     where = f"K2 {mode} P={parties} W={width} block={block} {layout}"
     for k, t in plain.items():
@@ -3600,6 +3642,8 @@ def k2_case(torch, quantize, Q, dev, parties, width, block, mode, layout="contig
                 or got["dequantize"][r].tobytes() != deqs[r].tobytes()
                 or got["mean"][r].tobytes() != mean.tobytes()):
             raise AssertionError(f"{where}: row {r} differs from the numpy twin")
+    if got["mean1"][0].tobytes() != mean.tobytes():
+        raise AssertionError(f"{where}: the one-row mean (out_rows=1) differs from the numpy twin")
     noise = quant_rows(parties, nfloats, block, mode, seed=parties + 7, edges=False)
     m = quantize.dequant_mean_rows(*quantize.quantize_rows(torch.from_numpy(noise).to(dev),
                                                            mode, block), mode, block)
@@ -3608,22 +3652,11 @@ def k2_case(torch, quantize, Q, dev, parties, width, block, mode, layout="contig
     if not err <= bound:
         raise AssertionError(f"{where}: quantized pmean error {err} > bound {bound}")
     e_seen = sorted(set(got["e"][:, :8].view(np.int8).reshape(-1).tolist()))
-    log(f"phase9 {where}: forms {forms}; kernels bitwise equal to the plain versions and the "
+    log(f"phase9 {where}: forms {forms}; kernels (K2b's one-row form out_rows=1 too) bitwise "
+        f"equal to the plain versions and the "
         f"numpy twin (exponents of the edge blocks {e_seen}); one pmean step of noise rows off "
         f"the exact mean by {err:.4g} <= bound {bound:.4g}")
     return forms
-
-
-def exact_model(rows: np.ndarray, steps: int) -> np.ndarray:
-    """The exact pmean chain in f32 with the parties added in order."""
-    cur = rows
-    for _ in range(steps):
-        m = cur[0].copy()
-        for p in range(1, len(cur)):
-            m += cur[p]
-        m = m / np.float32(len(cur))
-        cur = np.broadcast_to(m, rows.shape)
-    return cur[0]
 
 
 def session_rows(name, parties, width):
@@ -3636,8 +3669,9 @@ def session_rows(name, parties, width):
 
 def run_sessions(torch, kernels, mcd, mcc, Q, DeviceMethod, worker):
     """Phase 10: the session path through run_dispatch_session, with each
-    session's K2 launches held to steps x chunks (+1 K2a per checkpoint)."""
-    checked = {}
+    session's K2 launches held to steps x chunks (+1 K2a per checkpoint).
+    Returns (the quantized sessions' checks, each geometry's rows by mode)."""
+    checked, rows_by = {}, {}
 
     def session(dm, ops, steps, want_k2, **kw):
         before = kernels.launch_counts()
@@ -3666,7 +3700,7 @@ def run_sessions(torch, kernels, mcd, mcc, Q, DeviceMethod, worker):
             f = np.frombuffer(outs[0], np.float32)
             if mode == "none":
                 exact = f
-                if f.tobytes() != exact_model(rows, steps).tobytes():
+                if f.tobytes() != worker.pmean_model(rows, steps).tobytes():
                     raise AssertionError(f"{name}: exact session differs from the f32 model")
                 log(f"phase10 {name} ({parties} parties x {width} B x {steps} steps) none: "
                     f"schedules {SCHEDULES} byte-identical; bitwise the party-ordered f32 mean")
@@ -3715,7 +3749,189 @@ def run_sessions(torch, kernels, mcd, mcc, Q, DeviceMethod, worker):
             log(f"phase10 {name} {mode}: checkpoint_every {every}, resume_from {resume} "
                 f"byte-identical to the undisturbed {steps} steps at chunks 1 and 4 "
                 f"(ring held {retained} B)")
-    return checked
+        rows_by[name] = bases
+    return checked, rows_by
+
+
+# -- phase 10b: the session plane over RPC, in one process and across ---------
+
+PLANE_PARTIES = 8  # (a): phase 11's 8 x 1 MiB, one in-process server a party
+PLANE_WIDTH = 1 << 20  # the JAX package's MAX_WIDTH, 1 MiB a party
+PLANE_STEPS = 16
+PLANE_RUNS = [("none", 1, False), ("int8", 1, False), ("int4", 1, False), ("int8", 4, True)]
+PLANE_MC = dict(n_parties=3, steps=16, width=1 << 20)  # (b), one party a process
+PLANE_CHAOS = dict(n_parties=3, steps=8, kill_at=3, checkpoint_every=2)  # (c)
+PLANE_TIMEOUT_S = 240.0
+PLANE_GATHER_ITERS = 20
+
+
+def plane_k2_per_session(parties, steps, chunks, mode):
+    """K2a (and K2b) launches of one quantized in-process session over RPC:
+    each of the ``parties`` handlers computes the whole session (the
+    single-controller form), one launch a step and chunk; 0 exact."""
+    return 0 if mode == "none" else parties * steps * chunks
+
+
+def session_plane_phase(torch, kernels, device="cuda:0", bases=None, parties=PLANE_PARTIES,
+                        width=PLANE_WIDTH, steps=PLANE_STEPS, mc_session=PLANE_MC,
+                        chaos=PLANE_CHAOS):
+    """Phase 10b, the collective session plane over RPC: (a) in one process,
+    ``parties`` servers on ``device`` with the collective services, a
+    pure-scheduler proposer calling ``propose_dispatch`` over TCP channels
+    (``PLANE_RUNS``), each session's rows byte for byte ``bases`` (phase
+    10's ``run_dispatch_session`` rows, where given) and its model, its K2
+    launches ``plane_k2_per_session``; (b) across processes,
+    ``mc_worker.orchestrate_session`` (one party a rank, every process on
+    ``device``, gloo): the user kernel, then exact, int8 and int4 pmean
+    sessions, each checked by the client against its model byte for byte,
+    each process's K2 launches held; the fingerprint-mismatch run, refused
+    before any step; (c) the chaos drill, healed byte-identically. Returns
+    (detail, K2 launches of (a), K2 launches of (b) summed over the
+    processes). ``device="cpu"`` rehearses it at a small size
+    (tests/test_torch_mc_session.py), where no kernel launches."""
+    import concurrent.futures
+
+    from incubator_brpc_tpu_torch import rpc
+    from incubator_brpc_tpu_torch.parallel import mc_collective as mcc
+    from incubator_brpc_tpu_torch.parallel import mc_dispatch as mcd
+    from incubator_brpc_tpu_torch.parallel import quantized as Q
+    from incubator_brpc_tpu_torch.rpc.device_method import (
+        register_device_method,
+        unregister_device_method,
+    )
+    from incubator_brpc_tpu_torch.transport import mc_worker as mc
+
+    on_card = device != "cpu"
+    out = {}
+    rows = session_rows("full", parties, width)
+    ops = [r.tobytes() for r in rows]
+    want = {"none": mc.pmean_model(rows, steps).tobytes()}
+    for mode in ("int8", "int4"):
+        want[mode] = Q.np_quantized_pmean(list(rows), steps, mode).tobytes()
+
+    # (a) in one process, counted; the proposer resolves the method in its
+    # own registry (the servers' resolver mints it per width)
+    register_device_method(mcc.PMEAN_SERVICE, mcc.PMEAN_METHOD, mcc._pmean_dm(width))
+    servers = []
+    try:
+        for _ in range(parties):
+            srv = rpc.Server(rpc.ServerOptions(device=device, enable_collective_service=True,
+                                               collective_max_concurrency=0))
+            if not srv.start(0):
+                raise AssertionError("phase10b (a): a server did not start")
+            servers.append(srv)
+        chans = []
+        for srv in servers:
+            chans.append(rpc.Channel())
+            chans[-1].init(f"127.0.0.1:{srv.port}")
+        kernels.reset_launch_counts()
+        runs = []
+        for mode, chunks, db in PLANE_RUNS:
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            res = mcd.propose_dispatch(chans, list(range(parties)), mcc.PMEAN_SERVICE,
+                                       mcc.PMEAN_METHOD, ops, steps=steps, proposer_index=None,
+                                       timeout_ms=600_000, quantize=mode, chunks=chunks,
+                                       double_buffer=db)
+            wall = time.perf_counter() - t0
+            after = kernels.launch_counts()
+            got = tuple(after[k] - before[k] for k in K2)
+            k = plane_k2_per_session(parties, steps, chunks, mode) if on_card else 0
+            if got != (k, k):
+                raise AssertionError(f"phase10b (a) {mode} chunks={chunks}: K2 launches {got}, "
+                                     f"want {(k, k)}")
+            if any(r != want[mode] for r in res["results"]):
+                raise AssertionError(f"phase10b (a) {mode} chunks={chunks}: a party's row is not "
+                                     "its model's")
+            if bases is not None and res["results"][0] != bases[mode]:
+                raise AssertionError(f"phase10b (a) {mode}: differs from phase 10's session")
+            rec = {"mode": mode, "chunks": chunks, "double_buffer": db, "wall_s": wall,
+                   "ms_per_step": wall / steps * 1e3,
+                   "party_ms_per_step": [e / steps * 1e3 for e in res["party_elapsed_s"]],
+                   "k2": got}
+            runs.append(rec)
+            log(f"phase10b (a) {parties} in-process servers on {device}, {parties} x {width} B x "
+                f"{steps} steps, {mode} chunks={chunks} double_buffer={db}: every party's row "
+                f"bitwise its model"
+                + (" and phase 10's session" if bases is not None else "")
+                + f"; {rec['ms_per_step']:.3f} ms a step at the proposer (proposals of "
+                f"{parties * width / 2**20:g} MiB to each server included), each handler's chain "
+                f"{min(rec['party_ms_per_step']):.3f}-{max(rec['party_ms_per_step']):.3f} ms a "
+                f"step; K2 {got} (each handler computes the whole session)")
+        launches_a = {name: kernels.launch_counts()[name] for name in K2}
+    finally:
+        unregister_device_method(mcc.PMEAN_SERVICE, mcc.PMEAN_METHOD)
+        for srv in servers:
+            srv.stop()
+            srv.join(timeout=60)
+        rpc.shutdown_host_plane()
+    out["in_process"] = runs
+
+    # (b) across processes, one party a rank, counted in each process
+    dev = dict(device=device, backend="gloo", timeout=PLANE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    st, transcript = mc.orchestrate_session(quantize="int8,int4", **mc_session, **dev)
+    out["across_s"] = time.perf_counter() - t0
+    pm = st["pmean"]
+    if not all(r["bitwise_model"] for r in pm.values()):
+        raise AssertionError(f"phase10b (b): a pmean session missed its model\n{transcript}")
+    n, k_steps = mc_session["n_parties"], mc_session["steps"]
+    per_proc = {"client": st["k2_launches"],
+                **{name: rec["k2_launches"] for name, rec in st["servers"].items()}}
+    want_k = 2 * k_steps if on_card else 0  # int8 and int4, one launch a step each
+    for name, got in per_proc.items():
+        if got != {"quantize_rows": want_k, "dequant_mean_rows": want_k}:
+            raise AssertionError(f"phase10b (b) {name}: K2 launches {got}, want {want_k} each")
+    launches_b = {k: sum(p[k] for p in per_proc.values()) for k in K2}
+    out["across"] = st
+    log(f"phase10b (b) {n} processes on {device} over gloo, one party a rank, {width} B x "
+        f"{k_steps} steps: dsvc.scale bitwise session_expected, "
+        f"{st['per_step_ms']:.3f} ms a step (parties "
+        + ", ".join(f"{v:.3f}" for v in st["party_ms_per_step"])
+        + f"; all_gather {st['gather_ms_per_step']:.3f} ms of it at the client); "
+        + "; ".join(f"{m} pmean {r['ms_per_step']:.3f} ms a step (all_gather "
+                    f"{r['gather_ms_per_step']:.3f} ms, {r['gathers'] // k_steps} a step"
+                    + (f"; wire {r['wire_ratio']:.4f} of f32; err {r['max_error']:.3g} <= "
+                       f"{r['error_bound']:.3g}" if m != "none" else "")
+                    + ")" for m, r in pm.items())
+        + f"; rows bitwise their models; K2 {per_proc}; {out['across_s']:.1f} s with the "
+        "processes' start")
+
+    # gloo's all_gather alone, on the session's group shape (every rank a
+    # party): each row size a session step gathers, on the card (gloo
+    # stages it) and on the host; the first gather on the group apart
+    sizes = (width, 4 * width, Q.wire_bytes(width, "int8") - width // 128,
+             Q.wire_bytes(width, "int4") - width // 128, width // 128)
+    probe = mc.orchestrate_probe(axis=True, axis_bytes=sizes, iters=PLANE_GATHER_ITERS,
+                                 nprocs=mc_session["n_parties"], words=(256,), **dev)
+    out["gather_probe"] = probe
+    log(f"phase10b (b) gloo's all_gather alone, {mc_session['n_parties']} processes (rank 0): "
+        + "; ".join(f"{k} B: first {v['first_ms']:.3f} ms, then {v['ms']:.3f} ms"
+                    for k, v in probe[0]["axis"].items() if isinstance(v, dict)))
+
+    # the fingerprint reject and (c) the chaos drill, side by side (neither
+    # is timed)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        rej_f = pool.submit(mc.orchestrate_session, n_parties=mc_session["n_parties"], steps=4,
+                            wrong_kernel=True, width=mc_session["width"], **dev)
+        chaos_f = pool.submit(mc.orchestrate_chaos_session, width=mc_session["width"], **chaos,
+                              **dev)
+        rej, _ = rej_f.result()
+        drill, drill_transcript = chaos_f.result()
+    if not rej.get("rejected") or rej["sessions_run"] or any(
+            r["gathers"] for r in rej["servers"].values()):
+        raise AssertionError(f"phase10b (b) fingerprint mismatch: {rej}")
+    out["reject"] = rej
+    log("phase10b (b) a server with a same-name kernel of another body: the accept phase "
+        "refused with a fingerprint mismatch, no session ran, no party gathered")
+    if not (drill["byte_identical"] and drill["replaced_party_ids"] and drill["dead_party_ids"]
+            and "SERVER_DYING" in drill_transcript):
+        raise AssertionError(f"phase10b (c) chaos drill: {drill}")
+    out["chaos"] = drill
+    log(f"phase10b (c) chaos drill ({chaos}): party {drill['dead_party_ids']} killed at step "
+        f"{chaos['kill_at']}, healed by {drill['replaced_party_ids']}, resumed_from "
+        f"{drill['resumed_from']}, every row bitwise the undisturbed model")
+    return out, launches_a, launches_b
 
 
 # phase 11's timed K2 functions: (name in the detail, kernel, mean)
@@ -3724,8 +3940,10 @@ K2_TIMED = (("quantize_rows", "quantize_rows", None), ("dequant_mean_rows", "deq
 
 
 def k2_timings(torch, quantize, dev):
-    """Phase 11: K2 at the full width, 8 and 64 parties, int8 and int4,
-    K2b's ``mean=False`` form and a session step's K2 (K2b, then K2a of its
+    """Phase 11: K2 at the full width, 3, 8 and 64 parties, int8 and int4,
+    K2b's ``mean=False`` form, its one-row form (``out_rows=1``, the row a
+    rank keeps in a session across processes; where the tree has it) and a
+    session step's K2 (K2b, then K2a of its
     output), with CUDA events behind a spin kernel beside the bound (the
     bytes in and out over HBM) and the plain versions, and the wrapper's
     time back to back (host_ms); beside K2b, ``fill_`` of its output alone.
@@ -3734,7 +3952,8 @@ def k2_timings(torch, quantize, dev):
     res = {}
     form_of = getattr(quantize, "quantize_form", None)  # absent from trees before the vector forms
     dform_of = getattr(quantize, "dequant_form", None)
-    for parties, width in ((8, 1 << 20), (64, 1 << 20)):
+    one_row = "out_rows" in inspect.signature(quantize.dequant_mean_rows).parameters
+    for parties, width in ((3, 1 << 20), (8, 1 << 20), (64, 1 << 20)):
         nfloats = width // 4
         x = torch.from_numpy(quant_rows(parties, nfloats, 32, "int8", seed=3, edges=False)).to(dev)
         for mode in ("int8", "int4"):
@@ -3754,6 +3973,12 @@ def k2_timings(torch, quantize, dev):
                     lambda: quantize.dequant_mean_rows(q, e, mode, 32, mean=False),
                     lambda: quantize.dequant_mean_rows_plain(q, e, mode, 32, mean=False),
                     qbytes + xbytes, x.numel()),
+                # the one row a rank keeps in a session across processes
+                # (absent from trees before the one-row form)
+                "dequant_mean_rows out_rows=1": (
+                    lambda: quantize.dequant_mean_rows(q, e, mode, 32, out_rows=1),
+                    lambda: quantize.dequant_mean_rows_plain(q, e, mode, 32, out_rows=1),
+                    qbytes + 4 * nfloats, 2 * x.numel() + nfloats),
                 # a session step's K2 on the card: the mean, then the next step's
                 # quantize of it, which may find it in the L2
                 "step": (lambda: quantize.quantize_rows(quantize.dequant_mean_rows(q, e, mode, 32),
@@ -3764,6 +3989,13 @@ def k2_timings(torch, quantize, dev):
             }
             out = torch.empty_like(x)
             fill_ms, _ = device_ms(torch, lambda: out.fill_(1.0), 50)  # K2b's writes alone
+            if not one_row:
+                del cases["dequant_mean_rows out_rows=1"]
+            else:  # the timed one-row form, bitwise its plain version on these inputs
+                kern, plain = cases["dequant_mean_rows out_rows=1"][:2]
+                if not np.array_equal(u8(torch, kern()), u8(torch, plain())):
+                    raise AssertionError(f"K2b out_rows=1 {mode} P={parties}: differs from "
+                                         "the plain version")
             for name, (kern, plain, nbytes, flops) in cases.items():
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -3779,7 +4011,8 @@ def k2_timings(torch, quantize, dev):
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "bytes": nbytes, "flops": flops, "shape": [parties, width], "mode": mode,
                      "form": forms.get(name.split()[0], "both"), "l2_resident": xbytes + qbytes <= 50e6,
-                     "fill_ms": fill_ms if name.startswith("dequant") else None,
+                     "fill_ms": fill_ms if name in ("dequant_mean_rows",
+                                                    "dequant_mean_rows mean=False") else None,
                      "wire_ratio": (q[0].numel() * q.element_size() + e[0].numel()) / width}
                 res[(name, parties, mode)] = r
                 if name == "quantize_rows":
@@ -3864,7 +4097,8 @@ def run_k2_phases(torch, kernels, dev):
 
     # -- phase 10: the session path, counted ----------------------------------
     kernels.reset_launch_counts()
-    checked = run_sessions(torch, kernels, mc_dispatch, mc_collective, Q, DeviceMethod, mc_worker)
+    checked, session_bases = run_sessions(torch, kernels, mc_dispatch, mc_collective, Q,
+                                          DeviceMethod, mc_worker)
     launches = kernels.launch_counts()
     log(f"phase10 launches on the session path: {launches}")
     missing = [name for name in K2 if launches[name] == 0]
@@ -3883,8 +4117,19 @@ def run_k2_phases(torch, kernels, dev):
         line[name]["int4_ms"] = timings[(name, 8, "int4")]["ms"]
         line[name]["p64_ms"] = timings[(name, 64, "int8")]["ms"]
         line[name]["p64_bound_ms"] = timings[(name, 64, "int8")]["bound_ms"]
+    # -- phase 10b: the session plane over RPC, counted ----------------------
+    t0 = time.perf_counter()
+    plane, plane_a, plane_b = session_plane_phase(torch, kernels, bases=session_bases["full"])
+    plane["phase_s"] = time.perf_counter() - t0
+    log(f"phase10b: {plane['phase_s']:.1f} s, the servers' and processes' start included")
+    one_row = {k: timings[k] for k in timings if k[0] == "dequant_mean_rows out_rows=1"}
+    for name in K2:
+        line[name]["plane_launches"] = {"in_process": plane_a[name], "across_processes": plane_b[name]}
+    for key in ("ms", "bound_ms", "plain_ms", "bound_by"):
+        line["dequant_mean_rows"][f"one_row_{key}"] = one_row[
+            ("dequant_mean_rows out_rows=1", 3, "int8")][key]
     detail = {"timings": {f"{n} P={p} {m}": t for (n, p, m), t in timings.items()},
-              "sessions": sessions, "forms": forms,
+              "sessions": sessions, "forms": forms, "plane": plane,
               "checked": {f"{n} {m}": c for (n, m), c in checked.items()}}
     return {"launches": launches, "line": line, "detail": detail}
 

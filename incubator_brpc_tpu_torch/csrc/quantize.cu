@@ -19,10 +19,13 @@
 //   q = clip(rint(x / 2^e), -qmax, qmax)          (qmax 127 int8, 7 int4)
 //
 // int4 stores (q + 8) in nibbles, the even element in the low nibble. The
-// dequantize-mean writes, for every element i and every party row r,
+// dequantize-mean writes, for every element i and every output row r,
 //   out[r, i] = (sum over p = 0, 1, ..., P-1 of q[p, i] * 2^e[p, i / block]) / P
 // with the sum taken in party order, as the plain version and the numpy
-// twin take it.
+// twin take it. The output has `out_rows` rows: P where one process holds
+// every party's row (the single-controller session), 1 where a rank holds
+// its own row and gathered the P parties' values (the session across
+// processes), so that a rank writes 4 bytes an element, not 4 P.
 //
 // Hazards, and what the code does about each:
 // - No --use_fast_math, -ftz=true or -prec-div=false (ops/kernels.py builds
@@ -51,8 +54,9 @@
 // What bounds them on the card: bytes. Per float, quantize does an
 // absolute value, a max, a multiply and a rint, far below the card's
 // operations per byte; its traffic is 4 bytes in and 1 (int4: 1/2) out.
-// Dequantize-mean reads P (int4: P/2) bytes and writes 4 P bytes per
-// element: the state it writes is the whole [P, width] f32 row set.
+// Dequantize-mean reads P (int4: P/2) bytes and writes 4 out_rows bytes per
+// element: the whole [P, width] f32 row set in the single-controller
+// session, one row in the session across processes.
 //
 // Each kernel has two forms; the wrapper (ops/quantize.py quantize_form,
 // dequant_form) picks one by shape before the launch, and both count as the
@@ -229,14 +233,14 @@ quantize_kernel(const float* __restrict__ x, int64_t x_stride, int64_t rows, int
 
 // The vector form: thread u owns elements [4 u, 4 u + 4) of every row, one
 // 32-bit (int8) or 16-bit (int4) word of q a party, and stores one float4 a
-// row with st.global.cs (evict first: the P rows it writes pass through the
-// L2 without pushing out the q still to be read). kMean: every row of out
-// gets the party-ordered mean; else row p gets party p's own dequantized
-// values.
+// row with st.global.cs (evict first: the rows it writes pass through the
+// L2 without pushing out the q still to be read). kMean: each of the
+// out_rows rows of out gets the party-ordered mean; else row p gets party
+// p's own dequantized values.
 template <bool kInt4, bool kMean>
 __global__ void __launch_bounds__(kDequantThreads)
 dequant_vec_kernel(const uint8_t* __restrict__ q, const int8_t* __restrict__ e, int64_t parties,
-                   int64_t nfloats, int block, float* __restrict__ out) {
+                   int64_t nfloats, int block, int64_t out_rows, float* __restrict__ out) {
   using Word = typename std::conditional<kInt4, uint16_t, uint32_t>::type;  // 4 values of q
   const int64_t units = nfloats / 4;  // also q's words a row, and out's float4s
   const int64_t u = int64_t(blockIdx.x) * kDequantThreads + threadIdx.x;
@@ -280,7 +284,7 @@ dequant_vec_kernel(const uint8_t* __restrict__ q, const int8_t* __restrict__ e, 
     const float np = float(parties);
     const float4 m = make_float4(__fdiv_rn(acc[0], np), __fdiv_rn(acc[1], np),
                                  __fdiv_rn(acc[2], np), __fdiv_rn(acc[3], np));
-    for (int64_t r = 0; r < parties; ++r) __stcs(o4 + r * units + u, m);
+    for (int64_t r = 0; r < out_rows; ++r) __stcs(o4 + r * units + u, m);
   }
 }
 
@@ -298,12 +302,13 @@ __device__ __forceinline__ float dequant_one(const uint8_t* __restrict__ q,
   return __fmul_rn(float(v), exp2_exact(int(__ldg(e + p * nblocks + i / block))));
 }
 
-// The general form: one thread per element i. kMean: every row of out gets
-// the party-ordered mean; else row p gets party p's own dequantized values.
+// The general form: one thread per element i. kMean: each of the out_rows
+// rows of out gets the party-ordered mean; else row p gets party p's own
+// dequantized values.
 template <bool kInt4, bool kMean>
 __global__ void __launch_bounds__(kThreads)
 dequant_kernel(const uint8_t* __restrict__ q, const int8_t* __restrict__ e, int64_t parties,
-               int64_t nfloats, int block, float* __restrict__ out) {
+               int64_t nfloats, int block, int64_t out_rows, float* __restrict__ out) {
   const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= nfloats) return;
   const int64_t nblocks = nfloats / block;
@@ -312,7 +317,7 @@ dequant_kernel(const uint8_t* __restrict__ q, const int8_t* __restrict__ e, int6
     for (int64_t p = 1; p < parties; ++p)
       acc = __fadd_rn(acc, dequant_one(q, e, p, nfloats, nblocks, block, i, kInt4));
     const float m = __fdiv_rn(acc, float(parties));
-    for (int64_t r = 0; r < parties; ++r) out[r * nfloats + i] = m;
+    for (int64_t r = 0; r < out_rows; ++r) out[r * nfloats + i] = m;
   } else {
     for (int64_t p = 0; p < parties; ++p)
       out[p * nfloats + i] = dequant_one(q, e, p, nfloats, nblocks, block, i, kInt4);
@@ -354,27 +359,27 @@ bool quantize_vec(const float* x, int64_t x_stride, int64_t rows, int64_t nfloat
 
 template <bool kVec, bool kInt4, bool kMean>
 void launch_dequant(const uint8_t* q, const int8_t* e, int64_t parties, int64_t nfloats, int block,
-                    float* out, cudaStream_t stream) {
+                    int64_t out_rows, float* out, cudaStream_t stream) {
   if (kVec) {
     dequant_vec_kernel<kInt4, kMean><<<blocks_for(nfloats / 4, kDequantThreads), kDequantThreads, 0,
-                                       stream>>>(q, e, parties, nfloats, block, out);
+                                       stream>>>(q, e, parties, nfloats, block, out_rows, out);
   } else {
     dequant_kernel<kInt4, kMean><<<blocks_for(nfloats, kThreads), kThreads, 0, stream>>>(
-        q, e, parties, nfloats, block, out);
+        q, e, parties, nfloats, block, out_rows, out);
   }
 }
 
 template <bool kVec>
 void dequant(const uint8_t* q, const int8_t* e, int64_t parties, int64_t nfloats, int block,
-             int int4, int mean, float* out, cudaStream_t stream) {
+             int int4, int mean, int64_t out_rows, float* out, cudaStream_t stream) {
   if (int4 && mean)
-    launch_dequant<kVec, true, true>(q, e, parties, nfloats, block, out, stream);
+    launch_dequant<kVec, true, true>(q, e, parties, nfloats, block, out_rows, out, stream);
   else if (int4)
-    launch_dequant<kVec, true, false>(q, e, parties, nfloats, block, out, stream);
+    launch_dequant<kVec, true, false>(q, e, parties, nfloats, block, out_rows, out, stream);
   else if (mean)
-    launch_dequant<kVec, false, true>(q, e, parties, nfloats, block, out, stream);
+    launch_dequant<kVec, false, true>(q, e, parties, nfloats, block, out_rows, out, stream);
   else
-    launch_dequant<kVec, false, false>(q, e, parties, nfloats, block, out, stream);
+    launch_dequant<kVec, false, false>(q, e, parties, nfloats, block, out_rows, out, stream);
 }
 
 }  // namespace
@@ -408,19 +413,21 @@ int tb_quantize_rows(const float* x, int64_t x_stride, int64_t rows, int64_t nfl
   return int(cudaGetLastError());
 }
 
-// q, e of `parties` rows (contiguous) -> out [parties, nfloats] f32.
+// q, e of `parties` rows (contiguous) -> out [out_rows, nfloats] f32: with
+// mean, out_rows >= 1 copies of the mean; without, out_rows == parties.
 // vector: the vector form, which wants block % 4 == 0, q on a 4-byte
 // (int4: 2-byte) boundary and out on a 16-byte one.
 int tb_dequant_mean_rows(const uint8_t* q, const int8_t* e, int64_t parties, int64_t nfloats,
-                         int block, int int4, int mean, int vector, float* out,
+                         int block, int int4, int mean, int vector, int64_t out_rows, float* out,
                          cudaStream_t stream) {
   if (parties == 0 || nfloats == 0) return 0;
+  if (out_rows < 1 || (!mean && out_rows != parties)) return int(cudaErrorInvalidValue);
   if (vector) {
     if (block % 4 != 0 || !aligned(q, int4 ? 2 : 4) || !aligned(out, 16))
       return int(cudaErrorInvalidValue);
-    dequant<true>(q, e, parties, nfloats, block, int4, mean, out, stream);
+    dequant<true>(q, e, parties, nfloats, block, int4, mean, out_rows, out, stream);
   } else {
-    dequant<false>(q, e, parties, nfloats, block, int4, mean, out, stream);
+    dequant<false>(q, e, parties, nfloats, block, int4, mean, out_rows, out, stream);
   }
   return int(cudaGetLastError());
 }

@@ -208,9 +208,11 @@ def build() -> ctypes.CDLL:
             lib.tb_attn_bwd_dq_tc.argtypes = lib.tb_attn_bwd_dq_tf32.argtypes = [
                 p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, c_int, p
             ]
-            # K2: ..., int4, (mean,) vector (the form ops/quantize.py chose), ...
+            # K2: ..., int4, (mean,) vector (the form ops/quantize.py chose), (out_rows,) ...
             lib.tb_quantize_rows.argtypes = [p, i64, i64, i64, c_int, c_int, c_int, p, p, p]
-            lib.tb_dequant_mean_rows.argtypes = [p, p, i64, i64, c_int, c_int, c_int, c_int, p, p]
+            lib.tb_dequant_mean_rows.argtypes = [
+                p, p, i64, i64, c_int, c_int, c_int, c_int, i64, p, p
+            ]
             lib.tb_add_rms_norm_fwd.argtypes = [p, p, p, p, p, i64, i64, c_int, p]
             lib.tb_rms_norm_bwd.argtypes = [p, p, p, p, p, i64, i64, c_int, p]
             lib.tb_gelu_tanh_fwd.argtypes = [p, p, i64, c_int, p]

@@ -12,9 +12,11 @@ Two wrappers over the hand-written CUDA kernels in ``csrc/quantize.cu``:
   each checkpointed state (``mc_dispatch._make_ck_quant``).
 - :func:`dequant_mean_rows` (K2b) replaces ``quantized.py:220
   _jq_dequantize`` and the party mean after it (``:256-258``): the gathered
-  values of P parties -> f32 ``[P, nfloats]`` whose every row is the mean,
-  summed in party order. With ``mean=False`` it is the dequantize alone
-  (row p holds party p's values), which is ``_jq_dequantize``.
+  values of P parties -> f32 ``[out_rows, nfloats]`` whose every row is the
+  mean, summed in party order; ``out_rows`` is P (the default) where one
+  process holds every party's row, 1 where a rank holds its own. With
+  ``mean=False`` it is the dequantize alone (row p holds party p's values),
+  which is ``_jq_dequantize``.
 
 The arithmetic is bitwise the numpy twin's (``parallel/quantized.py``
 ``np_quantize``, ``np_dequantize``, ``np_quantized_pmean``): power-of-two
@@ -26,8 +28,8 @@ number is multiplied by its reciprocal (one rounding more), so every
 division here divides by a tensor.
 
 Both kernels are bound by bytes: quantize reads 4 bytes and writes 1 (int4:
-1/2) per float; dequantize-mean reads P (int4: P/2) bytes and writes 4 P
-per float, the whole state. ``csrc/quantize.cu`` says what the design does
+1/2) per float; dequantize-mean reads P (int4: P/2) bytes and writes 4
+``out_rows`` per float. ``csrc/quantize.cu`` says what the design does
 about it. Each kernel has a vector form (16-byte loads and stores, every
 block loaded once) and a general form for the shapes off its alignments;
 :func:`quantize_form` and :func:`dequant_form` pick one from the shape
@@ -113,14 +115,16 @@ def dequantize_rows_plain(q: torch.Tensor, e: torch.Tensor, mode: str, block: in
     return v.reshape(rows, -1)
 
 
-def dequant_mean_rows_plain(q, e, mode: str, block: int, *, mean: bool = True) -> torch.Tensor:
+def dequant_mean_rows_plain(q, e, mode: str, block: int, *, mean: bool = True,
+                            out_rows=None) -> torch.Tensor:
     v = dequantize_rows_plain(q, e, mode, block)
     if not mean:
         return v
     acc = v[0].clone()
     for p in range(1, v.shape[0]):  # party order, as the kernel and np.sum(axis=0)
         acc += v[p]
-    return _div(acc, v.shape[0]).expand_as(v).contiguous()
+    rows = v.shape[0] if out_rows is None else out_rows
+    return _div(acc, v.shape[0]).expand(rows, -1).contiguous()
 
 
 # -- wrappers ------------------------------------------------------------------
@@ -209,10 +213,12 @@ def quantize_rows(x: torch.Tensor, mode: str, block: int) -> Tuple[torch.Tensor,
 
 
 def dequant_mean_rows(q: torch.Tensor, e: torch.Tensor, mode: str, block: int,
-                      *, mean: bool = True) -> torch.Tensor:
-    """K2b. The wire values and exponents of P parties -> f32 ``[P,
-    nfloats]``: every row the party-ordered mean (``mean=True``), or row p
-    party p's dequantized values (``mean=False``)."""
+                      *, mean: bool = True, out_rows=None) -> torch.Tensor:
+    """K2b. The wire values and exponents of P parties -> f32
+    ``[out_rows, nfloats]``: every row the party-ordered mean
+    (``mean=True``; ``out_rows`` defaults to P, and 1 gives the one row a
+    rank keeps), or row p party p's dequantized values (``mean=False``,
+    ``out_rows`` P or None)."""
     for t, name in ((q, "q"), (e, "e")):
         if not isinstance(t, torch.Tensor) or t.dim() != 2:
             raise TypeError(f"dequant_mean_rows: {name} must be a 2-d tensor")
@@ -227,17 +233,21 @@ def dequant_mean_rows(q: torch.Tensor, e: torch.Tensor, mode: str, block: int,
         raise ValueError(f"dequant_mean_rows: e {tuple(e.shape)} for q {tuple(q.shape)}")
     if e.device != q.device:
         raise ValueError(f"dequant_mean_rows: q on {q.device}, e on {e.device}")
+    rows = parties if out_rows is None else int(out_rows)
+    if (parties and rows < 1) or (not mean and rows != parties):
+        raise ValueError(f"dequant_mean_rows: out_rows {out_rows} for {parties} parties "
+                         f"(mean={mean})")
     if q.device.type == "cpu":
-        return dequant_mean_rows_plain(q, e, mode, block, mean=mean)
+        return dequant_mean_rows_plain(q, e, mode, block, mean=mean, out_rows=rows)
     kernels._cuda_args(q, e)
     if (nfloats + 255) // 256 > MAX_GRID:
         raise ValueError(f"dequant_mean_rows: {nfloats} floats exceed the kernel's grid")
-    out = torch.empty((parties, nfloats), dtype=torch.float32, device=q.device)
+    out = torch.empty((rows, nfloats), dtype=torch.float32, device=q.device)
     if parties == 0 or nfloats == 0:
         return out
     form = dequant_form(q, mode, block)
     lib = kernels._lib or kernels.build()
     _launch("dequant_mean_rows", form, q.device, lib.tb_dequant_mean_rows, q.data_ptr(),
             e.data_ptr(), parties, nfloats, block, int(int4), int(mean), int(form == "vector"),
-            out.data_ptr())
+            rows, out.data_ptr())
     return out

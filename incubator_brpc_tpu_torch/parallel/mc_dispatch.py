@@ -1,45 +1,68 @@
-"""Collective method plane — the session runner of
-``incubator_brpc_tpu/parallel/mc_dispatch.py``, in its single-controller form.
+"""Collective method plane — the session plane of
+``incubator_brpc_tpu/parallel/mc_dispatch.py``: a session runs K lockstep
+steps of ANY registered device method over P parties, proposed over the
+host RPC plane.
 
 A session runs K lockstep steps of a registered device method's kernel
 over P parties, the operands staying on the device through the chain. The
-JAX package runs it in two forms: one ``jax.distributed`` process per
-party, or one process that addresses every party's device, where "one call
-owns every shard and the session degenerates to the full computation".
-This port runs the second form on one card: the state is one ``[P,
-width]`` uint8 tensor (and ``n`` an int32 ``[P]``), party ``i``'s row is
-row ``i``, and the kernel takes the party axis (``parallel/mesh.py``
-:class:`PartyAxis`) where the JAX kernel names ``"par"``:
+kernel takes the party axis (``parallel/mesh.py``) where the JAX kernel
+names ``"par"``:
 
-    kernel(data: uint8[P, width], n: int32[P], axis) -> (uint8[P, width], int32[P])
+    kernel(data: uint8[P_local, width], n: int32[P_local], axis)
+        -> (uint8[P_local, width], int32[P_local])
 
-Party ids are labels of the rows. What a session offers is the JAX
-function's: ``steps``, ``resume_from``/``resume_state`` and
-``checkpoint_every`` (the checkpoint rings), the step watchdog
-(``step_deadline_ms``), ``chunks``/``double_buffer``/``chunk_order`` (the
-overlap scheduler: a chunk is a view of the state cut at a multiple of the
-method's ``chunk_align``), ``quantize`` (the K2 variants of
-``parallel/quantized.py``, whose rings hold the quantized state), and the
-same counters. The chunk acks are CUDA events recorded after each chunk's
-launch (always ready on the CPU); the serialized schedule's barrier is
-their ``synchronize()``.
+Two forms, chosen by the JAX package's rule "a party places the shards it
+can address" (its ``run_dispatch_session``, :1043-1051):
 
-The topology-aware scheduler (``schedule_session_order``) orders parties
-and chunks by the measured speed of this process's device links
-(``transport/device_link.py`` ``link_profile()``).
+- **single controller** (this process joined no job,
+  ``utils/distributed.py``): every party is addressable. The state is one
+  ``[P, width]`` uint8 tensor on one device (``n`` an int32 ``[P]``), party
+  ``i``'s row is row ``i``, and party ids are labels of the rows. A
+  handler serving one party of a session computes the whole session, as
+  the JAX package's in-process tier does.
+- **one party per rank** (this process is a rank of a job): party ids are
+  ranks, only ``party_ids[own_index]`` (this process's rank) is
+  addressable, and the state is this party's own row ``[1, width]``. The
+  session's collectives run over a process group of its ranks in party
+  order, one group a run (``session_group``, keyed by session id and
+  epoch), released at the run's end and on abort: dropping it closes its
+  connections, which fails a peer's pending collective at once (gloo's
+  ``abort()`` does not). The group's timeout is the session's deadline.
 
-Left for later slices: the RPC proposals and handlers
-(``propose_dispatch``, ``make_dispatch_handler``, ``_validate_proposal``,
-``propose_with_recovery``), which call the scheduler, ``lower_parallel_call``,
-the rpcz spans, and the form with one party per ``torch.distributed`` rank.
+What a session offers is the JAX function's: ``steps``,
+``resume_from``/``resume_state`` and ``checkpoint_every`` (the checkpoint
+rings, which hold the rows this process holds: every row, or its own),
+the step watchdog (``step_deadline_ms``), ``chunks``/``double_buffer``/
+``chunk_order`` (the overlap scheduler: a chunk is a view of the state cut
+at a multiple of the method's ``chunk_align``), ``quantize`` (the K2
+variants of ``parallel/quantized.py``, whose rings hold the quantized
+state), and the same counters. The chunk acks are CUDA events recorded
+after each chunk's launch (always ready on the CPU); the serialized
+schedule's barrier is their ``synchronize()``.
+
+The RPC half is the JAX module's: a proposer (``propose_dispatch``)
+validates the session against every party's registry by fingerprint (the
+accept phase; ``make_dispatch_handler`` answers it), folds the parties'
+step targets with max, runs it (the run phase, watched: a dead or
+rejecting party aborts the session on every survivor), and collects every
+party's final row; ``propose_with_recovery`` heals a dead party from a
+spare, resuming from the survivors' common checkpoint where the dead
+slot's rows are reachable; ``lower_parallel_call`` runs a ParallelChannel
+call over multi-controller links as a one-step session. The
+topology-aware scheduler (``schedule_session_order``) orders parties and
+chunks by the measured speed of this process's device links
+(``transport/device_link.py`` ``link_profile()``). The rpcz spans of
+sessions, steps and chunks wait for the port's rpcz (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import base64
+import json
 import logging
 import threading
 import time
+import uuid
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,14 +70,22 @@ import torch
 
 from incubator_brpc_tpu_torch.bvar import Adder, LatencyRecorder, PassiveStatus
 from incubator_brpc_tpu_torch.parallel import quantized as _quantized
-from incubator_brpc_tpu_torch.parallel.mesh import PartyAxis, party_axis
+from incubator_brpc_tpu_torch.parallel.mesh import DistributedPartyAxis, PartyLost, party_axis
 from incubator_brpc_tpu_torch.rpc.device_method import lookup_device_method
-from incubator_brpc_tpu_torch.utils.device import DeviceLike
+from incubator_brpc_tpu_torch.utils import distributed as _dist
+from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
 from incubator_brpc_tpu_torch.utils.flags import get_flag
-from incubator_brpc_tpu_torch.utils.status import ErrorCode
+from incubator_brpc_tpu_torch.utils.status import ErrorCode, berror
 
 logger = logging.getLogger(__name__)
 
+DISPATCH_METHOD = "collective_dispatch"
+
+# Bounds a proposal must sit inside before anything is resolved or run
+# (the JAX module's, mc_collective's admission checks mirror them)
+MAX_STEPS = 100_000
+MAX_WIDTH = 1 << 20
+MAX_PARTIES = 1024
 # chunked overlap sessions: a step's operand may split into at most this
 # many independently-dispatched sub-collectives
 MAX_CHUNKS = 64
@@ -62,7 +93,7 @@ MAX_CHUNKS = 64
 # plane-level observability: sessions/steps/errors/rejects across every
 # kernel, plus a latency summary; per-kernel counters are minted lazily
 # below. errors, rejects, resumes and replaced_parties are bumped by the
-# proposal path, which comes with the host plane.
+# proposal path.
 dispatch_sessions = Adder(name="mc_dispatch_sessions")
 dispatch_steps = Adder(name="mc_dispatch_steps")
 dispatch_errors = Adder(name="mc_dispatch_errors")
@@ -264,6 +295,39 @@ def abort_session(
     return True
 
 
+def abort_sessions_for_owner(owner, reason: str) -> int:
+    """Abort every session served by one Server — the chaos drill's
+    clean-death seam (a killed party's own handler must unwedge promptly
+    instead of burning its session deadline) and a stop-time sweep for
+    anything that outlived a drain. Returns the number of sessions hit."""
+    with _sessions_lock:
+        hit = [
+            sid for sid, states in _sessions.items()
+            if any(st.owner is owner for st in states)
+        ]
+    for sid in hit:
+        abort_session(sid, reason)
+    return len(hit)
+
+
+def abort_sessions_for_devices(ranks, reason: str) -> int:
+    """Link-death feedback (``DeviceLink.fail`` calls here): any active
+    session with a party on one of these job RANKS aborts — the link that
+    carried traffic between them is gone. The JAX package keys this by
+    global device id; a multi-controller link's party is its rank here,
+    since on one card every process holds ``cuda:0``. Returns the number
+    of sessions aborted."""
+    dead = set(int(r) for r in ranks)
+    with _sessions_lock:
+        hit = [
+            sid for sid, states in _sessions.items()
+            if any(dead & set(st.party_ids) for st in states)
+        ]
+    for sid in hit:
+        abort_session(sid, reason)
+    return len(hit)
+
+
 # -- step-granular checkpoint rings --------------------------------------------
 #
 # With ``checkpoint_every`` set, each party retains a device-resident ring
@@ -272,9 +336,10 @@ def abort_session(
 # abort so a resume can start from the last COMMON checkpointed step and
 # replay only the steps past it.  Rings are released on clean completion
 # and capped by an oldest-session eviction.  Entries hold the session's
-# tensors (every party's row; a step's kernel returns new tensors, so
-# retaining them is free) and a CUDA event recorded after them: an entry
-# counts toward the resume census only once the card has reached it.
+# tensors (the rows this process holds, ``ring.slots``: every party's, or
+# its own; a step's kernel returns new tensors, so retaining them is free)
+# and a CUDA event recorded after them: an entry counts toward the resume
+# census only once the card has reached it.
 
 _MAX_CHECKPOINT_SESSIONS = 16
 
@@ -330,13 +395,16 @@ def _record_event(device: torch.device) -> Optional["torch.cuda.Event"]:
 
 
 class _CheckpointRing:
-    __slots__ = ("session_id", "own_index", "party_ids", "entries",
+    __slots__ = ("session_id", "own_index", "party_ids", "slots", "entries",
                  "entry_bytes")
 
-    def __init__(self, session_id, own_index, party_ids, entry_bytes):
+    def __init__(self, session_id, own_index, party_ids, entry_bytes, slots=None):
         self.session_id = session_id
         self.own_index = int(own_index)
-        self.party_ids = tuple(party_ids)  # the labels of the payload's rows
+        self.party_ids = tuple(party_ids)  # the session's party labels
+        # the party slots of the payload's rows, in row order: every slot
+        # (single controller) or the own one (one party per rank)
+        self.slots = tuple(range(len(party_ids)) if slots is None else slots)
         self.entries = []  # ascending [(completed_step, x, ns, event)]
         self.entry_bytes = int(entry_bytes)  # retained bytes per entry
 
@@ -376,7 +444,7 @@ _checkpoints: Dict[str, Dict[int, _CheckpointRing]] = {}
 _checkpoints_lock = threading.Lock()
 
 
-def _checkpoint_ring(session_id, own_index, party_ids, entry_bytes):
+def _checkpoint_ring(session_id, own_index, party_ids, entry_bytes, slots=None):
     """Get-or-create the ring for one party of one session (evicting the
     oldest session past the cap — bounded device memory, not a leak).
     Eviction prefers sessions with no LIVE registrant.  (The live set is
@@ -396,7 +464,7 @@ def _checkpoint_ring(session_id, own_index, party_ids, entry_bytes):
         ring = rings.get(int(own_index))
         if ring is None:
             ring = _CheckpointRing(
-                session_id, own_index, party_ids, entry_bytes
+                session_id, own_index, party_ids, entry_bytes, slots
             )
             rings[int(own_index)] = ring
         return ring
@@ -460,12 +528,13 @@ def _checkpoint_rows(
             continue
         x, ns = entry
         for slot in want:
-            if slot in out or not (0 <= slot < len(ring.party_ids)):
+            if slot in out or slot not in ring.slots:
                 continue
+            pos = ring.slots.index(slot)
             # the wire format is always the FULL-WIDTH row: a quantized
             # ring dequantizes here (exact — power-of-two scales), so
             # the reshard protocol never forks on representation
-            out[slot] = (_payload_row(x, slot).tobytes(), int(ns[slot]))
+            out[slot] = (_payload_row(x, pos).tobytes(), int(ns[pos]))
     return out
 
 
@@ -562,10 +631,108 @@ def resolve_method(service: str, method: str, width: Optional[int] = None):
     return dm
 
 
+def _party_ranks(party_ids: List[int]) -> Optional[_dist.Job]:
+    """The JAX package's ``_devices_by_id`` as a check of party ids against
+    this process's job: None without a job (single controller: every id is
+    a label and every party addressable); with one, every id must be a
+    rank of it (else ValueError, the proposal's EREQUEST) and the job is
+    returned."""
+    job = _dist.current_job()
+    if job is None:
+        return None
+    for pid in party_ids:
+        if not 0 <= int(pid) < job.world_size:
+            raise ValueError(
+                f"party id {pid} is no rank of this process's job of "
+                f"{job.world_size} (a session across processes names ranks)"
+            )
+    return job
+
+
+class RunLimit:
+    """The collective services' admission of session RUNS
+    (``ServerOptions.collective_max_concurrency``, 0 = unlimited): a run
+    past it is refused with ELIMIT instead of stacking device work behind
+    a wedged chain. Accepts and the control phases (abort, the resume
+    census, the reshard, the release) are never refused, and a run's slot
+    is free before its answer leaves: an abort must reach a party whose
+    only slot the aborted run holds, and the next session's run must find
+    the slot its predecessor held. (The JAX package limits the whole
+    method, so there an abort can be refused while a run holds the slot.)"""
+
+    def __init__(self, limit: int):
+        self.limit = max(0, int(limit))
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def enter(self) -> bool:
+        with self._lock:
+            if self.limit and self._n >= self.limit:
+                return False
+            self._n += 1
+            return True
+
+    def leave(self) -> None:
+        with self._lock:
+            self._n -= 1
+
+
+class _GroupHandle:
+    """The one strong reference to a run's session group: the party axis
+    reaches the group through it, and :meth:`release` drops it, which
+    closes the group's connections (the group is destroyed here unless a
+    collective on it is still pending)."""
+
+    __slots__ = ("pg",)
+
+    def __init__(self, pg):
+        self.pg = pg
+
+    def allgather(self, outs, ins):
+        if self.pg is None:
+            raise RuntimeError("the session group was released")
+        return self.pg.allgather(outs, ins)
+
+    def release(self) -> None:
+        self.pg = None
+
+
+def _join_session_group(session_id, epoch, party_ids, job, timeout_s, should_abort):
+    """Join this run's session group. gloo's rendezvous cannot be left
+    once entered (it waits its timeout for a missing party), so the parties
+    first meet on a counter in the job's store, polled every millisecond
+    with the abort checked in between: a party that is aborted (or times
+    out) before all arrived takes itself off the counter atomically and
+    never enters the rendezvous; once the counter reached every party, all
+    of them build the group (an aborted one then drops it at its first
+    abort check, which fails the others' first gather)."""
+    key = f"session-arrivals/{session_id}/{int(epoch)}"
+    n = len(party_ids)
+    deadline = time.monotonic() + timeout_s
+    count = job.store.add(key, 1)
+    while count < n:
+        why = should_abort() if should_abort is not None else None
+        if not why and time.monotonic() > deadline:
+            why = f"the session group did not form within {timeout_s:g} s"
+        if why:
+            if job.store.add(key, -1) != n - 1:
+                raise SessionAborted(why)  # left before the last party arrived
+            job.store.add(key, 1)  # the last arrived meanwhile: build it too
+            break
+        time.sleep(0.001)
+        count = job.store.add(key, 0)
+    pg = _dist.session_group(session_id, epoch, party_ids, job.backend, timeout_s, job=job)
+    # the group forms only once every party has left the counter's loop,
+    # so the counter is read no more: the first party drops it from the store
+    if job.rank == int(party_ids[0]):
+        job.store.delete_key(key)
+    return _GroupHandle(pg)
+
+
 # -- the lockstep step ---------------------------------------------------------
 
 
-def _make_step(dm, axis: PartyAxis):
+def _make_step(dm, axis):
     """One step of the chain: the resolved kernel over every party's row.
     A chunk step is the same call on a chunk's view — a chunk-safe kernel
     applied to a slice yields the slice of the full-width result, so the
@@ -594,8 +761,8 @@ def _make_chunk_ops(width: int, chunks: int):
 
 def _make_ck_quant(dm):
     """Checkpoint quantizer for a quantized session: the uint8 state
-    ``[P, width]`` -> (wire values, int8 exponents) of every row, one K2a
-    launch.  Retaining them IS the checkpoint."""
+    ``[P_local, width]`` -> (wire values, int8 exponents) of every row, one
+    K2a launch.  Retaining them IS the checkpoint."""
     mode, block = dm.quant_mode, dm.quant_block
 
     def qz(x):
@@ -752,10 +919,19 @@ def run_dispatch_session(
     quantize: str = "none",
     chunk_order=None,
     device: DeviceLike = None,
+    group_timeout_s: Optional[float] = None,
 ) -> Tuple[np.ndarray, int, float]:
-    """Run a K-step session of ``dm``'s kernel over every party's row on
-    one device (``cuda`` unless ``device="cpu"``); returns (party
-    ``own_index``'s final row, its final n, elapsed seconds).  Operands
+    """Run party ``own_index``'s side of a K-step session of ``dm``'s
+    kernel; returns (its final row, its final n, elapsed seconds). Every
+    party calls this with the same arguments but ``own_index``. In the
+    single-controller form (no job) the call computes every party's row on
+    one device (``cuda`` unless ``device="cpu"``); with a job, party ids are
+    ranks, ``party_ids[own_index]`` must be this process's rank, the call
+    holds that party's row on the job's device (or ``device``) and the
+    session's collectives run over its group (joined here and released on
+    return; ``group_timeout_s`` bounds the join and every collective,
+    default the session deadline flag or 120 s). A collective that fails
+    because a peer left the group raises :class:`SessionAborted`. Operands
     stay on the device across the chain: only the initial copy and the
     final fetch cross the host boundary, and the steps are queued without
     a host sync.
@@ -808,9 +984,21 @@ def run_dispatch_session(
     chunks = _validate_chunks(dm, chunks, service, method)
     chunk_order = _validate_chunk_order(chunk_order, chunks)
     chunked = chunks > 1 or double_buffer
-    axis = party_axis(n, device)
-    dev = axis.device
-    step_fn = _make_step(dm, axis)
+    job = _party_ranks(party_ids)
+    if job is not None:
+        if int(party_ids[own_index]) != job.rank:
+            raise ValueError(
+                f"party {own_index} (rank {party_ids[own_index]}) is not addressable "
+                f"from this process (rank {job.rank})"
+            )
+        if not session_id:
+            raise ValueError("a session across processes needs a session_id (its group's key)")
+        slots = [own_index]  # the rows this process holds
+        dev = job.device if device is None else resolve_device(device)
+    else:
+        slots = list(range(n))
+        dev = party_axis(n, device).device
+    own_pos = slots.index(own_index)
 
     ring = None
     if checkpoint_every and checkpoint_every > 0 and session_id:
@@ -819,7 +1007,8 @@ def run_dispatch_session(
         # the wire footprint
         row_cost = dm.wire_bytes() if quant_mode != "none" else dm.width
         ring = _checkpoint_ring(
-            session_id, own_index, party_ids, entry_bytes=n * (row_cost + 4),
+            session_id, own_index, party_ids,
+            entry_bytes=len(slots) * (row_cost + 4), slots=slots,
         )
     ck_qz = None
     if ring is not None and quant_mode != "none":
@@ -835,7 +1024,7 @@ def run_dispatch_session(
 
     if resume_from > 0:
         restored = _restore_state(
-            session_id, own_index, resume_from, party_ids, dm, resume_state, dev,
+            session_id, own_index, resume_from, dm, resume_state, dev, slots,
         )
         if restored is None:
             raise LookupError(
@@ -844,9 +1033,27 @@ def run_dispatch_session(
             )
         x, ns = restored
     else:
-        packed = [dm.pack(op) for op in operands]
+        packed = [dm.pack(operands[i]) for i in slots]
         x = torch.from_numpy(np.stack([row for row, _ in packed])).to(dev)
         ns = torch.tensor([int(nn) for _, nn in packed], dtype=torch.int32, device=dev)
+
+    def _check_abort():
+        if should_abort is not None:
+            why = should_abort()
+            if why:
+                raise SessionAborted(why)
+
+    group = None
+    if job is not None:
+        if group_timeout_s is None:
+            group_timeout_s = float(get_flag("mc_dispatch_session_deadline_ms")) / 1000.0 or 120.0
+        group = _join_session_group(
+            session_id, session_epoch, party_ids, job, max(1.0, group_timeout_s), should_abort
+        )
+        axis = DistributedPartyAxis(size=n, index=own_index, group=group, device=dev)
+    else:
+        axis = party_axis(n, dev)
+    step_fn = _make_step(dm, axis)
 
     # the per-step watchdog: ``progress`` is (step index, last progress
     # instant, chunk index), advanced before every dispatch and before the
@@ -895,12 +1102,6 @@ def run_dispatch_session(
             target=_watch_steps, name="tbtorch-mc-step-watchdog", daemon=True
         )
         wd_thread.start()
-
-    def _check_abort():
-        if should_abort is not None:
-            why = should_abort()
-            if why:
-                raise SessionAborted(why)
 
     depth = int(get_flag("mc_dispatch_checkpoint_depth"))
     t0 = time.perf_counter()
@@ -970,11 +1171,18 @@ def run_dispatch_session(
         _check_abort()
         progress[0], progress[2] = steps, -1
         progress[1] = time.monotonic()
-        own_row = x[own_index].to("cpu", copy=True).numpy()
-        own_n = int(ns[own_index])
+        own_row = x[own_pos].to("cpu", copy=True).numpy()
+        own_n = int(ns[own_pos])
         for j in range(chunks):
             acked[j] = steps
+    except PartyLost as e:
+        # a peer left the session group mid-collective (its process died,
+        # or it dropped the group on an abort): this party reports the
+        # abort, it is not the one at fault
+        raise SessionAborted(str(e)) from None
     finally:
+        if group is not None:
+            group.release()
         if wd_stop is not None:
             wd_stop.set()
             wd_thread.join()
@@ -997,27 +1205,24 @@ def run_dispatch_session(
     return own_row, own_n, elapsed
 
 
-def _restore_state(
-    session_id, own_index, step, party_ids, dm, resume_state, device
-):
-    """Rebuild the session state at one checkpointed step: slot i takes
-    the row the local ring's entry holds under the label it had in that
-    run (``ring.party_ids[i]``) — a survivor resuming in place, or a new
-    label in the slot restored from the old one's row — else the
-    ``resume_state`` row shipped for it (a replacement's bootstrap).
-    Returns (state ``[P, width]``, n ``[P]``) on ``device``, or None when a
-    slot is unrecoverable."""
+def _restore_state(session_id, own_index, step, dm, resume_state, device, slots):
+    """Rebuild the rows this process holds (``slots``) at one
+    checkpointed step: a slot the local ring's entry holds takes that row
+    (a survivor resuming in place, or a replaced label restored from the
+    slot's old row), else the ``resume_state`` row shipped for it (a
+    replacement's bootstrap). Returns (state ``[len(slots), width]``, n)
+    on ``device``, or None when a slot is unrecoverable."""
     ring = _checkpoint_lookup(session_id, own_index) if session_id else None
     entry = ring.get(int(step)) if ring is not None else None
-    payload, old_ns, old_pids = None, None, ()
+    payload, old_ns, old_slots = None, None, ()
     if entry is not None:
         payload, old_ns = entry
-        old_pids = ring.party_ids
+        old_slots = ring.slots
     state = resume_state or {}
     rows, ns = [], []
-    for i in range(len(party_ids)):
-        if i < len(old_pids):
-            src = i  # the payload row labelled old_pids[i]
+    for i in slots:
+        if i in old_slots:
+            src = old_slots.index(i)
             if isinstance(payload, _QuantCk):
                 # quantized ring: dequantize on the host (exact,
                 # power-of-two scales); the first replayed step
@@ -1042,3 +1247,1003 @@ def _restore_state(
         torch.stack(rows),
         torch.tensor(ns, dtype=torch.int32, device=device),
     )
+
+
+# -- server half ---------------------------------------------------------------
+#
+# The rpcz spans the JAX package opens around a session, its steps and its
+# chunks (and the trace context its proposals carry) wait for the port's
+# rpcz, ROADMAP A12.
+
+
+def _validate_proposal(req: dict):
+    """Shared accept/run admission: bounds, then kernel identity, then
+    the party ids against this process's job. Returns (party_ids,
+    own_index, steps, dm, err) where err is (code, text) on rejection —
+    the clean control-stream reject that keeps a divergent party out of
+    lockstep."""
+    from incubator_brpc_tpu_torch.parallel.quantized import QUANT_MODES
+
+    try:
+        party_ids = [int(i) for i in req["parties"]]
+        own_index = int(req["index"])
+        steps = int(req["steps"])
+        width = int(req["width"])
+        service = str(req["service"])
+        method = str(req["method"])
+        fingerprint = str(req["fingerprint"])
+        quantize = str(req.get("quantize", "") or "none")
+    except (ValueError, KeyError, TypeError) as e:
+        return None, None, None, None, (
+            ErrorCode.EREQUEST, f"bad dispatch proposal: {e}"
+        )
+    if not (
+        0 < steps <= MAX_STEPS
+        and 0 < width <= MAX_WIDTH
+        and 1 < len(party_ids) <= MAX_PARTIES
+        and 0 <= own_index < len(party_ids)
+        and len(set(party_ids)) == len(party_ids)
+    ):
+        return None, None, None, None, (
+            ErrorCode.EREQUEST, "dispatch proposal out of bounds"
+        )
+    if quantize not in QUANT_MODES:
+        dispatch_rejects << 1
+        return None, None, None, None, (
+            ErrorCode.EREQUEST, f"unknown quantize mode {quantize!r}"
+        )
+    dm = resolve_method(service, method, width)
+    if dm is None:
+        dispatch_rejects << 1
+        return None, None, None, None, (
+            ErrorCode.ENOMETHOD,
+            f"no device method {service}.{method} with width {width} "
+            f"registered in this process",
+        )
+    dm = dm.quantized(quantize)
+    if dm is None:
+        # the session is quantized but this method registered no such
+        # variant here — same class of divergence as a fingerprint
+        # mismatch, same clean pre-lockstep reject
+        dispatch_rejects << 1
+        return None, None, None, None, (
+            ErrorCode.EREQUEST,
+            f"device method {service}.{method} has no {quantize} "
+            f"quantized variant registered in this process",
+        )
+    ours = dm.fingerprint()
+    if ours != fingerprint:
+        # same name, different kernel: entering lockstep would run a
+        # program the proposer never named — reject before any dispatch
+        dispatch_rejects << 1
+        return None, None, None, None, (
+            ErrorCode.EREQUEST,
+            f"device method fingerprint mismatch for {service}.{method}: "
+            f"proposal {fingerprint} vs local {ours}",
+        )
+    try:
+        _party_ranks(party_ids)
+    except ValueError as e:
+        return None, None, None, None, (ErrorCode.EREQUEST, str(e))
+    return party_ids, own_index, steps, dm, None
+
+
+def make_dispatch_handler(server):
+    """Server half of ``_tpu_transport.collective_dispatch``: validate a
+    session proposal against the local registry (accept phase — nothing
+    runs), or bind the resolved kernel and run this party's side of the
+    lockstep chain (run phase), answering with the final row; the
+    control phases answer the abort broadcast (``abort``), the resume
+    census (``resume_query``), the reshard (``fetch_shard``) and the ring
+    release (``release``)."""
+
+    runs = RunLimit(server.options.collective_max_concurrency)
+
+    def collective_dispatch(cntl, request: bytes) -> bytes:
+        try:
+            req = json.loads(request.decode())
+        except ValueError as e:
+            cntl.set_failed(ErrorCode.EREQUEST, f"undecodable proposal: {e}")
+            return b""
+        phase = req.get("phase")
+        if phase == "abort":
+            # the abort broadcast: validated as little as possible — a
+            # survivor must unwedge even when the rest of the proposal
+            # state is unreachable or corrupt
+            sid = str(req.get("session_id", ""))
+            try:
+                # epoch-scoped: a straggler abort from a superseded run
+                # must not kill the session's resumed run
+                abort_epoch = int(req["epoch"]) if "epoch" in req else None
+            except (ValueError, TypeError):
+                abort_epoch = None
+            found = bool(sid) and abort_session(
+                sid,
+                str(req.get("reason", "")) or "aborted by proposer",
+                epoch=abort_epoch,
+            )
+            return json.dumps({"aborted": found}).encode()
+        if phase == "resume_query":
+            # the resume barrier's census: every LOCAL party's checkpoint
+            # watermark for this session — the proposer min-joins these
+            # over the survivors into the resume point
+            sid = str(req.get("session_id", ""))
+            wm = checkpoint_watermarks(sid) if sid else {}
+            return json.dumps(
+                {"watermarks": {str(k): v for k, v in wm.items()}}
+            ).encode()
+        if phase == "fetch_shard":
+            # reshard: materialize checkpointed rows for the requested
+            # slots (the replacement party's bootstrap state)
+            sid = str(req.get("session_id", ""))
+            step = int(req.get("step", 0) or 0)
+            slots = [int(s) for s in req.get("slots", ())]
+            rows = checkpoint_fetch(sid, step, slots) if sid else {}
+            return json.dumps(
+                {"rows": {str(k): v for k, v in rows.items()}}
+            ).encode()
+        if phase == "release":
+            sid = str(req.get("session_id", ""))
+            return json.dumps(
+                {"released": bool(sid) and release_checkpoints(sid)}
+            ).encode()
+        party_ids, own_index, steps, dm, err = _validate_proposal(req)
+        if err is not None:
+            cntl.set_failed(*err)
+            return b""
+        floor = int(get_flag("mc_dispatch_min_steps"))
+        if phase != "accept" and steps < floor:
+            # the accept ack raised our target to the floor; a run
+            # proposal below it means the proposer did not fold this
+            # party's target — reject rather than silently dispatch a
+            # count the accept never agreed to
+            dispatch_rejects << 1
+            cntl.set_failed(
+                ErrorCode.EREQUEST,
+                f"run proposal steps {steps} below this party's accepted "
+                f"floor {floor}",
+            )
+            return b""
+        if phase == "accept":
+            # Nothing is run or reserved; ``target`` lets this party RAISE
+            # the step count (mc_dispatch_min_steps). The proposer folds
+            # every target with max — the N-party join.
+            target = min(max(steps, floor), MAX_STEPS)
+            return json.dumps(
+                {"accept": True, "index": own_index, "target": target}
+            ).encode()
+        if not runs.enter():
+            cntl.set_failed(ErrorCode.ELIMIT, berror(ErrorCode.ELIMIT))
+            return b""
+        try:
+            return _serve_run(cntl, server, req, party_ids, own_index, steps, dm)
+        finally:
+            runs.leave()
+
+    return collective_dispatch
+
+
+def _serve_run(cntl, server, req, party_ids, own_index, steps, dm) -> bytes:
+    """The run phase of one party: its fields, the tombstone, the session's
+    registration (its deadline, the proposer's connection as a death
+    signal), its chain, its final row."""
+    service, method = str(req["service"]), str(req["method"])
+    try:
+        operands = [base64.b64decode(op) for op in req.get("operands", [])]
+        if len(operands) != len(party_ids):
+            raise ValueError("one operand per party required")
+        for op in operands:
+            if len(op) > dm.width:
+                raise ValueError(f"operand of {len(op)}B exceeds width {dm.width}")
+    except (ValueError, TypeError) as e:
+        cntl.set_failed(ErrorCode.EREQUEST, f"bad operands: {e}")
+        return b""
+    # fault plane: a session_id-carrying run registers here so the
+    # abort broadcast, the party's own deadline watch, link-death
+    # feedback, and the proposer's control socket dying can all
+    # unwedge this party mid-chain with a clean ESESSION
+    session_id = str(req.get("session_id", "")) or None
+    # elastic plane: the proposer stamps the checkpoint cadence and
+    # step deadline into the run proposal (cadence MUST be uniform
+    # across parties or the min-join loses its "last common step"
+    # meaning); absent fields fall back to this party's own flags
+    try:
+        run_epoch = int(req.get("epoch", 0) or 0)
+        resume_from = int(req.get("resume_from", 0) or 0)
+        # overlap fields: session-uniform — every party must dispatch
+        # the same sub-collective sequence or the chunk collectives
+        # cannot rendezvous
+        chunks = _validate_chunks(dm, req.get("chunks", 1), service, method)
+        chunk_order = _validate_chunk_order(req.get("chunk_order"), chunks)
+        double_buffer = bool(req.get("double_buffer", False))
+        if "checkpoint_every" in req:
+            checkpoint_every = int(req["checkpoint_every"] or 0)
+        else:
+            checkpoint_every = int(get_flag("mc_dispatch_checkpoint_every"))
+        if "step_deadline_ms" in req:
+            step_deadline_ms = float(req["step_deadline_ms"] or 0)
+        else:
+            step_deadline_ms = float(get_flag("mc_dispatch_step_deadline_ms"))
+        resume_state = {
+            int(k): (base64.b64decode(v["row"]), int(v["n"]))
+            for k, v in (req.get("resume_state") or {}).items()
+        }
+        if not (0 <= resume_from <= steps):
+            raise ValueError(f"resume_from {resume_from} out of bounds")
+        if resume_from > 0 and session_id is None:
+            raise ValueError("resume_from requires a session_id")
+    except (ValueError, TypeError, KeyError) as e:
+        dispatch_rejects << 1
+        cntl.set_failed(ErrorCode.EREQUEST, f"bad run fields: {e}")
+        return b""
+    if session_id is not None and run_epoch <= aborted_epoch(session_id):
+        # the abort for this epoch already passed through here: a
+        # stale (reordered or retried) run proposal must not start a
+        # zombie chain no peer will ever join
+        cntl.set_failed(
+            ErrorCode.ESESSION,
+            f"session aborted: run epoch {run_epoch} already "
+            "tombstoned on this party",
+        )
+        return b""
+    st = None
+    sock_hook = None
+    deadline_ms = float(req.get("deadline_ms", 0) or 0)
+    if deadline_ms <= 0:
+        deadline_ms = float(get_flag("mc_dispatch_session_deadline_ms"))
+    if session_id is not None:
+        deadline = (
+            time.monotonic() + deadline_ms / 1000.0 if deadline_ms > 0 else 0.0
+        )
+        st = _register_session(
+            session_id, party_ids, deadline, owner=server, epoch=run_epoch,
+        )
+        hooks = getattr(getattr(cntl, "_sock", None), "on_failed", None)
+        if hooks is not None:
+            # the proposer died with us mid-chain: its control
+            # connection failing IS the death signal (socket feedback)
+            def _proposer_died(_s, _sid=session_id, _ep=run_epoch):
+                abort_session(
+                    _sid, "proposer connection died mid-session", epoch=_ep,
+                )
+
+            hooks.append(_proposer_died)
+            sock_hook = (hooks, _proposer_died)
+
+    def _should_abort():
+        if st is None:
+            return None
+        if st.abort_event.is_set():
+            return st.abort_reason or "session aborted"
+        if st.deadline and time.monotonic() > st.deadline:
+            abort_session(
+                st.session_id, "session deadline exceeded", epoch=st.epoch,
+            )
+            return "session deadline exceeded"
+        return None
+
+    try:
+        own_row, own_n, elapsed = run_dispatch_session(
+            party_ids, own_index, dm, operands, steps,
+            service=service, method=method, should_abort=_should_abort,
+            session_id=session_id, resume_from=resume_from,
+            resume_state=resume_state,
+            checkpoint_every=checkpoint_every,
+            step_deadline_ms=step_deadline_ms,
+            session_epoch=run_epoch,
+            chunks=chunks, double_buffer=double_buffer,
+            chunk_order=chunk_order,
+            device=server.device(),
+            group_timeout_s=deadline_ms / 1000.0 if deadline_ms > 0 else None,
+        )
+    except SessionAborted as e:
+        cntl.set_failed(ErrorCode.ESESSION, f"session aborted: {e.reason}")
+        return b""
+    except LookupError as e:
+        # a resume proposal for a step this party no longer retains
+        # (evicted ring, wrong process): a clean control-stream
+        # reject — the proposer falls back to a full restart
+        dispatch_rejects << 1
+        cntl.set_failed(ErrorCode.EREQUEST, f"cannot resume: {e}")
+        return b""
+    except Exception as e:
+        dispatch_errors << 1
+        logger.exception("dispatch session failed")
+        cntl.set_failed(ErrorCode.EINTERNAL, f"dispatch session: {e!r}")
+        return b""
+    finally:
+        if sock_hook is not None:
+            try:
+                sock_hook[0].remove(sock_hook[1])
+            except ValueError:
+                pass
+        if st is not None:
+            _unregister_session(st)
+    return json.dumps(
+        {
+            "result": base64.b64encode(dm.unpack(own_row, own_n)).decode(),
+            "steps": steps,
+            "resumed_from": resume_from,
+            "elapsed_s": elapsed,
+            "index": own_index,
+        }
+    ).encode()
+
+
+# -- client half: the N-party session scheduler --------------------------------
+
+# connectivity-class failures of a RUN rpc = the party is DEAD for this
+# session (its chain will never converge); anything else is a reject.
+# Both abort the session — only death feeds the re-propose path's
+# survivor set.
+_DEATH_CODES = frozenset(
+    {
+        ErrorCode.EFAILEDSOCKET, ErrorCode.EEOF, ErrorCode.ECLOSE,
+        ErrorCode.EHOSTDOWN, ErrorCode.ERPCTIMEDOUT, ErrorCode.ELOGOFF,
+        ErrorCode.ETIMEDOUT,
+    }
+)
+
+
+def propose_dispatch(
+    channels,
+    party_ids: List[int],
+    service: str,
+    method: str,
+    operands: List[bytes],
+    steps: int = 1,
+    proposer_index: Optional[int] = None,
+    timeout_ms: float = 120000,
+    session_deadline_ms: Optional[float] = None,
+    session_id: Optional[str] = None,
+    resume_from: int = 0,
+    resume_state: Optional[Dict[int, Tuple[bytes, int]]] = None,
+    resume_state_slots=None,
+    checkpoint_every: Optional[int] = None,
+    step_deadline_ms: Optional[float] = None,
+    epoch: int = 0,
+    chunks: int = 1,
+    double_buffer: bool = False,
+    quantize: str = "none",
+    link_profile=None,
+    chunk_order=None,
+    device: DeviceLike = None,
+) -> dict:
+    """Schedule an N-party session of a registered device method.
+
+    ``party_ids`` are the parties in order (labels in a single-controller
+    process, job ranks across processes); ``operands[i]`` is party i's
+    initial row. ``channels[j]`` is a host channel to the server playing
+    the j-th REMOTE party index (every index except ``proposer_index``;
+    with ``proposer_index=None`` the proposer is a pure scheduler and every
+    party is remote — the ParallelChannel lowering's shape; else the
+    proposer runs that party's chain itself, on ``device``). Returns
+    ``{"results": [bytes per party], "final_steps": k, "elapsed_s":
+    proposer's chain seconds or None, ...}``.
+
+    ``chunks``/``double_buffer``/``chunk_order`` select the overlap
+    schedule and ``quantize`` ("none"/"int8"/"int4") the method's variant,
+    whose fingerprint the proposal stamps, as in
+    :func:`run_dispatch_session`; the accept and run fan-outs go out
+    slowest-measured-link first (``link_profile``, {party id: {"gbps",
+    "rtt_us"}}, default this process's device links), and with
+    ``chunks > 1`` the stamped ``chunk_order`` front-loads the slowest
+    parties' slices.
+
+    Three phases over the star:
+    1. accept fan-out + barrier — every party resolves the (service,
+       method) pair locally and fingerprint-checks it; any reject
+       surfaces HERE, before lockstep. ``final = max(all targets)``.
+    2. run fan-out (async — every party must be dispatching before any
+       can finish) under a fault watcher, then the proposer's own chain
+       if it participates.
+    3. completion barrier — every response must echo ``final``.
+
+    Fault semantics: the run phase registers a SESSION (random id +
+    ``session_deadline_ms`` budget, default the RPC timeout) on every
+    party. The watcher classifies a failed run RPC: connectivity failures
+    (a dead party) and rejects both abort the session — a broadcast to
+    every surviving party plus the local abort event — and
+    :class:`SessionAborted` carries the dead and surviving index sets for
+    the re-propose path (:func:`propose_with_recovery`); an ESESSION
+    answer is a survivor reporting the abort and blames nobody."""
+    n = len(party_ids)
+    remote_indexes = [i for i in range(n) if i != proposer_index]
+    if len(remote_indexes) != len(channels):
+        raise ValueError("one channel per remote party required")
+    if len(operands) != n:
+        raise ValueError("one operand per party required")
+    dm = resolve_method(service, method)
+    if dm is None:
+        raise LookupError(
+            f"device method {service}.{method} not registered locally "
+            f"(the proposer validates against its own registry too)"
+        )
+    quantize = (quantize or "none").strip() or "none"
+    qdm = dm.quantized(quantize)
+    if qdm is None:
+        raise LookupError(
+            f"device method {service}.{method} has no {quantize} "
+            "quantized variant registered locally"
+        )
+    dm = qdm
+    fingerprint = dm.fingerprint()
+    for op in operands:
+        if len(op) > dm.width:
+            raise ValueError(f"operand of {len(op)}B exceeds method width {dm.width}")
+    chunks = _validate_chunks(dm, chunks, service, method)
+    # topology-aware route: fan out slowest-measured-link first, and
+    # front-load the chunk slices that cover the slowest parties
+    if link_profile is None:
+        link_profile = _default_link_profile()
+    party_order, auto_chunk_order, _note = schedule_session_order(
+        party_ids, link_profile, chunks
+    )
+    if chunk_order is None:
+        chunk_order = auto_chunk_order
+    else:
+        chunk_order = _validate_chunk_order(chunk_order, chunks)
+
+    # session identity + deadline: what the fault plane keys on.  Every
+    # party gets the SAME budget, measured from its own clock at proposal
+    # arrival.  A caller-supplied session_id is a RESUME of that session:
+    # the parties' checkpoint rings are keyed on it.
+    if session_id is None:
+        session_id = uuid.uuid4().hex
+    sess_ms = (
+        float(session_deadline_ms)
+        if session_deadline_ms and session_deadline_ms > 0
+        else float(get_flag("mc_dispatch_session_deadline_ms")) or float(timeout_ms)
+    )
+    ckpt_every = (
+        int(checkpoint_every)
+        if checkpoint_every is not None
+        else int(get_flag("mc_dispatch_checkpoint_every"))
+    )
+    step_ms = (
+        float(step_deadline_ms)
+        if step_deadline_ms is not None
+        else float(get_flag("mc_dispatch_step_deadline_ms"))
+    )
+    resume_from = int(resume_from or 0)
+    if not (0 <= resume_from <= steps):
+        raise ValueError(f"resume_from {resume_from} outside 0..{steps}")
+    b64_operands = None
+
+    def proposal(idx: int, nsteps: int, phase: str = "") -> bytes:
+        nonlocal b64_operands
+        d = {
+            "parties": list(party_ids),
+            "index": idx,
+            "steps": nsteps,
+            "width": dm.width,
+            "service": service,
+            "method": method,
+            "fingerprint": fingerprint,
+        }
+        if quantize != "none":
+            # session-uniform, validated at accept AND run: the
+            # fingerprint above IS the quantized variant's
+            d["quantize"] = quantize
+        if phase:
+            d["phase"] = phase
+        else:
+            # the FULL operand list: a party across processes places its
+            # own, a single-controller party needs them all
+            if b64_operands is None:
+                b64_operands = [base64.b64encode(op).decode() for op in operands]
+            d["operands"] = b64_operands
+            d["session_id"] = session_id
+            d["deadline_ms"] = sess_ms
+            d["epoch"] = int(epoch)
+            # elastic plane: the proposer owns the cadence (uniform
+            # across parties) and the step watchdog; a resumed run names
+            # the agreed restore point plus bootstrap rows for parties
+            # without a ring (the replacement)
+            d["checkpoint_every"] = ckpt_every
+            d["step_deadline_ms"] = step_ms
+            if chunks > 1:
+                d["chunks"] = chunks
+                if chunk_order != list(range(chunks)):
+                    d["chunk_order"] = chunk_order
+            if double_buffer:
+                d["double_buffer"] = True
+            if resume_from > 0:
+                d["resume_from"] = resume_from
+                # bootstrap rows ride only to the parties that need them
+                # (resume_state_slots — the replacements; survivors
+                # restore from their own rings)
+                if resume_state and (
+                    resume_state_slots is None or idx in resume_state_slots
+                ):
+                    d["resume_state"] = {
+                        str(i): {
+                            "row": base64.b64encode(bytes(row)).decode(),
+                            "n": int(nn),
+                        }
+                        for i, (row, nn) in resume_state.items()
+                    }
+        return json.dumps(d).encode()
+
+    def _call(ch, payload):
+        return _control_call(ch, payload, timeout_ms)
+
+    # fan-out order: slowest measured link FIRST; parties with no
+    # telemetry keep mesh order at the tail.  The channel list itself
+    # stays positional (callers index it by remote slot).
+    fan = sorted(
+        zip(channels, remote_indexes), key=lambda p: party_order.index(p[1]),
+    )
+
+    # Phase 1 — accept barrier + the monotone-max step-count join
+    accepts = [_call(ch, proposal(idx, steps, phase="accept")) for ch, idx in fan]
+    deadline = time.monotonic() + timeout_ms / 1000.0
+    final = steps
+    for cntl, ev in accepts:
+        if not ev.wait(max(0.0, deadline - time.monotonic())):
+            raise TimeoutError("dispatch peer never acknowledged proposal")
+        if cntl.failed():
+            raise RuntimeError(f"dispatch proposal rejected: {cntl.error_text}")
+        ack = json.loads(cntl.response_payload.decode())
+        final = max(final, int(ack.get("target", steps)))
+
+    # Phase 2 — run fan-out (async: a sync proposal would deadlock — the
+    # first party's collective blocks on parties never told to start),
+    # in the same slowest-first order as the accept fan-out
+    pending = [_call(ch, proposal(idx, final)) for ch, idx in fan]
+    fan_indexes = [idx for _ch, idx in fan]
+    session_deadline = time.monotonic() + sess_ms / 1000.0
+    st = _register_session(session_id, party_ids, session_deadline, epoch=epoch)
+    outcome = {"dead": [], "rejects": [], "reason": ""}
+    watch_stop = threading.Event()
+    broadcast_done = [False]
+
+    def _broadcast_abort(reason: str, skip) -> None:
+        """phase:"abort" to every party not already known dead (async,
+        best-effort — each party's own deadline is the backstop)."""
+        msg = json.dumps(
+            {"phase": "abort", "session_id": session_id, "reason": reason,
+             "epoch": int(epoch)}
+        ).encode()
+        for ch, idx in fan:
+            if idx in skip:
+                continue
+            try:
+                _call(ch, msg)
+            except Exception:
+                logger.exception("abort broadcast to party %d failed", idx)
+
+    trigger_lock = threading.Lock()
+
+    def _trigger_abort(reason: str) -> None:
+        with trigger_lock:
+            outcome["reason"] = outcome["reason"] or reason
+            first = not broadcast_done[0]
+            broadcast_done[0] = True
+        if first:
+            # one broadcast per session: later classifications add to the
+            # outcome but the survivors were already told
+            _broadcast_abort(reason, set(outcome["dead"]))
+        abort_session(session_id, reason, epoch=epoch)
+
+    def _watch() -> None:
+        # classify every settled run RPC as it lands; on the FIRST death
+        # or reject — or the session deadline — abort fabric-wide so the
+        # survivors exit their chains instead of waiting on a party that
+        # can never join.  After an abort the watcher KEEPS scanning
+        # until every run RPC settles (or the deadline): an ESESSION
+        # answer is a survivor reporting the abort, never the dead party,
+        # which must still be identified for the re-propose path.
+        seen = set()
+        while not watch_stop.wait(0.01):
+            done = True
+            now = time.monotonic()
+            for (cntl, ev), idx in zip(pending, fan_indexes):
+                if not ev.is_set():
+                    done = False
+                    continue
+                if idx in seen or not cntl.failed():
+                    continue
+                seen.add(idx)
+                code = cntl.error_code
+                if code == ErrorCode.ESESSION:
+                    _trigger_abort(f"party {idx} reported abort: {cntl.error_text}")
+                elif code in _DEATH_CODES:
+                    outcome["dead"].append(idx)
+                    _trigger_abort(f"party {idx} died mid-session: {cntl.error_text}")
+                else:
+                    outcome["rejects"].append((idx, cntl.error_text))
+                    _trigger_abort(f"party {idx} rejected the run: {cntl.error_text}")
+            if done:
+                return
+            if st.abort_event.is_set() and not broadcast_done[0]:
+                # aborted from OUTSIDE the rpc plane (a link-death hook
+                # here): the survivors still need the broadcast
+                _trigger_abort(st.abort_reason or "session aborted")
+            if now > session_deadline:
+                _trigger_abort("session deadline exceeded")
+                return
+
+    watcher = threading.Thread(target=_watch, name="tbtorch-mc-session-watch", daemon=True)
+    watcher.start()
+
+    own_elapsed = None
+    results: List[Optional[bytes]] = [None] * n
+    party_elapsed: List[Optional[float]] = [None] * n  # each party's chain seconds
+    abort_exc: Optional[SessionAborted] = None
+    try:
+        if proposer_index is not None:
+
+            def _own_should_abort():
+                if st.abort_event.is_set():
+                    return st.abort_reason or "session aborted"
+                if time.monotonic() > session_deadline:
+                    abort_session(session_id, "session deadline exceeded", epoch=epoch)
+                    return "session deadline exceeded"
+                return None
+
+            try:
+                own_row, own_n, own_elapsed = run_dispatch_session(
+                    party_ids, proposer_index, dm, operands,
+                    final, service=service, method=method,
+                    should_abort=_own_should_abort,
+                    session_id=session_id, resume_from=resume_from,
+                    resume_state=resume_state,
+                    checkpoint_every=ckpt_every, step_deadline_ms=step_ms,
+                    session_epoch=epoch,
+                    chunks=chunks, double_buffer=double_buffer,
+                    chunk_order=chunk_order, device=device,
+                    group_timeout_s=sess_ms / 1000.0,
+                )
+            except SessionAborted as e:
+                abort_exc = e
+                # across processes this chain can end first (a peer left
+                # the session group): tell the other parties; the watcher
+                # still names the dead one from its RPC
+                _trigger_abort(e.reason)
+            except Exception:
+                dispatch_errors << 1
+                # our own chain failed: the peers' chains can never
+                # converge either — take the whole session down cleanly
+                _trigger_abort("proposer chain failed")
+                raise
+            else:
+                results[proposer_index] = dm.unpack(own_row, own_n)
+                party_elapsed[proposer_index] = own_elapsed
+
+        # Phase 3 — completion barrier; the watcher exits once every run
+        # RPC settled, or as soon as it aborted the session
+        watcher.join()
+        if st.abort_event.is_set() or abort_exc is not None:
+            dead = sorted(set(outcome["dead"]))
+            survivors = [i for i in range(n) if i not in set(dead)]
+            reason = (
+                outcome["reason"]
+                or (abort_exc.reason if abort_exc is not None else "")
+                or st.abort_reason
+                or "session aborted"
+            )
+            raise SessionAborted(
+                reason,
+                dead_indexes=dead,
+                survivor_indexes=survivors,
+                rejects=outcome["rejects"],
+                session_id=session_id,
+                final_steps=final,
+            )
+        for (cntl, ev), idx in zip(pending, fan_indexes):
+            if cntl.failed():  # defensive: the watcher classifies these
+                raise RuntimeError(f"dispatch peer failed: {cntl.error_text}")
+            resp = json.loads(cntl.response_payload.decode())
+            # each party echoes the count it validated AND ran — a
+            # mismatch means a corrupted or stale proposal reached it
+            if int(resp.get("steps", -1)) != final:
+                raise RuntimeError(
+                    f"party {idx} dispatched {resp.get('steps')} steps, "
+                    f"agreed final was {final} — close did not converge"
+                )
+            results[idx] = base64.b64decode(resp["result"])
+            party_elapsed[idx] = resp.get("elapsed_s")
+        # clean completion: nothing left to resume — release every
+        # party's checkpoint ring (best-effort broadcast; the eviction
+        # cap is the backstop for a proposer that dies before this)
+        if ckpt_every > 0:
+            release_checkpoints(session_id)
+            msg = json.dumps({"phase": "release", "session_id": session_id}).encode()
+            for ch in channels:
+                try:
+                    _call(ch, msg)
+                except Exception:
+                    logger.exception("checkpoint release broadcast failed")
+    finally:
+        watch_stop.set()
+        watcher.join()
+        _unregister_session(st)
+    return {
+        "results": results,
+        "final_steps": final,
+        "elapsed_s": own_elapsed,
+        "party_elapsed_s": party_elapsed,
+        "session_id": session_id,
+        "resumed_from": resume_from if resume_from > 0 else None,
+        "quantize": quantize,
+        # the proposer-side wire accounting: bytes every party put on the
+        # party axis across the REPLAYED steps
+        "wire_bytes": dm.wire_bytes() * n * (final - resume_from),
+        "link_order": party_order,
+        "chunk_order": chunk_order,
+    }
+
+
+def _control_call(ch, payload: bytes, timeout_ms: float):
+    """One control-stream RPC of the session plane (the proposals, the
+    abort broadcast and the resume barrier's traffic), on the host plane
+    even over a device-link channel. Returns (controller, done event)."""
+    from incubator_brpc_tpu_torch.rpc.controller import Controller
+    from incubator_brpc_tpu_torch.transport.device_link import HANDSHAKE_SERVICE
+
+    cntl = Controller(timeout_ms=timeout_ms)
+    cntl._force_host = True
+    ev = threading.Event()
+    ch.call_method(
+        HANDSHAKE_SERVICE, DISPATCH_METHOD, payload, cntl=cntl,
+        done=lambda c, _ev=ev: _ev.set(),
+    )
+    return cntl, ev
+
+
+def _query_watermarks(session_id: str, survivor_pairs, timeout_ms: float) -> Dict[int, dict]:
+    """The resume barrier's gather half: ask every surviving remote party
+    for its checkpoint census (phase:"resume_query"), merged with the
+    proposer-local census (a participating proposer — and, in-process,
+    co-hosted parties — answer from the same registry).  A survivor that
+    fails the query contributes nothing, which drags the min-join to 0 —
+    the safe side."""
+    msg = json.dumps({"phase": "resume_query", "session_id": session_id}).encode()
+    calls = []
+    for ch, idx in survivor_pairs:
+        try:
+            calls.append(_control_call(ch, msg, timeout_ms))
+        except Exception:
+            logger.exception("resume query to party %d failed", idx)
+    merged: Dict[int, dict] = dict(checkpoint_watermarks(session_id))
+    deadline = time.monotonic() + timeout_ms / 1000.0
+    for cntl, ev in calls:
+        if not ev.wait(max(0.0, deadline - time.monotonic())) or cntl.failed():
+            continue
+        try:
+            ans = json.loads(cntl.response_payload.decode())
+            for k, info in (ans.get("watermarks") or {}).items():
+                slot = int(k)
+                have = merged.get(slot)
+                if have is None or int(info.get("watermark", 0)) > int(have.get("watermark", 0)):
+                    merged[slot] = info
+        except (ValueError, TypeError, AttributeError):
+            continue
+    return merged
+
+
+def _fetch_state(
+    session_id: str, step: int, slots: List[int], channels, timeout_ms: float, required=None,
+) -> Optional[Dict[int, Tuple[bytes, int]]]:
+    """Reshard: assemble session state at one checkpointed step from the
+    survivors' rings (local first, then phase:"fetch_shard" over the rpc
+    plane) — what bootstraps a replacement party.  Returns
+    {slot: (full-width row bytes, n)} covering whatever was reachable,
+    or None when a REQUIRED slot (default: all of ``slots``) is
+    unrecoverable — the caller then falls back to a full restart.  Across
+    processes each survivor serves only its own slot, so a dead party's
+    row is reachable only where another ring holds it."""
+    state: Dict[int, Tuple[bytes, int]] = dict(_checkpoint_rows(session_id, step, slots))
+    for ch in channels:
+        missing = [s for s in slots if s not in state]
+        if not missing:
+            break
+        msg = json.dumps(
+            {"phase": "fetch_shard", "session_id": session_id, "step": int(step),
+             "slots": missing}
+        ).encode()
+        try:
+            cntl, ev = _control_call(ch, msg, timeout_ms)
+        except Exception:
+            logger.exception("shard fetch failed")
+            continue
+        if not ev.wait(timeout_ms / 1000.0) or cntl.failed():
+            continue
+        try:
+            rows = json.loads(cntl.response_payload.decode()).get("rows") or {}
+            for k, v in rows.items():
+                if int(k) not in state:
+                    state[int(k)] = (base64.b64decode(v["row"]), int(v["n"]))
+        except (ValueError, TypeError, KeyError, AttributeError):
+            continue
+    need = slots if required is None else required
+    if any(s not in state for s in need):
+        return None
+    return state
+
+
+def propose_with_recovery(
+    channels,
+    party_ids: List[int],
+    service: str,
+    method: str,
+    operands: List[bytes],
+    steps: int = 1,
+    proposer_index: Optional[int] = None,
+    timeout_ms: float = 120000,
+    session_deadline_ms: Optional[float] = None,
+    max_reproposals: int = 1,
+    spares=None,
+    checkpoint_every: Optional[int] = None,
+    step_deadline_ms: Optional[float] = None,
+    chunks: int = 1,
+    double_buffer: bool = False,
+    quantize: str = "none",
+    link_profile=None,
+    device: DeviceLike = None,
+) -> dict:
+    """:func:`propose_dispatch` with the elastic recovery path: a session
+    that aborts on PARTY DEATH heals instead of restarting from nothing
+    (up to ``max_reproposals`` times).  Two recovery modes, tried in
+    order:
+
+    1. **Resume with replacement** — when ``spares`` (a list of
+       ``(channel, party id)`` standby parties) can fill every dead slot:
+       the resume barrier min-joins the survivors' checkpoint watermarks
+       into the last COMMON checkpointed step, the dead party's state is
+       re-sharded out of the survivors' rings over the rpc plane, and the
+       SAME session (same id, a new epoch) re-runs only the steps past the
+       resume point — byte-identical to an undisturbed run.  A dead slot
+       no reachable ring holds (across processes, where each ring holds
+       its own row) falls back to a full restart over the healed set.
+    2. **Shrink restart** — no spare: a fresh session from step 0 over
+       the survivors only.
+
+    Rejects and proposer death are not recoverable and re-raise.  The
+    result dict gains ``dead_party_ids``, ``replaced_party_ids`` and
+    ``resumed_from`` (None unless the winning run was a resume)."""
+    chs = list(channels)
+    pids = [int(p) for p in party_ids]
+    ops = list(operands)
+    pidx = proposer_index
+    dropped: List[int] = []
+    replaced: List[int] = []
+    spare_pool = list(spares or ())
+    session_id = uuid.uuid4().hex
+    run_steps = steps
+    resume_from = 0
+    resume_state: Optional[Dict[int, Tuple[bytes, int]]] = None
+    resumed = False
+    for attempt in range(max_reproposals + 1):
+        remote = [i for i in range(len(pids)) if i != pidx]
+        try:
+            out = propose_dispatch(
+                chs, pids, service, method, ops, steps=run_steps,
+                proposer_index=pidx, timeout_ms=timeout_ms,
+                session_deadline_ms=session_deadline_ms,
+                session_id=session_id, resume_from=resume_from,
+                resume_state=resume_state,
+                resume_state_slots=frozenset(
+                    i for i in range(len(pids)) if pids[i] in set(replaced)
+                ) or None,
+                checkpoint_every=checkpoint_every,
+                step_deadline_ms=step_deadline_ms,
+                epoch=attempt,
+                chunks=chunks, double_buffer=double_buffer,
+                quantize=quantize, link_profile=link_profile, device=device,
+            )
+            out["dead_party_ids"] = dropped
+            out["replaced_party_ids"] = replaced
+            if resumed:
+                dispatch_resumes << 1
+            return out
+        except SessionAborted as e:
+            dead = set(e.dead_indexes)
+            if (
+                attempt == max_reproposals
+                or not dead
+                or e.rejects
+                or (pidx is not None and pidx in dead)
+            ):
+                raise
+            have_spares = len(spare_pool) >= len(dead)
+            if not have_spares and len(pids) - len(dead) < 2:
+                # a shrink below 2 parties is no session; replacement
+                # does not shrink, so the width guard only gates mode 2
+                raise
+            run_steps = max(run_steps, e.final_steps or 0)
+            dropped.extend(pids[i] for i in sorted(dead))
+            if have_spares:
+                # elastic heal: replacement + resume (mode 1)
+                survivor_slots = [i for i in range(len(pids)) if i not in dead]
+                surv_pairs = [(ch, idx) for ch, idx in zip(chs, remote) if idx not in dead]
+                wms = _query_watermarks(session_id, surv_pairs, timeout_ms)
+                point = resume_point({i: wms.get(i) for i in survivor_slots})
+                for slot in sorted(dead):
+                    sch, spid = spare_pool.pop(0)
+                    replaced.append(int(spid))
+                    pids[slot] = int(spid)
+                    chs[remote.index(slot)] = sch
+                state = None
+                if point > 0:
+                    # reshard for the REPLACEMENTS: gather every slot
+                    # reachable at the resume point, but REQUIRE only the
+                    # replaced slots — survivors restore their slots from
+                    # their own rings, and the bootstrap rows ride only to
+                    # the replacement parties (resume_state_slots above)
+                    state = _fetch_state(
+                        session_id, point, list(range(len(pids))),
+                        [ch for ch, _i in surv_pairs], timeout_ms,
+                        required=sorted(dead),
+                    )
+                    if state is None:
+                        point = 0  # reshard incomplete: full restart
+                resume_from = point
+                resume_state = state
+                resumed = True
+                dispatch_replaced_parties << len(dead)
+                logger.warning(
+                    "resuming %s.%s session %s from step %d with %d "
+                    "replacement(s) after: %s",
+                    service, method, session_id, point, len(dead), e.reason,
+                )
+            else:
+                # shrink restart (mode 2): new session over the
+                # survivors; the old session's rings are released
+                # best-effort (the eviction cap is the backstop)
+                logger.warning(
+                    "re-proposing %s.%s over %d survivor(s) after: %s",
+                    service, method, len(pids) - len(dead), e.reason,
+                )
+                release_checkpoints(session_id)
+                rel = json.dumps({"phase": "release", "session_id": session_id}).encode()
+                keep = [i for i in range(len(pids)) if i not in dead]
+                chs = [ch for ch, idx in zip(chs, remote) if idx not in dead]
+                for ch in chs:
+                    try:
+                        _control_call(ch, rel, timeout_ms)
+                    except Exception:
+                        logger.exception("checkpoint release failed")
+                ops = [ops[i] for i in keep]
+                pids = [pids[i] for i in keep]
+                if pidx is not None:
+                    pidx = keep.index(pidx)
+                session_id = uuid.uuid4().hex
+                resume_from = 0
+                resume_state = None
+                resumed = False
+    raise AssertionError("unreachable")
+
+
+# -- the ParallelChannel lowering ----------------------------------------------
+
+mc_lowered_dispatches = Adder(name="parallel_channel_mc_lowered")
+
+
+def lower_parallel_call(
+    channels,
+    party_ids: List[int],
+    service: str,
+    method: str,
+    requests: List[bytes],
+    timeout_ms: float,
+) -> List[bytes]:
+    """One combo call lowered onto the method plane: the sub-links' server
+    ranks form the party axis (channel order — the order a
+    single-controller fused dispatch stacks, so merges are
+    byte-identical), each party's operand is its sub-request, the proposer
+    is a pure scheduler, and one 1-step session replaces the host fan-out.
+    Returns per-sub response bytes in channel order. The call routes
+    through :func:`propose_with_recovery`; a 1-step session has no
+    checkpointed past and no spare pool, so an abort surfaces as
+    :class:`SessionAborted` and the combo layer falls back to the host
+    fan-out."""
+    if not timeout_ms or timeout_ms <= 0:
+        timeout_ms = 120000.0
+    out = propose_with_recovery(
+        channels, [int(p) for p in party_ids], service, method, requests,
+        steps=1, proposer_index=None, timeout_ms=timeout_ms, max_reproposals=0,
+    )
+    mc_lowered_dispatches << 1
+    return out["results"]

@@ -22,19 +22,28 @@ later slice. The JAX package's ``parallel/compat.py`` (the ``shard_map``
 seam across JAX versions) has no counterpart: nothing here is traced.
 
 :class:`PartyAxis` is the party axis of a collective session
-(``parallel/mc_dispatch.py``), the axis the JAX kernels name ``"par"``. In
-the single-controller form one process holds every party's row: the state
-is one tensor whose dim 0 is the party, on one device. A session kernel has
-the signature
+(``parallel/mc_dispatch.py``), the axis the JAX kernels name ``"par"``, in
+two forms. A session kernel has the signature
 
-    kernel(data: uint8[P, width], n: int32[P], axis: PartyAxis)
-        -> (uint8[P, width], int32[P])
+    kernel(data: uint8[P_local, width], n: int32[P_local], axis)
+        -> (uint8[P_local, width], int32[P_local])
 
-and computes every party's next row at once, where a JAX kernel computes
-one party's row under ``shard_map``. ``axis.all_gather(t)`` is then ``t``
-itself, and ``axis.psum(t)`` the sum over dim 0 in party order, handed to
-every party's row. The form over ``torch.distributed`` ranks, one party
-per rank, is a later slice.
+where ``P_local`` is the number of party rows this process holds:
+
+- :class:`PartyAxis`, the single-controller form: one process holds every
+  party's row, dim 0 of one tensor on one device (``P_local`` = P), and the
+  kernel computes every party's next row at once, where a JAX kernel
+  computes one party's row under ``shard_map``. ``axis.all_gather(t)`` is
+  ``t`` itself, and ``axis.psum(t)`` the sum over dim 0 in party order,
+  handed to every party's row.
+- :class:`DistributedPartyAxis`: one party per ``torch.distributed`` rank,
+  each holding its own row (``P_local`` = 1) over the session's process
+  group (``utils/distributed.py`` ``session_group``). ``all_gather(t)``
+  returns every party's ``t`` in party order, ``[P, ...]``, and ``psum(t)``
+  is that gather summed in party order, ``[1, ...]``: the same additions in
+  the same order as the single-controller form, so a float session gives
+  the same bytes in both forms (a backend's own reduction, gloo's
+  ``all_reduce``, adds in another order).
 """
 
 from __future__ import annotations
@@ -42,8 +51,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import time
+
 import torch
 
+from incubator_brpc_tpu_torch.bvar import Adder
 from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
 
 FABRIC_AXES = ("dp", "pp", "tp", "sp", "ep")
@@ -119,6 +131,15 @@ def make_fabric_mesh(
     return mesh
 
 
+def party_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over dim 0, added in party order (0, 1, ...): both
+    party axes' ``psum``, so the two forms add alike to the byte."""
+    acc = t[0].clone()
+    for p in range(1, t.shape[0]):
+        acc += t[p]
+    return acc
+
+
 @dataclasses.dataclass(frozen=True)
 class PartyAxis:
     """The party axis of a single-controller session: ``size`` parties
@@ -131,8 +152,7 @@ class PartyAxis:
         if t.dim() < 1 or t.shape[0] != self.size:
             raise ValueError(
                 f"PartyAxis.{op}: shape {tuple(t.shape)}; want {self.size} parties on "
-                "dim 0 (the form with one party per torch.distributed rank is ROADMAP "
-                "slice 6)"
+                "dim 0 (one party per process is DistributedPartyAxis)"
             )
         if t.device != self.device:
             raise ValueError(f"PartyAxis.{op}: tensor on {t.device}, axis on {self.device}")
@@ -146,10 +166,7 @@ class PartyAxis:
         """The sum over parties, added in party order (0, 1, ...), as
         every party's row: ``[P, ...]``, a broadcast view of one sum."""
         self._check(t, "psum")
-        acc = t[0].clone()
-        for p in range(1, self.size):
-            acc += t[p]
-        return acc.expand_as(t)
+        return party_sum(t).expand_as(t)
 
 
 def party_axis(parties: int, device: DeviceLike = None) -> PartyAxis:
@@ -158,3 +175,61 @@ def party_axis(parties: int, device: DeviceLike = None) -> PartyAxis:
     if not 1 <= parties:
         raise ValueError(f"a session needs at least one party, got {parties}")
     return PartyAxis(size=int(parties), device=resolve_device(device))
+
+
+# the distributed party axis's gathers in this process, and their host time
+# (from the call to its completion, waiting for the slowest peer included)
+party_gathers = Adder(name="mc_party_gathers")
+party_gather_us = Adder(name="mc_party_gather_us")
+
+
+class PartyLost(RuntimeError):
+    """A collective of a distributed party axis failed: a peer left the
+    session group (its process died, or it dropped the group on an abort),
+    or the group's timeout passed."""
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedPartyAxis:
+    """The party axis of a session with one party per ``torch.distributed``
+    rank: ``size`` parties, this process party ``index``, holding its own
+    row ``[1, ...]`` on ``device``; ``group`` is the session's process group,
+    its ranks in party order."""
+
+    size: int
+    index: int
+    group: object
+    device: torch.device
+
+    def _check(self, t: torch.Tensor, op: str) -> None:
+        if t.dim() < 1 or t.shape[0] != 1:
+            raise ValueError(
+                f"DistributedPartyAxis.{op}: shape {tuple(t.shape)}; want this party's "
+                "own row, 1 on dim 0"
+            )
+        if t.device != self.device:
+            raise ValueError(
+                f"DistributedPartyAxis.{op}: tensor on {t.device}, axis on {self.device}"
+            )
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every party's ``t`` in party order: ``[size, ...]``. The bytes
+        cross the group in ``t``'s own dtype (int8 values cross as int8)."""
+        self._check(t, "all_gather")
+        t = t.contiguous()
+        outs = [torch.empty_like(t) for _ in range(self.size)]
+        t0 = time.perf_counter()
+        try:
+            self.group.allgather([outs], [t]).wait()
+        except RuntimeError as e:
+            raise PartyLost(f"party {self.index}'s all_gather over the session group failed: "
+                            f"{e}") from e
+        party_gathers << 1
+        party_gather_us << (time.perf_counter() - t0) * 1e6
+        return torch.cat(outs, dim=0)
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over parties, added in party order (0, 1, ...): this
+        party's row, ``[1, ...]``."""
+        self._check(t, "psum")
+        return party_sum(self.all_gather(t)).unsqueeze(0)

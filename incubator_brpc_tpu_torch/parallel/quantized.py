@@ -20,10 +20,15 @@ side is ``_tq_quantize`` / ``_tq_dequantize``, the counterparts of
 ``_jq_quantize`` / ``_jq_dequantize``, over K2 (``ops/quantize.py``,
 ``csrc/quantize.cu``), and the pmean kernel that runs them:
 
-    quantize every party's row (K2a) -> axis.all_gather -> dequantize-mean (K2b)
+    quantize the rows this process holds (K2a) -> axis.all_gather
+        -> dequantize-mean (K2b) into as many rows as it holds
 
 which is bitwise the numpy twin's arithmetic, the party sum included (it
-is taken in party order).
+is taken in party order). It runs unchanged on both forms of the party
+axis (``parallel/mesh.py``): in the single-controller form it quantizes
+and writes every party's row, across processes each rank quantizes its
+own row, the int8 (or packed int4) values and the exponents cross the
+session group in those dtypes, and K2b writes the rank's one row.
 """
 
 from __future__ import annotations
@@ -200,13 +205,13 @@ def _make_quantized_pmean_kernel(mode: str, block: int):
     silently alias."""
 
     def kernel(data, n, axis, _mode=mode, _block=block):
-        f = data.view(torch.float32)  # [P, width / 4]; a chunk stays a view
+        f = data.view(torch.float32)  # [P_local, width / 4]; a chunk stays a view
         q, e = _tq_quantize(f, _mode, _block)
         # the wire crossing: per party, len(q[0]) + len(e[0]) bytes
         # instead of the width-byte float row
         gq = axis.all_gather(q)
         ge = axis.all_gather(e)
-        m = quantize.dequant_mean_rows(gq, ge, _mode, _block)
+        m = quantize.dequant_mean_rows(gq, ge, _mode, _block, out_rows=f.shape[0])
         return m.view(torch.uint8), n
 
     return kernel

@@ -6,13 +6,18 @@ These compose ordinary Channels on the host RPC plane, over TCP or over
 device links (``ChannelOptions(transport="tpu")``). The port's copy of the
 JAX package's ``rpc/combo.py`` in its host form: the fan-out runs one
 sub-call per sub-channel. Where every sub-channel rides a link to a
-distinct server device and the method is a device method, the reference
-lowers the fan-out to one collective dispatch over those devices; that
-lowering is ROADMAP A3 (A4b for multi-controller links), and the port
-raises ``NotImplementedError`` naming it there instead of quietly taking
-the host fan-out. Sub-links that share a device (one card: every server
-binds it) cannot form the collective axis, so the host fan-out runs and
-``parallel_channel_host_fanout`` counts it, as in the reference.
+distinct server and the method is a device method, the reference lowers
+the fan-out to one collective dispatch over those servers. Over
+multi-controller links (one server a process) the port lowers it as the
+reference does, to a one-step session on the collective method plane
+(``parallel/mc_dispatch.py`` ``lower_parallel_call``, the servers' ranks
+its parties), and falls back to the host fan-out when the session aborts;
+the single-controller fused dispatch is ROADMAP A3, and the port raises
+``NotImplementedError`` naming it there instead of quietly taking the
+host fan-out. Single-controller sub-links that share a device (one card:
+every server binds it) cannot form the collective axis, so the host
+fan-out runs and ``parallel_channel_host_fanout`` counts it, as in the
+reference.
 
 Kept semantics:
 - ParallelChannel: CallMapper maps (channel_index, request) → SubCall
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Callable, List, Optional, Tuple
 
 from incubator_brpc_tpu_torch.bvar import Adder
@@ -100,10 +106,11 @@ class ParallelChannel:
     the whole scatter → execute → gather into ONE collective dispatch over
     those devices (an all-gather of every response; a 1-step N-party
     session for multi-controller links). The port checks the same
-    preconditions in the same order and, where all hold, raises
-    ``NotImplementedError`` naming ROADMAP A3 (A4b for multi-controller
-    links); ``fuse_device_calls=False`` takes the host fan-out there. Any
-    precondition miss runs the host fan-out, as in the reference."""
+    preconditions in the same order; over multi-controller links it runs
+    the session, and over single-controller ones it raises
+    ``NotImplementedError`` naming ROADMAP A3, where
+    ``fuse_device_calls=False`` takes the host fan-out. Any precondition
+    miss runs the host fan-out, as in the reference."""
 
     def __init__(self, fail_limit: int = -1, fuse_device_calls: bool = True):
         self.fail_limit = fail_limit
@@ -244,17 +251,20 @@ class ParallelChannel:
         self, service, method, request, plan, cntl
     ) -> Optional[bytes]:
         """None when the preconditions of the collective lowering do not
-        hold (the host fan-out runs instead); where they all hold, raises
-        ``NotImplementedError`` naming ROADMAP A3 (A4b for multi-controller
-        links) — the lowering itself is not in the port.
+        hold, or its session aborted (the host fan-out runs instead); the
+        merged responses where the multi-controller lowering ran; where
+        every precondition holds over single-controller links, raises
+        ``NotImplementedError`` naming ROADMAP A3.
 
         Preconditions, in the reference's order: the method has a
         registered device kernel; no mapper redirects a sub-call; every
         non-skipped sub-channel uses transport='tpu', its sub-request fits
         the kernel row width, and it resolves a live device link whose peer
-        advertised this kernel; the links' server devices are pairwise
-        distinct (they form the collective axis). Every LB pick made to
-        probe a link is settled before returning or raising.
+        advertised this kernel; the links are all multi-controller (their
+        server ranks pairwise distinct) or all single-controller (their
+        server devices pairwise distinct); they form the collective axis.
+        Every LB pick made to probe a link is settled before returning or
+        raising, with the session's latency where it ran.
         """
         from incubator_brpc_tpu_torch.rpc.device_method import lookup_device_method
 
@@ -276,6 +286,7 @@ class ParallelChannel:
                     pch._lb.settle(pds)
 
         links = []
+        requests = []
         for _i, (ch, _merger, sub) in subs:
             if sub.service is not None or sub.method is not None:
                 # a mapper that redirects a sub-call to a different method
@@ -307,21 +318,46 @@ class ParallelChannel:
                 return None
             devices.append(link.devices[1])
             links.append(link)
+            requests.append(req)
+        mc = [getattr(lk, "own_side", None) is not None for lk in links]
+        if any(mc):
+            # multi-controller sub-links cannot take the single-dispatch
+            # fuse (this process cannot place operands in another process):
+            # they lower through the collective method plane instead — one
+            # 1-step N-party session of the SAME kernel, the servers'
+            # ranks its parties, scheduled over the host plane
+            if not all(mc):
+                _settle_probes()
+                return None  # mixed planes cannot form one party axis
+            ranks = [int(lk.ranks[1]) for lk in links]
+            if len(set(ranks)) != len(ranks):
+                _settle_probes()
+                return None  # one server process cannot be two parties
+            t0 = time.perf_counter()
+            try:
+                from incubator_brpc_tpu_torch.parallel import mc_dispatch
+
+                outs = mc_dispatch.lower_parallel_call(
+                    [ch for _i, (ch, _m, _s) in subs], ranks, service, method, requests,
+                    timeout_ms=cntl.timeout_ms,
+                )
+            except Exception:
+                logger.exception("mc collective lowering failed; using host fan-out")
+                _settle_probes()
+                return None
+            latency_us = (time.perf_counter() - t0) * 1e6
+            for pch, pds in probed:
+                if pch._lb is not None:
+                    pch._lb.feedback(pds, latency_us, 0)
+            merged = b""
+            for pos, (_i, (_ch, merger, _sub)) in enumerate(subs):
+                merged = merger.merge(merged, outs[pos])
+            return merged
         ids = [str(d) for d in devices]
         if len(set(ids)) != len(ids):
             _settle_probes()
             return None  # shared devices cannot form the collective axis
         _settle_probes()
-        mc = [getattr(lk, "own_side", None) is not None for lk in links]
-        if any(mc) and not all(mc):
-            return None  # mixed planes cannot form one party axis
-        if any(mc):
-            # multi-controller sub-links lower through the collective method
-            # plane (a 1-step N-party session of the same kernel)
-            raise NotImplementedError(
-                f"ParallelChannel over multi-controller links for {full} lowers "
-                "through the collective method plane, not in the port yet (ROADMAP A4b)"
-            )
         raise NotImplementedError(
             f"ParallelChannel fused collective dispatch of {full} over "
             f"{len(ids)} distinct server devices ({', '.join(ids)}) is not in the "

@@ -25,8 +25,16 @@ acceptor, trimmed: the method map is a plain dict keyed by full name
 (where the JAX package uses its native FlatMap), methods run with
 unlimited concurrency, and the native plane, TLS, the concurrency
 limiters, auth, the fault injector, rpcz, request dumps, the HTTP gateway,
-lame-duck draining (with its RST of open streams), session and
-thread-local data, and the collective services are later slices. A
+lame-duck draining (with its RST of open streams), and session and
+thread-local data are later slices. The collective services
+(``_tpu_transport.collective`` and ``_tpu_transport.collective_dispatch``,
+``parallel/mc_collective.py`` and ``parallel/mc_dispatch.py``) are
+registered at ``start`` where ``enable_collective_service`` asks for them,
+or by default where this process joined a job
+(``utils/distributed.current_job()``); each admits at most
+``collective_max_concurrency`` session runs at once (ELIMIT past it; 0 =
+unlimited; ``mc_dispatch.RunLimit``: accepts and aborts are never
+refused, where the JAX package's method limit refuses them too). A
 handler accepts a streaming RPC with ``rpc.stream.stream_accept(cntl)``;
 the accepted stream's id rides the response meta, and a handler that
 fails after accepting kills the stream. The device-link handshake
@@ -165,7 +173,6 @@ class ServerOptions:
             ("reserved_session_local_data", reserved_session_local_data, 0, "A7"),
             ("thread_local_data_factory", thread_local_data_factory, None, "A7"),
             ("reserved_thread_local_data", reserved_thread_local_data, 0, "A7"),
-            ("collective_max_concurrency", collective_max_concurrency, 1, "A4b"),
             ("fault_injector", fault_injector, None, "A7"),
         )
         for name, value, default, item in unported:
@@ -173,10 +180,6 @@ class ServerOptions:
                 refuse_unported("ServerOptions", name, value, item)
         if idle_timeout_s is not None and idle_timeout_s > 0:
             refuse_unported("ServerOptions", "idle_timeout_s", idle_timeout_s, "A7")
-        if enable_collective_service:
-            refuse_unported(
-                "ServerOptions", "enable_collective_service", enable_collective_service, "A4b"
-            )
         # inert until ROADMAP A12 (the port has no builtin services yet)
         self.has_builtin_services = has_builtin_services
         # Run request processing (cut + handler) inline on the reactor
@@ -187,6 +190,14 @@ class ServerOptions:
         # device this server binds for transport='tpu' links (None = pick a
         # neighbor of the client's device; the reference's use_rdma slot)
         self.device_index = device_index
+        # Serve the collective session plane's proposals
+        # (``_tpu_transport.collective`` and ``.collective_dispatch``):
+        # True/False, or None = on where this process joined a job at
+        # ``Server.start`` (the deployment where sessions rendezvous).
+        self.enable_collective_service = enable_collective_service
+        # per-method admission limit of the collective services (0 =
+        # unlimited); sessions past it are refused with ELIMIT
+        self.collective_max_concurrency = collective_max_concurrency
         self.device = device
 
 
@@ -267,6 +278,30 @@ class Server:
         hs = f"{HANDSHAKE_SERVICE}.{HANDSHAKE_METHOD}"
         if hs not in self._methods:
             self._methods[hs] = MethodProperty(make_handshake_handler(self), MethodStatus(hs))
+        # the collective session plane shares the transport service: OPT-IN,
+        # on by default only in a job (the probe runs once, at start: a
+        # process that joins a job after starting its server passes
+        # enable_collective_service=True), each method behind the limit
+        enable_co = self.options.enable_collective_service
+        if enable_co is None:
+            from incubator_brpc_tpu_torch.utils.distributed import current_job
+
+            enable_co = current_job() is not None
+        if enable_co:
+            from incubator_brpc_tpu_torch.parallel.mc_collective import (
+                COLLECTIVE_METHOD,
+                make_collective_handler,
+            )
+            from incubator_brpc_tpu_torch.parallel.mc_dispatch import (
+                DISPATCH_METHOD,
+                make_dispatch_handler,
+            )
+
+            for name, make in ((COLLECTIVE_METHOD, make_collective_handler),
+                               (DISPATCH_METHOD, make_dispatch_handler)):
+                full = f"{HANDSHAKE_SERVICE}.{name}"
+                if full not in self._methods:
+                    self._methods[full] = MethodProperty(make(self), MethodStatus(full))
         if isinstance(listen, int):
             ep = EndPoint(ip="127.0.0.1", port=listen)
         elif isinstance(listen, str):

@@ -57,9 +57,11 @@ the link whose two halves live in two processes, lockstep over
 ``torch.distributed``; its ``DeviceSocket`` carries RPC frames as this
 module's does.
 
-Not here yet: credentials on links (``auth``, ROADMAP A7; ``ssl_*``, A10)
-and the abort of the collective sessions that rode a link when it dies
-(A4b).
+A link that fails aborts the collective sessions of its parties
+(``parallel/mc_dispatch.py`` ``abort_sessions_for_devices``, keyed by job
+rank: a multi-controller link's two ranks; a link inside one process has
+no ranks). Not here yet: credentials on links (``auth``, ROADMAP A7;
+``ssl_*``, A10).
 """
 
 from __future__ import annotations
@@ -166,6 +168,10 @@ def _record_event(stream) -> Optional["torch.cuda.Event"]:
 
 class DeviceLink:
     """One established two-party link: the QP pair + CQ + window."""
+
+    # the job ranks of the link's two parties (a multi-controller link's;
+    # a link inside one process has none): whose sessions fail() aborts
+    ranks: tuple = ()
 
     def __init__(
         self,
@@ -632,11 +638,9 @@ class DeviceLink:
         return True
 
     def fail(self, reason: str) -> None:
-        """Fail the link: drop the queues, wake the writers, fail both
-        sockets with EFAILEDSOCKET. (The JAX package also aborts the
-        collective sessions that rode the link here,
-        ``abort_sessions_for_devices``; the port's sessions bind no link
-        yet, ROADMAP A4b.)"""
+        """Fail the link: drop the queues, abort the collective sessions
+        of the link's ranks, wake the writers, fail both sockets with
+        EFAILEDSOCKET."""
         with self._lock:
             if self._closed:
                 return
@@ -647,6 +651,18 @@ class DeviceLink:
             self._step_ts.clear()
         link_errors << 1
         self._retire_metrics()
+        if self.ranks:
+            # party-death feedback for the collective fault plane: a
+            # session between these ranks lost the link between them, so
+            # every party exits with ESESSION instead of waiting it out
+            try:
+                from incubator_brpc_tpu_torch.parallel.mc_dispatch import (
+                    abort_sessions_for_devices,
+                )
+
+                abort_sessions_for_devices(self.ranks, f"device link failed: {reason}")
+            except Exception:
+                logger.exception("link-death session abort failed")
         self._wbutex.add(1)
         self._wbutex.wake_all()
         for sock in self.socks:

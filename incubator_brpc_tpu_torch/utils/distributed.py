@@ -4,17 +4,22 @@ of what ``jax.distributed`` gives the JAX package's multi-controller plane.
 A job is ``world_size`` processes, each told its ``rank`` and its own
 device explicitly (nothing on the machine tells a process of a cluster).
 Process 0 holds the job's ``TCPStore``; the others connect to it. The
-store is the rendezvous of every link group (``link_group``): a
-two-process group built by the two parties of one multi-controller link
-(``transport/mc_link.py``) and by no one else, over
-``PrefixStore(key, store)``. Links are made on demand by a handshake
-between two processes, so no collective ``new_group`` over the whole job
-could build them.
+store is the rendezvous of every group the port builds, each over
+``PrefixStore(key, store)`` by its members and by no one else:
 
-The backend of a link group is the caller's choice: ``gloo`` (CPU tensors,
-and on a card the rows stay CUDA tensors that gloo moves through the host)
-or ``nccl`` (CUDA tensors across cards). A backend that fails to build
-fails the link; nothing picks another.
+- a link group (``link_group``): the two processes of one multi-controller
+  link (``transport/mc_link.py``);
+- a session group (``session_group``): the N ranks of one run of a
+  collective session (``parallel/mc_dispatch.py``), in party order.
+
+Links and sessions are made on demand by an RPC between some of the
+processes, so no collective ``new_group`` over the whole job could build
+them.
+
+The backend of a group is the caller's choice: ``gloo`` (CPU tensors, and
+on a card the rows stay CUDA tensors that gloo moves through the host) or
+``nccl`` (CUDA tensors across cards). A backend that fails to build fails
+the link or the session; nothing picks another.
 
 Process 0 must outlive the others: its store is the rendezvous.
 """
@@ -54,11 +59,11 @@ class Job:
         self._lock = threading.Lock()
 
     def claim_key(self, key: str) -> None:
-        """A link group's store prefix, once per process: a key used twice
-        would rendezvous with a stale group's entries."""
+        """A group's store prefix, once per process: a key used twice would
+        rendezvous with a stale group's entries."""
         with self._lock:
             if key in self._keys:
-                raise ValueError(f"link group key {key!r} already used by this process")
+                raise ValueError(f"group key {key!r} already used by this process")
             self._keys.add(key)
 
 
@@ -136,14 +141,51 @@ def link_group(
     )
 
 
+def session_group(
+    session_id: str,
+    epoch: int,
+    ranks: Sequence[int],
+    backend: str,
+    timeout: float,
+    job: Optional[Job] = None,
+) -> "dist.ProcessGroup":
+    """The process group of one run of a collective session: ``ranks`` are
+    the session's parties in party order, and this process's place among
+    them is its rank in the group. Every party calls it with the same
+    ``session_id`` and ``epoch`` (a resumed run is a new epoch, so a new
+    group); it returns once all joined (or raises after ``timeout`` s,
+    which also bounds every collective on the group). One group a run:
+    two sessions over the same ranks must not interleave their
+    collectives on one group."""
+    job = job or _job
+    if job is None:
+        raise RuntimeError("session_group needs a job (utils.distributed.init_job)")
+    ranks = [int(r) for r in ranks]
+    if len(set(ranks)) != len(ranks) or len(ranks) < 2:
+        raise ValueError(f"a session group is two or more distinct ranks, got {ranks}")
+    if job.rank not in ranks:
+        raise ValueError(f"rank {job.rank} is not a party of the session {ranks}")
+    key = f"session/{session_id}/{int(epoch)}"
+    job.claim_key(key)
+    return make_group(
+        dist.PrefixStore(key, job.store), ranks.index(job.rank), len(ranks), backend, timeout
+    )
+
+
 def make_pair_group(store: "dist.Store", group_rank: int, backend: str, timeout: float):
     """A two-process group of ``backend`` over ``store``, this process at
     ``group_rank``. Raises if the backend is not built into this torch."""
+    return make_group(store, group_rank, 2, backend, timeout)
+
+
+def make_group(store: "dist.Store", group_rank: int, size: int, backend: str, timeout: float):
+    """A ``size``-process group of ``backend`` over ``store``, this process
+    at ``group_rank``. Raises if the backend is not built into this torch."""
     td = datetime.timedelta(seconds=timeout)
     if backend == "gloo":
-        return dist.ProcessGroupGloo(store, group_rank, 2, td)
+        return dist.ProcessGroupGloo(store, group_rank, size, td)
     if backend == "nccl":
         opts = dist.ProcessGroupNCCL.Options()
         opts._timeout = td
-        return dist.ProcessGroupNCCL(store, group_rank, 2, opts)
+        return dist.ProcessGroupNCCL(store, group_rank, size, opts)
     raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")

@@ -993,9 +993,10 @@ def test_k2_forms_match_plain_versions_and_the_numpy_twin(cuda, mode, parties, w
     forms = chip_smoke.k2_case(torch, quantize, Q, cuda, parties, width, block, mode, layout)
     after = kernels.launch_counts()
     assert forms == chip_smoke.k2_expected_forms(block, mode, layout)
-    # the case's rows and its noise rows: two quantizes, three dequantizes
+    # the case's rows and its noise rows: two quantizes; four dequantizes (the
+    # mean, its one-row form, mean=False, and the noise rows' mean)
     assert after["quantize_rows"] - before["quantize_rows"] == 2
-    assert after["dequant_mean_rows"] - before["dequant_mean_rows"] == 3
+    assert after["dequant_mean_rows"] - before["dequant_mean_rows"] == 4
 
 
 def test_k2_vector_forms_refuse_what_they_do_not_take(cuda):
@@ -1017,8 +1018,13 @@ def test_k2_vector_forms_refuse_what_they_do_not_take(cuda):
     assert lib.tb_quantize_rows(buf.data_ptr(), 68, 2, 64, 16, 0, 1, q.data_ptr(),
                                 torch.empty((2, 4), dtype=torch.int8, device=cuda).data_ptr(),
                                 stream) == 0
-    # q one byte off its 32-bit word
-    assert lib.tb_dequant_mean_rows(q.data_ptr() + 1, e.data_ptr(), 1, 32, 32, 0, 1, 1,
+    # q one byte off its 32-bit word (one party, one output row)
+    assert lib.tb_dequant_mean_rows(q.data_ptr() + 1, e.data_ptr(), 1, 32, 32, 0, 1, 1, 1,
+                                    out.data_ptr(), stream) != 0
+    # no output row, and a dequantize (mean=0) into fewer rows than parties
+    assert lib.tb_dequant_mean_rows(q.data_ptr(), e.data_ptr(), 2, 32, 32, 0, 1, 1, 0,
+                                    out.data_ptr(), stream) != 0
+    assert lib.tb_dequant_mean_rows(q.data_ptr(), e.data_ptr(), 2, 32, 32, 0, 0, 1, 1,
                                     out.data_ptr(), stream) != 0
     torch.cuda.synchronize()
 
@@ -1099,3 +1105,61 @@ def test_mc_pair_on_the_card_keeps_its_rows_there(cuda):
     assert pair["device_rpcs"] == 8
     assert server["k1_launches"]["frame_rows"] > 0
     assert server["k1_launches"]["echo_step_rows"] > 0
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_k2b_one_row_form_matches_its_plain_version(cuda, mode):
+    """K2b with ``out_rows=1`` (a rank's one row in a session across
+    processes) bitwise its plain version and the full form's row 0, at 3
+    parties of 1 MiB, in both forms (q one byte off its word takes the
+    general one); one launch each."""
+    rows = chip_smoke.quant_rows(3, (1 << 20) // 4, 32, mode, seed=77, edges=False)
+    q, e = quantize.quantize_rows(torch.from_numpy(rows).to(cuda), mode, 32)
+    off = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    off.copy_(q)  # q one byte into a contiguous buffer
+    plain = quantize.dequant_mean_rows_plain(q.cpu(), e.cpu(), mode, 32, out_rows=1)
+    full = quantize.dequant_mean_rows(q, e, mode, 32)
+    for qq, form in ((q, "vector"), (off, "general")):
+        assert quantize.dequant_form(qq, mode, 32) == form
+        before = kernels.launch_counts()["dequant_mean_rows"]
+        one = quantize.dequant_mean_rows(qq, e, mode, 32, out_rows=1)
+        assert kernels.launch_counts()["dequant_mean_rows"] == before + 1
+        assert one.shape == (1, (1 << 20) // 4)
+        assert np.array_equal(_bits(one), _bits(plain)), form
+        assert np.array_equal(_bits(one[0]), _bits(full[0])), form
+
+
+def test_two_process_session_on_the_card(cuda):
+    """A session with one party per rank, both processes on cuda:0 over
+    gloo: the user kernel byte for byte its model, the exact, int8 and
+    int4 pmean sessions byte for byte their models, K2 launched in both
+    processes (steps x the two quantized sessions), and the distributed
+    party axis gathering int8 and uint8 rows from the card in their own
+    dtype."""
+    from incubator_brpc_tpu_torch.transport import mc_worker as mc
+
+    stats, transcript = mc.orchestrate_session(n_parties=2, steps=4, quantize="int8,int4",
+                                               device="cuda:0", backend="gloo", timeout=300)
+    assert all(r["bitwise_model"] for r in stats["pmean"].values()), transcript
+    for rec in (stats, stats["servers"]["server0"]):
+        assert rec["k2_launches"] == {"quantize_rows": 8, "dequant_mean_rows": 8}, transcript
+    records = mc.orchestrate_probe(device="cuda:0", backend="gloo", axis=True)
+    for r in records:
+        assert r["device"] == "cuda:0" and set(r["axis"]) >= {"gather_int8", "gather_uint8"}
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_k2a_vector_form_takes_one_row_and_its_chunk_views(cuda, mode):
+    """What a rank quantizes in a session across processes: its own row
+    ``[1, 1 MiB]`` and, in a chunked session, the views of it cut at the
+    chunk width; each in K2a's vector form, bitwise its plain version."""
+    rows = chip_smoke.quant_rows(1, (1 << 20) // 4, 32, mode, seed=91, edges=False)
+    row = torch.from_numpy(rows).to(cuda)
+    cw = row.shape[1] // 4
+    for x in (row, *(row[:, j * cw:(j + 1) * cw] for j in range(4))):
+        assert quantize.quantize_form(x, 32) == "vector"
+        before = quantize.form_counts()[("quantize_rows", "vector")]
+        q, e = quantize.quantize_rows(x, mode, 32)
+        assert quantize.form_counts()[("quantize_rows", "vector")] == before + 1
+        qp, ep = quantize.quantize_rows_plain(x.contiguous(), mode, 32)
+        assert np.array_equal(_bits(q), _bits(qp)) and np.array_equal(_bits(e), _bits(ep))

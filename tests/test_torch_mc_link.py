@@ -27,14 +27,17 @@ tests/test_mc_link.py with devices read as ranks:
   queued before the close arrives;
 - the handshake's refusals: no job, the same rank on both sides, a
   backend the server's job does not run;
-- the harness's session options (``--collective-steps``,
-  ``--mc-lowering-check``, ``--chaos-kill-at-step``) raise naming A4b;
+- the harness's session options, which raised naming A4b until the
+  collective session plane landed, run (``--collective-steps`` and
+  ``--mc-lowering-check`` on the fabric, ``--chaos-kill-at-step`` in the
+  chaos drill; tests/test_torch_mc_session.py holds the sessions
+  themselves);
 - chip_smoke.py's phase 3e rehearsed on the CPU (``mc_phase(device="cpu")``:
   the streams, the pair with device RPC, the burst, the probe, the fabric
   and peer death, each checked as on the card but for K1's launches).
 
-tests/test_mc_link.py's ``test_three_process_collective_session`` waits
-for ROADMAP A4b, the collective session plane over the port's links.
+tests/test_mc_link.py's ``test_three_process_collective_session`` is
+``test_session_options_wait_for_a4b[option0]`` here.
 """
 
 import json
@@ -192,8 +195,23 @@ def test_probe_runs_a_two_process_collective():
     ("--collective-steps", "32"), ("--mc-lowering-check",), ("--chaos-kill-at-step", "2"),
 ])
 def test_session_options_wait_for_a4b(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        mc_worker.main(["fabric-client", "--coord-port", "1", *option])
+    """The options that raised naming A4b run now that it landed: a pmean
+    session over the fabric's three ranks, the fabric's PartitionChannel
+    lowered to a one-step session, and a party killed at step 2 of a
+    session that heals from a spare."""
+    if option[0] == "--chaos-kill-at-step":
+        stats, transcript = mc_worker.orchestrate_chaos_session(
+            n_parties=3, steps=6, kill_at=int(option[1]), **CPU)
+        assert stats["byte_identical"] and stats["replaced_party_ids"] == [2], transcript
+        assert "SERVER_DYING" in transcript
+        return
+    stats, transcript = mc_worker.orchestrate_fabric(
+        n_servers=2, extra=("--n-rpcs", "2", *option), **CPU)
+    if option[0] == "--collective-steps":
+        assert stats["collective"]["parties"] == 3, transcript
+        assert stats["collective"]["steps"] == 32
+    else:
+        assert stats["mc_lowered"] == {"bytes": 2 * 48, "parties": 2}, transcript
 
 
 def test_chip_smoke_phase_3e_on_the_cpu():

@@ -155,6 +155,32 @@ def test_dequantize_mean_matches_jax_and_numpy(mode, parties):
         np.testing.assert_allclose(got[0], jm, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("parties", [2, 3, 8])
+@pytest.mark.parametrize("steps", [1, 3])
+def test_dequantize_mean_one_row_form_is_the_models_row(mode, parties, steps):
+    """K2b's one-row form (``out_rows=1``, what a rank of a session across
+    processes keeps): the gathered parties' mean in one row, bitwise the
+    row ``np_quantized_pmean`` gives every party, step after step from that
+    one row as the session runs it."""
+    rows = _rows(parties, 1024, seed=10 + parties)
+    cur = [torch.from_numpy(r)[None] for r in rows]  # each party's [1, nfloats]
+    for _ in range(steps):
+        parts = [quantize.quantize_rows(c, mode, 32) for c in cur]
+        gq = torch.cat([q for q, _ in parts])
+        ge = torch.cat([e for _, e in parts])
+        one = quantize.dequant_mean_rows(gq, ge, mode, 32, out_rows=1)
+        assert one.shape == (1, 1024)
+        full = quantize.dequant_mean_rows(gq, ge, mode, 32)
+        assert all(full[r].numpy().tobytes() == one[0].numpy().tobytes() for r in range(parties))
+        cur = [one] * parties
+    assert one[0].numpy().tobytes() == Q.np_quantized_pmean(rows, steps, mode).tobytes()
+    with pytest.raises(ValueError, match="out_rows"):
+        quantize.dequant_mean_rows(gq, ge, mode, 32, mean=False, out_rows=1)
+    with pytest.raises(ValueError, match="out_rows"):
+        quantize.dequant_mean_rows(gq, ge, mode, 32, out_rows=0)
+
+
 def test_quantize_takes_a_strided_chunk_and_wrappers_check_arguments():
     x = torch.from_numpy(np.stack(_rows(3, 256, seed=4)))
     q, e = quantize.quantize_rows(x[:, 64:128], "int8", 32)

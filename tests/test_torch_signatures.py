@@ -28,6 +28,7 @@ import incubator_brpc_tpu_torch.rpc as port_rpc
 import incubator_brpc_tpu_torch.transport.acceptor as port_acceptor
 import incubator_brpc_tpu_torch.transport.device_link as port_dl
 import incubator_brpc_tpu_torch.transport.sock as port_sock
+from incubator_brpc_tpu_torch.runtime.timer_thread import shutdown_global_timer_thread
 
 PKGS = {
     "jax": types.SimpleNamespace(
@@ -198,6 +199,7 @@ def echo_server(pkg):
     assert srv.join(timeout=10)
     if pkg.name == "torch":
         port_rpc.shutdown_host_plane()
+        shutdown_global_timer_thread()  # the calls' timeouts started it
 
 
 def test_init_with_empty_lb_name(pkg, echo_server):
@@ -233,8 +235,6 @@ REFUSED = [
     ("ServerOptions", {"native_dispatch_workers": 2}, "A6"),
     ("ServerOptions", {"session_local_data_factory": dict}, "A7"),
     ("ServerOptions", {"thread_local_data_factory": dict}, "A7"),
-    ("ServerOptions", {"enable_collective_service": True}, "A4b"),
-    ("ServerOptions", {"collective_max_concurrency": 4}, "A4b"),
     ("ServerOptions", {"fault_injector": object()}, "A7"),
     ("ChannelOptions", {"protocol": "baidu_std"}, "A11"),
     ("ChannelOptions", {"auth": object()}, "A7"),
@@ -244,14 +244,8 @@ REFUSED = [
 ]
 
 
-# a case's id keeps the item its refusal named when the case was added: the
-# collective service was A4's, and is A4b's since A4's link half landed
-_ID_ITEM = {"A4b": "A4"}
-
-
 @pytest.mark.parametrize("owner,kw,item", REFUSED,
-                         ids=[f"{o}-{next(iter(k))}-{_ID_ITEM.get(v, v)}"
-                              for o, k, v in REFUSED])
+                         ids=[f"{o}-{next(iter(k))}-{v}" for o, k, v in REFUSED])
 def test_port_refuses_unported_values_naming_the_item(owner, kw, item):
     cls = port_rpc.ServerOptions if owner == "ServerOptions" else port_rpc.ChannelOptions
     name = next(iter(kw))
@@ -279,6 +273,7 @@ def test_both_packages_serve_the_connection_type(ctype):
             srv.stop()
             assert srv.join(timeout=10)
     port_rpc.shutdown_host_plane()
+    shutdown_global_timer_thread()
 
 
 def test_port_refuses_values_the_reference_refuses():
@@ -296,6 +291,19 @@ def test_both_packages_take_the_multi_controller_link():
     for pkg in PKGS.values():
         opts = pkg.rpc.ChannelOptions(transport="tpu", link_controller="multi")
         assert opts.link_controller == "multi"
+
+
+@pytest.mark.parametrize("kw", [{"enable_collective_service": True},
+                                {"collective_max_concurrency": 4},
+                                {"enable_collective_service": True,
+                                 "collective_max_concurrency": 0}],
+                         ids=["enable", "max_concurrency", "both"])
+def test_both_packages_take_the_collective_service_options(pkg, kw):
+    """Once refused naming A4 (then A4b): both packages take the options of
+    the collective services and keep them on the options object."""
+    opts = pkg.ServerOptions(**kw)
+    for name, value in kw.items():
+        assert getattr(opts, name) == value
 
 
 def test_has_builtin_services_is_accepted_either_way():
