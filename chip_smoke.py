@@ -52,7 +52,7 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    K1b and K1c must have launched; torch.profiler over the pipelined
    16 x 8 burst gives wall time, device busy time and the idle share; and
    the host's time to pack a 32 KiB frame with and without the
-   body-checksum bit (the port's CRC32C is pure Python);
+   body-checksum bit (CRC32C of the port's host runtime);
 3c. drives the two-party device link (``transport="tpu"``), both parties
    on the card, with the launch counts set to zero around each part: (a) a
    1 KiB echo (``usercode_inline=True``), a warm call then 200 in a row
@@ -109,6 +109,25 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    PartitionChannel over two multi links; (d) peer death: the server
    process exits inside a call, which fails with EFAILEDSOCKET (its
    duration printed);
+3f. drives the port's native host runtime (``native_phase``): (a) g++
+   builds ``csrc/host`` into a scratch file (the compiler, the seconds,
+   whether ``zlib.h`` was found; a failed build fails the phase with its
+   log), and the runtime's CRC32C, CRC32, FlatMap, ResourcePool, IOBuf cut
+   and tbus_std pack and cut are held against their plain twins on seeded
+   data; (b) ``bench_native_plane``'s and ``bench_native_scaling``'s host
+   echo through the port's API beside the host's CPU count: 64 B
+   sequential (3000 calls x 5) through ``ChannelOptions(native_plane=
+   True)``, 8 threads x 2000 calls, ``NativeClientChannel.pump`` of 2000 at
+   64 in flight, a 32 KiB echo's GB/s, and the pump sweep at 1, 2 and 4
+   reactors over 1, 2 and 4 connections; (c) phase 3b's device RPC (256 B,
+   window 16), one ``DeviceEndpoint.server_handler()`` behind the Python
+   plane and a native-plane Server (from the port's Python Channel and its
+   native client) and a native-plane Server running the handler on its
+   reactor (native client), in turns: 20 sequential calls each (and the
+   time inside the handler), 16 x 8 each but the inline server's (every
+   answer bitwise ``expected()``), torch.profiler's idle share of a native
+   burst, K1 tallied per configuration and K1a and K1c launched on the
+   native plane (the counts set to zero before), beside phase 3b's;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -903,7 +922,7 @@ def device_busy(prof) -> tuple:
     return sum(t for _, _, t in by_name), by_name
 
 
-def profile_rpc_burst(torch, ch):
+def profile_rpc_burst(torch, ch, label="phase3b"):
     """torch.profiler (device activity) over a pipelined 16 x 8 burst of
     256 B calls: wall time, device busy time and the idle share."""
     from torch.profiler import ProfilerActivity, profile
@@ -916,10 +935,10 @@ def profile_rpc_burst(torch, ch):
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, by_name = device_busy(prof)
     if not busy:
-        log("phase3b profile of the RPC burst: the profiler saw no device time (not measured)")
+        log(f"{label} profile of the RPC burst: the profiler saw no device time (not measured)")
         return {"wall_us": wall_us, "device_us": None, "idle_pct": None}
     idle = 100.0 - 100.0 * busy / wall_us
-    log(f"phase3b profile of the pipelined 16 x 8 RPC burst (256 B): wall {wall_us:.1f} us, "
+    log(f"{label} profile of the pipelined 16 x 8 RPC burst (256 B): wall {wall_us:.1f} us, "
         f"device busy {busy:.1f} us, idle {idle:.2f} %; "
         + "; ".join(f"{k} x{c} {t:.1f} us" for k, c, t in by_name[:6]))
     return {"wall_us": wall_us, "device_us": busy, "idle_pct": idle}
@@ -1033,7 +1052,7 @@ def device_rpc_phase(torch, kernels, svc, direct_seq_us):
     out.update(body_crc_cost_us())
     log(f"phase3b tbus_std pack of a 32 KiB body on the host: meta checksummed "
         f"{out['meta_crc_us']:.1f} us, with the body-checksum bit {out['body_crc_us']:.1f} us "
-        "(pure-Python CRC32C)")
+        "(the host runtime's CRC32C; phase 3f times the plain one)")
     return out
 
 
@@ -1894,6 +1913,370 @@ def mc_phase(torch, kernels, device="cuda:0"):
 
 
 # -- K3 and the FabricNet train step (phases 5-8) -----------------------------
+
+
+# -- phase 3f: the native host runtime (C++ reactors, native client) ------------
+
+NATIVE_SEQ = (3000, 5)  # bench_native_plane's sequential 64 B echo: calls x runs
+NATIVE_THREADS = (8, 2000)  # its 8 callers x 2000 calls
+NATIVE_PUMP = (2000, 64)  # a pump of 2000 requests at 64 in flight
+NATIVE_SWEEP_PER_CONN = 60000  # bench_native_scaling's requests a connection
+
+
+def host_cpus() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
+
+
+def native_twins_check(scale: float = 1.0) -> dict:
+    """Hold the host runtime's CRC32C, CRC32, FlatMap, ResourcePool and
+    IOBuf cut against their plain twins on seeded data; time CRC32C of a
+    32 KiB body natively and in its plain version."""
+    from incubator_brpc_tpu_torch import iobuf, native
+    from incubator_brpc_tpu_torch.protocol import tbus_std
+    from incubator_brpc_tpu_torch.utils.crc32c import crc32c_plain
+
+    rng = np.random.default_rng(31)
+    seed32 = seed32c = 0
+    lengths = [0, 1, 7, 64, 255, 4096, 32768, 65536]
+    for n in lengths:
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        a, b = native.crc32c(data, seed32c), crc32c_plain(data, seed32c)
+        if a != b:
+            raise AssertionError(f"phase3f crc32c of {n} B: native {a:#x}, plain {b:#x}")
+        c, d = native.crc32(data, seed32), zlib.crc32(data, seed32) & 0xFFFFFFFF
+        if c != d:
+            raise AssertionError(f"phase3f crc32 of {n} B: native {c:#x}, zlib {d:#x}")
+        seed32, seed32c = c, a
+    fm, model = native.FlatMap(16), {}
+    for op, key, val in zip(rng.integers(0, 3, int(20000 * scale)),
+                            rng.integers(0, 4096, int(20000 * scale)),
+                            rng.integers(0, 1 << 62, int(20000 * scale))):
+        key, val = int(key), int(val)
+        if op == 0:
+            fm[key] = model[key] = val
+        elif op == 1 and key in model:
+            del fm[key], model[key]
+        if fm.get(key) != model.get(key) or len(fm) != len(model):
+            raise AssertionError(f"phase3f FlatMap disagrees with a dict at key {key}")
+    pool, live = native.ResourcePool(8), set()
+    for _ in range(int(5000 * scale)):
+        if live and rng.random() < 0.45:
+            rid = sorted(live)[int(rng.integers(0, len(live)))]
+            live.discard(rid)
+            if not pool.return_(rid) or pool.address(rid) is not None or pool.return_(rid):
+                raise AssertionError("phase3f ResourcePool: a returned id still addresses")
+        else:
+            rid = pool.get()
+            if rid in live or pool.address(rid) is None:
+                raise AssertionError("phase3f ResourcePool: a fresh id is live twice or dead")
+            live.add(rid)
+        if pool.live != len(live):
+            raise AssertionError(f"phase3f ResourcePool live {pool.live}, model {len(live)}")
+    nat, plain = iobuf._NativeIOBuf(), iobuf._PyIOBuf()
+    for step in range(int(400 * scale)):
+        n = int(rng.integers(1, 20000))
+        if step % 3 == 2:
+            a, b = nat.cutn(n), plain.cutn(n)
+            if a.to_bytes() != b.to_bytes():
+                raise AssertionError("phase3f native IOBuf cut differs from the plain cut")
+        else:
+            data = rng.bytes(n)
+            nat.append(data)
+            plain.append(data)
+        if nat.to_bytes() != plain.to_bytes():
+            raise AssertionError("phase3f native IOBuf differs from the plain chain")
+    for body_crc in (0, tbus_std.FLAG_BODY_CRC):
+        meta = tbus_std.Meta(service="tensor", method="echo", timeout_ms=1000)
+        frame = tbus_std.pack_frame(meta, rng.bytes(40000), 9, flags=body_crc,
+                                    attachment=rng.bytes(100))
+        got = []
+        for chain, cut in ((iobuf._NativeIOBuf, tbus_std.parse_frame_iobuf),
+                           (iobuf._PyIOBuf, tbus_std.parse_frame_iobuf_plain)):
+            buf = chain()
+            buf.append(frame)
+            f, used = cut(buf)
+            got.append((used, f.payload, f.attachment, f.correlation_id))
+        if got[0] != got[1] or tbus_std.pack_frame_iobuf(
+                meta, got[0][1], 9, flags=body_crc, attachment=got[0][2]).to_bytes() != frame:
+            raise AssertionError("phase3f native tbus_std pack or cut differs from the plain one")
+    body = bytes(range(256)) * 128
+    out = {
+        "crc32c_32k_native_us": sequential_us(lambda: native.crc32c(body), 200),
+        "crc32c_32k_plain_us": sequential_us(lambda: crc32c_plain(body), 5),
+    }
+    return out
+
+
+def native_host_echo(scale: float = 1.0) -> dict:
+    """bench_native_plane's and bench_native_scaling's host echo geometries
+    through the port's API: a native-plane Server with ``native_echo``."""
+    from incubator_brpc_tpu_torch.rpc import (Channel, ChannelOptions, Server, ServerOptions,
+                                              native_echo)
+    from incubator_brpc_tpu_torch.transport import native_plane as np_mod
+
+    def start(**kw):
+        srv = Server(ServerOptions(native_plane=True, usercode_inline=True, device="cpu", **kw))
+        srv.add_service("bench", {"echo": native_echo, "py": lambda cntl, req: req})
+        if not srv.start(0) or srv._native_plane is None:
+            raise AssertionError("phase3f: the native plane did not engage")
+        return srv
+
+    out = {"host_cpus": host_cpus()}
+    payload = b"x" * 64
+    srv = start(num_reactors=2)
+    try:
+        ch = Channel()
+        ch.init(f"127.0.0.1:{srv.port}", options=ChannelOptions(native_plane=True))
+
+        def one(method="echo", p=payload):
+            cntl = ch.call_method("bench", method, p)
+            if not cntl.ok() or cntl.response_payload != p:
+                raise AssertionError(f"phase3f echo: code {cntl.error_code} {cntl.error_text}")
+
+        for _ in range(100):
+            one()
+        calls, runs = max(1, int(NATIVE_SEQ[0] * scale)), NATIVE_SEQ[1]
+        out["seq_calls"], out["threads_calls"] = calls, max(1, int(NATIVE_THREADS[1] * scale))
+        out["echo_64_us"] = [sequential_us(one, calls) for _ in range(runs)]
+        p256 = bytes(range(256))
+        out["echo_256_native_us"] = sequential_us(lambda: one("echo", p256), calls)
+        out["echo_256_python_route_us"] = sequential_us(lambda: one("py", p256), calls)
+        nthreads, per = NATIVE_THREADS[0], out["threads_calls"]
+        t0 = time.perf_counter()
+        call_threads(nthreads, lambda i: [one() for _ in range(per)])
+        out["echo_8x2000_qps"] = nthreads * per / (time.perf_counter() - t0)
+        if ch._native_ch is None:
+            raise AssertionError("phase3f: the Channel did not take the native client")
+        nch = np_mod.NativeClientChannel("127.0.0.1", srv.port)
+        try:
+            n, inflight = max(64, int(NATIVE_PUMP[0] * scale)), NATIVE_PUMP[1]
+            nch.pump("bench", "echo", payload, n, inflight=inflight)  # warm
+            out["pump_ns"] = [nch.pump("bench", "echo", payload, n, inflight=inflight)
+                              for _ in range(5)]
+            big = b"x" * 32768
+            ns32 = [nch.pump("bench", "echo", big, max(32, int(10000 * scale)), inflight=32)
+                    for _ in range(3)]
+            # the payload crosses the loopback twice a request
+            out["echo_32k_gbps"] = [2 * len(big) / v for v in ns32]
+        finally:
+            nch.close()
+        if srv._native_plane.stats()["native_reqs"] <= 0:
+            raise AssertionError("phase3f: no request was answered natively")
+    finally:
+        srv.stop()
+        srv.join(timeout=60)
+    sweep = {}
+    per_conn = max(64, int(NATIVE_SWEEP_PER_CONN * scale))
+    for reactors in (1, 2, 4):
+        srv = start(num_reactors=reactors)
+        try:
+            for conns in (1, 2, 4):
+                chans = [np_mod.NativeClientChannel("127.0.0.1", srv.port) for _ in range(conns)]
+                try:
+                    for nc in chans:
+                        nc.pump("bench", "echo", payload, 2000, inflight=64)
+                    best = 0.0
+                    for _rep in range(3):
+                        t0 = time.perf_counter()
+                        call_threads(conns, lambda i: chans[i].pump(
+                            "bench", "echo", payload, per_conn, inflight=128))
+                        best = max(best, conns * per_conn / (time.perf_counter() - t0))
+                    sweep[f"r{reactors}c{conns}"] = best
+                finally:
+                    for nc in chans:
+                        nc.close()
+        finally:
+            srv.stop()
+            srv.join(timeout=60)
+    out["pump_qps_sweep"], out["sweep_per_conn"] = sweep, per_conn
+    return out
+
+
+NATIVE_RPC_CONFIGS = {
+    # config -> (server, client's native_plane): the Python plane (phase
+    # 3b's), the native plane from the Python Channel and from the native
+    # client, and the native plane with the handler on the reactor thread
+    "python_plane": ("python", False),
+    "native_plane_python_channel": ("native", False),
+    "native_plane_native_client": ("native", True),
+    "native_plane_inline_native_client": ("inline", True),
+}
+
+
+def native_device_rpc(torch, kernels, device=None, scale: float = 1.0):
+    """Phase 3b's device RPC (256 B, window 16), one
+    ``DeviceEndpoint.server_handler()`` behind three servers: the Python
+    plane (phase 3b's), a native-plane Server (the C++ reactors cut each
+    frame and hand it to the Python route, which runs the handler on the
+    worker pool) and one with ``usercode_inline=True`` (the handler on the
+    reactor's callback). ``NATIVE_RPC_CONFIGS`` pairs them with the Python
+    Channel or the native client. In turns (each configuration twice, in
+    mirrored order, so drift on the shared host falls on both sides): 20
+    sequential calls each (µs a call and inside the handler), then 16
+    threads x 8 calls each but the inline server's (a handler that blocks
+    on the card stalls its reactor), every answer bitwise ``expected()``;
+    on the card torch.profiler over one burst of each native-plane
+    configuration. The K1 launches are tallied per configuration around
+    each of its blocks. Returns (figures, the K1 launches of the
+    native-plane configurations)."""
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, ServerOptions
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+
+    ep = DeviceEndpoint(window_size=16, max_batch=16, device=device)
+    handler = ep.server_handler()
+    handler_s = []  # seconds inside the endpoint's handler, call by call
+
+    def timed(cntl, request):
+        t0 = time.perf_counter()
+        try:
+            return handler(cntl, request)
+        finally:
+            handler_s.append(time.perf_counter() - t0)
+
+    tally = {name: dict.fromkeys(K1, 0) for name in NATIVE_RPC_CONFIGS}
+
+    def counted(name, fn):
+        before = kernels.launch_counts()
+        result = fn()
+        after = kernels.launch_counts()
+        for k in K1:
+            tally[name][k] += after[k] - before[k]
+        return result
+
+    kernels.reset_launch_counts()
+    servers = {
+        "python": Server(ServerOptions(device=device)),
+        "native": Server(ServerOptions(native_plane=True, device=device)),
+        "inline": Server(ServerOptions(native_plane=True, usercode_inline=True, device=device)),
+    }
+    out = {"seq_us": {}, "handler_us": {}, "qps": {}, "lat_us": {}, "profile": {}}
+    try:
+        for kind, srv in servers.items():
+            srv.add_service("tensor", {"echo": timed})
+            if not srv.start(0) or (srv._native_plane is None) != (kind == "python"):
+                raise AssertionError(f"phase3f (c): the {kind} server did not start as asked")
+        ep.warm(256)
+        chans = {}
+        for name, (kind, native_client) in NATIVE_RPC_CONFIGS.items():
+            ch = Channel()
+            ch.init(f"127.0.0.1:{servers[kind].port}",
+                    options=ChannelOptions(timeout_ms=300_000, native_plane=native_client))
+            chans[name] = ch
+            if kind != "inline":  # warm-up
+                counted(name, lambda: rpc_calls(ch, "tensor", 16, 2, 256, lambda i, j: 0, 30))
+        order = list(NATIVE_RPC_CONFIGS)
+        for turn, name in enumerate(order + order[::-1]):
+            ch = chans[name]
+            rng = np.random.default_rng(32 + turn)
+            seq = iter([rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+                        for _ in range(20)])
+
+            def one():
+                p = next(seq)
+                cntl = ch.call_method("tensor", "echo", p)
+                if not cntl.ok() or cntl.response_payload != p:
+                    raise AssertionError(f"phase3f (c) {name}: code {cntl.error_code}")
+
+            del handler_s[:]
+            out["seq_us"].setdefault(name, []).append(counted(name, lambda: sequential_us(one, 20)))
+            out["handler_us"].setdefault(name, []).append(1e6 * sum(handler_s) / len(handler_s))
+            if (ch._native_ch is not None) != NATIVE_RPC_CONFIGS[name][1]:
+                raise AssertionError(f"phase3f (c) {name}: the call took the wrong client")
+        per = max(1, int(8 * scale))
+        bursts = [n for n in order if NATIVE_RPC_CONFIGS[n][0] != "inline"]
+        for name in bursts + bursts[::-1]:
+            qps, lat = counted(name, lambda: rpc_calls(chans[name], "tensor", 16, per, 256,
+                                                       lambda i, j: 0, 33))
+            out["qps"].setdefault(name, []).append(qps)
+            out["lat_us"].setdefault(name, []).append(lat)
+        if device is None or str(device).startswith("cuda"):
+            for name in bursts[1:]:
+                out["profile"][name] = counted(name, lambda: profile_rpc_burst(
+                    torch, chans[name], f"phase3f (c) {name}"))
+        out["stats"] = servers["native"]._native_plane.stats()
+    finally:
+        for srv in servers.values():
+            srv.stop()
+            srv.join(timeout=60)
+        if not ep.close(timeout=120):
+            raise AssertionError("phase3f (c): the endpoint did not settle its calls")
+    out["launches"] = tally
+    k1 = {k: sum(tally[n][k] for n, (kind, _) in NATIVE_RPC_CONFIGS.items() if kind != "python")
+          for k in K1}
+    return out, k1
+
+
+def native_phase(torch, kernels, rpc3b, device=None, scale: float = 1.0):
+    """Phase 3f: the port's native host runtime. (a) g++ builds
+    ``csrc/host`` again into a scratch file (compiler, seconds, whether
+    ``zlib.h`` was found) and its CRC32C, CRC32, FlatMap, ResourcePool and
+    IOBuf cut are held against their plain twins; (b) the host echo
+    geometries of ``bench_native_plane`` and ``bench_native_scaling``
+    through the port's API, beside the host's CPU count; (c) phase 3b's
+    device RPC behind the native plane beside the Python plane, in turns
+    (``native_device_rpc``), K1 counted. Every figure is printed beside
+    phase 3b's from the same run. Returns (figures, the K1 launches of
+    (c)'s native-plane configurations); the caller asserts K1a and K1c
+    launched."""
+    from incubator_brpc_tpu_torch import native
+
+    if not native.NATIVE_AVAILABLE:
+        raise AssertionError(f"phase3f: the host runtime did not build:\n{native.BUILD_ERROR}")
+    scratch = native.BUILD_DIR / f"phase3f-{os.getpid()}.so"
+    try:
+        build = native.compile_library(scratch)
+    finally:
+        scratch.unlink(missing_ok=True)
+    build.pop("log")
+    build["zlib_h"] = native.zlib_header_found()
+    build["loaded"] = native.library_path().name
+    log(f"phase3f (a) host runtime: {build['compiler']}; g++ of csrc/host (tbutil.cc + tbnet.cc) "
+        f"{build['seconds']:.1f} s; zlib.h found: {build['zlib_h']}; loaded "
+        f"{build['loaded']} (built by this process at import: "
+        f"{'%.1f s' % native.BUILD_INFO['seconds'] if 'seconds' in native.BUILD_INFO else 'no, cached'})")
+    out = {"build": build}
+    out["twins"] = native_twins_check(scale)
+    log(f"phase3f (a) CRC32C, CRC32, FlatMap, ResourcePool, the IOBuf cut and tbus_std's pack and "
+        f"cut equal to their plain twins on seeded data; CRC32C of 32 KiB: native "
+        f"{out['twins']['crc32c_32k_native_us']:.2f} us, plain {out['twins']['crc32c_32k_plain_us']:.1f} us")
+    host = native_host_echo(scale)
+    out["host"] = host
+    sweep = host["pump_qps_sweep"]
+    best = {r: max(v for k, v in sweep.items() if k.startswith(f"r{r}c")) for r in (1, 2, 4)}
+    log(f"phase3f (b) host echo on the native plane ({host['host_cpus']} CPUs for this process): "
+        f"64 B sequential through ChannelOptions(native_plane=True), {host['seq_calls']} calls x "
+        f"{NATIVE_SEQ[1]}: " + ", ".join(f"{v:.2f}" for v in host["echo_64_us"]) + " us a call; "
+        f"256 B {host['echo_256_native_us']:.2f} us (native_echo), "
+        f"{host['echo_256_python_route_us']:.2f} us (a Python handler through the C++ reactor), "
+        f"the Python plane's host echo {rpc3b['host_echo_seq_us']:.1f} us (phase 3b); "
+        f"8 threads x {host['threads_calls']}: {host['echo_8x2000_qps']:.0f} calls/s "
+        f"(the Python plane's 16 x 8 host echo {rpc3b['host_echo_qps']:.1f} calls/s); pump of "
+        f"{NATIVE_PUMP[0]} at {NATIVE_PUMP[1]} in flight: "
+        + ", ".join(f"{v:.0f}" for v in host["pump_ns"]) + " ns a request; 32 KiB echo "
+        + ", ".join(f"{v:.3f}" for v in host["echo_32k_gbps"]) + " GB/s; reactor sweep (best of 3, "
+        f"{host['sweep_per_conn']} a connection, 1/2/4 connections): "
+        + "; ".join(f"{k} {v:.0f}/s" for k, v in sweep.items())
+        + f"; best 4-reactor / best 1-reactor {best[4] / best[1]:.3f}")
+    dev, k1 = native_device_rpc(torch, kernels, device, scale)
+    out["device_rpc"] = dev
+    fmt = lambda vals: " / ".join(f"{v:.1f}" for v in vals)  # noqa: E731
+    for name in NATIVE_RPC_CONFIGS:
+        prof = dev["profile"].get(name, {}).get("idle_pct")
+        burst = (f"; 16 x 8 {fmt(dev['qps'][name])} calls/s (mean {fmt(dev['lat_us'][name])} us)"
+                 if name in dev["qps"] else "")
+        log(f"phase3f (c) device RPC (256 B, window 16), {name}: sequential "
+            f"{fmt(dev['seq_us'][name])} us a call ({fmt(dev['handler_us'][name])} us inside "
+            f"the handler){burst}"
+            + (f", idle {prof:.2f} %" if prof is not None else ""))
+    prof3b = rpc3b.get("profile", {}).get("idle_pct")
+    log(f"phase3f (c) beside phase 3b's Python plane (earlier in this run): {rpc3b['rpc_seq_us']:.1f} us "
+        f"a call ({rpc3b['handler_seq_us']:.1f} us inside the handler), {rpc3b['rpc_qps']:.1f} calls/s"
+        + (f", idle {prof3b:.2f} %" if prof3b is not None else "")
+        + f"; K1 launches by configuration: {dev['launches']}; the native plane's {dev['stats']}")
+    return out, k1
 
 
 def k3_tolerances(torch):
@@ -4285,6 +4668,17 @@ def main() -> int:
     mc["phase_s"] = time.perf_counter() - t0
     log(f"phase3e: {mc['phase_s']:.1f} s, the worker processes' start included")
 
+    # -- phase 3f: the native host runtime, device RPC behind it counted ------
+    log(f"phase3f on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    native, native_k1 = native_phase(torch, kernels, rpc)
+    native["phase_s"] = time.perf_counter() - t0
+    missing = [name for name in ("frame_rows", "echo_step_rows") if native_k1[name] == 0]
+    if missing:
+        raise AssertionError(f"phase3f (c): kernels not launched behind the native plane: {missing}")
+    shutdown_host_plane()
+    log(f"phase3f: {native['phase_s']:.1f} s, the host runtime's second build included")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -4324,7 +4718,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": rpc_launches[name],
             "endpoint_launches": launches[name], "link_launches": link_k1[name],
             "combo_launches": {part: combo_launches[part][name] for part in ("a", "c", "e")},
-            "mc_launches": mc_k1[name],
+            "mc_launches": mc_k1[name], "native_launches": native_k1[name],
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
@@ -4375,6 +4769,7 @@ def main() -> int:
                        "link_launches": {"rpc": link_k1, "device_method": link_k2},
                        "combo": combo, "combo_launches": combo_launches,
                        "multi_controller": mc, "mc_launches": mc_k1,
+                       "native_plane": native, "native_launches": native_k1,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],

@@ -22,7 +22,9 @@ and the collective sessions: ``ops/quantize.py`` with ``csrc/quantize.cu``
 plane that carries calls to the card: ``rpc/`` (``Server``, ``Channel``,
 ``Controller``) over ``protocol/tbus_std.py``, ``transport/`` (sockets,
 the acceptor, the event dispatchers), ``runtime/`` (the worker pool and
-correlation ids) and ``iobuf.py``, in plain Python.
+correlation ids) and ``iobuf.py``, over the native host runtime
+(``native.py`` and ``csrc/host``: the block chain, CRC32C, the C++
+reactors and client of ``transport/native_plane.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise (:func:`resolve_device`).

@@ -56,6 +56,20 @@ class LatencyRecorder(Variable):
         self._percentile.add(latency_us)
         return self
 
+    def record_batch(self, count: int, total: float, max_value: float, samples) -> None:
+        """Aggregate feed for batch consumers (the native telemetry drain):
+        ``count`` calls totalling ``total`` µs with max ``max_value``, plus
+        ``samples``, a bounded subset for the percentile reservoir.
+        count/sum/max/qps stay exact; quantiles see the subset."""
+        if count <= 0:
+            return
+        self._latency._sum << total
+        self._latency._num << count
+        self._max << max_value
+        self._count << count
+        for v in samples:
+            self._percentile.add(v)
+
     def latency(self) -> float:
         return self._latency.average()
 

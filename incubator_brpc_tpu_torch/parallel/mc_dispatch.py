@@ -681,17 +681,25 @@ class _GroupHandle:
     """The one strong reference to a run's session group: the party axis
     reaches the group through it, and :meth:`release` drops it, which
     closes the group's connections (the group is destroyed here unless a
-    collective on it is still pending)."""
+    collective on it is still pending). Its first all_gather waits for
+    the collective, then calls ``forget`` (which takes this party's
+    rendezvous entry out of the job's store)."""
 
-    __slots__ = ("pg",)
+    __slots__ = ("pg", "forget")
 
-    def __init__(self, pg):
+    def __init__(self, pg, forget=None):
         self.pg = pg
+        self.forget = forget
 
     def allgather(self, outs, ins):
         if self.pg is None:
             raise RuntimeError("the session group was released")
-        return self.pg.allgather(outs, ins)
+        work = self.pg.allgather(outs, ins)
+        forget, self.forget = self.forget, None
+        if forget is not None:
+            work.wait()
+            forget()
+        return work
 
     def release(self) -> None:
         self.pg = None
@@ -726,7 +734,11 @@ def _join_session_group(session_id, epoch, party_ids, job, timeout_s, should_abo
     # so the counter is read no more: the first party drops it from the store
     if job.rank == int(party_ids[0]):
         job.store.delete_key(key)
-    return _GroupHandle(pg)
+    group_rank = [int(p) for p in party_ids].index(job.rank)
+    return _GroupHandle(
+        pg,
+        lambda: _dist.forget_session_rendezvous(session_id, epoch, group_rank, job.backend, job=job),
+    )
 
 
 # -- the lockstep step ---------------------------------------------------------
@@ -918,6 +930,9 @@ def run_dispatch_session(
     double_buffer: bool = False,
     quantize: str = "none",
     chunk_order=None,
+    trace_id: int = 0,
+    parent_span_id: int = 0,
+    *,
     device: DeviceLike = None,
     group_timeout_s: Optional[float] = None,
 ) -> Tuple[np.ndarray, int, float]:
@@ -963,7 +978,17 @@ def run_dispatch_session(
     quantized session stores its ring entries quantized, and the
     power-of-two scales keep resume replay byte-identical.
     ``chunk_order`` is a dispatch permutation over the chunk set (None =
-    in order); it never changes bytes."""
+    in order); it never changes bytes.
+
+    ``trace_id`` and ``parent_span_id`` keep the reference's places (the
+    session's rpcz spans); a non-zero value refuses until rpcz lands
+    (ROADMAP A12). ``device`` and ``group_timeout_s`` are keyword-only."""
+    if trace_id or parent_span_id:
+        from incubator_brpc_tpu_torch.rpc.controller import refuse_unported
+
+        refuse_unported(
+            "run_dispatch_session", "trace_id, parent_span_id", (trace_id, parent_span_id), "A12"
+        )
     qdm = dm.quantized(quantize) if hasattr(dm, "quantized") else dm
     if qdm is None:
         raise ValueError(

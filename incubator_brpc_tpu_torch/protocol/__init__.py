@@ -2,7 +2,7 @@
 src/brpc/policy/).
 
 tbus_std is the port's one host protocol: ``parse=try_parse_frame`` and
-``parse_iobuf=parse_frame_iobuf`` (the cut on the read IOBuf, in Python).
+``parse_iobuf=parse_frame_iobuf`` (the cut on the read IOBuf, native).
 Frames are sized by ``parse_header`` first, so a frame over
 ``max_body_size`` is refused from its header (transport/messenger.py).
 ``rpc/channel.py`` and ``rpc/server.py`` bind its response and request

@@ -18,8 +18,11 @@ Two disciplines this registry enforces for the whole stack:
   gzip/zlib decompress through a bounded decompressobj loop; snappy
   rejects on its length preamble before any expansion.
 
-The port's copy of the JAX package's ``protocol/compress.py`` without its
-native codec seam (the port has no C++ host runtime yet).
+The port's copy of the JAX package's ``protocol/compress.py``: snappy
+runs through the native codec seam (``tb_codec_compress`` /
+``tb_codec_decompress`` of the port's host runtime, the table its native
+server plane runs) when the library loaded, and through its plain version
+``protocol/snappy_codec.py`` otherwise; both make the same parse choices.
 """
 
 from __future__ import annotations
@@ -119,8 +122,48 @@ def _gzip_compress(data: bytes) -> bytes:
     )
 
 
+def _native_codec_lib():
+    """The host runtime's tb_codec_* surface when it loaded (None
+    otherwise): the same C++ codec table the native server plane runs, so
+    the planes stay byte-identical."""
+    from incubator_brpc_tpu_torch import native
+
+    return native.LIB
+
+
+_SNAPPY_WIRE = 1  # options.proto CompressType SNAPPY
+
+
+def _snappy_compress(data: bytes) -> bytes:
+    lib = _native_codec_lib()
+    if lib is None:
+        return _snappy.compress(data)
+    from incubator_brpc_tpu_torch.iobuf import IOBuf
+
+    out = IOBuf()
+    data = bytes(data)
+    rc = lib.tb_codec_compress(_SNAPPY_WIRE, data, len(data), out._h)
+    if rc < 0:  # cannot happen for snappy compress; fail loudly anyway
+        raise ValueError(f"native snappy compress failed ({rc})")
+    return out.to_bytes()
+
+
 def _snappy_decompress(data: bytes) -> bytes:
-    return _snappy.decompress(data, max_out=max_decompress_bytes())
+    limit = max_decompress_bytes()
+    lib = _native_codec_lib()
+    if lib is None:
+        return _snappy.decompress(data, max_out=limit)
+    from incubator_brpc_tpu_torch.iobuf import IOBuf
+
+    out = IOBuf()
+    data = bytes(data)
+    rc = lib.tb_codec_decompress(_SNAPPY_WIRE, data, len(data), limit, out._h)
+    if rc == -2:
+        raise ValueError(f"decompressed size exceeds max_decompress_bytes ({limit})")
+    if rc < 0:
+        # the native plane's reject text, so both planes read alike
+        raise ValueError("corrupt snappy body")
+    return out.to_bytes()
 
 
 register_codec("gzip", _gzip_compress, lambda b: _bounded_inflate(b, 16 + 15))
@@ -131,6 +174,6 @@ register_codec(
 register_codec(
     "zlib1", lambda b: _zlib.compress(b, 1), lambda b: _bounded_inflate(b, 15)
 )
-# snappy: the portable block codec (snappy_codec.py), whose parse choices
-# are the JAX package's on both its planes.
-register_codec("snappy", _snappy.compress, _snappy_decompress)
+# snappy: the native codec seam, or the portable block codec
+# (snappy_codec.py) without the library; the parse choices are the same.
+register_codec("snappy", _snappy_compress, _snappy_decompress)

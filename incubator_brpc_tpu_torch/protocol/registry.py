@@ -7,8 +7,8 @@ that matches (_preferred_index, input_messenger.cpp:60-129).
 The port's copy of the JAX package's ``protocol/registry.py``, trimmed to
 the fields tbus_std fills: the port registers no other protocol yet.
 tbus_std sizes frames through ``parse_header`` and cuts them off the read
-IOBuf through ``parse_iobuf`` (Python, where the JAX package's native cut
-is C++), and the stream layer binds ``process_stream``.
+IOBuf through ``parse_iobuf`` (the native cut of the port's host
+runtime), and the stream layer binds ``process_stream``.
 """
 
 from __future__ import annotations

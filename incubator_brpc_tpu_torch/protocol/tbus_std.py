@@ -29,25 +29,29 @@ Payload bytes are covered only when FLAG_BODY_CRC is set per frame (flag
 like the reference, whose baidu_std header carries sizes and NO checksum at
 all (baidu_rpc_protocol.cpp:53-58) because TCP already checksums segments.
 
-The port's copy of the JAX package's ``protocol/tbus_std.py`` on its
-Python branches: ``pack_frame``, ``pack_frame_iobuf`` (the no-native
-side), ``parse_header``, ``try_parse_frame`` and the stream layer's hooks
-(``ParsedFrame.payload_iobuf`` with the lazy ``payload``, ``is_stream``,
-``_stream_layer_live``); its CRC32C is the table-driven one of
-``utils/crc32c.py``, byte for byte the same sums. ``parse_frame_iobuf`` is
-the cut on the read IOBuf: where the JAX package walks the chain in C++,
-the port's is Python, and it keeps a stream frame's body as a zero-copy
-cut of the chain as the JAX package's native cut does.
+The port's copy of the JAX package's ``protocol/tbus_std.py``. With the
+port's host runtime loaded (``native.py``), ``pack_frame_iobuf`` builds
+header and meta and sums the CRC in one native pass (``tb_tbus_pack``), and
+``parse_frame_iobuf`` peeks, checks and cuts a frame off a native read
+chain in C++ (``tb_tbus_peek`` / ``tb_tbus_cut``), as the JAX package's
+do. Their plain versions stay beside them: ``pack_frame_iobuf_plain`` and
+``parse_frame_iobuf_plain`` (the cut in Python, which any IOBuf takes), with
+``pack_frame``, ``parse_header``, ``try_parse_frame`` and the stream
+layer's hooks (``ParsedFrame.payload_iobuf`` with the lazy ``payload``,
+``is_stream``, ``_stream_layer_live``). CRC32C is ``utils/crc32c.py``'s.
+Both cuts keep a stream frame's body as a zero-copy cut of the chain.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import struct
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
-from incubator_brpc_tpu_torch.iobuf import IOBuf
+from incubator_brpc_tpu_torch.iobuf import IOBuf, _NativeIOBuf
+from incubator_brpc_tpu_torch.native import LIB, TbusHdr
 from incubator_brpc_tpu_torch.utils.crc32c import crc32c
 from incubator_brpc_tpu_torch.utils.flags import define_flag, get_flag
 
@@ -60,6 +64,8 @@ FLAG_RESPONSE = 1
 FLAG_STREAM = 2
 FLAG_HAS_META = 4
 FLAG_BODY_CRC = 8
+# payloads this large ride the native frame as external blocks, uncopied
+_EXTERNAL_THRESHOLD = 32 * 1024
 
 define_flag(
     "tbus_body_crc",
@@ -230,9 +236,54 @@ def pack_frame_iobuf(
     error_code: int = 0,
     attachment: bytes = b"",
 ) -> IOBuf:
-    """pack_frame without the body/frame concatenations: header+meta in one
-    block, payload and attachment appended after it. The wire bytes are
-    identical to pack_frame."""
+    """pack_frame without the body/frame concatenations: header+meta are
+    built (and the CRC summed) in ONE native pass, then payload and
+    attachment are appended to the IOBuf, as external refs when large.
+    The wire bytes are identical to pack_frame."""
+    if LIB is None:
+        return pack_frame_iobuf_plain(meta, payload, correlation_id, flags, error_code, attachment)
+    if attachment and meta is None:
+        raise ValueError("non-empty attachment requires a Meta to carry its size")
+    buf = IOBuf()
+    flags = _effective_flags(flags)
+    meta_bytes = b""
+    if meta is not None:
+        meta_bytes = meta.to_bytes(attachment_size=len(attachment))
+        flags |= FLAG_HAS_META
+    copy_body = len(payload) < _EXTERNAL_THRESHOLD and len(attachment) < _EXTERNAL_THRESHOLD
+    LIB.tb_tbus_pack(
+        buf._h,
+        meta_bytes,
+        len(meta_bytes),
+        payload,
+        len(payload),
+        attachment,
+        len(attachment),
+        correlation_id & 0xFFFFFFFF,
+        (correlation_id >> 32) & 0xFFFFFFFF,
+        flags,
+        error_code,
+        1 if copy_body else 0,
+    )
+    if not copy_body:
+        for part in (payload, attachment):
+            if len(part) >= _EXTERNAL_THRESHOLD:
+                buf.append_external(part)
+            elif part:
+                buf.append(part)
+    return buf
+
+
+def pack_frame_iobuf_plain(
+    meta: Optional[Meta],
+    payload: bytes,
+    correlation_id: int,
+    flags: int = 0,
+    error_code: int = 0,
+    attachment: bytes = b"",
+) -> IOBuf:
+    """The plain version of pack_frame_iobuf: header+meta in one block
+    built in Python, payload and attachment appended after it."""
     buf = IOBuf()
     header, meta_bytes, _ = _build_header(
         meta, payload, correlation_id, flags, error_code, attachment
@@ -385,11 +436,70 @@ def _stream_layer_live() -> bool:
     return getattr(_pkg.TBUS_STD, "process_stream", None) is not None
 
 
-def parse_frame_iobuf(buf: IOBuf) -> Tuple[Optional[ParsedFrame], int]:
-    """Cut one frame off the read IOBuf ``buf`` itself (the messenger's
-    cut once ``parse_header`` sized the frame). Same contract as
-    try_parse_frame: (frame, consumed) | (None, 0); ParseError on
-    corruption.
+def parse_frame_iobuf(buf, max_total: Optional[int] = None) -> Tuple[Optional[ParsedFrame], int]:
+    """Native cut: header peek, CRC walk and zero-copy body cut all happen
+    in ``csrc/host/tbutil`` over the socket's read chain, and Python never
+    copies the frame wholesale (the reference's CutInputMessage on the
+    IOPortal, input_messenger.cpp:60-129). A chain of the plain IOBuf goes
+    to ``parse_frame_iobuf_plain``.
+
+    Same contract as try_parse_frame: (frame, consumed) | (None, 0);
+    ParseError on corruption. ``max_total`` rejects oversized frames at
+    HEADER time, before their body is buffered."""
+    if not isinstance(buf, _NativeIOBuf):
+        return parse_frame_iobuf_plain(buf, max_total)
+    hdr = TbusHdr()
+    rc = LIB.tb_tbus_peek(buf._h, ctypes.byref(hdr))
+    if rc == 1:
+        return None, 0
+    if rc == -1:
+        raise ParseError("bad magic")
+    total = HEADER_BYTES + hdr.body_len
+    if max_total is not None and total > max_total:
+        raise ParseError(f"frame of {total} B exceeds limit {max_total}")
+    if hdr.meta_len > hdr.body_len:
+        # both fields are untrusted (the crc does not cover the header)
+        raise ParseError("meta longer than body")
+    if len(buf) < total:
+        return None, 0
+    meta_buf = ctypes.create_string_buffer(hdr.meta_len) if hdr.meta_len else None
+    body = IOBuf()
+    rc = LIB.tb_tbus_cut(buf._h, ctypes.byref(hdr), meta_buf, body._h)
+    if rc == -2:
+        raise ParseError("crc mismatch")
+    if rc == -3:
+        raise ParseError("meta longer than body")
+    if rc != 0:
+        return None, 0
+    meta = Meta.from_bytes(meta_buf.raw if meta_buf is not None else b"")
+    att = meta.attachment_size
+    body_rest = hdr.body_len - hdr.meta_len
+    if att > body_rest:
+        # the frame is consumed: the connection cannot re-sync
+        raise ParseError(f"attachment_size {att} exceeds body remainder {body_rest}")
+    cid = hdr.cid_lo | (hdr.cid_hi << 32)
+    if hdr.flags & FLAG_STREAM and att == 0 and _stream_layer_live():
+        # stream data: the body IOBuf rides the frame to the stream layer
+        frame = ParsedFrame(
+            meta=meta, correlation_id=cid, flags=hdr.flags, error_code=hdr.error_code,
+            payload_iobuf=body,
+        )
+        return frame, total
+    payload_len = body_rest - att
+    frame = ParsedFrame(
+        meta=meta,
+        payload=body.to_bytes(payload_len),
+        attachment=body.to_bytes(att, pos=payload_len) if att else b"",
+        correlation_id=cid,
+        flags=hdr.flags,
+        error_code=hdr.error_code,
+    )
+    return frame, total
+
+
+def parse_frame_iobuf_plain(buf, max_total: Optional[int] = None) -> Tuple[Optional[ParsedFrame], int]:
+    """The plain version of parse_frame_iobuf: the cut in Python, on any
+    IOBuf. Same contract.
 
     A stream data frame (FLAG_STREAM, no attachment) whose stream layer is
     bound keeps its body as a zero-copy cut of the chain: the payload
@@ -405,6 +515,8 @@ def parse_frame_iobuf(buf: IOBuf) -> Tuple[Optional[ParsedFrame], int]:
     if meta_len > body_len:
         raise ParseError("meta longer than body")
     total = HEADER_BYTES + body_len
+    if max_total is not None and total > max_total:
+        raise ParseError(f"frame of {total} B exceeds limit {max_total}")
     if len(buf) < total:
         return None, 0
     if not (flags & FLAG_STREAM and _stream_layer_live()):

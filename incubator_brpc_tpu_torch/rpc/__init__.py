@@ -12,7 +12,10 @@ A Channel also takes a naming url and a load balancer (``lb/``,
 SelectiveChannel, PartitionChannel, DynamicPartitionChannel) fan one call
 out over several Channels. A call may open a streaming RPC
 (``stream.py``: ``stream_create`` on the client, ``stream_accept`` in the
-handler), over TCP or over a device link.
+handler), over TCP or over a device link. ``ServerOptions(native_plane=True)``
+and ``ChannelOptions(native_plane=True)`` put a server or a channel on the
+C++ host runtime (transport/native_plane.py); ``native_echo``,
+``native_nop`` and ``native_long_running`` mark handlers it runs natively.
 """
 
 from incubator_brpc_tpu_torch.rpc.channel import (
@@ -41,6 +44,11 @@ from incubator_brpc_tpu_torch.rpc.stream import (
     StreamOptions,
     stream_accept,
     stream_create,
+)
+from incubator_brpc_tpu_torch.transport.native_plane import (
+    native_echo,
+    native_long_running,
+    native_nop,
 )
 
 
@@ -82,6 +90,9 @@ __all__ = [
     "ServerOptions",
     "shutdown_host_plane",
     "device_method",
+    "native_echo",
+    "native_long_running",
+    "native_nop",
     "start_cancel",
     "Stream",
     "StreamHandler",

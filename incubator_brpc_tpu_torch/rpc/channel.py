@@ -27,14 +27,22 @@ picks a healthy host socket and the link map supplies the link to that
 peer), with ``link_controller="multi"`` the link whose two halves live in
 two processes (``transport/mc_link.py``), and the client side of the
 streaming RPC (``call_method(..., request_stream=)``, ``rpc/stream.py``).
-Backup requests, the retry budget, rpcz spans, the native plane, TLS and
-auth are later slices; their options keep the reference's places and
-refuse a value with the ROADMAP item that brings them.
+With ``ChannelOptions(native_plane=True)`` a sync, stream-less,
+uncompressed call to one TCP server rides the native client of the port's
+host runtime (``transport/native_plane.NativeClientChannel``: pack, write,
+read and match in C++); a pooled channel keeps one native connection per
+caller thread, and a transport failure falls through to the Python path,
+which dials fresh and owns the retries. Backup requests, the retry
+budget, rpcz spans, TLS and auth are later slices; their options keep the
+reference's places and refuse a value with the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
 
+import errno
 import logging
+import threading
 import time
 from typing import Callable, Optional, Union
 
@@ -56,7 +64,7 @@ from incubator_brpc_tpu_torch.transport.messenger import InputMessenger
 from incubator_brpc_tpu_torch.transport.sock import CONNECTED, when_drained
 from incubator_brpc_tpu_torch.transport.socket_map import SocketMap
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint, str2endpoint
-from incubator_brpc_tpu_torch.utils.status import ErrorCode
+from incubator_brpc_tpu_torch.utils.status import ErrorCode, berror
 
 logger = logging.getLogger(__name__)
 
@@ -214,7 +222,6 @@ class ChannelOptions:
         unported = (
             ("protocol", protocol, "tbus_std", "A11"),
             ("auth", auth, None, "A7"),
-            ("native_plane", native_plane, False, "A6"),
             ("ssl_context", ssl_context, None, "A10"),
             ("ssl_server_hostname", ssl_server_hostname, None, "A10"),
             ("retry_policy", retry_policy, None, "A7"),
@@ -244,6 +251,9 @@ class ChannelOptions:
         # 'single': both link halves in one process; 'multi': one half per
         # process, lockstep over torch.distributed (transport/mc_link.py)
         self.link_controller = link_controller
+        # sync calls to one TCP server over the native client
+        # (transport/native_plane.py)
+        self.native_plane = native_plane
 
 
 class Channel:
@@ -263,6 +273,9 @@ class Channel:
         # transport="tpu": the last-used link (the links themselves live in
         # the process-wide DeviceLinkMap)
         self._device_sock = None
+        self._native_ch = None  # NativeClientChannel (lazy; native_plane)
+        self._native_lock = threading.Lock()
+        self._native_tls = threading.local()  # pooled: one conn per thread
 
     def init(
         self,
@@ -354,6 +367,19 @@ class Channel:
                     done(cntl)
                 return cntl
 
+        # native fast path: a sync, stream-less, uncompressed call to a
+        # single TCP server rides the host runtime's native client end to
+        # end; a transport failure falls through to the regular path,
+        # whose dial/retry machinery owns recovery
+        if (
+            done is None
+            and request_stream is None
+            and self._options.native_plane
+            and self._native_eligible(cntl)
+            and self._native_call(cntl, service, method, request, attachment)
+        ):
+            return cntl
+
         # one id covers the first send + every retry
         # (bthread_id_create_ranged with 2 + max_retry, channel.cpp:307)
         cid = call_id_space.create(
@@ -396,6 +422,93 @@ class Channel:
 
     # convenience alias
     call = call_method
+
+    # -- native fast path ----------------------------------------------------
+
+    def _native_eligible(self, cntl: Controller) -> bool:
+        return (
+            self._server is not None
+            and not self._server.ip.startswith("unix://")
+            and self._options.transport == "tcp"
+            and self._options.connection_type in ("single", "pooled")
+            and not cntl.compress_type
+            and not cntl._force_host
+        )
+
+    def _native_fresh_or_none(self, cached):
+        """Reuse ``cached`` if healthy, else dial a replacement (None on a
+        connect failure)."""
+        from incubator_brpc_tpu_torch.transport import native_plane as np_mod
+
+        if cached is not None and cached.healthy():
+            return cached
+        if cached is not None:
+            cached.close()
+        try:
+            return np_mod.NativeClientChannel(
+                self._server.ip,
+                self._server.port,
+                connect_timeout_ms=int(self._options.connect_timeout * 1000),
+            )
+        except OSError:
+            return None
+
+    def _native_channel(self):
+        from incubator_brpc_tpu_torch.transport import native_plane as np_mod
+
+        if not np_mod.NET_AVAILABLE:
+            return None
+        if self._options.connection_type == "pooled":
+            # pooled + native = one exclusive connection per caller thread
+            ch = self._native_fresh_or_none(getattr(self._native_tls, "ch", None))
+            self._native_tls.ch = ch
+            return ch
+        with self._native_lock:
+            ch = self._native_fresh_or_none(self._native_ch)
+            self._native_ch = ch
+            return ch
+
+    def _native_call(self, cntl: Controller, service, method, request, attachment) -> bool:
+        """One attempt over the native channel. True = the RPC completed
+        (ok, RPC error, or timeout); False = transport trouble, the caller
+        falls through to the regular path."""
+        nch = self._native_channel()
+        if nch is None:
+            return False
+        rc, err_code, resp_meta, body = nch.call(
+            service, method, request, attachment, timeout_ms=cntl.timeout_ms, log_id=cntl.log_id
+        )
+        cntl.remote_side = self._server
+        if rc == -errno.ETIMEDOUT:
+            cntl.set_failed(ErrorCode.ERPCTIMEDOUT, f"deadline {cntl.timeout_ms} ms exceeded")
+        elif rc == -errno.EBADMSG:
+            # the response's correlation id carried another reactor
+            # shard's tag: a bad answer, not a dead connection
+            cntl.set_failed(ErrorCode.EREQUEST, "response correlation id from the wrong reactor shard")
+        elif rc < 0:
+            # connection-level failure: recycle, and let the regular path
+            # (fresh dial + retry arbitration) handle this call
+            with self._native_lock:
+                if self._native_ch is nch:
+                    self._native_ch = None
+            nch.close()
+            cntl.remote_side = None
+            return False
+        elif err_code:
+            meta = nch.decode_resp_meta(resp_meta)
+            cntl.set_failed(int(err_code), meta.error_text or berror(int(err_code)))
+        else:
+            meta = nch.decode_resp_meta(resp_meta) if resp_meta else None
+            blen = len(body)
+            att = meta.attachment_size if meta is not None else 0
+            if att > blen:
+                cntl.set_failed(ErrorCode.ERESPONSE, "attachment exceeds body")
+            else:
+                cntl.response_meta = meta
+                cntl.response_payload = body.to_bytes(blen - att)
+                cntl.response_attachment = body.to_bytes(att, pos=blen - att) if att else b""
+        cntl._mark_end()
+        return True
 
     def _sync_wait(self, cntl: Controller, cid: int) -> None:
         """Synchronous completion. When the request's socket is otherwise

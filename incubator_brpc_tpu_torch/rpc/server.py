@@ -20,13 +20,20 @@ A handler is ``handler(cntl, request: bytes) -> Optional[bytes]``:
     reference's done-closure style (baidu_rpc_protocol.cpp:490-503).
 Errors: ``cntl.set_failed(code, text)`` → an error frame, payload dropped.
 
-The port's copy of the JAX package's ``rpc/server.py`` on the Python
-acceptor, trimmed: the method map is a plain dict keyed by full name
-(where the JAX package uses its native FlatMap), methods run with
-unlimited concurrency, and the native plane, TLS, the concurrency
-limiters, auth, the fault injector, rpcz, request dumps, the HTTP gateway,
-lame-duck draining (with its RST of open streams), and session and
-thread-local data are later slices. The collective services
+The port's copy of the JAX package's ``rpc/server.py``, trimmed: methods
+run with unlimited concurrency, and TLS, the concurrency limiters, auth,
+the fault injector, rpcz, request dumps, the HTTP gateway, lame-duck
+draining (with its RST of open streams), and session and thread-local data
+are later slices. The method map (``_MethodMap``) is keyed on the native
+FlatMap of the port's host runtime. A server listens on the Python
+acceptor, or with ``ServerOptions(native_plane=True)`` on the C++ reactors
+of ``transport/native_plane.py`` (``num_reactors``, alias
+``native_loops``; ``native_dispatch_workers``): natively registered
+methods (``native_echo``, ``native_nop``, ``native_method_lib``) are
+answered in C++, every other method through ``process_request`` as on the
+Python plane. Where the host runtime did not build, or the C++ listener
+cannot take the address, ``start`` logs why and listens on the Python
+acceptor. The collective services
 (``_tpu_transport.collective`` and ``_tpu_transport.collective_dispatch``,
 ``parallel/mc_collective.py`` and ``parallel/mc_dispatch.py``) are
 registered at ``start`` where ``enable_collective_service`` asks for them,
@@ -106,17 +113,73 @@ class MethodStatus:
 
 
 class MethodProperty:
-    __slots__ = ("handler", "status")
+    __slots__ = ("handler", "status", "full_name")
 
-    def __init__(self, handler: Callable, status: MethodStatus):
+    def __init__(self, handler: Callable, status: MethodStatus, full_name: str):
         self.handler = handler
         self.status = status
+        self.full_name = full_name
+
+
+class _MethodMap:
+    """Method table on the native open-addressing FlatMap (csrc/host/tbutil
+    tb_flatmap; reference server.cpp:1209 builds _method_map on
+    butil::FlatMap for the same hot lookup). Keys are a 64-bit double-CRC
+    of the full name (crc32c | crc32<<32: two polynomials, so a clash needs
+    both to collide); values index a list of the MethodProperty objects,
+    each verified by name on a hit. A str-keyed dict remains for
+    registration, iteration, and the double-collision overflow (and is the
+    whole map where the host runtime did not build)."""
+
+    def __init__(self) -> None:
+        from incubator_brpc_tpu_torch import native
+
+        self._by_name: Dict[str, MethodProperty] = {}
+        self._props: list = []
+        self._fm = native.FlatMap(64) if native.NATIVE_AVAILABLE else None
+        self._crc32 = native.crc32
+        self._crc32c = native.crc32c
+
+    def _key(self, name: str) -> int:
+        b = name.encode()
+        return self._crc32c(b) | (self._crc32(b) << 32)
+
+    def insert(self, full: str, prop: MethodProperty) -> None:
+        self._by_name[full] = prop
+        if self._fm is not None:
+            key = self._key(full)
+            if key not in self._fm:  # double-collision -> dict overflow
+                self._fm[key] = len(self._props)
+                self._props.append(prop)
+
+    def get(self, full: str) -> Optional[MethodProperty]:
+        if self._fm is not None:
+            idx = self._fm.get(self._key(full))
+            if idx is not None:
+                prop = self._props[idx]
+                if prop.full_name == full:
+                    return prop
+        return self._by_name.get(full)
+
+    def __contains__(self, full: str) -> bool:
+        return self.get(full) is not None
+
+    def __iter__(self):
+        return iter(self._by_name)
+
+    def items(self):
+        return self._by_name.items()
+
+    def as_dict(self) -> Dict[str, MethodProperty]:
+        return dict(self._by_name)
 
 
 class ServerOptions:
     """Reference ServerOptions (server.h:55-239) with the reference's
     parameters in the reference's order, so a positional call binds as it
-    binds there. The port serves ``usercode_inline`` and ``device_index``;
+    binds there. The port serves ``usercode_inline``, ``device_index``, and
+    the native plane's ``native_plane``, ``num_reactors`` (``native_loops``
+    is its alias, a live property) and ``native_dispatch_workers``;
     ``has_builtin_services`` is accepted either way and is inert until
     ROADMAP A12 brings the builtin services. Every other parameter keeps
     its place and its default, and a value that asks for something the
@@ -165,10 +228,6 @@ class ServerOptions:
             ("mongo_service_adaptor", mongo_service_adaptor, None, "A11"),
             ("rtmp_service", rtmp_service, None, "A11"),
             ("ssl_context", ssl_context, None, "A10"),
-            ("native_plane", native_plane, False, "A6"),
-            ("native_loops", native_loops, None, "A6"),
-            ("num_reactors", num_reactors, None, "A6"),
-            ("native_dispatch_workers", native_dispatch_workers, 0, "A6"),
             ("session_local_data_factory", session_local_data_factory, None, "A7"),
             ("reserved_session_local_data", reserved_session_local_data, 0, "A7"),
             ("thread_local_data_factory", thread_local_data_factory, None, "A7"),
@@ -187,6 +246,17 @@ class ServerOptions:
         # request. ONLY for services whose handlers never block: a blocking
         # handler stalls every connection hashed to the same dispatcher.
         self.usercode_inline = usercode_inline
+        # serve this port from the native C++ reactors (csrc/host/tbnet):
+        # tbus_std frames cut, checked and, for natively registered
+        # methods, answered without the interpreter; the rest through
+        # process_request (transport/native_plane.py)
+        self.native_plane = native_plane
+        # reactor count of the native plane (None = one a core, at most
+        # 16); ``native_loops`` is the legacy spelling of the same knob
+        self.num_reactors = num_reactors if num_reactors is not None else native_loops
+        # work-stealing dispatch pool threads for native methods marked
+        # long-running (0 = every native method runs on its reactor)
+        self.native_dispatch_workers = native_dispatch_workers
         # device this server binds for transport='tpu' links (None = pick a
         # neighbor of the client's device; the reference's use_rdma slot)
         self.device_index = device_index
@@ -200,12 +270,24 @@ class ServerOptions:
         self.collective_max_concurrency = collective_max_concurrency
         self.device = device
 
+    @property
+    def native_loops(self) -> Optional[int]:
+        """Legacy spelling of ``num_reactors``: a live alias, so code that
+        assigns ``opts.native_loops = N`` after construction still steers
+        the reactor count."""
+        return self.num_reactors
+
+    @native_loops.setter
+    def native_loops(self, value: Optional[int]) -> None:
+        self.num_reactors = value
+
 
 class Server:
     def __init__(self, options: Optional[ServerOptions] = None):
         self.options = options or ServerOptions()
-        self._methods: Dict[str, MethodProperty] = {}
+        self._methods = _MethodMap()
         self._acceptor: Optional[Acceptor] = None
+        self._native_plane = None  # NativeServerPlane when options ask for it
         self._messenger = InputMessenger()
         self._stopping = False
         self._started = False
@@ -241,7 +323,7 @@ class Server:
                 raise ValueError(f"method {name}.{method} already registered")
         for method, handler in handlers.items():
             full = f"{name}.{method}"
-            self._methods[full] = MethodProperty(handler, MethodStatus(full))
+            self._methods.insert(full, MethodProperty(handler, MethodStatus(full), full))
             dm = getattr(handler, "_device_method", None)
             if dm is not None:
                 # device-kernel methods publish to the registry the session
@@ -253,6 +335,9 @@ class Server:
 
                 register_device_method(name, method, dm)
                 self._device_methods[full] = dm
+
+    def methods(self) -> Dict[str, MethodProperty]:
+        return self._methods.as_dict()
 
     def method_status(self, service: str, method: str) -> Optional[MethodStatus]:
         prop = self._methods.get(f"{service}.{method}")
@@ -277,7 +362,7 @@ class Server:
 
         hs = f"{HANDSHAKE_SERVICE}.{HANDSHAKE_METHOD}"
         if hs not in self._methods:
-            self._methods[hs] = MethodProperty(make_handshake_handler(self), MethodStatus(hs))
+            self._methods.insert(hs, MethodProperty(make_handshake_handler(self), MethodStatus(hs), hs))
         # the collective session plane shares the transport service: OPT-IN,
         # on by default only in a job (the probe runs once, at start: a
         # process that joins a job after starting its server passes
@@ -301,24 +386,59 @@ class Server:
                                (DISPATCH_METHOD, make_dispatch_handler)):
                 full = f"{HANDSHAKE_SERVICE}.{name}"
                 if full not in self._methods:
-                    self._methods[full] = MethodProperty(make(self), MethodStatus(full))
+                    self._methods.insert(full, MethodProperty(make(self), MethodStatus(full), full))
         if isinstance(listen, int):
             ep = EndPoint(ip="127.0.0.1", port=listen)
         elif isinstance(listen, str):
             ep = str2endpoint(listen)
         else:
             ep = listen
-        self._acceptor = Acceptor(
-            ep,
-            messenger=self._messenger,
-            conn_context={"server": self},
-            inline_read=self.options.usercode_inline,
-        )
-        self.listen_endpoint = self._acceptor.endpoint
+        plane = self._start_native_plane(ep) if self.options.native_plane else None
+        if plane is not None:
+            self._native_plane = plane
+            self.listen_endpoint = EndPoint(ip=ep.ip, port=plane.port)
+        else:
+            self._acceptor = Acceptor(
+                ep,
+                messenger=self._messenger,
+                conn_context={"server": self},
+                inline_read=self.options.usercode_inline,
+            )
+            self.listen_endpoint = self._acceptor.endpoint
         self._stopping = False
         self._started = True
         logger.info("server started on %s", self.listen_endpoint)
         return True
+
+    def _start_native_plane(self, ep: EndPoint):
+        """The listening NativeServerPlane, or None with the reason logged
+        (the JAX package's fallbacks: no host runtime, a unix endpoint, or
+        an address the AF_INET-only C++ listener cannot take)."""
+        from incubator_brpc_tpu_torch import native
+        from incubator_brpc_tpu_torch.transport import native_plane as np_mod
+
+        if not np_mod.NET_AVAILABLE:
+            logger.warning(
+                "native plane unavailable (the host runtime did not build: %s); "
+                "serving %s on the Python acceptor", native.BUILD_ERROR, ep,
+            )
+            return None
+        if ep.ip.startswith("unix://"):
+            logger.warning("native plane has no unix sockets; serving %s on the Python acceptor", ep)
+            return None
+        plane = np_mod.NativeServerPlane(
+            self, self.options.num_reactors, dispatch_workers=self.options.native_dispatch_workers
+        )
+        try:
+            plane.register_methods()
+            plane.listen(ep.ip, ep.port)
+        except OSError as e:
+            logger.warning(
+                "native plane cannot listen on %s (%s); falling back to the Python acceptor", ep, e
+            )
+            plane.stop()
+            return None
+        return plane
 
     def stop(self) -> None:
         """Stop accepting + fail connections; in-flight handlers finish
@@ -328,6 +448,8 @@ class Server:
         self._stopping = True
         if self._acceptor is not None:
             self._acceptor.stop()
+        if self._native_plane is not None:
+            self._native_plane.stop()
         for ds in list(self._device_socks):
             try:
                 ds.set_failed(ErrorCode.ECLOSE, "server stopped")
@@ -348,6 +470,8 @@ class Server:
 
     def connection_count(self) -> int:
         """Host connections this server holds open."""
+        if self._native_plane is not None:
+            return self._native_plane.connection_count()
         return self._acceptor.connection_count() if self._acceptor else 0
 
     def _open_streams(self):

@@ -20,8 +20,7 @@ Kept design points (and where they live in the reference):
   ``socket_max_unwritten_bytes`` (socket.cpp:1537).
 
 The port's copy of the JAX package's ``transport/sock.py`` without TLS,
-the native versioned-id slab (the registry keeps the pure-Python version
-and free-list state), the fault injector, the per-second rate bvars of the
+the fault injector, the per-second rate bvars of the
 portal, and the caller-driven write drain (``write(drain_inline=True)``)
 that the JAX package's stream writers opt into: the port's streams write
 through the same KeepWrite path as every other frame.
@@ -83,20 +82,32 @@ def when_drained(sock, action, stalls: int = 0, last_unwritten: int = -1) -> Non
 
 
 class _Registry:
-    """Socket registry: SocketId = version<<32 | slot, version odd while
-    live; a recycled slot bumps its version, so a stale id addresses
-    nothing (reference resource_pool.h:24-83 backing SocketId). The JAX
-    package keeps the slot/version state in its native slab; this is its
-    pure-Python twin."""
+    """Socket registry on the native versioned-id slab (csrc/host/tbutil
+    tb_respool; reference resource_pool.h:24-83 backing SocketId). The
+    slot/version/ABA discipline, what makes Address-after-SetFailed safe,
+    lives in native code; Python keeps only the slot-indexed object array
+    (PyObjects can't live in the C slab). SocketId = version<<32 | slot,
+    version odd while live. Without the host runtime the version and
+    free-list state is kept here, its plain twin."""
 
     def __init__(self):
+        from incubator_brpc_tpu_torch.native import NATIVE_AVAILABLE, ResourcePool
+
         self._lock = threading.Lock()
         self._objs: List[Optional["Socket"]] = []
+        self._pool = ResourcePool(8) if NATIVE_AVAILABLE else None
         self._versions: List[int] = []
         self._free: List[int] = []
 
     def insert(self, sock: "Socket") -> int:
         with self._lock:
+            if self._pool is not None:
+                sid = self._pool.get()
+                slot = sid & 0xFFFFFFFF
+                while len(self._objs) <= slot:
+                    self._objs.append(None)
+                self._objs[slot] = sock
+                return sid
             if self._free:
                 slot = self._free.pop()
                 self._versions[slot] += 2
@@ -107,16 +118,46 @@ class _Registry:
                 self._versions.append(1)
             return (self._versions[slot] << 32) | slot
 
+    def address(self, sid: int) -> Optional["Socket"]:
+        slot = sid & 0xFFFFFFFF
+        with self._lock:
+            if self._pool is not None:
+                if self._pool.address(sid) is None:
+                    return None  # stale version: recycled (or never issued)
+                sock = self._objs[slot] if slot < len(self._objs) else None
+            else:
+                if slot >= len(self._objs) or self._versions[slot] != sid >> 32:
+                    return None
+                sock = self._objs[slot]
+        if sock is None or sock.state != CONNECTED:
+            return None
+        return sock
+
     def recycle(self, sid: int) -> None:
         slot = sid & 0xFFFFFFFF
         with self._lock:
+            if self._pool is not None:
+                if self._pool.return_(sid) and slot < len(self._objs):
+                    self._objs[slot] = None
+                return
             if slot < len(self._objs) and self._versions[slot] == sid >> 32:
                 self._objs[slot] = None
                 self._versions[slot] += 1
                 self._free.append(slot)
 
+    def live_count(self) -> int:
+        if self._pool is not None:
+            return self._pool.live
+        with self._lock:
+            return sum(1 for s in self._objs if s is not None)
+
 
 _registry = _Registry()
+
+
+def address_socket(sid: int) -> Optional["Socket"]:
+    """Socket::Address analog — None after set_failed/recycle."""
+    return _registry.address(sid)
 
 
 class WriteRequest:
@@ -145,6 +186,7 @@ class Socket:
         is_client: bool = False,
         context: Optional[Dict] = None,
         inline_read: bool = False,
+        preread: bytes = b"",
     ):
         conn.setblocking(False)
         # NOTE: no explicit SO_RCVBUF/SO_SNDBUF — setting them disables
@@ -183,6 +225,11 @@ class Socket:
         self.last_active = _monotonic()
 
         self._read_buf = IOBuf()
+        # bytes another plane already read off this fd (the native plane's
+        # protocol-sniff handoff), seeded BEFORE the dispatcher
+        # registration below makes the socket live
+        if preread:
+            self._read_buf.append(preread)
         self._wlock = threading.Lock()
         self._wqueue: deque = deque()
         self._writing = False
@@ -209,6 +256,15 @@ class Socket:
         self._pool = global_worker_pool()
         self.id = _registry.insert(self)
         self._dispatcher.add_consumer(self.fd, self._on_event, EVENT_IN)
+        if preread:
+            # frames may already be complete in the preread bytes and no
+            # further wire activity will announce them: run one read pass
+            with self._state_lock:
+                claimed = not self._reading and self.state == CONNECTED
+                if claimed:
+                    self._reading = True
+            if claimed:
+                self._pool.spawn(self._process_event)
 
     # -- construction -------------------------------------------------------
 

@@ -1,10 +1,10 @@
-"""CRC32C (Castagnoli), table-driven, in pure Python.
+"""CRC32C (Castagnoli) on the port's native host runtime.
 
-The port's copy of the JAX package's no-native fallback (``native.py``
-``_crc32c_py``): the port has no C++ host runtime yet, so this is its only
-CRC32C. zlib-style chaining: pass the previous return value as ``seed``.
-It runs a Python loop per byte, so tbus_std covers only the frame meta with
-it unless a frame sets the body-checksum bit.
+``crc32c`` runs ``tb_crc32c`` of ``csrc/host/tbutil`` (SSE4.2 where the CPU
+has it). ``crc32c_plain`` is its plain twin, the JAX package's table loop
+(``native.py`` ``_crc32c_py``) in pure Python; ``crc32c`` falls back to it
+when the library did not build. Both chain zlib-style: pass the previous
+return value as ``seed``.
 """
 
 from __future__ import annotations
@@ -25,10 +25,18 @@ def _table() -> list:
     return _TABLE
 
 
-def crc32c(data, seed: int = 0) -> int:
-    """CRC32C of ``data`` (any bytes-like), continuing from ``seed``."""
+def crc32c_plain(data, seed: int = 0) -> int:
+    """CRC32C of ``data`` (any bytes-like), continuing from ``seed``, one
+    table lookup a byte in Python."""
     crc = ~seed & 0xFFFFFFFF
     tab = _table()
     for byte in bytes(data):
         crc = tab[(crc ^ byte) & 0xFF] ^ (crc >> 8)
     return ~crc & 0xFFFFFFFF
+
+
+def crc32c(data, seed: int = 0) -> int:
+    """CRC32C of ``data`` (any bytes-like), continuing from ``seed``."""
+    from incubator_brpc_tpu_torch import native
+
+    return native.crc32c(data, seed)

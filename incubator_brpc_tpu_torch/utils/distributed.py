@@ -22,12 +22,20 @@ on a card the rows stay CUDA tensors that gloo moves through the host) or
 the link or the session; nothing picks another.
 
 Process 0 must outlive the others: its store is the rendezvous.
+
+Per-run state stays bounded in a long-lived job: a process remembers the
+group prefixes it claimed (``Job.claim_key``: the highest epoch of each
+of its newest ``KEYS_KEPT`` prefixes, so a reused prefix, or a session run
+at an equal or lower epoch, refuses), and a session run's gloo rendezvous
+entries leave the store once every party has passed the group's first
+collective (``forget_session_rendezvous``).
 """
 
 from __future__ import annotations
 
 import datetime
 import threading
+from collections import OrderedDict
 from typing import Optional, Sequence
 
 import torch
@@ -36,6 +44,8 @@ import torch.distributed as dist
 from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
 
 BACKENDS = ("gloo", "nccl")
+# group prefixes a process remembers for the reuse guard (the newest ones)
+KEYS_KEPT = 64
 
 
 class Job:
@@ -55,16 +65,27 @@ class Job:
         self.device = device
         self.backend = backend
         self.store = store
-        self._keys: set = set()  # link-group keys this process has built
+        # group prefix -> the highest epoch this process claimed under it,
+        # the newest KEYS_KEPT prefixes only
+        self._keys: "OrderedDict[str, int]" = OrderedDict()
         self._lock = threading.Lock()
 
-    def claim_key(self, key: str) -> None:
-        """A group's store prefix, once per process: a key used twice would
-        rendezvous with a stale group's entries."""
+    def claim_key(self, key: str, epoch: int = 0) -> None:
+        """A group's store prefix at ``epoch``, once per process: a prefix
+        claimed again at an equal or lower epoch would rendezvous with a
+        stale group's entries, and refuses. The guard covers the newest
+        ``KEYS_KEPT`` prefixes (an older one's run has long left the
+        store)."""
         with self._lock:
-            if key in self._keys:
-                raise ValueError(f"group key {key!r} already used by this process")
-            self._keys.add(key)
+            last = self._keys.get(key)
+            if last is not None and epoch <= last:
+                raise ValueError(
+                    f"group key {key!r} already used by this process at epoch {last}"
+                )
+            self._keys[key] = epoch
+            self._keys.move_to_end(key)
+            while len(self._keys) > KEYS_KEPT:
+                self._keys.popitem(last=False)
 
 
 _job: Optional[Job] = None
@@ -165,11 +186,31 @@ def session_group(
         raise ValueError(f"a session group is two or more distinct ranks, got {ranks}")
     if job.rank not in ranks:
         raise ValueError(f"rank {job.rank} is not a party of the session {ranks}")
-    key = f"session/{session_id}/{int(epoch)}"
-    job.claim_key(key)
+    job.claim_key(f"session/{session_id}", int(epoch))
     return make_group(
-        dist.PrefixStore(key, job.store), ranks.index(job.rank), len(ranks), backend, timeout
+        dist.PrefixStore(_session_prefix(session_id, epoch), job.store),
+        ranks.index(job.rank), len(ranks), backend, timeout,
     )
+
+
+def _session_prefix(session_id: str, epoch: int) -> str:
+    return f"session/{session_id}/{int(epoch)}"
+
+
+def forget_session_rendezvous(
+    session_id: str, epoch: int, group_rank: int, backend: str, job: Optional[Job] = None
+) -> None:
+    """Delete this party's rendezvous entry of a session run from the
+    job's store. Call it once this party's first collective on the group
+    completed: every party then has joined the group (each had to, to send
+    to this one), so nobody reads the entry again; when every party has
+    called it, the run has left nothing in the store. gloo's rendezvous is
+    one entry a rank, ``<prefix>/<device index>/<rank>`` with the one
+    device 0; an nccl group's entries are left as they are."""
+    job = job or _job
+    if job is None or backend != "gloo":
+        return
+    job.store.delete_key(f"{_session_prefix(session_id, epoch)}/0/{int(group_rank)}")
 
 
 def make_pair_group(store: "dist.Store", group_rank: int, backend: str, timeout: float):

@@ -119,6 +119,37 @@ define_flag(
     lambda v: v >= 0,
 )
 define_flag(
+    "native_telemetry",
+    True,
+    "per-port completion-record ring on native-plane servers: every "
+    "natively dispatched request records method/latency/sizes/error into "
+    "a lock-free MPSC ring drained into per-method latency summaries "
+    "(read at Server.start)",
+    lambda v: True,
+)
+define_flag(
+    "native_telemetry_ring_size",
+    8192,
+    "telemetry ring capacity in records (rounded up to a power of two); "
+    "a full ring drops records and counts them instead of blocking",
+    lambda v: v > 0,
+)
+define_flag(
+    "native_telemetry_sample_every",
+    64,
+    "every Nth native completion record carries the span-sample bit "
+    "(counter-based, exact-rate; 0 disables it); the spans it elects wait "
+    "for rpcz (ROADMAP A12)",
+    lambda v: v >= 0,
+)
+define_flag(
+    "native_telemetry_drain_ms",
+    100,
+    "background drain cadence of the native telemetry ring; "
+    "Server.stop forces a drain regardless",
+    lambda v: v > 0,
+)
+define_flag(
     "socket_max_unwritten_bytes",
     64 * 1024 * 1024,
     "write-queue backpressure threshold (EOVERCROWDED)",

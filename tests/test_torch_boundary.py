@@ -1,6 +1,10 @@
 """The port's import boundary: ``incubator_brpc_tpu_torch`` and
 ``chip_smoke.py`` import neither ``jax`` nor anything of the JAX package
-``incubator_brpc_tpu``; importing any module starts no build."""
+``incubator_brpc_tpu``; importing any module starts no kernel build (the
+host runtime's library, ``native.py``, loads at import, built once by g++
+into the port's ``_build/``); and a process of the port alone that served
+a native-plane echo has mapped the port's host library and never the JAX
+package's ``src/build/libtbutil.so``."""
 
 import json
 import re
@@ -43,6 +47,33 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-2000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result == {"bad": [], "built": False}
+
+
+def test_a_port_process_maps_only_the_ports_host_library():
+    probe = (
+        "import json\n"
+        "import incubator_brpc_tpu_torch.rpc as rpc\n"
+        "from incubator_brpc_tpu_torch import native\n"
+        "srv = rpc.Server(rpc.ServerOptions(native_plane=True, device='cpu'))\n"
+        "srv.add_service('svc', {'echo': rpc.native_echo})\n"
+        "assert srv.start(0) and srv._native_plane is not None\n"
+        "ch = rpc.Channel()\n"
+        "assert ch.init(f'127.0.0.1:{srv.port}', options=rpc.ChannelOptions(native_plane=True))\n"
+        "c = ch.call_method('svc', 'echo', b'boundary')\n"
+        "assert c.ok() and c.response_payload == b'boundary'\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "libs = sorted({l.split()[-1] for l in maps.splitlines() if '.so' in l.split()[-1]})\n"
+        "srv.stop(); srv.join(); rpc.shutdown_host_plane()\n"
+        "print(json.dumps({'libs': libs, 'own': str(native.library_path())}))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["own"] in result["libs"]
+    assert str(PORT / "_build") in result["own"]
+    assert not [lib for lib in result["libs"] if "libtbutil" in lib or "src/build" in lib]
 
 
 def test_no_source_names_jax_or_the_jax_package():

@@ -198,3 +198,93 @@ def test_chip_smoke_phase_10b_on_the_cpu():
     assert out["reject"]["rejected"] and out["chaos"]["byte_identical"]
     assert chip_smoke.plane_k2_per_session(8, 16, 4, "int8") == 512
     assert chip_smoke.plane_k2_per_session(8, 16, 1, "none") == 0
+
+
+# -- ROADMAP C9: the session plane's per-run state stays bounded ---------------
+
+_C9_PARTY = r"""
+import json, sys
+from incubator_brpc_tpu_torch.parallel import mc_dispatch as mcd
+from incubator_brpc_tpu_torch.rpc.device_method import DeviceMethod
+from incubator_brpc_tpu_torch.transport import mc_worker
+from incubator_brpc_tpu_torch.utils import distributed as dist_mod
+
+rank, port, sessions = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+job = dist_mod.init_job(rank, 2, port, "cpu", backend="gloo")
+dm = DeviceMethod(mc_worker._scale_psum_kernel, width=mc_worker.SESSION_WIDTH)
+ops = mc_worker.scale_operands(2)
+want = mc_worker.session_expected(ops, 2)[rank]
+trace = []
+for i in range(sessions):
+    row, n, _ = mcd.run_dispatch_session([0, 1], rank, dm, ops, 2, session_id=f"c9-{i}",
+                                         device="cpu")
+    assert bytes(row[:n]) == want
+    trace.append([job.store.num_keys(), len(job._keys)])
+# the job's epochs: a session id run again at an equal or lower epoch refuses
+try:
+    dist_mod.session_group(f"c9-{sessions - 1}", 0, [0, 1], "gloo", 5.0)
+    refused = False
+except ValueError:
+    refused = True
+job.store.add("c9-done", 1)
+job.store.wait(["c9-done"])
+while job.store.add("c9-done", 0) < 2:
+    pass
+print(json.dumps({"rank": rank, "trace": trace, "refused": refused,
+                  "final_keys": job.store.num_keys()}))
+"""
+
+
+def test_job_keys_keep_the_highest_epoch_of_the_newest_prefixes():
+    from incubator_brpc_tpu_torch.utils import distributed as dist_mod
+
+    job = dist_mod.Job(0, 2, torch.device("cpu"), "gloo", torch.distributed.HashStore())
+    job.claim_key("session/a", 3)
+    for epoch in (0, 3):
+        with pytest.raises(ValueError, match="already used"):
+            job.claim_key("session/a", epoch)
+    job.claim_key("session/a", 4)  # a resumed run is a new, higher epoch
+    job.claim_key("link/x")
+    with pytest.raises(ValueError):
+        job.claim_key("link/x")
+    for i in range(3 * dist_mod.KEYS_KEPT):
+        job.claim_key(f"session/s{i}", 0)
+    assert len(job._keys) == dist_mod.KEYS_KEPT
+    with pytest.raises(ValueError):  # the newest prefixes are still guarded
+        job.claim_key(f"session/s{3 * dist_mod.KEYS_KEPT - 1}", 0)
+
+
+def test_eighty_sessions_leave_the_store_and_the_key_guard_bounded(tmp_path):
+    """A CPU gloo job of two processes runs 80 sessions in a row: the
+    TCPStore's key count stays at what one run leaves in flight, and
+    ``Job._keys`` stops at ``KEYS_KEPT``."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from incubator_brpc_tpu_torch.utils.distributed import KEYS_KEPT
+
+    sessions = 80
+    assert sessions > KEYS_KEPT
+    script = tmp_path / "c9_party.py"
+    script.write_text(_C9_PARTY)
+    port = mc_worker._free_ports(1)[0]
+    root = str(Path(__file__).resolve().parent.parent)
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(port), str(sessions)],
+                              cwd=root, env={**os.environ, "PYTHONPATH": root},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    records = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    for rec in records:
+        assert rec["refused"]
+        store_keys = [k for k, _ in rec["trace"]]
+        guard = [g for _, g in rec["trace"]]
+        # each run's rendezvous entries and arrival counter leave the store
+        # (without the repair each run left two entries: 160 here)
+        assert max(store_keys) <= 4, store_keys
+        assert guard == [min(i + 1, KEYS_KEPT) for i in range(sessions)]

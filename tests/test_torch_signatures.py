@@ -10,19 +10,28 @@ after the first of them that may be passed by position is keyword-only. The
 tests pin each signature's names and order with ``inspect``, and run each
 positional call of C7 on both packages: it binds as the reference binds it,
 or the port refuses it with a message that names the ROADMAP item that
-brings the parameter. Nothing binds silently to another parameter."""
+brings the parameter. Nothing binds silently to another parameter.
+
+The native plane's options (ROADMAP A6), once refused, are served by both
+packages: each drives an echo through a native-plane server. And
+``run_dispatch_session`` ends as the reference's does, ``..., chunk_order,
+trace_id, parent_span_id`` (ROADMAP C8), with the port's ``device`` and
+``group_timeout_s`` keyword-only after them; a non-zero trace id refuses
+naming A12."""
 
 import inspect
 import types
 
 import pytest
 
+import incubator_brpc_tpu.parallel.mc_dispatch as jax_mcd
 import incubator_brpc_tpu.protocol.registry as jax_registry
 import incubator_brpc_tpu.rpc as jax_rpc
 import incubator_brpc_tpu.rpc.server as jax_server_mod
 import incubator_brpc_tpu.transport.acceptor as jax_acceptor
 import incubator_brpc_tpu.transport.device_link as jax_dl
 import incubator_brpc_tpu.transport.sock as jax_sock
+import incubator_brpc_tpu_torch.parallel.mc_dispatch as port_mcd
 import incubator_brpc_tpu_torch.protocol.registry as port_registry
 import incubator_brpc_tpu_torch.rpc as port_rpc
 import incubator_brpc_tpu_torch.transport.acceptor as port_acceptor
@@ -80,7 +89,8 @@ INTERNAL = {
         "jax": ["conn", "remote", "messenger", "is_client", "health_check_interval",
                 "user_message_handler", "context", "inline_read", "preread",
                 "ssl_context", "ssl_server_side", "ssl_server_hostname"],
-        "torch": ["conn", "*", "remote", "messenger", "is_client", "context", "inline_read"],
+        "torch": ["conn", "*", "remote", "messenger", "is_client", "context", "inline_read",
+                  "preread"],
     },
     "Protocol": {
         "jax": ["name", "parse", "parse_header", "pack_request", "pack_response",
@@ -229,16 +239,11 @@ REFUSED = [
     ("ServerOptions", {"mongo_service_adaptor": object()}, "A11"),
     ("ServerOptions", {"rtmp_service": object()}, "A11"),
     ("ServerOptions", {"ssl_context": object()}, "A10"),
-    ("ServerOptions", {"native_plane": True}, "A6"),
-    ("ServerOptions", {"num_reactors": 2}, "A6"),
-    ("ServerOptions", {"native_loops": 2}, "A6"),
-    ("ServerOptions", {"native_dispatch_workers": 2}, "A6"),
     ("ServerOptions", {"session_local_data_factory": dict}, "A7"),
     ("ServerOptions", {"thread_local_data_factory": dict}, "A7"),
     ("ServerOptions", {"fault_injector": object()}, "A7"),
     ("ChannelOptions", {"protocol": "baidu_std"}, "A11"),
     ("ChannelOptions", {"auth": object()}, "A7"),
-    ("ChannelOptions", {"native_plane": True}, "A6"),
     ("ChannelOptions", {"ssl_context": object()}, "A10"),
     ("ChannelOptions", {"retry_policy": lambda cntl: True}, "A7"),
 ]
@@ -309,3 +314,77 @@ def test_both_packages_take_the_collective_service_options(pkg, kw):
 def test_has_builtin_services_is_accepted_either_way():
     for value in (True, False):
         assert port_rpc.ServerOptions(has_builtin_services=value).has_builtin_services is value
+
+
+# the native plane's options, once refused naming A6: (owner, kwargs)
+NATIVE_SERVED = [
+    ("ServerOptions", {"native_plane": True}),
+    ("ServerOptions", {"native_plane": True, "num_reactors": 2}),
+    ("ServerOptions", {"native_plane": True, "native_loops": 2}),
+    ("ServerOptions", {"native_plane": True, "native_dispatch_workers": 2}),
+    ("ChannelOptions", {"native_plane": True}),
+]
+
+
+@pytest.mark.parametrize("owner,kw", NATIVE_SERVED,
+                         ids=[f"{o}-{'-'.join(k)}" for o, k in NATIVE_SERVED])
+def test_both_packages_serve_the_native_plane_options(owner, kw):
+    for pkg in PKGS.values():
+        skw = kw if owner == "ServerOptions" else {"native_plane": True}
+        sopts = pkg.ServerOptions(**skw, **pkg.server_kw)
+        for name, value in skw.items():
+            assert getattr(sopts, name) == value
+        if "native_loops" in skw:
+            assert sopts.num_reactors == skw["native_loops"]  # the live alias
+        copts = pkg.rpc.ChannelOptions(**(kw if owner == "ChannelOptions" else {}))
+        srv = pkg.rpc.Server(sopts)
+        srv.add_service("Echo", {"echo": pkg.rpc.native_echo, "py": lambda cntl, req: req[::-1]})
+        assert srv.start(0)
+        try:
+            plane = srv._native_plane
+            assert plane is not None, pkg.name
+            assert plane.num_reactors == (sopts.num_reactors or plane.num_reactors)
+            assert plane.native_method_names() == ["Echo.echo"]
+            ch = pkg.rpc.Channel()
+            assert ch.init(f"127.0.0.1:{srv.port}", options=copts)
+            for method, want in (("echo", b"native"), ("py", b"evitan")):
+                cntl = ch.call_method("Echo", method, b"native")
+                assert cntl.ok(), cntl.error_text
+                assert cntl.response_payload == want
+            if owner == "ChannelOptions":
+                assert ch._native_ch is not None  # the call rode the native client
+        finally:
+            srv.stop()
+            assert srv.join(timeout=10)
+    port_rpc.shutdown_host_plane()
+    shutdown_global_timer_thread()
+
+
+# run_dispatch_session's parameters in the reference's order
+# (incubator_brpc_tpu/parallel/mc_dispatch.py:1020-1041)
+SESSION_PARAMS = [
+    "party_ids", "own_index", "dm", "operands", "steps", "service", "method",
+    "should_abort", "session_id", "resume_from", "resume_state", "checkpoint_every",
+    "step_deadline_ms", "session_epoch", "chunks", "double_buffer", "quantize",
+    "chunk_order", "trace_id", "parent_span_id",
+]
+
+
+def test_run_dispatch_session_keeps_the_reference_order(pkg):
+    mcd = jax_mcd if pkg.name == "jax" else port_mcd
+    want = list(SESSION_PARAMS)
+    if pkg.name == "torch":
+        want += ["*", "device", "group_timeout_s"]
+    assert _layout(mcd.run_dispatch_session) == want
+
+
+def test_run_dispatch_session_refuses_a_trace_naming_a12():
+    from incubator_brpc_tpu_torch.rpc.device_method import DeviceMethod
+
+    dm = DeviceMethod(lambda x, ns, axis: (x, ns), width=4)
+    ops = [b"\0" * 4, b"\0" * 4]
+    # the reference's positional tail binds trace_id and parent_span_id
+    args = ([0, 1], 0, dm, ops, 1, "s", "m", None, None, 0, None, 0, 0.0, 0, 1, False,
+            "none", None, 7, 9)
+    with pytest.raises(NotImplementedError, match=r"trace_id.*ROADMAP A12\b"):
+        port_mcd.run_dispatch_session(*args, device="cpu")
