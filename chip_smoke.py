@@ -128,6 +128,29 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    answer bitwise ``expected()``), torch.profiler's idle share of a native
    burst, K1 tallied per configuration and K1a and K1c launched on the
    native plane (the counts set to zero before), beside phase 3b's;
+3g. drives the server and channel policies (``policy_phase``) around
+   ``DeviceEndpoint.server_handler()`` at phase 3b's geometry (256 B,
+   window 16), the launch counts set to zero before and K1 tallied per
+   part, every admitted reply bitwise ``expected()``: (a)
+   ``ServerOptions(max_concurrency="auto")`` under a serial baseline, a
+   flood of 64 callers (4x the window) and a serial tail: no ELIMIT in the
+   baseline, ELIMIT in the flood, the limit settled in the tail; the
+   limit's trajectory, ELIMIT's count and share, the admitted calls'
+   p50/p99 inside the handler and calls/s; (b) ``method_max_concurrency``
+   8: eight calls held in the handler admitted, the ninth ELIMIT; (c) a
+   native-plane server with ``max_concurrency="auto"``: the limit seeded
+   into the C++ table and moved there by the telemetry drain's completions
+   of a native-client flood of ``native_echo`` alone (its ELIMIT counted);
+   (d) ``enter_lame_duck`` with 16 calls in flight: each answers code 0, a
+   new call gets ELOGOFF, the drain thread ends (the drain time); (e)
+   ``ChannelOptions(backup_request_ms=5)`` over ``list://`` and ``rr`` to
+   two servers, one slowed 30 ms by a ``FaultInjector``: the backups that
+   fired and won, p50 and p99 with and without the backup; (f) a
+   ``TokenAuthenticator`` on a Python-plane and a native-plane server
+   (right token answers, wrong and missing ERPCAUTH) and a device link
+   whose handshake presents it. K1a and K1c must launch in (a), (d) and
+   (e); the kernels line's K1 entries carry the tallies as
+   ``policy_launches``;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -2277,6 +2300,522 @@ def native_phase(torch, kernels, rpc3b, device=None, scale: float = 1.0):
         + (f", idle {prof3b:.2f} %" if prof3b is not None else "")
         + f"; K1 launches by configuration: {dev['launches']}; the native plane's {dev['stats']}")
     return out, k1
+
+
+# -- phase 3g: the server and channel policies on the card ----------------------
+
+POLICY_WINDOW = 16  # the endpoint's window (phase 3b's geometry)
+POLICY_FLOOD = 64  # flood callers: 4x the window
+POLICY_FLOOD_PER = 40  # attempts each flood caller makes
+POLICY_BACKOFF_S = 0.005  # a shed flood caller waits this long before its next attempt
+POLICY_SERIAL = 150  # serial calls in the baseline, and in each third of the tail
+POLICY_METHOD_LIMIT = 8  # (b)'s constant per-method limit
+POLICY_NATIVE = (8, 500)  # (c)'s native flood: client threads x native_echo calls each
+POLICY_LAME_DUCK = 16  # (d)'s in-flight calls when the lame duck begins
+POLICY_SLOW_MS = 30.0  # (e): the FaultInjector delay of the slowed server
+POLICY_BACKUP_MS = 5.0  # (e): backup_request_ms
+POLICY_BACKUP_CALLS = 60  # (e): sequential calls with the backup, and as many without
+POLICY_TOKEN = "phase3g-token"
+# the limiter's flags for the phase: windows settle by sample count alone
+# (20, no sampling gap, a window too long to time out), no probe-down inside
+# the run, and the qps ceiling's EMA keeps half of each window so the limit
+# settles within a few windows of the load changing
+POLICY_FLAGS = dict(
+    auto_cl_sampling_interval_us=0, auto_cl_min_sample_count=10, auto_cl_max_sample_count=20,
+    auto_cl_sample_window_size_ms=600_000, auto_cl_initial_max_concurrency=40,
+    auto_cl_noload_latency_remeasure_interval_ms=3600 * 1000,
+    auto_cl_qps_alpha_factor_for_ema=0.5, auto_cl_change_rate_of_explore_ratio=0.06,
+    fault_injection=True,
+)
+
+
+def pct(values, q):
+    """The q-quantile (0..1) of ``values`` by rank, None when empty."""
+    if not values:
+        return None
+    v = sorted(values)
+    return v[min(len(v) - 1, int(len(v) * q))]
+
+
+class Gate:
+    """A one-shot gate for holding calls inside a handler. Its waiters park
+    in a butex wait, so a worker of the port's pool held here counts as
+    blocked and the pool grows past it, as it does past a handler waiting
+    on the card (a ``threading.Event`` would hold the worker unseen, and
+    the next request would queue behind the held ones)."""
+
+    def __init__(self):
+        from incubator_brpc_tpu_torch.runtime.butex import Butex
+
+        self._butex = Butex(0)
+
+    def wait(self, timeout: float = 60.0) -> bool:
+        deadline = time.monotonic() + timeout
+        while self._butex.load() == 0:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return False
+            self._butex.wait(0, timeout=left)
+        return True
+
+    def set(self) -> None:
+        self._butex.add(1)
+        self._butex.wake_all()
+
+
+class PolicyCalls:
+    """Device-echo calls of 256 B through one Channel, every admitted reply
+    held against ``expected(words, 0)``; the codes of the rest counted."""
+
+    def __init__(self, seed: int, nbytes: int = 256):
+        self.rng = np.random.default_rng(seed)
+        self.nbytes = nbytes
+        self.lock = threading.Lock()
+        self.codes = {}
+        self.ok = 0
+
+    def one(self, ch):
+        from incubator_brpc_tpu_torch.utils.status import ErrorCode
+
+        with self.lock:
+            p = self.rng.integers(0, 256, size=self.nbytes, dtype=np.uint8).tobytes()
+        c = ch.call_method("tensor", "echo", p)
+        if c.ok():
+            words = np.frombuffer(p + b"\0" * (-self.nbytes % 4), np.uint32)
+            if c.response_payload != expected(words, 0).tobytes()[:self.nbytes]:
+                raise AssertionError("phase3g: an admitted call answered wrong bytes")
+        elif c.error_code not in (ErrorCode.ELIMIT, ErrorCode.ELOGOFF, ErrorCode.ERPCAUTH):
+            raise AssertionError(f"phase3g: code {c.error_code}: {c.error_text}")
+        with self.lock:
+            self.codes[c.error_code] = self.codes.get(c.error_code, 0) + 1
+            self.ok += c.ok()
+        return c
+
+
+def policy_phase(torch, kernels, device=None, scale: float = 1.0):
+    """Phase 3g: the server and channel policies (ROADMAP A7) around
+    ``DeviceEndpoint.server_handler()`` at phase 3b's geometry (256 B,
+    window 16), every admitted reply bitwise ``expected()``:
+    (a) adaptive admission: ``ServerOptions(max_concurrency="auto")``, a
+    serial baseline, a flood of ``POLICY_FLOOD`` callers, a serial tail in
+    three thirds — the limit's trajectory, ELIMIT's count and share, the
+    admitted calls' p50/p99 inside the server's handler, calls/s; (b) a
+    constant per-method limit: shedding starts exactly above it; (c) the
+    native plane with ``max_concurrency="auto"``: the limit seeded into
+    the C++ table, moved by the telemetry drain's completions alone, a
+    native-client flood of ``native_echo`` and its ELIMIT; (d) the lame
+    duck: in-flight calls complete, a new one gets ELOGOFF, the drain
+    thread ends; (e) a backup request over ``list://`` and ``rr`` to two
+    servers, one slowed by a ``FaultInjector`` delay: wins and p50 with
+    and without the backup; (f) a ``TokenAuthenticator`` on a Python-plane
+    and a native-plane server and on a device link. K1 is tallied per
+    part. Returns (figures, {part: K1 launches})."""
+    from incubator_brpc_tpu_torch.rpc import (
+        Channel, ChannelOptions, FaultInjector, Server, ServerOptions, TokenAuthenticator,
+        native_echo,
+    )
+    from incubator_brpc_tpu_torch.transport import native_plane as np_mod
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+    from incubator_brpc_tpu_torch.utils import flags
+    from incubator_brpc_tpu_torch.utils.status import ErrorCode
+
+    tally = {}
+
+    def counted(part, fn):
+        before = kernels.launch_counts()
+        try:
+            return fn()
+        finally:
+            after = kernels.launch_counts()
+            row = tally.setdefault(part, dict.fromkeys(K1, 0))
+            for k in K1:
+                row[k] += after[k] - before[k]
+
+    saved = {name: flags.get_flag(name) for name in POLICY_FLAGS}
+    for name, value in POLICY_FLAGS.items():
+        flags.set_flag_unchecked(name, value)
+    ep = DeviceEndpoint(window_size=POLICY_WINDOW, max_batch=POLICY_WINDOW, device=device)
+    handler = ep.server_handler()
+    servers = []
+
+    def start(opts, services):
+        srv = Server(opts)
+        for name, hs in services.items():
+            srv.add_service(name, hs)
+        if not srv.start(0):
+            raise AssertionError("phase3g: a Server did not start")
+        servers.append(srv)
+        return srv
+
+    def channel(port, **kw):
+        kw.setdefault("timeout_ms", 300_000)
+        ch = Channel()
+        if not ch.init(f"127.0.0.1:{port}", options=ChannelOptions(**kw)):
+            raise AssertionError("phase3g: a Channel did not init")
+        return ch
+
+    def serial(ch, calls, n):
+        for _ in range(n):
+            calls.one(ch)
+
+    out = {}
+    n_serial = max(10, int(POLICY_SERIAL * scale))
+    try:
+        ep.warm(256)
+        kernels.reset_launch_counts()
+
+        # (a) adaptive admission under a flood ---------------------------
+        spans = {"baseline": [], "flood": [], "tail": []}
+        stage = {"now": "baseline"}
+
+        def timed(cntl, request):
+            t0 = time.perf_counter()
+            try:
+                return handler(cntl, request)
+            finally:
+                spans[stage["now"]].append(time.perf_counter() - t0)
+
+        srv = start(ServerOptions(max_concurrency="auto", device=device), {"tensor": {"echo": timed}})
+        lim = srv._server_limiter
+        t_start = time.perf_counter()
+        trajectory = [(0.0, srv.max_concurrency)]
+        forward = lim._on_limit_change
+
+        def record(new_limit):
+            trajectory.append((time.perf_counter() - t_start, new_limit))
+            forward(new_limit)
+
+        lim._on_limit_change = record
+        ch = channel(srv.port, max_retry=0)
+        a = {}
+        base = PolicyCalls(41)
+        counted("a", lambda: serial(ch, base, n_serial))
+        if base.codes.get(ErrorCode.ELIMIT):
+            raise AssertionError(f"phase3g (a): ELIMIT in the serial baseline: {base.codes}")
+        a["limit_after_baseline"] = srv.max_concurrency
+        stage["now"] = "flood"
+        flood = PolicyCalls(42)
+        per = max(4, int(POLICY_FLOOD_PER * scale))
+        t_flood = time.perf_counter()
+
+        def flooder(i):
+            for _ in range(per):
+                if flood.one(ch).error_code == ErrorCode.ELIMIT:
+                    time.sleep(POLICY_BACKOFF_S)
+
+        counted("a", lambda: call_threads(POLICY_FLOOD, flooder))
+        flood_s = time.perf_counter() - t_flood
+        flood_limits = [v for t, v in trajectory if t_flood - t_start <= t <= t_flood - t_start + flood_s]
+        a["limit_after_flood"] = srv.max_concurrency
+        stage["now"] = "tail"
+        tail_limits = []
+        tail = PolicyCalls(43)
+        for _ in range(3):
+            counted("a", lambda: serial(ch, tail, n_serial))
+            tail_limits.append(srv.max_concurrency)
+        shed = flood.codes.get(ErrorCode.ELIMIT, 0)
+        attempts = POLICY_FLOOD * per
+        if not shed:
+            raise AssertionError(f"phase3g (a): the flood was never shed: {flood.codes}, "
+                                 f"limit {srv.max_concurrency}")
+        if flood.ok + shed != attempts or tail.ok != 3 * n_serial:
+            raise AssertionError(f"phase3g (a): flood {flood.codes}, tail {tail.codes}")
+        flood_max = max(flood_limits + [a["limit_after_baseline"]])
+        # settled: the tail's last two thirds end within a step of each
+        # other (one, or a quarter of the limit)
+        if abs(tail_limits[2] - tail_limits[1]) > max(1, tail_limits[1] // 4):
+            raise AssertionError(f"phase3g (a): the limit did not settle after the flood: tail "
+                                 f"thirds {tail_limits}, flood max {flood_max}")
+        a.update(
+            flood_callers=POLICY_FLOOD, attempts=attempts, admitted=flood.ok, elimit=shed,
+            elimit_share=shed / attempts, flood_s=flood_s, admitted_per_s=flood.ok / flood_s,
+            attempts_per_s=attempts / flood_s, flood_limit_max=flood_max,
+            flood_limit_min=min(flood_limits) if flood_limits else a["limit_after_baseline"],
+            tail_limits=tail_limits, limit_moves=len(trajectory) - 1,
+            trajectory=[(round(t, 4), v) for t, v in trajectory],
+            baseline_p50_us=1e6 * pct(spans["baseline"], 0.5),
+            baseline_p99_us=1e6 * pct(spans["baseline"], 0.99),
+            flood_p50_us=1e6 * pct(spans["flood"], 0.5), flood_p99_us=1e6 * pct(spans["flood"], 0.99),
+            tail_p50_us=1e6 * pct(spans["tail"], 0.5), limiter=lim.describe(),
+        )
+        out["a"] = a
+        log(f"phase3g (a) adaptive admission (max_concurrency='auto', window {POLICY_WINDOW}): the "
+            f"limit {trajectory[0][1]} -> {a['limit_after_baseline']} after {n_serial} serial "
+            f"calls; flood of {POLICY_FLOOD} callers x {per}: {shed} of {attempts} shed with "
+            f"ELIMIT ({100 * a['elimit_share']:.1f} %), {flood.ok} admitted in {flood_s:.2f} s "
+            f"({a['admitted_per_s']:.1f} admitted calls/s, {a['attempts_per_s']:.1f} attempts/s), the "
+            f"limit between {a['flood_limit_min']} and {flood_max} ({a['limit_moves']} moves in all), "
+            f"{a['limit_after_flood']} at its end; inside the handler p50/p99 "
+            f"{a['baseline_p50_us']:.1f}/{a['baseline_p99_us']:.1f} us serial, "
+            f"{a['flood_p50_us']:.1f}/{a['flood_p99_us']:.1f} us admitted in the flood; the serial "
+            f"tail's limit by thirds {tail_limits} (p50 {a['tail_p50_us']:.1f} us); launches "
+            f"{[tally['a'][k] for k in K1]}")
+        srv.stop()
+        srv.join(timeout=60)
+
+        # (b) a constant per-method limit --------------------------------
+        gate = Gate()
+        entered = []
+        entered_lock = threading.Lock()
+
+        def gated(cntl, request):
+            with entered_lock:
+                entered.append(1)
+            if not gate.wait(120):
+                raise AssertionError("phase3g (b): the gate was never opened")
+            return handler(cntl, request)
+
+        srv = start(ServerOptions(method_max_concurrency=POLICY_METHOD_LIMIT, device=device),
+                    {"tensor": {"echo": gated}})
+        ch = channel(srv.port, max_retry=0)
+        held = PolicyCalls(44)
+        b = {"limit": srv.method_max_concurrency("tensor.echo")}
+
+        def run_b():
+            threads = [threading.Thread(target=held.one, args=(ch,))
+                       for _ in range(POLICY_METHOD_LIMIT)]
+            for i, t in enumerate(threads):
+                t.start()
+                deadline = time.monotonic() + 60
+                while len(entered) < i + 1 and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                if len(entered) != i + 1:
+                    raise AssertionError(f"phase3g (b): call {i + 1} of {POLICY_METHOD_LIMIT} was "
+                                         f"not admitted ({held.codes})")
+            over = held.one(ch)
+            b["over_limit_code"] = over.error_code
+            gate.set()
+            for t in threads:
+                t.join(120)
+
+        counted("b", run_b)
+        if b["over_limit_code"] != ErrorCode.ELIMIT or held.ok != POLICY_METHOD_LIMIT:
+            raise AssertionError(f"phase3g (b): {POLICY_METHOD_LIMIT} held, then code "
+                                 f"{b['over_limit_code']}; {held.codes}")
+        out["b"] = b
+        log(f"phase3g (b) method_max_concurrency={POLICY_METHOD_LIMIT}: calls 1-{POLICY_METHOD_LIMIT} "
+            f"held in the handler were admitted, call {POLICY_METHOD_LIMIT + 1} got ELIMIT; the "
+            f"{POLICY_METHOD_LIMIT} then answered bitwise expected(); launches "
+            f"{[tally['b'][k] for k in K1]}")
+        srv.stop()
+        srv.join(timeout=60)
+
+        # (c) the native plane with an adaptive limit --------------------
+        srv = start(ServerOptions(native_plane=True, max_concurrency="auto", device=device),
+                    {"host": {"echo": native_echo}, "tensor": {"echo": handler}})
+        plane = srv._native_plane
+        if plane is None or "host.echo" not in plane.native_method_names():
+            raise AssertionError("phase3g (c): host.echo is not on the C++ dispatch")
+        c = {"seeded": plane.native_max_concurrency("host.echo"), "initial": srv.max_concurrency}
+        if c["seeded"] != c["initial"]:
+            raise AssertionError(f"phase3g (c): the C++ table holds {c['seeded']}, the limiter "
+                                 f"{c['initial']}")
+        before = srv._server_limiter.describe()
+        codes = {}
+        codes_lock = threading.Lock()
+        nthreads, ncalls = POLICY_NATIVE
+        ncalls = max(50, int(ncalls * scale))
+
+        def native_flood(i):
+            nch = np_mod.NativeClientChannel("127.0.0.1", srv.port)
+            try:
+                for _ in range(ncalls):
+                    rc, err, _meta, body = nch.call("host", "echo", b"x" * 64, timeout_ms=60_000)
+                    if rc < 0 or (err == 0 and len(body) != 64):
+                        raise AssertionError(f"phase3g (c): native call rc {rc} err {err}")
+                    with codes_lock:
+                        codes[err] = codes.get(err, 0) + 1
+            finally:
+                nch.close()
+
+        t0 = time.perf_counter()
+        call_threads(nthreads, native_flood)
+        c["native_s"] = time.perf_counter() - t0
+        plane.drain_telemetry()
+        after = srv._server_limiter.describe()
+        c.update(native_calls=nthreads * ncalls, native_codes={str(k): v for k, v in codes.items()},
+                 elimit=codes.get(ErrorCode.ELIMIT, 0), limit_after=srv.max_concurrency,
+                 table_after=plane.native_max_concurrency("host.echo"),
+                 min_latency_us=after["min_latency_us"], ema_max_qps=after["ema_max_qps"],
+                 drained=plane._tel_drained)
+        if set(codes) - {0, ErrorCode.ELIMIT}:
+            raise AssertionError(f"phase3g (c): native codes {codes}")
+        if not (before["min_latency_us"] <= 0 < after["min_latency_us"]
+                and c["limit_after"] != c["initial"] and c["table_after"] == c["limit_after"]):
+            raise AssertionError(f"phase3g (c): the telemetry drain did not move the limit into the "
+                                 f"C++ table: {before} -> {after}, table {c['table_after']}")
+        dch = channel(srv.port, max_retry=0)
+        via_python = PolicyCalls(45)
+        counted("c", lambda: serial(dch, via_python, 20))
+        if via_python.ok != 20:
+            raise AssertionError(f"phase3g (c): device calls on the Python route {via_python.codes}")
+        out["c"] = c
+        log(f"phase3g (c) native plane, max_concurrency='auto': seeded {c['seeded']} in the C++ "
+            f"table; {c['native_calls']} native_echo calls ({nthreads} native clients) in "
+            f"{c['native_s']:.2f} s, {c['elimit']} answered ELIMIT by the C++ dispatch; the "
+            f"telemetry drain alone ({c['drained']} records) moved the limit to {c['limit_after']} "
+            f"(min latency {c['min_latency_us']:.1f} us, qps ceiling {c['ema_max_qps']:.0f}), the "
+            f"C++ table {c['table_after']}; 20 device calls on the Python route answered; launches "
+            f"{[tally['c'][k] for k in K1]}")
+        srv.stop()
+        srv.join(timeout=60)
+
+        # (d) the lame duck -----------------------------------------------
+        gate = Gate()
+        entered.clear()
+        srv = start(ServerOptions(device=device), {"tensor": {"echo": gated}})
+        ch = channel(srv.port, max_retry=0)
+        inflight = PolicyCalls(46)
+        d = {}
+
+        def run_d():
+            threads = [threading.Thread(target=inflight.one, args=(ch,))
+                       for _ in range(POLICY_LAME_DUCK)]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 60
+            while srv._nprocessing < POLICY_LAME_DUCK and time.monotonic() < deadline:
+                time.sleep(0.001)
+            if srv._nprocessing != POLICY_LAME_DUCK:
+                raise AssertionError(f"phase3g (d): {srv._nprocessing} in flight")
+            t_enter = time.perf_counter()
+            drain = srv.enter_lame_duck(grace_s=120)
+            late = inflight.one(ch)
+            d["new_call_code"] = late.error_code
+            t_release = time.perf_counter()
+            gate.set()
+            for t in threads:
+                t.join(120)
+            drain.join(120)
+            t_end = time.perf_counter()
+            d.update(drain_alive=drain.is_alive(), drain_s=t_end - t_enter,
+                     release_to_end_s=t_end - t_release, stopped=srv._stopping)
+
+        counted("d", run_d)
+        if (d["new_call_code"] != ErrorCode.ELOGOFF or inflight.ok != POLICY_LAME_DUCK
+                or d["drain_alive"] or not d["stopped"]):
+            raise AssertionError(f"phase3g (d): {d}, codes {inflight.codes}")
+        out["d"] = d
+        log(f"phase3g (d) lame duck with {POLICY_LAME_DUCK} device calls in flight: every one "
+            f"answered code 0 bitwise expected(), a new call got ELOGOFF, the drain thread ended "
+            f"{d['release_to_end_s'] * 1e3:.1f} ms after the calls were let go "
+            f"({d['drain_s'] * 1e3:.1f} ms from enter_lame_duck, the 250 ms linger included) and "
+            f"stopped the server; launches {[tally['d'][k] for k in K1]}")
+
+        # (e) a backup request -------------------------------------------
+        def tagged(tag):
+            def run(cntl, request):
+                cntl.response_attachment = tag
+                return handler(cntl, request)
+            return run
+
+        slow = start(ServerOptions(fault_injector=FaultInjector(delay_rate=1.0,
+                                                                delay_ms=POLICY_SLOW_MS),
+                                   device=device), {"tensor": {"echo": tagged(b"slow")}})
+        fast = start(ServerOptions(device=device), {"tensor": {"echo": tagged(b"fast")}})
+        url = f"list://127.0.0.1:{slow.port},127.0.0.1:{fast.port}"
+        e = {}
+        n_backup = max(10, int(POLICY_BACKUP_CALLS * scale))
+
+        def lb_run(backup_ms, seed):
+            ch = Channel()
+            if not ch.init(url, "rr", ChannelOptions(timeout_ms=300_000, max_retry=1,
+                                                     backup_request_ms=backup_ms)):
+                raise AssertionError("phase3g (e): the LB channel did not init")
+            calls = PolicyCalls(seed)
+            lat, wins, fired = [], 0, 0
+            for _ in range(n_backup):
+                t0 = time.perf_counter()
+                cn = calls.one(ch)
+                lat.append(time.perf_counter() - t0)
+                if not cn.ok():
+                    raise AssertionError(f"phase3g (e): code {cn.error_code}")
+                fired += cn.has_backup_request
+                # the backup went to the last server the call was sent to;
+                # it won when that server's tag came back
+                backup_to = cn._sent_sockets[-1].remote.port if cn._sent_sockets else None
+                tag = {slow.port: b"slow", fast.port: b"fast"}.get(backup_to)
+                wins += cn.has_backup_request and cn.response_attachment == tag
+            ch._lb.stop()
+            return lat, wins, fired
+
+        lat_plain, _, _ = counted("e", lambda: lb_run(-1, 47))
+        lat_backup, wins, fired = counted("e", lambda: lb_run(POLICY_BACKUP_MS, 48))
+        e.update(calls=n_backup, slow_ms=POLICY_SLOW_MS, backup_ms=POLICY_BACKUP_MS,
+                 backups_fired=fired, backup_wins=wins,
+                 p50_without_us=1e6 * pct(lat_plain, 0.5), p50_with_us=1e6 * pct(lat_backup, 0.5),
+                 p99_without_us=1e6 * pct(lat_plain, 0.99), p99_with_us=1e6 * pct(lat_backup, 0.99),
+                 slow_delays=slow.fault_injector.injected["delay"])
+        out["e"] = e
+        log(f"phase3g (e) backup request over list:// rr, one server slowed {POLICY_SLOW_MS:.0f} ms "
+            f"by a FaultInjector, backup_request_ms={POLICY_BACKUP_MS:g}: {n_backup} calls each way, "
+            f"every reply bitwise expected(); the backup fired {fired} times and won {wins}; p50 "
+            f"{e['p50_without_us']:.1f} us without the backup, {e['p50_with_us']:.1f} us with it "
+            f"(p99 {e['p99_without_us']:.1f} / {e['p99_with_us']:.1f} us); launches "
+            f"{[tally['e'][k] for k in K1]}")
+        for s in (slow, fast):
+            s.stop()
+            s.join(timeout=60)
+
+        # (f) auth --------------------------------------------------------
+        f = {}
+        py_srv = start(ServerOptions(auth=TokenAuthenticator([POLICY_TOKEN]), device=device),
+                       {"tensor": {"echo": handler}})
+        nat_srv = start(ServerOptions(native_plane=True, auth=TokenAuthenticator([POLICY_TOKEN]),
+                                      device=device), {"tensor": {"echo": handler}})
+        auth_calls = PolicyCalls(49)
+
+        def run_f():
+            for label, s in (("python_plane", py_srv), ("native_plane", nat_srv)):
+                good = channel(s.port, auth=TokenAuthenticator(POLICY_TOKEN))
+                ok_before = auth_calls.ok
+                serial(good, auth_calls, 10)
+                row = {"right": auth_calls.ok - ok_before}
+                row["wrong"] = auth_calls.one(channel(s.port, auth=TokenAuthenticator("nope"))).error_code
+                row["missing"] = auth_calls.one(channel(s.port)).error_code
+                if label == "native_plane":
+                    row["native_client_missing"] = auth_calls.one(
+                        channel(s.port, native_plane=True)).error_code
+                    row["native_reqs"] = s._native_plane.stats()["native_reqs"]
+                f[label] = row
+            link = channel(py_srv.port, transport="tpu", auth=TokenAuthenticator(POLICY_TOKEN))
+            ok_before = auth_calls.ok
+            serial(link, auth_calls, 10)
+            f["link"] = {"right": auth_calls.ok - ok_before,
+                         "linked": link._device_sock is not None}
+            bare = channel(py_srv.port, transport="tpu", max_retry=0)
+            refused = bare.call_method("tensor", "echo", b"\0" * 256)
+            f["link"]["bare_code"] = refused.error_code
+            f["link"]["bare_text"] = refused.error_text
+
+        counted("f", run_f)
+        for label in ("python_plane", "native_plane"):
+            row = f[label]
+            bad = [k for k in ("wrong", "missing", "native_client_missing")
+                   if k in row and row[k] != ErrorCode.ERPCAUTH]
+            if row["right"] != 10 or bad:
+                raise AssertionError(f"phase3g (f) {label}: {row}")
+        if f["link"]["right"] != 10 or not f["link"]["linked"] or f["link"]["bare_code"] == 0:
+            raise AssertionError(f"phase3g (f) the device link: {f['link']}")
+        out["f"] = f
+        log(f"phase3g (f) TokenAuthenticator: the right token answered 10 of 10 device calls on "
+            f"the Python plane and on the native plane (native requests there "
+            f"{f['native_plane']['native_reqs']}: every method on the Python route), a wrong or "
+            f"missing one got ERPCAUTH ({f['python_plane']['wrong']}, "
+            f"{f['native_plane']['missing']}, the native client's "
+            f"{f['native_plane']['native_client_missing']}); a device link with the token "
+            f"handshook and answered 10 of 10, one without it was refused (code "
+            f"{f['link']['bare_code']}: {f['link']['bare_text']}); launches "
+            f"{[tally['f'][k] for k in K1]}")
+    finally:
+        for s in servers:
+            s.stop()
+            s.join(timeout=60)
+        for name, value in saved.items():
+            flags.set_flag_unchecked(name, value)
+        if not ep.close(timeout=120):
+            raise AssertionError("phase3g: the endpoint did not settle its calls")
+    return out, tally
 
 
 def k3_tolerances(torch):
@@ -4679,6 +5218,18 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase3f: {native['phase_s']:.1f} s, the host runtime's second build included")
 
+    # -- phase 3g: the server and channel policies, device RPC counted --------
+    log(f"phase3g on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    policies, policy_k1 = policy_phase(torch, kernels)
+    policies["phase_s"] = time.perf_counter() - t0
+    for part in ("a", "d", "e"):
+        missing = [name for name in ("frame_rows", "echo_step_rows") if policy_k1[part][name] == 0]
+        if missing:
+            raise AssertionError(f"phase3g ({part}): kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase3g: {policies['phase_s']:.1f} s; K1 launches by part {policy_k1}")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -4719,6 +5270,7 @@ def main() -> int:
             "endpoint_launches": launches[name], "link_launches": link_k1[name],
             "combo_launches": {part: combo_launches[part][name] for part in ("a", "c", "e")},
             "mc_launches": mc_k1[name], "native_launches": native_k1[name],
+            "policy_launches": {part: row[name] for part, row in sorted(policy_k1.items())},
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
@@ -4770,6 +5322,7 @@ def main() -> int:
                        "combo": combo, "combo_launches": combo_launches,
                        "multi_controller": mc, "mc_launches": mc_k1,
                        "native_plane": native, "native_launches": native_k1,
+                       "policies": policies, "policy_launches": policy_k1,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],

@@ -16,6 +16,12 @@ handler), over TCP or over a device link. ``ServerOptions(native_plane=True)``
 and ``ChannelOptions(native_plane=True)`` put a server or a channel on the
 C++ host runtime (transport/native_plane.py); ``native_echo``,
 ``native_nop`` and ``native_long_running`` mark handlers it runs natively.
+The server and channel policies: admission limits
+(``concurrency_limiter.py``, ELIMIT), credentials (``auth.py``), the fault
+injector (``fault_injector.py``), request dumps (``dump.py``), pooled
+session and thread-local data (``data_pool.py``, ``thread_local_data``),
+the lame duck and the idle reaper on the Server, and the retry budget,
+the retry policy and backup requests on the Channel.
 """
 
 from incubator_brpc_tpu_torch.rpc.channel import (
@@ -23,6 +29,11 @@ from incubator_brpc_tpu_torch.rpc.channel import (
     ChannelOptions,
     client_socket_map,
     start_cancel,
+)
+from incubator_brpc_tpu_torch.rpc.auth import (
+    Authenticator,
+    SharedSecretAuthenticator,
+    TokenAuthenticator,
 )
 from incubator_brpc_tpu_torch.rpc.circuit_breaker import CircuitBreaker, breaker_registry
 from incubator_brpc_tpu_torch.rpc.combo import (
@@ -35,9 +46,20 @@ from incubator_brpc_tpu_torch.rpc.combo import (
     SelectiveChannel,
     SubCall,
 )
+from incubator_brpc_tpu_torch.rpc.concurrency_limiter import (
+    AutoConcurrencyLimiter,
+    ConcurrencyLimiter,
+    ConstantConcurrencyLimiter,
+)
 from incubator_brpc_tpu_torch.rpc.controller import Controller
 from incubator_brpc_tpu_torch.rpc.device_method import device_method
-from incubator_brpc_tpu_torch.rpc.server import MethodStatus, Server, ServerOptions
+from incubator_brpc_tpu_torch.rpc.fault_injector import FaultInjector, install_socket_injector
+from incubator_brpc_tpu_torch.rpc.server import (
+    MethodStatus,
+    Server,
+    ServerOptions,
+    thread_local_data,
+)
 from incubator_brpc_tpu_torch.rpc.stream import (
     Stream,
     StreamHandler,
@@ -72,19 +94,27 @@ def shutdown_host_plane() -> None:
 
 
 __all__ = [
+    "Authenticator",
+    "AutoConcurrencyLimiter",
     "CallMapper",
     "Channel",
     "ChannelOptions",
     "CircuitBreaker",
+    "ConcurrencyLimiter",
+    "ConstantConcurrencyLimiter",
     "Controller",
     "DynamicPartitionChannel",
+    "FaultInjector",
     "ParallelChannel",
     "PartitionChannel",
     "PartitionParser",
     "ResponseMerger",
     "SelectiveChannel",
+    "SharedSecretAuthenticator",
     "SubCall",
+    "TokenAuthenticator",
     "breaker_registry",
+    "install_socket_injector",
     "MethodStatus",
     "Server",
     "ServerOptions",
@@ -99,4 +129,5 @@ __all__ = [
     "StreamOptions",
     "stream_accept",
     "stream_create",
+    "thread_local_data",
 ]

@@ -4,23 +4,30 @@ CallMethod, controller.cpp:545-676 OnVersionedRPCReturned / 941 IssueRPC).
 Call flow (mirrors SURVEY.md §3.1):
   call_method
     ├ create ranged call id (2 + max_retry versions, channel.cpp:307)
-    ├ async: register the timeout timer on the TimerThread
+    ├ async or backup: register the timeout / backup timers on the
+    │   TimerThread
     ├ _issue_rpc: pick socket (single server or LB), pack, Socket.write
     │   (write failure → CallIdSpace.error → retry arbitration)
     └ sync: poll the socket / join the call id (async: done runs when the
       id is destroyed)
 
   response path: tbus_std process_response
-    └ lock call id → _on_rpc_returned: retry / end
+    └ lock call id → _on_rpc_returned: retry / backup-win / end
       EndRPC: cancel timers, unlock_and_destroy (wakes joiners), run done.
 
 The port's copy of the JAX package's ``rpc/channel.py`` over tbus_std:
 one server address or a naming url behind a load balancer
 (``init(url, lb_name)``, ``init_with_lb``; ``lb/``, ``naming/``, with the
 per-node circuit breaker of ``rpc/circuit_breaker.py``), sync and async
-calls, timeouts, retries on ``RETRIABLE`` that avoid the servers already
-tried, ``start_cancel``, deadline propagation, single, pooled and short
-connections, and the two-party device link
+calls, timeouts, retries that avoid the servers already tried (on
+``RETRIABLE``, or where ``ChannelOptions.retry_policy`` says so) under the
+channel's retry budget (``RetryBudget``, the ``retry_budget_ratio`` flag),
+backup requests (``backup_request_ms``: a duplicate goes to another server
+when the first attempt has not answered in time, and the faster reply
+wins), credentials (``ChannelOptions.auth``, ``rpc/auth.py``: the first
+requests of a connection carry them, and channels with different
+credentials share no connection), ``start_cancel``, deadline propagation,
+single, pooled and short connections, and the two-party device link
 (``ChannelOptions(transport="tpu")``: the handshake rides the host socket,
 frames ride ``transport/device_link.py``; behind a load balancer the LB
 picks a healthy host socket and the link map supplies the link to that
@@ -28,12 +35,13 @@ peer), with ``link_controller="multi"`` the link whose two halves live in
 two processes (``transport/mc_link.py``), and the client side of the
 streaming RPC (``call_method(..., request_stream=)``, ``rpc/stream.py``).
 With ``ChannelOptions(native_plane=True)`` a sync, stream-less,
-uncompressed call to one TCP server rides the native client of the port's
-host runtime (``transport/native_plane.NativeClientChannel``: pack, write,
-read and match in C++); a pooled channel keeps one native connection per
-caller thread, and a transport failure falls through to the Python path,
-which dials fresh and owns the retries. Backup requests, the retry
-budget, rpcz spans, TLS and auth are later slices; their options keep the
+uncompressed call to one TCP server without credentials or a backup
+request rides the native client of the port's host runtime
+(``transport/native_plane.NativeClientChannel``: pack, write, read and
+match in C++); a pooled channel keeps one native connection per caller
+thread, and a transport failure falls through to the Python path, which
+dials fresh and owns the retries. The other protocols (ROADMAP A11), TLS
+(A10) and rpcz spans (A12) are later items; their options keep the
 reference's places and refuse a value with the ROADMAP item that brings
 them.
 """
@@ -44,9 +52,11 @@ import errno
 import logging
 import threading
 import time
+import weakref
 from typing import Callable, Optional, Union
 
 from incubator_brpc_tpu_torch import protocol as proto_pkg
+from incubator_brpc_tpu_torch.bvar import Adder, PassiveStatus
 from incubator_brpc_tpu_torch.protocol import compress as compress_mod
 from incubator_brpc_tpu_torch.protocol.tbus_std import (
     Meta,
@@ -54,6 +64,7 @@ from incubator_brpc_tpu_torch.protocol.tbus_std import (
     pack_frame_iobuf,
 )
 from incubator_brpc_tpu_torch.rpc import stream as stream_mod
+from incubator_brpc_tpu_torch.rpc.auth import attach_credential, mark_authenticated
 from incubator_brpc_tpu_torch.rpc.controller import RETRIABLE, Controller, refuse_unported
 from incubator_brpc_tpu_torch.rpc.deadline import current_deadline
 from incubator_brpc_tpu_torch.runtime.correlation_id import EBUSY, call_id_space
@@ -64,6 +75,7 @@ from incubator_brpc_tpu_torch.transport.messenger import InputMessenger
 from incubator_brpc_tpu_torch.transport.sock import CONNECTED, when_drained
 from incubator_brpc_tpu_torch.transport.socket_map import SocketMap
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint, str2endpoint
+from incubator_brpc_tpu_torch.utils.flags import define_flag, get_flag
 from incubator_brpc_tpu_torch.utils.status import ErrorCode, berror
 
 logger = logging.getLogger(__name__)
@@ -178,16 +190,98 @@ def _returned(rc: int, cntl, sock, frame: ParsedFrame) -> None:
 proto_pkg.TBUS_STD.process_response = process_response
 
 
+# -- retry budget --------------------------------------------------------------
+#
+# The SRE retry-budget discipline: retries are only safe while they are a
+# small fraction of traffic — once a backend browns out, per-call retry
+# caps (max_retry) still multiply offered load by (1 + max_retry), and
+# the retry storm finishes the backend off. Every Channel therefore owns
+# a token bucket: each issued call deposits ``retry_budget_ratio``
+# tokens, each retry withdraws one, and an empty bucket makes the call
+# FAIL FAST with the original error instead of retrying. Steady-state
+# retry volume is thus capped at ~ratio of call volume, while the bucket
+# cap still absorbs short error bursts at full retry fidelity.
+
+define_flag(
+    "retry_budget_ratio",
+    0.1,
+    "per-channel retry budget (SRE-style): each issued call deposits "
+    "this many retry tokens and each retry attempt withdraws one, so "
+    "sustained retry volume is capped at this fraction of call volume; "
+    "an exhausted budget fails the call fast with the original error "
+    "instead of amplifying a brownout into a retry storm; 0 disables",
+    lambda v: 0 <= v <= 1,
+)
+
+# burst allowance: a full bucket funds this many back-to-back retries
+# before the ratio gates (and is also the bucket's starting balance, so
+# young channels are not penalized for their first errors)
+_RETRY_BUDGET_CAP = 50.0
+
+# codes that never draw from the budget: deliberate, non-amplifying
+# control signals — a propagated deadline died (EDEADLINE), a collective
+# session aborted cooperatively (ESESSION), admission control shed the
+# request (ELIMIT). None of them is in the default RETRIABLE set, but a
+# custom retry_policy may retry them, and that decision must not burn
+# budget meant for connectivity failures.
+RETRY_BUDGET_EXEMPT = frozenset({ErrorCode.EDEADLINE, ErrorCode.ESESSION, ErrorCode.ELIMIT})
+
+retry_budget_exhausted = Adder(name="retry_budget_exhausted")
+_live_budgets = weakref.WeakSet()
+# aggregate balance across live channels (the per-channel value is not a
+# bvar: channels are many and short-lived; the aggregate plus the
+# exhaustion counter is the signal)
+retry_budget_tokens = PassiveStatus(
+    lambda: round(sum(b.balance() for b in list(_live_budgets)), 2),
+    name="retry_budget_tokens",
+)
+
+
+class RetryBudget:
+    """Token-bucket retry budget for one channel (see the note above)."""
+
+    def __init__(self, ratio: float):
+        self._ratio = float(ratio)
+        self._tokens = _RETRY_BUDGET_CAP
+        self._lock = threading.Lock()
+        if self._ratio > 0:
+            _live_budgets.add(self)
+
+    def on_call(self) -> None:
+        """One issued call funds ``ratio`` of a future retry."""
+        if self._ratio <= 0:
+            return
+        with self._lock:
+            self._tokens = min(_RETRY_BUDGET_CAP, self._tokens + self._ratio)
+
+    def acquire(self, code: int) -> bool:
+        """May one retry for this error run? Exempt codes never draw."""
+        if self._ratio <= 0 or code in RETRY_BUDGET_EXEMPT:
+            return True
+        with self._lock:
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                return True
+        retry_budget_exhausted << 1
+        return False
+
+    def balance(self) -> float:
+        with self._lock:
+            return self._tokens
+
+
 class ChannelOptions:
     """Reference ChannelOptions (rpc/channel.py) with the reference's
     parameters in the reference's order, so a positional call binds as it
-    binds there. The port serves the timeouts, retries and the device
-    link (``transport="tpu"``, ``device_index`` and ``link_*``) and the
-    connection types ("single", "pooled", "short"). Every other
-    parameter keeps its place and its default; a value that asks for
-    something the port does not serve yet raises ``NotImplementedError``
-    naming the ROADMAP item that brings it, and a value the reference
-    itself refuses raises ``ValueError`` as there."""
+    binds there. The port serves the timeouts, retries, backup requests
+    (``backup_request_ms``), credentials (``auth``), the custom retry
+    policy (``retry_policy``), the device link (``transport="tpu"``,
+    ``device_index`` and ``link_*``), the native client
+    (``native_plane``) and the connection types ("single", "pooled",
+    "short"). Every other parameter keeps its place and its default; a
+    value that asks for something the port does not serve yet raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it, and a
+    value the reference itself refuses raises ``ValueError`` as there."""
 
     def __init__(
         self,
@@ -217,21 +311,21 @@ class ChannelOptions:
             raise ValueError("transport='tpu' supports connection_type='single'")
         if link_controller not in ("single", "multi"):
             raise ValueError(f"unknown link_controller {link_controller!r}")
-        if backup_request_ms is not None and backup_request_ms > 0:
-            refuse_unported("ChannelOptions", "backup_request_ms", backup_request_ms, "A7")
         unported = (
             ("protocol", protocol, "tbus_std", "A11"),
-            ("auth", auth, None, "A7"),
             ("ssl_context", ssl_context, None, "A10"),
             ("ssl_server_hostname", ssl_server_hostname, None, "A10"),
-            ("retry_policy", retry_policy, None, "A7"),
         )
         for name, value, default, item in unported:
             if value != default:
                 refuse_unported("ChannelOptions", name, value, item)
         self.timeout_ms = timeout_ms
         self.max_retry = max_retry
+        # duplicate a call to another server when the first attempt has not
+        # answered after this long (<= 0 off); the faster reply wins
+        self.backup_request_ms = backup_request_ms
         self.connect_timeout = connect_timeout
+        self.auth = auth  # Authenticator (rpc/auth.py)
         # "single" (shared main socket), "pooled" (exclusive connection per
         # in-flight call, parked for reuse), "short" (fresh connection,
         # closed after the call) — reference AdaptiveConnectionType
@@ -254,6 +348,11 @@ class ChannelOptions:
         # sync calls to one TCP server over the native client
         # (transport/native_plane.py)
         self.native_plane = native_plane
+        # fn(cntl) -> bool: should THIS failed attempt retry? (reference
+        # RetryPolicy::DoRetry, retry_policy.h:26 — cntl.error_code is the
+        # attempt's error; None = the default retriable-code set). max_retry
+        # and the retry budget are enforced regardless.
+        self.retry_policy = retry_policy
 
 
 class Channel:
@@ -270,6 +369,7 @@ class Channel:
         self._lb = None  # LoadBalancerWithNaming (lb/__init__.py)
         self._socket_map = _client_socket_map
         self._init_done = False
+        self._retry_budget: Optional[RetryBudget] = None
         # transport="tpu": the last-used link (the links themselves live in
         # the process-wide DeviceLinkMap)
         self._device_sock = None
@@ -297,12 +397,14 @@ class Channel:
             from incubator_brpc_tpu_torch.lb import LoadBalancerWithNaming
 
             self._lb = LoadBalancerWithNaming(
-                str(target), lb_name or "rr", socket_map=self._socket_map
+                str(target), lb_name or "rr", socket_map=self._socket_map,
+                key_tag=self._auth_key_tag(),
             )
             if not self._lb.start():
                 return False
         else:
             self._server = str2endpoint(str(target))
+        self._retry_budget = RetryBudget(float(get_flag("retry_budget_ratio")))
         self._init_done = True
         return True
 
@@ -316,6 +418,7 @@ class Channel:
         if not lb.start():
             return False
         self._lb = lb
+        self._retry_budget = RetryBudget(float(get_flag("retry_budget_ratio")))
         self._init_done = True
         return True
 
@@ -336,9 +439,13 @@ class Channel:
         ``request_stream`` (``rpc.stream.stream_create``) rides the request
         meta; the stream connects when the server's response accepts it."""
         assert self._init_done, "Channel.init() not called"
+        if self._retry_budget is not None:
+            self._retry_budget.on_call()
         if cntl is None:
             cntl = Controller(
-                timeout_ms=self._options.timeout_ms, max_retry=self._options.max_retry
+                timeout_ms=self._options.timeout_ms,
+                max_retry=self._options.max_retry,
+                backup_request_ms=self._options.backup_request_ms,
             )
         cntl._channel = self
         cntl._service = service
@@ -367,10 +474,11 @@ class Channel:
                     done(cntl)
                 return cntl
 
-        # native fast path: a sync, stream-less, uncompressed call to a
-        # single TCP server rides the host runtime's native client end to
-        # end; a transport failure falls through to the regular path,
-        # whose dial/retry machinery owns recovery
+        # native fast path: a sync, stream-less, uncompressed call without
+        # credentials or a backup to a single TCP server rides the host
+        # runtime's native client end to end; a transport failure falls
+        # through to the regular path, whose dial/retry machinery owns
+        # recovery
         if (
             done is None
             and request_stream is None
@@ -380,7 +488,7 @@ class Channel:
         ):
             return cntl
 
-        # one id covers the first send + every retry
+        # one id covers the first send + every retry/backup
         # (bthread_id_create_ranged with 2 + max_retry, channel.cpp:307)
         cid = call_id_space.create(
             data=cntl,
@@ -389,12 +497,15 @@ class Channel:
         )
         cntl.call_id = cid
 
-        # sync calls enforce their deadline from the caller's own wait loop
-        # (_sync_wait); async calls need the TimerThread
-        if done is not None and cntl.timeout_ms is not None and cntl.timeout_ms > 0:
-            pool = global_worker_pool()
+        # sync calls without a backup request enforce their deadline from
+        # the caller's own wait loop (_sync_wait); async calls and calls
+        # with a backup request need the TimerThread
+        timer = global_timer_thread()
+        pool = global_worker_pool()
+        backup = cntl.backup_request_ms is not None and cntl.backup_request_ms > 0
+        if (done is not None or backup) and cntl.timeout_ms is not None and cntl.timeout_ms > 0:
             cntl._timer_ids.append(
-                global_timer_thread().schedule(
+                timer.schedule(
                     lambda: pool.spawn(
                         call_id_space.error,
                         cid,
@@ -402,6 +513,13 @@ class Channel:
                         f"deadline {cntl.timeout_ms} ms exceeded",
                     ),
                     delay=cntl.timeout_ms / 1000.0,
+                )
+            )
+        if backup:
+            cntl._timer_ids.append(
+                timer.schedule(
+                    lambda: pool.spawn(call_id_space.error, cid, ErrorCode.EBACKUPREQUEST, ""),
+                    delay=cntl.backup_request_ms / 1000.0,
                 )
             )
 
@@ -431,7 +549,12 @@ class Channel:
             and not self._server.ip.startswith("unix://")
             and self._options.transport == "tcp"
             and self._options.connection_type in ("single", "pooled")
+            # tbus_std carries the credential in the JSON meta the Python
+            # route owns (the native client stamps baidu_std's field 7,
+            # ROADMAP A11)
+            and self._options.auth is None
             and not cntl.compress_type
+            and not (cntl.backup_request_ms is not None and cntl.backup_request_ms > 0)
             and not cntl._force_host
         )
 
@@ -518,9 +641,12 @@ class Channel:
         to the plain join when another thread is already reading the
         socket."""
         deadline = cntl._deadline or None
+        # whether a TimerThread entry owns this call's deadline (see
+        # call_method); if not, THIS loop delivers ERPCTIMEDOUT
+        has_timer = bool(cntl._timer_ids)
 
         def _deadline_hit() -> bool:
-            if deadline is None or time.monotonic() < deadline:
+            if has_timer or deadline is None or time.monotonic() < deadline:
                 return False
             call_id_space.error(
                 cid, ErrorCode.ERPCTIMEDOUT, f"deadline {cntl.timeout_ms} ms exceeded"
@@ -552,8 +678,8 @@ class Channel:
                 if sock.state != CONNECTED:
                     break
                 # 0.5s safety tick: a missed kick (no eventfd) or a response
-                # rerouted to another socket (a retry) is picked up by the
-                # next valid() check
+                # rerouted to another socket (a retry or a backup) is
+                # picked up by the next valid() check
                 t = 0.5
                 if deadline is not None:
                     t = min(t, max(0.001, deadline - time.monotonic()))
@@ -577,17 +703,31 @@ class Channel:
         cntl._force_host = True
         return self.call_method(service, method, request, cntl=cntl)
 
+    def _auth_key_tag(self) -> str:
+        """Connection-pool partition for this channel's credentials — the
+        reference's SocketMapKey carries the Authenticator for the same
+        reason (socket_map.h:35): channels with different credentials
+        never share a connection."""
+        a = self._options.auth
+        if a is None:
+            return ""
+        tag = getattr(a, "_smap_tag", None)
+        if tag is None:
+            tag = f"auth-{id(a):x}"
+            a._smap_tag = tag
+        return tag
+
     def _dispose_attempt_sock(self, kind: str, sock, reusable: bool = True) -> None:
         """One attempt's connection settles (Call::OnComplete disposition,
         controller.cpp:698): pooled returns to the pool ONLY when the call
-        finished cleanly — a timed-out attempt may still have a request in
-        flight, and parking it would head-of-line-block the next caller
-        (the reference closes non-single connections on error for the same
-        reason). Short connections drain then close."""
+        finished cleanly — a timed-out or superseded attempt may still have
+        a request in flight, and parking it would head-of-line-block the
+        next caller (the reference closes non-single connections on error
+        for the same reason). Short connections drain then close."""
         if kind == "pooled" and reusable:
             # keyed by the connection's actual remote: pooled secondaries
             # of LB targets park under their own endpoint's entry
-            self._socket_map.return_pooled(sock.remote, sock)
+            self._socket_map.return_pooled(sock.remote, sock, key_tag=self._auth_key_tag())
         else:
             _recycle_when_drained(sock)
 
@@ -606,6 +746,7 @@ class Channel:
             timeout_ms=cntl.timeout_ms or 60000,
             ack_mode=self._options.link_ack_mode,
             controller=self._options.link_controller,
+            auth=self._options.auth,
         )
         self._device_sock = ds  # last-used link (introspection/tests)
         return ds
@@ -638,7 +779,8 @@ class Channel:
         if self._lb is None:
             if ctype == "single":
                 sock = self._socket_map.get_or_create(
-                    self._server, timeout=self._options.connect_timeout
+                    self._server, timeout=self._options.connect_timeout,
+                    key_tag=self._auth_key_tag(),
                 )
                 if sock.state != CONNECTED:
                     # dropped-but-healthy peer: reconnect inline instead of
@@ -648,13 +790,16 @@ class Channel:
                 return sock
             if ctype == "pooled":
                 sock = self._socket_map.get_pooled(
-                    self._server, timeout=self._options.connect_timeout
+                    self._server, timeout=self._options.connect_timeout,
+                    key_tag=self._auth_key_tag(),
                 )
             else:  # short: fresh connection, closed at EndRPC
                 sock = self._socket_map.get_short(
                     self._server, timeout=self._options.connect_timeout
                 )
-            # disposed together at EndRPC, never mid-call
+            # disposed together at EndRPC — a backup request keeps the
+            # previous attempt's connection in flight, so NOTHING may be
+            # settled mid-call
             cntl._call_socks.append((ctype, sock))
             return sock
         # LB targets: the LB resolves a healthy MAIN socket per endpoint;
@@ -668,7 +813,9 @@ class Channel:
             return sock
         ep = sock.remote
         if ctype == "pooled":
-            sec = self._socket_map.get_pooled(ep, timeout=self._options.connect_timeout)
+            sec = self._socket_map.get_pooled(
+                ep, timeout=self._options.connect_timeout, key_tag=self._auth_key_tag()
+            )
         else:  # short
             sec = self._socket_map.get_short(ep, timeout=self._options.connect_timeout)
         # LB feedback and retry exclusion track the secondary's id too
@@ -714,6 +861,8 @@ class Channel:
             log_id=cntl.log_id,
             stream_id=cntl._request_stream.id if cntl._request_stream is not None else 0,
         )
+        if self._options.auth is not None:
+            attach_credential(meta, sock, self._options.auth)
         try:
             payload = cntl._request_payload
             if cntl.compress_type:
@@ -726,6 +875,9 @@ class Channel:
             self._end_rpc(cntl)
             return
         pool = global_worker_pool()
+        remaining = None
+        if cntl._deadline:
+            remaining = max(0.001, cntl._deadline - time.monotonic())
         _track_inflight(sock, cid)
         rc = sock.write(
             data,
@@ -734,6 +886,7 @@ class Channel:
                 if _claim_inflight(sock, cid)
                 else None
             ),
+            timeout=remaining,
         )
         if rc != 0:
             self._arbitrate_error(cntl, rc, f"write to {sock.remote} failed")
@@ -747,29 +900,79 @@ class Channel:
         if call_id_space.valid(cid):
             call_id_space.unlock(cid)
 
-    @staticmethod
-    def _should_retry(cntl: Controller, code: int) -> bool:
-        """The default RetryPolicy (retry_policy.h): the retriable-code set
-        while the call has retries left. ECANCELED is not in it: a cancel
-        is the caller's decision, not a transient."""
-        return code in RETRIABLE and cntl.retried_count < cntl.max_retry
-
     def _arbitrate_error(self, cntl: Controller, code: int, text: str) -> None:
-        """Retry or fail. Id is locked; does NOT unlock (caller decides),
-        but EndRPC destroys."""
-        if self._should_retry(cntl, code):
-            cntl.retried_count += 1
-            if cntl._sent_sockets:
-                cntl._excluded_sockets.add(cntl._sent_sockets[-1].id)
-            cntl._reset_for_retry()
-            self._issue_rpc(cntl)
+        """Retry / backup / fail decision. Id is locked; does NOT unlock
+        (caller decides), but EndRPC destroys."""
+        if code == ErrorCode.EBACKUPREQUEST:
+            # backup timer fired: issue a duplicate, keep the original in
+            # flight (controller.cpp:565-598)
+            if not cntl.has_backup_request:
+                cntl.has_backup_request = True
+                # the attempts in flight RIGHT NOW are merely raced, not
+                # failed: EndRPC settles them as EBACKUPREQUEST (ignored by
+                # the circuit breaker) — later retried-away attempts still
+                # settle as genuine failures
+                cntl._backup_superseded = {s.id for s in cntl._sent_sockets}
+                if cntl._sent_sockets:
+                    cntl._excluded_sockets.add(cntl._sent_sockets[-1].id)
+                self._issue_rpc(cntl)
             return
+        if self._should_retry(cntl, code) and cntl.retried_count < cntl.max_retry:
+            if self._budget_allows(code):
+                cntl.retried_count += 1
+                if cntl._sent_sockets:
+                    cntl._excluded_sockets.add(cntl._sent_sockets[-1].id)
+                cntl._reset_for_retry()
+                self._issue_rpc(cntl)
+                return
+            # budget exhausted: fail fast with the ORIGINAL error — the
+            # whole point is NOT multiplying a brownout's offered load
+            text = f"{text} (retry budget exhausted)"
         cntl.set_failed(code, text)
         self._end_rpc(cntl)
 
+    def _budget_allows(self, code: int) -> bool:
+        """One retry's draw against this channel's retry budget (exempt
+        codes pass without drawing; no budget = unlimited)."""
+        b = self._retry_budget
+        return b is None or b.acquire(code)
+
+    def _should_retry(self, cntl: Controller, code: int) -> bool:
+        """RetryPolicy::DoRetry (retry_policy.h): the channel's custom
+        policy sees the attempt's error on the controller; default = the
+        retriable-code set. ECANCELED never retries — a cancel is the
+        caller's decision, not a transient."""
+        if code == ErrorCode.ECANCELED:
+            return False
+        policy = self._options.retry_policy
+        if policy is None:
+            return code in RETRIABLE
+        saved = cntl.error_code
+        cntl.error_code = code  # DoRetry reads cntl->ErrorCode()
+        try:
+            return bool(policy(cntl))
+        except Exception:
+            logger.exception("retry_policy raised; not retrying")
+            return False
+        finally:
+            cntl.error_code = saved  # probing must not settle the call
+
     def _on_rpc_returned(self, cntl: Controller, frame: ParsedFrame, sock) -> None:
         """Response arrived (id locked by process_response)."""
-        if frame.error_code != 0 and self._should_retry(cntl, frame.error_code):
+        budget_note = ""
+        retry = False
+        if (
+            frame.error_code != 0
+            and self._should_retry(cntl, frame.error_code)
+            and cntl.retried_count < cntl.max_retry
+        ):
+            if self._budget_allows(frame.error_code):
+                retry = True
+            else:
+                # the same marker as _arbitrate_error's: budget-capped
+                # failures read alike on both response paths
+                budget_note = " (retry budget exhausted)"
+        if retry:
             cntl.retried_count += 1
             cntl._excluded_sockets.add(sock.id)
             if on_reactor_thread():
@@ -788,8 +991,8 @@ class Channel:
         if frame.error_code != 0:
             cntl.set_failed(
                 frame.error_code,
-                (frame.meta.error_text if frame.meta else "")
-                or f"remote error {frame.error_code}",
+                ((frame.meta.error_text if frame.meta else "") or f"remote error {frame.error_code}")
+                + budget_note,
             )
         else:
             payload = frame.payload
@@ -803,6 +1006,10 @@ class Channel:
             cntl.response_payload = payload
             cntl.response_attachment = frame.attachment
             cntl.response_meta = frame.meta
+            if self._options.auth is not None:
+                # a successful response proves the connection: stop sending
+                # credentials on it (FightAuthentication settled)
+                mark_authenticated(sock)
             if cntl._request_stream is not None and frame.meta is not None and frame.meta.stream_id:
                 # handshake complete: the server's stream id arrived
                 cntl._request_stream._connect(sock, frame.meta.stream_id)
@@ -813,13 +1020,23 @@ class Channel:
         Called with the id locked; the id is dead afterwards."""
         cntl._mark_end()
         if self._lb is not None:
-            # every issued attempt (retries included) was a select() — feed
-            # each back exactly once so LA's in-flight accounting balances
-            # (Call::OnComplete does per-call Feedback, controller.cpp:
-            # 698-777); attempts retried away charge their node's breaker
+            # every issued attempt (retries, backup duplicates) was a
+            # select() — feed each back exactly once so LA's in-flight
+            # accounting balances (Call::OnComplete does per-call Feedback,
+            # controller.cpp:698-777). A backup-raced attempt is not a node
+            # failure (it may be healthy but slow): exactly the sockets in
+            # flight when the backup fired settle as EBACKUPREQUEST, which
+            # the circuit breaker ignores; attempts retried away on a
+            # genuine error still charge their node's breaker
             last = cntl._sent_sockets[-1] if cntl._sent_sockets else None
+            raced = getattr(cntl, "_backup_superseded", ())
             for sock in cntl._sent_sockets:
-                code = cntl.error_code if sock is last else ErrorCode.EFAILEDSOCKET
+                if sock is last:
+                    code = cntl.error_code
+                elif sock.id in raced:
+                    code = ErrorCode.EBACKUPREQUEST
+                else:
+                    code = ErrorCode.EFAILEDSOCKET
                 self._lb.feedback(sock, cntl.latency_us, code)
         timer = global_timer_thread()
         for tid in cntl._timer_ids:
@@ -832,8 +1049,8 @@ class Channel:
         # settle every attempt's pooled/short connection now — except one a
         # live stream is bound to, which is released when the stream ends.
         # A pooled socket is only reusable when this was a clean,
-        # single-attempt success (a timed-out attempt may still carry a
-        # request in flight)
+        # single-attempt success (a timed-out or superseded attempt may
+        # still carry a request in flight)
         reusable = cntl.ok() and len(cntl._call_socks) <= 1
         stream = cntl._request_stream
         stream_sock = stream._sock if stream is not None else None

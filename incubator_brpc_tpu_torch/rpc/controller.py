@@ -2,21 +2,22 @@
 src/brpc/controller.h:98, controller.cpp).
 
 One Controller accompanies one RPC on either side:
-- client side: carries timeout/retry options in, and the response
-  payload/meta/error out; the retry arbitration of OnVersionedRPCReturned
-  (controller.cpp:545-676) lives in channel.py and mutates this object
-  under the call-id lock.
+- client side: carries timeout/retry/backup options in, and the response
+  payload/meta/error out; the retry/backup arbitration of
+  OnVersionedRPCReturned (controller.cpp:545-676) lives in channel.py and
+  mutates this object under the call-id lock.
 - server side: carries the request meta/attachment and the call id in,
   and the error-code/attachment out (set_failed → error response).
   ``DeviceEndpoint.server_handler`` reads ``call_id`` and calls
   ``set_failed`` with these meanings.
 
-The port's copy of the JAX package's ``rpc/controller.py`` without the
-backup-request, tracing and session-data state of the parts not yet
-ported. The constructor keeps the reference's
-parameters in their places (``backup_request_ms`` before ``log_id``); a
-value the port does not serve yet is refused by :func:`refuse_unported`
-with the ROADMAP item that brings it, never bound to another parameter.
+The port's copy of the JAX package's ``rpc/controller.py`` with the
+backup request (``backup_request_ms``) and session data
+(``session_local_data``), without the tracing state of rpcz (ROADMAP A12).
+The constructor keeps the reference's parameters in their places
+(``backup_request_ms`` before ``log_id``). :func:`refuse_unported` is the
+port's refusal of a value it does not serve yet: it names the ROADMAP item
+that brings it, so nothing binds silently to another parameter.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def refuse_unported(owner: str, name: str, value, item: str) -> None:
 
 class Controller:
     # defaults mirror ChannelOptions (reference channel.h: timeout 500 ms,
-    # max_retry 3)
+    # max_retry 3, backup off)
     DEFAULT_TIMEOUT_MS = 500
     DEFAULT_MAX_RETRY = 3
 
@@ -52,13 +53,14 @@ class Controller:
         backup_request_ms: float = -1,
         log_id: int = 0,
     ):
-        if backup_request_ms is not None and backup_request_ms > 0:
-            refuse_unported("Controller", "backup_request_ms", backup_request_ms, "A7")
         # -- options (client) --
         self.timeout_ms = (
             self.DEFAULT_TIMEOUT_MS if timeout_ms is None else timeout_ms
         )
         self.max_retry = self.DEFAULT_MAX_RETRY if max_retry is None else max_retry
+        # fire a duplicate to another server when the first attempt has not
+        # answered after this long (<= 0 off); the faster reply wins
+        self.backup_request_ms = backup_request_ms
         self.log_id = log_id
         self.compress_type: str = ""
         self.request_attachment: bytes = b""
@@ -73,6 +75,7 @@ class Controller:
         self.request_meta: Optional[Meta] = None  # server side
         self.remote_side: Optional[EndPoint] = None
         self.retried_count: int = 0
+        self.has_backup_request: bool = False
         self.latency_us: float = 0.0
 
         # -- internals (owned by channel.py / server.py) --
@@ -100,7 +103,8 @@ class Controller:
         # transport='tpu' channel (the device-link handshake itself)
         self._force_host = False
         # (kind, socket) per attempt for pooled/short connection types —
-        # disposed together at EndRPC
+        # disposed together at EndRPC (never mid-call: a backup request
+        # keeps the original attempt's connection in flight)
         self._call_socks: List[Any] = []
         # streaming handshake (rpc/stream.py): client's half-open stream out,
         # server's accepted id back (request_stream in RpcMeta, stream.cpp)
@@ -118,6 +122,16 @@ class Controller:
 
     def ok(self) -> bool:
         return self.error_code == 0
+
+    def session_local_data(self):
+        """Per-connection pooled user data, lazily borrowed from the
+        server's session pool on this connection's first access
+        (reference Controller::session_local_data() backed by
+        ServerOptions.session_local_data_factory, server.h:55-239).
+        None on the client side or without a factory."""
+        if self._server is None:
+            return None
+        return self._server.session_local_data(getattr(self, "_sock", None))
 
     def start_cancel(self) -> None:
         """Cancel this in-flight RPC from any thread (reference
@@ -173,9 +187,10 @@ class Controller:
 
 
 # retriable errors (reference default RetryPolicy, retry_policy.cpp: retries
-# connectivity failures — including EHOSTDOWN — and ELOGOFF (a stopping
-# server refusing new work is transient by design), never server-side
-# application errors or timeouts)
+# connectivity failures — including EHOSTDOWN — and ELOGOFF (a stopping or
+# lame-duck server refusing new work is transient by design: the retry
+# lands on another replica), never server-side application errors or
+# timeouts)
 RETRIABLE = frozenset(
     {
         ErrorCode.EFAILEDSOCKET,

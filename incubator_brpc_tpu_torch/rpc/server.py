@@ -1,6 +1,6 @@
-"""Server — service registry + lifecycle (reference src/brpc/server.{h,cpp}:
-StartInternal server.cpp:690, method map server.cpp:1209, MethodStatus
-details/method_status.h:90-97).
+"""Server — service registry + lifecycle + admission (reference
+src/brpc/server.{h,cpp}: StartInternal server.cpp:690, method map
+server.cpp:1209, MethodStatus admission details/method_status.h:90-97).
 
 Request flow (mirrors SURVEY.md §3.2):
   Acceptor IN event → Socket reader fiber → InputMessenger cut
@@ -8,10 +8,13 @@ Request flow (mirrors SURVEY.md §3.2):
       ├ look up the server via sock.context (the reference reaches it
       │ through the Socket's user object)
       ├ shed a request whose propagated deadline expired (EDEADLINE)
-      ├ ELOGOFF when stopping; find the method, ENOSERVICE/ENOMETHOD on miss
-      ├ decompress, build the server Controller
+      ├ the fault injector's dispatch seam (error / delay / close)
+      ├ ELOGOFF when stopping or in lame duck; ERPCAUTH on a bad credential
+      ├ find the method, ENOSERVICE/ENOMETHOD on miss
+      ├ admission: the server-wide then the per-method limiter (ELIMIT)
+      ├ decompress, sample into rpc_dump, build the server Controller
       └ run the handler; done → _send_response (compress, pack,
-        Socket.write, MethodStatus latency bvars)
+        Socket.write, MethodStatus latency bvars and limiter feedback)
 
 A handler is ``handler(cntl, request: bytes) -> Optional[bytes]``:
   - return bytes: the response payload (sync style);
@@ -20,47 +23,61 @@ A handler is ``handler(cntl, request: bytes) -> Optional[bytes]``:
     reference's done-closure style (baidu_rpc_protocol.cpp:490-503).
 Errors: ``cntl.set_failed(code, text)`` → an error frame, payload dropped.
 
-The port's copy of the JAX package's ``rpc/server.py``, trimmed: methods
-run with unlimited concurrency, and TLS, the concurrency limiters, auth,
-the fault injector, rpcz, request dumps, the HTTP gateway, lame-duck
-draining (with its RST of open streams), and session and thread-local data
-are later slices. The method map (``_MethodMap``) is keyed on the native
-FlatMap of the port's host runtime. A server listens on the Python
+The port's copy of the JAX package's ``rpc/server.py`` over tbus_std. It
+serves the policies of ROADMAP A7: ``max_concurrency`` and
+``method_max_concurrency`` (an int, or ``"auto"`` for the gradient limiter
+of ``rpc/concurrency_limiter.py``; ``reset_max_concurrency`` and
+``set_method_max_concurrency`` retune them live), ``auth``
+(``rpc/auth.py``), ``fault_injector`` (``rpc/fault_injector.py``),
+``idle_timeout_s`` (the idle reaper), the session and thread-local data
+factories (``rpc/data_pool.py``), request dumps (``rpc/dump.py``), and the
+lame duck (``enter_lame_duck``; SIGTERM with ``graceful_quit_on_sigterm``).
+TLS (ROADMAP A10), the other protocols and the HTTP gateway (A11), and
+rpcz and the builtin pages with their ``/health`` and ``/quitquitquit``
+(A12) are later items. The method map (``_MethodMap``) is keyed on the
+native FlatMap of the port's host runtime. A server listens on the Python
 acceptor, or with ``ServerOptions(native_plane=True)`` on the C++ reactors
 of ``transport/native_plane.py`` (``num_reactors``, alias
 ``native_loops``; ``native_dispatch_workers``): natively registered
 methods (``native_echo``, ``native_nop``, ``native_method_lib``) are
-answered in C++, every other method through ``process_request`` as on the
-Python plane. Where the host runtime did not build, or the C++ listener
-cannot take the address, ``start`` logs why and listens on the Python
-acceptor. The collective services
-(``_tpu_transport.collective`` and ``_tpu_transport.collective_dispatch``,
-``parallel/mc_collective.py`` and ``parallel/mc_dispatch.py``) are
-registered at ``start`` where ``enable_collective_service`` asks for them,
-or by default where this process joined a job
-(``utils/distributed.current_job()``); each admits at most
-``collective_max_concurrency`` session runs at once (ELIMIT past it; 0 =
-unlimited; ``mc_dispatch.RunLimit``: accepts and aborts are never
-refused, where the JAX package's method limit refuses them too). A
-handler accepts a streaming RPC with ``rpc.stream.stream_accept(cntl)``;
-the accepted stream's id rides the response meta, and a handler that
-fails after accepting kills the stream. The device-link handshake
-(``_tpu_transport.handshake``, ``transport/device_link.py``; with
-``controller="multi"``, ``transport/mc_link.py``) is registered at
-``start``; ``stop`` closes every link the server accepted.
+answered in C++ under their per-method limit (an adaptive limit is pushed
+into the C++ table as it moves, and the telemetry drain's completions feed
+the limiters back), every other method through ``process_request`` as on
+the Python plane. A constant server-wide limit or an authenticator keeps
+every method on the Python route, where those gates run. Where the host
+runtime did not build, or the C++ listener cannot take the address,
+``start`` logs why and listens on the Python acceptor. The collective
+services (``_tpu_transport.collective`` and
+``_tpu_transport.collective_dispatch``, ``parallel/mc_collective.py`` and
+``parallel/mc_dispatch.py``) are registered at ``start`` where
+``enable_collective_service`` asks for them, or by default where this
+process joined a job (``utils/distributed.current_job()``); each admits at
+most ``collective_max_concurrency`` session runs at once (ELIMIT past it;
+0 = unlimited; ``mc_dispatch.RunLimit``: accepts and aborts are never
+refused, where the JAX package's method limit refuses them too), so they
+carry no per-method limiter here. A handler accepts a streaming RPC with
+``rpc.stream.stream_accept(cntl)``; the accepted stream's id rides the
+response meta, and a handler that fails after accepting kills the stream.
+The device-link handshake (``_tpu_transport.handshake``,
+``transport/device_link.py``; with ``controller="multi"``,
+``transport/mc_link.py``) is registered at ``start``; ``stop`` closes
+every link the server accepted.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import signal
 import threading
 import time
+import weakref
 from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from incubator_brpc_tpu_torch import protocol as proto_pkg
-from incubator_brpc_tpu_torch.bvar import Adder, LatencyRecorder
+from incubator_brpc_tpu_torch.bvar import Adder, LatencyRecorder, PassiveStatus
 from incubator_brpc_tpu_torch.protocol import compress as compress_mod
 from incubator_brpc_tpu_torch.protocol.tbus_std import (
     FLAG_RESPONSE,
@@ -69,43 +86,151 @@ from incubator_brpc_tpu_torch.protocol.tbus_std import (
     pack_frame_iobuf,
 )
 from incubator_brpc_tpu_torch.rpc import stream as stream_mod
+from incubator_brpc_tpu_torch.rpc.auth import server_check
+from incubator_brpc_tpu_torch.rpc.concurrency_limiter import (
+    AutoConcurrencyLimiter,
+    create_concurrency_limiter,
+)
 from incubator_brpc_tpu_torch.rpc.controller import Controller, refuse_unported
+from incubator_brpc_tpu_torch.rpc.data_pool import SimpleDataPool
 from incubator_brpc_tpu_torch.rpc.deadline import pop_deadline, push_deadline
+
+# imported at module scope so the rpc_dump* flags exist before the first
+# request arrives
+from incubator_brpc_tpu_torch.rpc.dump import maybe_dump_request
+from incubator_brpc_tpu_torch.rpc.fault_injector import ACTION_CLOSE, ACTION_ERROR
 from incubator_brpc_tpu_torch.runtime.timer_thread import global_timer_thread
 from incubator_brpc_tpu_torch.runtime.worker_pool import global_worker_pool
 from incubator_brpc_tpu_torch.transport.acceptor import Acceptor
 from incubator_brpc_tpu_torch.transport.messenger import InputMessenger
 from incubator_brpc_tpu_torch.utils.device import DeviceLike, resolve_device
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint, str2endpoint
-from incubator_brpc_tpu_torch.utils.flags import get_flag
+from incubator_brpc_tpu_torch.utils.flags import define_flag, get_flag
 from incubator_brpc_tpu_torch.utils.status import ErrorCode, berror
 
 logger = logging.getLogger(__name__)
+
+define_flag(
+    "lame_duck_grace_s",
+    10.0,
+    "default grace window for Server.enter_lame_duck / SIGTERM graceful "
+    "quit: in-flight RPCs and open collective sessions get this long to "
+    "drain before the hard stop",
+    lambda v: v > 0,
+)
+define_flag(
+    "graceful_quit_on_sigterm",
+    False,
+    "SIGTERM triggers a lame-duck drain (stop accepting, drain in-flight "
+    "work for lame_duck_grace_s, then stop) instead of the default abrupt "
+    "death — the reference's graceful_quit_on_sigterm gflag (server.cpp)",
+    lambda v: True,
+)
 
 # Requests shed because their PROPAGATED deadline (meta timeout_ms) expired
 # before the method could be dispatched — expired-at-arrival and
 # expired-mid-queue both count here.
 deadline_shed_count = Adder(name="deadline_shed_count")
 
+# every started Server, for the SIGTERM graceful-quit fan-out (weak: a
+# leaked reference here must never pin a stopped server)
+_started_servers: "weakref.WeakSet" = weakref.WeakSet()
+_sigterm_state = {"installed": False, "prev": None}
+
+
+def _on_sigterm(signum, frame) -> None:
+    """SIGTERM with graceful_quit_on_sigterm: lame-duck every running
+    server, then (once all drains finish) hand the signal to whatever was
+    installed before us so the process still dies."""
+    servers = [s for s in list(_started_servers) if s.running]
+    logger.info("SIGTERM: lame-duck draining %d server(s)", len(servers))
+
+    def _drain_all() -> None:
+        threads = [s.enter_lame_duck() for s in servers]
+        for t in threads:
+            if t is not None:
+                t.join()
+        prev = _sigterm_state.get("prev")
+        try:
+            signal.signal(signal.SIGTERM, prev if callable(prev) else signal.SIG_DFL)
+        except (ValueError, TypeError):
+            pass
+        os.kill(os.getpid(), signal.SIGTERM)  # now dies the default death
+
+    threading.Thread(target=_drain_all, name="tbtorch-sigterm-lame-duck", daemon=True).start()
+
+
+def _maybe_install_sigterm() -> None:
+    if _sigterm_state["installed"] or not get_flag("graceful_quit_on_sigterm"):
+        return
+    try:
+        _sigterm_state["prev"] = signal.signal(signal.SIGTERM, _on_sigterm)
+        _sigterm_state["installed"] = True
+    except ValueError:
+        # signal() only works on the main thread; a server started from a
+        # worker keeps the flag's promise best-effort
+        logger.warning(
+            "graceful_quit_on_sigterm: cannot install the SIGTERM handler off the main thread"
+        )
+
 
 class MethodStatus:
-    """Per-method in-flight count + latency stats
-    (details/method_status.h:28,90-97), with unlimited concurrency."""
+    """Per-method concurrency gate + latency stats
+    (details/method_status.h:28,90-97: _nprocessing fetch_add vs the
+    ConcurrencyLimiter; latency bvars fed in OnResponded).
 
-    def __init__(self, full_name: str):
+    ``max_concurrency`` accepts an int (0 = unlimited) or ``"auto"`` —
+    the adaptive gradient limiter (policy/auto_concurrency_limiter.cpp)
+    fed from this method's own completion samples. ``on_limit_change``
+    is forwarded to an auto limiter so the server can push adaptive
+    limits into the native plane."""
+
+    def __init__(
+        self,
+        full_name: str,
+        max_concurrency: Union[int, str] = 0,
+        on_limit_change=None,
+    ):
         self.full_name = full_name
+        self._on_limit_change = on_limit_change
+        self._limiter = create_concurrency_limiter(max_concurrency, on_limit_change=on_limit_change)
         self._nprocessing = 0
         self._lock = threading.Lock()
         self.latency = LatencyRecorder(name=f"method_{full_name}_latency")
         self.nerror = Adder(name=f"method_{full_name}_error")
 
-    def on_requested(self) -> None:
+    @property
+    def processing(self) -> int:
+        return self._nprocessing
+
+    @property
+    def max_concurrency(self) -> int:
+        """Current limit (adaptive limiters move it); 0 = unlimited."""
+        return self._limiter.max_concurrency() if self._limiter else 0
+
+    @max_concurrency.setter
+    def max_concurrency(self, value: Union[int, str]) -> None:
+        self._limiter = create_concurrency_limiter(value, on_limit_change=self._on_limit_change)
+
+    @property
+    def limiter(self):
+        return self._limiter
+
+    def on_requested(self) -> bool:
         with self._lock:
             self._nprocessing += 1
+            current = self._nprocessing
+        if self._limiter is not None and not self._limiter.on_requested(current):
+            with self._lock:
+                self._nprocessing -= 1
+            return False
+        return True
 
     def on_responded(self, error_code: int, latency_us: float) -> None:
         with self._lock:
             self._nprocessing -= 1
+        if self._limiter is not None:
+            self._limiter.on_responded(error_code, latency_us)
         if error_code == 0:
             self.latency << latency_us
         else:
@@ -174,12 +299,31 @@ class _MethodMap:
         return dict(self._by_name)
 
 
+# worker-thread context while user code runs: powers the argless
+# ``thread_local_data()`` (the reference's brpc::thread_local_data() reads
+# an equivalent per-thread slot set by the server loop)
+_usercode_tls = threading.local()
+
+
+def thread_local_data():
+    """Pooled per-thread data of the server whose handler is running on
+    this thread (reference brpc::thread_local_data(), server.h:55-239).
+    None outside a handler or when the server has no
+    thread_local_data_factory."""
+    server = getattr(_usercode_tls, "server", None)
+    return server.thread_local_data() if server is not None else None
+
+
 class ServerOptions:
     """Reference ServerOptions (server.h:55-239) with the reference's
     parameters in the reference's order, so a positional call binds as it
-    binds there. The port serves ``usercode_inline``, ``device_index``, and
-    the native plane's ``native_plane``, ``num_reactors`` (``native_loops``
-    is its alias, a live property) and ``native_dispatch_workers``;
+    binds there. The port serves the admission limits (``max_concurrency``,
+    ``method_max_concurrency``: an int, 0 = unlimited, or ``"auto"``),
+    ``idle_timeout_s``, ``auth``, ``usercode_inline``, ``device_index``, the
+    native plane's ``native_plane``, ``num_reactors`` (``native_loops`` is
+    its alias, a live property) and ``native_dispatch_workers``, the
+    session and thread-local data factories with their reservations, the
+    collective services' options and ``fault_injector``;
     ``has_builtin_services`` is accepted either way and is inert until
     ROADMAP A12 brings the builtin services. Every other parameter keeps
     its place and its default, and a value that asks for something the
@@ -220,27 +364,30 @@ class ServerOptions:
         device: DeviceLike = None,
     ):
         unported = (
-            ("max_concurrency", max_concurrency, 0, "A7"),
-            ("method_max_concurrency", method_max_concurrency, 0, "A7"),
-            ("auth", auth, None, "A7"),
             ("nshead_service", nshead_service, None, "A11"),
             ("thrift_service", thrift_service, None, "A11"),
             ("mongo_service_adaptor", mongo_service_adaptor, None, "A11"),
             ("rtmp_service", rtmp_service, None, "A11"),
             ("ssl_context", ssl_context, None, "A10"),
-            ("session_local_data_factory", session_local_data_factory, None, "A7"),
-            ("reserved_session_local_data", reserved_session_local_data, 0, "A7"),
-            ("thread_local_data_factory", thread_local_data_factory, None, "A7"),
-            ("reserved_thread_local_data", reserved_thread_local_data, 0, "A7"),
-            ("fault_injector", fault_injector, None, "A7"),
         )
         for name, value, default, item in unported:
             if value != default:
                 refuse_unported("ServerOptions", name, value, item)
-        if idle_timeout_s is not None and idle_timeout_s > 0:
-            refuse_unported("ServerOptions", "idle_timeout_s", idle_timeout_s, "A7")
+        # int (0 = unlimited) or "auto" — the adaptive gradient limiter
+        # (reference AdaptiveMaxConcurrency, server.h + policy/
+        # auto_concurrency_limiter.cpp) applied server-wide / per-method
+        self.max_concurrency = max_concurrency
+        self.method_max_concurrency = method_max_concurrency
+        # rpc/fault_injector.FaultInjector: scripted brownouts at the
+        # frame-dispatch seam (error/delay/close before the handler runs);
+        # acts only while the ``fault_injection`` master flag is on
+        self.fault_injector = fault_injector
+        # close connections with no wire activity for this long (<= 0 off),
+        # on both planes
+        self.idle_timeout_s = idle_timeout_s
         # inert until ROADMAP A12 (the port has no builtin services yet)
         self.has_builtin_services = has_builtin_services
+        self.auth = auth  # Authenticator (rpc/auth.py)
         # Run request processing (cut + handler) inline on the reactor
         # thread instead of a pool fiber — removes two thread handoffs per
         # request. ONLY for services whose handlers never block: a blocking
@@ -260,6 +407,20 @@ class ServerOptions:
         # device this server binds for transport='tpu' links (None = pick a
         # neighbor of the client's device; the reference's use_rdma slot)
         self.device_index = device_index
+        # Pooled per-connection user data (reference
+        # ServerOptions.session_local_data_factory + simple_data_pool):
+        # lazily borrowed on first cntl.session_local_data() per
+        # connection, returned to the pool when the connection dies,
+        # reused by the next one. The factory is an object with
+        # create()/destroy(obj) or a zero-arg callable.
+        self.session_local_data_factory = session_local_data_factory
+        self.reserved_session_local_data = reserved_session_local_data
+        # Pooled per-worker-thread user data (reference
+        # thread_local_data_factory + brpc::thread_local_data()): one
+        # object per thread that runs this server's handlers, created on
+        # first thread_local_data() there, destroyed at server stop.
+        self.thread_local_data_factory = thread_local_data_factory
+        self.reserved_thread_local_data = reserved_thread_local_data
         # Serve the collective session plane's proposals
         # (``_tpu_transport.collective`` and ``.collective_dispatch``):
         # True/False, or None = on where this process joined a job at
@@ -285,11 +446,21 @@ class ServerOptions:
 class Server:
     def __init__(self, options: Optional[ServerOptions] = None):
         self.options = options or ServerOptions()
+        # server-wide admission limiter (int spec or "auto"); limit moves
+        # are pushed to natively registered methods so the C++ dispatch
+        # path honors the adaptive limit too
+        self._server_limiter = create_concurrency_limiter(
+            self.options.max_concurrency, on_limit_change=self._on_server_limit_change
+        )
+        self._limit_gauges: list = []  # PassiveStatus rows, hidden at stop
         self._methods = _MethodMap()
         self._acceptor: Optional[Acceptor] = None
         self._native_plane = None  # NativeServerPlane when options ask for it
         self._messenger = InputMessenger()
         self._stopping = False
+        self._lame_duck = False  # draining: no new work, conns stay up
+        self._lame_duck_thread: Optional[threading.Thread] = None
+        self._idle_reap_timer_id = None
         self._started = False
         self._lock = threading.Lock()
         self._nprocessing = 0  # server-level in-flight count
@@ -301,6 +472,13 @@ class Server:
         self._device_methods: Dict[str, object] = {}
         # server halves of the transport='tpu' links this server accepted
         self._device_socks: list = []
+        # session/thread-local data pools (simple_data_pool.h; built from
+        # the option factories at start)
+        self._session_pool: Optional[SimpleDataPool] = None
+        self._tls_pool: Optional[SimpleDataPool] = None
+        self._tls_slots = threading.local()  # .data: per-thread object
+        self._tls_borrowed: list = []  # every live thread object (stop cleanup)
+        self._session_lock = threading.Lock()  # session borrow/release state
 
     def device(self) -> torch.device:
         """The device this server's links and device methods use:
@@ -313,17 +491,74 @@ class Server:
 
     # -- registration --------------------------------------------------------
 
-    def add_service(self, name: str, handlers: Dict[str, Callable]) -> None:
+    def _method_limit_pusher(self, full_name: str) -> Callable[[int], None]:
+        """on_limit_change hook for a method's adaptive limiter: keep the
+        native plane's per-request limit in step with the Python one."""
+
+        def push(new_limit: int) -> None:
+            plane = self._native_plane
+            if plane is not None:
+                plane.set_native_max_concurrency(full_name, new_limit)
+
+        return push
+
+    def _on_server_limit_change(self, new_limit: int) -> None:
+        """The server-wide adaptive limit moved: natively registered
+        methods without their own limit follow it (the C++ plane has no
+        server-level gate, so the server-wide limit is distributed as a
+        per-method ceiling — tb_server_set_native_max_concurrency)."""
+        plane = self._native_plane
+        if plane is None:
+            return
+        for full in plane.auto_limit_targets():
+            plane.set_native_max_concurrency(full, new_limit)
+
+    def _on_native_completion(
+        self,
+        full_name: str,
+        error_code: int,
+        latency_us: float,
+        now_us: Optional[int] = None,
+    ) -> None:
+        """Limiter feedback for a request the C++ plane dispatched and
+        answered without the interpreter (drained from the telemetry
+        ring). Feeds the same AutoConcurrencyLimiters the Python route's
+        _release feeds, so a wholly native server's adaptive limit tracks
+        load instead of holding its last pushed value. Admission refusals
+        (ELIMIT) never reach here: the Python route does not call
+        on_responded for refused requests either. ``now_us`` is the
+        completion's monotonic timestamp from the record itself, so batch
+        drains keep the limiter's sampling windows honest."""
+        prop = self._methods.get(full_name)
+        if prop is not None and prop.status.limiter is not None:
+            prop.status.limiter.on_responded(error_code, latency_us, now_us)
+        if self._server_limiter is not None:
+            self._server_limiter.on_responded(error_code, latency_us, now_us)
+
+    def add_service(
+        self,
+        name: str,
+        handlers: Dict[str, Callable],
+        max_concurrency: Union[int, str, None] = None,
+        restful_mappings: str = "",
+    ) -> None:
         """Register ``name.method → handler`` rows (Server::AddService builds
-        the same flat _method_map, server.cpp:1209)."""
+        the same flat _method_map, server.cpp:1209). ``max_concurrency``
+        (an int or ``"auto"``) limits each of these methods; None takes
+        ``options.method_max_concurrency``. ``restful_mappings`` belongs to
+        the HTTP gateway and waits for ROADMAP A11."""
+        if restful_mappings:
+            refuse_unported("Server.add_service", "restful_mappings", restful_mappings, "A11")
         if self._started:
             raise RuntimeError("add_service after start")
         for method in handlers:
             if f"{name}.{method}" in self._methods:
                 raise ValueError(f"method {name}.{method} already registered")
+        mc = max_concurrency if max_concurrency is not None else self.options.method_max_concurrency
         for method, handler in handlers.items():
             full = f"{name}.{method}"
-            self._methods.insert(full, MethodProperty(handler, MethodStatus(full), full))
+            status = MethodStatus(full, mc, on_limit_change=self._method_limit_pusher(full))
+            self._methods.insert(full, MethodProperty(handler, status, full))
             dm = getattr(handler, "_device_method", None)
             if dm is not None:
                 # device-kernel methods publish to the registry the session
@@ -351,6 +586,16 @@ class Server:
         or an EndPoint."""
         if self._started:
             return False
+        if self.options.session_local_data_factory is not None:
+            self._session_pool = SimpleDataPool(
+                self.options.session_local_data_factory,
+                reserved=self.options.reserved_session_local_data,
+            )
+        if self.options.thread_local_data_factory is not None:
+            self._tls_pool = SimpleDataPool(
+                self.options.thread_local_data_factory,
+                reserved=self.options.reserved_thread_local_data,
+            )
         # the transport='tpu' bootstrap: every server answers the device
         # handshake on its host port (the reference's Socket accepts the
         # RDMA magic on any connection when rdma is compiled in)
@@ -366,7 +611,7 @@ class Server:
         # the collective session plane shares the transport service: OPT-IN,
         # on by default only in a job (the probe runs once, at start: a
         # process that joins a job after starting its server passes
-        # enable_collective_service=True), each method behind the limit
+        # enable_collective_service=True), its runs behind RunLimit
         enable_co = self.options.enable_collective_service
         if enable_co is None:
             from incubator_brpc_tpu_torch.utils.distributed import current_job
@@ -397,6 +642,14 @@ class Server:
         if plane is not None:
             self._native_plane = plane
             self.listen_endpoint = EndPoint(ip=ep.ip, port=plane.port)
+            # adaptive limits reach the C++ dispatch path from the start:
+            # seed every natively registered method with the current
+            # server-wide auto limit (updates follow via on_limit_change)
+            if isinstance(self._server_limiter, AutoConcurrencyLimiter):
+                self._on_server_limit_change(self._server_limiter.max_concurrency())
+            for full, prop in self._methods.items():
+                if isinstance(prop.status.limiter, AutoConcurrencyLimiter):
+                    plane.set_native_max_concurrency(full, prop.status.max_concurrency)
         else:
             self._acceptor = Acceptor(
                 ep,
@@ -406,7 +659,15 @@ class Server:
             )
             self.listen_endpoint = self._acceptor.endpoint
         self._stopping = False
+        self._idle_reap_timer_id = None
         self._started = True
+        if self.options.idle_timeout_s is not None and self.options.idle_timeout_s > 0:
+            # enforced on BOTH planes: the Python acceptor scan, and
+            # tb_server_close_idle for native ports
+            self._schedule_idle_reap()
+        self._expose_limiter_gauges()
+        _started_servers.add(self)
+        _maybe_install_sigterm()
         logger.info("server started on %s", self.listen_endpoint)
         return True
 
@@ -440,12 +701,168 @@ class Server:
             return None
         return plane
 
+    def _expose_limiter_gauges(self) -> None:
+        """Scrapeable adaptive-limit state: one gauge per auto limiter
+        (server-wide + per-method), port-scoped since one process runs
+        many servers. Hidden at stop so the names free up."""
+        port = self.port
+        if isinstance(self._server_limiter, AutoConcurrencyLimiter):
+            self._limit_gauges.append(
+                PassiveStatus(self._server_limiter.max_concurrency,
+                              name=f"server_{port}_max_concurrency")
+            )
+        for full, prop in self._methods.items():
+            lim = prop.status.limiter
+            if isinstance(lim, AutoConcurrencyLimiter):
+                self._limit_gauges.append(
+                    PassiveStatus(lim.max_concurrency, name=f"server_{port}_{full}_max_concurrency")
+                )
+
+    def _schedule_idle_reap(self) -> None:
+        if self._stopping:
+            # a scan that was mid-flight when stop() ran must not re-arm
+            return
+        # scan at half the timeout so a connection is reaped at most 1.5x
+        # late (the reference's idle-connection reaper,
+        # Acceptor::CloseIdleConnections acceptor.cpp:111). The timer
+        # callback only spawns — set_failed does syscalls and runs user
+        # on_failed hooks, too heavy for the shared TimerThread. The id is
+        # kept so stop() can cancel the parked scan.
+        delay = max(0.05, self.options.idle_timeout_s / 2)
+        self._idle_reap_timer_id = global_timer_thread().schedule(
+            lambda: global_worker_pool().spawn(self._reap_idle), delay=delay
+        )
+
+    def _reap_idle(self) -> None:
+        # _stopping ends the chain; servers are not restartable
+        if self._stopping:
+            return
+        if self._acceptor is not None:
+            cutoff = time.monotonic() - self.options.idle_timeout_s
+            for sock in self._acceptor.connections():
+                if sock.last_active < cutoff:
+                    sock.set_failed(ErrorCode.ECLOSE, f"idle for > {self.options.idle_timeout_s}s")
+        if self._native_plane is not None:
+            culled = self._native_plane.close_idle(self.options.idle_timeout_s)
+            if culled:
+                logger.info(
+                    "reaped %d idle native connection(s) (> %gs)", culled, self.options.idle_timeout_s
+                )
+        self._schedule_idle_reap()
+
+    def enter_lame_duck(self, grace_s: Optional[float] = None) -> Optional[threading.Thread]:
+        """Lame-duck drain (the reference's graceful quit → Server::Stop
+        (grace) path): stop accepting NEW connections (the listener closes,
+        so redials are refused and a balanced client routes elsewhere),
+        answer NEW requests on existing connections with ELOGOFF
+        (retriable — a balanced client lands on another replica), let
+        in-flight RPCs, open collective sessions and open streams finish
+        within ``grace_s`` (default: the ``lame_duck_grace_s`` flag), then
+        hard-stop. Returns the drain thread (join it to observe the full
+        lifecycle), or None if the server wasn't running. The
+        ``/health`` page that reports the drain waits for ROADMAP A12."""
+        if not self._started or self._stopping:
+            return None
+        with self._lock:
+            if self._lame_duck:
+                return self._lame_duck_thread
+            self._lame_duck = True
+        grace = float(get_flag("lame_duck_grace_s")) if grace_s is None else float(grace_s)
+        # scrapeable drain marker; dies with the other gauges at stop
+        self._limit_gauges.append(
+            PassiveStatus(
+                lambda: 1 if self._lame_duck and not self._stopping else 0,
+                name=f"server_{self.port}_lame_duck",
+            )
+        )
+        if self._acceptor is not None:
+            self._acceptor.pause()
+        if self._native_plane is not None:
+            self._native_plane.pause_accept()
+        logger.info("server %s entering lame duck (grace %.1fs)", self.listen_endpoint, grace)
+        t = threading.Thread(
+            target=self._drain_then_stop,
+            args=(grace,),
+            name=f"tbtorch-lame-duck-{self.port}",
+            daemon=True,
+        )
+        self._lame_duck_thread = t
+        t.start()
+        return t
+
+    def _drain_then_stop(self, grace_s: float) -> None:
+        from incubator_brpc_tpu_torch.parallel.mc_dispatch import active_sessions
+
+        deadline = time.monotonic() + grace_s
+        with self._quiescent:
+            self._quiescent.wait_for(
+                lambda: self._nprocessing == 0, timeout=max(0.0, deadline - time.monotonic())
+            )
+        # open collective sessions pin devices across the fabric, and open
+        # streaming RPCs are in-flight work with no _nprocessing footprint:
+        # both get the rest of the grace window before the hard stop
+        while (active_sessions(owner=self) > 0 or self._open_streams()) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        stragglers = self._open_streams()
+        if stragglers:
+            # grace expired under live streams: RST them NOW so each
+            # peer's writer stops on a clean frame
+            logger.warning("lame-duck grace expired with %d open stream(s); sending RST", len(stragglers))
+            for st in stragglers:
+                try:
+                    st.rst(ErrorCode.ELOGOFF, "server drained (lame duck)")
+                except Exception:
+                    logger.exception("lame-duck stream RST raised")
+        drained = self._nprocessing == 0 and active_sessions(owner=self) == 0 and not stragglers
+        if not drained:
+            logger.warning(
+                "lame-duck grace %.1fs expired with work still in flight (%d rpcs, %d sessions); "
+                "hard-stopping", grace_s, self._nprocessing, active_sessions(owner=self),
+            )
+        else:
+            # linger briefly before the hard stop: responses written in the
+            # last instants (the final ELOGOFFs included) are still in
+            # socket buffers — closing under them would turn a clean drain
+            # into client-side resets
+            time.sleep(min(0.25, max(0.0, deadline - time.monotonic())))
+        self.stop()
+        self.join(timeout=max(0.5, deadline - time.monotonic()))
+
+    def _open_streams(self):
+        """Live streaming RPCs bound to this server's connections — the
+        third kind of in-flight work the lame-duck drain waits on (the
+        first two: ``_nprocessing`` handlers, collective sessions)."""
+        if self._acceptor is None:
+            return []
+        try:
+            conns = list(self._acceptor.connections())
+        except Exception:
+            return []
+        return stream_mod.open_streams(conns)
+
+    @property
+    def lame_duck(self) -> bool:
+        """True while this server drains toward stop (new work is refused
+        with ELOGOFF, existing work finishes)."""
+        return self._lame_duck
+
     def stop(self) -> None:
         """Stop accepting + fail connections; in-flight handlers finish
         (Server::Stop then Join, server.cpp)."""
         if not self._started:
             return
         self._stopping = True
+        _started_servers.discard(self)
+        tid = self._idle_reap_timer_id
+        if tid is not None:
+            self._idle_reap_timer_id = None
+            global_timer_thread().unschedule(tid)
+        for g in self._limit_gauges:
+            try:
+                g.hide()
+            except Exception:
+                pass
+        self._limit_gauges.clear()
         if self._acceptor is not None:
             self._acceptor.stop()
         if self._native_plane is not None:
@@ -458,28 +875,113 @@ class Server:
         self._device_socks.clear()
 
     def join(self, timeout: Optional[float] = None) -> bool:
-        """Wait until every in-flight request finished."""
+        """Wait until every in-flight request finished; a stopped server's
+        factory-made user data is destroyed once its handlers drained."""
         with self._quiescent:
-            return self._quiescent.wait_for(
-                lambda: self._nprocessing == 0, timeout=timeout
-            )
+            ok = self._quiescent.wait_for(lambda: self._nprocessing == 0, timeout=timeout)
+        # only when the server is actually stopping AND the drain finished:
+        # a timed-out join leaves live handlers that still hold the objects
+        if ok and self._stopping:
+            if self._tls_pool is not None:
+                with self._lock:
+                    borrowed, self._tls_borrowed = self._tls_borrowed, []
+                for obj in borrowed:
+                    self._tls_pool.give_back(obj)
+                self._tls_pool.destroy_all()
+            if self._session_pool is not None:
+                self._session_pool.destroy_all()
+        return ok
+
+    # -- session/thread-local user data (server.h:55-239) -------------------
+
+    def session_local_data(self, sock):
+        """Per-connection pooled data: borrowed from the pool on this
+        connection's first access, pinned on the socket, given back when
+        the connection dies (Controller::session_local_data). Give-back is
+        guarded by a per-socket handler refcount: a connection that dies
+        while its handler is still running must NOT pool the object out
+        from under it — release defers to the last handler's exit."""
+        if self._session_pool is None or sock is None:
+            return None
+        from incubator_brpc_tpu_torch.transport.sock import CONNECTED
+
+        ctx = sock.context
+        with self._session_lock:
+            # first access is serialized: two pipelined requests on one
+            # connection share ONE object
+            obj = ctx.get("_session_local_data")
+            if obj is not None:
+                return obj
+            obj = self._session_pool.borrow()
+            ctx["_session_local_data"] = obj
+            if sock.state == CONNECTED:
+                sock.on_failed.append(self._session_give_back)
+            else:
+                # failed before the hook could land: the last handler's
+                # exit releases it
+                ctx["_session_release_pending"] = True
+        return obj
+
+    def _session_give_back(self, sock) -> None:
+        """on_failed hook: pool the connection's session object — unless a
+        handler on this connection is still running, in which case the
+        release defers to the last handler's exit."""
+        with self._session_lock:
+            if sock.context.get("_session_nhandlers", 0) > 0:
+                sock.context["_session_release_pending"] = True
+                return
+            data = sock.context.pop("_session_local_data", None)
+        if data is not None:
+            self._session_pool.give_back(data)
+
+    def _session_handler_enter(self, sock) -> None:
+        if self._session_pool is None or sock is None:
+            return
+        with self._session_lock:
+            ctx = sock.context
+            ctx["_session_nhandlers"] = ctx.get("_session_nhandlers", 0) + 1
+
+    def _session_handler_exit(self, sock) -> None:
+        if self._session_pool is None or sock is None:
+            return
+        data = None
+        with self._session_lock:
+            ctx = sock.context
+            n = ctx.get("_session_nhandlers", 1) - 1
+            ctx["_session_nhandlers"] = n
+            if n <= 0 and ctx.pop("_session_release_pending", False):
+                data = ctx.pop("_session_local_data", None)
+        if data is not None:
+            self._session_pool.give_back(data)
+
+    def thread_local_data(self):
+        """Per-worker-thread pooled data for THIS server
+        (brpc::thread_local_data(); created on a thread's first call,
+        reused for every later request on that thread, destroyed with the
+        server)."""
+        if self._tls_pool is None:
+            return None
+        slots = getattr(self._tls_slots, "data", None)
+        if slots is None:
+            slots = self._tls_pool.borrow()
+            self._tls_slots.data = slots
+            with self._lock:
+                self._tls_borrowed.append(slots)
+        return slots
 
     @property
     def port(self) -> int:
         return self.listen_endpoint.port if self.listen_endpoint else 0
+
+    @property
+    def running(self) -> bool:
+        return self._started and not self._stopping
 
     def connection_count(self) -> int:
         """Host connections this server holds open."""
         if self._native_plane is not None:
             return self._native_plane.connection_count()
         return self._acceptor.connection_count() if self._acceptor else 0
-
-    def _open_streams(self):
-        """Live streaming RPCs bound to this server's connections (the
-        reference's lame-duck drain waits on them, ROADMAP A7)."""
-        if self._acceptor is None:
-            return []
-        return stream_mod.open_streams(self._acceptor.connections())
 
     # -- request path --------------------------------------------------------
 
@@ -499,7 +1001,7 @@ class Server:
         cntl._server = self
         cntl._service = meta.service
         cntl._method = meta.method
-        cntl._sock = sock  # stream_accept needs the connection
+        cntl._sock = sock  # stream_accept and session data need the connection
         cntl._mark_start()
 
         # deadline propagation (reference RpcRequestMeta.timeout_ms +
@@ -523,10 +1025,31 @@ class Server:
             cntl.timeout_ms = budget_ms
             cntl._deadline = arrival + budget_ms / 1000.0
 
-        if self._stopping:
-            # a stopping server refuses NEW work with the retriable ELOGOFF;
-            # in-flight handlers (admitted before) finish
+        inj = self.options.fault_injector
+        if inj is not None and get_flag("fault_injection"):
+            # the frame-dispatch seam: a scripted brownout fails, delays
+            # (decide() sleeps) or drops this request before the handler
+            # runs — the deterministic misbehaving backend the limiter and
+            # breaker proofs drive against
+            action = inj.decide()
+            if action == ACTION_CLOSE:
+                sock.set_failed(ErrorCode.ECLOSE, "injected close")
+                return
+            if action == ACTION_ERROR:
+                cntl.set_failed(inj.error_code, "injected fault")
+                self.nerror << 1
+                self._send_response(sock, cntl, b"")
+                return
+
+        if self._stopping or self._lame_duck:
+            # a stopping or lame-duck server refuses NEW work with the
+            # retriable ELOGOFF; in-flight handlers (admitted before) finish
             cntl.set_failed(ErrorCode.ELOGOFF, berror(ErrorCode.ELOGOFF))
+            self._send_response(sock, cntl, b"")
+            return
+        if self.options.auth is not None and not server_check(meta, sock, self.options.auth):
+            cntl.set_failed(ErrorCode.ERPCAUTH, berror(ErrorCode.ERPCAUTH))
+            self.nerror << 1
             self._send_response(sock, cntl, b"")
             return
         prop = self._methods.get(f"{meta.service}.{meta.method}")
@@ -540,7 +1063,11 @@ class Server:
             self._send_response(sock, cntl, b"")
             return
         status = prop.status
-        self._admit(status)
+        if not self._admit(status):
+            cntl.set_failed(ErrorCode.ELIMIT, berror(ErrorCode.ELIMIT))
+            self.nerror << 1
+            self._send_response(sock, cntl, b"")
+            return
 
         try:
             payload = frame.payload
@@ -552,10 +1079,12 @@ class Server:
             return
         cntl._request_payload = payload
 
+        maybe_dump_request(meta, payload, frame.attachment)
+
         # wire the async-response closure before running user code. The
         # closure finishes AT MOST ONCE: the async-reap timer below and a
         # late (or duplicate) send_response from the handler must not both
-        # release the admission slot.
+        # release the admission slot and the session refcount.
         cntl._async = False
         cntl.set_async = lambda: setattr(cntl, "_async", True)
         finish_lock = threading.Lock()
@@ -584,6 +1113,10 @@ class Server:
             )
             self._finish(sock, cntl, b"", status)
 
+        self._session_handler_enter(sock)
+        cntl._session_entered = True  # paired in _finish
+        prev_server = getattr(_usercode_tls, "server", None)
+        _usercode_tls.server = self
         # downstream Channels on this thread inherit the request's
         # remaining budget (rpc/deadline.py) — the decrement-across-hops
         # half of deadline propagation
@@ -596,9 +1129,10 @@ class Server:
             response = b""
         finally:
             pop_deadline(prev_deadline)
+            _usercode_tls.server = prev_server
         if cntl._async and not cntl.failed():
             # handler owns the response now — but bound how long it can
-            # hold the admission slot
+            # hold the admission slot and the session refcount
             self._watch_async_response(cntl, _reap_unanswered)
             return
         _finish_once(response or b"")
@@ -628,30 +1162,118 @@ class Server:
         if tid is not None:
             cntl._reap_timer_id = None
             global_timer_thread().unschedule(tid)
+        if getattr(cntl, "_session_entered", False):
+            cntl._session_entered = False
+            self._session_handler_exit(sock)
         if cntl.failed() and cntl._accepted_stream_id:
             # handler accepted a stream then failed: the response will carry
             # stream_id=0, so the client kills its half — kill ours too
             s = stream_mod.get_stream(cntl._accepted_stream_id)
             if s is not None:
                 s._fail(cntl.error_code, "rpc failed after stream_accept")
-        self._send_response(sock, cntl, response)
+        # the admission slot is released BEFORE the response is written
+        # (the JAX package releases after): a client that reads this
+        # response and sends its next request at once must not find this
+        # call still counted, or a serial caller sees ELIMIT whenever an
+        # adaptive limit has come down to 1
         cntl._mark_end()
         self._release(status, cntl)
+        self._send_response(sock, cntl, response)
         if cntl.failed():
             self.nerror << 1
 
-    def _admit(self, status: MethodStatus) -> None:
-        """Count the request in flight (caller MUST pair with _release)."""
+    # -- admission (method_status.h:90-97) -----------------------------------
+
+    def _admit(self, status: MethodStatus) -> bool:
+        """Server-level then per-method gate; True = admitted (the caller
+        MUST pair it with _release)."""
         with self._lock:
             self._nprocessing += 1
-        status.on_requested()
-
-    def _release(self, status: MethodStatus, cntl: Controller) -> None:
-        status.on_responded(cntl.error_code, cntl.latency_us)
+            current = self._nprocessing
+        lim = self._server_limiter
+        if (lim is None or lim.on_requested(current)) and status.on_requested():
+            return True
+        # the server or the method gate refused: undo the server add
         with self._lock:
             self._nprocessing -= 1
             if self._nprocessing == 0:
                 self._quiescent.notify_all()
+        return False
+
+    def _release(self, status: MethodStatus, cntl: Controller) -> None:
+        status.on_responded(cntl.error_code, cntl.latency_us)
+        lim = self._server_limiter
+        if lim is not None:
+            lim.on_responded(cntl.error_code, cntl.latency_us)
+        with self._lock:
+            self._nprocessing -= 1
+            if self._nprocessing == 0:
+                self._quiescent.notify_all()
+
+    @property
+    def max_concurrency(self) -> int:
+        """Current server-wide limit (an auto limiter moves it); 0 =
+        unlimited."""
+        lim = self._server_limiter
+        return lim.max_concurrency() if lim is not None else 0
+
+    @property
+    def fault_injector(self):
+        return self.options.fault_injector
+
+    @fault_injector.setter
+    def fault_injector(self, inj) -> None:
+        self.options.fault_injector = inj
+
+    def reset_max_concurrency(self, max_concurrency: Union[int, str]) -> Union[int, str]:
+        """Change the server-level concurrency spec while RUNNING
+        (reference Server::ResetMaxConcurrency, server.h:483-488): an int
+        (0 = unlimited) or "auto" (a FRESH adaptive limiter). Returns the
+        previous spec. Takes effect on the next admission check —
+        in-flight requests are never evicted. A server that started
+        without a constant server-wide limit registered its native-kind
+        methods for C++ dispatch, which has no server-level gate: a
+        constant limit set later bounds the Python-routed methods only,
+        and an adaptive one is pushed per method into the plane as it
+        moves."""
+        prev = self.options.max_concurrency
+        spec: Union[int, str] = (
+            max_concurrency if isinstance(max_concurrency, str) else max(0, int(max_concurrency))
+        )
+        self.options.max_concurrency = spec
+        self._server_limiter = create_concurrency_limiter(
+            spec, on_limit_change=self._on_server_limit_change
+        )
+        # re-seed the native plane: leaving the OLD adaptive ceiling in the
+        # C++ per-method table would keep shedding at a stale limit; an
+        # unlimited or constant spec reverts the followers to 0
+        if isinstance(self._server_limiter, AutoConcurrencyLimiter):
+            self._on_server_limit_change(self._server_limiter.max_concurrency())
+        else:
+            self._on_server_limit_change(0)
+        return prev
+
+    def set_method_max_concurrency(self, full_name: str, n: Union[int, str]) -> bool:
+        """Per-method runtime limit (reference MaxConcurrencyOf setter,
+        server.h:490): an int or "auto"; True if the method exists.
+        Propagates to the native plane, where the limit is read per
+        request."""
+        prop = self._methods.get(full_name)
+        if prop is None:
+            return False
+        prop.status.max_concurrency = n if isinstance(n, str) else max(0, int(n))
+        plane = self._native_plane
+        if plane is not None:
+            plane.set_native_max_concurrency(full_name, prop.status.max_concurrency)
+            # a method with its OWN limiter must no longer follow the
+            # server-wide adaptive pushes; clearing back to unlimited
+            # resumes following
+            plane.set_auto_limit_target(full_name, prop.status.limiter is None)
+        return True
+
+    def method_max_concurrency(self, full_name: str) -> Optional[int]:
+        prop = self._methods.get(full_name)
+        return prop.status.max_concurrency if prop is not None else None
 
     def _send_response(self, sock, cntl: Controller, response: bytes) -> None:
         """SendRpcResponse (baidu_rpc_protocol.cpp:136): serialize+compress,

@@ -311,8 +311,8 @@ class Stream:
     def rst(self, code: int = ErrorCode.ECLOSE, reason: str = "stream reset") -> None:
         """Force-terminate the stream NOW: tell the peer with an RST frame
         (so its writer stops instead of filling a dead window) and fail
-        the local side (the reference's lame-duck drain, ROADMAP A7, uses
-        this at grace expiry)."""
+        the local side (the lame-duck drain, ``Server.enter_lame_duck``,
+        sends it to the streams still open at grace expiry)."""
         with self._lock:
             sock, rid = self._sock, self.remote_id
             alive = self.state == CONNECTED

@@ -21,8 +21,9 @@ Kept semantics:
 - ``urgent=True`` maps bthread_start_urgent: LIFO-push so it runs next on
   the local worker.
 
-The port's copy of the JAX package's pool, without fiber-local storage
-(``runtime/keys.py`` is not copied). Workers are named ``tbtorch-worker-N``.
+The port's copy of the JAX package's pool, with its fiber-local storage
+hooks (``runtime/keys.py``: a fiber's key table, its destructors run when
+the fiber ends). Workers are named ``tbtorch-worker-N``.
 One addition: a worker that parks in a butex wait while fibers are queued
 and no worker is idle starts a replacement at once (``_grow_if_starved``),
 where the JAX package grows only at the next spawn. A burst of requests cut
@@ -41,14 +42,14 @@ from incubator_brpc_tpu_torch.bvar import Adder
 from incubator_brpc_tpu_torch.runtime.butex import Butex
 from incubator_brpc_tpu_torch.utils.flags import get_flag
 
-_tls = threading.local()  # .worker -> _Worker when on a pool thread
+_tls = threading.local()  # .worker -> _Worker on a pool thread; .fiber -> the running Fiber
 
 
 class Fiber:
     """Handle to a spawned task; join() parks on the version butex."""
 
     __slots__ = ("_fn", "_args", "_kwargs", "_version_butex", "result",
-                 "exception", "urgent")
+                 "exception", "urgent", "keytable")
 
     def __init__(self, fn, args, kwargs, urgent: bool):
         self._fn = fn
@@ -58,6 +59,7 @@ class Fiber:
         self.result: Any = None
         self.exception: Optional[BaseException] = None
         self.urgent = urgent
+        self.keytable = None  # lazily built by runtime.keys
 
     @property
     def done(self) -> bool:
@@ -80,11 +82,21 @@ class Fiber:
         return self.result
 
     def _run(self) -> None:
+        prev_fiber = getattr(_tls, "fiber", None)
+        _tls.fiber = self  # fiber-local storage context (runtime.keys)
         try:
             self.result = self._fn(*self._args, **self._kwargs)
         except BaseException as e:  # noqa: BLE001 — stored, re-raised in get()
             self.exception = e
         finally:
+            if self.keytable is not None:
+                # run key destructors on fiber exit (key.cpp KeyTable dtor)
+                # BEFORE restoring _tls.fiber: a destructor reading or
+                # writing other keys must still see THIS fiber's table
+                from incubator_brpc_tpu_torch.runtime import keys as _keys
+
+                _keys.run_destructors(self.keytable)
+            _tls.fiber = prev_fiber
             # exit path: bump version, wake joiners (task_group.cpp:327-347)
             self._version_butex.add(1)
             self._version_butex.wake_all()

@@ -4,7 +4,8 @@ fd runs an accept-until-EAGAIN loop in a fiber, creating a Socket per
 connection; stop() closes the listener and fails every accepted socket.
 
 The port's copy of the JAX package's ``transport/acceptor.py`` on TCP
-listeners, without TLS, unix-domain sockets and the lame-duck pause.
+listeners, with the lame-duck ``pause``; TLS and unix-domain sockets wait
+for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ class Acceptor:
         self._conn_lock = threading.Lock()
         self._accepting = False
         self._stopped = False
+        self._paused = False  # lame-duck: listener closed, conns live
 
         lsock = _pysocket.socket(_pysocket.AF_INET, _pysocket.SOCK_STREAM)
         lsock.setsockopt(_pysocket.SOL_SOCKET, _pysocket.SO_REUSEADDR, 1)
@@ -104,7 +106,7 @@ class Acceptor:
         finally:
             with self._conn_lock:
                 self._accepting = False
-            if not self._stopped:
+            if not self._stopped and not self._paused:
                 self._dispatcher.rearm(self._lsock.fileno(), EVENT_IN)
 
     def _forget(self, sock: Socket) -> None:
@@ -113,12 +115,28 @@ class Acceptor:
 
     # -- teardown -----------------------------------------------------------
 
-    def stop(self) -> None:
-        self._stopped = True
+    def pause(self) -> None:
+        """Lame-duck: close the listener (new connects are refused by the
+        kernel, so an LB redials elsewhere) while every accepted
+        connection keeps being served. Irreversible; ``stop`` still
+        performs the full teardown."""
+        with self._conn_lock:
+            if self._stopped or self._paused:
+                return
+            self._paused = True
+        self._close_listener()
+
+    def _close_listener(self) -> None:
         self._dispatcher.remove_consumer(self._lsock.fileno())
         try:
             self._lsock.close()
         except OSError:
             pass
+
+    def stop(self) -> None:
+        was_paused = self._paused
+        self._stopped = True
+        if not was_paused:  # pause already tore the listener down
+            self._close_listener()
         for sock in self.connections():
             sock.set_failed(ErrorCode.ECLOSE, "acceptor stopped")

@@ -60,8 +60,10 @@ module's does.
 A link that fails aborts the collective sessions of its parties
 (``parallel/mc_dispatch.py`` ``abort_sessions_for_devices``, keyed by job
 rank: a multi-controller link's two ranks; a link inside one process has
-no ranks). Not here yet: credentials on links (``auth``, ROADMAP A7;
-``ssl_*``, A10).
+no ranks). Credentials ride the handshake's bootstrap channel and key the
+link (``DeviceLinkMap.get_or_create(auth=)``): channels with different
+credentials never share a link. Not here yet: TLS on links (``ssl_*``,
+ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -727,6 +729,7 @@ class DeviceSocket:
         self.is_client = side == 0
         self.inline_read = False
         self.on_failed: List = []
+        self.on_revived: List = []  # never fires: a dead link is re-handshaken, not revived
         self._read_buf = IOBuf()
         self._feed_lock = threading.Lock()
         self._recycled = False
@@ -873,6 +876,7 @@ class DeviceLinkMap:
         # by every caller that wants the link — failures double the wait
         # (device_link_backoff_initial_ms .. _max_ms), success clears it
         self._backoff: Dict[tuple, tuple] = {}
+        self._cred_refs: Dict[tuple, object] = {}  # keep id()-keyed objects alive
 
     def _key_lock(self, key: tuple) -> threading.Lock:
         with self._lock:
@@ -894,10 +898,15 @@ class DeviceLinkMap:
         ssl_context=None,
         ssl_server_hostname=None,
     ) -> "DeviceSocket":
-        """The live link to ``ep`` for this geometry, handshaking one when
-        there is none. ``controller="multi"`` handshakes the link whose
-        halves live in two processes (``transport/mc_link.py``). Credentials
-        (``auth``, A7; ``ssl_*``, A10) are refused until those items."""
+        """The live link to ``ep`` for this geometry and these credentials,
+        handshaking one when there is none. ``controller="multi"``
+        handshakes the link whose halves live in two processes
+        (``transport/mc_link.py``). ``auth`` is the calling channel's
+        Authenticator: the handshake presents it (an auth-requiring server
+        rejects a bare bootstrap), and it is part of the link identity —
+        channels with different credentials never share a link (the
+        reference keys SocketMap by {EndPoint, rdma, ssl, auth},
+        socket_map.h:35). ``ssl_*`` are refused until ROADMAP A10."""
         from incubator_brpc_tpu_torch.rpc.controller import refuse_unported
         from incubator_brpc_tpu_torch.transport.sock import CONNECTED
         from incubator_brpc_tpu_torch.utils.flags import get_flag
@@ -905,13 +914,19 @@ class DeviceLinkMap:
         if controller not in ("single", "multi"):
             raise ValueError(f"unknown controller {controller!r}")
         for name, value, default, item in (
-            ("auth", auth, None, "A7"),
             ("ssl_context", ssl_context, None, "A10"),
             ("ssl_server_hostname", ssl_server_hostname, None, "A10"),
         ):
             if value != default:
                 refuse_unported("DeviceLinkMap.get_or_create", name, value, item)
-        key = (ep.ip, ep.port, device_index, slot_words, window, ack_mode, controller)
+        ident = f"auth-{id(auth):x}" if auth is not None else ""
+        key = (ep.ip, ep.port, device_index, slot_words, window, ack_mode, controller, ident)
+        if auth is not None:
+            # the key embeds an id(): retain the credential object for the
+            # entry's lifetime, or a collected auth object's recycled
+            # address would alias a DIFFERENT principal onto this link
+            with self._lock:
+                self._cred_refs[key] = auth
         # per-key lock: a thundering herd to one peer produces ONE
         # handshake, while links to OTHER peers establish concurrently
         with self._key_lock(key):
@@ -942,7 +957,7 @@ class DeviceLinkMap:
                 boot = Channel()
                 if not boot.init(
                     EndPoint(ip=ep.ip, port=ep.port),
-                    options=ChannelOptions(timeout_ms=timeout_ms),
+                    options=ChannelOptions(timeout_ms=timeout_ms, auth=auth),
                 ):
                     raise ConnectionError(f"device-link bootstrap channel init failed for {ep}")
                 if controller == "multi":
@@ -982,6 +997,8 @@ class DeviceLinkMap:
                 for k, old in [(k, v) for k, v in self._links.items() if v.state != CONNECTED]:
                     old.recycle()
                     del self._links[k]
+                    if k != key:
+                        self._cred_refs.pop(k, None)
                 self._links[key] = ds
             return ds
 
@@ -997,6 +1014,7 @@ class DeviceLinkMap:
         with self._lock:
             links, self._links = list(self._links.values()), {}
             self._backoff.clear()
+            self._cred_refs.clear()
         for ds in links:
             ds.recycle()
 

@@ -25,18 +25,28 @@ and this module is the seam between it and the port's Python RPC layer:
 - The telemetry ring: every natively dispatched request appends a
   completion record to a lock-free ring in C++; the drain here (a
   background thread, and a forced drain at stop) feeds per-method
-  ``LatencyRecorder``s.
+  ``LatencyRecorder``s and, where an adaptive limiter listens, the
+  server's limiters (``Server._on_native_completion``).
+- Limits: each native method carries its per-method limit into the C++
+  table (``tb_server_register_native``); an adaptive limit, the method's
+  own or the server-wide one distributed per method, is pushed there as
+  it moves (``set_native_max_concurrency``), and the C++ dispatch answers
+  ELIMIT past it. A constant server-wide limit, or an authenticator,
+  keeps every method on the Python route, where those gates run: on
+  tbus_std the credential rides the JSON meta, which the C++ cutter does
+  not read.
+- ``install_native_client_fault`` arms the native client's counter
+  schedule (every Nth call fails, closes or waits, in C++) on every
+  ``NativeClientChannel`` made while the ``fault_injection`` flag is on.
 
 The port's copy of the JAX package's ``transport/native_plane.py``. Not
-here yet, each refusing where it is asked for: the native plane's auth and
-per-method limits with the adaptive limiter's feedback (ROADMAP A7; the
-``auth`` and ``max_concurrency`` options refuse in ``ServerOptions``) and
-its client fault seam (``install_native_client_fault``, A7); baidu_std on
-the native plane (A11: ``NativeClientChannel(protocol="baidu_std")``
-refuses, and a baidu_std frame reaching the Python route closes its
-connection); the rpcz spans the telemetry ring samples (A12). A handle of
-this package's library (an IOBuf, a connection token) never crosses to
-another package's runtime: only bytes on the wire do.
+here yet, each refusing where it is asked for: baidu_std on the native
+plane with its native auth token table (A11:
+``NativeClientChannel(protocol="baidu_std")`` refuses, and a baidu_std
+frame reaching the Python route closes its connection); the rpcz spans
+the telemetry ring samples (A12). A handle of this package's library (an
+IOBuf, a connection token) never crosses to another package's runtime:
+only bytes on the wire do.
 """
 
 from __future__ import annotations
@@ -289,6 +299,10 @@ class NativeServerPlane:
         self._handoff_socks: set = set()  # live handed-off Python Sockets
         self._user_libs: list = []  # dlopened user-method libraries
         self._native_names: list = []  # fulls registered for C++ dispatch
+        # natively registered methods with no limit of their own: the
+        # server-wide ADAPTIVE limit is distributed to them per method
+        # (the C++ plane has no server-level gate)
+        self._auto_targets: list = []
         self._m_stats: list = []
         self._stopped = False
         self.port = 0
@@ -297,13 +311,28 @@ class NativeServerPlane:
 
     def register_methods(self) -> None:
         """Register native-kind handlers (echo/nop) and user .so methods
-        for pure-C++ dispatch; everything else stays on the per-frame
-        Python route. (The port's methods run with unlimited concurrency:
-        limits wait for ROADMAP A7.)"""
+        for pure-C++ dispatch, each with its per-method limit; everything
+        else stays on the per-frame Python route. Gates the Python route
+        enforces per request must not be skippable by a fast path: a
+        CONSTANT server-wide limit has no native enforcement, and neither
+        has a tbus_std credential, so a server with either keeps ALL
+        methods on the Python route. A server-wide "auto" limit IS
+        enforceable natively, as a per-method ceiling pushed every time the
+        adaptive limit moves (Server._on_server_limit_change)."""
+        from incubator_brpc_tpu_torch.rpc.concurrency_limiter import AutoConcurrencyLimiter
+
+        # gate on the RESOLVED limiter, not the raw spec: "12" is a
+        # constant limit too
+        lim = self._server._server_limiter
+        if lim is not None and not isinstance(lim, AutoConcurrencyLimiter):
+            return
+        if self._server.options.auth is not None:
+            return
         for full, prop in self._server.methods().items():
             kind = _native_kind(prop.handler)
+            limit = prop.status.max_concurrency
             if kind is not None:
-                if LIB.tb_server_register_native(self._srv, full.encode(), kind, 0) != 0:
+                if LIB.tb_server_register_native(self._srv, full.encode(), kind, limit) != 0:
                     # duplicate / key collision: the method stays on the
                     # Python route and must NOT claim a telemetry index
                     # (_native_names positions mirror the C++ table)
@@ -312,6 +341,8 @@ class NativeServerPlane:
                     )
                     continue
                 self._native_names.append(full)
+                if prop.status.limiter is None:
+                    self._auto_targets.append(full)
                 continue
             lib_spec = getattr(prop.handler, "_native_lib", None)
             if lib_spec is None:
@@ -326,7 +357,7 @@ class NativeServerPlane:
                     path, symbol, e, full,
                 )
                 continue
-            if LIB.tb_server_register_native_fn(self._srv, full.encode(), fn, None, 0) != 0:
+            if LIB.tb_server_register_native_fn(self._srv, full.encode(), fn, None, limit) != 0:
                 logger.warning(
                     "native registration of %s rejected (duplicate or method-key "
                     "collision); it stays on the Python route", full,
@@ -334,6 +365,8 @@ class NativeServerPlane:
                 continue
             self._user_libs.append(dll)  # keepalive
             self._native_names.append(full)
+            if prop.status.limiter is None:
+                self._auto_targets.append(full)
             if getattr(prop.handler, "_native_long_running", False):
                 if LIB.tb_server_set_native_long_running(self._srv, full.encode(), 1) != 0:
                     logger.warning("long-running flag rejected for %s", full)
@@ -341,6 +374,41 @@ class NativeServerPlane:
     def native_method_names(self) -> list:
         """Methods dispatched on the C++ plane (registration order)."""
         return list(self._native_names)
+
+    def set_native_max_concurrency(self, full_name: str, n: int) -> bool:
+        """Runtime retune of a natively registered method's admission
+        limit (False if the method is not native). Guarded against the
+        stopped plane: a limiter update racing tb_server_destroy (a
+        straggler completion after Server.stop) must not touch freed
+        state."""
+        with self._stats_lock:
+            if self._srv is None:
+                return False
+            return LIB.tb_server_set_native_max_concurrency(self._srv, full_name.encode(), int(n)) == 0
+
+    def auto_limit_targets(self) -> list:
+        """Natively registered methods that follow the server-wide
+        adaptive limit (no per-method limiter of their own)."""
+        return list(self._auto_targets)
+
+    def set_auto_limit_target(self, full_name: str, follow: bool) -> None:
+        """Flip whether a native method follows the server-wide adaptive
+        limit: a per-method limit set at runtime must STOP the server-wide
+        pushes from clobbering it (and resume when cleared to unlimited)."""
+        if full_name not in self._native_names:
+            return
+        if follow and full_name not in self._auto_targets:
+            self._auto_targets.append(full_name)
+        elif not follow and full_name in self._auto_targets:
+            self._auto_targets.remove(full_name)
+
+    def native_max_concurrency(self, full_name: str) -> int:
+        """Current native-plane limit; -1 = not natively registered (or
+        the plane already stopped)."""
+        with self._stats_lock:
+            if self._srv is None:
+                return -1
+            return int(LIB.tb_server_get_native_max_concurrency(self._srv, full_name.encode()))
 
     def listen(self, ip: str, port: int) -> int:
         rc = LIB.tb_server_listen(self._srv, ip.encode(), port)
@@ -475,11 +543,20 @@ class NativeServerPlane:
     def _consume_records(self, batch, n: int) -> None:
         """Vectorized fan-out of one batch: per-method latency summaries
         (exact count/sum/max, a strided subsample for the percentiles),
-        and natively shed requests into ``deadline_shed_count``."""
+        natively shed requests into ``deadline_shed_count``, and, where an
+        adaptive limiter listens, one time-ordered feed of decimated
+        completions into the server's limiters."""
         import numpy as np
+
+        from incubator_brpc_tpu_torch.rpc.concurrency_limiter import AutoConcurrencyLimiter
 
         arr = np.frombuffer(batch, dtype=self._rec_dtype(), count=n)
         names = self._native_names
+        server = self._server
+        server_auto = isinstance(server._server_limiter, AutoConcurrencyLimiter)
+        interval = int(get_flag("auto_cl_sampling_interval_us"))
+        methods = server.methods()
+        feed = []  # (done_us, full, error_code, latency_us) across methods
         method_ids = arr["method_idx"]
         errors = arr["error_code"]
         lat_us = arr["latency_ns"] * 1e-3
@@ -492,26 +569,61 @@ class NativeServerPlane:
         for idx in np.unique(method_ids):
             if idx >= len(names):
                 continue  # table drift (never expected): drop, don't crash
-            succ = (method_ids == idx) & ok
+            full = names[idx]
+            mask = method_ids == idx
+            succ = mask & ok
             nsucc = int(succ.sum())
-            if not nsucc:
+            if nsucc:
+                recorder = self._tel_recorders.get(int(idx))
+                if recorder is None:
+                    recorder = LatencyRecorder()
+                    base = "native_method_" + full.replace(".", "_") + "_latency_us"
+                    # two planes in one process may serve one method name:
+                    # fall back to a port-scoped name
+                    if not recorder.expose(base):
+                        recorder.expose(
+                            f"native_method_{self.port}_" + full.replace(".", "_") + "_latency_us"
+                        )
+                    self._tel_recorders[int(idx)] = recorder
+                vals = lat_us[succ]
+                recorder.record_batch(
+                    nsucc, float(vals.sum()), float(vals.max()), vals[:: -(-nsucc // 64)][:64].tolist()
+                )
+            # limiter feedback — only where an adaptive limiter listens,
+            # decimated to its sampling interval so a 100 k-record drain
+            # feeds the handful of samples the limiter would keep anyway.
+            # ELIMIT refusals and deadline sheds are excluded, as on the
+            # Python route: shed work never ran the method
+            prop = methods.get(full)
+            method_auto = prop is not None and isinstance(prop.status.limiter, AutoConcurrencyLimiter)
+            if not (server_auto or method_auto):
                 continue
-            recorder = self._tel_recorders.get(int(idx))
-            if recorder is None:
-                full = names[idx]
-                recorder = LatencyRecorder()
-                base = "native_method_" + full.replace(".", "_") + "_latency_us"
-                # two planes in one process may serve one method name:
-                # fall back to a port-scoped name
-                if not recorder.expose(base):
-                    recorder.expose(
-                        f"native_method_{self.port}_" + full.replace(".", "_") + "_latency_us"
-                    )
-                self._tel_recorders[int(idx)] = recorder
-            vals = lat_us[succ]
-            recorder.record_batch(
-                nsucc, float(vals.sum()), float(vals.max()), vals[:: -(-nsucc // 64)][:64].tolist()
-            )
+            fb = mask & (errors != ErrorCode.ELIMIT) & (errors != ErrorCode.EDEADLINE)
+            if not fb.any():
+                continue
+            done_us = (arr["start_ns"][fb] + arr["latency_ns"][fb]) // 1000
+            fb_err = errors[fb]
+            fb_lat = lat_us[fb]
+            order = np.argsort(done_us, kind="stable")
+            ts = done_us[order]
+            picks = []
+            i = 0
+            step = max(1, interval)
+            while i < len(ts) and len(picks) < 1024:
+                picks.append(order[i])
+                i = int(np.searchsorted(ts, ts[i] + step, side="left"))
+            # errors beyond the decimation still matter (all-fail
+            # halving): force-feed a bounded number of them
+            err_pos = np.flatnonzero(fb_err != 0)[:256]
+            for j in {int(q) for q in picks} | {int(q) for q in err_pos}:
+                feed.append((int(done_us[j]), full, int(fb_err[j]), float(fb_lat[j])))
+        # ONE globally time-ordered feed across every method: on_responded
+        # keeps only forward-moving timestamps, so per-method sequences fed
+        # back to back would let the first method's newest sample mask
+        # every other method's older ones from the SHARED server limiter
+        feed.sort()
+        for done, full, err, lat in feed:
+            server._on_native_completion(full, err, lat, now_us=done)
 
     def method_latency(self, full_name: str) -> Optional[LatencyRecorder]:
         """The drained latency summary of a natively dispatched method
@@ -740,6 +852,14 @@ class NativeServerPlane:
             pass
 
 
+# process-global fault schedule for native CLIENT channels: armed on
+# every NativeClientChannel created afterwards while the
+# ``fault_injection`` master flag is on. Redials inherit it — an injected
+# close heals into a re-armed channel, as with the Python seam's
+# process-wide injector.
+_native_client_fault = None
+
+
 def install_native_client_fault(
     fail_every: int = 0,
     close_every: int = 0,
@@ -747,14 +867,15 @@ def install_native_client_fault(
     delay_ms: int = 0,
     error_code: int = 0,
 ) -> None:
-    """The process-global native-client fault schedule waits for the fault
-    injector (ROADMAP A7)."""
-    from incubator_brpc_tpu_torch.rpc.controller import refuse_unported
-
-    refuse_unported(
-        "install_native_client_fault", "fail_every",
-        (fail_every, close_every, delay_every, delay_ms, error_code), "A7",
+    """Install (or clear, with all zeros) the process-global native-client
+    fault schedule (see tb_channel_set_fault). Deterministic counter
+    scheduling like rpc/fault_injector.py; acts only behind the
+    ``fault_injection`` master flag."""
+    global _native_client_fault
+    spec = tuple(
+        max(0, int(v)) for v in (fail_every, close_every, delay_every, delay_ms, error_code)
     )
+    _native_client_fault = spec if any(spec[:3]) else None
 
 
 class NativeClientChannel:
@@ -789,6 +910,9 @@ class NativeClientChannel:
         # reusable per-thread response-meta buffer: a fresh 64 KiB buffer
         # per call costs more than the whole native round trip
         self._tls = threading.local()
+        spec = _native_client_fault
+        if spec is not None and get_flag("fault_injection"):
+            self.set_fault(*spec)
 
     def healthy(self) -> bool:
         return not self._closed and LIB.tb_channel_error(self._ch) == 0
@@ -809,6 +933,25 @@ class NativeClientChannel:
             if self._ch is None:
                 return 0
             return int(LIB.tb_channel_cid_misroutes(self._ch))
+
+    def set_fault(
+        self,
+        fail_every: int = 0,
+        close_every: int = 0,
+        delay_every: int = 0,
+        delay_ms: int = 0,
+        error_code: int = 0,
+    ) -> None:
+        """Arm the C++ channel's counter-scheduled fault seam
+        (tb_channel_set_fault) — the native analog of the Python
+        Socket.write injector: every Nth call fails/closes/delays,
+        deterministically. 0 disables a schedule."""
+        rc = LIB.tb_channel_set_fault(
+            self._ch,
+            *(max(0, int(v)) for v in (fail_every, close_every, delay_every, delay_ms, error_code)),
+        )
+        if rc != 0:
+            raise RuntimeError("tb_channel_set_fault rejected the schedule")
 
     def _meta_bytes(
         self,

@@ -19,9 +19,10 @@ Kept design points (and where they live in the reference):
 - EOVERCROWDED backpressure when the unwritten backlog passes
   ``socket_max_unwritten_bytes`` (socket.cpp:1537).
 
-The port's copy of the JAX package's ``transport/sock.py`` without TLS,
-the fault injector, the per-second rate bvars of the
-portal, and the caller-driven write drain (``write(drain_inline=True)``)
+The port's copy of the JAX package's ``transport/sock.py``, with the
+fault injector's socket-write seam (``rpc/fault_injector.py``), without
+TLS (ROADMAP A10), the per-second rate bvars of the portal (A12), and the
+caller-driven write drain (``write(drain_inline=True)``)
 that the JAX package's stream writers opt into: the port's streams write
 through the same KeepWrite path as every other frame.
 """
@@ -308,6 +309,20 @@ class Socket:
         on its window; this one never waits."""
         if self.state != CONNECTED:
             return ErrorCode.EFAILEDSOCKET
+        # the socket-write fault seam (rpc/fault_injector.py): the master
+        # flag gates everything, so the steady-state cost is ONE flag
+        # read (the module import happens only while injection is armed)
+        if get_flag("fault_injection"):
+            from incubator_brpc_tpu_torch.rpc.fault_injector import socket_injector
+
+            inj = socket_injector()
+            if inj is not None:
+                action = inj.decide()
+                if action == "close":
+                    self.set_failed(ErrorCode.EFAILEDSOCKET, "injected close")
+                    return ErrorCode.EFAILEDSOCKET
+                if action == "error":
+                    return ErrorCode.EFAILEDSOCKET
         if isinstance(data, (bytes, bytearray, memoryview)):
             buf = IOBuf()
             buf.append(bytes(data))

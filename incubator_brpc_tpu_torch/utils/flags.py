@@ -245,6 +245,90 @@ define_flag(
     lambda v: v > 0,
 )
 
+# --- adaptive server-side concurrency limiter (reference
+# src/brpc/policy/auto_concurrency_limiter.cpp DEFINE_* family; same
+# names minus the auto_cl_ prefix collisions) -------------------------------
+define_flag(
+    "auto_cl_sample_window_size_ms",
+    1000,
+    "max duration of one limiter sampling window",
+    lambda v: v > 0,
+)
+define_flag(
+    "auto_cl_min_sample_count",
+    100,
+    "a window with fewer samples than this is discarded on timeout",
+    lambda v: v > 0,
+)
+define_flag(
+    "auto_cl_max_sample_count",
+    200,
+    "a window updates the limit as soon as it holds this many samples",
+    lambda v: v > 0,
+)
+define_flag(
+    "auto_cl_sampling_interval_us",
+    100,
+    "at most one latency sample is fed to the limiter per interval",
+    lambda v: v >= 0,
+)
+define_flag(
+    "auto_cl_initial_max_concurrency",
+    40,
+    "max_concurrency='auto' starts from this limit",
+    lambda v: v > 0,
+)
+define_flag(
+    "auto_cl_noload_latency_remeasure_interval_ms",
+    5000,
+    "period of the probe-down that re-measures no-load latency (the "
+    "reference remeasures every ~50s; shorter here because test traffic "
+    "lives in seconds)",
+    lambda v: v > 0,
+)
+define_flag(
+    "auto_cl_alpha_factor_for_ema",
+    0.1,
+    "EMA keep-rate applied when min_latency shrinks",
+    lambda v: 0 < v <= 1,
+)
+define_flag(
+    "auto_cl_qps_alpha_factor_for_ema",
+    0.1,
+    "EMA keep-rate applied when the qps ceiling decays",
+    lambda v: 0 < v <= 1,
+)
+define_flag(
+    "auto_cl_max_explore_ratio",
+    0.3,
+    "upper bound of the gradient explore ratio",
+    lambda v: v > 0,
+)
+define_flag(
+    "auto_cl_min_explore_ratio",
+    0.06,
+    "lower bound of the gradient explore ratio",
+    lambda v: v > 0,
+)
+define_flag(
+    "auto_cl_change_rate_of_explore_ratio",
+    0.02,
+    "step the explore ratio moves per window",
+    lambda v: v > 0,
+)
+define_flag(
+    "auto_cl_reduce_ratio_while_remeasure",
+    0.9,
+    "probe-down multiplier applied to max_concurrency while remeasuring",
+    lambda v: 0 < v < 1,
+)
+define_flag(
+    "auto_cl_fail_punish_ratio",
+    1.0,
+    "how much of a failed call's latency charges the average",
+    lambda v: v >= 0,
+)
+
 # --- per-node circuit breaker (reference src/brpc/circuit_breaker.cpp) -----
 define_flag(
     "enable_circuit_breaker",
@@ -293,4 +377,38 @@ define_flag(
     0.02,
     "EMA epsilon: a sample's weight decays to this across one window",
     lambda v: 0 < v < 1,
+)
+
+# --- deterministic fault injection (proof plane; default off) --------------
+define_flag(
+    "fault_injection",
+    False,
+    "master gate for the FaultInjector seams (socket write + server "
+    "dispatch); flip on to let the flag-built global injector act",
+    lambda v: True,
+)
+define_flag(
+    "fault_inject_error_rate",
+    0.0,
+    "fraction of server dispatches failed with EINTERNAL by the global "
+    "injector (deterministic counter-based schedule, not random)",
+    lambda v: 0 <= v <= 1,
+)
+define_flag(
+    "fault_inject_delay_ms",
+    0.0,
+    "delay added by the global injector when the delay schedule fires",
+    lambda v: v >= 0,
+)
+define_flag(
+    "fault_inject_delay_rate",
+    0.0,
+    "fraction of operations delayed by the global injector",
+    lambda v: 0 <= v <= 1,
+)
+define_flag(
+    "fault_inject_close_rate",
+    0.0,
+    "fraction of socket writes that instead kill the connection",
+    lambda v: 0 <= v <= 1,
 )

@@ -2,10 +2,11 @@
 device_link``, ``ChannelOptions(transport="tpu")``) on the CPU, held against
 the JAX package's:
 
-- the 23 tests of tests/test_device_link.py that this slice covers —
+- the 24 tests of tests/test_device_link.py that the port covers —
   ``TestDeviceEcho`` (5), ``TestContentionAndFlowControl`` (3),
   ``TestTeardown`` (3), ``TestHostLoopbackFastPath`` (4),
   ``TestWireAckWindow`` (4), ``test_link_map_dedupes_links_across_channels``,
+  ``test_link_map_isolates_credentials`` (ROADMAP A7),
   ``TestStepFailureInjection`` and ``TestZeroCopyDelivery`` (2) — each run on
   both packages with the answers the JAX package's own tests assert. The
   port's servers are built with ``ServerOptions(device="cpu")``: one device,
@@ -28,6 +29,9 @@ the JAX package's:
   and methods {0: echo, 3: x2, 5: +10}, ENOMETHOD for an unknown id), and
   16 threads x 8 calls all succeed with ``fiber_concurrency`` 4 (handlers
   parked on the endpoint during a link delivery do not hold the pool);
+- a server with an authenticator: a link channel with the right
+  credential completes its handshake and calls over the link, and one
+  without is refused with ERPCAUTH, on both packages;
 - ``schedule_session_order`` against the JAX package's on a table of
   link profiles (empty, one measured link, ties, unmeasured entries,
   ``chunks`` > 1): identical orders and notes; and ``link_profile()`` of a
@@ -37,10 +41,9 @@ Of the other 7 tests of tests/test_device_link.py,
 ``test_partition_channel_over_device_links`` and
 ``test_lb_target_with_tpu_transport`` run on both packages in
 tests/test_torch_combo.py (A8 and the combo channels' host form). The rest
-wait for later items: ``TestDynamicPartitionFused``,
+wait for a later item: ``TestDynamicPartitionFused``,
 ``TestCollectiveLowering`` (2) and ``test_fused_falls_back_when_one_link_is_dead``
-the fused collective lowering over the mesh (A3), and
-``test_link_map_isolates_credentials`` credentials on links (A7/A10).
+the fused collective lowering over the mesh (A3c).
 
 Each test stops the servers it started, and after each the port's host
 plane is shut down and no ``tbtorch-*`` thread is left."""
@@ -75,6 +78,7 @@ from incubator_brpc_tpu_torch.runtime.worker_pool import global_worker_pool
 from incubator_brpc_tpu_torch.transport import device_link as port_dl
 from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
 from incubator_brpc_tpu_torch.utils import flags as port_flags
+from incubator_brpc_tpu_torch.utils.status import ErrorCode
 
 PKGS = {
     "jax": types.SimpleNamespace(
@@ -465,6 +469,38 @@ class TestLinkMap:
         assert ch2.call_method("EchoService", "Echo", b"b").ok()
         # one handshake, one link: both channels share the map entry
         assert ch1._device_sock is ch2._device_sock
+
+    def test_link_map_isolates_credentials(self, pkg, echo_server):
+        class FakeAuth:
+            def generate_credential(self) -> str:
+                return "cred"  # credentials are str by contract
+
+            def verify_credential(self, cred, sock) -> bool:
+                return True
+
+        target = _target(_tpu_channel(pkg, echo_server))  # the package's EndPoint
+        plain = pkg.dl.device_link_map.get_or_create(target, timeout_ms=30000)
+        authed = pkg.dl.device_link_map.get_or_create(target, timeout_ms=30000, auth=FakeAuth())
+        # different credentials must NEVER share a link (socket_map.h:35
+        # keys by auth identity for the same reason)
+        assert plain is not authed
+        assert plain.link is not authed.link
+
+    def test_authenticated_link_handshake_presents_credentials(self, pkg):
+        srv = make_server(pkg, {"EchoService": {"Echo": lambda cntl, req: req}},
+                          auth=pkg.rpc.TokenAuthenticator(["link-token"]))
+        ch = _tpu_channel(pkg, srv, auth=pkg.rpc.TokenAuthenticator("link-token"))
+        for i in range(3):
+            c = ch.call_method("EchoService", "Echo", b"over the link %d" % i)
+            assert c.ok(), c.error_text
+            assert c.response_payload == b"over the link %d" % i
+        assert ch._device_sock is not None and ch._device_sock.link is not None
+        bare = _tpu_channel(pkg, srv, max_retry=0)
+        c = bare.call_method("EchoService", "Echo", b"no credential")
+        assert c.failed()
+        # the bootstrap handshake is refused, so the link never forms
+        assert c.error_code == ErrorCode.EFAILEDSOCKET
+        assert "Unauthorized" in c.error_text
 
     def test_link_profile_of_a_live_link(self, pkg, echo_server):
         ch = _tpu_channel(pkg, echo_server)

@@ -5,12 +5,13 @@ CPU, held against the JAX package's:
 
 - all 11 tests of tests/test_lb_naming.py, the 8 of
   tests/test_connection_types.py but ``test_backup_request_keeps_original_connection``
-  (backup requests are A7), ``TestCircuitBreakerUnit`` of
-  tests/test_robustness.py (4), and the three cases of its
-  ``TestBrownoutRecovery`` that need no ``FaultInjector`` and no backup
-  request (``test_connect_refused_feeds_breaker``,
+  (a backup request: tests/test_torch_policies.py, ROADMAP A7),
+  ``TestCircuitBreakerUnit`` of tests/test_robustness.py (4), and the three
+  cases of its ``TestBrownoutRecovery`` that need no ``FaultInjector`` and
+  no backup request (``test_connect_refused_feeds_breaker``,
   ``test_naming_churn_drops_breaker``,
-  ``test_lb_stop_unhooks_revival_callbacks``) — each run on both packages
+  ``test_lb_stop_unhooks_revival_callbacks``; the other six are in
+  tests/test_torch_robustness.py) — each run on both packages
   with the answers the JAX package's own tests assert. The port's servers
   are built with ``ServerOptions(device="cpu")``;
 - LB parity: one seeded script of add, remove, select (with ``excluded``

@@ -25,13 +25,16 @@ against the JAX package's:
   and its native client: bitwise the endpoint's answer through the Python
   plane.
 
-Waiting, and so not here: ``TestPythonRoute.test_method_admission_via_
-python_route`` and ``TestGatesStayEnforced`` (per-method limits, auth and
-the server-wide limit on the native plane: ROADMAP A7, whose options
-refuse in the port's ``ServerOptions``); ``TestInterop.test_http_handoff_
-same_port`` (the HTTP portal: A11 and A12); ``TestGarbageAndEdge.test_unix_
-endpoint_falls_back_to_python_acceptor`` (unix sockets: A10). Tolerance:
-none, everything here is bytes and integers.
+Since ROADMAP A7: ``TestPythonRoute.test_method_admission_via_python_
+route`` and ``TestGatesStayEnforced`` (a per-method limit on the Python
+route, an authenticator and a constant server-wide limit keeping native
+methods on the Python route) run on both packages, and so do the three
+native-plane options that refused naming A7 before (the native client's
+fault schedule, auth, a server-wide limit). Waiting, and so not here:
+``TestInterop.test_http_handoff_same_port`` (the HTTP portal: A11 and
+A12); ``TestGarbageAndEdge.test_unix_endpoint_falls_back_to_python_
+acceptor`` (unix sockets: A10). Tolerance: none, everything here is bytes
+and integers.
 """
 
 from __future__ import annotations
@@ -569,11 +572,140 @@ class TestNativeClientModes:
 def test_port_refuses_what_waits_naming_the_item():
     with pytest.raises(NotImplementedError, match=r"protocol=.*ROADMAP A11\b"):
         port_np.NativeClientChannel("127.0.0.1", 1, protocol="baidu_std")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A7\b"):
-        port_np.install_native_client_fault(fail_every=3)
-    for kw in ({"auth": object()}, {"max_concurrency": 4}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A7\b"):
-            port_rpc.ServerOptions(native_plane=True, **kw)
+
+
+def _served_fault_schedule(pkg, tune):
+    """install_native_client_fault: every 3rd native call fails with the
+    scheduled code, the same positions on both packages."""
+    tune(pkg, "fault_injection", True)
+    pkg.np.install_native_client_fault(fail_every=3, error_code=ErrorCode.EINTERNAL)
+    try:
+        srv = _server(pkg, {"svc": {"echo": pkg.rpc.native_echo}})
+        nch = _native(pkg, srv.port)
+    finally:
+        pkg.np.install_native_client_fault()  # clear: later channels are clean
+    try:
+        codes = [nch.call("svc", "echo", b"x", timeout_ms=5000)[1] for _ in range(9)]
+    finally:
+        nch.close()
+    return codes
+
+
+def _served_auth(pkg, tune):
+    """ServerOptions(native_plane=True, auth=...): the right token answers,
+    a missing or wrong one gets ERPCAUTH, all through the Python route."""
+    auth = pkg.rpc.TokenAuthenticator(["tok-a"])
+    srv = _server(pkg, {"svc": {"echo": pkg.rpc.native_echo}}, auth=auth)
+    good = _channel(pkg, srv.port, auth=pkg.rpc.TokenAuthenticator("tok-a"))
+    codes = [good.call_method("svc", "echo", b"x").error_code for _ in range(2)]
+    codes.append(_channel(pkg, srv.port, native_plane=True).call_method("svc", "echo", b"x").error_code)
+    wrong = _channel(pkg, srv.port, auth=pkg.rpc.TokenAuthenticator("tok-b"))
+    codes.append(wrong.call_method("svc", "echo", b"x").error_code)
+    if pkg.name == "torch":
+        # the port keeps every method on the Python route; the JAX
+        # package's C++ token table (its baidu_std seam, ROADMAP A11 for
+        # the port) answers a proven connection's later frames natively
+        assert srv._native_plane.stats()["native_reqs"] == 0
+        assert srv._native_plane.native_method_names() == []
+    return codes
+
+
+def _served_server_limit(pkg, tune):
+    """ServerOptions(native_plane=True, max_concurrency=1): a constant
+    server-wide limit keeps native methods on the Python route, where a
+    second call while one is held gets ELIMIT."""
+    gate = threading.Event()
+    entered = threading.Event()
+
+    def hold(cntl, req):
+        entered.set()
+        gate.wait(10)
+        return b"done"
+
+    srv = _server(pkg, {"svc": {"hold": hold, "echo": pkg.rpc.native_echo}},
+                  max_concurrency=1, usercode_inline=False)
+    assert srv._native_plane.native_method_names() == []
+    ch = _channel(pkg, srv.port, native_plane=True, timeout_ms=10000, max_retry=0)
+    held = []
+    t = threading.Thread(target=lambda: held.append(ch.call_method("svc", "hold", b"")))
+    t.start()
+    try:
+        assert entered.wait(10)
+        second = ch.call_method("svc", "echo", b"x").error_code
+    finally:
+        gate.set()
+        t.join(10)
+    return [held[0].error_code, second, ch.call_method("svc", "echo", b"x").error_code]
+
+
+SERVED_A7 = {
+    "install_native_client_fault": (_served_fault_schedule, [0, 0, ErrorCode.EINTERNAL] * 3),
+    "auth": (_served_auth, [0, 0, ErrorCode.ERPCAUTH, ErrorCode.ERPCAUTH]),
+    "max_concurrency": (_served_server_limit, [0, ErrorCode.ELIMIT, 0]),
+}
+
+
+@pytest.mark.parametrize("option", sorted(SERVED_A7))
+def test_port_serves_the_native_options_a7_brought(option, tune):
+    """Each native-plane option that refused naming A7 is served by both
+    packages with the same codes."""
+    drive, want = SERVED_A7[option]
+    for pkg in PKGS.values():
+        assert drive(pkg, tune) == want, pkg.name
+
+
+class TestGatesStayEnforced:
+    def test_method_admission_via_python_route(self, pkg):
+        gate = threading.Event()
+        entered = threading.Event()
+
+        def hold(cntl, req):
+            entered.set()
+            gate.wait(10)
+            return b"done"
+
+        srv = pkg.rpc.Server(pkg.rpc.ServerOptions(native_plane=True, **pkg.server_kw))
+        srv.add_service("svc", {"hold": hold})
+        srv._methods.get("svc.hold").status.max_concurrency = 1
+        _OPEN.append(srv)
+        assert srv.start(0)
+        ch = _channel(pkg, srv.port, native_plane=True, timeout_ms=10000)
+        results = []
+        t1 = threading.Thread(target=lambda: results.append(ch.call_method("svc", "hold", b"")))
+        t1.start()
+        try:
+            assert entered.wait(10)
+            c2 = ch.call_method("svc", "hold", b"")
+            assert c2.failed()
+            assert c2.error_code == ErrorCode.ELIMIT
+        finally:
+            gate.set()
+            t1.join(10)
+        assert results[0].ok()
+
+    def test_auth_server_keeps_native_methods_on_python_route(self, pkg):
+        """An Authenticator is a per-request gate the C++ fast path does not
+        run on tbus_std: with auth configured, even native-kind methods go
+        through Server.process_request (and reject bad credentials)."""
+        auth = pkg.rpc.SharedSecretAuthenticator("secret", identity="svc-a")
+        srv = _server(pkg, {"svc": {"echo": pkg.rpc.native_echo}}, auth=auth)
+        ch_ok = _channel(pkg, srv.port,
+                         auth=pkg.rpc.SharedSecretAuthenticator("secret", identity="svc-a"))
+        assert ch_ok.call_method("svc", "echo", b"hi").ok()
+        # an unauthenticated native-plane client is rejected, not silently
+        # served by the C++ dispatcher
+        c = _channel(pkg, srv.port, native_plane=True).call_method("svc", "echo", b"hi")
+        assert c.failed()
+        assert c.error_code == ErrorCode.ERPCAUTH
+        assert srv._native_plane.stats()["native_reqs"] == 0
+
+    def test_server_max_concurrency_disables_native_kinds(self, pkg):
+        srv = _server(pkg, {"svc": {"echo": pkg.rpc.native_echo}}, max_concurrency=64)
+        ch = _channel(pkg, srv.port, native_plane=True)
+        assert ch.call_method("svc", "echo", b"x").ok()
+        # served via the Python route so the server-wide gate applies
+        assert srv._native_plane.stats()["native_reqs"] == 0
+        assert srv.nrequest.get_value() >= 1
 
 
 class TestGarbageAndEdge:

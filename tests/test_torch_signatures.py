@@ -13,13 +13,20 @@ or the port refuses it with a message that names the ROADMAP item that
 brings the parameter. Nothing binds silently to another parameter.
 
 The native plane's options (ROADMAP A6), once refused, are served by both
-packages: each drives an echo through a native-plane server. And
+packages: each drives an echo through a native-plane server. So are the
+policy options of ROADMAP A7 (``test_both_packages_serve_the_policy_
+options``: admission limits, the idle reaper, credentials, the fault
+injector, the data factories, the retry policy and backup requests), and
+the positional calls of C7 that pass ``max_concurrency`` or
+``backup_request_ms`` now bind on both packages. And
 ``run_dispatch_session`` ends as the reference's does, ``..., chunk_order,
 trace_id, parent_span_id`` (ROADMAP C8), with the port's ``device`` and
 ``group_timeout_s`` keyword-only after them; a non-zero trace id refuses
 naming A12."""
 
 import inspect
+import threading
+import time
 import types
 
 import pytest
@@ -31,24 +38,28 @@ import incubator_brpc_tpu.rpc.server as jax_server_mod
 import incubator_brpc_tpu.transport.acceptor as jax_acceptor
 import incubator_brpc_tpu.transport.device_link as jax_dl
 import incubator_brpc_tpu.transport.sock as jax_sock
+import incubator_brpc_tpu.utils.flags as jax_flags
 import incubator_brpc_tpu_torch.parallel.mc_dispatch as port_mcd
 import incubator_brpc_tpu_torch.protocol.registry as port_registry
 import incubator_brpc_tpu_torch.rpc as port_rpc
 import incubator_brpc_tpu_torch.transport.acceptor as port_acceptor
 import incubator_brpc_tpu_torch.transport.device_link as port_dl
 import incubator_brpc_tpu_torch.transport.sock as port_sock
+import incubator_brpc_tpu_torch.utils.flags as port_flags
 from incubator_brpc_tpu_torch.runtime.timer_thread import shutdown_global_timer_thread
+from incubator_brpc_tpu_torch.utils.status import ErrorCode
 
 PKGS = {
     "jax": types.SimpleNamespace(
         name="jax", ServerOptions=jax_server_mod.ServerOptions, rpc=jax_rpc,
         Acceptor=jax_acceptor.Acceptor, Socket=jax_sock.Socket,
-        Protocol=jax_registry.Protocol, dl=jax_dl, server_kw={},
+        Protocol=jax_registry.Protocol, dl=jax_dl, server_kw={}, flags=jax_flags,
     ),
     "torch": types.SimpleNamespace(
         name="torch", ServerOptions=port_rpc.ServerOptions, rpc=port_rpc,
         Acceptor=port_acceptor.Acceptor, Socket=port_sock.Socket,
         Protocol=port_registry.Protocol, dl=port_dl, server_kw={"device": "cpu"},
+        flags=port_flags,
     ),
 }
 
@@ -231,21 +242,13 @@ def test_init_with_lb_name_and_options(pkg, echo_server):
 
 # each unported option value and the ROADMAP item its refusal names
 REFUSED = [
-    ("ServerOptions", {"method_max_concurrency": 2}, "A7"),
-    ("ServerOptions", {"idle_timeout_s": 30}, "A7"),
-    ("ServerOptions", {"auth": object()}, "A7"),
     ("ServerOptions", {"nshead_service": print}, "A11"),
     ("ServerOptions", {"thrift_service": print}, "A11"),
     ("ServerOptions", {"mongo_service_adaptor": object()}, "A11"),
     ("ServerOptions", {"rtmp_service": object()}, "A11"),
     ("ServerOptions", {"ssl_context": object()}, "A10"),
-    ("ServerOptions", {"session_local_data_factory": dict}, "A7"),
-    ("ServerOptions", {"thread_local_data_factory": dict}, "A7"),
-    ("ServerOptions", {"fault_injector": object()}, "A7"),
     ("ChannelOptions", {"protocol": "baidu_std"}, "A11"),
-    ("ChannelOptions", {"auth": object()}, "A7"),
     ("ChannelOptions", {"ssl_context": object()}, "A10"),
-    ("ChannelOptions", {"retry_policy": lambda cntl: True}, "A7"),
 ]
 
 
@@ -277,6 +280,207 @@ def test_both_packages_serve_the_connection_type(ctype):
         finally:
             srv.stop()
             assert srv.join(timeout=10)
+    port_rpc.shutdown_host_plane()
+    shutdown_global_timer_thread()
+
+
+def _policy_server(pkg, handlers, **opts):
+    srv = pkg.rpc.Server(pkg.ServerOptions(**opts, **pkg.server_kw))
+    srv.add_service("P", handlers)
+    assert srv.start(0)
+    return srv
+
+
+def _policy_channel(pkg, port, **opts):
+    ch = pkg.rpc.Channel()
+    assert ch.init(f"127.0.0.1:{port}", options=pkg.rpc.ChannelOptions(**opts))
+    return ch
+
+
+def _held_then_second(pkg, make_server, second):
+    """Hold one call in a gated handler, then make ``second`` (a function
+    of the channel): the codes of the held call and of the second."""
+    gate = threading.Event()
+    entered = threading.Event()
+
+    def hold(cntl, req):
+        entered.set()
+        gate.wait(10)
+        return b"held"
+
+    srv = make_server({"hold": hold, "echo": lambda cntl, req: req})
+    try:
+        ch = _policy_channel(pkg, srv.port, timeout_ms=10000, max_retry=0)
+        held = []
+        t = threading.Thread(target=lambda: held.append(ch.call_method("P", "hold", b"")))
+        t.start()
+        try:
+            assert entered.wait(10)
+            code = second(ch)
+        finally:
+            gate.set()
+            t.join(10)
+        return [held[0].error_code, code]
+    finally:
+        srv.stop()
+        assert srv.join(timeout=10)
+
+
+def _drive_max_concurrency(pkg):
+    return _held_then_second(pkg, lambda h: _policy_server(pkg, h, max_concurrency=1),
+                             lambda ch: ch.call_method("P", "echo", b"x").error_code)
+
+
+def _drive_method_max_concurrency(pkg):
+    return _held_then_second(pkg, lambda h: _policy_server(pkg, h, method_max_concurrency=1),
+                             lambda ch: ch.call_method("P", "hold", b"").error_code)
+
+
+def _drive_idle_timeout(pkg):
+    srv = _policy_server(pkg, {"echo": lambda cntl, req: req}, idle_timeout_s=0.2)
+    try:
+        ch = _policy_channel(pkg, srv.port)
+        codes = [ch.call_method("P", "echo", b"x").error_code]
+        deadline = time.monotonic() + 20
+        while srv.connection_count() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        codes.append(srv.connection_count())
+        return codes
+    finally:
+        srv.stop()
+        assert srv.join(timeout=10)
+
+
+def _drive_auth(pkg):
+    tok = pkg.rpc.TokenAuthenticator(["right"])
+    srv = _policy_server(pkg, {"echo": lambda cntl, req: req}, auth=tok)
+    try:
+        return [
+            _policy_channel(pkg, srv.port, auth=pkg.rpc.TokenAuthenticator("right"))
+            .call_method("P", "echo", b"x").error_code,
+            _policy_channel(pkg, srv.port).call_method("P", "echo", b"x").error_code,
+        ]
+    finally:
+        srv.stop()
+        assert srv.join(timeout=10)
+
+
+def _drive_data_factory(pkg, option):
+    made = []
+
+    def factory():
+        made.append(object())
+        return made[-1]
+
+    def use(cntl, req):
+        if option == "session_local_data_factory":
+            data = cntl.session_local_data()
+        else:
+            data = pkg.rpc.thread_local_data()
+        return b"%d" % made.index(data)
+
+    srv = _policy_server(pkg, {"use": use}, **{option: factory})
+    try:
+        ch = _policy_channel(pkg, srv.port)
+        return [ch.call_method("P", "use", b"").response_payload for _ in range(3)]
+    finally:
+        srv.stop()
+        assert srv.join(timeout=10)
+
+
+def _drive_fault_injector(pkg):
+    before = pkg.flags.get_flag("fault_injection")
+    pkg.flags.set_flag_unchecked("fault_injection", True)
+    try:
+        inj = pkg.rpc.FaultInjector(error_rate=0.5)
+        srv = _policy_server(pkg, {"echo": lambda cntl, req: req}, fault_injector=inj)
+        try:
+            ch = _policy_channel(pkg, srv.port, max_retry=0)
+            return [ch.call_method("P", "echo", b"x").error_code for _ in range(4)]
+        finally:
+            srv.stop()
+            assert srv.join(timeout=10)
+    finally:
+        pkg.flags.set_flag_unchecked("fault_injection", before)
+
+
+def _drive_retry_policy(pkg):
+    calls = []
+
+    def flaky(cntl, req):
+        calls.append(1)
+        if len(calls) < 3:
+            cntl.set_failed(ErrorCode.EINTERNAL, "transient")
+            return b""
+        return req
+
+    srv = _policy_server(pkg, {"m": flaky})
+    try:
+        ch = _policy_channel(pkg, srv.port, max_retry=3,
+                             retry_policy=lambda c: c.error_code == ErrorCode.EINTERNAL)
+        out = ch.call_method("P", "m", b"b")
+        return [out.error_code, out.retried_count, len(calls)]
+    finally:
+        srv.stop()
+        assert srv.join(timeout=10)
+
+
+def _drive_backup(pkg, where):
+    """The original attempt waits on a gate released only once the call
+    returned: the backup fired on its timer and its reply won."""
+    gate = threading.Event()
+    seen = []
+
+    def handler(cntl, req):
+        seen.append(1)
+        if len(seen) == 1:
+            gate.wait(10)
+            return b"original"
+        return b"backup"
+
+    srv = _policy_server(pkg, {"m": handler})
+    try:
+        if where == "channel":
+            ch = _policy_channel(pkg, srv.port, timeout_ms=8000, backup_request_ms=50)
+            cntl = ch.call_method("P", "m", b"")
+        else:
+            ch = _policy_channel(pkg, srv.port)
+            cntl = ch.call_method("P", "m", b"", cntl=pkg.rpc.Controller(8000, 3, 50))
+        return [cntl.error_code, cntl.response_payload, cntl.has_backup_request]
+    finally:
+        gate.set()
+        srv.stop()
+        assert srv.join(timeout=10)
+
+
+# each option that refused naming A7 before it landed, driven on both
+# packages, and what both must answer
+POLICY_OPTIONS = {
+    "ServerOptions.max_concurrency": (_drive_max_concurrency, [0, ErrorCode.ELIMIT]),
+    "ServerOptions.method_max_concurrency": (_drive_method_max_concurrency, [0, ErrorCode.ELIMIT]),
+    "ServerOptions.idle_timeout_s": (_drive_idle_timeout, [0, 0]),
+    "ServerOptions.auth+ChannelOptions.auth": (_drive_auth, [0, ErrorCode.ERPCAUTH]),
+    "ServerOptions.session_local_data_factory": (
+        lambda pkg: _drive_data_factory(pkg, "session_local_data_factory"), [b"0", b"0", b"0"]),
+    "ServerOptions.thread_local_data_factory": (
+        lambda pkg: _drive_data_factory(pkg, "thread_local_data_factory")[:1], [b"0"]),
+    "ServerOptions.fault_injector": (
+        _drive_fault_injector, [0, ErrorCode.EINTERNAL, 0, ErrorCode.EINTERNAL]),
+    "ChannelOptions.retry_policy": (_drive_retry_policy, [0, 2, 3]),
+    "ChannelOptions.backup_request_ms": (
+        lambda pkg: _drive_backup(pkg, "channel"), [0, b"backup", True]),
+    "Controller.backup_request_ms": (
+        lambda pkg: _drive_backup(pkg, "controller"), [0, b"backup", True]),
+}
+
+
+@pytest.mark.parametrize("option", sorted(POLICY_OPTIONS))
+def test_both_packages_serve_the_policy_options(option):
+    """Once refused naming A7: both packages take and serve the option,
+    with the same answers."""
+    drive, want = POLICY_OPTIONS[option]
+    for pkg in PKGS.values():
+        assert drive(pkg) == want, pkg.name
     port_rpc.shutdown_host_plane()
     shutdown_global_timer_thread()
 
