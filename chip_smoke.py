@@ -151,6 +151,21 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    whose handshake presents it. K1a and K1c must launch in (a), (d) and
    (e); the kernels line's K1 entries carry the tallies as
    ``policy_launches``;
+3h. drives the device echo over the wires of ROADMAP A11a
+   (``protocol_phase``) at phase 3b's geometry (256 B, window 16), the
+   launch counts tallied per part, every answer bitwise ``expected()``:
+   (a) baidu_std on the Python plane (20 sequential calls, 16 x 8); (b)
+   baidu_std behind the native plane from ``Channel(native_plane=True,
+   protocol="baidu_std")`` and from ``NativeClientChannel(protocol=
+   "baidu_std")``, in turns with (a); (c) ``bench_prpc_production``'s rows
+   on the native plane (pumps of 4 KiB plain, snappy over compressible and
+   random bytes, token-authenticated: ``cb_frames`` 0 after every flood)
+   and the snappy echo through the channel natively and on the pure-Python
+   plane; (d) ``POST /tensor/echo`` on the HTTP gateway, ``ChannelOptions(
+   protocol="http")`` (also on the native plane's port, handed off), and a
+   json2pb typed service answering a curl-style JSON POST, checked field by
+   field. K1a and K1c must launch in (a), (b) and (d); the kernels line's
+   K1 entries carry the tallies as ``protocol_launches``;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -2800,7 +2815,7 @@ def policy_phase(torch, kernels, device=None, scale: float = 1.0):
         out["f"] = f
         log(f"phase3g (f) TokenAuthenticator: the right token answered 10 of 10 device calls on "
             f"the Python plane and on the native plane (native requests there "
-            f"{f['native_plane']['native_reqs']}: every method on the Python route), a wrong or "
+            f"{f['native_plane']['native_reqs']}: tensor.echo is a Python method), a wrong or "
             f"missing one got ERPCAUTH ({f['python_plane']['wrong']}, "
             f"{f['native_plane']['missing']}, the native client's "
             f"{f['native_plane']['native_client_missing']}); a device link with the token "
@@ -2815,6 +2830,382 @@ def policy_phase(torch, kernels, device=None, scale: float = 1.0):
             flags.set_flag_unchecked(name, value)
         if not ep.close(timeout=120):
             raise AssertionError("phase3g: the endpoint did not settle its calls")
+    return out, tally
+
+
+# -- phase 3h: baidu_std, HTTP and json2pb around the device echo ---------------
+
+PROTO_WINDOW = 16  # the endpoint's window (phase 3b's geometry)
+PROTO_SEQ = 20  # sequential calls a client
+PROTO_BURST = (16, 8)  # callers x calls each
+PROTO_TURNS = 2  # (a) and (b) run in turns, this many times each
+PRPC_PAYLOAD = (b"The quick brown fox jumps over the lazy dog. " * 92)[:4096]
+PRPC_PUMP = (20000, 128, 3)  # bench_prpc_production's pump: requests, in flight, runs
+PRPC_ECHO = (500, 300)  # its rpc_echo_prpc_snappy_us and _python_us calls a run
+PRPC_TOKEN = "phase3h-token"
+
+
+def echo_check(label, payload, code, out):
+    """Hold one device echo of ``payload`` against ``expected(words, 0)``."""
+    if code != 0:
+        raise AssertionError(f"phase3h {label}: code {code}")
+    nbytes = len(payload)
+    words = np.frombuffer(payload + b"\0" * (-nbytes % 4), np.uint32)
+    if out != expected(words, 0).tobytes()[:nbytes]:
+        raise AssertionError(f"phase3h {label}: an echo answered wrong bytes")
+
+
+def echo_runs(label, call, rng, n_seq, burst):
+    """``n_seq`` sequential echoes of 256 B and a ``burst`` (callers, calls
+    each) through ``call(payload) -> (code, bytes)``, every answer held
+    against ``expected()``. Returns (µs a sequential call, calls/s)."""
+    seq = [rng.integers(0, 256, size=256, dtype=np.uint8).tobytes() for _ in range(n_seq)]
+    it = iter(seq)
+
+    def one():
+        p = next(it)
+        echo_check(label, p, *call(p))
+
+    seq_us = sequential_us(one, n_seq)
+    n_threads, per = burst
+    payloads = [[rng.integers(0, 256, size=256, dtype=np.uint8).tobytes() for _ in range(per)]
+                for _ in range(n_threads)]
+
+    def caller(i):
+        for p in payloads[i]:
+            echo_check(label, p, *call(p))
+
+    t0 = time.perf_counter()
+    call_threads(n_threads, caller)
+    return seq_us, n_threads * per / (time.perf_counter() - t0)
+
+
+class KeepAliveHttp:
+    """A curl-like HTTP/1.1 client on one keep-alive connection: POST with a
+    body of the given content type, the response read by Content-Length."""
+
+    def __init__(self, port: int):
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=300)
+        self.lock = threading.Lock()
+
+    def post(self, path: str, body: bytes, ctype: str = "application/octet-stream"):
+        head = (f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: {ctype}\r\n"
+                f"Content-Length: {len(body)}\r\nConnection: keep-alive\r\n\r\n").encode("latin-1")
+        with self.lock:
+            self.sock.sendall(head + body)
+            raw = b""
+            while b"\r\n\r\n" not in raw:
+                data = self.sock.recv(65536)
+                if not data:
+                    raise AssertionError("phase3h (d): the gateway closed the connection")
+                raw += data
+            head_end = raw.index(b"\r\n\r\n")
+            lines = raw[:head_end].decode("latin-1").split("\r\n")
+            status = int(lines[0].split(" ", 2)[1])
+            headers = {k.strip().lower(): v.strip()
+                       for k, _, v in (line.partition(":") for line in lines[1:])}
+            size = int(headers.get("content-length", "0"))
+            rest = raw[head_end + 4:]
+            while len(rest) < size:
+                data = self.sock.recv(65536)
+                if not data:
+                    raise AssertionError("phase3h (d): the gateway closed mid-body")
+                rest += data
+            return status, headers, rest[:size]
+
+    def close(self):
+        self.sock.close()
+
+
+def protocol_phase(torch, kernels, device=None, scale: float = 1.0):
+    """Phase 3h: the device echo (``DeviceEndpoint.server_handler()`` as
+    ``tensor.echo``, 256 B, window 16) over the wires of ROADMAP A11a,
+    every answer bitwise ``expected()``: (a) baidu_std on the Python plane,
+    sequential µs and calls/s at 16 x 8; (b) baidu_std behind the native
+    plane from the Python ``Channel`` and from ``NativeClientChannel``, in
+    turns with (a); (c) ``bench_prpc_production``'s rows on the native
+    plane (pumps of 4 KiB plain, snappy over compressible and over random
+    bytes, and token-authenticated; every flood kept off the interpreter,
+    ``cb_frames == 0``) and the snappy echo through the channel, natively
+    and on the pure-Python plane; (d) the HTTP gateway (``POST
+    /tensor/echo``, octet-stream, keep-alive), ``ChannelOptions(protocol=
+    "http")``, and a json2pb typed service over the echo answering a
+    curl-style JSON POST, checked field by field. K1 is tallied per part.
+    Returns (figures, {part: K1 launches})."""
+    import base64
+
+    from incubator_brpc_tpu_torch.protocol import compress as compress_mod
+    from incubator_brpc_tpu_torch.protocol.json2pb import Message, field, typed_handler
+    from incubator_brpc_tpu_torch.rpc import (
+        Channel, ChannelOptions, Controller, Server, ServerOptions, TokenAuthenticator,
+        native_echo,
+    )
+    from incubator_brpc_tpu_torch.transport import native_plane as np_mod
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+
+    tally = {}
+
+    def counted(part, fn):
+        before = kernels.launch_counts()
+        try:
+            return fn()
+        finally:
+            after = kernels.launch_counts()
+            row = tally.setdefault(part, dict.fromkeys(K1, 0))
+            for k in K1:
+                row[k] += after[k] - before[k]
+
+    class EchoRequest(Message):
+        tag = field(1, str)
+        seq = field(2, int)
+        data = field(3, bytes)
+
+    class EchoResponse(Message):
+        tag = field(1, str)
+        seq = field(2, int)
+        data = field(3, bytes)
+        words = field(4, int)
+
+    ep = DeviceEndpoint(window_size=PROTO_WINDOW, max_batch=PROTO_WINDOW, device=device)
+    handler = ep.server_handler()
+
+    def typed_echo(cntl, req):
+        code, out = ep.call_bytes(req.data, timeout=300)
+        if code != 0:
+            raise RuntimeError(f"device echo code {code}")
+        return EchoResponse(tag=req.tag, seq=req.seq + 1, data=out, words=len(out) // 4)
+
+    echo_services = {"tensor": {"echo": handler},
+                     "typed": {"echo": typed_handler(EchoRequest, EchoResponse, typed_echo)}}
+    bench_services = {"bench": {"echo": native_echo}}
+    servers = []
+
+    def start(services, **kw):
+        srv = Server(ServerOptions(device=device, **kw))
+        for name, hs in services.items():
+            srv.add_service(name, hs)
+        if not srv.start(0):
+            raise AssertionError("phase3h: a Server did not start")
+        servers.append(srv)
+        return srv
+
+    def channel(port, **kw):
+        ch = Channel()
+        if not ch.init(f"127.0.0.1:{port}", options=ChannelOptions(timeout_ms=300_000, **kw)):
+            raise AssertionError("phase3h: a Channel did not init")
+        return ch
+
+    def via_channel(ch):
+        def call(p):
+            c = ch.call_method("tensor", "echo", p)
+            return c.error_code, c.response_payload
+        return call
+
+    def on_client(label, ch, native_calls, fn):
+        """Run ``fn`` and hold that its calls took the client the row names:
+        ``native_calls`` calls of the native client (0: none), and a
+        ``Channel`` ``ch`` holding its native connection exactly when they
+        ride it (a Channel falls through to the Python client quietly)."""
+        before = (np_mod.native_client_calls.get_value(), np_mod.native_client_errors.get_value())
+        r = fn()
+        got = np_mod.native_client_calls.get_value() - before[0]
+        errors = np_mod.native_client_errors.get_value() - before[1]
+        if (got, errors) != (native_calls, 0) or (
+                ch is not None and (ch._native_ch is not None) != (native_calls > 0)):
+            raise AssertionError(f"phase3h {label}: {got} native client calls ({errors} failed), "
+                                 f"{native_calls} expected; the call took the wrong client")
+        return r
+
+    n_seq = max(4, int(PROTO_SEQ * scale))
+    burst = (PROTO_BURST[0], max(1, int(PROTO_BURST[1] * scale)))
+    rng = np.random.default_rng(53)
+    out = {}
+    try:
+        ep.warm(256)
+        py_srv = start(echo_services)
+        nat_srv = start(echo_services, native_plane=True)
+
+        # (a) and (b), in turns ------------------------------------------
+        a, b_ch, b_nat = [], [], []
+        nch = np_mod.NativeClientChannel("127.0.0.1", nat_srv.port, protocol="baidu_std")
+
+        def native_call(p):
+            rc, code, meta, body = nch.call("tensor", "echo", p, timeout_ms=300_000)
+            if rc < 0:
+                raise AssertionError(f"phase3h (b): native client transport errno {-rc}")
+            return code, body.to_bytes()
+
+        py_ch = channel(py_srv.port, protocol="baidu_std")
+        nat_ch = channel(nat_srv.port, protocol="baidu_std", native_plane=True)
+        n_calls = n_seq + burst[0] * burst[1]
+        for _ in range(PROTO_TURNS):
+            a.append(counted("a", lambda: on_client(
+                "(a)", py_ch, 0, lambda: echo_runs("(a)", via_channel(py_ch), rng, n_seq, burst))))
+            b_ch.append(counted("b", lambda: on_client(
+                "(b) Channel", nat_ch, n_calls,
+                lambda: echo_runs("(b) Channel", via_channel(nat_ch), rng, n_seq, burst))))
+            b_nat.append(counted("b", lambda: on_client(
+                "(b) NativeClientChannel", None, n_calls,
+                lambda: echo_runs("(b) NativeClientChannel", native_call, rng, n_seq, burst))))
+        nch.close()
+        st = nat_srv._native_plane.stats()
+        out["a"] = {"seq_us": [r[0] for r in a], "calls_per_s": [r[1] for r in a]}
+        out["b"] = {"channel_seq_us": [r[0] for r in b_ch], "channel_calls_per_s": [r[1] for r in b_ch],
+                    "native_seq_us": [r[0] for r in b_nat], "native_calls_per_s": [r[1] for r in b_nat],
+                    "cb_frames": st["cb_frames"]}
+        if st["cb_frames"] < 2 * PROTO_TURNS * (n_seq + burst[0] * burst[1]):
+            raise AssertionError(f"phase3h (b): the device echo did not reach the Python route "
+                                 f"behind the native plane: {st}")
+        log(f"phase3h (a) baidu_std on the Python plane, device echo 256 B, window "
+            f"{PROTO_WINDOW}: {', '.join(f'{r[0]:.1f}' for r in a)} us a sequential call, "
+            f"{', '.join(f'{r[1]:.1f}' for r in a)} calls/s at {burst[0]} x {burst[1]} (turns); "
+            f"launches {[tally['a'][k] for k in K1]}")
+        log(f"phase3h (b) baidu_std behind the native plane: Channel(native_plane=True) "
+            f"{', '.join(f'{r[0]:.1f}' for r in b_ch)} us a call, "
+            f"{', '.join(f'{r[1]:.1f}' for r in b_ch)} calls/s; NativeClientChannel "
+            f"{', '.join(f'{r[0]:.1f}' for r in b_nat)} us a call, "
+            f"{', '.join(f'{r[1]:.1f}' for r in b_nat)} calls/s (turns with (a)); frames on the "
+            f"Python route {st['cb_frames']}; launches {[tally['b'][k] for k in K1]}")
+
+        # (c) bench_prpc_production's rows ---------------------------------
+        c = {}
+        n_pump, inflight, runs = max(500, int(PRPC_PUMP[0] * scale)), PRPC_PUMP[1], PRPC_PUMP[2]
+        random_4k = rng.integers(0, 256, size=4096, dtype=np.uint8).tobytes()
+
+        def pump_row(name, srv, data, compress="", auth=""):
+            pch = np_mod.NativeClientChannel("127.0.0.1", srv.port, protocol="baidu_std")
+            try:
+                if auth:
+                    pch.set_auth(auth)
+                wire = data
+                if compress:
+                    pch.set_request_compress(compress)
+                    wire = compress_mod.compress(compress, data)
+                pch.pump("bench", "echo", wire, max(200, n_pump // 10), inflight=64)  # warm
+                c[name] = [pch.pump("bench", "echo", wire, n_pump, inflight=inflight)
+                           for _ in range(runs)]
+            finally:
+                pch.close()
+            cb = srv._native_plane.stats()["cb_frames"]
+            if cb != 0:
+                raise AssertionError(f"phase3h (c) {name}: {cb} frames reached the interpreter")
+
+        def echo_row(name, port, opts, n):
+            ch = Channel()
+            if not ch.init(f"127.0.0.1:{port}", options=opts):
+                raise AssertionError("phase3h (c): a Channel did not init")
+            lat = []
+            for rep in range(4):  # the first a warm-up
+                calls = n if rep else max(10, n // 10)
+
+                def run():
+                    for _ in range(calls):
+                        cntl = Controller()
+                        cntl.compress_type = "snappy"
+                        r = ch.call_method("bench", "echo", PRPC_PAYLOAD, cntl=cntl)
+                        if not r.ok() or r.response_payload != PRPC_PAYLOAD:
+                            raise AssertionError(
+                                f"phase3h (c) {name}: code {r.error_code} {r.error_text}")
+
+                t0 = time.perf_counter()
+                on_client(f"(c) {name}", ch, calls if opts.native_plane else 0, run)
+                if rep:
+                    lat.append((time.perf_counter() - t0) / n * 1e6)
+            c[name] = lat
+
+        bare = start(bench_services, native_plane=True, native_loops=1, usercode_inline=True)
+        counted("c", lambda: pump_row("prpc_plain_4k_pump_ns", bare, PRPC_PAYLOAD))
+        token_srv = start(bench_services, native_plane=True, native_loops=1, usercode_inline=True,
+                          auth=TokenAuthenticator([PRPC_TOKEN]))
+
+        def run_c():
+            pump_row("prpc_compressed_pump_ns", token_srv, PRPC_PAYLOAD, "snappy", PRPC_TOKEN)
+            pump_row("prpc_compressed_incompressible_pump_ns", token_srv, random_4k, "snappy",
+                     PRPC_TOKEN)
+            pump_row("prpc_auth_pump_ns", token_srv, PRPC_PAYLOAD, auth=PRPC_TOKEN)
+            echo_row("rpc_echo_prpc_snappy_us", token_srv.port,
+                     ChannelOptions(native_plane=True, protocol="baidu_std",
+                                    auth=TokenAuthenticator([PRPC_TOKEN])),
+                     max(20, int(PRPC_ECHO[0] * scale)))
+            py_token = start(bench_services, usercode_inline=True,
+                             auth=TokenAuthenticator([PRPC_TOKEN]))
+            echo_row("rpc_echo_prpc_snappy_python_us", py_token.port,
+                     ChannelOptions(protocol="baidu_std", auth=TokenAuthenticator([PRPC_TOKEN])),
+                     max(20, int(PRPC_ECHO[1] * scale)))
+
+        counted("c", run_c)
+        cs = token_srv._native_plane.compress_stats()
+        if not (cs["in_raw"] > cs["in_wire"] > 0 and cs["out_raw"] > cs["out_wire"] > 0):
+            raise AssertionError(f"phase3h (c): the native codec did not run: {cs}")
+        c["compress_stats"] = cs
+        c["compressed_vs_plain_ratio"] = min(c["prpc_compressed_pump_ns"]) / min(c["prpc_plain_4k_pump_ns"])
+        c["snappy_python_vs_native"] = (min(c["rpc_echo_prpc_snappy_python_us"])
+                                        / min(c["rpc_echo_prpc_snappy_us"]))
+        out["c"] = c
+        log(f"phase3h (c) bench_prpc_production on the native plane (1 reactor; pumps of {n_pump} "
+            f"requests at {inflight} in flight, {runs} runs, ns a request): plain 4 KiB "
+            f"{c['prpc_plain_4k_pump_ns']}, snappy compressible {c['prpc_compressed_pump_ns']}, "
+            f"snappy random {c['prpc_compressed_incompressible_pump_ns']}, token auth "
+            f"{c['prpc_auth_pump_ns']} (cb_frames 0 after every flood; codec bytes {cs}); the "
+            f"snappy+token echo of 4 KiB through the Channel: native plane "
+            f"{', '.join(f'{v:.1f}' for v in c['rpc_echo_prpc_snappy_us'])} us, the pure-Python "
+            f"plane {', '.join(f'{v:.1f}' for v in c['rpc_echo_prpc_snappy_python_us'])} us "
+            f"({c['snappy_python_vs_native']:.2f}x)")
+
+        # (d) HTTP: the gateway, the http channel, json2pb ------------------
+        d = {}
+        gw = KeepAliveHttp(py_srv.port)
+
+        def gateway_call(p):
+            status, headers, body = gw.post("/tensor/echo", p)
+            if status != 200 or headers.get("content-type") != "application/octet-stream":
+                raise AssertionError(f"phase3h (d) gateway: HTTP {status} {body[:200]!r}")
+            return 0, body
+
+        d["gateway_seq_us"], d["gateway_calls_per_s"] = counted(
+            "d", lambda: echo_runs("(d) gateway", gateway_call, rng, n_seq, (1, n_seq)))
+        http_ch = channel(py_srv.port, protocol="http")
+        d["channel_seq_us"], d["channel_calls_per_s"] = counted(
+            "d", lambda: echo_runs("(d) http channel", via_channel(http_ch), rng, n_seq, burst))
+        # a handed-off HTTP connection on the native plane's port
+        nat_http = channel(nat_srv.port, protocol="http")
+        d["native_port_seq_us"], _ = counted(
+            "d", lambda: echo_runs("(d) http on the native port", via_channel(nat_http), rng,
+                                   n_seq, (1, 1)))
+        data = rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+        req = json.dumps({"tag": "phase3h", "seq": 41,
+                          "data": base64.b64encode(data).decode()}).encode()
+
+        def typed_call():
+            return gw.post("/typed/echo", req, ctype="application/json")
+
+        status, headers, body = counted("d", typed_call)
+        gw.close()
+        if status != 200 or headers.get("content-type") != "application/json":
+            raise AssertionError(f"phase3h (d) json2pb: HTTP {status} {body[:200]!r}")
+        got = json.loads(body)
+        echoed = base64.b64decode(got["data"])
+        echo_check("(d) json2pb", data, 0, echoed)
+        if (got["tag"], got["seq"], got["words"]) != ("phase3h", 42, 64) or sorted(got) != [
+                "data", "seq", "tag", "words"]:
+            raise AssertionError(f"phase3h (d) json2pb: fields {got}")
+        d["json2pb_fields"] = sorted(got)
+        out["d"] = d
+        log(f"phase3h (d) HTTP: POST /tensor/echo (octet-stream, keep-alive) "
+            f"{d['gateway_seq_us']:.1f} us a call; ChannelOptions(protocol='http') "
+            f"{d['channel_seq_us']:.1f} us a call, {d['channel_calls_per_s']:.1f} calls/s at "
+            f"{burst[0]} x {burst[1]}; the http channel on the native plane's port (handed off) "
+            f"{d['native_port_seq_us']:.1f} us a call; a json2pb typed service over the echo "
+            f"answered a curl-style JSON POST, fields {d['json2pb_fields']} checked; launches "
+            f"{[tally['d'][k] for k in K1]}")
+    finally:
+        for s in servers:
+            s.stop()
+            s.join(timeout=60)
+        if not ep.close(timeout=120):
+            raise AssertionError("phase3h: the endpoint did not settle its calls")
     return out, tally
 
 
@@ -5230,6 +5621,18 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase3g: {policies['phase_s']:.1f} s; K1 launches by part {policy_k1}")
 
+    # -- phase 3h: baidu_std, HTTP and json2pb, device RPC counted ------------
+    log(f"phase3h on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    protocols, protocol_k1 = protocol_phase(torch, kernels)
+    protocols["phase_s"] = time.perf_counter() - t0
+    for part in ("a", "b", "d"):
+        missing = [name for name in ("frame_rows", "echo_step_rows") if protocol_k1[part][name] == 0]
+        if missing:
+            raise AssertionError(f"phase3h ({part}): kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase3h: {protocols['phase_s']:.1f} s; K1 launches by part {protocol_k1}")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -5271,6 +5674,7 @@ def main() -> int:
             "combo_launches": {part: combo_launches[part][name] for part in ("a", "c", "e")},
             "mc_launches": mc_k1[name], "native_launches": native_k1[name],
             "policy_launches": {part: row[name] for part, row in sorted(policy_k1.items())},
+            "protocol_launches": {part: row[name] for part, row in sorted(protocol_k1.items())},
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
@@ -5323,6 +5727,7 @@ def main() -> int:
                        "multi_controller": mc, "mc_launches": mc_k1,
                        "native_plane": native, "native_launches": native_k1,
                        "policies": policies, "policy_launches": policy_k1,
+                       "protocols": protocols, "protocol_launches": protocol_k1,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],

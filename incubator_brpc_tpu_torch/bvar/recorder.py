@@ -33,6 +33,9 @@ class IntRecorder(Variable):
         n = self._num.get_value()
         return (self._sum.get_value() / n) if n else 0.0
 
+    def sum(self) -> int:
+        return self._sum.get_value()
+
     def get_value(self):
         return self.average()
 

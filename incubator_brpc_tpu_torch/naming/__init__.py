@@ -12,11 +12,12 @@ Supported urls:
                                   (policy/file_naming_service)
 - ``dns://host:port``             every A record (policy/domain_naming_service;
                                   also registered as ``http://``)
+- ``remotefile://host:port/path`` a list fetched over HTTP, polled like file://
+                                  (policy/remotefile_naming_service)
+- ``watch://host:port/name``      a consul-style long poll over HTTP, pushed
+                                  as it changes (``naming/watch.py``)
 
-The port's copy of the JAX package's ``naming/__init__.py``. Its
-``remotefile://`` (a list fetched over HTTP) and ``watch://`` (a long poll
-over HTTP, ``naming/watch.py``) need the HTTP protocol: both schemes raise
-``NotImplementedError`` naming ROADMAP A11, which brings it.
+The port's copy of the JAX package's ``naming/__init__.py``, whole.
 """
 
 from __future__ import annotations
@@ -149,17 +150,46 @@ class DnsNamingService(NamingService):
         return seen
 
 
-def _needs_http(scheme: str) -> Callable[[str], NamingService]:
-    """A scheme whose service speaks HTTP: refused until the HTTP protocol
-    is in the port."""
+class RemoteFileNamingService(NamingService):
+    """remotefile://host:port/path — a server list fetched over HTTP, one
+    'host:port [tag]' per line (reference policy/remotefile_naming_service;
+    same poll cadence as file://, same keep-last-good-list error posture)."""
 
-    def refuse(service_name: str) -> NamingService:
-        raise NotImplementedError(
-            f"naming {scheme}://{service_name} needs the HTTP protocol, "
-            "which is not in the port yet (ROADMAP A11)"
-        )
+    offload_refresh = True  # network fetch must not run on the TimerThread
 
-    return refuse
+    def __init__(self, service_name: str):
+        super().__init__(service_name)
+        self.poll_interval_s = float(get_flag("ns_refresh_interval_s"))
+        authority, slash, path = service_name.partition("/")
+        host, _, port = authority.partition(":")
+        if not host:
+            raise ValueError(f"remotefile url needs host[:port]/path, got {service_name!r}")
+        self._host = host
+        self._port = int(port) if port else 80
+        self._path = (slash + path) if slash else "/"
+        self._last_body: Optional[bytes] = None
+
+    def get_servers(self) -> Optional[List[EndPoint]]:
+        from incubator_brpc_tpu_torch.protocol.http import http_call
+
+        try:
+            status, _, body = http_call(self._host, self._port, self._path, timeout=5.0)
+        except OSError:
+            return None  # keep the previous list across fetch hiccups
+        if status != 200:
+            return None
+        if body == self._last_body:
+            return None  # unchanged: no diff churn
+        servers: List[EndPoint] = []
+        try:
+            for line in body.decode(errors="replace").splitlines():
+                line = line.split("#", 1)[0].strip()
+                if line:
+                    servers.append(_parse_node(line))
+        except ValueError:
+            return None
+        self._last_body = body
+        return servers
 
 
 _factories: Dict[str, Callable[[str], NamingService]] = {}
@@ -175,8 +205,7 @@ register_naming_service("list", ListNamingService)
 register_naming_service("file", FileNamingService)
 register_naming_service("dns", DnsNamingService)
 register_naming_service("http", DnsNamingService)
-register_naming_service("remotefile", _needs_http("remotefile"))
-register_naming_service("watch", _needs_http("watch"))
+register_naming_service("remotefile", RemoteFileNamingService)
 
 
 def create_naming_service(url: str) -> NamingService:
@@ -204,6 +233,14 @@ class NamingServiceThread:
 
     def start(self) -> bool:
         self._refresh()
+        if getattr(self.ns, "watch", False):
+            # push-model service (watch://): a dedicated fiber runs the
+            # blocking-query loop (the reference's RunNamingService thread,
+            # naming_service.h:49-74) instead of the periodic poll
+            from incubator_brpc_tpu_torch.runtime.worker_pool import global_worker_pool
+
+            global_worker_pool().spawn(self.ns.watch_loop, self._apply, lambda: self._stopped)
+            return True
         if self.ns.poll_interval_s:
             self._schedule()
         return True
@@ -295,6 +332,10 @@ class NamingServiceThread:
                 self.ns.service_name, len(added), len(removed), len(self._current),
             )
 
+
+# watch:// (consul-style long poll) registers itself on import; imported
+# last so its `from incubator_brpc_tpu_torch.naming import ...` resolves
+from incubator_brpc_tpu_torch.naming import watch as _watch  # noqa: E402,F401
 
 __all__ = [
     "NamingService",

@@ -274,6 +274,21 @@ def pack_frame_iobuf(
     return buf
 
 
+def pack_response_iobuf(
+    meta: Optional[Meta],
+    payload: bytes,
+    correlation_id: int,
+    flags: int = 0,
+    error_code: int = 0,
+    attachment: bytes = b"",
+) -> IOBuf:
+    """The registry's response packer: ``pack_frame_iobuf`` with
+    FLAG_RESPONSE set."""
+    return pack_frame_iobuf(
+        meta, payload, correlation_id, flags | FLAG_RESPONSE, error_code, attachment
+    )
+
+
 def pack_frame_iobuf_plain(
     meta: Optional[Meta],
     payload: bytes,
@@ -327,6 +342,9 @@ class ParsedFrame:
         self.error_code = error_code
         self.payload_iobuf = payload_iobuf
         self.arrival_ts: Optional[float] = None
+        # the protocol the frame arrived in: the server answers in it
+        # (protocol/baidu_std.py tags its frames "baidu_std")
+        self.wire_protocol = "tbus_std"
 
     @property
     def payload(self) -> bytes:
@@ -364,6 +382,13 @@ class ParsedFrame:
 class ParseError(Exception):
     """Unrecoverable garbage on the wire (magic/crc mismatch) — the
     reference's PARSE_ERROR_TRY_OTHERS→close path."""
+
+
+class FatalParseError(ParseError):
+    """Corruption detected AFTER bytes were irreversibly consumed from the
+    read chain (or a frame of the right protocol that cannot be served):
+    the connection cannot re-synchronize and must be failed — 'try other
+    protocols' is not an option."""
 
 
 def parse_header(header: bytes) -> Optional[int]:

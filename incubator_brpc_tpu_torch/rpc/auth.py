@@ -3,13 +3,16 @@ src/brpc/authenticator.h: GenerateCredential on the client's first request
 per connection, VerifyCredential once on the server side; impls like
 policy/giano_authenticator).
 
-The port's copy of the JAX package's ``rpc/auth.py``. On tbus_std the
-credential rides the request meta's ``extra["auth"]``, so a native-plane
-server with an authenticator keeps every method on the Python route, where
-``server_check`` runs (``transport/native_plane.py``); the C++ token table
-that ``TokenAuthenticator.native_tokens`` feeds reads baidu_std's
-authentication_data field and comes with baidu_std on the native plane
-(ROADMAP A11).
+The port's copy of the JAX package's ``rpc/auth.py``. The credential
+rides the request meta's ``extra["auth"]``: tbus_std's JSON meta, or
+baidu_std's authentication_data (RpcMeta field 7, which
+``protocol/baidu_std.py`` maps to and from ``extra["auth"]``). On a
+native-plane server ``TokenAuthenticator.native_tokens`` loads the C++
+plane's constant-time token table, which checks baidu_std's field 7
+without the interpreter (``transport/native_plane.py``); ``server_check``
+runs on the Python route and pushes its verdict down to the connection.
+Over HTTP the credential is the ``Authorization`` header: the channel's
+http packer writes it, ``http_check`` verifies it.
 
 Kept contract:
 - the credential rides only the first request(s) on a connection (frames
@@ -146,7 +149,30 @@ def server_check(meta, sock, auth: Optional[Authenticator]) -> bool:
     """Server side: verify once per connection; True = let the request in."""
     if auth is None or sock.context.get("authenticated"):
         return True
-    cred = meta.extra.get("auth", "")
+    return _verify_connection(meta.extra.get("auth", ""), sock, auth)
+
+
+def http_check(frame, auth: Optional[Authenticator]) -> bool:
+    """Server side over HTTP: the credential is the request's
+    ``Authorization`` header (the reference's VerifyHttpRequest,
+    http_rpc_protocol.cpp), verified once per connection as
+    ``server_check`` does. A frame with no connection is verified alone.
+
+    Unlike the JAX package, whose gateway never asks the authenticator,
+    the port holds every HTTP route but the builtin pages to the
+    server's ``auth`` (builtin/pages.handle)."""
+    if auth is None:
+        return True
+    cred = frame.headers.get("authorization", "")
+    sock = getattr(frame, "sock", None)
+    if sock is None:
+        return auth.verify_credential(cred, None)
+    if sock.context.get("authenticated"):
+        return True
+    return _verify_connection(cred, sock, auth)
+
+
+def _verify_connection(cred: str, sock, auth: Authenticator) -> bool:
     if auth.verify_credential(cred, sock.remote):
         sock.context["authenticated"] = True
         # a NativeConnSock pushes the verdict down to the C++ conn so the

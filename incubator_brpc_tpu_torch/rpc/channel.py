@@ -15,7 +15,12 @@ Call flow (mirrors SURVEY.md §3.1):
     └ lock call id → _on_rpc_returned: retry / backup-win / end
       EndRPC: cancel timers, unlock_and_destroy (wakes joiners), run done.
 
-The port's copy of the JAX package's ``rpc/channel.py`` over tbus_std:
+The port's copy of the JAX package's ``rpc/channel.py``. A channel speaks
+the protocol ``ChannelOptions.protocol`` names, through the protocol
+registry's packer: tbus_std (the default), baidu_std (the reference's PRPC
+wire) or http (``POST /<service>/<method>``; its responses carry no ids, so
+the connection keeps a FIFO of the calls in flight, and FIFO-correlated
+protocols never share a connection with another protocol). It takes
 one server address or a naming url behind a load balancer
 (``init(url, lb_name)``, ``init_with_lb``; ``lb/``, ``naming/``, with the
 per-node circuit breaker of ``rpc/circuit_breaker.py``), sync and async
@@ -34,11 +39,14 @@ picks a healthy host socket and the link map supplies the link to that
 peer), with ``link_controller="multi"`` the link whose two halves live in
 two processes (``transport/mc_link.py``), and the client side of the
 streaming RPC (``call_method(..., request_stream=)``, ``rpc/stream.py``).
-With ``ChannelOptions(native_plane=True)`` a sync, stream-less,
-uncompressed call to one TCP server without credentials or a backup
-request rides the native client of the port's host runtime
+With ``ChannelOptions(native_plane=True)`` a sync, stream-less call to one
+TCP server without a backup request, on tbus_std or baidu_std, rides the
+native client of the port's host runtime
 (``transport/native_plane.NativeClientChannel``: pack, write, read and
-match in C++); a pooled channel keeps one native connection per caller
+match in C++): uncompressed and without credentials on tbus_std, whose
+meta the Python route owns; on baidu_std the credential (RpcMeta field 7,
+stamped until the first success) and a native codec (snappy, gzip, zlib)
+ride it too. A pooled channel keeps one native connection per caller
 thread, and a transport failure falls through to the Python path, which
 dials fresh and owns the retries. The other protocols (ROADMAP A11), TLS
 (A10) and rpcz spans (A12) are later items; their options keep the
@@ -48,6 +56,7 @@ them.
 
 from __future__ import annotations
 
+import collections
 import errno
 import logging
 import threading
@@ -58,11 +67,7 @@ from typing import Callable, Optional, Union
 from incubator_brpc_tpu_torch import protocol as proto_pkg
 from incubator_brpc_tpu_torch.bvar import Adder, PassiveStatus
 from incubator_brpc_tpu_torch.protocol import compress as compress_mod
-from incubator_brpc_tpu_torch.protocol.tbus_std import (
-    Meta,
-    ParsedFrame,
-    pack_frame_iobuf,
-)
+from incubator_brpc_tpu_torch.protocol.tbus_std import Meta, ParsedFrame
 from incubator_brpc_tpu_torch.rpc import stream as stream_mod
 from incubator_brpc_tpu_torch.rpc.auth import attach_credential, mark_authenticated
 from incubator_brpc_tpu_torch.rpc.controller import RETRIABLE, Controller, refuse_unported
@@ -270,6 +275,14 @@ class RetryBudget:
             return self._tokens
 
 
+# the JAX package's other registered protocols: a channel asking for one is
+# refused naming the ROADMAP item that brings them
+UNPORTED_PROTOCOLS = (
+    "nshead", "mongo", "thrift", "rtmp", "hulu_pbrpc", "sofa_pbrpc", "nshead_client",
+    "nova_pbrpc", "public_pbrpc", "ubrpc_mcpack2", "nshead_mcpack", "esp",
+)
+
+
 class ChannelOptions:
     """Reference ChannelOptions (rpc/channel.py) with the reference's
     parameters in the reference's order, so a positional call binds as it
@@ -311,8 +324,9 @@ class ChannelOptions:
             raise ValueError("transport='tpu' supports connection_type='single'")
         if link_controller not in ("single", "multi"):
             raise ValueError(f"unknown link_controller {link_controller!r}")
+        if protocol in UNPORTED_PROTOCOLS:
+            refuse_unported("ChannelOptions", "protocol", protocol, "A11")
         unported = (
-            ("protocol", protocol, "tbus_std", "A11"),
             ("ssl_context", ssl_context, None, "A10"),
             ("ssl_server_hostname", ssl_server_hostname, None, "A10"),
         )
@@ -325,6 +339,9 @@ class ChannelOptions:
         # answered after this long (<= 0 off); the faster reply wins
         self.backup_request_ms = backup_request_ms
         self.connect_timeout = connect_timeout
+        # "tbus_std", "baidu_std" or "http", by name through the protocol
+        # registry (reference AdaptiveProtocolType)
+        self.protocol = protocol
         self.auth = auth  # Authenticator (rpc/auth.py)
         # "single" (shared main socket), "pooled" (exclusive connection per
         # in-flight call, parked for reuse), "short" (fresh connection,
@@ -474,11 +491,11 @@ class Channel:
                     done(cntl)
                 return cntl
 
-        # native fast path: a sync, stream-less, uncompressed call without
-        # credentials or a backup to a single TCP server rides the host
-        # runtime's native client end to end; a transport failure falls
-        # through to the regular path, whose dial/retry machinery owns
-        # recovery
+        # native fast path: a sync, stream-less call without a backup to a
+        # single TCP server (credentials and compression on baidu_std only,
+        # _native_eligible) rides the host runtime's native client end to
+        # end; a transport failure falls through to the regular path, whose
+        # dial/retry machinery owns recovery
         if (
             done is None
             and request_stream is None
@@ -544,16 +561,23 @@ class Channel:
     # -- native fast path ----------------------------------------------------
 
     def _native_eligible(self, cntl: Controller) -> bool:
+        from incubator_brpc_tpu_torch.transport.native_plane import _NATIVE_COMPRESS_WIRE
+
+        baidu = self._options.protocol == "baidu_std"
         return (
             self._server is not None
             and not self._server.ip.startswith("unix://")
             and self._options.transport == "tcp"
+            # the two protocols the C++ channel packs natively (tbnet.h)
+            and self._options.protocol in ("tbus_std", "baidu_std")
+            # auth and compression ride the fast path on baidu_std: the
+            # credential stamps RpcMeta field 7 (the first-request fight in
+            # C++), a compressed payload stamps field 3 and the server's
+            # native codec table answers in kind. tbus_std carries both in
+            # the JSON meta the Python route owns.
+            and (self._options.auth is None or baidu)
             and self._options.connection_type in ("single", "pooled")
-            # tbus_std carries the credential in the JSON meta the Python
-            # route owns (the native client stamps baidu_std's field 7,
-            # ROADMAP A11)
-            and self._options.auth is None
-            and not cntl.compress_type
+            and (not cntl.compress_type or (baidu and cntl.compress_type in _NATIVE_COMPRESS_WIRE))
             and not (cntl.backup_request_ms is not None and cntl.backup_request_ms > 0)
             and not cntl._force_host
         )
@@ -568,13 +592,25 @@ class Channel:
         if cached is not None:
             cached.close()
         try:
-            return np_mod.NativeClientChannel(
+            nch = np_mod.NativeClientChannel(
                 self._server.ip,
                 self._server.port,
                 connect_timeout_ms=int(self._options.connect_timeout * 1000),
+                protocol=self._options.protocol,
             )
         except OSError:
             return None
+        if self._options.auth is not None and self._options.protocol == "baidu_std":
+            # fresh connection, fresh credential: the C++ channel stamps it
+            # until the first successful response proves the connection
+            # (attach_credential's fight, natively)
+            try:
+                nch.set_auth(self._options.auth.generate_credential())
+            except Exception:
+                logger.exception("generate_credential failed; native path disabled")
+                nch.close()
+                return None
+        return nch
 
     def _native_channel(self):
         from incubator_brpc_tpu_torch.transport import native_plane as np_mod
@@ -598,8 +634,14 @@ class Channel:
         nch = self._native_channel()
         if nch is None:
             return False
+        request_wire = request
+        if cntl.compress_type:
+            # the codec the server's C++ table mirrors: the compressed bytes
+            # are identical on both planes
+            request_wire = compress_mod.compress(cntl.compress_type, request)
         rc, err_code, resp_meta, body = nch.call(
-            service, method, request, attachment, timeout_ms=cntl.timeout_ms, log_id=cntl.log_id
+            service, method, request_wire, attachment, timeout_ms=cntl.timeout_ms,
+            log_id=cntl.log_id, compress=cntl.compress_type or "",
         )
         cntl.remote_side = self._server
         if rc == -errno.ETIMEDOUT:
@@ -628,8 +670,18 @@ class Channel:
                 cntl.set_failed(ErrorCode.ERESPONSE, "attachment exceeds body")
             else:
                 cntl.response_meta = meta
-                cntl.response_payload = body.to_bytes(blen - att)
-                cntl.response_attachment = body.to_bytes(att, pos=blen - att) if att else b""
+                payload = body.to_bytes(blen - att)
+                if meta is not None and meta.compress:
+                    # the server recompressed the response (its floor
+                    # permitting): decompress like the Python response path
+                    try:
+                        payload = compress_mod.decompress(meta.compress, payload)
+                    except Exception as e:
+                        cntl.set_failed(ErrorCode.ERESPONSE, f"decompress failed: {e}")
+                        payload = None
+                if payload is not None:
+                    cntl.response_payload = payload
+                    cntl.response_attachment = body.to_bytes(att, pos=blen - att) if att else b""
         cntl._mark_end()
         return True
 
@@ -707,14 +759,21 @@ class Channel:
         """Connection-pool partition for this channel's credentials — the
         reference's SocketMapKey carries the Authenticator for the same
         reason (socket_map.h:35): channels with different credentials
-        never share a connection."""
+        never share a connection. FIFO-correlated protocols (HTTP)
+        partition by protocol too: their responses carry no ids, so a
+        socket's inbound bytes are only decodable when exactly one such
+        protocol ever spoke on it."""
         a = self._options.auth
-        if a is None:
-            return ""
-        tag = getattr(a, "_smap_tag", None)
-        if tag is None:
-            tag = f"auth-{id(a):x}"
-            a._smap_tag = tag
+        tag = ""
+        if a is not None:
+            tag = getattr(a, "_smap_tag", None)
+            if tag is None:
+                tag = f"auth-{id(a):x}"
+                a._smap_tag = tag
+        proto_name = self._options.protocol
+        if proto_name != "tbus_std" and proto_name in proto_pkg.protocol_registry:
+            if proto_pkg.protocol_registry.get(proto_name).fifo_responses:
+                tag = f"{tag}|fifo-{proto_name}"
         return tag
 
     def _dispose_attempt_sock(self, kind: str, sock, reusable: bool = True) -> None:
@@ -860,6 +919,7 @@ class Channel:
             timeout_ms=wire_timeout,
             log_id=cntl.log_id,
             stream_id=cntl._request_stream.id if cntl._request_stream is not None else 0,
+            extra=dict(cntl.request_extra) if cntl.request_extra else {},
         )
         if self._options.auth is not None:
             attach_credential(meta, sock, self._options.auth)
@@ -867,7 +927,23 @@ class Channel:
             payload = cntl._request_payload
             if cntl.compress_type:
                 payload = compress_mod.compress(cntl.compress_type, payload)
-            data = pack_frame_iobuf(meta, payload, cid, attachment=cntl.request_attachment)
+            # protocol selected by name (reference AdaptiveProtocolType):
+            # the registry's packer produces that protocol's exact bytes
+            proto_name = self._options.protocol
+            if proto_name not in proto_pkg.protocol_registry:
+                raise ValueError(f"unknown protocol {proto_name!r}")
+            proto = proto_pkg.protocol_registry.get(proto_name)
+            if proto.pack_request is None:
+                raise ValueError(f"protocol {proto_name!r} cannot pack requests")
+            if proto.fifo_responses and sock.remote is not None:
+                meta.extra["http_host"] = f"{sock.remote.ip}:{sock.remote.port}"
+            data = proto.pack_request(meta, payload, cid, attachment=cntl.request_attachment)
+            if proto.fifo_responses:
+                # no wire correlation id: record the cid in the
+                # connection's FIFO atomically with the write, so the
+                # pending order always equals the wire order
+                self._write_fifo_correlated(sock, cntl, cid, data)
+                return
         except (ValueError, TypeError) as e:
             # unknown codec / bad frame inputs: fail the RPC, never leak the
             # locked id out of IssueRPC
@@ -888,6 +964,65 @@ class Channel:
             ),
             timeout=remaining,
         )
+        if rc != 0:
+            self._arbitrate_error(cntl, rc, f"write to {sock.remote} failed")
+
+    def _write_fifo_correlated(self, sock, cntl: Controller, cid: int, data) -> None:
+        """Write a frame whose response matches by connection order (HTTP):
+        append the cid to the socket's pending FIFO and write under one
+        lock so two callers can't interleave order; dead sockets fail the
+        FIFO's calls (late responses then fail their id lock and drop).
+        Called with the id locked, like the rest of IssueRPC."""
+        lock = sock.context.get("_fifo_lock")
+        if lock is None:
+            lock = sock.context.setdefault("_fifo_lock", threading.Lock())
+        pending = sock.context.get("http_pending")
+        if pending is None:
+            pending = sock.context.setdefault("http_pending", collections.deque())
+
+            def _fail_fifo(s):
+                # fail every call still waiting for an ordered response —
+                # the fail-fast-at-SetFailed invariant of _track_inflight
+                lk = s.context.get("_fifo_lock")
+                q = s.context.get("http_pending")
+                drained = []
+                if lk is not None and q is not None:
+                    with lk:
+                        drained = list(q)
+                        q.clear()
+                for c in drained:
+                    global_worker_pool().spawn(
+                        call_id_space.error,
+                        c,
+                        ErrorCode.EFAILEDSOCKET,
+                        f"connection to {s.remote} failed with the call in flight",
+                    )
+
+            sock.on_failed.append(_fail_fifo)
+        pool = global_worker_pool()
+        with lock:
+            # append BEFORE the write: the response can be processed before
+            # this thread takes another step, so the cid must already be in
+            # the FIFO. A refused write removes it under the SAME lock.
+            pending.append(cid)
+            try:
+                rc = sock.write(
+                    data,
+                    on_error=lambda code, text: pool.spawn(call_id_space.error, cid, code, text),
+                )
+            except BaseException:
+                # an exception must not strand a dead cid at the FIFO head
+                # (it would shift every later response one call off)
+                try:
+                    pending.remove(cid)
+                except ValueError:
+                    pass
+                raise
+            if rc != 0:
+                try:
+                    pending.remove(cid)
+                except ValueError:
+                    pass  # a (failed) response path already consumed it
         if rc != 0:
             self._arbitrate_error(cntl, rc, f"write to {sock.remote} failed")
 

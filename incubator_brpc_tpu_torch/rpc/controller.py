@@ -64,6 +64,9 @@ class Controller:
         self.log_id = log_id
         self.compress_type: str = ""
         self.request_attachment: bytes = b""
+        # request meta extras copied into Meta.extra (an http channel's
+        # http_method / http_path override the gateway's POST route)
+        self.request_extra: dict = {}
 
         # -- in/out state --
         self.call_id: int = 0

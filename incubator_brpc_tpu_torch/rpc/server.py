@@ -32,19 +32,29 @@ of ``rpc/concurrency_limiter.py``; ``reset_max_concurrency`` and
 ``idle_timeout_s`` (the idle reaper), the session and thread-local data
 factories (``rpc/data_pool.py``), request dumps (``rpc/dump.py``), and the
 lame duck (``enter_lame_duck``; SIGTERM with ``graceful_quit_on_sigterm``).
-TLS (ROADMAP A10), the other protocols and the HTTP gateway (A11), and
-rpcz and the builtin pages with their ``/health`` and ``/quitquitquit``
+Each request is answered in the protocol it arrived in: tbus_std or
+baidu_std (``_send_response`` looks the packer up in the protocol
+registry), and HTTP through ``builtin/pages.handle``: the ``/health`` and
+``/quitquitquit`` pages, handlers added with ``add_http_handler``
+(``progressive=True`` streams a chunked upload into the handler), restful
+mappings (``add_service(restful_mappings=)``) and the
+``/<service>/<method>`` gateway (``invoke_for_http``: the same method map,
+admission gates and session data as the binary route, JSON transcoded
+through a json2pb schema where the handler carries one). TLS (ROADMAP
+A10), the other protocols (A11), and rpcz and the other builtin pages
 (A12) are later items. The method map (``_MethodMap``) is keyed on the
 native FlatMap of the port's host runtime. A server listens on the Python
 acceptor, or with ``ServerOptions(native_plane=True)`` on the C++ reactors
 of ``transport/native_plane.py`` (``num_reactors``, alias
-``native_loops``; ``native_dispatch_workers``): natively registered
-methods (``native_echo``, ``native_nop``, ``native_method_lib``) are
-answered in C++ under their per-method limit (an adaptive limit is pushed
-into the C++ table as it moves, and the telemetry drain's completions feed
-the limiters back), every other method through ``process_request`` as on
-the Python plane. A constant server-wide limit or an authenticator keeps
-every method on the Python route, where those gates run. Where the host
+``native_loops``; ``native_dispatch_workers``): tbus_std and baidu_std
+frames to natively registered methods (``native_echo``, ``native_nop``,
+``native_method_lib``) are answered in C++ under their per-method limit
+(an adaptive limit is pushed into the C++ table as it moves, and the
+telemetry drain's completions feed the limiters back) and behind its auth
+seam (a token table, or one verdict a connection from the authenticator),
+every other frame through ``process_request`` as on the Python plane, and
+a connection speaking HTTP is handed to a Python socket. A constant
+server-wide limit keeps every method on the Python route, where it runs. Where the host
 runtime did not build, or the C++ listener cannot take the address,
 ``start`` logs why and listens on the Python acceptor. The collective
 services (``_tpu_transport.collective`` and
@@ -79,12 +89,7 @@ import torch
 from incubator_brpc_tpu_torch import protocol as proto_pkg
 from incubator_brpc_tpu_torch.bvar import Adder, LatencyRecorder, PassiveStatus
 from incubator_brpc_tpu_torch.protocol import compress as compress_mod
-from incubator_brpc_tpu_torch.protocol.tbus_std import (
-    FLAG_RESPONSE,
-    Meta,
-    ParsedFrame,
-    pack_frame_iobuf,
-)
+from incubator_brpc_tpu_torch.protocol.tbus_std import Meta, ParsedFrame
 from incubator_brpc_tpu_torch.rpc import stream as stream_mod
 from incubator_brpc_tpu_torch.rpc.auth import server_check
 from incubator_brpc_tpu_torch.rpc.concurrency_limiter import (
@@ -324,8 +329,9 @@ class ServerOptions:
     its alias, a live property) and ``native_dispatch_workers``, the
     session and thread-local data factories with their reservations, the
     collective services' options and ``fault_injector``;
-    ``has_builtin_services`` is accepted either way and is inert until
-    ROADMAP A12 brings the builtin services. Every other parameter keeps
+    ``has_builtin_services`` switches the builtin pages of the HTTP portal
+    (``/health`` and ``/quitquitquit``; the rest answer 501 until ROADMAP
+    A12). Every other parameter keeps
     its place and its default, and a value that asks for something the
     port does not serve yet raises ``NotImplementedError`` naming the
     ROADMAP item that brings it.
@@ -385,7 +391,7 @@ class ServerOptions:
         # close connections with no wire activity for this long (<= 0 off),
         # on both planes
         self.idle_timeout_s = idle_timeout_s
-        # inert until ROADMAP A12 (the port has no builtin services yet)
+        # the HTTP portal's builtin pages (builtin/pages.py)
         self.has_builtin_services = has_builtin_services
         self.auth = auth  # Authenticator (rpc/auth.py)
         # Run request processing (cut + handler) inline on the reactor
@@ -472,6 +478,10 @@ class Server:
         self._device_methods: Dict[str, object] = {}
         # server halves of the transport='tpu' links this server accepted
         self._device_socks: list = []
+        self._http_handlers: Dict[str, Callable] = {}
+        self._http_progressive: set = set()  # routes streaming chunked bodies
+        # restful rows: (prefix, postfix, has_wildcard, service, method)
+        self._restful: list = []
         # session/thread-local data pools (simple_data_pool.h; built from
         # the option factories at start)
         self._session_pool: Optional[SimpleDataPool] = None
@@ -545,12 +555,21 @@ class Server:
         """Register ``name.method → handler`` rows (Server::AddService builds
         the same flat _method_map, server.cpp:1209). ``max_concurrency``
         (an int or ``"auto"``) limits each of these methods; None takes
-        ``options.method_max_concurrency``. ``restful_mappings`` belongs to
-        the HTTP gateway and waits for ROADMAP A11."""
-        if restful_mappings:
-            refuse_unported("Server.add_service", "restful_mappings", restful_mappings, "A11")
+        ``options.method_max_concurrency``.
+
+        ``restful_mappings`` exposes methods on custom HTTP paths instead
+        of the gateway's /<service>/<method> (reference
+        ServiceOptions.restful_mappings, server.h:255-260 + restful.cpp):
+        ``"PATH1 => NAME1, PATH2 => NAME2"`` where a PATH may carry one
+        ``*`` wildcard (``/v1/*/echo``, ``*.flv``)."""
         if self._started:
             raise RuntimeError("add_service after start")
+        # validate EVERYTHING before mutating: a ValueError must leave no
+        # partially-registered service behind
+        restful_rows = (
+            self._parse_restful_mappings(name, handlers, restful_mappings)
+            if restful_mappings else []
+        )
         for method in handlers:
             if f"{name}.{method}" in self._methods:
                 raise ValueError(f"method {name}.{method} already registered")
@@ -570,6 +589,96 @@ class Server:
 
                 register_device_method(name, method, dm)
                 self._device_methods[full] = dm
+        self._restful.extend(restful_rows)
+
+    def _parse_restful_mappings(
+        self, service: str, handlers: Dict[str, Callable], mappings: str
+    ) -> list:
+        rows: list = []
+        for pair in mappings.split(","):
+            pair = pair.strip()
+            if not pair:
+                continue
+            if "=>" not in pair:
+                raise ValueError(f"restful mapping {pair!r} lacks '=>'")
+            path, _, method = pair.partition("=>")
+            path, method = path.strip(), method.strip()
+            if method not in handlers:
+                raise ValueError(
+                    f"restful mapping {pair!r}: no method {method!r} in "
+                    f"service {service!r}"
+                )
+            if path.count("*") > 1:
+                raise ValueError(f"restful path {path!r} has more than one wildcard")
+            prefix, star, postfix = path.partition("*")
+            key = (prefix, postfix, bool(star))
+            for p2, q2, w2, s2, m2 in self._restful + rows:
+                if (p2, q2, w2) == key:
+                    # the reference's RestfulMap rejects conflicts at
+                    # AddService time rather than letting a dead mapping
+                    # linger (restful.cpp AddMethod)
+                    raise ValueError(f"restful path {path!r} already mapped to {s2}.{m2}")
+            rows.append((prefix, postfix, bool(star), service, method))
+        return rows
+
+    def find_restful(self, path: str) -> Optional[tuple]:
+        """(service, method) for a restful-mapped path, most-specific
+        (longest prefix+postfix) wildcard match winning — the RestfulMap
+        ordering (restful.cpp)."""
+        best = None
+        best_len = -1
+        for prefix, postfix, wild, service, method in self._restful:
+            if not wild:
+                if path == prefix:
+                    return service, method  # exact always wins
+                continue
+            if (
+                len(path) >= len(prefix) + len(postfix)
+                and path.startswith(prefix)
+                and path.endswith(postfix)
+            ):
+                score = len(prefix) + len(postfix)
+                if score > best_len:
+                    best, best_len = (service, method), score
+        return best
+
+    def add_http_handler(self, path: str, handler: Callable, progressive: bool = False) -> None:
+        """Register an HTTP handler ``fn(HttpFrame) -> (status, content_type,
+        body_bytes)`` at an exact path or a prefix ending in '/'. Builtin
+        portal pages win on conflicts (the reference forbids shadowing
+        builtins too, server.cpp AddBuiltinServices).
+
+        ``progressive=True``: chunked uploads to this route dispatch the
+        handler at header time with ``frame.body`` set to a
+        ``protocol.http.ProgressiveReader`` — the handler consumes the
+        body while it is still arriving (the reference's ProgressiveReader,
+        progressive_reader.h). Content-Length requests to the same route
+        still deliver plain bytes."""
+        if self._started:
+            raise RuntimeError("add_http_handler after start")
+        self._http_handlers[path] = handler
+        if progressive:
+            self._http_progressive.add(path)
+
+    def find_http_handler(self, path: str) -> Optional[Callable]:
+        h = self._http_handlers.get(path)
+        if h is not None:
+            return h
+        for prefix, handler in self._http_handlers.items():
+            if prefix.endswith("/") and path.startswith(prefix):
+                return handler
+        return None
+
+    def is_progressive_route(self, path: str) -> bool:
+        """Does a chunked upload to ``path`` stream to its handler?"""
+        if path in self._http_progressive:
+            return True
+        return any(p.endswith("/") and path.startswith(p) for p in self._http_progressive)
+
+    def has_method(self, full_name: str) -> bool:
+        """Cheap membership check (the gateway route test — methods() copies
+        the whole map)."""
+        return full_name in self._methods
 
     def methods(self) -> Dict[str, MethodProperty]:
         return self._methods.as_dict()
@@ -759,8 +868,9 @@ class Server:
         in-flight RPCs, open collective sessions and open streams finish
         within ``grace_s`` (default: the ``lame_duck_grace_s`` flag), then
         hard-stop. Returns the drain thread (join it to observe the full
-        lifecycle), or None if the server wasn't running. The
-        ``/health`` page that reports the drain waits for ROADMAP A12."""
+        lifecycle), or None if the server wasn't running. ``/health``
+        answers 503 through the drain, and ``/quitquitquit`` triggers it
+        over HTTP (builtin/pages.py)."""
         if not self._started or self._stopping:
             return None
         with self._lock:
@@ -1002,6 +1112,9 @@ class Server:
         cntl._service = meta.service
         cntl._method = meta.method
         cntl._sock = sock  # stream_accept and session data need the connection
+        # answer in the protocol the request arrived in (the reference keys
+        # SendRpcResponse off the request's protocol the same way)
+        cntl._wire_protocol = frame.wire_protocol
         cntl._mark_start()
 
         # deadline propagation (reference RpcRequestMeta.timeout_ms +
@@ -1275,6 +1388,102 @@ class Server:
         prop = self._methods.get(full_name)
         return prop.status.max_concurrency if prop is not None else None
 
+    def invoke_for_http(self, service: str, method: str, body: bytes, sock=None):
+        """The http→rpc gateway body (the reference serves every pb service
+        over HTTP at /ServiceName/MethodName via json2pb transcoding,
+        http_rpc_protocol.cpp): same method map, same admission gates and
+        session data, the request body as payload. Returns (status,
+        content_type, bytes).
+
+        Async handlers are waited for up to the reloadable
+        ``http_gateway_async_timeout_s`` flag — the wait pins this
+        connection's reader fiber (HTTP responses must go out in request
+        order), so slow async methods belong on the binary protocol.
+
+        The caller has verified the connection against ``options.auth``
+        (``builtin/pages.handle`` through ``rpc/auth.http_check``)."""
+        self.nrequest << 1  # counted before admission, like the binary path
+        prop = self._methods.get(f"{service}.{method}")
+        if prop is None:
+            return 404, "text/plain", f"no method {service}.{method}\n".encode()
+        if self._stopping or self._lame_duck:
+            return 503, "text/plain", b"server stopping\n"
+        # json2pb transcoding: when the handler carries a schema and the
+        # body is JSON, transcode request in / response out — one handler
+        # serves binary RPC and curl alike (the reference's http+pb story)
+        transcode = None
+        from incubator_brpc_tpu_torch.protocol.json2pb import schema_of
+        from incubator_brpc_tpu_torch.protocol.tbus_std import ParseError
+
+        schema = schema_of(prop.handler)
+        if schema is not None and body.lstrip()[:1] in (b"{", b""):
+            req_cls, resp_cls = schema
+            try:
+                body = req_cls.from_json(body or b"{}").to_binary()
+            except ParseError as e:
+                return 400, "text/plain", f"bad request json: {e}\n".encode()
+            transcode = resp_cls
+        status = prop.status
+        if not self._admit(status):
+            return 503, "text/plain", b"concurrency limit reached\n"
+
+        cntl = Controller()
+        cntl._server = self
+        cntl._service = service
+        cntl._method = method
+        cntl._request_payload = body
+        # the same request context the binary path provides, so handlers
+        # behave identically over both protocols
+        meta = Meta(service=service, method=method)
+        cntl.request_meta = meta
+        cntl._sock = sock
+        cntl.remote_side = sock.remote if sock is not None else None
+        cntl._mark_start()
+        maybe_dump_request(meta, body)
+
+        done = threading.Event()
+        holder = {"response": b""}
+        cntl._async = False
+        cntl.set_async = lambda: setattr(cntl, "_async", True)
+
+        def send_response(response=b""):
+            holder["response"] = response or b""
+            done.set()
+
+        cntl.send_response = send_response
+        self._session_handler_enter(sock)
+        prev_server = getattr(_usercode_tls, "server", None)
+        _usercode_tls.server = self
+        try:
+            response = prop.handler(cntl, body)
+        except Exception as e:
+            logger.exception("handler %s.%s raised (http)", service, method)
+            cntl.set_failed(ErrorCode.EINTERNAL, f"handler raised: {e!r}")
+            response = b""
+        finally:
+            _usercode_tls.server = prev_server
+        if cntl._async and not cntl.failed():
+            if not done.wait(timeout=float(get_flag("http_gateway_async_timeout_s"))):
+                cntl.set_failed(ErrorCode.ERPCTIMEDOUT, "async handler timed out")
+            response = holder["response"]
+        cntl._mark_end()
+        self._session_handler_exit(sock)
+        self._release(status, cntl)
+        if cntl.failed():
+            self.nerror << 1
+            return 500, "text/plain", f"{cntl.error_text}\n".encode()
+        if transcode is not None:
+            try:
+                return (
+                    200,
+                    "application/json",
+                    transcode.from_binary(response or b"").to_json(),
+                )
+            except Exception:
+                logger.exception("response transcode failed for %s.%s", service, method)
+                return 500, "text/plain", b"response transcode failed\n"
+        return 200, "application/octet-stream", response or b""
+
     def _send_response(self, sock, cntl: Controller, response: bytes) -> None:
         """SendRpcResponse (baidu_rpc_protocol.cpp:136): serialize+compress,
         append attachment, write. The response meta carries only what the
@@ -1300,11 +1509,12 @@ class Server:
         attachment = b"" if failed else cntl.response_attachment
         if attachment and meta is None:
             meta = Meta()
-        data = pack_frame_iobuf(
+        # the registry's packer for the protocol the request arrived in
+        wire = getattr(cntl, "_wire_protocol", "tbus_std")
+        data = proto_pkg.protocol_registry.get(wire).pack_response(
             meta,
             payload,
             cntl.call_id,
-            flags=FLAG_RESPONSE,
             error_code=cntl.error_code,
             attachment=attachment,
         )

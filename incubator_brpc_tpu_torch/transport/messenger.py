@@ -18,11 +18,17 @@ Kept semantics:
   order they were sent (the reference routes streaming messages during
   the parse phase for the same reason).
 
-The port's copy of the JAX package's ``transport/messenger.py`` on its
-header-peek path (every registered protocol of the port sizes its frames
-from ``parse_header``, and tbus_std cuts them off the read IOBuf through
-``parse_iobuf``); stateful per-connection protocols and the HTTP ordering
-hooks are not copied.
+The port's copy of the JAX package's ``transport/messenger.py``. Every
+registered protocol sizes its frames from ``parse_header`` (tbus_std then
+cuts them off the read IOBuf through ``parse_iobuf``); a protocol with a
+stateful per-connection cut (``parse_conn``: HTTP's chunked bodies) owns
+its connection's bytes once preferred, and may claim a connection from the
+header scan by answering None (the takeover signal). Frames of a protocol
+without correlation ids (HTTP) run inline in wire order, through their
+ordering hooks (``pre_dispatch``) and, for a handler that reads a body
+this fiber still feeds, on a worker spawned in wire order
+(``force_worker``). The protocol scan's option gate (``enabled_for``) and
+the user message handler are not copied.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from incubator_brpc_tpu_torch.protocol.registry import (
     Protocol,
     protocol_registry,
 )
-from incubator_brpc_tpu_torch.protocol.tbus_std import ParseError
+from incubator_brpc_tpu_torch.protocol.tbus_std import FatalParseError, ParseError
 from incubator_brpc_tpu_torch.runtime.worker_pool import global_worker_pool
 from incubator_brpc_tpu_torch.utils.flags import get_flag
 from incubator_brpc_tpu_torch.utils.status import ErrorCode
@@ -66,13 +72,50 @@ class InputMessenger:
         cut: List[Tuple[Protocol, object]] = []
         buf = sock._read_buf
         max_body = int(get_flag("max_body_size"))
-        while len(buf) >= 8:
+        while True:
+            pref = sock.preferred_protocol
+            if pref is not None and pref.parse_conn is not None:
+                # stateful per-connection cut: the protocol owns the
+                # connection's bytes once preferred, and may hold a
+                # decode in progress even when the buffer is empty;
+                # consumed-without-frame is progress
+                try:
+                    frame, consumed = pref.parse_conn(sock, buf)
+                except FatalParseError as e:
+                    self._dispatch(sock, cut)  # never defer on a dying conn
+                    sock.set_failed(ErrorCode.EREQUEST, f"corrupt frame: {e}")
+                    return None
+                except ParseError as e:
+                    self._dispatch(sock, cut)
+                    sock.set_failed(ErrorCode.EREQUEST, f"unparsable: {e}")
+                    return None
+                if frame is not None:
+                    cut.append((pref, frame))
+                    continue
+                if consumed:
+                    continue
+                break  # incomplete: wait for more bytes
+            if len(buf) < 8:
+                break
             header = buf.to_bytes(_HEADER_PEEK)
             matched = None
             total = None
             for proto in self._ordered(sock):
                 try:
                     total = proto.parse_header(header)
+                    if total is None and len(buf) > len(header):
+                        # a header block longer than the fast peek (HTTP):
+                        # peek deeper before concluding "incomplete"
+                        deeper = buf.to_bytes(min(len(buf), MAX_HEADER_PEEK))
+                        if len(deeper) > len(header):
+                            total = proto.parse_header(deeper)
+                except FatalParseError as e:
+                    # the protocol MATCHED but the frame is unacceptable
+                    # (an unsupported transfer coding): fail with the
+                    # protocol's own diagnostic
+                    self._dispatch(sock, cut)
+                    sock.set_failed(ErrorCode.EREQUEST, f"{proto.name}: {e}")
+                    return None
                 except ParseError:
                     continue
                 matched = proto
@@ -83,6 +126,11 @@ class InputMessenger:
                 return None
             sock.preferred_protocol = matched
             if total is None:
+                if matched.parse_conn is not None:
+                    # a stateful protocol signalled takeover (a chunked
+                    # body whose size is unknowable up front): loop so
+                    # parse_conn sees the bytes already buffered
+                    continue
                 break  # header itself incomplete
             # flag bounds the *body*; allow any registered header on top
             if total > max_body + MAX_HEADER_PEEK:
@@ -122,11 +170,28 @@ class InputMessenger:
         now = time.monotonic()
         for _proto, frame in cut:
             frame.arrival_ts = now
-        # stream frames run inline, in wire order (module docstring);
-        # everything else gets the N-1-fibers + last-inline treatment
+        # Two classes of frame are handled inline, in wire order, on this
+        # (one per socket) reader fiber: stream frames (module docstring),
+        # and frames whose protocol has no correlation ids (HTTP), whose
+        # responses must be written in request order. Everything else gets
+        # the N-1-fibers + last-inline treatment.
         rest = []
         for proto, frame in cut:
-            if frame.is_stream and proto.process_stream is not None:
+            pre = getattr(frame, "pre_dispatch", None)
+            if pre is not None:
+                # ordering hooks (HTTP's response-order gates) run at
+                # dispatch time, in wire order — never at cut time, where
+                # earlier frames of the same burst would observe them
+                pre(sock)
+            if getattr(frame, "force_worker", False):
+                # a progressive-upload handler blocks reading a body THIS
+                # fiber feeds: inline would deadlock, and it must spawn IN
+                # WIRE ORDER (a later inline frame may park on its gate)
+                global_worker_pool().spawn(self._process_one, sock, proto, frame)
+                continue
+            if getattr(frame, "process_inline", False) or (
+                frame.is_stream and proto.process_stream is not None
+            ):
                 self._process_one(sock, proto, frame)
             else:
                 rest.append((proto, frame))

@@ -1,17 +1,21 @@
 """Native network plane — the Python face of the port's ``csrc/host/tbnet``.
 
-tbnet is the native epoll reactor + tbus_std messenger + method dispatcher,
-and this module is the seam between it and the port's Python RPC layer:
+tbnet is the native epoll reactor + tbus_std and baidu_std messenger +
+method dispatcher, and this module is the seam between it and the port's
+Python RPC layer:
 
 - ``NativeServerPlane`` replaces the Python Acceptor/EventDispatcher for a
-  Server (``ServerOptions(native_plane=True)``): tbus_std frames are cut,
-  verified and, for natively registered methods (``native_echo``,
-  ``native_nop``, and user C functions through ``native_method_lib``),
-  ANSWERED on a reactor thread without the interpreter; every other frame
-  surfaces here as one callback and runs through the same
+  Server (``ServerOptions(native_plane=True)``): tbus_std AND baidu_std
+  (PRPC) frames are cut, verified and, for natively registered methods
+  (``native_echo``, ``native_nop``, and user C functions through
+  ``native_method_lib``), ANSWERED on a reactor thread without the
+  interpreter, in the protocol they arrived in (baidu_std's compressed
+  bodies through the C++ codec table); every other frame surfaces here as
+  one callback (flag 0x100 marks a PRPC meta) and runs through the same
   ``Server.process_request`` as the Python plane over a ``NativeConnSock``
-  facade (so a ``DeviceEndpoint.server_handler()`` serves the card behind
-  the C++ reactor). Connections that open with another protocol are handed
+  facade, answered in its own protocol (so a
+  ``DeviceEndpoint.server_handler()`` serves the card behind the C++
+  reactor). Connections that open with another protocol (HTTP) are handed
   off wholesale to a real Python ``Socket`` (one port, the reference's
   protocol scan, input_messenger.cpp:60-129).
 - Reactors: ``num_reactors`` epoll loops, each with its own listener
@@ -31,20 +35,23 @@ and this module is the seam between it and the port's Python RPC layer:
   table (``tb_server_register_native``); an adaptive limit, the method's
   own or the server-wide one distributed per method, is pushed there as
   it moves (``set_native_max_concurrency``), and the C++ dispatch answers
-  ELIMIT past it. A constant server-wide limit, or an authenticator,
-  keeps every method on the Python route, where those gates run: on
-  tbus_std the credential rides the JSON meta, which the C++ cutter does
-  not read.
+  ELIMIT past it. A constant server-wide limit keeps every method on the
+  Python route, where it runs.
+- Auth: a token-table authenticator (``TokenAuthenticator.native_tokens``)
+  is loaded into the C++ plane's constant-time table
+  (``tb_server_set_auth_tokens``); any other authenticator verifies
+  through a callback, once a connection. baidu_std's authentication_data
+  is checked in C and a wrong one answered ERPCAUTH there; the verdict is
+  cached on the connection, and a connection still unproven (a tbus_std
+  credential rides the JSON meta the cutter does not read) goes to the
+  Python route's ``server_check``, which pushes its verdict down.
 - ``install_native_client_fault`` arms the native client's counter
   schedule (every Nth call fails, closes or waits, in C++) on every
   ``NativeClientChannel`` made while the ``fault_injection`` flag is on.
 
-The port's copy of the JAX package's ``transport/native_plane.py``. Not
-here yet, each refusing where it is asked for: baidu_std on the native
-plane with its native auth token table (A11:
-``NativeClientChannel(protocol="baidu_std")`` refuses, and a baidu_std
-frame reaching the Python route closes its connection); the rpcz spans
-the telemetry ring samples (A12). A handle of this package's library (an
+The port's copy of the JAX package's ``transport/native_plane.py``; the
+rpcz spans the telemetry ring samples, and the process-wide compress and
+auth gauges, wait for ROADMAP A12. A handle of this package's library (an
 IOBuf, a connection token) never crosses to another package's runtime:
 only bytes on the wire do.
 """
@@ -56,6 +63,7 @@ import errno as _errno
 import logging
 import os
 import socket as _pysocket
+import struct
 import threading
 import time
 import weakref
@@ -63,7 +71,7 @@ from typing import Dict, Optional
 
 from incubator_brpc_tpu_torch import native
 from incubator_brpc_tpu_torch.bvar import Adder, IntRecorder, LatencyRecorder, PassiveStatus
-from incubator_brpc_tpu_torch.native import CLOSED_FN, FRAME_FN, HANDOFF_FN, LIB
+from incubator_brpc_tpu_torch.native import AUTH_FN, CLOSED_FN, FRAME_FN, HANDOFF_FN, LIB
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint
 from incubator_brpc_tpu_torch.utils.flags import get_flag
 from incubator_brpc_tpu_torch.utils.status import ErrorCode
@@ -80,8 +88,15 @@ KIND_NOP = 2
 _FLAG_WIRE_PRPC = 0x100
 _FLAG_CONN_AUTHED = 0x200
 
+# tb_channel_set_protocol values (tbnet.h)
+_CH_PROTO = {"tbus_std": 0, "baidu_std": 1}
+
 # tb_telemetry_record ABI size (static_assert in csrc/host/tbnet/tbnet.cc)
 _TELEMETRY_RECORD_BYTES = 64
+
+# wire CompressType <-> codec names the native plane implements (the
+# baidu_std table restricted to what the C++ codec table speaks)
+_NATIVE_COMPRESS_WIRE = {"snappy": 1, "gzip": 2, "zlib1": 3}
 
 # client fast-path instrumentation: per-call round trip (the Python
 # boundary included), transport errors, and the pump's ns/request
@@ -89,6 +104,8 @@ native_client_calls = Adder(name="native_client_calls")
 native_client_errors = Adder(name="native_client_errors")
 native_client_call_us = LatencyRecorder(name="native_client_call_us")
 native_pump_ns = IntRecorder(name="native_pump_ns")
+# the same pipelined pump over the baidu_std (PRPC) wire
+prpc_pump_ns = IntRecorder(name="prpc_pump_ns")
 
 
 def _native_kind(handler) -> Optional[int]:
@@ -217,6 +234,12 @@ class NativeConnSock:
                 logger.exception("on_failed callback raised")
         return True
 
+    def mark_native_authenticated(self) -> None:
+        """The Python route verified this connection's credential
+        (rpc/auth.server_check): cache the verdict on the C++ conn so its
+        later frames ride the native fast path without re-fighting auth."""
+        LIB.tb_conn_set_authenticated(self.token)  # -1: the token went stale
+
     def _mark_closed(self) -> None:
         """tbnet says the connection died: run failure hooks (streams)."""
         with self._state_lock:
@@ -314,11 +337,13 @@ class NativeServerPlane:
         for pure-C++ dispatch, each with its per-method limit; everything
         else stays on the per-frame Python route. Gates the Python route
         enforces per request must not be skippable by a fast path: a
-        CONSTANT server-wide limit has no native enforcement, and neither
-        has a tbus_std credential, so a server with either keeps ALL
-        methods on the Python route. A server-wide "auto" limit IS
-        enforceable natively, as a per-method ceiling pushed every time the
-        adaptive limit moves (Server._on_server_limit_change)."""
+        CONSTANT server-wide limit has no native enforcement, so a server
+        with one keeps ALL methods on the Python route. A server-wide
+        "auto" limit IS enforceable natively, as a per-method ceiling pushed
+        every time the adaptive limit moves
+        (Server._on_server_limit_change). The Authenticator is enforceable
+        natively too (``_configure_auth``), and a native reject answers
+        ERPCAUTH byte-identically to the Python route."""
         from incubator_brpc_tpu_torch.rpc.concurrency_limiter import AutoConcurrencyLimiter
 
         # gate on the RESOLVED limiter, not the raw spec: "12" is a
@@ -326,7 +351,11 @@ class NativeServerPlane:
         lim = self._server._server_limiter
         if lim is not None and not isinstance(lim, AutoConcurrencyLimiter):
             return
-        if self._server.options.auth is not None:
+        auth = self._server.options.auth
+        if auth is not None and not self._configure_auth(auth):
+            # an auth seam the native plane cannot arrange must fail
+            # CLOSED: no native registrations, every frame runs the Python
+            # route's server_check
             return
         for full, prop in self._server.methods().items():
             kind = _native_kind(prop.handler)
@@ -370,6 +399,38 @@ class NativeServerPlane:
             if getattr(prop.handler, "_native_long_running", False):
                 if LIB.tb_server_set_native_long_running(self._srv, full.encode(), 1) != 0:
                     logger.warning("long-running flag rejected for %s", full)
+
+    def _configure_auth(self, auth) -> bool:
+        """Arrange native auth verification for ``auth`` (pre-listen).
+        Token-table authenticators (a ``native_tokens()`` hook returning
+        the accepted credential strings) verify entirely in C —
+        constant-time, no interpreter even on first frames. Anything else
+        verifies through a ctypes trampoline: ONE GIL crossing per
+        connection (the verdict caches on the conn), zero on the steady
+        state. False = the plane could not arrange it."""
+        tokens_hook = getattr(auth, "native_tokens", None)
+        tokens = tokens_hook() if callable(tokens_hook) else None
+        if tokens:
+            blob = b"".join(
+                struct.pack("<I", len(t)) + t
+                for t in (x.encode() if isinstance(x, str) else bytes(x) for x in tokens)
+            )
+            return LIB.tb_server_set_auth_tokens(self._srv, blob, len(blob)) == 0
+
+        def _verify(_ud, data_ptr, data_len, ip, port, _auth=auth):
+            try:
+                cred = (
+                    ctypes.string_at(data_ptr, data_len) if data_ptr and data_len else b""
+                ).decode(errors="replace")
+                remote = EndPoint(ip=(ip or b"").decode(), port=int(port))
+                return 0 if _auth.verify_credential(cred, remote) else 1
+            except Exception:
+                logger.exception("native auth verifier raised; rejecting")
+                return 1
+
+        # the CFUNCTYPE must outlive the C++ server
+        self._auth_cb = AUTH_FN(_verify)
+        return LIB.tb_server_set_auth(self._srv, self._auth_cb, None) == 0
 
     def native_method_names(self) -> list:
         """Methods dispatched on the C++ plane (registration order)."""
@@ -422,7 +483,7 @@ class NativeServerPlane:
                 name=f"native_plane_{self.port}_{k}",
             )
             for k in ("accepted", "native_reqs", "cb_frames", "handoffs", "live_conns",
-                      "deadline_sheds")
+                      "deadline_sheds", "auth_rejects")
         ]
         for i in range(self.num_reactors):
             self._m_stats.extend(
@@ -673,13 +734,17 @@ class NativeServerPlane:
 
         try:
             body = IOBuf(_handle=body_h)  # take ownership
-            if flags & _FLAG_WIRE_PRPC:
-                # baidu_std on the native plane's Python route waits for
-                # ROADMAP A11: refuse the connection, answer nothing wrong
-                logger.warning("baidu_std frame on a native plane: not in the port yet (ROADMAP A11)")
-                LIB.tb_conn_close(token)
-                return
-            meta = Meta.from_bytes(ctypes.string_at(meta_ptr, meta_len) if meta_len else b"")
+            meta_bytes = ctypes.string_at(meta_ptr, meta_len) if meta_len else b""
+            is_prpc = bool(flags & _FLAG_WIRE_PRPC)
+            if is_prpc:
+                # a baidu_std frame off the C++ cut loop: the meta is
+                # RpcMeta proto bytes, and the response leaves in PRPC
+                # (_send_response keys off frame.wire_protocol)
+                from incubator_brpc_tpu_torch.protocol.baidu_std import RpcMeta, rpc_meta_to_meta
+
+                meta = rpc_meta_to_meta(RpcMeta.decode(meta_bytes))
+            else:
+                meta = Meta.from_bytes(meta_bytes)
             blen = len(body)
             att = meta.attachment_size
             if att > blen:
@@ -696,7 +761,14 @@ class NativeServerPlane:
             )
             # deadline-shed baseline for the worker-pool queue ahead
             frame.arrival_ts = time.monotonic()
-            self._dispatch(self._sock_for(token), frame)
+            if is_prpc:
+                frame.wire_protocol = "baidu_std"
+            sock = self._sock_for(token)
+            if flags & _FLAG_CONN_AUTHED:
+                # the C++ plane already verified this connection's
+                # credential: server_check honors the cached verdict
+                sock.context["authenticated"] = True
+            self._dispatch(sock, frame)
         except Exception:
             logger.exception("native frame dispatch failed")
 
@@ -704,7 +776,7 @@ class NativeServerPlane:
         """Mirror of InputMessenger._process_one for pre-cut frames."""
         from incubator_brpc_tpu_torch import protocol as proto_pkg
 
-        proto = proto_pkg.TBUS_STD
+        proto = proto_pkg.protocol_registry.get(frame.wire_protocol)
         if frame.is_stream and proto.process_stream is not None:
             proto.process_stream(sock, frame)  # in wire order, inline
             return
@@ -781,6 +853,7 @@ class NativeServerPlane:
         # destroy frees the epoll/event fds and the method table
         LIB.tb_server_stop(self._srv)
         self._final_stats = self.stats()
+        self._final_compress = self.compress_stats()
         self._final_reactor_stats = [self.reactor_stats(i) for i in range(self.num_reactors)]
         try:
             self.drain_telemetry()
@@ -813,16 +886,28 @@ class NativeServerPlane:
                 keys = ("accepted", "native_reqs", "cb_frames", "handoffs", "live_conns")
                 out = dict(zip(keys, (v.value for v in vals)))
                 out["deadline_sheds"] = int(LIB.tb_server_deadline_sheds(self._srv))
+                out["auth_rejects"] = int(LIB.tb_server_auth_rejects(self._srv))
                 return out
         return getattr(
             self,
             "_final_stats",
             dict.fromkeys(
                 ("accepted", "native_reqs", "cb_frames", "handoffs", "live_conns",
-                 "deadline_sheds"),
+                 "deadline_sheds", "auth_rejects"),
                 0,
             ),
         )
+
+    def compress_stats(self) -> Dict[str, int]:
+        """Native codec byte counters: request wire/raw bytes in, response
+        raw/wire bytes out."""
+        keys = ("in_wire", "in_raw", "out_raw", "out_wire")
+        with self._stats_lock:
+            if self._srv is None:
+                return getattr(self, "_final_compress", dict.fromkeys(keys, 0))
+            vals = [ctypes.c_uint64() for _ in range(4)]
+            LIB.tb_server_compress_stats(self._srv, *[ctypes.byref(v) for v in vals])
+            return dict(zip(keys, (v.value for v in vals)))
 
     def close_idle(self, idle_s: float) -> int:
         """Cull native connections with no read activity for ``idle_s``
@@ -879,8 +964,14 @@ def install_native_client_fault(
 
 
 class NativeClientChannel:
-    """Client fast path over one shared native connection, speaking
-    tbus_std (``protocol="baidu_std"`` waits for ROADMAP A11)."""
+    """Client fast path over one shared native connection.
+
+    ``protocol`` selects the wire format the C++ channel emits:
+    "tbus_std" (default) or "baidu_std" — the latter sends wire-exact PRPC
+    frames (header + proto2 RpcMeta), byte for byte those of
+    ``protocol/baidu_std.py``, with a credential (``set_auth``), a request
+    codec (``set_request_compress``) and the pump's trace context
+    (``set_trace``)."""
 
     _META_CACHE_MAX = 1024
 
@@ -892,11 +983,7 @@ class NativeClientChannel:
         protocol: str = "tbus_std",
     ):
         native.require()
-        if protocol == "baidu_std":
-            from incubator_brpc_tpu_torch.rpc.controller import refuse_unported
-
-            refuse_unported("NativeClientChannel", "protocol", protocol, "A11")
-        if protocol != "tbus_std":
+        if protocol not in _CH_PROTO:
             raise ValueError(f"unsupported native protocol {protocol!r}")
         err = ctypes.c_int(0)
         self._meta_cache: Dict[tuple, bytes] = {}
@@ -907,6 +994,12 @@ class NativeClientChannel:
         if not self._ch:
             raise OSError(err.value, f"connect {ip}:{port} failed")
         self.protocol = protocol
+        if protocol != "tbus_std" and LIB.tb_channel_set_protocol(self._ch, _CH_PROTO[protocol]) != 0:
+            # the C++ side refused the protocol id: the channel would
+            # silently speak tbus_std — fail construction instead
+            LIB.tb_channel_destroy(self._ch)
+            self._ch = None
+            raise ValueError(f"native channel rejected protocol {protocol!r}")
         # reusable per-thread response-meta buffer: a fresh 64 KiB buffer
         # per call costs more than the whole native round trip
         self._tls = threading.local()
@@ -933,6 +1026,54 @@ class NativeClientChannel:
             if self._ch is None:
                 return 0
             return int(LIB.tb_channel_cid_misroutes(self._ch))
+
+    def set_request_compress(self, name: str) -> None:
+        """Channel-default request compress_type (baidu_std only): stamps
+        RpcMeta field 3 on every request this channel emits. The CALLER
+        compresses payloads with the matching protocol/compress.py codec —
+        the same algorithm the server's C++ table runs, so the planes stay
+        byte-identical. "" clears."""
+        wire = _NATIVE_COMPRESS_WIRE.get(name, 0)
+        if name and wire == 0:
+            raise ValueError(f"codec {name!r} is not native-plane capable")
+        if LIB.tb_channel_set_compress(self._ch, wire) != 0:
+            raise RuntimeError("tb_channel_set_compress rejected the codec")
+
+    def set_auth(self, credential) -> None:
+        """Arm the connection's credential (RpcMeta field 7,
+        authentication_data): stamped on requests until the first
+        successful response proves the connection — the reference's
+        first-request auth fight. A redialed channel re-arms with a fresh
+        credential."""
+        data = credential.encode() if isinstance(credential, str) else bytes(credential)
+        LIB.tb_channel_set_auth(self._ch, data, len(data))  # copied synchronously
+
+    def set_trace(
+        self,
+        trace_id: int,
+        span_id: int = 0,
+        parent_span_id: int = 0,
+        log_id: int = 0,
+        sampled: int = 1,
+        every: int = 1,
+    ) -> None:
+        """Arm ambient trace context for the pipelined ``pump``
+        (tb_channel_set_trace): every ``every``'th pump frame carries the
+        Dapper fields in its RpcRequestMeta, with a distinct per-frame span
+        id (``span_id + sequence``). baidu_std channels only; ``every=0``
+        disarms."""
+        m64 = (1 << 64) - 1
+        rc = LIB.tb_channel_set_trace(
+            self._ch,
+            int(log_id) & m64,
+            int(trace_id) & m64,
+            int(span_id) & m64,
+            int(parent_span_id) & m64,
+            1 if sampled else 0,
+            max(0, int(every)),
+        )
+        if rc != 0:
+            raise ValueError("traced pumps ride the PRPC wire: use protocol='baidu_std'")
 
     def set_fault(
         self,
@@ -968,6 +1109,26 @@ class NativeClientChannel:
         from incubator_brpc_tpu_torch.protocol.tbus_std import Meta
 
         traced = bool(log_id or trace_id or span_id or parent_span_id or sampled)
+        if self.protocol == "baidu_std":
+            # the RpcRequestMeta submessage only: correlation_id and
+            # attachment_size live OUTSIDE it, spliced in by the C++
+            # channel, so the cache key never depends on the attachment;
+            # traced calls build uncached (their ids change per call)
+            from incubator_brpc_tpu_torch.protocol.baidu_std import encode_request_submeta
+
+            if traced:
+                return encode_request_submeta(
+                    service, method, log_id, trace_id, span_id, parent_span_id,
+                    timeout_ms=timeout_ms, sampled=sampled,
+                )
+            key = (service, method, timeout_ms)
+            m = self._meta_cache.get(key)
+            if m is None:
+                m = encode_request_submeta(service, method, timeout_ms=timeout_ms)
+                if len(self._meta_cache) >= self._META_CACHE_MAX:
+                    self._meta_cache.clear()  # one-shot keys flooded it
+                self._meta_cache[key] = m
+            return m
         if traced or att_len:
             return Meta(
                 service=service,
@@ -992,10 +1153,17 @@ class NativeClientChannel:
         return m
 
     def decode_resp_meta(self, resp_meta: bytes):
-        """Response meta bytes (JSON on tbus_std) -> Meta."""
+        """Response meta bytes -> Meta: JSON on tbus_std, RpcMeta proto
+        bytes on baidu_std (the raw bytes tb_channel_call copied out)."""
         from incubator_brpc_tpu_torch.protocol.tbus_std import Meta
 
-        return Meta.from_bytes(resp_meta) if resp_meta else Meta()
+        if not resp_meta:
+            return Meta()
+        if self.protocol == "baidu_std":
+            from incubator_brpc_tpu_torch.protocol.baidu_std import RpcMeta, rpc_meta_to_meta
+
+            return rpc_meta_to_meta(RpcMeta.decode(resp_meta))
+        return Meta.from_bytes(resp_meta)
 
     def _leave(self) -> None:
         """One call out of C: the last one out of a closed channel
@@ -1020,11 +1188,15 @@ class NativeClientChannel:
         span_id: int = 0,
         parent_span_id: int = 0,
         sampled: int = 0,
+        compress: str = "",
     ):
         """One native round trip. Returns (rc, err_code, resp_meta_bytes,
         body: IOBuf): rc < 0 is a transport errno, err_code the server's
         RPC error. Nonzero log_id/trace ids travel in the request meta as
-        the Python packers send them."""
+        the Python packers send them. ``compress`` (baidu_std only) names
+        the codec the CALLER already compressed ``payload`` with: it rides
+        the wire's compress_type, and the response body comes back as wire
+        bytes (the caller decompresses per the response meta)."""
         from incubator_brpc_tpu_torch.iobuf import IOBuf
         from incubator_brpc_tpu_torch.protocol.tbus_std import FLAG_BODY_CRC
 
@@ -1038,7 +1210,12 @@ class NativeClientChannel:
                 service, method, len(attachment), log_id, trace_id, span_id,
                 parent_span_id, sampled, timeout_ms=wire_timeout,
             )
-            flags = FLAG_BODY_CRC if get_flag("tbus_body_crc") else 0
+            if self.protocol == "baidu_std":
+                # flags carry the per-call compress_type in PRPC mode (the
+                # tbus flag space means nothing there)
+                flags = _NATIVE_COMPRESS_WIRE.get(compress, 0)
+            else:
+                flags = FLAG_BODY_CRC if get_flag("tbus_body_crc") else 0
             body = IOBuf()
             tls = self._tls
             try:
@@ -1098,7 +1275,7 @@ class NativeClientChannel:
             if rc < 0:
                 native_client_errors << 1
                 raise OSError(-rc, "native pump failed")
-            native_pump_ns << int(rc)
+            (prpc_pump_ns if self.protocol == "baidu_std" else native_pump_ns) << int(rc)
             return float(rc)
         finally:
             self._leave()

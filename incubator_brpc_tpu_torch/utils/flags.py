@@ -156,6 +156,20 @@ define_flag(
     lambda v: v > 0,
 )
 define_flag(
+    "enable_quitquitquit",
+    False,
+    "serve the /quitquitquit graceful-quit trigger (an unauthenticated "
+    "remote DRAIN-AND-STOP on the portal: keep off unless the port is "
+    "trusted — the reference gates its quit endpoints the same way)",
+    lambda v: True,
+)
+define_flag(
+    "http_gateway_async_timeout_s",
+    30,
+    "how long the http->rpc gateway waits for an async handler",
+    lambda v: v > 0,
+)
+define_flag(
     "async_response_timeout_s",
     30.0,
     "fail a binary-path async handler (cntl.set_async) that has not sent "

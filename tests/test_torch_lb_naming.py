@@ -26,7 +26,12 @@ CPU, held against the JAX package's:
   packages isolate the failing node after the same calls, answer
   ``EHOSTDOWN`` once every node is isolated, revive after the isolation
   window (doubled for a node that re-trips while half open) and serve again;
-- the port's refusals: ``remotefile://`` and ``watch://`` name ROADMAP A11.
+- the naming services that speak HTTP (ROADMAP A11a; refused naming A11
+  before): ``TestWatchNaming`` and ``TestRemoteFileNaming`` of
+  tests/test_watch_nshead.py on both packages (the watch endpoint's
+  blocking query, a server-set change reaching a live channel's LB through
+  the watch, a list fetched over HTTP), and one ``rr`` channel a scheme on
+  both, each following a list change to the same servers.
 
 Each test stops the servers it started; after each the port's host plane
 and timer thread are shut down and no ``tbtorch-*`` thread is left."""
@@ -716,8 +721,154 @@ def test_breaker_isolates_and_revives_as_the_jax_package(tuned_flags):
     assert [s[1:] for s in want["revived_states"]] == [(1, 300), (1, 300), (2, 600)]
 
 
-def test_port_refuses_http_naming_naming_a11():
-    ch = port_rpc.Channel()
-    for url in ("remotefile://127.0.0.1:1/servers", "watch://127.0.0.1:1/svc"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A11\b"):
-            ch.init(url, "rr")
+def _watch_module(pkg):
+    import importlib
+
+    return importlib.import_module(f"{pkg.naming.__name__}.watch")
+
+
+def _wake_watchers(registry):
+    """Answer every parked blocking query (a handler waits up to its
+    ``wait``): bump each set's version with the same servers."""
+    for name in list(registry._sets):
+        registry.update(name, registry.get(name)[1])
+
+
+def test_port_refuses_http_naming_naming_a11(pkg, flags):
+    """Once refused naming A11: both packages serve ``remotefile://`` and
+    ``watch://``, and a channel over each follows a list change to the
+    same servers."""
+    flags("ns_refresh_interval_s", 0.1)
+    watch = _watch_module(pkg)
+    backends = [make_server(pkg, {"w": {"who": (lambda i: lambda c, r: b"%d" % i)(i)}})
+                for i in range(2)]
+    listing = {"body": f"127.0.0.1:{backends[0].port}\n".encode()}
+    registry = watch.WatchRegistry()
+    registry.update("pool", [f"127.0.0.1:{backends[0].port}"])
+    host = pkg.rpc.Server(pkg.rpc.ServerOptions(**pkg.server_kw))
+    host.add_http_handler("/servers.lst", lambda f: (200, "text/plain", listing["body"]))
+    watch.install_watch_endpoint(host, registry)
+    assert host.start(0)
+    _OPEN.append(host)
+    urls = (f"remotefile://127.0.0.1:{host.port}/servers.lst",
+            f"watch://127.0.0.1:{host.port}/pool")
+    channels, rows = [], []
+    try:
+        for url in urls:
+            ch = pkg.rpc.Channel()
+            assert ch.init(url, "rr")
+            channels.append(ch)
+            rows.append(sorted({ch.call_method("w", "who", b"").response_payload
+                                for _ in range(4)}))
+        listing["body"] = b"".join(f"127.0.0.1:{b.port}\n".encode() for b in backends)
+        registry.update("pool", [f"127.0.0.1:{b.port}" for b in backends])
+        for ch in channels:
+            seen = set()
+            deadline = time.monotonic() + 10
+            while len(seen) < 2 and time.monotonic() < deadline:
+                c = ch.call_method("w", "who", b"")
+                if c.ok():
+                    seen.add(c.response_payload)
+                time.sleep(0.02)
+            rows.append(sorted(seen))
+    finally:
+        for ch in channels:
+            ch._lb.stop()
+        _wake_watchers(registry)
+    assert rows == [[b"0"], [b"0"], [b"0", b"1"], [b"0", b"1"]]
+
+
+# -- tests/test_watch_nshead.py's naming cases on both packages ---------------
+
+
+@pytest.fixture
+def watch_server(pkg):
+    watch = _watch_module(pkg)
+    registry = watch.WatchRegistry()
+    srv = pkg.rpc.Server(pkg.rpc.ServerOptions(**pkg.server_kw))
+    watch.install_watch_endpoint(srv, registry)
+    assert srv.start(0)
+    _OPEN.append(srv)
+    yield srv, registry
+    _wake_watchers(registry)
+
+
+def _http_call(pkg):
+    import importlib
+
+    return importlib.import_module(pkg.rpc.__name__.replace(".rpc", ".protocol.http")).http_call
+
+
+class TestWatchNaming:
+    def test_blocking_query_returns_on_update(self, pkg, watch_server):
+        import json
+
+        srv, registry = watch_server
+        registry.update("db", ["127.0.0.1:7001"])
+        http_call = _http_call(pkg)
+        status, _, body = http_call("127.0.0.1", srv.port, "/naming/db?index=0&wait=5")
+        assert status == 200
+        obj = json.loads(body)
+        assert obj["index"] == 1 and obj["servers"] == ["127.0.0.1:7001"]
+        got = {}
+
+        def poll():
+            _s, _, b = http_call("127.0.0.1", srv.port, "/naming/db?index=1&wait=10", timeout=15)
+            got["resp"] = json.loads(b)
+
+        t = threading.Thread(target=poll)
+        t0 = time.monotonic()
+        t.start()
+        time.sleep(0.2)
+        registry.update("db", ["127.0.0.1:7001", "127.0.0.1:7002"])
+        t.join(timeout=10)
+        dt = time.monotonic() - t0
+        assert got["resp"]["index"] == 2
+        assert len(got["resp"]["servers"]) == 2
+        assert dt < 5, f"watch did not wake on update ({dt:.1f}s)"
+
+    def test_mid_traffic_server_set_change_propagates_fast(self, pkg, watch_server):
+        watch_srv, registry = watch_server
+        backends = []
+        for _ in range(2):
+            holder = {}
+            b = make_server(pkg, {"w": {"who": lambda c, r, h=holder: str(h["port"]).encode()}})
+            holder["port"] = b.port
+            backends.append(b)
+        registry.update("pool", [f"127.0.0.1:{backends[0].port}"])
+        ch = pkg.rpc.Channel()
+        assert ch.init(f"watch://127.0.0.1:{watch_srv.port}/pool", "rr")
+        seen = set()
+        for _ in range(4):
+            c = ch.call_method("w", "who", b"")
+            assert c.ok(), c.error_text
+            seen.add(c.response_payload)
+        assert seen == {str(backends[0].port).encode()}
+        registry.update("pool", [f"127.0.0.1:{b.port}" for b in backends])
+        deadline = time.monotonic() + 5
+        seen2 = set()
+        while time.monotonic() < deadline and len(seen2) < 2:
+            c = ch.call_method("w", "who", b"")
+            if c.ok():
+                seen2.add(c.response_payload)
+            time.sleep(0.05)
+        ch._lb.stop()
+        assert seen2 == {str(b.port).encode() for b in backends}
+
+
+class TestRemoteFileNaming:
+    def test_remotefile_serves_and_refreshes(self, pkg, flags):
+        listing = {"body": b""}
+        srv = pkg.rpc.Server(pkg.rpc.ServerOptions(**pkg.server_kw))
+        srv.add_http_handler("/servers.lst", lambda frame: (200, "text/plain", listing["body"]))
+        assert srv.start(0)
+        _OPEN.append(srv)
+        backend = make_server(pkg, {"rf": {"echo": lambda cntl, req: req}})
+        listing["body"] = f"127.0.0.1:{backend.port}\n".encode()
+        flags("ns_refresh_interval_s", 0.1)
+        ch = pkg.rpc.Channel()
+        assert ch.init(f"remotefile://127.0.0.1:{srv.port}/servers.lst", "rr")
+        c = ch.call_method("rf", "echo", b"via-remotefile")
+        assert c.ok(), c.error_text
+        assert c.response_payload == b"via-remotefile"
+        ch._lb.stop()

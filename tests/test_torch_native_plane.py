@@ -19,7 +19,7 @@ against the JAX package's:
   answer one script of raw frames with the same bytes and the same
   telemetry records, field by field apart from the times;
 - the handoff of a connection that speaks another protocol to a Python
-  ``Socket`` (the mechanism; its HTTP portal waits for A11 and A12);
+  ``Socket``, which answers it over HTTP (``/health``) on both packages;
 - the device echo (K1, ``DeviceEndpoint(device="cpu").server_handler()``)
   through a port native-plane server, from the port's Python ``Channel``
   and its native client: bitwise the endpoint's answer through the Python
@@ -30,10 +30,14 @@ route`` and ``TestGatesStayEnforced`` (a per-method limit on the Python
 route, an authenticator and a constant server-wide limit keeping native
 methods on the Python route) run on both packages, and so do the three
 native-plane options that refused naming A7 before (the native client's
-fault schedule, auth, a server-wide limit). Waiting, and so not here:
-``TestInterop.test_http_handoff_same_port`` (the HTTP portal: A11 and
-A12); ``TestGarbageAndEdge.test_unix_endpoint_falls_back_to_python_
-acceptor`` (unix sockets: A10). Tolerance: none, everything here is bytes
+fault schedule, auth, a server-wide limit). Since ROADMAP A11a the native
+client on baidu_std is served by both packages (what refused naming A11
+here before), and an authenticator's token table keeps native methods in
+C++ on both (``_served_auth``); ``TestInterop.test_http_handoff_same_port``
+is in tests/test_torch_http.py, and baidu_std on the native plane in
+tests/test_torch_native_baidu.py. Waiting, and so not here:
+``TestGarbageAndEdge.test_unix_endpoint_falls_back_to_python_acceptor``
+(unix sockets: A10). Tolerance: none, everything here is bytes
 and integers.
 """
 
@@ -132,8 +136,8 @@ def _channel(pkg, port, **opts):
     return ch
 
 
-def _native(pkg, port):
-    return pkg.np.NativeClientChannel("127.0.0.1", port)
+def _native(pkg, port, protocol="tbus_std"):
+    return pkg.np.NativeClientChannel("127.0.0.1", port, protocol=protocol)
 
 
 def _capture_drained(pkg, plane):
@@ -288,7 +292,7 @@ class TestInterop:
     def test_another_protocol_is_handed_off_to_a_python_socket(self, pkg):
         """The protocol-sniff handoff: a connection that opens with
         neither tbus_std nor baidu_std leaves the C++ plane for a Python
-        Socket (the port has no HTTP yet, so its Socket closes it)."""
+        Socket, which answers it over HTTP."""
         srv = _server(pkg, {"svc": {"echo": pkg.rpc.native_echo}})
         raw = pysocket.create_connection(("127.0.0.1", srv.port), timeout=5)
         raw.sendall(b"GET /health HTTP/1.1\r\nHost: x\r\n\r\n")
@@ -298,8 +302,7 @@ class TestInterop:
         assert srv._native_plane.stats()["handoffs"] == 1
         reply = raw.recv(4096)
         raw.close()
-        if pkg.name == "jax":
-            assert reply.startswith(b"HTTP/1.1")
+        assert reply.startswith(b"HTTP/1.1")
         # the native plane keeps serving
         assert _channel(pkg, srv.port, native_plane=True).call_method("svc", "echo", b"k").ok()
 
@@ -570,8 +573,23 @@ class TestNativeClientModes:
 
 
 def test_port_refuses_what_waits_naming_the_item():
-    with pytest.raises(NotImplementedError, match=r"protocol=.*ROADMAP A11\b"):
-        port_np.NativeClientChannel("127.0.0.1", 1, protocol="baidu_std")
+    """Once refused naming A11: both packages' native clients speak
+    baidu_std (a native echo and a Python-routed error over PRPC), and
+    refuse a protocol neither native channel packs."""
+    for pkg in PKGS.values():
+        srv = _server(pkg, {"svc": {"echo": pkg.rpc.native_echo,
+                                    "boom": lambda c, r: c.set_failed(ErrorCode.EINTERNAL, "b")}})
+        nch = _native(pkg, srv.port, protocol="baidu_std")
+        try:
+            rc, code, meta, body = nch.call("svc", "echo", b"prpc", b"att", timeout_ms=5000)
+            m = nch.decode_resp_meta(meta)
+            assert (rc >= 0, code, m.attachment_size, body.to_bytes()) == (True, 0, 3, b"prpcatt")
+            rc, code, meta, _ = nch.call("svc", "boom", b"", timeout_ms=5000)
+            assert (code, nch.decode_resp_meta(meta).error_text) == (ErrorCode.EINTERNAL, "b")
+        finally:
+            nch.close()
+        with pytest.raises(ValueError):
+            pkg.np.NativeClientChannel("127.0.0.1", srv.port, protocol="nshead")
 
 
 def _served_fault_schedule(pkg, tune):
@@ -601,12 +619,10 @@ def _served_auth(pkg, tune):
     codes.append(_channel(pkg, srv.port, native_plane=True).call_method("svc", "echo", b"x").error_code)
     wrong = _channel(pkg, srv.port, auth=pkg.rpc.TokenAuthenticator("tok-b"))
     codes.append(wrong.call_method("svc", "echo", b"x").error_code)
-    if pkg.name == "torch":
-        # the port keeps every method on the Python route; the JAX
-        # package's C++ token table (its baidu_std seam, ROADMAP A11 for
-        # the port) answers a proven connection's later frames natively
-        assert srv._native_plane.stats()["native_reqs"] == 0
-        assert srv._native_plane.native_method_names() == []
+    # the C++ token table keeps native methods in C++ on both packages: a
+    # connection the Python route proved answers its later frames natively
+    assert srv._native_plane.native_method_names() == ["svc.echo"]
+    assert srv._native_plane.stats()["native_reqs"] == 1
     return codes
 
 

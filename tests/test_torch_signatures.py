@@ -18,7 +18,10 @@ policy options of ROADMAP A7 (``test_both_packages_serve_the_policy_
 options``: admission limits, the idle reaper, credentials, the fault
 injector, the data factories, the retry policy and backup requests), and
 the positional calls of C7 that pass ``max_concurrency`` or
-``backup_request_ms`` now bind on both packages. And
+``backup_request_ms`` now bind on both packages. ``ChannelOptions(protocol=
+"baidu_std")`` and ``"http"`` (ROADMAP A11a) are served by both packages
+(``test_both_packages_serve_the_protocol_option``); the JAX package's
+twelve other protocols still refuse naming A11. And
 ``run_dispatch_session`` ends as the reference's does, ``..., chunk_order,
 trace_id, parent_span_id`` (ROADMAP C8), with the port's ``device`` and
 ``group_timeout_s`` keyword-only after them; a non-zero trace id refuses
@@ -42,6 +45,7 @@ import incubator_brpc_tpu.utils.flags as jax_flags
 import incubator_brpc_tpu_torch.parallel.mc_dispatch as port_mcd
 import incubator_brpc_tpu_torch.protocol.registry as port_registry
 import incubator_brpc_tpu_torch.rpc as port_rpc
+import incubator_brpc_tpu_torch.rpc.channel as port_channel
 import incubator_brpc_tpu_torch.transport.acceptor as port_acceptor
 import incubator_brpc_tpu_torch.transport.device_link as port_dl
 import incubator_brpc_tpu_torch.transport.sock as port_sock
@@ -107,8 +111,9 @@ INTERNAL = {
         "jax": ["name", "parse", "parse_header", "pack_request", "pack_response",
                 "process_request", "process_response", "process_stream", "parse_iobuf",
                 "parse_conn", "enabled_for", "fifo_responses"],
-        "torch": ["name", "*", "parse", "parse_header", "process_request",
-                  "process_response", "process_stream", "parse_iobuf"],
+        "torch": ["name", "*", "parse", "parse_header", "pack_request", "pack_response",
+                  "process_request", "process_response", "process_stream", "parse_iobuf",
+                  "parse_conn", "fifo_responses"],
     },
 }
 
@@ -247,9 +252,8 @@ REFUSED = [
     ("ServerOptions", {"mongo_service_adaptor": object()}, "A11"),
     ("ServerOptions", {"rtmp_service": object()}, "A11"),
     ("ServerOptions", {"ssl_context": object()}, "A10"),
-    ("ChannelOptions", {"protocol": "baidu_std"}, "A11"),
     ("ChannelOptions", {"ssl_context": object()}, "A10"),
-]
+] + [("ChannelOptions", {"protocol": name}, "A11") for name in port_channel.UNPORTED_PROTOCOLS]
 
 
 @pytest.mark.parametrize("owner,kw,item", REFUSED,
@@ -259,6 +263,37 @@ def test_port_refuses_unported_values_naming_the_item(owner, kw, item):
     name = next(iter(kw))
     with pytest.raises(NotImplementedError, match=rf"{name}=.*ROADMAP {item}\b"):
         cls(**kw)
+
+
+def test_unported_protocols_are_the_jax_packages():
+    jax_names = [p.name for p in jax_registry.protocol_registry.ordered()]
+    port_names = [p.name for p in port_registry.protocol_registry.ordered()]
+    assert sorted(port_names + list(port_channel.UNPORTED_PROTOCOLS)) == sorted(jax_names)
+
+
+@pytest.mark.parametrize("protocol", ["baidu_std", "http"])
+def test_both_packages_serve_the_protocol_option(protocol):
+    """Once refused naming A11: both packages take the protocol and answer
+    over it with the same payloads and codes."""
+    for pkg in PKGS.values():
+        srv = pkg.rpc.Server(pkg.ServerOptions(**pkg.server_kw))
+        srv.add_service("Echo", {"echo": lambda cntl, req: req[::-1]})
+        assert srv.start(0)
+        try:
+            opts = pkg.rpc.ChannelOptions(protocol=protocol)
+            assert opts.protocol == protocol
+            ch = pkg.rpc.Channel()
+            assert ch.init(f"127.0.0.1:{srv.port}", options=opts)
+            got = [ch.call_method("Echo", "echo", b"abc") for _ in range(3)]
+            assert [(c.error_code, c.response_payload) for c in got] == [(0, b"cba")] * 3
+            missing = ch.call_method("Echo", "nope", b"")
+            assert missing.error_code == (ErrorCode.EHTTP if protocol == "http"
+                                          else ErrorCode.ENOMETHOD), pkg.name
+        finally:
+            srv.stop()
+            assert srv.join(timeout=10)
+    port_rpc.shutdown_host_plane()
+    shutdown_global_timer_thread()
 
 
 @pytest.mark.parametrize("ctype", ["pooled", "short"])
