@@ -166,6 +166,22 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    json2pb typed service answering a curl-style JSON POST, checked field by
    field. K1a and K1c must launch in (a), (b) and (d); the kernels line's
    K1 entries carry the tallies as ``protocol_launches``;
+3i. drives the device echo with ``enable_rpcz`` on (``rpcz_phase``, every
+   span kept), the launch counts tallied per part: (a) over tbus_std on the
+   Python plane, each call's client span and server span held linked (one
+   trace, the server's parent the client's span, annotated "processing");
+   (b) baidu_std behind the native plane from ``Channel(native_plane=True)``
+   (linked alike) and ``NativeClientChannel`` with its own trace, then a
+   ``native_echo`` flood whose telemetry drain leaves exactly one sampled
+   span in ``RPCZ_SAMPLE_EVERY``; (c) ``POST /tensor/echo``, a gateway span
+   a call; (d) ``/rpcz`` (also by trace id), ``/vars``, ``/vars.json``,
+   ``/brpc_metrics`` (the exposition validated line by line), ``/status``,
+   ``/flags``, ``/connections`` and ``/sockets`` over the port's HTTP
+   channel, ms a scrape; (e) µs a device echo with rpcz off and on in
+   mirrored turns (the span cost) and spans/s under a 16 x 8 burst; (f)
+   ``/hotspots/contention`` naming a contended ``FiberMutex`` loop. K1a and
+   K1c must launch in (a), (b), (c) and (e); the kernels line's K1 entries
+   carry the tallies as ``rpcz_launches``;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -325,7 +341,11 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``session_expected``, then exact, int8 and int4 pmean sessions bitwise
    their models, each process's K2 launches (16 K2a and 16 K2b per
    quantized session) and ms a step, and the client's all_gather time a
-   step; a server with ``--wrong-kernel`` refused at accept before any
+   step; the traced int8 session (``--traced-session``: proposed inside a
+   handler called with a trace of its own, 4 steps, chunks=2 double-
+   buffered), its parties' session, step and chunk spans gathered from the
+   3 processes' ``/rpcz`` into one trace tree under the caller's span and
+   printed; a server with ``--wrong-kernel`` refused at accept before any
    step; (c) the chaos drill (``PLANE_CHAOS``: party 0 killed at step 3 of
    8, checkpoint every 2, one spare) healed bitwise; the kernels line's K2
    entries carry (a)'s and (b)'s launches as ``plane_launches``;
@@ -2845,14 +2865,14 @@ PRPC_ECHO = (500, 300)  # its rpc_echo_prpc_snappy_us and _python_us calls a run
 PRPC_TOKEN = "phase3h-token"
 
 
-def echo_check(label, payload, code, out):
+def echo_check(label, payload, code, out, phase="phase3h"):
     """Hold one device echo of ``payload`` against ``expected(words, 0)``."""
     if code != 0:
-        raise AssertionError(f"phase3h {label}: code {code}")
+        raise AssertionError(f"{phase} {label}: code {code}")
     nbytes = len(payload)
     words = np.frombuffer(payload + b"\0" * (-nbytes % 4), np.uint32)
     if out != expected(words, 0).tobytes()[:nbytes]:
-        raise AssertionError(f"phase3h {label}: an echo answered wrong bytes")
+        raise AssertionError(f"{phase} {label}: an echo answered wrong bytes")
 
 
 def echo_runs(label, call, rng, n_seq, burst):
@@ -3206,6 +3226,437 @@ def protocol_phase(torch, kernels, device=None, scale: float = 1.0):
             s.join(timeout=60)
         if not ep.close(timeout=120):
             raise AssertionError("phase3h: the endpoint did not settle its calls")
+    return out, tally
+
+
+# -- phase 3i: rpcz spans, the portal and the profilers around the device echo --
+
+RPCZ_SEQ = 40  # traced sequential device echoes on each wire
+RPCZ_TURNS = 6  # span cost: turns of rpcz off and on, mirrored (off, on, on, off, ...)
+RPCZ_TURN_CALLS = 200  # sequential device echoes a turn
+RPCZ_BURST = (16, 8)  # callers x calls each, rpcz on: spans a second
+RPCZ_SAMPLE_EVERY = 8  # native_telemetry_sample_every of the native flood
+RPCZ_NATIVE_PUMP = 4096  # native_echo requests of the native flood
+RPCZ_TRACE = 0x3177ACE  # the trace id (b)'s native client stamps
+RPCZ_SPAN_LOOPS = 20000  # (e): a call's two spans by their code alone, this many times
+RPCZ_FLAGS = dict(enable_rpcz=True, rpcz_samples_per_second=10_000_000,
+                  native_telemetry_sample_every=RPCZ_SAMPLE_EVERY)
+# the pages (d) scrapes over the port's own HTTP channel ("{trace}" is a
+# trace of (a)); each is held to a row it must carry
+RPCZ_PAGES = ("/rpcz?trace_id={trace}", "/rpcz", "/vars", "/vars.json", "/brpc_metrics", "/status",
+              "/flags", "/connections", "/sockets")
+
+# the Prometheus text exposition format v0.0.4, line by line (the JAX
+# package's tests/test_observability.py validate_exposition)
+_EXPO_COMMENT = re.compile(r"^# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]*( .+)?$")
+_EXPO_SAMPLE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r"(\{[a-zA-Z_][a-zA-Z0-9_]*=\"([^\"\\\n]|\\\\|\\\"|\\n)*\""
+    r"(,[a-zA-Z_][a-zA-Z0-9_]*=\"([^\"\\\n]|\\\\|\\\"|\\n)*\")*\})?"
+    r" (-?\d+(\.\d+)?([eE][+-]?\d+)?|[+-]Inf|NaN)$"
+)
+
+
+def validate_exposition(text: str) -> None:
+    """Every line a TYPE/HELP comment or a well-formed sample."""
+    if text and not text.endswith("\n"):
+        raise AssertionError("phase3i: the exposition does not end with a newline")
+    for line in text.splitlines():
+        if line and not (_EXPO_COMMENT.match(line) or _EXPO_SAMPLE.match(line)):
+            raise AssertionError(f"phase3i: invalid exposition line {line!r}")
+
+
+def contended_worker(mutex, rounds: int) -> None:
+    """One of the contended FiberMutex loop's threads: hold it 2 ms a round,
+    then 1 ms outside it, so the threads take turns."""
+    for _ in range(rounds):
+        with mutex:
+            time.sleep(0.002)
+        time.sleep(0.001)
+
+
+def span_code_us(rpcz, Controller, Meta, n: int) -> float:
+    """µs a call's two spans take by their code alone, no RPC: the client
+    span opened, the server span opened from the meta the client would
+    send and annotated, both ended into the store, ``n`` times. With rpcz
+    off the same calls only stamp the ids."""
+    body = b"\0" * 256
+    t0 = time.perf_counter()
+    for _ in range(n):
+        cntl = Controller()
+        cntl._service, cntl._method, cntl._request_payload = "tensor", "echo", body
+        cntl._span = rpcz.start_client_span(cntl)
+        meta = Meta(service="tensor", method="echo", trace_id=cntl.trace_id, span_id=cntl.span_id,
+                    sampled=cntl.trace_sampled)
+        served = Controller(timeout_ms=0)
+        served._request_payload = body
+        served._span = rpcz.start_server_span(served, meta)
+        if served._span is not None:
+            served._span.annotate("processing")
+        rpcz.clear_parent_span(served._span)
+        rpcz.end_server_span(served, response_size=len(body))
+        rpcz.end_client_span(cntl)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def rpcz_phase(torch, kernels, device=None, scale: float = 1.0):
+    """Phase 3i: the device echo (``DeviceEndpoint.server_handler()`` as
+    ``tensor.echo``, 256 B, window 16) with ``enable_rpcz`` on, every span
+    kept (``RPCZ_FLAGS``), every answer bitwise ``expected()``: (a) on the
+    Python plane over tbus_std, each call leaving one client span and one
+    server span of its trace, the server's parented to the client's and
+    annotated "processing"; (b) baidu_std behind the native plane from
+    ``Channel(native_plane=True)`` (the same two spans) and from
+    ``NativeClientChannel`` with its own trace (the server span parented to
+    the span id it sent), then a flood of ``native_echo`` whose sampled
+    spans the telemetry drain turns into exactly one in
+    ``RPCZ_SAMPLE_EVERY``; (c) ``POST /tensor/echo`` on the HTTP gateway, a
+    server span a call; (d) the pages of ``RPCZ_PAGES`` scraped over the
+    port's HTTP channel (ms each), each holding its row; (e) the span cost:
+    sequential device echoes with rpcz off and on in mirrored turns, and
+    spans a second under a 16 x 8 burst; (f) ``/hotspots/contention`` after
+    a contended ``FiberMutex`` loop, naming its call site. K1 is tallied per
+    part. Returns (figures, {part: K1 launches}).
+
+    (e) also times a call's two spans by their code alone (``span_code_us``,
+    off, on, on, off): the turns of whole calls vary by more than the
+    spans cost."""
+    from incubator_brpc_tpu_torch.builtin import rpcz
+    from incubator_brpc_tpu_torch.protocol.http import http_call
+    from incubator_brpc_tpu_torch.protocol.tbus_std import Meta
+    from incubator_brpc_tpu_torch.rpc import (
+        Channel, ChannelOptions, Controller, Server, ServerOptions, native_echo,
+    )
+    from incubator_brpc_tpu_torch.runtime import FiberMutex, reset_contention_profile
+    from incubator_brpc_tpu_torch.transport import native_plane as np_mod
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+    from incubator_brpc_tpu_torch.utils import flags
+
+    tally = {}
+
+    def counted(part, fn):
+        before = kernels.launch_counts()
+        try:
+            return fn()
+        finally:
+            after = kernels.launch_counts()
+            row = tally.setdefault(part, dict.fromkeys(K1, 0))
+            for k in K1:
+                row[k] += after[k] - before[k]
+
+    store = rpcz.span_store
+    saved = {name: flags.get_flag(name) for name in RPCZ_FLAGS}
+    for name, value in RPCZ_FLAGS.items():
+        flags.set_flag_unchecked(name, value)
+    ep = DeviceEndpoint(window_size=PROTO_WINDOW, max_batch=PROTO_WINDOW, device=device)
+    handler = ep.server_handler()
+    servers = []
+
+    def start(services, **kw):
+        srv = Server(ServerOptions(device=device, **kw))
+        for name, hs in services.items():
+            srv.add_service(name, hs)
+        if not srv.start(0):
+            raise AssertionError("phase3i: a Server did not start")
+        servers.append(srv)
+        return srv
+
+    def channel(port, **kw):
+        ch = Channel()
+        if not ch.init(f"127.0.0.1:{port}", options=ChannelOptions(timeout_ms=300_000, **kw)):
+            raise AssertionError("phase3i: a Channel did not init")
+        return ch
+
+    rng = np.random.default_rng(67)
+
+    def payload():
+        return rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+
+    def spans_of(trace_id, n, label):
+        """The ``n`` spans of one trace (a server ends its span after it
+        wrote the answer: waited for, 10 s at most)."""
+        deadline = time.monotonic() + 10
+        while True:
+            got = store.by_trace(trace_id)
+            if len(got) >= n or time.monotonic() > deadline:
+                break
+            time.sleep(0.001)
+        if len(got) != n:
+            raise AssertionError(f"phase3i {label}: trace {trace_id:x} has {len(got)} spans, want {n}")
+        return got
+
+    def linked(label, trace_id, client_span_id, spans):
+        """One client span of the call and one server span parented to it,
+        annotated "processing", both of the device echo."""
+        kinds = {sp.span_type: sp for sp in spans}
+        cl, sv = kinds.get("client"), kinds.get("server")
+        if cl is None or sv is None or cl.span_id != client_span_id or sv.parent_span_id != cl.span_id:
+            raise AssertionError(f"phase3i {label}: spans of trace {trace_id:x} not linked: {spans}")
+        if [t for _, t in sv.annotations] != ["processing"]:
+            raise AssertionError(f"phase3i {label}: server span annotations {sv.annotations}")
+        for sp in (cl, sv):
+            if (sp.service, sp.method, sp.error_code, sp.request_size) != ("tensor", "echo", 0, 256):
+                raise AssertionError(f"phase3i {label}: span {sp}")
+
+    def traced_calls(label, ch, n):
+        """``n`` sequential device echoes through ``ch``, each call's client
+        and server spans held linked. Returns (µs a call, a trace id)."""
+        traces = []
+        t0 = time.perf_counter()
+        for _ in range(n):
+            p = payload()
+            cntl = Controller()
+            c = ch.call_method("tensor", "echo", p, cntl=cntl)
+            echo_check(label, p, c.error_code, c.response_payload, phase="phase3i")
+            traces.append((cntl.trace_id, cntl.span_id))
+        us = (time.perf_counter() - t0) / n * 1e6
+        if len({t for t, _ in traces}) != n:
+            raise AssertionError(f"phase3i {label}: calls shared a trace id")
+        for trace_id, span_id in traces:
+            linked(label, trace_id, span_id, spans_of(trace_id, 2, label))
+        return us, traces[-1][0]
+
+    def on_client(label, native_calls, fn):
+        """Run ``fn`` and hold that exactly ``native_calls`` of its calls
+        rode the native client, none failed (a Channel falls through to the
+        Python client quietly, and its spans would link all the same)."""
+        before = (np_mod.native_client_calls.get_value(), np_mod.native_client_errors.get_value())
+        r = fn()
+        got = np_mod.native_client_calls.get_value() - before[0]
+        errors = np_mod.native_client_errors.get_value() - before[1]
+        if (got, errors) != (native_calls, 0):
+            raise AssertionError(f"phase3i {label}: {got} native client calls ({errors} failed), "
+                                 f"{native_calls} expected; the call took the wrong client")
+        return r
+
+    n_seq = max(4, int(RPCZ_SEQ * scale))
+    out = {}
+    try:
+        ep.warm(256)
+        py_srv = start({"tensor": {"echo": handler}})
+        nat_srv = start({"tensor": {"echo": handler}, "bench": {"echo": native_echo}}, native_plane=True)
+
+        # (a) the Python plane over tbus_std ---------------------------------
+        store.clear()
+        py_ch = channel(py_srv.port)
+        a_us, a_trace = on_client("(a)", 0,
+                                  lambda: counted("a", lambda: traced_calls("(a)", py_ch, n_seq)))
+        out["a"] = {"seq_us": a_us, "calls": n_seq, "spans": 2 * n_seq}
+        log(f"phase3i (a) tbus_std on the Python plane, device echo 256 B with rpcz on: {n_seq} calls, "
+            f"each a client span and a server span of its own trace, the server's parented to the "
+            f"client's and annotated 'processing'; {a_us:.1f} us a call; launches "
+            f"{[tally['a'][k] for k in K1]}")
+
+        # (b) baidu_std behind the native plane --------------------------------
+        nat_ch = channel(nat_srv.port, protocol="baidu_std", native_plane=True)
+        b_us, _ = on_client("(b) Channel", n_seq,
+                            lambda: counted("b", lambda: traced_calls("(b) Channel", nat_ch, n_seq)))
+        if nat_ch._native_ch is None:
+            raise AssertionError("phase3i (b): the Channel did not ride the native client")
+        nch = np_mod.NativeClientChannel("127.0.0.1", nat_srv.port, protocol="baidu_std")
+
+        def native_traced():
+            for i in range(n_seq):
+                p = payload()
+                rc, code, _m, body = nch.call("tensor", "echo", p, timeout_ms=300_000,
+                                              trace_id=RPCZ_TRACE, span_id=1000 + i, sampled=1)
+                if rc < 0:
+                    raise AssertionError(f"phase3i (b): native client transport errno {-rc}")
+                echo_check("(b) NativeClientChannel", p, code, body.to_bytes(), phase="phase3i")
+
+        on_client("(b) NativeClientChannel", n_seq, lambda: counted("b", native_traced))
+        got = spans_of(RPCZ_TRACE, n_seq, "(b) NativeClientChannel")
+        if sorted(sp.parent_span_id for sp in got) != list(range(1000, 1000 + n_seq)) or any(
+                sp.span_type != "server" or sp.method != "echo" for sp in got):
+            raise AssertionError("phase3i (b): the native client's trace did not reach the server spans")
+        before = len(store)
+        n_pump = max(256, int(RPCZ_NATIVE_PUMP * scale)) // RPCZ_SAMPLE_EVERY * RPCZ_SAMPLE_EVERY
+        t0 = time.perf_counter()
+        pump_ns = nch.pump("bench", "echo", b"n" * 256, n_pump, inflight=32)
+        nat_srv._native_plane.drain_telemetry()
+        drained_s = time.perf_counter() - t0
+        nch.close()
+        sampled = [sp for sp in store.recent(limit=len(store)) if sp.service == "bench"]
+        st = nat_srv._native_plane.stats()
+        if len(sampled) != n_pump // RPCZ_SAMPLE_EVERY or len(store) - before != len(sampled):
+            raise AssertionError(f"phase3i (b): {len(sampled)} sampled native spans of {n_pump} "
+                                 f"requests at 1 in {RPCZ_SAMPLE_EVERY}")
+        out["b"] = {"channel_seq_us": b_us, "native_traced_calls": n_seq, "pump": n_pump,
+                    "pump_ns": pump_ns, "sampled_spans": len(sampled),
+                    "sampled_spans_per_s": len(sampled) / drained_s, "cb_frames": st["cb_frames"]}
+        log(f"phase3i (b) baidu_std behind the native plane: Channel(native_plane=True) {b_us:.1f} us a "
+            f"call, its spans linked as in (a); NativeClientChannel with trace {RPCZ_TRACE:x}: "
+            f"{n_seq} server spans parented to the span ids it sent; a native_echo flood of {n_pump} "
+            f"(pump {pump_ns:.0f} ns a request) left {len(sampled)} sampled spans, one in "
+            f"{RPCZ_SAMPLE_EVERY} exactly; launches {[tally['b'][k] for k in K1]}")
+
+        # (c) the HTTP gateway -------------------------------------------------------
+        before = len(store)
+        gw = KeepAliveHttp(py_srv.port)
+
+        def gateway():
+            for _ in range(n_seq):
+                p = payload()
+                status, headers, body = gw.post("/tensor/echo", p)
+                if status != 200:
+                    raise AssertionError(f"phase3i (c) gateway: HTTP {status} {body[:200]!r}")
+                echo_check("(c) gateway", p, 0, body, phase="phase3i")
+
+        t0 = time.perf_counter()
+        counted("c", gateway)
+        c_us = (time.perf_counter() - t0) / n_seq * 1e6
+        gw.close()
+        deadline = time.monotonic() + 10
+        while len(store) < before + n_seq and time.monotonic() < deadline:
+            time.sleep(0.001)
+        gw_spans = store.recent(limit=len(store))[before:]
+        if len(gw_spans) != n_seq or any(
+                (sp.span_type, sp.service, sp.method, sp.request_size) != ("server", "tensor", "echo", 256)
+                for sp in gw_spans):
+            raise AssertionError(f"phase3i (c): {len(gw_spans)} gateway spans, want {n_seq} server spans")
+        out["c"] = {"seq_us": c_us, "spans": len(gw_spans)}
+        log(f"phase3i (c) POST /tensor/echo on the gateway: {c_us:.1f} us a call, a server span each "
+            f"({len(gw_spans)}); launches {[tally['c'][k] for k in K1]}")
+
+        # (d) the portal over the port's HTTP channel ---------------------------
+        http_ch = channel(py_srv.port, protocol="http")
+
+        def get(path):
+            cntl = Controller()
+            cntl.request_extra.update(http_method="GET", http_path=path)
+            t0 = time.perf_counter()
+            c = http_ch.call_method("", "", b"", cntl=cntl)
+            ms = (time.perf_counter() - t0) * 1e3
+            if not c.ok():
+                raise AssertionError(f"phase3i (d) {path}: {c.error_code} {c.error_text}")
+            return c.response_payload.decode(), ms
+
+        d = {}
+        for path in RPCZ_PAGES:
+            path = path.format(trace=f"{a_trace:x}")
+            body, ms = get(path)
+            d[path] = {"ms": ms, "bytes": len(body)}
+            if path.startswith("/rpcz?trace_id="):
+                lines = body.splitlines()
+                ok = (len(lines) == 2 and " client tensor.echo " in lines[0]
+                      and lines[1].startswith("  ") and " server tensor.echo " in lines[1])
+            elif path == "/rpcz":
+                ok = "tensor.echo" in body
+            elif path == "/vars":
+                ok = "method_tensor_echo_latency : " in body
+            elif path == "/vars.json":
+                ok = "method_tensor_echo_latency" in json.loads(body)
+            elif path == "/brpc_metrics":
+                validate_exposition(body)
+                ok = "# TYPE method_tensor_echo_latency summary" in body
+            elif path == "/status":
+                ok = "tensor.echo: processing=" in body
+            elif path == "/flags":
+                ok = "enable_rpcz True " in body
+            elif path == "/connections":
+                ok = f"{py_srv.listen_endpoint} connections=" in body
+            else:
+                ok = body.startswith("live sockets: ")
+            if not ok:
+                raise AssertionError(f"phase3i (d) {path}: the page lacks its row:\n{body[:1500]}")
+        status, _, raw = http_call("127.0.0.1", nat_srv.port, "/brpc_metrics?prefix=native_method_bench",
+                                   timeout=60)
+        nat_metrics = raw.decode()
+        if status != 200:
+            raise AssertionError(f"phase3i (d): the native plane's /brpc_metrics answered {status}")
+        validate_exposition(nat_metrics)
+        if f"native_method_bench_echo_latency_us_count {n_pump}" not in nat_metrics:
+            raise AssertionError(f"phase3i (d): the native summary did not count the flood:\n{nat_metrics}")
+        out["d"] = d
+        log(f"phase3i (d) the portal over ChannelOptions(protocol='http'), ms a scrape: "
+            + ", ".join(f"{k} {v['ms']:.2f} ({v['bytes']} B)" for k, v in d.items())
+            + f"; the exposition valid, the native plane's summary of the flood counted by the "
+              "scrape hook's drain")
+
+        # (e) the span cost: rpcz off and on in mirrored turns ------------------------
+        cost_ch = channel(py_srv.port)
+        n_turn = max(20, int(RPCZ_TURN_CALLS * scale))
+        turns = {False: [], True: []}
+
+        def turn(on):
+            flags.set_flag_unchecked("enable_rpcz", on)
+            ps = [payload() for _ in range(n_turn)]
+            t0 = time.perf_counter()
+            for p in ps:
+                c = cost_ch.call_method("tensor", "echo", p)
+                echo_check("(e)", p, c.error_code, c.response_payload, phase="phase3i")
+            turns[on].append((time.perf_counter() - t0) / n_turn * 1e6)
+
+        order = [bool((i + 1) // 2 % 2) for i in range(RPCZ_TURNS)]  # off, on, on, off, off, on
+        for on in order:
+            counted("e", lambda: turn(on))
+        flags.set_flag_unchecked("enable_rpcz", True)
+        n_threads, per = RPCZ_BURST[0], max(1, int(RPCZ_BURST[1] * scale))
+        burst = [[payload() for _ in range(per)] for _ in range(n_threads)]
+        burst_traces = []
+
+        def caller(i):
+            for p in burst[i]:
+                cntl = Controller()
+                c = cost_ch.call_method("tensor", "echo", p, cntl=cntl)
+                echo_check("(e) burst", p, c.error_code, c.response_payload, phase="phase3i")
+                burst_traces.append(cntl.trace_id)
+
+        t0 = time.perf_counter()
+        counted("e", lambda: call_threads(n_threads, caller))
+        wall = time.perf_counter() - t0
+        for trace_id in burst_traces:
+            spans_of(trace_id, 2, "(e) burst")
+        off_us, on_us = sum(turns[False]) / len(turns[False]), sum(turns[True]) / len(turns[True])
+        burst_spans = 2 * len(burst_traces)
+        n_loops = max(200, int(RPCZ_SPAN_LOOPS * scale))
+        code = {False: [], True: []}
+        for on in (False, True, True, False):
+            flags.set_flag_unchecked("enable_rpcz", on)
+            store.clear()
+            code[on].append(span_code_us(rpcz, Controller, Meta, n_loops))
+        flags.set_flag_unchecked("enable_rpcz", True)
+        out["e"] = {"off_us": turns[False], "on_us": turns[True], "order": order,
+                    "span_cost_us": on_us - off_us, "burst_calls_per_s": n_threads * per / wall,
+                    "burst_spans_per_s": burst_spans / wall, "span_code_off_us": code[False],
+                    "span_code_on_us": code[True],
+                    "span_code_us": sum(code[True]) / 2 - sum(code[False]) / 2}
+        log(f"phase3i (e) the span cost, {n_turn} sequential device echoes a turn over tbus_std, turns "
+            f"{['on' if o else 'off' for o in order]}: rpcz off "
+            + ", ".join(f"{v:.1f}" for v in turns[False]) + " us a call, on "
+            + ", ".join(f"{v:.1f}" for v in turns[True])
+            + f" us a call: {on_us - off_us:.1f} us a call for its two spans; a {n_threads} x {per} "
+              f"burst with rpcz on: {n_threads * per / wall:.1f} calls/s, {burst_spans / wall:.1f} "
+              f"spans/s; launches {[tally['e'][k] for k in K1]}; the two spans' code alone, "
+              f"{n_loops} times in turns (off, on, on, off): off "
+            + ", ".join(f"{v:.2f}" for v in code[False]) + ", on "
+            + ", ".join(f"{v:.2f}" for v in code[True])
+            + f" us a call: {out['e']['span_code_us']:.2f} us for its two spans")
+
+        # (f) the contention profile ------------------------------------------------
+        reset_contention_profile()
+        mutex = FiberMutex()
+        workers = [threading.Thread(target=contended_worker, args=(mutex, 20)) for _ in range(2)]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join()
+        body, ms = get("/hotspots/contention")
+        if "contended acquires: " not in body or "in contended_worker" not in body:
+            raise AssertionError(f"phase3i (f): the contention page does not name the loop:\n{body[:1500]}")
+        out["f"] = {"ms": ms, "contended": int(body.split("contended acquires: ", 1)[1].split()[0])}
+        log(f"phase3i (f) /hotspots/contention after 2 threads x 20 rounds on one FiberMutex: "
+            f"{out['f']['contended']} contended acquires, the call site contended_worker named "
+            f"({ms:.2f} ms)")
+    finally:
+        for s in servers:
+            s.stop()
+            s.join(timeout=60)
+        for name, value in saved.items():
+            flags.set_flag_unchecked(name, value)
+        store.clear()
+        if not ep.close(timeout=120):
+            raise AssertionError("phase3i: the endpoint did not settle its calls")
     return out, tally
 
 
@@ -5183,7 +5634,9 @@ def session_plane_phase(torch, kernels, device="cuda:0", bases=None, parties=PLA
     # (b) across processes, one party a rank, counted in each process
     dev = dict(device=device, backend="gloo", timeout=PLANE_TIMEOUT_S)
     t0 = time.perf_counter()
-    st, transcript = mc.orchestrate_session(quantize="int8,int4", **mc_session, **dev)
+    # rpcz is on in the processes for the traced session alone: the
+    # sessions before it run rpcz off, as phase 10b ran them before
+    st, transcript = mc.orchestrate_session(quantize="int8,int4", traced=True, **mc_session, **dev)
     out["across_s"] = time.perf_counter() - t0
     pm = st["pmean"]
     if not all(r["bitwise_model"] for r in pm.values()):
@@ -5191,11 +5644,28 @@ def session_plane_phase(torch, kernels, device="cuda:0", bases=None, parties=PLA
     n, k_steps = mc_session["n_parties"], mc_session["steps"]
     per_proc = {"client": st["k2_launches"],
                 **{name: rec["k2_launches"] for name, rec in st["servers"].items()}}
-    want_k = 2 * k_steps if on_card else 0  # int8 and int4, one launch a step each
+    _trace, t_steps, t_chunks = mc.TRACED_SESSION
+    # int8 and int4, one launch a step each, and the traced int8 session's
+    # one a step and chunk
+    want_k = 2 * k_steps + t_steps * t_chunks if on_card else 0
     for name, got in per_proc.items():
         if got != {"quantize_rows": want_k, "dequant_mean_rows": want_k}:
             raise AssertionError(f"phase10b (b) {name}: K2 launches {got}, want {want_k} each")
     launches_b = {k: sum(p[k] for p in per_proc.values()) for k in K2}
+    tr = st["traced"]
+    if tr["k2"] != ({"quantize_rows": t_steps * t_chunks, "dequant_mean_rows": t_steps * t_chunks}
+                    if on_card else {"quantize_rows": 0, "dequant_mean_rows": 0}):
+        raise AssertionError(f"phase10b (b) traced session: the client's K2 launches {tr['k2']}")
+    out["traced"] = tr
+    log(f"phase10b (b) the traced int8 session ({n} processes, {t_steps} steps, chunks={t_chunks} "
+        f"double-buffered), proposed inside a caller's traced handler: trace {tr['trace_id']}, "
+        f"{tr['spans']} spans from the {n} processes {tr['spans_by_process']}, {tr['counts']}, one "
+        f"tree under the caller's span; {tr['ms_per_step']:.3f} ms a step; the tree:")
+    for line in tr["tree"]:
+        depth = (len(line) - len(line.lstrip(" "))) // 2
+        parts = line.split()
+        note = line.split("annotations=", 1)[1][:70] if "annotations=[(" in line else ""
+        log("    " + "  " * depth + f"{parts[3]} {parts[4]} {note}")
     out["across"] = st
     log(f"phase10b (b) {n} processes on {device} over gloo, one party a rank, {width} B x "
         f"{k_steps} steps: dsvc.scale bitwise session_expected, "
@@ -5633,6 +6103,18 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase3h: {protocols['phase_s']:.1f} s; K1 launches by part {protocol_k1}")
 
+    # -- phase 3i: rpcz spans, the portal and the profilers, device RPC counted
+    log(f"phase3i on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    rpcz_fig, rpcz_k1 = rpcz_phase(torch, kernels)
+    rpcz_fig["phase_s"] = time.perf_counter() - t0
+    for part in ("a", "b", "c", "e"):
+        missing = [name for name in ("frame_rows", "echo_step_rows") if rpcz_k1[part][name] == 0]
+        if missing:
+            raise AssertionError(f"phase3i ({part}): kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase3i: {rpcz_fig['phase_s']:.1f} s; K1 launches by part {rpcz_k1}")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -5675,6 +6157,7 @@ def main() -> int:
             "mc_launches": mc_k1[name], "native_launches": native_k1[name],
             "policy_launches": {part: row[name] for part, row in sorted(policy_k1.items())},
             "protocol_launches": {part: row[name] for part, row in sorted(protocol_k1.items())},
+            "rpcz_launches": {part: row[name] for part, row in sorted(rpcz_k1.items())},
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
@@ -5728,6 +6211,7 @@ def main() -> int:
                        "native_plane": native, "native_launches": native_k1,
                        "policies": policies, "policy_launches": policy_k1,
                        "protocols": protocols, "protocol_launches": protocol_k1,
+                       "rpcz": rpcz_fig, "rpcz_launches": rpcz_k1,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],

@@ -89,6 +89,10 @@ class LatencyRecorder(Variable):
     def latency_percentile(self, ratio: float) -> float:
         return self._percentile.get_number(ratio)
 
+    def latency_sum(self) -> float:
+        """Total of every recorded latency — a summary's ``_sum`` sample."""
+        return self._latency.sum()
+
     def get_value(self):
         return {
             "latency": self.latency(),

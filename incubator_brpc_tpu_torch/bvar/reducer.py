@@ -1,4 +1,4 @@
-"""Reducers: Adder/Maxer (reference src/bvar/reducer.h), and PassiveStatus.
+"""Reducers: Adder/Maxer/Miner (reference src/bvar/reducer.h), and PassiveStatus.
 
 Write path is thread-local (one agent per writer thread, found via a
 threading.local) — the reference's AgentGroup/AgentCombiner design
@@ -72,6 +72,13 @@ class Maxer(Reducer):
 
     def __init__(self, name: Optional[str] = None, identity=float("-inf")):
         super().__init__(max, identity, name=name)
+
+
+class Miner(Reducer):
+    """bvar::Miner<T>."""
+
+    def __init__(self, name: Optional[str] = None, identity=float("inf")):
+        super().__init__(min, identity, name=name)
 
 
 class PassiveStatus(Variable):

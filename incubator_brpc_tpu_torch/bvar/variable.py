@@ -30,6 +30,20 @@ class ExposeRegistry:
         with self._lock:
             return self._vars.pop(name, None) is not None
 
+    def describe(self, name: str) -> Optional[str]:
+        with self._lock:
+            var = self._vars.get(name)
+        return None if var is None else var.describe()
+
+    def snapshot(self, prefix: str = ""):
+        """Sorted (name, var) pairs at this instant — the exporter-facing
+        iteration (builtin/prometheus.py); callers treat vars as read-only."""
+        with self._lock:
+            items = sorted(self._vars.items())
+        if prefix:
+            items = [(n, v) for n, v in items if n.startswith(prefix)]
+        return items
+
     def dump(self, prefix: str = "") -> Dict[str, str]:
         with self._lock:
             items = list(self._vars.items())

@@ -76,13 +76,28 @@ class Window(Variable):
         self._window_size = min(window_size, _MAX_WINDOW)
         self._samples: Deque[Tuple[float, object]] = deque(maxlen=self._window_size + 1)
         self._samples_lock = threading.Lock()
+        self._series: Deque[Tuple[float, object]] = deque(maxlen=self.SERIES_POINTS)
         super().__init__(name)
         _sampler_thread.register(self)
+
+    # per-second points kept for plotting (/vars/series.json, off the same
+    # 1 Hz sampler as the reference's vars_service series); 3 minutes
+    SERIES_POINTS = 180
 
     def _take_sample(self) -> None:
         now = time.monotonic()
         with self._samples_lock:
             self._samples.append((now, self._reducer.get_value()))
+        # the plotted point is the WINDOWED value (what get_value shows);
+        # computed outside the lock — get_span re-takes it
+        point = self.get_value()
+        with self._samples_lock:
+            self._series.append((now, point))
+
+    def series(self):
+        """[(monotonic_ts, windowed_value)] — newest last."""
+        with self._samples_lock:
+            return list(self._series)
 
     def get_span(self) -> Tuple[float, object]:
         """(seconds, delta) actually covered — may be < window_size early on."""

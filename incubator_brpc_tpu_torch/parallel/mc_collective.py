@@ -17,8 +17,10 @@ plain RPC to every server (``_tpu_transport.collective``, registered by
 index, steps, width, seed, and the session id that keys its process group
 across processes}. Each server answers an accept pre-ack first (nothing
 runs), then runs its party's pmean chain and answers with its row's
-checksum; the proposer runs its own party in between. The session spans
-the JAX module opens wait for the port's rpcz (ROADMAP A12).
+checksum; the proposer runs its own party in between. Each party's run
+leaves an rpcz session span (type ``collective``, annotated with steps,
+width, index and parties): a server's in the proposing client's trace (the
+ids the request carried), the proposer's in its ambient trace.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from incubator_brpc_tpu_torch.builtin import rpcz
 from incubator_brpc_tpu_torch.bvar import Adder, LatencyRecorder
 from incubator_brpc_tpu_torch.parallel import mc_dispatch
 from incubator_brpc_tpu_torch.parallel import quantized as _quantized
@@ -151,14 +154,27 @@ def expected_mean(seed: int, nparties: int, width: int) -> np.ndarray:
     )
 
 
-def _run_observed_session(party_ids, own_index, steps, width, seed, **kw):
-    """run_collective_session under counter bookkeeping: a raise counts one
-    error (shared by the handler and the proposer parties). The JAX
-    module's session span around it waits for ROADMAP A12."""
+def _start_session_span(party_ids: List[int], own_index: int, steps: int, width: int,
+                        trace_id: int = 0, parent_span_id: int = 0):
+    span = rpcz.start_custom_span(
+        rpcz.SPAN_TYPE_COLLECTIVE, "_tpu_transport", COLLECTIVE_METHOD,
+        trace_id=trace_id, parent_span_id=parent_span_id,
+    )
+    if span is not None:
+        span.annotate(f"steps={steps} width={width} index={own_index} parties={party_ids}")
+    return span
+
+
+def _run_observed_session(span, party_ids, own_index, steps, width, seed, **kw):
+    """run_collective_session under span and counter bookkeeping: a raise
+    counts one error and closes the span with EINTERNAL (shared by the
+    handler and the proposer parties); the SUCCESS close stays with the
+    caller, which may have more to do before the span ends."""
     try:
         return run_collective_session(party_ids, own_index, steps, width, seed, **kw)
     except Exception:
         collective_errors << 1
+        rpcz.end_custom_span(span, error_code=ErrorCode.EINTERNAL)
         raise
 
 
@@ -201,13 +217,21 @@ def make_collective_handler(server):
         # liveness: a party that never joins stalls the rendezvous until
         # the group's timeout errors the chain — the raise lands here
         # and answers EINTERNAL
+        # the session span lands in the PROPOSING client's trace: the
+        # trace/span ids arrived in the request meta and are already on the
+        # controller
+        span = _start_session_span(
+            party_ids, own_index, steps, width,
+            trace_id=cntl.trace_id, parent_span_id=cntl.span_id,
+        )
         try:
             own, elapsed = _run_observed_session(
-                party_ids, own_index, steps, width, seed,
+                span, party_ids, own_index, steps, width, seed,
                 device=server.device(), session_id=session_id,
             )
         finally:
             runs.leave()
+        rpcz.end_custom_span(span)
         return json.dumps(
             {
                 "checksum": float(np.sum(own, dtype=np.float64)),
@@ -283,9 +307,11 @@ def propose_collective(
             if ev.is_set() and cntl.failed():
                 raise RuntimeError(f"collective proposal rejected: {cntl.error_text}")
         time.sleep(0.005)
+    span = _start_session_span(party_ids, client_index, steps, width)
     own, elapsed = _run_observed_session(
-        party_ids, client_index, steps, width, seed, device=device, session_id=session_id,
+        span, party_ids, client_index, steps, width, seed, device=device, session_id=session_id,
     )
+    rpcz.end_custom_span(span)
     checksums = []
     deadline = time.monotonic() + timeout_ms / 1000.0  # shared, not per-peer
     for cntl, ev in pending:

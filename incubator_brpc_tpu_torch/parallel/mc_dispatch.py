@@ -51,8 +51,13 @@ slot's rows are reachable; ``lower_parallel_call`` runs a ParallelChannel
 call over multi-controller links as a one-step session. The
 topology-aware scheduler (``schedule_session_order``) orders parties and
 chunks by the measured speed of this process's device links
-(``transport/device_link.py`` ``link_profile()``). The rpcz spans of
-sessions, steps and chunks wait for the port's rpcz (ROADMAP A12).
+(``transport/device_link.py`` ``link_profile()``). Every session, and in
+an overlapped session every step's compute window and every chunk's
+dispatch→ack, leaves an rpcz span of type ``collective``
+(``builtin/rpcz.py``) annotated with the method's identity; the proposal
+carries the proposer's trace context (its ambient server span, or a fresh
+trace with rpcz on, sampled at the edge), so every party's spans join one
+trace.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from incubator_brpc_tpu_torch.builtin import rpcz
 from incubator_brpc_tpu_torch.bvar import Adder, LatencyRecorder, PassiveStatus
 from incubator_brpc_tpu_torch.parallel import quantized as _quantized
 from incubator_brpc_tpu_torch.parallel.mesh import DistributedPartyAxis, PartyLost, party_axis
@@ -980,15 +986,11 @@ def run_dispatch_session(
     ``chunk_order`` is a dispatch permutation over the chunk set (None =
     in order); it never changes bytes.
 
-    ``trace_id`` and ``parent_span_id`` keep the reference's places (the
-    session's rpcz spans); a non-zero value refuses until rpcz lands
-    (ROADMAP A12). ``device`` and ``group_timeout_s`` are keyword-only."""
-    if trace_id or parent_span_id:
-        from incubator_brpc_tpu_torch.rpc.controller import refuse_unported
-
-        refuse_unported(
-            "run_dispatch_session", "trace_id, parent_span_id", (trace_id, parent_span_id), "A12"
-        )
+    ``trace_id`` and ``parent_span_id`` place the chained session's step
+    and chunk spans (an overlapped session's; ``chunks > 1`` or
+    ``double_buffer``) in a trace: the caller's session span, or the
+    proposing RPC's ids. ``device`` and ``group_timeout_s`` are
+    keyword-only."""
     qdm = dm.quantized(quantize) if hasattr(dm, "quantized") else dm
     if qdm is None:
         raise ValueError(
@@ -1132,6 +1134,10 @@ def run_dispatch_session(
     t0 = time.perf_counter()
     chunk_tally = 0  # sub-collectives dispatched (folded into bvars once)
     overlap_tally = 0  # dispatched while the same slice's predecessor flew
+    # each slice's chunk spans still waiting for their ack observation,
+    # and the open step's compute span (overlapped sessions only)
+    pending_spans: List[list] = [[] for _ in range(chunks)]
+    step_span = None
     try:
         if not chunked:
             for step_i in range(resume_from, steps):
@@ -1155,6 +1161,9 @@ def run_dispatch_session(
                 xs = [x]
             events = [None] * chunks  # each chunk's ack: after its last launch
             for step_i in range(resume_from, steps):
+                step_span = _start_step_span(
+                    service, method, step_i, steps, chunks, double_buffer, trace_id, parent_span_id,
+                )
                 for j in chunk_order:
                     # an abort lands BETWEEN sub-collectives, and the torn
                     # step never checkpoints
@@ -1170,6 +1179,7 @@ def run_dispatch_session(
                         # overlaps it, tallied.  Never blocks.
                         if _chunk_ready(events[j]):
                             acked[j] = step_i
+                            _close_spans(pending_spans[j])
                         else:
                             overlap_tally += 1
                     # ns is not rethreaded through the chunks: the
@@ -1177,6 +1187,11 @@ def run_dispatch_session(
                     xs[j], _ = step_fn(xs[j], ns)
                     events[j] = _record_event(dev)
                     chunk_tally += 1
+                    csp = _start_chunk_span(
+                        service, method, step_i, j, chunks, step_span, trace_id, parent_span_id,
+                    )
+                    if csp is not None:
+                        pending_spans[j].append(csp)
                 completed = step_i + 1
                 if not double_buffer:
                     # serialized schedule: every chunk of this step
@@ -1187,10 +1202,14 @@ def run_dispatch_session(
                         if events[j] is not None:
                             events[j].synchronize()
                         acked[j] = completed
+                        _close_spans(pending_spans[j])
                 if ring is not None and completed % checkpoint_every == 0:
                     # whole-step checkpoint: the chunks re-concat first
                     x_ck = concat_fn(*xs) if chunks > 1 else xs[0]
                     ring.put(completed, _ck_payload(x_ck), ns, depth)
+                if step_span is not None:
+                    rpcz.end_custom_span(step_span)
+                    step_span = None
             x = concat_fn(*xs) if chunks > 1 else xs[0]
         # last look before the blocking fetch
         _check_abort()
@@ -1198,8 +1217,11 @@ def run_dispatch_session(
         progress[1] = time.monotonic()
         own_row = x[own_pos].to("cpu", copy=True).numpy()
         own_n = int(ns[own_pos])
+        # the fetch materialized the whole chain: every outstanding chunk
+        # ack is implied — close the remaining spans at their ack instant
         for j in range(chunks):
             acked[j] = steps
+            _close_spans(pending_spans[j])
     except PartyLost as e:
         # a peer left the session group mid-collective (its process died,
         # or it dropped the group on an abort): this party reports the
@@ -1215,6 +1237,12 @@ def run_dispatch_session(
             dispatch_chunks << chunk_tally
         if overlap_tally:
             dispatch_overlapped_chunks << overlap_tally
+        # an abort mid-step leaves spans open: close them as errored so
+        # the trace shows the torn step instead of losing it
+        for j in range(chunks):
+            _close_spans(pending_spans[j], error_code=int(ErrorCode.ESESSION))
+        if step_span is not None:
+            rpcz.end_custom_span(step_span, error_code=int(ErrorCode.ESESSION))
     elapsed = time.perf_counter() - t0
     dispatch_sessions << 1
     dispatch_steps << (steps - resume_from)
@@ -1274,11 +1302,72 @@ def _restore_state(session_id, own_index, step, dm, resume_state, device, slots)
     )
 
 
+# -- rpcz spans (annotated with method identity) -------------------------------
+
+
+def _start_session_span(service: str, method: str, fingerprint: str, party_ids: List[int],
+                        own_index: int, steps: int, trace_id: int = 0, parent_span_id: int = 0,
+                        resume_from: int = 0, extra: str = "", forced: bool = False):
+    span = rpcz.start_custom_span(
+        rpcz.SPAN_TYPE_COLLECTIVE, service, method,
+        trace_id=trace_id, parent_span_id=parent_span_id, forced=forced,
+    )
+    if span is not None:
+        note = (
+            f"method={service}.{method} fingerprint={fingerprint} "
+            f"steps={steps} index={own_index} parties={party_ids}"
+        )
+        if resume_from > 0:
+            # a resumed chain: the span shows how much work the
+            # checkpoint saved (only steps > resume_from re-ran)
+            note += f" resume_from={resume_from}"
+        if extra:
+            # quantize= / link-order audit trail
+            note += " " + extra
+        span.annotate(note)
+    return span
+
+
+def _start_step_span(service, method, step_i, steps, chunks, double_buffer, trace_id,
+                     parent_span_id):
+    """One step's COMPUTE span in an overlapped session: covers the host
+    dispatch window of the step's sub-collectives; its children are the
+    chunk spans, and a chunk span of step k that closes inside step k+1's
+    window is the trace-level proof of overlap."""
+    span = rpcz.start_custom_span(
+        rpcz.SPAN_TYPE_COLLECTIVE, service, method,
+        trace_id=trace_id, parent_span_id=parent_span_id,
+    )
+    if span is not None:
+        span.annotate(
+            f"compute step={step_i}/{steps} chunks={chunks} "
+            f"schedule={'double_buffer' if double_buffer else 'serialized'}"
+        )
+    return span
+
+
+def _start_chunk_span(service, method, step_i, j, chunks, step_span, trace_id, parent_span_id):
+    """One chunk sub-collective's span, nested inside its step's compute
+    span (``chunk=<j>/<C>``); ended at the chunk's ACK observation, so its
+    interval is dispatch→ack."""
+    span = rpcz.start_custom_span(
+        rpcz.SPAN_TYPE_COLLECTIVE, service, method,
+        trace_id=step_span.trace_id if step_span is not None else trace_id,
+        parent_span_id=step_span.span_id if step_span is not None else parent_span_id,
+    )
+    if span is not None:
+        span.annotate(f"chunk={j}/{chunks} step={step_i}")
+    return span
+
+
+def _close_spans(spans: list, error_code: int = 0) -> None:
+    """End-and-drain a slice's pending chunk spans (ack observed, or the
+    session tore down) — draining keeps a second close idempotent."""
+    while spans:
+        rpcz.end_custom_span(spans.pop(0), error_code=error_code)
+
+
 # -- server half ---------------------------------------------------------------
-#
-# The rpcz spans the JAX package opens around a session, its steps and its
-# chunks (and the trace context its proposals carry) wait for the port's
-# rpcz, ROADMAP A12.
 
 
 def _validate_proposal(req: dict):
@@ -1547,6 +1636,21 @@ def _serve_run(cntl, server, req, party_ids, own_index, steps, dm) -> bytes:
             return "session deadline exceeded"
         return None
 
+    quant_note = ""
+    if getattr(dm, "quant_mode", "none") != "none":
+        quant_note = f"quantize={dm.quant_mode}"
+    if chunk_order != list(range(chunks)):
+        # the proposer's topology-derived route, auditable per party
+        quant_note = (quant_note + f" chunk_order={chunk_order}").strip()
+    span = _start_session_span(
+        service, method, dm.fingerprint(), party_ids, own_index, steps,
+        trace_id=cntl.trace_id, parent_span_id=cntl.span_id,
+        resume_from=resume_from, extra=quant_note,
+        # the proposal rode in sampled (head-based): this party's session
+        # span must not drop to a dry local bucket, or the fleet-wide trace
+        # loses a whole party
+        forced=bool(getattr(cntl.request_meta, "sampled", 0) if cntl.request_meta is not None else 0),
+    )
     try:
         own_row, own_n, elapsed = run_dispatch_session(
             party_ids, own_index, dm, operands, steps,
@@ -1558,10 +1662,15 @@ def _serve_run(cntl, server, req, party_ids, own_index, steps, dm) -> bytes:
             session_epoch=run_epoch,
             chunks=chunks, double_buffer=double_buffer,
             chunk_order=chunk_order,
+            # step/chunk spans nest inside the session span (or the
+            # proposing RPC's trace when the session span was not sampled)
+            trace_id=span.trace_id if span is not None else cntl.trace_id,
+            parent_span_id=span.span_id if span is not None else cntl.span_id,
             device=server.device(),
             group_timeout_s=deadline_ms / 1000.0 if deadline_ms > 0 else None,
         )
     except SessionAborted as e:
+        rpcz.end_custom_span(span, error_code=ErrorCode.ESESSION)
         cntl.set_failed(ErrorCode.ESESSION, f"session aborted: {e.reason}")
         return b""
     except LookupError as e:
@@ -1569,10 +1678,12 @@ def _serve_run(cntl, server, req, party_ids, own_index, steps, dm) -> bytes:
         # (evicted ring, wrong process): a clean control-stream
         # reject — the proposer falls back to a full restart
         dispatch_rejects << 1
+        rpcz.end_custom_span(span, error_code=ErrorCode.EREQUEST)
         cntl.set_failed(ErrorCode.EREQUEST, f"cannot resume: {e}")
         return b""
     except Exception as e:
         dispatch_errors << 1
+        rpcz.end_custom_span(span, error_code=ErrorCode.EINTERNAL)
         logger.exception("dispatch session failed")
         cntl.set_failed(ErrorCode.EINTERNAL, f"dispatch session: {e!r}")
         return b""
@@ -1584,6 +1695,7 @@ def _serve_run(cntl, server, req, party_ids, own_index, steps, dm) -> bytes:
                 pass
         if st is not None:
             _unregister_session(st)
+    rpcz.end_custom_span(span)
     return json.dumps(
         {
             "result": base64.b64encode(dm.unpack(own_row, own_n)).decode(),
@@ -1701,9 +1813,12 @@ def propose_dispatch(
     # front-load the chunk slices that cover the slowest parties
     if link_profile is None:
         link_profile = _default_link_profile()
-    party_order, auto_chunk_order, _note = schedule_session_order(
+    party_order, auto_chunk_order, sched_note = schedule_session_order(
         party_ids, link_profile, chunks
     )
+    # the audit trail of the session spans: the quantize mode and the
+    # chosen link order with the profile it came from
+    sched_extra = ((f"quantize={quantize} " if quantize != "none" else "") + sched_note).strip()
     if chunk_order is None:
         chunk_order = auto_chunk_order
     else:
@@ -1790,8 +1905,19 @@ def propose_dispatch(
                     }
         return json.dumps(d).encode()
 
+    # fleet-wide trace: the proposer's ambient trace context (the RPC
+    # handler this proposal runs inside, if any) or a fresh trace id rides
+    # EVERY control RPC of this session, so each party's handler span and
+    # session/step/chunk spans join one cross-process trace. The sampled
+    # bit propagates the head-based decision: a proposer with rpcz on
+    # samples its sessions at the edge and every party honors that.
+    amb_trace, amb_parent = rpcz.current_trace_context()
+    session_trace = amb_trace or (rpcz._new_id() if rpcz.rpcz_enabled() else 0)
+    session_sampled = 1 if session_trace else 0
+    fleet_trace = (session_trace, amb_parent, session_sampled)
+
     def _call(ch, payload):
-        return _control_call(ch, payload, timeout_ms)
+        return _control_call(ch, payload, timeout_ms, trace=fleet_trace)
 
     # fan-out order: slowest measured link FIRST; parties with no
     # telemetry keep mesh order at the tail.  The channel list itself
@@ -1896,6 +2022,16 @@ def propose_dispatch(
     results: List[Optional[bytes]] = [None] * n
     party_elapsed: List[Optional[float]] = [None] * n  # each party's chain seconds
     abort_exc: Optional[SessionAborted] = None
+    sched_span = None
+    if proposer_index is None and sched_extra:
+        # a pure scheduler leaves the audit span too (index=-1 marks the
+        # scheduler role): the quantize mode and the chosen link order
+        # stay traceable when the proposer runs no chain of its own
+        sched_span = _start_session_span(
+            service, method, fingerprint, party_ids, -1, final,
+            trace_id=session_trace, parent_span_id=amb_parent,
+            resume_from=resume_from, extra=sched_extra, forced=bool(session_sampled),
+        )
     try:
         if proposer_index is not None:
 
@@ -1907,6 +2043,11 @@ def propose_dispatch(
                     return "session deadline exceeded"
                 return None
 
+            span = _start_session_span(
+                service, method, fingerprint, party_ids, proposer_index, final,
+                trace_id=session_trace, parent_span_id=amb_parent,
+                resume_from=resume_from, extra=sched_extra, forced=bool(session_sampled),
+            )
             try:
                 own_row, own_n, own_elapsed = run_dispatch_session(
                     party_ids, proposer_index, dm, operands,
@@ -1917,10 +2058,14 @@ def propose_dispatch(
                     checkpoint_every=ckpt_every, step_deadline_ms=step_ms,
                     session_epoch=epoch,
                     chunks=chunks, double_buffer=double_buffer,
-                    chunk_order=chunk_order, device=device,
+                    chunk_order=chunk_order,
+                    trace_id=span.trace_id if span is not None else session_trace,
+                    parent_span_id=span.span_id if span is not None else amb_parent,
+                    device=device,
                     group_timeout_s=sess_ms / 1000.0,
                 )
             except SessionAborted as e:
+                rpcz.end_custom_span(span, error_code=ErrorCode.ESESSION)
                 abort_exc = e
                 # across processes this chain can end first (a peer left
                 # the session group): tell the other parties; the watcher
@@ -1928,11 +2073,13 @@ def propose_dispatch(
                 _trigger_abort(e.reason)
             except Exception:
                 dispatch_errors << 1
+                rpcz.end_custom_span(span, error_code=ErrorCode.EINTERNAL)
                 # our own chain failed: the peers' chains can never
                 # converge either — take the whole session down cleanly
                 _trigger_abort("proposer chain failed")
                 raise
             else:
+                rpcz.end_custom_span(span)
                 results[proposer_index] = dm.unpack(own_row, own_n)
                 party_elapsed[proposer_index] = own_elapsed
 
@@ -1984,6 +2131,15 @@ def propose_dispatch(
         watch_stop.set()
         watcher.join()
         _unregister_session(st)
+        if sched_span is not None:
+            rpcz.end_custom_span(
+                sched_span,
+                error_code=(
+                    int(ErrorCode.ESESSION)
+                    if (st.abort_event.is_set() or abort_exc is not None)
+                    else 0
+                ),
+            )
     return {
         "results": results,
         "final_steps": final,
@@ -2000,15 +2156,23 @@ def propose_dispatch(
     }
 
 
-def _control_call(ch, payload: bytes, timeout_ms: float):
+def _control_call(ch, payload: bytes, timeout_ms: float, trace=None):
     """One control-stream RPC of the session plane (the proposals, the
     abort broadcast and the resume barrier's traffic), on the host plane
-    even over a device-link channel. Returns (controller, done event)."""
+    even over a device-link channel. ``trace`` is the proposer's
+    ``(trace_id, parent_span_id, sampled)`` fleet-trace context: stamped on
+    the controller so the proposal crosses the wire inside the proposer's
+    trace and every party's spans join it. Returns (controller, done
+    event)."""
     from incubator_brpc_tpu_torch.rpc.controller import Controller
     from incubator_brpc_tpu_torch.transport.device_link import HANDSHAKE_SERVICE
 
     cntl = Controller(timeout_ms=timeout_ms)
     cntl._force_host = True
+    if trace is not None and trace[0]:
+        cntl.trace_id = int(trace[0])
+        cntl.parent_span_id = int(trace[1])
+        cntl.trace_sampled = 1 if trace[2] else 0
     ev = threading.Event()
     ch.call_method(
         HANDSHAKE_SERVICE, DISPATCH_METHOD, payload, cntl=cntl,

@@ -22,10 +22,9 @@ remains out of scope (the reference fork has HPACK tables but no h2
 framing either — SURVEY §2.4).
 
 The port's copy of the JAX package's ``protocol/http.py``, whole. Requests
-route through ``builtin/pages.handle``, whose builtin pages are the
-port's ``/health`` and ``/quitquitquit`` (the others wait for ROADMAP A12
-and answer 501 naming it); the rest is the server's own: custom handlers,
-restful mappings and the ``/<service>/<method>`` gateway.
+route through ``builtin/pages.handle``: the builtin portal pages first,
+then the server's own custom handlers, restful mappings and the
+``/<service>/<method>`` gateway.
 """
 
 from __future__ import annotations

@@ -48,10 +48,12 @@ meta the Python route owns; on baidu_std the credential (RpcMeta field 7,
 stamped until the first success) and a native codec (snappy, gzip, zlib)
 ride it too. A pooled channel keeps one native connection per caller
 thread, and a transport failure falls through to the Python path, which
-dials fresh and owns the retries. The other protocols (ROADMAP A11), TLS
-(A10) and rpcz spans (A12) are later items; their options keep the
-reference's places and refuse a value with the ROADMAP item that brings
-them.
+dials fresh and owns the retries. Every call opens its rpcz client span
+(``builtin/rpcz.start_client_span``) on either route and ends it at
+completion; the native route stamps the trace on the wire only when it is
+observable. The other protocols (ROADMAP A11) and TLS (A10) are later
+items; their options keep the reference's places and refuse a value with
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ import weakref
 from typing import Callable, Optional, Union
 
 from incubator_brpc_tpu_torch import protocol as proto_pkg
+from incubator_brpc_tpu_torch.builtin.rpcz import end_client_span, in_trace_context, start_client_span
 from incubator_brpc_tpu_torch.bvar import Adder, PassiveStatus
 from incubator_brpc_tpu_torch.protocol import compress as compress_mod
 from incubator_brpc_tpu_torch.protocol.tbus_std import Meta, ParsedFrame
@@ -514,6 +517,8 @@ class Channel:
         )
         cntl.call_id = cid
 
+        cntl._span = start_client_span(cntl)
+
         # sync calls without a backup request enforce their deadline from
         # the caller's own wait loop (_sync_wait); async calls and calls
         # with a backup request need the TimerThread
@@ -634,6 +639,17 @@ class Channel:
         nch = self._native_channel()
         if nch is None:
             return False
+        # captured BEFORE start_client_span stamps fresh ids: a caller
+        # continuing an external trace (cntl.trace_id pre-set) is
+        # indistinguishable from a generated id afterwards
+        preset_trace = bool(cntl.trace_id or cntl.span_id or cntl.trace_sampled)
+        cntl._span = start_client_span(cntl)
+        # start_client_span ALWAYS stamps trace ids on the controller, but
+        # untraced calls skip the per-call submeta encode: the wire carries
+        # the trace only when it is observable — this hop sampled a span,
+        # the caller set a log_id or their own trace ids or sampled bit, or
+        # the call runs inside a server handler's trace context
+        traced = cntl._span is not None or bool(cntl.log_id) or preset_trace or in_trace_context()
         request_wire = request
         if cntl.compress_type:
             # the codec the server's C++ table mirrors: the compressed bytes
@@ -641,7 +657,12 @@ class Channel:
             request_wire = compress_mod.compress(cntl.compress_type, request)
         rc, err_code, resp_meta, body = nch.call(
             service, method, request_wire, attachment, timeout_ms=cntl.timeout_ms,
-            log_id=cntl.log_id, compress=cntl.compress_type or "",
+            log_id=cntl.log_id if traced else 0,
+            trace_id=cntl.trace_id if traced else 0,
+            span_id=cntl.span_id if traced else 0,
+            parent_span_id=cntl.parent_span_id if traced else 0,
+            sampled=cntl.trace_sampled if traced else 0,
+            compress=cntl.compress_type or "",
         )
         cntl.remote_side = self._server
         if rc == -errno.ETIMEDOUT:
@@ -658,6 +679,9 @@ class Channel:
                     self._native_ch = None
             nch.close()
             cntl.remote_side = None
+            if cntl._span is not None:
+                end_client_span(cntl)
+            cntl._span = None
             return False
         elif err_code:
             meta = nch.decode_resp_meta(resp_meta)
@@ -683,6 +707,8 @@ class Channel:
                     cntl.response_payload = payload
                     cntl.response_attachment = body.to_bytes(att, pos=blen - att) if att else b""
         cntl._mark_end()
+        if cntl._span is not None:
+            end_client_span(cntl)
         return True
 
     def _sync_wait(self, cntl: Controller, cid: int) -> None:
@@ -918,6 +944,10 @@ class Channel:
             compress=cntl.compress_type,
             timeout_ms=wire_timeout,
             log_id=cntl.log_id,
+            trace_id=cntl.trace_id,
+            span_id=cntl.span_id,
+            parent_span_id=cntl.parent_span_id,
+            sampled=cntl.trace_sampled,
             stream_id=cntl._request_stream.id if cntl._request_stream is not None else 0,
             extra=dict(cntl.request_extra) if cntl.request_extra else {},
         )
@@ -1181,6 +1211,8 @@ class Channel:
             cids = sock.context.get("_inflight_cids")
             if cids is not None:
                 cids.discard(cntl.call_id)
+        if cntl._span is not None:
+            end_client_span(cntl)
         # settle every attempt's pooled/short connection now — except one a
         # live stream is bound to, which is released when the stream ends.
         # A pooled socket is only reusable when this was a clean,

@@ -12,8 +12,10 @@ One Controller accompanies one RPC on either side:
   ``set_failed`` with these meanings.
 
 The port's copy of the JAX package's ``rpc/controller.py`` with the
-backup request (``backup_request_ms``) and session data
-(``session_local_data``), without the tracing state of rpcz (ROADMAP A12).
+backup request (``backup_request_ms``), session data
+(``session_local_data``) and the tracing state of rpcz (``trace_id``,
+``span_id``, ``parent_span_id``, the head-based ``trace_sampled`` bit and
+the call's span).
 The constructor keeps the reference's parameters in their places
 (``backup_request_ms`` before ``log_id``). :func:`refuse_unported` is the
 port's refusal of a value it does not serve yet: it names the ROADMAP item
@@ -80,6 +82,13 @@ class Controller:
         self.retried_count: int = 0
         self.has_backup_request: bool = False
         self.latency_us: float = 0.0
+        self.trace_id: int = 0
+        self.span_id: int = 0
+        self.parent_span_id: int = 0
+        # head-based coherent-sampling bit: set by start_client_span (or
+        # preset by the caller) and stamped on the wire — a downstream
+        # hop seeing 1 collects its span regardless of local election
+        self.trace_sampled: int = 0
 
         # -- internals (owned by channel.py / server.py) --
         self._start_ts: float = 0.0
@@ -93,6 +102,7 @@ class Controller:
         self._server = None
         self._sent_sockets: List[Any] = []
         self._excluded_sockets: set = set()  # ExcludedServers retry avoidance
+        self._span = None  # this call's rpcz span (builtin/rpcz.py)
         # set while a sync caller is poll-driving a socket's reads; whoever
         # ends the RPC kicks it so the poller stops waiting (sock.py's
         # caller-driven read path)

@@ -40,9 +40,12 @@ registry), and HTTP through ``builtin/pages.handle``: the ``/health`` and
 mappings (``add_service(restful_mappings=)``) and the
 ``/<service>/<method>`` gateway (``invoke_for_http``: the same method map,
 admission gates and session data as the binary route, JSON transcoded
-through a json2pb schema where the handler carries one). TLS (ROADMAP
-A10), the other protocols (A11), and rpcz and the other builtin pages
-(A12) are later items. The method map (``_MethodMap``) is keyed on the
+through a json2pb schema where the handler carries one). Both the binary
+route and the gateway open an rpcz server span (``builtin/rpcz.py``; the
+binary route annotates it "processing"), the handler runs inside it (a
+nested client call parents to it), and every started server with builtin
+services registers with ``builtin/portal.py`` for the portal's pages. TLS
+(ROADMAP A10) and the other protocols (A11) are later items. The method map (``_MethodMap``) is keyed on the
 native FlatMap of the port's host runtime. A server listens on the Python
 acceptor, or with ``ServerOptions(native_plane=True)`` on the C++ reactors
 of ``transport/native_plane.py`` (``num_reactors``, alias
@@ -87,6 +90,8 @@ from typing import Callable, Dict, Optional, Union
 import torch
 
 from incubator_brpc_tpu_torch import protocol as proto_pkg
+from incubator_brpc_tpu_torch.builtin import portal
+from incubator_brpc_tpu_torch.builtin.rpcz import clear_parent_span, end_server_span, start_server_span
 from incubator_brpc_tpu_torch.bvar import Adder, LatencyRecorder, PassiveStatus
 from incubator_brpc_tpu_torch.protocol import compress as compress_mod
 from incubator_brpc_tpu_torch.protocol.tbus_std import Meta, ParsedFrame
@@ -330,8 +335,8 @@ class ServerOptions:
     session and thread-local data factories with their reservations, the
     collective services' options and ``fault_injector``;
     ``has_builtin_services`` switches the builtin pages of the HTTP portal
-    (``/health`` and ``/quitquitquit``; the rest answer 501 until ROADMAP
-    A12). Every other parameter keeps
+    (``builtin/pages.py``: the JAX package's whole table). Every other
+    parameter keeps
     its place and its default, and a value that asks for something the
     port does not serve yet raises ``NotImplementedError`` naming the
     ROADMAP item that brings it.
@@ -774,6 +779,8 @@ class Server:
             # enforced on BOTH planes: the Python acceptor scan, and
             # tb_server_close_idle for native ports
             self._schedule_idle_reap()
+        if self.options.has_builtin_services:
+            portal.register_server(self)
         self._expose_limiter_gauges()
         _started_servers.add(self)
         _maybe_install_sigterm()
@@ -983,6 +990,8 @@ class Server:
             except Exception:
                 logger.exception("device link teardown raised")
         self._device_socks.clear()
+        if self.options.has_builtin_services:
+            portal.unregister_server(self)
 
     def join(self, timeout: Optional[float] = None) -> bool:
         """Wait until every in-flight request finished; a stopped server's
@@ -1105,6 +1114,8 @@ class Server:
         cntl.request_meta = meta
         cntl.remote_side = sock.remote
         cntl.log_id = meta.log_id
+        cntl.trace_id = meta.trace_id
+        cntl.span_id = meta.span_id
         cntl.call_id = frame.correlation_id
         cntl.compress_type = meta.compress
         cntl.request_attachment = frame.attachment
@@ -1194,6 +1205,10 @@ class Server:
 
         maybe_dump_request(meta, payload, frame.attachment)
 
+        cntl._span = start_server_span(cntl, meta)
+        if cntl._span is not None:
+            cntl._span.annotate("processing")
+
         # wire the async-response closure before running user code. The
         # closure finishes AT MOST ONCE: the async-reap timer below and a
         # late (or duplicate) send_response from the handler must not both
@@ -1243,6 +1258,9 @@ class Server:
         finally:
             pop_deadline(prev_deadline)
             _usercode_tls.server = prev_server
+            # the parent-span window is handler execution on THIS thread;
+            # an async completion elsewhere must not leave stale TLS here
+            clear_parent_span(cntl._span)
         if cntl._async and not cntl.failed():
             # handler owns the response now — but bound how long it can
             # hold the admission slot and the session refcount
@@ -1294,6 +1312,8 @@ class Server:
         self._send_response(sock, cntl, response)
         if cntl.failed():
             self.nerror << 1
+        if cntl._span is not None:
+            end_server_span(cntl, response_size=len(response))
 
     # -- admission (method_status.h:90-97) -----------------------------------
 
@@ -1439,7 +1459,9 @@ class Server:
         cntl._sock = sock
         cntl.remote_side = sock.remote if sock is not None else None
         cntl._mark_start()
+        # the same observability hooks as the binary route
         maybe_dump_request(meta, body)
+        cntl._span = start_server_span(cntl, meta)
 
         done = threading.Event()
         holder = {"response": b""}
@@ -1462,6 +1484,7 @@ class Server:
             response = b""
         finally:
             _usercode_tls.server = prev_server
+            clear_parent_span(cntl._span)
         if cntl._async and not cntl.failed():
             if not done.wait(timeout=float(get_flag("http_gateway_async_timeout_s"))):
                 cntl.set_failed(ErrorCode.ERPCTIMEDOUT, "async handler timed out")
@@ -1469,6 +1492,8 @@ class Server:
         cntl._mark_end()
         self._session_handler_exit(sock)
         self._release(status, cntl)
+        if cntl._span is not None:
+            end_server_span(cntl, response_size=len(response or b""))
         if cntl.failed():
             self.nerror << 1
             return 500, "text/plain", f"{cntl.error_text}\n".encode()

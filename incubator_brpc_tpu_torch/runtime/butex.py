@@ -91,6 +91,13 @@ class Butex:
             self._value = desired
             return True
 
+    def exchange(self, desired: int) -> int:
+        """Atomically set the value, returning the old one (the unlock fast
+        path of FiberMutex — one lock acquisition, no retry loop)."""
+        with self._lock:
+            old, self._value = self._value, desired
+            return old
+
     # -- wait/wake ----------------------------------------------------------
 
     def wait(self, expected: int, timeout: Optional[float] = None) -> int:

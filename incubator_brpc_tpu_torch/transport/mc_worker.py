@@ -27,7 +27,12 @@ its links (``--backend gloo`` or ``nccl``). Two shapes:
   with ``--wrong-kernel``; ``--expect-resume`` with ``--spare-procs`` and
   ``--checkpoint-every`` against a server started with
   ``--chaos-kill-at-step`` (its RPC server stops at that step while its
-  process lives on).
+  process lives on); ``--traced-session``: one more int8 session on the
+  overlap schedule, with rpcz turned on in every process for it alone
+  (the servers' through ``/flags``), proposed inside the handler of a
+  caller with its own trace, whose every party's session, step and chunk
+  spans the client gathers from each process's ``/rpcz`` into one trace
+  tree.
 
 On one card every process holds ``cuda:0``; NCCL refuses two ranks on one
 card, so there the processes run ``--backend gloo`` with the rows on the
@@ -61,6 +66,8 @@ import numpy as np
 import torch
 
 SESSION_WIDTH = 512
+# the traced session of ``--traced-session``: its trace id, steps and chunks
+TRACED_SESSION = (0x7ACED5E55, 4, 2)
 
 
 def _scale_psum_kernel(data, n, axis):
@@ -572,6 +579,8 @@ def run_session_client(args) -> int:
              "double_buffer": bool(args.double_buffer)}
     if args.quantize != "none":
         stats["pmean"] = _run_session_client_quantized(args, chans, party_ids, client_index, steps)
+    if args.traced_session:
+        stats["traced"] = _run_traced_session(args, chans, party_ids, client_index, ports)
     stats.update(k2_launches=_k2_launches(), **_gathers())
     print("CLIENT_OK " + json.dumps(stats), flush=True)
     _quit_servers(ports)
@@ -637,6 +646,128 @@ def _run_session_client_quantized(args, chans, party_ids, client_index, steps) -
         res[mode].update(wire_ratio=quant["wire_bytes"] / exact["wire_bytes"],
                          max_error=max_err, error_bound=bound)
     return res
+
+
+def _run_traced_session(args, chans, party_ids, client_index, ports) -> dict:
+    """The traced role (``--traced-session``): a caller with its own trace
+    (``TRACED_SESSION``'s id, the sampled bit set) asks a server of this
+    process to run one int8 pmean session on the overlap schedule; the
+    handler proposes it, so its control RPCs, every party's session span
+    and its step and chunk spans join the caller's trace. The rows are
+    held bitwise ``np_quantized_pmean``; the spans are gathered from this
+    process's store and from every server's ``/rpcz?trace_id=&json=1``
+    and rendered as one tree, whose only root must be the caller's span.
+    rpcz is on in every process for this session alone: the servers' is
+    turned on and off again through their reloadable ``/flags``, so the
+    sessions before it run with rpcz off as a server runs by default."""
+    from incubator_brpc_tpu_torch.protocol.http import http_call
+    from incubator_brpc_tpu_torch.utils.distributed import current_job
+    from incubator_brpc_tpu_torch.utils.flags import get_flag, set_flag_unchecked
+
+    trace_id, steps, chunks = TRACED_SESSION
+    device = current_job().device
+
+    def set_rpcz(on: bool, per_second: int) -> None:
+        # every span of the traced proposal is kept while on (the
+        # head-based bit forces the party's spans; the bucket bounds the rest)
+        set_flag_unchecked("enable_rpcz", on)
+        set_flag_unchecked("rpcz_samples_per_second", per_second)
+        for p in ports:
+            for name, value in (("enable_rpcz", str(on).lower()),
+                                ("rpcz_samples_per_second", per_second)):
+                status, _, body = http_call("127.0.0.1", p, f"/flags/{name}?setvalue={value}",
+                                            timeout=30)
+                assert status == 200, (p, name, body)
+
+    was_per_second = get_flag("rpcz_samples_per_second")
+    assert not get_flag("enable_rpcz"), "the sessions before the traced one run with rpcz off"
+    set_rpcz(True, 10_000_000)
+    try:
+        return _traced_session(args, chans, party_ids, client_index, ports, trace_id, steps,
+                               chunks, device)
+    finally:
+        set_rpcz(False, was_per_second)
+
+
+def _traced_session(args, chans, party_ids, client_index, ports, trace_id, steps, chunks,
+                    device) -> dict:
+    from incubator_brpc_tpu_torch.builtin import rpcz
+    from incubator_brpc_tpu_torch.parallel import quantized as Q
+    from incubator_brpc_tpu_torch.parallel.mc_collective import _pmean_dm
+    from incubator_brpc_tpu_torch.parallel.mc_dispatch import propose_dispatch
+    from incubator_brpc_tpu_torch.protocol.http import http_call
+    from incubator_brpc_tpu_torch.rpc import Channel, Controller, Server, ServerOptions
+    from incubator_brpc_tpu_torch.rpc.device_method import register_device_method
+
+    n = len(party_ids)
+    register_device_method("_collective", "pmean", _pmean_dm(args.width))
+    rows = pmean_rows(n, args.width)
+    held = {}
+
+    def run(cntl, request: bytes) -> bytes:
+        before = _k2_launches()
+        held["out"] = propose_dispatch(
+            chans, party_ids, "_collective", "pmean", [r.tobytes() for r in rows], steps=steps,
+            proposer_index=client_index, timeout_ms=120000, quantize="int8", chunks=chunks,
+            double_buffer=True, device=device)
+        after = _k2_launches()
+        held["k2"] = {name: after[name] - before[name] for name in after}
+        return b"ran"
+
+    front = Server(ServerOptions(device=device))
+    front.add_service("sess", {"run": run})
+    assert front.start(0)
+    try:
+        ch = Channel()
+        assert ch.init(f"127.0.0.1:{front.port}")
+        cntl = Controller(timeout_ms=300000)
+        cntl.trace_id, cntl.trace_sampled = trace_id, 1
+        t0 = time.perf_counter()
+        c = ch.call_method("sess", "run", b"", cntl=cntl)
+        wall = time.perf_counter() - t0
+        assert c.ok() and c.response_payload == b"ran", c.error_text
+    finally:
+        front.stop()
+        front.join(timeout=30)
+    want = Q.np_quantized_pmean(rows, held["out"]["final_steps"], "int8").tobytes()
+    assert all(r == want for r in held["out"]["results"]), "the traced session missed its model"
+
+    # every party: its session span, a compute span a step, a chunk span a
+    # step and chunk; the servers end their RPC spans after the answer
+    want_spans = n * (1 + steps + steps * chunks)
+
+    def gather():
+        local = rpcz.span_store.by_trace(trace_id)
+        remote = {}
+        for p in ports:
+            status, _, body = http_call("127.0.0.1", p, f"/rpcz?trace_id={trace_id:x}&json=1",
+                                        timeout=30)
+            assert status == 200, body
+            remote[p] = [rpcz.span_from_dict(d) for d in json.loads(body)]
+        return local, remote
+
+    deadline = time.monotonic() + 30
+    while True:
+        local, remote = gather()
+        spans = local + [sp for v in remote.values() for sp in v]
+        sessions = [sp for sp in spans if sp.span_type == "collective"]
+        if len(sessions) >= want_spans or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    notes = [t for sp in sessions for _, t in sp.annotations]
+    counts = {"session": sum(t.startswith("method=_collective.pmean") for t in notes),
+              "step": sum(t.startswith("compute step=") for t in notes),
+              "chunk": sum(t.startswith("chunk=") for t in notes)}
+    assert counts == {"session": n, "step": n * steps, "chunk": n * steps * chunks}, counts
+    assert all(sp.trace_id == trace_id for sp in spans)
+    tree = rpcz.render_trace_tree(spans)
+    roots = [line for line in tree if not line.startswith(" ")]
+    assert len(roots) == 1 and " client sess.run " in roots[0], roots
+    assert len(tree) == len(spans)
+    return {"trace_id": f"{trace_id:x}", "steps": steps, "chunks": chunks, "spans": len(spans),
+            "spans_by_process": {"client": len(local), **{str(p): len(v) for p, v in remote.items()}},
+            "counts": counts, "tree": tree, "k2": held["k2"], "wall_s": wall,
+            "ms_per_step": held["out"]["elapsed_s"] / steps * 1e3}
 
 
 def _run_session_client_resume(args, chans, spares, party_ids, client_index, operands, steps,
@@ -841,15 +972,17 @@ def orchestrate_fabric(n_servers: int = 2, extra=(), timeout: float = 120.0, dev
 def orchestrate_session(n_parties: int = 3, steps: int = 4, wrong_kernel: bool = False,
                         timeout: float = 300.0, chunks: int = 1, double_buffer: bool = False,
                         quantize: str = "none", device=None, backend="gloo",
-                        width: int = SESSION_WIDTH):
+                        width: int = SESSION_WIDTH, traced: bool = False):
     """Spawn ``n_parties - 1`` server processes + one session client (one
     job) and run an N-party session of the user kernel at ``width``
     bytes, one party per rank. ``wrong_kernel`` arms ONE server with a
     same-name/different-body kernel so the fingerprint reject is what the
     run proves. ``chunks``/``double_buffer`` run the session on the
     overlap schedule; ``quantize`` ("int8", "int4" or "int8,int4") adds
-    the exact and quantized pmean sessions. Returns (the client's stats,
-    with each server's SERVER_DONE record under ``servers``, transcript)."""
+    the exact and quantized pmean sessions; ``traced`` the traced int8
+    session of ``--traced-session`` (rpcz on for it alone). Returns
+    (the client's stats, with each server's SERVER_DONE record under
+    ``servers``, transcript)."""
     ports = _free_ports(n_parties)
     coord, rpc_ports = ports[0], ports[1:]
     dev = _device_args(device, backend)
@@ -867,6 +1000,8 @@ def orchestrate_session(n_parties: int = 3, steps: int = 4, wrong_kernel: bool =
         client.append("--double-buffer")
     if wrong_kernel:
         client.append("--expect-reject")
+    if traced:
+        client.append("--traced-session")
     specs.append(("session-client", "session-client", tuple(client)))
     return _orchestrate(specs, label=f"{n_parties}-party session", timeout=timeout)
 
@@ -1111,6 +1246,7 @@ def main(argv=None) -> int:
     ap.add_argument("--double-buffer", action="store_true")  # session client
     # session client: exact vs int8/int4 pmean (one mode, or both comma-separated)
     ap.add_argument("--quantize", type=str, default="none")
+    ap.add_argument("--traced-session", action="store_true")  # session client
     args = ap.parse_args(argv)
     modes = args.quantize.split(",")
     if args.quantize != "none" and not set(modes) <= {"int8", "int4"}:

@@ -49,9 +49,15 @@ Python RPC layer:
   schedule (every Nth call fails, closes or waits, in C++) on every
   ``NativeClientChannel`` made while the ``fault_injection`` flag is on.
 
-The port's copy of the JAX package's ``transport/native_plane.py``; the
-rpcz spans the telemetry ring samples, and the process-wide compress and
-auth gauges, wait for ROADMAP A12. A handle of this package's library (an
+- Telemetry: every natively dispatched request leaves a 64-byte record in
+  a per-reactor ring; the drain (a background thread, every scrape of
+  ``/brpc_metrics`` and ``/vars``, and ``stop``) folds the records into
+  per-method latency summaries, the limiters' feedback and the rpcz server
+  spans of the records whose sample bit is set (every
+  ``native_telemetry_sample_every``-th one, or the wire's sampled bit),
+  parented into the caller's trace.
+
+The port's copy of the JAX package's ``transport/native_plane.py``. A handle of this package's library (an
 IOBuf, a connection token) never crosses to another package's runtime:
 only bytes on the wire do.
 """
@@ -70,6 +76,8 @@ import weakref
 from typing import Dict, Optional
 
 from incubator_brpc_tpu_torch import native
+from incubator_brpc_tpu_torch.builtin import prometheus
+from incubator_brpc_tpu_torch.builtin import rpcz as rpcz_mod
 from incubator_brpc_tpu_torch.bvar import Adder, IntRecorder, LatencyRecorder, PassiveStatus
 from incubator_brpc_tpu_torch.native import AUTH_FN, CLOSED_FN, FRAME_FN, HANDOFF_FN, LIB
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint
@@ -94,9 +102,18 @@ _CH_PROTO = {"tbus_std": 0, "baidu_std": 1}
 # tb_telemetry_record ABI size (static_assert in csrc/host/tbnet/tbnet.cc)
 _TELEMETRY_RECORD_BYTES = 64
 
+# sampled-word bit layout (tbnet.cc kTeleSampleBit/kTeleCodecShift/
+# kTeleWireForced): bit 0 = rpcz sample election, bits 1-2 = request
+# codec id, bit 3 = the sampled bit arrived ON THE WIRE (head-based
+# coherent sampling — the edge's decision, which already forced bit 0)
+_TEL_SAMPLE_BIT = 1
+_TEL_CODEC_SHIFT = 1
+_TEL_WIRE_FORCED = 8
+
 # wire CompressType <-> codec names the native plane implements (the
 # baidu_std table restricted to what the C++ codec table speaks)
 _NATIVE_COMPRESS_WIRE = {"snappy": 1, "gzip": 2, "zlib1": 3}
+_NATIVE_COMPRESS_NAMES = {v: k for k, v in _NATIVE_COMPRESS_WIRE.items()}
 
 # client fast-path instrumentation: per-call round trip (the Python
 # boundary included), transport errors, and the pump's ns/request
@@ -106,6 +123,37 @@ native_client_call_us = LatencyRecorder(name="native_client_call_us")
 native_pump_ns = IntRecorder(name="native_pump_ns")
 # the same pipelined pump over the baidu_std (PRPC) wire
 prpc_pump_ns = IntRecorder(name="prpc_pump_ns")
+
+# process-wide compress/auth telemetry summed across every live native
+# plane (a stopping plane folds its final counts into the retired
+# tallies first, so neither gauge ever moves backwards)
+_planes_tally_lock = threading.Lock()
+_live_planes: "weakref.WeakSet" = weakref.WeakSet()
+_retired_compress_saved = 0
+_retired_auth_rejects = 0
+
+
+def _sum_compress_saved() -> int:
+    total = _retired_compress_saved
+    for plane in list(_live_planes):
+        st = plane.compress_stats()
+        total += max(0, st["in_raw"] - st["in_wire"])
+        total += max(0, st["out_raw"] - st["out_wire"])
+    return total
+
+
+def _sum_auth_rejects() -> int:
+    total = _retired_auth_rejects
+    for plane in list(_live_planes):
+        total += plane.stats().get("auth_rejects", 0)
+    return total
+
+
+# bytes kept OFF the wire by native codecs: (decompressed request bytes -
+# their wire bytes) + (raw response bytes - their wire bytes)
+native_compress_bytes_saved = PassiveStatus(_sum_compress_saved, name="native_compress_bytes_saved")
+# requests rejected ERPCAUTH by the native auth seam
+native_auth_rejects = PassiveStatus(_sum_auth_rejects, name="native_auth_rejects")
 
 
 def _native_kind(handler) -> Optional[int]:
@@ -485,6 +533,9 @@ class NativeServerPlane:
             for k in ("accepted", "native_reqs", "cb_frames", "handoffs", "live_conns",
                       "deadline_sheds", "auth_rejects")
         ]
+        # the process-wide native_compress_bytes_saved / native_auth_rejects
+        # gauges sum across live planes
+        _live_planes.add(self)
         for i in range(self.num_reactors):
             self._m_stats.extend(
                 PassiveStatus(
@@ -500,11 +551,23 @@ class NativeServerPlane:
             self._m_stats.append(
                 PassiveStatus(lambda: self._tel_drained, name=f"native_plane_{self.port}_telemetry_drained")
             )
-            # a weak reference: a started-then-abandoned plane stays
-            # collectable, so the __del__ -> stop() backstop can fire
+            # scrapes force a drain so /brpc_metrics and /vars see
+            # completions recorded microseconds — not a drain interval —
+            # ago. The hook and the pump hold only a WEAK reference: a
+            # started-then-abandoned plane stays collectable, so the
+            # __del__ -> stop() backstop can fire
+            wr = weakref.ref(self)
+
+            def _scrape_drain(_wr=wr):
+                plane = _wr()
+                if plane is not None:
+                    plane.drain_telemetry()
+
+            self._scrape_hook = _scrape_drain
+            prometheus.register_scrape_hook(_scrape_drain)
             self._drain_thread = threading.Thread(
                 target=_drain_pump,
-                args=(weakref.ref(self), self._drain_stop),
+                args=(wr, self._drain_stop),
                 name=f"tbtorch-native-telemetry-{self.port}",
                 daemon=True,
             )
@@ -604,9 +667,10 @@ class NativeServerPlane:
     def _consume_records(self, batch, n: int) -> None:
         """Vectorized fan-out of one batch: per-method latency summaries
         (exact count/sum/max, a strided subsample for the percentiles),
-        natively shed requests into ``deadline_shed_count``, and, where an
+        natively shed requests into ``deadline_shed_count``, where an
         adaptive limiter listens, one time-ordered feed of decimated
-        completions into the server's limiters."""
+        completions into the server's limiters, and with rpcz on, a server
+        span for every record whose sample bit is set."""
         import numpy as np
 
         from incubator_brpc_tpu_torch.rpc.concurrency_limiter import AutoConcurrencyLimiter
@@ -685,6 +749,62 @@ class NativeServerPlane:
         feed.sort()
         for done, full, err, lat in feed:
             server._on_native_completion(full, err, lat, now_us=done)
+        if rpcz_mod.rpcz_enabled():
+            self._submit_sampled_spans(arr, names)
+
+    def _submit_sampled_spans(self, arr, names) -> None:
+        """One rpcz server span for each record of the batch whose sample
+        bit is set (bit 0: the local 1/N election or the wire's sampled
+        bit), parented into the caller's trace the record carries."""
+        import numpy as np
+
+        sampled_idx = np.flatnonzero(arr["sampled"] & _TEL_SAMPLE_BIT)
+        if not len(sampled_idx):
+            return
+        # wall/monotonic anchor: record timestamps are CLOCK_MONOTONIC ns,
+        # spans carry wall-clock start_real_us
+        wall_anchor_us = time.time() * 1e6
+        mono_anchor_ns = native.monotonic_ns()
+        for i in sampled_idx:
+            rec = arr[int(i)]
+            idx = int(rec["method_idx"])
+            if idx >= len(names):
+                continue
+            sampled_word = int(rec["sampled"])
+            forced = bool(sampled_word & _TEL_WIRE_FORCED)
+            # the 1/N flag elects; the shared token bucket still bounds
+            # spans/second (rpcz_samples_per_second) like every other
+            # producer. Wire-FORCED records (the edge's head-based
+            # decision) ride through a dry bucket, and the scan CONTINUES
+            # past refused locally-elected records so a forced one later in
+            # the batch still lands
+            if not rpcz_mod._limiter.grab() and not forced:
+                continue
+            service, _, method = names[idx].partition(".")
+            codec = (sampled_word >> _TEL_CODEC_SHIFT) & 3
+            # the caller's span id becomes this span's parent; fresh ids
+            # only when the wire carried none
+            wire_trace = int(rec["trace_id"])
+            rpcz_mod.span_store.submit(
+                rpcz_mod.Span(
+                    trace_id=wire_trace or rpcz_mod._new_id(),
+                    span_id=rpcz_mod._new_id(),
+                    parent_span_id=int(rec["span_id"]),
+                    span_type=rpcz_mod.SPAN_TYPE_SERVER,
+                    service=service,
+                    method=method,
+                    error_code=int(rec["error_code"]),
+                    start_real_us=int(wall_anchor_us - (mono_anchor_ns - int(rec["start_ns"])) / 1e3),
+                    latency_us=float(rec["latency_ns"]) / 1e3,
+                    request_size=int(rec["request_size"]),
+                    response_size=int(rec["response_size"]),
+                    annotations=(
+                        [(0.0, "compress=" + _NATIVE_COMPRESS_NAMES.get(codec, str(codec)))]
+                        if codec
+                        else []
+                    ),
+                )
+            )
 
     def method_latency(self, full_name: str) -> Optional[LatencyRecorder]:
         """The drained latency summary of a natively dispatched method
@@ -847,6 +967,10 @@ class NativeServerPlane:
         if self._drain_thread is not None:
             self._drain_thread.join(timeout=5.0)
             self._drain_thread = None
+        hook = getattr(self, "_scrape_hook", None)
+        if hook is not None:
+            prometheus.unregister_scrape_hook(hook)
+            self._scrape_hook = None
         for v in self._m_stats:
             v.hide()  # free the port-scoped names for the next plane
         # stop joins the loop threads, so no callback can be in flight when
@@ -855,6 +979,17 @@ class NativeServerPlane:
         self._final_stats = self.stats()
         self._final_compress = self.compress_stats()
         self._final_reactor_stats = [self.reactor_stats(i) for i in range(self.num_reactors)]
+        # fold the finals into the retired tallies so the process-wide
+        # gauges keep this plane's contribution without double-counting
+        global _retired_compress_saved, _retired_auth_rejects
+        with _planes_tally_lock:
+            if self in _live_planes:
+                _live_planes.discard(self)
+                fc = self._final_compress
+                _retired_compress_saved += max(0, fc["in_raw"] - fc["in_wire"]) + max(
+                    0, fc["out_raw"] - fc["out_wire"]
+                )
+                _retired_auth_rejects += self._final_stats.get("auth_rejects", 0)
         try:
             self.drain_telemetry()
             self._final_tel_dropped = self.telemetry_dropped()

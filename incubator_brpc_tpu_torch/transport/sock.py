@@ -20,8 +20,9 @@ Kept design points (and where they live in the reference):
   ``socket_max_unwritten_bytes`` (socket.cpp:1537).
 
 The port's copy of the JAX package's ``transport/sock.py``, with the
-fault injector's socket-write seam (``rpc/fault_injector.py``), without
-TLS (ROADMAP A10), the per-second rate bvars of the portal (A12), and the
+fault injector's socket-write seam (``rpc/fault_injector.py``) and the
+per-second rate bvars the portal plots (``socket_in_bytes_per_second``,
+``socket_out_bytes_per_second``), without TLS (ROADMAP A10) and the
 caller-driven write drain (``write(drain_inline=True)``)
 that the JAX package's stream writers opt into: the port's streams write
 through the same KeepWrite path as every other frame.
@@ -38,7 +39,7 @@ from time import monotonic as _monotonic
 from collections import deque
 from typing import Callable, Dict, List, Optional, Union
 
-from incubator_brpc_tpu_torch.bvar import Adder
+from incubator_brpc_tpu_torch.bvar import Adder, PerSecond
 from incubator_brpc_tpu_torch.iobuf import IOBuf, read_burst_bytes
 from incubator_brpc_tpu_torch.runtime.butex import Butex
 from incubator_brpc_tpu_torch.runtime.timer_thread import global_timer_thread
@@ -62,6 +63,18 @@ RECYCLED = 2
 
 in_bytes = Adder(name="socket_in_bytes")
 out_bytes = Adder(name="socket_out_bytes")
+
+_rate_vars: list = []
+
+
+def _ensure_rate_vars() -> None:
+    """Per-second rates for /vars/series.json, created on FIRST socket
+    construction — a Window registers with the 1 Hz bvar sampler thread,
+    which must not spawn as an import side effect (fork-after-import
+    would strand registered vars without their sampler)."""
+    if not _rate_vars:
+        _rate_vars.append(PerSecond(in_bytes, name="socket_in_bytes_per_second"))
+        _rate_vars.append(PerSecond(out_bytes, name="socket_out_bytes_per_second"))
 
 def when_drained(sock, action, stalls: int = 0, last_unwritten: int = -1) -> None:
     """Run ``action(sock)`` once the write queue drains. Forces the action
@@ -189,6 +202,7 @@ class Socket:
         inline_read: bool = False,
         preread: bytes = b"",
     ):
+        _ensure_rate_vars()
         conn.setblocking(False)
         # NOTE: no explicit SO_RCVBUF/SO_SNDBUF — setting them disables
         # kernel autotuning and is silently clamped to rmem_max/wmem_max,

@@ -123,8 +123,8 @@ define_flag(
     True,
     "per-port completion-record ring on native-plane servers: every "
     "natively dispatched request records method/latency/sizes/error into "
-    "a lock-free MPSC ring drained into per-method latency summaries "
-    "(read at Server.start)",
+    "a lock-free MPSC ring drained into per-method latency summaries, "
+    "sampled rpcz spans, and limiter feedback (read at Server.start)",
     lambda v: True,
 )
 define_flag(
@@ -137,17 +137,45 @@ define_flag(
 define_flag(
     "native_telemetry_sample_every",
     64,
-    "every Nth native completion record carries the span-sample bit "
-    "(counter-based, exact-rate; 0 disables it); the spans it elects wait "
-    "for rpcz (ROADMAP A12)",
+    "every Nth native completion record is span-sampled into /rpcz "
+    "(counter-based, exact-rate; 0 disables span sampling)",
     lambda v: v >= 0,
 )
 define_flag(
     "native_telemetry_drain_ms",
     100,
-    "background drain cadence of the native telemetry ring; "
-    "Server.stop forces a drain regardless",
+    "background drain cadence of the native telemetry ring; scrapes and "
+    "Server.stop force a drain regardless",
     lambda v: v > 0,
+)
+define_flag("enable_rpcz", False, "collect rpcz spans", lambda v: True)
+define_flag("rpcz_keep_span_seconds", 1800, "span retention", lambda v: v > 0)
+define_flag("rpcz_max_spans", 10000, "max spans retained in memory", lambda v: v > 0)
+define_flag(
+    "rpcz_samples_per_second",
+    1000,
+    "span sampling speed limit (reference bvar::Collector COLLECTOR_SAMPLING_BASE)",
+    lambda v: v > 0,
+)
+define_flag(
+    "rpcz_database_dir",
+    "",
+    "persist finished spans as JSON lines under this directory "
+    "(reference span.cpp:41 LevelDB persistence); empty = memory only",
+    lambda v: isinstance(v, str),
+)
+define_flag(
+    "rpcz_database_max_bytes",
+    64 * 1024 * 1024,
+    "rotate the span database file past this size",
+    lambda v: v > 0,
+)
+define_flag(
+    "enable_dir_service",
+    False,
+    "serve the /dir filesystem-browse builtin page (an unauthenticated "
+    "file read on the portal: keep off unless the port is trusted)",
+    lambda v: True,
 )
 define_flag(
     "socket_max_unwritten_bytes",

@@ -6,11 +6,9 @@ CPU, held against the JAX package's:
   ``TestChunkedResponsesOnChannels``, ``TestHttpChannelClient``,
   ``TestChunkedRequests``, ``TestProgressiveReader``,
   ``TestRestfulMappings``, ``TestPortal``'s ``/health`` and its cases that
-  use only custom handlers. Two of those read builtin pages the port does
-  not serve yet (ROADMAP A12): ``head_has_no_body``'s second request goes
-  to a custom handler instead of ``/version``, and
-  ``pipelined_responses_in_request_order``'s slow first request to a
-  custom handler that sleeps instead of ``/status``, on both packages;
+  use only custom handlers, ``head_has_no_body`` (its second request reads
+  ``/version``) and ``pipelined_responses_in_request_order`` (its slow first
+  request is ``/status``);
 - ``tests/test_native_plane.py::TestInterop::test_http_handoff_same_port``
   on both (a native-plane server hands an HTTP connection to a Python
   socket and answers ``/health``);
@@ -21,8 +19,10 @@ CPU, held against the JAX package's:
   package's gateway never asks the authenticator);
 - ``/quitquitquit`` on both: refused (403) while its flag is off, and a
   lame duck that fails ``/health`` with 503 when it is on;
-- the builtin pages of the JAX package that wait for A12 answer 501 naming
-  it on the port, one case a path (never a 404 or another page);
+- every builtin page of the JAX package's table (and the ``/vars/``,
+  ``/flags/``, ``/dir/`` and ``/protobufs/`` prefixes) answers on the port
+  with the JAX package's status and content type, one case a path (never a
+  501 or a 404);
 - bytes: one script of raw requests (custom handlers, the gateway, restful
   mappings, 404, HEAD, chunked request and response bodies, pipelining)
   draws byte-identical responses from both packages' servers (neither
@@ -40,6 +40,8 @@ import time
 
 import pytest
 
+import incubator_brpc_tpu as jax_root
+import incubator_brpc_tpu_torch as port_root
 from incubator_brpc_tpu.builtin import pages as jax_pages
 from incubator_brpc_tpu.protocol import http as jax_http
 from incubator_brpc_tpu_torch.builtin import pages as port_pages
@@ -219,28 +221,21 @@ class TestPortal:
         assert (status, body) == (200, b"x0|x1|x2|x3|x4|")
 
     def test_head_has_no_body(self, pkg, portal_server):
-        # the JAX test's second request reads /version (a page of ROADMAP
-        # A12): a custom handler stands in for it on both packages
         raw = raw_exchange(portal_server.port, b"HEAD /health HTTP/1.1\r\n\r\n"
-                           b"GET /custom HTTP/1.1\r\nConnection: close\r\n\r\n")
+                           b"GET /version HTTP/1.1\r\nConnection: close\r\n\r\n")
         first_end = raw.find(b"\r\n\r\n") + 4
         assert b"Content-Length: 2" in raw[:first_end]
         second = raw[first_end:]
-        assert second.startswith(b"HTTP/1.1 200") and second.endswith(b"custom-page")
+        version = (jax_root if pkg.name == "jax" else port_root).__version__
+        assert second.startswith(b"HTTP/1.1 200") and second.endswith(version.encode())
 
-    def test_pipelined_responses_in_request_order(self, pkg):
-        # the JAX test's slow first request is /status (a page of ROADMAP
-        # A12): a handler that sleeps stands in for it on both packages
-        def slow(frame):
-            time.sleep(0.1)
-            return 200, "text/plain", b"server slow page"
-
-        srv = handler_server(pkg, {"/slow": slow})
-        raw = raw_exchange(srv.port, b"GET /slow HTTP/1.1\r\n\r\n"
+    def test_pipelined_responses_in_request_order(self, pkg, portal_server):
+        # /status is slower than /health; order must still hold
+        raw = raw_exchange(portal_server.port, b"GET /status HTTP/1.1\r\n\r\n"
                            b"GET /health HTTP/1.1\r\nConnection: close\r\n\r\n")
         assert raw.count(b"HTTP/1.1 200") == 2
         first_body_at = raw.find(b"\r\n\r\n") + 4
-        assert b"server " in raw[first_body_at:first_body_at + 40]
+        assert b"server " in raw[first_body_at:first_body_at + 40]  # /status first
 
     def test_binary_and_http_share_the_port(self, pkg, portal_server):
         ch = connect(pkg, portal_server.port)
@@ -625,20 +620,29 @@ def test_health_fails_in_lame_duck(pkg):
     assert not srv._lame_duck_thread.is_alive()
 
 
-WAITING = sorted(port_pages.UNPORTED) + ["/vars/socket_in_bytes", "/flags/max_body_size",
-                                          "/dir/tmp", "/protobufs/demo"]
+# every page of the JAX package's table but the two served since A11a, and
+# the prefixed forms; /hotspots samples for 0.05 s
+WAITING = sorted(set(jax_pages._PAGES) - {"/health", "/quitquitquit"}) + [
+    "/vars/socket_in_bytes", "/flags/max_body_size", "/dir/tmp", "/protobufs/demo"]
+QUERY = {"/hotspots": "?seconds=0.05", "/pprof/profile": "?seconds=0.05"}
 
 
 def test_unported_pages_are_the_jax_packages():
-    assert set(port_pages.UNPORTED) | {"/health", "/quitquitquit"} == set(jax_pages._PAGES)
+    # the port's routing table is the JAX package's, page for page
+    assert set(port_pages._PAGES) == set(jax_pages._PAGES)
 
 
 @pytest.mark.parametrize("path", WAITING)
 def test_builtin_page_waiting_for_a12_answers_501(path):
-    srv = server(PKGS["torch"], {"demo": {"echo": lambda c, r: r}})
-    status, headers, body = fetch(PKGS["torch"], srv, path)
-    assert status == 501
-    assert body == f"builtin page {path.split('?')[0]} is not in the port yet (ROADMAP A12)\n".encode()
+    """The page answers on the port as on the JAX package: the same status
+    and content type, never a 501."""
+    answers = []
+    for pkg in (PKGS["jax"], PKGS["torch"]):
+        srv = server(pkg, {"demo": {"echo": lambda c, r: r}})
+        status, headers, body = fetch(pkg, srv, path + QUERY.get(path, ""))
+        answers.append((status, headers.get("content-type")))
+    assert answers[1][0] != 501
+    assert answers[1] == answers[0]
 
 
 # -- the bytes of both packages ------------------------------------------------

@@ -23,7 +23,8 @@ CPU, held against the JAX package's ``native.py`` (``src/build``):
 
 Not here: tests/test_native_containers.py's ``TestFiberMutex``,
 ``TestFiberCond`` and ``TestCountdownEvent`` (``runtime/mutex.py``), which
-wait for ROADMAP A12. Tolerance: none, everything is bytes and integers.
+run on both packages in tests/test_torch_hotspots_logging.py. Tolerance:
+none, everything is bytes and integers.
 """
 
 import ctypes

@@ -28,8 +28,8 @@ tests/test_robustness.py and tests/test_rpc.py:
   ``test_sigterm_flag_installs_handler``, the listener closed to new
   connections, the native plane's lame duck, and
   ``TestLameDuckStreamDrain`` on both. The ``/health`` and
-  ``/quitquitquit`` pages of the JAX tests wait for ROADMAP A12 and its
-  drill tool for A5;
+  ``/quitquitquit`` pages of the JAX tests run in tests/test_torch_http.py,
+  and its drill tool waits for A5;
 - ``TestNativeIdleReap`` on both, over tbus_std (the JAX test speaks
   baidu_std, ROADMAP A11 for the port);
 - chip_smoke.py's phase 3g on the CPU (``policy_phase(device="cpu")``).

@@ -24,8 +24,8 @@ the positional calls of C7 that pass ``max_concurrency`` or
 twelve other protocols still refuse naming A11. And
 ``run_dispatch_session`` ends as the reference's does, ``..., chunk_order,
 trace_id, parent_span_id`` (ROADMAP C8), with the port's ``device`` and
-``group_timeout_s`` keyword-only after them; a non-zero trace id refuses
-naming A12."""
+``group_timeout_s`` keyword-only after them; a non-zero trace id binds
+there and places the session's step and chunk spans in that trace."""
 
 import inspect
 import threading
@@ -618,12 +618,29 @@ def test_run_dispatch_session_keeps_the_reference_order(pkg):
 
 
 def test_run_dispatch_session_refuses_a_trace_naming_a12():
+    """The reference's positional tail binds trace_id and parent_span_id:
+    the session runs, and its step and chunk spans land in that trace."""
+    from incubator_brpc_tpu_torch.builtin.rpcz import span_store
     from incubator_brpc_tpu_torch.rpc.device_method import DeviceMethod
 
     dm = DeviceMethod(lambda x, ns, axis: (x, ns), width=4)
-    ops = [b"\0" * 4, b"\0" * 4]
-    # the reference's positional tail binds trace_id and parent_span_id
-    args = ([0, 1], 0, dm, ops, 1, "s", "m", None, None, 0, None, 0, 0.0, 0, 1, False,
+    ops = [b"\1" * 4, b"\2" * 4]
+    # double_buffer on (one chunk): the overlapped chain, which opens spans
+    args = ([0, 1], 0, dm, ops, 2, "s", "m", None, None, 0, None, 0, 0.0, 0, 1, True,
             "none", None, 7, 9)
-    with pytest.raises(NotImplementedError, match=r"trace_id.*ROADMAP A12\b"):
-        port_mcd.run_dispatch_session(*args, device="cpu")
+    saved = {k: port_flags.flag_registry.get(k) for k in ("enable_rpcz", "rpcz_samples_per_second")}
+    port_flags.set_flag_unchecked("enable_rpcz", True)
+    port_flags.set_flag_unchecked("rpcz_samples_per_second", 10_000_000)
+    span_store.clear()
+    try:
+        row, n, _elapsed = port_mcd.run_dispatch_session(*args, device="cpu")
+        spans = span_store.by_trace(7)
+    finally:
+        for k, v in saved.items():
+            port_flags.set_flag_unchecked(k, v)
+        span_store.clear()
+    assert bytes(row[:4]) == b"\1" * 4 and n == 4
+    steps = [sp for sp in spans if sp.annotations[0][1].startswith("compute step=")]
+    chunks = [sp for sp in spans if sp.annotations[0][1].startswith("chunk=")]
+    assert [sp.parent_span_id for sp in steps] == [9, 9]
+    assert sorted(sp.parent_span_id for sp in chunks) == sorted(sp.span_id for sp in steps)
