@@ -11,8 +11,9 @@ elementwise chain (K4) and the rest of what XLA fuses around its matrix
 products (K4e: the SGD update, the MoE's gate and combine, the loss), in
 the fused and the sliced schedules, the step with heads = 0 and its ring
 mean (K4f), the step on the fabric mesh with all 8 ranks on the card (tp
-psum, pp GPipe, sp ring attention and ring mean, ep all_to_all), and the
-quantized collective sessions (K2).
+psum, pp GPipe, sp ring attention and ring mean, ep all_to_all), the
+quantized collective sessions (K2), the port's tools pressing the device
+echo, and its examples and entry points (``graft_entry.py``).
 
     python3 chip_smoke.py [--out FILE]
     python3 chip_smoke.py --k2-only ROOT [--out FILE]   # phase 11 alone, the port under ROOT
@@ -182,6 +183,22 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    ``/hotspots/contention`` naming a contended ``FiberMutex`` loop. K1a and
    K1c must launch in (a), (b), (c) and (e); the kernels line's K1 entries
    carry the tallies as ``rpcz_launches``;
+3j. drives the device echo with the port's own tools (``tools_phase``,
+   ``incubator_brpc_tpu_torch/tools``), the launch counts tallied per
+   part: (a) ``rpc_press`` 16 threads x 3 s on tbus_std; (b) the same with
+   ``--native-plane`` behind a native-plane server; (c) ``--reactors 4``
+   with ``--trace-sample-rate 0.125``, then ``rpc_view``'s
+   ``fleet_trace_mode`` on the printed trace id, a server span for every
+   sampled call; (d) ``--transport tpu`` over device links; (e)
+   ``rpc_dump`` on, ``rpc_replay`` of the samples and ``print_dumps``; (f)
+   ``parallel_http`` over the portal's pages (200, each with its content
+   type) and ``rpc_view --metrics`` once; (g) ``--lame-duck-drill``
+   against a second device-echo server, drained clean. No call fails; 8
+   seeded echoes through a Channel of the press's options are held
+   bitwise before and after each press (before only in (g)); qps, p50 and
+   p99 from the press's own LatencyRecorder. K1a and K1c must launch in
+   (a)-(e) and (g); the kernels line's K1 entries carry the tallies as
+   ``tools_launches``;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -349,6 +366,15 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    step; (c) the chaos drill (``PLANE_CHAOS``: party 0 killed at step 3 of
    8, checkpoint every 2, one spare) healed bitwise; the kernels line's K2
    entries carry (a)'s and (b)'s launches as ``plane_launches``;
+13. (after 10b) runs the port's ``tensor_echo_tpu`` example on the card
+   (``entry_phase``), its lines checked; ``graft_entry.entry()``'s ``fn``,
+   every launch counted (K1c, and K3's f32 fold and K4 in the forward),
+   its forward within ``ENTRY_TOL`` of the same ``fn`` on the CPU with the
+   plain versions and its echo response bitwise, and timed; then
+   ``graft_entry.dryrun_multichip(8)`` on the card at the JAX dry run's
+   party counts (its fused flag False: one card, ROADMAP A3c); the kernels
+   line's K1, K3 and K4 entries carry ``fn``'s launches as
+   ``entry_launches``;
 12. prints the kernels line (JSON), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -3660,6 +3686,391 @@ def rpcz_phase(torch, kernels, device=None, scale: float = 1.0):
     return out, tally
 
 
+TOOLS_WINDOW = 16  # the endpoint's window (phase 3b's geometry)
+TOOLS_THREADS = 16  # press threads in (a), (b), (d) and (g)
+TOOLS_PRESS_S = 3.0  # seconds each press runs
+TOOLS_REACTORS = (4, 2)  # (c): reactors x connections a reactor
+TOOLS_TRACE_RATE = 0.125  # (c): --trace-sample-rate, one call in 8 traced
+TOOLS_SAMPLE = 8  # seeded echoes held bitwise before and after each press
+TOOLS_DUMP = 64  # (e): calls made with rpc_dump on
+TOOLS_REPLAY = (4, 2)  # (e): rpc_replay threads x times
+# (f): the portal's pages over parallel_http, each with the content type
+# its answer must carry
+TOOLS_PAGES = {"/health": "text/plain", "/version": "text/plain", "/status": "text/plain",
+               "/vars": "text/plain", "/vars.json": "application/json",
+               "/brpc_metrics": "text/plain; version=0.0.4", "/flags": "text/plain",
+               "/connections": "text/plain", "/sockets": "text/plain", "/rpcz": "text/plain"}
+TOOLS_FLAGS = dict(enable_rpcz=True, rpcz_samples_per_second=10_000_000,
+                   enable_quitquitquit=True)
+
+
+def tools_phase(torch, kernels, device=None, scale: float = 1.0):
+    """Phase 3j: the port's own tools (``incubator_brpc_tpu_torch/tools``)
+    against the device echo (``DeviceEndpoint.server_handler()`` as
+    ``tensor.echo``, 256 B, window 16): (a) ``run_press``, 16 threads for
+    3 s on tbus_std; (b) the same with ``native_plane=True`` behind a
+    native-plane server (every call on the native client); (c)
+    ``run_reactor_press`` at ``--trace-sample-rate 0.125`` against that
+    server, then ``fleet_trace_mode`` on the printed trace id, whose tree
+    holds a server span for every sampled call; (d) ``transport="tpu"``
+    over device links; (e) ``rpc_dump`` on for 64 seeded calls, then
+    ``rpc_replay`` of the samples and ``print_dumps``; (f)
+    ``parallel_http`` over the portal's pages (each 200 with its content
+    type) and ``metrics_mode`` once, naming the served method; (g)
+    ``run_lame_duck_drill`` against a second device-echo server (16
+    callers; at a small scale the oracle test's 3), drained with no
+    connection-reset errors. In (a)-(e) and (g) no call fails, and
+    ``TOOLS_SAMPLE`` seeded echoes through a Channel of the press's options
+    are held bitwise before the press (and after it, but in (g), whose
+    server the drill stops). K1 is tallied per part. Returns (figures,
+    {part: K1 launches})."""
+    import contextlib
+    import io
+    import tempfile
+    import types
+
+    from incubator_brpc_tpu_torch.builtin import rpcz
+    from incubator_brpc_tpu_torch.protocol.http import http_call
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, ServerOptions
+    from incubator_brpc_tpu_torch.rpc.dump import reset_global_dumper
+    from incubator_brpc_tpu_torch.tools import parallel_http, rpc_press, rpc_replay, rpc_view
+    from incubator_brpc_tpu_torch.transport import native_plane as np_mod
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+    from incubator_brpc_tpu_torch.utils import flags
+
+    tally = {}
+
+    def counted(part, fn):
+        before = kernels.launch_counts()
+        try:
+            return fn()
+        finally:
+            after = kernels.launch_counts()
+            row = tally.setdefault(part, dict.fromkeys(K1, 0))
+            for k in K1:
+                row[k] += after[k] - before[k]
+
+    touched = ("rpc_dump", "rpc_dump_dir", *TOOLS_FLAGS)
+    saved = {name: flags.get_flag(name) for name in touched}
+    for name, value in TOOLS_FLAGS.items():
+        flags.set_flag_unchecked(name, value)
+    ep = DeviceEndpoint(window_size=TOOLS_WINDOW, max_batch=TOOLS_WINDOW, device=device)
+    handler = ep.server_handler()
+    servers = []
+    dump_dir = tempfile.mkdtemp(prefix="tbtorch-rpc-dump-")
+
+    def start(**kw):
+        srv = Server(ServerOptions(device=device, **kw))
+        srv.add_service("tensor", {"echo": handler})
+        if not srv.start(0):
+            raise AssertionError("phase3j: a Server did not start")
+        servers.append(srv)
+        return srv
+
+    rng = np.random.default_rng(71)
+
+    def payload():
+        return rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+
+    def sample(label, port, **opts):
+        """``TOOLS_SAMPLE`` seeded echoes through a Channel of the press's
+        options, each held bitwise against ``expected()``."""
+        ch = Channel()
+        if not ch.init(f"127.0.0.1:{port}", options=ChannelOptions(timeout_ms=300_000, **opts)):
+            raise AssertionError(f"phase3j {label}: a Channel did not init")
+        for _ in range(TOOLS_SAMPLE):
+            p = payload()
+            c = ch.call_method("tensor", "echo", p)
+            echo_check(label, p, c.error_code, c.response_payload, phase="phase3j")
+
+    def quiet(fn):
+        """``fn()`` with the tools' stdout and stderr kept: (result, out, err)."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            r = fn()
+        return r, out.getvalue(), err.getvalue()
+
+    def pressed(label, part, port, opts, **kw):
+        """The sample, ``run_press`` (held: no failure), the sample again."""
+        sample(f"{label} before", port, **opts)
+        stats, _, err = counted(part, lambda: quiet(lambda: rpc_press.run_press(
+            f"127.0.0.1:{port}", "tensor", "echo", payload(), threads=TOOLS_THREADS,
+            duration=duration, timeout_ms=300_000, **kw)))
+        if stats["fail"] or stats["ok"] == 0:
+            raise AssertionError(f"phase3j {label}: the press failed calls: {stats} {err}")
+        sample(f"{label} after", port, **opts)
+        return stats
+
+    def line(stats):
+        return (f"qps {stats['qps']:.1f}, ok {stats['ok']}, p50 {stats['latency_us_p50']:.0f} us, "
+                f"p99 {stats['latency_us_p99']:.0f} us, max {stats['latency_us_max']:.0f} us")
+
+    duration = max(0.2, TOOLS_PRESS_S * scale)
+    out = {}
+    try:
+        ep.warm(256)
+        py_srv = start()
+        nat_srv = start(native_plane=True)
+
+        # (a) rpc_press on tbus_std ---------------------------------------------------
+        out["a"] = pressed("(a)", "a", py_srv.port, {})
+        log(f"phase3j (a) rpc_press {TOOLS_THREADS} threads x {duration:g} s on tbus_std, device "
+            f"echo 256 B: {line(out['a'])}; launches {[tally['a'][k] for k in K1]}")
+
+        # (b) --native-plane behind a native-plane server ------------------------------
+        before = np_mod.native_client_calls.get_value(), np_mod.native_client_errors.get_value()
+        out["b"] = pressed("(b)", "b", nat_srv.port, {"native_plane": True}, native_plane=True)
+        native_calls = np_mod.native_client_calls.get_value() - before[0]
+        native_errors = np_mod.native_client_errors.get_value() - before[1]
+        if native_errors or native_calls != out["b"]["ok"] + 2 * TOOLS_SAMPLE:
+            raise AssertionError(f"phase3j (b): {native_calls} native client calls ({native_errors} "
+                                 f"failed) for {out['b']['ok']} pressed and {2 * TOOLS_SAMPLE} sampled")
+        out["b"]["native_client_calls"] = native_calls
+        log(f"phase3j (b) rpc_press --native-plane, the same behind a native-plane server, every "
+            f"call on the native client ({native_calls}): {line(out['b'])}; launches "
+            f"{[tally['b'][k] for k in K1]}")
+
+        # (c) --reactors with traced calls, then the fleet trace ----------------------
+        rpcz.span_store.clear()
+        sample("(c) before", nat_srv.port)
+        reactors, conns = TOOLS_REACTORS
+        stats, _, err = counted("c", lambda: quiet(lambda: rpc_press.run_reactor_press(
+            f"127.0.0.1:{nat_srv.port}", "tensor", "echo", payload(), reactors=reactors,
+            conns_per_reactor=conns, duration=duration, timeout_ms=300_000,
+            trace_sample_rate=TOOLS_TRACE_RATE)))
+        if stats["fail"] or stats["ok"] == 0 or stats["cid_misroutes"]:
+            raise AssertionError(f"phase3j (c): the reactor press failed: {stats} {err}")
+        every = round(1 / TOOLS_TRACE_RATE)
+        if f"traced flood: every {every}th call carries trace {stats['trace_id']:x}" not in err:
+            raise AssertionError(f"phase3j (c): the press did not print its trace id: {err}")
+        traced = (stats["ok"] + every - 1) // every
+        deadline = time.monotonic() + 30
+        while len(rpcz.span_store.by_trace(stats["trace_id"])) < traced and time.monotonic() < deadline:
+            time.sleep(0.01)
+        target = f"127.0.0.1:{nat_srv.port}"
+        rc, tree, err = quiet(lambda: rpc_view.fleet_trace_mode([target], f"{stats['trace_id']:x}"))
+        spans = [ln for ln in tree.splitlines() if ln.lstrip().startswith("trace=")]
+        head = f"# trace {stats['trace_id']:x} across 1 nodes — {traced} spans"
+        if rc != 0 or not tree.startswith(head) or len(spans) != traced or not all(
+                " server tensor.echo " in ln for ln in spans):
+            raise AssertionError(f"phase3j (c): the fleet tree lacks sampled calls ({len(spans)} "
+                                 f"of {traced}): {err}\n{tree[:2000]}")
+        sample("(c) after", nat_srv.port)
+        out["c"] = {**stats, "traced_calls": traced, "tree_spans": len(spans)}
+        log(f"phase3j (c) rpc_press --reactors {reactors} --conns-per-reactor {conns} "
+            f"--trace-sample-rate {TOOLS_TRACE_RATE}: {line(stats)}; per-reactor conns "
+            f"{stats['reactor_conns']}; rpc_view --trace {stats['trace_id']:x}: {len(spans)} server "
+            f"spans, one for each of the {traced} sampled calls; launches "
+            f"{[tally['c'][k] for k in K1]}")
+
+        # (d) --transport tpu over device links -----------------------------------------
+        out["d"] = pressed("(d)", "d", py_srv.port, {"transport": "tpu"}, transport="tpu")
+        log(f"phase3j (d) rpc_press --transport tpu, {TOOLS_THREADS} threads over device links: "
+            f"{line(out['d'])}; launches {[tally['d'][k] for k in K1]}")
+
+        # (e) rpc_dump, rpc_replay and print_dumps ---------------------------------------
+        sample("(e) before", py_srv.port)
+        flags.set_flag_unchecked("rpc_dump_dir", dump_dir)
+        flags.set_flag_unchecked("rpc_dump", True)
+        dumped = []
+        ch = Channel()
+        if not ch.init(f"127.0.0.1:{py_srv.port}", options=ChannelOptions(timeout_ms=300_000)):
+            raise AssertionError("phase3j (e): a Channel did not init")
+
+        def dump_calls():
+            for _ in range(max(8, int(TOOLS_DUMP * scale))):
+                p = payload()
+                c = ch.call_method("tensor", "echo", p)
+                echo_check("(e) dumped", p, c.error_code, c.response_payload, phase="phase3j")
+                dumped.append(p)
+
+        try:
+            counted("e", dump_calls)
+        finally:
+            flags.set_flag_unchecked("rpc_dump", False)
+            reset_global_dumper()
+        requests = rpc_replay.load_requests(dump_dir)
+        if not requests or not {p for _m, p, _a in requests} <= set(dumped):
+            raise AssertionError(f"phase3j (e): {len(requests)} samples, not the calls made")
+        threads, times = TOOLS_REPLAY
+        t0 = time.perf_counter()
+        replay = counted("e", lambda: rpc_replay.run_replay(
+            requests, f"127.0.0.1:{py_srv.port}", threads=threads, times=times, timeout_ms=300_000))
+        replay_s = time.perf_counter() - t0
+        if replay != {"ok": len(requests) * times, "fail": 0, "total": len(requests) * times}:
+            raise AssertionError(f"phase3j (e): rpc_replay {replay}")
+        files = sorted(os.path.join(dump_dir, f) for f in os.listdir(dump_dir))
+        args = types.SimpleNamespace(paths=files, service=None, method=None, json=False,
+                                     max_payload=16)
+        rc, printed, _ = quiet(lambda: rpc_view.print_dumps(args))
+        rows = printed.splitlines()
+        if rc != 0 or rows[-1] != f"{len(requests)}/{len(requests)} samples" or not all(
+                "tensor.echo payload=256B" in r for r in rows[:-1]):
+            raise AssertionError(f"phase3j (e): print_dumps:\n{printed[:2000]}")
+        sample("(e) after", py_srv.port)
+        out["e"] = {"dumped": len(dumped), "samples": len(requests), "replayed": replay["ok"],
+                    "replay_calls_per_s": replay["ok"] / replay_s}
+        log(f"phase3j (e) rpc_dump on for {len(dumped)} calls: {len(requests)} samples in "
+            f"{len(files)} file(s); rpc_replay {threads} threads x {times}: {replay['ok']} ok, "
+            f"{replay['ok'] / replay_s:.1f} calls/s; print_dumps printed {len(rows) - 1} rows; "
+            f"launches {[tally['e'][k] for k in K1]}")
+
+        # (f) parallel_http over the portal, metrics_mode once ----------------------------
+        urls = [f"http://127.0.0.1:{py_srv.port}{path}" for path in TOOLS_PAGES]
+        t0 = time.perf_counter()
+        fetched = parallel_http.fetch_all(urls, threads=len(urls), timeout_ms=60_000)
+        fetch_ms = (time.perf_counter() - t0) * 1e3
+        for (url, status, nbytes, _ms, err), path in zip(fetched, TOOLS_PAGES):
+            if status != 200 or nbytes == 0 or err:
+                raise AssertionError(f"phase3j (f) {path}: {status} {nbytes} B {err}")
+            status, headers, _ = http_call("127.0.0.1", py_srv.port, path, timeout=60)
+            if status != 200 or not headers.get("content-type", "").startswith(TOOLS_PAGES[path]):
+                raise AssertionError(f"phase3j (f) {path}: content type {headers.get('content-type')}")
+        rc, metrics, err = quiet(lambda: rpc_view.metrics_mode(
+            f"127.0.0.1:{py_srv.port}", 0, prefix="method_tensor_echo"))
+        if rc != 0 or "method_tensor_echo_latency_count " not in metrics:
+            raise AssertionError(f"phase3j (f): metrics_mode did not name the method: {err}\n{metrics}")
+        out["f"] = {"pages": len(urls), "fetch_ms": fetch_ms,
+                    "metrics_series": len(metrics.splitlines()) - 1}
+        log(f"phase3j (f) parallel_http: {len(urls)} portal pages, each 200 with its content type, "
+            f"in {fetch_ms:.1f} ms; rpc_view --metrics: {out['f']['metrics_series']} series of "
+            f"method_tensor_echo")
+
+        # (g) the lame duck drill against a second device-echo server --------------------
+        duck = start()
+        sample("(g) before", duck.port)
+        # the drill's own classification counts a call the stop cut as a
+        # reset when the server left it unanswered 50 ms past a later
+        # answer: a loaded CPU does that to either package's device echo at
+        # 16 callers, so a small scale presses with the oracle test's 3
+        drill_threads = max(3, round(TOOLS_THREADS * scale))
+        counts, _, err = counted("g", lambda: quiet(lambda: rpc_press.run_lame_duck_drill(
+            f"127.0.0.1:{duck.port}", "tensor", "echo", payload(), threads=drill_threads,
+            duration=max(1.0, duration), timeout_ms=300_000)))
+        if not counts["drained_clean"] or counts["reset"] or counts["other"] or counts["ok"] == 0:
+            raise AssertionError(f"phase3j (g): the drain was not clean: {counts} {err}")
+        deadline = time.monotonic() + 60  # the drain ends within its grace
+        while not duck._stopping and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if not duck._stopping:
+            raise AssertionError("phase3j (g): the drill did not stop its target")
+        out["g"] = counts
+        log(f"phase3j (g) rpc_press --lame-duck-drill, {drill_threads} threads: ok "
+            f"{counts['ok']}, logoff {counts['logoff']}, reset {counts['reset']}, other "
+            f"{counts['other']}, drained clean; launches {[tally['g'][k] for k in K1]}")
+    finally:
+        for s in servers:
+            s.stop()
+            s.join(timeout=60)
+        for name, value in saved.items():
+            flags.set_flag_unchecked(name, value)
+        rpcz.span_store.clear()
+        for f in os.listdir(dump_dir):
+            os.remove(os.path.join(dump_dir, f))
+        os.rmdir(dump_dir)
+        if not ep.close(timeout=120):
+            raise AssertionError("phase3j: the endpoint did not settle its calls")
+    return out, tally
+
+
+ENTRY_TOL = 1e-5  # tests/test_torch_entry.py: the f32 forward's absolute tolerance
+DRYRUN_RANKS = 8
+
+
+def entry_phase(torch, kernels, device="cuda:0", parties=None):
+    """Phase 13: (a) the port's ``tensor_echo_tpu`` example on ``device``,
+    its three lines checked (the RPC echo and the 8 pipelined
+    ``call_words`` each bitwise in the example itself), K1 counted; (b)
+    ``graft_entry.entry()``'s ``fn`` on ``device``, every launch counted,
+    its FabricNet forward within ``ENTRY_TOL`` of the same ``fn`` on the
+    CPU (the plain versions) from the same parameters and batch, and its
+    echo response bitwise; ``fn`` timed; (c) ``dryrun_multichip(8)`` on
+    ``device`` with ``parties`` (its keyword party counts; the JAX dry
+    run's when None), its line printed whole.
+    Returns (figures, {part: launches of every kernel that ran})."""
+    import contextlib
+    import io
+
+    from incubator_brpc_tpu_torch import graft_entry
+    from incubator_brpc_tpu_torch.examples import tensor_echo_tpu
+
+    launched = {}
+
+    def counted(part, fn):
+        before = kernels.launch_counts()
+        try:
+            return fn()
+        finally:
+            after = kernels.launch_counts()
+            launched[part] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    def printed(fn):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            r = fn()
+        return r, buf.getvalue()
+
+    out = {}
+    # (a) the example ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    _, text = counted("a", lambda: printed(lambda: tensor_echo_tpu.main(["--device", str(device)])))
+    want = [f"device: {torch.device(device)} window: 8",
+            "echoed via HBM: b'over the PCIe and back'",
+            "pipelined 8 calls through the credit window, all ok"]
+    if text.splitlines() != want:
+        raise AssertionError(f"phase13 (a): tensor_echo_tpu printed {text!r}")
+    out["a"] = {"s": time.perf_counter() - t0}
+    log(f"phase13 (a) examples.tensor_echo_tpu on {device}: its lines as the JAX example's, "
+        f"{out['a']['s']:.2f} s; launches {launched['a']}")
+
+    # (b) the entry's fn on the device, against the same fn on the CPU -------------------
+    fn, args = graft_entry.entry(device=device)
+    on_card = torch.device(device).type == "cuda"
+    fwd, resp = counted("b", lambda: fn(*args))
+    if on_card:
+        torch.cuda.synchronize()
+    fn_cpu, _ = graft_entry.entry(device="cpu")
+    params, x, request = args
+    want_fwd, want_resp = fn_cpu({k: v.cpu() for k, v in params.items()}, x.cpu(), request.cpu())
+    err = float((fwd.cpu() - want_fwd).abs().max())
+    if not torch.isfinite(fwd).all() or fwd.shape != want_fwd.shape or err > ENTRY_TOL:
+        raise AssertionError(f"phase13 (b): the forward differs from the CPU's by {err}")
+    if not torch.equal(resp.cpu().view(torch.int32), want_resp.view(torch.int32)):
+        raise AssertionError("phase13 (b): the echo response differs from the CPU's")
+    if on_card:
+        ms = time_ms(torch, lambda: fn(*args), 20)
+    else:  # a CPU rehearsal: the host's clock
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn(*args)
+        ms = (time.perf_counter() - t0) / 20 * 1e3
+    out["b"] = {"max_abs_err": err, "ms": ms, "forward_shape": list(fwd.shape),
+                "response_words": int(resp.numel())}
+    log(f"phase13 (b) graft_entry.entry() fn on {device}: forward {list(fwd.shape)} within {err:.3g} "
+        f"of the CPU's plain versions (tol {ENTRY_TOL}), echo response ({resp.numel()} words) "
+        f"bitwise; {ms:.3f} ms a call; launches {launched['b']}")
+
+    # (c) the dry run ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    r, text = counted("c", lambda: printed(lambda: graft_entry.dryrun_multichip(
+        DRYRUN_RANKS, device=device, **(parties or {}))))
+    lines = text.splitlines()
+    if not lines or not lines[-1].startswith("dryrun_multichip ok: ") or r["fused_collective"]:
+        raise AssertionError(f"phase13 (c): the dry run printed {text[-2000:]!r}")
+    out["c"] = {"s": time.perf_counter() - t0, "losses": r["losses"], "parties": r["parties"],
+                "device_link": r["device_link"], "fused_collective": r["fused_collective"]}
+    mc = r["multi_controller_link"]
+    log(f"phase13 (c) dryrun_multichip({DRYRUN_RANKS}) on {device}: {out['c']['s']:.1f} s; losses "
+        f"{r['losses']}, device link {r['device_link']}, partition peers "
+        f"{r['nparty_fabric_peers']}, fused_collective {r['fused_collective']} (one card: the "
+        f"host fan-out, ROADMAP A3c); parties {r['parties']}; the session "
+        f"{mc['collective_8proc']['per_step_ms']:.2f} ms a step, int8 wire ratio "
+        f"{mc['quantized_8proc']['wire_ratio']}, chaos healed {mc['chaos_resume']['byte_identical']}; "
+        f"launches {launched['c']}")
+    log(lines[-1])
+    return out, launched
+
+
 def k3_tolerances(torch):
     """|kernel - plain| <= tol * max(1, max |plain|). f32 results: 2e-5 (the
     same f32 arithmetic, sums in another order); results in bf16: 2^-7, one
@@ -6115,6 +6526,18 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase3i: {rpcz_fig['phase_s']:.1f} s; K1 launches by part {rpcz_k1}")
 
+    # -- phase 3j: the port's tools against the device echo, K1 counted -------
+    log(f"phase3j on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    tools_fig, tools_k1 = tools_phase(torch, kernels)
+    tools_fig["phase_s"] = time.perf_counter() - t0
+    for part in ("a", "b", "c", "d", "e", "g"):
+        missing = [name for name in ("frame_rows", "echo_step_rows") if tools_k1[part][name] == 0]
+        if missing:
+            raise AssertionError(f"phase3j ({part}): kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase3j: {tools_fig['phase_s']:.1f} s; K1 launches by part {tools_k1}")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -6135,6 +6558,20 @@ def main() -> int:
 
     # -- phases 9-11: K2 and the quantized collective sessions ----------------
     k2 = run_k2_phases(torch, kernels, dev)
+
+    # -- phase 13: the tensor_echo_tpu example, the entry and the dry run -----
+    log(f"phase13 on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    entry_fig, entry_k = entry_phase(torch, kernels, device=str(dev))
+    entry_fig["phase_s"] = time.perf_counter() - t0
+    # the example frames and echoes; fn runs the echo step (its request was
+    # framed when entry() built it)
+    for part, names in (("a", ("frame_rows", "echo_step_rows")), ("b", ("echo_step_rows",))):
+        missing = [name for name in names if not entry_k[part].get(name)]
+        if missing:
+            raise AssertionError(f"phase13 ({part}): kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase13: {entry_fig['phase_s']:.1f} s")
 
     # -- phase 12: the kernels line, then the result line ----------------------
     line = []
@@ -6158,6 +6595,8 @@ def main() -> int:
             "policy_launches": {part: row[name] for part, row in sorted(policy_k1.items())},
             "protocol_launches": {part: row[name] for part, row in sorted(protocol_k1.items())},
             "rpcz_launches": {part: row[name] for part, row in sorted(rpcz_k1.items())},
+            "tools_launches": {part: row[name] for part, row in sorted(tools_k1.items())},
+            "entry_launches": entry_k["b"].get(name, 0),
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "host_ms": t["host_ms"], "copy_ms": t["copy_ms"], "shape": [rows, words],
@@ -6167,14 +6606,16 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": K3_SOURCE.get(name, "incubator_brpc_tpu_torch/csrc/attention.cu"),
             "replaces": REPLACES[name], "launches": k3["launches"][name],
+            "entry_launches": entry_k["b"].get(name, 0),
             "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(name),
         })
         if name == "attn_bwd_delta":  # registers above: the general form's
             line[-1]["vector_registers"] = regs(DELTA_VEC)
-    for name in K4:  # launches: the bf16 main path's
+    for name in K4:  # launches: the bf16 main path's; entry_launches: phase 13's f32 forward
         line.append({
             "name": name, "route": "cuda", "source": "incubator_brpc_tpu_torch/csrc/elementwise.cu",
             "replaces": REPLACES[name], "launches": k3["launches"][name],
+            "entry_launches": entry_k["b"].get(name, 0),
             "max_abs_err": k3["max_err"][name], **k3["line"][name], **regs(name),
         })
     for name in K4E:  # launches: the bf16 main path's
@@ -6212,6 +6653,8 @@ def main() -> int:
                        "policies": policies, "policy_launches": policy_k1,
                        "protocols": protocols, "protocol_launches": protocol_k1,
                        "rpcz": rpcz_fig, "rpcz_launches": rpcz_k1,
+                       "tools": tools_fig, "tools_launches": tools_k1,
+                       "entry": entry_fig, "entry_launches": entry_k,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],
                        "fabricnet_sliced": k3["fabricnet_sliced"],

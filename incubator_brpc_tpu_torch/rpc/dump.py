@@ -13,8 +13,9 @@ admitted request before running the handler (the reference hooks the same
 spot in ProcessRpcRequest).
 
 The port's copy of the JAX package's ``rpc/dump.py``: a dump file written
-by either package reads back through either ``load_dump_file``. The
-replay tool (``tools/rpc_replay.py``) waits for ROADMAP A5.
+by either package reads back through either ``load_dump_file``, and is
+replayed by ``python -m incubator_brpc_tpu_torch.tools.rpc_replay`` and
+printed by ``python -m incubator_brpc_tpu_torch.tools.rpc_view``.
 """
 
 from __future__ import annotations

@@ -475,6 +475,9 @@ class Server:
         self._started = False
         self._lock = threading.Lock()
         self._nprocessing = 0  # server-level in-flight count
+        # admitted calls whose admission slot is released but whose response
+        # is still being written (the slot goes first, see _release's caller)
+        self._nwriting = 0
         self._quiescent = threading.Condition(self._lock)
         self.nrequest = Adder(name=None)
         self.nerror = Adder(name=None)
@@ -912,9 +915,7 @@ class Server:
 
         deadline = time.monotonic() + grace_s
         with self._quiescent:
-            self._quiescent.wait_for(
-                lambda: self._nprocessing == 0, timeout=max(0.0, deadline - time.monotonic())
-            )
+            self._quiescent.wait_for(self._quiet, timeout=max(0.0, deadline - time.monotonic()))
         # open collective sessions pin devices across the fabric, and open
         # streaming RPCs are in-flight work with no _nprocessing footprint:
         # both get the rest of the grace window before the hard stop
@@ -930,7 +931,7 @@ class Server:
                     st.rst(ErrorCode.ELOGOFF, "server drained (lame duck)")
                 except Exception:
                     logger.exception("lame-duck stream RST raised")
-        drained = self._nprocessing == 0 and active_sessions(owner=self) == 0 and not stragglers
+        drained = self._quiet() and active_sessions(owner=self) == 0 and not stragglers
         if not drained:
             logger.warning(
                 "lame-duck grace %.1fs expired with work still in flight (%d rpcs, %d sessions); "
@@ -944,6 +945,11 @@ class Server:
             time.sleep(min(0.25, max(0.0, deadline - time.monotonic())))
         self.stop()
         self.join(timeout=max(0.5, deadline - time.monotonic()))
+
+    def _quiet(self) -> bool:
+        """No admitted call in its handler and none still writing its
+        response (called under ``_lock``, or read racily for a log)."""
+        return self._nprocessing == 0 and self._nwriting == 0
 
     def _open_streams(self):
         """Live streaming RPCs bound to this server's connections — the
@@ -997,7 +1003,7 @@ class Server:
         """Wait until every in-flight request finished; a stopped server's
         factory-made user data is destroyed once its handlers drained."""
         with self._quiescent:
-            ok = self._quiescent.wait_for(lambda: self._nprocessing == 0, timeout=timeout)
+            ok = self._quiescent.wait_for(self._quiet, timeout=timeout)
         # only when the server is actually stopping AND the drain finished:
         # a timed-out join leaves live handlers that still hold the objects
         if ok and self._stopping:
@@ -1308,8 +1314,16 @@ class Server:
         # call still counted, or a serial caller sees ELIMIT whenever an
         # adaptive limit has come down to 1
         cntl._mark_end()
+        with self._lock:
+            self._nwriting += 1  # the drain and join wait for the write
         self._release(status, cntl)
-        self._send_response(sock, cntl, response)
+        try:
+            self._send_response(sock, cntl, response)
+        finally:
+            with self._lock:
+                self._nwriting -= 1
+                if self._nprocessing == 0 and self._nwriting == 0:
+                    self._quiescent.notify_all()
         if cntl.failed():
             self.nerror << 1
         if cntl._span is not None:

@@ -4,7 +4,10 @@
 host runtime's library, ``native.py``, loads at import, built once by g++
 into the port's ``_build/``); and a process of the port alone that served
 a native-plane echo has mapped the port's host library and never the JAX
-package's ``src/build/libtbutil.so``."""
+package's ``src/build/libtbutil.so``. The scans cover the port's tools
+(``tools/``), its examples (``examples/``) and its entry points
+(``graft_entry.py``), none of which reaches the repository root's
+``tools/`` or ``examples/`` through ``sys.path``."""
 
 import json
 import re
@@ -93,3 +96,29 @@ def test_scan_catches_what_it_should():
     for line in ("import incubator_brpc_tpu_torch", "from incubator_brpc_tpu_torch.ops import x",
                  "# import jax is not used"):
         assert not _FORBIDDEN.search(line), line
+
+
+A5 = {
+    "incubator_brpc_tpu_torch.graft_entry",
+    *(f"incubator_brpc_tpu_torch.tools.{m}"
+      for m in ("rpc_press", "rpc_view", "rpc_replay", "parallel_http")),
+    *(f"incubator_brpc_tpu_torch.examples.{m}"
+      for m in ("asynchronous_echo", "cancel_echo", "multi_threaded_echo", "cascade_echo", "echo",
+                "link_performance", "naming_failover", "selective_echo", "dynamic_partition_echo",
+                "streaming_echo", "backup_request", "overload_and_breaker",
+                "session_data_and_thread_local", "http_upload", "tensor_echo_tpu",
+                "parallel_echo", "partition_echo")),
+}
+
+
+def test_the_tools_examples_and_entry_are_inside_the_scans():
+    """Every module of the three places is one the import probe imports
+    and the source scan reads, and none puts the repository root (the JAX
+    package's tools and examples) on ``sys.path``."""
+    assert A5 <= set(_port_modules())
+    for module in sorted(A5):
+        path = ROOT / (module.replace(".", "/") + ".py")
+        text = path.read_text()
+        assert not _FORBIDDEN.search(text), module
+        assert "sys.path" not in text, module
+        assert not re.search(r"^\s*(?:import|from)\s+(?:tools|examples)\b", text, re.M), module

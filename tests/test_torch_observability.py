@@ -4,7 +4,8 @@ span hooks of the channel, the server, the native plane's telemetry drain
 and the session plane) on the CPU, held against the JAX package's.
 
 ``tests/test_observability.py`` runs here on both packages (``pkg``), but
-for ``TestRpcViewMetrics``, whose tool waits for ROADMAP A5: the exposition
+for ``TestRpcViewMetrics``, which runs on each package's ``rpc_view`` (the
+port's ``tools/rpc_view.py``) in tests/test_torch_tools.py: the exposition
 rendering (counters, gauges, summaries, escaping, the numeric flag mirror),
 the live ``/brpc_metrics`` scrape (typed, by prefix, under load), the
 device link's bvars on a ``transport="tpu"`` channel, the collective

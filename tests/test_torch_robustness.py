@@ -25,11 +25,13 @@ tests/test_robustness.py and tests/test_rpc.py:
   by order (every in-flight call is counted by the server before the drain
   begins: all answer code 0, then a new call gets ELOGOFF, then the drain
   thread ends; the JAX test's sleeps are not copied),
-  ``test_sigterm_flag_installs_handler``, the listener closed to new
+  ``test_sigterm_flag_installs_handler``, a drain that waits for a
+  response still being written (ROADMAP C10), the listener closed to new
   connections, the native plane's lame duck, and
   ``TestLameDuckStreamDrain`` on both. The ``/health`` and
   ``/quitquitquit`` pages of the JAX tests run in tests/test_torch_http.py,
-  and its drill tool waits for A5;
+  and its drill tool (``rpc_press --lame-duck-drill``, the port's
+  ``tools/rpc_press.py``) in tests/test_torch_tools.py;
 - ``TestNativeIdleReap`` on both, over tbus_std (the JAX test speaks
   baidu_std, ROADMAP A11 for the port);
 - chip_smoke.py's phase 3g on the CPU (``policy_phase(device="cpu")``).
@@ -784,6 +786,42 @@ class TestLameDuck:
         assert not drain.is_alive()
         assert [r.error_code for r in results] == [0, 0]
         assert srv._stopping
+
+    def test_drain_waits_for_a_response_being_written(self, pkg):
+        """A call whose handler returned but whose response is still being
+        written is in-flight work: the drain does not stop the server under
+        it, and the caller gets its answer. (The port releases the
+        admission slot before the write, the JAX package after it; the
+        drain waits for the write in both.)"""
+        gate = Gate()
+        srv = server(pkg, {"S": {"echo": lambda c, r: r}})
+        send = srv._send_response
+        writing = threading.Event()
+
+        def held_send(sock, cntl, response):
+            if response == b"held":
+                writing.set()
+                gate.wait()
+            return send(sock, cntl, response)
+
+        srv._send_response = held_send
+        ch = connect(pkg, srv.port, timeout_ms=30000)
+        result = []
+        t = threading.Thread(target=lambda: result.append(ch.call_method("S", "echo", b"held")))
+        t.start()
+        try:
+            assert writing.wait(20)
+            drain = srv.enter_lame_duck(grace_s=30)
+            assert drain is not None
+            # the drain lingers at most 0.25 s once it sees no work; it must
+            # not see none while the write is held
+            assert not wait_until(lambda: srv._stopping, timeout=1.0)
+        finally:
+            gate.set()
+            t.join(30)
+        drain.join(timeout=30)
+        assert not drain.is_alive() and srv._stopping
+        assert result[0].error_code == 0 and result[0].response_payload == b"held"
 
     def test_sigterm_flag_installs_handler(self, pkg, flags):
         flags("graceful_quit_on_sigterm", True)

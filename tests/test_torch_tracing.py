@@ -12,9 +12,11 @@ session plane's session, step and chunk spans.
   elected ones, the client decides the bit once), the trace index of the
   span store, the fleet assembly across two processes (the second node a
   subprocess of the same package; both nodes' spans read from
-  ``/rpcz?trace_id=&json=1`` and ``span_from_dict``, where the JAX test
-  uses ``tools/rpc_view``, ROADMAP A5), and ``/hotspots``' 503 with
-  Retry-After and its clamped window;
+  ``/rpcz?trace_id=&json=1`` and ``span_from_dict``, and again through each
+  package's own ``rpc_view`` — ``scrape_rpcz`` and ``main(["--trace", ...,
+  "--targets", ...])``, the port's ``tools/rpc_view.py`` beside the JAX
+  package's), and ``/hotspots``' 503 with Retry-After and its clamped
+  window;
 - the traced frames of each package's Channel on tbus_std and baidu_std
   (Python route) and of the native client are byte-identical to the JAX
   package's packers given the same ids (the correlation id read back from
@@ -30,7 +32,8 @@ session plane's session, step and chunk spans.
 - the session plane: ``tests/test_mc_dispatch.py``'s
   ``test_party_spans_carry_proposer_trace`` and
   ``test_span_carries_method_identity``, ``tests/test_overlap.py``'s
-  ``TestOverlapRpczProof`` (but the rpc_view case, ROADMAP A5), and a
+  ``TestOverlapRpczProof`` (its rpc_view case runs in
+  ``tests/test_torch_tools.py`` on the port's ``rpc_view``), and a
   session proposed inside a traced caller's handler, whose parties' spans
   form one tree under the caller's server span.
 
@@ -53,6 +56,8 @@ import pytest
 
 import incubator_brpc_tpu.protocol.baidu_std as jax_baidu
 import incubator_brpc_tpu.protocol.tbus_std as jax_tbus
+import incubator_brpc_tpu_torch.tools.rpc_view as port_view
+import tools.rpc_view as jax_view
 from tests.test_torch_observability import (  # noqa: F401  (fixtures)
     _OPEN,
     PKGS,
@@ -67,6 +72,7 @@ from tests.test_torch_observability import (  # noqa: F401  (fixtures)
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_VIEW = {"jax": jax_view, "torch": port_view}
 
 TRACE_META = dict(log_id=7, trace_id=0x1F00DBEEF, span_id=0xABCDEF, parent_span_id=0x77, sampled=1)
 
@@ -471,6 +477,60 @@ def test_one_trace_across_two_processes(pkg, tmp_path, tuned, clean_spans):
         lines = pkg.rpcz.render_trace_tree(spans_a + spans_b)
         assert lines[0].startswith(f"trace={trace_id:x}") and len(lines) == len(spans_a + spans_b)
         assert any(line.startswith("      ") and "server svc.echo" in line for line in lines)
+    finally:
+        proc_b.stdin.close()
+        proc_b.wait(timeout=30)
+
+
+def test_one_trace_across_two_processes_through_rpc_view(pkg, tmp_path, tuned, clean_spans,
+                                                         capsys):
+    """The rpc_view half of the JAX test: each package's own tool
+    (``tools/rpc_view.py``, the port's ``tools/rpc_view.py``) polls both
+    nodes with ``scrape_rpcz`` and assembles the fleet tree with
+    ``main(["--trace", ..., "--targets", ...])``."""
+    view = _VIEW[pkg.name]
+    tuned("enable_rpcz", True)
+    proc_b, port_b = _start_node_b(pkg, tmp_path)
+    try:
+        down = pkg.rpc.Channel()
+        assert down.init(f"127.0.0.1:{port_b}",
+                         options=pkg.rpc.ChannelOptions(native_plane=True, protocol="baidu_std"))
+
+        def relay(cntl, request):
+            c = down.call_method("svc", "echo", request)
+            assert c.ok(), c.error_text
+            return c.response_payload
+
+        srv_a = server(pkg, {"front": {"relay": relay}}, usercode_inline=True)
+        cntl = pkg.rpc.Controller(timeout_ms=10000)
+        c = channel(pkg, srv_a).call_method("front", "relay", b"fleet", cntl=cntl)
+        assert c.ok(), c.error_text
+        trace_id = cntl.trace_id
+        targets = [f"127.0.0.1:{srv_a.port}", f"127.0.0.1:{port_b}"]
+        spans_a = spans_b = []
+        deadline = time.monotonic() + 15
+        while time.monotonic() < deadline:
+            try:
+                spans_a = view.scrape_rpcz(targets[0], f"{trace_id:x}")
+                spans_b = view.scrape_rpcz(targets[1], f"{trace_id:x}")
+            except OSError:
+                spans_a = spans_b = []
+            if spans_b and len(spans_a) >= 3:
+                break
+            time.sleep(0.1)
+        assert spans_b, "node B never surfaced the traced hop"
+        assert {sp.trace_id for sp in spans_a + spans_b} == {trace_id}
+        assert any(spans_b[0].parent_span_id == sp.span_id for sp in spans_a)
+        capsys.readouterr()
+        assert view.main(["--trace", f"{trace_id:x}", "--targets", ",".join(targets)]) == 0
+        out = capsys.readouterr().out.splitlines()
+        n = len(spans_a) + len(spans_b)
+        assert out[0] == f"# trace {trace_id:x} across 2 nodes — {n} spans"
+        assert out[1:3] == [f"#   {targets[0]}: {len(spans_a)} spans",
+                            f"#   {targets[1]}: {len(spans_b)} spans"]
+        tree = [line for line in out if line.lstrip().startswith("trace=")]
+        assert len(tree) == n and tree[0].startswith(f"trace={trace_id:x}")
+        assert any(line.startswith("      ") and "server svc.echo" in line for line in tree)
     finally:
         proc_b.stdin.close()
         proc_b.wait(timeout=30)
