@@ -13,7 +13,8 @@ the fused and the sliced schedules, the step with heads = 0 and its ring
 mean (K4f), the step on the fabric mesh with all 8 ranks on the card (tp
 psum, pp GPipe, sp ring attention and ring mean, ep all_to_all), the
 quantized collective sessions (K2), the port's tools pressing the device
-echo, and its examples and entry points (``graft_entry.py``).
+echo, the device echo over TLS and unix-domain sockets, and its examples
+and entry points (``graft_entry.py``).
 
     python3 chip_smoke.py [--out FILE]
     python3 chip_smoke.py --k2-only ROOT [--out FILE]   # phase 11 alone, the port under ROOT
@@ -199,6 +200,20 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    p99 from the press's own LatencyRecorder. K1a and K1c must launch in
    (a)-(e) and (g); the kernels line's K1 entries carry the tallies as
    ``tools_launches``;
+3k. drives the device echo over the routes of ROADMAP A10 (``tls_phase``)
+   at phase 3b's geometry (256 B, window 16), beside plain TCP in the same
+   run, every answer bitwise ``expected()``: a TLS server (the certificate
+   in tests/data/) over tbus_std, baidu_std and HTTP; a ``native_plane=
+   True`` server on a ``unix://`` path, which must fall back to the Python
+   acceptor (its socket file gone at stop); and a device link whose
+   handshake rides a TLS bootstrap channel. Each route's first call (the
+   connect, TLS or link handshake) is timed, then 20 sequential calls a
+   route in two turns (in order, then reversed); then calls on fresh
+   connections (``connection_type="short"``), TLS and TCP in turns, whose
+   difference is the handshake's cost a connection. Nothing falls back to
+   a plain route: a TLS failure fails the phase. K1a and K1c must launch on
+   every route; the kernels line's K1 entries carry the tallies as
+   ``tls_launches``;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -3939,10 +3954,10 @@ def tools_phase(torch, kernels, device=None, scale: float = 1.0):
         # (g) the lame duck drill against a second device-echo server --------------------
         duck = start()
         sample("(g) before", duck.port)
-        # the drill's own classification counts a call the stop cut as a
-        # reset when the server left it unanswered 50 ms past a later
-        # answer: a loaded CPU does that to either package's device echo at
-        # 16 callers, so a small scale presses with the oracle test's 3
+        # the drill counts as a reset any call issued before the trigger
+        # that the stop cut, and one issued after it that the server left
+        # unanswered for longer than its slowest refusal (the band, at
+        # least 50 ms); a small scale presses with the oracle test's 3
         drill_threads = max(3, round(TOOLS_THREADS * scale))
         counts, _, err = counted("g", lambda: quiet(lambda: rpc_press.run_lame_duck_drill(
             f"127.0.0.1:{duck.port}", "tensor", "echo", payload(), threads=drill_threads,
@@ -3957,7 +3972,9 @@ def tools_phase(torch, kernels, device=None, scale: float = 1.0):
         out["g"] = counts
         log(f"phase3j (g) rpc_press --lame-duck-drill, {drill_threads} threads: ok "
             f"{counts['ok']}, logoff {counts['logoff']}, reset {counts['reset']}, other "
-            f"{counts['other']}, drained clean; launches {[tally['g'][k] for k in K1]}")
+            f"{counts['other']}, drained clean (band {counts['guard_ms']:.1f} ms, "
+            f"{counts['boundary']} cut at the close, the oldest {counts['boundary_oldest_ms']:.1f} "
+            f"ms before the last answer); launches {[tally['g'][k] for k in K1]}")
     finally:
         for s in servers:
             s.stop()
@@ -3970,6 +3987,167 @@ def tools_phase(torch, kernels, device=None, scale: float = 1.0):
         os.rmdir(dump_dir)
         if not ep.close(timeout=120):
             raise AssertionError("phase3j: the endpoint did not settle its calls")
+    return out, tally
+
+
+# -- phase 3k: TLS and unix-domain sockets around the device echo ---------------
+
+TLS_WINDOW = 16  # the endpoint's window (phase 3b's geometry)
+TLS_SEQ = 20  # sequential calls a route and turn
+TLS_TURNS = 2  # every route in order, then in reverse order
+TLS_SHORT = 20  # calls on fresh connections (connection_type "short"), TLS and TCP a turn
+TLS_CERT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+# route -> (server, ChannelOptions beyond the timeout); the TLS routes and the
+# TLS-bootstrapped link carry the client context, "unix" dials the unix path
+TLS_ROUTES = {
+    "tcp_tbus_std": ("plain", {}),
+    "tls_tbus_std": ("tls", {"tls": True}),
+    "tcp_baidu_std": ("plain", {"protocol": "baidu_std"}),
+    "tls_baidu_std": ("tls", {"tls": True, "protocol": "baidu_std"}),
+    "tcp_http": ("plain", {"protocol": "http"}),
+    "tls_http": ("tls", {"tls": True, "protocol": "http"}),
+    "unix": ("unix", {}),
+    "tcp_link": ("plain", {"transport": "tpu"}),
+    "tls_link": ("tls", {"tls": True, "transport": "tpu"}),
+}
+
+
+def tls_phase(torch, kernels, device=None, scale: float = 1.0):
+    """Phase 3k: the device echo (``DeviceEndpoint.server_handler()`` as
+    ``tensor.echo``, 256 B, window 16) over the routes of ROADMAP A10,
+    beside plain TCP in the same run: a TLS server (``ServerOptions(
+    ssl_context=)``, the certificate in tests/data/) called over tbus_std,
+    baidu_std and HTTP; a ``native_plane=True`` server on a ``unix://``
+    path, which must fall back to the Python acceptor; and a device link
+    (``transport="tpu"``) whose handshake rides a TLS bootstrap channel.
+    Each route's first call (its connect, TLS handshake or link handshake)
+    is timed, then ``TLS_SEQ`` sequential calls a route in ``TLS_TURNS``
+    turns (in order, then reversed), every answer held bitwise against
+    ``expected()``; then calls on fresh connections (``connection_type=
+    "short"``), TLS and TCP in turns, whose difference is the handshake's
+    cost. K1 is tallied per route. Returns (figures, {route: K1 launches})."""
+    import ssl
+    import tempfile
+
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, ServerOptions
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+
+    cert = os.path.join(TLS_CERT_DIR, "test_cert.pem")
+    key = os.path.join(TLS_CERT_DIR, "test_key.pem")
+    server_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    server_ctx.load_cert_chain(cert, key)
+    client_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    client_ctx.load_verify_locations(cert)
+    client_ctx.check_hostname = False  # the certificate is CN=localhost, the target the IP
+    client_ctx.verify_mode = ssl.CERT_REQUIRED
+
+    tally = {}
+
+    def counted(part, fn):
+        before = kernels.launch_counts()
+        try:
+            return fn()
+        finally:
+            after = kernels.launch_counts()
+            row = tally.setdefault(part, dict.fromkeys(K1, 0))
+            for k in K1:
+                row[k] += after[k] - before[k]
+
+    ep = DeviceEndpoint(window_size=TLS_WINDOW, max_batch=TLS_WINDOW, device=device)
+    handler = ep.server_handler()
+    servers = []
+    unix_dir = tempfile.mkdtemp(prefix="tbtorch-unix-")
+    unix_target = f"unix://{unix_dir}/echo.sock"
+
+    def start(listen=0, **kw):
+        srv = Server(ServerOptions(device=device, **kw))
+        srv.add_service("tensor", {"echo": handler})
+        if not srv.start(listen):
+            raise AssertionError("phase3k: a Server did not start")
+        servers.append(srv)
+        return srv
+
+    rng = np.random.default_rng(83)
+    n_seq = max(2, round(TLS_SEQ * scale))
+    n_short = max(2, round(TLS_SHORT * scale))
+
+    def payload():
+        return rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+
+    def channel(route, target, **opts):
+        if opts.pop("tls", False):
+            opts["ssl_context"] = client_ctx
+        ch = Channel()
+        if not ch.init(target, options=ChannelOptions(timeout_ms=300_000, **opts)):
+            raise AssertionError(f"phase3k {route}: a Channel did not init")
+        return ch
+
+    def caller(route, ch):
+        def one():
+            p = payload()
+            c = ch.call_method("tensor", "echo", p)
+            echo_check(route, p, c.error_code, c.response_payload, phase="phase3k")
+        return one
+
+    out = {"first_ms": {}, "seq_us": {r: [] for r in TLS_ROUTES},
+           "short_us": {"tcp": [], "tls": []}}
+    try:
+        by_name = {"plain": start(), "tls": start(ssl_context=server_ctx),
+                   "unix": start(unix_target, native_plane=True)}
+        if by_name["unix"]._native_plane is not None or by_name["unix"]._acceptor is None:
+            raise AssertionError("phase3k unix: the native-plane server did not fall back "
+                                 "to the Python acceptor")
+        targets = {"plain": f"127.0.0.1:{by_name['plain'].port}",
+                   "tls": f"127.0.0.1:{by_name['tls'].port}", "unix": unix_target}
+        calls = {}
+        for route, (srv, opts) in TLS_ROUTES.items():
+            ch = channel(route, targets[srv], **opts)
+            calls[route] = caller(route, ch)
+            t0 = time.perf_counter()
+            counted(route, calls[route])  # the connect, TLS or link handshake
+            out["first_ms"][route] = 1e3 * (time.perf_counter() - t0)
+            if opts.get("transport") == "tpu" and ch._device_sock is None:
+                raise AssertionError(f"phase3k {route}: the call did not ride a device link")
+        for turn in range(TLS_TURNS):
+            order = list(TLS_ROUTES) if turn % 2 == 0 else list(reversed(TLS_ROUTES))
+            for route in order:
+                out["seq_us"][route].append(
+                    counted(route, lambda: sequential_us(calls[route], n_seq)))
+        short = {"tcp": caller("short tcp", channel("short tcp", targets["plain"],
+                                                    connection_type="short")),
+                 "tls": caller("short tls", channel("short tls", targets["tls"], tls=True,
+                                                    connection_type="short"))}
+        for turn in range(TLS_TURNS):
+            for kind in (("tcp", "tls") if turn % 2 == 0 else ("tls", "tcp")):
+                out["short_us"][kind].append(
+                    counted(f"short_{kind}", lambda: sequential_us(short[kind], n_short)))
+    finally:
+        for s in servers:
+            s.stop()
+            s.join(timeout=60)
+        if not ep.close(timeout=120):
+            raise AssertionError("phase3k: the endpoint did not settle its calls")
+        if os.path.exists(unix_target[len("unix://"):]):
+            raise AssertionError("phase3k unix: the socket file outlived its server")
+        os.rmdir(unix_dir)
+    out["handshake_us"] = [tls - tcp for tls, tcp in zip(out["short_us"]["tls"],
+                                                         out["short_us"]["tcp"])]
+    for route in TLS_ROUTES:
+        log(f"phase3k {route}: first call {out['first_ms'][route]:.3f} ms; {n_seq} sequential "
+            f"calls of 256 B, turns {' / '.join(f'{v:.1f}' for v in out['seq_us'][route])} us a "
+            f"call; launches {[tally[route][k] for k in K1]}")
+    for proto in ("tbus_std", "baidu_std", "http"):
+        ratios = [t / p for t, p in zip(out["seq_us"][f"tls_{proto}"], out["seq_us"][f"tcp_{proto}"])]
+        log(f"phase3k TLS / TCP on {proto}, a sequential call: "
+            f"{' / '.join(f'{r:.3f}' for r in ratios)}")
+    log(f"phase3k unix / TCP (tbus_std), a sequential call: "
+        f"{' / '.join(f'{u / t:.3f}' for u, t in zip(out['seq_us']['unix'], out['seq_us']['tcp_tbus_std']))}")
+    log(f"phase3k TLS-bootstrapped link / plain link, a sequential call: "
+        f"{' / '.join(f'{t / p:.3f}' for t, p in zip(out['seq_us']['tls_link'], out['seq_us']['tcp_link']))}")
+    log(f"phase3k a call on a fresh connection ({n_short} a turn, connection_type short): TCP "
+        f"{' / '.join(f'{v:.1f}' for v in out['short_us']['tcp'])} us, TLS "
+        f"{' / '.join(f'{v:.1f}' for v in out['short_us']['tls'])} us; the TLS handshake "
+        f"{' / '.join(f'{v:.1f}' for v in out['handshake_us'])} us a connection")
     return out, tally
 
 
@@ -6328,6 +6506,63 @@ def run_k2_phases(torch, kernels, dev):
     return {"launches": launches, "line": line, "detail": detail}
 
 
+def drills_only(n: int, out, device=None) -> int:
+    """``--drills N``: phase 3j (g) alone, N times: ``run_lame_duck_drill``
+    with phase 3j's callers against a fresh device-echo server each time
+    (256 B, window 16), each drill's counts printed, non-zero unless every
+    drain was clean."""
+    import contextlib
+    import io
+
+    import torch
+
+    if device is None and not torch.cuda.is_available():
+        print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
+        return 2
+    from incubator_brpc_tpu_torch.ops import kernels
+    from incubator_brpc_tpu_torch.rpc import Server, ServerOptions, shutdown_host_plane
+    from incubator_brpc_tpu_torch.tools import rpc_press
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+    from incubator_brpc_tpu_torch.utils import flags
+
+    card = card_line() if device is None else f"device {device}"
+    log(card)
+    if device is None:
+        kernels.build()
+    saved = flags.get_flag("enable_quitquitquit")
+    flags.set_flag_unchecked("enable_quitquitquit", True)
+    ep = DeviceEndpoint(window_size=TOOLS_WINDOW, max_batch=TOOLS_WINDOW, device=device)
+    ep.warm(256)
+    handler = ep.server_handler()
+    payload = np.random.default_rng(71).integers(0, 256, size=256, dtype=np.uint8).tobytes()
+    drills = []
+    try:
+        for i in range(n):
+            srv = Server(ServerOptions(device=device))
+            srv.add_service("tensor", {"echo": handler})
+            if not srv.start(0):
+                raise AssertionError("drills: a Server did not start")
+            try:
+                with contextlib.redirect_stderr(io.StringIO()):
+                    counts = rpc_press.run_lame_duck_drill(
+                        f"127.0.0.1:{srv.port}", "tensor", "echo", payload,
+                        threads=TOOLS_THREADS, duration=TOOLS_PRESS_S, timeout_ms=300_000)
+            finally:
+                srv.stop()
+                srv.join(timeout=60)
+            drills.append(counts)
+            log(f"drill {i}: {json.dumps(counts)}")
+    finally:
+        flags.set_flag_unchecked("enable_quitquitquit", saved)
+        shutdown_host_plane()
+    clean = sum(1 for c in drills if c["drained_clean"])
+    log(f"drills: {clean} of {n} drained clean; {card}")
+    if out:
+        with open(out, "w") as f:
+            json.dump({"card": card, "drills": drills}, f, indent=1)
+    return 0 if clean == n else 1
+
+
 def k2_only(root: str, out) -> int:
     """``--k2-only ROOT``: phase 11 alone (K2's timings and the full-width
     sessions') for the port under ROOT, a tree of this repository unpacked
@@ -6364,9 +6599,13 @@ def main() -> int:
     ap.add_argument("--out", help="also write the detailed timings to this JSON file")
     ap.add_argument("--k2-only", metavar="ROOT",
                     help="run phase 11 alone on the port of the tree at ROOT (k2_only)")
+    ap.add_argument("--drills", type=int, metavar="N",
+                    help="run phase 3j (g)'s lame-duck drill alone, N times (drills_only)")
     opts = ap.parse_args()
     if opts.k2_only:
         return k2_only(opts.k2_only, opts.out)
+    if opts.drills:
+        return drills_only(opts.drills, opts.out)
 
     import torch
 
@@ -6538,6 +6777,18 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase3j: {tools_fig['phase_s']:.1f} s; K1 launches by part {tools_k1}")
 
+    # -- phase 3k: TLS and unix-domain sockets around the device echo, K1 counted
+    log(f"phase3k on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    tls_fig, tls_k1 = tls_phase(torch, kernels)
+    tls_fig["phase_s"] = time.perf_counter() - t0
+    for route in TLS_ROUTES:
+        missing = [name for name in ("frame_rows", "echo_step_rows") if tls_k1[route][name] == 0]
+        if missing:
+            raise AssertionError(f"phase3k {route}: kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase3k: {tls_fig['phase_s']:.1f} s; K1 launches by route {tls_k1}")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -6596,6 +6847,7 @@ def main() -> int:
             "protocol_launches": {part: row[name] for part, row in sorted(protocol_k1.items())},
             "rpcz_launches": {part: row[name] for part, row in sorted(rpcz_k1.items())},
             "tools_launches": {part: row[name] for part, row in sorted(tools_k1.items())},
+            "tls_launches": {route: row[name] for route, row in sorted(tls_k1.items())},
             "entry_launches": entry_k["b"].get(name, 0),
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -6654,6 +6906,7 @@ def main() -> int:
                        "protocols": protocols, "protocol_launches": protocol_k1,
                        "rpcz": rpcz_fig, "rpcz_launches": rpcz_k1,
                        "tools": tools_fig, "tools_launches": tools_k1,
+                       "tls": tls_fig, "tls_launches": tls_k1,
                        "entry": entry_fig, "entry_launches": entry_k,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],

@@ -159,6 +159,12 @@ class _NativeIOBuf:
         """readv ≤max_bytes into fresh blocks. 0 = EOF, <0 = -errno."""
         return LIB.tb_iobuf_append_from_fd(self._h, fd, max_bytes)
 
+    def append_from_fd_bulk(self, fd: int, max_bytes: int, block_bytes: int) -> int:
+        """readv into BIG malloc'd blocks: the saturated-stream drain (a
+        socket's reader escalates here after consecutive full bursts; see
+        transport/sock.py). Same return contract as append_from_fd."""
+        return LIB.tb_iobuf_append_from_fd_bulk(self._h, fd, max_bytes, block_bytes)
+
     def __del__(self):
         h, self._h = getattr(self, "_h", None), None
         if h and LIB is not None:
@@ -303,6 +309,9 @@ class _PyIOBuf:
             return -e.errno
         self.popn(nw)
         return nw
+
+    def append_from_fd_bulk(self, fd, max_bytes, block_bytes):
+        return self.append_from_fd(fd, max_bytes)
 
     def append_from_fd(self, fd, max_bytes=1 << 16):
         try:

@@ -51,8 +51,12 @@ thread, and a transport failure falls through to the Python path, which
 dials fresh and owns the retries. Every call opens its rpcz client span
 (``builtin/rpcz.start_client_span``) on either route and ends it at
 completion; the native route stamps the trace on the wire only when it is
-observable. The other protocols (ROADMAP A11) and TLS (A10) are later
-items; their options keep the reference's places and refuse a value with
+observable. ``ChannelOptions(ssl_context=, ssl_server_hostname=)`` carry
+every connection of the channel over TLS on the Python route (tbus_std,
+baidu_std, HTTP, streams and device-link handshakes alike), on
+connections of their own in the socket map; a ``unix://<path>`` target
+dials a unix-domain socket. The other protocols (ROADMAP A11) are a later
+item; their option keeps the reference's place and refuses a value with
 the ROADMAP item that brings them.
 """
 
@@ -286,6 +290,26 @@ UNPORTED_PROTOCOLS = (
 )
 
 
+def tls_key_tag(options: "ChannelOptions") -> str:
+    """The socket-map key's TLS partition: TLS and plaintext never share a
+    connection, and neither do two channels with different TLS configs
+    (client certificates, verification modes), so the context's identity
+    partitions too, like the reference SocketMapKey's ssl settings
+    (socket_map.h:35)."""
+    if options.ssl_context is None:
+        return ""
+    return f"|ssl-{id(options.ssl_context):x}"
+
+
+def tls_conn_kwargs(options: "ChannelOptions") -> dict:
+    """The ``Socket.connect`` arguments every connection of a TLS channel
+    needs."""
+    if options.ssl_context is None:
+        return {}
+    return {"ssl_context": options.ssl_context,
+            "ssl_server_hostname": options.ssl_server_hostname}
+
+
 class ChannelOptions:
     """Reference ChannelOptions (rpc/channel.py) with the reference's
     parameters in the reference's order, so a positional call binds as it
@@ -329,13 +353,6 @@ class ChannelOptions:
             raise ValueError(f"unknown link_controller {link_controller!r}")
         if protocol in UNPORTED_PROTOCOLS:
             refuse_unported("ChannelOptions", "protocol", protocol, "A11")
-        unported = (
-            ("ssl_context", ssl_context, None, "A10"),
-            ("ssl_server_hostname", ssl_server_hostname, None, "A10"),
-        )
-        for name, value, default, item in unported:
-            if value != default:
-                refuse_unported("ChannelOptions", name, value, item)
         self.timeout_ms = timeout_ms
         self.max_retry = max_retry
         # duplicate a call to another server when the first attempt has not
@@ -373,6 +390,11 @@ class ChannelOptions:
         # attempt's error; None = the default retriable-code set). max_retry
         # and the retry budget are enforced regardless.
         self.retry_policy = retry_policy
+        # ssl.SSLContext for TLS to the server(s) (reference
+        # ChannelOptions.ssl_options): each socket pumps ciphertext through
+        # an SSLObject; ssl_server_hostname is the SNI / verified name
+        self.ssl_context = ssl_context
+        self.ssl_server_hostname = ssl_server_hostname
 
 
 class Channel:
@@ -410,7 +432,7 @@ class Channel:
             self._options = options
         if isinstance(target, EndPoint):
             self._server = target
-        elif "://" in str(target):
+        elif "://" in str(target) and not str(target).startswith("unix://"):
             # transport='tpu' works for LB targets too: the LB picks the
             # peer, the DeviceLinkMap resolves it to an established link
             # (one per peer device)
@@ -418,7 +440,7 @@ class Channel:
 
             self._lb = LoadBalancerWithNaming(
                 str(target), lb_name or "rr", socket_map=self._socket_map,
-                key_tag=self._auth_key_tag(),
+                key_tag=self._auth_key_tag(), conn_kwargs=self._conn_kwargs(),
             )
             if not self._lb.start():
                 return False
@@ -583,6 +605,8 @@ class Channel:
             and (self._options.auth is None or baidu)
             and self._options.connection_type in ("single", "pooled")
             and (not cntl.compress_type or (baidu and cntl.compress_type in _NATIVE_COMPRESS_WIRE))
+            # the C++ client has no TLS stack
+            and self._options.ssl_context is None
             and not (cntl.backup_request_ms is not None and cntl.backup_request_ms > 0)
             and not cntl._force_host
         )
@@ -800,7 +824,10 @@ class Channel:
         if proto_name != "tbus_std" and proto_name in proto_pkg.protocol_registry:
             if proto_pkg.protocol_registry.get(proto_name).fifo_responses:
                 tag = f"{tag}|fifo-{proto_name}"
-        return tag
+        return tag + tls_key_tag(self._options)
+
+    def _conn_kwargs(self) -> dict:
+        return tls_conn_kwargs(self._options)
 
     def _dispose_attempt_sock(self, kind: str, sock, reusable: bool = True) -> None:
         """One attempt's connection settles (Call::OnComplete disposition,
@@ -832,6 +859,8 @@ class Channel:
             ack_mode=self._options.link_ack_mode,
             controller=self._options.link_controller,
             auth=self._options.auth,
+            ssl_context=self._options.ssl_context,
+            ssl_server_hostname=self._options.ssl_server_hostname,
         )
         self._device_sock = ds  # last-used link (introspection/tests)
         return ds
@@ -865,7 +894,7 @@ class Channel:
             if ctype == "single":
                 sock = self._socket_map.get_or_create(
                     self._server, timeout=self._options.connect_timeout,
-                    key_tag=self._auth_key_tag(),
+                    key_tag=self._auth_key_tag(), **self._conn_kwargs(),
                 )
                 if sock.state != CONNECTED:
                     # dropped-but-healthy peer: reconnect inline instead of
@@ -876,11 +905,11 @@ class Channel:
             if ctype == "pooled":
                 sock = self._socket_map.get_pooled(
                     self._server, timeout=self._options.connect_timeout,
-                    key_tag=self._auth_key_tag(),
+                    key_tag=self._auth_key_tag(), **self._conn_kwargs(),
                 )
             else:  # short: fresh connection, closed at EndRPC
                 sock = self._socket_map.get_short(
-                    self._server, timeout=self._options.connect_timeout
+                    self._server, timeout=self._options.connect_timeout, **self._conn_kwargs()
                 )
             # disposed together at EndRPC — a backup request keeps the
             # previous attempt's connection in flight, so NOTHING may be
@@ -899,10 +928,13 @@ class Channel:
         ep = sock.remote
         if ctype == "pooled":
             sec = self._socket_map.get_pooled(
-                ep, timeout=self._options.connect_timeout, key_tag=self._auth_key_tag()
+                ep, timeout=self._options.connect_timeout, key_tag=self._auth_key_tag(),
+                **self._conn_kwargs(),
             )
         else:  # short
-            sec = self._socket_map.get_short(ep, timeout=self._options.connect_timeout)
+            sec = self._socket_map.get_short(
+                ep, timeout=self._options.connect_timeout, **self._conn_kwargs()
+            )
         # LB feedback and retry exclusion track the secondary's id too
         reg = getattr(self._lb, "register_socket", None)
         if reg is not None:

@@ -41,7 +41,12 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 from incubator_brpc_tpu_torch.bvar import Adder
-from incubator_brpc_tpu_torch.rpc.channel import Channel, ChannelOptions
+from incubator_brpc_tpu_torch.rpc.channel import (
+    Channel,
+    ChannelOptions,
+    tls_conn_kwargs,
+    tls_key_tag,
+)
 from incubator_brpc_tpu_torch.rpc.controller import RETRIABLE, Controller
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint
 from incubator_brpc_tpu_torch.utils.status import ErrorCode, berror
@@ -657,6 +662,12 @@ def _build_partition_channels(
     from incubator_brpc_tpu_torch.lb import LoadBalancerWithNaming
     from incubator_brpc_tpu_torch.rpc.channel import _client_socket_map
 
+    # sub-channel sockets honor the caller's TLS config: the LB dials main
+    # sockets itself, so the context and the ssl-partitioned key tag have
+    # to reach it here (a Channel.init target gets them from the Channel)
+    opts = options if options is not None else ChannelOptions()
+    key_tag, conn_kwargs = tls_key_tag(opts), tls_conn_kwargs(opts)
+
     channels, lbs = [], []
     for part in range(partition_count):
         def _filter(ep, _part=part):
@@ -670,6 +681,8 @@ def _build_partition_channels(
             socket_map=_client_socket_map,
             ns_thread=ns_thread,
             server_filter=_filter,
+            key_tag=key_tag,
+            conn_kwargs=conn_kwargs,
         )
         ch = Channel()
         if not ch.init_with_lb(lb, options=options):

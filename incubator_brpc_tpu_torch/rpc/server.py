@@ -44,11 +44,14 @@ through a json2pb schema where the handler carries one). Both the binary
 route and the gateway open an rpcz server span (``builtin/rpcz.py``; the
 binary route annotates it "processing"), the handler runs inside it (a
 nested client call parents to it), and every started server with builtin
-services registers with ``builtin/portal.py`` for the portal's pages. TLS
-(ROADMAP A10) and the other protocols (A11) are later items. The method map (``_MethodMap``) is keyed on the
-native FlatMap of the port's host runtime. A server listens on the Python
-acceptor, or with ``ServerOptions(native_plane=True)`` on the C++ reactors
-of ``transport/native_plane.py`` (``num_reactors``, alias
+services registers with ``builtin/portal.py`` for the portal's pages. A
+TLS port (``ssl_context``) and a unix-domain endpoint (``start(
+"unix://<path>")``) are served on the Python acceptor, even with
+``native_plane=True``. The other protocols (A11) are a later item. The
+method map (``_MethodMap``) is keyed on the native FlatMap of the port's
+host runtime. A server listens on the Python acceptor, or with
+``ServerOptions(native_plane=True)`` on the C++ reactors of
+``transport/native_plane.py`` (``num_reactors``, alias
 ``native_loops``; ``native_dispatch_workers``): tbus_std and baidu_std
 frames to natively registered methods (``native_echo``, ``native_nop``,
 ``native_method_lib``) are answered in C++ under their per-method limit
@@ -379,7 +382,6 @@ class ServerOptions:
             ("thrift_service", thrift_service, None, "A11"),
             ("mongo_service_adaptor", mongo_service_adaptor, None, "A11"),
             ("rtmp_service", rtmp_service, None, "A11"),
-            ("ssl_context", ssl_context, None, "A10"),
         )
         for name, value, default, item in unported:
             if value != default:
@@ -418,6 +420,10 @@ class ServerOptions:
         # device this server binds for transport='tpu' links (None = pick a
         # neighbor of the client's device; the reference's use_rdma slot)
         self.device_index = device_index
+        # ssl.SSLContext (server side): every connection of this port is
+        # TLS, its handshake pumped from the reactor (reference
+        # ServerOptions.ssl_options). A TLS port stays on the Python plane.
+        self.ssl_context = ssl_context
         # Pooled per-connection user data (reference
         # ServerOptions.session_local_data_factory + simple_data_pool):
         # lazily borrowed on first cntl.session_local_data() per
@@ -773,6 +779,7 @@ class Server:
                 messenger=self._messenger,
                 conn_context={"server": self},
                 inline_read=self.options.usercode_inline,
+                ssl_context=self.options.ssl_context,
             )
             self.listen_endpoint = self._acceptor.endpoint
         self._stopping = False
@@ -792,8 +799,9 @@ class Server:
 
     def _start_native_plane(self, ep: EndPoint):
         """The listening NativeServerPlane, or None with the reason logged
-        (the JAX package's fallbacks: no host runtime, a unix endpoint, or
-        an address the AF_INET-only C++ listener cannot take)."""
+        (the JAX package's fallbacks: no host runtime, a unix endpoint, a
+        TLS port, or an address the AF_INET-only C++ listener cannot
+        take)."""
         from incubator_brpc_tpu_torch import native
         from incubator_brpc_tpu_torch.transport import native_plane as np_mod
 
@@ -805,6 +813,10 @@ class Server:
             return None
         if ep.ip.startswith("unix://"):
             logger.warning("native plane has no unix sockets; serving %s on the Python acceptor", ep)
+            return None
+        if self.options.ssl_context is not None:
+            # the C++ reactor has no TLS stack
+            logger.warning("native plane has no TLS; serving %s on the Python acceptor", ep)
             return None
         plane = np_mod.NativeServerPlane(
             self, self.options.num_reactors, dispatch_workers=self.options.native_dispatch_workers

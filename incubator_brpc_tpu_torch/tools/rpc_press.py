@@ -451,6 +451,9 @@ def run_lame_duck_drill(
         file=sys.stderr,
     )
     status = _http_get(server, f"/quitquitquit?grace_s={grace:g}")
+    # the server answered the trigger: it was in lame duck by now, so a
+    # call issued from here on can only be refused, never admitted
+    lame_at = time.monotonic()
     triggered.set()
     status_line = status.splitlines()[0] if status else "<empty response>"
     if " 200 " not in status_line:
@@ -471,27 +474,41 @@ def run_lame_duck_drill(
         }
     for t in ts:
         t.join()
-    # Classification: a RESET is a connection-class failure of a call
-    # that was ISSUED while the server was still serving (issue time
-    # comfortably before the last served ok/ELOGOFF) — that is admitted
-    # or admissible work killed mid-drain, including a grace-expiry hard
-    # stop cutting off slow in-flight handlers.  Connection failures of
-    # calls issued AT the very end of the serving window (within the
-    # guard band) are the shutdown boundary: the final close racing the
-    # last writes, or connects refused on the now-stopped server — the
-    # drill ending, not dirty draining.
+    # Classification: a RESET is a connection-class failure of work the
+    # drain should have finished or refused.  A call issued before the
+    # trigger was answered may have been admitted: cutting it is dirty
+    # draining, with no allowance (a grace-expiry hard stop cutting slow
+    # in-flight handlers included).  A call issued after it can only be
+    # refused: it is a reset when it was issued more than a guard band
+    # before the last served ok/ELOGOFF, i.e. the server left it
+    # unanswered while answering later work.  Connection failures of
+    # calls issued within the guard band are the shutdown boundary: the
+    # final close racing the last writes, or connects refused on the
+    # now-stopped server — the drill ending, not dirty draining.  The
+    # band is the slowest refusal of a call issued after the trigger (at least
+    # GUARD_S): a call cut at the close was issued less than one refusal's
+    # round trip before it, and on a loaded host that round trip outgrows
+    # any fixed band.
     GUARD_S = 0.05
     served = [done for _i, done, k in events if k in ("ok", "logoff")]
     last_served = max(served) if served else 0.0
+    guard = max(
+        [GUARD_S]
+        + [done - issued for issued, done, k in events if k == "logoff" and issued >= lame_at]
+    )
+    cut = [issued for issued, _d, k in events if k == "conn"]
+    boundary = [last_served - issued for issued in cut
+                if issued >= lame_at and issued >= last_served - guard]
     counts = {
         "ok": sum(1 for _i, _d, k in events if k == "ok"),
         "logoff": sum(1 for _i, _d, k in events if k == "logoff"),
-        "reset": sum(
-            1
-            for issued, _d, k in events
-            if k == "conn" and issued < last_served - GUARD_S
-        ),
+        "reset": len(cut) - len(boundary),
         "other": sum(1 for _i, _d, k in events if k == "other"),
+        # the band, and the boundary cuts it let pass with the oldest of
+        # them (ms before the last answer; negative: issued after it)
+        "guard_ms": guard * 1e3,
+        "boundary": len(boundary),
+        "boundary_oldest_ms": max(boundary, default=0.0) * 1e3,
     }
     counts["drained_clean"] = counts["reset"] == 0 and counts["other"] == 0
     return counts

@@ -3,14 +3,17 @@ src/brpc/acceptor.cpp:52-115,173-240): a oneshot IN handler on the listen
 fd runs an accept-until-EAGAIN loop in a fiber, creating a Socket per
 connection; stop() closes the listener and fails every accepted socket.
 
-The port's copy of the JAX package's ``transport/acceptor.py`` on TCP
-listeners, with the lame-duck ``pause``; TLS and unix-domain sockets wait
-for ROADMAP A10.
+The port's copy of the JAX package's ``transport/acceptor.py``: TCP and
+``unix://<path>`` listeners (a stale socket file is unlinked, a live
+listener's path refused, the path unlinked at stop), server-side TLS
+(``ssl_context``: each accepted socket pumps its handshake from the
+reactor), and the lame-duck ``pause``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import socket as _pysocket
 import threading
 from typing import Dict, Optional
@@ -27,6 +30,27 @@ from incubator_brpc_tpu_torch.utils.status import ErrorCode
 logger = logging.getLogger(__name__)
 
 
+def _unlink_if_stale(path: str) -> None:
+    """Unlink a unix socket file only if it is DEAD: hijacking a live
+    listener would silently black-hole its traffic (a TCP bind gets this
+    from EADDRINUSE). A connect timeout is ambiguous (a live listener with
+    a full backlog) and refuses like a connect that succeeds; only a clean
+    refusal proves the file stale."""
+    probe = _pysocket.socket(_pysocket.AF_UNIX, _pysocket.SOCK_STREAM)
+    try:
+        probe.settimeout(0.2)
+        probe.connect(path)
+    except (ConnectionRefusedError, FileNotFoundError):
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        return
+    finally:
+        probe.close()
+    raise OSError(f"unix socket {path} has a live listener")
+
+
 class Acceptor:
     def __init__(
         self,
@@ -36,9 +60,12 @@ class Acceptor:
         conn_context: Optional[dict] = None,
         backlog: int = 128,
         inline_read: bool = False,
+        ssl_context=None,
     ):
         self._messenger = messenger
         self._inline_read = inline_read
+        # server-side TLS: every accepted socket wraps with this context
+        self._ssl_context = ssl_context
         # seeded into every accepted Socket BEFORE it goes live (a request
         # can arrive in the same burst as the accept)
         self._conn_context = conn_context
@@ -48,17 +75,28 @@ class Acceptor:
         self._stopped = False
         self._paused = False  # lame-duck: listener closed, conns live
 
-        lsock = _pysocket.socket(_pysocket.AF_INET, _pysocket.SOCK_STREAM)
-        lsock.setsockopt(_pysocket.SOL_SOCKET, _pysocket.SO_REUSEADDR, 1)
+        # a unix endpoint carries "unix://<path>" in ip, with port 0
+        self._unix_path: Optional[str] = None
+        if endpoint.ip.startswith("unix://"):
+            self._unix_path = endpoint.ip[len("unix://"):]
+            if os.path.exists(self._unix_path):
+                _unlink_if_stale(self._unix_path)
+            lsock = _pysocket.socket(_pysocket.AF_UNIX, _pysocket.SOCK_STREAM)
+            addr = self._unix_path
+        else:
+            lsock = _pysocket.socket(_pysocket.AF_INET, _pysocket.SOCK_STREAM)
+            lsock.setsockopt(_pysocket.SOL_SOCKET, _pysocket.SO_REUSEADDR, 1)
+            addr = (endpoint.ip, endpoint.port)
         try:
-            lsock.bind((endpoint.ip, endpoint.port))
+            lsock.bind(addr)
         except OSError:
             lsock.close()  # a failed bind must not leak the listen fd
             raise
+        self.endpoint = (endpoint if self._unix_path is not None
+                         else EndPoint(ip=endpoint.ip, port=lsock.getsockname()[1]))
         lsock.listen(backlog)
         lsock.setblocking(False)
         self._lsock = lsock
-        self.endpoint = EndPoint(ip=endpoint.ip, port=lsock.getsockname()[1])
         self._dispatcher = global_dispatcher(lsock.fileno())
         self._pool = global_worker_pool()
         self._dispatcher.add_consumer(lsock.fileno(), self._on_event, EVENT_IN)
@@ -99,6 +137,8 @@ class Acceptor:
                     messenger=self._messenger,
                     context=self._conn_context,
                     inline_read=self._inline_read,
+                    ssl_context=self._ssl_context,
+                    ssl_server_side=self._ssl_context is not None,
                 )
                 with self._conn_lock:
                     self._connections[sock.id] = sock
@@ -128,6 +168,14 @@ class Acceptor:
 
     def _close_listener(self) -> None:
         self._dispatcher.remove_consumer(self._lsock.fileno())
+        if self._unix_path is not None:
+            # unlink BEFORE close: while we still own the listener, a
+            # successor's liveness probe connects (live → refuses to bind),
+            # so we can never delete a successor's fresh socket file
+            try:
+                os.unlink(self._unix_path)
+            except OSError:
+                pass
         try:
             self._lsock.close()
         except OSError:

@@ -61,9 +61,9 @@ A link that fails aborts the collective sessions of its parties
 (``parallel/mc_dispatch.py`` ``abort_sessions_for_devices``, keyed by job
 rank: a multi-controller link's two ranks; a link inside one process has
 no ranks). Credentials ride the handshake's bootstrap channel and key the
-link (``DeviceLinkMap.get_or_create(auth=)``): channels with different
-credentials never share a link. Not here yet: TLS on links (``ssl_*``,
-ROADMAP A10).
+link (``DeviceLinkMap.get_or_create(auth=, ssl_context=,
+ssl_server_hostname=)``): a TLS server's link handshakes over TLS, and
+channels with different credentials never share a link.
 """
 
 from __future__ import annotations
@@ -906,27 +906,26 @@ class DeviceLinkMap:
         rejects a bare bootstrap), and it is part of the link identity —
         channels with different credentials never share a link (the
         reference keys SocketMap by {EndPoint, rdma, ssl, auth},
-        socket_map.h:35). ``ssl_*`` are refused until ROADMAP A10."""
-        from incubator_brpc_tpu_torch.rpc.controller import refuse_unported
+        socket_map.h:35). ``ssl_*`` are the channel's TLS settings: the
+        bootstrap channel carries them (a TLS server rejects a plaintext
+        handshake), and they key the link as ``auth`` does."""
         from incubator_brpc_tpu_torch.transport.sock import CONNECTED
         from incubator_brpc_tpu_torch.utils.flags import get_flag
 
         if controller not in ("single", "multi"):
             raise ValueError(f"unknown controller {controller!r}")
-        for name, value, default, item in (
-            ("ssl_context", ssl_context, None, "A10"),
-            ("ssl_server_hostname", ssl_server_hostname, None, "A10"),
-        ):
-            if value != default:
-                refuse_unported("DeviceLinkMap.get_or_create", name, value, item)
-        ident = f"auth-{id(auth):x}" if auth is not None else ""
+        ident = (
+            f"auth-{id(auth):x}" if auth is not None else "",
+            f"ssl-{id(ssl_context):x}" if ssl_context is not None else "",
+            ssl_server_hostname or "",
+        )
         key = (ep.ip, ep.port, device_index, slot_words, window, ack_mode, controller, ident)
-        if auth is not None:
-            # the key embeds an id(): retain the credential object for the
-            # entry's lifetime, or a collected auth object's recycled
-            # address would alias a DIFFERENT principal onto this link
+        if auth is not None or ssl_context is not None:
+            # the key embeds id()s: retain the credential objects for the
+            # entry's lifetime, or a collected object's recycled address
+            # would alias a DIFFERENT principal onto this link
             with self._lock:
-                self._cred_refs[key] = auth
+                self._cred_refs[key] = (auth, ssl_context)
         # per-key lock: a thundering herd to one peer produces ONE
         # handshake, while links to OTHER peers establish concurrently
         with self._key_lock(key):
@@ -957,7 +956,12 @@ class DeviceLinkMap:
                 boot = Channel()
                 if not boot.init(
                     EndPoint(ip=ep.ip, port=ep.port),
-                    options=ChannelOptions(timeout_ms=timeout_ms, auth=auth),
+                    options=ChannelOptions(
+                        timeout_ms=timeout_ms,
+                        auth=auth,
+                        ssl_context=ssl_context,
+                        ssl_server_hostname=ssl_server_hostname,
+                    ),
                 ):
                     raise ConnectionError(f"device-link bootstrap channel init failed for {ep}")
                 if controller == "multi":

@@ -18,18 +18,26 @@ Kept design points (and where they live in the reference):
   (socket.cpp:950-1026); pending writes are failed with callbacks.
 - EOVERCROWDED backpressure when the unwritten backlog passes
   ``socket_max_unwritten_bytes`` (socket.cpp:1537).
+- TLS on ``ssl.MemoryBIO`` + ``SSLObject``, pumped by this socket's own
+  read and write paths (``ssl_context=``; the reference's SSLHandshake
+  and ssl_helper, socket.cpp:1880): ciphertext on the fd, plaintext in
+  the read IOBuf, so messenger and protocols never know. A client
+  handshakes on its blocking dial socket, a server from the reactor's
+  read path, and a revived client handshakes a fresh session.
+- ``unix://<path>`` endpoints dial an AF_UNIX stream socket.
 
 The port's copy of the JAX package's ``transport/sock.py``, with the
 fault injector's socket-write seam (``rpc/fault_injector.py``) and the
 per-second rate bvars the portal plots (``socket_in_bytes_per_second``,
-``socket_out_bytes_per_second``), without TLS (ROADMAP A10) and the
-caller-driven write drain (``write(drain_inline=True)``)
-that the JAX package's stream writers opt into: the port's streams write
-through the same KeepWrite path as every other frame.
+``socket_out_bytes_per_second``), without the caller-driven write drain
+(``write(drain_inline=True)``) that the JAX package's stream writers opt
+into: the port's streams write through the same KeepWrite path as every
+other frame.
 """
 
 from __future__ import annotations
 
+import contextlib
 import errno as _errno
 import logging
 import os
@@ -183,8 +191,17 @@ class WriteRequest:
 
 
 def _dial(ep: EndPoint, timeout: float) -> _pysocket.socket:
-    """Open a client TCP connection (the ONE place that knows how to dial —
-    used by connect and health probing)."""
+    """Open a client connection to a TCP or unix:// endpoint (the ONE
+    place that knows how to dial — used by connect and health probing)."""
+    if ep.ip.startswith("unix://"):
+        conn = _pysocket.socket(_pysocket.AF_UNIX, _pysocket.SOCK_STREAM)
+        conn.settimeout(timeout)
+        try:
+            conn.connect(ep.ip[len("unix://"):])
+        except OSError:
+            conn.close()
+            raise
+        return conn
     conn = _pysocket.create_connection((ep.ip, ep.port), timeout=timeout)
     conn.setsockopt(_pysocket.IPPROTO_TCP, _pysocket.TCP_NODELAY, 1)
     return conn
@@ -201,8 +218,25 @@ class Socket:
         context: Optional[Dict] = None,
         inline_read: bool = False,
         preread: bytes = b"",
+        ssl_context=None,
+        ssl_server_side: bool = False,
+        ssl_server_hostname: Optional[str] = None,
     ):
         _ensure_rate_vars()
+        # TLS: a client handshakes here on the still-blocking dial socket
+        # (connect already blocks a fiber); a server pumps its handshake
+        # from the reactor's read path (_ssl_read_pump)
+        self._ssl_context = ssl_context
+        self._ssl_server_side = ssl_server_side
+        self._ssl_server_hostname = ssl_server_hostname
+        self._sslobj = None
+        self._ssl_done = False
+        if ssl_context is not None:
+            self._ssl_lock = threading.Lock()
+            self._in_bio, self._out_bio, self._sslobj = self._ssl_new()
+            if not ssl_server_side:
+                self._ssl_blocking_handshake(conn, self._in_bio, self._out_bio, self._sslobj)
+                self._ssl_done = True
         conn.setblocking(False)
         # NOTE: no explicit SO_RCVBUF/SO_SNDBUF — setting them disables
         # kernel autotuning and is silently clamped to rmem_max/wmem_max,
@@ -240,6 +274,7 @@ class Socket:
         self.last_active = _monotonic()
 
         self._read_buf = IOBuf()
+        self._read_saturated = False  # bulk-read escalation (_drain_and_cut)
         # bytes another plane already read off this fd (the native plane's
         # protocol-sniff handoff), seeded BEFORE the dispatcher
         # registration below makes the socket live
@@ -280,6 +315,135 @@ class Socket:
                     self._reading = True
             if claimed:
                 self._pool.spawn(self._process_event)
+
+    # -- TLS ----------------------------------------------------------------
+
+    def _ssl_new(self):
+        """A fresh (in_bio, out_bio, SSLObject): TLS state never survives a
+        new connection."""
+        import ssl as _ssl
+
+        in_bio, out_bio = _ssl.MemoryBIO(), _ssl.MemoryBIO()
+        sslobj = self._ssl_context.wrap_bio(
+            in_bio,
+            out_bio,
+            server_side=self._ssl_server_side,
+            server_hostname=self._ssl_server_hostname,
+        )
+        return in_bio, out_bio, sslobj
+
+    @staticmethod
+    def _ssl_blocking_handshake(conn: _pysocket.socket, in_bio, out_bio, sslobj) -> None:
+        """Client handshake on the still-blocking dial socket (bounded by
+        its connect timeout); closes the socket on failure."""
+        import ssl as _ssl
+
+        try:
+            while True:
+                try:
+                    sslobj.do_handshake()
+                    break
+                except _ssl.SSLWantReadError:
+                    pending = out_bio.read()
+                    if pending:
+                        conn.sendall(pending)
+                    data = conn.recv(65536)
+                    if not data:
+                        raise ConnectionError("TLS handshake: peer closed")
+                    in_bio.write(data)
+            pending = out_bio.read()
+            if pending:
+                conn.sendall(pending)  # our Finished record
+        except (OSError, _ssl.SSLError):
+            try:
+                conn.close()
+            except OSError:
+                pass
+            raise
+
+    def _flush_ssl_out(self) -> None:
+        """Queue whatever ciphertext the SSLObject produced (handshake
+        records, alerts, KeyUpdate responses). Forced past the EOVERCROWDED
+        gate: TLS control records already advanced the session state and
+        can never be dropped, and they are small."""
+        data = self._out_bio.read()
+        if not data:
+            return
+        buf = IOBuf()
+        buf.append(data)
+        rc, epoch = self._enqueue(buf, None, force=True)
+        if rc == 0 and epoch is not None:
+            self._drive_drain(epoch)
+
+    def _ssl_read_pump(self):
+        """The TLS read path: ciphertext fd → in_bio → the handshake pump
+        and/or plaintext into the read IOBuf → messenger. Returns ``(alive,
+        tail)`` as the plaintext drain does, with the same deferred tail."""
+        import ssl as _ssl
+
+        eof = False
+        while True:
+            try:
+                data = self._conn.recv(65536)
+            except (BlockingIOError, _ssl.SSLWantReadError):
+                break
+            except InterruptedError:
+                continue
+            except OSError as e:
+                self.set_failed(ErrorCode.EFAILEDSOCKET, f"ssl read failed: {e}")
+                return False, None
+            if not data:
+                eof = True
+                break
+            in_bytes << len(data)
+            self._in_bio.write(data)
+        with self._ssl_lock:
+            if not self._ssl_done:
+                try:
+                    self._sslobj.do_handshake()
+                    self._ssl_done = True
+                except _ssl.SSLWantReadError:
+                    pass
+                except _ssl.SSLError as e:
+                    self._flush_ssl_out()  # the alert, best effort
+                    self.set_failed(ErrorCode.EFAILEDSOCKET, f"TLS handshake failed: {e}")
+                    return False, None
+                self._flush_ssl_out()
+                if not self._ssl_done:
+                    if eof:
+                        self.set_failed(ErrorCode.EEOF, "peer closed mid-handshake")
+                        return False, None
+                    return True, None
+            while True:
+                try:
+                    pt = self._sslobj.read(65536)
+                except _ssl.SSLWantReadError:
+                    break
+                except _ssl.SSLZeroReturnError:
+                    eof = True
+                    break
+                except _ssl.SSLError as e:
+                    self.set_failed(ErrorCode.EFAILEDSOCKET, f"TLS record error: {e}")
+                    return False, None
+                if not pt:
+                    eof = True
+                    break
+                self._read_buf.append(pt)
+            # a TLS 1.3 KeyUpdate response produced by the reads sits in
+            # out_bio; on a read-mostly connection no write would flush it
+            self._flush_ssl_out()
+        tail = None
+        if self.messenger is not None and len(self._read_buf):
+            if not eof:
+                tail = self.messenger.process(self, defer_tail=True)
+            else:
+                # EOF: process everything before failing the socket, so the
+                # final request's response can still be written
+                self.messenger.process(self)
+        if eof:
+            self.set_failed(ErrorCode.EEOF, "remote closed connection")
+            return False, None
+        return True, tail
 
     # -- construction -------------------------------------------------------
 
@@ -342,26 +506,53 @@ class Socket:
             buf.append(bytes(data))
         else:
             buf = data
-        rc, epoch = self._enqueue(buf, on_error)
+        if self._sslobj is not None:
+            # Encrypt-and-ENQUEUE atomically (two writers' TLS records must
+            # reach the queue in SSLObject order or the peer's record layer
+            # desyncs), but DRAIN outside the ssl lock: the reactor needs
+            # this lock in _ssl_read_pump. Backpressure is checked BEFORE
+            # encrypting: a record that passed the SSLObject has advanced
+            # the sequence number and can never be dropped.
+            import ssl as _ssl
+
+            with self._ssl_lock:
+                if not self._ssl_done:
+                    return ErrorCode.EFAILEDSOCKET  # handshake incomplete
+                with self._wlock:
+                    over = self._unwritten + len(buf) > int(get_flag("socket_max_unwritten_bytes"))
+                if over:
+                    return ErrorCode.EOVERCROWDED
+                try:
+                    self._sslobj.write(buf.to_bytes())
+                except _ssl.SSLError as e:
+                    self.set_failed(ErrorCode.EFAILEDSOCKET, f"TLS write failed: {e}")
+                    return ErrorCode.EFAILEDSOCKET
+                cipher = IOBuf()
+                cipher.append(self._out_bio.read())
+                # force: the budget was charged against the plaintext above;
+                # TLS record overhead must not flip the verdict post-encrypt
+                rc, epoch = self._enqueue(cipher, on_error, force=True)
+        else:
+            rc, epoch = self._enqueue(buf, on_error)
         if rc == 0 and epoch is not None:
-            # one inline nonblocking attempt, then hand off to KeepWrite
-            if not self._drain_once(epoch):
-                self._pool.spawn(self._keep_write, epoch)
+            self._drive_drain(epoch)
         return rc
 
     def _enqueue(
         self,
         buf: IOBuf,
         on_error: Optional[Callable[[int, str], None]],
+        force: bool = False,
     ):
         """Queue one request. Returns (rc, epoch_or_None): a non-None epoch
-        means the caller became the drainer and must drain."""
+        means the caller became the drainer and must drain. ``force`` skips
+        the EOVERCROWDED gate (TLS records that can no longer be dropped)."""
         n = len(buf)
         if n == 0:
             return 0, None  # never enqueue an empty request
         req = WriteRequest(buf, on_error)
         with self._wlock:
-            if self._unwritten + n > int(get_flag("socket_max_unwritten_bytes")):
+            if not force and self._unwritten + n > int(get_flag("socket_max_unwritten_bytes")):
                 return ErrorCode.EOVERCROWDED, None
             self._wqueue.append(req)
             self._unwritten += n
@@ -369,6 +560,11 @@ class Socket:
                 return 0, None  # contender: active drainer picks it up
             self._writing = True
             return 0, self._wepoch
+
+    def _drive_drain(self, epoch: int) -> None:
+        # one inline nonblocking attempt, then hand off to KeepWrite
+        if not self._drain_once(epoch):
+            self._pool.spawn(self._keep_write, epoch)
 
     # -- fd I/O refs (deferred close) --------------------------------------
 
@@ -499,16 +695,35 @@ class Socket:
         (messenger defer_tail) to process AFTER the caller releases the
         socket's read state."""
         self.last_active = _monotonic()
+        if self._sslobj is not None:
+            return self._ssl_read_pump()
         eof = False
         # must equal what one read can actually deliver: a larger ask
         # would make every full read look "short" and end the drain loop
         read_chunk = read_burst_bytes()
+        # saturated-stream escalation: consecutive FULL bursts mean the peer
+        # is pushing bulk data — switch to multi-MB reads into big malloc'd
+        # blocks. Saturation is sticky across drains, but each drain's
+        # FIRST read is pooled, and a short read anywhere drops the socket
+        # back to pooled reads.
+        sticky = self._read_saturated
+        full_reads = 0
+        bulk = False
         while True:
-            rc = self._read_buf.append_from_fd(self.fd, read_chunk)
+            if bulk:
+                rc = self._read_buf.append_from_fd_bulk(self.fd, 4 << 20, 256 << 10)
+                chunk_now = 4 << 20
+            else:
+                rc = self._read_buf.append_from_fd(self.fd, read_chunk)
+                chunk_now = read_chunk
             if rc > 0:
                 in_bytes << rc
-                if rc < read_chunk:
+                if rc < chunk_now:
+                    self._read_saturated = False
                     break  # short read: kernel buffer drained
+                full_reads += 1
+                bulk = full_reads >= (1 if sticky else 2)
+                self._read_saturated = bulk or sticky
                 continue
             if rc == 0:
                 eof = True
@@ -751,32 +966,49 @@ class Socket:
                 return False
             _time.sleep(0.002)
         try:
-            conn = _dial(
-                self.remote, timeout=max(0.05, deadline - _monotonic())
-            )
-        except OSError:
+            conn = _dial(self.remote, timeout=max(0.05, deadline - _monotonic()))
+            tls = self._ssl_rewrap(conn)
+        except OSError:  # ssl.SSLError and ConnectionError both subclass it
             return False
         finally:
             with self._state_lock:
                 self._reconnecting = False
-        return self._revive(conn)
+        return self._revive(conn, tls)
+
+    def _ssl_rewrap(self, conn: _pysocket.socket):
+        """A reconnected TLS client starts a fresh session: a new SSLObject
+        handshaken on the dial socket (closed on failure), or None without
+        TLS. The session is built aside and installed by ``_revive`` only
+        if this dial wins it, so a health probe racing an inline reconnect
+        never swaps the session under a live connection."""
+        if self._ssl_context is None:
+            return None
+        tls = self._ssl_new()
+        self._ssl_blocking_handshake(conn, *tls)
+        return tls
 
     def _health_probe(self) -> None:
         if self.state != FAILED:
             return  # recycled or already revived: stop probing
         try:
             conn = _dial(self.remote, timeout=2.0)
+            tls = self._ssl_rewrap(conn)
         except OSError:
             self._schedule_health_check()
             return
-        if not self._revive(conn):
+        if not self._revive(conn, tls):
             self._schedule_health_check()
 
-    def _revive(self, conn: _pysocket.socket) -> bool:
-        with self._state_lock:
+    def _revive(self, conn: _pysocket.socket, tls=None) -> bool:
+        # lock order ssl -> state, as in _ssl_read_pump's set_failed
+        ssl_lock = self._ssl_lock if tls is not None else contextlib.nullcontext()
+        with ssl_lock, self._state_lock:
             if self.state != FAILED:
                 conn.close()
                 return False
+            if tls is not None:
+                self._in_bio, self._out_bio, self._sslobj = tls
+                self._ssl_done = True
             conn.setblocking(False)
             try:
                 conn.setsockopt(_pysocket.IPPROTO_TCP, _pysocket.TCP_NODELAY, 1)

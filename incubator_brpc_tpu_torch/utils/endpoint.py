@@ -1,9 +1,9 @@
 """EndPoint — host addressing (reference src/butil/endpoint.h).
 
 The port's copy of the JAX package's ``utils/endpoint.py``, trimmed to
-host endpoints: ``ip:port`` values with the naming tag, and
-``str2endpoint``. The device and mesh coordinates (``tpu://`` endpoints)
-belong to the mesh (ROADMAP A3).
+host endpoints: ``ip:port`` values with the naming tag, unix-domain
+endpoints (``unix://<path>``), and ``str2endpoint``. The device and mesh
+coordinates (``tpu://`` endpoints) belong to the mesh (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -45,10 +45,15 @@ _EP_RE = re.compile(r"^(?:(?P<host>[^:/\[\]]+)|\[(?P<v6>[^\]]+)\])(?::(?P<port>\
 
 
 def str2endpoint(s: str, default_port: int = 0) -> EndPoint:
-    """Parse 'ip:port' or 'host:port' into an EndPoint (reference
-    str2endpoint/hostname2endpoint, src/butil/endpoint.cpp) — hostname
-    resolution included."""
+    """Parse 'ip:port', 'host:port' or 'unix://<path>' into an EndPoint
+    (reference str2endpoint/hostname2endpoint, src/butil/endpoint.cpp) —
+    hostname resolution included."""
     s = s.strip()
+    if s.startswith("unix://"):
+        # unix domain sockets (reference butil/unix_socket.cpp): the whole
+        # "unix://<path>" travels in ip with port 0 — every consumer
+        # (Socket, Acceptor, SocketMap keys) branches on the prefix
+        return EndPoint(ip=s, port=0)
     m = _EP_RE.match(s)
     if not m:
         raise ValueError(f"bad endpoint: {s!r}")

@@ -56,6 +56,7 @@ CASES = [
     ("tensor_echo_tpu", "tensor_echo_tpu", [], CPU),
     ("parallel_echo", "parallel_echo", [], CPU),
     ("partition_echo", "partition_echo", [], CPU),
+    ("tls_echo", "tls_echo", [], []),
 ]
 MODULES = sorted({module for _case, module, _a, _b in CASES})
 

@@ -35,10 +35,10 @@ client on baidu_std is served by both packages (what refused naming A11
 here before), and an authenticator's token table keeps native methods in
 C++ on both (``_served_auth``); ``TestInterop.test_http_handoff_same_port``
 is in tests/test_torch_http.py, and baidu_std on the native plane in
-tests/test_torch_native_baidu.py. Waiting, and so not here:
+tests/test_torch_native_baidu.py. Since ROADMAP A10
 ``TestGarbageAndEdge.test_unix_endpoint_falls_back_to_python_acceptor``
-(unix sockets: A10). Tolerance: none, everything here is bytes
-and integers.
+runs on both packages: a ``unix://`` endpoint is served on the Python
+acceptor. Tolerance: none, everything here is bytes and integers.
 """
 
 from __future__ import annotations
@@ -743,6 +743,19 @@ class TestGarbageAndEdge:
         c = ch.call_method("svc", "echo", blob)
         assert c.ok(), c.error_text
         assert c.response_payload == blob
+
+    def test_unix_endpoint_falls_back_to_python_acceptor(self, pkg, tmp_path):
+        srv = pkg.rpc.Server(pkg.rpc.ServerOptions(native_plane=True, usercode_inline=True,
+                                                   **pkg.server_kw))
+        srv.add_service("svc", {"echo": pkg.rpc.native_echo})
+        _OPEN.append(srv)
+        assert srv.start(f"unix://{tmp_path}/np.sock")
+        assert srv._native_plane is None  # fell back
+        ch = pkg.rpc.Channel()
+        assert ch.init(f"unix://{tmp_path}/np.sock")
+        c = ch.call_method("svc", "echo", b"via-unix")
+        assert c.ok(), c.error_text
+        assert c.response_payload == b"via-unix"
 
 
 @pytest.mark.slow

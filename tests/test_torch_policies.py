@@ -29,13 +29,18 @@ against the JAX package's:
 - request dumps (``rpc/dump.py``): a server with ``rpc_dump`` on writes the
   requests it admits, and each package's ``load_dump_file`` reads both
   packages' files back to the same (meta, payload, attachment);
-- the idle reaper: ``TestIdleReaper`` of tests/test_rpc.py on both.
+- the idle reaper: ``TestIdleReaper`` of tests/test_rpc.py on both. The
+  active-connection case holds its own connection by identity (found by
+  the client's local port) rather than by the listener's count, and an
+  idle connection opened beside it must be reaped: a failed client socket
+  of an earlier test keeps redialing a reused port (ROADMAP C11).
 
 The servers of the port run on ``ServerOptions(device="cpu")``. Each test
 stops and joins what it started, and after each the port's host plane is
 shut down and no ``tbtorch-*`` thread is left. Tolerance: none; every
 comparison is of integers, codes or bytes."""
 
+import socket
 import threading
 import time
 import types
@@ -618,7 +623,10 @@ class TestRetryAndBackup:
         """A backup attempt must NOT settle the original attempt's
         connection mid-call (the original response may still win)."""
 
+        served_on = []  # the server's side of each attempt's connection
+
         def slow_echo(cntl, req):
+            served_on.append(cntl._sock)
             time.sleep(0.3)
             return b"original"
 
@@ -629,7 +637,13 @@ class TestRetryAndBackup:
         assert cntl.ok(), cntl.error_text
         assert cntl.response_payload == b"original"
         assert cntl.has_backup_request
-        assert wait_until(lambda: s.connection_count() == 0)  # both settled
+        # both settled: each attempt came on a connection of its own, and
+        # the server saw both closed. Held by identity, not by the count:
+        # a failed client socket of an earlier test keeps redialing a
+        # reused port and may sit idle on this listener (ROADMAP C11)
+        assert wait_until(lambda: len(served_on) == 2)
+        assert served_on[0] is not served_on[1]
+        assert wait_until(lambda: all(sock.state != 0 for sock in served_on))
 
 
 # ---------------------------------------------------------------------------
@@ -907,13 +921,35 @@ class TestIdleReaper:
         assert c.ok(), c.error_text
         assert c.response_payload == b"two"
 
+    @staticmethod
+    def _own_connection(pkg, srv):
+        """The server's side of this test's channel connection, found by the
+        client socket's local port. Other connections may come and go on
+        the listener: a failed client socket of an earlier test whose
+        server had this (reused, ephemeral) port keeps redialing it every
+        health_check_interval, and the reaper culls it when idle."""
+        client = pkg.channel._client_socket_map.get_or_create(f"127.0.0.1:{srv.port}")
+        local = client._conn.getsockname()[1]
+        mine = [s for s in srv._acceptor.connections() if s.remote.port == local]
+        assert len(mine) == 1, mine
+        return mine[0]
+
     def test_active_connection_not_reaped(self, pkg):
         # the JAX test's 0.6 s timeout, kept busy for 3x it, widened to
         # 1.5 s: a loaded host can stall one 0.2 s pause past 0.6 s
         srv = server(pkg, {"svc": {"echo": lambda cntl, req: req}}, idle_timeout_s=1.5)
         ch = connect(pkg, srv.port)
+        assert ch.call_method("svc", "echo", b"k").ok()
+        first = self._own_connection(pkg, srv)
+        idle = socket.create_connection(("127.0.0.1", srv.port))  # never speaks
         end = time.monotonic() + 4.5  # 3x the timeout, kept busy
         while time.monotonic() < end:
             assert ch.call_method("svc", "echo", b"k").ok()
             time.sleep(0.2)
-        assert len(srv._acceptor.connections()) == 1
+        # the connection of the first call serves the last, never reaped
+        # (a reaped one would have been redialed from another local port),
+        # while the idle one beside it was reaped: the server closed it
+        assert self._own_connection(pkg, srv) is first and first.state == 0
+        idle.settimeout(5)
+        assert idle.recv(1) == b""
+        idle.close()

@@ -25,7 +25,11 @@ twelve other protocols still refuse naming A11. And
 ``run_dispatch_session`` ends as the reference's does, ``..., chunk_order,
 trace_id, parent_span_id`` (ROADMAP C8), with the port's ``device`` and
 ``group_timeout_s`` keyword-only after them; a non-zero trace id binds
-there and places the session's step and chunk spans in that trace."""
+there and places the session's step and chunk spans in that trace. Since
+ROADMAP A10 ``ServerOptions(ssl_context=)`` and ``ChannelOptions(
+ssl_context=)`` no longer refuse, and the port's ``Socket`` and
+``Acceptor`` take the reference's TLS parameters, keyword-only
+(tests/test_torch_ssl.py serves them)."""
 
 import inspect
 import threading
@@ -98,14 +102,15 @@ INTERNAL = {
     "Acceptor": {
         "jax": ["endpoint", "messenger", "user_message_handler", "on_connection",
                 "conn_context", "backlog", "inline_read", "ssl_context"],
-        "torch": ["endpoint", "*", "messenger", "conn_context", "backlog", "inline_read"],
+        "torch": ["endpoint", "*", "messenger", "conn_context", "backlog", "inline_read",
+                  "ssl_context"],
     },
     "Socket": {
         "jax": ["conn", "remote", "messenger", "is_client", "health_check_interval",
                 "user_message_handler", "context", "inline_read", "preread",
                 "ssl_context", "ssl_server_side", "ssl_server_hostname"],
         "torch": ["conn", "*", "remote", "messenger", "is_client", "context", "inline_read",
-                  "preread"],
+                  "preread", "ssl_context", "ssl_server_side", "ssl_server_hostname"],
     },
     "Protocol": {
         "jax": ["name", "parse", "parse_header", "pack_request", "pack_response",
@@ -251,8 +256,6 @@ REFUSED = [
     ("ServerOptions", {"thrift_service": print}, "A11"),
     ("ServerOptions", {"mongo_service_adaptor": object()}, "A11"),
     ("ServerOptions", {"rtmp_service": object()}, "A11"),
-    ("ServerOptions", {"ssl_context": object()}, "A10"),
-    ("ChannelOptions", {"ssl_context": object()}, "A10"),
 ] + [("ChannelOptions", {"protocol": name}, "A11") for name in port_channel.UNPORTED_PROTOCOLS]
 
 

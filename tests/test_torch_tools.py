@@ -24,7 +24,8 @@ text (written and scraped live) gives the same ``parse_exposition`` and
 ``metrics_delta_lines``; one package's ``rpc_press`` floods the other's
 server, both ways; the press's result dictionaries carry the JAX keys;
 each tool's ``main`` prints the JAX tool's lines; and chip_smoke.py's phase
-3j runs on the CPU.
+3j and its ``--drills`` mode run on the CPU. On the port alone: the drill
+counts the calls a grace-expiry hard stop cut as resets (ROADMAP C13).
 
 Servers of the port run on ``ServerOptions(device="cpu")``; each test
 stops and joins what it started and leaves no ``tbtorch-*`` thread.
@@ -380,6 +381,27 @@ def test_lame_duck_drill_tool(pkg, tuned):
     assert wait_until(lambda: srv._stopping, timeout=10)  # the drill terminated the target
 
 
+@pytest.mark.parametrize("pkg", ["torch"], indirect=True)
+def test_lame_duck_drill_counts_a_hard_stop_as_reset(pkg, tuned):
+    """A drain whose grace expires under in-flight handlers cuts admitted
+    calls: the drill counts them as resets although nothing was served
+    after them (ROADMAP C13: the fixed 50 ms band alone saw no served call
+    to measure from and reported this drain clean)."""
+    tuned("enable_quitquitquit", True)
+
+    def slow(cntl, req):
+        time.sleep(1.0)
+        return req
+
+    srv = server(pkg, {"S": {"echo": slow}})
+    counts = tools_of(pkg).press.run_lame_duck_drill(f"127.0.0.1:{srv.port}", "S", "echo",
+                                                     b"x" * 32, threads=3, duration=2.0,
+                                                     timeout_ms=3000, grace_s=0.1)
+    assert not counts["drained_clean"], counts
+    assert counts["reset"] == 3 and counts["ok"] == 0, counts
+    assert wait_until(lambda: srv._stopping, timeout=10)
+
+
 def test_rpc_view_links_table(pkg):
     values = {
         'device_link_3_step_rtt_us{quantile="0.99"}': 450.0,
@@ -598,3 +620,19 @@ def test_chip_smoke_phase_3j_on_the_cpu():
     assert PKGS["torch"].flags.flag_registry.get("rpc_dump") is False  # put back
     assert PKGS["torch"].flags.flag_registry.get("enable_quitquitquit") is False
     assert time.monotonic() - t0 < 120
+
+
+def test_chip_smoke_drills_on_the_cpu(tmp_path):
+    """``chip_smoke.py --drills``'s body on the CPU: 16 callers, two drills,
+    each drained clean with a band of at least 50 ms, the flag put
+    back."""
+    import chip_smoke
+
+    out = tmp_path / "drills.json"
+    assert chip_smoke.drills_only(2, str(out), device="cpu") == 0
+    drills = json.loads(out.read_text())["drills"]
+    assert len(drills) == 2
+    for counts in drills:
+        assert counts["drained_clean"] and counts["reset"] == 0 and counts["ok"] > 0
+        assert counts["guard_ms"] >= 50.0
+    assert PKGS["torch"].flags.flag_registry.get("enable_quitquitquit") is False
