@@ -13,8 +13,9 @@ the fused and the sliced schedules, the step with heads = 0 and its ring
 mean (K4f), the step on the fabric mesh with all 8 ranks on the card (tp
 psum, pp GPipe, sp ring attention and ring mean, ep all_to_all), the
 quantized collective sessions (K2), the port's tools pressing the device
-echo, the device echo over TLS and unix-domain sockets, and its examples
-and entry points (``graft_entry.py``).
+echo, the device echo over TLS and unix-domain sockets and over the
+legacy nshead, mcpack and pbrpc wires, and its examples and entry points
+(``graft_entry.py``).
 
     python3 chip_smoke.py [--out FILE]
     python3 chip_smoke.py --k2-only ROOT [--out FILE]   # phase 11 alone, the port under ROOT
@@ -214,6 +215,20 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    a plain route: a TLS failure fails the phase. K1a and K1c must launch on
    every route; the kernels line's K1 entries carry the tallies as
    ``tls_launches``;
+3l. drives the device echo over the legacy wires of ROADMAP A11b
+   (``legacy_phase``) at phase 3b's geometry, every answer bitwise
+   ``expected()``: (a) hulu_pbrpc and sofa_pbrpc in turns with tbus_std on
+   one server (20 sequential calls a wire, then 16 x 8); (b) an
+   ``nshead_service`` server each for nshead (an mcpack service, reached
+   by ``nshead_mcpack``), nova_pbrpc, public_pbrpc and ubrpc_mcpack2 (the
+   echo's bytes an mcpack binary field), on pooled connections, the same
+   turns and bursts; (c) a hulu and an nshead call to a ``native_plane=
+   True`` server, both handed to the Python plane, ``native_reqs``
+   unmoved; (d) the host's µs to ``dumps``/``loads`` the ubrpc request
+   body. Each server counts the requests of every wire it answers, and
+   they must equal the calls made: nothing falls back to tbus_std. K1a and
+   K1c must launch in (a)-(c); the kernels line's K1 entries carry the
+   tallies as ``legacy_launches``;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -4151,6 +4166,250 @@ def tls_phase(torch, kernels, device=None, scale: float = 1.0):
     return out, tally
 
 
+LEGACY_WINDOW = 16  # the endpoint's window (phase 3b's geometry)
+LEGACY_SEQ = 10  # sequential calls a wire and turn
+LEGACY_SEQ_MIN = 2  # ... at the smallest scale
+LEGACY_TURNS = 2  # the wires in order, then in reverse order
+LEGACY_BURST = (16, 8)  # callers x calls each, a wire
+LEGACY_BURST_MIN = 1  # calls each at the smallest scale
+LEGACY_CODEC_LOOPS = 2000  # (d): the ubrpc request body dumped and loaded this many times
+# (a): the wires with correlation ids, on one server beside tbus_std
+LEGACY_ID_WIRES = ("tbus_std", "hulu_pbrpc", "sofa_pbrpc")
+# (b): the nshead wires, each on a server of its own: the client protocol and
+# the server's nshead_service (the nshead server's is an mcpack service)
+LEGACY_NSHEAD_WIRES = {
+    "nshead": "nshead_mcpack",
+    "nova_pbrpc": "nova_pbrpc",
+    "public_pbrpc": "public_pbrpc",
+    "ubrpc_mcpack2": "ubrpc_mcpack2",
+}
+
+
+def legacy_phase(torch, kernels, device=None, scale: float = 1.0):
+    """Phase 3l: the device echo (``DeviceEndpoint.server_handler()`` as
+    ``tensor.echo``, 256 B, window 16) over the legacy wires of ROADMAP
+    A11b, every answer bitwise ``expected()``: (a) hulu_pbrpc and
+    sofa_pbrpc through ``ChannelOptions(protocol=...)``, in turns with
+    tbus_std on the same server (``LEGACY_TURNS`` turns of ``LEGACY_SEQ``
+    sequential calls a wire), then a ``LEGACY_BURST`` burst a wire; (b) an
+    ``nshead_service`` server each for nshead (an mcpack service, reached
+    with ``nshead_mcpack``), nova_pbrpc and public_pbrpc (through their
+    adaptors) and ubrpc_mcpack2 (the echo's bytes as an mcpack binary
+    field), on pooled connections, the same turns and bursts; (c) one hulu
+    and one nshead call to a ``native_plane=True`` server, each handed to
+    the Python plane, the C++ dispatch's ``native_reqs`` unmoved; (d) the
+    µs to ``dumps`` and ``loads`` the ubrpc request body on the host. Every
+    wire is held to the protocol it names: the server counts the frames of
+    each wire it answers (``cntl._wire_protocol`` on (a)'s server, the
+    nshead service a server on (b)'s), and those counts must equal the
+    calls made, so no call may fall back to tbus_std. K1 is tallied per
+    part. Returns (figures, {part: K1 launches})."""
+    from incubator_brpc_tpu_torch.protocol import legacy_pbrpc as lp
+    from incubator_brpc_tpu_torch.protocol import mcpack
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, ServerOptions
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+
+    tally = {}
+
+    def counted(part, fn):
+        before = kernels.launch_counts()
+        try:
+            return fn()
+        finally:
+            after = kernels.launch_counts()
+            row = tally.setdefault(part, dict.fromkeys(K1, 0))
+            for k in K1:
+                row[k] += after[k] - before[k]
+
+    ep = DeviceEndpoint(window_size=LEGACY_WINDOW, max_batch=LEGACY_WINDOW, device=device)
+    handler = ep.server_handler()
+    frames = {}  # wire -> requests its server answered
+    frames_lock = threading.Lock()
+
+    def seen(wire):
+        with frames_lock:
+            frames[wire] = frames.get(wire, 0) + 1
+
+    def by_wire(cntl, request):
+        seen(getattr(cntl, "_wire_protocol", "tbus_std"))
+        return handler(cntl, request)
+
+    def served(wire):
+        def run(cntl, request):
+            seen(wire)
+            return handler(cntl, request)
+        return run
+
+    def nshead_echo(cntl, req):
+        seen("nshead")
+        return {"data": handler(cntl, req["data"])}
+
+    def ubrpc_echo(cntl, params):
+        seen("ubrpc_mcpack2")
+        return mcpack.dumps({"data": handler(cntl, mcpack.loads(params)["data"])})
+
+    servers = []
+
+    def start(services, **kw):
+        srv = Server(ServerOptions(device=device, **kw))
+        for name, hs in services.items():
+            srv.add_service(name, hs)
+        if not srv.start(0):
+            raise AssertionError("phase3l: a Server did not start")
+        servers.append(srv)
+        return srv
+
+    def channel(port, protocol, **kw):
+        ch = Channel()
+        if not ch.init(f"127.0.0.1:{port}",
+                       options=ChannelOptions(protocol=protocol, timeout_ms=300_000, **kw)):
+            raise AssertionError(f"phase3l {protocol}: a Channel did not init")
+        return ch
+
+    def caller(wire, ch):
+        """(payload) -> (code, answer) of ``tensor.echo`` over ``ch``, the
+        payload wrapped as the wire's body wants it."""
+        wrapped = wire in ("nshead", "ubrpc_mcpack2")
+
+        def call(p):
+            c = ch.call_method("tensor", "echo", mcpack.dumps({"data": p}) if wrapped else p)
+            if c.error_code or not wrapped:
+                return c.error_code, c.response_payload
+            return 0, mcpack.loads(c.response_payload)["data"]
+        return call
+
+    n_seq = max(LEGACY_SEQ_MIN, round(LEGACY_SEQ * scale))
+    burst = (LEGACY_BURST[0], max(LEGACY_BURST_MIN, round(LEGACY_BURST[1] * scale)))
+    rng = np.random.default_rng(97)
+
+    def runs(part, calls, rows):
+        """Every wire of ``calls`` in turns (in order, then reversed), then
+        a burst a wire, each answer held against ``expected()``; each
+        wire's server must have answered exactly the calls made."""
+        for wire in calls:
+            rows[wire] = {"calls": 0, "right": 0, "seq_us": [], "burst_calls": 0,
+                          "burst_right": 0}
+        before = dict(frames)
+
+        def checked(wire, key):
+            """One echo over ``wire``, held bitwise; counted under ``key``."""
+            def one(p):
+                code, got = calls[wire](p)
+                echo_check(f"({part}) {wire}", p, code, got, phase="phase3l")
+                with frames_lock:
+                    rows[wire][key] += 1
+            return one
+
+        for turn in range(LEGACY_TURNS):
+            for wire in (list(calls) if turn % 2 == 0 else list(reversed(calls))):
+                seq = iter([rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+                            for _ in range(n_seq)])
+                one = checked(wire, "right")
+                rows[wire]["seq_us"].append(
+                    counted(part, lambda: sequential_us(lambda: one(next(seq)), n_seq)))
+                rows[wire]["calls"] += n_seq
+        for wire in calls:
+            one = checked(wire, "burst_right")
+            payloads = [[rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+                         for _ in range(burst[1])] for _ in range(burst[0])]
+            t0 = time.perf_counter()
+            counted(part, lambda: call_threads(burst[0], lambda i: [one(p) for p in payloads[i]]))
+            rows[wire]["calls_per_s"] = burst[0] * burst[1] / (time.perf_counter() - t0)
+            rows[wire]["burst_calls"] = burst[0] * burst[1]
+        for wire, row in rows.items():
+            row["server_frames"] = frames.get(wire, 0) - before.get(wire, 0)
+            if row["server_frames"] != row["calls"] + row["burst_calls"]:
+                raise AssertionError(
+                    f"phase3l ({part}) {wire}: the server answered {row['server_frames']} "
+                    f"{wire} requests of {row['calls'] + row['burst_calls']} calls made: "
+                    f"{frames}")
+
+    out = {"a": {}, "b": {}}
+    try:
+        ep.warm(256)
+
+        # (a) hulu and sofa beside tbus_std on one server ----------------
+        srv = start({"tensor": {"echo": by_wire}})
+        runs("a", {wire: caller(wire, channel(srv.port, wire)) for wire in LEGACY_ID_WIRES},
+             out["a"])
+
+        # (b) the nshead wires, a server each, pooled connections ---------
+        adaptors = {"nshead": mcpack.make_mcpack_service(nshead_echo),
+                    "nova_pbrpc": lp.NovaServiceAdaptor,
+                    "public_pbrpc": lp.PublicPbrpcServiceAdaptor,
+                    "ubrpc_mcpack2": lp.UbrpcServiceAdaptor}
+        calls = {}
+        for wire, protocol in LEGACY_NSHEAD_WIRES.items():
+            services = {"tensor": {"echo": served(wire)}}
+            if wire == "ubrpc_mcpack2":
+                services = {"tensor": {"echo": ubrpc_echo}}
+            s = start(services, nshead_service=adaptors[wire])
+            calls[wire] = caller(wire, channel(s.port, protocol, connection_type="pooled"))
+        runs("b", calls, out["b"])
+
+        # (c) the native plane hands the legacy frames off ----------------
+        nat = start({"tensor": {"echo": by_wire}}, native_plane=True,
+                    nshead_service=mcpack.make_mcpack_service(nshead_echo))
+        plane = nat._native_plane
+        if plane is None:
+            raise AssertionError("phase3l (c): the server has no native plane")
+        before = plane.stats()
+        frames_before = dict(frames)
+        c = {}
+        for label, wire, protocol in (("hulu", "hulu_pbrpc", "hulu_pbrpc"),
+                                      ("nshead", "nshead", "nshead_mcpack")):
+            p = rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+            code, got = counted("c", lambda: caller(wire, channel(nat.port, protocol))(p))
+            echo_check(f"(c) {label}", p, code, got, phase="phase3l")
+            c[f"{label}_right"] = True
+            if frames.get(wire, 0) - frames_before.get(wire, 0) != 1:
+                raise AssertionError(f"phase3l (c) {label}: not answered as {wire}")
+        after = plane.stats()
+        c.update(handoffs=after["handoffs"] - before["handoffs"],
+                 native_reqs_moved=after["native_reqs"] - before["native_reqs"])
+        if c["handoffs"] != 2 or c["native_reqs_moved"] != 0:
+            raise AssertionError(f"phase3l (c): {c['handoffs']} handoffs (2 expected), "
+                                 f"native_reqs moved by {c['native_reqs_moved']}")
+        out["c"] = c
+
+        # (d) the ubrpc request body's codec on the host ------------------
+        body = {"header": {"connection": True},
+                "content": [{"service_name": "tensor", "id": 1, "method": "echo",
+                             "params": {"data": rng.integers(0, 256, size=256,
+                                                             dtype=np.uint8).tobytes()}}]}
+        t0 = time.perf_counter()
+        for _ in range(LEGACY_CODEC_LOOPS):
+            wire_body = mcpack.dumps(body)
+        dumps_us = 1e6 * (time.perf_counter() - t0) / LEGACY_CODEC_LOOPS
+        t0 = time.perf_counter()
+        for _ in range(LEGACY_CODEC_LOOPS):
+            back = mcpack.loads(wire_body)
+        loads_us = 1e6 * (time.perf_counter() - t0) / LEGACY_CODEC_LOOPS
+        out["d"] = {"bytes": len(wire_body), "dumps_us": dumps_us, "loads_us": loads_us,
+                    "loads_equal": back == body}
+        if not out["d"]["loads_equal"]:
+            raise AssertionError("phase3l (d): the ubrpc body did not load back equal")
+    finally:
+        for s in servers:
+            s.stop()
+            s.join(timeout=60)
+        if not ep.close(timeout=120):
+            raise AssertionError("phase3l: the endpoint did not settle its calls")
+    for part in ("a", "b"):
+        for wire, row in out[part].items():
+            log(f"phase3l ({part}) {wire}: {row['calls']} sequential calls of 256 B in "
+                f"{LEGACY_TURNS} turns, {' / '.join(f'{v:.1f}' for v in row['seq_us'])} us a "
+                f"call; {burst[0]} x {burst[1]}: {row['calls_per_s']:.1f} calls/s; the server "
+                f"answered {row['server_frames']} {wire} requests")
+        log(f"phase3l ({part}) launches {[tally[part][k] for k in K1]}")
+    log(f"phase3l (c) native plane: one hulu and one nshead echo answered bitwise, "
+        f"{out['c']['handoffs']} connections handed off, native_reqs moved "
+        f"{out['c']['native_reqs_moved']}; launches {[tally['c'][k] for k in K1]}")
+    log(f"phase3l (d) the ubrpc request body ({out['d']['bytes']} B, 256 B of params) on the "
+        f"host: dumps {out['d']['dumps_us']:.2f} us, loads {out['d']['loads_us']:.2f} us")
+    return out, tally
+
+
 ENTRY_TOL = 1e-5  # tests/test_torch_entry.py: the f32 forward's absolute tolerance
 DRYRUN_RANKS = 8
 
@@ -6789,6 +7048,18 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase3k: {tls_fig['phase_s']:.1f} s; K1 launches by route {tls_k1}")
 
+    # -- phase 3l: nshead, mcpack and the legacy pbrpc wires, K1 counted ------
+    log(f"phase3l on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    legacy_fig, legacy_k1 = legacy_phase(torch, kernels)
+    legacy_fig["phase_s"] = time.perf_counter() - t0
+    for part in ("a", "b", "c"):
+        missing = [name for name in ("frame_rows", "echo_step_rows") if legacy_k1[part][name] == 0]
+        if missing:
+            raise AssertionError(f"phase3l ({part}): kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase3l: {legacy_fig['phase_s']:.1f} s; K1 launches by part {legacy_k1}")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -6848,6 +7119,7 @@ def main() -> int:
             "rpcz_launches": {part: row[name] for part, row in sorted(rpcz_k1.items())},
             "tools_launches": {part: row[name] for part, row in sorted(tools_k1.items())},
             "tls_launches": {route: row[name] for route, row in sorted(tls_k1.items())},
+            "legacy_launches": {part: row[name] for part, row in sorted(legacy_k1.items())},
             "entry_launches": entry_k["b"].get(name, 0),
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -6907,6 +7179,7 @@ def main() -> int:
                        "rpcz": rpcz_fig, "rpcz_launches": rpcz_k1,
                        "tools": tools_fig, "tools_launches": tools_k1,
                        "tls": tls_fig, "tls_launches": tls_k1,
+                       "legacy": legacy_fig, "legacy_launches": legacy_k1,
                        "entry": entry_fig, "entry_launches": entry_k,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],

@@ -4,4 +4,6 @@ incubator_brpc_tpu_torch.examples.<name>``: the JAX package's
 lines. The host examples touch no device; ``echo`` (``demo tpu``),
 ``link_performance``, ``tensor_echo_tpu`` and the device halves of
 ``parallel_echo`` and ``partition_echo`` run on the card, or on the CPU
-with ``--device cpu``."""
+with ``--device cpu``; ``multi_protocol``, ``nshead_extension`` and
+``ubrpc_compack`` (the legacy wires on one port) take ``--device`` for
+their server's device."""

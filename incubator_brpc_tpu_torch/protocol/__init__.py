@@ -1,19 +1,24 @@
 """protocol — the host wire protocols and their registry (reference L4,
 src/brpc/policy/).
 
-Three protocols share a port, registered in the JAX package's order, which
+The protocols share a port, registered in the JAX package's order, which
 is the order the messenger probes a new connection in: tbus_std
 (``parse=try_parse_frame``, ``parse_iobuf=parse_frame_iobuf``, the cut on
 the read IOBuf, native; packed by ``pack_frame_iobuf``, responses by
 ``pack_response_iobuf``, where the JAX package registers ``pack_frame``), http (``protocol/http.py``: the builtin pages,
 custom handlers, restful mappings and the ``/<service>/<method>``
 gateway; the channel's FIFO-correlated client) and baidu_std
-(``protocol/baidu_std.py``: the reference's PRPC wire). Frames are sized by
+(``protocol/baidu_std.py``: the reference's PRPC wire), nshead
+(``protocol/nshead.py``: the 36-byte legacy head, scanned only where the
+server registered an ``nshead_service``) and the legacy pbrpc family
+(``protocol/legacy_pbrpc.py``: hulu_pbrpc, sofa_pbrpc, the FIFO-correlated
+nshead clients and esp). Frames are sized by
 ``parse_header`` first, so a frame over ``max_body_size`` is refused from
 its header (transport/messenger.py). ``rpc/channel.py`` and
 ``rpc/server.py`` bind tbus_std's response and request hooks at import,
-and ``rpc/stream.py`` its stream hook. The other protocols of the JAX
-package wait for ROADMAP A11.
+and ``rpc/stream.py`` its stream hook. mongo, thrift and rtmp, which the
+JAX package registers between nshead and the legacy family, wait for
+ROADMAP A11d and A11e.
 """
 
 from incubator_brpc_tpu_torch.protocol import tbus_std
@@ -50,6 +55,15 @@ from incubator_brpc_tpu_torch.protocol import http as _http  # noqa: E402,F401
 # baidu_std: the reference's exact wire format ("PRPC" header + protobuf
 # RpcMeta), selectable per channel and recognized per connection
 from incubator_brpc_tpu_torch.protocol import baidu_std as _baidu_std  # noqa: E402,F401
+
+# nshead: the legacy framing family's representative, multiplexed on the
+# same port via the registry scan (policy/nshead_protocol.cpp)
+from incubator_brpc_tpu_torch.protocol import nshead as _nshead  # noqa: E402,F401
+
+# the legacy Baidu family: hulu/sofa (full duplex), nova/public_pbrpc/
+# ubrpc_mcpack2/nshead_mcpack/esp clients + server adaptors
+# (policy/hulu_pbrpc_protocol.cpp and friends)
+from incubator_brpc_tpu_torch.protocol import legacy_pbrpc as _legacy  # noqa: E402,F401
 
 __all__ = [
     "HEADER_BYTES",

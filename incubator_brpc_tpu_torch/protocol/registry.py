@@ -4,10 +4,9 @@ A Protocol is a bundle of parse/pack callbacks registered per name; servers
 try registered protocols in order on each connection and remember the first
 that matches (_preferred_index, input_messenger.cpp:60-129).
 
-The port's copy of the JAX package's ``protocol/registry.py``, trimmed to
-the fields its three protocols fill (tbus_std, http and baidu_std): the
-option-gated scan (``enabled_for``) of the protocols that wait for ROADMAP
-A11 is not copied.
+The port's copy of the JAX package's ``protocol/registry.py``, with the
+same fields in the same order, ``enabled_for`` (the option-gated scan of
+nshead and the legacy client rows) included.
 """
 
 from __future__ import annotations
@@ -26,9 +25,8 @@ MAX_HEADER_PEEK = 64 * 1024
 @dataclass
 class Protocol:
     name: str
-    # every field after the name is keyword-only: the reference's dataclass
-    # has a field (enabled_for) the port does not copy, so a positional
-    # call written for it must fail here, not bind elsewhere
+    # every field after the name is keyword-only, as every protocol of the
+    # port builds its row: a positional call binds by name or fails
     _: KW_ONLY
     # (buf) -> (parsed_or_None, consumed); raises ParseError if not this protocol
     parse: Callable
@@ -62,6 +60,12 @@ class Protocol:
     # reset_parsing_context); here the hook keeps it in sock.context.
     # consumed>0 with no frame = progress; the messenger keeps cutting.
     parse_conn: Optional[Callable] = None
+    # (sock) -> bool: whether this protocol participates in the scan for
+    # this connection. Lets option-dependent protocols (nshead needs a
+    # registered service; its magic sits too deep to classify short
+    # garbage) stay out of connections that can never speak them — the
+    # reference gates serving on ServerOptions the same way.
+    enabled_for: Optional[Callable] = None
     # True: the wire carries no correlation ids, responses match requests
     # strictly in order per connection (HTTP) — the channel keeps a FIFO of
     # in-flight cids on the socket instead of reading ids off the frame.

@@ -55,9 +55,13 @@ observable. ``ChannelOptions(ssl_context=, ssl_server_hostname=)`` carry
 every connection of the channel over TLS on the Python route (tbus_std,
 baidu_std, HTTP, streams and device-link handshakes alike), on
 connections of their own in the socket map; a ``unix://<path>`` target
-dials a unix-domain socket. The other protocols (ROADMAP A11) are a later
-item; their option keeps the reference's place and refuses a value with
-the ROADMAP item that brings them.
+dials a unix-domain socket. ``protocol=`` takes the legacy family too:
+hulu_pbrpc and sofa_pbrpc (correlation ids on the wire), and nova_pbrpc,
+public_pbrpc, ubrpc_mcpack2, nshead_mcpack and esp, answered in order on
+their connection (``fifo_responses``): such a socket is tagged with the
+protocol it speaks (``context["fifo_protocol"]``), which picks its response
+decoder and gates the scan of its replies. mongo, thrift (ROADMAP A11d) and
+rtmp (A11e) are later items; the option refuses them naming their item.
 """
 
 from __future__ import annotations
@@ -282,12 +286,9 @@ class RetryBudget:
             return self._tokens
 
 
-# the JAX package's other registered protocols: a channel asking for one is
-# refused naming the ROADMAP item that brings them
-UNPORTED_PROTOCOLS = (
-    "nshead", "mongo", "thrift", "rtmp", "hulu_pbrpc", "sofa_pbrpc", "nshead_client",
-    "nova_pbrpc", "public_pbrpc", "ubrpc_mcpack2", "nshead_mcpack", "esp",
-)
+# the JAX package's other registered protocols, each with the ROADMAP item
+# that brings it: a channel asking for one is refused naming it
+UNPORTED_PROTOCOLS = {"mongo": "A11d", "thrift": "A11d", "rtmp": "A11e"}
 
 
 def tls_key_tag(options: "ChannelOptions") -> str:
@@ -352,15 +353,15 @@ class ChannelOptions:
         if link_controller not in ("single", "multi"):
             raise ValueError(f"unknown link_controller {link_controller!r}")
         if protocol in UNPORTED_PROTOCOLS:
-            refuse_unported("ChannelOptions", "protocol", protocol, "A11")
+            refuse_unported("ChannelOptions", "protocol", protocol, UNPORTED_PROTOCOLS[protocol])
         self.timeout_ms = timeout_ms
         self.max_retry = max_retry
         # duplicate a call to another server when the first attempt has not
         # answered after this long (<= 0 off); the faster reply wins
         self.backup_request_ms = backup_request_ms
         self.connect_timeout = connect_timeout
-        # "tbus_std", "baidu_std" or "http", by name through the protocol
-        # registry (reference AdaptiveProtocolType)
+        # "tbus_std", "baidu_std", "http" or one of the legacy family, by
+        # name through the protocol registry (reference AdaptiveProtocolType)
         self.protocol = protocol
         self.auth = auth  # Authenticator (rpc/auth.py)
         # "single" (shared main socket), "pooled" (exclusive connection per
@@ -999,6 +1000,12 @@ class Channel:
                 raise ValueError(f"protocol {proto_name!r} cannot pack requests")
             if proto.fifo_responses and sock.remote is not None:
                 meta.extra["http_host"] = f"{sock.remote.ip}:{sock.remote.port}"
+            if proto.fifo_responses:
+                # response frames on this connection belong to this
+                # protocol: the legacy client rows gate their scan on it
+                # and it names the decoder (a client socket has no Server
+                # context to gate by)
+                sock.context["fifo_protocol"] = proto_name
             data = proto.pack_request(meta, payload, cid, attachment=cntl.request_attachment)
             if proto.fifo_responses:
                 # no wire correlation id: record the cid in the

@@ -47,7 +47,11 @@ nested client call parents to it), and every started server with builtin
 services registers with ``builtin/portal.py`` for the portal's pages. A
 TLS port (``ssl_context``) and a unix-domain endpoint (``start(
 "unix://<path>")``) are served on the Python acceptor, even with
-``native_plane=True``. The other protocols (A11) are a later item. The
+``native_plane=True``. ``nshead_service`` serves nshead frames on the
+same port, and with the adaptors of ``protocol/legacy_pbrpc.py`` nova,
+public_pbrpc and ubrpc; hulu_pbrpc and sofa_pbrpc requests reach the method
+map like tbus_std's (on a native-plane server through the handoff to the
+Python plane). thrift, mongo (A11d) and rtmp (A11e) are later items. The
 method map (``_MethodMap``) is keyed on the native FlatMap of the port's
 host runtime. A server listens on the Python acceptor, or with
 ``ServerOptions(native_plane=True)`` on the C++ reactors of
@@ -378,10 +382,9 @@ class ServerOptions:
         device: DeviceLike = None,
     ):
         unported = (
-            ("nshead_service", nshead_service, None, "A11"),
-            ("thrift_service", thrift_service, None, "A11"),
-            ("mongo_service_adaptor", mongo_service_adaptor, None, "A11"),
-            ("rtmp_service", rtmp_service, None, "A11"),
+            ("thrift_service", thrift_service, None, "A11d"),
+            ("mongo_service_adaptor", mongo_service_adaptor, None, "A11d"),
+            ("rtmp_service", rtmp_service, None, "A11e"),
         )
         for name, value, default, item in unported:
             if value != default:
@@ -420,6 +423,9 @@ class ServerOptions:
         # device this server binds for transport='tpu' links (None = pick a
         # neighbor of the client's device; the reference's use_rdma slot)
         self.device_index = device_index
+        # fn(cntl, head: dict, body: bytes) -> bytes — the single legacy
+        # nshead handler (reference ServerOptions.nshead_service)
+        self.nshead_service = nshead_service
         # ssl.SSLContext (server side): every connection of this port is
         # TLS, its handshake pumped from the reactor (reference
         # ServerOptions.ssl_options). A TLS port stays on the Python plane.

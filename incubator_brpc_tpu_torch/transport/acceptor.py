@@ -7,7 +7,11 @@ The port's copy of the JAX package's ``transport/acceptor.py``: TCP and
 ``unix://<path>`` listeners (a stale socket file is unlinked, a live
 listener's path refused, the path unlinked at stop), server-side TLS
 (``ssl_context``: each accepted socket pumps its handshake from the
-reactor), and the lame-duck ``pause``.
+reactor), and the lame-duck ``pause``. An accepted socket is registered,
+or failed, under the lock ``stop`` takes, so a connection accepted while
+the acceptor stops is closed with the rest (ROADMAP C14: the JAX package's
+copy can register it after ``stop``'s snapshot, leaving a live connection
+to a stopped server).
 """
 
 from __future__ import annotations
@@ -141,7 +145,14 @@ class Acceptor:
                     ssl_server_side=self._ssl_context is not None,
                 )
                 with self._conn_lock:
-                    self._connections[sock.id] = sock
+                    live = not self._stopped
+                    if live:
+                        self._connections[sock.id] = sock
+                if not live:
+                    # stop() ran while this one was being accepted and did
+                    # not see it: fail it as stop() failed the others
+                    sock.set_failed(ErrorCode.ECLOSE, "acceptor stopped")
+                    return
                 sock.on_failed.append(self._forget)
         finally:
             with self._conn_lock:
@@ -182,8 +193,9 @@ class Acceptor:
             pass
 
     def stop(self) -> None:
-        was_paused = self._paused
-        self._stopped = True
+        with self._conn_lock:
+            was_paused = self._paused
+            self._stopped = True
         if not was_paused:  # pause already tore the listener down
             self._close_listener()
         for sock in self.connections():

@@ -27,15 +27,18 @@ header scan by answering None (the takeover signal). Frames of a protocol
 without correlation ids (HTTP) run inline in wire order, through their
 ordering hooks (``pre_dispatch``) and, for a handler that reads a body
 this fiber still feeds, on a worker spawned in wire order
-(``force_worker``). The protocol scan's option gate (``enabled_for``) and
-the user message handler are not copied.
+(``force_worker``). The protocol scan skips a protocol whose option gate
+(``enabled_for``) refuses the connection, as the JAX package's does: nshead
+only where the server registered an ``nshead_service``, the legacy client
+rows only on a socket tagged with their FIFO protocol. The user message
+handler is not copied.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 from incubator_brpc_tpu_torch.protocol.registry import (
     MAX_HEADER_PEEK,
@@ -54,12 +57,16 @@ _HEADER_PEEK = 64  # covers every registered protocol's fixed header
 
 class InputMessenger:
     @staticmethod
-    def _ordered(sock) -> List[Protocol]:
-        protos = protocol_registry.ordered()
+    def _ordered(sock) -> Iterator[Protocol]:
+        """The protocols the scan may try on ``sock``, its preferred one
+        first. Lazy: the scan stops at the first that matches, which on a
+        settled connection is the preferred one, so no other gate runs."""
         pref = sock.preferred_protocol
-        if pref is not None and pref in protos and protos[0] is not pref:
-            protos = [pref] + [p for p in protos if p is not pref]
-        return protos
+        if pref is not None and (pref.enabled_for is None or pref.enabled_for(sock)):
+            yield pref
+        for p in protocol_registry.ordered():
+            if p is not pref and (p.enabled_for is None or p.enabled_for(sock)):
+                yield p
 
     def process(self, sock, defer_tail: bool = False):
         """Cut and dispatch every complete message in sock._read_buf.

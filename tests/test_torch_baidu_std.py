@@ -375,8 +375,10 @@ def test_interop_jax_channel_against_port_server():
 
 def test_registry_order_matches():
     names = [[p.name for p in pkg.proto.protocol_registry.ordered()] for pkg in PKGS.values()]
-    assert names[1] == ["tbus_std", "http", "baidu_std"]
-    assert names[0][:3] == names[1]
+    assert names[1][:3] == ["tbus_std", "http", "baidu_std"]
+    assert names[0][:3] == names[1][:3]
+    # the port's later protocols (A11b on) keep the JAX package's order
+    assert names[1] == [name for name in names[0] if name in names[1]]
 
 
 def _opening(kind):

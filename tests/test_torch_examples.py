@@ -57,6 +57,9 @@ CASES = [
     ("parallel_echo", "parallel_echo", [], CPU),
     ("partition_echo", "partition_echo", [], CPU),
     ("tls_echo", "tls_echo", [], []),
+    ("multi_protocol", "multi_protocol", [], CPU),
+    ("nshead_extension", "nshead_extension", [], CPU),
+    ("ubrpc_compack", "ubrpc_compack", [], CPU),
 ]
 MODULES = sorted({module for _case, module, _a, _b in CASES})
 

@@ -915,8 +915,11 @@ class TestIdleReaper:
         srv = server(pkg, {"svc": {"echo": lambda cntl, req: req}}, idle_timeout_s=0.4)
         ch = connect(pkg, srv.port)
         assert ch.call_method("svc", "echo", b"one").ok()
-        assert len(srv._acceptor.connections()) == 1
-        assert wait_until(lambda: not srv._acceptor.connections()), "idle conn not reaped"
+        # this test's own connection, by identity: a stray redialing the
+        # (reused) port may sit beside it on the listener
+        mine = self._own_connection(pkg, srv)
+        assert wait_until(lambda: mine not in srv._acceptor.connections()), "idle conn not reaped"
+        assert mine.state != 0
         c = ch.call_method("svc", "echo", b"two", cntl=pkg.rpc.Controller(max_retry=3))
         assert c.ok(), c.error_text
         assert c.response_payload == b"two"

@@ -20,8 +20,11 @@ injector, the data factories, the retry policy and backup requests), and
 the positional calls of C7 that pass ``max_concurrency`` or
 ``backup_request_ms`` now bind on both packages. ``ChannelOptions(protocol=
 "baidu_std")`` and ``"http"`` (ROADMAP A11a) are served by both packages
-(``test_both_packages_serve_the_protocol_option``); the JAX package's
-twelve other protocols still refuse naming A11. And
+(``test_both_packages_serve_the_protocol_option``), and since ROADMAP A11b
+so are hulu_pbrpc and sofa_pbrpc there, the other seven names of the
+legacy family and ``ServerOptions(nshead_service=)``
+(``test_both_packages_take_the_legacy_options``); mongo and thrift still
+refuse naming A11d, and rtmp A11e. And
 ``run_dispatch_session`` ends as the reference's does, ``..., chunk_order,
 trace_id, parent_span_id`` (ROADMAP C8), with the port's ``device`` and
 ``group_timeout_s`` keyword-only after them; a non-zero trace id binds
@@ -118,7 +121,7 @@ INTERNAL = {
                 "parse_conn", "enabled_for", "fifo_responses"],
         "torch": ["name", "*", "parse", "parse_header", "pack_request", "pack_response",
                   "process_request", "process_response", "process_stream", "parse_iobuf",
-                  "parse_conn", "fifo_responses"],
+                  "parse_conn", "enabled_for", "fifo_responses"],
     },
 }
 
@@ -252,15 +255,16 @@ def test_init_with_lb_name_and_options(pkg, echo_server):
 
 # each unported option value and the ROADMAP item its refusal names
 REFUSED = [
-    ("ServerOptions", {"nshead_service": print}, "A11"),
-    ("ServerOptions", {"thrift_service": print}, "A11"),
-    ("ServerOptions", {"mongo_service_adaptor": object()}, "A11"),
-    ("ServerOptions", {"rtmp_service": object()}, "A11"),
-] + [("ChannelOptions", {"protocol": name}, "A11") for name in port_channel.UNPORTED_PROTOCOLS]
+    ("ServerOptions", {"thrift_service": print}, "A11d"),
+    ("ServerOptions", {"mongo_service_adaptor": object()}, "A11d"),
+    ("ServerOptions", {"rtmp_service": object()}, "A11e"),
+] + [("ChannelOptions", {"protocol": name}, item)
+     for name, item in port_channel.UNPORTED_PROTOCOLS.items()]
 
 
 @pytest.mark.parametrize("owner,kw,item", REFUSED,
-                         ids=[f"{o}-{next(iter(k))}-{v}" for o, k, v in REFUSED])
+                         ids=[f"{o}-{next(iter(k))}-" + (k["protocol"] if "protocol" in k else v)
+                              for o, k, v in REFUSED])
 def test_port_refuses_unported_values_naming_the_item(owner, kw, item):
     cls = port_rpc.ServerOptions if owner == "ServerOptions" else port_rpc.ChannelOptions
     name = next(iter(kw))
@@ -272,9 +276,12 @@ def test_unported_protocols_are_the_jax_packages():
     jax_names = [p.name for p in jax_registry.protocol_registry.ordered()]
     port_names = [p.name for p in port_registry.protocol_registry.ordered()]
     assert sorted(port_names + list(port_channel.UNPORTED_PROTOCOLS)) == sorted(jax_names)
+    # the port registers its protocols in the JAX package's order: the
+    # order a new connection's scan tries them in
+    assert port_names == [name for name in jax_names if name in port_names]
 
 
-@pytest.mark.parametrize("protocol", ["baidu_std", "http"])
+@pytest.mark.parametrize("protocol", ["baidu_std", "http", "hulu_pbrpc", "sofa_pbrpc"])
 def test_both_packages_serve_the_protocol_option(protocol):
     """Once refused naming A11: both packages take the protocol and answer
     over it with the same payloads and codes."""
@@ -295,6 +302,50 @@ def test_both_packages_serve_the_protocol_option(protocol):
         finally:
             srv.stop()
             assert srv.join(timeout=10)
+    port_rpc.shutdown_host_plane()
+    shutdown_global_timer_thread()
+
+
+# the legacy family's options that refused naming A11 before A11b, less the
+# two wires test_both_packages_serve_the_protocol_option calls over
+LEGACY_TAKEN = ["nshead", "nshead_client", "nova_pbrpc", "public_pbrpc", "ubrpc_mcpack2",
+                "nshead_mcpack", "esp", "nshead_service"]
+
+
+@pytest.mark.parametrize("name", LEGACY_TAKEN)
+def test_both_packages_take_the_legacy_options(name):
+    """Once refused naming A11: both packages take the option. The FIFO
+    wires and the nshead service answer in tests/test_torch_legacy_pbrpc.py
+    and tests/test_torch_nshead.py; here a ``ServerOptions`` holds its
+    service and a ``ChannelOptions`` its protocol, and a call over a row
+    that packs no request fails the same way on both packages."""
+    codes = {}
+    for pkg in PKGS.values():
+        if name == "nshead_service":
+            def service(cntl, head, body):
+                return body
+
+            assert pkg.ServerOptions(nshead_service=service,
+                                     **pkg.server_kw).nshead_service is service
+            continue
+        opts = pkg.rpc.ChannelOptions(protocol=name, timeout_ms=2000, max_retry=0)
+        assert opts.protocol == name
+        registry = jax_registry if pkg.name == "jax" else port_registry
+        if registry.protocol_registry.get(name).pack_request is None:
+            srv = pkg.rpc.Server(pkg.ServerOptions(**pkg.server_kw))
+            srv.add_service("Echo", {"echo": lambda cntl, req: req})
+            assert srv.start(0)
+            try:
+                ch = pkg.rpc.Channel()
+                assert ch.init(f"127.0.0.1:{srv.port}", options=opts)
+                cntl = ch.call_method("Echo", "echo", b"x")
+                codes[pkg.name] = (cntl.error_code, cntl.error_text)
+            finally:
+                srv.stop()
+                assert srv.join(timeout=10)
+    if codes:
+        assert codes["torch"] == codes["jax"]
+        assert codes["torch"][0] == ErrorCode.EREQUEST
     port_rpc.shutdown_host_plane()
     shutdown_global_timer_thread()
 

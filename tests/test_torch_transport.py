@@ -585,3 +585,39 @@ class TestBulkReadEscalation:
         finally:
             a.close()
             b.close()
+
+
+# -- ROADMAP C14: a connection accepted while the acceptor stops ---------------
+
+
+def test_connection_accepted_while_stopping_is_closed(monkeypatch):
+    """The accept loop creates a connection's Socket, and only then
+    registers it; ``stop()`` fails the connections registered when it
+    looks. Held by order: the accept loop is parked between the two
+    steps until ``stop()`` has returned. The port then fails the late
+    connection itself (its peer reads EOF) and leaves none registered. The
+    JAX package's acceptor registers it after ``stop()`` and serves it on
+    (ROADMAP C14), so this case runs on the port alone."""
+    accepted = threading.Event()
+    release = threading.Event()
+
+    class ParkedSocket(port_sock.Socket):
+        @classmethod
+        def from_accepted(cls, *args, **kwargs):
+            sock = port_sock.Socket.from_accepted(*args, **kwargs)
+            accepted.set()
+            assert release.wait(30), "the test never released the accept loop"
+            return sock
+
+    monkeypatch.setattr(port_acceptor, "Socket", ParkedSocket)
+    acceptor = _port_acceptor(port_endpoint.EndPoint(ip=LOOP, port=0))
+    client = pysocket.create_connection((LOOP, acceptor.port), timeout=10)
+    try:
+        assert accepted.wait(10), "the connection was not accepted"
+        acceptor.stop()  # its snapshot cannot hold the parked connection
+        release.set()
+        assert client.recv(1) == b"", "a connection accepted while stopping lived on"
+        assert acceptor.connections() == []
+    finally:
+        release.set()
+        client.close()
