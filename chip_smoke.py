@@ -229,6 +229,22 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    they must equal the calls made: nothing falls back to tbus_std. K1a and
    K1c must launch in (a)-(c); the kernels line's K1 entries carry the
    tallies as ``legacy_launches``;
+3m. drives the device echo over thrift and mongo, the wires of ROADMAP
+   A11d (``cache_thrift_mongo_phase``), at phase 3b's geometry, every
+   answer bitwise ``expected()``: (a) ``ServerOptions(thrift_service=...)``
+   on a server that also serves tbus_std, the port's ``ThriftClient`` and a
+   tbus_std ``Channel`` in turns (20 sequential calls a wire, then 16 x 8);
+   (b) the same behind a ``MongoServiceAdaptor``, OP_QUERY frames whose
+   ``data`` is a BSON binary field on raw sockets, the same turns and
+   bursts; (c) a thrift call and a mongo query to a ``native_plane=True``
+   server, both handed to the Python plane, ``native_reqs`` unmoved; (d) on
+   the host, the clients of A11c against their mocks: ``RedisClient``
+   (AUTH) µs a pipelined batch of 16, ``MemcacheClient`` and
+   ``MemcacheBinaryClient`` (SASL) µs a call, every reply checked and a
+   wrong password refused. Each server counts the frames of every wire it
+   answers, which must equal the calls made. K1a and K1c must launch in
+   (a)-(c); the kernels line's K1 entries carry the tallies as
+   ``cache_thrift_mongo_launches``;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -421,6 +437,8 @@ import json
 import math
 import os
 import re
+import socket
+import struct
 import subprocess
 import sys
 import threading
@@ -1605,6 +1623,41 @@ def k1_launched(kernels, part):
     return {name: counts[name] for name in K1}
 
 
+def lb_calls(servers, lb_url, name, payload, closers):
+    """Phase 3d (c)'s run of one LB: a Channel over the first 3 servers
+    (``transport="tpu"``), their counts set to 0, server 2 slowed by
+    ``LA_SLOW_S`` for ``la``, then ``LB_CALLS`` sequential echoes of
+    ``payload``, each checked. Returns (µs a call, the server each call
+    reached), in call order."""
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions
+
+    ch = Channel()
+    if not ch.init(lb_url, name, ChannelOptions(transport="tpu", timeout_ms=300_000)):
+        raise AssertionError(f"phase3d (c): Channel.init({name}) failed")
+    closers.append(ch._lb.stop)
+    for s in servers[:3]:
+        s.calls = 0
+    servers[2].slow = name == "la"
+    lat, picks = [], []
+    try:
+        for _ in range(LB_CALLS):
+            before = [s.calls for s in servers[:3]]
+            t0 = time.perf_counter()
+            cntl = ch.call_method("lb", "echo", payload)
+            lat.append(1e6 * (time.perf_counter() - t0))
+            if not cntl.ok() or cntl.response_payload != payload:
+                raise AssertionError(f"phase3d (c) {name}: code {cntl.error_code}")
+            picks.append(int(np.argmax([s.calls - b for s, b in zip(servers[:3], before)])))
+    finally:
+        servers[2].slow = False
+    return lat, picks
+
+
+def la_check(calls) -> bool:
+    """Phase 3d (c)'s hold on ``la``: the slowed server 2 had the fewest calls, alone."""
+    return calls[2] == min(calls) and calls.count(calls[2]) == 1
+
+
 def combo_phase(torch, kernels, svc):
     """Phase 3d: the combo channels and load balancers over device links on
     the card, servers on cuda:0 (every sub-link shares the card, so each
@@ -1717,29 +1770,15 @@ def combo_phase(torch, kernels, svc):
         kernels.reset_launch_counts()
         payload = bytes(range(256))
         for name in ("rr", "la"):
-            ch = Channel()
-            if not ch.init(lb_url, name, ChannelOptions(**tpu)):
-                raise AssertionError(f"phase3d (c): Channel.init({name}) failed")
-            closers.append(ch._lb.stop)
-            for s in servers[:3]:
-                s.calls = 0
-            servers[2].slow = name == "la"
-            lat = []
-            for _ in range(LB_CALLS):
-                t0 = time.perf_counter()
-                cntl = ch.call_method("lb", "echo", payload)
-                lat.append(1e6 * (time.perf_counter() - t0))
-                if not cntl.ok() or cntl.response_payload != payload:
-                    raise AssertionError(f"phase3d (c) {name}: code {cntl.error_code}")
+            lat, _picks = lb_calls(servers, lb_url, name, payload, closers)
             out[f"lb_{name}_us"] = sum(lat) / LB_CALLS
             out[f"lb_{name}_median_us"] = float(np.median(lat))
             out[f"lb_{name}_first_us"] = lat[0]
             out[f"lb_{name}_calls"] = [s.calls for s in servers[:3]]
-        servers[2].slow = False
         if out["lb_rr_calls"] != [LB_CALLS // 3] * 3:
             raise AssertionError(f"phase3d (c) rr: calls a server {out['lb_rr_calls']}")
         la = out["lb_la_calls"]
-        if la[2] != min(la) or la.count(la[2]) != 1:
+        if not la_check(la):
             raise AssertionError(f"phase3d (c) la: calls a server {la}, the slowed server 2 not the fewest")
         launches["c"] = k1_launched(kernels, "(c)")
         log(f"phase3d (c) Channel.init(list:// of 3 device servers, lb, transport=tpu), {LB_CALLS} "
@@ -2961,8 +3000,6 @@ class KeepAliveHttp:
     body of the given content type, the response read by Content-Length."""
 
     def __init__(self, port: int):
-        import socket
-
         self.sock = socket.create_connection(("127.0.0.1", port), timeout=300)
         self.lock = threading.Lock()
 
@@ -4408,6 +4445,343 @@ def legacy_phase(torch, kernels, device=None, scale: float = 1.0):
     log(f"phase3l (d) the ubrpc request body ({out['d']['bytes']} B, 256 B of params) on the "
         f"host: dumps {out['d']['dumps_us']:.2f} us, loads {out['d']['loads_us']:.2f} us")
     return out, tally
+
+
+CACHE_WINDOW = 16  # the endpoint's window (phase 3b's geometry)
+CACHE_SEQ = 10  # sequential calls a wire and turn
+CACHE_SEQ_MIN = 2  # ... at the smallest scale
+CACHE_TURNS = 2  # the wires in order, then in reverse order
+CACHE_BURST = (16, 8)  # callers x calls each, a wire
+CACHE_BURST_MIN = 1  # calls each at the smallest scale
+CACHE_PIPELINE = 16  # (d): commands in one pipelined redis batch
+CACHE_BATCHES = 200  # (d): redis batches timed
+CACHE_CALLS = 400  # (d): memcache calls timed, a client
+CACHE_CALLS_MIN = 10  # ... at the smallest scale
+
+
+def mongo_query(mongo, payload: bytes, request_id: int) -> bytes:
+    """An OP_QUERY frame for ``db.tensor`` whose query is {"data": payload},
+    the echo's bytes a BSON binary field (tests/test_mongo.py's shape)."""
+    body = (struct.pack("<i", 0) + b"db.tensor\x00" + struct.pack("<ii", 0, 0)
+            + mongo.bson_encode({"data": payload}))
+    return mongo.HEAD.pack(mongo.HEAD_BYTES + len(body), request_id, 0, mongo.OP_QUERY) + body
+
+
+class MongoCaller:
+    """OP_QUERY over one raw socket: (payload) -> (code, answer), the
+    answer the ``data`` of the one document of the OP_REPLY; code 1 where
+    the reply is not the one asked for (its response_to or flags)."""
+
+    def __init__(self, mongo, port):
+        self.mongo, self.rid = mongo, 0
+        self.conn = socket.create_connection(("127.0.0.1", port), timeout=300)
+
+    def __call__(self, payload):
+        self.rid += 1
+        self.conn.sendall(mongo_query(self.mongo, payload, self.rid))
+        data = b""
+        while len(data) < 4 or len(data) < struct.unpack_from("<i", data)[0]:
+            chunk = self.conn.recv(65536)
+            if not chunk:
+                raise AssertionError("phase3m mongo: the server closed the connection")
+            data += chunk
+        _length, _rid, rto, op = self.mongo.HEAD.unpack_from(data)
+        flags, _cursor, _start, count = struct.unpack_from("<iqii", data, 16)
+        if op != self.mongo.OP_REPLY or rto != self.rid or flags or count != 1:
+            return 1, b""
+        doc, _ = self.mongo.bson_decode(data, 36)
+        return 0, doc.get("data", b"")
+
+    def close(self):
+        self.conn.close()
+
+
+def cache_thrift_mongo_phase(torch, kernels, device=None, scale: float = 1.0):
+    """Phase 3m: the device echo (``DeviceEndpoint.server_handler()``, 256
+    B, window 16) over the wires of ROADMAP A11c-d, every answer bitwise
+    ``expected()``: (a) served as ``ServerOptions(thrift_service=...)`` on
+    a server that also serves it over tbus_std, the port's
+    ``ThriftClient.call("echo", ...)`` and a tbus_std ``Channel`` in
+    ``CACHE_TURNS`` turns of ``CACHE_SEQ`` sequential calls a wire, then a
+    ``CACHE_BURST`` burst a wire (16 callers on one pipelined
+    ``ThriftClient``); (b) the same behind a ``MongoServiceAdaptor`` whose
+    ``handle_query`` answers {"data": the echo} to a query whose ``data`` is
+    a BSON binary field, OP_QUERY frames built with the port's
+    ``bson_encode`` on raw sockets (one a caller), the same turns and
+    bursts; (c) one thrift call and one mongo query to a ``native_plane=
+    True`` server, each handed to the Python plane, the C++ dispatch's
+    ``native_reqs`` unmoved; (d) on the host only, ``RedisClient`` against
+    ``MockRedisServer(password=)`` (µs a pipelined batch of
+    ``CACHE_PIPELINE`` commands), ``MemcacheClient`` and
+    ``MemcacheBinaryClient`` (SASL) against their mocks (µs a call), every
+    reply checked and a wrong password refused. Each server counts the
+    frames of each wire it answers, which must equal the calls made, so no
+    call falls back to tbus_std. K1 is tallied per part. Returns (figures,
+    {part: K1 launches})."""
+    from incubator_brpc_tpu_torch.protocol import memcache, memcache_binary, mongo, resp, thrift
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Controller, Server, ServerOptions
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+    from incubator_brpc_tpu_torch.utils.status import ErrorCode
+
+    tally = {}
+
+    def counted(part, fn):
+        before = kernels.launch_counts()
+        try:
+            return fn()
+        finally:
+            after = kernels.launch_counts()
+            row = tally.setdefault(part, dict.fromkeys(K1, 0))
+            for k in K1:
+                row[k] += after[k] - before[k]
+
+    ep = DeviceEndpoint(window_size=CACHE_WINDOW, max_batch=CACHE_WINDOW, device=device)
+    handler = ep.server_handler()
+    frames = {}  # wire -> requests its server answered
+    frames_lock = threading.Lock()
+
+    def seen(wire):
+        with frames_lock:
+            frames[wire] = frames.get(wire, 0) + 1
+
+    def tbus_echo(cntl, request):
+        seen(getattr(cntl, "_wire_protocol", "tbus_std"))
+        return handler(cntl, request)
+
+    def thrift_echo(cntl, method, payload):
+        if method != "echo":
+            cntl.set_failed(ErrorCode.ENOMETHOD, f"unknown method {method}")
+            return b""
+        seen("thrift")
+        return handler(cntl, payload)
+
+    class EchoAdaptor(mongo.MongoServiceAdaptor):
+        def handle_query(self, ctx, query):
+            seen("mongo")
+            cntl = Controller()
+            out = handler(cntl, query.query["data"])
+            if cntl.error_code:
+                raise RuntimeError(f"device echo failed ({cntl.error_code})")
+            return [{"data": out}]
+
+    servers, closers = [], []
+
+    def start(**kw):
+        srv = Server(ServerOptions(device=device, **kw))
+        srv.add_service("tensor", {"echo": tbus_echo})
+        if not srv.start(0):
+            raise AssertionError("phase3m: a Server did not start")
+        servers.append(srv)
+        return srv
+
+    def tbus_caller(port):
+        ch = Channel()
+        if not ch.init(f"127.0.0.1:{port}", options=ChannelOptions(timeout_ms=300_000)):
+            raise AssertionError("phase3m tbus_std: a Channel did not init")
+
+        def call(p):
+            c = ch.call_method("tensor", "echo", p)
+            return c.error_code, c.response_payload
+        return call
+
+    def thrift_caller(port):
+        client = thrift.ThriftClient(f"127.0.0.1:{port}", timeout=300)
+        closers.append(client.close)
+
+        def call(p):
+            return 0, client.call("echo", p, timeout=300)
+        return call
+
+    def mongo_caller(port):
+        caller = MongoCaller(mongo, port)
+        closers.append(caller.close)
+        return caller
+
+    n_seq = max(CACHE_SEQ_MIN, round(CACHE_SEQ * scale))
+    burst = (CACHE_BURST[0], max(CACHE_BURST_MIN, round(CACHE_BURST[1] * scale)))
+    rng = np.random.default_rng(101)
+
+    def runs(part, calls, burst_calls, rows):
+        """Every wire of ``calls`` in turns (in order, then reversed), then
+        a burst a wire over ``burst_calls[wire](i)``, the i-th caller's
+        function, each answer held against ``expected()``; each wire's
+        server must have answered exactly the calls made."""
+        for wire in calls:
+            rows[wire] = {"calls": 0, "right": 0, "seq_us": [], "burst_calls": 0,
+                          "burst_right": 0}
+        before = dict(frames)
+
+        def checked(wire, key, call):
+            def one(p):
+                code, got = call(p)
+                echo_check(f"({part}) {wire}", p, code, got, phase="phase3m")
+                with frames_lock:
+                    rows[wire][key] += 1
+            return one
+
+        for turn in range(CACHE_TURNS):
+            for wire in (list(calls) if turn % 2 == 0 else list(reversed(calls))):
+                seq = iter([rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+                            for _ in range(n_seq)])
+                one = checked(wire, "right", calls[wire])
+                rows[wire]["seq_us"].append(
+                    counted(part, lambda: sequential_us(lambda: one(next(seq)), n_seq)))
+                rows[wire]["calls"] += n_seq
+        for wire in calls:
+            ones = [checked(wire, "burst_right", burst_calls[wire](i)) for i in range(burst[0])]
+            payloads = [[rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+                         for _ in range(burst[1])] for _ in range(burst[0])]
+            t0 = time.perf_counter()
+            counted(part, lambda: call_threads(
+                burst[0], lambda i: [ones[i](p) for p in payloads[i]]))
+            rows[wire]["calls_per_s"] = burst[0] * burst[1] / (time.perf_counter() - t0)
+            rows[wire]["burst_calls"] = burst[0] * burst[1]
+        for wire, row in rows.items():
+            row["server_frames"] = frames.get(wire, 0) - before.get(wire, 0)
+            if row["server_frames"] != row["calls"] + row["burst_calls"]:
+                raise AssertionError(
+                    f"phase3m ({part}) {wire}: the server answered {row['server_frames']} "
+                    f"{wire} requests of {row['calls'] + row['burst_calls']} calls made: "
+                    f"{frames}")
+
+    out = {"a": {}, "b": {}}
+    try:
+        ep.warm(256)
+
+        # (a) thrift beside tbus_std on one server --------------------------
+        srv = start(thrift_service=thrift_echo)
+        shared = thrift_caller(srv.port)  # the burst's callers share one pipelined client
+        runs("a", {"thrift": thrift_caller(srv.port), "tbus_std": tbus_caller(srv.port)},
+             {"thrift": lambda i: shared, "tbus_std": lambda i: tbus_caller(srv.port)},
+             out["a"])
+
+        # (b) mongo beside tbus_std on one server, a raw socket a caller -----
+        srv = start(mongo_service_adaptor=EchoAdaptor())
+        runs("b", {"mongo": mongo_caller(srv.port), "tbus_std": tbus_caller(srv.port)},
+             {"mongo": lambda i: mongo_caller(srv.port), "tbus_std": lambda i: tbus_caller(srv.port)},
+             out["b"])
+
+        # (c) the native plane hands thrift and mongo off -------------------
+        nat = start(native_plane=True, thrift_service=thrift_echo,
+                    mongo_service_adaptor=EchoAdaptor())
+        plane = nat._native_plane
+        if plane is None:
+            raise AssertionError("phase3m (c): the server has no native plane")
+        before = plane.stats()
+        frames_before = dict(frames)
+        c = {}
+        for wire, make in (("thrift", thrift_caller), ("mongo", mongo_caller)):
+            p = rng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+            call = make(nat.port)
+            code, got = counted("c", lambda: call(p))
+            echo_check(f"(c) {wire}", p, code, got, phase="phase3m")
+            c[f"{wire}_right"] = True
+            if frames.get(wire, 0) - frames_before.get(wire, 0) != 1:
+                raise AssertionError(f"phase3m (c) {wire}: not answered as {wire}")
+        after = plane.stats()
+        c.update(handoffs=after["handoffs"] - before["handoffs"],
+                 native_reqs_moved=after["native_reqs"] - before["native_reqs"])
+        if c["handoffs"] != 2 or c["native_reqs_moved"] != 0:
+            raise AssertionError(f"phase3m (c): {c['handoffs']} handoffs (2 expected), "
+                                 f"native_reqs moved by {c['native_reqs_moved']}")
+        out["c"] = c
+
+        # (d) the cache clients against their mocks, on the host ------------
+        out["d"] = cache_clients_part(resp, memcache, memcache_binary, rng, scale, closers)
+    finally:
+        for close in closers:
+            close()
+        for s in servers:
+            s.stop()
+            s.join(timeout=60)
+        if not ep.close(timeout=120):
+            raise AssertionError("phase3m: the endpoint did not settle its calls")
+    for part in ("a", "b"):
+        for wire, row in out[part].items():
+            log(f"phase3m ({part}) {wire}: {row['calls']} sequential calls of 256 B in "
+                f"{CACHE_TURNS} turns, {' / '.join(f'{v:.1f}' for v in row['seq_us'])} us a "
+                f"call; {burst[0]} x {burst[1]}: {row['calls_per_s']:.1f} calls/s; the server "
+                f"answered {row['server_frames']} {wire} requests")
+        log(f"phase3m ({part}) launches {[tally[part][k] for k in K1]}")
+    log(f"phase3m (c) native plane: one thrift and one mongo echo answered bitwise, "
+        f"{out['c']['handoffs']} connections handed off, native_reqs moved "
+        f"{out['c']['native_reqs_moved']}; launches {[tally['c'][k] for k in K1]}")
+    d = out["d"]
+    log(f"phase3m (d) on the host: redis (AUTH) {d['redis']['batch_us']:.1f} us a pipelined "
+        f"batch of {CACHE_PIPELINE} ({d['redis']['batches']} batches, "
+        f"{d['redis']['replies_right']} replies right); memcache text "
+        f"{d['memcache']['call_us']:.1f} us a call, binary (SASL) "
+        f"{d['memcache_binary']['call_us']:.1f} us a call ({d['memcache']['calls']} and "
+        f"{d['memcache_binary']['calls']} calls, every reply right); a wrong password refused "
+        f"by both mocks")
+    return out, tally
+
+
+def cache_clients_part(resp, memcache, memcache_binary, rng, scale, closers):
+    """Phase 3m (d): the host-only clients of ROADMAP A11c against their
+    mocks, every reply checked. Returns their figures."""
+    n_batches = max(CACHE_CALLS_MIN, round(CACHE_BATCHES * scale))
+    n_calls = max(CACHE_CALLS_MIN, round(CACHE_CALLS * scale))
+    mocks = [resp.MockRedisServer(password="phase3m"), memcache.MockMemcacheServer(),
+             memcache_binary.MockMemcacheBinaryServer(password="phase3m")]
+    for m in mocks:
+        if not m.start():
+            raise AssertionError("phase3m (d): a mock server did not start")
+        closers.append(m.stop)
+    redis_mock, text_mock, binary_mock = mocks
+    d = {}
+
+    # redis: batches of SETs and GETs, pipelined over one connection
+    client = resp.RedisClient(f"127.0.0.1:{redis_mock.port}", password="phase3m")
+    closers.append(client.close)
+    values = [rng.integers(0, 256, size=64, dtype=np.uint8).tobytes() for _ in range(n_batches)]
+    half = CACHE_PIPELINE // 2
+    right = 0
+    t0 = time.perf_counter()
+    for b, value in enumerate(values):
+        keys = [f"k{b}.{i}" for i in range(half)]
+        replies = client.pipeline([("SET", k, value) for k in keys] + [("GET", k) for k in keys])
+        right += sum(r == "OK" for r in replies[:half]) + sum(r == value for r in replies[half:])
+    d["redis"] = {"batch_us": 1e6 * (time.perf_counter() - t0) / n_batches,
+                  "batches": n_batches, "replies_right": right}
+    try:
+        resp.RedisClient(f"127.0.0.1:{redis_mock.port}", password="wrong")
+        d["redis"]["auth_refused"] = False
+    except resp.RespError:
+        d["redis"]["auth_refused"] = True
+    if right != n_batches * CACHE_PIPELINE or not d["redis"]["auth_refused"]:
+        raise AssertionError(f"phase3m (d) redis: {right} of {n_batches * CACHE_PIPELINE} "
+                             f"replies right, auth refused {d['redis']['auth_refused']}")
+
+    # memcache, text and binary: a set then a get, call by call
+    def calls(client, label):
+        right = 0
+        payloads = [rng.integers(0, 256, size=64, dtype=np.uint8).tobytes()
+                    for _ in range(n_calls // 2)]
+        t0 = time.perf_counter()
+        for i, value in enumerate(payloads):
+            right += bool(client.set(f"m{i}", value)) + (client.get(f"m{i}") == value)
+        row = {"call_us": 1e6 * (time.perf_counter() - t0) / (2 * len(payloads)),
+               "calls": 2 * len(payloads), "replies_right": right}
+        if right != row["calls"]:
+            raise AssertionError(f"phase3m (d) {label}: {right} of {row['calls']} replies right")
+        return row
+
+    text = memcache.MemcacheClient(f"127.0.0.1:{text_mock.port}")
+    closers.append(text.close)
+    d["memcache"] = calls(text, "memcache")
+    binary = memcache_binary.MemcacheBinaryClient(
+        f"127.0.0.1:{binary_mock.port}", username="phase3m", password="phase3m")
+    closers.append(binary.close)
+    d["memcache_binary"] = calls(binary, "memcache_binary")
+    try:
+        memcache_binary.MemcacheBinaryClient(f"127.0.0.1:{binary_mock.port}", password="wrong")
+        d["memcache_binary"]["auth_refused"] = False
+    except memcache_binary.MemcacheBinaryError:
+        d["memcache_binary"]["auth_refused"] = True
+    if not d["memcache_binary"]["auth_refused"]:
+        raise AssertionError("phase3m (d) memcache_binary: a wrong password was not refused")
+    return d
 
 
 ENTRY_TOL = 1e-5  # tests/test_torch_entry.py: the f32 forward's absolute tolerance
@@ -6822,6 +7196,59 @@ def drills_only(n: int, out, device=None) -> int:
     return 0 if clean == n else 1
 
 
+def la_runs_only(n: int, out) -> int:
+    """``--la-runs N``: phase 3d (c) alone, N times, on 3 ``ComboServer``s
+    on the card: an ``rr`` run, then an ``la`` run with server 2 slowed by
+    ``LA_SLOW_S``, each on a Channel of its own, as the phase makes them.
+    Records each ``la`` run's calls a server, and the server each call
+    reached with its µs, in call order (the sequence a replay through
+    ``LocalityAwareLB`` needs). Prints how many runs ``la_check`` refused;
+    exits 0 (a count, not a check)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
+        return 2
+    from incubator_brpc_tpu_torch.models.tensor_echo import TensorEchoService
+    from incubator_brpc_tpu_torch.ops import kernels
+    from incubator_brpc_tpu_torch.parallel import quantized as Q
+    from incubator_brpc_tpu_torch.rpc import shutdown_host_plane
+
+    card = card_line()
+    log(card)
+    kernels.build()
+    svc = TensorEchoService()
+    svc.add_method(3, lambda p: kernels.bits32(kernels.u64(p) * 2))
+    svc.add_method(5, lambda p: kernels.bits32(kernels.u64(p) + 10))
+    quant = Q.quantized_pmean_dm(QUANT_WIDTH, QUANT_MODE, QUANT_BLOCK)
+    servers = [ComboServer(i, svc, quant) for i in range(3)]
+    lb_url = "list://" + ",".join(f"127.0.0.1:{s.port}" for s in servers)
+    closers, runs = [], []
+    try:
+        for i in range(n):
+            lb_calls(servers, lb_url, "rr", bytes(range(256)), closers)
+            rr = [s.calls for s in servers]
+            lat, picks = lb_calls(servers, lb_url, "la", bytes(range(256)), closers)
+            calls = [s.calls for s in servers]
+            runs.append({"rr_calls": rr, "calls": calls, "held": la_check(calls),
+                         "picks": picks, "us": [round(v, 1) for v in lat]})
+            log(f"la run {i}: calls a server {calls}, held {runs[-1]['held']}, "
+                f"{sum(lat) / len(lat):.1f} us a call")
+    finally:
+        for close in closers:
+            close()
+        for s in servers:
+            s.close()
+        shutdown_host_plane()
+    refused = sum(1 for r in runs if not r["held"])
+    log(f"la runs: the slowed server 2 not the fewest in {refused} of {n}; {card}")
+    if out:
+        with open(out, "w") as f:
+            json.dump({"card": card, "la_slow_s": LA_SLOW_S, "lb_calls": LB_CALLS,
+                       "runs": runs}, f, indent=1)
+    return 0
+
+
 def k2_only(root: str, out) -> int:
     """``--k2-only ROOT``: phase 11 alone (K2's timings and the full-width
     sessions') for the port under ROOT, a tree of this repository unpacked
@@ -6860,11 +7287,15 @@ def main() -> int:
                     help="run phase 11 alone on the port of the tree at ROOT (k2_only)")
     ap.add_argument("--drills", type=int, metavar="N",
                     help="run phase 3j (g)'s lame-duck drill alone, N times (drills_only)")
+    ap.add_argument("--la-runs", type=int, metavar="N",
+                    help="run phase 3d (c)'s la run alone, N times (la_runs_only)")
     opts = ap.parse_args()
     if opts.k2_only:
         return k2_only(opts.k2_only, opts.out)
     if opts.drills:
         return drills_only(opts.drills, opts.out)
+    if opts.la_runs:
+        return la_runs_only(opts.la_runs, opts.out)
 
     import torch
 
@@ -7060,6 +7491,18 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase3l: {legacy_fig['phase_s']:.1f} s; K1 launches by part {legacy_k1}")
 
+    # -- phase 3m: thrift and mongo on the shared port, the cache clients -----
+    log(f"phase3m on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    cache_fig, cache_k1 = cache_thrift_mongo_phase(torch, kernels)
+    cache_fig["phase_s"] = time.perf_counter() - t0
+    for part in ("a", "b", "c"):
+        missing = [name for name in ("frame_rows", "echo_step_rows") if cache_k1[part][name] == 0]
+        if missing:
+            raise AssertionError(f"phase3m ({part}): kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase3m: {cache_fig['phase_s']:.1f} s; K1 launches by part {cache_k1}")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -7120,6 +7563,8 @@ def main() -> int:
             "tools_launches": {part: row[name] for part, row in sorted(tools_k1.items())},
             "tls_launches": {route: row[name] for route, row in sorted(tls_k1.items())},
             "legacy_launches": {part: row[name] for part, row in sorted(legacy_k1.items())},
+            "cache_thrift_mongo_launches": {part: row[name]
+                                            for part, row in sorted(cache_k1.items())},
             "entry_launches": entry_k["b"].get(name, 0),
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -7180,6 +7625,7 @@ def main() -> int:
                        "tools": tools_fig, "tools_launches": tools_k1,
                        "tls": tls_fig, "tls_launches": tls_k1,
                        "legacy": legacy_fig, "legacy_launches": legacy_k1,
+                       "cache_thrift_mongo": cache_fig, "cache_thrift_mongo_launches": cache_k1,
                        "entry": entry_fig, "entry_launches": entry_k,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],

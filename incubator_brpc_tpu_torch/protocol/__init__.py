@@ -10,15 +10,20 @@ custom handlers, restful mappings and the ``/<service>/<method>``
 gateway; the channel's FIFO-correlated client) and baidu_std
 (``protocol/baidu_std.py``: the reference's PRPC wire), nshead
 (``protocol/nshead.py``: the 36-byte legacy head, scanned only where the
-server registered an ``nshead_service``) and the legacy pbrpc family
-(``protocol/legacy_pbrpc.py``: hulu_pbrpc, sofa_pbrpc, the FIFO-correlated
-nshead clients and esp). Frames are sized by
+server registered an ``nshead_service``), mongo (``protocol/mongo.py``:
+the server side behind a ``mongo_service_adaptor``), thrift
+(``protocol/thrift.py``: framed thrift behind a ``thrift_service``, the
+client in the same module), each scanned only where the server registered
+its option, and the legacy pbrpc family (``protocol/legacy_pbrpc.py``:
+hulu_pbrpc, sofa_pbrpc, the FIFO-correlated nshead clients and esp). RESP
+(``protocol/resp.py``) and memcache (``protocol/memcache.py``, text, and
+``protocol/memcache_binary.py``) are clients beside mock servers, with no
+row here, as in the JAX package. Frames are sized by
 ``parse_header`` first, so a frame over ``max_body_size`` is refused from
 its header (transport/messenger.py). ``rpc/channel.py`` and
 ``rpc/server.py`` bind tbus_std's response and request hooks at import,
-and ``rpc/stream.py`` its stream hook. mongo, thrift and rtmp, which the
-JAX package registers between nshead and the legacy family, wait for
-ROADMAP A11d and A11e.
+and ``rpc/stream.py`` its stream hook. rtmp, which the JAX package
+registers between thrift and the legacy family, waits for ROADMAP A11e.
 """
 
 from incubator_brpc_tpu_torch.protocol import tbus_std
@@ -59,6 +64,14 @@ from incubator_brpc_tpu_torch.protocol import baidu_std as _baidu_std  # noqa: E
 # nshead: the legacy framing family's representative, multiplexed on the
 # same port via the registry scan (policy/nshead_protocol.cpp)
 from incubator_brpc_tpu_torch.protocol import nshead as _nshead  # noqa: E402,F401
+
+# mongo: server-side wire protocol behind a MongoServiceAdaptor, gated to
+# servers that registered one (policy/mongo_protocol.cpp)
+from incubator_brpc_tpu_torch.protocol import mongo as _mongo  # noqa: E402,F401
+
+# thrift: framed-thrift server behind ServerOptions.thrift_service
+# (policy/thrift_protocol.cpp) — the client half lives in the same module
+from incubator_brpc_tpu_torch.protocol import thrift as _thrift  # noqa: E402,F401
 
 # the legacy Baidu family: hulu/sofa (full duplex), nova/public_pbrpc/
 # ubrpc_mcpack2/nshead_mcpack/esp clients + server adaptors

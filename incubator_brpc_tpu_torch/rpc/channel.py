@@ -60,8 +60,11 @@ hulu_pbrpc and sofa_pbrpc (correlation ids on the wire), and nova_pbrpc,
 public_pbrpc, ubrpc_mcpack2, nshead_mcpack and esp, answered in order on
 their connection (``fifo_responses``): such a socket is tagged with the
 protocol it speaks (``context["fifo_protocol"]``), which picks its response
-decoder and gates the scan of its replies. mongo, thrift (ROADMAP A11d) and
-rtmp (A11e) are later items; the option refuses them naming their item.
+decoder and gates the scan of its replies. mongo and thrift are
+registered with no request packer, as in the JAX package: a call over
+either fails with "cannot pack requests" (thrift's client is
+``protocol/thrift.ThriftClient``). rtmp (ROADMAP A11e) is a later item; the
+option refuses it naming its item.
 """
 
 from __future__ import annotations
@@ -288,7 +291,7 @@ class RetryBudget:
 
 # the JAX package's other registered protocols, each with the ROADMAP item
 # that brings it: a channel asking for one is refused naming it
-UNPORTED_PROTOCOLS = {"mongo": "A11d", "thrift": "A11d", "rtmp": "A11e"}
+UNPORTED_PROTOCOLS = {"rtmp": "A11e"}
 
 
 def tls_key_tag(options: "ChannelOptions") -> str:

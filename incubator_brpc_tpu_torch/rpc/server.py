@@ -51,7 +51,10 @@ TLS port (``ssl_context``) and a unix-domain endpoint (``start(
 same port, and with the adaptors of ``protocol/legacy_pbrpc.py`` nova,
 public_pbrpc and ubrpc; hulu_pbrpc and sofa_pbrpc requests reach the method
 map like tbus_std's (on a native-plane server through the handoff to the
-Python plane). thrift, mongo (A11d) and rtmp (A11e) are later items. The
+Python plane). ``thrift_service`` serves framed thrift and
+``mongo_service_adaptor`` the mongo wire on the same port (on a
+native-plane server through the same handoff); rtmp (A11e) is a later
+item. The
 method map (``_MethodMap``) is keyed on the native FlatMap of the port's
 host runtime. A server listens on the Python acceptor, or with
 ``ServerOptions(native_plane=True)`` on the C++ reactors of
@@ -381,14 +384,8 @@ class ServerOptions:
         *,
         device: DeviceLike = None,
     ):
-        unported = (
-            ("thrift_service", thrift_service, None, "A11d"),
-            ("mongo_service_adaptor", mongo_service_adaptor, None, "A11d"),
-            ("rtmp_service", rtmp_service, None, "A11e"),
-        )
-        for name, value, default, item in unported:
-            if value != default:
-                refuse_unported("ServerOptions", name, value, item)
+        if rtmp_service is not None:
+            refuse_unported("ServerOptions", "rtmp_service", rtmp_service, "A11e")
         # int (0 = unlimited) or "auto" — the adaptive gradient limiter
         # (reference AdaptiveMaxConcurrency, server.h + policy/
         # auto_concurrency_limiter.cpp) applied server-wide / per-method
@@ -426,6 +423,13 @@ class ServerOptions:
         # fn(cntl, head: dict, body: bytes) -> bytes — the single legacy
         # nshead handler (reference ServerOptions.nshead_service)
         self.nshead_service = nshead_service
+        # fn(cntl, method: str, payload: bytes) -> bytes — serves framed
+        # thrift on this port (reference ServerOptions.thrift_service)
+        self.thrift_service = thrift_service
+        # protocol/mongo.MongoServiceAdaptor — enables the mongo wire
+        # protocol on this server's port (reference
+        # ServerOptions.mongo_service_adaptor)
+        self.mongo_service_adaptor = mongo_service_adaptor
         # ssl.SSLContext (server side): every connection of this port is
         # TLS, its handshake pumped from the reactor (reference
         # ServerOptions.ssl_options). A TLS port stays on the Python plane.

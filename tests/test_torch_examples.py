@@ -60,6 +60,7 @@ CASES = [
     ("multi_protocol", "multi_protocol", [], CPU),
     ("nshead_extension", "nshead_extension", [], CPU),
     ("ubrpc_compack", "ubrpc_compack", [], CPU),
+    ("cache_clients", "cache_clients", [], []),
 ]
 MODULES = sorted({module for _case, module, _a, _b in CASES})
 

@@ -23,8 +23,13 @@ the positional calls of C7 that pass ``max_concurrency`` or
 (``test_both_packages_serve_the_protocol_option``), and since ROADMAP A11b
 so are hulu_pbrpc and sofa_pbrpc there, the other seven names of the
 legacy family and ``ServerOptions(nshead_service=)``
-(``test_both_packages_take_the_legacy_options``); mongo and thrift still
-refuse naming A11d, and rtmp A11e. And
+(``test_both_packages_take_the_legacy_options``). Since ROADMAP A11d
+``ServerOptions(thrift_service=)`` and ``mongo_service_adaptor=`` serve
+their wires on both packages (``test_both_packages_serve_the_a11d_
+server_options``), and a ``ChannelOptions(protocol="thrift")`` or
+``"mongo"`` fails its call as the JAX channel's does, the registry rows
+packing no request (``test_a11d_channel_protocols_fail_their_calls``);
+rtmp still refuses naming A11e. And
 ``run_dispatch_session`` ends as the reference's does, ``..., chunk_order,
 trace_id, parent_span_id`` (ROADMAP C8), with the port's ``device`` and
 ``group_timeout_s`` keyword-only after them; a non-zero trace id binds
@@ -35,6 +40,8 @@ ssl_context=)`` no longer refuse, and the port's ``Socket`` and
 (tests/test_torch_ssl.py serves them)."""
 
 import inspect
+import socket
+import struct
 import threading
 import time
 import types
@@ -42,7 +49,9 @@ import types
 import pytest
 
 import incubator_brpc_tpu.parallel.mc_dispatch as jax_mcd
+import incubator_brpc_tpu.protocol.mongo as jax_mongo
 import incubator_brpc_tpu.protocol.registry as jax_registry
+import incubator_brpc_tpu.protocol.thrift as jax_thrift
 import incubator_brpc_tpu.rpc as jax_rpc
 import incubator_brpc_tpu.rpc.server as jax_server_mod
 import incubator_brpc_tpu.transport.acceptor as jax_acceptor
@@ -50,7 +59,9 @@ import incubator_brpc_tpu.transport.device_link as jax_dl
 import incubator_brpc_tpu.transport.sock as jax_sock
 import incubator_brpc_tpu.utils.flags as jax_flags
 import incubator_brpc_tpu_torch.parallel.mc_dispatch as port_mcd
+import incubator_brpc_tpu_torch.protocol.mongo as port_mongo
 import incubator_brpc_tpu_torch.protocol.registry as port_registry
+import incubator_brpc_tpu_torch.protocol.thrift as port_thrift
 import incubator_brpc_tpu_torch.rpc as port_rpc
 import incubator_brpc_tpu_torch.rpc.channel as port_channel
 import incubator_brpc_tpu_torch.transport.acceptor as port_acceptor
@@ -65,12 +76,13 @@ PKGS = {
         name="jax", ServerOptions=jax_server_mod.ServerOptions, rpc=jax_rpc,
         Acceptor=jax_acceptor.Acceptor, Socket=jax_sock.Socket,
         Protocol=jax_registry.Protocol, dl=jax_dl, server_kw={}, flags=jax_flags,
+        thrift=jax_thrift, mongo=jax_mongo,
     ),
     "torch": types.SimpleNamespace(
         name="torch", ServerOptions=port_rpc.ServerOptions, rpc=port_rpc,
         Acceptor=port_acceptor.Acceptor, Socket=port_sock.Socket,
         Protocol=port_registry.Protocol, dl=port_dl, server_kw={"device": "cpu"},
-        flags=port_flags,
+        flags=port_flags, thrift=port_thrift, mongo=port_mongo,
     ),
 }
 
@@ -255,8 +267,6 @@ def test_init_with_lb_name_and_options(pkg, echo_server):
 
 # each unported option value and the ROADMAP item its refusal names
 REFUSED = [
-    ("ServerOptions", {"thrift_service": print}, "A11d"),
-    ("ServerOptions", {"mongo_service_adaptor": object()}, "A11d"),
     ("ServerOptions", {"rtmp_service": object()}, "A11e"),
 ] + [("ChannelOptions", {"protocol": name}, item)
      for name, item in port_channel.UNPORTED_PROTOCOLS.items()]
@@ -346,6 +356,80 @@ def test_both_packages_take_the_legacy_options(name):
     if codes:
         assert codes["torch"] == codes["jax"]
         assert codes["torch"][0] == ErrorCode.EREQUEST
+    port_rpc.shutdown_host_plane()
+    shutdown_global_timer_thread()
+
+
+def _serve_thrift(pkg, port):
+    client = pkg.thrift.ThriftClient(f"127.0.0.1:{port}")
+    try:
+        return client.call("echo", b"abc")
+    finally:
+        client.close()
+
+
+def _serve_mongo(pkg, port):
+    mongo = pkg.mongo
+    body = (struct.pack("<i", 0) + b"db.x\x00" + struct.pack("<ii", 0, 0)
+            + mongo.bson_encode({"data": b"abc"}))
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as conn:
+        conn.sendall(mongo.HEAD.pack(16 + len(body), 9, 0, mongo.OP_QUERY) + body)
+        data = b""
+        while len(data) < 4 or len(data) < struct.unpack_from("<i", data)[0]:
+            data += conn.recv(65536)
+    return mongo.bson_decode(data, 36)[0]["data"]
+
+
+@pytest.mark.parametrize("option", ["thrift_service", "mongo_service_adaptor"])
+def test_both_packages_serve_the_a11d_server_options(pkg, option):
+    """Once refused naming A11d: the option is taken, held, and serves its
+    wire on the server's port beside tbus_std."""
+    if option == "thrift_service":
+        def value(cntl, method, payload):
+            return payload[::-1]
+    else:
+        class Adaptor(pkg.mongo.MongoServiceAdaptor):
+            def handle_query(self, ctx, query):
+                return [{"data": query.query["data"][::-1]}]
+
+        value = Adaptor()
+    opts = pkg.ServerOptions(**{option: value}, **pkg.server_kw)
+    assert getattr(opts, option) is value
+    srv = pkg.rpc.Server(opts)
+    srv.add_service("Echo", {"echo": lambda cntl, req: req})
+    assert srv.start(0)
+    try:
+        serve = _serve_thrift if option == "thrift_service" else _serve_mongo
+        assert serve(pkg, srv.port) == b"cba"
+        ch = pkg.rpc.Channel()
+        assert ch.init(f"127.0.0.1:{srv.port}")
+        assert ch.call_method("Echo", "echo", b"tbus").response_payload == b"tbus"
+    finally:
+        srv.stop()
+        assert srv.join(timeout=10)
+    port_rpc.shutdown_host_plane()
+    shutdown_global_timer_thread()
+
+
+@pytest.mark.parametrize("protocol", ["thrift", "mongo"])
+def test_a11d_channel_protocols_fail_their_calls(pkg, protocol):
+    """Once refused naming A11d: the option is taken, and a call over it
+    fails as the JAX channel's does, the registry's row packing no
+    request."""
+    opts = pkg.rpc.ChannelOptions(protocol=protocol, timeout_ms=2000, max_retry=0)
+    assert opts.protocol == protocol
+    srv = pkg.rpc.Server(pkg.ServerOptions(**pkg.server_kw))
+    srv.add_service("Echo", {"echo": lambda cntl, req: req})
+    assert srv.start(0)
+    try:
+        ch = pkg.rpc.Channel()
+        assert ch.init(f"127.0.0.1:{srv.port}", options=opts)
+        cntl = ch.call_method("Echo", "echo", b"x")
+        assert (cntl.error_code, cntl.error_text) == (
+            ErrorCode.EREQUEST, f"pack failed: protocol {protocol!r} cannot pack requests")
+    finally:
+        srv.stop()
+        assert srv.join(timeout=10)
     port_rpc.shutdown_host_plane()
     shutdown_global_timer_thread()
 
