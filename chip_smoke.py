@@ -13,8 +13,10 @@ the fused and the sliced schedules, the step with heads = 0 and its ring
 mean (K4f), the step on the fabric mesh with all 8 ranks on the card (tp
 psum, pp GPipe, sp ring attention and ring mean, ep all_to_all), the
 quantized collective sessions (K2), the port's tools pressing the device
-echo, the device echo over TLS and unix-domain sockets and over the
-legacy nshead, mcpack and pbrpc wires, and its examples and entry points
+echo, the device echo over TLS and unix-domain sockets, over the legacy
+nshead, mcpack and pbrpc wires and over thrift and mongo, RTMP relaying
+published media with each video frame computed on by the card, and its
+examples and entry points
 (``graft_entry.py``).
 
     python3 chip_smoke.py [--out FILE]
@@ -245,6 +247,28 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    answers, which must equal the calls made. K1a and K1c must launch in
    (a)-(c); the kernels line's K1 entries carry the tallies as
    ``cache_thrift_mongo_launches``;
+3n. relays published media over RTMP, the protocol of ROADMAP A11e
+   (``rtmp_phase``): (a) four publishers (``RtmpClient``) send a live
+   ingest each (metadata, AAC and AVC sequence headers, 2 s of 30 fps AVCC
+   video, keyframes of 128 KiB at frames 0 and 30, P-frames of 16 KiB, AAC
+   frames of 384 B) to a server whose ``rtmp_service``, an
+   ``FlvDumpService``, queues every video payload on a ``DeviceEndpoint``
+   of the mixed table with method 3 (x2) before it dumps it; each stream
+   has a player from the start and a late joiner from frame 30 on. Every device
+   answer bitwise ``expected(words, 3)``, every player's messages bitwise
+   and in order with their timestamps, the late joiners' cached metadata
+   and headers first, each FLV dump read back as published; meanwhile
+   sequential tbus_std device echoes on the same port, beside the same
+   calls alone. (b) A publisher and a player on a ``native_plane=True``
+   server: 30 frames relayed and computed on, 2 handoffs, ``native_reqs``
+   unmoved. (c) On the host: each dump muxed to MPEG-TS (whole packets,
+   CRCs, continuity counters), a refused ``connect`` and a second
+   publisher of a live name refused. It prints the relay's µs p50/p99 a
+   video frame, MB/s and frames/s, µs a device call and the neighbour's µs
+   with and without the streams. K1a, K1b (the mixed table verifies every
+   frame) and K1c (the neighbour's echo table) must launch in (a), K1a and
+   K1b in (b); the kernels line's K1 entries carry the tallies as
+   ``rtmp_launches``;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -433,6 +457,7 @@ from __future__ import annotations
 import argparse
 import gc
 import inspect
+import io
 import json
 import math
 import os
@@ -4784,6 +4809,561 @@ def cache_clients_part(resp, memcache, memcache_binary, rng, scale, closers):
     return d
 
 
+RTMP_STREAMS = 4  # publishers, one stream name each
+RTMP_FRAMES = 60  # 2 s of 30 fps video a stream
+RTMP_FRAMES_MIN = 4  # ... at the smallest scale
+RTMP_FPS = 30
+RTMP_KEY_BYTES = 128 * 1024  # an AVC keyframe tag (frames 0 and RTMP_FRAMES // 2)
+RTMP_P_BYTES = 16 * 1024  # a P-frame tag
+RTMP_AAC_BYTES = 384  # an AAC frame tag
+RTMP_AAC_MS = 1024 * 1000 / 44100  # one AAC-LC frame of 1024 samples at 44.1 kHz
+RTMP_NATIVE_FRAMES = 30  # (b): frames relayed on the native plane
+RTMP_WINDOW = 16  # the endpoints' window (phase 3b's geometry)
+RTMP_SEQ = 20  # the neighbour's sequential tbus_std calls alone, before and after
+RTMP_X2 = 3  # the mixed table's x2 method: the card computes on every frame
+RTMP_META = {"width": 1920.0, "height": 1080.0, "framerate": 30.0, "videocodecid": 7.0,
+             "audiocodecid": 10.0, "audiosamplerate": 44100.0, "stereo": True,
+             "encoder": "chip_smoke"}
+# AVCDecoderConfigurationRecord: High profile 4.0, one SPS and one PPS
+RTMP_AVC_HEADER = (b"\x17\x00\x00\x00\x00\x01\x64\x00\x28\xff\xe1\x00\x04\x67\x64\x00\x28"
+                   b"\x01\x00\x04\x68\xee\x3c\x80")
+RTMP_AAC_HEADER = b"\xaf\x00\x12\x10"  # AudioSpecificConfig: AAC-LC, 44.1 kHz, stereo
+
+
+def rtmp_frames(scale: float, n: int = RTMP_FRAMES) -> int:
+    """Video frames a stream sends at ``scale``."""
+    return max(RTMP_FRAMES_MIN, round(n * scale))
+
+
+def rtmp_media(rng, frames: int, audio: bool = True):
+    """A live ingest's messages in send order, (kind, ms, payload):
+    ``@setDataFrame`` metadata, the AAC and AVC sequence headers, then
+    ``frames`` frames of 30 fps AVCC video (a keyframe of ``RTMP_KEY_BYTES``
+    at frame 0 and at ``frames // 2``, P-frames of ``RTMP_P_BYTES``, one
+    length-prefixed NAL unit each, its bytes from ``rng``) with AAC frames of
+    ``RTMP_AAC_BYTES`` interleaved by timestamp. Video frames carry their
+    index as a fourth element."""
+    out = [("meta", 0, RTMP_META), ("audio", 0, RTMP_AAC_HEADER), ("video", 0, RTMP_AVC_HEADER)]
+    timed = []
+    for i in range(frames):
+        key = i in (0, frames // 2)
+        total = RTMP_KEY_BYTES if key else RTMP_P_BYTES
+        nal = bytes([0x65 if key else 0x41]) + rng.integers(
+            0, 256, total - 10, dtype=np.uint8).tobytes()
+        payload = (b"\x17\x01" if key else b"\x27\x01") + b"\x00\x00\x00" + struct.pack(
+            ">I", len(nal)) + nal
+        timed.append((round(i * 1000 / RTMP_FPS), 0, ("video", round(i * 1000 / RTMP_FPS),
+                                                      payload, i)))
+    k = 0
+    while audio and k * RTMP_AAC_MS < frames * 1000 / RTMP_FPS:
+        ms = round(k * RTMP_AAC_MS)
+        raw = rng.integers(0, 256, RTMP_AAC_BYTES - 2, dtype=np.uint8).tobytes()
+        timed.append((ms, 1, ("audio", ms, b"\xaf\x01" + raw)))
+        k += 1
+    return out + [m for _, _, m in sorted(timed, key=lambda t: (t[0], t[1]))]
+
+
+def rtmp_expected(rtmp, amf0, media, late: bool = False):
+    """(type id, ms, payload) of each message a player receives: every
+    message as published (metadata in its ``@setDataFrame`` form) for one
+    that joined first; for a late joiner the cached metadata (as
+    ``onMetaData``) and the AAC and AVC sequence headers at 0 ms, then
+    ``media``, the messages published after it joined."""
+    out = []
+    if late:
+        out = [(rtmp.MSG_DATA_AMF0, 0, amf0.encode_all("onMetaData", RTMP_META)),
+               (rtmp.MSG_AUDIO, 0, RTMP_AAC_HEADER), (rtmp.MSG_VIDEO, 0, RTMP_AVC_HEADER)]
+    for kind, ms, payload, *_ in media:
+        if kind == "meta":
+            out.append((rtmp.MSG_DATA_AMF0, ms,
+                        amf0.encode_all("@setDataFrame", "onMetaData", payload)))
+        else:
+            out.append((rtmp.MSG_AUDIO if kind == "audio" else rtmp.MSG_VIDEO, ms, payload))
+    return out
+
+
+def rtmp_flv_tags(amf0, media):
+    """The FLV tags ``FlvDumpService`` writes for ``media``: the metadata
+    as an ``onMetaData`` script tag at 0 ms, then every audio and video
+    message as published."""
+    return [(18, 0, amf0.encode_all("onMetaData", RTMP_META))] + [
+        (8 if kind == "audio" else 9, ms, payload)
+        for kind, ms, payload, *_ in media if kind != "meta"]
+
+
+class RtmpPlayer:
+    """What one player receives, (type id, ms, payload) in order with the
+    time of each receipt; ``done`` is set once ``want`` messages came."""
+
+    def __init__(self, want: int):
+        self.got, self.at, self.want = [], [], want
+        self.cv = threading.Condition()
+        self.done = threading.Event()
+
+    def on_media(self, msg):
+        with self.cv:
+            self.at.append(time.perf_counter())
+            self.got.append((msg.type_id, msg.timestamp, msg.payload))
+            self.cv.notify_all()
+        if len(self.got) >= self.want:
+            self.done.set()
+
+    def wait_count(self, n: int, timeout: float) -> bool:
+        with self.cv:
+            return self.cv.wait_for(lambda: len(self.got) >= n, timeout)
+
+
+def rtmp_publish(rtmp, port, name, media, player, late_at=None, late_want=0):
+    """Publish ``media`` on ``name`` as fast as the connection takes it,
+    each send's time kept. With ``late_at``, pause before that message
+    until ``player`` received everything sent, start a late joiner (an
+    ``RtmpPlayer`` awaiting ``late_want`` messages) and go on once it
+    plays. Returns (send times, the late joiner and its client, the
+    publisher's client)."""
+    pub = rtmp.RtmpClient("127.0.0.1", port, timeout=300)
+    stream = pub.create_stream(timeout=300)
+    if not stream.publish(name, timeout=300):
+        raise AssertionError(f"phase3n: publishing {name} was refused")
+    sent, late = [], (None, None)
+    for j, (kind, ms, payload, *_) in enumerate(media):
+        if j == late_at:
+            if not player.wait_count(j, 300):
+                raise AssertionError(f"phase3n {name}: the player got {len(player.got)} of {j}")
+            joiner = RtmpPlayer(late_want)
+            client = rtmp.RtmpClient("127.0.0.1", port, timeout=300)
+            late = (joiner, client)
+            if not client.create_stream(timeout=300).play(name, on_media=joiner.on_media,
+                                                           timeout=300):
+                raise AssertionError(f"phase3n {name}: the late joiner could not play")
+        sent.append(time.perf_counter())
+        if kind == "meta":
+            stream.send_metadata(payload, ms)
+        elif kind == "audio":
+            stream.send_audio(ms, payload)
+        else:
+            stream.send_video(ms, payload)
+    return sent, late, pub
+
+
+def rtmp_play(rtmp, port, name, want):
+    player = RtmpPlayer(want)
+    client = rtmp.RtmpClient("127.0.0.1", port, timeout=300)
+    if not client.create_stream(timeout=300).play(name, on_media=player.on_media, timeout=300):
+        raise AssertionError(f"phase3n: playing {name} was refused")
+    return player, client
+
+
+def ts_check(mpegts, flv, flv_bytes):
+    """Mux one FLV dump's audio and video tags with ``TsWriter``; the
+    output must be whole 188-byte packets with their sync bytes, PAT and
+    PMT sections whose CRC holds by ``crc32_mpeg``, and continuity counters
+    in sequence per PID. Returns the packets' count."""
+    out = io.BytesIO()
+    writer = mpegts.TsWriter(out)
+    for tag, ms, payload in flv.FlvReader(flv_bytes):
+        if tag == flv.TAG_VIDEO:
+            writer.write_video(ms, payload)
+        elif tag == flv.TAG_AUDIO:
+            writer.write_audio(ms, payload)
+    data = out.getvalue()
+    if not data or len(data) % mpegts.TS_PACKET:
+        raise AssertionError(f"phase3n (c): {len(data)} B of TS is not whole packets")
+    last, psi = {}, 0
+    for pid, pusi, cc, body in mpegts.demux_packets(data):  # holds every sync byte
+        if pid in last and cc != (last[pid] + 1) & 0x0F:
+            raise AssertionError(f"phase3n (c): PID {pid:#x} continuity {last[pid]} -> {cc}")
+        last[pid] = cc
+        if pid in (mpegts.PID_PAT, mpegts.PID_PMT):
+            length = ((body[2] & 0x0F) << 8) | body[3]
+            section = body[1:4 + length]
+            if mpegts.crc32_mpeg(section[:-4]) != struct.unpack(">I", section[-4:])[0]:
+                raise AssertionError(f"phase3n (c): PID {pid:#x}'s CRC does not hold")
+            psi += 1
+    if psi != 2 or not {mpegts.PID_VIDEO, mpegts.PID_AUDIO} <= set(last):
+        raise AssertionError(f"phase3n (c): PSI sections {psi}, PIDs {sorted(last)}")
+    return len(data) // mpegts.TS_PACKET
+
+
+def rtmp_rejected_connect(rtmp, amf0, port):
+    """Handshake and ``connect`` on a raw socket to a server whose service
+    refuses every connect: the reply's command name, then "closed" once the
+    server closed the socket."""
+    conn = socket.create_connection(("127.0.0.1", port), timeout=60)
+    try:
+        conn.sendall(bytes([rtmp.VERSION]) + bytes(rtmp.HANDSHAKE_SIZE))
+        got = b""
+        while len(got) < 1 + 2 * rtmp.HANDSHAKE_SIZE:
+            chunk = conn.recv(65536)
+            if not chunk:
+                raise AssertionError("phase3n (c): the server closed during the handshake")
+            got += chunk
+        conn.sendall(got[1:1 + rtmp.HANDSHAKE_SIZE]  # C2 echoes S1
+                     + rtmp.pack_command(0, "connect", 1.0, {"app": "live"}))
+        reader, out, rest = rtmp.ChunkReader(), [], got[1 + 2 * rtmp.HANDSHAKE_SIZE:]
+        while True:
+            msgs, used = reader.feed(rest)
+            rest = rest[used:]
+            out += [amf0.decode_all(m.payload)[0] for m in msgs
+                    if m.type_id == rtmp.MSG_COMMAND_AMF0]
+            try:
+                chunk = conn.recv(65536)
+            except ConnectionResetError:
+                chunk = b""
+            if not chunk:
+                return out + ["closed"]
+            rest += chunk
+    finally:
+        conn.close()
+
+
+def rtmp_phase(torch, kernels, device=None, scale: float = 1.0, card: str = ""):
+    """Phase 3n: RTMP on the shared port (ROADMAP A11e), each published
+    video frame computed on by the card. (a) One server serves
+    ``ServerOptions(rtmp_service=...)``, a ``FlvDumpService`` whose
+    ``on_video`` queues each video payload on a ``DeviceEndpoint`` of the
+    mixed table {0, 3, 5} with ``call_words(..., method_id=3)`` (x2; the
+    endpoint's credit window of 16 is the only wait) before the dump writes
+    it, and the device echo (the echo table, 256 B) over tbus_std.
+    ``RTMP_STREAMS`` publishers (``RtmpClient``) send a live ingest each
+    (``rtmp_media``: metadata, AAC and AVC sequence headers, 2 s of 30 fps
+    AVCC video with keyframes of 128 KiB at frames 0 and 30 and P-frames
+    of 16 KiB, AAC frames of 384 B interleaved), as fast as the connection
+    takes them; each stream has a player from the start and a late joiner
+    that plays once frames 0-29 reached the first player. Every device
+    answer is held bitwise to ``expected(words, 3)``, every player's
+    messages to the published ones (bitwise, in order, with their
+    timestamps), each late joiner's first three to the cached metadata and
+    headers, each FLV dump read back by ``FlvReader`` to the published
+    tags. Meanwhile a tbus_std ``Channel`` makes sequential device echoes
+    on the same port, beside ``RTMP_SEQ`` alone before and after. (b) A
+    publisher and a player on a ``native_plane=True`` server, the same
+    service: ``RTMP_NATIVE_FRAMES`` frames relayed and computed on bitwise,
+    two handoffs, ``native_reqs`` unmoved. (c) Host only: each dump of (a)
+    muxed by ``TsWriter`` (``ts_check``), a ``connect`` refused (``_error``
+    then the socket closed) and a second publisher of a live name refused
+    (``NetStream.Publish.BadName``). K1 is tallied per part. Returns
+    (figures, {part: K1 launches})."""
+    from incubator_brpc_tpu_torch.models.tensor_echo import TensorEchoService
+    from incubator_brpc_tpu_torch.protocol import amf0, flv, mpegts, rtmp
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, ServerOptions
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+
+    tally = {}
+
+    def counted(part, fn):
+        before = kernels.launch_counts()
+        try:
+            return fn()
+        finally:
+            after = kernels.launch_counts()
+            row = tally.setdefault(part, dict.fromkeys(K1, 0))
+            for k in K1:
+                row[k] += after[k] - before[k]
+
+    table = TensorEchoService()
+    table.add_method(3, lambda p: kernels.bits32(kernels.u64(p) * 2))
+    table.add_method(5, lambda p: kernels.bits32(kernels.u64(p) + 10))
+    mixed_ep = DeviceEndpoint(service=table, window_size=RTMP_WINDOW, max_batch=RTMP_WINDOW,
+                              device=device)
+    echo_ep = DeviceEndpoint(window_size=RTMP_WINDOW, max_batch=RTMP_WINDOW, device=device)
+    calls, calls_cv = [], threading.Condition()  # (t0, words, pending) as queued
+    cids = iter(range(1, 1 << 31))
+
+    class DeviceDump(flv.FlvDumpService):
+        """The dump, each video payload first queued on the card (x2)."""
+
+        def on_video(self, stream, ts, payload):
+            words = np.frombuffer(payload + b"\0" * (-len(payload) % 4), np.uint32)
+            t0 = time.perf_counter()
+            pending = mixed_ep.call_words(words, method_id=RTMP_X2, correlation_id=next(cids),
+                                          timeout=300)
+            with calls_cv:
+                calls.append((t0, words, pending))
+                calls_cv.notify_all()
+            super().on_video(stream, ts, payload)
+
+    class Settler:
+        """A thread that waits for each device call as it is queued, from
+        index ``first`` on, and holds its answer bitwise to ``expected(words,
+        3)``; ``us``: µs a call from ``call_words`` to the moment the wait
+        saw it complete. ``finish()`` waits for the calls queued so far."""
+
+        def __init__(self, first):
+            self.i, self.us, self.error, self.stopping = first, [], None, False
+            self.thread = threading.Thread(target=self.run, name="phase3n-settle")
+            self.thread.start()
+
+        def run(self):
+            try:
+                while True:
+                    with calls_cv:
+                        calls_cv.wait_for(lambda: len(calls) > self.i or self.stopping)
+                        if len(calls) <= self.i:
+                            return
+                        t0, words, pending = calls[self.i]
+                    if not pending.wait(300):
+                        raise AssertionError("phase3n: a device call did not complete")
+                    self.us.append(1e6 * (time.perf_counter() - t0))
+                    if pending.error_code or not np.array_equal(pending.response_words,
+                                                                expected(words, RTMP_X2)):
+                        raise AssertionError(f"phase3n: a device answer is wrong "
+                                             f"(code {pending.error_code})")
+                    self.i += 1
+            except BaseException as e:  # noqa: BLE001 — re-raised by finish()
+                self.error = e
+
+        def finish(self):
+            with calls_cv:
+                self.stopping = True
+                calls_cv.notify_all()
+            self.thread.join(600)
+            if self.error is not None:
+                raise self.error
+            if self.thread.is_alive():
+                raise AssertionError("phase3n: the device calls did not settle")
+            return self.us
+
+    sinks = {}
+    servers, clients = [], []
+
+    def start(service, **kw):
+        srv = Server(ServerOptions(rtmp_service=service, device=device, **kw))
+        srv.add_service("tensor", {"echo": echo_ep.server_handler()})
+        if not srv.start(0):
+            raise AssertionError("phase3n: a Server did not start")
+        servers.append(srv)
+        return srv
+
+    def sink(name):
+        sinks[name] = io.BytesIO()
+        return sinks[name]
+
+    frames = rtmp_frames(scale)
+    rngs = [np.random.default_rng(2900 + s) for s in range(RTMP_STREAMS + 1)]
+    media = [rtmp_media(rngs[s], frames) for s in range(RTMP_STREAMS)]
+    out = {}
+    try:
+        echo_ep.warm(256)
+        for nbytes in (64, RTMP_P_BYTES, RTMP_KEY_BYTES):
+            mixed_ep.warm(nbytes)
+
+        # (a) four live ingests, relayed and computed on; tbus_std beside ----
+        srv = start(DeviceDump(sink))
+        ch = Channel()
+        if not ch.init(f"127.0.0.1:{srv.port}", options=ChannelOptions(timeout_ms=300_000)):
+            raise AssertionError("phase3n tbus_std: a Channel did not init")
+        nrng = np.random.default_rng(2999)
+
+        def neighbour_call():
+            p = nrng.integers(0, 256, size=256, dtype=np.uint8).tobytes()
+            t0 = time.perf_counter()
+            c = ch.call_method("tensor", "echo", p)
+            us = 1e6 * (time.perf_counter() - t0)
+            echo_check("(a) tbus_std", p, c.error_code, c.response_payload, phase="phase3n")
+            return us
+
+        def part_a():
+            alone = [neighbour_call() for _ in range(RTMP_SEQ)]
+            players = [rtmp_play(rtmp, srv.port, f"live{s}", len(media[s]))
+                       for s in range(RTMP_STREAMS)]
+            clients.extend(c for _, c in players)
+            late_at = [next(j for j, m in enumerate(media[s]) if m[0] == "video"
+                            and len(m) > 3 and m[3] == frames // 2) for s in range(RTMP_STREAMS)]
+            sent, lates, pubs = [None] * RTMP_STREAMS, [None] * RTMP_STREAMS, []
+            streaming = threading.Event()
+            beside = []
+
+            def neighbour():
+                while streaming.is_set():
+                    beside.append(neighbour_call())
+
+            def publish(s):
+                sent[s], lates[s], pub = rtmp_publish(
+                    rtmp, srv.port, f"live{s}", media[s], players[s][0], late_at[s],
+                    3 + len(media[s]) - late_at[s])
+                pubs.append(pub)
+                clients.extend((pub, lates[s][1]))
+
+            settler = Settler(0)
+            streaming.set()
+            side = threading.Thread(target=neighbour, name="phase3n-neighbour")
+            side.start()
+            t0 = time.perf_counter()
+            try:
+                call_threads(RTMP_STREAMS, publish)
+                for player, _ in players + lates:
+                    if not player.done.wait(300):
+                        raise AssertionError(f"phase3n (a): a player got {len(player.got)} of "
+                                             f"{player.want} messages")
+                wall = max(max(p.at) for p, _ in players) - t0
+            finally:
+                streaming.clear()
+                side.join(600)
+                device_us = settler.finish()
+            alone += [neighbour_call() for _ in range(RTMP_SEQ)]
+            return alone, beside, players, lates, sent, late_at, wall, device_us
+
+        alone, beside, players, lates, sent, late_at, wall, device_us = counted("a", part_a)
+        relay_us, right = [], {"players": 0, "late": 0, "dumps": 0}
+        for s in range(RTMP_STREAMS):
+            first, late = players[s][0], lates[s][0]
+            if first.got != rtmp_expected(rtmp, amf0, media[s]):
+                raise AssertionError(f"phase3n (a) live{s}: the first player's messages differ")
+            right["players"] += 1
+            if late.got != rtmp_expected(rtmp, amf0, media[s][late_at[s]:], late=True):
+                raise AssertionError(f"phase3n (a) live{s}: the late joiner's messages differ "
+                                     f"(first {late.got[:3][0][:2] if late.got else None})")
+            right["players"] += 1
+            right["late"] += 1
+            relay_us += [1e6 * (first.at[j] - sent[s][j]) for j, m in enumerate(media[s])
+                         if m[0] == "video" and len(m) > 3]
+            tags = list(flv.FlvReader(sinks[f"live{s}"].getvalue()))
+            if tags != rtmp_flv_tags(amf0, media[s]):
+                raise AssertionError(f"phase3n (a) live{s}: the FLV dump holds {len(tags)} tags "
+                                     f"that are not the published ones")
+            right["dumps"] += 1
+        published = sum(len(p) for m in media for kind, _, p, *_ in m if kind != "meta")
+        delivered = sum(len(g[2]) for pl, _ in players + lates for g in pl.got)
+        n_video = sum(1 for m in media for x in m if x[0] == "video" and len(x) > 3)
+        out["a"] = {
+            "streams": RTMP_STREAMS, "frames": frames, "messages": sum(map(len, media)),
+            "published_bytes": published, "delivered_bytes": delivered, "wall_s": wall,
+            "relay_MB_s": published / wall / 1e6, "delivered_MB_s": delivered / wall / 1e6,
+            "frames_s": n_video / wall,
+            "relay_p50_us": pct(relay_us, 0.5), "relay_p99_us": pct(relay_us, 0.99),
+            "device_calls": len(device_us), "device_right": len(device_us),
+            "device_p50_us": pct(device_us, 0.5), "device_p99_us": pct(device_us, 0.99),
+            "device_mean_us": sum(device_us) / len(device_us),
+            "players": 2 * RTMP_STREAMS, "players_right": right["players"],
+            "late_headers_right": right["late"], "dumps_right": right["dumps"],
+            "neighbour": {"alone_calls": len(alone), "alone_right": len(alone),
+                          "alone_mean_us": sum(alone) / len(alone),
+                          "alone_p50_us": pct(alone, 0.5),
+                          "calls": len(beside), "calls_right": len(beside),
+                          "mean_us": sum(beside) / len(beside) if beside else None,
+                          "p50_us": pct(beside, 0.5)},
+        }
+        if not beside:
+            raise AssertionError("phase3n (a): no tbus_std call ran beside the streams")
+        dumps = {name: buf.getvalue() for name, buf in sinks.items()}
+        for c in clients:
+            c.close()
+        clients.clear()
+        srv.stop()
+        srv.join(timeout=60)
+        servers.remove(srv)
+        # a connection's streams leave the hub in its on_failed hook, which
+        # may still run on the reactor that saw the client's close after
+        # join() returned (join waits for requests, not for those hooks)
+        t0 = time.perf_counter()
+        while srv._rtmp_hub and time.perf_counter() - t0 < 30:
+            time.sleep(0.01)
+        if srv._rtmp_hub:
+            raise AssertionError(f"phase3n (a): streams left in the hub after stop: "
+                                 f"{sorted(srv._rtmp_hub)}")
+        out["a"]["hub_drained_ms"] = 1e3 * (time.perf_counter() - t0)
+
+        # (b) the native plane hands both connections off --------------------
+        nat = start(DeviceDump(sink), native_plane=True)
+        plane = nat._native_plane
+        if plane is None:
+            raise AssertionError("phase3n (b): the server has no native plane")
+        n_native = rtmp_frames(scale, RTMP_NATIVE_FRAMES)
+        nmedia = rtmp_media(rngs[-1], n_native, audio=False)
+        before = plane.stats()
+
+        def part_b():
+            settler = Settler(len(calls))
+            try:
+                player, pclient = rtmp_play(rtmp, nat.port, "native", len(nmedia))
+                clients.append(pclient)
+                _, _, pub = rtmp_publish(rtmp, nat.port, "native", nmedia, player)
+                clients.append(pub)
+                if not player.done.wait(300):
+                    raise AssertionError(f"phase3n (b): the player got {len(player.got)} of "
+                                         f"{len(nmedia)} messages")
+            finally:
+                us = settler.finish()
+            return player, us
+
+        player, nat_us = counted("b", part_b)
+        after = plane.stats()
+        out["b"] = {"frames": n_native,
+                    "relayed_right": player.got == rtmp_expected(rtmp, amf0, nmedia),
+                    "device_calls": len(nat_us), "device_right": len(nat_us),
+                    "device_p50_us": pct(nat_us, 0.5),
+                    "handoffs": after["handoffs"] - before["handoffs"],
+                    "native_reqs_moved": after["native_reqs"] - before["native_reqs"]}
+        b = out["b"]
+        if not b["relayed_right"] or b["device_calls"] != n_native + 1:
+            raise AssertionError(f"phase3n (b): relayed right {b['relayed_right']}, "
+                                 f"{b['device_calls']} device calls of {n_native + 1}")
+        if b["handoffs"] != 2 or b["native_reqs_moved"] != 0:
+            raise AssertionError(f"phase3n (b): {b['handoffs']} handoffs (2 expected), "
+                                 f"native_reqs moved by {b['native_reqs_moved']}")
+
+        # (c) host only: TS of each dump, a refused connect, a second publisher
+        c = {"ts_packets": 0, "ts_streams_right": 0}
+        for s in range(RTMP_STREAMS):
+            c["ts_packets"] += ts_check(mpegts, flv, dumps[f"live{s}"])
+            c["ts_streams_right"] += 1
+
+        class Refusing(rtmp.RtmpService):
+            def on_connect(self, conn, info):
+                return False
+
+        c["connect_rejected"] = rtmp_rejected_connect(rtmp, amf0, start(Refusing()).port)
+        if c["connect_rejected"] != ["_error", "closed"]:
+            raise AssertionError(f"phase3n (c): a refused connect gave {c['connect_rejected']}")
+        host = start(rtmp.RtmpService())
+        first = rtmp.RtmpClient("127.0.0.1", host.port, timeout=300)
+        second = rtmp.RtmpClient("127.0.0.1", host.port, timeout=300)
+        clients.extend((first, second))
+        if not first.create_stream(timeout=300).publish("solo", timeout=300):
+            raise AssertionError("phase3n (c): the first publisher was refused")
+        dup = second.create_stream(timeout=300)
+        dup.name = "solo"
+        second._send_command(dup.msid, "publish", 0.0, None, "solo", "live")
+        dup.wait_status("NetStream.Publish.BadName", timeout=300)
+        c["second_publish"] = next((st["code"] for st in dup.statuses), None)
+        if c["second_publish"] != "NetStream.Publish.BadName":
+            raise AssertionError(f"phase3n (c): a second publisher got {dup.statuses}")
+        out["c"] = c
+    finally:
+        for client in clients:
+            client.close()
+        for s in servers:
+            s.stop()
+            s.join(timeout=60)
+        for ep in (mixed_ep, echo_ep):
+            if not ep.close(timeout=120):
+                raise AssertionError("phase3n: an endpoint did not settle its calls")
+    on = f" on {card}" if card else ""
+    a, n = out["a"], out["a"]["neighbour"]
+    log(f"phase3n (a){on}: {RTMP_STREAMS} streams x {frames} frames of 30 fps video "
+        f"({a['messages']} messages, {a['published_bytes']} B published, {a['delivered_bytes']} B "
+        f"to {a['players']} players) in {a['wall_s']:.3f} s: {a['relay_MB_s']:.2f} MB/s relayed, "
+        f"{a['frames_s']:.1f} frames/s; publisher send to first player's receipt p50 "
+        f"{a['relay_p50_us']:.1f} us, p99 {a['relay_p99_us']:.1f} us a video frame")
+    log(f"phase3n (a){on}: {a['device_calls']} device calls (x2, each bitwise): p50 "
+        f"{a['device_p50_us']:.1f} us, p99 {a['device_p99_us']:.1f} us, mean "
+        f"{a['device_mean_us']:.1f} us from call_words to completion; every player's messages, "
+        f"the late joiners' cached headers and the FLV dumps as published; hub empty after stop")
+    log(f"phase3n (a){on}: tbus_std device echo of 256 B on the same port, sequential: alone "
+        f"{n['alone_mean_us']:.1f} us mean, {n['alone_p50_us']:.1f} us p50 ({n['alone_calls']} "
+        f"calls); beside the streams {n['mean_us']:.1f} us mean, {n['p50_us']:.1f} us p50 "
+        f"({n['calls']} calls)")
+    log(f"phase3n (a) launches {[tally['a'][k] for k in K1]}")
+    log(f"phase3n (b){on} native plane: {out['b']['frames']} frames relayed and computed on "
+        f"bitwise, {out['b']['handoffs']} connections handed off, native_reqs moved "
+        f"{out['b']['native_reqs_moved']}; launches {[tally['b'][k] for k in K1]}")
+    log(f"phase3n (c) on the host: {out['c']['ts_packets']} TS packets of "
+        f"{out['c']['ts_streams_right']} dumps whole, CRCs and continuity right; a refused "
+        f"connect {out['c']['connect_rejected']}; a second publisher "
+        f"{out['c']['second_publish']}")
+    return out, tally
+
+
 ENTRY_TOL = 1e-5  # tests/test_torch_entry.py: the f32 forward's absolute tolerance
 DRYRUN_RANKS = 8
 
@@ -7503,6 +8083,20 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase3m: {cache_fig['phase_s']:.1f} s; K1 launches by part {cache_k1}")
 
+    # -- phase 3n: RTMP relaying live ingests, each video frame on the card ---
+    log(f"phase3n on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    rtmp_fig, rtmp_k1 = rtmp_phase(torch, kernels, card=card)
+    rtmp_fig["phase_s"] = time.perf_counter() - t0
+    # the mixed table's step frames (K1a) and verifies (K1b) every video
+    # frame; the neighbour's tbus_std echoes run the echo table (K1a, K1c)
+    for part, names in (("a", K1), ("b", ("frame_rows", "verify_rows"))):
+        missing = [name for name in names if rtmp_k1[part][name] == 0]
+        if missing:
+            raise AssertionError(f"phase3n ({part}): kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase3n: {rtmp_fig['phase_s']:.1f} s; K1 launches by part {rtmp_k1}")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -7565,6 +8159,7 @@ def main() -> int:
             "legacy_launches": {part: row[name] for part, row in sorted(legacy_k1.items())},
             "cache_thrift_mongo_launches": {part: row[name]
                                             for part, row in sorted(cache_k1.items())},
+            "rtmp_launches": {part: row[name] for part, row in sorted(rtmp_k1.items())},
             "entry_launches": entry_k["b"].get(name, 0),
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -7626,6 +8221,7 @@ def main() -> int:
                        "tls": tls_fig, "tls_launches": tls_k1,
                        "legacy": legacy_fig, "legacy_launches": legacy_k1,
                        "cache_thrift_mongo": cache_fig, "cache_thrift_mongo_launches": cache_k1,
+                       "rtmp": rtmp_fig, "rtmp_launches": rtmp_k1,
                        "entry": entry_fig, "entry_launches": entry_k,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],

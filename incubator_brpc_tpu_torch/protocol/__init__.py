@@ -13,8 +13,11 @@ gateway; the channel's FIFO-correlated client) and baidu_std
 server registered an ``nshead_service``), mongo (``protocol/mongo.py``:
 the server side behind a ``mongo_service_adaptor``), thrift
 (``protocol/thrift.py``: framed thrift behind a ``thrift_service``, the
-client in the same module), each scanned only where the server registered
-its option, and the legacy pbrpc family (``protocol/legacy_pbrpc.py``:
+client in the same module), rtmp (``protocol/rtmp.py``: the stateful media
+protocol behind an ``rtmp_service``, its handshake cut by the scan and its
+chunks by the connection's ``parse_conn``; the client in the same module,
+``amf0``, ``flv`` and ``mpegts`` beside it), each scanned only where the
+server registered its option, and the legacy pbrpc family (``protocol/legacy_pbrpc.py``:
 hulu_pbrpc, sofa_pbrpc, the FIFO-correlated nshead clients and esp). RESP
 (``protocol/resp.py``) and memcache (``protocol/memcache.py``, text, and
 ``protocol/memcache_binary.py``) are clients beside mock servers, with no
@@ -22,8 +25,7 @@ row here, as in the JAX package. Frames are sized by
 ``parse_header`` first, so a frame over ``max_body_size`` is refused from
 its header (transport/messenger.py). ``rpc/channel.py`` and
 ``rpc/server.py`` bind tbus_std's response and request hooks at import,
-and ``rpc/stream.py`` its stream hook. rtmp, which the JAX package
-registers between thrift and the legacy family, waits for ROADMAP A11e.
+and ``rpc/stream.py`` its stream hook.
 """
 
 from incubator_brpc_tpu_torch.protocol import tbus_std
@@ -72,6 +74,10 @@ from incubator_brpc_tpu_torch.protocol import mongo as _mongo  # noqa: E402,F401
 # thrift: framed-thrift server behind ServerOptions.thrift_service
 # (policy/thrift_protocol.cpp) — the client half lives in the same module
 from incubator_brpc_tpu_torch.protocol import thrift as _thrift  # noqa: E402,F401
+
+# rtmp: stateful media protocol behind an RtmpService — the extension
+# ceiling of the shared-port registry (policy/rtmp_protocol.cpp)
+from incubator_brpc_tpu_torch.protocol import rtmp as _rtmp  # noqa: E402,F401
 
 # the legacy Baidu family: hulu/sofa (full duplex), nova/public_pbrpc/
 # ubrpc_mcpack2/nshead_mcpack/esp clients + server adaptors

@@ -60,11 +60,10 @@ hulu_pbrpc and sofa_pbrpc (correlation ids on the wire), and nova_pbrpc,
 public_pbrpc, ubrpc_mcpack2, nshead_mcpack and esp, answered in order on
 their connection (``fifo_responses``): such a socket is tagged with the
 protocol it speaks (``context["fifo_protocol"]``), which picks its response
-decoder and gates the scan of its replies. mongo and thrift are
+decoder and gates the scan of its replies. mongo, thrift and rtmp are
 registered with no request packer, as in the JAX package: a call over
-either fails with "cannot pack requests" (thrift's client is
-``protocol/thrift.ThriftClient``). rtmp (ROADMAP A11e) is a later item; the
-option refuses it naming its item.
+any of them fails with "cannot pack requests" (thrift's client is
+``protocol/thrift.ThriftClient``, rtmp's ``protocol/rtmp.RtmpClient``).
 """
 
 from __future__ import annotations
@@ -84,7 +83,7 @@ from incubator_brpc_tpu_torch.protocol import compress as compress_mod
 from incubator_brpc_tpu_torch.protocol.tbus_std import Meta, ParsedFrame
 from incubator_brpc_tpu_torch.rpc import stream as stream_mod
 from incubator_brpc_tpu_torch.rpc.auth import attach_credential, mark_authenticated
-from incubator_brpc_tpu_torch.rpc.controller import RETRIABLE, Controller, refuse_unported
+from incubator_brpc_tpu_torch.rpc.controller import RETRIABLE, Controller
 from incubator_brpc_tpu_torch.rpc.deadline import current_deadline
 from incubator_brpc_tpu_torch.runtime.correlation_id import EBUSY, call_id_space
 from incubator_brpc_tpu_torch.runtime.timer_thread import global_timer_thread
@@ -289,11 +288,6 @@ class RetryBudget:
             return self._tokens
 
 
-# the JAX package's other registered protocols, each with the ROADMAP item
-# that brings it: a channel asking for one is refused naming it
-UNPORTED_PROTOCOLS = {"rtmp": "A11e"}
-
-
 def tls_key_tag(options: "ChannelOptions") -> str:
     """The socket-map key's TLS partition: TLS and plaintext never share a
     connection, and neither do two channels with different TLS configs
@@ -321,11 +315,10 @@ class ChannelOptions:
     (``backup_request_ms``), credentials (``auth``), the custom retry
     policy (``retry_policy``), the device link (``transport="tpu"``,
     ``device_index`` and ``link_*``), the native client
-    (``native_plane``) and the connection types ("single", "pooled",
-    "short"). Every other parameter keeps its place and its default; a
-    value that asks for something the port does not serve yet raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it, and a
-    value the reference itself refuses raises ``ValueError`` as there."""
+    (``native_plane``), TLS (``ssl_context``), every registered protocol
+    by name and the connection types ("single", "pooled", "short"). Every
+    parameter keeps its place and its default, and a value the reference
+    itself refuses raises ``ValueError`` as there."""
 
     def __init__(
         self,
@@ -355,8 +348,6 @@ class ChannelOptions:
             raise ValueError("transport='tpu' supports connection_type='single'")
         if link_controller not in ("single", "multi"):
             raise ValueError(f"unknown link_controller {link_controller!r}")
-        if protocol in UNPORTED_PROTOCOLS:
-            refuse_unported("ChannelOptions", "protocol", protocol, UNPORTED_PROTOCOLS[protocol])
         self.timeout_ms = timeout_ms
         self.max_retry = max_retry
         # duplicate a call to another server when the first attempt has not

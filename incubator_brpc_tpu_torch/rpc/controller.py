@@ -17,9 +17,7 @@ backup request (``backup_request_ms``), session data
 ``span_id``, ``parent_span_id``, the head-based ``trace_sampled`` bit and
 the call's span).
 The constructor keeps the reference's parameters in their places
-(``backup_request_ms`` before ``log_id``). :func:`refuse_unported` is the
-port's refusal of a value it does not serve yet: it names the ROADMAP item
-that brings it, so nothing binds silently to another parameter.
+(``backup_request_ms`` before ``log_id``).
 """
 
 from __future__ import annotations
@@ -31,15 +29,6 @@ from typing import Any, Callable, List, Optional
 from incubator_brpc_tpu_torch.protocol.tbus_std import Meta
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint
 from incubator_brpc_tpu_torch.utils.status import ErrorCode, berror
-
-
-def refuse_unported(owner: str, name: str, value, item: str) -> None:
-    """Raise ``NotImplementedError`` for a reference parameter set to a
-    value the port does not serve yet; the message names the ROADMAP item
-    that brings it."""
-    raise NotImplementedError(
-        f"{owner}({name}={value!r}) is not in the port yet (ROADMAP {item})"
-    )
 
 
 class Controller:

@@ -53,8 +53,9 @@ public_pbrpc and ubrpc; hulu_pbrpc and sofa_pbrpc requests reach the method
 map like tbus_std's (on a native-plane server through the handoff to the
 Python plane). ``thrift_service`` serves framed thrift and
 ``mongo_service_adaptor`` the mongo wire on the same port (on a
-native-plane server through the same handoff); rtmp (A11e) is a later
-item. The
+native-plane server through the same handoff), and ``rtmp_service``
+the RTMP relay (``protocol/rtmp.py``; the hub of published streams lives
+on the server as ``_rtmp_hub``). The
 method map (``_MethodMap``) is keyed on the native FlatMap of the port's
 host runtime. A server listens on the Python acceptor, or with
 ``ServerOptions(native_plane=True)`` on the C++ reactors of
@@ -111,7 +112,7 @@ from incubator_brpc_tpu_torch.rpc.concurrency_limiter import (
     AutoConcurrencyLimiter,
     create_concurrency_limiter,
 )
-from incubator_brpc_tpu_torch.rpc.controller import Controller, refuse_unported
+from incubator_brpc_tpu_torch.rpc.controller import Controller
 from incubator_brpc_tpu_torch.rpc.data_pool import SimpleDataPool
 from incubator_brpc_tpu_torch.rpc.deadline import pop_deadline, push_deadline
 
@@ -343,13 +344,12 @@ class ServerOptions:
     native plane's ``native_plane``, ``num_reactors`` (``native_loops`` is
     its alias, a live property) and ``native_dispatch_workers``, the
     session and thread-local data factories with their reservations, the
-    collective services' options and ``fault_injector``;
-    ``has_builtin_services`` switches the builtin pages of the HTTP portal
-    (``builtin/pages.py``: the JAX package's whole table). Every other
-    parameter keeps
-    its place and its default, and a value that asks for something the
-    port does not serve yet raises ``NotImplementedError`` naming the
-    ROADMAP item that brings it.
+    collective services' options, ``fault_injector``, ``ssl_context`` and
+    the protocol services (``nshead_service``, ``thrift_service``,
+    ``mongo_service_adaptor``, ``rtmp_service``); ``has_builtin_services``
+    switches the builtin pages of the HTTP portal (``builtin/pages.py``: the
+    JAX package's whole table). Every parameter keeps its place and its
+    default.
 
     ``device`` (keyword-only, after the reference's parameters) is the
     device the server's links and device methods use: ``None`` means the
@@ -384,8 +384,6 @@ class ServerOptions:
         *,
         device: DeviceLike = None,
     ):
-        if rtmp_service is not None:
-            refuse_unported("ServerOptions", "rtmp_service", rtmp_service, "A11e")
         # int (0 = unlimited) or "auto" — the adaptive gradient limiter
         # (reference AdaptiveMaxConcurrency, server.h + policy/
         # auto_concurrency_limiter.cpp) applied server-wide / per-method
@@ -430,6 +428,9 @@ class ServerOptions:
         # protocol on this server's port (reference
         # ServerOptions.mongo_service_adaptor)
         self.mongo_service_adaptor = mongo_service_adaptor
+        # protocol/rtmp.RtmpService — enables RTMP (publish/play relay)
+        # on this server's port (reference ServerOptions.rtmp_service)
+        self.rtmp_service = rtmp_service
         # ssl.SSLContext (server side): every connection of this port is
         # TLS, its handshake pumped from the reactor (reference
         # ServerOptions.ssl_options). A TLS port stays on the Python plane.

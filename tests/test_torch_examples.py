@@ -61,6 +61,7 @@ CASES = [
     ("nshead_extension", "nshead_extension", [], CPU),
     ("ubrpc_compack", "ubrpc_compack", [], CPU),
     ("cache_clients", "cache_clients", [], []),
+    ("rtmp_relay", "rtmp_relay", [], []),
 ]
 MODULES = sorted({module for _case, module, _a, _b in CASES})
 

@@ -178,7 +178,7 @@ def _gate_answers(registry):
 def test_gates_answer_like_the_jax_packages():
     port = _gate_answers(port_registry)
     jax = _gate_answers(jax_registry)
-    assert set(port) == {"nshead", "mongo", "thrift", "nshead_client", "esp"}
+    assert set(port) == {"nshead", "mongo", "thrift", "rtmp", "nshead_client", "esp"}
     assert port == {name: rows for name, rows in jax.items() if name in port}
     assert port["nshead"]["server-nshead"] and not port["nshead"]["server-none"]
 

@@ -8,9 +8,8 @@ the link classes ``DeviceLink``/``DeviceSocket``, adding only a keyword-only
 ``Socket`` and ``Protocol`` drop reference parameters, so every parameter
 after the first of them that may be passed by position is keyword-only. The
 tests pin each signature's names and order with ``inspect``, and run each
-positional call of C7 on both packages: it binds as the reference binds it,
-or the port refuses it with a message that names the ROADMAP item that
-brings the parameter. Nothing binds silently to another parameter.
+positional call of C7 on both packages: it binds as the reference binds it.
+Nothing binds silently to another parameter.
 
 The native plane's options (ROADMAP A6), once refused, are served by both
 packages: each drives an echo through a native-plane server. So are the
@@ -28,8 +27,12 @@ legacy family and ``ServerOptions(nshead_service=)``
 their wires on both packages (``test_both_packages_serve_the_a11d_
 server_options``), and a ``ChannelOptions(protocol="thrift")`` or
 ``"mongo"`` fails its call as the JAX channel's does, the registry rows
-packing no request (``test_a11d_channel_protocols_fail_their_calls``);
-rtmp still refuses naming A11e. And
+packing no request (``test_a11d_channel_protocols_fail_their_calls``).
+Since ROADMAP A11e ``ServerOptions(rtmp_service=)`` serves the RTMP relay
+on both packages (a publish-and-play round trip) and ``ChannelOptions(
+protocol="rtmp")`` fails its call alike; both packages register the same
+protocols in the same scan order, so the port has nothing left to refuse
+(``test_unported_protocols_are_the_jax_packages``). And
 ``run_dispatch_session`` ends as the reference's does, ``..., chunk_order,
 trace_id, parent_span_id`` (ROADMAP C8), with the port's ``device`` and
 ``group_timeout_s`` keyword-only after them; a non-zero trace id binds
@@ -51,6 +54,7 @@ import pytest
 import incubator_brpc_tpu.parallel.mc_dispatch as jax_mcd
 import incubator_brpc_tpu.protocol.mongo as jax_mongo
 import incubator_brpc_tpu.protocol.registry as jax_registry
+import incubator_brpc_tpu.protocol.rtmp as jax_rtmp
 import incubator_brpc_tpu.protocol.thrift as jax_thrift
 import incubator_brpc_tpu.rpc as jax_rpc
 import incubator_brpc_tpu.rpc.server as jax_server_mod
@@ -61,9 +65,9 @@ import incubator_brpc_tpu.utils.flags as jax_flags
 import incubator_brpc_tpu_torch.parallel.mc_dispatch as port_mcd
 import incubator_brpc_tpu_torch.protocol.mongo as port_mongo
 import incubator_brpc_tpu_torch.protocol.registry as port_registry
+import incubator_brpc_tpu_torch.protocol.rtmp as port_rtmp
 import incubator_brpc_tpu_torch.protocol.thrift as port_thrift
 import incubator_brpc_tpu_torch.rpc as port_rpc
-import incubator_brpc_tpu_torch.rpc.channel as port_channel
 import incubator_brpc_tpu_torch.transport.acceptor as port_acceptor
 import incubator_brpc_tpu_torch.transport.device_link as port_dl
 import incubator_brpc_tpu_torch.transport.sock as port_sock
@@ -76,13 +80,13 @@ PKGS = {
         name="jax", ServerOptions=jax_server_mod.ServerOptions, rpc=jax_rpc,
         Acceptor=jax_acceptor.Acceptor, Socket=jax_sock.Socket,
         Protocol=jax_registry.Protocol, dl=jax_dl, server_kw={}, flags=jax_flags,
-        thrift=jax_thrift, mongo=jax_mongo,
+        thrift=jax_thrift, mongo=jax_mongo, rtmp=jax_rtmp,
     ),
     "torch": types.SimpleNamespace(
         name="torch", ServerOptions=port_rpc.ServerOptions, rpc=port_rpc,
         Acceptor=port_acceptor.Acceptor, Socket=port_sock.Socket,
         Protocol=port_registry.Protocol, dl=port_dl, server_kw={"device": "cpu"},
-        flags=port_flags, thrift=port_thrift, mongo=port_mongo,
+        flags=port_flags, thrift=port_thrift, mongo=port_mongo, rtmp=port_rtmp,
     ),
 }
 
@@ -186,39 +190,22 @@ def test_internal_signature_cannot_misbind(pkg, name):
         assert set(layout) - {"*"} <= set(ref)
 
 
-def _call(fn):
-    """fn() -> (result, None), or (None, the NotImplementedError raised)."""
-    try:
-        return fn(), None
-    except NotImplementedError as e:
-        return None, e
-
-
 def test_server_options_positional_four(pkg):
-    opts, err = _call(lambda: pkg.ServerOptions(4))
-    if err is not None:
-        assert pkg.name == "torch" and "max_concurrency" in str(err) and "A7" in str(err)
-    else:
-        assert opts.max_concurrency == 4
-        assert opts.usercode_inline is False
+    opts = pkg.ServerOptions(4)
+    assert opts.max_concurrency == 4
+    assert opts.usercode_inline is False
 
 
 def test_channel_options_positional_backup(pkg):
-    opts, err = _call(lambda: pkg.rpc.ChannelOptions(500, 3, 100))
-    if err is not None:
-        assert pkg.name == "torch" and "backup_request_ms" in str(err) and "A7" in str(err)
-    else:
-        assert (opts.timeout_ms, opts.max_retry, opts.backup_request_ms) == (500, 3, 100)
-        assert opts.connect_timeout == 5.0
+    opts = pkg.rpc.ChannelOptions(500, 3, 100)
+    assert (opts.timeout_ms, opts.max_retry, opts.backup_request_ms) == (500, 3, 100)
+    assert opts.connect_timeout == 5.0
 
 
 def test_controller_positional_backup(pkg):
-    cntl, err = _call(lambda: pkg.rpc.Controller(500, 3, 50))
-    if err is not None:
-        assert pkg.name == "torch" and "backup_request_ms" in str(err) and "A7" in str(err)
-    else:
-        assert (cntl.timeout_ms, cntl.max_retry, cntl.backup_request_ms) == (500, 3, 50)
-        assert cntl.log_id == 0
+    cntl = pkg.rpc.Controller(500, 3, 50)
+    assert (cntl.timeout_ms, cntl.max_retry, cntl.backup_request_ms) == (500, 3, 50)
+    assert cntl.log_id == 0
 
 
 def test_positional_defaults_bind_alike(pkg):
@@ -265,30 +252,13 @@ def test_init_with_lb_name_and_options(pkg, echo_server):
     assert ch.call_method("Echo", "echo", b"rr").response_payload == b"rr"
 
 
-# each unported option value and the ROADMAP item its refusal names
-REFUSED = [
-    ("ServerOptions", {"rtmp_service": object()}, "A11e"),
-] + [("ChannelOptions", {"protocol": name}, item)
-     for name, item in port_channel.UNPORTED_PROTOCOLS.items()]
-
-
-@pytest.mark.parametrize("owner,kw,item", REFUSED,
-                         ids=[f"{o}-{next(iter(k))}-" + (k["protocol"] if "protocol" in k else v)
-                              for o, k, v in REFUSED])
-def test_port_refuses_unported_values_naming_the_item(owner, kw, item):
-    cls = port_rpc.ServerOptions if owner == "ServerOptions" else port_rpc.ChannelOptions
-    name = next(iter(kw))
-    with pytest.raises(NotImplementedError, match=rf"{name}=.*ROADMAP {item}\b"):
-        cls(**kw)
-
-
 def test_unported_protocols_are_the_jax_packages():
+    """No protocol is left unported: the port registers the JAX package's
+    protocols, all of them, in its order, the order a new connection's scan
+    tries them in."""
     jax_names = [p.name for p in jax_registry.protocol_registry.ordered()]
     port_names = [p.name for p in port_registry.protocol_registry.ordered()]
-    assert sorted(port_names + list(port_channel.UNPORTED_PROTOCOLS)) == sorted(jax_names)
-    # the port registers its protocols in the JAX package's order: the
-    # order a new connection's scan tries them in
-    assert port_names == [name for name in jax_names if name in port_names]
+    assert port_names == jax_names
 
 
 @pytest.mark.parametrize("protocol", ["baidu_std", "http", "hulu_pbrpc", "sofa_pbrpc"])
@@ -380,26 +350,53 @@ def _serve_mongo(pkg, port):
     return mongo.bson_decode(data, 36)[0]["data"]
 
 
-@pytest.mark.parametrize("option", ["thrift_service", "mongo_service_adaptor"])
+def _serve_rtmp(pkg, port):
+    """A publish-and-play round trip: what the player receives of one
+    audio frame."""
+    got, done = [], threading.Event()
+
+    def on_media(msg):
+        got.append(msg.payload)
+        done.set()
+
+    player = pkg.rtmp.RtmpClient("127.0.0.1", port)
+    pub = pkg.rtmp.RtmpClient("127.0.0.1", port)
+    try:
+        assert player.create_stream().play("sig", on_media=on_media)
+        stream = pub.create_stream()
+        assert stream.publish("sig")
+        stream.send_audio(0, b"\xaf\x01cba")
+        assert done.wait(10)
+    finally:
+        pub.close()
+        player.close()
+    return got[0][2:]
+
+
+@pytest.mark.parametrize("option", ["thrift_service", "mongo_service_adaptor", "rtmp_service"])
 def test_both_packages_serve_the_a11d_server_options(pkg, option):
-    """Once refused naming A11d: the option is taken, held, and serves its
-    wire on the server's port beside tbus_std."""
+    """Once refused naming A11d (A11e for ``rtmp_service``): the option is
+    taken, held, and serves its wire on the server's port beside
+    tbus_std."""
     if option == "thrift_service":
         def value(cntl, method, payload):
             return payload[::-1]
-    else:
+    elif option == "mongo_service_adaptor":
         class Adaptor(pkg.mongo.MongoServiceAdaptor):
             def handle_query(self, ctx, query):
                 return [{"data": query.query["data"][::-1]}]
 
         value = Adaptor()
+    else:
+        value = pkg.rtmp.RtmpService()
     opts = pkg.ServerOptions(**{option: value}, **pkg.server_kw)
     assert getattr(opts, option) is value
     srv = pkg.rpc.Server(opts)
     srv.add_service("Echo", {"echo": lambda cntl, req: req})
     assert srv.start(0)
     try:
-        serve = _serve_thrift if option == "thrift_service" else _serve_mongo
+        serve = {"thrift_service": _serve_thrift, "mongo_service_adaptor": _serve_mongo,
+                 "rtmp_service": _serve_rtmp}[option]
         assert serve(pkg, srv.port) == b"cba"
         ch = pkg.rpc.Channel()
         assert ch.init(f"127.0.0.1:{srv.port}")
@@ -411,11 +408,11 @@ def test_both_packages_serve_the_a11d_server_options(pkg, option):
     shutdown_global_timer_thread()
 
 
-@pytest.mark.parametrize("protocol", ["thrift", "mongo"])
+@pytest.mark.parametrize("protocol", ["thrift", "mongo", "rtmp"])
 def test_a11d_channel_protocols_fail_their_calls(pkg, protocol):
-    """Once refused naming A11d: the option is taken, and a call over it
-    fails as the JAX channel's does, the registry's row packing no
-    request."""
+    """Once refused naming A11d (A11e for rtmp): the option is taken, and a
+    call over it fails as the JAX channel's does, the registry's row
+    packing no request."""
     opts = pkg.rpc.ChannelOptions(protocol=protocol, timeout_ms=2000, max_retry=0)
     assert opts.protocol == protocol
     srv = pkg.rpc.Server(pkg.ServerOptions(**pkg.server_kw))

@@ -369,14 +369,15 @@ def test_interop_both_ways(client, srv_pkg):
 
 
 def test_registry_order_is_the_jax_packages():
-    """mongo then thrift, between nshead and the legacy family, each with
-    its option gate: the JAX package's order, the scan's order."""
+    """mongo then thrift, between nshead and rtmp (then the legacy
+    family), each with its option gate: the JAX package's order, the scan's
+    order."""
     jax_names = [p.name for p in jax_registry.protocol_registry.ordered()]
     port_names = [p.name for p in port_registry.protocol_registry.ordered()]
     assert port_names == [name for name in jax_names if name in port_names]
     i = port_names.index("nshead")
-    assert port_names[i + 1:i + 3] == ["mongo", "thrift"]
-    assert port_names[i + 3] == "hulu_pbrpc"
+    assert port_names[i + 1:i + 4] == ["mongo", "thrift", "rtmp"]
+    assert port_names[i + 4] == "hulu_pbrpc"
     for name in ("mongo", "thrift"):
         row = port_registry.protocol_registry.get(name)
         assert row.enabled_for is not None and row.process_request is not None
