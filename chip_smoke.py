@@ -21,6 +21,7 @@ examples and entry points
 
     python3 chip_smoke.py [--out FILE]
     python3 chip_smoke.py --k2-only ROOT [--out FILE]   # phase 11 alone, the port under ROOT
+    python3 chip_smoke.py --sanitizers                  # the port's ASan and TSan harness alone
 
 Run from the repository root on a machine with a CUDA card. It builds the
 port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
@@ -269,6 +270,19 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    frame) and K1c (the neighbour's echo table) must launch in (a), K1a and
    K1b in (b); the kernels line's K1 entries carry the tallies as
    ``rtmp_launches``;
+3o. holds the device echo under a high fan-in (``fanin_phase``,
+   tests/test_high_concurrency.py's shape on the card): ``FANIN_CALLS``
+   async calls of 256 B issued through one ``Channel``, each with a
+   ``done``, against a server whose method is
+   ``DeviceEndpoint.server_handler()`` (window 16), a handler that blocks
+   its worker, so the pool grows only to ``fiber_concurrency_max`` and the
+   rest queue. Every response bitwise ``expected()``; the process's thread
+   growth under the pool's cap plus the oracle's margin
+   (``FANIN_MARGIN``), the pool's own workers at most the cap; every call
+   drained within ``FANIN_LIMIT_S``. It prints the seconds to drain,
+   calls/s, the peak thread count, K1's launches and the card's idle share
+   under torch.profiler; K1a and K1c must launch, and the kernels line's K1
+   entries carry the tally as ``fanin_launches``;
 4. times ``make_echo_step`` at 256 and 2^26 words with CUDA events;
 5. holds K3 (the forward fold, dK/dV and dQ, on the tensor cores for bf16
    operands, ``attn_fold_fwd_tc``, ``attn_bwd_dkdv_tc`` and
@@ -445,8 +459,20 @@ port's kernels from ``incubator_brpc_tpu_torch/csrc`` (into
    party counts (its fused flag False: one card, ROADMAP A3c); the kernels
    line's K1, K3 and K4 entries carry ``fn``'s launches as
    ``entry_launches``;
+14. runs the port's fabriclint (``lint_phase``) on the card's host: every
+   pass of ``run_all()`` over the port, against the host library this run
+   built and loaded, and a ``ctypes`` lookup of every ``SIGNATURES`` name
+   in that library, their count equal to the headers' declarations. It
+   prints the files scanned, the functions checked and the violations; any
+   violation or missing symbol fails it;
 12. prints the kernels line (JSON), then the result line
    ``{"ok": true, "device": {...}}`` last.
+
+``--sanitizers`` (``sanitizers_only``) runs the port's sanitizer harness
+alone (``incubator_brpc_tpu_torch/tools/fabriclint/san.py``): ASan+UBSan over
+the port's native tests, then TSan over its ring, deque and scheduler
+stresses. Where the probe finds no sanitizer runtime it says so and exits
+non-zero, so that a skip never reads as a pass.
 
 It imports nothing of JAX. It exits non-zero, with no result line, when
 PyTorch sees no CUDA card or the port is not beside it.
@@ -5368,6 +5394,209 @@ ENTRY_TOL = 1e-5  # tests/test_torch_entry.py: the f32 forward's absolute tolera
 DRYRUN_RANKS = 8
 
 
+FANIN_CALLS = 10000  # tests/test_high_concurrency.py's outstanding calls
+FANIN_WINDOW = 16  # the endpoint's window (phase 3b's geometry)
+FANIN_LIMIT_S = 120.0  # every call drained within this, at scale 1
+FANIN_MARGIN = 80  # the oracle's thread margin over the pool's cap
+
+
+def fanin_phase(torch, kernels, device=None, scale: float = 1.0):
+    """Phase 3o: ``FANIN_CALLS * scale`` async calls of 256 B through one
+    ``Channel`` to a server whose method is ``DeviceEndpoint.server_handler()``
+    (a handler that blocks its worker on the card), all issued before the
+    first is waited for. Every response is held bitwise against
+    ``expected()``; the process's threads are counted while the calls
+    drain. Returns (figures, K1 launches)."""
+    from incubator_brpc_tpu_torch.rpc import Channel, ChannelOptions, Controller, Server, ServerOptions
+    from incubator_brpc_tpu_torch.transport.device import DeviceEndpoint
+    from incubator_brpc_tpu_torch.utils.flags import get_flag
+
+    n = max(FANIN_WINDOW, int(FANIN_CALLS * scale))
+    limit_s = FANIN_LIMIT_S * max(scale, 0.1)
+    cap = int(get_flag("fiber_concurrency_max"))
+    rng = np.random.default_rng(83)
+    payloads = rng.integers(0, 256, size=(n, 256), dtype=np.uint8)
+    ep = DeviceEndpoint(window_size=FANIN_WINDOW, max_batch=FANIN_WINDOW, device=device)
+    ep.warm(256)
+    srv = Server(ServerOptions(device=device))
+    srv.add_service("tensor", {"echo": ep.server_handler(timeout=limit_s)})
+    if not srv.start(0):
+        raise AssertionError("phase3o: the Server did not start")
+    timeout_ms = int(limit_s * 2000)
+    ch = Channel()
+    if not ch.init(f"127.0.0.1:{srv.port}", options=ChannelOptions(timeout_ms=timeout_ms)):
+        raise AssertionError("phase3o: the Channel did not init")
+    warm = ch.call_method("tensor", "echo", bytes(256))
+    if not warm.ok() or warm.response_payload != bytes(256):
+        raise AssertionError(f"phase3o: warm call {warm.error_code} {warm.error_text}")
+
+    lock = threading.Lock()
+    done_count = [0]
+    failures = []
+    all_done = threading.Event()
+
+    def make_done(i):
+        want = expected(payloads[i].view(np.uint32), 0).tobytes()
+
+        def done(cntl):
+            with lock:
+                if cntl.failed():
+                    failures.append((i, cntl.error_code, cntl.error_text))
+                elif cntl.response_payload != want:
+                    failures.append((i, -1, "response differs from expected()"))
+                done_count[0] += 1
+                if done_count[0] == n:
+                    all_done.set()
+
+        return done
+
+    def threads_now():
+        alive = threading.enumerate()
+        return len(alive), sum(t.name.startswith("tbtorch-worker-") for t in alive)
+
+    profiled = device is None or str(device).startswith("cuda")
+    prof = None
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.__enter__()
+    baseline, _ = threads_now()
+    peak_threads, peak_workers = baseline, 0
+    before = kernels.launch_counts()
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            ch.call_method("tensor", "echo", payloads[i].tobytes(),
+                           cntl=Controller(timeout_ms=timeout_ms), done=make_done(i))
+            if i % 500 == 0:
+                total, workers = threads_now()
+                peak_threads, peak_workers = max(peak_threads, total), max(peak_workers, workers)
+        issue_s = time.perf_counter() - t0
+        while not all_done.wait(timeout=0.2):
+            total, workers = threads_now()
+            peak_threads, peak_workers = max(peak_threads, total), max(peak_workers, workers)
+            if time.perf_counter() - t0 > limit_s:
+                raise AssertionError(f"phase3o: only {done_count[0]} of {n} calls drained "
+                                     f"in {limit_s:.0f} s")
+        if profiled:
+            torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        after = kernels.launch_counts()
+        srv.stop()
+        srv.join(timeout=60)
+        if not ep.close(timeout=120):
+            raise AssertionError("phase3o: the endpoint did not settle its calls")
+    k1 = {name: after[name] - before[name] for name in K1}
+    if failures:
+        raise AssertionError(f"phase3o: {len(failures)} of {n} calls failed, first {failures[:3]}")
+    growth = peak_threads - baseline
+    if growth >= cap + FANIN_MARGIN:
+        raise AssertionError(f"phase3o: {growth} threads grown (baseline {baseline}) against "
+                             f"the pool's cap {cap} + {FANIN_MARGIN}")
+    if peak_workers > cap:
+        raise AssertionError(f"phase3o: {peak_workers} pool workers against the cap {cap}")
+    out = {"calls": n, "issue_s": issue_s, "drain_s": drain_s, "calls_per_s": n / drain_s,
+           "baseline_threads": baseline, "peak_threads": peak_threads, "growth": growth,
+           "peak_workers": peak_workers, "cap": cap, "device_us": None, "idle_pct": None}
+    if prof is not None:
+        busy, by_name = device_busy(prof)
+        if busy:
+            out["device_us"] = busy
+            out["idle_pct"] = 100.0 - 100.0 * busy / (drain_s * 1e6)
+            out["by_kernel"] = [list(row) for row in by_name[:6]]
+    busy = "not measured" if out["device_us"] is None else f"{out['device_us']:.1f} us"
+    idle = "not measured" if out["idle_pct"] is None else f"{out['idle_pct']:.2f} %"
+    log(f"phase3o {n} outstanding device-echo calls of 256 B on one Channel: issued in "
+        f"{issue_s:.3f} s, drained in {drain_s:.3f} s, {out['calls_per_s']:.1f} calls/s; "
+        f"threads {baseline} -> peak {peak_threads} (growth {growth}, pool workers "
+        f"{peak_workers}, cap {cap}); device busy {busy}, idle {idle}; K1 {k1}")
+    return out, k1
+
+
+def lint_phase():
+    """Phase 14: the port's fabriclint over the port, against the host
+    library this process loaded, and a ``ctypes`` lookup of every
+    ``SIGNATURES`` name in that library. Returns the figures."""
+    import ctypes
+
+    from incubator_brpc_tpu_torch import native
+    from incubator_brpc_tpu_torch.tools import fabriclint
+    from incubator_brpc_tpu_torch.tools.fabriclint import ffi_check, hotpath
+
+    t0 = time.perf_counter()
+    native.require()
+    lib_path = native.BUILD_INFO["path"]
+    violations = fabriclint.run_all()
+    files = fabriclint.iter_py_files(include_tests=True)
+    hot = []
+    for path in fabriclint.iter_py_files():
+        with open(path) as f:
+            src = f.read()
+        if "fabriclint: hotpath" in src:
+            rel = os.path.relpath(path, fabriclint.REPO_ROOT)
+            hot += [f"{rel}:{q}" for q in hotpath.marked_qualnames(src)]
+    declared = ffi_check.parse_repo_headers().funcs
+    loaded = ctypes.CDLL(lib_path)
+    exported = [name for name in native.SIGNATURES if hasattr(loaded, name)]
+    out = {"library": lib_path, "files": len(files) + len(fabriclint.PORT.headers),
+           "declarations": len(declared), "signatures": len(native.SIGNATURES),
+           "exported": len(exported), "hotpath_functions": hot,
+           "functions": len(native.SIGNATURES) + len(hot),
+           "violations": [str(v) for v in violations], "seconds": time.perf_counter() - t0}
+    log(f"phase14 fabriclint over the port: {out['files']} files scanned (the package, its "
+        f"tests and the two headers), {out['functions']} functions checked "
+        f"({out['signatures']} SIGNATURES entries against {out['declarations']} header "
+        f"declarations, {len(hot)} hot paths), {len(violations)} violations; {len(exported)} of "
+        f"{len(native.SIGNATURES)} symbols found in {lib_path}; {out['seconds']:.1f} s")
+    for v in violations:
+        log(f"  {v}")
+    if violations:
+        raise AssertionError(f"phase14: {len(violations)} fabriclint violations")
+    if not len(exported) == len(declared) == len(native.SIGNATURES):
+        missing = sorted(set(native.SIGNATURES) - set(exported))
+        raise AssertionError(f"phase14: {len(exported)} symbols exported, {len(declared)} declared, "
+                             f"{len(native.SIGNATURES)} bound; missing {missing}")
+    return out
+
+
+def sanitizers_only(out) -> int:
+    """``--sanitizers``: the port's ASan+UBSan and TSan harness alone on
+    this host, printing the card beside it. Exits 2, having run nothing,
+    where the probe finds a sanitizer unsupported (its reason printed), so
+    that a skip never reads as a pass; 1 where a run failed."""
+    from incubator_brpc_tpu_torch.tools.fabriclint import san
+
+    try:
+        card = card_line()
+    except (OSError, subprocess.SubprocessError):
+        card = "no card (nvidia-smi unavailable)"
+    log(card)
+    results = {}
+    for kind in ("asan", "tsan"):
+        ok, detail = san.probe(kind)
+        results[kind] = {"supported": ok, "probe": detail}
+        log(f"sanitizers probe {kind}: {'supported' if ok else 'UNSUPPORTED'} ({detail})")
+    rc = 0
+    if not all(r["supported"] for r in results.values()):
+        log("sanitizers: unsupported on this host, nothing ran")
+        rc = 2
+    else:
+        for kind, run in (("asan", san.run_asan), ("tsan", san.run_tsan)):
+            t0 = time.perf_counter()
+            results[kind].update(rc=run(), seconds=time.perf_counter() - t0)
+            log(f"sanitizers {kind}: rc {results[kind]['rc']} in {results[kind]['seconds']:.1f} s")
+            rc |= results[kind]["rc"]
+    if out:
+        with open(out, "w") as f:
+            json.dump({"card": card, "sanitizers": results}, f, indent=1)
+    return rc
+
+
 def entry_phase(torch, kernels, device="cuda:0", parties=None):
     """Phase 13: (a) the port's ``tensor_echo_tpu`` example on ``device``,
     its three lines checked (the RPC echo and the 8 pipelined
@@ -7869,6 +8098,8 @@ def main() -> int:
                     help="run phase 3j (g)'s lame-duck drill alone, N times (drills_only)")
     ap.add_argument("--la-runs", type=int, metavar="N",
                     help="run phase 3d (c)'s la run alone, N times (la_runs_only)")
+    ap.add_argument("--sanitizers", action="store_true",
+                    help="run the port's ASan and TSan harness alone (sanitizers_only)")
     opts = ap.parse_args()
     if opts.k2_only:
         return k2_only(opts.k2_only, opts.out)
@@ -7876,6 +8107,8 @@ def main() -> int:
         return drills_only(opts.drills, opts.out)
     if opts.la_runs:
         return la_runs_only(opts.la_runs, opts.out)
+    if opts.sanitizers:
+        return sanitizers_only(opts.out)
 
     import torch
 
@@ -8097,6 +8330,17 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase3n: {rtmp_fig['phase_s']:.1f} s; K1 launches by part {rtmp_k1}")
 
+    # -- phase 3o: 10,000 outstanding device-echo calls on one Channel ---------
+    log(f"phase3o on {card_line()} (every figure below is this card's and its host's)")
+    t0 = time.perf_counter()
+    fanin_fig, fanin_k1 = fanin_phase(torch, kernels)
+    fanin_fig["phase_s"] = time.perf_counter() - t0
+    missing = [name for name in ("frame_rows", "echo_step_rows") if fanin_k1[name] == 0]
+    if missing:
+        raise AssertionError(f"phase3o: kernels not launched: {missing}")
+    shutdown_host_plane()
+    log(f"phase3o: {fanin_fig['phase_s']:.1f} s; K1 launches {fanin_k1}")
+
     # -- phase 4: the standalone step -----------------------------------------
     for words in (256, 1 << 26):
         step, request = make_echo_step(payload_words=words)
@@ -8132,6 +8376,10 @@ def main() -> int:
     shutdown_host_plane()
     log(f"phase13: {entry_fig['phase_s']:.1f} s")
 
+    # -- phase 14: the port's fabriclint against the library this run loaded ---
+    log(f"phase14 on {card_line()}")
+    lint_fig = lint_phase()
+
     # -- phase 12: the kernels line, then the result line ----------------------
     line = []
 
@@ -8160,6 +8408,7 @@ def main() -> int:
             "cache_thrift_mongo_launches": {part: row[name]
                                             for part, row in sorted(cache_k1.items())},
             "rtmp_launches": {part: row[name] for part, row in sorted(rtmp_k1.items())},
+            "fanin_launches": fanin_k1[name],
             "entry_launches": entry_k["b"].get(name, 0),
             "max_abs_err": p2.max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -8222,6 +8471,7 @@ def main() -> int:
                        "legacy": legacy_fig, "legacy_launches": legacy_k1,
                        "cache_thrift_mongo": cache_fig, "cache_thrift_mongo_launches": cache_k1,
                        "rtmp": rtmp_fig, "rtmp_launches": rtmp_k1,
+                       "fanin": fanin_fig, "fanin_launches": fanin_k1, "lint": lint_fig,
                        "entry": entry_fig, "entry_launches": entry_k,
                        "k3": k3["detail"], "fabricnet": k3["fabricnet"],
                        "fabricnet_f32": k3["fabricnet_f32"],

@@ -5,7 +5,7 @@ The port's copy of the JAX package's bvar: the reducers (``Adder``,
 ``LatencyRecorder``, the 1 Hz windows (``Window``, ``PerSecond``, with the
 per-second series ``/vars/series.json`` plots) and the percentile sketch,
 and the expose registry the portal's ``/vars`` and ``/brpc_metrics`` read.
-The reducers' ``reset`` is not ported: nothing in the port rebases one.
+An invertible reducer (``Adder``) resets by rebasing its agents.
 """
 
 from incubator_brpc_tpu_torch.bvar.variable import Variable, expose_registry, dump_exposed

@@ -1,4 +1,4 @@
-"""Reducers: Adder/Maxer/Miner (reference src/bvar/reducer.h), and PassiveStatus.
+"""Reducers: Adder/Maxer/Miner + PassiveStatus (reference src/bvar/reducer.h).
 
 Write path is thread-local (one agent per writer thread, found via a
 threading.local) — the reference's AgentGroup/AgentCombiner design
@@ -15,10 +15,11 @@ from incubator_brpc_tpu_torch.bvar.variable import Variable
 
 
 class _Agent:
-    __slots__ = ("value",)
+    __slots__ = ("value", "baseline")
 
     def __init__(self, identity):
         self.value = identity
+        self.baseline = identity
 
 
 class Reducer(Variable):
@@ -56,7 +57,30 @@ class Reducer(Variable):
             agents = list(self._agents)
         result = self._identity
         for a in agents:
-            result = self._op(result, a.value)
+            result = self._op(result, self._inv_op(a.value, a.baseline) if self._inv_op else a.value)
+        return result
+
+    def reset(self):
+        """Combine-and-rebase (reference Reducer::reset semantics).
+
+        Writers do an unlocked read-modify-write in ``__lshift__``, so
+        zeroing ``a.value`` here would race (an in-flight writer would store
+        its pre-reset accumulation back, double counting). Instead each
+        agent keeps a ``baseline``: reset snapshots value into baseline and
+        readers report value - baseline — only the single reset thread
+        writes baseline, and a racing writer's store already includes its
+        own increment, so no count is lost or duplicated. Requires an
+        invertible op (Adder); non-invertible reducers (Maxer) refuse.
+        """
+        if self._inv_op is None:
+            raise TypeError("reset() requires a reducer with an inverse op")
+        with self._agents_lock:
+            agents = list(self._agents)
+            result = self._identity
+            for a in agents:
+                snapshot = a.value
+                result = self._op(result, self._inv_op(snapshot, a.baseline))
+                a.baseline = snapshot
         return result
 
 

@@ -18,6 +18,7 @@ compiler's log, the package still imports, and ``iobuf.py``,
 ``utils/crc32c.py`` and ``protocol/tbus_std.py`` run their plain Python
 versions. To rebuild after editing ``csrc/host``, start a new process:
 the digest changes and the next import builds the new library.
+``TBTORCH_HOST_LIB`` loads another build of the same sources instead.
 """
 
 from __future__ import annotations
@@ -43,6 +44,11 @@ CXX = os.environ.get("CXX") or "g++"
 CXXFLAGS = ("-O2", "-g", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread")
 LDFLAGS = ("-shared", "-pthread")
 LIBS = ("-lz",)
+# TBTORCH_HOST_LIB points the loader at another build of the same sources
+# (the sanitizer harness, tools/fabriclint/san.py, sets it to its ASan or
+# TSan build). An override is loaded as given and never built: a missing
+# path leaves the library unloaded, with BUILD_ERROR saying so.
+_LIB_OVERRIDE = os.environ.get("TBTORCH_HOST_LIB") or None
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -316,6 +322,7 @@ SIGNATURES = {
     # size_t len, char** resp, size_t* resp_len) — the fn pointer is
     # passed as a raw void* (dlsym'd from a user .so, or a ctypes
     # CFUNCTYPE cast down)
+    # fabriclint: allow(ffi-callback) fn arrives as a dlsym'd void* from a user .so by design; its layout contract is transport/native_plane.NATIVE_METHOD_FN, checked against the tb_native_fn typedef globally
     "tb_server_register_native_fn": (
         ctypes.c_int,
         [b, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -604,7 +611,7 @@ def load():
     with _lib_lock:
         if _lib is None and BUILD_ERROR is None:
             try:
-                path = _build()
+                path = Path(_LIB_OVERRIDE) if _LIB_OVERRIDE else _build()
                 _lib = _declare(ctypes.CDLL(str(path)))
                 BUILD_INFO.setdefault("path", str(path))
             except (OSError, RuntimeError, AttributeError) as e:

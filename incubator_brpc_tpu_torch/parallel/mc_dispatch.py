@@ -789,6 +789,7 @@ def _make_ck_quant(dm):
     return qz
 
 
+# fabriclint: hotpath
 def _chunk_ready(event) -> bool:
     """Non-blocking chunk-ack probe — the overlap scheduler's per-chunk
     observation point: the CUDA event recorded after the chunk's launch

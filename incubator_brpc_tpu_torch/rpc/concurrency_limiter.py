@@ -121,6 +121,7 @@ class AutoConcurrencyLimiter(ConcurrencyLimiter):
 
     # -- feedback -----------------------------------------------------------
 
+    # fabriclint: hotpath
     def on_responded(self, error_code: int, latency_us: float,
                      now_us: Optional[int] = None) -> None:
         now = _now_us() if now_us is None else int(now_us)
@@ -129,8 +130,7 @@ class AutoConcurrencyLimiter(ConcurrencyLimiter):
         if interval and now < self._last_sampling_us + interval:
             return
         changed = None
-        # the pre-lock interval check above bounds acquisitions to one per
-        # auto_cl_sampling_interval_us, not one per response
+        # fabriclint: allow(hotpath-lock) the pre-lock interval check above bounds acquisitions to one per auto_cl_sampling_interval_us, not one per response
         with self._lock:
             if interval and now < self._last_sampling_us + interval:
                 return

@@ -160,6 +160,20 @@ def _native_kind(handler) -> Optional[int]:
     return getattr(handler, "_native_kind", None)
 
 
+# The layout of tb_native_fn (csrc/host/tbnet/tbnet.h), which a user
+# library's method must have: int (*)(void* ud, const char* req, size_t
+# len, char** resp, size_t* n). The symbol crosses the FFI as a raw
+# void*, so this mirror is what fabriclint holds the typedef against.
+NATIVE_METHOD_FN = ctypes.CFUNCTYPE(
+    ctypes.c_int,
+    ctypes.c_void_p,
+    ctypes.c_char_p,
+    ctypes.c_size_t,
+    ctypes.POINTER(ctypes.c_char_p),
+    ctypes.POINTER(ctypes.c_size_t),
+)
+
+
 def native_method_lib(lib_path: str, symbol: str, fallback) -> "object":
     """Tag ``fallback`` (the ordinary Python handler, used when the native
     plane is off) with a shared-library implementation of the same method:
@@ -274,7 +288,8 @@ class NativeConnSock:
             self.state = 1  # FAILED
             self.error_code = code
             self.error_text = reason
-        LIB.tb_conn_close(self.token)  # -1: the token is already stale
+        # fabriclint: allow(ffi-unchecked) -1 means the token is already stale: the C++ connection died under us, the state set_failed is putting it in
+        LIB.tb_conn_close(self.token)
         for cb in list(self.on_failed):
             try:
                 cb(self)
@@ -286,7 +301,8 @@ class NativeConnSock:
         """The Python route verified this connection's credential
         (rpc/auth.server_check): cache the verdict on the C++ conn so its
         later frames ride the native fast path without re-fighting auth."""
-        LIB.tb_conn_set_authenticated(self.token)  # -1: the token went stale
+        # fabriclint: allow(ffi-unchecked) -1 means the token went stale (the connection died); there is no verdict to cache on a dead connection
+        LIB.tb_conn_set_authenticated(self.token)
 
     def _mark_closed(self) -> None:
         """tbnet says the connection died: run failure hooks (streams)."""
@@ -601,6 +617,7 @@ class NativeServerPlane:
                 return {"conns": 0, "reqs": 0, "dropped": 0}
             return {"conns": vals[0].value, "reqs": vals[1].value, "dropped": vals[2].value}
 
+    # fabriclint: hotpath
     def drain_telemetry(self) -> int:
         """Pull every completed record off each reactor's C++ ring into the
         per-method latency summaries, one reactor's batch per numpy pass.
@@ -609,13 +626,17 @@ class NativeServerPlane:
         if not self._telemetry:
             return 0
         total = 0
+        # fabriclint: allow(hotpath-lock) one acquisition a drain call, not a record: the rings have one consumer, and the pump and the stop-time flush both drain
         with self._tel_lock:
             # batch cap: a drain races live producers and must not spin
             # forever against a sustained flood (~1M records per call)
             budget = 256
+            # fabriclint: allow(hotpath-loop) iterates reactors (num_reactors, at most 16), never records; each ring's batches share the budget below
             for reactor in range(self.num_reactors):
+                # fabriclint: allow(hotpath-loop) at most 256 batches a call (the shared budget); the per-record work is numpy in _consume_records
                 while budget > 0:
                     budget -= 1
+                    # fabriclint: allow(hotpath-lock) guards the native handle against tb_server_destroy; one acquisition a batch of up to 4096 records
                     with self._stats_lock:
                         if self._srv is None:
                             budget = 0
@@ -664,6 +685,7 @@ class NativeServerPlane:
             )
         return cls._REC_DTYPE
 
+    # fabriclint: hotpath
     def _consume_records(self, batch, n: int) -> None:
         """Vectorized fan-out of one batch: per-method latency summaries
         (exact count/sum/max, a strided subsample for the percentiles),
@@ -691,6 +713,7 @@ class NativeServerPlane:
             from incubator_brpc_tpu_torch.rpc.server import deadline_shed_count
 
             deadline_shed_count << nshed
+        # fabriclint: allow(hotpath-loop) iterates the batch's distinct method indices, bounded by the native method table, never records
         for idx in np.unique(method_ids):
             if idx >= len(names):
                 continue  # table drift (never expected): drop, don't crash
@@ -734,12 +757,14 @@ class NativeServerPlane:
             picks = []
             i = 0
             step = max(1, interval)
+            # fabriclint: allow(hotpath-loop) one searchsorted jump a limiter sample, at most 1024: O(picks log n), not O(records)
             while i < len(ts) and len(picks) < 1024:
                 picks.append(order[i])
                 i = int(np.searchsorted(ts, ts[i] + step, side="left"))
             # errors beyond the decimation still matter (all-fail
             # halving): force-feed a bounded number of them
             err_pos = np.flatnonzero(fb_err != 0)[:256]
+            # fabriclint: allow(hotpath-loop) bounded by the decimated picks (1024) and the forced errors (256), not by the batch's size
             for j in {int(q) for q in picks} | {int(q) for q in err_pos}:
                 feed.append((int(done_us[j]), full, int(fb_err[j]), float(fb_lat[j])))
         # ONE globally time-ordered feed across every method: on_responded
@@ -747,6 +772,7 @@ class NativeServerPlane:
         # back to back would let the first method's newest sample mask
         # every other method's older ones from the SHARED server limiter
         feed.sort()
+        # fabriclint: allow(hotpath-loop) the feed is the decimated limiter samples (at most 1280 a method), bounded above
         for done, full, err, lat in feed:
             server._on_native_completion(full, err, lat, now_us=done)
         if rpcz_mod.rpcz_enabled():
@@ -765,6 +791,7 @@ class NativeServerPlane:
         # spans carry wall-clock start_real_us
         wall_anchor_us = time.time() * 1e6
         mono_anchor_ns = native.monotonic_ns()
+        # fabriclint: allow(hotpath-loop) iterates the records whose sample bit is set (1 in N, or forced by the wire), well below the batch's size
         for i in sampled_idx:
             rec = arr[int(i)]
             idx = int(rec["method_idx"])
@@ -847,6 +874,7 @@ class NativeServerPlane:
                 self._socks[token] = s
             return s
 
+    # fabriclint: hotpath
     def _on_frame(self, _ctx, token, cid_lo, cid_hi, flags, error_code,
                   meta_ptr, meta_len, body_h) -> None:
         from incubator_brpc_tpu_torch.iobuf import IOBuf
@@ -869,6 +897,7 @@ class NativeServerPlane:
             att = meta.attachment_size
             if att > blen:
                 # consumed and unrecoverable: kill the connection
+                # fabriclint: allow(ffi-unchecked) the connection is being killed for a fatal parse; a stale token means it is already dead, and both outcomes are the goal
                 LIB.tb_conn_close(token)
                 return
             frame = ParsedFrame(
@@ -892,6 +921,7 @@ class NativeServerPlane:
         except Exception:
             logger.exception("native frame dispatch failed")
 
+    # fabriclint: hotpath
     def _dispatch(self, sock: NativeConnSock, frame) -> None:
         """Mirror of InputMessenger._process_one for pre-cut frames."""
         from incubator_brpc_tpu_torch import protocol as proto_pkg
@@ -1181,7 +1211,8 @@ class NativeClientChannel:
         first-request auth fight. A redialed channel re-arms with a fresh
         credential."""
         data = credential.encode() if isinstance(credential, str) else bytes(credential)
-        LIB.tb_channel_set_auth(self._ch, data, len(data))  # copied synchronously
+        # fabriclint: allow(ffi-unchecked) csrc/host's tb_channel_set_auth always accepts, and copies the credential before it returns
+        LIB.tb_channel_set_auth(self._ch, data, len(data))
 
     def set_trace(
         self,

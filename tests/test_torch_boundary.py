@@ -111,14 +111,27 @@ A5 = {
 }
 
 
+# the port's fabriclint (A13a), a package of its own under tools/
+A13A = {
+    "incubator_brpc_tpu_torch.tools.fabriclint",
+    *(f"incubator_brpc_tpu_torch.tools.fabriclint.{m}"
+      for m in ("cdecl", "ffi_check", "errcheck", "lifetime", "hotpath", "registry_lint", "san",
+                "__main__")),
+}
+
+
+def _module_path(module):
+    path = ROOT / module.replace(".", "/")
+    return path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+
+
 def test_the_tools_examples_and_entry_are_inside_the_scans():
     """Every module of the three places is one the import probe imports
     and the source scan reads, and none puts the repository root (the JAX
     package's tools and examples) on ``sys.path``."""
-    assert A5 <= set(_port_modules())
-    for module in sorted(A5):
-        path = ROOT / (module.replace(".", "/") + ".py")
-        text = path.read_text()
+    assert A5 | A13A <= set(_port_modules())
+    for module in sorted(A5 | A13A):
+        text = _module_path(module).read_text()
         assert not _FORBIDDEN.search(text), module
         assert "sys.path" not in text, module
         assert not re.search(r"^\s*(?:import|from)\s+(?:tools|examples)\b", text, re.M), module

@@ -44,6 +44,7 @@ import incubator_brpc_tpu as jax_root
 import incubator_brpc_tpu_torch as port_root
 from incubator_brpc_tpu.builtin import pages as jax_pages
 from incubator_brpc_tpu.protocol import http as jax_http
+from incubator_brpc_tpu.transport.socket_map import global_socket_map as jax_socket_map
 from incubator_brpc_tpu_torch.builtin import pages as port_pages
 from incubator_brpc_tpu_torch.protocol import http as port_http
 from incubator_brpc_tpu_torch.utils.status import ErrorCode
@@ -58,6 +59,14 @@ from tests.test_torch_baidu_std import (  # noqa: F401  (fixtures)
 
 for _p, _h, _pg in ((PKGS["jax"], jax_http, jax_pages), (PKGS["torch"], port_http, port_pages)):
     _p.http, _p.pages = _h, _pg
+
+
+@pytest.fixture(autouse=True)
+def no_jax_client_socket_outlives_the_test():
+    """No JAX client socket left redialing a stopped server's port, where a
+    later test's server may listen (ROADMAP C11)."""
+    yield
+    jax_socket_map().recycle_all()
 
 
 def fetch(pkg, srv, path, method="GET", body=b""):
@@ -755,3 +764,246 @@ def test_chip_smoke_phase_3h_on_the_cpu():
         assert len(c[row]) == chip_smoke.PRPC_PUMP[2] and min(c[row]) > 0
     assert len(c["rpc_echo_prpc_snappy_us"]) == len(c["rpc_echo_prpc_snappy_python_us"]) == 3
     assert out["d"]["json2pb_fields"] == ["data", "seq", "tag", "words"]
+
+
+# -- tests/test_http.py's portal pages, on both packages ------------------------
+# TestPortal's page cases, TestPortalCompleteness, TestPortalDepth,
+# TestHeapProfile, TestVarsSeries and TestFlagVars, each on both packages'
+# servers with the JAX suite's fixture (``portal_server``). Each package's
+# flags, hotspots and logger names come from its own modules.
+
+import importlib  # noqa: E402
+import json  # noqa: E402
+import logging  # noqa: E402
+
+
+def _root(pkg):
+    return pkg.rpc.__name__.rsplit(".", 1)[0]
+
+
+def _mod(pkg, name):
+    return importlib.import_module(f"{_root(pkg)}.{name}")
+
+
+def _call_demo(pkg, srv, n, payload=b"x"):
+    ch = connect(pkg, srv.port)
+    for _ in range(n):
+        assert ch.call_method("demo", "echo", payload).ok()
+    return ch
+
+
+class TestPortal:
+    def test_index_links(self, pkg, portal_server):
+        status, _, body = fetch(pkg, portal_server, "/")
+        assert status == 200
+        assert b"/vars" in body and b"/status" in body and b"/flags" in body
+
+    def test_vars_shows_live_counters(self, pkg, portal_server):
+        _call_demo(pkg, portal_server, 3)
+        status, _, body = fetch(pkg, portal_server, "/vars")
+        assert status == 200
+        assert b"socket_in_bytes : " in body
+        status, _, body = fetch(pkg, portal_server, "/vars?prefix=socket")
+        assert status == 200
+        assert b"socket_in_bytes" in body and b"method_" not in body
+
+    def test_status_shows_method_rows(self, pkg, portal_server):
+        _call_demo(pkg, portal_server, 5, b"y")
+        # the server's accounting runs after the response write: poll for it
+        text = ""
+        for _ in range(50):
+            status, _, body = fetch(pkg, portal_server, "/status")
+            assert status == 200
+            text = body.decode()
+            if "count=5" in text:
+                break
+            time.sleep(0.02)
+        assert "demo.echo" in text
+        assert "count=5" in text
+
+    def test_flags_list_and_reloadable_set(self, pkg, portal_server):
+        flags = pkg.flags
+        name = f"test_http_reloadable_{pkg.name}"
+        flags.define_flag(name, 7, "test flag", lambda v: v > 0)  # idempotent
+        status, _, body = fetch(pkg, portal_server, "/flags")
+        assert status == 200
+        assert name.encode() in body
+        status, _, _ = fetch(pkg, portal_server, f"/flags/{name}?setvalue=9")
+        assert status == 200
+        assert flags.flag_registry.get(name) == 9
+        status, _, _ = fetch(pkg, portal_server, f"/flags/{name}?setvalue=-1")
+        assert status == 400  # the validator refuses
+        # non-reloadable flags are refused (reloadable_flags.h gate)
+        status, _, _ = fetch(pkg, portal_server, "/flags/event_dispatcher_num?setvalue=2")
+        assert status == 403
+        assert flags.flag_registry.get("event_dispatcher_num") == 4
+
+    def test_rpcz_records_real_calls(self, pkg, portal_server):
+        assert pkg.flags.set_flag("enable_rpcz", True)
+        try:
+            _call_demo(pkg, portal_server, 1, b"traced")
+            status, _, body = fetch(pkg, portal_server, "/rpcz")
+            assert status == 200
+            assert b"demo.echo" in body
+        finally:
+            pkg.flags.set_flag("enable_rpcz", False)
+
+    def test_connections_page(self, pkg, portal_server):
+        status, _, body = fetch(pkg, portal_server, "/connections")
+        assert status == 200
+        assert str(portal_server.port).encode() in body
+
+
+class TestPortalCompleteness:
+    def test_protobufs_lists_method_schemas(self, pkg, portal_server):
+        status, _, body = fetch(pkg, portal_server, "/protobufs")
+        assert status == 200
+        assert b"demo.echo" in body and b"handler=" in body
+        status, _, body = fetch(pkg, portal_server, "/protobufs/demo")
+        assert status == 200 and b"demo.echo" in body
+
+    def test_protobufs_shows_device_kernel_contract(self, pkg):
+        srv = server(pkg, {"dsvc": {"k": pkg.rpc.device_method(lambda d, n: (d, n), width=128)}})
+        status, _, body = fetch(pkg, srv, "/protobufs")
+        assert status == 200
+        assert b"device_kernel=fp:" in body and b"width=128" in body
+
+    def test_dir_lists_and_serves_files(self, pkg, portal_server, tmp_path):
+        # OFF by default: an unauthenticated file read is opt-in
+        status, _, _ = fetch(pkg, portal_server, "/dir")
+        assert status == 403
+        assert pkg.flags.set_flag("enable_dir_service", True)
+        try:
+            f = tmp_path / "hello.txt"
+            f.write_text("dir-page-payload")
+            status, _, body = fetch(pkg, portal_server, f"/dir/{tmp_path}")
+            assert status == 200 and b"hello.txt" in body
+            status, _, body = fetch(pkg, portal_server, f"/dir/{f}")
+            assert status == 200 and body == b"dir-page-payload"
+            status, _, _ = fetch(pkg, portal_server, "/dir/no/such/path")
+            assert status == 404
+        finally:
+            pkg.flags.set_flag("enable_dir_service", False)
+
+    def test_threads_dumps_live_stacks(self, pkg, portal_server):
+        status, _, body = fetch(pkg, portal_server, "/threads")
+        assert status == 200
+        assert b"-- thread " in body
+        assert b"File \"" in body
+
+    def test_vlog_lists_and_sets_levels(self, pkg, portal_server):
+        root = _root(pkg)
+        status, _, body = fetch(pkg, portal_server, "/vlog")
+        assert status == 200
+        assert root.encode() in body
+        status, _, body = fetch(pkg, portal_server, f"/vlog?set={root}.test_vlog:DEBUG")
+        assert status == 200 and b"DEBUG" in body
+        assert logging.getLogger(f"{root}.test_vlog").level == logging.DEBUG
+        status, _, _ = fetch(pkg, portal_server, "/vlog?set=bad-spec")
+        assert status == 400
+
+
+class TestPortalDepth:
+    def test_sockets_lists_live_connections(self, pkg, portal_server):
+        _call_demo(pkg, portal_server, 1)
+        status, _, body = fetch(pkg, portal_server, "/sockets")
+        assert status == 200
+        assert b"live sockets:" in body
+        assert b"state=up" in body
+        assert b"Socket" in body
+
+    def test_fibers_shows_scheduler_stats(self, pkg, portal_server):
+        status, _, body = fetch(pkg, portal_server, "/fibers")
+        assert status == 200
+        for key in (b"workers:", b"idle:", b"queued_remote:", b"fibers_run:"):
+            assert key in body
+
+    def test_ids_shows_slab_occupancy(self, pkg, portal_server):
+        _call_demo(pkg, portal_server, 1)
+        status, _, body = fetch(pkg, portal_server, "/ids")
+        assert status == 200
+        assert b"call_ids: slots=" in body
+        assert b"sockets: live=" in body
+
+    def test_pprof_folded_profile(self, pkg, portal_server):
+        stop = threading.Event()
+        ch = connect(pkg, portal_server.port)
+
+        def burn():  # background load so the sampler sees stacks
+            while not stop.is_set():
+                ch.call_method("demo", "echo", b"load")
+
+        th = threading.Thread(target=burn)
+        th.start()
+        try:
+            status, _, body = fetch(pkg, portal_server, "/pprof/profile?seconds=0.3")
+        finally:
+            stop.set()
+            th.join(30)
+        assert status == 200
+        lines = [ln for ln in body.decode().splitlines() if ln.strip()]
+        assert lines, "no folded samples"
+        for line in lines[:5]:  # folded: 'frame;frame;... count'
+            stack, _, count = line.rpartition(" ")
+            assert stack and count.isdigit(), line
+
+    def test_pprof_contention_folded(self, pkg, portal_server):
+        status, _, _ = fetch(pkg, portal_server, "/pprof/contention")
+        assert status == 200  # may be empty without contention; format only
+
+
+class TestHeapProfile:
+    def test_heap_page_start_snapshot_stop(self, pkg, portal_server):
+        hotspots = _mod(pkg, "builtin.hotspots")
+        status, _, body = fetch(pkg, portal_server, "/hotspots/heap")
+        assert status == 200 and b"off" in body
+        try:
+            status, _, _ = fetch(pkg, portal_server, "/hotspots/heap?start=1")
+            assert status == 200
+            _call_demo(pkg, portal_server, 5, b"h" * 2048)
+            status, _, body = fetch(pkg, portal_server, "/hotspots/heap")
+            assert status == 200
+            assert b"tracked live bytes:" in body
+            assert b"by allocation site" in body
+            status, _, body = fetch(pkg, portal_server, "/pprof/heap")
+            assert status == 200  # folded: 'file:line;... bytes' lines
+            for line in body.decode().splitlines()[:3]:
+                _stack, _, weight = line.rpartition(" ")
+                assert weight.isdigit()
+        finally:
+            fetch(pkg, portal_server, "/hotspots/heap?stop=1")
+            assert not hotspots.heap_profiling_active()
+
+
+class TestVarsSeries:
+    def test_series_json_has_sampled_points(self, pkg, portal_server):
+        ch = connect(pkg, portal_server.port)
+        # traffic, and 2+ ticks of the 1 Hz sampler
+        deadline = time.monotonic() + 6
+        obj = {}
+        while time.monotonic() < deadline:
+            assert ch.call_method("demo", "echo", b"tick").ok()
+            status, _, body = fetch(pkg, portal_server, "/vars/series.json")
+            assert status == 200
+            obj = json.loads(body)
+            s = obj.get("socket_in_bytes_per_second")
+            if s and len(s["values"]) >= 2:
+                break
+            time.sleep(0.5)
+        s = obj.get("socket_in_bytes_per_second")
+        assert s and len(s["values"]) >= 2, obj.keys()
+        assert len(s["ages_s"]) == len(s["values"])
+        assert s["ages_s"][-1] <= s["ages_s"][0] + 1e-6 or len(s["ages_s"]) == 1
+
+
+class TestFlagVars:
+    def test_flags_mirror_into_vars(self, pkg, portal_server):
+        status, _, body = fetch(pkg, portal_server, "/vars?prefix=flag_")
+        assert status == 200
+        text = body.decode()
+        assert "flag_max_body_size : " in text
+        assert "flag_health_check_interval : " in text
+        assert "socket_in_bytes" not in text  # the prefix filter still applies
+        status, _, body = fetch(pkg, portal_server, "/vars.json?prefix=flag_")
+        assert status == 200
+        assert "flag_max_body_size" in json.loads(body)

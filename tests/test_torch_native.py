@@ -78,6 +78,11 @@ def no_port_thread_outlives_the_test():
     assert left == []
 
 
+def test_native_loaded(pkg):
+    # tests/test_iobuf.py's: the image bakes g++, so the native path is live
+    assert pkg.native.NATIVE_AVAILABLE
+
+
 def test_the_port_loads_its_own_build():
     assert port_native.NATIVE_AVAILABLE and port_native.BUILD_ERROR is None
     path = port_native.library_path()

@@ -741,6 +741,31 @@ class TestSessionAndThreadLocalData:
             assert srv.join(timeout=10)
         assert sorted(f.destroyed) == [1, 2]
 
+    def test_reserved_prebuilds_and_gateway_sees_the_same_data(self, pkg):
+        # tests/test_rpc.py's: the http -> rpc gateway runs the same
+        # accessor path when the connection is known; the reserve serves it
+        # without a create, and a sockless gateway call has no session
+        f = self._Factory()
+        srv = self._server(pkg, session_factory=f, reserved=2)
+        try:
+            assert f.created == 2
+
+            class _StubSock:
+                context = {}
+                on_failed = []
+                remote = None
+                state = 0  # CONNECTED in both packages' transport/sock.py
+
+            status, _, body = srv.invoke_for_http("d", "use", b"", sock=_StubSock())
+            assert status == 200
+            assert body.startswith(b"s")
+            assert f.created == 2  # served from the reserve
+            status, _, body = srv.invoke_for_http("d", "use", b"")
+            assert body == b"none"
+        finally:
+            srv.stop()
+            assert srv.join(timeout=10)
+
     def test_without_factories_accessors_return_none(self, pkg):
         srv = self._server(pkg)
         try:

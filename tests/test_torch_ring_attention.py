@@ -71,6 +71,21 @@ def test_ragged_block_and_full_attention():
     np.testing.assert_allclose(ra.full_attention(tq, tk, tv).numpy(), want, rtol=2e-5, atol=2e-5)
 
 
+def test_long_sequence_memory_shape():
+    """tests/test_ring_attention.py's: a sequence whose full (T, T) score
+    block would be large runs as 8 ring ranks of (T/8, T/8) blocks and
+    matches the JAX package's ring and the port's full attention within
+    the oracle's 5e-5."""
+    q, k, v = _qkv(4, b=1, t=512, h=2, d=8)
+    jstep, jplace = _jax_step(8)
+    want = np.asarray(jstep(jplace(q), jplace(k), jplace(v)))
+    step, place = ra.make_ring_attention_step(8, causal=True, device="cpu")
+    got = step(place(q), place(k), place(v))
+    np.testing.assert_allclose(got.numpy(), want, rtol=5e-5, atol=5e-5)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    np.testing.assert_allclose(ra.full_attention(tq, tk, tv).numpy(), want, rtol=5e-5, atol=5e-5)
+
+
 def test_bfloat16_stays_bfloat16():
     q, k, v = _qkv(2)
     jstep, jplace = _jax_step(4)

@@ -54,6 +54,7 @@ import incubator_brpc_tpu.rpc.channel as jax_channel
 import incubator_brpc_tpu.rpc.server as jax_server
 from incubator_brpc_tpu.protocol import tbus_std as jax_tbus
 from incubator_brpc_tpu.transport import native_plane as jax_np
+from incubator_brpc_tpu.transport.socket_map import global_socket_map as jax_socket_map
 from incubator_brpc_tpu.utils import flags as jax_flags
 import incubator_brpc_tpu_torch.bvar as port_bvar
 import incubator_brpc_tpu_torch.rpc as port_rpc
@@ -98,6 +99,9 @@ def no_port_thread_outlives_the_test():
         drain = getattr(srv, "_lame_duck_thread", None)
         if drain is not None:
             drain.join(timeout=60)
+    # no JAX client socket left redialing a stopped server's port, where a
+    # later test's server may listen (ROADMAP C11)
+    jax_socket_map().recycle_all()
     port_rpc.shutdown_host_plane()
     assert shutdown_watchers(timeout=60)
     shutdown_global_timer_thread()
@@ -975,3 +979,431 @@ def test_chip_smoke_phase_3g_on_the_cpu():
     assert f["native_plane"]["native_client_missing"] == ErrorCode.ERPCAUTH
     assert f["native_plane"]["native_reqs"] == 0
     assert f["link"]["right"] == 10 and f["link"]["linked"]
+
+
+# ---------------------------------------------------------------------------
+# tests/test_robustness.py's cases that no case above twins, on both
+# packages: the breakers page and the auto-limit gauge, the device link's
+# re-handshake backoff, deadline propagation and the native plane's shed,
+# the resume barrier's min-join and the checkpoint rings. The two
+# ``/quitquitquit`` cases of TestLameDuck run in tests/test_torch_http.py
+# (``test_quitquitquit_drives_the_lame_duck``). Where the JAX cases sleep
+# (A's handler burning 0.12 s of budget before its downstream hop), the
+# port's copy keeps the sleep: the budget is what it measures, and the
+# assertion is on the budgets the servers saw, not on a clock.
+# ---------------------------------------------------------------------------
+
+import importlib  # noqa: E402
+import subprocess  # noqa: E402
+
+
+def _mod(pkg, name):
+    return importlib.import_module(f"{pkg.rpc.__name__.rsplit('.', 1)[0]}.{name}")
+
+
+class TestObservability:
+    def test_circuit_breakers_page_renders(self, pkg, flags):
+        flags("fault_injection", True)
+        flags("circuit_breaker_short_window_size", 10)
+        flags("circuit_breaker_min_isolation_duration_ms", 5000)
+        fi = _mod(pkg, "rpc.fault_injector").FaultInjector(error_rate=1.0)
+        srv = server(pkg, {"e": {"m": lambda cntl, req: b"ok"}}, fault_injector=fi)
+        ch = connect(pkg, f"list://127.0.0.1:{srv.port}", "rr", max_retry=0, timeout_ms=2000)
+        try:
+            for _ in range(6):
+                ch.call_method("e", "m", b"x")
+            assert ch._lb.isolated_servers()
+            pages = _mod(pkg, "builtin.pages")
+
+            class Frame:
+                path = "/circuit_breakers"
+                query = {}
+
+            status, ctype, body = pages.handle(None, Frame())
+            text = body.decode()
+            assert status == 200
+            assert f"127.0.0.1:{srv.port}" in text
+            assert "[isolated]" in text
+
+            class JsonFrame:
+                path = "/circuit_breakers"
+                query = {"json": "1"}
+
+            status, ctype, body = pages.handle(None, JsonFrame())
+            assert status == 200 and ctype == "application/json"
+            assert b"isolated" in body
+            metrics = _mod(pkg, "builtin.prometheus").render_metrics("circuit_breaker")
+            assert "circuit_breaker_isolated_count 1" in metrics, metrics
+        finally:
+            ch._lb.stop()
+
+    def test_auto_limit_gauge_scrapeable(self, pkg, flags):
+        flags("auto_cl_initial_max_concurrency", 11)
+        render = _mod(pkg, "builtin.prometheus").render_metrics
+        srv = server(pkg, {"e": {"m": lambda cntl, req: b"ok"}}, max_concurrency="auto")
+        port = srv.port
+        assert f"server_{port}_max_concurrency 11" in render(f"server_{port}")
+        _OPEN.remove(srv)
+        srv.stop()
+        assert srv.join(5)
+        # gauges hidden at stop: the name is free for the next server
+        assert f"server_{port}_max_concurrency" not in render(f"server_{port}")
+
+
+class TestDeviceLinkBackoff:
+    def test_rehandshake_backs_off_exponentially(self, pkg, flags):
+        flags("device_link_backoff_initial_ms", 200)
+        flags("device_link_backoff_max_ms", 1000)
+        # a port with NOTHING listening: the bootstrap dial fails fast
+        probe = pysocket.socket()
+        probe.bind(("127.0.0.1", 0))
+        dead_port = probe.getsockname()[1]
+        probe.close()
+        dlm = _mod(pkg, "transport.device_link").DeviceLinkMap()
+        ep = _mod(pkg, "utils.endpoint").EndPoint(ip="127.0.0.1", port=dead_port)
+        with pytest.raises((OSError, ConnectionError)):
+            dlm.get_or_create(ep, timeout_ms=500)
+        # the SECOND attempt inside the backoff window fails without dialing
+        with pytest.raises(ConnectionError, match="backing off"):
+            dlm.get_or_create(ep, timeout_ms=500)
+        key = next(iter(dlm._backoff))
+        assert dlm._backoff[key][0] == 1
+        # after the window, a real (failing) attempt doubles the backoff
+        assert wait_until(lambda: time.monotonic() >= dlm._backoff[key][1], timeout=2.0)
+        with pytest.raises((OSError, ConnectionError)):
+            dlm.get_or_create(ep, timeout_ms=500)
+        assert dlm._backoff[key][0] == 2
+
+
+class _CaptureSock:
+    """Duck-typed connection for driving Server.process_request directly:
+    captures response bytes in wire order."""
+
+    def __init__(self):
+        self.remote = None
+        self.context = {}
+        self.written = []
+
+    def write(self, data, **kw):
+        self.written.append(data.to_bytes() if hasattr(data, "to_bytes") else bytes(data))
+        return 0
+
+
+class TestDeadlinePropagation:
+    def test_expired_at_arrival_is_shed_without_dispatch(self, pkg):
+        hits = []
+        srv = server(pkg, {"S": {"m": lambda c, r: (hits.append(1), b"ok")[1]}})
+        t = pkg.tbus
+        sock = _CaptureSock()
+        frame = t.ParsedFrame(meta=t.Meta(service="S", method="m", timeout_ms=50),
+                              payload=b"x", correlation_id=7)
+        frame.arrival_ts = time.monotonic() - 0.2  # 200 ms in queue
+        shed = pkg.server.deadline_shed_count
+        before = shed.get_value()
+        srv.process_request(sock, frame)
+        assert not hits, "a shed request must never invoke the method"
+        resp, _ = t.try_parse_frame(sock.written[0])
+        assert resp.error_code == ErrorCode.EDEADLINE
+        assert resp.meta.error_text == "Deadline expired before dispatch"
+        assert shed.get_value() == before + 1
+
+    def test_unexpired_budget_dispatches_and_sets_deadline_left(self, pkg):
+        seen = {}
+
+        def handler(cntl, req):
+            seen["left"] = cntl.deadline_left_ms()
+            seen["timeout"] = cntl.timeout_ms
+            return b"ok"
+
+        srv = server(pkg, {"S": {"m": handler}})
+        t = pkg.tbus
+        frame = t.ParsedFrame(meta=t.Meta(service="S", method="m", timeout_ms=5000),
+                              payload=b"x", correlation_id=8)
+        frame.arrival_ts = time.monotonic()
+        srv.process_request(_CaptureSock(), frame)
+        assert seen["timeout"] == 5000
+        assert 0 < seen["left"] <= 5000
+
+    def test_budget_decrements_across_hops(self, pkg):
+        """edge -> A -> B: B sees strictly less budget than A stamped,
+        shrunk by at least A's handler time (the Controller decrement)."""
+        seen = {}
+        srv_b = server(pkg, {"B": {"m": lambda c, r: (
+            seen.__setitem__("b_budget", c.request_meta.timeout_ms), b"ok")[1]}})
+
+        def a_handler(cntl, req):
+            seen["a_budget"] = cntl.request_meta.timeout_ms
+            time.sleep(0.12)  # burn budget before the downstream hop
+            # no explicit timeout: the downstream call inherits what is
+            # LEFT of the caller's propagated budget
+            c2 = connect(pkg, srv_b.port).call_method("B", "m", b"y")
+            assert c2.ok(), c2.error_text
+            return b"ok"
+
+        srv_a = server(pkg, {"A": {"m": a_handler}})
+        c = connect(pkg, srv_a.port, timeout_ms=2000).call_method("A", "m", b"x")
+        assert c.ok(), c.error_text
+        assert 0 < seen["a_budget"] <= 2000
+        assert seen["b_budget"] < seen["a_budget"] - 100, seen
+
+    def test_spent_budget_fails_fast_without_wire_traffic(self, pkg):
+        hits = []
+        srv = server(pkg, {"S": {"m": lambda c, r: (hits.append(1), b"ok")[1]}})
+        dl = _mod(pkg, "rpc.deadline")
+        ch = connect(pkg, srv.port)
+        prev = dl.push_deadline(time.monotonic() - 0.01)
+        try:
+            c = ch.call_method("S", "m", b"x")
+        finally:
+            dl.pop_deadline(prev)
+        assert c.error_code == ErrorCode.EDEADLINE
+        assert not hits, "an expired budget must not reach the wire"
+
+
+def _build_slow_native_lib(tmp_path):
+    """A tb_native_fn that sleeps 80 ms: the burst delay that makes the
+    SECOND frame of a batch expire mid-queue on the C++ plane."""
+    src = tmp_path / "slow.c"
+    src.write_text(
+        "#include <stddef.h>\n#include <stdlib.h>\n#include <unistd.h>\n"
+        "int tb_slow80(void* ud, const char* req, size_t n, char** resp,\n"
+        "              size_t* resp_len) {\n"
+        "    usleep(80000);\n"
+        "    *resp = (char*)malloc(1);\n"
+        "    (*resp)[0] = 's';\n"
+        "    *resp_len = 1;\n"
+        "    return 0;\n"
+        "}\n"
+    )
+    so = tmp_path / "slow.so"
+    try:
+        subprocess.run(["cc", "-shared", "-fPIC", "-O1", "-o", str(so), str(src)],
+                       check=True, capture_output=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        pytest.skip("no C toolchain for the slow native method")
+    return so
+
+
+def _read_prpc_frames(sock, n):
+    import struct
+
+    out, buf = [], b""
+    for _ in range(n):
+        while len(buf) < 12:
+            buf += sock.recv(4096)
+        body, _meta = struct.unpack_from(">II", buf, 4)
+        total = 12 + body
+        while len(buf) < total:
+            buf += sock.recv(4096)
+        out.append(buf[:total])
+        buf = buf[total:]
+    return out
+
+
+class TestNativeDeadlineShed:
+    """The C++ cutter sheds expired-mid-queue work natively: EDEADLINE
+    byte-identical to the Python route, counted and drained."""
+
+    @pytest.fixture
+    def native_shed(self, pkg, tmp_path):
+        so = _build_slow_native_lib(tmp_path)
+        slow = pkg.np.native_method_lib(str(so), "tb_slow80", lambda c, r: b"s")
+        srv = server(pkg, {"svc": {"slow": slow, "echo": pkg.np.native_echo}}, native_plane=True)
+        assert "svc.slow" in srv._native_plane.native_method_names()
+        return srv
+
+    def test_native_shed_byte_identical_to_python_plane(self, pkg, native_shed):
+        baidu = _mod(pkg, "protocol.baidu_std")
+        t = pkg.tbus
+        srv = native_shed
+        shed_count = pkg.server.deadline_shed_count
+        before = shed_count.get_value()
+        # one burst: [slow (80 ms, no deadline), echo (30 ms budget)]: the
+        # second frame expires while the first holds the loop
+        f1 = baidu.pack_request(t.Meta(service="svc", method="slow"), b"a", correlation_id=1)
+        f2 = baidu.pack_request(t.Meta(service="svc", method="echo", timeout_ms=30), b"b",
+                                correlation_id=2)
+        with pysocket.create_connection(("127.0.0.1", srv.port), timeout=10) as s:
+            s.sendall(f1 + f2)
+            r1, r2 = _read_prpc_frames(s, 2)
+        ok1, _ = baidu.try_parse_frame(r1)
+        shed, _ = baidu.try_parse_frame(r2)
+        assert ok1.error_code == 0
+        assert shed.error_code == ErrorCode.EDEADLINE
+        assert shed.meta.error_text == "Deadline expired before dispatch"
+        # the Python plane's shed of the SAME request: byte-identical
+        py_srv = server(pkg, {"svc": {"echo": lambda c, r: r}})
+        cap = _CaptureSock()
+        frame = t.ParsedFrame(meta=t.Meta(service="svc", method="echo", timeout_ms=30),
+                              payload=b"b", correlation_id=2)
+        frame.wire_protocol = "baidu_std"
+        frame.arrival_ts = time.monotonic() - 0.08
+        py_srv.process_request(cap, frame)
+        assert cap.written[0] == r2, "native and Python sheds differ"
+        # counted: the per-port C++ counter at once; the global count once
+        # the telemetry drain folds it in
+        assert srv._native_plane.stats()["deadline_sheds"] == 1
+        srv._native_plane.drain_telemetry()
+        assert shed_count.get_value() >= before + 1
+
+    def test_fresh_deadline_rides_the_fast_path(self, pkg, native_shed):
+        srv = native_shed
+        ch = connect(pkg, srv.port, native_plane=True, protocol="baidu_std", timeout_ms=2000)
+        base = srv._native_plane.stats()
+        c = ch.call_method("svc", "echo", b"hello")
+        assert c.ok() and c.response_payload == b"hello"
+        after = srv._native_plane.stats()
+        assert after["native_reqs"] == base["native_reqs"] + 1
+        assert after["cb_frames"] == base["cb_frames"]
+
+
+def test_native_and_python_deadline_sheds_are_the_same_bytes_in_both_packages():
+    frames = []
+    for pkg in PKGS.values():
+        t = pkg.tbus
+        srv = server(pkg, {"svc": {"echo": lambda c, r: r}})
+        for wire in ("tbus_std", "baidu_std"):
+            cap = _CaptureSock()
+            frame = t.ParsedFrame(meta=t.Meta(service="svc", method="echo", timeout_ms=30),
+                                  payload=b"b", correlation_id=2)
+            frame.wire_protocol = wire
+            frame.arrival_ts = time.monotonic() - 0.08
+            srv.process_request(cap, frame)
+            frames.append((pkg.name, wire, cap.written[0]))
+    by_pkg = {}
+    for name, wire, data in frames:
+        by_pkg.setdefault(name, []).append(data)
+    assert by_pkg["torch"] == by_pkg["jax"]
+
+
+# -- the resume barrier and the checkpoint rings (parallel/mc_dispatch.py) ----
+
+from incubator_brpc_tpu.parallel import mc_dispatch as jax_mcd  # noqa: E402
+from incubator_brpc_tpu_torch.parallel import mc_dispatch as port_mcd  # noqa: E402
+
+
+class _Arr:
+    """An array whose completion the JAX ring probes (``is_ready``)."""
+
+    def __init__(self, ready):
+        self._r = ready
+
+    def is_ready(self):
+        return self._r
+
+
+class _Event:
+    """A recorded event whose completion the port's ring probes (``query``)."""
+
+    def __init__(self, ready):
+        self._r = ready
+
+    def query(self):
+        return self._r
+
+
+@pytest.fixture(params=["jax", "torch"])
+def rings(request, monkeypatch):
+    """The package's mc_dispatch, and ``put(ring, step, x, ready, depth)``:
+    a checkpoint whose step the device has (or has not) computed. The JAX
+    ring asks the arrays; the port's ring records an event on the row's
+    device and asks it."""
+    if request.param == "jax":
+        def put(ring, step, x, ready, depth):
+            ring.put(step, x if ready else _Arr(False), _Arr(True), depth=depth)
+
+        return types.SimpleNamespace(mcd=jax_mcd, put=put)
+
+    def put(ring, step, x, ready, depth):
+        monkeypatch.setattr(port_mcd, "_record_event", lambda device: _Event(ready))
+        ring.put(step, x, types.SimpleNamespace(device="cpu"), depth=depth)
+
+    return types.SimpleNamespace(mcd=port_mcd, put=put)
+
+
+class TestResumePointJoin:
+    @staticmethod
+    def _info(wm, steps):
+        return {"watermark": wm, "steps": list(steps)}
+
+    def test_min_join_over_skewed_watermarks(self, rings):
+        wms = {0: self._info(4, [2, 4]), 1: self._info(6, [2, 4, 6]), 2: self._info(2, [2])}
+        assert rings.mcd.resume_point(wms) == 2
+
+    def test_zero_checkpoint_falls_back_to_full_restart(self, rings):
+        rp = rings.mcd.resume_point
+        assert rp({0: self._info(6, [2, 4, 6]), 1: self._info(0, [])}) == 0
+        assert rp({0: self._info(6, [2, 4, 6]), 1: None}) == 0
+        assert rp({}) == 0
+
+    def test_evicted_min_falls_back_to_deepest_common(self, rings):
+        rp = rings.mcd.resume_point
+        assert rp({0: self._info(4, [2, 4]), 1: self._info(6, [2, 6])}) == 2
+        assert rp({0: self._info(4, [4]), 1: self._info(6, [6])}) == 0
+
+
+class TestCheckpointRings:
+    def test_census_release_and_gauge(self, rings):
+        mcd = rings.mcd
+        sid = "t-ring-census"
+        ring = mcd._checkpoint_ring(sid, 1, (10, 11, 12), entry_bytes=100)
+        for step in (2, 4, 6):
+            rings.put(ring, step, object(), True, 2)
+        assert ring.steps() == [4, 6]  # depth 2: step 2 evicted
+        wm = mcd.checkpoint_watermarks(sid)
+        assert wm[1]["watermark"] == 6 and wm[1]["steps"] == [4, 6]
+        assert mcd.checkpoint_bytes_retained() >= 200
+        assert mcd.release_checkpoints(sid)
+        assert not mcd.checkpoint_watermarks(sid)
+        assert not mcd.release_checkpoints(sid)  # idempotent
+
+    def test_unready_entries_excluded_from_census(self, rings):
+        mcd = rings.mcd
+        sid = "t-ring-ready"
+        ring = mcd._checkpoint_ring(sid, 0, (1, 2), entry_bytes=10)
+        rings.put(ring, 2, object(), True, 4)
+        rings.put(ring, 4, object(), False, 4)
+        # a dispatched-but-never-completed step is not a resume point
+        assert ring.steps() == [2]
+        assert mcd.checkpoint_watermarks(sid)[0]["watermark"] == 2
+        mcd.release_checkpoints(sid)
+
+    def test_resumed_replay_replaces_stale_same_step_entry(self, rings):
+        mcd = rings.mcd
+        sid = "t-ring-replace"
+        ring = mcd._checkpoint_ring(sid, 0, (1, 2), entry_bytes=10)
+        rings.put(ring, 2, object(), True, 4)
+        rings.put(ring, 4, object(), False, 4)  # wedged, never ready
+        assert ring.watermark() == 2
+        fresh = object()
+        rings.put(ring, 4, fresh, True, 4)  # the replayed step 4
+        assert ring.steps() == [2, 4]
+        assert ring.get(4)[0] is fresh  # not the stale shadow
+        assert ring.watermark() == 4
+        mcd.release_checkpoints(sid)
+
+    def test_cap_eviction_spares_active_sessions(self, rings):
+        mcd = rings.mcd
+        sid = "t-ring-active"
+        st = mcd._register_session(sid, (1, 2), deadline=0.0)
+        churn = [f"t-ring-churn-{i}" for i in range(mcd._MAX_CHECKPOINT_SESSIONS + 4)]
+        try:
+            mcd._checkpoint_ring(sid, 0, (1, 2), entry_bytes=1)
+            for c in churn:
+                mcd._checkpoint_ring(c, 0, (1,), entry_bytes=1)
+            assert mcd._checkpoint_lookup(sid, 0) is not None, "churn evicted a LIVE session's ring"
+        finally:
+            mcd._unregister_session(st)
+            mcd.release_checkpoints(sid)
+            for c in churn:
+                mcd.release_checkpoints(c)
+
+    def test_session_cap_evicts_oldest(self, rings):
+        mcd = rings.mcd
+        sids = [f"t-ring-cap-{i}" for i in range(mcd._MAX_CHECKPOINT_SESSIONS + 2)]
+        for sid in sids:
+            mcd._checkpoint_ring(sid, 0, (1,), entry_bytes=1)
+        assert not mcd.checkpoint_watermarks(sids[0])  # evicted
+        assert mcd._checkpoint_lookup(sids[-1], 0) is not None
+        for sid in sids:
+            mcd.release_checkpoints(sid)

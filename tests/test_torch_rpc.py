@@ -31,6 +31,7 @@ import incubator_brpc_tpu.rpc as jax_rpc
 import incubator_brpc_tpu.rpc.server as jax_server_mod
 from incubator_brpc_tpu.models.tensor_echo import TensorEchoService as JaxService
 from incubator_brpc_tpu.transport.device import DeviceEndpoint as JaxEndpoint
+from incubator_brpc_tpu.transport.socket_map import global_socket_map as jax_socket_map
 from incubator_brpc_tpu.utils import flags as jax_flags
 from incubator_brpc_tpu.utils.status import ErrorCode as JaxErrorCode
 import incubator_brpc_tpu_torch.rpc as port_rpc
@@ -70,6 +71,9 @@ def no_port_thread_outlives_the_test():
         else:
             obj.stop()
             assert obj.join(timeout=10)
+    # no JAX client socket left redialing a stopped server's port, where a
+    # later test's server may listen (ROADMAP C11)
+    jax_socket_map().recycle_all()
     port_rpc.shutdown_host_plane()
     assert shutdown_watchers(timeout=60)
     shutdown_global_timer_thread()
@@ -538,3 +542,240 @@ def test_device_handler_failure_reaches_the_client_as_its_code():
     assert c.error_code == ErrorCode.ENOMETHOD
     assert c.error_text == f"device call failed ({int(ErrorCode.ENOMETHOD)})"
     assert int(JaxErrorCode.ENOMETHOD) == int(ErrorCode.ENOMETHOD)
+
+
+# -- tests/test_rpc.py's cases that no case above twins, on both packages ------
+# Where the JAX cases hold a call in flight by sleeping (the cancel from
+# another thread after 0.15 s, the server stopped 0.4 s into a call), these
+# hold it by order: the handler sets an Event when it starts and parks on a
+# gate that is opened only after the check. The silent server's deadline is
+# held the same way: the sync call must return ERPCTIMEDOUT while the
+# handler still holds its response, in a thread joined with a timeout.
+
+from incubator_brpc_tpu.builtin import rpcz as jax_rpcz  # noqa: E402
+from incubator_brpc_tpu_torch.builtin import rpcz as port_rpcz  # noqa: E402
+
+_SPANS = {"jax": jax_rpcz.span_store, "torch": port_rpcz.span_store}
+
+
+def _held_server(pkg, method="slow"):
+    """A server whose ``method`` sets ``started`` and parks on ``gate``
+    (``fast`` echoes at once). Returns (server, started, gate)."""
+    started, gate = threading.Event(), threading.Event()
+
+    def held(cntl, req):
+        started.set()
+        assert gate.wait(30)
+        return req
+
+    srv = pkg.Server()
+    srv.add_service("svc", {method: held, "fast": lambda c, r: r})
+    assert srv.start(0)
+    _OPEN.append(srv)
+    return srv, started, gate
+
+
+class TestAsyncHandler:
+    def test_deferred_response(self, pkg):
+        srv = pkg.Server()
+
+        def deferred(cntl, req):
+            cntl.set_async()
+
+            def later():
+                time.sleep(0.05)
+                cntl.send_response(b"deferred:" + req)
+
+            threading.Thread(target=later).start()
+            return None
+
+        srv.add_service("Late", {"reply": deferred})
+        assert srv.start(0)
+        _OPEN.append(srv)
+        cntl = connect(pkg, srv.port).call("Late", "reply", b"x")
+        assert cntl.ok(), cntl.error_text
+        assert cntl.response_payload == b"deferred:x"
+
+
+class TestRpcz:
+    def test_spans_collected(self, pkg, echo_server):
+        span_store = _SPANS[pkg.name]
+        span_store.clear()
+        old = pkg.flags.get_flag("enable_rpcz")
+        pkg.flags.set_flag_unchecked("enable_rpcz", True)
+        try:
+            cntl = connect(pkg, echo_server.port).call("Echo", "echo", b"traced")
+            assert cntl.ok()
+            deadline = time.monotonic() + 2
+            while len(span_store) < 2 and time.monotonic() < deadline:
+                time.sleep(0.02)
+            spans = span_store.recent()
+            assert {s.span_type for s in spans} == {"client", "server"}
+            assert len({s.trace_id for s in spans}) == 1  # one trace across both sides
+            client = next(s for s in spans if s.span_type == "client")
+            assert client.latency_us > 0
+            assert client.method == "echo"
+        finally:
+            pkg.flags.set_flag_unchecked("enable_rpcz", old)
+            span_store.clear()
+
+
+class TestSyncDeadlineWithoutTimer:
+    def test_silent_server_times_out(self, pkg):
+        held = []
+
+        def black_hole(cntl, req):
+            cntl.set_async()  # the handler keeps the response
+            held.append(cntl)
+            return None
+
+        srv = pkg.Server()
+        srv.add_service("t", {"hole": black_hole})
+        assert srv.start(0)
+        _OPEN.append(srv)
+        ch = connect(pkg, srv.port)
+        out = []
+        t = threading.Thread(target=lambda: out.append(
+            ch.call_method("t", "hole", b"x", cntl=pkg.Controller(timeout_ms=300))))
+        t.start()
+        t.join(timeout=10)
+        assert not t.is_alive(), "the sync call outlived its deadline"
+        assert out[0].error_code == ErrorCode.ERPCTIMEDOUT
+        assert len(held) == 1  # the handler still holds the response
+        held[0].send_response(b"late")  # a late answer to a dead id drops
+        c = ch.call_method("t", "hole", b"y", cntl=pkg.Controller(timeout_ms=100))
+        assert c.error_code == ErrorCode.ERPCTIMEDOUT
+        for cntl in held[1:]:
+            cntl.send_response(b"late")  # nothing in flight at the server's stop
+
+
+class TestStartCancel:
+    def test_sync_call_canceled_from_another_thread(self, pkg):
+        srv, started, gate = _held_server(pkg)
+        ch = connect(pkg, srv.port)
+        cntl = pkg.Controller(timeout_ms=30000, max_retry=0)
+        canceller = threading.Thread(target=lambda: (started.wait(10), cntl.start_cancel()))
+        canceller.start()
+        try:
+            out = ch.call_method("svc", "slow", b"x", cntl=cntl)
+            # the call returned while the handler was still parked
+            assert not gate.is_set()
+            assert out.failed()
+            assert out.error_code == ErrorCode.ECANCELED
+        finally:
+            gate.set()
+            canceller.join(10)
+        # the channel still works; the late response to the dead id drops
+        ok = ch.call_method("svc", "fast", b"still-alive",
+                            cntl=pkg.Controller(timeout_ms=15000, max_retry=0))
+        assert ok.ok() and ok.response_payload == b"still-alive"
+
+    def test_async_done_runs_with_ecanceled(self, pkg):
+        srv, _started, gate = _held_server(pkg)
+        ch = connect(pkg, srv.port)
+        done = threading.Event()
+        seen = []
+
+        def on_done(c):
+            seen.append(c.error_code)
+            done.set()
+
+        try:
+            cntl = pkg.Controller(timeout_ms=30000, max_retry=0)
+            ch.call_method("svc", "slow", b"x", cntl=cntl, done=on_done)
+            cntl.start_cancel()
+            assert done.wait(5)
+            assert seen == [ErrorCode.ECANCELED]
+        finally:
+            gate.set()
+
+    def test_cancel_after_completion_is_noop(self, pkg):
+        srv, _started, gate = _held_server(pkg)
+        gate.set()
+        cntl = connect(pkg, srv.port).call_method("svc", "fast", b"y")
+        assert cntl.ok()
+        cntl.start_cancel()  # settled: dead id, silently dropped
+        assert cntl.ok() and cntl.response_payload == b"y"
+
+    def test_server_side_cancel_refused(self, pkg):
+        # a proxy's handler must not cancel an unrelated outgoing call
+        # through the peer's wire id
+        saw = []
+
+        def handler(cntl, req):
+            cntl.start_cancel()  # a guarded no-op
+            saw.append(cntl.call_id)
+            return req
+
+        srv = pkg.Server()
+        srv.add_service("svc", {"m": handler})
+        assert srv.start(0)
+        _OPEN.append(srv)
+        out = connect(pkg, srv.port).call_method("svc", "m", b"p")
+        assert out.ok() and out.response_payload == b"p"
+        assert saw
+
+
+class TestInflightFailFast:
+    def test_inflight_call_fails_when_connection_dies(self, pkg):
+        """A call already on the wire fails when its connection dies, not
+        at its deadline. The reference's copy sleeps 0.4 s for the request
+        to be in flight; this one stops the server after the handler has
+        started, and the call must fail while the handler is still parked."""
+        srv, started, gate = _held_server(pkg, method="echo")
+        _OPEN.remove(srv)
+        ch = connect(pkg, srv.port, timeout_ms=30000, max_retry=0)
+        done = threading.Event()
+        out = {}
+
+        def on_done(cntl):
+            out["code"] = cntl.error_code
+            out["gate_open"] = gate.is_set()
+            done.set()
+
+        ch.call("svc", "echo", b"doomed", done=on_done)
+        try:
+            assert started.wait(10), "the request never reached the handler"
+            srv.stop()  # kills every connection under the client
+            assert done.wait(10), "call did not fail after connection death"
+            assert out == {"code": ErrorCode.EFAILEDSOCKET, "gate_open": False}
+        finally:
+            gate.set()
+            srv.join(timeout=15)
+
+
+def test_concurrent_callers_on_a_stale_mapped_socket(pkg):
+    """Ephemeral-port reuse resurrects a FAILED socket from the client's
+    socket map; three concurrent callers must converge on ONE inline
+    reconnect and all succeed."""
+    srv_a = make_echo_server(pkg)
+    port = srv_a.port
+    assert connect(pkg, port).call("Echo", "echo", b"warm").ok()
+    _OPEN.remove(srv_a)
+    srv_a.stop()
+    srv_a.join(timeout=5)
+    srv_b = pkg.Server()
+
+    def slow_echo(cntl, req):
+        time.sleep(0.2)
+        return req
+
+    srv_b.add_service("Echo", {"echo": slow_echo})
+    if not srv_b.start(port):
+        pytest.skip("port could not be rebound")
+    _OPEN.append(srv_b)
+    ch = connect(pkg, port, timeout_ms=5000)
+    codes = []
+    lock = threading.Lock()
+
+    def call():
+        c = ch.call("Echo", "echo", b"x", cntl=pkg.Controller(timeout_ms=5000))
+        with lock:
+            codes.append(c.error_code)
+
+    threads = [threading.Thread(target=call) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert codes.count(0) == 3, codes
